@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of probpose-tpu's top-down serving path.
+
+The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
+(the reference it is tested against) but imports only torch and numpy:
+
+    ops/preprocess.py     crop_resize ("bilinear_matmul"), keypoint maps
+    models/vit.py         ViTBackbone; attention goes through kernel K1
+    models/head.py        ProbMapHead; sparsemax goes through kernel K2
+    models/model.py       ModelConfig, ProbPoseModel, build_model
+    ops/heatmap.py        expected-value decode (plain tensor code)
+    codec.py              ProbMap.decode, Codec.decode
+    inference.py          TopDownPredictor
+    compat/from_jax.py    load the JAX package's weights into the port
+    ops/kernels/          hand-written Hopper kernels, their plain versions,
+                          and the nvcc builder for csrc/*.cu
+
+Importing the package builds nothing: kernels are compiled at their first
+launch on a CUDA tensor.
+"""
+
+__all__: list[str] = []

@@ -1,0 +1,127 @@
+"""Carry the JAX package's weights into the port.
+
+`load_jax_variables(model, params, batch_stats)` takes the JAX model's
+`variables["params"]` and `variables["batch_stats"]` as nested dicts of
+numpy arrays (no jax needed here) and loads them into a `ProbPoseModel`.
+The layout conversions are those of the JAX package's
+compat/torch_export.py:
+  * Conv kernel (kh, kw, I, O)          -> Conv2d weight (O, I, kh, kw)
+  * ConvTranspose kernel (kh, kw, I, O) -> ConvTranspose2d weight
+                                           (I, O, kh, kw), spatially flipped
+  * Dense kernel (I, O)                 -> Linear weight (O, I)
+  * BN scale / bias + mean / var        -> BatchNorm2d weight / bias /
+                                           running_mean / running_var
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax", "load_jax_variables"]
+
+Tree = Mapping[str, Any]
+
+
+def _conv(sd: dict, prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _deconv(sd: dict, prefix: str, p: Tree) -> None:
+    w = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)
+    sd[f"{prefix}.weight"] = w[:, :, ::-1, ::-1]
+
+
+def _dense(sd: dict, prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _norm(sd: dict, prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _bn(sd: dict, prefix: str, p: Tree, stats: Tree) -> None:
+    _norm(sd, prefix, p)
+    sd[f"{prefix}.running_mean"] = np.asarray(stats["mean"])
+    sd[f"{prefix}.running_var"] = np.asarray(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _count(tree: Tree, stem: str, not_stem: str | None = None) -> int:
+    """Number of `stem{i}` keys, leaving out those starting `not_stem`."""
+    return sum(
+        1 for k in tree
+        if k.startswith(stem) and not (not_stem and k.startswith(not_stem))
+    )
+
+
+def _backbone(sd: dict, p: Tree) -> None:
+    q = "backbone."
+    _conv(sd, q + "patch_embed", p["patch_embed"])
+    sd[q + "pos_embed"] = np.asarray(p["pos_embed"])
+    if "prefix_tokens" in p:
+        sd[q + "prefix_tokens"] = np.asarray(p["prefix_tokens"])
+    for i in range(_count(p, "block", "blocks")):
+        blk, b = p[f"block{i}"], f"{q}blocks.{i}."
+        _norm(sd, b + "norm1", blk["norm1"])
+        _dense(sd, b + "attn.qkv", blk["attn"]["qkv"])
+        _dense(sd, b + "attn.proj", blk["attn"]["proj"])
+        _norm(sd, b + "norm2", blk["norm2"])
+        _dense(sd, b + "mlp.fc1", blk["mlp"]["fc1"])
+        _dense(sd, b + "mlp.fc2", blk["mlp"]["fc2"])
+    _norm(sd, q + "norm", p["norm"])
+    for j in range(_count(p, "adapter", "adapters")):
+        _dense(sd, f"{q}adapters.{j}", p[f"adapter{j}"])
+
+
+def _head(sd: dict, p: Tree, s: Tree) -> None:
+    q = "head."
+    for i in range(_count(p, "deconv", "deconv_bn")):
+        _deconv(sd, f"{q}deconvs.{i}", p[f"deconv{i}"])
+        _bn(sd, f"{q}deconv_bns.{i}", p[f"deconv_bn{i}"], s[f"deconv_bn{i}"])
+    for i in range(_count(p, "conv", "conv_bn")):
+        _conv(sd, f"{q}convs.{i}", p[f"conv{i}"])
+        _bn(sd, f"{q}conv_bns.{i}", p[f"conv_bn{i}"], s[f"conv_bn{i}"])
+    if "final" in p:
+        _conv(sd, q + "final", p["final"])
+    for name in ("probability", "visibility", "oks", "error"):
+        bp, bs, b = p[name], s[name], f"{q}branches.{name}."
+        for i in range(_count(bp, "conv")):
+            _conv(sd, f"{b}convs.{i}", bp[f"conv{i}"])
+            _bn(sd, f"{b}bns.{i}", bp[f"bn{i}"], bs[f"bn{i}"])
+        _conv(sd, b + "final", bp["final"])
+
+
+def state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, np.ndarray]:
+    """The port's state dict, as numpy arrays, from a ProbPoseModel's JAX
+    params and batch_stats ({"backbone": ..., "head": ...} each)."""
+    if "blocks" in params["backbone"]:
+        raise NotImplementedError(
+            "stacked pipeline-parallel trunk params are not ported (ROADMAP "
+            "item 13); unstack them with the JAX package's "
+            "compat.unstack_vit_blocks first"
+        )
+    sd: dict[str, np.ndarray] = {}
+    _backbone(sd, params["backbone"])
+    _head(sd, params["head"], batch_stats["head"])
+    # np.array, not np.ascontiguousarray, which turns 0-d arrays into (1,).
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def load_jax_variables(model: torch.nn.Module, params: Tree, batch_stats: Tree) -> None:
+    """Load JAX `variables["params"]` / `["batch_stats"]` into the port's
+    `ProbPoseModel` in place (strict: every tensor must be matched)."""
+    sd = state_dict_from_jax(params, batch_stats)
+    ref = model.state_dict()
+    tensors = {}
+    for k, v in sd.items():
+        if k in ref and tuple(ref[k].shape) != v.shape:
+            raise ValueError(f"{k}: JAX shape {v.shape} != port shape {tuple(ref[k].shape)}")
+        tensors[k] = torch.from_numpy(v)
+    model.load_state_dict(tensors, strict=True)

@@ -1,0 +1,395 @@
+// Kernel K1 forward: multi-head attention read straight from the packed qkv.
+//
+// Replaces the TPU kernel `_packed_fwd_kernel` (probpose_pytorch_tpu/ops/
+// pallas/attention_kernel.py, called from `_packed_fwd` / `packed_attention`).
+//
+// What it computes, per (batch b, head h):
+//   ctx[b, :, h*d:(h+1)*d] = round_T(softmax_f32(q k^T * scale)) v
+// where q, k and v are column slices of the (B, N, 3C) projection in the
+// qkv-major order `Dense(3C)` + `reshape(B, N, 3, H, d)` gives: q at column
+// h*d, k at C + h*d, v at 2C + h*d. Scores and softmax are f32; the scale is
+// applied after the q.k product and P is rounded to the input type before
+// P.V, as the TPU kernel does. The context is written h-major into (B, N, C):
+// no (B, H, N, N) matrix and no transpose ever reaches device memory.
+//
+// What bounds it on an H100: at ViT-S serving shapes (N = 192, d = 64) the
+// work is 2 * 2 * N * N * d = 9.4 MFLOP per (b, h) against 3 * N * d * 2 bytes
+// read and N * d * 2 written (bf16): ~100 FLOP per byte, under the card's
+// ~295 FLOP/byte bf16 tensor-core ridge, so with the products on the tensor
+// cores the kernel is bound by moving qkv in and the context out; on the CUDA
+// cores it is bound by its own shared-memory loads and FMAs.
+//
+// Two paths, one contract:
+//  * bf16, d in {32, 64, 128}, N <= 256 (the ViT trunks): tensor cores via
+//    WMMA (mma.sync 16x16x16 bf16 -> f32). One block of 4 warps per (64
+//    query rows, head, batch) stages K_h, V_h and its Q rows in shared
+//    memory with 16-byte copies (keys zero-padded to a multiple of 16).
+//    Each warp owns 16 query rows: S = Q K^T lands in shared memory as f32,
+//    the row softmax runs in f32 registers, P is rounded to bf16 and written
+//    over its own row of S, and O = P V accumulates in f32 fragments. At
+//    N = 192, d = 64 a block uses 112 KB, so two blocks share an SM.
+//  * everything else (f32 inputs, other d or N): CUDA cores. One block of 8
+//    warps per (64 query rows, head, batch) stages K_h and V_h; each warp
+//    takes one query row at a time, lanes splitting the keys for q.k and the
+//    softmax and the d columns for P.V. K rows are padded by one 32-bit word
+//    so the lanes' strided reads hit distinct banks. Its f32 sums run in the
+//    same order as cuBLAS's and PyTorch's softmax, which the f32 checks show.
+// Either way the shared memory exceeds the 48 KB static limit, hence the
+// opt-in attribute. Later versions should use wgmma and keep K/V resident
+// across query tiles.
+//
+// Plain-C interface, loaded with ctypes (ops/kernels/attention.py). Every
+// entry point returns a cudaError_t as int (0 = success).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+namespace {
+
+namespace wmma = nvcuda::wmma;
+
+// ------------------------------------------------------------------ common
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------- tensor-core path (bf16)
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaRows = kMmaWarps * 16;  // query rows per block
+constexpr int kMaxKeyChunks = 8;          // keys per lane in the softmax
+constexpr int kMmaMaxN = 32 * kMaxKeyChunks;
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// f32 row stride of a warp's score tile, which later holds its (16, d)
+// output tile too.
+__host__ __device__ constexpr int score_stride(int np, int d) {
+  return (np > d ? np : d) + 4;
+}
+
+// Shared memory of the tensor-core path: K, V (np rows) and Q (64 rows) in
+// bf16 with row stride d + 8; per warp 16 score rows.
+size_t mma_smem_bytes(int N, int d) {
+  const int np = round16(N);
+  return static_cast<size_t>(2 * np + kMmaRows) * (d + 8) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(kMmaWarps) * 16 * score_stride(np, d) * sizeof(float);
+}
+
+bool mma_path(int N, int d, int dtype) {
+  return dtype == 1 && (d == 32 || d == 64 || d == 128) && N <= kMmaMaxN;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    packed_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                    __nv_bfloat16* __restrict__ out, int N,
+                                    int C, float scale) {
+  constexpr int ks = D + 8;  // bf16 row stride of K, V, Q tiles
+  constexpr int vec = D / 8;  // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int np = round16(N);
+  const int ss = score_stride(np, D);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* v_s = k_s + np * ks;
+  __nv_bfloat16* q_s = v_s + np * ks;
+  float* s_all = reinterpret_cast<float*>(q_s + kMmaRows * ks);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * kMmaRows;
+  const size_t row_stride = 3 * static_cast<size_t>(C);
+  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * N * row_stride;
+  const int oq = h * D;
+  const int ok = C + h * D;
+  const int ov = 2 * C + h * D;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int i = threadIdx.x; i < np * vec; i += blockDim.x) {
+    const int j = i / vec;
+    const int c = (i - j * vec) * 8;
+    uint4 kv = zero, vv = zero;
+    if (j < N) {
+      const __nv_bfloat16* row = base + j * row_stride;
+      kv = *reinterpret_cast<const uint4*>(row + ok + c);
+      vv = *reinterpret_cast<const uint4*>(row + ov + c);
+    }
+    *reinterpret_cast<uint4*>(k_s + j * ks + c) = kv;
+    *reinterpret_cast<uint4*>(v_s + j * ks + c) = vv;
+  }
+  for (int i = threadIdx.x; i < kMmaRows * vec; i += blockDim.x) {
+    const int r = i / vec;
+    const int c = (i - r * vec) * 8;
+    uint4 qv = zero;
+    if (row0 + r < N)
+      qv = *reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride +
+                                           oq + c);
+    *reinterpret_cast<uint4*>(q_s + r * ks + c) = qv;
+  }
+  __syncthreads();
+
+  const int r0 = warp * 16;
+  if (row0 + r0 >= N) return;  // no block-wide barrier follows
+  float* s_w = s_all + warp * 16 * ss;
+  __nv_bfloat16* p_w = reinterpret_cast<__nv_bfloat16*>(s_w);
+  const int ps = 2 * ss;  // P row i lives in the first half of S row i
+
+  // S = Q K^T, f32 accumulation.
+  for (int n = 0; n < np; n += 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kt;
+      wmma::load_matrix_sync(a, q_s + r0 * ks + k, ks);
+      wmma::load_matrix_sync(kt, k_s + n * ks + k, ks);
+      wmma::mma_sync(acc, a, kt, acc);
+    }
+    wmma::store_matrix_sync(s_w + n, acc, ss, wmma::mem_row_major);
+  }
+  __syncwarp();
+
+  // Row softmax in f32; P = round_bf16(e / sum), zero on padded keys.
+  for (int i = 0; i < 16; ++i) {
+    float e[kMaxKeyChunks];
+    float m = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int j = lane + 32 * t;
+      e[t] = j < N ? s_w[i * ss + j] * scale : -INFINITY;
+      m = fmaxf(m, e[t]);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      e[t] = lane + 32 * t < N ? expf(e[t] - m) : 0.f;
+      l += e[t];
+    }
+    l = warp_sum(l);
+    __syncwarp();  // all of row i is read before any lane overwrites it
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int j = lane + 32 * t;
+      if (j < np) p_w[i * ps + j] = __float2bfloat16_rn(e[t] / l);
+    }
+  }
+  __syncwarp();
+
+  // O = P V, f32 accumulation, all D/16 column tiles held in registers.
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) wmma::fill_fragment(o[c], 0.f);
+  for (int k = 0; k < np; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, p_w + k, ps);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> v;
+      wmma::load_matrix_sync(v, v_s + k * ks + c * 16, ks);
+      wmma::mma_sync(o[c], a, v, o[c]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c)
+    wmma::store_matrix_sync(s_w + c * 16, o[c], ss, wmma::mem_row_major);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * D; idx += 32) {
+    const int i = idx / D;
+    const int c = idx - i * D;
+    const int n = row0 + r0 + i;
+    if (n < N)
+      out[(static_cast<size_t>(b) * N + n) * C + h * D + c] =
+          __float2bfloat16_rn(s_w[i * ss + c]);
+  }
+}
+
+template <int D>
+int launch_mma(const void* qkv, void* out, int B, int N, int C, int heads,
+               cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(N, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_attention_fwd_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  packed_attention_fwd_mma_kernel<D><<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+      N, C, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- CUDA-core path
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerBlock = 64;
+
+// Row stride of the staged K tile in elements: d plus one 32-bit word.
+template <typename T>
+__host__ __device__ constexpr int k_stride(int d) {
+  return d + static_cast<int>(4 / sizeof(T));
+}
+
+template <typename T>
+size_t smem_bytes(int N, int d) {
+  return static_cast<size_t>(N) * (k_stride<T>(d) + d) * sizeof(T) +
+         static_cast<size_t>(kWarps) * (d + N) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    packed_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                                int N, int C, int d, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ks = k_stride<T>(d);
+  T* k_s = reinterpret_cast<T*>(smem);            // (N, ks)
+  T* v_s = k_s + static_cast<size_t>(N) * ks;     // (N, d)
+  float* f_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(N) * d);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* q_w = f_s + warp * (d + N);  // (d,) this warp's query row, f32
+  float* p_w = q_w + d;               // (N,) its scores, then probabilities
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_stride = 3 * static_cast<size_t>(C);
+  const T* base = qkv + static_cast<size_t>(b) * N * row_stride;
+  const int oq = h * d;
+  const int ok = C + h * d;
+  const int ov = 2 * C + h * d;
+
+  for (int i = threadIdx.x; i < N * d; i += kThreads) {
+    const int j = i / d;
+    const int c = i - j * d;
+    const T* row = base + j * row_stride;
+    k_s[j * ks + c] = row[ok + c];
+    v_s[j * d + c] = row[ov + c];
+  }
+  __syncthreads();
+
+  const int row0 = static_cast<int>(blockIdx.x) * kRowsPerBlock;
+  const int row_end = min(row0 + kRowsPerBlock, N);
+  for (int n = row0 + warp; n < row_end; n += kWarps) {
+    const T* q_row = base + n * row_stride + oq;
+    for (int c = lane; c < d; c += 32) q_w[c] = to_float(q_row[c]);
+    __syncwarp();
+
+    // Scores: lane owns keys j = lane, lane + 32, ...
+    float m = -INFINITY;
+    for (int j = lane; j < N; j += 32) {
+      const T* k_row = k_s + j * ks;
+      float s = 0.f;
+      for (int c = 0; c < d; ++c) s = fmaf(q_w[c], to_float(k_row[c]), s);
+      s *= scale;
+      p_w[j] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float e = expf(p_w[j] - m);
+      p_w[j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    for (int j = lane; j < N; j += 32)
+      p_w[j] = to_float(from_float<T>(p_w[j] / l));
+    __syncwarp();
+
+    // Context: lane owns columns c = lane, lane + 32, ...
+    T* o_row = out + (static_cast<size_t>(b) * N + n) * C + h * d;
+    for (int c = lane; c < d; c += 32) {
+      float acc = 0.f;
+      for (int j = 0; j < N; ++j)
+        acc = fmaf(p_w[j], to_float(v_s[j * d + c]), acc);
+      o_row[c] = from_float<T>(acc);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+int launch(const void* qkv, void* out, int B, int N, int C, int heads,
+           cudaStream_t stream) {
+  const int d = C / heads;
+  const size_t smem = smem_bytes<T>(N, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_attention_fwd_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, heads, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  packed_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, d, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes shared with ops/kernels/attention.py: 0 = float32, 1 = bfloat16.
+
+// 1 when (N, d, dtype) runs on the tensor-core path, 0 on the CUDA-core path.
+extern "C" int packed_attention_uses_mma(int N, int d, int dtype) {
+  return mma_path(N, d, dtype) ? 1 : 0;
+}
+
+extern "C" long long packed_attention_smem_bytes(int N, int d, int dtype) {
+  if (mma_path(N, d, dtype)) return static_cast<long long>(mma_smem_bytes(N, d));
+  if (dtype == 0) return static_cast<long long>(smem_bytes<float>(N, d));
+  if (dtype == 1) return static_cast<long long>(smem_bytes<__nv_bfloat16>(N, d));
+  return -1;
+}
+
+extern "C" int packed_attention_max_smem(int device, int* bytes) {
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device);
+}
+
+extern "C" int packed_attention_fwd(const void* qkv, void* out, int B, int N,
+                                    int C, int heads, int dtype, int device,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int d = C / heads;
+  if (mma_path(N, d, dtype)) {
+    if (d == 32) return launch_mma<32>(qkv, out, B, N, C, heads, s);
+    if (d == 64) return launch_mma<64>(qkv, out, B, N, C, heads, s);
+    return launch_mma<128>(qkv, out, B, N, C, heads, s);
+  }
+  if (dtype == 0) return launch<float>(qkv, out, B, N, C, heads, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(qkv, out, B, N, C, heads, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,203 @@
+"""Backbone + head composition and the config-driven builder (port of
+probpose_pytorch_tpu/models/model.py).
+
+`ModelConfig` takes every key of the JAX `ModelConfig`, so the `model`
+block of any configs/*.json loads as `ModelConfig(**block)`, and raises
+`NotImplementedError` for the values this port does not run yet, naming
+the ROADMAP item that ports each.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields
+from typing import Any
+
+import torch
+from torch import nn
+
+from probpose_pytorch_tpu_torch.models.head import ProbMapHead
+from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
+
+__all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tuples(v: Any) -> Any:
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    img_size: tuple[int, int] = (256, 192)  # (H, W)
+    patch_size: int = 16
+    num_keypoints: int = 17
+    backbone: str = "vit-s"
+    head_type: str = "probmap"
+    simcc_split_ratio: float = 2.0
+    simcc_sigma: float = 6.0
+    frozen_backbone: bool = False
+    adapter_hidden: tuple[int, ...] = ()
+    deconv_out_channels: tuple[int, ...] = (256, 256)
+    deconv_kernel_sizes: tuple[int, ...] = (4, 4)
+    conv_out_channels: tuple[int, ...] = ()
+    conv_kernel_sizes: tuple[int, ...] = ()
+    final_layer_kernel_size: int | None = 1
+    pool_sizes: tuple[tuple[int, int], ...] = ((4, 3), (2, 2), (2, 2))
+    normalize: float | None = 1.0
+    compute_dtype: str = "bfloat16"
+    softmax_dtype: str = "float32"
+    # "fused" and "einsum" both run kernel K1 (f32 softmax).
+    attn_impl: str = "einsum"
+    mlp_impl: str = "dense"
+    # "fused" and "fastvjp" were XLA rewrites, pinned numerically equal to
+    # the defaults by the JAX tests; the port accepts them and runs its one
+    # implementation.
+    scalar_impl: str = "separate"
+    deconv_impl: str = "lax"
+    remat: bool = False  # training memory knob; no effect on serving
+    num_prefix_tokens: int = 0
+    exact_gelu: bool = False
+    pp_stages: int = 1
+    pp_microbatches: int = 0
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+
+    def __post_init__(self):
+        for f in fields(self):
+            object.__setattr__(self, f.name, _tuples(getattr(self, f.name)))
+        unported = [
+            (self.head_type == "simcc", "head_type='simcc'", 9),
+            (self.backbone.startswith("conv"), f"backbone={self.backbone!r}", 10),
+            (self.lora_rank > 0, "lora_rank > 0", 11),
+            (self.pp_stages > 1, "pp_stages > 1", 13),
+            (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
+            (self.attn_impl == "pallas", "attn_impl='pallas' (kernel K6)",
+             "'Kernels still to port'"),
+            (self.mlp_impl == "fused", "mlp_impl='fused' (kernel K5)",
+             "'Kernels still to port'"),
+            (any(k != 4 for k in self.deconv_kernel_sizes),
+             f"deconv_kernel_sizes={self.deconv_kernel_sizes}", 4),
+            (self.attn_impl == "einsum" and self.softmax_dtype != "float32",
+             f"attn_impl='einsum' with softmax_dtype={self.softmax_dtype!r}", 4),
+        ]
+        for bad, what, item in unported:
+            if bad:
+                where = f"item {item}" if isinstance(item, int) else item
+                raise NotImplementedError(
+                    f"{what} is not ported to PyTorch yet (ROADMAP {where})"
+                )
+        if self.head_type != "probmap":
+            raise ValueError(f"unknown head_type {self.head_type!r}")
+        if self.attn_impl not in ("fused", "einsum"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.mlp_impl != "dense":
+            raise ValueError(f"unknown mlp_impl {self.mlp_impl!r}")
+        if self.scalar_impl not in ("separate", "fused"):
+            raise ValueError(f"unknown scalar_impl {self.scalar_impl!r}")
+        if self.deconv_impl not in ("lax", "fastvjp"):
+            raise ValueError(f"unknown deconv_impl {self.deconv_impl!r}")
+        for name in ("compute_dtype", "softmax_dtype"):
+            if getattr(self, name) not in _DTYPES:
+                raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
+
+    @property
+    def heatmap_size(self) -> tuple[int, int]:
+        """(W, H): feature grid upsampled 2x per deconv stage."""
+        up = 2 ** len(self.deconv_out_channels)
+        return (self.img_size[1] // self.patch_size * up,
+                self.img_size[0] // self.patch_size * up)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+class ProbPoseModel(nn.Module):
+    """forward = head(backbone(x)): (B, H, W, 3) image in [0, 1] -> the
+    5-tuple (heatmaps, probability, visibility, oks, error)."""
+
+    def __init__(self, backbone: ViTBackbone, head: ProbMapHead):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.head(self.backbone(x))
+
+
+def _trunc_normal(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """Normal truncated at +-2 std (flax `truncated_normal` /
+    `lecun_normal`'s shape), drawn on the CPU from `g`."""
+    v = torch.empty(t.shape).normal_(generator=g)
+    while True:
+        bad = v.abs() > 2.0
+        if not bad.any():
+            break
+        v[bad] = torch.empty(int(bad.sum())).normal_(generator=g)
+    with torch.no_grad():
+        t.copy_(v * std)
+
+
+def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
+    """Draw the weights as the flax initializers do (lecun-normal trunk
+    kernels, truncated-normal 0.02 position embedding, normal(0.001) head
+    convs, zero biases, unit BN scales and variances), from `generator`."""
+    # lecun_normal divides by 0.8796, the std of a unit normal truncated at
+    # +-2; truncated_normal(0.02) scales the truncated draw as it is.
+    lecun = lambda fan_in: 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        for name, p in model.backbone.named_parameters():
+            if "norm" in name:
+                continue  # LayerNorm keeps its ones / zeros
+            if name.endswith("bias"):
+                p.zero_()
+                continue
+            if name in ("pos_embed", "prefix_tokens"):
+                _trunc_normal(p, 0.02, generator)
+            else:
+                fan_in = p[0].numel() if p.dim() > 2 else p.shape[1]
+                _trunc_normal(p, lecun(fan_in), generator)
+        for m in model.head.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.weight.copy_(torch.empty(m.weight.shape).normal_(
+                    0.0, 0.001, generator=generator))
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def build_model(cfg: ModelConfig, device: torch.device | str = "cpu",
+                seed: int = 0) -> ProbPoseModel:
+    """The model of `cfg` on `device`, in eval mode, with weights drawn from
+    a `torch.Generator` seeded with `seed`."""
+    vit = ViTConfig.PRESETS[cfg.backbone]
+    backbone = ViTBackbone(
+        img_size=cfg.img_size,
+        patch_size=cfg.patch_size,
+        embed_dim=vit["embed_dim"],
+        depth=vit["depth"],
+        num_heads=vit["num_heads"],
+        mlp_ratio=vit["mlp_ratio"],
+        dtype=cfg.dtype,
+        frozen=cfg.frozen_backbone,
+        adapter_hidden=cfg.adapter_hidden,
+        num_prefix_tokens=cfg.num_prefix_tokens,
+        exact_gelu=cfg.exact_gelu,
+    )
+    feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
+    head = ProbMapHead(
+        in_channels=feat_ch,
+        out_channels=cfg.num_keypoints,
+        pool_sizes=cfg.pool_sizes,
+        deconv_out_channels=cfg.deconv_out_channels,
+        deconv_kernel_sizes=cfg.deconv_kernel_sizes,
+        conv_out_channels=cfg.conv_out_channels,
+        conv_kernel_sizes=cfg.conv_kernel_sizes,
+        final_layer_kernel_size=cfg.final_layer_kernel_size,
+        normalize=cfg.normalize,
+        dtype=cfg.dtype,
+    )
+    model = ProbPoseModel(backbone, head)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

@@ -1,0 +1,174 @@
+"""Vision Transformer backbone (port of probpose_pytorch_tpu/models/vit.py).
+
+NHWC image in [0, 1] -> NHWC feature grid, no class token, no pooling; the
+input is not mean/std normalised. Numerics follow the flax modules:
+parameters stay float32 and each Linear/Conv runs in the compute dtype
+(weights, input and bias cast to it), LayerNorms run in float32 with
+eps 1e-6, GELU is the tanh approximation unless `exact_gelu`, and the
+positional embedding is added in the compute dtype.
+
+Attention reads the (B, N, 3C) qkv projection in qkv-major order, exactly
+the input of kernel K1, and hands it to
+`ops.kernels.attention.packed_attention` unchanged. K1's softmax is f32, so
+it computes both the JAX "fused" attention and the JAX "einsum" attention
+at its default float32 `softmax_dtype` (models/model.py refuses the rest).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from probpose_pytorch_tpu_torch.ops.kernels.attention import packed_attention
+
+__all__ = ["ViTConfig", "Attention", "MlpBlock", "Block", "ViTBackbone"]
+
+LN_EPS = 1e-6
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Dense(dtype=...)`: input, kernel and bias in `dtype`."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """flax `nn.LayerNorm(dtype=float32)`: float32 in and out."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+
+
+class ViTConfig:
+    """Static geometry presets (ViTPose-style sizes), as in the JAX package."""
+
+    PRESETS = {
+        "vit-s": dict(embed_dim=384, depth=12, num_heads=6, mlp_ratio=4.0),
+        "vit-b": dict(embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0),
+        "vit-l": dict(embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0),
+        "vit-h": dict(embed_dim=1280, depth=32, num_heads=16, mlp_ratio=4.0),
+        "vit-s-timm": dict(embed_dim=384, depth=12, num_heads=12, mlp_ratio=4.0),
+        "vit-nano": dict(embed_dim=64, depth=2, num_heads=2, mlp_ratio=2.0),
+    }
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
+                 exact_gelu: bool = False):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.dtype = dtype
+        self.approximate = "none" if exact_gelu else "tanh"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(linear(x, self.fc1, self.dtype), approximate=self.approximate)
+        return linear(h, self.fc2, self.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.num_heads = num_heads
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = linear(x, self.qkv, self.dtype)  # (B, N, 3C), qkv-major
+        return linear(packed_attention(qkv, self.num_heads), self.proj, self.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 dtype: torch.dtype, exact_gelu: bool = False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, num_heads, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, exact_gelu)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(layer_norm(x, self.norm1))
+        return x + self.mlp(layer_norm(x, self.norm2))
+
+
+class ViTBackbone(nn.Module):
+    """ViT trunk: (B, H, W, 3) image in [0, 1] -> (B, H/p, W/p, C) features.
+
+    `num_prefix_tokens` learned tokens join attention and are stripped
+    before the grid reshape; `frozen` detaches the trunk output;
+    `adapter_hidden` adds a token MLP (ReLU between layers) after it.
+    """
+
+    def __init__(
+        self,
+        img_size: tuple[int, int] = (256, 192),
+        patch_size: int = 16,
+        embed_dim: int = 384,
+        depth: int = 12,
+        num_heads: int = 6,
+        mlp_ratio: float = 4.0,
+        dtype: torch.dtype = torch.bfloat16,
+        frozen: bool = False,
+        adapter_hidden: Sequence[int] = (),
+        num_prefix_tokens: int = 0,
+        exact_gelu: bool = False,
+    ):
+        super().__init__()
+        self.img_size = tuple(img_size)
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.frozen = frozen
+        self.num_prefix_tokens = num_prefix_tokens
+        gh, gw = self.grid_size
+        self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, gh * gw, embed_dim))
+        self.prefix_tokens = (
+            nn.Parameter(torch.zeros(1, num_prefix_tokens, embed_dim))
+            if num_prefix_tokens else None
+        )
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu)
+            for _ in range(depth)
+        )
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        widths = [embed_dim, *adapter_hidden]
+        self.adapters = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])
+        )
+
+    @property
+    def grid_size(self) -> tuple[int, int]:
+        return (self.img_size[0] // self.patch_size,
+                self.img_size[1] // self.patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        gh, gw = self.grid_size
+        dt = self.dtype
+        bias = None if self.patch_embed.bias is None else self.patch_embed.bias.to(dt)
+        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),
+                     bias, stride=self.patch_size)
+        # (B, N, C) with row-major patches, made contiguous once so the
+        # residual stream is not re-laid-out by every LayerNorm and Linear.
+        x = x.flatten(2).transpose(1, 2).contiguous()
+        x = x + self.pos_embed.to(dt)
+        if self.prefix_tokens is not None:
+            prefix = self.prefix_tokens.to(dt).expand(B, -1, -1)
+            x = torch.cat([prefix, x], dim=1)
+        for block in self.blocks:
+            x = block(x)
+        x = layer_norm(x, self.norm)
+        if self.num_prefix_tokens:
+            x = x[:, self.num_prefix_tokens:]
+        if self.frozen:
+            x = x.detach()
+        for j, adapter in enumerate(self.adapters):
+            x = linear(x, adapter, dt)
+            if j < len(self.adapters) - 1:
+                x = F.relu(x)
+        return x.reshape(B, gh, gw, x.shape[-1])

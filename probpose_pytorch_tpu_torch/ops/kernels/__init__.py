@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+    attention.py   K1 forward, CUDA C++ (csrc/packed_attention.cu)
+    sparsemax.py   K2, Triton
+
+Every wrapper takes its plain PyTorch version for a tensor on the CPU and
+launches its kernel (or raises) for a CUDA tensor; it never falls back.
+`plain_versions()` is the one exception, an explicit switch with which
+chip_smoke.py and the tests run the same model through the plain versions
+on the card to compare the two paths.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+__all__ = ["plain_versions", "plain_enabled"]
+
+_PLAIN = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel wrapper to its plain version, CUDA tensors too."""
+    global _PLAIN
+    prev, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = prev
+
+
+def plain_enabled() -> bool:
+    return _PLAIN
