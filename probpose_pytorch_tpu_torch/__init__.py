@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of probpose-tpu's top-down serving path.
+"""PyTorch/CUDA port of probpose-tpu's top-down serving path and training
+step.
 
 The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
 (the reference it is tested against) but imports only torch and numpy:
@@ -7,10 +8,16 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     models/vit.py         ViTBackbone; attention goes through kernel K1
     models/head.py        ProbMapHead; sparsemax goes through kernel K2
     models/model.py       ModelConfig, ProbPoseModel, build_model
-    ops/heatmap.py        expected-value decode (plain tensor code)
-    codec.py              ProbMap.decode, Codec.decode
+    ops/heatmap.py        expected-value decode, PCK distances
+    ops/probmaps.py       OKS target maps (encode)
+    ops/udp.py            argmax + DarkPose/UDP refinement
+    ops/oks.py            OKS targets from decoded coordinates
+    codec.py              ProbMap and ArgMaxProbMap: encode and decode
+    losses.py             the five-term ProbPoseLoss and its metrics
     inference.py          TopDownPredictor
-    compat/from_jax.py    load the JAX package's weights into the port
+    data/pipeline.py      synthetic poses and numpy batching (host)
+    train/                TrainConfig, AdamW + one-cycle + EMA, Trainer
+    compat/from_jax.py    load the JAX package's weights and train state
     ops/kernels/          hand-written Hopper kernels, their plain versions,
                           and the nvcc builder for csrc/*.cu
 

@@ -1,8 +1,11 @@
-"""Carry the JAX package's weights into the port.
+"""Carry the JAX package's weights and training state into the port.
 
 `load_jax_variables(model, params, batch_stats)` takes the JAX model's
 `variables["params"]` and `variables["batch_stats"]` as nested dicts of
 numpy arrays (no jax needed here) and loads them into a `ProbPoseModel`.
+`load_jax_train_state(state, jax_state)` carries a whole JAX `TrainState`
+(after `jax.device_get`) into the port's train/state.py `TrainState`, so a
+run started in JAX continues in the port step for step.
 The layout conversions are those of the JAX package's
 compat/torch_export.py:
   * Conv kernel (kh, kw, I, O)          -> Conv2d weight (O, I, kh, kw)
@@ -15,12 +18,14 @@ compat/torch_export.py:
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "load_jax_variables"]
+from probpose_pytorch_tpu_torch.train.state import TrainState
+
+__all__ = ["state_dict_from_jax", "load_jax_variables", "load_jax_train_state"]
 
 Tree = Mapping[str, Any]
 
@@ -125,3 +130,52 @@ def load_jax_variables(model: torch.nn.Module, params: Tree, batch_stats: Tree) 
             raise ValueError(f"{k}: JAX shape {v.shape} != port shape {tuple(ref[k].shape)}")
         tensors[k] = torch.from_numpy(v)
     model.load_state_dict(tensors, strict=True)
+
+
+def _named_tuples(node: Any) -> Iterator[tuple]:
+    """Every NamedTuple in an optax state (nested tuples of NamedTuples)."""
+    if isinstance(node, tuple):
+        if hasattr(node, "_fields"):
+            yield node
+        for child in node:
+            yield from _named_tuples(child)
+
+
+def _one(states: list, what: str):
+    if len(states) != 1:
+        raise ValueError(f"expected one {what} in the optax state, found {len(states)}")
+    return states[0]
+
+
+def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
+    """Carry a JAX `TrainState` with numpy leaves (`jax.device_get(state)`)
+    into the port's `state` in place: step, params and batch_stats, the EMA
+    params, and the optax state of train/state.py's chain (Adam mu, nu and
+    count, the schedule's count, and apply_if_finite's counters). The
+    moments go through the same layout conversions as the params."""
+    load_jax_variables(state.model, jax_state.params, jax_state.batch_stats)
+    device = state.params[0].device
+
+    def leaves(tree: Tree) -> list[torch.Tensor]:
+        sd = state_dict_from_jax(tree, jax_state.batch_stats)
+        return [torch.from_numpy(sd[n]).to(device) for n in state.names]
+
+    def scalar(v, dtype=torch.int32) -> torch.Tensor:
+        return torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
+
+    state.step = scalar(jax_state.step)
+    if jax_state.ema_params is not None:
+        state.ema_params = leaves(jax_state.ema_params)
+    named = list(_named_tuples(jax_state.opt_state))
+    adam = _one([s for s in named if {"mu", "nu", "count"} <= set(s._fields)],
+                "ScaleByAdamState")
+    sched = _one([s for s in named if s._fields == ("count",)], "ScaleByScheduleState")
+    opt = state.opt_state
+    opt.mu, opt.nu = leaves(adam.mu), leaves(adam.nu)
+    opt.count, opt.schedule_count = scalar(adam.count), scalar(sched.count)
+    finite = [s for s in named if "notfinite_count" in s._fields]
+    if finite:
+        f = _one(finite, "ApplyIfFiniteState")
+        opt.notfinite_count = scalar(f.notfinite_count)
+        opt.last_finite = scalar(f.last_finite, torch.bool)
+        opt.total_notfinite = scalar(f.total_notfinite)

@@ -1,7 +1,9 @@
-// Kernel K1 forward: multi-head attention read straight from the packed qkv.
+// Kernel K1: multi-head attention read straight from the packed qkv, its
+// forward here and its recompute backward further down ("backward").
 //
-// Replaces the TPU kernel `_packed_fwd_kernel` (probpose_pytorch_tpu/ops/
-// pallas/attention_kernel.py, called from `_packed_fwd` / `packed_attention`).
+// Replaces the TPU kernels `_packed_fwd_kernel` and `_packed_bwd_kernel`
+// (probpose_pytorch_tpu/ops/pallas/attention_kernel.py, called from
+// `_packed_fwd` / `_packed_bwd` under the custom_vjp `packed_attention`).
 //
 // What it computes, per (batch b, head h):
 //   ctx[b, :, h*d:(h+1)*d] = round_T(softmax_f32(q k^T * scale)) v
@@ -356,6 +358,544 @@ int launch(const void* qkv, void* out, int B, int N, int C, int heads,
   return cudaGetLastError();
 }
 
+// ================================================================ backward
+//
+// Kernel K1 backward: replaces `_packed_bwd_kernel` (attention_kernel.py,
+// reached through `_packed_bwd` and the custom_vjp bwd of `packed_attention`).
+// Per (b, h), with P the f32 softmax recomputed from q and k:
+//   dV = round_T(P)^T dO
+//   dP = dO V^T                                   (f32)
+//   dS = round_T(P * (dP - rowsum(dP * P)) * scale), row sum over f32 P
+//   dQ = dS K,  dK = dS^T Q                       (f32 sums)
+// written straight into the packed (B, N, 3C) dqkv at q, k and v's offsets.
+// The two roundings are the TPU kernel's.
+//
+// dK and dV sum over all query rows, dQ over all key rows, and blocks run in
+// no order, so the work is split in two passes, each over tiles of 64 rows:
+//   pass 1 (query tiles): S, P, dP, D = rowsum(dP * P), dS, dQ; it leaves
+//          each query row's softmax max m, sum l and D in a (3, B, H, N) f32
+//          scratch (9 KB per (b, h) at N = 192 -- no N x N matrix);
+//   pass 2 (key tiles):   S^T and dP^T for its keys against every query,
+//          P from m and l, dS from D, then dV and dK.
+// Pass 2 recomputes S with the same operands in the same order as pass 1,
+// so both see the same P.
+//
+// What bounds it on an H100: each pass does 3 products of 2 N^2 d FLOPs per
+// (b, h) (pass 1: S, dP, dQ; pass 2: S, dP plus dV and dK) against reading
+// qkv and dO once each per tile; at N = 192, d = 64 that is ~100 FLOP per
+// byte, under the bf16 ridge, so with the products on the tensor cores the
+// passes are bound by staging q, k, v and dO, and by the softmax between the
+// products. Both bf16 passes keep two f32 16 x N tiles per warp (S and dP)
+// in shared memory: ~175 KB a block at N = 192, d = 64, one block per SM.
+// Later versions should keep K/V resident across query tiles with wgmma.
+
+constexpr int kMaxSmemOptin = 232448;  // H100: 227 KB per block
+
+// Pass 1, tensor cores: K, V (np rows), Q and dO (64 rows) in bf16; per warp
+// two f32 tiles of 16 rows (scores, then dP / dS).
+size_t mma_bwd_dq_smem_bytes(int N, int d) {
+  const int np = round16(N);
+  return static_cast<size_t>(2 * np + 2 * kMmaRows) * (d + 8) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(2 * kMmaWarps) * 16 * score_stride(np, d) * sizeof(float);
+}
+
+// Pass 2, tensor cores: Q and dO (np rows), K and V (64 rows) in bf16; the
+// (m, l, D) of every query row; per warp two f32 tiles of 16 key rows.
+size_t mma_bwd_dkv_smem_bytes(int N, int d) {
+  const int np = round16(N);
+  return static_cast<size_t>(2 * np + 2 * kMmaRows) * (d + 8) * sizeof(__nv_bfloat16) +
+         static_cast<size_t>(3 * np) * sizeof(float) +
+         static_cast<size_t>(2 * kMmaWarps) * 16 * score_stride(np, d) * sizeof(float);
+}
+
+bool mma_bwd_path(int N, int d, int dtype) {
+  return mma_path(N, d, dtype) &&
+         mma_bwd_dq_smem_bytes(N, d) <= static_cast<size_t>(kMaxSmemOptin) &&
+         mma_bwd_dkv_smem_bytes(N, d) <= static_cast<size_t>(kMaxSmemOptin);
+}
+
+// Stage `rows` rows of a (., N, row_stride) tensor's d-column slice at
+// `col` into shared memory with row stride ks, zero past row N.
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int row0, int rows, int N,
+                                           size_t row_stride, int col) {
+  constexpr int ks = D + 8;
+  constexpr int vec = D / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
+    const int r = i / vec;
+    const int c = (i - r * vec) * 8;
+    uint4 v = zero;
+    if (row0 + r < N)
+      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + col + c);
+    *reinterpret_cast<uint4*>(dst + r * ks + c) = v;
+  }
+}
+
+// (16, np) x (np, D) product of a bf16 row tile `a` (row stride lda) with a
+// staged bf16 matrix `b` (row stride D + 8), written as f32 into `out`
+// (row stride ldo) and then as bf16 into rows n0.. of `dst` (row stride C3)
+// at column `col`, rows past N left out.
+template <int D>
+__device__ __forceinline__ void tile_product_out(const __nv_bfloat16* a, int lda,
+                                                 const __nv_bfloat16* b, int np,
+                                                 float* out, int ldo,
+                                                 __nv_bfloat16* dst, int n0, int N,
+                                                 size_t C3, int col) {
+  constexpr int ks = D + 8;
+  const int lane = threadIdx.x % 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) wmma::fill_fragment(acc[c], 0.f);
+  for (int k = 0; k < np; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+    wmma::load_matrix_sync(fa, a + k, lda);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, b + k * ks + c * 16, ks);
+      wmma::mma_sync(acc[c], fa, fb, acc[c]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c)
+    wmma::store_matrix_sync(out + c * 16, acc[c], ldo, wmma::mem_row_major);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * D; idx += 32) {
+    const int i = idx / D;
+    const int c = idx - i * D;
+    if (n0 + i < N)
+      dst[(n0 + i) * C3 + col + c] = __float2bfloat16_rn(out[i * ldo + c]);
+  }
+  __syncwarp();
+}
+
+// (16, np) f32 tile out[i][j] = sum_c a[i][c] * b[j][c] over the staged bf16
+// row tiles a (16 rows) and b (np rows), both with row stride D + 8.
+template <int D>
+__device__ __forceinline__ void tile_abt(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                         int np, float* out, int ldo) {
+  constexpr int ks = D + 8;
+  for (int n = 0; n < np; n += 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int k = 0; k < D; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, a + k, ks);
+      wmma::load_matrix_sync(fb, b + n * ks + k, ks);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(out + n, acc, ldo, wmma::mem_row_major);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    packed_attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                       const __nv_bfloat16* __restrict__ dout,
+                                       __nv_bfloat16* __restrict__ dqkv,
+                                       float* __restrict__ stats, int N, int C,
+                                       int H, float scale) {
+  constexpr int ks = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int np = round16(N);
+  const int ss = score_stride(np, D);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* v_s = k_s + np * ks;
+  __nv_bfloat16* q_s = v_s + np * ks;
+  __nv_bfloat16* o_s = q_s + kMmaRows * ks;
+  float* f_all = reinterpret_cast<float*>(o_s + kMmaRows * ks);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * kMmaRows;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * N * C3;
+  const __nv_bfloat16* obase = dout + static_cast<size_t>(b) * N * C;
+  __nv_bfloat16* gbase = dqkv + static_cast<size_t>(b) * N * C3;
+
+  stage_rows<D>(k_s, base, 0, np, N, C3, C + h * D);
+  stage_rows<D>(v_s, base, 0, np, N, C3, 2 * C + h * D);
+  stage_rows<D>(q_s, base, row0, kMmaRows, N, C3, h * D);
+  stage_rows<D>(o_s, obase, row0, kMmaRows, N, C, h * D);
+  __syncthreads();
+
+  const int r0 = warp * 16;
+  if (row0 + r0 >= N) return;  // no block-wide barrier follows
+  float* s_w = f_all + warp * 2 * 16 * ss;
+  float* dp_w = s_w + 16 * ss;
+  __nv_bfloat16* ds_w = reinterpret_cast<__nv_bfloat16*>(dp_w);
+  const int ps = 2 * ss;  // dS row i lives in the first half of dP row i
+
+  tile_abt<D>(q_s + r0 * ks, k_s, np, s_w, ss);   // S = Q K^T
+  tile_abt<D>(o_s + r0 * ks, v_s, np, dp_w, ss);  // dP = dO V^T
+  __syncwarp();
+
+  float* st = stats + (static_cast<size_t>(b) * H + h) * N;
+  const size_t plane = static_cast<size_t>(gridDim.z) * H * N;
+  for (int i = 0; i < 16; ++i) {
+    float e[kMaxKeyChunks], dp[kMaxKeyChunks];
+    float m = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int j = lane + 32 * t;
+      e[t] = j < N ? s_w[i * ss + j] * scale : -INFINITY;
+      dp[t] = j < np ? dp_w[i * ss + j] : 0.f;
+      m = fmaxf(m, e[t]);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      e[t] = lane + 32 * t < N ? expf(e[t] - m) : 0.f;
+      l += e[t];
+    }
+    l = warp_sum(l);
+    float dsum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      e[t] = e[t] / l;  // P in f32, as the forward computes it
+      dsum += dp[t] * e[t];
+    }
+    dsum = warp_sum(dsum);
+    __syncwarp();  // all of dP row i is read before any lane overwrites it
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int j = lane + 32 * t;
+      if (j < np) ds_w[i * ps + j] = __float2bfloat16_rn(e[t] * (dp[t] - dsum) * scale);
+    }
+    const int n = row0 + r0 + i;
+    if (lane == 0 && n < N) {
+      st[n] = m;
+      st[plane + n] = l;
+      st[2 * plane + n] = dsum;
+    }
+  }
+  __syncwarp();
+
+  // dQ = dS K, staged as f32 in the score tile, stored at q's columns.
+  tile_product_out<D>(ds_w, ps, k_s, np, s_w, ss, gbase, row0 + r0, N, C3, h * D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    packed_attention_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                        const __nv_bfloat16* __restrict__ dout,
+                                        __nv_bfloat16* __restrict__ dqkv,
+                                        const float* __restrict__ stats, int N,
+                                        int C, int H, float scale) {
+  constexpr int ks = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int np = round16(N);
+  const int ss = score_stride(np, D);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* o_s = q_s + np * ks;
+  __nv_bfloat16* k_s = o_s + np * ks;
+  __nv_bfloat16* v_s = k_s + kMmaRows * ks;
+  float* m_s = reinterpret_cast<float*>(v_s + kMmaRows * ks);
+  float* l_s = m_s + np;
+  float* d_s = l_s + np;
+  float* f_all = d_s + np;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * kMmaRows;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * N * C3;
+  const __nv_bfloat16* obase = dout + static_cast<size_t>(b) * N * C;
+  __nv_bfloat16* gbase = dqkv + static_cast<size_t>(b) * N * C3;
+
+  stage_rows<D>(q_s, base, 0, np, N, C3, h * D);
+  stage_rows<D>(o_s, obase, 0, np, N, C, h * D);
+  stage_rows<D>(k_s, base, row0, kMmaRows, N, C3, C + h * D);
+  stage_rows<D>(v_s, base, row0, kMmaRows, N, C3, 2 * C + h * D);
+  const float* st = stats + (static_cast<size_t>(b) * H + h) * N;
+  const size_t plane = static_cast<size_t>(gridDim.z) * H * N;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    m_s[i] = i < N ? st[i] : 0.f;
+    l_s[i] = i < N ? st[plane + i] : 1.f;
+    d_s[i] = i < N ? st[2 * plane + i] : 0.f;
+  }
+  __syncthreads();
+
+  const int j0 = warp * 16;
+  if (row0 + j0 >= N) return;  // no block-wide barrier follows
+  float* a_w = f_all + warp * 2 * 16 * ss;  // S^T, then bf16 P^T, then dV / dK
+  float* b_w = a_w + 16 * ss;               // dP^T, then bf16 dS^T
+  __nv_bfloat16* pb_w = reinterpret_cast<__nv_bfloat16*>(a_w);
+  __nv_bfloat16* ds_w = reinterpret_cast<__nv_bfloat16*>(b_w);
+  const int ps = 2 * ss;
+
+  tile_abt<D>(k_s + j0 * ks, q_s, np, a_w, ss);  // S^T = K Q^T
+  tile_abt<D>(v_s + j0 * ks, o_s, np, b_w, ss);  // dP^T = V dO^T
+  __syncwarp();
+
+  for (int jj = 0; jj < 16; ++jj) {
+    float p[kMaxKeyChunks], ds[kMaxKeyChunks];
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int i = lane + 32 * t;
+      p[t] = 0.f;
+      ds[t] = 0.f;
+      if (i < N) {
+        p[t] = expf(a_w[jj * ss + i] * scale - m_s[i]) / l_s[i];
+        ds[t] = p[t] * (b_w[jj * ss + i] - d_s[i]) * scale;
+      }
+    }
+    __syncwarp();  // row jj of both tiles is read before it is overwritten
+#pragma unroll
+    for (int t = 0; t < kMaxKeyChunks; ++t) {
+      const int i = lane + 32 * t;
+      if (i < np) {
+        pb_w[jj * ps + i] = __float2bfloat16_rn(p[t]);
+        ds_w[jj * ps + i] = __float2bfloat16_rn(ds[t]);
+      }
+    }
+  }
+  __syncwarp();
+
+  // dV = round(P)^T dO and dK = dS^T Q, each staged as f32 in a_w.
+  tile_product_out<D>(pb_w, ps, o_s, np, a_w, ss, gbase, row0 + j0, N, C3,
+                      2 * C + h * D);
+  tile_product_out<D>(ds_w, ps, q_s, np, a_w, ss, gbase, row0 + j0, N, C3,
+                      C + h * D);
+}
+
+template <int D>
+int launch_bwd_mma(const void* qkv, const void* dout, void* dqkv, float* stats,
+                   int B, int N, int C, int heads, cudaStream_t stream) {
+  const size_t smem1 = mma_bwd_dq_smem_bytes(N, D);
+  const size_t smem2 = mma_bwd_dkv_smem_bytes(N, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_attention_bwd_dq_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(packed_attention_bwd_dkv_mma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* o = static_cast<const __nv_bfloat16*>(dout);
+  auto* g = static_cast<__nv_bfloat16*>(dqkv);
+  packed_attention_bwd_dq_mma_kernel<D><<<grid, kMmaWarps * 32, smem1, stream>>>(
+      q, o, g, stats, N, C, heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  packed_attention_bwd_dkv_mma_kernel<D><<<grid, kMmaWarps * 32, smem2, stream>>>(
+      q, o, g, stats, N, C, heads, scale);
+  return cudaGetLastError();
+}
+
+// CUDA-core passes (f32, and bf16 shapes the tensor-core passes do not
+// take). Four warps, each taking one row at a time, lanes splitting the N
+// rows of the other side and then the d columns. Shared memory is the
+// forward's exactly (the staged (N, d) pair plus 2 * (d + N) f32 per warp),
+// so every shape the forward takes, the backward takes too.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = kBwdWarps * 32;
+
+template <typename T>
+size_t bwd_smem_bytes(int N, int d) {
+  return static_cast<size_t>(N) * (k_stride<T>(d) + d) * sizeof(T) +
+         static_cast<size_t>(kBwdWarps) * 2 * (d + N) * sizeof(float);
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Pass 1: one query row per warp; K_h rows (padded stride) and V_h rows.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    packed_attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                                   T* __restrict__ dqkv, float* __restrict__ stats,
+                                   int N, int C, int H, int d, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ks = k_stride<T>(d);
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + static_cast<size_t>(N) * ks;
+  float* f_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(N) * d);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* q_w = f_s + warp * 2 * (d + N);  // (d,) query row
+  float* o_w = q_w + d;                   // (d,) dO row
+  float* p_w = o_w + d;                   // (N,) scores, P, then dS
+  float* dp_w = p_w + N;                  // (N,) dP
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+  const T* base = qkv + static_cast<size_t>(b) * N * C3;
+  const T* obase = dout + static_cast<size_t>(b) * N * C;
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3;
+  for (int i = threadIdx.x; i < N * d; i += kBwdThreads) {
+    const int j = i / d;
+    const int c = i - j * d;
+    const T* row = base + j * C3;
+    k_s[j * ks + c] = row[C + h * d + c];
+    v_s[j * d + c] = row[2 * C + h * d + c];
+  }
+  __syncthreads();
+
+  float* st = stats + (static_cast<size_t>(b) * H + h) * N;
+  const size_t plane = static_cast<size_t>(gridDim.z) * H * N;
+  const int row0 = static_cast<int>(blockIdx.x) * kRowsPerBlock;
+  const int row_end = min(row0 + kRowsPerBlock, N);
+  for (int n = row0 + warp; n < row_end; n += kBwdWarps) {
+    for (int c = lane; c < d; c += 32) {
+      q_w[c] = to_float(base[n * C3 + h * d + c]);
+      o_w[c] = to_float(obase[n * C + h * d + c]);
+    }
+    __syncwarp();
+    float m = -INFINITY;
+    for (int j = lane; j < N; j += 32) {
+      float s = 0.f, dp = 0.f;
+      for (int c = 0; c < d; ++c) {
+        s = fmaf(q_w[c], to_float(k_s[j * ks + c]), s);
+        dp = fmaf(o_w[c], to_float(v_s[j * d + c]), dp);
+      }
+      s *= scale;
+      p_w[j] = s;
+      dp_w[j] = dp;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float e = expf(p_w[j] - m);
+      p_w[j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    float dsum = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float p = p_w[j] / l;
+      p_w[j] = p;
+      dsum += dp_w[j] * p;
+    }
+    dsum = warp_sum(dsum);
+    for (int j = lane; j < N; j += 32)
+      p_w[j] = round_to<T>(p_w[j] * (dp_w[j] - dsum) * scale);
+    if (lane == 0) {
+      st[n] = m;
+      st[plane + n] = l;
+      st[2 * plane + n] = dsum;
+    }
+    __syncwarp();
+    for (int c = lane; c < d; c += 32) {
+      float acc = 0.f;
+      for (int j = 0; j < N; ++j) acc = fmaf(p_w[j], to_float(k_s[j * ks + c]), acc);
+      gbase[n * C3 + h * d + c] = from_float<T>(acc);
+    }
+    __syncwarp();
+  }
+}
+
+// Pass 2: one key row per warp; Q_h rows (padded stride) and dO_h rows.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    packed_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                                    T* __restrict__ dqkv, const float* __restrict__ stats,
+                                    int N, int C, int H, int d, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ks = k_stride<T>(d);
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* o_s = q_s + static_cast<size_t>(N) * ks;
+  float* f_s = reinterpret_cast<float*>(o_s + static_cast<size_t>(N) * d);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* k_w = f_s + warp * 2 * (d + N);  // (d,) key row
+  float* v_w = k_w + d;                   // (d,) value row
+  float* pb_w = v_w + d;                  // (N,) round(P) of this key
+  float* ds_w = pb_w + N;                 // (N,) dS of this key
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+  const T* base = qkv + static_cast<size_t>(b) * N * C3;
+  const T* obase = dout + static_cast<size_t>(b) * N * C;
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3;
+  for (int i = threadIdx.x; i < N * d; i += kBwdThreads) {
+    const int j = i / d;
+    const int c = i - j * d;
+    q_s[j * ks + c] = base[j * C3 + h * d + c];
+    o_s[j * d + c] = obase[j * C + h * d + c];
+  }
+  __syncthreads();
+
+  const float* st = stats + (static_cast<size_t>(b) * H + h) * N;
+  const size_t plane = static_cast<size_t>(gridDim.z) * H * N;
+  const int row0 = static_cast<int>(blockIdx.x) * kRowsPerBlock;
+  const int row_end = min(row0 + kRowsPerBlock, N);
+  for (int j = row0 + warp; j < row_end; j += kBwdWarps) {
+    for (int c = lane; c < d; c += 32) {
+      k_w[c] = to_float(base[j * C3 + C + h * d + c]);
+      v_w[c] = to_float(base[j * C3 + 2 * C + h * d + c]);
+    }
+    __syncwarp();
+    for (int i = lane; i < N; i += 32) {
+      float s = 0.f, dp = 0.f;
+      for (int c = 0; c < d; ++c) {
+        s = fmaf(to_float(q_s[i * ks + c]), k_w[c], s);
+        dp = fmaf(to_float(o_s[i * d + c]), v_w[c], dp);
+      }
+      s *= scale;
+      const float p = expf(s - st[i]) / st[plane + i];
+      pb_w[i] = round_to<T>(p);
+      ds_w[i] = round_to<T>(p * (dp - st[2 * plane + i]) * scale);
+    }
+    __syncwarp();
+    for (int c = lane; c < d; c += 32) {
+      float dv = 0.f, dk = 0.f;
+      for (int i = 0; i < N; ++i) {
+        dv = fmaf(pb_w[i], to_float(o_s[i * d + c]), dv);
+        dk = fmaf(ds_w[i], to_float(q_s[i * ks + c]), dk);
+      }
+      gbase[j * C3 + C + h * d + c] = from_float<T>(dk);
+      gbase[j * C3 + 2 * C + h * d + c] = from_float<T>(dv);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int B,
+               int N, int C, int heads, cudaStream_t stream) {
+  const int d = C / heads;
+  const size_t smem = bwd_smem_bytes<T>(N, d);
+  cudaError_t err = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(packed_attention_bwd_dkv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, heads, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  const T* q = static_cast<const T*>(qkv);
+  const T* o = static_cast<const T*>(dout);
+  T* g = static_cast<T*>(dqkv);
+  packed_attention_bwd_dq_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+      q, o, g, stats, N, C, heads, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  packed_attention_bwd_dkv_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+      q, o, g, stats, N, C, heads, d, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes shared with ops/kernels/attention.py: 0 = float32, 1 = bfloat16.
@@ -391,5 +931,43 @@ extern "C" int packed_attention_fwd(const void* qkv, void* out, int B, int N,
   }
   if (dtype == 0) return launch<float>(qkv, out, B, N, C, heads, s);
   if (dtype == 1) return launch<__nv_bfloat16>(qkv, out, B, N, C, heads, s);
+  return cudaErrorInvalidValue;
+}
+
+// Backward: 1 when (N, d, dtype) runs its two passes on the tensor cores.
+extern "C" int packed_attention_bwd_uses_mma(int N, int d, int dtype) {
+  return mma_bwd_path(N, d, dtype) ? 1 : 0;
+}
+
+// Shared memory of the larger of the backward's two passes.
+extern "C" long long packed_attention_bwd_smem_bytes(int N, int d, int dtype) {
+  if (mma_bwd_path(N, d, dtype)) {
+    const size_t a = mma_bwd_dq_smem_bytes(N, d);
+    const size_t b = mma_bwd_dkv_smem_bytes(N, d);
+    return static_cast<long long>(a > b ? a : b);
+  }
+  if (dtype == 0) return static_cast<long long>(bwd_smem_bytes<float>(N, d));
+  if (dtype == 1) return static_cast<long long>(bwd_smem_bytes<__nv_bfloat16>(N, d));
+  return -1;
+}
+
+// qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out, all of one
+// dtype; stats is (3, B, heads, N) float32 scratch.
+extern "C" int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv,
+                                    void* stats, int B, int N, int C, int heads,
+                                    int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
+  const int d = C / heads;
+  if (mma_bwd_path(N, d, dtype)) {
+    if (d == 32) return launch_bwd_mma<32>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    if (d == 64) return launch_bwd_mma<64>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    return launch_bwd_mma<128>(qkv, dout, dqkv, st, B, N, C, heads, s);
+  }
+  if (dtype == 0) return launch_bwd<float>(qkv, dout, dqkv, st, B, N, C, heads, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, st, B, N, C, heads, s);
   return cudaErrorInvalidValue;
 }

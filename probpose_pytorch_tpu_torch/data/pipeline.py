@@ -1,0 +1,96 @@
+"""Host-side synthetic poses and batching (copy of the host numpy code of
+probpose_pytorch_tpu/data/pipeline.py, which the port cannot import: the
+JAX package's `__init__` pulls in jax).
+
+Samples are numpy; the train step moves each batch to the model's device.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+from typing import Any, Iterator, Sequence
+
+import numpy as np
+
+__all__ = ["SyntheticPoseDataset", "batch_iterator"]
+
+
+class SyntheticPoseDataset:
+    """Procedural pose dataset: random blob "limbs" rendered at keypoint
+    locations. Deterministic per (seed, index), and the same samples as the
+    JAX package's dataset of the same name."""
+
+    def __init__(
+        self,
+        size: int,
+        input_size: tuple[int, int] = (256, 192),
+        num_keypoints: int = 17,
+        seed: int = 0,
+    ):
+        self.size = size
+        self.input_size = input_size
+        self.num_keypoints = num_keypoints
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        H, W = self.input_size
+        K = self.num_keypoints
+        rng = np.random.default_rng((self.seed, idx))
+        kpts = rng.uniform([-0.1 * W, -0.1 * H], [1.1 * W, 1.1 * H], (K, 2))
+        visible = (rng.random(K) > 0.15).astype(np.float32)
+        visibility = np.where(
+            visible > 0, (rng.random(K) > 0.3).astype(np.float32), 0.0
+        )
+        img = (rng.random((H, W, 3)) * 60).astype(np.float32)
+        ys, xs = np.mgrid[0:H, 0:W]
+        for k in range(K):
+            if visible[k] < 0.5:
+                continue
+            d2 = (xs - kpts[k, 0]) ** 2 + (ys - kpts[k, 1]) ** 2
+            img += (
+                rng.random(3)[None, None]
+                * 195.0
+                * np.exp(-d2 / (2 * 16.0))[..., None]
+            )
+        return dict(
+            image=np.clip(img, 0, 255).astype(np.uint8),
+            keypoints=kpts.astype(np.float32),
+            keypoints_visible=visible,
+            keypoints_visibility=visibility,
+        )
+
+
+def _collate(samples: Sequence[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0].keys()}
+
+
+def batch_iterator(
+    dataset: Any,
+    batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_last: bool = True,
+    num_workers: int = 4,
+    epoch: int = 0,
+) -> Iterator[dict[str, np.ndarray]]:
+    """Yield collated numpy batches, samples loaded in a thread pool.
+    Shuffling draws the permutation from the (seed, epoch) generator, as
+    the JAX iterator does. Its multi-host slicing is not ported (ROADMAP
+    item 13)."""
+    idx = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng((seed, epoch)).shuffle(idx)
+    ends = len(idx) // batch_size * batch_size
+    groups = [idx[i : i + batch_size] for i in range(0, ends, batch_size)]
+    if not drop_last and ends < len(idx):
+        groups.append(idx[ends:])
+    if num_workers <= 1:
+        for g in groups:
+            yield _collate([dataset[int(i)] for i in g])
+        return
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
+        for g in groups:
+            yield _collate(list(pool.map(dataset.__getitem__, (int(i) for i in g))))

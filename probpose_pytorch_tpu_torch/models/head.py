@@ -6,9 +6,10 @@ layouts: heatmaps (B, K, H, W) and four (B, K, 1, 1) scalar maps
 (probability, visibility, oks, error).
 
 Numerics follow the flax modules: convolutions run in the compute dtype,
-BatchNorm in float32 from its running statistics (eval mode, eps 1e-5),
-and the heatmap branch goes to float32 before sparsemax (temperature 0.5,
-then x normalize and clamp to [0, 1]). Sparsemax is kernel K2 on the card.
+BatchNorm in float32 (eps 1e-5) -- from its running statistics in eval
+mode, from the batch's statistics in train mode, where it also updates the
+running ones -- and the heatmap branch goes to float32 before sparsemax
+(temperature 0.5, then x normalize and clamp to [0, 1]). Sparsemax is kernel K2 on the card.
 A flax `ConvTranspose(k=4, s=2, padding="SAME")` is a
 `conv_transpose2d(stride=2, padding=1)` with the kernel flipped spatially;
 compat/from_jax.py does the flip when it loads the weights.
@@ -27,6 +28,7 @@ from probpose_pytorch_tpu_torch.ops.sparsemax import sparsemax
 __all__ = ["ProbMapHead"]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 TEMPERATURE = 0.5  # sparsemax temperature of the reference head
 
 
@@ -38,9 +40,24 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """flax `nn.BatchNorm(use_running_average=True, dtype=float32)`."""
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, eps=bn.eps)
+    """flax `nn.BatchNorm(use_running_average=not bn.training,
+    momentum=0.9, dtype=float32)` over NCHW.
+
+    Train mode: the f32 batch mean and flax's fast variance, E[x^2] - E[x]^2
+    clamped at 0 (biased), normalise x and carry gradients; the running
+    statistics become 0.9 * running + 0.1 * batch, biased variance included
+    (`F.batch_norm(training=True)` would store the unbiased one)."""
+    x = x.float()
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, training=False, eps=bn.eps)
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        for stat, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+            stat.copy_(BN_MOMENTUM * stat + (1.0 - BN_MOMENTUM) * batch)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 
 
 class _ScalarBranch(nn.Module):
@@ -147,6 +164,6 @@ class ProbMapHead(nn.Module):
         heatmaps = self.heatmaps(x)
         # The scalar branches read detached features (the flagship's
         # detach_probability / detach_visibility defaults; oks and error
-        # always detach).
+        # always detach): their losses train their own convs and BNs only.
         x = x.detach()
         return (heatmaps, *(self.branches[name](x) for name, _ in self.BRANCHES))

@@ -2,9 +2,9 @@
 probpose_pytorch_tpu/models/model.py).
 
 `ModelConfig` takes every key of the JAX `ModelConfig`, so the `model`
-block of any configs/*.json loads as `ModelConfig(**block)`, and raises
-`NotImplementedError` for the values this port does not run yet, naming
-the ROADMAP item that ports each.
+block of any configs/*.json loads as `ModelConfig(**block)`. `build_model`
+raises `NotImplementedError` for the values this port does not run yet,
+naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class ModelConfig:
     # implementation.
     scalar_impl: str = "separate"
     deconv_impl: str = "lax"
-    remat: bool = False  # training memory knob; no effect on serving
+    remat: bool = False  # per-block recompute in training; raises there
     num_prefix_tokens: int = 0
     exact_gelu: bool = False
     pp_stages: int = 1
@@ -67,6 +67,10 @@ class ModelConfig:
     def __post_init__(self):
         for f in fields(self):
             object.__setattr__(self, f.name, _tuples(getattr(self, f.name)))
+
+    def check_ported(self) -> None:
+        """Raise for values the port cannot build yet, naming the ROADMAP
+        item that ports each; ValueError for values that are no option."""
         unported = [
             (self.head_type == "simcc", "head_type='simcc'", 9),
             (self.backbone.startswith("conv"), f"backbone={self.backbone!r}", 10),
@@ -171,6 +175,7 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cpu",
                 seed: int = 0) -> ProbPoseModel:
     """The model of `cfg` on `device`, in eval mode, with weights drawn from
     a `torch.Generator` seeded with `seed`."""
+    cfg.check_ported()
     vit = ViTConfig.PRESETS[cfg.backbone]
     backbone = ViTBackbone(
         img_size=cfg.img_size,
@@ -184,6 +189,7 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cpu",
         adapter_hidden=cfg.adapter_hidden,
         num_prefix_tokens=cfg.num_prefix_tokens,
         exact_gelu=cfg.exact_gelu,
+        remat=cfg.remat,
     )
     feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
     head = ProbMapHead(

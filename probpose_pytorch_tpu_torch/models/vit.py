@@ -100,6 +100,11 @@ class ViTBackbone(nn.Module):
     `num_prefix_tokens` learned tokens join attention and are stripped
     before the grid reshape; `frozen` detaches the trunk output;
     `adapter_hidden` adds a token MLP (ReLU between layers) after it.
+    Parameters stay float32 and are cast to the compute dtype per call, so
+    gradients reach the float32 masters through the casts, as flax's f32
+    `param_dtype` does. The JAX trunk has no dropout, nor does this one.
+    `remat` (recompute each block in the backward) is not ported: training
+    with it raises.
     """
 
     def __init__(
@@ -115,8 +120,10 @@ class ViTBackbone(nn.Module):
         adapter_hidden: Sequence[int] = (),
         num_prefix_tokens: int = 0,
         exact_gelu: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -147,6 +154,11 @@ class ViTBackbone(nn.Module):
                 self.img_size[1] // self.patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "remat=True (per-block recompute in training) is not ported "
+                "to PyTorch yet (ROADMAP item 6)"
+            )
         B = x.shape[0]
         gh, gw = self.grid_size
         dt = self.dtype

@@ -26,6 +26,8 @@ __all__ = [
     "heatmap_maximum",
     "subpixel_refine",
     "expected_value_decode",
+    "calc_distances",
+    "distance_acc",
 ]
 
 
@@ -148,3 +150,23 @@ def expected_value_decode(
     if return_heatmap:
         return locs, vals, conv
     return locs, vals
+
+
+def calc_distances(preds: torch.Tensor, gts: torch.Tensor, mask: torch.Tensor,
+                   norm_factor: torch.Tensor) -> torch.Tensor:
+    """Normalised distances (K, N) between (N, K, D) predictions and
+    targets, -1 where masked; instances with a zero norm factor are masked
+    and non-positive factors become 1e6 (the reference's quirks)."""
+    mask = mask & ~(norm_factor == 0).any(dim=1)[:, None]
+    norm = torch.where(norm_factor <= 0, 1e6, norm_factor)
+    d = torch.linalg.norm((preds - gts) / norm[:, None, :], dim=-1)
+    return torch.where(mask, d, -1.0).T.float()
+
+
+def distance_acc(distances: torch.Tensor, thr: float = 0.5) -> torch.Tensor:
+    """Fraction of valid (!= -1) distances below `thr` along the last axis;
+    -1 where none is valid."""
+    valid = distances != -1
+    n = valid.sum(dim=-1)
+    acc = ((distances < thr) & valid).sum(dim=-1) / n.clamp_min(1)
+    return torch.where(n > 0, acc, -1.0)

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-    attention.py   K1 forward, CUDA C++ (csrc/packed_attention.cu)
+    attention.py   K1 forward and backward, CUDA C++ (csrc/packed_attention.cu)
     sparsemax.py   K2, Triton
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and

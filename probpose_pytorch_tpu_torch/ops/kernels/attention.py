@@ -1,15 +1,21 @@
-"""Kernel K1 forward: packed multi-head attention, and its plain version.
+"""Kernel K1: packed multi-head attention, forward and backward, and their
+plain versions.
 
-Replaces the TPU kernel `_packed_fwd_kernel` of
-probpose_pytorch_tpu/ops/pallas/attention_kernel.py (`packed_attention`,
-qkv-major layout). The CUDA source, with the note on what bounds it on the
-card and how its design answers that, is csrc/packed_attention.cu: bf16
-inputs with d in {32, 64, 128} and N <= 256 run on the tensor cores, all
-other shapes on the CUDA cores (`kernel_path` says which).
+Replaces the TPU kernels `_packed_fwd_kernel` and `_packed_bwd_kernel` of
+probpose_pytorch_tpu/ops/pallas/attention_kernel.py (`packed_attention`, a
+`jax.custom_vjp` whose backward recomputes the scores, qkv-major layout).
+The CUDA source, with the note on what bounds each pass on the card and how
+its design answers that, is csrc/packed_attention.cu: bf16 inputs with d in
+{32, 64, 128} and N <= 256 run on the tensor cores, all other shapes on the
+CUDA cores (`kernel_path` says which).
 
 `packed_attention(qkv, heads)` takes the (B, N, 3C) output of the qkv
-projection as it is and returns the (B, N, C) context:
-  * CPU tensor  -> `packed_attention_reference` (plain PyTorch);
+projection as it is and returns the (B, N, C) context. It is a
+`torch.autograd.Function` that saves only qkv, as the JAX custom_vjp does;
+its backward is `packed_attention_backward`, which writes dqkv straight in
+the packed layout. Both wrappers:
+  * CPU tensor  -> the plain version (`packed_attention_reference`,
+                   `packed_attention_bwd_reference`);
   * CUDA tensor -> the CUDA kernel, or an error for anything it does not take.
 Shapes the kernel cannot hold in shared memory raise; the long-sequence
 kernel (K4) that would serve them is still to be ported.
@@ -23,9 +29,23 @@ import torch
 
 from probpose_pytorch_tpu_torch.ops import kernels
 
-__all__ = ["packed_attention", "packed_attention_reference", "kernel_path"]
+__all__ = [
+    "packed_attention",
+    "packed_attention_reference",
+    "packed_attention_backward",
+    "packed_attention_bwd_reference",
+    "kernel_path",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _unpack(qkv: torch.Tensor, heads: int):
+    """(B, N, 3C) -> float32 q, k, v, each (B, N, heads, d), and 1/sqrt(d)."""
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    q, k, v = qkv.float().reshape(B, N, 3, heads, d).unbind(2)
+    return q, k, v, 1.0 / d**0.5
 
 
 def packed_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -33,13 +53,33 @@ def packed_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     with the f32 softmax. q.k and P.V accumulate in f32; P is rounded to
     qkv's dtype before P.V; the context comes back in qkv's dtype."""
     B, N, C3 = qkv.shape
-    C = C3 // 3
-    d = C // heads
-    q, k, v = qkv.reshape(B, N, 3, heads, d).unbind(2)
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * (1.0 / d**0.5)
+    q, k, v, scale = _unpack(qkv, heads)
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
-    out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
-    return out.reshape(B, N, C).to(qkv.dtype)
+    out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v)
+    return out.reshape(B, N, C3 // 3).to(qkv.dtype)
+
+
+def packed_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor,
+                                   heads: int) -> torch.Tensor:
+    """Plain backward, line by line `_packed_bwd_kernel`
+    (attention_kernel.py:146-191): f32 scores and softmax recomputed from
+    qkv; dV = round(P)^T dO; dS = round(P * (dP - rowsum(dP * P)) * scale)
+    with the row sum over the unrounded P; dQ = dS K, dK = dS^T Q, all sums
+    in f32. round() is to qkv's dtype. Returns dqkv (B, N, 3C) packed in
+    qkv's layout and dtype."""
+    B, N, C3 = qkv.shape
+    q, k, v, scale = _unpack(qkv, heads)
+    do = dout.float().reshape(B, N, heads, -1)
+    rnd = lambda t: t.to(qkv.dtype).float()
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+    dv = torch.einsum("bhnm,bnhd->bmhd", rnd(p), do)
+    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
+    dsum = (dp * p).sum(dim=-1, keepdim=True)
+    ds = rnd(p * (dp - dsum) * scale)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
+    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3).to(qkv.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,28 +87,28 @@ def _lib() -> ctypes.CDLL:
 
     lib = library()
     if not getattr(lib, "_attention_bound", False):
-        lib.packed_attention_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.packed_attention_fwd.restype = ctypes.c_int
-        lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.packed_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.packed_attention_max_smem.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.packed_attention_max_smem.restype = ctypes.c_int
-        lib.packed_attention_uses_mma.argtypes = [ctypes.c_int] * 3
-        lib.packed_attention_uses_mma.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.packed_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.packed_attention_fwd.restype = i32
+        lib.packed_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.packed_attention_bwd.restype = i32
+        for name in ("packed_attention_smem_bytes", "packed_attention_bwd_smem_bytes"):
+            getattr(lib, name).argtypes = [i32] * 3
+            getattr(lib, name).restype = ctypes.c_longlong
+        for name in ("packed_attention_uses_mma", "packed_attention_bwd_uses_mma"):
+            getattr(lib, name).argtypes = [i32] * 3
+            getattr(lib, name).restype = i32
+        lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.packed_attention_max_smem.restype = i32
         lib._attention_bound = True
     return lib
 
 
-def kernel_path(N: int, d: int, dtype: torch.dtype) -> str:
+def kernel_path(N: int, d: int, dtype: torch.dtype, backward: bool = False) -> str:
     """Which CUDA path serves (N, d, dtype): "tensor cores" or "CUDA cores"."""
-    return ("tensor cores" if _lib().packed_attention_uses_mma(N, d, _DTYPES[dtype])
-            else "CUDA cores")
+    lib = _lib()
+    fn = lib.packed_attention_bwd_uses_mma if backward else lib.packed_attention_uses_mma
+    return "tensor cores" if fn(N, d, _DTYPES[dtype]) else "CUDA cores"
 
 
 def _check(qkv: torch.Tensor, heads: int) -> None:
@@ -92,36 +132,50 @@ def _check(qkv: torch.Tensor, heads: int) -> None:
         raise ValueError(f"packed_attention: batch {B} exceeds the grid's 65535")
 
 
-def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv."""
-    _check(qkv, heads)
-    if qkv.device.type == "cpu" or (qkv.is_cuda and kernels.plain_enabled()):
-        return packed_attention_reference(qkv, heads)
-    if not qkv.is_cuda:
-        raise ValueError(f"packed_attention: unsupported device {qkv.device}")
+def _use_plain(t: torch.Tensor, what: str) -> bool:
+    """True for the plain version (CPU tensor, or `plain_versions()` on);
+    False for the kernel (CUDA tensor); raises for any other device."""
+    if t.device.type == "cpu" or (t.is_cuda and kernels.plain_enabled()):
+        return True
+    if not t.is_cuda:
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return False
+
+
+def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) -> int:
+    """CUDA device index of qkv, after checking that the kernel's shared
+    memory fits the card and that qkv is 16-byte aligned."""
     B, N, C3 = qkv.shape
-    C = C3 // 3
-    d = C // heads
-    code = _DTYPES[qkv.dtype]
+    d = C3 // 3 // heads
     lib = _lib()
     device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
     limit = ctypes.c_int(0)
     err = lib.packed_attention_max_smem(device, ctypes.byref(limit))
     if err:
-        raise RuntimeError(f"packed_attention: cudaDeviceGetAttribute failed ({err})")
-    need = lib.packed_attention_smem_bytes(N, d, code)
+        raise RuntimeError(f"{what}: cudaDeviceGetAttribute failed ({err})")
+    need = smem_fn(N, d, _DTYPES[qkv.dtype])
     if need > limit.value:
         raise ValueError(
-            f"packed_attention: N={N}, d={d} ({qkv.dtype}) needs {need} bytes "
+            f"{what}: N={N}, d={d} ({qkv.dtype}) needs {need} bytes "
             f"of shared memory, the card allows {limit.value}; the "
             "long-sequence kernel K4 is not ported yet"
         )
     if qkv.data_ptr() % 16:
-        raise ValueError("packed_attention: qkv must be 16-byte aligned")
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+        raise ValueError(f"{what}: qkv must be 16-byte aligned")
+    return device
+
+
+def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    if _use_plain(qkv, "packed_attention"):
+        return packed_attention_reference(qkv, heads)
+    lib = _lib()
+    device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
+                                    "packed_attention")
+    B, N, C3 = qkv.shape
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     err = lib.packed_attention_fwd(
-        qkv.data_ptr(), out.data_ptr(), B, N, C, heads, code, device,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, _DTYPES[qkv.dtype],
+        device, torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:
         raise RuntimeError(
@@ -132,4 +186,67 @@ def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return out
 
 
+def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
+                              heads: int) -> torch.Tensor:
+    """dqkv (B, N, 3C) of `packed_attention` from qkv and the context's
+    gradient dout (B, N, C), both of one dtype; dout is made contiguous."""
+    _check(qkv, heads)
+    B, N, C3 = qkv.shape
+    if tuple(dout.shape) != (B, N, C3 // 3):
+        raise ValueError(
+            f"packed_attention_backward: dout {tuple(dout.shape)} does not "
+            f"match qkv {tuple(qkv.shape)}"
+        )
+    if dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise TypeError(
+            f"packed_attention_backward: dout is {dout.dtype} on {dout.device}, "
+            f"qkv {qkv.dtype} on {qkv.device}"
+        )
+    if _use_plain(qkv, "packed_attention_backward"):
+        return packed_attention_bwd_reference(qkv, dout, heads)
+    dout = dout.contiguous()
+    lib = _lib()
+    device = _device_and_smem_check(qkv, heads, lib.packed_attention_bwd_smem_bytes,
+                                    "packed_attention_backward")
+    if dout.data_ptr() % 16:
+        raise ValueError("packed_attention_backward: dout must be 16-byte aligned")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
+    err = lib.packed_attention_bwd(
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        B, N, C3 // 3, heads, _DTYPES[qkv.dtype], device,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"packed_attention_backward: kernel launch failed with cudaError "
+            f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}"
+        )
+    packed_attention_backward.launches += 1
+    return dqkv
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1 forward, with K1 backward as its gradient; saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        return _forward(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return packed_attention_backward(qkv, grad, ctx.heads), None
+
+
+def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv;
+    differentiable through K1's backward."""
+    _check(qkv, heads)
+    return _PackedAttention.apply(qkv, heads)
+
+
 packed_attention.launches = 0
+packed_attention_backward.launches = 0

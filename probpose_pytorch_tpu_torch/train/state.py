@@ -1,0 +1,226 @@
+"""Train state, learning-rate schedule and optimizer (port of
+probpose_pytorch_tpu/train/state.py).
+
+The optimizer is a functional update written out in optax's order, so a run
+continues a JAX run step for step (compat/from_jax.py carries the state):
+
+    apply_if_finite(                  # when max_nonfinite_skips > 0
+      clip_by_global_norm(clip)       # optax form: t / |g| * clip, no epsilon
+      -> scale_by_adam(b1, b2, 1e-8)  # eps outside the square root
+      -> add_decayed_weights(wd)      # every leaf: biases, LN and BN too
+      -> scale_by_schedule(-lr(count)))
+
+`torch.optim.AdamW` with `clip_grad_norm_` and `OneCycleLR` is not the same
+function: clip_grad_norm_ adds 1e-6 to the norm and OneCycleLR's phase
+boundaries sit one step from optax's. State lives on the parameters' device
+and nothing here synchronises with the host: a non-finite step is skipped
+with `torch.where`, not a Python branch, and the schedule's constants are
+copied to a device once (a blocking host-to-device copy waits for the
+stream). Parameters are updated in place.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from probpose_pytorch_tpu_torch.train.config import OptimConfig
+
+__all__ = [
+    "onecycle_schedule",
+    "build_schedule",
+    "global_norm",
+    "AdamW",
+    "OptState",
+    "make_optimizer",
+    "TrainState",
+]
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def onecycle_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
+    """optax.cosine_onecycle_schedule(max(total_steps, min_total), peak_lr,
+    pct_start, div_factor, final_div_factor), min_total being the floor
+    that keeps the warmup interval non-empty. Phase boundaries are
+    int(pct_start * T) and T; between them the value is
+    end + (start - end) / 2 * (cos(pi * pct) + 1), rounded as XLA rounds
+    the jitted optax schedule: (start - end) / 2 is taken in float64 on the
+    host, the rest in float32 on the count's device."""
+    min_total = int(np.ceil(1.0 / max(cfg.pct_start, 1e-3))) + 1
+    T = max(total_steps, min_total)
+    bounds = np.array([0, int(cfg.pct_start * T), int(T)])
+    values = np.cumprod([cfg.peak_lr / cfg.div_factor, cfg.div_factor,
+                         1.0 / (cfg.div_factor * cfg.final_div_factor)])
+    half = (values[:-1] - values[1:]) / 2.0
+    consts: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        dev = count.device
+        if dev not in consts:
+            f32 = lambda v: torch.tensor(np.asarray(v, np.float32), device=dev)
+            consts[dev] = (torch.tensor(bounds[:-1], device=dev),
+                           torch.tensor(bounds[1:], device=dev),
+                           f32(values[1:]), f32(half), f32(values[-1]))
+        lo, hi, ends, halves, last = consts[dev]
+        # XLA turns the division by the constant interval into a product
+        # with its float32 reciprocal; so does this.
+        pct = (count - lo).float() * (1.0 / (hi - lo).float())
+        # cos of the float32 argument, correctly rounded to float32.
+        cos = torch.cos((math.pi * pct).double()).float()
+        # end + half * (cos + 1) as one fused multiply-add, as XLA emits it.
+        interp = (ends.double() + halves.double() * (cos + 1).double()).float()
+        inside = (lo <= count) & (count < hi)
+        return (inside.float() * interp).sum() + (int(bounds[-1]) <= count).float() * last
+
+    return schedule
+
+
+def build_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
+    """`OptimConfig.schedule`: "onecycle" (the reference recipe) or
+    "constant" (flat peak_lr)."""
+    if cfg.schedule == "onecycle":
+        return onecycle_schedule(cfg, total_steps)
+    if cfg.schedule == "constant":
+        return lambda count: torch.full((), cfg.peak_lr, dtype=torch.float32,
+                                        device=torch.as_tensor(count).device)
+    if cfg.schedule == "cosine":
+        raise NotImplementedError(
+            "optim.schedule='cosine' is not ported to PyTorch yet (ROADMAP item 6)")
+    raise ValueError(f"unknown optim.schedule {cfg.schedule!r}")
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+@dataclass
+class OptState:
+    """optax's state of the chain above, one tensor per parameter in the
+    order of `TrainState.names`. `count` is scale_by_adam's,
+    `schedule_count` scale_by_schedule's; the last three are
+    apply_if_finite's (all 0-d, on the parameters' device)."""
+
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    count: torch.Tensor
+    schedule_count: torch.Tensor
+    notfinite_count: torch.Tensor
+    last_finite: torch.Tensor
+    total_notfinite: torch.Tensor
+
+
+class AdamW:
+    """The functional optimizer: `init(params)` and
+    `update(grads, state, params) -> (updates, state)`."""
+
+    def __init__(self, cfg: OptimConfig, schedule: Schedule):
+        self.cfg = cfg
+        self.schedule = schedule
+        self.eps = 1e-8
+
+    def init(self, params: list[torch.Tensor]) -> OptState:
+        dev = params[0].device
+        zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
+        return OptState(
+            mu=[torch.zeros_like(p) for p in params],
+            nu=[torch.zeros_like(p) for p in params],
+            count=zero(torch.int32),
+            schedule_count=zero(torch.int32),
+            notfinite_count=zero(torch.int32),
+            last_finite=torch.ones((), dtype=torch.bool, device=dev),
+            total_notfinite=zero(torch.int32),
+        )
+
+    def update(self, grads: list[torch.Tensor], state: OptState,
+               params: list[torch.Tensor]) -> tuple[list[torch.Tensor], OptState]:
+        cfg = self.cfg
+        grads = [g.float() for g in grads]
+        g_norm = global_norm(grads)
+        # clip_by_global_norm: t where |g| < clip, else (t / |g|) * clip.
+        clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), cfg.clip_grad_norm)
+        trigger = g_norm < cfg.clip_grad_norm
+        g = [torch.where(trigger, t, c) for t, c in zip(grads, clipped)]
+        # scale_by_adam: moments as (1 - b) * g^order + b * m.
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - cfg.b1),
+                                torch._foreach_mul(state.mu, cfg.b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - cfg.b2),
+                                torch._foreach_mul(state.nu, cfg.b2))
+        count = state.count + 1
+        bc1 = 1 - torch.pow(cfg.b1, count)
+        bc2 = 1 - torch.pow(cfg.b2, count)
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
+        u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        # add_decayed_weights on every leaf, then -lr(count).
+        u = torch._foreach_add(u, torch._foreach_mul(params, cfg.weight_decay))
+        u = torch._foreach_mul(u, -self.schedule(state.schedule_count))
+        new = OptState(mu, nu, count, state.schedule_count + 1, state.notfinite_count,
+                       state.last_finite, state.total_notfinite)
+        if cfg.max_nonfinite_skips <= 0:
+            return u, new
+        # apply_if_finite: a step with non-finite gradients leaves the inner
+        # state (moments and both counts) as it was and updates nothing,
+        # unless more than max_nonfinite_skips came in a row.
+        finite = torch.isfinite(torch.stack(
+            torch._foreach_norm(grads, ord=float("inf")))).all()
+        notfinite = torch.where(finite, 0, state.notfinite_count + 1).int()
+        accept = finite | (notfinite > cfg.max_nonfinite_skips)
+        pick = lambda a, b: [torch.where(accept, x, y) for x, y in zip(a, b)]
+        return [torch.where(accept, x, 0.0) for x in u], OptState(
+            mu=pick(mu, state.mu),
+            nu=pick(nu, state.nu),
+            count=torch.where(accept, count, state.count),
+            schedule_count=torch.where(accept, new.schedule_count, state.schedule_count),
+            notfinite_count=notfinite,
+            last_finite=finite,
+            total_notfinite=torch.where(finite, state.total_notfinite,
+                                        state.total_notfinite + 1).int(),
+        )
+
+
+def make_optimizer(cfg: OptimConfig, total_steps: int) -> AdamW:
+    """The optimizer of `cfg`; the families, masks and accumulation this
+    port does not run raise, naming their ROADMAP item."""
+    if cfg.optimizer != "adamw":
+        raise NotImplementedError(
+            f"optim.optimizer={cfg.optimizer!r} is not ported to PyTorch yet "
+            "(ROADMAP item 6); the port has 'adamw'")
+    if cfg.accum_steps > 1:
+        raise NotImplementedError(
+            "optim.accum_steps > 1 is not ported to PyTorch yet (ROADMAP item 6)")
+    return AdamW(cfg, build_schedule(cfg, total_steps))
+
+
+class TrainState:
+    """step, the model's parameters (float32 masters, updated in place) and
+    BatchNorm statistics (its buffers), the optimizer state and the EMA of
+    the parameters. `names` fixes the parameter order of every list."""
+
+    def __init__(self, model: torch.nn.Module, tx: AdamW, ema: bool):
+        self.model = model
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        device = self.params[0].device
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.opt_state = tx.init(self.params)
+        self.ema_params = [p.detach().clone() for p in self.params] if ema else None
+
+    def apply_gradients(self, grads: list[torch.Tensor], tx: AdamW,
+                        ema_decay: float | None = None) -> None:
+        """One optimizer step in place; the EMA (e * decay + p * (1 - decay))
+        follows the new parameters even when the step was skipped."""
+        updates, self.opt_state = tx.update(grads, self.opt_state, self.params)
+        with torch.no_grad():
+            torch._foreach_add_(self.params, updates)
+            if ema_decay is not None and self.ema_params is not None:
+                new = torch._foreach_add(torch._foreach_mul(self.ema_params, ema_decay),
+                                         torch._foreach_mul(self.params, 1.0 - ema_decay))
+                torch._foreach_copy_(self.ema_params, new)
+        self.step = self.step + 1

@@ -234,5 +234,8 @@ def test_flagship_geometry_loads_strictly():
     (dict(attn_impl="einsum", softmax_dtype="bfloat16"), "item 4"),
 ])
 def test_model_config_names_roadmap_item_for_unported(over, item):
+    """Such a config loads (training configs carry it) and the model build
+    refuses it, naming the ROADMAP item."""
+    cfg = ModelConfig(**over)
     with pytest.raises(NotImplementedError, match=item):
-        ModelConfig(**over)
+        build_model(cfg)
