@@ -33,12 +33,32 @@ generator:
            version at that batch; then, not gated, the K1 backward time,
            step time, crops/s, a per-stage split (CUDA events) and peak
            device memory
+  phase 6  ViT-B with mlp_impl="fused" (configs/vitb_coco.json, full width
+           and depth) served at a batch of 256: requests of 1, 8 and 64
+           crops with 12 K1, 12 K5 forward and 1 K2 launch per forward; the
+           same weights with attn_impl="pallas" launch K6 instead of K1 and
+           give the same keypoints; K5 forward and K6 against their plain
+           versions at the batch's shapes (and a ragged K5 case); then, not
+           gated, K5, K6 and ViT-B's K1 against their plain versions, the
+           dense half-block (cuBLAS) and scaled_dot_product_attention, and
+           serving crops/s
+  phase 7  that ViT-B trained through Trainer with per-block recompute
+           (remat) at its config's batch of 64, augmentation off: a float32
+           step through the kernels against the plain step; Trainer.fit for
+           10 bf16 steps whose losses are finite and fall, with 24 K1
+           forward, 12 K1 backward, 24 K5 forward, 12 K5 backward and 1 K2
+           launch per step; the K5 backward against its plain version at
+           that batch, bit-identical across two runs; then, not gated, its
+           time, step time, crops/s and peak device memory
 
-`--profile` adds a torch.profiler table of three bf16 training steps.
+`--profile` adds torch.profiler tables of three bf16 flagship training steps,
+three ViT-B serving batches and three ViT-B training steps.
 
 Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
-the kernels and {"ok": true, "device": {...}}.
+the kernels (launches on the main paths, error against the plain version,
+times, and the least time the card could take, `bound_ms`, from the H100
+SXM's published peaks) and {"ok": true, "device": {...}}.
 
 Nothing of JAX is imported: the port stands alone on the card.
 """
@@ -46,6 +66,7 @@ Nothing of JAX is imported: the port stands alone on the card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -65,6 +86,50 @@ K2_SUM_TOL = 1e-5
 KPT_TOL_PX = 1e-2
 PROB_TOL = 1e-4
 MARGIN = 1e-4
+VITB_SERVE_BATCH = 256
+VITB_TRAIN_STEPS = 10
+VITB_F32_BATCH = 8
+# H100 SXM at 700 W, NVIDIA's data sheet: device memory bytes/s, and dense
+# operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str = "bfloat16") -> tuple[float, str]:
+    """The least time the card could take for a call: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate, and its operations over the peak rate of their
+    type. Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_wrappers():
+    """name -> the wrapper whose `launches` counts that kernel."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        fused_attention,
+        packed_attention,
+        packed_attention_backward,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp, fused_ln_mlp_backward
+    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_rows
+
+    return dict(k1f=packed_attention, k1b=packed_attention_backward, k2=sparsemax_rows,
+                k5f=fused_ln_mlp, k5b=fused_ln_mlp_backward, k6=fused_attention)
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def k1_bound(ref) -> float:
@@ -130,6 +195,15 @@ def paired_ms(torch, kernel_fn, plain_fn, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def sdpa_ms(torch, qkv, heads: int) -> float:
+    """Time of the library's attention, F.scaled_dot_product_attention, on
+    the q, k, v of a packed (B, N, 3C) qkv: the yardstick of K1 and K6,
+    timed here and never called by the port."""
+    q, k, v = qkv.unflatten(-1, (3, heads, -1)).permute(2, 0, 3, 1, 4)
+    return cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                   iters=20)
+
+
 def peak_heatmap_branch(torch, model, seed: int = 1) -> None:
     """Freshly drawn head convs (std 0.001) give nearly flat heatmaps, whose
     argmax is ill-defined. Redraw the heatmap branch's convs at fan-in
@@ -140,6 +214,42 @@ def peak_heatmap_branch(torch, model, seed: int = 1) -> None:
             w = m.weight
             fan_in = w[0].numel() if isinstance(m, torch.nn.Conv2d) else w.shape[0] * 4
             w.copy_(torch.randn(w.shape, generator=hg).to(w.device) / fan_in**0.5)
+
+
+def make_codec(cfg):
+    """The ProbMap codec of a model config, as the serving phases use it."""
+    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+
+    return Codec(ProbMap((cfg.img_size[1], cfg.img_size[0]), tuple(cfg.heatmap_size),
+                         sigmas=np.full(cfg.num_keypoints, 0.05, np.float32), sigma=2.0))
+
+
+def check_answers(cfg, requests, answers, phase: int) -> None:
+    """Every field of every answer has its shape and is finite."""
+    K = cfg.num_keypoints
+    W, H = cfg.heatmap_size
+    shapes = dict(keypoints=(K, 2), scores=(K,), probabilities=(1, K),
+                  visibilities=(1, K), oks=(1, K), errors=(1, K), heatmaps=(K, H, W))
+    for (frames, _), out in zip(requests, answers):
+        B = len(frames)
+        for key, shape in shapes.items():
+            if key in out:
+                check(out[key].shape == (B, *shape), f"{key} shape {out[key].shape}")
+                check(np.isfinite(out[key]).all(), f"{key} not finite at B={B}")
+        say(f"phase {phase}: request of {B} crops answered: keypoints "
+            f"{out['keypoints'].shape}, mean score {out['scores'].mean():.4f}, all fields finite")
+
+
+def well_defined(torch, codec, heatmaps, dev):
+    """Mask of the keypoints whose OKS-convolved map has a top-2 margin
+    above MARGIN: only there is the argmax, and so the keypoint, stable
+    under rounding, and only there are keypoints compared."""
+    from probpose_pytorch_tpu_torch.ops.heatmap import oks_conv
+
+    row_op, col_op = codec.probmap.conv_operators(dev)
+    conv = oks_conv(torch.from_numpy(heatmaps).to(dev), row_op, col_op).flatten(2)
+    top2 = conv.topk(2, dim=-1).values
+    return ((top2[..., 0] - top2[..., 1]) > MARGIN).cpu().numpy()
 
 
 def request(seed: int, B: int):
@@ -218,13 +328,13 @@ def capture_grads(state, into: list) -> None:
     state.apply_gradients = wrapped
 
 
-def f32_step_pair(torch, dev, batch):
-    """Two fresh float32 trainers from the same weights, one step each on
-    `batch`: through the kernels, then through the plain versions. Returns
-    both trainers, their metrics and the gradients each step produced."""
+def f32_step_pair(torch, dev, batch, cfg):
+    """Two fresh float32 trainers of `cfg` from the same weights, one step
+    each on `batch`: through the kernels, then through the plain versions.
+    Returns both trainers, their metrics and the gradients each step
+    produced."""
     from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
 
-    cfg = train_config("float32", F32_TRAIN_BATCH)
     kern, plain = make_trainer(torch, cfg, dev), make_trainer(torch, cfg, dev)
     gk, gp = [], []
     capture_grads(kern.state, gk)
@@ -236,27 +346,37 @@ def f32_step_pair(torch, dev, batch):
     return kern, plain, mk, mp, gk[0], gp[0]
 
 
-def compare_f32_step(torch, dev, batch, lr: float) -> None:
-    """One float32 step through the kernels against the same step through
-    the plain versions, from the same weights and batch. cuDNN is held to
-    deterministic algorithms and a first, unchecked pair of steps settles
-    its choice for these shapes, so both compared steps convolve alike and
-    only the kernels differ between them."""
+def compare_f32_step(torch, dev, batch, lr: float, cfg, phase: int,
+                     routed: tuple[str, ...] = ()) -> None:
+    """One float32 step of `cfg` through the kernels against the same step
+    through the plain versions, from the same weights and batch. cuDNN is
+    held to deterministic algorithms and a first, unchecked pair of steps
+    settles its choice for these shapes, so both compared steps convolve
+    alike and only the kernels differ between them.
+
+    `routed` names leaves (by prefix) whose gradient is routed by a max:
+    the head's scalar branches, behind max-pools and a max over the grid.
+    Where the trunk's features differ by f32 rounding between the two
+    paths (K5 against cuBLAS sums in another order), a window whose top
+    two values lie within that rounding sends its gradient to another
+    element, and the leaf's gradient jumps. Those leaves run no kernel of
+    the port; their gradients are reported, and their params held to
+    Adam's first-step bound of 2 lr, but not to the grad tolerance."""
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
-        f32_step_pair(torch, dev, batch)
-        kern, plain, mk, mp, gk, gp = f32_step_pair(torch, dev, batch)
+        f32_step_pair(torch, dev, batch, cfg)
+        kern, plain, mk, mp, gk, gp = f32_step_pair(torch, dev, batch, cfg)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
     for key in mp:
         if key.startswith("loss"):
             a, b = float(mk[key]), float(mp[key])
-            say(f"phase 5: f32 {key}: kernel {a:.9g}, plain {b:.9g}")
+            say(f"phase {phase}: f32 {key}: kernel {a:.9g}, plain {b:.9g}")
             check(abs(a - b) <= 1e-5 * abs(b) + 1e-12, f"f32 {key} differs: {a} vs {b}")
     a, b = float(mk["grad_norm"]), float(mp["grad_norm"])
-    say(f"phase 5: f32 grad_norm: kernel {a:.9g}, plain {b:.9g} (1e-4 relative)")
+    say(f"phase {phase}: f32 grad_norm: kernel {a:.9g}, plain {b:.9g} (1e-4 relative)")
     check(abs(a - b) <= 1e-4 * abs(b), f"f32 grad_norm differs: {a} vs {b}")
     # The grad tolerance: 1e-4 of the plain gradient's max in each leaf, or,
     # for a leaf whose gradient is rounding noise below 1e-6 of the largest
@@ -266,15 +386,19 @@ def compare_f32_step(torch, dev, batch, lr: float) -> None:
     # is below the grad tolerance (or in a noise leaf): Adam's first step
     # moves those by up to lr whatever their size, so they may differ by 2 lr.
     gmax = max(g.abs().max().item() for g in gp)
-    worst, worst_g, loose, n_small = 0.0, 0.0, 0, 0
+    worst, worst_g, worst_routed, loose, n_small = 0.0, 0.0, 0.0, 0, 0
     for name, pk, pp, g, g_k in zip(kern.state.names, kern.state.params, plain.state.params,
                                     gp, gk):
         noise = g.abs().max().item() < 1e-6 * gmax
         gtol = 1e-6 * gmax if noise else 1e-4 * g.abs().max().item()
         g_err = (g_k - g).abs().max().item()
+        d = (pk - pp).abs()
+        if routed and name.startswith(routed):
+            worst_routed = max(worst_routed, g_err / gtol)
+            check(bool((d <= 2 * lr).all()), f"f32 param {name} beyond 2 lr")
+            continue
         worst_g = max(worst_g, g_err / gtol)
         check(g_err <= gtol, f"f32 grad {name} differs by {g_err} (tolerance {gtol:.3e})")
-        d = (pk - pp).abs()
         small = (g.abs() < 1e-4 * g.abs().max()) | noise
         big_err = d[~small].max().item() if (~small).any() else 0.0
         worst = max(worst, big_err)
@@ -282,92 +406,35 @@ def compare_f32_step(torch, dev, batch, lr: float) -> None:
         check(bool((d[small] <= 2 * lr).all()), f"f32 param {name} beyond 2 lr")
         n_small += int(small.sum())
         loose += int((small & (d > 1e-6)).sum())
-    say(f"phase 5: f32 grads, every leaf within its grad tolerance (worst leaf at "
-        f"{worst_g:.3e} of it)")
-    say(f"phase 5: f32 params after one step: max diff {worst:.3e} (bound 1e-6) where "
+    say(f"phase {phase}: f32 grads, every leaf within its grad tolerance (worst leaf at "
+        f"{worst_g:.3e} of it)" + (f"; leaves under {', '.join(routed)} (max-routed, not "
+                                   f"gated): worst at {worst_routed:.3e} of it" if routed else ""))
+    say(f"phase {phase}: f32 params after one step: max diff {worst:.3e} (bound 1e-6) where "
         f"the gradient is above the grad tolerance; {loose} of {n_small} elements under "
         f"it moved by more than 1e-6 (allowed 2 lr = {2 * lr:.3e})")
 
 
-def phase5_training(torch, dev, card: str, profile: bool) -> dict:
-    """The training step at full ViT-S width; returns the main path's
-    launch counts and the K1 backward times."""
-    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
-    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
-        kernel_path,
-        packed_attention,
-        packed_attention_backward,
-        packed_attention_bwd_reference,
-    )
-    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_rows
+def profile_window(torch, card: str, label: str, fn, runs: int = 3) -> None:
+    """torch.profiler over `runs` calls of fn: wall time, device busy time
+    and idle share, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    cfg = train_config("bfloat16", TRAIN_BATCH)
-    H, W = cfg.model.img_size
-    t0 = time.perf_counter()
-    ds = SyntheticPoseDataset(TRAIN_BATCH, (H, W), cfg.model.num_keypoints, seed=0)
-    batch = next(iter(batch_iterator(ds, TRAIN_BATCH, num_workers=8)))
-    say(f"phase 5: synthetic batch of {TRAIN_BATCH} crops made in "
-        f"{time.perf_counter() - t0:.2f} s")
-    trainer = make_trainer(torch, cfg, dev)
-    lr0 = float(trainer.tx.schedule(torch.zeros((), dtype=torch.int32, device=dev)))
-    compare_f32_step(torch, dev, {k: v[:F32_TRAIN_BATCH] for k, v in batch.items()}, lr0)
-
-    # The main path: Trainer.fit on the fixed batch, bf16.
-    depth = len(trainer.model.backbone.blocks)
-    packed_attention.launches = 0
-    packed_attention_backward.launches = 0
-    sparsemax_rows.launches = 0
-    t0 = time.perf_counter()
-    trainer.fit(lambda: iter([batch]), max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    counts = dict(k1f=packed_attention.launches, k1b=packed_attention_backward.launches,
-                  k2=sparsemax_rows.launches)
-    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
-    say(f"phase 5: Trainer.fit, {TRAIN_STEPS} bf16 steps at B={TRAIN_BATCH} in "
-        f"{fit_s:.2f} s; loss {losses[0]:.6f} -> {losses[-1]:.6f}")
-    say(f"phase 5: launches over {TRAIN_STEPS} steps: K1 forward {counts['k1f']}, K1 backward "
-        f"{counts['k1b']} (expect {depth * TRAIN_STEPS} each), K2 {counts['k2']} "
-        f"(expect {TRAIN_STEPS})")
-    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps logged")
-    check(all(np.isfinite(losses)), "a bf16 training loss is not finite")
-    check(losses[-1] < losses[0], "the total loss did not fall over the fixed batch")
-    check(counts["k1f"] == depth * TRAIN_STEPS, "K1 forward did not run once per block")
-    check(counts["k1b"] == depth * TRAIN_STEPS, "K1 backward did not run once per block")
-    check(counts["k2"] == TRAIN_STEPS, "K2 did not run once per step")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    say(f"profile [{card}]: {label}, wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"in {len(kernels)} kernels (idle share {1 - busy_ms / (wall * 1e3):.3f})")
+    say(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
 
-    # K1 backward at the main path's shape, gated against its plain
-    # version; then numbers, not gated.
-    g = torch.Generator(device=dev).manual_seed(3)
-    qkv = torch.randn(TRAIN_BATCH, 192, 1152, generator=g, device=dev).to(torch.bfloat16)
-    dout = torch.randn(TRAIN_BATCH, 192, 384, generator=g, device=dev).to(torch.bfloat16)
-    k1b_err = gate(torch, f"K1 backward qkv ({TRAIN_BATCH}, 192, 1152) bf16 on the "
-                   f"{kernel_path(192, 64, torch.bfloat16, backward=True)}",
-                   packed_attention_backward(qkv, dout, 6),
-                   packed_attention_bwd_reference(qkv, dout, 6), phase=5)
-    k1b_ms, k1b_plain_ms = paired_ms(
-        torch, lambda: packed_attention_backward(qkv, dout, 6),
-        lambda: packed_attention_bwd_reference(qkv, dout, 6), iters=10)
-    say(f"phase 5 [{card}]: K1 backward qkv ({TRAIN_BATCH}, 192, 1152) bf16: kernel "
-        f"{k1b_ms:.4f} ms, plain {k1b_plain_ms:.4f} ms")
-    del qkv, dout
 
-    db = trainer.device_batch(batch)
-    for _ in range(2):
-        trainer.train_step(trainer.state, db)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        trainer.train_step(trainer.state, db)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / iters
-    peak = torch.cuda.max_memory_allocated()
-    say(f"phase 5 [{card}]: bf16 train step B={TRAIN_BATCH}, batch on the card: "
-        f"{step_s * 1e3:.3f} ms/step = {TRAIN_BATCH / step_s:.1f} crops/s; peak device "
-        f"memory {peak / 2**20:.1f} MiB")
-
+def stage_split(torch, card: str, trainer, db, phase: str, label: str) -> None:
+    """CUDA-event time of each stage of a train step, mean of 5 steps."""
     stages = ("encode", "forward", "loss", "backward", "optimizer")
     totals = dict.fromkeys(stages, 0.0)
     for _ in range(5):
@@ -383,27 +450,376 @@ def phase5_training(torch, dev, card: str, profile: bool) -> dict:
         torch.cuda.synchronize()
         for name, a, b in zip(stages, events[:-1], events[1:]):
             totals[name] += a.elapsed_time(b) / 5
-    say(f"phase 5 [{card}]: bf16 step split (CUDA events, mean of 5): "
+    say(f"{phase} [{card}]: {label} split (CUDA events, mean of 5): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in totals.items())
         + f"; sum {sum(totals.values()):.3f} ms")
 
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
 
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                trainer.train_step(trainer.state, db)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        say(f"profile [{card}]: 3 bf16 steps, wall {wall * 1e3:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms in {len(kernels)} kernels (idle share "
-            f"{1 - busy_ms / (wall * 1e3):.3f})")
-        say(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
-    return dict(counts, k1b_err=k1b_err, k1b_ms=k1b_ms, k1b_plain_ms=k1b_plain_ms)
+def phase5_training(torch, dev, card: str, profile: bool) -> dict:
+    """The training step at full ViT-S width; returns the main path's
+    launch counts and the K1 backward times."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        kernel_path,
+        packed_attention_backward,
+        packed_attention_bwd_reference,
+    )
+
+    cfg = train_config("bfloat16", TRAIN_BATCH)
+    H, W = cfg.model.img_size
+    t0 = time.perf_counter()
+    ds = SyntheticPoseDataset(TRAIN_BATCH, (H, W), cfg.model.num_keypoints, seed=0)
+    batch = next(iter(batch_iterator(ds, TRAIN_BATCH, num_workers=8)))
+    say(f"phase 5: synthetic batch of {TRAIN_BATCH} crops made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    trainer = make_trainer(torch, cfg, dev)
+    lr0 = float(trainer.tx.schedule(torch.zeros((), dtype=torch.int32, device=dev)))
+    compare_f32_step(torch, dev, {k: v[:F32_TRAIN_BATCH] for k, v in batch.items()}, lr0,
+                     train_config("float32", F32_TRAIN_BATCH), phase=5)
+
+    # The main path: Trainer.fit on the fixed batch, bf16.
+    depth = len(trainer.model.backbone.blocks)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(lambda: iter([batch]), max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 5: Trainer.fit, {TRAIN_STEPS} bf16 steps at B={TRAIN_BATCH} in "
+        f"{fit_s:.2f} s; loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    say(f"phase 5: launches over {TRAIN_STEPS} steps: K1 forward {counts['k1f']}, K1 backward "
+        f"{counts['k1b']} (expect {depth * TRAIN_STEPS} each), K2 {counts['k2']} "
+        f"(expect {TRAIN_STEPS})")
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps logged")
+    check(all(np.isfinite(losses)), "a bf16 training loss is not finite")
+    check(losses[-1] < losses[0], "the total loss did not fall over the fixed batch")
+    check(counts["k1f"] == depth * TRAIN_STEPS, "K1 forward did not run once per block")
+    check(counts["k1b"] == depth * TRAIN_STEPS, "K1 backward did not run once per block")
+    check(counts["k2"] == TRAIN_STEPS, "K2 did not run once per step")
+    check(counts["k5f"] == counts["k5b"] == counts["k6"] == 0, "the dense trunk ran K5 or K6")
+
+    # K1 backward at the main path's shape, gated against its plain
+    # version; then numbers, not gated.
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(TRAIN_BATCH, 192, 1152, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(TRAIN_BATCH, 192, 384, generator=g, device=dev).to(torch.bfloat16)
+    k1b_err = gate(torch, f"K1 backward qkv ({TRAIN_BATCH}, 192, 1152) bf16 on the "
+                   f"{kernel_path(192, 64, torch.bfloat16, backward=True)}",
+                   packed_attention_backward(qkv, dout, 6),
+                   packed_attention_bwd_reference(qkv, dout, 6), phase=5)
+    k1b_ms, k1b_plain_ms = paired_ms(
+        torch, lambda: packed_attention_backward(qkv, dout, 6),
+        lambda: packed_attention_bwd_reference(qkv, dout, 6), iters=10)
+    # The library's attention backward on the same q, k, v and dO (timed
+    # only; the port never calls it).
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in qkv.unflatten(-1, (3, 6, 64)).permute(2, 0, 3, 1, 4))
+    ctx = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    do = dout.unflatten(-1, (6, 64)).transpose(1, 2)
+    k1b_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(ctx, (q, k, v), do,
+                                                            retain_graph=True), iters=10)
+    k1b_bound = bound_ms(nbytes(qkv, dout, qkv), 10 * TRAIN_BATCH * 6 * 192**2 * 64)
+    say(f"phase 5 [{card}]: K1 backward qkv ({TRAIN_BATCH}, 192, 1152) bf16: kernel "
+        f"{k1b_ms:.4f} ms, plain {k1b_plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"backward {k1b_lib_ms:.4f} ms, bound {k1b_bound[0]:.4f} ms ({k1b_bound[1]})")
+    del qkv, dout, q, k, v, ctx, do
+
+    db = trainer.device_batch(batch)
+    for _ in range(2):
+        trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    gc.collect()  # drop earlier checks' objects held by reference cycles
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 5 [{card}]: bf16 train step B={TRAIN_BATCH}, batch on the card: "
+        f"{step_s * 1e3:.3f} ms/step = {TRAIN_BATCH / step_s:.1f} crops/s; peak device "
+        f"memory {peak / 2**20:.1f} MiB")
+
+    stage_split(torch, card, trainer, db, "phase 5", "bf16 step")
+
+    if profile:
+        profile_window(torch, card, "3 bf16 flagship train steps",
+                       lambda: trainer.train_step(trainer.state, db))
+    return dict(counts, k1b_err=k1b_err, k1b_ms=k1b_ms, k1b_plain_ms=k1b_plain_ms,
+                k1b_lib_ms=k1b_lib_ms, k1b_bound=k1b_bound)
+
+
+def vitb_train_config(dtype: str, batch: int | None = None):
+    """configs/vitb_coco.json with mlp_impl="fused" (kernel K5) and
+    augmentation off, at `dtype` and `batch` (the config's own by default),
+    logging every step. The config trains with remat."""
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig.load(REPO / "configs/vitb_coco.json")
+    return dataclasses.replace(
+        cfg, augment=None, train_batch_size=batch or cfg.train_batch_size, log_every=1,
+        resume=False, model=dataclasses.replace(cfg.model, compute_dtype=dtype, mlp_impl="fused"))
+
+
+def mlp_inputs(torch, block, R: int, g, dev):
+    """K5's arguments at R rows as a ViT block passes them: x drawn from
+    `g` in bf16, norm2's f32 scale and bias, the fc weights cast to bf16
+    (transposed views) and the f32 fc biases."""
+    dt = torch.bfloat16
+    x = torch.randn(R, block.norm2.normalized_shape[0], generator=g, device=dev).to(dt)
+    fc1, fc2 = block.mlp.fc1, block.mlp.fc2
+    return tuple(t.detach() for t in (x, block.norm2.weight, block.norm2.bias,
+                                      fc1.weight.to(dt).t(), fc1.bias,
+                                      fc2.weight.to(dt).t(), fc2.bias))
+
+
+def dense_half_block(torch, x, scale, bias, w1, b1, w2, b2):
+    """K5's yardstick: the same half-block as PyTorch's dense operators on
+    cuBLAS, all in x's dtype (timed only; the port never runs it on the
+    fused path)."""
+    F = torch.nn.functional
+    y = F.layer_norm(x, x.shape[-1:], scale, bias, 1e-6)
+    return x + F.linear(F.gelu(F.linear(y, w1.t(), b1), approximate="tanh"), w2.t(), b2)
+
+
+def k5_grad_bound(ref) -> float:
+    """K5 backward's bound, relative to each cotangent's magnitude: four bf16
+    ulps (4 * 2**-8) of max|ref|. The kernel's tensor-core products take du
+    rounded to bf16 where the plain version keeps it f32, and dy, dW1 and
+    dW2 are rounded to bf16 after sums in another order."""
+    return 4 * 2**-8 * ref.float().abs().max().item()
+
+
+def phase6_vitb_serving(torch, dev, card: str, g, profile: bool) -> dict:
+    """ViT-B with the fused MLP served at a batch of 256; returns the
+    serving runs' launch counts and K5 forward's and K6's numbers."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        fused_attention,
+        fused_attention_reference,
+        packed_attention,
+        packed_attention_reference,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp, fused_ln_mlp_reference
+
+    cfg = vitb_train_config("bfloat16").model
+    check(cfg.backbone == "vit-b" and cfg.attn_impl == "fused", "vitb_coco.json changed")
+    model = build_model(cfg, dev, seed=0)
+    peak_heatmap_branch(torch, model)
+    codec = make_codec(cfg)
+    predictor = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
+    requests = [request(10 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    depth, n = len(model.backbone.blocks), len(requests)
+
+    # The main path: a TopDownPredictor over ViT-B with the fused MLP.
+    reset_counts()
+    answers = [predictor(frames, boxes) for frames, boxes in requests]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_answers(cfg, requests, answers, phase=6)
+    say(f"phase 6: launches over {n} ViT-B forwards: K1 {counts['k1f']}, K5 forward "
+        f"{counts['k5f']} (expect {depth * n} each), K2 {counts['k2']} (expect {n}), K6 "
+        f"{counts['k6']} (expect 0)")
+    check(counts["k1f"] == depth * n, "K1 did not run once per ViT-B block")
+    check(counts["k5f"] == depth * n, "K5 did not run once per ViT-B block")
+    check(counts["k2"] == n and counts["k6"] == 0, "K2 or K6 launch count off")
+
+    # The same weights with attn_impl="pallas": K6 in place of K1.
+    model6 = build_model(dataclasses.replace(cfg, attn_impl="pallas"), dev)
+    model6.load_state_dict(model.state_dict())
+    pred6 = TopDownPredictor(model6, codec, cfg.img_size, return_heatmaps=True)
+    reset_counts()
+    answers6 = [pred6(frames, boxes) for frames, boxes in requests]
+    torch.cuda.synchronize()
+    counts6 = read_counts()
+    check_answers(cfg, requests, answers6, phase=6)
+    say(f"phase 6: attn_impl='pallas', launches over {n} forwards: K6 {counts6['k6']}, K5 "
+        f"forward {counts6['k5f']} (expect {depth * n} each), K1 {counts6['k1f']} (expect 0)")
+    check(counts6["k6"] == depth * n and counts6["k5f"] == depth * n, "K6 or K5 count off")
+    check(counts6["k1f"] == 0, "attn_impl='pallas' ran K1")
+    for (frames, _), a, b in zip(requests, answers, answers6):
+        sel = well_defined(torch, codec, a["heatmaps"], dev)
+        kerr = float(np.abs(a["keypoints"] - b["keypoints"])[sel].max(initial=0.0))
+        say(f"phase 6: K6 vs K1 serving, {len(frames)} crops: keypoint max diff {kerr:.3e} px "
+            f"over {int(sel.sum())}/{sel.size} well-defined keypoints (tolerance {KPT_TOL_PX:g})")
+        check(sel.mean() > 0.5, "too few ViT-B keypoints with a well-defined argmax")
+        check(kerr <= KPT_TOL_PX, f"K6 keypoints differ from K1's by {kerr} px")
+    del model6, pred6, answers, answers6
+
+    # K5 forward and K6 at the shapes of a batch of 256, gated, then timed.
+    blk = model.backbone.blocks[0]
+    B, N = VITB_SERVE_BATCH, model.backbone.pos_embed.shape[1]
+    C, Hd, heads = blk.mlp.fc1.in_features, blk.mlp.fc1.out_features, blk.attn.num_heads
+    rows = B * N
+    with torch.inference_mode():
+        for R in (rows, 3 * N + 7):  # the batch's rows; a ragged last tile
+            a = mlp_inputs(torch, blk, R, g, dev)
+            err = gate(torch, f"K5 forward x ({R}, {C}) bf16, hidden {Hd}", fused_ln_mlp(*a),
+                       fused_ln_mlp_reference(*a), phase=6)
+            if R == rows:
+                k5f_err = err
+        a = mlp_inputs(torch, blk, rows, g, dev)
+        k5f_ms, k5f_plain_ms = paired_ms(torch, lambda: fused_ln_mlp(*a),
+                                         lambda: fused_ln_mlp_reference(*a), iters=10)
+        dense = (a[0], *(t.to(torch.bfloat16) for t in a[1:]))
+        k5f_dense_ms = cuda_ms(torch, lambda: dense_half_block(torch, *dense), iters=10)
+        k5f_bound = bound_ms(nbytes(*a, a[0]), 4 * rows * C * Hd)
+        say(f"phase 6 [{card}]: K5 forward x ({rows}, {C}) bf16: kernel {k5f_ms:.4f} ms, plain "
+            f"{k5f_plain_ms:.4f} ms, dense half-block (cuBLAS) {k5f_dense_ms:.4f} ms, bound "
+            f"{k5f_bound[0]:.4f} ms ({k5f_bound[1]})")
+        del a, dense
+
+        qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unflatten(-1, (3, heads, -1)).unbind(2)
+        k6_err = gate(torch, f"K6 fused_attention q, k, v {tuple(q.shape)} bf16",
+                      fused_attention(q, k, v), fused_attention_reference(q, k, v), phase=6)
+        k6_ms, k6_plain_ms = paired_ms(torch, lambda: fused_attention(q, k, v),
+                                       lambda: fused_attention_reference(q, k, v), iters=20)
+        k1_ms, k1_plain_ms = paired_ms(torch, lambda: packed_attention(qkv, heads),
+                                       lambda: packed_attention_reference(qkv, heads), iters=20)
+        attn_lib_ms = sdpa_ms(torch, qkv, heads)
+        attn_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * C)
+        say(f"phase 6 [{card}]: K6 q, k, v {tuple(q.shape)} bf16: kernel {k6_ms:.4f} ms, "
+            f"plain {k6_plain_ms:.4f} ms; K1 on the packed qkv {tuple(qkv.shape)}: kernel "
+            f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms; scaled_dot_product_attention "
+            f"{attn_lib_ms:.4f} ms; bound {attn_bound[0]:.4f} ms ({attn_bound[1]})")
+        del qkv, q, k, v
+
+    frames, boxes = request(17, B)
+    predictor.return_heatmaps = False
+    f_dev = torch.from_numpy(frames).to(dev)
+    b_dev = torch.from_numpy(boxes).to(dev)
+    predictor.predict(f_dev, b_dev)
+    torch.cuda.synchronize()
+    gc.collect()  # drop earlier checks' objects held by reference cycles
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        predictor.predict(f_dev, b_dev)
+    torch.cuda.synchronize()
+    dev_s = (time.perf_counter() - t0) / iters
+    say(f"phase 6 [{card}]: ViT-B fused-MLP serving B={B}, frames resident on the card: "
+        f"{dev_s * 1e3:.3f} ms/batch = {B / dev_s:.1f} crops/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if profile:
+        profile_window(torch, card, f"3 ViT-B fused-MLP serving batches of {B}",
+                       lambda: predictor.predict(f_dev, b_dev))
+    return dict(k5f_err=k5f_err, k5f_ms=k5f_ms, k5f_plain_ms=k5f_plain_ms,
+                k5f_dense_ms=k5f_dense_ms, k5f_bound=k5f_bound, k6=counts6["k6"],
+                k6_err=k6_err, k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_lib_ms=attn_lib_ms,
+                k6_bound=attn_bound)
+
+
+def phase7_vitb_training(torch, dev, card: str, profile: bool) -> dict:
+    """ViT-B with the fused MLP and remat trained through Trainer at its
+    config's batch; returns the launch counts of Trainer.fit and K5
+    backward's numbers."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_reference,
+    )
+
+    cfg = vitb_train_config("bfloat16")
+    B = cfg.train_batch_size
+    H, W = cfg.model.img_size
+    ds = SyntheticPoseDataset(B, (H, W), cfg.model.num_keypoints, seed=1)
+    batch = next(iter(batch_iterator(ds, B, num_workers=8)))
+    trainer = make_trainer(torch, cfg, dev)
+    check(trainer.model.backbone.remat, "configs/vitb_coco.json no longer trains with remat")
+    lr0 = float(trainer.tx.schedule(torch.zeros((), dtype=torch.int32, device=dev)))
+    compare_f32_step(torch, dev, {k: v[:VITB_F32_BATCH] for k, v in batch.items()}, lr0,
+                     vitb_train_config("float32", VITB_F32_BATCH), phase=7,
+                     routed=("head.branches.",))
+
+    # The main path: Trainer.fit on the fixed batch, bf16, with remat.
+    depth, steps = len(trainer.model.backbone.blocks), VITB_TRAIN_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(lambda: iter([batch]), max_steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 7: Trainer.fit, {steps} bf16 ViT-B steps with remat at B={B} in {fit_s:.2f} s; "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    say(f"phase 7: launches over {steps} steps: K1 forward {counts['k1f']}, K5 forward "
+        f"{counts['k5f']} (expect {2 * depth * steps} each: remat runs each block's forward "
+        f"twice), K1 backward {counts['k1b']}, K5 backward {counts['k5b']} (expect "
+        f"{depth * steps} each), K2 {counts['k2']} (expect {steps})")
+    check(len(losses) == steps, f"{len(losses)} steps logged")
+    check(all(np.isfinite(losses)), "a bf16 ViT-B training loss is not finite")
+    check(losses[-1] < losses[0], "the ViT-B loss did not fall over the fixed batch")
+    check(counts["k1f"] == counts["k5f"] == 2 * depth * steps, "K1/K5 forward count off")
+    check(counts["k1b"] == counts["k5b"] == depth * steps, "K1/K5 backward count off")
+    check(counts["k2"] == steps and counts["k6"] == 0, "K2 or K6 launch count off")
+
+    # K5 backward at the batch's rows, gated per cotangent and rerun for
+    # bit-identical gradients; then numbers, not gated.
+    g = torch.Generator(device=dev).manual_seed(7)
+    backbone = trainer.model.backbone
+    fc1 = backbone.blocks[0].mlp.fc1
+    rows, C, Hd = B * backbone.pos_embed.shape[1], fc1.in_features, fc1.out_features
+    with torch.inference_mode():
+        a = mlp_inputs(torch, backbone.blocks[0], rows, g, dev)
+        dout = torch.randn(rows, C, generator=g, device=dev).to(torch.bfloat16)
+        grads = fused_ln_mlp_backward(*a, dout)
+        again = fused_ln_mlp_backward(*a, dout)
+        refs = fused_ln_mlp_bwd_reference(*a, dout)
+        k5b_err = 0.0
+        for name, got, rerun, ref in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
+                                         grads, again, refs):
+            check(torch.equal(got, rerun), f"K5 backward {name} differs between two runs")
+            k5b_err = max(k5b_err, gate(torch, f"K5 backward {name} {tuple(got.shape)} "
+                                        f"{str(got.dtype).split('.')[-1]}, x ({rows}, {C})",
+                                        got, ref, phase=7, bound=k5_grad_bound(ref)))
+        say("phase 7: K5 backward: all seven cotangents bit-identical across two runs")
+        k5b_ms, k5b_plain_ms = paired_ms(torch, lambda: fused_ln_mlp_backward(*a, dout),
+                                         lambda: fused_ln_mlp_bwd_reference(*a, dout), iters=5)
+        # inputs x, the vectors, W1, W2 and dO; outputs dx, the vector
+        # gradients and dW1, dW2: five products of 2 R C Hd operations
+        # (fc1 recomputed, dh, dy, dW1, dW2).
+        k5b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * rows * C * Hd)
+        say(f"phase 7 [{card}]: K5 backward x ({rows}, {C}) bf16: kernel {k5b_ms:.4f} ms, "
+            f"plain {k5b_plain_ms:.4f} ms, bound {k5b_bound[0]:.4f} ms ({k5b_bound[1]})")
+        del a, dout, grads, again, refs
+
+    db = trainer.device_batch(batch)
+    for _ in range(2):
+        trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    gc.collect()  # drop earlier checks' objects held by reference cycles
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    say(f"phase 7 [{card}]: bf16 ViT-B train step with remat, B={B}, batch on the card: "
+        f"{step_s * 1e3:.3f} ms/step = {B / step_s:.1f} crops/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    stage_split(torch, card, trainer, db, "phase 7", "bf16 ViT-B step")
+    if profile:
+        profile_window(torch, card, f"3 bf16 ViT-B train steps with remat at B={B}",
+                       lambda: trainer.train_step(trainer.state, db))
+    return dict(counts, k5b_err=k5b_err, k5b_ms=k5b_ms, k5b_plain_ms=k5b_plain_ms,
+                k5b_bound=k5b_bound)
+
+
+def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
+                 err: float, ms: float, plain_ms: float, bound: tuple[float, str],
+                 library_ms: float | None = None, **extra) -> dict:
+    """One kernel of the JSON line: its launches on a main path, its error
+    against its plain version and its times there."""
+    pkg, jax_pkg = "probpose_pytorch_tpu_torch/", "probpose_pytorch_tpu/ops/pallas/"
+    return dict(name=name, route=route, source=pkg + source, replaces=jax_pkg + replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms, **extra)
 
 
 def main() -> None:
@@ -413,10 +829,8 @@ def main() -> None:
         raise SystemExit("FAIL: torch.cuda.is_available() is false; this smoke "
                          "run needs an NVIDIA GPU")
 
-    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
-    from probpose_pytorch_tpu_torch.ops.heatmap import oks_conv
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
     from probpose_pytorch_tpu_torch.ops.kernels.attention import (
         kernel_path,
@@ -475,36 +889,24 @@ def main() -> None:
     cfg = ModelConfig(**block)
     check(cfg.attn_impl == "fused", "flagship config does not select kernel K1")
     model = build_model(cfg, dev, seed=0)
-    # Keypoints are further compared only where the convolved map's top-2
-    # margin exceeds MARGIN.
     peak_heatmap_branch(torch, model)
-    W, H = cfg.heatmap_size
-    codec = Codec(ProbMap((cfg.img_size[1], cfg.img_size[0]), (W, H),
-                          sigmas=np.full(cfg.num_keypoints, 0.05, np.float32), sigma=2.0))
+    codec = make_codec(cfg)
     predictor = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
     requests = [request(i, B) for i, B in enumerate(REQUEST_SIZES)]
     K = cfg.num_keypoints
-    shapes = dict(keypoints=(K, 2), scores=(K,), probabilities=(1, K),
-                  visibilities=(1, K), oks=(1, K), errors=(1, K), heatmaps=(K, H, W))
+    W, H = cfg.heatmap_size
 
-    packed_attention.launches = 0
-    sparsemax_rows.launches = 0
+    reset_counts()
     answers = [predictor(frames, boxes) for frames, boxes in requests]
     torch.cuda.synchronize()
-    k1_launches = packed_attention.launches
-    k2_launches = sparsemax_rows.launches
+    counts = read_counts()
     depth = len(model.backbone.blocks)
-    for (frames, _), out in zip(requests, answers):
-        B = len(frames)
-        for key, shape in shapes.items():
-            check(out[key].shape == (B, *shape), f"{key} shape {out[key].shape}")
-            check(np.isfinite(out[key]).all(), f"{key} not finite at B={B}")
-        say(f"phase 2: request of {B} crops answered: keypoints {out['keypoints'].shape}, "
-            f"mean score {out['scores'].mean():.4f}, all fields finite")
-    say(f"phase 2: launches over {len(requests)} forwards: K1 {k1_launches} "
-        f"(expect {depth * len(requests)}), K2 {k2_launches} (expect {len(requests)})")
-    check(k1_launches == depth * len(requests), "K1 did not run once per block")
-    check(k2_launches == len(requests), "K2 did not run once per forward")
+    check_answers(cfg, requests, answers, phase=2)
+    say(f"phase 2: launches over {len(requests)} forwards: K1 {counts['k1f']} "
+        f"(expect {depth * len(requests)}), K2 {counts['k2']} (expect {len(requests)})")
+    check(counts["k1f"] == depth * len(requests), "K1 did not run once per block")
+    check(counts["k2"] == len(requests), "K2 did not run once per forward")
+    check(counts["k5f"] == counts["k6"] == 0, "the flagship ran K5 or K6")
 
     with plain_versions():
         plain_bf16 = [predictor(f, b) for f, b in requests]
@@ -516,15 +918,11 @@ def main() -> None:
     model32 = build_model(cfg32, dev)
     model32.load_state_dict(model.state_dict())
     pred32 = TopDownPredictor(model32, codec, cfg.img_size, return_heatmaps=True)
-    row_op, col_op = codec.probmap.conv_operators(dev)
     for frames, boxes in requests:
         kern = pred32(frames, boxes)
         with plain_versions():
             plain = pred32(frames, boxes)
-        hm = torch.from_numpy(plain["heatmaps"]).to(dev)
-        conv = oks_conv(hm, row_op, col_op).flatten(2)
-        top2 = conv.topk(2, dim=-1).values
-        sel = ((top2[..., 0] - top2[..., 1]) > MARGIN).cpu().numpy()
+        sel = well_defined(torch, codec, plain["heatmaps"], dev)
         kerr = float(np.abs(kern["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
         perr = float(np.abs(kern["probabilities"] - plain["probabilities"]).max())
         say(f"phase 2: f32 kernel vs plain, {len(frames)} crops: keypoint max diff "
@@ -545,15 +943,23 @@ def main() -> None:
     k1_ms, k1_plain_ms = paired_ms(
         torch, lambda: packed_attention(qkv, 6),
         lambda: packed_attention_reference(qkv, 6), iters=20)
+    k1_lib_ms = sdpa_ms(torch, qkv, 6)
+    k1_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * SERVE_BATCH * 6 * 192**2 * 64)
     z = torch.randn(SERVE_BATCH * K, H * W, generator=g, device=dev) / 0.5
     k2_err_main = gate(torch, f"K2 sparsemax ({SERVE_BATCH * K}, {H * W}) float32",
                        sparsemax_rows(z), sparsemax_reference(z), phase=3, bound=K2_TOL)
     k2_ms, k2_plain_ms = paired_ms(
         torch, lambda: sparsemax_rows(z), lambda: sparsemax_reference(z), iters=20)
+    # K2 reads and writes each f32 element once; per element it does ~96
+    # operations: 30 bisection steps of a subtract, a max and a sum, then
+    # the row max, the support, its sum and the output.
+    k2_bound = bound_ms(2 * nbytes(z), 96 * z.numel(), "float32")
     say(f"phase 3 [{card}]: K1 qkv ({SERVE_BATCH}, 192, 1152) bf16: kernel "
-        f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+        f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{k1_lib_ms:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})")
     say(f"phase 3 [{card}]: K2 ({SERVE_BATCH * K}, {H * W}) f32: kernel "
-        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms (no library call computes sparsemax), "
+        f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     del qkv, z
 
     frames, boxes = request(7, SERVE_BATCH)
@@ -562,6 +968,7 @@ def main() -> None:
     b_dev = torch.from_numpy(boxes).to(dev)
     predictor.predict(f_dev, b_dev)
     torch.cuda.synchronize()
+    gc.collect()  # drop earlier checks' objects held by reference cycles
     torch.cuda.reset_peak_memory_stats()
     iters = 10
     t0 = time.perf_counter()
@@ -585,24 +992,35 @@ def main() -> None:
     phase4_k1_backward(torch, dev, g)
 
     # ---------------------------------------------------------------- phase 5
-    train = phase5_training(torch, dev, card, profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    train = phase5_training(torch, dev, card, profile)
 
+    # ---------------------------------------------------------------- phase 6
+    serve_b = phase6_vitb_serving(torch, dev, card, g, profile)
+
+    # ---------------------------------------------------------------- phase 7
+    train_b = phase7_vitb_training(torch, dev, card, profile)
+
+    attn_cu, mlp_cu = "csrc/packed_attention.cu", "csrc/fused_mlp.cu"
     kernels = [
-        dict(name="K1 packed_attention forward", route="cuda",
-             source="probpose_pytorch_tpu_torch/csrc/packed_attention.cu",
-             replaces="probpose_pytorch_tpu/ops/pallas/attention_kernel.py:120",
-             launches=train["k1f"], max_abs_err=k1_err_main,
-             ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="K1 packed_attention backward", route="cuda",
-             source="probpose_pytorch_tpu_torch/csrc/packed_attention.cu",
-             replaces="probpose_pytorch_tpu/ops/pallas/attention_kernel.py:146",
-             launches=train["k1b"], max_abs_err=train["k1b_err"],
-             ms=train["k1b_ms"], plain_ms=train["k1b_plain_ms"]),
-        dict(name="K2 sparsemax", route="triton",
-             source="probpose_pytorch_tpu_torch/ops/kernels/sparsemax.py",
-             replaces="probpose_pytorch_tpu/ops/pallas/sparsemax_kernel.py:29",
-             launches=train["k2"], max_abs_err=k2_err_main,
-             ms=k2_ms, plain_ms=k2_plain_ms),
+        kernel_entry("K1 packed_attention forward", "cuda", attn_cu, "attention_kernel.py:120",
+                     train["k1f"], k1_err_main, k1_ms, k1_plain_ms, k1_bound, k1_lib_ms),
+        kernel_entry("K1 packed_attention backward", "cuda", attn_cu, "attention_kernel.py:146",
+                     train["k1b"], train["k1b_err"], train["k1b_ms"], train["k1b_plain_ms"],
+                     train["k1b_bound"], train["k1b_lib_ms"]),
+        kernel_entry("K2 sparsemax", "triton", "ops/kernels/sparsemax.py",
+                     "sparsemax_kernel.py:29", train["k2"], k2_err_main, k2_ms, k2_plain_ms,
+                     k2_bound),
+        kernel_entry("K5 fused_ln_mlp forward", "cuda", mlp_cu, "mlp_kernel.py:49",
+                     train_b["k5f"], serve_b["k5f_err"], serve_b["k5f_ms"],
+                     serve_b["k5f_plain_ms"], serve_b["k5f_bound"],
+                     dense_ms=serve_b["k5f_dense_ms"]),
+        kernel_entry("K5 fused_ln_mlp backward", "cuda", mlp_cu, "mlp_kernel.py:57",
+                     train_b["k5b"], train_b["k5b_err"], train_b["k5b_ms"],
+                     train_b["k5b_plain_ms"], train_b["k5b_bound"]),
+        kernel_entry("K6 fused_attention", "cuda", attn_cu, "attention_kernel.py:32",
+                     serve_b["k6"], serve_b["k6_err"], serve_b["k6_ms"], serve_b["k6_plain_ms"],
+                     serve_b["k6_bound"], serve_b["k6_lib_ms"]),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

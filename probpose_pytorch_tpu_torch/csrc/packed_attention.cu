@@ -1,5 +1,7 @@
 // Kernel K1: multi-head attention read straight from the packed qkv, its
 // forward here and its recompute backward further down ("backward").
+// Kernel K6 (`flat_attention_fwd` at the end) is the same forward body read
+// from three (B, N, heads, d) views through their strides instead.
 //
 // Replaces the TPU kernels `_packed_fwd_kernel` and `_packed_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/attention_kernel.py, called from
@@ -81,6 +83,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Element strides of a (B, N, heads, d) view with unit stride along d: row
+// (b, n) of head h starts at b * batch + n * row + h * head.
+struct Strides {
+  size_t batch, row, head;
+};
+
 // ---------------------------------------------------- tensor-core path (bf16)
 
 constexpr int kMmaWarps = 4;
@@ -110,9 +118,11 @@ bool mma_path(int N, int d, int dtype) {
 
 template <int D>
 __global__ void __launch_bounds__(kMmaWarps * 32)
-    packed_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                                    __nv_bfloat16* __restrict__ out, int N,
-                                    int C, float scale) {
+    packed_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                    const __nv_bfloat16* __restrict__ k,
+                                    const __nv_bfloat16* __restrict__ v,
+                                    Strides st, __nv_bfloat16* __restrict__ out,
+                                    int N, int C, float scale) {
   constexpr int ks = D + 8;  // bf16 row stride of K, V, Q tiles
   constexpr int vec = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -128,11 +138,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * kMmaRows;
-  const size_t row_stride = 3 * static_cast<size_t>(C);
-  const __nv_bfloat16* base = qkv + static_cast<size_t>(b) * N * row_stride;
-  const int oq = h * D;
-  const int ok = C + h * D;
-  const int ov = 2 * C + h * D;
+  const size_t off = b * st.batch + h * st.head;
+  const __nv_bfloat16* qb = q + off;
+  const __nv_bfloat16* kb = k + off;
+  const __nv_bfloat16* vb = v + off;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   for (int i = threadIdx.x; i < np * vec; i += blockDim.x) {
@@ -140,9 +149,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     const int c = (i - j * vec) * 8;
     uint4 kv = zero, vv = zero;
     if (j < N) {
-      const __nv_bfloat16* row = base + j * row_stride;
-      kv = *reinterpret_cast<const uint4*>(row + ok + c);
-      vv = *reinterpret_cast<const uint4*>(row + ov + c);
+      kv = *reinterpret_cast<const uint4*>(kb + j * st.row + c);
+      vv = *reinterpret_cast<const uint4*>(vb + j * st.row + c);
     }
     *reinterpret_cast<uint4*>(k_s + j * ks + c) = kv;
     *reinterpret_cast<uint4*>(v_s + j * ks + c) = vv;
@@ -152,8 +160,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     const int c = (i - r * vec) * 8;
     uint4 qv = zero;
     if (row0 + r < N)
-      qv = *reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride +
-                                           oq + c);
+      qv = *reinterpret_cast<const uint4*>(qb + (row0 + r) * st.row + c);
     *reinterpret_cast<uint4*>(q_s + r * ks + c) = qv;
   }
   __syncthreads();
@@ -237,8 +244,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 }
 
 template <int D>
-int launch_mma(const void* qkv, void* out, int B, int N, int C, int heads,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, Strides st, void* out,
+               int B, int N, int C, int heads, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(N, D);
   cudaError_t err = cudaFuncSetAttribute(
       packed_attention_fwd_mma_kernel<D>,
@@ -246,9 +253,10 @@ int launch_mma(const void* qkv, void* out, int B, int N, int C, int heads,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kMmaRows - 1) / kMmaRows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  using T = __nv_bfloat16;
   packed_attention_fwd_mma_kernel<D><<<grid, kMmaWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      N, C, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), st,
+      static_cast<T*>(out), N, C, scale);
   return cudaGetLastError();
 }
 
@@ -272,8 +280,9 @@ size_t smem_bytes(int N, int d) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    packed_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                                int N, int C, int d, float scale) {
+    packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, Strides st,
+                                T* __restrict__ out, int N, int C, int d, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ks = k_stride<T>(d);
   T* k_s = reinterpret_cast<T*>(smem);            // (N, ks)
@@ -286,25 +295,23 @@ __global__ void __launch_bounds__(kThreads)
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t row_stride = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * row_stride;
-  const int oq = h * d;
-  const int ok = C + h * d;
-  const int ov = 2 * C + h * d;
+  const size_t off = b * st.batch + h * st.head;
+  const T* qb = q + off;
+  const T* kb = k + off;
+  const T* vb = v + off;
 
   for (int i = threadIdx.x; i < N * d; i += kThreads) {
     const int j = i / d;
     const int c = i - j * d;
-    const T* row = base + j * row_stride;
-    k_s[j * ks + c] = row[ok + c];
-    v_s[j * d + c] = row[ov + c];
+    k_s[j * ks + c] = kb[j * st.row + c];
+    v_s[j * d + c] = vb[j * st.row + c];
   }
   __syncthreads();
 
   const int row0 = static_cast<int>(blockIdx.x) * kRowsPerBlock;
   const int row_end = min(row0 + kRowsPerBlock, N);
   for (int n = row0 + warp; n < row_end; n += kWarps) {
-    const T* q_row = base + n * row_stride + oq;
+    const T* q_row = qb + n * st.row;
     for (int c = lane; c < d; c += 32) q_w[c] = to_float(q_row[c]);
     __syncwarp();
 
@@ -343,8 +350,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* qkv, void* out, int B, int N, int C, int heads,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, Strides st, void* out, int B,
+           int N, int C, int heads, cudaStream_t stream) {
   const int d = C / heads;
   const size_t smem = smem_bytes<T>(N, d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -354,7 +361,8 @@ int launch(const void* qkv, void* out, int B, int N, int C, int heads,
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
   packed_attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, d, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), st,
+      static_cast<T*>(out), N, C, d, scale);
   return cudaGetLastError();
 }
 
@@ -917,21 +925,51 @@ extern "C" int packed_attention_max_smem(int device, int* bytes) {
                                 device);
 }
 
-extern "C" int packed_attention_fwd(const void* qkv, void* out, int B, int N,
-                                    int C, int heads, int dtype, int device,
-                                    void* stream) {
+namespace {
+
+int attention_fwd(const void* q, const void* k, const void* v, Strides st, void* out,
+                  int B, int N, int C, int heads, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / heads;
   if (mma_path(N, d, dtype)) {
-    if (d == 32) return launch_mma<32>(qkv, out, B, N, C, heads, s);
-    if (d == 64) return launch_mma<64>(qkv, out, B, N, C, heads, s);
-    return launch_mma<128>(qkv, out, B, N, C, heads, s);
+    if (d == 32) return launch_mma<32>(q, k, v, st, out, B, N, C, heads, s);
+    if (d == 64) return launch_mma<64>(q, k, v, st, out, B, N, C, heads, s);
+    return launch_mma<128>(q, k, v, st, out, B, N, C, heads, s);
   }
-  if (dtype == 0) return launch<float>(qkv, out, B, N, C, heads, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(qkv, out, B, N, C, heads, s);
+  if (dtype == 0) return launch<float>(q, k, v, st, out, B, N, C, heads, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, st, out, B, N, C, heads, s);
   return cudaErrorInvalidValue;
+}
+
+size_t element_size(int dtype) { return dtype == 0 ? 4 : 2; }
+
+}  // namespace
+
+// K1: q, k and v are column slices of the packed (B, N, 3C) qkv.
+extern "C" int packed_attention_fwd(const void* qkv, void* out, int B, int N,
+                                    int C, int heads, int dtype, int device,
+                                    void* stream) {
+  const auto* base = static_cast<const unsigned char*>(qkv);
+  const size_t row = 3 * static_cast<size_t>(C);
+  const Strides st{N * row, row, static_cast<size_t>(C / heads)};
+  const size_t col = static_cast<size_t>(C) * element_size(dtype);
+  return attention_fwd(base, base + col, base + 2 * col, st, out, B, N, C, heads, dtype,
+                       device, stream);
+}
+
+// Kernel K6: the same forward from three (B, N, heads, d) views that share
+// the element strides (batch, row, head) and have unit stride along d;
+// replaces `_attn_kernel` (attention_kernel.py), which JAX feeds through
+// transposes to (B * heads, N, d). The context is written as (B, N, C).
+extern "C" int flat_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                  int B, int N, int heads, int d, long long batch_stride,
+                                  long long row_stride, long long head_stride, int dtype,
+                                  int device, void* stream) {
+  const Strides st{static_cast<size_t>(batch_stride), static_cast<size_t>(row_stride),
+                   static_cast<size_t>(head_stride)};
+  return attention_fwd(q, k, v, st, out, B, N, heads * d, heads, dtype, device, stream);
 }
 
 // Backward: 1 when (N, d, dtype) runs its two passes on the tensor cores.

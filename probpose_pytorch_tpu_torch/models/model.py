@@ -19,7 +19,7 @@ from torch import nn
 from probpose_pytorch_tpu_torch.models.head import ProbMapHead
 from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
 
-__all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights"]
+__all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights", "resolve_device"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,15 +48,16 @@ class ModelConfig:
     normalize: float | None = 1.0
     compute_dtype: str = "bfloat16"
     softmax_dtype: str = "float32"
-    # "fused" and "einsum" both run kernel K1 (f32 softmax).
+    # "fused" and "einsum" both run kernel K1 (f32 softmax); "pallas" runs
+    # kernel K6, forward only.
     attn_impl: str = "einsum"
-    mlp_impl: str = "dense"
+    mlp_impl: str = "dense"  # "fused": kernel K5
     # "fused" and "fastvjp" were XLA rewrites, pinned numerically equal to
     # the defaults by the JAX tests; the port accepts them and runs its one
     # implementation.
     scalar_impl: str = "separate"
     deconv_impl: str = "lax"
-    remat: bool = False  # per-block recompute in training; raises there
+    remat: bool = False  # per-block recompute in training
     num_prefix_tokens: int = 0
     exact_gelu: bool = False
     pp_stages: int = 1
@@ -77,26 +78,26 @@ class ModelConfig:
             (self.lora_rank > 0, "lora_rank > 0", 11),
             (self.pp_stages > 1, "pp_stages > 1", 13),
             (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
-            (self.attn_impl == "pallas", "attn_impl='pallas' (kernel K6)",
-             "'Kernels still to port'"),
-            (self.mlp_impl == "fused", "mlp_impl='fused' (kernel K5)",
-             "'Kernels still to port'"),
             (any(k != 4 for k in self.deconv_kernel_sizes),
              f"deconv_kernel_sizes={self.deconv_kernel_sizes}", 4),
             (self.attn_impl == "einsum" and self.softmax_dtype != "float32",
              f"attn_impl='einsum' with softmax_dtype={self.softmax_dtype!r}", 4),
         ]
+        if self.lora_rank > 0 and self.mlp_impl == "fused":
+            raise ValueError(
+                "lora_rank > 0 does not compose with mlp_impl='fused' (the fused "
+                "LN+MLP kernel bypasses the Dense modules)"
+            )
         for bad, what, item in unported:
             if bad:
-                where = f"item {item}" if isinstance(item, int) else item
                 raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP {where})"
+                    f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
                 )
         if self.head_type != "probmap":
             raise ValueError(f"unknown head_type {self.head_type!r}")
-        if self.attn_impl not in ("fused", "einsum"):
+        if self.attn_impl not in ("fused", "einsum", "pallas"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        if self.mlp_impl != "dense":
+        if self.mlp_impl not in ("dense", "fused"):
             raise ValueError(f"unknown mlp_impl {self.mlp_impl!r}")
         if self.scalar_impl not in ("separate", "fused"):
             raise ValueError(f"unknown scalar_impl {self.scalar_impl!r}")
@@ -171,10 +172,24 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
-def build_model(cfg: ModelConfig, device: torch.device | str = "cpu",
+def resolve_device(device: torch.device | str, what: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device with no card raises, so an
+    entry point never falls back to the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device {str(device)!r} asked for, but torch sees no CUDA device; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
                 seed: int = 0) -> ProbPoseModel:
-    """The model of `cfg` on `device`, in eval mode, with weights drawn from
-    a `torch.Generator` seeded with `seed`."""
+    """The model of `cfg` on `device` (the card unless the caller asks for
+    the CPU), in eval mode, with weights drawn from a `torch.Generator`
+    seeded with `seed`."""
+    device = resolve_device(device, "build_model")
     cfg.check_ported()
     vit = ViTConfig.PRESETS[cfg.backbone]
     backbone = ViTBackbone(
@@ -190,6 +205,8 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cpu",
         num_prefix_tokens=cfg.num_prefix_tokens,
         exact_gelu=cfg.exact_gelu,
         remat=cfg.remat,
+        attn_impl=cfg.attn_impl,
+        mlp_impl=cfg.mlp_impl,
     )
     feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
     head = ProbMapHead(

@@ -12,6 +12,15 @@ the input of kernel K1, and hands it to
 `ops.kernels.attention.packed_attention` unchanged. K1's softmax is f32, so
 it computes both the JAX "fused" attention and the JAX "einsum" attention
 at its default float32 `softmax_dtype` (models/model.py refuses the rest).
+`attn_impl="pallas"` hands the q, k, v views of the same projection to
+kernel K6 (`fused_attention`), forward only, as JAX does.
+
+`mlp_impl="fused"` runs the block's second half, LayerNorm -> fc1 -> GELU
+-> fc2 -> +residual, as kernel K5 (`ops.kernels.mlp.fused_ln_mlp`) on the
+(B * N, C) residual stream, with the f32 LayerNorm parameters, the fc
+weights cast to the compute dtype and the fc biases in f32, as the JAX
+branch does (models/vit.py:271-292 of the JAX package). Its parameters
+keep the dense path's names (`norm2`, `mlp.fc1`, `mlp.fc2`).
 """
 
 from __future__ import annotations
@@ -22,7 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from probpose_pytorch_tpu_torch.ops.kernels.attention import packed_attention
+from torch.utils.checkpoint import checkpoint
+
+from probpose_pytorch_tpu_torch.ops.kernels.attention import fused_attention, packed_attention
+from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp
 
 __all__ = ["ViTConfig", "Attention", "MlpBlock", "Block", "ViTBackbone"]
 
@@ -68,29 +80,45 @@ class MlpBlock(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, impl: str = "fused"):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.num_heads = num_heads
         self.dtype = dtype
+        self.impl = impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = linear(x, self.qkv, self.dtype)  # (B, N, 3C), qkv-major
-        return linear(packed_attention(qkv, self.num_heads), self.proj, self.dtype)
+        if self.impl == "pallas":
+            B, N, C3 = qkv.shape
+            q, k, v = qkv.unflatten(-1, (3, self.num_heads, -1)).unbind(2)
+            ctx = fused_attention(q, k, v).reshape(B, N, C3 // 3)
+        else:
+            ctx = packed_attention(qkv, self.num_heads)
+        return linear(ctx, self.proj, self.dtype)
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 dtype: torch.dtype, exact_gelu: bool = False):
+                 dtype: torch.dtype, exact_gelu: bool = False,
+                 attn_impl: str = "fused", mlp_impl: str = "dense"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, dtype)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, exact_gelu)
+        self.mlp_impl = mlp_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(layer_norm(x, self.norm1))
+        if self.mlp_impl == "fused":
+            B, N, C = x.shape
+            fc1, fc2, dt = self.mlp.fc1, self.mlp.fc2, self.mlp.dtype
+            out = fused_ln_mlp(x.reshape(B * N, C), self.norm2.weight, self.norm2.bias,
+                               fc1.weight.to(dt).t(), fc1.bias, fc2.weight.to(dt).t(),
+                               fc2.bias, self.mlp.approximate == "none")
+            return out.reshape(B, N, C)
         return x + self.mlp(layer_norm(x, self.norm2))
 
 
@@ -103,8 +131,9 @@ class ViTBackbone(nn.Module):
     Parameters stay float32 and are cast to the compute dtype per call, so
     gradients reach the float32 masters through the casts, as flax's f32
     `param_dtype` does. The JAX trunk has no dropout, nor does this one.
-    `remat` (recompute each block in the backward) is not ported: training
-    with it raises.
+    `remat` recomputes each block in the backward (`nn.remat(Block)` in
+    JAX): in training, each block runs under `torch.utils.checkpoint`, which
+    keeps only the block's input.
     """
 
     def __init__(
@@ -121,6 +150,8 @@ class ViTBackbone(nn.Module):
         num_prefix_tokens: int = 0,
         exact_gelu: bool = False,
         remat: bool = False,
+        attn_impl: str = "fused",
+        mlp_impl: str = "dense",
     ):
         super().__init__()
         self.remat = remat
@@ -139,7 +170,7 @@ class ViTBackbone(nn.Module):
             if num_prefix_tokens else None
         )
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu)
+            Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu, attn_impl, mlp_impl)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
@@ -154,11 +185,6 @@ class ViTBackbone(nn.Module):
                 self.img_size[1] // self.patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.remat and self.training and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "remat=True (per-block recompute in training) is not ported "
-                "to PyTorch yet (ROADMAP item 6)"
-            )
         B = x.shape[0]
         gh, gw = self.grid_size
         dt = self.dtype
@@ -172,8 +198,9 @@ class ViTBackbone(nn.Module):
         if self.prefix_tokens is not None:
             prefix = self.prefix_tokens.to(dt).expand(B, -1, -1)
             x = torch.cat([prefix, x], dim=1)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         x = layer_norm(x, self.norm)
         if self.num_prefix_tokens:
             x = x[:, self.num_prefix_tokens:]

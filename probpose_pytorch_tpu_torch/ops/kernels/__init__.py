@@ -1,7 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-    attention.py   K1 forward and backward, CUDA C++ (csrc/packed_attention.cu)
+    attention.py   K1 forward and backward, and K6 (the same forward read from
+                   (B, N, heads, d) views), CUDA C++ (csrc/packed_attention.cu)
     sparsemax.py   K2, Triton
+    mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward,
+                   CUDA C++ (csrc/fused_mlp.cu)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor; it never falls back.
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 
-__all__ = ["plain_versions", "plain_enabled"]
+__all__ = ["plain_versions", "plain_enabled", "use_plain"]
 
 _PLAIN = False
 
@@ -32,3 +35,13 @@ def plain_versions():
 
 def plain_enabled() -> bool:
     return _PLAIN
+
+
+def use_plain(t, what: str) -> bool:
+    """True for the plain version (CPU tensor, or `plain_versions()` on);
+    False for the kernel (CUDA tensor); raises for any other device."""
+    if t.device.type == "cpu" or (t.is_cuda and _PLAIN):
+        return True
+    if not t.is_cuda:
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return False

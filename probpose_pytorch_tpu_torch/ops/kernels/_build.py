@@ -1,8 +1,9 @@
 """Build csrc/*.cu into one plain-C shared library and load it with ctypes.
 
 nvcc compiles every source of the package's csrc/ directory for Hopper
-(sm_90a) into `build/torch_kernels/<hash>/libprobpose_kernels.so` at the root
-of the checkout. The hash covers the sources and the flags, so a library is
+(sm_90a), one process per source, all started together, and links them
+into `build/torch_kernels/<hash>/libprobpose_kernels.so` at the root of the
+checkout. The hash covers the sources and the flags, so a library is
 built once per source state and reused by every later process. The sources
 include no PyTorch header: the kernels take raw pointers and a stream, which
 keeps a build to seconds.
@@ -68,24 +69,45 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their stderr, or raise for a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return "".join(logs)
+
+
 def _build(out: Path, srcs: list[Path]) -> None:
+    """One nvcc per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    # Write to a temporary name and rename: concurrent processes never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
-    _report.update(built=True, seconds=seconds, command=" ".join(cmd))
+    tmpdir = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objs = [tmpdir / f"{s.stem}.o" for s in srcs]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        t0 = time.perf_counter()
+        log = _run([[_nvcc(), *compile_flags, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)])
+        # Link under a temporary name and rename: concurrent processes never
+        # load a half-written library.
+        tmp = tmpdir / out.name
+        link = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        _run([link])
+        seconds = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    _report.update(built=True, seconds=seconds,
+                   command=f"{len(srcs)} parallel nvcc -c, then {' '.join(link)}")
 
 
 def library() -> ctypes.CDLL:

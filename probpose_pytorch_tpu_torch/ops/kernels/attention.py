@@ -19,6 +19,14 @@ the packed layout. Both wrappers:
   * CUDA tensor -> the CUDA kernel, or an error for anything it does not take.
 Shapes the kernel cannot hold in shared memory raise; the long-sequence
 kernel (K4) that would serve them is still to be ported.
+
+Kernel K6, `fused_attention(q, k, v)`, replaces `_attn_kernel` of the same
+file (`fused_attention`, the `attn_impl="pallas"` serving knob): the same
+forward with q, k and v each (B, N, heads, d), read through their strides by
+K1's forward body, so the views the qkv projection gives are not copied
+(JAX transposes them to (B * heads, N, d) around its kernel). It returns
+the context (B, N, heads, d). It is forward only, as in JAX: a gradient
+through it raises. `fused_attention_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ __all__ = [
     "packed_attention_backward",
     "packed_attention_bwd_reference",
     "kernel_path",
+    "fused_attention",
+    "fused_attention_reference",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -98,6 +108,9 @@ def _lib() -> ctypes.CDLL:
         for name in ("packed_attention_uses_mma", "packed_attention_bwd_uses_mma"):
             getattr(lib, name).argtypes = [i32] * 3
             getattr(lib, name).restype = i32
+        lib.flat_attention_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ctypes.c_longlong] * 3 \
+            + [i32] * 2 + [ptr]
+        lib.flat_attention_fwd.restype = i32
         lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
         lib.packed_attention_max_smem.restype = i32
         lib._attention_bound = True
@@ -132,41 +145,38 @@ def _check(qkv: torch.Tensor, heads: int) -> None:
         raise ValueError(f"packed_attention: batch {B} exceeds the grid's 65535")
 
 
-def _use_plain(t: torch.Tensor, what: str) -> bool:
-    """True for the plain version (CPU tensor, or `plain_versions()` on);
-    False for the kernel (CUDA tensor); raises for any other device."""
-    if t.device.type == "cpu" or (t.is_cuda and kernels.plain_enabled()):
-        return True
-    if not t.is_cuda:
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return False
+def _smem_check(t: torch.Tensor, N: int, d: int, smem_fn, what: str) -> int:
+    """CUDA device index of t, after checking that the kernel's shared
+    memory for (N, d) fits the card."""
+    lib = _lib()
+    device = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    limit = ctypes.c_int(0)
+    err = lib.packed_attention_max_smem(device, ctypes.byref(limit))
+    if err:
+        raise RuntimeError(f"{what}: cudaDeviceGetAttribute failed ({err})")
+    need = smem_fn(N, d, _DTYPES[t.dtype])
+    if need > limit.value:
+        raise ValueError(
+            f"{what}: N={N}, d={d} ({t.dtype}) needs {need} bytes "
+            f"of shared memory, the card allows {limit.value}; the "
+            "long-sequence kernel K4 is not ported yet (K6, fused_attention, "
+            "takes the same shapes as K1 and is forward only)"
+        )
+    return device
 
 
 def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) -> int:
     """CUDA device index of qkv, after checking that the kernel's shared
     memory fits the card and that qkv is 16-byte aligned."""
     B, N, C3 = qkv.shape
-    d = C3 // 3 // heads
-    lib = _lib()
-    device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
-    limit = ctypes.c_int(0)
-    err = lib.packed_attention_max_smem(device, ctypes.byref(limit))
-    if err:
-        raise RuntimeError(f"{what}: cudaDeviceGetAttribute failed ({err})")
-    need = smem_fn(N, d, _DTYPES[qkv.dtype])
-    if need > limit.value:
-        raise ValueError(
-            f"{what}: N={N}, d={d} ({qkv.dtype}) needs {need} bytes "
-            f"of shared memory, the card allows {limit.value}; the "
-            "long-sequence kernel K4 is not ported yet"
-        )
+    device = _smem_check(qkv, N, C3 // 3 // heads, smem_fn, what)
     if qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be 16-byte aligned")
     return device
 
 
 def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    if _use_plain(qkv, "packed_attention"):
+    if kernels.use_plain(qkv, "packed_attention"):
         return packed_attention_reference(qkv, heads)
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
@@ -202,7 +212,7 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
             f"packed_attention_backward: dout is {dout.dtype} on {dout.device}, "
             f"qkv {qkv.dtype} on {qkv.device}"
         )
-    if _use_plain(qkv, "packed_attention_backward"):
+    if kernels.use_plain(qkv, "packed_attention_backward"):
         return packed_attention_bwd_reference(qkv, dout, heads)
     dout = dout.contiguous()
     lib = _lib()
@@ -250,3 +260,70 @@ def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 packed_attention.launches = 0
 packed_attention_backward.launches = 0
+
+
+def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6, line by line `_attn_kernel` (attention_kernel.py:
+    32-48): f32 scores, scale after the product, f32 softmax, P rounded to
+    v's dtype before P.V, f32 sums; (B, N, heads, d) in q's dtype."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+
+
+def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if kernels.use_plain(q, "fused_attention"):
+        return fused_attention_reference(q, k, v)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"fused_attention: dtype {q.dtype} not supported (float32 or bfloat16)")
+    B, N, H, d = q.shape
+    if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if B > 65535:
+        raise ValueError(f"fused_attention: batch {B} exceeds the grid's 65535")
+    device = _smem_check(q, N, d, _lib().packed_attention_smem_bytes, "fused_attention")
+    align = 16 // q.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(s % align for s in q.stride()[:3]):
+        raise ValueError("fused_attention: q, k and v must be 16-byte aligned, row by row")
+    out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device)
+    err = _lib().flat_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
+        *q.stride()[:3], _DTYPES[q.dtype], device,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fused_attention: kernel launch failed with cudaError {err} at "
+                           f"q {tuple(q.shape)} {q.dtype}")
+    fused_attention.launches += 1
+    return out
+
+
+class _FlatAttention(torch.autograd.Function):
+    """K6 forward; like the JAX kernel it has no backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        return _flat_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "fused_attention (kernel K6, attn_impl='pallas') is forward only, as in the JAX "
+            "package; train with attn_impl='fused' or 'einsum' (kernel K1)")
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head with q, k, v each (B, N, heads,
+    d); returns (B, N, heads, d). Forward only."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"fused_attention: q, k, v must share one (B, N, heads, d) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
+        raise TypeError("fused_attention: q, k and v must share dtype and device")
+    if 0 in q.shape:
+        raise ValueError(f"fused_attention: empty q {tuple(q.shape)}")
+    return _FlatAttention.apply(q, k, v)
+
+
+fused_attention.launches = 0

@@ -105,10 +105,8 @@ def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
     if not z.is_contiguous():
         raise ValueError("sparsemax_rows: input must be contiguous")
     R, N = z.shape
-    if z.device.type == "cpu" or (z.is_cuda and kernels.plain_enabled()):
+    if kernels.use_plain(z, "sparsemax_rows"):
         return sparsemax_reference(z)
-    if not z.is_cuda:
-        raise ValueError(f"sparsemax_rows: unsupported device {z.device}")
     if R == 0 or N == 0:
         raise ValueError(f"sparsemax_rows: empty input {tuple(z.shape)}")
     triton, kernel = _triton_kernel()

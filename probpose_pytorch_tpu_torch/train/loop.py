@@ -29,7 +29,7 @@ import torch
 
 from probpose_pytorch_tpu_torch.codec import ArgMaxProbMap, Codec, ProbMap
 from probpose_pytorch_tpu_torch.losses import ProbPoseLoss
-from probpose_pytorch_tpu_torch.models.model import build_model
+from probpose_pytorch_tpu_torch.models.model import build_model, resolve_device
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize, transform_keypoints
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
 from probpose_pytorch_tpu_torch.train.state import AdamW, TrainState, global_norm, make_optimizer
@@ -180,9 +180,11 @@ class Trainer:
 
     @classmethod
     def create(cls, cfg: TrainConfig, steps_per_epoch: int,
-               device: torch.device | str = "cpu") -> "Trainer":
+               device: torch.device | str = "cuda") -> "Trainer":
         """Weights drawn from `cfg.seed` (compat/from_jax.py loads a JAX
-        run's state instead); the schedule spans steps_per_epoch * epochs."""
+        run's state instead); the schedule spans steps_per_epoch * epochs.
+        Runs on the card unless `device` asks for the CPU."""
+        device = resolve_device(device, "Trainer.create")
         if cfg.model_parallel > 1 or cfg.pipeline_parallel > 1 or cfg.shard_opt_state:
             raise _unported("model_parallel, pipeline_parallel and shard_opt_state", 13)
         if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
@@ -191,7 +193,6 @@ class Trainer:
             raise _unported("distillation (TrainConfig.distill)", 11)
         if cfg.model.frozen_backbone or cfg.train_lora_only:
             raise _unported("frozen-parameter masks (frozen_backbone, train_lora_only)", 6)
-        device = torch.device(device)
         model = build_model(cfg.model, device, seed=cfg.seed)
         encode_codec, fast_codec = build_codecs(cfg)
         loss_fn = ProbPoseLoss(fast_codec, freeze_error=cfg.freeze_error,

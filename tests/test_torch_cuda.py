@@ -13,11 +13,19 @@ import torch
 from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
 from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
 from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+    fused_attention,
+    fused_attention_reference,
     kernel_path,
     packed_attention,
     packed_attention_backward,
     packed_attention_bwd_reference,
     packed_attention_reference,
+)
+from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+    fused_ln_mlp,
+    fused_ln_mlp_backward,
+    fused_ln_mlp_bwd_reference,
+    fused_ln_mlp_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
     sparsemax_reference,
@@ -256,3 +264,158 @@ def test_optimizer_skips_nonfinite_gradients_on_card(cuda_device):
             assert int(state.count) == 0 and int(state.schedule_count) == 0
         else:  # more than max_nonfinite_skips in a row: applied
             assert int(state.count) == 1 and not bool(torch.isfinite(updates[1]).all())
+
+
+def mlp_args(g, R, C, dtype, device):
+    """(x, scale, bias, w1, b1, w2, b2) of kernel K5: x and the weights in
+    `dtype` (the weights at fan-in scale), the LayerNorm and bias vectors
+    float32, w1 and w2 as the transposed views a Linear's weight gives."""
+    f32 = dict(generator=g, device=device)
+    x = torch.randn(R, C, **f32).to(dtype)
+    scale = 1 + 0.1 * torch.randn(C, **f32)
+    bias = 0.1 * torch.randn(C, **f32)
+    w1 = (torch.randn(4 * C, C, **f32) / C**0.5).to(dtype).t()
+    w2 = (torch.randn(C, 4 * C, **f32) / (4 * C) ** 0.5).to(dtype).t()
+    return x, scale, bias, w1, 0.1 * torch.randn(4 * C, **f32), w2, 0.1 * torch.randn(C, **f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,dtype,exact", [
+    (12 * 192, 768, torch.bfloat16, False),  # ViT-B rows of 12 crops
+    (3 * 192 + 7, 768, torch.bfloat16, False),  # ragged last tile
+    (3 * 192 + 7, 768, torch.bfloat16, True),  # erf GELU
+    (8 * 192 + 5, 384, torch.bfloat16, False),
+    (4 * 192 + 3, 1024, torch.bfloat16, False),
+    (2 * 192 + 9, 1280, torch.bfloat16, True),
+    (2 * 192 + 7, 768, torch.float32, False),  # CUDA cores
+    (97, 384, torch.float32, True),
+])
+def test_fused_ln_mlp_kernel(cuda_device, R, C, dtype, exact):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    args = mlp_args(g, R, C, dtype, cuda_device)
+    before = fused_ln_mlp.launches
+    out = fused_ln_mlp(*args, exact)
+    torch.cuda.synchronize()
+    assert fused_ln_mlp.launches == before + 1 and out.dtype == dtype
+    ref = fused_ln_mlp_reference(*args, exact)
+    assert max_err(out, ref) <= bound(ref)
+
+
+def grad_bound(ref: torch.Tensor, dtype: torch.dtype) -> float:
+    """K5 backward's bound, relative to each cotangent's magnitude. bf16:
+    four bf16 ulps (4 * 2**-8) of max|ref| -- the kernel's tensor-core
+    products take du rounded to bf16 where the plain version keeps it f32,
+    and dy, dW1 and dW2 are rounded to bf16 after sums in another order.
+    f32: 1e-4 of it, tests/test_pallas.py's bound on the Pallas gradients."""
+    rel = 4 * 2**-8 if dtype == torch.bfloat16 else 1e-4
+    return rel * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,dtype,exact", [
+    (8 * 192, 768, torch.bfloat16, False),
+    (3 * 192 + 7, 768, torch.bfloat16, True),  # ragged, erf GELU
+    (5 * 192 + 3, 384, torch.bfloat16, False),
+    (2 * 192 + 5, 1280, torch.bfloat16, False),
+    (2 * 192 + 7, 768, torch.float32, False),
+    (97, 1024, torch.float32, True),
+])
+def test_fused_ln_mlp_backward_kernel(cuda_device, R, C, dtype, exact):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    args = mlp_args(g, R, C, dtype, cuda_device)
+    dout = torch.randn(R, C, generator=g, device=cuda_device).to(dtype)
+    before = fused_ln_mlp_backward.launches
+    grads = fused_ln_mlp_backward(*args, dout, exact)
+    again = fused_ln_mlp_backward(*args, dout, exact)
+    torch.cuda.synchronize()
+    assert fused_ln_mlp_backward.launches == before + 2
+    refs = fused_ln_mlp_bwd_reference(*args, dout, exact)
+    for name, got, rerun, ref, arg in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
+                                          grads, again, refs, args):
+        assert got.dtype == arg.dtype and got.shape == arg.shape, name
+        assert torch.equal(got, rerun), name  # no atomics: two runs, the same bits
+        assert max_err(got, ref) <= grad_bound(ref, dtype), name
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_autograd_on_card(cuda_device):
+    """torch.autograd.grad through K5 runs the K5 backward once and gives
+    what fused_ln_mlp_backward gives."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    args = mlp_args(g, 2 * 192, 768, torch.bfloat16, cuda_device)
+    w = torch.randn(2 * 192, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    before = fused_ln_mlp_backward.launches
+    grads = torch.autograd.grad((fused_ln_mlp(*leaves).float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert fused_ln_mlp_backward.launches == before + 1
+    for got, want in zip(grads, fused_ln_mlp_backward(*args, w)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_ln_mlp_kernel_refuses_unsupported(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x, scale, bias, w1, b1, w2, b2 = mlp_args(g, 16, 384, torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError):
+        fused_ln_mlp(x.half(), scale, bias, w1.half(), b1, w2.half(), b2)
+    x, scale, bias, w1, b1, w2, b2 = mlp_args(g, 16, 512, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="C=512"):
+        fused_ln_mlp(x, scale, bias, w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,d,dtype", [
+    (16, 192, 12, 64, torch.bfloat16),  # ViT-B
+    (3, 77, 4, 32, torch.bfloat16),
+    (5, 96, 3, 48, torch.bfloat16),     # CUDA cores
+    (4, 192, 6, 64, torch.float32),
+])
+def test_fused_attention_kernel(cuda_device, B, N, heads, d, dtype):
+    """K6 on the q, k, v views of a packed projection, as Attention gives
+    them (no copy), and on contiguous (B, N, heads, d) tensors."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=cuda_device).to(dtype)
+    views = qkv.unflatten(-1, (3, heads, d)).unbind(2)
+    for q, k, v in (views, [t.contiguous() for t in views]):
+        before = fused_attention.launches
+        out = fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fused_attention.launches == before + 1
+        ref = fused_attention_reference(q, k, v)
+        assert max_err(out, ref) <= bound(ref)
+    # K6 is K1's forward read through strides: the same bits
+    assert torch.equal(out.reshape(B, N, heads * d), packed_attention(qkv, heads))
+
+
+@pytest.mark.cuda
+def test_fused_attention_gradient_raises_on_card(cuda_device):
+    q, k, v = (torch.randn(2, 16, 2, 32, device=cuda_device, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_attention(q, k, v).float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["fused", "pallas"])
+def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
+    """Full-width ViT-B with mlp_impl="fused" in f32 (depth cut to 2): the
+    kernel path against the plain path, with 2 K5 launches and 2 K1 (or,
+    with attn_impl="pallas", 2 K6) launches per forward."""
+    cfg = ModelConfig(backbone="vit-b", attn_impl=attn_impl, mlp_impl="fused",
+                      compute_dtype="float32")
+    model = build_model(cfg, cuda_device)
+    del model.backbone.blocks[2:]
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.rand(3, 256, 192, 3, generator=g, device=cuda_device)
+    attn = fused_attention if attn_impl == "pallas" else packed_attention
+    a0, m0 = attn.launches, fused_ln_mlp.launches
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+        assert (attn.launches - a0, fused_ln_mlp.launches - m0) == (2, 2)
+        with plain_versions():
+            ref = model(x)
+    for o, r in zip(out, ref):
+        # f32 everywhere; attention and MLP sums in another order.
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-5)

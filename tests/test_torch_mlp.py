@@ -1,0 +1,337 @@
+"""Kernels K5 (fused LayerNorm + MLP + residual) and K6 (flat attention),
+the ViT paths that run them, per-block recompute and the entry points'
+device default, against the JAX package on the CPU.
+
+The JAX Pallas kernels run in interpret mode, as the JAX package's own tests
+run them (tests/test_pallas.py). JAX's ViT takes its fused-MLP branch only
+when `jax.default_backend() == "tpu"` (models/vit.py:271); the tests that
+need that branch patch, inside the test, the `jax` module that models/vit.py
+sees and the `fused_ln_mlp` it imports (interpret mode, tile 16). Nothing in
+the JAX package changes. Inputs are drawn with numpy from a seed; each
+tolerance is stated beside its assertion.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import probpose_pytorch_tpu.ops.pallas as jax_pallas
+from probpose_pytorch_tpu.models import model as jax_model
+from probpose_pytorch_tpu.models import vit as jax_vit
+from probpose_pytorch_tpu.ops.pallas import fused_attention as jax_fused_attention
+from probpose_pytorch_tpu.ops.pallas import fused_ln_mlp as jax_fused_ln_mlp
+from probpose_pytorch_tpu.ops.sparsemax import force_xla_sparsemax
+from probpose_pytorch_tpu_torch.compat.from_jax import load_jax_variables
+from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
+from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+    fused_attention,
+    fused_attention_reference,
+)
+from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+    fused_ln_mlp,
+    fused_ln_mlp_bwd_reference,
+    fused_ln_mlp_reference,
+)
+from probpose_pytorch_tpu_torch.train.config import TrainConfig
+from probpose_pytorch_tpu_torch.train.loop import Trainer
+from test_torch_models import TINY_CFG, _images, init_pair
+from test_torch_train import (
+    RAW,
+    STEPS_PER_EPOCH,
+    _batch,
+    _by_name,
+    _check_grads,
+    _jax_grads,
+    _port,
+    build_jax_side,
+)
+
+C, HID = 32, 64
+JAX_TILE = 16  # the JAX forward's row tile; its backward's is max(16 // 4, 64) = 64
+JAX_BWD_TILE = 64
+FUSED_CFG = dict(TINY_CFG, mlp_impl="fused", attn_impl="einsum")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _args(seed, R, dtype):
+    """(x, scale, bias, w1, b1, w2, b2) as numpy f32, with x and the weights
+    already rounded to `dtype` when it is bfloat16."""
+    rng = np.random.default_rng(seed)
+    args = [rng.normal(size=(R, C)), rng.normal(1, 0.1, C), rng.normal(0, 0.1, C),
+            rng.normal(0, 0.3, (C, HID)), rng.normal(0, 0.1, HID),
+            rng.normal(0, 0.3, (HID, C)), rng.normal(0, 0.1, C)]
+    args = [a.astype(np.float32) for a in args]
+    if dtype == "bfloat16":
+        for i in (0, 3, 5):
+            args[i] = np.asarray(jnp.asarray(args[i], jnp.bfloat16).astype(jnp.float32))
+    return args
+
+
+def _jax_args(args, dtype):
+    dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return [jnp.asarray(a, dt) if i in (0, 3, 5) else jnp.asarray(a)
+            for i, a in enumerate(args)]
+
+
+def _torch_args(args, dtype):
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return [_t(a).to(dt) if i in (0, 3, 5) else _t(a) for i, a in enumerate(args)]
+
+
+def _ulp(ref: np.ndarray) -> float:
+    """One bf16 ulp at the largest magnitude of `ref`."""
+    m = float(np.abs(ref).max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _close(out, ref, dtype, f32_tol):
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=f32_tol, atol=f32_tol)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=_ulp(ref))
+
+
+class _TpuJax:
+    """The jax module with default_backend() reporting "tpu"."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"
+
+
+@pytest.fixture
+def jax_fused_branch(monkeypatch):
+    """JAX's ViT takes its fused-MLP branch, the kernel in interpret mode;
+    yields the list of its calls (one per traced block)."""
+    monkeypatch.setattr(jax_vit, "jax", _TpuJax())
+    orig, calls = jax_pallas.fused_ln_mlp, []
+
+    def interpreted(*args):
+        calls.append(args[0].shape)
+        return orig(*args, JAX_TILE, True)
+
+    monkeypatch.setattr(jax_pallas, "fused_ln_mlp", interpreted)
+    with force_xla_sparsemax():
+        yield calls
+
+
+# --------------------------------------------------------------------------
+# K5 plain version against the Pallas kernel
+
+
+@pytest.mark.parametrize("R", [48, 37])  # 37: not a multiple of the 16-row tile
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_mlp_plain_matches_pallas(dtype, exact, R):
+    args = _args(0, R, dtype)
+    ref = jax_fused_ln_mlp(*_jax_args(args, dtype), exact, JAX_TILE, True)
+    out = fused_ln_mlp(*_torch_args(args, dtype), exact)
+    assert out.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    # f32: 1e-5, the bound tests/test_pallas.py holds the Pallas kernel to;
+    # bf16: one bf16 ulp of the output's magnitude (the final cast may land
+    # on either side where the f32 sums differ in order).
+    _close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dtype, 1e-5)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_mlp_bwd_plain_matches_pallas(dtype, exact):
+    R = 100  # two backward row tiles of the JAX kernel, the second ragged
+    args = _args(1, R, dtype)
+    g = np.random.default_rng(2).normal(size=(R, C)).astype(np.float32)
+    jargs = _jax_args(args, dtype)
+    jg = jnp.asarray(g, jargs[0].dtype)
+    _, vjp = jax.vjp(lambda *a: jax_fused_ln_mlp(*a, exact, JAX_TILE, True), *jargs)
+    refs = vjp(jg)
+    targs = _torch_args(args, dtype)
+    outs = fused_ln_mlp_bwd_reference(*targs, _t(g).to(targs[0].dtype), exact,
+                                      chunk=JAX_BWD_TILE)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    for name, out, ref, arg in zip(names, outs, refs, targs):
+        assert out.dtype == arg.dtype and tuple(out.shape) == tuple(ref.shape), name
+        # f32: 1e-4, tests/test_pallas.py's bound on the Pallas gradients;
+        # bf16: one bf16 ulp of each cotangent's magnitude.
+        _close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dtype, 1e-4)
+
+
+def test_fused_ln_mlp_autograd_on_cpu_is_the_plain_backward():
+    args = _torch_args(_args(3, 40, "float32"), "float32")
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=(40, C)).astype(np.float32))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    grads = torch.autograd.grad((fused_ln_mlp(*leaves, False) * g).sum(), leaves)
+    for got, want in zip(grads, fused_ln_mlp_bwd_reference(*args, g, False)):
+        assert torch.equal(got, want)
+    # and the same as JAX's gradient of sum(out * g), within 1e-4
+    jg = jnp.asarray(g.numpy())
+    ref = jax.grad(lambda *a: jnp.sum(jax_fused_ln_mlp(*a, False, JAX_TILE, True) * jg),
+                   argnums=tuple(range(7)))(*_jax_args(_args(3, 40, "float32"), "float32"))
+    for got, want in zip(grads, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_fused_ln_mlp_checks_inputs():
+    x, scale, bias, w1, b1, w2, b2 = _torch_args(_args(0, 8, "float32"), "float32")
+    with pytest.raises(ValueError, match="w2"):
+        fused_ln_mlp(x, scale, bias, w1, b1, w2.t(), b2)
+    with pytest.raises(ValueError, match=r"\(R, C\)"):
+        fused_ln_mlp(x[None], scale, bias, w1, b1, w2, b2)
+
+
+# --------------------------------------------------------------------------
+# K6 plain version against the Pallas kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_plain_matches_pallas(dtype):
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(3, 24, 2, 16)).astype(np.float32) for _ in range(3))
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    ref = jax_fused_attention(*(jnp.asarray(a, jd) for a in (q, k, v)), group=2, interpret=True)
+    out = fused_attention(*(_t(a).to(td) for a in (q, k, v)))
+    assert out.shape == (3, 24, 2, 16) and out.dtype == td
+    # f32 scores and softmax on both sides, sums in another order: 1e-5;
+    # bf16 P rounded before P.V on both: one bf16 ulp of the magnitude.
+    _close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dtype, 1e-5)
+    assert torch.equal(out, fused_attention_reference(*(_t(a).to(td) for a in (q, k, v))))
+
+
+def test_fused_attention_gradient_raises():
+    q, k, v = (torch.randn(1, 8, 2, 4, requires_grad=True) for _ in range(3))
+    out = fused_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="forward only"):
+        out.sum().backward()
+
+
+def test_trunk_with_flat_attention_matches_jax():
+    """attn_impl="pallas": JAX runs `fused_attention` (interpret mode off the
+    TPU, no gate), the port runs K6's plain version."""
+    jm, variables, pm = init_pair(dict(TINY_CFG, attn_impl="pallas"), seed=2)
+    x = _images(6)
+    ref = jm.backbone.apply({"params": variables["params"]["backbone"]}, jnp.asarray(x))
+    with torch.no_grad():
+        out = pm.backbone(torch.from_numpy(x)).numpy()
+    # f32 through two blocks, sums in another order (test_torch_models.py's bar)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the fused-MLP ViT against JAX's fused branch
+
+
+def test_fused_trunk_matches_jax_fused_branch(jax_fused_branch):
+    jm, variables, pm = init_pair(FUSED_CFG, seed=3)
+    assert pm.backbone.blocks[0].mlp_impl == "fused"
+    x = _images(7)
+    jax_fused_branch.clear()  # init_pair's init traced the branch too
+    ref = jm.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = pm(torch.from_numpy(x))
+    assert len(jax_fused_branch) == 2  # JAX ran its fused branch in both blocks
+    for o, r in zip(out, ref):
+        # f32 through two fused blocks and the head (test_torch_models.py's bar)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+def test_fused_param_tree_loads_through_from_jax(jax_fused_branch):
+    """The JAX fused branch declares the dense tree (tests/test_pallas.py:
+    345-364), so its params load strictly into the port's fused model."""
+    cfg = jax_model.ModelConfig(**FUSED_CFG)
+    x = jnp.zeros((1, *FUSED_CFG["img_size"], 3), jnp.float32)
+    fused = jax.eval_shape(lambda: jax_model.build_model(cfg).init(
+        jax.random.PRNGKey(0), x, train=False))
+    dense = jax.eval_shape(lambda: jax_model.build_model(
+        dataclasses.replace(cfg, mlp_impl="dense")).init(jax.random.PRNGKey(0), x, train=False))
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), t)
+    assert shapes(fused) == shapes(dense)
+    variables = jax.tree_util.tree_map(
+        lambda s: np.random.default_rng(0).normal(size=s.shape).astype(np.float32), fused)
+    pm = build_model(ModelConfig(**FUSED_CFG), device="cpu")
+    load_jax_variables(pm, variables["params"], variables["batch_stats"])
+    w = variables["params"]["backbone"]["block1"]["mlp"]["fc2"]["kernel"]
+    assert np.array_equal(pm.backbone.blocks[1].mlp.fc2.weight.detach().numpy(), w.T)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_fused_train_step_matches_jax(jax_fused_branch, remat):
+    """One f32 train step of the fused-MLP ViT (per-block recompute or not)
+    against JAX `make_train_step` taking its fused branch, from the same
+    state and batch."""
+    raw = dict(RAW, model=dict(FUSED_CFG, remat=remat))
+    js = build_jax_side(raw)
+    trainer = _port(js, raw)
+    assert trainer.model.backbone.remat == remat
+    batch = _batch(7)
+    captured = []
+    apply = trainer.state.apply_gradients
+    trainer.state.apply_gradients = lambda g, tx, ema_decay=None: (
+        captured.append([t.clone() for t in g]), apply(g, tx, ema_decay))[1]
+    rlosses, rgrads, _ = _jax_grads(js, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, jm = js["step"](js["state"], {k: jnp.asarray(v) for k, v in batch.items()})
+    assert jax_fused_branch  # JAX traced its fused branch
+    _, metrics = trainer.train_step(trainer.state, trainer.device_batch(batch))
+    for k, v in rlosses.items():
+        # each loss term within 1e-5 relative (test_torch_train.py's bar)
+        np.testing.assert_allclose(float(metrics[f"loss/{k}"]), float(v), rtol=1e-5,
+                                   atol=1e-8, err_msg=k)
+    # per leaf within 1e-4 of its largest JAX entry; the pre-clip norm 1e-4
+    _check_grads(trainer.state.names, captured[0],
+                 _by_name(rgrads, js["state"].batch_stats, trainer.state.names))
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# per-block recompute
+
+
+@pytest.mark.parametrize("mlp_impl", ["dense", "fused"])
+def test_remat_step_equals_plain_step_bitwise(mlp_impl):
+    """remat recomputes each block's forward in the backward with the same
+    operations, so two steps agree bit for bit on the CPU."""
+    trainers = []
+    for remat in (False, True):
+        raw = dict(RAW, model=dict(TINY_CFG, mlp_impl=mlp_impl, remat=remat))
+        trainers.append(Trainer.create(TrainConfig.from_dict(raw), STEPS_PER_EPOCH, device="cpu"))
+    # both drawn from cfg.seed
+    for a, b in zip(trainers[0].state.params, trainers[1].state.params):
+        assert torch.equal(a, b)
+    batch = _batch(8)
+    metrics = [t.train_step(t.state, t.device_batch(batch))[1] for t in trainers]
+    for k in metrics[0]:
+        assert torch.equal(metrics[0][k], metrics[1][k]), k
+    for a, b in zip(trainers[0].state.params, trainers[1].state.params):
+        assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the entry points' device
+
+
+@pytest.mark.parametrize("entry", ["build_model", "Trainer.create"])
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, entry):
+    """With no card (decided here: CUDA reported absent) the default device
+    raises instead of falling back to the CPU; device="cpu" still works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig.from_dict(RAW)
+    call = {"build_model": lambda **kw: build_model(cfg.model, **kw),
+            "Trainer.create": lambda **kw: Trainer.create(cfg, STEPS_PER_EPOCH, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert call(device="cpu") is not None
+
+
+def test_lora_with_fused_mlp_is_refused_like_jax():
+    with pytest.raises(ValueError, match="mlp_impl='fused'"):
+        build_model(ModelConfig(**FUSED_CFG, lora_rank=4), device="cpu")

@@ -84,7 +84,7 @@ def init_pair(cfg_kw=TINY_CFG, seed=0):
     jm = jax_model.build_model(jax_model.ModelConfig(**cfg_kw))
     x = jnp.zeros((1, *cfg_kw["img_size"], 3), jnp.float32)
     variables = peaked_variables(jm.init(jax.random.PRNGKey(seed), x, train=False), seed)
-    pm = build_model(ModelConfig(**cfg_kw))
+    pm = build_model(ModelConfig(**cfg_kw), device="cpu")
     load_jax_variables(pm, variables["params"], variables["batch_stats"])
     return jm, variables, pm
 
@@ -213,7 +213,7 @@ def test_flagship_geometry_loads_strictly():
         lambda: jax_model.build_model(jcfg).init(
             jax.random.PRNGKey(0), jnp.zeros((1, 256, 192, 3)), train=False))
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    pm = build_model(cfg)
+    pm = build_model(cfg, device="cpu")
     load_jax_variables(pm, zeros["params"], zeros["batch_stats"])
     n_jax = sum(v.size for v in jax.tree_util.tree_leaves(zeros))
     n_port = sum(t.numel() for k, t in pm.state_dict().items()
@@ -227,8 +227,6 @@ def test_flagship_geometry_loads_strictly():
     (dict(lora_rank=4), "item 11"),
     (dict(pp_stages=2), "item 13"),
     (dict(attn_impl="fused_tp"), "item 13"),
-    (dict(attn_impl="pallas"), "K6"),
-    (dict(mlp_impl="fused"), "K5"),
     (dict(deconv_kernel_sizes=(2, 4)), "item 4"),
     (dict(deconv_kernel_sizes=(4, 3)), "item 4"),
     (dict(attn_impl="einsum", softmax_dtype="bfloat16"), "item 4"),
@@ -238,4 +236,4 @@ def test_model_config_names_roadmap_item_for_unported(over, item):
     refuses it, naming the ROADMAP item."""
     cfg = ModelConfig(**over)
     with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg)
+        build_model(cfg, device="cpu")

@@ -68,9 +68,13 @@ def _batch(seed=0, n=B):
 
 @pytest.fixture(scope="module")
 def jax_side():
+    return build_jax_side(RAW)
+
+
+def build_jax_side(raw):
     """The JAX model, optimizer, codecs, loss, jitted steps and initial
-    state at the tiny geometry."""
-    cfg = JaxTrainConfig.from_dict(RAW)
+    state of the config `raw` (the tiny geometry)."""
+    cfg = JaxTrainConfig.from_dict(raw)
     model = jax_model.build_model(cfg.model)
     x = jnp.zeros((1, *cfg.model.img_size, 3), jnp.float32)
     variables = peaked_variables(model.init(jax.random.PRNGKey(0), x, train=False))
@@ -88,9 +92,10 @@ def jax_side():
                 fast=fast, loss_fn=loss_fn, step=step, eval_step=eval_step)
 
 
-def _port(js) -> Trainer:
-    """A port Trainer carrying the JAX side's initial state."""
-    trainer = Trainer.create(TrainConfig.from_dict(RAW), STEPS_PER_EPOCH)
+def _port(js, raw=RAW) -> Trainer:
+    """A port Trainer of the config `raw` carrying the JAX side's initial
+    state."""
+    trainer = Trainer.create(TrainConfig.from_dict(raw), STEPS_PER_EPOCH, device="cpu")
     load_jax_train_state(trainer.state, jax.device_get(js["state"]))
     return trainer
 
@@ -152,16 +157,7 @@ def test_synthetic_data_matches_jax():
 ])
 def test_unported_training_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
-        Trainer.create(TrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH)
-
-
-def test_remat_raises_in_training_only():
-    trainer = Trainer.create(TrainConfig.from_dict(
-        {**RAW, "model": dict(TINY_CFG, remat=True)}), STEPS_PER_EPOCH)
-    with torch.no_grad():
-        trainer.model(torch.zeros(1, 64, 48, 3))  # serving is unaffected
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trainer.train_step(trainer.state, trainer.device_batch(_batch()))
+        Trainer.create(TrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH, device="cpu")
 
 
 # --------------------------------------------------------------------------
@@ -241,7 +237,7 @@ def _pair(js, dtype="float32"):
     """(JAX model, numpy variables, port model) sharing the JAX side's
     initial weights, at the given compute dtype."""
     kw = dict(TINY_CFG, compute_dtype=dtype)
-    pm = build_model(ModelConfig(**kw))
+    pm = build_model(ModelConfig(**kw), device="cpu")
     v = js["variables"]
     load_jax_variables(pm, v["params"], v["batch_stats"])
     return jax_model.build_model(jax_model.ModelConfig(**kw)), v, pm
@@ -387,7 +383,7 @@ def test_load_jax_train_state_continues_a_jax_run(jax_side):
     js = jax_side
     batch = {k: jnp.asarray(v) for k, v in _batch(1).items()}
     jstate, _ = js["step"](js["state"], batch)
-    trainer = Trainer.create(TrainConfig.from_dict(RAW), STEPS_PER_EPOCH)
+    trainer = Trainer.create(TrainConfig.from_dict(RAW), STEPS_PER_EPOCH, device="cpu")
     load_jax_train_state(trainer.state, jax.device_get(jstate))
     assert int(trainer.state.step) == 1 and int(trainer.state.opt_state.count) == 1
     jstate2, jm = js["step"](jstate, batch)
