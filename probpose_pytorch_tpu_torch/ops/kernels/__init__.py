@@ -1,8 +1,13 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
     attention.py   K1 forward and backward, and K6 (the same forward read from
-                   (B, N, heads, d) views), CUDA C++ (csrc/packed_attention.cu)
-    sparsemax.py   K2, Triton
+                   (B, N, heads, d) views), CUDA C++ (csrc/packed_attention.cu);
+                   routes long sequences to K4
+    attention_tiled.py
+                   K4 row-tiled attention for long sequences, forward and
+                   backward, CUDA C++ (csrc/tiled_attention.cu)
+    sparsemax.py   K2, Triton (rows of any length)
+    decode.py      K3 fused expected-value decode, CUDA C++ (csrc/decode.cu)
     mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward,
                    CUDA C++ (csrc/fused_mlp.cu)
 

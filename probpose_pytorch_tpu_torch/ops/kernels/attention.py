@@ -17,8 +17,13 @@ the packed layout. Both wrappers:
   * CPU tensor  -> the plain version (`packed_attention_reference`,
                    `packed_attention_bwd_reference`);
   * CUDA tensor -> the CUDA kernel, or an error for anything it does not take.
-Shapes the kernel cannot hold in shared memory raise; the long-sequence
-kernel (K4) that would serve them is still to be ported.
+A shape whose K1 shared memory does not fit the card (N above ~789 in bf16
+at d = 64, e.g. a ViT trunk on 768 x 768 inputs, N = 2304) goes to the
+row-tiled kernel K4 (ops/kernels/attention_tiled.py) instead, as the JAX
+`packed_attention` hands it to `tiled_attention`. Forward and backward are
+routed each on its own (their shared memory differs), by the shape alone:
+`attention_route` on K1's byte count and the card's opt-in limit.
+`kernel_path` names the route: "K1 tensor cores", "K1 CUDA cores" or "K4".
 
 Kernel K6, `fused_attention(q, k, v)`, replaces `_attn_kernel` of the same
 file (`fused_attention`, the `attn_impl="pallas"` serving knob): the same
@@ -36,6 +41,13 @@ import ctypes
 import torch
 
 from probpose_pytorch_tpu_torch.ops import kernels
+from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    DTYPES as _DTYPES,
+    attention_route,
+    max_shared_memory,
+    tiled_attention_backward,
+    tiled_forward,
+)
 
 __all__ = [
     "packed_attention",
@@ -43,11 +55,10 @@ __all__ = [
     "packed_attention_backward",
     "packed_attention_bwd_reference",
     "kernel_path",
+    "attention_route",
     "fused_attention",
     "fused_attention_reference",
 ]
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _unpack(qkv: torch.Tensor, heads: int):
@@ -111,17 +122,29 @@ def _lib() -> ctypes.CDLL:
         lib.flat_attention_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ctypes.c_longlong] * 3 \
             + [i32] * 2 + [ptr]
         lib.flat_attention_fwd.restype = i32
-        lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.packed_attention_max_smem.restype = i32
         lib._attention_bound = True
     return lib
 
 
+def _route(N: int, d: int, dtype: torch.dtype, backward: bool, device: int) -> str:
+    """"K1" or "K4" for (N, d, dtype) on the card `device`."""
+    lib = _lib()
+    need = lib.packed_attention_bwd_smem_bytes if backward else lib.packed_attention_smem_bytes
+    return attention_route(need(N, d, _DTYPES[dtype]), max_shared_memory(device))
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
 def kernel_path(N: int, d: int, dtype: torch.dtype, backward: bool = False) -> str:
-    """Which CUDA path serves (N, d, dtype): "tensor cores" or "CUDA cores"."""
+    """Which kernel serves (N, d, dtype) on the current card, forward or
+    backward: "K1 tensor cores", "K1 CUDA cores" or "K4"."""
+    if _route(N, d, dtype, backward, torch.cuda.current_device()) == "K4":
+        return "K4"
     lib = _lib()
     fn = lib.packed_attention_bwd_uses_mma if backward else lib.packed_attention_uses_mma
-    return "tensor cores" if fn(N, d, _DTYPES[dtype]) else "CUDA cores"
+    return "K1 tensor cores" if fn(N, d, _DTYPES[dtype]) else "K1 CUDA cores"
 
 
 def _check(qkv: torch.Tensor, heads: int) -> None:
@@ -148,19 +171,15 @@ def _check(qkv: torch.Tensor, heads: int) -> None:
 def _smem_check(t: torch.Tensor, N: int, d: int, smem_fn, what: str) -> int:
     """CUDA device index of t, after checking that the kernel's shared
     memory for (N, d) fits the card."""
-    lib = _lib()
-    device = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    limit = ctypes.c_int(0)
-    err = lib.packed_attention_max_smem(device, ctypes.byref(limit))
-    if err:
-        raise RuntimeError(f"{what}: cudaDeviceGetAttribute failed ({err})")
+    device = _device_index(t)
+    limit = max_shared_memory(device)
     need = smem_fn(N, d, _DTYPES[t.dtype])
-    if need > limit.value:
+    if need > limit:
         raise ValueError(
             f"{what}: N={N}, d={d} ({t.dtype}) needs {need} bytes "
-            f"of shared memory, the card allows {limit.value}; the "
-            "long-sequence kernel K4 is not ported yet (K6, fused_attention, "
-            "takes the same shapes as K1 and is forward only)"
+            f"of shared memory, the card allows {limit} (K6, fused_attention, "
+            "takes the shapes K1 holds; packed_attention routes longer "
+            "sequences to K4)"
         )
     return device
 
@@ -176,7 +195,13 @@ def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) ->
 
 
 def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    if kernels.use_plain(qkv, "packed_attention"):
+    plain = kernels.use_plain(qkv, "packed_attention")
+    if plain and not qkv.is_cuda:
+        return packed_attention_reference(qkv, heads)
+    B, N, C3 = qkv.shape
+    if _route(N, C3 // 3 // heads, qkv.dtype, False, _device_index(qkv)) == "K4":
+        return tiled_forward(qkv, heads)
+    if plain:
         return packed_attention_reference(qkv, heads)
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
@@ -212,7 +237,12 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
             f"packed_attention_backward: dout is {dout.dtype} on {dout.device}, "
             f"qkv {qkv.dtype} on {qkv.device}"
         )
-    if kernels.use_plain(qkv, "packed_attention_backward"):
+    plain = kernels.use_plain(qkv, "packed_attention_backward")
+    if plain and not qkv.is_cuda:
+        return packed_attention_bwd_reference(qkv, dout, heads)
+    if _route(N, C3 // 3 // heads, qkv.dtype, True, _device_index(qkv)) == "K4":
+        return tiled_attention_backward(qkv, dout, heads)
+    if plain:
         return packed_attention_bwd_reference(qkv, dout, heads)
     dout = dout.contiguous()
     lib = _lib()
@@ -237,7 +267,8 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
 
 
 class _PackedAttention(torch.autograd.Function):
-    """K1 forward, with K1 backward as its gradient; saves only qkv."""
+    """K1 or K4 forward, with K1 or K4 backward as its gradient, each routed
+    by the shape; saves only qkv."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -253,7 +284,7 @@ class _PackedAttention(torch.autograd.Function):
 
 def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv;
-    differentiable through K1's backward."""
+    differentiable through K1's (or K4's) backward."""
     _check(qkv, heads)
     return _PackedAttention.apply(qkv, heads)
 

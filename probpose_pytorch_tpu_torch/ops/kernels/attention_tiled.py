@@ -1,0 +1,255 @@
+"""Kernel K4: row-tiled attention for long sequences, forward and backward,
+and their plain versions.
+
+Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel` of
+probpose_pytorch_tpu/ops/pallas/attention_tiled.py (`tiled_attention`, a
+`jax.custom_vjp` whose backward recomputes the scores). The CUDA source,
+with its design and what bounds it on the card, is csrc/tiled_attention.cu:
+K and V stream through shared memory in tiles of 64 keys, so no shape is
+bounded by N; bf16 runs its products on the tensor cores, float32 on the CUDA
+cores; head widths d in {32, 64, 128}.
+
+`tiled_attention(qkv, heads)` has K1's contract (ops/kernels/attention.py):
+the (B, N, 3C) qkv-major projection in, the h-major (B, N, C) context out;
+it is a `torch.autograd.Function` that saves only qkv, whose backward is
+`tiled_attention_backward`. `packed_attention` routes a shape here wherever
+K1's shared memory does not fit the card (`attention_route`), forward and
+backward each on its own. Both wrappers take the plain version for a CPU
+tensor and launch the kernel, or raise, for a CUDA tensor.
+
+The plain versions follow the TPU kernels line by line and, like them, take
+the query rows in chunks, so that no (B, heads, N, N) score tensor is ever
+built: at (64, 2304, 1152) it would hold 8 GB.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from probpose_pytorch_tpu_torch.ops import kernels
+
+__all__ = [
+    "tiled_attention",
+    "tiled_attention_reference",
+    "tiled_attention_backward",
+    "tiled_attention_bwd_reference",
+    "attention_route",
+    "max_shared_memory",
+]
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+# Query rows per chunk of the plain versions: (B, heads, 256, N) f32 scores,
+# 0.9 GB at (64, 2304, 1152).
+PLAIN_CHUNK = 256
+
+
+def attention_route(k1_bytes: int, limit: int) -> str:
+    """"K1" where K1 needs at most the card's opt-in shared memory per
+    block, else "K4". The shape decides alone: `k1_bytes` is K1's need at
+    (N, d, dtype) (forward or backward), `limit` the card's."""
+    return "K1" if k1_bytes <= limit else "K4"
+
+
+def _heads_split(qkv: torch.Tensor, heads: int):
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    q, k, v = qkv.reshape(B, N, 3, heads, d).unbind(2)
+    return q, k.float(), v.float(), d, 1.0 / d**0.5
+
+
+def tiled_attention_reference(qkv: torch.Tensor, heads: int,
+                              chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """Plain forward, line by line `_tiled_fwd_kernel` (attention_tiled.py:
+    119-144), over chunks of `chunk` query rows: s = q.k * scale in f32,
+    s - rowmax, exp, divided by its row sum, P rounded to qkv's dtype before
+    P.V in f32; the context (B, N, C) in qkv's dtype."""
+    B, N, C3 = qkv.shape
+    q, k, v, d, scale = _heads_split(qkv, heads)
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    for n0 in range(0, N, chunk):
+        s = torch.einsum("bnhd,bmhd->bhnm", q[:, n0:n0 + chunk].float(), k) * scale
+        s = s - s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s)
+        p = p / p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhnm,bmhd->bnhd", p.to(qkv.dtype).float(), v)
+        out[:, n0:n0 + chunk] = o.reshape(B, -1, C3 // 3).to(qkv.dtype)
+    return out
+
+
+def tiled_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                                  chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """Plain backward, line by line `_tiled_bwd_kernel` (attention_tiled.py:
+    147-192), over chunks of query rows: the f32 softmax recomputed from qkv;
+    dP = dO V^T; dsum = rowsum(dP * P) over the unrounded P;
+    dS = round(P * (dP - dsum) * scale); dQ = dS K per chunk, dK += dS^T Q
+    and dV += round(P)^T dO summed in f32 over the chunks. round() is to
+    qkv's dtype. Returns dqkv (B, N, 3C) packed like qkv, in its dtype."""
+    B, N, C3 = qkv.shape
+    q, k, v, d, scale = _heads_split(qkv, heads)
+    do = dout.reshape(B, N, heads, d)
+    rnd = lambda t: t.to(qkv.dtype).float()
+    dq = torch.empty((B, N, heads, d), dtype=torch.float32, device=qkv.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for n0 in range(0, N, chunk):
+        qc = q[:, n0:n0 + chunk].float()
+        doc = do[:, n0:n0 + chunk].float()
+        s = torch.einsum("bnhd,bmhd->bhnm", qc, k) * scale
+        s = s - s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s)
+        p = p / p.sum(dim=-1, keepdim=True)
+        dp = torch.einsum("bnhd,bmhd->bhnm", doc, v)
+        dsum = (dp * p).sum(dim=-1, keepdim=True)
+        ds = rnd(p * (dp - dsum) * scale)
+        dq[:, n0:n0 + chunk] = torch.einsum("bhnm,bmhd->bnhd", ds, k)
+        dk += torch.einsum("bhnm,bnhd->bmhd", ds, qc)
+        dv += torch.einsum("bhnm,bnhd->bmhd", rnd(p), doc)
+    dq, dk, dv = (t.to(qkv.dtype) for t in (dq, dk, dv))
+    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3)
+
+
+def _lib() -> ctypes.CDLL:
+    from probpose_pytorch_tpu_torch.ops.kernels._build import library
+
+    lib = library()
+    if not getattr(lib, "_tiled_bound", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.tiled_attention_fwd.restype = i32
+        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.tiled_attention_bwd.restype = i32
+        lib.tiled_attention_smem_bytes.argtypes = [i32] * 3
+        lib.tiled_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.packed_attention_max_smem.restype = i32
+        lib._tiled_bound = True
+    return lib
+
+
+def max_shared_memory(device: int) -> int:
+    """The card's opt-in shared memory per block, in bytes."""
+    limit = ctypes.c_int(0)
+    err = _lib().packed_attention_max_smem(device, ctypes.byref(limit))
+    if err:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed ({err})")
+    return limit.value
+
+
+def _check(qkv: torch.Tensor, heads: int, layout: str, what: str) -> None:
+    if layout == "head_major":
+        raise NotImplementedError(
+            f"{what}: layout='head_major' is the tensor-parallel packing, not ported "
+            "to PyTorch yet (ROADMAP item 13)")
+    if layout != "qkv_major":
+        raise ValueError(f"{what}: unknown layout {layout!r}")
+    if qkv.dim() != 3:
+        raise ValueError(f"{what}: qkv must be (B, N, 3C), got {tuple(qkv.shape)}")
+    B, N, C3 = qkv.shape
+    if C3 % 3 or (C3 // 3) % heads:
+        raise ValueError(f"{what}: last dim {C3} is not 3 * heads({heads}) * d")
+    if qkv.dtype not in DTYPES:
+        raise TypeError(f"{what}: dtype {qkv.dtype} not supported (float32 or bfloat16)")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{what}: qkv must be contiguous")
+    if B == 0 or N == 0:
+        raise ValueError(f"{what}: empty qkv {tuple(qkv.shape)}")
+
+
+def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
+    """CUDA device index of qkv, after checking that K4 takes its head
+    width, that its shared memory fits the card and that qkv is 16-byte
+    aligned."""
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head width d={d} not supported (one of {HEAD_DIMS})")
+    if B > 65535:
+        raise ValueError(f"{what}: batch {B} exceeds the grid's 65535")
+    device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
+    need = _lib().tiled_attention_smem_bytes(d, DTYPES[qkv.dtype], int(backward))
+    limit = max_shared_memory(device)
+    if need > limit:
+        raise ValueError(f"{what}: d={d} ({qkv.dtype}) needs {need} bytes of shared "
+                         f"memory, the card allows {limit}")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{what}: qkv must be 16-byte aligned")
+    return device
+
+
+def tiled_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """K4 forward on a checked qkv: the plain version for a CPU tensor (or
+    under `plain_versions()`), else one kernel launch."""
+    if kernels.use_plain(qkv, "tiled_attention"):
+        return tiled_attention_reference(qkv, heads)
+    device = _device(qkv, heads, False, "tiled_attention")
+    B, N, C3 = qkv.shape
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    err = _lib().tiled_attention_fwd(
+        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, DTYPES[qkv.dtype], device,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"tiled_attention: kernel launch failed with cudaError {err} "
+                           f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
+    tiled_attention.launches += 1
+    return out
+
+
+def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tensor:
+    """dqkv (B, N, 3C) of `tiled_attention` from qkv and the context's
+    gradient dout (B, N, C), both of one dtype; dout is made contiguous."""
+    _check(qkv, heads, "qkv_major", "tiled_attention_backward")
+    B, N, C3 = qkv.shape
+    if tuple(dout.shape) != (B, N, C3 // 3):
+        raise ValueError(f"tiled_attention_backward: dout {tuple(dout.shape)} does not "
+                         f"match qkv {tuple(qkv.shape)}")
+    if dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise TypeError(f"tiled_attention_backward: dout is {dout.dtype} on {dout.device}, "
+                        f"qkv {qkv.dtype} on {qkv.device}")
+    if kernels.use_plain(qkv, "tiled_attention_backward"):
+        return tiled_attention_bwd_reference(qkv, dout, heads)
+    device = _device(qkv, heads, True, "tiled_attention_backward")
+    dout = dout.contiguous()
+    if dout.data_ptr() % 16:
+        raise ValueError("tiled_attention_backward: dout must be 16-byte aligned")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
+    err = _lib().tiled_attention_bwd(
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        B, N, C3 // 3, heads, DTYPES[qkv.dtype], device,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"tiled_attention_backward: kernel launch failed with cudaError "
+                           f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}")
+    tiled_attention_backward.launches += 1
+    return dqkv
+
+
+class _TiledAttention(torch.autograd.Function):
+    """K4 forward, with K4 backward as its gradient; saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        return tiled_forward(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return tiled_attention_backward(qkv, grad, ctx.heads), None
+
+
+def tiled_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv, by K4
+    at any N; differentiable through K4's backward."""
+    _check(qkv, heads, layout, "tiled_attention")
+    return _TiledAttention.apply(qkv, heads)
+
+
+tiled_attention.launches = 0
+tiled_attention_backward.launches = 0

@@ -20,6 +20,19 @@ row (3,072 pixels, 12 KB) held in registers as one BLOCK = 4096 vector, so
 the 30 bisection reductions never touch memory again; lanes past the row end
 load -inf and drop out of every sum and of the support. The ragged tail of R
 needs no mask because the grid is exactly R programs.
+
+Rows longer than one register block (16,384 pixels; a 768 x 768 crop's
+192 x 192 heatmap gives 36,864) run a second kernel with the same
+arithmetic: one program per row loops over the row in chunks of 4,096 on
+every sweep (the max, 30 bisection sums, the support and the output), each
+lane keeping its own partial sum. The row (147 KB of f32 at 36,864) is
+re-read on each of the 33 sweeps; the sweeps of the rows in flight stay
+largely in the 50 MB L2. Triton serves here as well as CUDA would: the
+work is a chain of row reductions with no matrix product, which Triton's
+block reductions express directly, and the kernel stays beside the short
+one with the same lines of arithmetic. A CUDA block that staged the row
+once in shared memory would read it from there instead of L2; that is a
+speed-up for a later version, not a change of result.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ __all__ = ["sparsemax_rows", "sparsemax_reference", "BISECT_ITERS"]
 
 BISECT_ITERS = 30
 _MAX_BLOCK = 16384
+_CHUNK = 4096  # the long-row kernel's chunk
 
 
 def sparsemax_reference(z: torch.Tensor) -> torch.Tensor:
@@ -92,7 +106,46 @@ def _triton_kernel():
         tl.store(out_ptr + row * stride + offs, tl.maximum(z - tau, 0.0),
                  mask=mask)
 
-    _kernel = (triton, sparsemax_kernel)
+    @triton.jit
+    def sparsemax_long_kernel(z_ptr, out_ptr, N, stride, CHUNK: tl.constexpr,
+                              ITERS: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        z_row = z_ptr + row * stride
+        offs = tl.arange(0, CHUNK)
+        mx = tl.full([CHUNK], -float("inf"), tl.float32)
+        for start in range(0, N, CHUNK):
+            z = tl.load(z_row + start + offs, mask=start + offs < N, other=-float("inf"))
+            mx = tl.maximum(mx, z)
+        zmax = tl.max(mx, axis=0)
+        lo = zmax - 1.0
+        hi = zmax
+        for _ in range(ITERS):
+            mid = (lo + hi) * 0.5
+            acc = tl.zeros([CHUNK], tl.float32)
+            for start in range(0, N, CHUNK):
+                z = tl.load(z_row + start + offs, mask=start + offs < N,
+                            other=-float("inf"))
+                acc += tl.maximum(z - mid, 0.0)
+            f = tl.sum(acc, axis=0) - 1.0
+            lo = tl.where(f > 0, mid, lo)
+            hi = tl.where(f > 0, hi, mid)
+        tau_approx = (lo + hi) * 0.5
+        cnt = tl.zeros([CHUNK], tl.float32)
+        ssum = tl.zeros([CHUNK], tl.float32)
+        for start in range(0, N, CHUNK):
+            z = tl.load(z_row + start + offs, mask=start + offs < N, other=-float("inf"))
+            support = z > tau_approx
+            cnt += support.to(tl.float32)
+            ssum += tl.where(support, z - zmax, 0.0)
+        k = tl.maximum(tl.sum(cnt, axis=0), 1.0)
+        tau = zmax + (tl.sum(ssum, axis=0) - 1.0) / k
+        for start in range(0, N, CHUNK):
+            mask = start + offs < N
+            z = tl.load(z_row + start + offs, mask=mask, other=-float("inf"))
+            tl.store(out_ptr + row * stride + start + offs, tl.maximum(z - tau, 0.0),
+                     mask=mask)
+
+    _kernel = (triton, sparsemax_kernel, sparsemax_long_kernel)
     return _kernel
 
 
@@ -109,17 +162,16 @@ def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
         return sparsemax_reference(z)
     if R == 0 or N == 0:
         raise ValueError(f"sparsemax_rows: empty input {tuple(z.shape)}")
-    triton, kernel = _triton_kernel()
+    triton, kernel, long_kernel = _triton_kernel()
     block = triton.next_power_of_2(N)
-    if block > _MAX_BLOCK:
-        raise ValueError(
-            f"sparsemax_rows: rows of {N} exceed the kernel's one-block "
-            f"limit of {_MAX_BLOCK} elements"
-        )
     out = torch.empty_like(z)
     with torch.cuda.device(z.device):
-        kernel[(R,)](z, out, N, z.stride(0), BLOCK=block,
-                     ITERS=BISECT_ITERS, num_warps=8)
+        if block <= _MAX_BLOCK:
+            kernel[(R,)](z, out, N, z.stride(0), BLOCK=block,
+                         ITERS=BISECT_ITERS, num_warps=8)
+        else:
+            long_kernel[(R,)](z, out, N, z.stride(0), CHUNK=_CHUNK,
+                              ITERS=BISECT_ITERS, num_warps=8)
     sparsemax_rows.launches += 1
     return out
 

@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
+from probpose_pytorch_tpu_torch.ops.heatmap import (
+    build_oks_conv_operators,
+    expected_value_decode,
+)
 from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
 from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     fused_attention,
@@ -27,10 +31,19 @@ from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
 )
+from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    tiled_attention,
+    tiled_attention_backward,
+    tiled_attention_bwd_reference,
+    tiled_attention_reference,
+)
+from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
     sparsemax_reference,
     sparsemax_rows,
 )
+
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
 
 
 @pytest.fixture
@@ -117,11 +130,11 @@ def test_packed_attention_autograd_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,heads,d,path", [
-    (200, 2, 64, "tensor cores"),  # keys padded to a multiple of 16
-    (77, 4, 32, "tensor cores"),
-    (50, 2, 128, "tensor cores"),
-    (300, 2, 64, "CUDA cores"),    # N above the tensor-core path's 256
-    (96, 3, 48, "CUDA cores"),     # d outside {32, 64, 128}
+    (200, 2, 64, "K1 tensor cores"),  # keys padded to a multiple of 16
+    (77, 4, 32, "K1 tensor cores"),
+    (50, 2, 128, "K1 tensor cores"),
+    (300, 2, 64, "K1 CUDA cores"),    # N above the tensor-core path's 256
+    (96, 3, 48, "K1 CUDA cores"),     # d outside {32, 64, 128}
 ])
 def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -136,12 +149,12 @@ def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,heads,d,dtype,path", [
-    (200, 2, 64, torch.bfloat16, "tensor cores"),  # queries/keys padded to 16
-    (77, 4, 32, torch.bfloat16, "tensor cores"),
-    (300, 2, 64, torch.bfloat16, "CUDA cores"),    # N above 256
-    (96, 3, 48, torch.bfloat16, "CUDA cores"),     # d outside {32, 64, 128}
-    (192, 2, 128, torch.bfloat16, "CUDA cores"),   # tensor-core passes too big
-    (77, 3, 40, torch.float32, "CUDA cores"),
+    (200, 2, 64, torch.bfloat16, "K1 tensor cores"),  # queries/keys padded to 16
+    (77, 4, 32, torch.bfloat16, "K1 tensor cores"),
+    (300, 2, 64, torch.bfloat16, "K1 CUDA cores"),    # N above 256
+    (96, 3, 48, torch.bfloat16, "K1 CUDA cores"),     # d outside {32, 64, 128}
+    (192, 2, 128, torch.bfloat16, "K1 CUDA cores"),   # tensor-core passes too big
+    (77, 3, 40, torch.float32, "K1 CUDA cores"),
 ])
 def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype, path):
     g = torch.Generator(device=cuda_device).manual_seed(6)
@@ -158,8 +171,9 @@ def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype,
 def test_packed_attention_kernel_refuses_unsupported(cuda_device):
     with pytest.raises(TypeError):
         packed_attention(torch.zeros(1, 8, 96, dtype=torch.float16, device=cuda_device), 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        packed_attention(torch.zeros(1, 4096, 3 * 128, device=cuda_device), 2)
+    # K1 cannot hold N = 4096 and K4 takes no head width of 48
+    with pytest.raises(ValueError, match="head width"):
+        packed_attention(torch.zeros(1, 4096, 3 * 96, device=cuda_device), 2)
 
 
 @pytest.mark.cuda
@@ -419,3 +433,128 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
     for o, r in zip(out, ref):
         # f32 everywhere; attention and MLP sums in another order.
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# K4 row-tiled attention, K3 fused decode, K2 at 192 x 192-pixel rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,d,dtype", [
+    (2, 1000, 6, 64, torch.bfloat16),   # not a multiple of the 64-key tile
+    (2, 2304, 6, 64, torch.bfloat16),   # ViT-S on 768 x 768 inputs
+    (2, 1000, 6, 64, torch.float32),
+    (1, 2304, 6, 64, torch.float32),
+    (3, 77, 2, 32, torch.bfloat16),
+    (2, 130, 2, 128, torch.bfloat16),
+    (2, 130, 2, 128, torch.float32),
+])
+def test_tiled_attention_kernels(cuda_device, B, N, heads, d, dtype):
+    """K4 forward and backward against their plain versions; the backward
+    gives the same bits twice (no atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=cuda_device).to(dtype)
+    dout = torch.randn(B, N, heads * d, generator=g, device=cuda_device).to(dtype)
+    f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
+    out = tiled_attention(qkv, heads)
+    dqkv = tiled_attention_backward(qkv, dout, heads)
+    again = tiled_attention_backward(qkv, dout, heads)
+    torch.cuda.synchronize()
+    assert (tiled_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 2)
+    ref = tiled_attention_reference(qkv, heads)
+    assert max_err(out, ref) <= bound(ref)
+    dref = tiled_attention_bwd_reference(qkv, dout, heads)
+    assert max_err(dqkv, dref) <= bound(dref)
+    assert torch.equal(dqkv, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,dtype,route", [
+    (192, torch.bfloat16, "K1 tensor cores"),
+    (192, torch.float32, "K1 CUDA cores"),
+    (2304, torch.bfloat16, "K4"),
+    (2304, torch.float32, "K4"),
+])
+def test_packed_attention_routes_by_shape(cuda_device, N, dtype, route):
+    """packed_attention runs K1 where K1 fits and K4 where it does not,
+    forward and backward, and autograd goes through the routed kernels."""
+    assert kernel_path(N, 64, dtype) == kernel_path(N, 64, dtype, backward=True) == route
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    qkv = torch.randn(2, N, 1152, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(2, N, 384, generator=g, device=cuda_device).to(dtype)
+    counts = lambda: (packed_attention.launches, packed_attention_backward.launches,
+                      tiled_attention.launches, tiled_attention_backward.launches)
+    c0 = counts()
+    x = qkv.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad((packed_attention(x, 6).float() * w.float()).sum(), x)
+    torch.cuda.synchronize()
+    k4 = route == "K4"
+    assert tuple(a - b for a, b in zip(counts(), c0)) == ((0, 0, 1, 1) if k4 else (1, 1, 0, 0))
+    ref = (tiled_attention_bwd_reference if k4 else packed_attention_bwd_reference)(qkv, w, 6)
+    assert max_err(grad, ref) <= bound(ref)
+
+
+@pytest.mark.cuda
+def test_packed_attention_k1_forward_k4_backward(cuda_device):
+    """Where the card has an N whose K1 forward fits but whose K1 backward
+    does not, that N runs K1 forward and K4 backward."""
+    for d, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32),
+                     (128, torch.float32), (32, torch.bfloat16)):
+        split = [N for N in range(16, 1600, 16) if kernel_path(N, d, dtype) != "K4"
+                 and kernel_path(N, d, dtype, backward=True) == "K4"]
+        if split:
+            break
+    else:
+        pytest.skip("no N on this card routes K1 forward and K4 backward")
+    N, heads = split[0], 2
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    qkv = torch.randn(2, N, 3 * heads * d, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(2, N, heads * d, generator=g, device=cuda_device).to(dtype)
+    f0, b0 = packed_attention.launches, tiled_attention_backward.launches
+    x = qkv.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad((packed_attention(x, heads).float() * w.float()).sum(), x)
+    torch.cuda.synchronize()
+    assert (packed_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 1)
+    ref = tiled_attention_bwd_reference(qkv, w, heads)
+    assert max_err(grad, ref) <= bound(ref)
+
+
+def _peaked_maps(g, B, K, H, W, device):
+    yy, xx = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
+                            indexing="ij")
+    c = torch.rand(B, K, 2, 1, 1, generator=g, device=device) * torch.tensor(
+        [W - 8.0, H - 8.0], device=device).reshape(2, 1, 1) + 4
+    maps = torch.exp(-((xx - c[:, :, 0]) ** 2 + (yy - c[:, :, 1]) ** 2) / (2 * (H / 32) ** 2))
+    return maps + 0.03 * torch.rand(B, K, H, W, generator=g, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,H,W", [(64, 17, 64, 48), (8, 17, 192, 192), (3, 5, 100, 70)])
+def test_fused_decode_kernel(cuda_device, B, K, H, W):
+    """K3 against the plain decode: 1e-3 px, raw values 1e-6."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    maps = _peaked_maps(g, B, K, H, W, cuda_device)
+    ops = build_oks_conv_operators([0.05] * K, H, W)
+    row_op = torch.from_numpy(ops.row_op).to(cuda_device)
+    col_op = torch.from_numpy(ops.col_op).to(cuda_device)
+    before = expected_value_decode_fused.launches
+    locs, vals = expected_value_decode_fused(maps, row_op, col_op)
+    torch.cuda.synchronize()
+    assert expected_value_decode_fused.launches == before + 1
+    ref_locs, ref_vals = expected_value_decode(maps, row_op, col_op)
+    assert max_err(locs, ref_locs) <= 1e-3
+    assert max_err(vals, ref_vals) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [32 * 17, 17 * 3 + 5])
+def test_sparsemax_kernel_long_rows(cuda_device, R):
+    """K2 on 192 x 192-pixel rows, past one register block."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    z = torch.randn(R, 192 * 192, generator=g, device=cuda_device) / 0.5
+    before = sparsemax_rows.launches
+    out = sparsemax_rows(z)
+    torch.cuda.synchronize()
+    assert sparsemax_rows.launches == before + 1
+    assert (out - sparsemax_reference(z)).abs().max().item() <= 1e-6  # exact tau
+    assert (out.sum(-1) - 1).abs().max().item() <= 1e-5  # on the simplex

@@ -33,6 +33,8 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     packed_attention_bwd_reference,
 )
 
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
 IMG_WH = (48, 64)
 HM_WH = (12, 16)
 K = 5

@@ -50,6 +50,8 @@ from test_torch_train import (
     build_jax_side,
 )
 
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
 C, HID = 32, 64
 JAX_TILE = 16  # the JAX forward's row tile; its backward's is max(16 // 4, 64) = 64
 JAX_BWD_TILE = 64

@@ -30,6 +30,8 @@ from probpose_pytorch_tpu_torch.compat.from_jax import (
 from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
 from probpose_pytorch_tpu_torch.models.vit import Block, ViTConfig
 
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = dict(embed_dim=32, depth=2, num_heads=2, mlp_ratio=2.0)
 JaxViTConfig.PRESETS.setdefault("vit-tiny-port", TINY)

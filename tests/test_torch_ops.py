@@ -36,6 +36,8 @@ from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
 )
 from probpose_pytorch_tpu_torch.ops.sparsemax import sparsemax
 
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "probpose_pytorch_tpu_torch"
 

@@ -7,6 +7,7 @@ kernels redrawn so the heatmaps are peaked), same uint8 frames and boxes.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from probpose_pytorch_tpu.codec import Codec as JaxCodec
 from probpose_pytorch_tpu.codec import ProbMap as JaxProbMap
@@ -16,6 +17,8 @@ from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
 from probpose_pytorch_tpu_torch.inference import TopDownPredictor
 
 from test_torch_models import TINY_CFG, init_pair
+
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
 
 K = TINY_CFG["num_keypoints"]
 CODEC_KW = dict(input_size=(48, 64), heatmap_size=(12, 16),

@@ -1,0 +1,239 @@
+"""The long-sequence slice of the port against the JAX package, on the CPU.
+
+K4 (row-tiled attention, forward and backward), K3 (fused decode) and K2 at
+192 x 192-pixel rows: each plain version against the JAX kernel it stands
+for, in interpret mode; the routing between K1 and K4 given byte counts; and
+the slice itself, the vit-nano preset on 768 x 768 inputs (N = 2304, 192 x
+192 heatmaps), forward, decode and one float32 train step against JAX.
+Inputs come from numpy generators; tolerances are stated beside each check.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probpose_pytorch_tpu.codec import Codec as JaxCodec
+from probpose_pytorch_tpu.codec import ProbMap as JaxProbMap
+from probpose_pytorch_tpu.ops.heatmap import build_oks_conv_operators as jax_operators
+from probpose_pytorch_tpu.ops.pallas import expected_value_decode_pallas, tiled_attention as jax_tiled
+from probpose_pytorch_tpu.ops.sparsemax import sparsemax as jax_sparsemax
+from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+from probpose_pytorch_tpu_torch.ops.kernels.attention import packed_attention
+from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    attention_route,
+    tiled_attention,
+    tiled_attention_backward,
+    tiled_attention_bwd_reference,
+    tiled_attention_reference,
+)
+from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_reference, sparsemax_rows
+from test_torch_ops import _maps
+from test_torch_train import RAW, _port, build_jax_side
+
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
+H100_SMEM = 232448  # opt-in shared memory per block, bytes
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def k1_bound(ref: np.ndarray, dtype) -> float:
+    """K1's bound (chip_smoke.py:k1_bound): two bf16 ulps of max(1, max|ref|)
+    in bf16 -- an f32 sum in another order can move a bf16 output across one
+    rounding boundary; 1e-5 of the same scale in f32."""
+    rel = 2 * 2**-8 if dtype == torch.bfloat16 else 1e-5
+    return rel * max(1.0, float(np.abs(ref).max()))
+
+
+# --------------------------------------------------------------------------
+# K4: row-tiled attention
+
+
+TILED_CASES = [
+    ((2, 200, 384), 2, 64),   # d 64, N padded to 256 by the row tile
+    ((1, 300, 384), 4, 128),  # d 32
+]
+
+
+def _qkv(shape, seed, dtype):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=shape).astype(np.float32)
+    dout = rng.normal(size=(*shape[:2], shape[2] // 3)).astype(np.float32)
+    if dtype == torch.bfloat16:  # the same bf16 values on both sides
+        qkv = _t(qkv).to(dtype).float().numpy()
+        dout = _t(dout).to(dtype).float().numpy()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return qkv, dout, jdt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+def test_tiled_plain_forward_matches_jax(shape, heads, bq, dtype):
+    qkv, _, jdt = _qkv(shape, 0, dtype)
+    ref = np.asarray(jax_tiled(jnp.asarray(qkv, jdt), heads, bq=bq, interpret=True)
+                     .astype(jnp.float32))
+    out = tiled_attention_reference(_t(qkv).to(dtype), heads, chunk=bq).float().numpy()
+    # f32: f32 softmax on both sides, sums in another order; bf16: K1's bound.
+    tol = 1e-5 if dtype == torch.float32 else k1_bound(ref, dtype)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+def test_tiled_plain_backward_matches_jax(shape, heads, bq, dtype):
+    qkv, dout, jdt = _qkv(shape, 1, dtype)
+    _, vjp = jax.vjp(lambda x: jax_tiled(x, heads, bq, True), jnp.asarray(qkv, jdt))
+    (ref,) = vjp(jnp.asarray(dout, jdt))
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = tiled_attention_bwd_reference(_t(qkv).to(dtype), _t(dout).to(dtype), heads,
+                                        chunk=bq).float().numpy()
+    tol = 1e-5 if dtype == torch.float32 else k1_bound(ref, dtype)  # as above
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+
+
+def test_tiled_attention_cpu_wrapper_is_plain_and_differentiable():
+    """On a CPU tensor the wrapper is the plain version; autograd through it
+    gives the plain backward; the chunk size does not change the result."""
+    rng = np.random.default_rng(2)
+    qkv = _t(rng.normal(size=(2, 150, 192)).astype(np.float32))
+    w = _t(rng.normal(size=(2, 150, 64)).astype(np.float32))
+    out = tiled_attention(qkv, 2)
+    torch.testing.assert_close(out, tiled_attention_reference(qkv, 2), rtol=0, atol=0)
+    torch.testing.assert_close(out, tiled_attention_reference(qkv, 2, chunk=64),
+                               rtol=0, atol=1e-6)  # chunked sums of the same terms
+    x = qkv.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad((tiled_attention(x, 2) * w).sum(), x)
+    torch.testing.assert_close(grad, tiled_attention_bwd_reference(qkv, w, 2), rtol=0, atol=0)
+    torch.testing.assert_close(grad, tiled_attention_backward(qkv, w, 2), rtol=0, atol=0)
+    # packed_attention on the CPU computes the same function (K1's plain form)
+    torch.testing.assert_close(packed_attention(qkv, 2), out, rtol=0, atol=1e-5)
+
+
+def test_tiled_attention_refuses_head_major_and_bad_shapes():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tiled_attention(torch.zeros(1, 8, 96), 2, layout="head_major")
+    with pytest.raises(ValueError, match="3 \\* heads"):
+        tiled_attention(torch.zeros(1, 8, 30), 3)
+    with pytest.raises(TypeError):
+        tiled_attention(torch.zeros(1, 8, 96, dtype=torch.float64), 2)
+    with pytest.raises(ValueError, match="does not match"):
+        tiled_attention_backward(torch.zeros(1, 8, 96), torch.zeros(1, 8, 30), 2)
+
+
+@pytest.mark.parametrize("need,route", [
+    (112 * 1024, "K1"),           # K1's tensor-core forward at N = 192, d = 64
+    (H100_SMEM, "K1"),            # exactly the limit still fits
+    (H100_SMEM + 1, "K4"),
+    (292 * 2304, "K4"),           # K1's CUDA-core need at N = 2304 in bf16, d = 64
+])
+def test_attention_route_given_bytes(need, route):
+    assert attention_route(need, H100_SMEM) == route
+
+
+# --------------------------------------------------------------------------
+# K3: fused decode
+
+
+def _peaked(seed, B, K, H, W):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    c = rng.uniform([3, 3], [W - 4, H - 4], (B, K, 2))
+    maps = np.exp(-((xx - c[..., :1, None]) ** 2 + (yy - c[..., 1:, None]) ** 2) / 50.0)
+    return (maps + 0.03 * rng.random(maps.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["64x48", "192x192"])
+def test_decode_plain_matches_jax_fused_decode(case):
+    if case == "64x48":  # test_pallas.py's maps
+        maps, sigmas = _maps(0)
+    else:
+        maps, sigmas = _peaked(3, 2, 3, 192, 192), np.full(3, 0.05, np.float32)
+    K, H, W = maps.shape[1:]
+    ops = jax_operators(sigmas, H, W)
+    locs_ref, vals_ref = expected_value_decode_pallas(jnp.asarray(maps), ops, interpret=True)
+    locs, vals = expected_value_decode_fused(_t(maps), _t(ops.row_op), _t(ops.col_op))
+    assert locs.shape == (maps.shape[0], K, 2) and vals.shape == maps.shape[:2]
+    # test_pallas.py's bar for the fused decode: 1e-4 px; raw values 1e-6.
+    np.testing.assert_allclose(locs.numpy(), np.asarray(locs_ref), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(vals_ref), rtol=0, atol=1e-6)
+
+
+def test_decode_fused_checks_inputs():
+    with pytest.raises(ValueError, match="operators"):
+        expected_value_decode_fused(torch.zeros(1, 2, 8, 6), torch.zeros(2, 8, 8),
+                                    torch.zeros(2, 8, 8))
+    with pytest.raises(TypeError):
+        expected_value_decode_fused(torch.zeros(1, 2, 8, 6, dtype=torch.float64),
+                                    torch.zeros(2, 8, 8), torch.zeros(2, 6, 6))
+
+
+# --------------------------------------------------------------------------
+# K2 at 192 x 192-pixel rows
+
+
+def test_sparsemax_long_rows_plain_matches_jax():
+    rng = np.random.default_rng(4)
+    z = (rng.normal(size=(4, 192 * 192)) / 0.5).astype(np.float32)
+    out = sparsemax_rows(_t(z))
+    torch.testing.assert_close(out, sparsemax_reference(_t(z)), rtol=0, atol=0)
+    # exact tau from the same support; f32 sums in another order
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_sparsemax(jnp.asarray(z))),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, atol=1e-5)  # on the simplex
+
+
+# --------------------------------------------------------------------------
+# the slice at tiny width: vit-nano on 768 x 768 inputs
+
+
+RAW_768 = dict(RAW, train_batch_size=2, val_batch_size=2, model=dict(
+    RAW["model"], img_size=(768, 768), backbone="vit-nano",
+    pool_sizes=((4, 3), (2, 2), (2, 2))))
+
+
+@pytest.fixture(scope="module")
+def side_768():
+    js = build_jax_side(RAW_768)
+    return js, _port(js, RAW_768)
+
+
+def test_slice_768_forward_and_decode_match_jax(side_768):
+    js, trainer = side_768
+    x = np.random.default_rng(5).random((2, 768, 768, 3), dtype=np.float32)
+    ref = js["model"].apply(js["variables"], jnp.asarray(x), train=False)
+    model = trainer.model.eval()
+    with torch.no_grad():
+        out = model(_t(x))
+    assert out[0].shape == (2, 5, 192, 192)
+    assert (out[0] > 0).float().mean() < 0.5  # peaked, sparse maps
+    for o, r in zip(out, ref):
+        # f32 on both sides; sums in another order (tests/test_torch_models.py)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+    kw = dict(input_size=(768, 768), heatmap_size=(192, 192),
+              sigmas=np.full(5, 0.05, np.float32), sigma=2.0)
+    (k_ref, _), *_ = JaxCodec(JaxProbMap(**kw)).decode(ref)
+    (k, _), *_ = Codec(ProbMap(**kw)).decode(out)
+    # the repo's decode bar, 1e-3 px, at 192 x 192 maps
+    np.testing.assert_allclose(k.numpy(), np.asarray(k_ref), rtol=0, atol=1e-3)
+
+
+def test_slice_768_train_step_matches_jax(side_768):
+    js, trainer = side_768
+    ds = SyntheticPoseDataset(2, (768, 768), 5, seed=0)
+    batch = next(iter(batch_iterator(ds, 2, num_workers=1)))
+    _, jm = js["step"](js["state"], {k: jnp.asarray(v) for k, v in batch.items()})
+    trainer.model.train()
+    _, metrics = trainer.train_step(trainer.state, trainer.device_batch(batch))
+    for k, v in jm.items():
+        if k.startswith("loss"):
+            # each loss term within 1e-5 relative, as tests/test_torch_train.py
+            np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5, atol=1e-8,
+                                       err_msg=k)
+    # pre-clip global norm, 1e-4 relative
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)

@@ -38,6 +38,8 @@ from probpose_pytorch_tpu_torch.train.loop import Trainer
 from probpose_pytorch_tpu_torch.train.state import make_optimizer, onecycle_schedule
 from test_torch_models import TINY_CFG, peaked_variables
 
+torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 B = 4
 STEPS_PER_EPOCH = 20
