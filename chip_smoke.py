@@ -54,14 +54,19 @@ generator:
            time, step time, crops/s and peak device memory
   phase 8  the long-sequence path: the flagship configuration on 768 x 768
            inputs (N = 2304 tokens, 192 x 192 heatmaps). K4 forward and
-           backward (row-tiled attention) against their plain versions at
-           the path's shapes and at a ragged N = 1000, the backward
-           bit-identical across two runs; K2 at 36,864-pixel rows; K3 (the
+           backward (row-tiled attention; bf16 on wgmma fed by TMA)
+           against their plain versions at the path's shapes, at a ragged
+           N = 1000 and at N = 77, in bf16 also against the kernel-order
+           plain versions (max abs, and normwise per q/k/v slice within
+           2**-7); the backward bit-identical across two runs and
+           whether it reads the forward's saved (out, lse) or makes them;
+           K2 at 36,864-pixel rows; K3 (the
            fused decode) on phase 3's served heatmaps and on this path's.
            A TopDownPredictor answers requests of 1, 8 and 64 crops with 12
            K4 forward, 0 K1 and 1 K2 launch per forward, and a float32
            rerun agrees with the plain versions; Trainer.fit takes 10 bf16
-           steps at a batch of 32 (12 K4 forward, 12 K4 backward, 1 K2 per
+           steps at a batch of 32 (12 K4 forward, 12 K4 backward, which
+           reads the saved out and lse and runs no forward, 1 K2 per
            step) after a float32 step is held to the plain step as in
            phases 5 and 7; then, not gated, kernel, plain and
            scaled_dot_product_attention times, serving crops/s, step time,
@@ -155,12 +160,19 @@ def kernel_wrappers():
 
 
 def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["k4b"].recomputes = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Launches per kernel, and `k4b_recomputes`: the forward kernels that
+    K4's bf16 backward ran itself because it was given no saved out/lse."""
+    wrappers = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts["k4b_recomputes"] = wrappers["k4b"].recomputes
+    return counts
 
 
 def k1_bound(ref) -> float:
@@ -192,6 +204,27 @@ def gate(torch, label: str, out, ref, phase: int, bound: float | None = None) ->
         f"max |ref| {ref.float().abs().max().item():.3f})")
     check(err <= bound and np.isfinite(err), f"{label}: error {err}")
     return err
+
+
+# Normwise relative bound of bf16 K4 against its kernel-order plain version,
+# per q/k/v slice of dqkv: two bf16 ulps of the slice's norm.
+ONLINE_REL_TOL = 2 * 2**-8
+
+
+def rel_gate(torch, label: str, out, ref, parts: int, phase: int) -> list[float]:
+    """||out - ref|| / ||ref|| of each of `parts` equal slices of the last
+    axis (dq, dk, dv of a packed dqkv), each within ONLINE_REL_TOL. A wrong
+    D = rowsum(dO * O) in K4's backward (dropped, or read from another row
+    or head) moves the dQ slice by more than 8x this at N = 2304, and a sum
+    taken in another order by far less (tests/test_torch_tiled.py)."""
+    torch.cuda.synchronize()
+    pairs = list(zip(out.float().chunk(parts, -1), ref.float().chunk(parts, -1)))
+    rels = [((o - r).norm() / r.norm()).item() for o, r in pairs]
+    say(f"phase {phase}: {label}: normwise relative error per slice "
+        f"{', '.join(f'{e:.3e}' for e in rels)} (bound {ONLINE_REL_TOL:.3e} each; max |ref| "
+        f"{', '.join(f'{r.abs().max().item():.4f}' for _, r in pairs)})")
+    check(all(np.isfinite(rels)) and max(rels) <= ONLINE_REL_TOL, f"{label}: {rels}")
+    return rels
 
 
 def card_line() -> str:
@@ -868,72 +901,122 @@ def config_768(dtype: str, batch: int):
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, img_size=IMG_768))
 
 
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each bf16 K4 kernel at
+    d = 64 (csrc/tiled_attention_sm90.cu), from nvcc's -Xptxas -v report."""
+    names = {"10fwd_kernelILi64": "forward", "13bwd_dq_kernelILi64": "backward dQ",
+             "14bwd_dkv_kernelILi64": "backward dK/dV"}
+    found, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            current = next((v for k, v in names.items() if k in line), None)
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found.setdefault(current, {})["spill_bytes"] = nums[1] + nums[2]
+        elif current and line.strip().startswith("ptxas info") and "Used" in line:
+            found.setdefault(current, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return found
+
+
 def phase8_k4_kernels(torch, dev, card: str, g) -> dict:
     """K4 forward and backward against their plain versions at the 768 x
-    768 path's shapes and at a ragged N = 1000; then numbers, not gated."""
+    768 path's shapes, at a ragged N = 1000 and at N = 77 (less than one
+    128-row tile); bf16 also against the kernel-order plain versions (one
+    sweep, online softmax; backward from (out, lse)), which should agree
+    more tightly, and per q/k/v slice by a normwise relative bound. Then
+    numbers, not gated."""
     from probpose_pytorch_tpu_torch.ops.kernels.attention import kernel_path
     from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
         tiled_attention,
         tiled_attention_backward,
         tiled_attention_bwd_reference,
+        tiled_attention_online_bwd_reference,
+        tiled_attention_online_reference,
         tiled_attention_reference,
+        tiled_forward,
     )
 
     N, C = 2304, 384
-    for B, n, dtype in ((SERVE_768_BATCH, N, torch.bfloat16), (2, N, torch.float32),
-                        (2, 1000, torch.bfloat16), (2, 1000, torch.float32)):
+    bf16 = torch.bfloat16
+    online, online_rel = {}, {}
+    for B, n, dtype in ((SERVE_768_BATCH, N, bf16), (2, N, torch.float32), (2, 1000, bf16),
+                        (2, 1000, torch.float32), (3, 77, bf16)):
         name = str(dtype).split(".")[-1]
         qkv = torch.randn(B, n, 3 * C, generator=g, device=dev).to(dtype)
-        err = gate(torch, f"K4 forward qkv ({B}, {n}, {3 * C}) {name}, packed_attention's "
-                   f"route {kernel_path(n, 64, dtype)}", tiled_attention(qkv, 6),
+        label = f"K4 forward qkv ({B}, {n}, {3 * C}) {name}"
+        out = tiled_attention(qkv, 6)
+        err = gate(torch, f"{label}, packed_attention's route {kernel_path(n, 64, dtype)}", out,
                    tiled_attention_reference(qkv, 6), phase=8)
+        if dtype == bf16:
+            ref, _ = tiled_attention_online_reference(qkv, 6)
+            label = f"{label} against the kernel-order plain version"
+            online[("fwd", B)] = gate(torch, label, out, ref, phase=8)
+            online_rel[("fwd", B)] = rel_gate(torch, label, out, ref, 1, phase=8)
         if B == SERVE_768_BATCH:
             k4f_err = err
-    for B, n, dtype in ((TRAIN_768_BATCH, N, torch.bfloat16), (2, N, torch.float32),
-                        (2, 1000, torch.bfloat16), (2, 1000, torch.float32)):
+    for B, n, dtype in ((TRAIN_768_BATCH, N, bf16), (2, N, torch.float32), (2, 1000, bf16),
+                        (2, 1000, torch.float32), (3, 77, bf16)):
         name = str(dtype).split(".")[-1]
         qkv = torch.randn(B, n, 3 * C, generator=g, device=dev).to(dtype)
         dout = torch.randn(B, n, C, generator=g, device=dev).to(dtype)
-        got = tiled_attention_backward(qkv, dout, 6)
-        again = tiled_attention_backward(qkv, dout, 6)
-        err = gate(torch, f"K4 backward qkv ({B}, {n}, {3 * C}) {name}, packed_attention's "
-                   f"route {kernel_path(n, 64, dtype, backward=True)}", got,
+        label = f"K4 backward qkv ({B}, {n}, {3 * C}) {name}"
+        out, lse = tiled_forward(qkv, 6, with_lse=True)
+        got = tiled_attention_backward(qkv, dout, 6, out, lse)  # as the step calls it
+        again = tiled_attention_backward(qkv, dout, 6, out, lse)
+        err = gate(torch, f"{label}, packed_attention's route "
+                   f"{kernel_path(n, 64, dtype, backward=True)}", got,
                    tiled_attention_bwd_reference(qkv, dout, 6), phase=8)
         check(torch.equal(got, again), f"K4 backward ({B}, {n}) {name} differs between runs")
+        check(torch.equal(got, tiled_attention_backward(qkv, dout, 6)),
+              f"K4 backward ({B}, {n}) {name}: recomputing out and lse changes the result")
+        if dtype == bf16:
+            ref = tiled_attention_online_bwd_reference(qkv, dout, 6)
+            label = f"{label} against the kernel-order plain version"
+            online[("bwd", B)] = gate(torch, label, got, ref, phase=8)
+            online_rel[("bwd", B)] = rel_gate(torch, label, got, ref, 3, phase=8)
         if B == TRAIN_768_BATCH:
             k4b_err = err
-    say("phase 8: K4 backward bit-identical across two runs at every shape")
-    del qkv, dout, got, again
+    say("phase 8: K4 backward bit-identical across two runs, and with out and lse saved or "
+        "recomputed, at every shape")
+    del qkv, dout, got, again, out, lse
 
-    qkv = torch.randn(SERVE_768_BATCH, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(SERVE_768_BATCH, N, 3 * C, generator=g, device=dev).to(bf16)
     k4f_ms, k4f_plain_ms = paired_ms(torch, lambda: tiled_attention(qkv, 6),
-                                     lambda: tiled_attention_reference(qkv, 6), iters=3)
+                                     lambda: tiled_attention_reference(qkv, 6), iters=5)
     k4f_lib_ms = sdpa_ms(torch, qkv, 6)
     k4f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * SERVE_768_BATCH * N * N * C)
     say(f"phase 8 [{card}]: K4 forward qkv ({SERVE_768_BATCH}, {N}, {3 * C}) bf16: kernel "
         f"{k4f_ms:.4f} ms, plain {k4f_plain_ms:.4f} ms, scaled_dot_product_attention "
         f"{k4f_lib_ms:.4f} ms, bound {k4f_bound[0]:.4f} ms ({k4f_bound[1]})")
     qkv = qkv[:TRAIN_768_BATCH].contiguous()
-    dout = torch.randn(TRAIN_768_BATCH, N, C, generator=g, device=dev).to(torch.bfloat16)
-    k4b_ms, k4b_plain_ms = paired_ms(torch, lambda: tiled_attention_backward(qkv, dout, 6),
-                                     lambda: tiled_attention_bwd_reference(qkv, dout, 6),
-                                     iters=3)
+    dout = torch.randn(TRAIN_768_BATCH, N, C, generator=g, device=dev).to(bf16)
+    out, lse = tiled_forward(qkv, 6, with_lse=True)
+    k4b_ms, k4b_plain_ms = paired_ms(
+        torch, lambda: tiled_attention_backward(qkv, dout, 6, out, lse),
+        lambda: tiled_attention_bwd_reference(qkv, dout, 6), iters=5)
+    k4b_recompute_ms = cuda_ms(torch, lambda: tiled_attention_backward(qkv, dout, 6), iters=10)
     q, k, v = (t.detach().requires_grad_(True)
                for t in qkv.unflatten(-1, (3, 6, 64)).permute(2, 0, 3, 1, 4))
     ctx = torch.nn.functional.scaled_dot_product_attention(q, k, v)
     do = dout.unflatten(-1, (6, 64)).transpose(1, 2)
     k4b_lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(ctx, (q, k, v), do,
                                                             retain_graph=True), iters=5)
-    # qkv and dO in, dqkv out; five products of 2 N^2 d per (b, h): S, dP,
-    # dQ, dK, dV.
-    k4b_bound = bound_ms(nbytes(qkv, dout, qkv), 10 * TRAIN_768_BATCH * N * N * C)
-    say(f"phase 8 [{card}]: K4 backward qkv ({TRAIN_768_BATCH}, {N}, {3 * C}) bf16: kernel "
-        f"{k4b_ms:.4f} ms, plain {k4b_plain_ms:.4f} ms, scaled_dot_product_attention "
-        f"backward {k4b_lib_ms:.4f} ms, bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]})")
-    del qkv, dout, q, k, v, ctx, do
+    # qkv, dO, the context and lse in, dqkv out; five products of 2 N^2 d
+    # per (b, h): S, dP, dQ, dK, dV.
+    k4b_bound = bound_ms(nbytes(qkv, dout, out, lse, qkv), 10 * TRAIN_768_BATCH * N * N * C)
+    say(f"phase 8 [{card}]: K4 backward qkv ({TRAIN_768_BATCH}, {N}, {3 * C}) bf16, out and "
+        f"lse saved: kernel {k4b_ms:.4f} ms (recomputing them: {k4b_recompute_ms:.4f} ms), "
+        f"plain {k4b_plain_ms:.4f} ms, scaled_dot_product_attention backward "
+        f"{k4b_lib_ms:.4f} ms, bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]})")
+    del qkv, dout, q, k, v, ctx, do, out, lse
     return dict(k4f_err=k4f_err, k4f_ms=k4f_ms, k4f_plain_ms=k4f_plain_ms,
                 k4f_lib_ms=k4f_lib_ms, k4f_bound=k4f_bound, k4b_err=k4b_err, k4b_ms=k4b_ms,
-                k4b_plain_ms=k4b_plain_ms, k4b_lib_ms=k4b_lib_ms, k4b_bound=k4b_bound)
+                k4b_plain_ms=k4b_plain_ms, k4b_lib_ms=k4b_lib_ms, k4b_bound=k4b_bound,
+                k4b_recompute_ms=k4b_recompute_ms,
+                k4f_online_err=online[("fwd", SERVE_768_BATCH)],
+                k4b_online_err=online[("bwd", TRAIN_768_BATCH)],
+                k4f_online_rel=online_rel[("fwd", SERVE_768_BATCH)],
+                k4b_online_rel=online_rel[("bwd", TRAIN_768_BATCH)])
 
 
 def phase8_k2_long_rows(torch, dev, card: str, g, K: int) -> dict:
@@ -1099,12 +1182,16 @@ def phase8_training(torch, dev, card: str, profile: bool) -> dict:
     say(f"phase 8: Trainer.fit, {steps} bf16 steps at 768 x 768, B={B} in {fit_s:.2f} s; "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f}")
     say(f"phase 8: launches over {steps} steps: K4 forward {counts['k4f']}, K4 backward "
-        f"{counts['k4b']} (expect {depth * steps} each), K1 forward {counts['k1f']}, K1 "
-        f"backward {counts['k1b']} (expect 0 each), K2 {counts['k2']} (expect {steps})")
+        f"{counts['k4b']} (expect {depth * steps} each), K4 backward's own forward "
+        f"{counts['k4b_recomputes']} (expect 0: it reads the saved out and lse), K1 forward "
+        f"{counts['k1f']}, K1 backward {counts['k1b']} (expect 0 each), K2 {counts['k2']} "
+        f"(expect {steps})")
     check(len(losses) == steps, f"{len(losses)} steps logged")
     check(all(np.isfinite(losses)), "a bf16 768 x 768 training loss is not finite")
     check(losses[-1] < losses[0], "the 768 x 768 loss did not fall over the fixed batch")
     check(counts["k4f"] == counts["k4b"] == depth * steps, "K4 count off")
+    check(counts["k4b_recomputes"] == 0, "K4 backward ran the forward instead of reading the "
+          "saved out and lse")
     check(counts["k1f"] == counts["k1b"] == 0, "the 768 x 768 trunk ran K1")
     check(counts["k2"] == steps, "K2 did not run once per step")
 
@@ -1180,6 +1267,8 @@ def main() -> None:
     if report.get("ptxas"):
         for line in report["ptxas"].strip().splitlines():
             say(f"  ptxas: {line.strip()}")
+    k4_ptxas = ptxas_kernels(report.get("ptxas", ""))
+    say(f"phase 0: bf16 K4 kernels at d = 64, registers and spill bytes: {k4_ptxas}")
 
     # ---------------------------------------------------------------- phase 1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1332,7 +1421,7 @@ def main() -> None:
     k3 = serve_768["k3"]
 
     attn_cu, mlp_cu = "csrc/packed_attention.cu", "csrc/fused_mlp.cu"
-    tiled_cu = "csrc/tiled_attention.cu"
+    tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
         kernel_entry("K1 packed_attention forward", "cuda", attn_cu, "attention_kernel.py:120",
                      train["k1f"], k1_err_main, k1_ms, k1_plain_ms, k1_bound, k1_lib_ms),
@@ -1353,10 +1442,14 @@ def main() -> None:
                                      bound_ms=k3_flagship["bound"][0])),
         kernel_entry("K4 tiled_attention forward", "cuda", tiled_cu, "attention_tiled.py:119",
                      train_768["k4f"], k4["k4f_err"], k4["k4f_ms"], k4["k4f_plain_ms"],
-                     k4["k4f_bound"], k4["k4f_lib_ms"]),
+                     k4["k4f_bound"], k4["k4f_lib_ms"], design="wgmma+TMA",
+                     redesigned_in="PR 5", online_err=k4["k4f_online_err"],
+                     online_rel_err=k4["k4f_online_rel"]),
         kernel_entry("K4 tiled_attention backward", "cuda", tiled_cu, "attention_tiled.py:147",
                      train_768["k4b"], k4["k4b_err"], k4["k4b_ms"], k4["k4b_plain_ms"],
-                     k4["k4b_bound"], k4["k4b_lib_ms"]),
+                     k4["k4b_bound"], k4["k4b_lib_ms"], design="wgmma+TMA",
+                     redesigned_in="PR 5", recompute_ms=k4["k4b_recompute_ms"],
+                     online_err=k4["k4b_online_err"], online_rel_err=k4["k4b_online_rel"]),
         kernel_entry("K5 fused_ln_mlp forward", "cuda", mlp_cu, "mlp_kernel.py:49",
                      train_b["k5f"], serve_b["k5f_err"], serve_b["k5f_ms"],
                      serve_b["k5f_plain_ms"], serve_b["k5f_bound"],

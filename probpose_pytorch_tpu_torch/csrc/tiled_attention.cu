@@ -1,85 +1,52 @@
-// Kernel K4: row-tiled multi-head attention for long sequences, its forward
-// and its recompute backward, read straight from the packed qkv.
+// Kernel K4 in float32: row-tiled multi-head attention for long sequences,
+// its forward and its recompute backward, read straight from the packed qkv,
+// on the CUDA cores. (bf16, the path every model runs, is the wgmma + TMA
+// design of csrc/tiled_attention_sm90.cu.)
 //
 // Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/attention_tiled.py, reached through
 // `_tiled_fwd` / `_tiled_bwd` under the custom_vjp `tiled_attention`), which
 // the JAX package's `packed_attention` takes wherever the packed kernel's
-// (N, N) scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304).
+// (N, N) scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304). Here
+// it carries the float32 parity checks against the plain versions.
 //
 // What it computes, per (batch b, head h), as K1 does (csrc/packed_attention.cu):
-//   ctx[b, :, h*d:(h+1)*d] = round_T(softmax_f32(q k^T * scale)) v
+//   ctx[b, :, h*d:(h+1)*d] = softmax_f32(q k^T * scale) v
 // with q, k, v the column slices of the qkv-major (B, N, 3C) projection and
 // the context written h-major into (B, N, C). The softmax is exact over the
-// whole key axis: p = exp(s - max) / sum in f32, then rounded to T before P.V.
+// whole key axis: p = exp(s - max) / sum in f32.
 //
-// Why a second kernel: K1 stages a head's whole K and V in shared memory, so
-// it stops near N = 789 in bf16 at d = 64 on the card's 227 KB. Here K and V
-// are streamed through shared memory in tiles of 64 keys, so nothing is
-// bounded by N.
-//
-// Design. A block owns `rows` query rows of one (b, h) (128 in bf16 at
-// d <= 64, else 64), one warp per 16 rows, its Q rows staged once. The
-// forward makes two sweeps over the key tiles:
-//   sweep 1: S = Q K^T into the warp's f32 tile; per row the running max m
-//            and the sum of exponentials l (rescaled when m grows);
-//   sweep 2: S again; p = exp(s - m) / l with the final m and l, rounded to
-//            T, written over its own row of S; O += P V in f32.
-// Two sweeps keep the TPU kernel's rounding exactly: P is the finished f32
-// softmax before its one rounding, and only l carries the few ulps of its
-// rescaling. Online softmax would rescale O too and round P against a
-// provisional max.
-//
-// The backward (the numerics of `_tiled_bwd_kernel`, dsum over the unrounded
-// P; dS = round(P * (dP - dsum) * scale); dQ = dS K, dK = dS^T Q,
-// dV = round(P)^T dO, all summed in f32) runs in two passes, since blocks run
-// in no order and no atomics are used (two runs give the same bits):
+// Design. K and V are streamed through shared memory in tiles of 64 keys,
+// so nothing is bounded by N. A block owns 64 query rows of one (b, h), one
+// warp per 16 rows, its Q rows staged once. The forward makes two sweeps
+// over the key tiles:
+//   sweep 1: S = Q K^T into the warp's tile; per row the running max m and
+//            the sum of exponentials l (rescaled when m grows);
+//   sweep 2: S again; p = exp(s - m) / l with the final m and l, written
+//            over its own row of S; O += P V.
+// The backward (the numerics of `_tiled_bwd_kernel`, dsum over P;
+// dS = P * (dP - dsum) * scale; dQ = dS K, dK = dS^T Q, dV = P^T dO) runs
+// in two passes, since blocks run in no order and no atomics are used (two
+// runs give the same bits):
 //   pass 1 (query tiles): sweep 1 streams K and V to build m, l and
 //          u = sum dP exp(s - m) (rescaled with l), so dsum = u / l; it
-//          stores (m, l, dsum) in a (3, B, H, N) f32 scratch; sweep 2 forms
-//          dS and accumulates dQ;
+//          stores (m, l, dsum) in a (3, B, H, N) scratch; sweep 2 forms dS
+//          and accumulates dQ;
 //   pass 2 (key tiles): streams Q, dO and their (m, l, dsum) to form P^T
 //          and dS^T, and accumulates dK and dV.
-//
-// Products: bf16 with d in {32, 64, 128} on the tensor cores (WMMA, mma.sync
-// 16x16x16 bf16 -> f32, as in K1); float32 on the CUDA cores (fmaf, lanes
-// over keys for the scores and over d for the accumulating products).
-//
-// What bounds it on an H100: at (64, 2304, 1152) bf16 the forward does
-// 2 products of 2 N^2 d FLOP per (b, h), ~522 GFLOP, against ~0.45 GB of qkv
-// in and context out: ~1,100 FLOP per byte, far above the ~295 FLOP/byte
-// ridge, so it is bound by operations (~0.53 ms at 989 TFLOP/s). This first
-// version does one more S product than the minimum (sweep 1), keeps its
-// products on WMMA fed from shared memory with no copy overlapped with
-// compute, and runs the softmax between the products on one warp per 16 rows;
-// wgmma, TMA and a pipelined key ring are for a later version.
+// Products are fmaf on the CUDA cores, lanes over keys for the scores and
+// over d for the accumulating products.
 //
 // Plain-C interface, loaded with ctypes (ops/kernels/attention_tiled.py).
 // Every entry point returns a cudaError_t as int (0 = success).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-
 constexpr int kTile = 64;      // keys per sweep step (queries in pass 2)
 constexpr int kWarpRows = 16;  // rows of one warp's tile
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -91,122 +58,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Geometry of one (T, D) instantiation.
-template <typename T, int D>
+// Geometry of one head width D: four warps of 16 query rows.
+template <int D>
 struct Geo {
-  static constexpr bool mma = sizeof(T) == 2;
-  static constexpr int warps = (mma && D <= 64) ? 8 : 4;
+  static constexpr int warps = 4;
   static constexpr int threads = warps * 32;
   static constexpr int rows = warps * kWarpRows;  // rows a block owns
-  // Element row stride of staged tiles: 16-byte rows for WMMA; one extra
-  // word in f32 so lanes reading rows lane, lane + 32 hit distinct banks.
-  static constexpr int ks = mma ? D + 8 : D + 1;
-  // f32 row stride of a warp tile (16 x 64 scores, or 16 x D outputs).
+  // Row stride of staged tiles: one extra word so lanes reading rows lane,
+  // lane + 32 hit distinct banks.
+  static constexpr int ks = D + 1;
+  // Row stride of a warp tile (16 x 64 scores, or 16 x D outputs), and of
+  // the copy of P or dS written over a tile's own rows.
   static constexpr int ss = (D > kTile ? D : kTile) + 4;
-  // T row stride of the rounded copy written over a tile's own rows.
-  static constexpr int ps = ss * 4 / static_cast<int>(sizeof(T));
+  static constexpr int ps = ss;
   static constexpr size_t tile_bytes = size_t(kWarpRows) * ss * sizeof(float);
   static constexpr size_t fwd_smem =
-      (size_t(rows) + 2 * kTile) * ks * sizeof(T) + warps * tile_bytes;
-  static constexpr size_t bwd_smem = 2 * (size_t(rows) + kTile) * ks * sizeof(T) +
+      (size_t(rows) + 2 * kTile) * ks * sizeof(float) + warps * tile_bytes;
+  static constexpr size_t bwd_smem = 2 * (size_t(rows) + kTile) * ks * sizeof(float) +
                                      2 * warps * tile_bytes + 3 * kTile * sizeof(float);
 };
 
 // Stage rows row0 .. row0 + rows - 1 (zero past N) of a D-column slice with
 // element row stride `stride` into shared memory with row stride Geo::ks.
-template <typename T, int D>
-__device__ __forceinline__ void stage(T* dst, const T* src, size_t stride, int row0,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, size_t stride, int row0,
                                       int rows, int N) {
-  constexpr int ks = Geo<T, D>::ks;
-  if constexpr (Geo<T, D>::mma) {
-    constexpr int vec = D / 8;
-    for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
-      const int r = i / vec;
-      const int c = (i - r * vec) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < N) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-      *reinterpret_cast<uint4*>(dst + r * ks + c) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D;
-      const int c = i - r * D;
-      dst[r * ks + c] = row0 + r < N ? src[(row0 + r) * stride + c] : T(0);
-    }
+  constexpr int ks = Geo<D>::ks;
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D;
+    const int c = i - r * D;
+    dst[r * ks + c] = row0 + r < N ? src[(row0 + r) * stride + c] : 0.f;
   }
 }
 
 // The two products every pass is made of, per warp:
 //   abt:  out (16 x 64, f32, stride ss) = A (16 x D) . B (64 x D)^T
-//   Acc:  acc (16 x D, f32) += P (16 x 64, T, stride ps) . B (64 x D)
+//   Acc:  acc (16 x D, f32) += P (16 x 64, stride ps) . B (64 x D)
 // with A and B staged with row stride ks.
-template <typename T, int D>
-struct Mma;
-
 template <int D>
-struct Mma<bf16, D> {
-  using G = Geo<bf16, D>;
-
-  static __device__ __forceinline__ void abt(const bf16* a, const bf16* b, float* out) {
-    for (int n = 0; n < kTile; n += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int k = 0; k < D; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, a + k, G::ks);
-        wmma::load_matrix_sync(fb, b + n * G::ks + k, G::ks);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(out + n, acc, G::ss, wmma::mem_row_major);
-    }
-  }
-
-  struct Acc {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
-
-    __device__ __forceinline__ void zero() {
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) wmma::fill_fragment(f[c], 0.f);
-    }
-
-    __device__ __forceinline__ void add(const bf16* p, const bf16* b) {
-      for (int k = 0; k < kTile; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, p + k, G::ps);
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, b + k * G::ks + c * 16, G::ks);
-          wmma::mma_sync(f[c], fa, fb, f[c]);
-        }
-      }
-    }
-
-    // Rows n0 .. n0 + 15 (those below N) into dst (row stride `stride`),
-    // through the warp's f32 tile `scratch`.
-    __device__ __forceinline__ void store(float* scratch, bf16* dst, size_t stride, int n0,
-                                          int N) {
-      const int lane = threadIdx.x % 32;
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c)
-        wmma::store_matrix_sync(scratch + c * 16, f[c], G::ss, wmma::mem_row_major);
-      __syncwarp();
-      for (int idx = lane; idx < kWarpRows * D; idx += 32) {
-        const int i = idx / D;
-        const int c = idx - i * D;
-        if (n0 + i < N) dst[(n0 + i) * stride + c] = __float2bfloat16_rn(scratch[i * G::ss + c]);
-      }
-      __syncwarp();
-    }
-  };
-};
-
-template <int D>
-struct Mma<float, D> {
-  using G = Geo<float, D>;
+struct Mma {
+  using G = Geo<D>;
   static constexpr int kCols = D / 32;  // output columns per lane
 
   static __device__ __forceinline__ void abt(const float* a, const float* b, float* out) {
@@ -270,16 +161,16 @@ struct Mma<float, D> {
 
 // ----------------------------------------------------------------- forward
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Geo<T, D>::threads)
-    tiled_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
+template <int D>
+__global__ void __launch_bounds__(Geo<D>::threads)
+    tiled_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int C,
                      float scale) {
-  using G = Geo<T, D>;
-  using M = Mma<T, D>;
+  using G = Geo<D>;
+  using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + G::rows * G::ks;
-  T* v_s = k_s + kTile * G::ks;
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + G::rows * G::ks;
+  float* v_s = k_s + kTile * G::ks;
   float* tiles = reinterpret_cast<float*>(v_s + kTile * G::ks);
 
   const int warp = threadIdx.x / 32;
@@ -288,14 +179,14 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
-  stage<T, D>(q_s, base, C3, row0, G::rows, N);
+  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  stage<D>(q_s, base, C3, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
   const bool active = row0 + r0 < N;  // inactive warps still meet every barrier
-  const T* q_w = q_s + r0 * G::ks;
+  const float* q_w = q_s + r0 * G::ks;
   float* s_w = tiles + warp * kWarpRows * G::ss;
-  T* p_w = reinterpret_cast<T*>(s_w);  // P row i over the start of S row i
+  float* p_w = s_w;  // P row i over the start of S row i
 
   float m[kWarpRows], l[kWarpRows];
 #pragma unroll
@@ -307,7 +198,7 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   // Sweep 1: row max and sum of exponentials over every key tile.
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();  // the previous tile is no longer read
-    stage<T, D>(k_s, base + C, C3, key0, kTile, N);
+    stage<D>(k_s, base + C, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -331,8 +222,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   o.zero();
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<T, D>(k_s, base + C, C3, key0, kTile, N);
-    stage<T, D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + C, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -344,8 +235,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
       const float p0 = in0 ? expf(s_w[i * G::ss + lane] * scale - m[i]) / l[i] : 0.f;
       const float p1 = in1 ? expf(s_w[i * G::ss + lane + 32] * scale - m[i]) / l[i] : 0.f;
       __syncwarp();  // all of S row i is read before any lane overwrites it
-      p_w[i * G::ps + lane] = from_float<T>(p0);
-      p_w[i * G::ps + lane + 32] = from_float<T>(p1);
+      p_w[i * G::ps + lane] = p0;
+      p_w[i * G::ps + lane + 32] = p1;
     }
     __syncwarp();
     o.add(p_w, v_s);
@@ -356,18 +247,18 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
 
 // --------------------------------------------------------- backward, pass 1
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Geo<T, D>::threads)
-    tiled_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                        T* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
+template <int D>
+__global__ void __launch_bounds__(Geo<D>::threads)
+    tiled_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                        float* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
                         int H, float scale) {
-  using G = Geo<T, D>;
-  using M = Mma<T, D>;
+  using G = Geo<D>;
+  using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* o_s = q_s + G::rows * G::ks;
-  T* k_s = o_s + G::rows * G::ks;
-  T* v_s = k_s + kTile * G::ks;
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* o_s = q_s + G::rows * G::ks;
+  float* k_s = o_s + G::rows * G::ks;
+  float* v_s = k_s + kTile * G::ks;
   float* tiles = reinterpret_cast<float*>(v_s + kTile * G::ks);
 
   const int warp = threadIdx.x / 32;
@@ -376,19 +267,19 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
-  const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
-  stage<T, D>(q_s, base, C3, row0, G::rows, N);
-  stage<T, D>(o_s, obase, C, row0, G::rows, N);
+  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const float* obase = dout + static_cast<size_t>(b) * N * C + h * D;
+  float* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
+  stage<D>(q_s, base, C3, row0, G::rows, N);
+  stage<D>(o_s, obase, C, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
   const bool active = row0 + r0 < N;
-  const T* q_w = q_s + r0 * G::ks;
-  const T* o_w = o_s + r0 * G::ks;
+  const float* q_w = q_s + r0 * G::ks;
+  const float* o_w = o_s + r0 * G::ks;
   float* s_w = tiles + warp * 2 * kWarpRows * G::ss;
   float* dp_w = s_w + kWarpRows * G::ss;
-  T* ds_w = reinterpret_cast<T*>(dp_w);  // dS row i over the start of dP row i
+  float* ds_w = dp_w;  // dS row i over the start of dP row i
 
   float m[kWarpRows], l[kWarpRows], u[kWarpRows];
 #pragma unroll
@@ -401,8 +292,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   // Sweep 1: m, l and u = sum dP exp(s - m), rescaled together.
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<T, D>(k_s, base + C, C3, key0, kTile, N);
-    stage<T, D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + C, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);   // S = Q K^T
@@ -445,8 +336,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   dq.zero();
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<T, D>(k_s, base + C, C3, key0, kTile, N);
-    stage<T, D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + C, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -461,8 +352,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
       const float g0 = p0 * (dp_w[i * G::ss + lane] - u[i]) * scale;
       const float g1 = p1 * (dp_w[i * G::ss + lane + 32] - u[i]) * scale;
       __syncwarp();  // all of dP row i is read before any lane overwrites it
-      ds_w[i * G::ps + lane] = from_float<T>(g0);
-      ds_w[i * G::ps + lane + 32] = from_float<T>(g1);
+      ds_w[i * G::ps + lane] = g0;
+      ds_w[i * G::ps + lane + 32] = g1;
     }
     __syncwarp();
     dq.add(ds_w, k_s);
@@ -473,18 +364,18 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
 
 // --------------------------------------------------------- backward, pass 2
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Geo<T, D>::threads)
-    tiled_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                         T* __restrict__ dqkv, const float* __restrict__ stats, int N,
+template <int D>
+__global__ void __launch_bounds__(Geo<D>::threads)
+    tiled_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                         float* __restrict__ dqkv, const float* __restrict__ stats, int N,
                          int C, int H, float scale) {
-  using G = Geo<T, D>;
-  using M = Mma<T, D>;
+  using G = Geo<D>;
+  using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + G::rows * G::ks;
-  T* q_s = v_s + G::rows * G::ks;
-  T* o_s = q_s + kTile * G::ks;
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + G::rows * G::ks;
+  float* q_s = v_s + G::rows * G::ks;
+  float* o_s = q_s + kTile * G::ks;
   float* tiles = reinterpret_cast<float*>(o_s + kTile * G::ks);
   float* m_s = tiles + 2 * G::warps * kWarpRows * G::ss;
   float* l_s = m_s + kTile;
@@ -496,20 +387,20 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;  // first key row
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
-  const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
-  stage<T, D>(k_s, base + C, C3, row0, G::rows, N);
-  stage<T, D>(v_s, base + 2 * C, C3, row0, G::rows, N);
+  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const float* obase = dout + static_cast<size_t>(b) * N * C + h * D;
+  float* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
+  stage<D>(k_s, base + C, C3, row0, G::rows, N);
+  stage<D>(v_s, base + 2 * C, C3, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
   const bool active = row0 + r0 < N;
-  const T* k_w = k_s + r0 * G::ks;
-  const T* v_w = v_s + r0 * G::ks;
+  const float* k_w = k_s + r0 * G::ks;
+  const float* v_w = v_s + r0 * G::ks;
   float* a_w = tiles + warp * 2 * kWarpRows * G::ss;  // S^T, then round(P)^T
   float* b_w = a_w + kWarpRows * G::ss;               // dP^T, then dS^T
-  T* pb_w = reinterpret_cast<T*>(a_w);
-  T* ds_w = reinterpret_cast<T*>(b_w);
+  float* pb_w = a_w;
+  float* ds_w = b_w;
   const float* st = stats + (static_cast<size_t>(b) * H + h) * N;
   const size_t plane = static_cast<size_t>(gridDim.z) * H * N;
 
@@ -518,8 +409,8 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
   dv.zero();
   for (int q0 = 0; q0 < N; q0 += kTile) {
     __syncthreads();
-    stage<T, D>(q_s, base, C3, q0, kTile, N);
-    stage<T, D>(o_s, obase, C, q0, kTile, N);
+    stage<D>(q_s, base, C3, q0, kTile, N);
+    stage<D>(o_s, obase, C, q0, kTile, N);
     for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
       const int n = q0 + i;
       m_s[i] = n < N ? st[n] : 0.f;
@@ -543,10 +434,10 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
       const float g0 = p0 * (b_w[j * G::ss + lane] - d0) * scale;
       const float g1 = p1 * (b_w[j * G::ss + lane + 32] - d1) * scale;
       __syncwarp();  // row j of both tiles is read before it is overwritten
-      pb_w[j * G::ps + lane] = from_float<T>(p0);
-      pb_w[j * G::ps + lane + 32] = from_float<T>(p1);
-      ds_w[j * G::ps + lane] = from_float<T>(g0);
-      ds_w[j * G::ps + lane + 32] = from_float<T>(g1);
+      pb_w[j * G::ps + lane] = p0;
+      pb_w[j * G::ps + lane + 32] = p1;
+      ds_w[j * G::ps + lane] = g0;
+      ds_w[j * G::ps + lane + 32] = g1;
     }
     __syncwarp();
     dv.add(pb_w, o_s);  // dV += round(P)^T dO
@@ -561,114 +452,93 @@ __global__ void __launch_bounds__(Geo<T, D>::threads)
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* qkv, void* out, int B, int N, int C, int heads,
                cudaStream_t stream) {
-  using G = Geo<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_kernel<T, D>,
+  using G = Geo<D>;
+  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::fwd_smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + G::rows - 1) / G::rows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  tiled_fwd_kernel<T, D><<<grid, G::threads, G::fwd_smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, scale);
+  tiled_fwd_kernel<D><<<grid, G::threads, G::fwd_smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), N, C, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int B, int N,
                int C, int heads, cudaStream_t stream) {
-  using G = Geo<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(tiled_bwd_dq_kernel<T, D>,
+  using G = Geo<D>;
+  cudaError_t err = cudaFuncSetAttribute(tiled_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::bwd_smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(tiled_bwd_dkv_kernel<T, D>,
+  err = cudaFuncSetAttribute(tiled_bwd_dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(G::bwd_smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + G::rows - 1) / G::rows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  const T* q = static_cast<const T*>(qkv);
-  const T* o = static_cast<const T*>(dout);
-  T* g = static_cast<T*>(dqkv);
-  tiled_bwd_dq_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N, C,
+  const float* q = static_cast<const float*>(qkv);
+  const float* o = static_cast<const float*>(dout);
+  float* g = static_cast<float*>(dqkv);
+  tiled_bwd_dq_kernel<D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N, C,
                                                                        heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tiled_bwd_dkv_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N,
+  tiled_bwd_dkv_kernel<D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N,
                                                                         C, heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 long long smem_of(int d, int backward) {
   switch (d) {
-    case 32: return static_cast<long long>(backward ? Geo<T, 32>::bwd_smem : Geo<T, 32>::fwd_smem);
-    case 64: return static_cast<long long>(backward ? Geo<T, 64>::bwd_smem : Geo<T, 64>::fwd_smem);
-    case 128: return static_cast<long long>(backward ? Geo<T, 128>::bwd_smem : Geo<T, 128>::fwd_smem);
+    case 32: return static_cast<long long>(backward ? Geo<32>::bwd_smem : Geo<32>::fwd_smem);
+    case 64: return static_cast<long long>(backward ? Geo<64>::bwd_smem : Geo<64>::fwd_smem);
+    case 128: return static_cast<long long>(backward ? Geo<128>::bwd_smem : Geo<128>::fwd_smem);
     default: return -1;
-  }
-}
-
-template <typename T>
-int fwd_of(int d, const void* qkv, void* out, int B, int N, int C, int heads, cudaStream_t s) {
-  switch (d) {
-    case 32: return launch_fwd<T, 32>(qkv, out, B, N, C, heads, s);
-    case 64: return launch_fwd<T, 64>(qkv, out, B, N, C, heads, s);
-    case 128: return launch_fwd<T, 128>(qkv, out, B, N, C, heads, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int bwd_of(int d, const void* qkv, const void* dout, void* dqkv, float* stats, int B, int N,
-           int C, int heads, cudaStream_t s) {
-  switch (d) {
-    case 32: return launch_bwd<T, 32>(qkv, dout, dqkv, stats, B, N, C, heads, s);
-    case 64: return launch_bwd<T, 64>(qkv, dout, dqkv, stats, B, N, C, heads, s);
-    case 128: return launch_bwd<T, 128>(qkv, dout, dqkv, stats, B, N, C, heads, s);
-    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes shared with ops/kernels/attention_tiled.py: 0 = float32,
-// 1 = bfloat16. Head widths d in {32, 64, 128}.
+// Head widths d in {32, 64, 128}, float32 throughout (bf16 runs the wgmma
+// kernels of csrc/tiled_attention_sm90.cu).
 
 // Shared memory of the forward (backward = 0) or of the larger backward
-// pass (backward = 1) at head width d; -1 for a (d, dtype) it does not take.
-extern "C" long long tiled_attention_smem_bytes(int d, int dtype, int backward) {
-  if (dtype == 0) return smem_of<float>(d, backward);
-  if (dtype == 1) return smem_of<bf16>(d, backward);
-  return -1;
+// pass (backward = 1) at head width d; -1 for a d it does not take.
+extern "C" long long tiled_attention_smem_bytes(int d, int backward) {
+  return smem_of(d, backward);
 }
 
-// qkv (B, N, 3C) qkv-major in -> context (B, N, C) out, of one dtype.
+// qkv (B, N, 3C) qkv-major in -> context (B, N, C) out.
 extern "C" int tiled_attention_fwd(const void* qkv, void* out, int B, int N, int C,
-                                   int heads, int dtype, int device, void* stream) {
+                                   int heads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int d = C / heads;
-  if (dtype == 0) return fwd_of<float>(d, qkv, out, B, N, C, heads, s);
-  if (dtype == 1) return fwd_of<bf16>(d, qkv, out, B, N, C, heads, s);
-  return cudaErrorInvalidValue;
+  switch (C / heads) {
+    case 32: return launch_fwd<32>(qkv, out, B, N, C, heads, s);
+    case 64: return launch_fwd<64>(qkv, out, B, N, C, heads, s);
+    case 128: return launch_fwd<128>(qkv, out, B, N, C, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out, all of one
-// dtype; stats is (3, B, heads, N) float32 scratch.
+// qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out; stats is
+// (3, B, heads, N) scratch.
 extern "C" int tiled_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
-                                   int B, int N, int C, int heads, int dtype, int device,
-                                   void* stream) {
+                                   int B, int N, int C, int heads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  const int d = C / heads;
-  if (dtype == 0) return bwd_of<float>(d, qkv, dout, dqkv, st, B, N, C, heads, s);
-  if (dtype == 1) return bwd_of<bf16>(d, qkv, dout, dqkv, st, B, N, C, heads, s);
-  return cudaErrorInvalidValue;
+  switch (C / heads) {
+    case 32: return launch_bwd<32>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 64: return launch_bwd<64>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 128: return launch_bwd<128>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

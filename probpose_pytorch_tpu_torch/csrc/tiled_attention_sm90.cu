@@ -1,0 +1,952 @@
+// Kernel K4 in bf16 for Hopper (sm_90a): row-tiled multi-head attention for
+// long sequences, its forward and its backward, read straight from the
+// packed qkv with TMA and multiplied with wgmma.
+//
+// Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel`
+// (probpose_pytorch_tpu/ops/pallas/attention_tiled.py:119-192), which the JAX
+// package's `packed_attention` takes wherever the packed kernel's (N, N)
+// scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304). The float32
+// path stays on the CUDA cores in csrc/tiled_attention.cu.
+//
+// What it computes, per (batch b, head h), with q, k, v the column slices of
+// the qkv-major (B, N, 3C) projection and the context written h-major into
+// (B, N, C): ctx = softmax_f32(q k^T * scale) v, the softmax exact in f32, P
+// rounded to bf16 before P.V, f32 sums. The backward gives dqkv (B, N, 3C)
+// with dS = round(P * (dP - D) * scale), dQ = dS K, dK = dS^T Q and
+// dV = round(P)^T dO, f32 sums.
+//
+// What bounds it on an H100: at (64, 2304, 1152) the forward does two
+// products of 2 N^2 d FLOP per (b, h) against ~0.45 GB of qkv in and context
+// out, ~1,100 FLOP per byte, far above the ~295 FLOP/byte ridge: it is bound
+// by operations, and only wgmma reaches the card's bf16 rate. So:
+//
+// Forward, one sweep over the keys (online softmax). A block owns 128 query
+// rows of one (b, h): two consumer warpgroups of 64 rows and one producer
+// warpgroup whose single thread keeps a ring of K/V tiles of 128 keys in
+// flight with TMA (3-D tensor map over (B, N, 3C); rows past N arrive as
+// zeros). Per tile: S = Q K^T by wgmma m64n128k16 from shared memory into
+// registers; the row max and sum over the accumulator's quads; P =
+// exp2(S * scale * log2 e - m), rounded to bf16 in registers and fed as
+// wgmma's register A operand against V (read MN-major); O is rescaled in
+// registers when the max grows and divided by l once at the end. It also
+// writes, when asked, the row log-sum-exp lse = m * scale + log l, which the
+// backward uses instead of a statistics sweep. This rounds exp(s - m_running)
+// rather than the TPU's normalised P; the difference stays within the K1/K4
+// bound (plain twin: tiled_attention_online_reference).
+//
+// Backward, two kernels, seven products, no atomics (two runs give the same
+// bits):
+//   dQ kernel (128 query rows a block, K and V streamed in tiles of 64 keys):
+//     D = rowsum(dO * O) for its rows, kept in a (B, H, N) f32 buffer; per
+//     tile S = Q K^T, dP = dO V^T, P = exp(S * scale - lse),
+//     dS = round(P * (dP - D) * scale) in registers, dQ += dS K.
+//   dK/dV kernel (128 keys a block, Q, dO and their lse / D streamed in tiles
+//     of 64 rows): S^T = K Q^T, dP^T = V dO^T, dV += round(P^T) dO,
+//     dK += dS^T Q; dK and dV stay in f32 registers and are written once.
+// D from dO * O is the FlashAttention identity; the TPU sums dP * P over the
+// unrounded P, so the two differ by the bf16 rounding of O, within the bound.
+//
+// Shared-memory tiles carry TMA's 128-byte swizzle (64-byte at d = 32), the
+// layout the wgmma descriptors name; d = 128 loads each tile as two 64-column
+// boxes. Head widths d in {32, 64, 128}.
+//
+// Plain-C interface, loaded with ctypes (ops/kernels/attention_tiled.py).
+// Every entry point returns a cudaError_t as int (0 = success).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kStages = 2;     // depth of every TMA ring
+constexpr int kBlockRows = 128;
+constexpr int kTileRows = 64;  // keys per dQ step, query rows per dK/dV step
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory layout of a (rows x D) bf16 tile as TMA writes it: boxes of
+// kCols columns, each kSpan-byte row swizzled, one box after another.
+template <int D>
+struct Tile {
+  static constexpr int kSpan = D >= 64 ? 128 : 64;  // bytes per swizzled row
+  static constexpr int kCols = kSpan / 2;           // columns per box
+  static constexpr int kBoxes = D / kCols;
+  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  static constexpr uint32_t bytes(int rows) { return static_cast<uint32_t>(rows) * D * 2; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ------------------------------------------------------------------ TMA
+
+// Rows row0 .. row0 + rows - 1 of columns col0 .. col0 + D - 1 of batch item
+// b into the tile at `dst`, completing on `bar` (rows past N come as zeros).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col0, int row0, int b, int rows) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < T::kBoxes; ++c) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst + c * rows * T::kSpan),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col0 + c * T::kCols), "r"(row0),
+        "r"(b)
+        : "memory");
+  }
+}
+
+// ---------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// Operand whose contraction runs along the tile's columns (K-major): k-step
+// kk (columns 16 kk ..) of rows r0 .. of a tile of `rows` rows.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0, int kk) {
+  using T = Tile<D>;
+  const int col = kk * 16;
+  const uint32_t addr = tile + (col / T::kCols) * rows * T::kSpan + r0 * T::kSpan +
+                        (col % T::kCols) * 2;
+  return make_desc(addr, 16, 8 * T::kSpan, T::kLayout);
+}
+
+// Operand whose contraction runs along the tile's rows (MN-major): k-step kk
+// (rows 16 kk ..) over all D columns, the boxes rows * kSpan bytes apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  using T = Tile<D>;
+  return make_desc(tile + kk * 16 * T::kSpan, rows * T::kSpan, 8 * T::kSpan, T::kLayout);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of wgmma's registers across it.
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// The products. Accumulator layout of m64nNk16 (f32): thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns
+// 8 j + 2 (t % 4) (+ 1), at d[4 j + {0, 1}] (row) and d[4 j + {2, 3}] (row
+// + 8). A register A operand for k-step kk is the bf16 pairs of
+// d[8 kk .. 8 kk + 7] in order.
+
+// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T, both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem)^T, both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32,
+// smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64,
+// smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128,
+// smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+struct Rs;
+template <>
+struct Rs<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t* a, uint64_t b) {
+    wgmma_rs_n32(d, a, b);
+  }
+};
+template <>
+struct Rs<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t* a, uint64_t b) {
+    wgmma_rs_n64(d, a, b);
+  }
+};
+template <>
+struct Rs<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t* a, uint64_t b) {
+    wgmma_rs_n128(d, a, b);
+  }
+};
+
+// Shared memory: tiles at 1024-byte boundaries (the swizzle's period), then
+// the mbarriers, then f32 row statistics.
+template <int D>
+struct Fwd {
+  static constexpr uint32_t kQ = Tile<D>::bytes(kBlockRows);
+  static constexpr uint32_t kKV = Tile<D>::bytes(kBlockRows);  // one K or V tile
+  static constexpr uint32_t kBars = kQ + kStages * 2 * kKV;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+struct Dq {
+  static constexpr uint32_t kQ = Tile<D>::bytes(kBlockRows);  // Q, then dO
+  static constexpr uint32_t kKV = Tile<D>::bytes(kTileRows);
+  static constexpr uint32_t kBars = 2 * kQ + kStages * 2 * kKV;
+  static constexpr uint32_t kStats = kBars + 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + kStats + 2 * kBlockRows * 4;
+};
+
+template <int D>
+struct Dkv {
+  static constexpr uint32_t kKV = Tile<D>::bytes(kBlockRows);  // K, then V
+  static constexpr uint32_t kQ = Tile<D>::bytes(kTileRows);    // one Q or dO tile
+  static constexpr uint32_t kBars = 2 * kKV + kStages * 2 * kQ;
+  static constexpr uint32_t kStats = kBars + 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmem = 1024 + kStats + kStages * 2 * kTileRows * 4;
+};
+
+__device__ __forceinline__ uint32_t aligned_base(unsigned char* smem) {
+  return (smem_u32(smem) + 1023u) & ~1023u;
+}
+
+// ----------------------------------------------------------------- forward
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out,
+               float* __restrict__ lse, int N, int C, int H, float scale) {
+  using L = Fwd<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + L::kQ;  // stage s: K, then V
+  const uint32_t q_bar = base + L::kBars;
+  const uint32_t full = q_bar + 8;  // full(s) = full + 8 s
+  const uint32_t empty = full + 8 * kStages;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * kBlockRows;
+  const int n_tiles = (N + kBlockRows - 1) / kBlockRows;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_bar, L::kQ);
+      tma_tile<D>(q_s, &qkv_map, q_bar, h * D, row0, b, kBlockRows);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        const uint32_t k_s = kv_s + s * 2 * L::kKV;
+        mbar_expect_tx(full + 8 * s, 2 * L::kKV);
+        tma_tile<D>(k_s, &qkv_map, full + 8 * s, C + h * D, j * kBlockRows, b, kBlockRows);
+        tma_tile<D>(k_s + L::kKV, &qkv_map, full + 8 * s, 2 * C + h * D, j * kBlockRows, b,
+                    kBlockRows);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+    const float sl2 = scale * kLog2e;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running row max of the raw scores
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+    mbar_wait(q_bar, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(full + 8 * s, (j / kStages) & 1);
+      const uint32_t k_s = kv_s + s * 2 * L::kKV;
+      const uint32_t v_s = k_s + L::kKV;
+
+      float sc[64];  // S = Q K^T, 64 rows x 128 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n128(sc, desc_k<D>(q_s, kBlockRows, wg * 64, kk),
+                      desc_k<D>(k_s, kBlockRows, 0, kk), kk);
+      wgmma_commit_wait();
+      reg_fence(sc);
+
+      const int key0 = j * kBlockRows;
+      if (key0 + kBlockRows > N) {
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (key0 + 8 * jn + 2 * t + c >= N) sc[4 * jn + c] = sc[4 * jn + 2 + c] = -INFINITY;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float c0 = exp2f((m0 - mx0) * sl2);  // 0 on the first tile
+      const float c1 = exp2f((m1 - mx1) * sl2);
+      m0 = mx0;
+      m1 = mx1;
+      const float b0 = mx0 * sl2, b1 = mx1 * sl2;
+      float r0 = 0.f, r1 = 0.f;
+      uint32_t pa[32];
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const float p00 = exp2f(fmaf(sc[4 * jn], sl2, -b0));
+        const float p01 = exp2f(fmaf(sc[4 * jn + 1], sl2, -b0));
+        const float p10 = exp2f(fmaf(sc[4 * jn + 2], sl2, -b1));
+        const float p11 = exp2f(fmaf(sc[4 * jn + 3], sl2, -b1));
+        r0 += p00 + p01;
+        r1 += p10 + p11;
+        pa[2 * jn] = pack_bf16(p00, p01);
+        pa[2 * jn + 1] = pack_bf16(p10, p11);
+      }
+      l0 = l0 * c0 + r0;
+      l1 = l1 * c1 + r1;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn) {
+        o[4 * jn] *= c0;
+        o[4 * jn + 1] *= c0;
+        o[4 * jn + 2] *= c1;
+        o[4 * jn + 3] *= c1;
+      }
+
+      reg_fence(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockRows / 16; ++kk)
+        Rs<D>::mma(o, &pa[4 * kk], desc_mn<D>(v_s, kBlockRows, kk));
+      wgmma_commit_wait();
+      reg_fence(o);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const int ra = row0 + wg * 64 + (tid / 32) * 16 + g;
+    const int rb = ra + 8;
+    bf16* ob = out + static_cast<size_t>(b) * N * C + h * D + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      if (ra < N)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(ra) * C + 8 * jn) =
+            __floats2bfloat162_rn(o[4 * jn] / l0, o[4 * jn + 1] / l0);
+      if (rb < N)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(rb) * C + 8 * jn) =
+            __floats2bfloat162_rn(o[4 * jn + 2] / l1, o[4 * jn + 3] / l1);
+    }
+    if (lse != nullptr && t == 0) {
+      float* lp = lse + (static_cast<size_t>(b) * H + h) * N;
+      if (ra < N) lp[ra] = m0 * scale + logf(l0);
+      if (rb < N) lp[rb] = m1 * scale + logf(l1);
+    }
+  }
+}
+
+// --------------------------------------------------------- backward: dQ
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,  // qkv, boxes of 128 rows
+                  const __grid_constant__ CUtensorMap kv_map,  // qkv, boxes of 64 rows
+                  const __grid_constant__ CUtensorMap do_map,  // dout, boxes of 128 rows
+                  const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  bf16* __restrict__ dqkv, int N, int C, int H, float scale) {
+  using L = Dq<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + L::kQ;
+  const uint32_t kv_s = base + 2 * L::kQ;  // stage s: K, then V
+  const uint32_t q_bar = base + L::kBars;
+  const uint32_t full = q_bar + 8;
+  const uint32_t empty = full + 8 * kStages;
+  float* stat_l = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + L::kStats);
+  float* stat_d = stat_l + kBlockRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * kBlockRows;
+  const int n_tiles = (N + kTileRows - 1) / kTileRows;
+  const int wg = threadIdx.x / 128;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_bar, 2 * L::kQ);
+      tma_tile<D>(q_s, &q_map, q_bar, h * D, row0, b, kBlockRows);
+      tma_tile<D>(do_s, &do_map, q_bar, h * D, row0, b, kBlockRows);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        const uint32_t k_s = kv_s + s * 2 * L::kKV;
+        mbar_expect_tx(full + 8 * s, 2 * L::kKV);
+        tma_tile<D>(k_s, &kv_map, full + 8 * s, C + h * D, j * kTileRows, b, kTileRows);
+        tma_tile<D>(k_s + L::kKV, &kv_map, full + 8 * s, 2 * C + h * D, j * kTileRows, b,
+                    kTileRows);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+    const float sl2 = scale * kLog2e;
+
+    // D = rowsum(dO * O) of this warpgroup's 64 rows, two threads a row.
+    {
+      const int r = wg * 64 + tid / 2;
+      const int n = row0 + r;
+      const int half = tid % 2;
+      float acc = 0.f;
+      if (n < N) {
+        const size_t off = (static_cast<size_t>(b) * N + n) * C + h * D + half * (D / 2);
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(out + off + i);
+          const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + i);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 df = __bfloat1622float2(d2[e]);
+            acc = fmaf(of.x, df.x, acc);
+            acc = fmaf(of.y, df.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        const size_t at = (static_cast<size_t>(b) * H + h) * N + n;
+        stat_d[r] = acc;
+        stat_l[r] = n < N ? lse[at] * kLog2e : 0.f;
+        if (n < N) dsum[at] = acc;
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    const int ra = wg * 64 + (tid / 32) * 16 + g;
+    const float la = stat_l[ra], lb = stat_l[ra + 8];
+    const float da = stat_d[ra], db = stat_d[ra + 8];
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_bar, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(full + 8 * s, (j / kStages) & 1);
+      const uint32_t k_s = kv_s + s * 2 * L::kKV;
+      const uint32_t v_s = k_s + L::kKV;
+
+      float sc[32], dp[32];  // S = Q K^T and dP = dO V^T, 64 rows x 64 keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<D>(q_s, kBlockRows, wg * 64, kk),
+                     desc_k<D>(k_s, kTileRows, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<D>(do_s, kBlockRows, wg * 64, kk),
+                     desc_k<D>(v_s, kTileRows, 0, kk), kk);
+      wgmma_commit_wait();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      const int key0 = j * kTileRows;
+      uint32_t ds[16];
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        float ga[2], gb[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool in = key0 + 8 * jn + 2 * t + c < N;
+          const float pa = in ? exp2f(fmaf(sc[4 * jn + c], sl2, -la)) : 0.f;
+          const float pb = in ? exp2f(fmaf(sc[4 * jn + 2 + c], sl2, -lb)) : 0.f;
+          ga[c] = pa * (dp[4 * jn + c] - da) * scale;
+          gb[c] = pb * (dp[4 * jn + 2 + c] - db) * scale;
+        }
+        ds[2 * jn] = pack_bf16(ga[0], ga[1]);
+        ds[2 * jn + 1] = pack_bf16(gb[0], gb[1]);
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        Rs<D>::mma(dq, &ds[4 * kk], desc_mn<D>(k_s, kTileRows, kk));
+      wgmma_commit_wait();
+      reg_fence(dq);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    const int na = row0 + ra, nb = na + 8;
+    bf16* gq = dqkv + static_cast<size_t>(b) * N * C3 + h * D + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      if (na < N)
+        *reinterpret_cast<__nv_bfloat162*>(gq + na * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dq[4 * jn], dq[4 * jn + 1]);
+      if (nb < N)
+        *reinterpret_cast<__nv_bfloat162*>(gq + nb * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dq[4 * jn + 2], dq[4 * jn + 3]);
+    }
+  }
+}
+
+// ------------------------------------------------------ backward: dK, dV
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dkv_kernel(const __grid_constant__ CUtensorMap kv_map,  // qkv, boxes of 128 rows
+                   const __grid_constant__ CUtensorMap q_map,   // qkv, boxes of 64 rows
+                   const __grid_constant__ CUtensorMap do_map,  // dout, boxes of 64 rows
+                   const float* __restrict__ lse, const float* __restrict__ dsum,
+                   bf16* __restrict__ dqkv, int N, int C, int H, float scale) {
+  using L = Dkv<D>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t k_s = base;
+  const uint32_t v_s = base + L::kKV;
+  const uint32_t qd_s = base + 2 * L::kKV;  // stage s: Q, then dO
+  const uint32_t kv_bar = base + L::kBars;
+  const uint32_t full = kv_bar + 8;
+  const uint32_t empty = full + 8 * kStages;
+  // stage s: lse * log2 e, then D, of its 64 query rows
+  float* stats = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + L::kStats);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int key0 = static_cast<int>(blockIdx.x) * kBlockRows;
+  const int n_tiles = (N + kTileRows - 1) / kTileRows;
+  const int wg = threadIdx.x / 128;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one warp stages the statistics, its lane 0 the tiles
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * L::kKV);
+        tma_tile<D>(k_s, &kv_map, kv_bar, C + h * D, key0, b, kBlockRows);
+        tma_tile<D>(v_s, &kv_map, kv_bar, 2 * C + h * D, key0, b, kBlockRows);
+      }
+      const size_t row = (static_cast<size_t>(b) * H + h) * N;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        float* st = stats + s * 2 * kTileRows;
+        for (int i = lane; i < kTileRows; i += 32) {
+          const int n = j * kTileRows + i;
+          st[i] = n < N ? lse[row + n] * kLog2e : 0.f;
+          st[kTileRows + i] = n < N ? dsum[row + n] : 0.f;
+        }
+        if (lane == 0) {
+          const uint32_t q_s = qd_s + s * 2 * L::kQ;
+          mbar_expect_tx(full + 8 * s, 2 * L::kQ);
+          tma_tile<D>(q_s, &q_map, full + 8 * s, h * D, j * kTileRows, b, kTileRows);
+          tma_tile<D>(q_s + L::kQ, &do_map, full + 8 * s, h * D, j * kTileRows, b, kTileRows);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int g = (tid % 32) / 4;
+    const int t = tid % 4;
+    const float sl2 = scale * kLog2e;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_bar, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(full + 8 * s, (j / kStages) & 1);
+      const uint32_t q_s = qd_s + s * 2 * L::kQ;
+      const uint32_t do_s = q_s + L::kQ;
+      const float* st = stats + s * 2 * kTileRows;
+
+      float sc[32], dp[32];  // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k<D>(k_s, kBlockRows, wg * 64, kk),
+                     desc_k<D>(q_s, kTileRows, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<D>(v_s, kBlockRows, wg * 64, kk),
+                     desc_k<D>(do_s, kTileRows, 0, kk), kk);
+      wgmma_commit_wait();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      const int q0 = j * kTileRows;
+      uint32_t pt[16], dst[16];
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        float pa[2], pb[2], ga[2], gb[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 8 * jn + 2 * t + c;
+          const bool in = q0 + i < N;
+          const float lq = st[i], dq = st[kTileRows + i];
+          pa[c] = in ? exp2f(fmaf(sc[4 * jn + c], sl2, -lq)) : 0.f;
+          pb[c] = in ? exp2f(fmaf(sc[4 * jn + 2 + c], sl2, -lq)) : 0.f;
+          ga[c] = pa[c] * (dp[4 * jn + c] - dq) * scale;
+          gb[c] = pb[c] * (dp[4 * jn + 2 + c] - dq) * scale;
+        }
+        pt[2 * jn] = pack_bf16(pa[0], pa[1]);
+        pt[2 * jn + 1] = pack_bf16(pb[0], pb[1]);
+        dst[2 * jn] = pack_bf16(ga[0], ga[1]);
+        dst[2 * jn + 1] = pack_bf16(gb[0], gb[1]);
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk) {
+        Rs<D>::mma(dv, &pt[4 * kk], desc_mn<D>(do_s, kTileRows, kk));
+        Rs<D>::mma(dk, &dst[4 * kk], desc_mn<D>(q_s, kTileRows, kk));
+      }
+      wgmma_commit_wait();
+      reg_fence(dk);
+      reg_fence(dv);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    const int na = key0 + wg * 64 + (tid / 32) * 16 + g, nb = na + 8;
+    bf16* gk = dqkv + static_cast<size_t>(b) * N * C3 + C + h * D + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      if (na < N) {
+        *reinterpret_cast<__nv_bfloat162*>(gk + na * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dk[4 * jn], dk[4 * jn + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(gk + C + na * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dv[4 * jn], dv[4 * jn + 1]);
+      }
+      if (nb < N) {
+        *reinterpret_cast<__nv_bfloat162*>(gk + nb * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dk[4 * jn + 2], dk[4 * jn + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(gk + C + nb * C3 + 8 * jn) =
+            __floats2bfloat162_rn(dv[4 * jn + 2], dv[4 * jn + 3]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime so that the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 3-D map over a (B, N, width) bf16 tensor, boxes of `rows` rows and
+// Tile<D>::kCols columns with the swizzle the wgmma descriptors expect.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int width, int N, int B, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(width) * 2 * N};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tile<D>::kCols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int D>
+int launch_fwd(const void* qkv, void* out, float* lse, int B, int N, int C, int H,
+               cudaStream_t stream) {
+  CUtensorMap map;
+  int err = make_map<D>(&map, qkv, 3 * C, N, B, kBlockRows);
+  if (err == cudaSuccess) err = allow_smem(fwd_kernel<D>, Fwd<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
+  fwd_kernel<D><<<grid, kThreads, Fwd<D>::kSmem, stream>>>(
+      map, static_cast<bf16*>(out), lse, N, C, H, 1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const void* qkv, const void* out, const void* dout, const float* lse,
+               float* dsum, void* dqkv, int B, int N, int C, int H, cudaStream_t stream) {
+  CUtensorMap qkv128, qkv64, do128, do64;
+  int err = make_map<D>(&qkv128, qkv, 3 * C, N, B, kBlockRows);
+  if (err == cudaSuccess) err = make_map<D>(&qkv64, qkv, 3 * C, N, B, kTileRows);
+  if (err == cudaSuccess) err = make_map<D>(&do128, dout, C, N, B, kBlockRows);
+  if (err == cudaSuccess) err = make_map<D>(&do64, dout, C, N, B, kTileRows);
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_kernel<D>, Dq<D>::kSmem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkv_kernel<D>, Dkv<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  bf16* g = static_cast<bf16*>(dqkv);
+  bwd_dq_kernel<D><<<grid, kThreads, Dq<D>::kSmem, stream>>>(
+      qkv128, qkv64, do128, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
+      dsum, g, N, C, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkv_kernel<D><<<grid, kThreads, Dkv<D>::kSmem, stream>>>(qkv128, qkv64, do64, lse, dsum,
+                                                               g, N, C, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory of the forward (pass 0), the dQ kernel (1) or the dK/dV
+// kernel (2) at head width d; -1 for a d it does not take.
+extern "C" long long tiled_attention_sm90_smem_bytes(int d, int pass) {
+  switch (d) {
+    case 32: return pass == 0 ? Fwd<32>::kSmem : pass == 1 ? Dq<32>::kSmem : Dkv<32>::kSmem;
+    case 64: return pass == 0 ? Fwd<64>::kSmem : pass == 1 ? Dq<64>::kSmem : Dkv<64>::kSmem;
+    case 128: return pass == 0 ? Fwd<128>::kSmem : pass == 1 ? Dq<128>::kSmem : Dkv<128>::kSmem;
+    default: return -1;
+  }
+}
+
+// bf16 qkv (B, N, 3C) qkv-major in -> context (B, N, C) out and, unless lse
+// is null, the row log-sum-exp (B, heads, N) f32.
+extern "C" int tiled_attention_sm90_fwd(const void* qkv, void* out, void* lse, int B, int N,
+                                        int C, int heads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (C / heads) {
+    case 32: return launch_fwd<32>(qkv, out, l, B, N, C, heads, s);
+    case 64: return launch_fwd<64>(qkv, out, l, B, N, C, heads, s);
+    case 128: return launch_fwd<128>(qkv, out, l, B, N, C, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bf16 qkv (B, N, 3C), the forward's context out and its lse, and dout
+// (B, N, C) in -> dqkv (B, N, 3C) out; dsum is (B, heads, N) f32 scratch
+// for D = rowsum(dout * out).
+extern "C" int tiled_attention_sm90_bwd(const void* qkv, const void* out, const void* dout,
+                                        const void* lse, void* dsum, void* dqkv, int B, int N,
+                                        int C, int heads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* ds = static_cast<float*>(dsum);
+  switch (C / heads) {
+    case 32: return launch_bwd<32>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
+    case 64: return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
+    case 128: return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

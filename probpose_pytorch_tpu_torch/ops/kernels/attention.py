@@ -11,7 +11,8 @@ CUDA cores (`kernel_path` says which).
 
 `packed_attention(qkv, heads)` takes the (B, N, 3C) output of the qkv
 projection as it is and returns the (B, N, C) context. It is a
-`torch.autograd.Function` that saves only qkv, as the JAX custom_vjp does;
+`torch.autograd.Function` that saves qkv, as the JAX custom_vjp does (and,
+on K4's bf16 route, the context and its log-sum-exp for K4's backward);
 its backward is `packed_attention_backward`, which writes dqkv straight in
 the packed layout. Both wrappers:
   * CPU tensor  -> the plain version (`packed_attention_reference`,
@@ -194,15 +195,17 @@ def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) ->
     return device
 
 
-def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def _forward(qkv: torch.Tensor, heads: int, with_lse: bool):
+    """(context, lse): lse is K4's row log-sum-exp where `with_lse` asks for
+    it and the shape routes to K4 in bf16 on the card, else None."""
     plain = kernels.use_plain(qkv, "packed_attention")
     if plain and not qkv.is_cuda:
-        return packed_attention_reference(qkv, heads)
+        return packed_attention_reference(qkv, heads), None
     B, N, C3 = qkv.shape
     if _route(N, C3 // 3 // heads, qkv.dtype, False, _device_index(qkv)) == "K4":
-        return tiled_forward(qkv, heads)
+        return tiled_forward(qkv, heads, with_lse)
     if plain:
-        return packed_attention_reference(qkv, heads)
+        return packed_attention_reference(qkv, heads), None
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
                                     "packed_attention")
@@ -218,13 +221,17 @@ def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             f"at qkv {tuple(qkv.shape)} {qkv.dtype}"
         )
     packed_attention.launches += 1
-    return out
+    return out, None
 
 
-def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
-                              heads: int) -> torch.Tensor:
+def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                              out: torch.Tensor | None = None,
+                              lse: torch.Tensor | None = None) -> torch.Tensor:
     """dqkv (B, N, 3C) of `packed_attention` from qkv and the context's
-    gradient dout (B, N, C), both of one dtype; dout is made contiguous."""
+    gradient dout (B, N, C), both of one dtype; dout is made contiguous.
+    `out` and `lse`, the forward's context and K4's log-sum-exp, are read
+    where the backward routes to K4 (which makes them when absent) and
+    ignored by K1."""
     _check(qkv, heads)
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
@@ -241,7 +248,7 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
     if plain and not qkv.is_cuda:
         return packed_attention_bwd_reference(qkv, dout, heads)
     if _route(N, C3 // 3 // heads, qkv.dtype, True, _device_index(qkv)) == "K4":
-        return tiled_attention_backward(qkv, dout, heads)
+        return tiled_attention_backward(qkv, dout, heads, out, lse)
     if plain:
         return packed_attention_bwd_reference(qkv, dout, heads)
     dout = dout.contiguous()
@@ -268,18 +275,20 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
 
 class _PackedAttention(torch.autograd.Function):
     """K1 or K4 forward, with K1 or K4 backward as its gradient, each routed
-    by the shape; saves only qkv."""
+    by the shape; saves qkv, and on K4's bf16 route also the context and
+    its lse, which K4's backward reads instead of rebuilding them."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
         ctx.heads = heads
-        ctx.save_for_backward(qkv)
-        return _forward(qkv, heads)
+        out, lse = _forward(qkv, heads, ctx.needs_input_grad[0])
+        ctx.save_for_backward(*((qkv,) if lse is None else (qkv, out, lse)))
+        return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        (qkv,) = ctx.saved_tensors
-        return packed_attention_backward(qkv, grad, ctx.heads), None
+        qkv, *residuals = ctx.saved_tensors
+        return packed_attention_backward(qkv, grad, ctx.heads, *residuals), None
 
 
 def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:

@@ -3,23 +3,39 @@ and their plain versions.
 
 Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_tiled.py (`tiled_attention`, a
-`jax.custom_vjp` whose backward recomputes the scores). The CUDA source,
-with its design and what bounds it on the card, is csrc/tiled_attention.cu:
-K and V stream through shared memory in tiles of 64 keys, so no shape is
-bounded by N; bf16 runs its products on the tensor cores, float32 on the CUDA
-cores; head widths d in {32, 64, 128}.
+`jax.custom_vjp` whose backward recomputes the scores). Two CUDA sources,
+each with its design and what bounds it on the card; head widths d in
+{32, 64, 128}, no shape bounded by N:
+  * bf16, csrc/tiled_attention_sm90.cu: a one-sweep forward (online softmax,
+    wgmma fed by a TMA ring of K/V tiles) that can also write the row
+    log-sum-exp `lse`, and a backward of two kernels (dQ, then dK/dV) that
+    takes the forward's output and `lse` instead of rebuilding the softmax
+    statistics; no atomics.
+  * float32, csrc/tiled_attention.cu: CUDA cores, two sweeps (exact
+    softmax) and a two-pass recompute backward; it carries the f32 parity
+    checks.
 
 `tiled_attention(qkv, heads)` has K1's contract (ops/kernels/attention.py):
 the (B, N, 3C) qkv-major projection in, the h-major (B, N, C) context out;
-it is a `torch.autograd.Function` that saves only qkv, whose backward is
-`tiled_attention_backward`. `packed_attention` routes a shape here wherever
-K1's shared memory does not fit the card (`attention_route`), forward and
+it is a `torch.autograd.Function` whose backward is
+`tiled_attention_backward`. In bf16 on the card, where qkv needs a
+gradient, it saves (qkv, out, lse); otherwise only qkv, and serving (no
+gradient) writes no lse. `packed_attention` routes a shape here wherever K1's
+shared memory does not fit the card (`attention_route`), forward and
 backward each on its own. Both wrappers take the plain version for a CPU
 tensor and launch the kernel, or raise, for a CUDA tensor.
 
-The plain versions follow the TPU kernels line by line and, like them, take
-the query rows in chunks, so that no (B, heads, N, N) score tensor is ever
-built: at (64, 2304, 1152) it would hold 8 GB.
+Two pairs of plain versions, both chunked over query rows so that no
+(B, heads, N, N) score tensor is ever built (at (64, 2304, 1152) it would
+hold 8 GB):
+  * `tiled_attention_reference` / `tiled_attention_bwd_reference` follow
+    the TPU kernels line by line; the wrappers' CPU path and every gate use
+    them.
+  * `tiled_attention_online_reference` / `tiled_attention_online_bwd_reference`
+    follow the bf16 kernels' arithmetic order (online softmax over 128-key
+    tiles, P rounded relative to the running max; D = rowsum(dO * O) and
+    P = exp(S * scale - lse) in the backward). Only tests and chip_smoke.py
+    use them, to show how far the kernels' order moves from the TPU's.
 """
 
 from __future__ import annotations
@@ -35,6 +51,8 @@ __all__ = [
     "tiled_attention_reference",
     "tiled_attention_backward",
     "tiled_attention_bwd_reference",
+    "tiled_attention_online_reference",
+    "tiled_attention_online_bwd_reference",
     "attention_route",
     "max_shared_memory",
 ]
@@ -44,6 +62,9 @@ HEAD_DIMS = (32, 64, 128)
 # Query rows per chunk of the plain versions: (B, heads, 256, N) f32 scores,
 # 0.9 GB at (64, 2304, 1152).
 PLAIN_CHUNK = 256
+# Keys per tile of the bf16 forward kernel (its online softmax's step).
+KEY_TILE = 128
+LOG2E = 1.4426950408889634
 
 
 def attention_route(k1_bytes: int, limit: int) -> str:
@@ -111,18 +132,97 @@ def tiled_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: 
     return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3)
 
 
+def _heads_d(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, C) -> f32 (B, N, heads, d)."""
+    B, N, C = t.shape
+    return t.float().reshape(B, N, heads, C // heads)
+
+
+def tiled_attention_online_reference(qkv: torch.Tensor, heads: int, chunk: int = PLAIN_CHUNK,
+                                     key_tile: int = KEY_TILE):
+    """Plain forward in the bf16 kernel's order: per chunk of query rows,
+    one sweep over tiles of `key_tile` keys with the running max m (raw
+    scores) and sum l; p = 2^(s * scale * log2 e - m * scale * log2 e),
+    rounded to qkv's dtype before P.V, o and l rescaled by
+    2^((m_old - m) * scale * log2 e) when m grows; out = round(o / l) and
+    lse = m * scale + log l. Returns (out (B, N, C) in qkv's dtype, lse
+    (B, heads, N) f32)."""
+    B, N, C3 = qkv.shape
+    q, k, v, d, scale = _heads_split(qkv, heads)
+    sl2 = scale * LOG2E
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
+    for n0 in range(0, N, chunk):
+        qc = q[:, n0:n0 + chunk].float()
+        n = qc.shape[1]
+        m = torch.full((B, heads, n, 1), -torch.inf, device=qkv.device)
+        l = torch.zeros((B, heads, n, 1), device=qkv.device)
+        o = torch.zeros((B, heads, n, d), device=qkv.device)
+        for k0 in range(0, N, key_tile):
+            s = torch.einsum("bnhd,bmhd->bhnm", qc, k[:, k0:k0 + key_tile])
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * sl2)
+            p = torch.exp2(s * sl2 - m_new * sl2)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            o = o * corr + torch.einsum("bhnm,bmhd->bhnd", p.to(qkv.dtype).float(),
+                                        v[:, k0:k0 + key_tile])
+            m = m_new
+        out[:, n0:n0 + chunk] = (o / l).permute(0, 2, 1, 3).reshape(B, n, -1).to(qkv.dtype)
+        lse[:, :, n0:n0 + chunk] = (m * scale + torch.log(l))[..., 0]
+    return out, lse
+
+
+def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                                         out: torch.Tensor | None = None,
+                                         lse: torch.Tensor | None = None,
+                                         chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """Plain backward in the bf16 kernels' order, from the forward's `out`
+    and `lse` (made by `tiled_attention_online_reference` when either is
+    None): D = rowsum(dO * O) over the rounded O; per chunk of query rows
+    P = 2^(S * scale * log2 e - lse * log2 e), dP = dO V^T,
+    dS = round(P * (dP - D) * scale); dQ = dS K, dK += dS^T Q and
+    dV += round(P)^T dO in f32. Returns dqkv (B, N, 3C) in qkv's dtype."""
+    if out is None or lse is None:
+        out, lse = tiled_attention_online_reference(qkv, heads, chunk)
+    B, N, C3 = qkv.shape
+    q, k, v, d, scale = _heads_split(qkv, heads)
+    sl2 = scale * LOG2E
+    do = _heads_d(dout, heads)
+    dsum = (do * _heads_d(out, heads)).sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, H, N, 1)
+    rnd = lambda t: t.to(qkv.dtype).float()
+    dq = torch.empty((B, N, heads, d), dtype=torch.float32, device=qkv.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for n0 in range(0, N, chunk):
+        qc = q[:, n0:n0 + chunk].float()
+        doc = do[:, n0:n0 + chunk]
+        s = torch.einsum("bnhd,bmhd->bhnm", qc, k)
+        p = torch.exp2(s * sl2 - lse[:, :, n0:n0 + chunk, None] * LOG2E)
+        dp = torch.einsum("bnhd,bmhd->bhnm", doc, v)
+        ds = rnd(p * (dp - dsum[:, :, n0:n0 + chunk]) * scale)
+        dq[:, n0:n0 + chunk] = torch.einsum("bhnm,bmhd->bnhd", ds, k)
+        dk += torch.einsum("bhnm,bnhd->bmhd", ds, qc)
+        dv += torch.einsum("bhnm,bnhd->bmhd", rnd(p), doc)
+    dq, dk, dv = (t.to(qkv.dtype) for t in (dq, dk, dv))
+    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3)
+
+
 def _lib() -> ctypes.CDLL:
     from probpose_pytorch_tpu_torch.ops.kernels._build import library
 
     lib = library()
     if not getattr(lib, "_tiled_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
-        lib.tiled_attention_fwd.restype = i32
-        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-        lib.tiled_attention_bwd.restype = i32
-        lib.tiled_attention_smem_bytes.argtypes = [i32] * 3
-        lib.tiled_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
+        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.tiled_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.tiled_attention_sm90_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        for name in ("tiled_attention_fwd", "tiled_attention_bwd", "tiled_attention_sm90_fwd",
+                     "tiled_attention_sm90_bwd"):
+            getattr(lib, name).restype = i32
+        for name in ("tiled_attention_smem_bytes", "tiled_attention_sm90_smem_bytes"):
+            getattr(lib, name).argtypes = [i32] * 2
+            getattr(lib, name).restype = ctypes.c_longlong
         lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
         lib.packed_attention_max_smem.restype = i32
         lib._tiled_bound = True
@@ -158,6 +258,15 @@ def _check(qkv: torch.Tensor, heads: int, layout: str, what: str) -> None:
         raise ValueError(f"{what}: empty qkv {tuple(qkv.shape)}")
 
 
+def _smem_need(d: int, dtype: torch.dtype, backward: bool) -> int:
+    """Shared memory per block of K4's largest kernel for (d, dtype)."""
+    lib = _lib()
+    if dtype == torch.float32:
+        return lib.tiled_attention_smem_bytes(d, int(backward))
+    passes = (0, 1, 2) if backward else (0,)  # the backward may run the forward
+    return max(lib.tiled_attention_sm90_smem_bytes(d, p) for p in passes)
+
+
 def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
     """CUDA device index of qkv, after checking that K4 takes its head
     width, that its shared memory fits the card and that qkv is 16-byte
@@ -169,7 +278,7 @@ def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
     if B > 65535:
         raise ValueError(f"{what}: batch {B} exceeds the grid's 65535")
     device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
-    need = _lib().tiled_attention_smem_bytes(d, DTYPES[qkv.dtype], int(backward))
+    need = _smem_need(d, qkv.dtype, backward)
     limit = max_shared_memory(device)
     if need > limit:
         raise ValueError(f"{what}: d={d} ({qkv.dtype}) needs {need} bytes of shared "
@@ -179,28 +288,52 @@ def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
     return device
 
 
-def tiled_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """K4 forward on a checked qkv: the plain version for a CPU tensor (or
-    under `plain_versions()`), else one kernel launch."""
-    if kernels.use_plain(qkv, "tiled_attention"):
-        return tiled_attention_reference(qkv, heads)
-    device = _device(qkv, heads, False, "tiled_attention")
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
+    """One forward launch: (out, lse), lse None unless asked for (bf16)."""
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _lib().tiled_attention_fwd(
-        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, DTYPES[qkv.dtype], device,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    lse = None
+    if qkv.dtype == torch.bfloat16:
+        if with_lse:
+            lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
+        err = _lib().tiled_attention_sm90_fwd(
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
+            B, N, C3 // 3, heads, device, _stream(qkv))
+    else:
+        err = _lib().tiled_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads,
+                                         device, _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
+    return out, lse
+
+
+def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
+    """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
+    tensor (or under `plain_versions()`), else one kernel launch; lse, the
+    (B, heads, N) f32 row log-sum-exp, only for bf16 on the card with
+    `with_lse`, else None."""
+    if kernels.use_plain(qkv, "tiled_attention"):
+        return tiled_attention_reference(qkv, heads), None
+    device = _device(qkv, heads, False, "tiled_attention")
+    out, lse = _launch_fwd(qkv, heads, device, with_lse)
     tiled_attention.launches += 1
-    return out
+    return out, lse
 
 
-def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int) -> torch.Tensor:
+def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
+                             out: torch.Tensor | None = None,
+                             lse: torch.Tensor | None = None) -> torch.Tensor:
     """dqkv (B, N, 3C) of `tiled_attention` from qkv and the context's
-    gradient dout (B, N, C), both of one dtype; dout is made contiguous."""
+    gradient dout (B, N, C), both of one dtype; dout is made contiguous. In
+    bf16 on the card the backward reads the forward's context `out` and
+    `lse`; where either is None, it runs the forward kernel first to make
+    them, counted in `tiled_attention_backward.recomputes` and not as a
+    forward launch. The CPU path and float32 ignore them."""
     _check(qkv, heads, "qkv_major", "tiled_attention_backward")
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
@@ -216,12 +349,24 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int) 
     if dout.data_ptr() % 16:
         raise ValueError("tiled_attention_backward: dout must be 16-byte aligned")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
-    err = _lib().tiled_attention_bwd(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        B, N, C3 // 3, heads, DTYPES[qkv.dtype], device,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    if qkv.dtype == torch.bfloat16:
+        if out is None or lse is None:
+            out, lse = _launch_fwd(qkv, heads, device, with_lse=True)
+            tiled_attention_backward.recomputes += 1
+        if out.shape != dout.shape or out.dtype != qkv.dtype or not out.is_contiguous() \
+                or lse.shape != (B, heads, N) or lse.dtype != torch.float32 \
+                or not lse.is_contiguous():
+            raise ValueError("tiled_attention_backward: out must be the forward's contiguous "
+                             f"(B, N, C) context and lse its ({B}, {heads}, {N}) f32 lse")
+        dsum = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
+        err = _lib().tiled_attention_sm90_bwd(
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+            dqkv.data_ptr(), B, N, C3 // 3, heads, device, _stream(qkv))
+    else:
+        stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
+        err = _lib().tiled_attention_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, N, C3 // 3, heads, device, _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention_backward: kernel launch failed with cudaError "
                            f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -230,18 +375,20 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int) 
 
 
 class _TiledAttention(torch.autograd.Function):
-    """K4 forward, with K4 backward as its gradient; saves only qkv."""
+    """K4 forward, with K4 backward as its gradient; saves (qkv, out, lse)
+    where the forward made lse (bf16 on the card), else only qkv."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
         ctx.heads = heads
-        ctx.save_for_backward(qkv)
-        return tiled_forward(qkv, heads)
+        out, lse = tiled_forward(qkv, heads, with_lse=ctx.needs_input_grad[0])
+        ctx.save_for_backward(*((qkv,) if lse is None else (qkv, out, lse)))
+        return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        (qkv,) = ctx.saved_tensors
-        return tiled_attention_backward(qkv, grad, ctx.heads), None
+        qkv, *residuals = ctx.saved_tensors
+        return tiled_attention_backward(qkv, grad, ctx.heads, *residuals), None
 
 
 def tiled_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> torch.Tensor:
@@ -253,3 +400,4 @@ def tiled_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") ->
 
 tiled_attention.launches = 0
 tiled_attention_backward.launches = 0
+tiled_attention_backward.recomputes = 0

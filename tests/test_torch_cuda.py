@@ -35,7 +35,9 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     tiled_attention,
     tiled_attention_backward,
     tiled_attention_bwd_reference,
+    tiled_attention_online_reference,
     tiled_attention_reference,
+    tiled_forward,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
@@ -448,6 +450,12 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
     (3, 77, 2, 32, torch.bfloat16),
     (2, 130, 2, 128, torch.bfloat16),
     (2, 130, 2, 128, torch.float32),
+    (2, 129, 2, 32, torch.bfloat16),    # one key past a 128-key tile
+    (2, 129, 2, 64, torch.bfloat16),
+    (2, 129, 2, 128, torch.bfloat16),
+    (3, 1, 2, 32, torch.bfloat16),      # a single token
+    (3, 1, 2, 64, torch.bfloat16),
+    (3, 1, 2, 128, torch.bfloat16),
 ])
 def test_tiled_attention_kernels(cuda_device, B, N, heads, d, dtype):
     """K4 forward and backward against their plain versions; the backward
@@ -466,6 +474,49 @@ def test_tiled_attention_kernels(cuda_device, B, N, heads, d, dtype):
     dref = tiled_attention_bwd_reference(qkv, dout, heads)
     assert max_err(dqkv, dref) <= bound(dref)
     assert torch.equal(dqkv, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d", [(2304, 64), (1000, 128), (129, 32)])
+def test_tiled_attention_backward_with_saved_residuals(cuda_device, N, d):
+    """bf16: the forward's lse matches the kernel-order plain version, and
+    the backward from the saved (out, lse) gives the same bits as the one
+    that makes them itself."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    heads = 384 // d
+    qkv = torch.randn(2, N, 3 * heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    dout = torch.randn(2, N, heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    out, lse = tiled_forward(qkv, heads, with_lse=True)
+    assert lse.shape == (2, heads, N) and lse.dtype == torch.float32
+    assert torch.equal(out, tiled_forward(qkv, heads)[0])  # lse changes nothing of out
+    _, lse_ref = tiled_attention_online_reference(qkv, heads)
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+    saved = tiled_attention_backward(qkv, dout, heads, out, lse)
+    assert torch.equal(saved, tiled_attention_backward(qkv, dout, heads))
+
+
+@pytest.mark.cuda
+def test_packed_attention_k4_route_saves_lse(cuda_device):
+    """On K4's bf16 route the autograd Function saves (qkv, out, lse), and
+    one forward and one backward kernel run per call: the backward reads
+    the saved residuals and runs no forward of its own, which a call
+    without them does."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    qkv = torch.randn(2, 2304, 1152, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(2, 2304, 384, generator=g, device=cuda_device).to(torch.bfloat16)
+    x = qkv.clone().requires_grad_(True)
+    f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
+    r0 = tiled_attention_backward.recomputes
+    y = packed_attention(x, 6)
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 3 and saved[1] is not None and saved[2].shape == (2, 6, 2304)
+    assert torch.equal(saved[1], y)
+    (grad,) = torch.autograd.grad((y.float() * w.float()).sum(), x)
+    torch.cuda.synchronize()
+    assert (tiled_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 1)
+    assert tiled_attention_backward.recomputes == r0
+    assert torch.equal(grad, tiled_attention_backward(qkv, w, 6))
+    assert tiled_attention_backward.recomputes == r0 + 1
 
 
 @pytest.mark.cuda

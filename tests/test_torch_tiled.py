@@ -27,6 +27,8 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     tiled_attention,
     tiled_attention_backward,
     tiled_attention_bwd_reference,
+    tiled_attention_online_bwd_reference,
+    tiled_attention_online_reference,
     tiled_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
@@ -95,6 +97,81 @@ def test_tiled_plain_backward_matches_jax(shape, heads, bq, dtype):
                                         chunk=bq).float().numpy()
     tol = 1e-5 if dtype == torch.float32 else k1_bound(ref, dtype)  # as above
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+def test_tiled_online_forward_matches_jax(shape, heads, bq, dtype):
+    """The bf16 kernels' arithmetic order (one sweep, online softmax over
+    128-key tiles, P rounded against the running max) against the TPU
+    kernel: it must meet the same bound as the TPU-order plain version."""
+    qkv, _, jdt = _qkv(shape, 0, dtype)
+    ref = np.asarray(jax_tiled(jnp.asarray(qkv, jdt), heads, bq=bq, interpret=True)
+                     .astype(jnp.float32))
+    out, lse = tiled_attention_online_reference(_t(qkv).to(dtype), heads)
+    assert lse.shape == (shape[0], heads, shape[1]) and lse.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else k1_bound(ref, dtype)  # as above
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+def test_tiled_online_backward_matches_jax(shape, heads, bq, dtype):
+    """The backward in the kernels' order, from the forward's (out, lse) with
+    D = rowsum(dO * O), against jax.vjp of the TPU kernel."""
+    qkv, dout, jdt = _qkv(shape, 1, dtype)
+    _, vjp = jax.vjp(lambda x: jax_tiled(x, heads, bq, True), jnp.asarray(qkv, jdt))
+    (ref,) = vjp(jnp.asarray(dout, jdt))
+    ref = np.asarray(ref.astype(jnp.float32))
+    x, g = _t(qkv).to(dtype), _t(dout).to(dtype)
+    out, lse = tiled_attention_online_reference(x, heads)
+    got = tiled_attention_online_bwd_reference(x, g, heads, out, lse)
+    tol = 1e-5 if dtype == torch.float32 else k1_bound(ref, dtype)  # as above
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=tol)
+
+
+def test_tiled_online_backward_recomputes_its_residuals():
+    """Without (out, lse) the kernel-order backward makes them itself and
+    gives the same bits as with them passed."""
+    qkv, dout, _ = _qkv((2, 200, 384), 3, torch.bfloat16)
+    x, g = _t(qkv).to(torch.bfloat16), _t(dout).to(torch.bfloat16)
+    out, lse = tiled_attention_online_reference(x, 2)
+    passed = tiled_attention_online_bwd_reference(x, g, 2, out, lse)
+    torch.testing.assert_close(tiled_attention_online_bwd_reference(x, g, 2), passed,
+                               rtol=0, atol=0)
+
+
+SLICE_TOL = 2 * 2**-8  # chip_smoke.py:ONLINE_REL_TOL
+
+
+def _slice_rel(got: torch.Tensor, ref: torch.Tensor) -> list[float]:
+    """||got - ref|| / ||ref|| per dq, dk, dv slice of a packed dqkv, as
+    chip_smoke.py:rel_gate takes it."""
+    return [((a - b).norm() / b.norm()).item()
+            for a, b in zip(got.float().chunk(3, -1), ref.float().chunk(3, -1))]
+
+
+@pytest.mark.parametrize("wrong_d", ["none", "zero", "next_row", "next_head"])
+def test_k4_slice_gate_separates_a_wrong_d_from_another_order(wrong_d):
+    """The card's per-slice gate of K4's backward against the kernel-order
+    plain version, at the 768 x 768 path's N = 2304, d = 64, bf16: the
+    TPU-order plain version (another summation order, D from the unrounded
+    P) stays under a quarter of the bound; a D = rowsum(dO * O) dropped or
+    read from the next row or head moves the dQ slice past 8x the bound.
+    D enters only through O, so a wrong O stands for a wrong D."""
+    g = torch.Generator().manual_seed(5)
+    qkv = torch.randn(1, 2304, 1152, generator=g).to(torch.bfloat16)
+    dout = torch.randn(1, 2304, 384, generator=g).to(torch.bfloat16)
+    out, lse = tiled_attention_online_reference(qkv, 6)
+    ref = tiled_attention_online_bwd_reference(qkv, dout, 6, out, lse)
+    if wrong_d == "none":
+        rel = _slice_rel(tiled_attention_bwd_reference(qkv, dout, 6), ref)
+        assert max(rel) <= SLICE_TOL / 4, rel
+        return
+    bad_out = {"zero": torch.zeros_like(out), "next_row": out.roll(1, dims=1),
+               "next_head": out.roll(64, dims=2)}[wrong_d]
+    rel = _slice_rel(tiled_attention_online_bwd_reference(qkv, dout, 6, bad_out, lse), ref)
+    assert rel[0] > 8 * SLICE_TOL and rel[1] > SLICE_TOL, rel  # dQ, dK; dV has no D
 
 
 def test_tiled_attention_cpu_wrapper_is_plain_and_differentiable():
