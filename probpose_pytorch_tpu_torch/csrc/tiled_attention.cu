@@ -1,20 +1,25 @@
-// Kernel K4 in float32: row-tiled multi-head attention for long sequences,
-// its forward and its recompute backward, read straight from the packed qkv,
-// on the CUDA cores. (bf16, the path every model runs, is the wgmma + TMA
-// design of csrc/tiled_attention_sm90.cu.)
+// Kernel K4 on the CUDA cores: row-tiled multi-head attention for long
+// sequences, its forward and its recompute backward, read straight from the
+// packed qkv, in float32 (d in {32, 64, 80, 128}) and in bf16 at the head
+// width the wgmma kernels do not take, d = 80 (the vit-h preset past K1's
+// shared memory). (bf16 with d in {32, 64, 128}, the path every shipped
+// model runs, is the wgmma + TMA design of csrc/tiled_attention_sm90.cu.)
 //
 // Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/attention_tiled.py, reached through
 // `_tiled_fwd` / `_tiled_bwd` under the custom_vjp `tiled_attention`), which
 // the JAX package's `packed_attention` takes wherever the packed kernel's
 // (N, N) scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304). Here
-// it carries the float32 parity checks against the plain versions.
+// it carries the float32 parity checks against the plain versions, and
+// vit-h's bf16 attention past N = 645.
 //
 // What it computes, per (batch b, head h), as K1 does (csrc/packed_attention.cu):
 //   ctx[b, :, h*d:(h+1)*d] = softmax_f32(q k^T * scale) v
 // with q, k, v the column slices of the qkv-major (B, N, 3C) projection and
 // the context written h-major into (B, N, C). The softmax is exact over the
-// whole key axis: p = exp(s - max) / sum in f32.
+// whole key axis: p = exp(s - max) / sum in f32. bf16 inputs are widened to
+// f32 as they are staged; P and dS are rounded to bf16 before the products
+// that take them and every output once at its store, the TPU kernels' order.
 //
 // Design. K and V are streamed through shared memory in tiles of 64 keys,
 // so nothing is bounded by N. A block owns 64 query rows of one (b, h), one
@@ -35,15 +40,37 @@
 //   pass 2 (key tiles): streams Q, dO and their (m, l, dsum) to form P^T
 //          and dS^T, and accumulates dK and dV.
 // Products are fmaf on the CUDA cores, lanes over keys for the scores and
-// over d for the accumulating products.
+// over d for the accumulating products (d = 80: lanes 0-15 take a third
+// column each).
 //
 // Plain-C interface, loaded with ctypes (ops/kernels/attention_tiled.py).
 // Every entry point returns a cudaError_t as int (0 = success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and widened back: P and dS before the products taking them.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
 
 constexpr int kTile = 64;      // keys per sweep step (queries in pass 2)
 constexpr int kWarpRows = 16;  // rows of one warp's tile
@@ -79,15 +106,16 @@ struct Geo {
 };
 
 // Stage rows row0 .. row0 + rows - 1 (zero past N) of a D-column slice with
-// element row stride `stride` into shared memory with row stride Geo::ks.
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* src, size_t stride, int row0,
+// element row stride `stride` into shared memory, as f32 with row stride
+// Geo::ks.
+template <int D, typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, size_t stride, int row0,
                                       int rows, int N) {
   constexpr int ks = Geo<D>::ks;
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const int r = i / D;
     const int c = i - r * D;
-    dst[r * ks + c] = row0 + r < N ? src[(row0 + r) * stride + c] : 0.f;
+    dst[r * ks + c] = row0 + r < N ? to_float(src[(row0 + r) * stride + c]) : 0.f;
   }
 }
 
@@ -98,7 +126,13 @@ __device__ __forceinline__ void stage(float* dst, const float* src, size_t strid
 template <int D>
 struct Mma {
   using G = Geo<D>;
-  static constexpr int kCols = D / 32;  // output columns per lane
+  static constexpr int kCols = (D + 31) / 32;  // output columns per lane
+
+  // Whether this lane owns output column lane + 32 t (all but the last
+  // third at D = 80).
+  static __device__ __forceinline__ bool owns(int lane, int t) {
+    return D % 32 == 0 || lane + 32 * t < D;
+  }
 
   static __device__ __forceinline__ void abt(const float* a, const float* b, float* out) {
     const int lane = threadIdx.x % 32;
@@ -137,7 +171,8 @@ struct Mma {
       for (int j = 0; j < kTile; ++j) {
         float bv[kCols];
 #pragma unroll
-        for (int t = 0; t < kCols; ++t) bv[t] = b[j * G::ks + lane + 32 * t];
+        for (int t = 0; t < kCols; ++t)
+          bv[t] = owns(lane, t) ? b[j * G::ks + lane + 32 * t] : 0.f;
 #pragma unroll
         for (int i = 0; i < kWarpRows; ++i) {
           const float x = p[i * G::ps + j];
@@ -147,13 +182,15 @@ struct Mma {
       }
     }
 
-    __device__ __forceinline__ void store(float*, float* dst, size_t stride, int n0, int N) {
+    template <typename T>
+    __device__ __forceinline__ void store(T* dst, size_t stride, int n0, int N) {
       const int lane = threadIdx.x % 32;
 #pragma unroll
       for (int i = 0; i < kWarpRows; ++i)
         if (n0 + i < N)
 #pragma unroll
-          for (int t = 0; t < kCols; ++t) dst[(n0 + i) * stride + lane + 32 * t] = a[i][t];
+          for (int t = 0; t < kCols; ++t)
+            if (owns(lane, t)) dst[(n0 + i) * stride + lane + 32 * t] = from_float<T>(a[i][t]);
       __syncwarp();
     }
   };
@@ -161,9 +198,9 @@ struct Mma {
 
 // ----------------------------------------------------------------- forward
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
-    tiled_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int C,
+    tiled_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
                      float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
@@ -179,7 +216,7 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
   stage<D>(q_s, base, C3, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
@@ -235,22 +272,22 @@ __global__ void __launch_bounds__(Geo<D>::threads)
       const float p0 = in0 ? expf(s_w[i * G::ss + lane] * scale - m[i]) / l[i] : 0.f;
       const float p1 = in1 ? expf(s_w[i * G::ss + lane + 32] * scale - m[i]) / l[i] : 0.f;
       __syncwarp();  // all of S row i is read before any lane overwrites it
-      p_w[i * G::ps + lane] = p0;
-      p_w[i * G::ps + lane + 32] = p1;
+      p_w[i * G::ps + lane] = round_to<T>(p0);
+      p_w[i * G::ps + lane + 32] = round_to<T>(p1);
     }
     __syncwarp();
     o.add(p_w, v_s);
     __syncwarp();
   }
-  if (active) o.store(s_w, out + static_cast<size_t>(b) * N * C + h * D, C, row0 + r0, N);
+  if (active) o.store(out + static_cast<size_t>(b) * N * C + h * D, C, row0 + r0, N);
 }
 
 // --------------------------------------------------------- backward, pass 1
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
-    tiled_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                        float* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
+    tiled_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                        T* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
                         int H, float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
@@ -267,9 +304,9 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
-  const float* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  float* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
   stage<D>(q_s, base, C3, row0, G::rows, N);
   stage<D>(o_s, obase, C, row0, G::rows, N);
 
@@ -352,22 +389,22 @@ __global__ void __launch_bounds__(Geo<D>::threads)
       const float g0 = p0 * (dp_w[i * G::ss + lane] - u[i]) * scale;
       const float g1 = p1 * (dp_w[i * G::ss + lane + 32] - u[i]) * scale;
       __syncwarp();  // all of dP row i is read before any lane overwrites it
-      ds_w[i * G::ps + lane] = g0;
-      ds_w[i * G::ps + lane + 32] = g1;
+      ds_w[i * G::ps + lane] = round_to<T>(g0);
+      ds_w[i * G::ps + lane + 32] = round_to<T>(g1);
     }
     __syncwarp();
     dq.add(ds_w, k_s);
     __syncwarp();
   }
-  if (active) dq.store(s_w, gbase, C3, row0 + r0, N);
+  if (active) dq.store(gbase, C3, row0 + r0, N);
 }
 
 // --------------------------------------------------------- backward, pass 2
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
-    tiled_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                         float* __restrict__ dqkv, const float* __restrict__ stats, int N,
+    tiled_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                         T* __restrict__ dqkv, const float* __restrict__ stats, int N,
                          int C, int H, float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
@@ -387,9 +424,9 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;  // first key row
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const float* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
-  const float* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  float* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
   stage<D>(k_s, base + C, C3, row0, G::rows, N);
   stage<D>(v_s, base + 2 * C, C3, row0, G::rows, N);
 
@@ -434,10 +471,10 @@ __global__ void __launch_bounds__(Geo<D>::threads)
       const float g0 = p0 * (b_w[j * G::ss + lane] - d0) * scale;
       const float g1 = p1 * (b_w[j * G::ss + lane + 32] - d1) * scale;
       __syncwarp();  // row j of both tiles is read before it is overwritten
-      pb_w[j * G::ps + lane] = p0;
-      pb_w[j * G::ps + lane + 32] = p1;
-      ds_w[j * G::ps + lane] = g0;
-      ds_w[j * G::ps + lane + 32] = g1;
+      pb_w[j * G::ps + lane] = round_to<T>(p0);
+      pb_w[j * G::ps + lane + 32] = round_to<T>(p1);
+      ds_w[j * G::ps + lane] = round_to<T>(g0);
+      ds_w[j * G::ps + lane + 32] = round_to<T>(g1);
     }
     __syncwarp();
     dv.add(pb_w, o_s);  // dV += round(P)^T dO
@@ -445,100 +482,114 @@ __global__ void __launch_bounds__(Geo<D>::threads)
     __syncwarp();
   }
   if (active) {
-    dv.store(a_w, gbase + 2 * C, C3, row0 + r0, N);
-    dk.store(a_w, gbase + C, C3, row0 + r0, N);
+    dv.store(gbase + 2 * C, C3, row0 + r0, N);
+    dk.store(gbase + C, C3, row0 + r0, N);
   }
 }
 
 // ------------------------------------------------------------------ launch
 
-template <int D>
+template <typename T, int D>
 int launch_fwd(const void* qkv, void* out, int B, int N, int C, int heads,
                cudaStream_t stream) {
   using G = Geo<D>;
-  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(tiled_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::fwd_smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + G::rows - 1) / G::rows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  tiled_fwd_kernel<D><<<grid, G::threads, G::fwd_smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), N, C, scale);
+  tiled_fwd_kernel<T, D><<<grid, G::threads, G::fwd_smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int B, int N,
                int C, int heads, cudaStream_t stream) {
   using G = Geo<D>;
-  cudaError_t err = cudaFuncSetAttribute(tiled_bwd_dq_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(tiled_bwd_dq_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::bwd_smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(tiled_bwd_dkv_kernel<D>,
+  err = cudaFuncSetAttribute(tiled_bwd_dkv_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(G::bwd_smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + G::rows - 1) / G::rows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  const float* q = static_cast<const float*>(qkv);
-  const float* o = static_cast<const float*>(dout);
-  float* g = static_cast<float*>(dqkv);
-  tiled_bwd_dq_kernel<D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N, C,
-                                                                       heads, scale);
+  const T* q = static_cast<const T*>(qkv);
+  const T* o = static_cast<const T*>(dout);
+  T* g = static_cast<T*>(dqkv);
+  tiled_bwd_dq_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N, C,
+                                                                          heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tiled_bwd_dkv_kernel<D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N,
-                                                                        C, heads, scale);
+  tiled_bwd_dkv_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N,
+                                                                           C, heads, scale);
   return cudaGetLastError();
 }
 
-long long smem_of(int d, int backward) {
-  switch (d) {
-    case 32: return static_cast<long long>(backward ? Geo<32>::bwd_smem : Geo<32>::fwd_smem);
-    case 64: return static_cast<long long>(backward ? Geo<64>::bwd_smem : Geo<64>::fwd_smem);
-    case 128: return static_cast<long long>(backward ? Geo<128>::bwd_smem : Geo<128>::fwd_smem);
-    default: return -1;
-  }
+template <int D>
+long long smem(int backward) {
+  return static_cast<long long>(backward ? Geo<D>::bwd_smem : Geo<D>::fwd_smem);
 }
 
 }  // namespace
 
-// Head widths d in {32, 64, 128}, float32 throughout (bf16 runs the wgmma
-// kernels of csrc/tiled_attention_sm90.cu).
+// Head widths: float32 (dtype 0) d in {32, 64, 80, 128}; bf16 (dtype 1)
+// d = 80 only (bf16 at d in {32, 64, 128} runs the wgmma kernels of
+// csrc/tiled_attention_sm90.cu). Shared memory holds f32 in both.
 
 // Shared memory of the forward (backward = 0) or of the larger backward
 // pass (backward = 1) at head width d; -1 for a d it does not take.
 extern "C" long long tiled_attention_smem_bytes(int d, int backward) {
-  return smem_of(d, backward);
+  switch (d) {
+    case 32: return smem<32>(backward);
+    case 64: return smem<64>(backward);
+    case 80: return smem<80>(backward);
+    case 128: return smem<128>(backward);
+    default: return -1;
+  }
 }
 
 // qkv (B, N, 3C) qkv-major in -> context (B, N, C) out.
 extern "C" int tiled_attention_fwd(const void* qkv, void* out, int B, int N, int C,
-                                   int heads, int device, void* stream) {
+                                   int heads, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / heads) {
-    case 32: return launch_fwd<32>(qkv, out, B, N, C, heads, s);
-    case 64: return launch_fwd<64>(qkv, out, B, N, C, heads, s);
-    case 128: return launch_fwd<128>(qkv, out, B, N, C, heads, s);
+  const int d = C / heads;
+  if (dtype == 1)
+    return d == 80 ? launch_fwd<__nv_bfloat16, 80>(qkv, out, B, N, C, heads, s)
+                   : cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_fwd<float, 32>(qkv, out, B, N, C, heads, s);
+    case 64: return launch_fwd<float, 64>(qkv, out, B, N, C, heads, s);
+    case 80: return launch_fwd<float, 80>(qkv, out, B, N, C, heads, s);
+    case 128: return launch_fwd<float, 128>(qkv, out, B, N, C, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out; stats is
-// (3, B, heads, N) scratch.
+// (3, B, heads, N) f32 scratch.
 extern "C" int tiled_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
-                                   int B, int N, int C, int heads, int device, void* stream) {
+                                   int B, int N, int C, int heads, int dtype, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  switch (C / heads) {
-    case 32: return launch_bwd<32>(qkv, dout, dqkv, st, B, N, C, heads, s);
-    case 64: return launch_bwd<64>(qkv, dout, dqkv, st, B, N, C, heads, s);
-    case 128: return launch_bwd<128>(qkv, dout, dqkv, st, B, N, C, heads, s);
+  const int d = C / heads;
+  if (dtype == 1)
+    return d == 80 ? launch_bwd<__nv_bfloat16, 80>(qkv, dout, dqkv, st, B, N, C, heads, s)
+                   : cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_bwd<float, 32>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 64: return launch_bwd<float, 64>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 80: return launch_bwd<float, 80>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 128: return launch_bwd<float, 128>(qkv, dout, dqkv, st, B, N, C, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,27 @@
-// Kernel K4 in bf16 for Hopper (sm_90a): row-tiled multi-head attention for
-// long sequences, its forward and its backward, read straight from the
-// packed qkv with TMA and multiplied with wgmma.
+// Multi-head attention in bf16 for Hopper (sm_90a), read straight from the
+// packed qkv with TMA and multiplied with wgmma: kernel K4 (row-tiled, long
+// sequences, forward and backward) and K1's bf16 forward for N <= 256 (the
+// ViT trunks' short sequences). K4's backward serves K1's bf16 shapes too.
 //
 // Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/attention_tiled.py:119-192), which the JAX
 // package's `packed_attention` takes wherever the packed kernel's (N, N)
-// scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304). The float32
-// path stays on the CUDA cores in csrc/tiled_attention.cu.
+// scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304), and, in
+// bf16 with d in {32, 64, 128}, `_packed_fwd_kernel` and `_packed_bwd_kernel`
+// (attention_kernel.py:120-191). The float32 path stays on the CUDA cores in
+// csrc/tiled_attention.cu and csrc/packed_attention.cu.
+//
+// Short-sequence forward (N <= 256, e.g. N = 192, d = 64): ~100 FLOP per
+// byte, under the ~295 FLOP/byte ridge, so it is bound by reading qkv and
+// writing the context, not by the products. A block is one warpgroup that
+// owns 64 query rows of one (b, h) (N = 192 fills three blocks with no
+// padded row); one TMA barrier brings its Q rows and the head's whole K and
+// V (56 KB at N = 192, d = 64), so three blocks share an SM and one block's
+// loads overlap another's math; the blocks of one head run side by side and
+// share its K and V through L2. S = Q K^T by wgmma m64n64k16 over the keys
+// padded to a multiple of 64 stays in registers, so the softmax is exact in
+// one pass; P is normalised and rounded to bf16 before P.V, the TPU kernel's
+// order, and fed as wgmma's register A operand.
 //
 // What it computes, per (batch b, head h), with q, k, v the column slices of
 // the qkv-major (B, N, 3C) projection and the context written h-major into
@@ -34,17 +49,22 @@
 // rather than the TPU's normalised P; the difference stays within the K1/K4
 // bound (plain twin: tiled_attention_online_reference).
 //
-// Backward, two kernels, seven products, no atomics (two runs give the same
-// bits):
+// Backward, two kernels, seven products (nine with the TPU's D below), no
+// atomics (two runs give the same bits):
 //   dQ kernel (128 query rows a block, K and V streamed in tiles of 64 keys):
-//     D = rowsum(dO * O) for its rows, kept in a (B, H, N) f32 buffer; per
-//     tile S = Q K^T, dP = dO V^T, P = exp(S * scale - lse),
-//     dS = round(P * (dP - D) * scale) in registers, dQ += dS K.
+//     D for its rows, kept in a (B, H, N) f32 buffer; per tile S = Q K^T,
+//     dP = dO V^T, P = exp(S * scale - lse), dS = round(P * (dP - D) *
+//     scale) in registers, dQ += dS K. D is rowsum(dP * P) over the
+//     unrounded P, the TPU's order, from a first sweep over the key tiles
+//     (S and dP only) at N <= 256 (`exact_d`), and rowsum(dO * O) past that.
 //   dK/dV kernel (128 keys a block, Q, dO and their lse / D streamed in tiles
 //     of 64 rows): S^T = K Q^T, dP^T = V dO^T, dV += round(P^T) dO,
 //     dK += dS^T Q; dK and dV stay in f32 registers and are written once.
 // D from dO * O is the FlashAttention identity; the TPU sums dP * P over the
-// unrounded P, so the two differ by the bf16 rounding of O, within the bound.
+// unrounded P, so the two differ by the bf16 rounding of O. That is within
+// the bound at N = 2304, but at N = 192 it moved K1's backward 2 bf16 ulps
+// from the TPU-order plain version on one of eight draws, so short
+// sequences pay the second sweep (two products a tile) for the TPU's D.
 //
 // Shared-memory tiles carry TMA's 128-byte swizzle (64-byte at d = 32), the
 // layout the wgmma descriptors name; d = 128 loads each tile as two 64-column
@@ -501,6 +521,143 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------- short-sequence forward
+
+// Keys of a head padded to 64 * NT (N <= 256). One block owns 64 query rows
+// of one (b, h) and is one warpgroup; its single TMA barrier brings its Q
+// rows and the head's whole K and V.
+template <int D, int NT>
+struct Short {
+  static constexpr int kKeys = 64 * NT;
+  static constexpr uint32_t kQ = Tile<D>::bytes(64);
+  static constexpr uint32_t kKV = Tile<D>::bytes(kKeys);
+  static constexpr uint32_t kBar = kQ + 2 * kKV;
+  static constexpr size_t kSmem = 1024 + kBar + 8;
+};
+
+// K1's forward for N <= 256 (packed_attention's "sm90 short" route), and
+// K6's: the score row of every query stays in registers, so the softmax is
+// exact and single-pass, and P is normalised and rounded to bf16 before
+// P.V, the TPU kernel's order (plain twin: packed_attention_reference).
+// Head h of q, k and v is columns col + h * D of their maps (K1: one packed
+// qkv, col 0, C, 2C; K6: three (B, N, heads, d) views, col 0). Writes the
+// row log-sum-exp when lse is not null.
+template <int D, int NT>
+__global__ void __launch_bounds__(128)
+    short_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // boxes of 64 rows
+                     const __grid_constant__ CUtensorMap k_map,  // boxes of 64 NT rows
+                     const __grid_constant__ CUtensorMap v_map,  // boxes of 64 NT rows
+                     int q_col, int k_col, int v_col, bf16* __restrict__ out,
+                     float* __restrict__ lse, int N, int C, int H, float scale) {
+  using L = Short<D, NT>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = aligned_base(smem);
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + L::kQ;
+  const uint32_t v_s = k_s + L::kKV;
+  const uint32_t bar = base + L::kBar;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = static_cast<int>(blockIdx.x) * 64;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, L::kQ + 2 * L::kKV);
+    tma_tile<D>(q_s, &q_map, bar, q_col + h * D, row0, b, 64);
+    tma_tile<D>(k_s, &k_map, bar, k_col + h * D, 0, b, L::kKeys);
+    tma_tile<D>(v_s, &v_map, bar, v_col + h * D, 0, b, L::kKeys);
+  }
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const float sl2 = scale * kLog2e;
+  mbar_wait(bar, 0);
+
+  float sc[NT][32];  // S = Q K^T, 64 rows x 64 keys per tile
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc[j], desc_k<D>(q_s, 64, 0, kk), desc_k<D>(k_s, L::kKeys, 64 * j, kk), kk);
+  wgmma_commit_wait();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) reg_fence(sc[j]);
+
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (64 * j + 8 * jn + 2 * t + c >= N) sc[j][4 * jn + c] = sc[j][4 * jn + 2 + c] = -INFINITY;
+        mx0 = fmaxf(mx0, sc[j][4 * jn + c]);
+        mx1 = fmaxf(mx1, sc[j][4 * jn + 2 + c]);
+      }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float b0 = mx0 * sl2, b1 = mx1 * sl2;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      sc[j][i] = exp2f(fmaf(sc[j][i], sl2, -b0));
+      sc[j][i + 1] = exp2f(fmaf(sc[j][i + 1], sl2, -b0));
+      sc[j][i + 2] = exp2f(fmaf(sc[j][i + 2], sl2, -b1));
+      sc[j][i + 3] = exp2f(fmaf(sc[j][i + 3], sl2, -b1));
+      l0 += sc[j][i] + sc[j][i + 1];
+      l1 += sc[j][i + 2] + sc[j][i + 3];
+    }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float r0 = 1.f / l0, r1 = 1.f / l1;
+  uint32_t pa[NT][16];  // round(P), the register A operand of P.V
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      pa[j][2 * jn] = pack_bf16(sc[j][4 * jn] * r0, sc[j][4 * jn + 1] * r0);
+      pa[j][2 * jn + 1] = pack_bf16(sc[j][4 * jn + 2] * r1, sc[j][4 * jn + 3] * r1);
+    }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Rs<D>::mma(o, &pa[j][4 * kk], desc_mn<D>(v_s, L::kKeys, 4 * j + kk));
+  wgmma_commit_wait();
+  reg_fence(o);
+
+  const int ra = row0 + (tid / 32) * 16 + g;
+  const int rb = ra + 8;
+  bf16* ob = out + static_cast<size_t>(b) * N * C + h * D + 2 * t;
+#pragma unroll
+  for (int jn = 0; jn < D / 8; ++jn) {
+    if (ra < N)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(ra) * C + 8 * jn) =
+          __floats2bfloat162_rn(o[4 * jn], o[4 * jn + 1]);
+    if (rb < N)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(rb) * C + 8 * jn) =
+          __floats2bfloat162_rn(o[4 * jn + 2], o[4 * jn + 3]);
+  }
+  if (lse != nullptr && t == 0) {
+    float* lp = lse + (static_cast<size_t>(b) * H + h) * N;
+    if (ra < N) lp[ra] = mx0 * scale + logf(l0);
+    if (rb < N) lp[rb] = mx1 * scale + logf(l1);
+  }
+}
+
 // --------------------------------------------------------- backward: dQ
 
 template <int D>
@@ -510,7 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const __grid_constant__ CUtensorMap do_map,  // dout, boxes of 128 rows
                   const bf16* __restrict__ out, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ dsum,
-                  bf16* __restrict__ dqkv, int N, int C, int H, float scale) {
+                  bf16* __restrict__ dqkv, int N, int C, int H, float scale, int exact_d) {
   using L = Dq<D>;
   extern __shared__ unsigned char smem[];
   const uint32_t base = aligned_base(smem);
@@ -545,14 +702,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(q_bar, 2 * L::kQ);
       tma_tile<D>(q_s, &q_map, q_bar, h * D, row0, b, kBlockRows);
       tma_tile<D>(do_s, &do_map, q_bar, h * D, row0, b, kBlockRows);
-      for (int j = 0; j < n_tiles; ++j) {
+      // exact_d: every K/V tile twice, once for D and once for dQ
+      const int n_loads = exact_d ? 2 * n_tiles : n_tiles;
+      for (int j = 0; j < n_loads; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
         const uint32_t k_s = kv_s + s * 2 * L::kKV;
+        const int key0 = (j % n_tiles) * kTileRows;
         mbar_expect_tx(full + 8 * s, 2 * L::kKV);
-        tma_tile<D>(k_s, &kv_map, full + 8 * s, C + h * D, j * kTileRows, b, kTileRows);
-        tma_tile<D>(k_s + L::kKV, &kv_map, full + 8 * s, 2 * C + h * D, j * kTileRows, b,
-                    kTileRows);
+        tma_tile<D>(k_s, &kv_map, full + 8 * s, C + h * D, key0, b, kTileRows);
+        tma_tile<D>(k_s + L::kKV, &kv_map, full + 8 * s, 2 * C + h * D, key0, b, kTileRows);
       }
     }
   } else {
@@ -562,13 +721,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = tid % 4;
     const float sl2 = scale * kLog2e;
 
-    // D = rowsum(dO * O) of this warpgroup's 64 rows, two threads a row.
+    // lse of this warpgroup's 64 rows and, unless exact_d, D = rowsum(dO * O),
+    // two threads a row.
     {
       const int r = wg * 64 + tid / 2;
       const int n = row0 + r;
       const int half = tid % 2;
       float acc = 0.f;
-      if (n < N) {
+      if (n < N && !exact_d) {
         const size_t off = (static_cast<size_t>(b) * N + n) * C + h * D + half * (D / 2);
 #pragma unroll
         for (int i = 0; i < D / 2; i += 8) {
@@ -590,22 +750,67 @@ __global__ void __launch_bounds__(kThreads, 1)
         const size_t at = (static_cast<size_t>(b) * H + h) * N + n;
         stat_d[r] = acc;
         stat_l[r] = n < N ? lse[at] * kLog2e : 0.f;
-        if (n < N) dsum[at] = acc;
+        if (n < N && !exact_d) dsum[at] = acc;
       }
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
     const int ra = wg * 64 + (tid / 32) * 16 + g;
     const float la = stat_l[ra], lb = stat_l[ra + 8];
-    const float da = stat_d[ra], db = stat_d[ra + 8];
+    float da = stat_d[ra], db = stat_d[ra + 8];
+    mbar_wait(q_bar, 0);
+
+    // exact_d: D = rowsum(dP * P) over the unrounded P, the TPU kernel's
+    // order, in a first sweep over the key tiles (S and dP, no dQ).
+    int j0 = 0;  // tiles taken from the ring so far
+    if (exact_d) {
+      float sa = 0.f, sb = 0.f;
+      for (; j0 < n_tiles; ++j0) {
+        const int s = j0 % kStages;
+        mbar_wait(full + 8 * s, (j0 / kStages) & 1);
+        const uint32_t k_s = kv_s + s * 2 * L::kKV;
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, desc_k<D>(q_s, kBlockRows, wg * 64, kk),
+                       desc_k<D>(k_s, kTileRows, 0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, desc_k<D>(do_s, kBlockRows, wg * 64, kk),
+                       desc_k<D>(k_s + L::kKV, kTileRows, 0, kk), kk);
+        wgmma_commit_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+        mbar_arrive(empty + 8 * s);
+        const int key0 = j0 * kTileRows;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (key0 + 8 * jn + 2 * t + c < N) {
+              sa = fmaf(exp2f(fmaf(sc[4 * jn + c], sl2, -la)), dp[4 * jn + c], sa);
+              sb = fmaf(exp2f(fmaf(sc[4 * jn + 2 + c], sl2, -lb)), dp[4 * jn + 2 + c], sb);
+            }
+      }
+      // the four threads of a row pair hold its columns 2 t, 2 t + 1 (mod 8)
+      sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+      sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+      sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+      sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+      da = sa;
+      db = sb;
+      const size_t at = (static_cast<size_t>(b) * H + h) * N + row0 + ra;
+      if (t == 0 && row0 + ra < N) dsum[at] = da;
+      if (t == 0 && row0 + ra + 8 < N) dsum[at + 8] = db;
+    }
 
     float dq[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-    mbar_wait(q_bar, 0);
 
     for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kStages;
-      mbar_wait(full + 8 * s, (j / kStages) & 1);
+      const int s = (j0 + j) % kStages;
+      mbar_wait(full + 8 * s, ((j0 + j) / kStages) & 1);
       const uint32_t k_s = kv_s + s * 2 * L::kKV;
       const uint32_t v_s = k_s + L::kKV;
 
@@ -839,16 +1044,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 3-D map over a (B, N, width) bf16 tensor, boxes of `rows` rows and
-// Tile<D>::kCols columns with the swizzle the wgmma descriptors expect.
+// 3-D map over `width` bf16 columns of N rows of B items, with element
+// strides `row` and `batch`, boxes of `rows` rows and Tile<D>::kCols columns
+// with the swizzle the wgmma descriptors expect.
 template <int D>
-int make_map(CUtensorMap* map, const void* ptr, int width, int N, int B, int rows) {
+int make_map(CUtensorMap* map, const void* ptr, int width, long long row, int N,
+             long long batch, int B, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
-                                 static_cast<cuuint64_t>(width) * 2 * N};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row) * 2,
+                                 static_cast<cuuint64_t>(batch) * 2};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tile<D>::kCols),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
@@ -858,6 +1065,12 @@ int make_map(CUtensorMap* map, const void* ptr, int width, int N, int B, int row
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same over a contiguous (B, N, width) tensor.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int width, int N, int B, int rows) {
+  return make_map<D>(map, ptr, width, width, N, static_cast<long long>(width) * N, B, rows);
 }
 
 template <typename Kernel>
@@ -879,9 +1092,54 @@ int launch_fwd(const void* qkv, void* out, float* lse, int B, int N, int C, int 
   return cudaGetLastError();
 }
 
+// q, k and v: (B, N, heads * D) bf16 column ranges with element strides
+// (batch, row) and unit stride along the columns; head h at column col + h D.
+struct ShortArgs {
+  const void *q, *k, *v;
+  int q_col, k_col, v_col, width;
+  long long batch, row;
+};
+
+template <int D, int NT>
+int launch_short(const ShortArgs& a, void* out, float* lse, int B, int N, int C, int H,
+                 cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  int err = make_map<D>(&q_map, a.q, a.width, a.row, N, a.batch, B, 64);
+  if (err == cudaSuccess) err = make_map<D>(&k_map, a.k, a.width, a.row, N, a.batch, B, 64 * NT);
+  if (err == cudaSuccess) err = make_map<D>(&v_map, a.v, a.width, a.row, N, a.batch, B, 64 * NT);
+  if (err == cudaSuccess) err = allow_smem(short_fwd_kernel<D, NT>, Short<D, NT>::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 63) / 64, H, B);
+  short_fwd_kernel<D, NT><<<grid, 128, Short<D, NT>::kSmem, stream>>>(
+      q_map, k_map, v_map, a.q_col, a.k_col, a.v_col, static_cast<bf16*>(out), lse, N, C, H,
+      1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+int launch_short_any(const ShortArgs& a, void* out, float* lse, int B, int N, int C, int H,
+                     cudaStream_t stream) {
+  const int nt = (N + 63) / 64;
+  if (N < 1 || nt > 4) return cudaErrorInvalidValue;
+#define PROBPOSE_SHORT(D)                                                    \
+  switch (nt) {                                                              \
+    case 1: return launch_short<D, 1>(a, out, lse, B, N, C, H, stream);      \
+    case 2: return launch_short<D, 2>(a, out, lse, B, N, C, H, stream);      \
+    case 3: return launch_short<D, 3>(a, out, lse, B, N, C, H, stream);      \
+    default: return launch_short<D, 4>(a, out, lse, B, N, C, H, stream);     \
+  }
+  switch (C / H) {
+    case 32: PROBPOSE_SHORT(32)
+    case 64: PROBPOSE_SHORT(64)
+    case 128: PROBPOSE_SHORT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef PROBPOSE_SHORT
+}
+
 template <int D>
 int launch_bwd(const void* qkv, const void* out, const void* dout, const float* lse,
-               float* dsum, void* dqkv, int B, int N, int C, int H, cudaStream_t stream) {
+               float* dsum, void* dqkv, int B, int N, int C, int H, int exact_d,
+               cudaStream_t stream) {
   CUtensorMap qkv128, qkv64, do128, do64;
   int err = make_map<D>(&qkv128, qkv, 3 * C, N, B, kBlockRows);
   if (err == cudaSuccess) err = make_map<D>(&qkv64, qkv, 3 * C, N, B, kTileRows);
@@ -895,7 +1153,7 @@ int launch_bwd(const void* qkv, const void* out, const void* dout, const float* 
   bf16* g = static_cast<bf16*>(dqkv);
   bwd_dq_kernel<D><<<grid, kThreads, Dq<D>::kSmem, stream>>>(
       qkv128, qkv64, do128, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
-      dsum, g, N, C, H, scale);
+      dsum, g, N, C, H, scale, exact_d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkv_kernel<D><<<grid, kThreads, Dkv<D>::kSmem, stream>>>(qkv128, qkv64, do64, lse, dsum,
@@ -916,6 +1174,47 @@ extern "C" long long tiled_attention_sm90_smem_bytes(int d, int pass) {
   }
 }
 
+// Shared memory of the short-sequence forward at head width d and N keys
+// (1 <= N <= 256); -1 for a shape it does not take.
+extern "C" long long short_attention_sm90_smem_bytes(int d, int N) {
+  if (N < 1 || N > 256) return -1;
+  const int nt = (N + 63) / 64;
+  switch (d) {
+    case 32: return Short<32, 1>::kSmem + (nt - 1) * 2 * Tile<32>::bytes(64);
+    case 64: return Short<64, 1>::kSmem + (nt - 1) * 2 * Tile<64>::bytes(64);
+    case 128: return Short<128, 1>::kSmem + (nt - 1) * 2 * Tile<128>::bytes(64);
+    default: return -1;
+  }
+}
+
+// Short-sequence forward, 1 <= N <= 256: bf16 qkv (B, N, 3C) qkv-major in ->
+// context (B, N, C) out and, unless lse is null, the row log-sum-exp
+// (B, heads, N) f32.
+extern "C" int short_attention_sm90_fwd(const void* qkv, void* out, void* lse, int B, int N,
+                                        int C, int heads, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long row = 3LL * C;
+  const ShortArgs a{qkv, qkv, qkv, 0, C, 2 * C, 3 * C, row * N, row};
+  return launch_short_any(a, out, static_cast<float*>(lse), B, N, C, heads,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Kernel K6 on the same kernel, 1 <= N <= 256: q, k and v (B, N, heads, d)
+// bf16 views sharing the element strides (batch, row), head stride d and unit
+// stride along d (e.g. the q, k, v views of one packed projection) in ->
+// context (B, N, heads, d) out.
+extern "C" int flat_short_attention_sm90_fwd(const void* q, const void* k, const void* v,
+                                             void* out, int B, int N, int heads, int d,
+                                             long long batch_stride, long long row_stride,
+                                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const ShortArgs a{q, k, v, 0, 0, 0, heads * d, batch_stride, row_stride};
+  return launch_short_any(a, out, nullptr, B, N, heads * d, heads,
+                          static_cast<cudaStream_t>(stream));
+}
+
 // bf16 qkv (B, N, 3C) qkv-major in -> context (B, N, C) out and, unless lse
 // is null, the row log-sum-exp (B, heads, N) f32.
 extern "C" int tiled_attention_sm90_fwd(const void* qkv, void* out, void* lse, int B, int N,
@@ -934,19 +1233,21 @@ extern "C" int tiled_attention_sm90_fwd(const void* qkv, void* out, void* lse, i
 
 // bf16 qkv (B, N, 3C), the forward's context out and its lse, and dout
 // (B, N, C) in -> dqkv (B, N, 3C) out; dsum is (B, heads, N) f32 scratch
-// for D = rowsum(dout * out).
+// for D: rowsum(dP * P) over the unrounded P (the TPU's order) when exact_d,
+// else rowsum(dout * out), which reads out instead of sweeping the keys twice.
 extern "C" int tiled_attention_sm90_bwd(const void* qkv, const void* out, const void* dout,
                                         const void* lse, void* dsum, void* dqkv, int B, int N,
-                                        int C, int heads, int device, void* stream) {
+                                        int C, int heads, int exact_d, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
   switch (C / heads) {
-    case 32: return launch_bwd<32>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
-    case 64: return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
-    case 128: return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, s);
+    case 32: return launch_bwd<32>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
+    case 64: return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
+    case 128: return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
     default: return cudaErrorInvalidValue;
   }
 }

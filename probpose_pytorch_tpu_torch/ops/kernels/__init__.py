@@ -1,11 +1,14 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
     attention.py   K1 forward and backward, and K6 (the same forward read from
-                   (B, N, heads, d) views), CUDA C++ (csrc/packed_attention.cu);
-                   routes long sequences to K4
+                   (B, N, heads, d) views): the shape picks the kernel
+                   (`attention_route`); f32 on the CUDA cores in CUDA C++
+                   (csrc/packed_attention.cu)
     attention_tiled.py
                    K4 row-tiled attention for long sequences, forward and
-                   backward, CUDA C++ (csrc/tiled_attention.cu)
+                   backward, and K1's short bf16 forward: CUDA C++ with wgmma
+                   and TMA in bf16 (csrc/tiled_attention_sm90.cu), on the
+                   CUDA cores in f32 (csrc/tiled_attention.cu)
     sparsemax.py   K2, Triton (rows of any length)
     decode.py      K3 fused expected-value decode, CUDA C++ (csrc/decode.cu)
     mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward,

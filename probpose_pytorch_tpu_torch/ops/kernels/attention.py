@@ -4,35 +4,44 @@ plain versions.
 Replaces the TPU kernels `_packed_fwd_kernel` and `_packed_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_kernel.py (`packed_attention`, a
 `jax.custom_vjp` whose backward recomputes the scores, qkv-major layout).
-The CUDA source, with the note on what bounds each pass on the card and how
-its design answers that, is csrc/packed_attention.cu: bf16 inputs with d in
-{32, 64, 128} and N <= 256 run on the tensor cores, all other shapes on the
-CUDA cores (`kernel_path` says which).
 
 `packed_attention(qkv, heads)` takes the (B, N, 3C) output of the qkv
 projection as it is and returns the (B, N, C) context. It is a
-`torch.autograd.Function` that saves qkv, as the JAX custom_vjp does (and,
-on K4's bf16 route, the context and its log-sum-exp for K4's backward);
-its backward is `packed_attention_backward`, which writes dqkv straight in
-the packed layout. Both wrappers:
+`torch.autograd.Function`; its backward is `packed_attention_backward`,
+which writes dqkv straight in the packed layout. Which kernel serves a call
+is decided by the shape alone, forward and backward each on its own
+(`attention_route` in ops/kernels/attention_tiled.py, a pure function of N,
+d, the dtype and the card's shared memory; `kernel_path` names it):
+  * "sm90 short": bf16, d in {32, 64, 128}, N <= 256 (the ViT trunks'
+    N = 192), forward: `short_forward`, csrc/tiled_attention_sm90.cu;
+  * "sm90 tiled": the same dtype and widths at longer N, and their every
+    backward: K4's wgmma kernels, which read the forward's saved context
+    and log-sum-exp (`_PackedAttention` saves (qkv, out, lse) there);
+  * "K1 CUDA cores": float32, and bf16 with another d, where K1's shared
+    memory fits: csrc/packed_attention.cu (the f32 parity checks run here);
+  * "K4 CUDA cores": past K1's shared memory, float32 with d in
+    {32, 64, 80, 128} and bf16 with d = 80 (the vit-h preset at N >= 646):
+    csrc/tiled_attention.cu, as the JAX package hands such shapes to its
+    row-tiled kernel;
+  * "no kernel (...)": any other shape past K1's shared memory (e.g. d = 48
+    at N = 1024): NotImplementedError on the card.
+Both wrappers:
   * CPU tensor  -> the plain version (`packed_attention_reference`,
-                   `packed_attention_bwd_reference`);
-  * CUDA tensor -> the CUDA kernel, or an error for anything it does not take.
-A shape whose K1 shared memory does not fit the card (N above ~789 in bf16
-at d = 64, e.g. a ViT trunk on 768 x 768 inputs, N = 2304) goes to the
-row-tiled kernel K4 (ops/kernels/attention_tiled.py) instead, as the JAX
-`packed_attention` hands it to `tiled_attention`. Forward and backward are
-routed each on its own (their shared memory differs), by the shape alone:
-`attention_route` on K1's byte count and the card's opt-in limit.
-`kernel_path` names the route: "K1 tensor cores", "K1 CUDA cores" or "K4".
+                   `packed_attention_bwd_reference`) on every route;
+  * CUDA tensor -> the routed kernel, or an error for anything it does not
+                   take. `packed_attention.launches` and
+                   `packed_attention_backward.launches` count K1's CUDA-core
+                   kernels; the wgmma routes count on their own wrappers.
 
 Kernel K6, `fused_attention(q, k, v)`, replaces `_attn_kernel` of the same
-file (`fused_attention`, the `attn_impl="pallas"` serving knob): the same
-forward with q, k and v each (B, N, heads, d), read through their strides by
-K1's forward body, so the views the qkv projection gives are not copied
-(JAX transposes them to (B * heads, N, d) around its kernel). It returns
-the context (B, N, heads, d). It is forward only, as in JAX: a gradient
-through it raises. `fused_attention_reference` is its plain version.
+file (`fused_attention`, the `attn_impl="pallas"` serving knob): K1's
+forward read from q, k and v each (B, N, heads, d) through their strides,
+so the views the qkv projection gives are not copied (JAX transposes them
+to (B * heads, N, d) around its kernel). bf16 with d in {32, 64, 128} and
+N <= 256 runs the short wgmma forward, one tensor map per view, and gives
+K1's bits; every other shape runs K1's CUDA-core body. It returns the
+context (B, N, heads, d). It is forward only, as in JAX: a gradient through
+it raises. `fused_attention_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -44,8 +53,14 @@ import torch
 from probpose_pytorch_tpu_torch.ops import kernels
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     DTYPES as _DTYPES,
+    HEAD_DIMS,
+    K1_CUDA_CORES,
+    NO_KERNEL,
+    SHORT_MAX_N,
+    SM90_SHORT,
     attention_route,
     max_shared_memory,
+    short_forward,
     tiled_attention_backward,
     tiled_forward,
 )
@@ -117,35 +132,41 @@ def _lib() -> ctypes.CDLL:
         for name in ("packed_attention_smem_bytes", "packed_attention_bwd_smem_bytes"):
             getattr(lib, name).argtypes = [i32] * 3
             getattr(lib, name).restype = ctypes.c_longlong
-        for name in ("packed_attention_uses_mma", "packed_attention_bwd_uses_mma"):
-            getattr(lib, name).argtypes = [i32] * 3
-            getattr(lib, name).restype = i32
         lib.flat_attention_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ctypes.c_longlong] * 3 \
             + [i32] * 2 + [ptr]
         lib.flat_attention_fwd.restype = i32
+        lib.flat_short_attention_sm90_fwd.argtypes = [ptr] * 4 + [i32] * 4 \
+            + [ctypes.c_longlong] * 2 + [i32, ptr]
+        lib.flat_short_attention_sm90_fwd.restype = i32
         lib._attention_bound = True
     return lib
-
-
-def _route(N: int, d: int, dtype: torch.dtype, backward: bool, device: int) -> str:
-    """"K1" or "K4" for (N, d, dtype) on the card `device`."""
-    lib = _lib()
-    need = lib.packed_attention_bwd_smem_bytes if backward else lib.packed_attention_smem_bytes
-    return attention_route(need(N, d, _DTYPES[dtype]), max_shared_memory(device))
 
 
 def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
+def _route(qkv: torch.Tensor, heads: int, backward: bool) -> str:
+    """The route of a checked qkv on the card it lies on."""
+    B, N, C3 = qkv.shape
+    return attention_route(N, C3 // 3 // heads, qkv.dtype,
+                           max_shared_memory(_device_index(qkv)), backward)
+
+
 def kernel_path(N: int, d: int, dtype: torch.dtype, backward: bool = False) -> str:
     """Which kernel serves (N, d, dtype) on the current card, forward or
-    backward: "K1 tensor cores", "K1 CUDA cores" or "K4"."""
-    if _route(N, d, dtype, backward, torch.cuda.current_device()) == "K4":
-        return "K4"
-    lib = _lib()
-    fn = lib.packed_attention_bwd_uses_mma if backward else lib.packed_attention_uses_mma
-    return "K1 tensor cores" if fn(N, d, _DTYPES[dtype]) else "K1 CUDA cores"
+    backward: "sm90 short", "sm90 tiled", "K1 CUDA cores", "K4 CUDA cores"
+    or "no kernel (d=.., N=..)" (see `attention_route`)."""
+    return attention_route(N, d, dtype, max_shared_memory(torch.cuda.current_device()),
+                           backward)
+
+
+def _no_kernel(qkv: torch.Tensor, heads: int, route: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: qkv {tuple(qkv.shape)} {qkv.dtype} with {heads} heads: {route}; K1's "
+        "shared memory does not fit, and K4 takes d in {32, 64, 128} in bf16 on wgmma, "
+        "d in {32, 64, 80, 128} in f32 and d = 80 in bf16 on the CUDA cores (ROADMAP "
+        "section 2, item 8)")
 
 
 def _check(qkv: torch.Tensor, heads: int) -> None:
@@ -180,7 +201,7 @@ def _smem_check(t: torch.Tensor, N: int, d: int, smem_fn, what: str) -> int:
             f"{what}: N={N}, d={d} ({t.dtype}) needs {need} bytes "
             f"of shared memory, the card allows {limit} (K6, fused_attention, "
             "takes the shapes K1 holds; packed_attention routes longer "
-            "sequences to K4)"
+            "sequences to other kernels)"
         )
     return device
 
@@ -196,16 +217,18 @@ def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) ->
 
 
 def _forward(qkv: torch.Tensor, heads: int, with_lse: bool):
-    """(context, lse): lse is K4's row log-sum-exp where `with_lse` asks for
-    it and the shape routes to K4 in bf16 on the card, else None."""
-    plain = kernels.use_plain(qkv, "packed_attention")
-    if plain and not qkv.is_cuda:
+    """(context, lse) on qkv's route; lse is the (B, heads, N) f32 row
+    log-sum-exp where `with_lse` asks for it and a wgmma kernel runs, else
+    None."""
+    if kernels.use_plain(qkv, "packed_attention"):
         return packed_attention_reference(qkv, heads), None
-    B, N, C3 = qkv.shape
-    if _route(N, C3 // 3 // heads, qkv.dtype, False, _device_index(qkv)) == "K4":
+    route = _route(qkv, heads, backward=False)
+    if route.startswith(NO_KERNEL):
+        raise _no_kernel(qkv, heads, route, "packed_attention")
+    if route == SM90_SHORT:
+        return short_forward(qkv, heads, with_lse)
+    if route != K1_CUDA_CORES:
         return tiled_forward(qkv, heads, with_lse)
-    if plain:
-        return packed_attention_reference(qkv, heads), None
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
                                     "packed_attention")
@@ -229,9 +252,8 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                               lse: torch.Tensor | None = None) -> torch.Tensor:
     """dqkv (B, N, 3C) of `packed_attention` from qkv and the context's
     gradient dout (B, N, C), both of one dtype; dout is made contiguous.
-    `out` and `lse`, the forward's context and K4's log-sum-exp, are read
-    where the backward routes to K4 (which makes them when absent) and
-    ignored by K1."""
+    `out` and `lse`, the forward's context and log-sum-exp, are read on the
+    wgmma route (which makes them when absent) and ignored elsewhere."""
     _check(qkv, heads)
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
@@ -244,13 +266,13 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             f"packed_attention_backward: dout is {dout.dtype} on {dout.device}, "
             f"qkv {qkv.dtype} on {qkv.device}"
         )
-    plain = kernels.use_plain(qkv, "packed_attention_backward")
-    if plain and not qkv.is_cuda:
+    if kernels.use_plain(qkv, "packed_attention_backward"):
         return packed_attention_bwd_reference(qkv, dout, heads)
-    if _route(N, C3 // 3 // heads, qkv.dtype, True, _device_index(qkv)) == "K4":
+    route = _route(qkv, heads, backward=True)
+    if route.startswith(NO_KERNEL):
+        raise _no_kernel(qkv, heads, route, "packed_attention_backward")
+    if route != K1_CUDA_CORES:
         return tiled_attention_backward(qkv, dout, heads, out, lse)
-    if plain:
-        return packed_attention_bwd_reference(qkv, dout, heads)
     dout = dout.contiguous()
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_bwd_smem_bytes,
@@ -274,9 +296,9 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 
 
 class _PackedAttention(torch.autograd.Function):
-    """K1 or K4 forward, with K1 or K4 backward as its gradient, each routed
-    by the shape; saves qkv, and on K4's bf16 route also the context and
-    its lse, which K4's backward reads instead of rebuilding them."""
+    """The routed forward, with the routed backward as its gradient; saves
+    qkv, and on the wgmma routes also the context and its lse, which K4's
+    backward reads instead of rebuilding them."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -293,7 +315,7 @@ class _PackedAttention(torch.autograd.Function):
 
 def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv;
-    differentiable through K1's (or K4's) backward."""
+    differentiable through the routed backward."""
     _check(qkv, heads)
     return _PackedAttention.apply(qkv, heads)
 
@@ -318,20 +340,31 @@ def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} not supported (float32 or bfloat16)")
     B, N, H, d = q.shape
-    if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1:
+    # bf16 at the short forward's widths and lengths: its wgmma kernel, the
+    # one that serves packed_attention there, so K6 and K1 give the same bits
+    wgmma = q.dtype == torch.bfloat16 and d in HEAD_DIMS and N <= SHORT_MAX_N
+    if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1 \
+            or (wgmma and q.stride(2) != d):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if B > 65535:
         raise ValueError(f"fused_attention: batch {B} exceeds the grid's 65535")
-    device = _smem_check(q, N, d, _lib().packed_attention_smem_bytes, "fused_attention")
+    if wgmma:
+        device = _device_index(q)
+    else:
+        device = _smem_check(q, N, d, _lib().packed_attention_smem_bytes, "fused_attention")
     align = 16 // q.element_size()
     if any(t.data_ptr() % 16 for t in (q, k, v)) or any(s % align for s in q.stride()[:3]):
         raise ValueError("fused_attention: q, k and v must be 16-byte aligned, row by row")
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device)
-    err = _lib().flat_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
-        *q.stride()[:3], _DTYPES[q.dtype], device,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if wgmma:
+        err = _lib().flat_short_attention_sm90_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
+            q.stride(0), q.stride(1), device, stream)
+    else:
+        err = _lib().flat_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
+            *q.stride()[:3], _DTYPES[q.dtype], device, stream)
     if err:
         raise RuntimeError(f"fused_attention: kernel launch failed with cudaError {err} at "
                            f"q {tuple(q.shape)} {q.dtype}")

@@ -4,26 +4,35 @@ and their plain versions.
 Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_tiled.py (`tiled_attention`, a
 `jax.custom_vjp` whose backward recomputes the scores). Two CUDA sources,
-each with its design and what bounds it on the card; head widths d in
-{32, 64, 128}, no shape bounded by N:
-  * bf16, csrc/tiled_attention_sm90.cu: a one-sweep forward (online softmax,
-    wgmma fed by a TMA ring of K/V tiles) that can also write the row
-    log-sum-exp `lse`, and a backward of two kernels (dQ, then dK/dV) that
-    takes the forward's output and `lse` instead of rebuilding the softmax
-    statistics; no atomics.
-  * float32, csrc/tiled_attention.cu: CUDA cores, two sweeps (exact
-    softmax) and a two-pass recompute backward; it carries the f32 parity
-    checks.
+each with its design and what bounds it on the card; no shape bounded by N:
+  * bf16 with d in {32, 64, 128}, csrc/tiled_attention_sm90.cu: a one-sweep
+    forward (online softmax, wgmma fed by a TMA ring of K/V tiles) that can
+    also write the row log-sum-exp `lse`, and a backward of two kernels (dQ,
+    then dK/dV) that takes the forward's output and `lse` instead of
+    rebuilding the softmax statistics; no atomics.
+  * float32 with d in {32, 64, 80, 128}, and bf16 at d = 80 (the vit-h
+    preset), csrc/tiled_attention.cu: CUDA cores, two sweeps (exact softmax)
+    and a two-pass recompute backward in the TPU kernels' order; it carries
+    the f32 parity checks.
+
+The same bf16 source holds K1's redesigned forward for N <= 256,
+`short_forward` (one warpgroup per 64 query rows, every key of the head in
+registers, an exact single-pass softmax, P normalised and rounded before
+P.V as the TPU kernel does; its plain version is K1's own
+`packed_attention_reference`, and `short_attention_reference` adds the
+lse); K6 (`attention.fused_attention`) runs it on its q, k, v views. K1's
+bf16 backward with d in {32, 64, 128} is K4's, at every N.
 
 `tiled_attention(qkv, heads)` has K1's contract (ops/kernels/attention.py):
 the (B, N, 3C) qkv-major projection in, the h-major (B, N, C) context out;
 it is a `torch.autograd.Function` whose backward is
 `tiled_attention_backward`. In bf16 on the card, where qkv needs a
 gradient, it saves (qkv, out, lse); otherwise only qkv, and serving (no
-gradient) writes no lse. `packed_attention` routes a shape here wherever K1's
-shared memory does not fit the card (`attention_route`), forward and
-backward each on its own. Both wrappers take the plain version for a CPU
-tensor and launch the kernel, or raise, for a CUDA tensor.
+gradient) writes no lse. `packed_attention` picks its kernel by the shape
+alone (`attention_route`, a pure function of N, d, the dtype and the card's
+shared memory), forward and backward each on its own. Every wrapper takes
+the plain version for a CPU tensor and launches the kernel, or raises, for
+a CUDA tensor.
 
 Two pairs of plain versions, both chunked over query rows so that no
 (B, heads, N, N) score tensor is ever built (at (64, 2304, 1152) it would
@@ -33,9 +42,10 @@ hold 8 GB):
     them.
   * `tiled_attention_online_reference` / `tiled_attention_online_bwd_reference`
     follow the bf16 kernels' arithmetic order (online softmax over 128-key
-    tiles, P rounded relative to the running max; D = rowsum(dO * O) and
-    P = exp(S * scale - lse) in the backward). Only tests and chip_smoke.py
-    use them, to show how far the kernels' order moves from the TPU's.
+    tiles, P rounded relative to the running max; P = exp(S * scale - lse)
+    in the backward, and D = rowsum(dO * O) past EXACT_D_MAX_N tokens).
+    Only tests and chip_smoke.py use them, to show how far the kernels'
+    order moves from the TPU's.
 """
 
 from __future__ import annotations
@@ -53,7 +63,10 @@ __all__ = [
     "tiled_attention_bwd_reference",
     "tiled_attention_online_reference",
     "tiled_attention_online_bwd_reference",
+    "short_forward",
+    "short_attention_reference",
     "attention_route",
+    "k1_smem_bytes",
     "max_shared_memory",
 ]
 
@@ -65,13 +78,81 @@ PLAIN_CHUNK = 256
 # Keys per tile of the bf16 forward kernel (its online softmax's step).
 KEY_TILE = 128
 LOG2E = 1.4426950408889634
+# Longest sequence of the short forward: every key of a head in registers.
+SHORT_MAX_N = 256
+# Longest sequence whose bf16 backward takes D = rowsum(dP * P) over the
+# unrounded P, the TPU kernel's order, in a second sweep over the keys;
+# longer ones take D = rowsum(dO * O) from the saved context, where that
+# sweep would cost the dQ kernel two of its three products again. At
+# N = 192, D from O put K1's backward 2 bf16 ulps from the TPU-order plain
+# version on one of eight draws at (256, 192, 1152), past K1's bound.
+EXACT_D_MAX_N = SHORT_MAX_N
+
+# Head widths of K4's CUDA-core kernels (csrc/tiled_attention.cu), per
+# dtype: bf16 only where the wgmma kernels (HEAD_DIMS) do not reach.
+CUDA_CORE_DIMS = {torch.float32: (32, 64, 80, 128), torch.bfloat16: (80,)}
+
+# packed_attention's routes (`attention_route`, `attention.kernel_path`).
+SM90_SHORT = "sm90 short"  # short_forward, csrc/tiled_attention_sm90.cu
+SM90_TILED = "sm90 tiled"  # K4 bf16, csrc/tiled_attention_sm90.cu
+K1_CUDA_CORES = "K1 CUDA cores"  # csrc/packed_attention.cu
+K4_CUDA_CORES = "K4 CUDA cores"  # csrc/tiled_attention.cu
+NO_KERNEL = "no kernel"  # raises on the card; the plain version on the CPU
 
 
-def attention_route(k1_bytes: int, limit: int) -> str:
-    """"K1" where K1 needs at most the card's opt-in shared memory per
-    block, else "K4". The shape decides alone: `k1_bytes` is K1's need at
-    (N, d, dtype) (forward or backward), `limit` the card's."""
-    return "K1" if k1_bytes <= limit else "K4"
+def k1_smem_bytes(N: int, d: int, dtype: torch.dtype) -> int:
+    """Shared memory per block of K1's CUDA-core kernels at (N, d, dtype),
+    forward and backward alike (csrc/packed_attention.cu: smem_bytes and
+    bwd_smem_bytes): K rows padded by one 32-bit word, V rows, and per
+    warp (eight forward, four backward with two rows each) d + N f32."""
+    size = 4 if dtype == torch.float32 else 2
+    return N * (2 * d + 4 // size) * size + 32 * (d + N)
+
+
+def attention_route(N: int, d: int, dtype: torch.dtype, limit: int,
+                    backward: bool = False) -> str:
+    """The kernel that serves attention of N tokens with head width d in
+    `dtype`, forward or backward, on a card whose opt-in shared memory per
+    block is `limit` bytes. The shape decides alone:
+      * bf16, d in {32, 64, 128}: the wgmma kernels, "sm90 short" (forward,
+        N <= 256) or "sm90 tiled" (K4: longer forwards, every backward);
+      * else "K1 CUDA cores" where K1's shared memory fits the card;
+      * else "K4 CUDA cores" at K4's CUDA-core widths (`CUDA_CORE_DIMS`: f32
+        d in {32, 64, 80, 128}, bf16 d = 80), as the JAX package's
+        packed_attention hands such shapes to its row-tiled kernel;
+      * else "no kernel (d=.., N=..)": the card raises
+        NotImplementedError, the CPU computes the plain version."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        return SM90_SHORT if N <= SHORT_MAX_N and not backward else SM90_TILED
+    if k1_smem_bytes(N, d, dtype) <= limit:
+        return K1_CUDA_CORES
+    if d in CUDA_CORE_DIMS[dtype]:
+        return K4_CUDA_CORES
+    return f"{NO_KERNEL} (d={d}, N={N})"
+
+
+def _head_dims(dtype: torch.dtype) -> tuple[int, ...]:
+    """The head widths K4's kernels take in `dtype`, wgmma and CUDA cores."""
+    wgmma = HEAD_DIMS if dtype == torch.bfloat16 else ()
+    return tuple(sorted(wgmma + CUDA_CORE_DIMS[dtype]))
+
+
+def _wgmma(qkv: torch.Tensor, heads: int) -> bool:
+    """Whether K4 runs qkv on its wgmma kernels (else on the CUDA cores)."""
+    return qkv.dtype == torch.bfloat16 and qkv.shape[2] // 3 // heads in HEAD_DIMS
+
+
+def short_attention_reference(qkv: torch.Tensor, heads: int):
+    """Plain version of `short_forward`, in the TPU kernel's order: the
+    context of `attention.packed_attention_reference` (f32 softmax, P
+    rounded to qkv's dtype before P.V) and the row log-sum-exp of the
+    scaled scores, (B, heads, N) f32. Returns (out, lse)."""
+    B, N, C3 = qkv.shape
+    q, k, v, d, scale = _heads_split(qkv, heads)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k) * scale
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v)
+    return out.reshape(B, N, C3 // 3).to(qkv.dtype), torch.logsumexp(s, dim=-1)
 
 
 def _heads_split(qkv: torch.Tensor, heads: int):
@@ -178,17 +259,20 @@ def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, 
                                          chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """Plain backward in the bf16 kernels' order, from the forward's `out`
     and `lse` (made by `tiled_attention_online_reference` when either is
-    None): D = rowsum(dO * O) over the rounded O; per chunk of query rows
-    P = 2^(S * scale * log2 e - lse * log2 e), dP = dO V^T,
-    dS = round(P * (dP - D) * scale); dQ = dS K, dK += dS^T Q and
-    dV += round(P)^T dO in f32. Returns dqkv (B, N, 3C) in qkv's dtype."""
+    None): per chunk of query rows P = 2^(S * scale * log2 e - lse * log2 e),
+    dP = dO V^T, D = rowsum(dP * P) up to EXACT_D_MAX_N tokens and
+    rowsum(dO * O) over the rounded O past them, dS = round(P * (dP - D) *
+    scale); dQ = dS K, dK += dS^T Q and dV += round(P)^T dO in f32. Returns
+    dqkv (B, N, 3C) in qkv's dtype."""
     if out is None or lse is None:
         out, lse = tiled_attention_online_reference(qkv, heads, chunk)
     B, N, C3 = qkv.shape
     q, k, v, d, scale = _heads_split(qkv, heads)
     sl2 = scale * LOG2E
     do = _heads_d(dout, heads)
-    dsum = (do * _heads_d(out, heads)).sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, H, N, 1)
+    exact = N <= EXACT_D_MAX_N
+    if not exact:  # (B, H, N, 1)
+        dsum = (do * _heads_d(out, heads)).sum(dim=-1).permute(0, 2, 1)[..., None]
     rnd = lambda t: t.to(qkv.dtype).float()
     dq = torch.empty((B, N, heads, d), dtype=torch.float32, device=qkv.device)
     dk = torch.zeros_like(dq)
@@ -199,7 +283,8 @@ def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, 
         s = torch.einsum("bnhd,bmhd->bhnm", qc, k)
         p = torch.exp2(s * sl2 - lse[:, :, n0:n0 + chunk, None] * LOG2E)
         dp = torch.einsum("bnhd,bmhd->bhnm", doc, v)
-        ds = rnd(p * (dp - dsum[:, :, n0:n0 + chunk]) * scale)
+        d_c = (dp * p).sum(dim=-1, keepdim=True) if exact else dsum[:, :, n0:n0 + chunk]
+        ds = rnd(p * (dp - d_c) * scale)
         dq[:, n0:n0 + chunk] = torch.einsum("bhnm,bmhd->bnhd", ds, k)
         dk += torch.einsum("bhnm,bnhd->bmhd", ds, qc)
         dv += torch.einsum("bhnm,bnhd->bmhd", rnd(p), doc)
@@ -213,13 +298,16 @@ def _lib() -> ctypes.CDLL:
     lib = library()
     if not getattr(lib, "_tiled_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
-        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.tiled_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        lib.tiled_attention_sm90_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.tiled_attention_sm90_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.short_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         for name in ("tiled_attention_fwd", "tiled_attention_bwd", "tiled_attention_sm90_fwd",
-                     "tiled_attention_sm90_bwd"):
+                     "tiled_attention_sm90_bwd", "short_attention_sm90_fwd"):
             getattr(lib, name).restype = i32
+        lib.short_attention_sm90_smem_bytes.argtypes = [i32] * 2
+        lib.short_attention_sm90_smem_bytes.restype = ctypes.c_longlong
         for name in ("tiled_attention_smem_bytes", "tiled_attention_sm90_smem_bytes"):
             getattr(lib, name).argtypes = [i32] * 2
             getattr(lib, name).restype = ctypes.c_longlong
@@ -261,7 +349,7 @@ def _check(qkv: torch.Tensor, heads: int, layout: str, what: str) -> None:
 def _smem_need(d: int, dtype: torch.dtype, backward: bool) -> int:
     """Shared memory per block of K4's largest kernel for (d, dtype)."""
     lib = _lib()
-    if dtype == torch.float32:
+    if dtype == torch.float32 or d not in HEAD_DIMS:
         return lib.tiled_attention_smem_bytes(d, int(backward))
     passes = (0, 1, 2) if backward else (0,)  # the backward may run the forward
     return max(lib.tiled_attention_sm90_smem_bytes(d, p) for p in passes)
@@ -273,8 +361,9 @@ def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
     aligned."""
     B, N, C3 = qkv.shape
     d = C3 // 3 // heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head width d={d} not supported (one of {HEAD_DIMS})")
+    if d not in _head_dims(qkv.dtype):
+        raise ValueError(f"{what}: head width d={d} not supported in {qkv.dtype} "
+                         f"(one of {_head_dims(qkv.dtype)})")
     if B > 65535:
         raise ValueError(f"{what}: batch {B} exceeds the grid's 65535")
     device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
@@ -297,7 +386,7 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = None
-    if qkv.dtype == torch.bfloat16:
+    if _wgmma(qkv, heads):
         if with_lse:
             lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_sm90_fwd(
@@ -305,7 +394,7 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
             B, N, C3 // 3, heads, device, _stream(qkv))
     else:
         err = _lib().tiled_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads,
-                                         device, _stream(qkv))
+                                         DTYPES[qkv.dtype], device, _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -315,13 +404,42 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
 def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
     """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
     tensor (or under `plain_versions()`), else one kernel launch; lse, the
-    (B, heads, N) f32 row log-sum-exp, only for bf16 on the card with
-    `with_lse`, else None."""
+    (B, heads, N) f32 row log-sum-exp, only on the wgmma route (bf16, d in
+    {32, 64, 128}) on the card with `with_lse`, else None."""
     if kernels.use_plain(qkv, "tiled_attention"):
         return tiled_attention_reference(qkv, heads), None
     device = _device(qkv, heads, False, "tiled_attention")
     out, lse = _launch_fwd(qkv, heads, device, with_lse)
     tiled_attention.launches += 1
+    return out, lse
+
+
+def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
+    """K1's bf16 forward for N <= 256 on a checked qkv: (out, lse). The plain
+    version for a CPU tensor (or under `plain_versions()`), else one launch
+    of the short kernel of csrc/tiled_attention_sm90.cu; lse, the
+    (B, heads, N) f32 row log-sum-exp, only with `with_lse`, else None."""
+    if kernels.use_plain(qkv, "short_forward"):
+        out, lse = short_attention_reference(qkv, heads)
+        return out, lse if with_lse else None
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    if qkv.dtype != torch.bfloat16 or d not in HEAD_DIMS or N > SHORT_MAX_N:
+        raise ValueError(f"short_forward: takes bf16 with d in {HEAD_DIMS} and N <= "
+                         f"{SHORT_MAX_N}, got N={N}, d={d} ({qkv.dtype})")
+    device = _device(qkv, heads, False, "short_forward")
+    need = _lib().short_attention_sm90_smem_bytes(d, N)
+    if need > max_shared_memory(device):
+        raise ValueError(f"short_forward: N={N}, d={d} needs {need} bytes of shared memory")
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device) if with_lse else None
+    err = _lib().short_attention_sm90_fwd(qkv.data_ptr(), out.data_ptr(),
+                                          lse.data_ptr() if with_lse else None,
+                                          B, N, C3 // 3, heads, device, _stream(qkv))
+    if err:
+        raise RuntimeError(f"short_forward: kernel launch failed with cudaError {err} "
+                           f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
+    short_forward.launches += 1
     return out, lse
 
 
@@ -333,7 +451,7 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     bf16 on the card the backward reads the forward's context `out` and
     `lse`; where either is None, it runs the forward kernel first to make
     them, counted in `tiled_attention_backward.recomputes` and not as a
-    forward launch. The CPU path and float32 ignore them."""
+    forward launch. The CPU path and the CUDA-core kernels ignore them."""
     _check(qkv, heads, "qkv_major", "tiled_attention_backward")
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
@@ -349,7 +467,7 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     if dout.data_ptr() % 16:
         raise ValueError("tiled_attention_backward: dout must be 16-byte aligned")
     dqkv = torch.empty_like(qkv)
-    if qkv.dtype == torch.bfloat16:
+    if _wgmma(qkv, heads):
         if out is None or lse is None:
             out, lse = _launch_fwd(qkv, heads, device, with_lse=True)
             tiled_attention_backward.recomputes += 1
@@ -361,12 +479,13 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         dsum = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_sm90_bwd(
             qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            dqkv.data_ptr(), B, N, C3 // 3, heads, device, _stream(qkv))
+            dqkv.data_ptr(), B, N, C3 // 3, heads, int(N <= EXACT_D_MAX_N), device,
+            _stream(qkv))
     else:
         stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_bwd(
             qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, N, C3 // 3, heads, device, _stream(qkv))
+            B, N, C3 // 3, heads, DTYPES[qkv.dtype], device, _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention_backward: kernel launch failed with cudaError "
                            f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -376,7 +495,8 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 
 class _TiledAttention(torch.autograd.Function):
     """K4 forward, with K4 backward as its gradient; saves (qkv, out, lse)
-    where the forward made lse (bf16 on the card), else only qkv."""
+    where the forward made lse (the wgmma route on the card), else only
+    qkv."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -398,6 +518,7 @@ def tiled_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") ->
     return _TiledAttention.apply(qkv, heads)
 
 
+short_forward.launches = 0
 tiled_attention.launches = 0
 tiled_attention_backward.launches = 0
 tiled_attention_backward.recomputes = 0

@@ -32,9 +32,13 @@ from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
     fused_ln_mlp_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    k1_smem_bytes,
+    short_attention_reference,
+    short_forward,
     tiled_attention,
     tiled_attention_backward,
     tiled_attention_bwd_reference,
+    tiled_attention_online_bwd_reference,
     tiled_attention_online_reference,
     tiled_attention_reference,
     tiled_forward,
@@ -72,6 +76,15 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
+def forward_launches() -> int:
+    """Launches of every kernel packed_attention's forward may route to."""
+    return packed_attention.launches + short_forward.launches + tiled_attention.launches
+
+
+def backward_launches() -> int:
+    return packed_attention_backward.launches + tiled_attention_backward.launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,dtype", [
     (64, torch.bfloat16),
@@ -81,10 +94,10 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 def test_packed_attention_kernel(cuda_device, B, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     qkv = torch.randn(B, 192, 1152, generator=g, device=cuda_device).to(dtype)
-    before = packed_attention.launches
+    before = forward_launches()
     out = packed_attention(qkv, 6)
     torch.cuda.synchronize()
-    assert packed_attention.launches == before + 1
+    assert forward_launches() == before + 1
     ref = packed_attention_reference(qkv, 6)
     assert max_err(out, ref) <= bound(ref)
 
@@ -99,10 +112,10 @@ def test_packed_attention_backward_kernel(cuda_device, B, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(4)
     qkv = torch.randn(B, 192, 1152, generator=g, device=cuda_device).to(dtype)
     dout = torch.randn(B, 192, 384, generator=g, device=cuda_device).to(dtype)
-    before = packed_attention_backward.launches
+    before = backward_launches()
     dqkv = packed_attention_backward(qkv, dout, 6)
     torch.cuda.synchronize()
-    assert packed_attention_backward.launches == before + 1
+    assert backward_launches() == before + 1
     ref = packed_attention_bwd_reference(qkv, dout, 6)
     assert max_err(dqkv, ref) <= bound(ref)
 
@@ -117,10 +130,10 @@ def test_packed_attention_autograd_on_card(cuda_device, dtype):
     qkv = torch.randn(8, 192, 1152, generator=g, device=cuda_device).to(dtype)
     w = torch.randn(8, 192, 384, generator=g, device=cuda_device).to(dtype)
     x = qkv.clone().requires_grad_(True)
-    before = packed_attention_backward.launches
+    before = backward_launches()
     (grad,) = torch.autograd.grad((packed_attention(x, 6).float() * w.float()).sum(), x)
     torch.cuda.synchronize()
-    assert packed_attention_backward.launches == before + 1
+    assert backward_launches() == before + 1
     assert grad.grad_fn is None and grad.dtype == dtype
     if dtype == torch.float32:
         y = qkv.clone().requires_grad_(True)
@@ -132,11 +145,11 @@ def test_packed_attention_autograd_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,heads,d,path", [
-    (200, 2, 64, "K1 tensor cores"),  # keys padded to a multiple of 16
-    (77, 4, 32, "K1 tensor cores"),
-    (50, 2, 128, "K1 tensor cores"),
-    (300, 2, 64, "K1 CUDA cores"),    # N above the tensor-core path's 256
-    (96, 3, 48, "K1 CUDA cores"),     # d outside {32, 64, 128}
+    (200, 2, 64, "sm90 short"),     # keys padded to a multiple of 64
+    (77, 4, 32, "sm90 short"),
+    (50, 2, 128, "sm90 short"),
+    (300, 2, 64, "sm90 tiled"),     # N above the short forward's 256
+    (96, 3, 48, "K1 CUDA cores"),   # d outside {32, 64, 128}
 ])
 def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -151,11 +164,11 @@ def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,heads,d,dtype,path", [
-    (200, 2, 64, torch.bfloat16, "K1 tensor cores"),  # queries/keys padded to 16
-    (77, 4, 32, torch.bfloat16, "K1 tensor cores"),
-    (300, 2, 64, torch.bfloat16, "K1 CUDA cores"),    # N above 256
-    (96, 3, 48, torch.bfloat16, "K1 CUDA cores"),     # d outside {32, 64, 128}
-    (192, 2, 128, torch.bfloat16, "K1 CUDA cores"),   # tensor-core passes too big
+    (200, 2, 64, torch.bfloat16, "sm90 tiled"),  # queries/keys past a 64-row tile
+    (77, 4, 32, torch.bfloat16, "sm90 tiled"),
+    (300, 2, 64, torch.bfloat16, "sm90 tiled"),  # N above 256
+    (96, 3, 48, torch.bfloat16, "K1 CUDA cores"),  # d outside {32, 64, 128}
+    (192, 2, 128, torch.bfloat16, "sm90 tiled"),  # ran on CUDA cores before
     (77, 3, 40, torch.float32, "K1 CUDA cores"),
 ])
 def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype, path):
@@ -173,9 +186,19 @@ def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype,
 def test_packed_attention_kernel_refuses_unsupported(cuda_device):
     with pytest.raises(TypeError):
         packed_attention(torch.zeros(1, 8, 96, dtype=torch.float16, device=cuda_device), 2)
-    # K1 cannot hold N = 4096 and K4 takes no head width of 48
+    # K4 takes no head width of 48, so past K1's shared memory
+    # packed_attention has no kernel for it and says so
     with pytest.raises(ValueError, match="head width"):
-        packed_attention(torch.zeros(1, 4096, 3 * 96, device=cuda_device), 2)
+        tiled_attention(torch.zeros(1, 4096, 3 * 96, device=cuda_device), 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros(1, 1024, 3 * 96, device=cuda_device, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="no kernel"):
+            packed_attention(qkv, 2)
+        with pytest.raises(NotImplementedError, match="no kernel"):
+            packed_attention_backward(qkv, qkv[..., :96].contiguous(), 2)
+    # the short forward takes no N above 256
+    with pytest.raises(ValueError, match="N <= 256"):
+        short_forward(torch.zeros(1, 300, 3 * 128, device=cuda_device, dtype=torch.bfloat16), 2)
 
 
 @pytest.mark.cuda
@@ -450,6 +473,8 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
     (3, 77, 2, 32, torch.bfloat16),
     (2, 130, 2, 128, torch.bfloat16),
     (2, 130, 2, 128, torch.float32),
+    (2, 130, 8, 80, torch.bfloat16),    # d 80 (vit-h), on the CUDA cores
+    (2, 130, 8, 80, torch.float32),
     (2, 129, 2, 32, torch.bfloat16),    # one key past a 128-key tile
     (2, 129, 2, 64, torch.bfloat16),
     (2, 129, 2, 128, torch.bfloat16),
@@ -520,54 +545,134 @@ def test_packed_attention_k4_route_saves_lse(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,dtype,route", [
-    (192, torch.bfloat16, "K1 tensor cores"),
-    (192, torch.float32, "K1 CUDA cores"),
-    (2304, torch.bfloat16, "K4"),
-    (2304, torch.float32, "K4"),
+@pytest.mark.parametrize("N,dtype,route,bwd_route", [
+    (192, torch.bfloat16, "sm90 short", "sm90 tiled"),
+    (192, torch.float32, "K1 CUDA cores", "K1 CUDA cores"),
+    (2304, torch.bfloat16, "sm90 tiled", "sm90 tiled"),
+    (2304, torch.float32, "K4 CUDA cores", "K4 CUDA cores"),
 ])
-def test_packed_attention_routes_by_shape(cuda_device, N, dtype, route):
-    """packed_attention runs K1 where K1 fits and K4 where it does not,
-    forward and backward, and autograd goes through the routed kernels."""
-    assert kernel_path(N, 64, dtype) == kernel_path(N, 64, dtype, backward=True) == route
+def test_packed_attention_routes_by_shape(cuda_device, N, dtype, route, bwd_route):
+    """packed_attention runs the kernel its route names, forward and
+    backward, and autograd goes through the routed kernels."""
+    assert kernel_path(N, 64, dtype) == route
+    assert kernel_path(N, 64, dtype, backward=True) == bwd_route
     g = torch.Generator(device=cuda_device).manual_seed(14)
     qkv = torch.randn(2, N, 1152, generator=g, device=cuda_device).to(dtype)
     w = torch.randn(2, N, 384, generator=g, device=cuda_device).to(dtype)
     counts = lambda: (packed_attention.launches, packed_attention_backward.launches,
-                      tiled_attention.launches, tiled_attention_backward.launches)
+                      short_forward.launches, tiled_attention.launches,
+                      tiled_attention_backward.launches)
     c0 = counts()
     x = qkv.clone().requires_grad_(True)
     (grad,) = torch.autograd.grad((packed_attention(x, 6).float() * w.float()).sum(), x)
     torch.cuda.synchronize()
-    k4 = route == "K4"
-    assert tuple(a - b for a, b in zip(counts(), c0)) == ((0, 0, 1, 1) if k4 else (1, 1, 0, 0))
+    want = {"sm90 short": (0, 0, 1, 0, 1), "K1 CUDA cores": (1, 1, 0, 0, 0)}.get(
+        route, (0, 0, 0, 1, 1))
+    assert tuple(a - b for a, b in zip(counts(), c0)) == want
+    k4 = route != "K1 CUDA cores"
     ref = (tiled_attention_bwd_reference if k4 else packed_attention_bwd_reference)(qkv, w, 6)
     assert max_err(grad, ref) <= bound(ref)
 
 
 @pytest.mark.cuda
 def test_packed_attention_k1_forward_k4_backward(cuda_device):
-    """Where the card has an N whose K1 forward fits but whose K1 backward
-    does not, that N runs K1 forward and K4 backward."""
-    for d, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32),
-                     (128, torch.float32), (32, torch.bfloat16)):
-        split = [N for N in range(16, 1600, 16) if kernel_path(N, d, dtype) != "K4"
-                 and kernel_path(N, d, dtype, backward=True) == "K4"]
-        if split:
-            break
-    else:
-        pytest.skip("no N on this card routes K1 forward and K4 backward")
-    N, heads = split[0], 2
+    """Where K1's forward and backward take different kernels (bf16, N <=
+    256: the short forward, K4's backward), autograd saves (qkv, out, lse),
+    runs one of each, and the backward reads the saved residuals and runs
+    no forward of its own."""
+    N, heads, d = 200, 2, 64
+    assert kernel_path(N, d, torch.bfloat16) == "sm90 short"
+    assert kernel_path(N, d, torch.bfloat16, backward=True) == "sm90 tiled"
     g = torch.Generator(device=cuda_device).manual_seed(15)
-    qkv = torch.randn(2, N, 3 * heads * d, generator=g, device=cuda_device).to(dtype)
-    w = torch.randn(2, N, heads * d, generator=g, device=cuda_device).to(dtype)
-    f0, b0 = packed_attention.launches, tiled_attention_backward.launches
+    qkv = torch.randn(2, N, 3 * heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(2, N, heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    f0, b0 = short_forward.launches, tiled_attention_backward.launches
+    r0 = tiled_attention_backward.recomputes
     x = qkv.clone().requires_grad_(True)
-    (grad,) = torch.autograd.grad((packed_attention(x, heads).float() * w.float()).sum(), x)
+    y = packed_attention(x, heads)
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 3 and torch.equal(saved[1], y) and saved[2].shape == (2, heads, N)
+    (grad,) = torch.autograd.grad((y.float() * w.float()).sum(), x)
     torch.cuda.synchronize()
-    assert (packed_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 1)
-    ref = tiled_attention_bwd_reference(qkv, w, heads)
+    assert (short_forward.launches - f0, tiled_attention_backward.launches - b0) == (1, 1)
+    assert tiled_attention_backward.recomputes == r0
+    assert torch.equal(grad, tiled_attention_backward(qkv, w, heads, saved[1], saved[2]))
+    ref = packed_attention_bwd_reference(qkv, w, heads)
     assert max_err(grad, ref) <= bound(ref)
+
+
+# --------------------------------------------------------------------------
+# K1's bf16 route on the wgmma kernels: the short forward, K4's backward
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,d", [
+    (256, 192, 6, 64),   # the flagship's batch
+    (5, 200, 2, 64),     # keys padded to 256
+    (5, 77, 4, 32),
+    (4, 192, 2, 128),
+])
+def test_short_forward_and_backward_kernels(cuda_device, B, N, heads, d):
+    """The short forward against the TPU-order plain version (context and
+    lse); the backward from its saved (out, lse) against the TPU-order
+    plain backward and the kernel-order one, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    dout = torch.randn(B, N, heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
+    f0 = short_forward.launches
+    out, lse = short_forward(qkv, heads, with_lse=True)
+    torch.cuda.synchronize()
+    assert short_forward.launches == f0 + 1
+    ref, lse_ref = short_attention_reference(qkv, heads)
+    assert max_err(out, ref) <= bound(ref)
+    assert torch.equal(out, short_forward(qkv, heads)[0])  # lse changes nothing of out
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(1.0, lse_ref.abs().max().item())
+    got = packed_attention_backward(qkv, dout, heads, out, lse)
+    again = packed_attention_backward(qkv, dout, heads, out, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # no atomics
+    dref = packed_attention_bwd_reference(qkv, dout, heads)
+    assert max_err(got, dref) <= bound(dref)
+    oref = tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse)
+    assert max_err(got, oref) <= bound(oref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_vith_long_sequence_runs_k4_cuda_cores(cuda_device, dtype):
+    """qkv (1, 672, 3840) with 16 heads (vit-h, d = 80, on 448 x 384 crops),
+    past K1's shared memory: packed_attention's forward and autograd.grad
+    launch K4's CUDA-core kernels once each and meet the K1 bound against
+    the plain versions in the TPU kernels' order."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    qkv = torch.randn(1, 672, 3840, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(1, 672, 1280, generator=g, device=cuda_device).to(dtype)
+    assert kernel_path(672, 80, dtype) == kernel_path(672, 80, dtype, True) == "K4 CUDA cores"
+    f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
+    x = qkv.clone().requires_grad_(True)
+    y = packed_attention(x, 16)
+    (grad,) = torch.autograd.grad((y.float() * w.float()).sum(), x)
+    torch.cuda.synchronize()
+    assert (tiled_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 1)
+    ref = tiled_attention_reference(qkv, 16)
+    assert max_err(y, ref) <= bound(ref)
+    dref = tiled_attention_bwd_reference(qkv, w, 16)
+    assert max_err(grad, dref) <= bound(dref)
+    assert torch.equal(grad, packed_attention_backward(qkv, w, 16))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,dtype", [
+    (192, 64, torch.float32), (96, 48, torch.bfloat16), (645, 80, torch.bfloat16),
+    (646, 80, torch.bfloat16), (340, 80, torch.float32), (2304, 64, torch.float32),
+])
+def test_k1_smem_bytes_match_the_library(cuda_device, N, d, dtype):
+    """The route's count of K1's CUDA-core shared memory is the library's."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import _lib
+
+    code = 0 if dtype == torch.float32 else 1
+    assert _lib().packed_attention_smem_bytes(N, d, code) == k1_smem_bytes(N, d, dtype)
+    assert _lib().packed_attention_bwd_smem_bytes(N, d, code) == k1_smem_bytes(N, d, dtype)
 
 
 def _peaked_maps(g, B, K, H, W, device):

@@ -24,6 +24,7 @@ from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
 from probpose_pytorch_tpu_torch.ops.kernels.attention import packed_attention
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     attention_route,
+    k1_smem_bytes,
     tiled_attention,
     tiled_attention_backward,
     tiled_attention_bwd_reference,
@@ -61,6 +62,9 @@ TILED_CASES = [
     ((2, 200, 384), 2, 64),   # d 64, N padded to 256 by the row tile
     ((1, 300, 384), 4, 128),  # d 32
 ]
+# and d 80 (the vit-h width, on K4's CUDA cores in both dtypes); JAX's
+# tiled kernel groups d = 80 heads by eight
+PLAIN_CASES = TILED_CASES + [((1, 130, 3 * 8 * 80), 8, 64)]
 
 
 def _qkv(shape, seed, dtype):
@@ -75,7 +79,7 @@ def _qkv(shape, seed, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+@pytest.mark.parametrize("shape,heads,bq", PLAIN_CASES, ids=["d64", "d32", "d80"])
 def test_tiled_plain_forward_matches_jax(shape, heads, bq, dtype):
     qkv, _, jdt = _qkv(shape, 0, dtype)
     ref = np.asarray(jax_tiled(jnp.asarray(qkv, jdt), heads, bq=bq, interpret=True)
@@ -87,7 +91,7 @@ def test_tiled_plain_forward_matches_jax(shape, heads, bq, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
+@pytest.mark.parametrize("shape,heads,bq", PLAIN_CASES, ids=["d64", "d32", "d80"])
 def test_tiled_plain_backward_matches_jax(shape, heads, bq, dtype):
     qkv, dout, jdt = _qkv(shape, 1, dtype)
     _, vjp = jax.vjp(lambda x: jax_tiled(x, heads, bq, True), jnp.asarray(qkv, jdt))
@@ -117,8 +121,9 @@ def test_tiled_online_forward_matches_jax(shape, heads, bq, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,heads,bq", TILED_CASES, ids=["d64", "d32"])
 def test_tiled_online_backward_matches_jax(shape, heads, bq, dtype):
-    """The backward in the kernels' order, from the forward's (out, lse) with
-    D = rowsum(dO * O), against jax.vjp of the TPU kernel."""
+    """The backward in the kernels' order, from the forward's (out, lse)
+    (D = rowsum(dP * P) at N = 200, rowsum(dO * O) at N = 300), against
+    jax.vjp of the TPU kernel."""
     qkv, dout, jdt = _qkv(shape, 1, dtype)
     _, vjp = jax.vjp(lambda x: jax_tiled(x, heads, bq, True), jnp.asarray(qkv, jdt))
     (ref,) = vjp(jnp.asarray(dout, jdt))
@@ -203,14 +208,19 @@ def test_tiled_attention_refuses_head_major_and_bad_shapes():
         tiled_attention_backward(torch.zeros(1, 8, 96), torch.zeros(1, 8, 30), 2)
 
 
-@pytest.mark.parametrize("need,route", [
-    (112 * 1024, "K1"),           # K1's tensor-core forward at N = 192, d = 64
-    (H100_SMEM, "K1"),            # exactly the limit still fits
-    (H100_SMEM + 1, "K4"),
-    (292 * 2304, "K4"),           # K1's CUDA-core need at N = 2304 in bf16, d = 64
+@pytest.mark.parametrize("N,d,limit,route", [
+    pytest.param(192, 64, H100_SMEM, "K1 CUDA cores", id="114688-K1"),  # the flagship
+    # exactly K1's byte count still fits; one byte less does not
+    pytest.param(300, 64, k1_smem_bytes(300, 64, torch.float32), "K1 CUDA cores",
+                 id="232448-K1"),
+    pytest.param(300, 64, k1_smem_bytes(300, 64, torch.float32) - 1, "K4 CUDA cores", id="232449-K4"),
+    pytest.param(2304, 64, H100_SMEM, "K4 CUDA cores", id="672768-K4"),  # ViT-S at 768 x 768
 ])
-def test_attention_route_given_bytes(need, route):
-    assert attention_route(need, H100_SMEM) == route
+def test_attention_route_given_bytes(N, d, limit, route):
+    """f32 runs K1's CUDA cores where K1's shared memory fits the card's
+    limit, else K4's CUDA-core kernels."""
+    assert attention_route(N, d, torch.float32, limit) == route
+    assert attention_route(N, d, torch.float32, limit, backward=True) == route
 
 
 # --------------------------------------------------------------------------
