@@ -49,19 +49,24 @@ generator:
            crops with 12 short attention forwards, 12 K5 forward and 1 K2
            launch per forward; the
            same weights with attn_impl="pallas" launch K6 instead of K1 and
-           give the same keypoints; K5 forward and K6 against their plain
-           versions at the batch's shapes (and a ragged K5 case); then, not
-           gated, K5, K6 and ViT-B's K1 against their plain versions, the
-           dense half-block (cuBLAS) and scaled_dot_product_attention, and
-           serving crops/s
+           give the same keypoints; K5 forward (bf16 on the wgmma kernels of
+           csrc/fused_mlp_sm90.cu) and K6 against their plain versions at
+           the batch's shapes (and a ragged K5 case); then, not gated, K5,
+           K6 and ViT-B's K1 against their plain versions, the dense
+           half-block (cuBLAS) and scaled_dot_product_attention, serving
+           crops/s and peak device memory
   phase 7  that ViT-B trained through Trainer with per-block recompute
            (remat) at its config's batch of 64, augmentation off: a float32
            step through the kernels against the plain step; Trainer.fit for
            10 bf16 steps whose losses are finite and fall, with 24 short
            attention forwards, 12 attention backwards (from the saved out
-           and lse), 24 K5 forward, 12 K5 backward and 1 K2 launch per step; the K5 backward against its plain version at
-           that batch, bit-identical across two runs; then, not gated, its
-           time, step time, crops/s and peak device memory
+           and lse), 24 K5 forward, 12 K5 backward and 1 K2 launch per step;
+           the K5 backward at that batch against its plain version and,
+           within two bf16 ulps, against its plain twin in the kernel's order
+           (du rounded, one f32 sum), bit-identical across two runs, and K5
+           forward at the step's rows against its plain version; then, not
+           gated, their times against the dense half-block's forward and
+           backward (cuBLAS), step time, crops/s and peak device memory
   phase 8  the long-sequence path: the flagship configuration on 768 x 768
            inputs (N = 2304 tokens, 192 x 192 heatmaps). K4 forward and
            backward (row-tiled attention; bf16 on wgmma fed by TMA)
@@ -771,6 +776,23 @@ def dense_half_block(torch, x, scale, bias, w1, b1, w2, b2):
     return x + F.linear(F.gelu(F.linear(y, w1.t(), b1), approximate="tanh"), w2.t(), b2)
 
 
+def dense_fwd_fn(torch, a):
+    """The dense half-block on K5's arguments `a`, all cast to x's dtype, as
+    a thunk: the yardstick of K5 forward."""
+    dense = (a[0], *(t.to(a[0].dtype) for t in a[1:]))
+    return lambda: dense_half_block(torch, *dense)
+
+
+def dense_bwd_fn(torch, a, dout):
+    """The backward alone of the dense half-block on K5's arguments `a` (cast
+    to x's dtype) and dout, through torch.autograd.grad, as a thunk: the
+    yardstick of K5 backward."""
+    leaves = [t.detach().to(a[0].dtype).requires_grad_(True) for t in a]
+    with torch.enable_grad():
+        out = dense_half_block(torch, *leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
 def k5_grad_bound(ref) -> float:
     """K5 backward's bound, relative to each cotangent's magnitude: four bf16
     ulps (4 * 2**-8) of max|ref|. The kernel's tensor-core products take du
@@ -851,13 +873,12 @@ def phase6_vitb_serving(torch, dev, card: str, g, profile: bool) -> dict:
         a = mlp_inputs(torch, blk, rows, g, dev)
         k5f_ms, k5f_plain_ms = paired_ms(torch, lambda: fused_ln_mlp(*a),
                                          lambda: fused_ln_mlp_reference(*a), iters=10)
-        dense = (a[0], *(t.to(torch.bfloat16) for t in a[1:]))
-        k5f_dense_ms = cuda_ms(torch, lambda: dense_half_block(torch, *dense), iters=10)
+        k5f_lib_ms = cuda_ms(torch, dense_fwd_fn(torch, a), iters=10)
         k5f_bound = bound_ms(nbytes(*a, a[0]), 4 * rows * C * Hd)
         say(f"phase 6 [{card}]: K5 forward x ({rows}, {C}) bf16: kernel {k5f_ms:.4f} ms, plain "
-            f"{k5f_plain_ms:.4f} ms, dense half-block (cuBLAS) {k5f_dense_ms:.4f} ms, bound "
+            f"{k5f_plain_ms:.4f} ms, dense half-block (cuBLAS) {k5f_lib_ms:.4f} ms, bound "
             f"{k5f_bound[0]:.4f} ms ({k5f_bound[1]})")
-        del a, dense
+        del a
 
         qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
         q, k, v = qkv.unflatten(-1, (3, heads, -1)).unbind(2)
@@ -902,7 +923,7 @@ def phase6_vitb_serving(torch, dev, card: str, g, profile: bool) -> dict:
         profile_window(torch, card, f"3 ViT-B fused-MLP serving batches of {B}",
                        lambda: predictor.predict(f_dev, b_dev))
     return dict(k5f_err=k5f_err, k5f_ms=k5f_ms, k5f_plain_ms=k5f_plain_ms,
-                k5f_dense_ms=k5f_dense_ms, k5f_bound=k5f_bound, k6=counts6["k6"],
+                k5f_lib_ms=k5f_lib_ms, k5f_bound=k5f_bound, k6=counts6["k6"],
                 k6_err=k6_err, k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_lib_ms=attn_lib_ms,
                 k6_bound=attn_bound)
 
@@ -913,8 +934,11 @@ def phase7_vitb_training(torch, dev, card: str, profile: bool) -> dict:
     backward's numbers."""
     from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
     from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        fused_ln_mlp,
         fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_kernel_order_reference,
         fused_ln_mlp_bwd_reference,
+        fused_ln_mlp_reference,
     )
 
     cfg = vitb_train_config("bfloat16")
@@ -951,35 +975,52 @@ def phase7_vitb_training(torch, dev, card: str, profile: bool) -> dict:
     check(counts["k5b"] == depth * steps, "K5 backward count off")
     check(counts["k2"] == steps and counts["k6"] == 0, "K2 or K6 launch count off")
 
-    # K5 backward at the batch's rows, gated per cotangent and rerun for
-    # bit-identical gradients; then numbers, not gated.
+    # K5 backward at the batch's rows, gated per cotangent against the plain
+    # version and against its twin in the kernel's order, and rerun for
+    # bit-identical gradients; K5 forward at the same rows; then numbers,
+    # not gated. The inputs carry no grad, so no call records a graph.
     g = torch.Generator(device=dev).manual_seed(7)
     backbone = trainer.model.backbone
     fc1 = backbone.blocks[0].mlp.fc1
     rows, C, Hd = B * backbone.pos_embed.shape[1], fc1.in_features, fc1.out_features
-    with torch.inference_mode():
-        a = mlp_inputs(torch, backbone.blocks[0], rows, g, dev)
-        dout = torch.randn(rows, C, generator=g, device=dev).to(torch.bfloat16)
-        grads = fused_ln_mlp_backward(*a, dout)
-        again = fused_ln_mlp_backward(*a, dout)
-        refs = fused_ln_mlp_bwd_reference(*a, dout)
-        k5b_err = 0.0
-        for name, got, rerun, ref in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
-                                         grads, again, refs):
-            check(torch.equal(got, rerun), f"K5 backward {name} differs between two runs")
-            k5b_err = max(k5b_err, gate(torch, f"K5 backward {name} {tuple(got.shape)} "
-                                        f"{str(got.dtype).split('.')[-1]}, x ({rows}, {C})",
-                                        got, ref, phase=7, bound=k5_grad_bound(ref)))
-        say("phase 7: K5 backward: all seven cotangents bit-identical across two runs")
-        k5b_ms, k5b_plain_ms = paired_ms(torch, lambda: fused_ln_mlp_backward(*a, dout),
-                                         lambda: fused_ln_mlp_bwd_reference(*a, dout), iters=5)
-        # inputs x, the vectors, W1, W2 and dO; outputs dx, the vector
-        # gradients and dW1, dW2: five products of 2 R C Hd operations
-        # (fc1 recomputed, dh, dy, dW1, dW2).
-        k5b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * rows * C * Hd)
-        say(f"phase 7 [{card}]: K5 backward x ({rows}, {C}) bf16: kernel {k5b_ms:.4f} ms, "
-            f"plain {k5b_plain_ms:.4f} ms, bound {k5b_bound[0]:.4f} ms ({k5b_bound[1]})")
-        del a, dout, grads, again, refs
+    a = mlp_inputs(torch, backbone.blocks[0], rows, g, dev)
+    dout = torch.randn(rows, C, generator=g, device=dev).to(torch.bfloat16)
+    grads = fused_ln_mlp_backward(*a, dout)
+    again = fused_ln_mlp_backward(*a, dout)
+    refs = fused_ln_mlp_bwd_reference(*a, dout)
+    twins = fused_ln_mlp_bwd_kernel_order_reference(*a, dout)
+    k5b_err = k5b_twin_err = 0.0
+    for name, got, rerun, ref, twin in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
+                                           grads, again, refs, twins):
+        label = f"K5 backward {name} {tuple(got.shape)} {str(got.dtype).split('.')[-1]}, " \
+                f"x ({rows}, {C})"
+        check(torch.equal(got, rerun), f"K5 backward {name} differs between two runs")
+        k5b_err = max(k5b_err, gate(torch, label, got, ref, phase=7, bound=k5_grad_bound(ref)))
+        k5b_twin_err = max(k5b_twin_err, gate(
+            torch, f"{label} vs the kernel-order twin", got, twin, phase=7,
+            bound=2 * 2**-8 * twin.float().abs().max().item()))
+    say("phase 7: K5 backward: all seven cotangents bit-identical across two runs")
+    del refs, twins
+    k5b_ms, k5b_plain_ms = paired_ms(torch, lambda: fused_ln_mlp_backward(*a, dout),
+                                     lambda: fused_ln_mlp_bwd_reference(*a, dout), iters=5)
+    k5b_lib_ms = cuda_ms(torch, dense_bwd_fn(torch, a, dout), iters=10)
+    # inputs x, the vectors, W1, W2 and dO; outputs dx, the vector gradients
+    # and dW1, dW2: five products of 2 R C Hd operations (fc1 recomputed,
+    # dh, dy, dW1, dW2).
+    k5b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * rows * C * Hd)
+    say(f"phase 7 [{card}]: K5 backward x ({rows}, {C}) bf16: kernel {k5b_ms:.4f} ms, "
+        f"plain {k5b_plain_ms:.4f} ms, dense half-block backward (cuBLAS, autograd) "
+        f"{k5b_lib_ms:.4f} ms, bound {k5b_bound[0]:.4f} ms ({k5b_bound[1]})")
+    k5f_err = gate(torch, f"K5 forward x ({rows}, {C}) bf16, hidden {Hd}", fused_ln_mlp(*a),
+                   fused_ln_mlp_reference(*a), phase=7)
+    k5f_ms, k5f_plain_ms = paired_ms(torch, lambda: fused_ln_mlp(*a),
+                                     lambda: fused_ln_mlp_reference(*a), iters=10)
+    k5f_lib_ms = cuda_ms(torch, dense_fwd_fn(torch, a), iters=10)
+    k5f_bound = bound_ms(nbytes(*a, a[0]), 4 * rows * C * Hd)
+    say(f"phase 7 [{card}]: K5 forward x ({rows}, {C}) bf16 (the step's rows): kernel "
+        f"{k5f_ms:.4f} ms, plain {k5f_plain_ms:.4f} ms, dense half-block (cuBLAS) "
+        f"{k5f_lib_ms:.4f} ms, bound {k5f_bound[0]:.4f} ms ({k5f_bound[1]})")
+    del a, dout, grads, again
 
     db = trainer.device_batch(batch)
     for _ in range(2):
@@ -1000,8 +1041,11 @@ def phase7_vitb_training(torch, dev, card: str, profile: bool) -> dict:
     if profile:
         profile_window(torch, card, f"3 bf16 ViT-B train steps with remat at B={B}",
                        lambda: trainer.train_step(trainer.state, db))
-    return dict(counts, k5b_err=k5b_err, k5b_ms=k5b_ms, k5b_plain_ms=k5b_plain_ms,
-                k5b_bound=k5b_bound)
+    return dict(counts, k5b_err=k5b_err, k5b_twin_err=k5b_twin_err, k5b_ms=k5b_ms,
+                k5b_plain_ms=k5b_plain_ms, k5b_lib_ms=k5b_lib_ms, k5b_bound=k5b_bound,
+                k5f_step=dict(rows=rows, launches_per_step=counts["k5f"] // steps,
+                              max_abs_err=k5f_err, ms=k5f_ms, plain_ms=k5f_plain_ms,
+                              library_ms=k5f_lib_ms, bound_ms=k5f_bound[0]))
 
 
 def config_768(dtype: str, batch: int):
@@ -1012,12 +1056,18 @@ def config_768(dtype: str, batch: int):
 
 
 def ptxas_kernels(log: str) -> dict:
-    """Registers and spill bytes (stores + loads) of each bf16 wgmma kernel
-    at d = 64 (csrc/tiled_attention_sm90.cu; the short forward at N = 192),
-    from nvcc's -Xptxas -v report."""
+    """Registers and spill bytes (stores + loads) of each bf16 wgmma kernel:
+    attention at d = 64 (csrc/tiled_attention_sm90.cu; the short forward at
+    N = 192) and K5's at ViT-B widths (csrc/fused_mlp_sm90.cu), from nvcc's
+    -Xptxas -v report."""
     names = {"10fwd_kernelILi64": "forward", "13bwd_dq_kernelILi64": "backward dQ",
              "14bwd_dkv_kernelILi64": "backward dK/dV",
-             "16short_fwd_kernelILi64ELi3E": "short forward"}
+             "16short_fwd_kernelILi64ELi3E": "short forward",
+             "11gemm_kernelILi3ELi192ELi0ELi0ELi0E": "K5 u = y W1, GELU",
+             "11gemm_kernelILi3ELi192ELi0ELi0ELi2E": "K5 o = h W2 + x",
+             "11dual_kernelILi0E": "K5 u and dh",
+             "11gemm_kernelILi3ELi192ELi0ELi1ELi3E": "K5 dy = du W1^T",
+             "11gemm_kernelILi3ELi192ELi1ELi1ELi4E": "K5 dW1^T, dW2^T"}
     found, current = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -1429,8 +1479,9 @@ def main() -> None:
     if report.get("ptxas"):
         for line in report["ptxas"].strip().splitlines():
             say(f"  ptxas: {line.strip()}")
-    k4_ptxas = ptxas_kernels(report.get("ptxas", ""))
-    say(f"phase 0: bf16 wgmma kernels at d = 64, registers and spill bytes: {k4_ptxas}")
+    wgmma_ptxas = ptxas_kernels(report.get("ptxas", ""))
+    say(f"phase 0: bf16 wgmma kernels (attention at d = 64, K5 at ViT-B widths), registers "
+        f"and spill bytes: {wgmma_ptxas}")
 
     # ---------------------------------------------------------------- phase 1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1598,7 +1649,7 @@ def main() -> None:
     train_768 = phase8_training(torch, dev, card, profile)
     k3 = serve_768["k3"]
 
-    mlp_cu = "csrc/fused_mlp.cu"
+    mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
         # K1's bf16 shapes run the wgmma kernels (f32 keeps K1's CUDA
@@ -1633,13 +1684,18 @@ def main() -> None:
                      k4["k4b_bound"], k4["k4b_lib_ms"], design="wgmma+TMA",
                      redesigned_in="PR 5", recompute_ms=k4["k4b_recompute_ms"],
                      online_err=k4["k4b_online_err"], online_rel_err=k4["k4b_online_rel"]),
+        # K5's bf16 path runs csrc/fused_mlp_sm90.cu (f32: csrc/fused_mlp.cu);
+        # the library call is the same half-block on cuBLAS (dense_half_block).
+        # The forward's numbers are at serving's 49,152 rows; `step_rows`
+        # holds them at the remat step's 12,288, 24 launches a step.
         kernel_entry("K5 fused_ln_mlp forward", "cuda", mlp_cu, "mlp_kernel.py:49",
                      train_b["k5f"], serve_b["k5f_err"], serve_b["k5f_ms"],
-                     serve_b["k5f_plain_ms"], serve_b["k5f_bound"],
-                     dense_ms=serve_b["k5f_dense_ms"]),
+                     serve_b["k5f_plain_ms"], serve_b["k5f_bound"], serve_b["k5f_lib_ms"],
+                     design="wgmma+TMA", step_rows=train_b["k5f_step"]),
         kernel_entry("K5 fused_ln_mlp backward", "cuda", mlp_cu, "mlp_kernel.py:57",
                      train_b["k5b"], train_b["k5b_err"], train_b["k5b_ms"],
-                     train_b["k5b_plain_ms"], train_b["k5b_bound"]),
+                     train_b["k5b_plain_ms"], train_b["k5b_bound"], train_b["k5b_lib_ms"],
+                     design="wgmma+TMA", twin_err=train_b["k5b_twin_err"]),
         # K6's bf16 views run the short forward too (one tensor map per
         # view), so K6 and K1 give the same bits; other shapes run K1's
         # CUDA-core body in csrc/packed_attention.cu.

@@ -1,89 +1,59 @@
-// Kernel K5: the ViT block's second half fused per row,
+// Kernel K5 in float32: the ViT block's second half fused per row,
 //   out = x + fc2(gelu(fc1(LayerNorm(x)))),
-// its forward and its recompute backward.
+// its forward and its recompute backward, on the CUDA cores (FMA, no TF32).
+// The bf16 path is csrc/fused_mlp_sm90.cu (wgmma + TMA).
 //
 // Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/mlp_kernel.py, called from `_fwd` / `_bwd`
-// under the custom_vjp `fused_ln_mlp`). Per row, as `_tile_forward` does:
-// f32 LayerNorm with the two-pass variance and eps 1e-6; y rounded to the
-// weight type; u = y W1 + b1 summed in f32; GELU in f32 (tanh, or erf);
-// h rounded to the weight type; o = h W2 + b2 in f32; o + x in f32, cast
-// once to x's type. The (rows, 4C) hidden state never reaches device memory.
+// under the custom_vjp `fused_ln_mlp`) for float32 x and weights. Per row, as
+// `_tile_forward` does: f32 LayerNorm with the two-pass variance and eps
+// 1e-6; u = y W1 + b1; GELU (tanh, or erf); o = h W2 + b2; o + x. The
+// (rows, 4C) hidden state never reaches device memory.
 //
 // Weights arrive in nn.Linear's layout: w1t = W1^T (Hd, C), w2t = W2^T
 // (C, Hd), both row-major; the gradients dW1^T and dW2^T come back in the
 // same layout.
 //
-// What bounds it on an H100: at ViT-B (C = 768, Hd = 3072) each row costs
-// 4 C Hd FLOPs forward against 4 C bytes in and out, ~1,500 FLOP per byte,
-// far above the card's ~295 FLOP/byte bf16 ridge: the tensor cores bound
-// it. This first version reads its weight fragments straight from the L2
-// (W1 + W2 in bf16 are 9.4 MB, resident in the 50 MB L2) with WMMA
-// mma.sync; a later one should stage them with TMA and use wgmma.
+// What bounds it on an H100: at ViT-B widths each row costs 4 C Hd FLOPs
+// forward against 8 C bytes in and out, far above the ridge of the CUDA
+// cores' 67 TFLOP/s: the FMA rate bounds it. The design keeps 16-row tiles,
+// 256 hidden columns a chunk (one per thread), and stages weight slabs
+// transposed in shared memory where a thread's reads would stride.
 //
-// The budget. A block's (rows, C) f32 output accumulator lives in registers:
-// each of 8 warps owns C / 8 output columns for all the block's rows, so
-// rows x C x 4 bytes are spread over 256 threads. Instead of splitting the
-// output columns across blocks, which would recompute fc1 once per split,
-// the block takes fewer rows: 64 at C = 384, 32 at C = 768 and 16 at
-// C = 1024 and 1280, which keeps the accumulator at <= 96 registers a thread.
-// The hidden dimension streams in chunks of 128 columns (16 per warp): fc1
-// of a chunk goes to shared memory as f32, takes b1 and GELU, is rounded
-// and multiplied into the accumulator by fc2.
-//
-// The backward, per row (g = dO in f32, cotangents rounded where the TPU
-// kernel's in-kernel jax.vjp rounds them: dh and dy to the weight type):
-//   dh = round(g W2^T);  du = dh * gelu'(u);  dy = round(du W1^T)
+// The backward, per row (g = dO):
+//   dh = g W2^T;  du = dh * gelu'(u);  dy = du W1^T
 //   dx = g + rstd (dy*s - mean(dy*s) - xhat mean(dy*s*xhat))
 //   dW1 = y^T du, dW2 = h^T g, db1 = sum du, db2 = sum g,
 //   dscale = sum dy*xhat, dbias = sum dy
 // in three launches, no atomics, so two runs give the same bits:
-//   rows pass    one block per row tile, the forward's shape: recomputes
-//                u, dh, du chunk by chunk, accumulates dy in registers, then
-//                the LayerNorm backward writes dx; per-tile partial sums of
-//                dscale, dbias and db2. It also leaves y and g in a
-//                zero-padded scratch for the next pass.
-//   weights pass one block per (16 hidden columns, 1,024-row chunk):
+//   rows pass    one block per 16-row tile: recomputes u, dh, du chunk by
+//                chunk, accumulates dy in registers, then the LayerNorm
+//                backward writes dx; per-tile partial sums of dscale, dbias
+//                and db2. It also leaves y and g in a zero-padded scratch.
+//   weights pass one block per (8 hidden columns, 1,024-row chunk):
 //                recomputes u and dh of its columns tile by tile and
 //                accumulates dW1^T and dW2^T of those columns in registers;
-//                writes f32 partials per row chunk (18.9 MB each at ViT-B).
-//   reduction    sums the partials of each gradient in chunk order, in f32,
-//                and casts dW1 and dW2 to the weight type, as the TPU kernel
-//                casts its f32 sums (mlp_kernel.py:202-204).
-// On the tensor cores du is rounded to bf16 before the dy and dW1 products
-// (the TPU kernel's product takes du in f32); ops/kernels/mlp.py's plain
-// backward keeps du in f32 and the card's checks bound the difference.
-//
-// float32 inputs run on the CUDA cores (FMA, no TF32), with the same passes:
-// 16-row tiles, 256 hidden columns a chunk (one per thread), weight slabs
-// staged transposed in shared memory where a thread's reads would stride.
+//                writes f32 partials per row chunk.
+//   reduction    sums the partials of each gradient in chunk order.
 //
 // Shapes: C in {384, 768, 1024, 1280}, Hd a multiple of 256. Plain-C
 // interface, loaded with ctypes (ops/kernels/mlp.py); every entry point
 // returns a cudaError_t as int (0 = success).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 namespace {
-
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 
 constexpr float kEps = 1e-6f;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
@@ -217,345 +187,6 @@ cudaError_t sum_partials(const float* part, int P, long long n, void* out, cudaS
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ bf16, WMMA
-
-constexpr int kHC = 128;      // hidden columns per chunk: 8 warps x 16
-constexpr int kUS = kHC + 4;  // f32 row stride of a chunk's u and dh
-constexpr int kHS = kHC + 8;  // bf16 row stride of a chunk's h and du
-constexpr int kBT = 64;       // rows per tile of the weights pass
-constexpr int kHB = 16;       // hidden columns per block of the weights pass
-constexpr int kRC = 1024;     // rows per partial of the weight gradients
-constexpr int kBU = kHB + 4;  // f32 row stride of the weights pass's u, dh
-constexpr int kBS = kHB + 8;  // bf16 row stride of its h, du
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int C>
-struct Geo {
-  static constexpr int RF = C == 384 ? 4 : (C == 768 ? 2 : 1);  // 16-row fragments
-  static constexpr int BM = 16 * RF;                            // rows per block
-  static constexpr int NF = C / 128;     // 16-column output fragments per warp
-  static constexpr int YS = C + 8;       // bf16 row stride of y and g tiles
-  static constexpr int OS = C + 4;       // f32 row stride of the o / dy tile
-  static constexpr int CS = C >= 1024 ? 2 : 1;       // column splits, weights pass
-  static constexpr int NW = C / CS / 16 / kWarps;    // its fragments per warp
-};
-
-int rows_per_block(int C) { return C == 384 ? 64 : (C == 768 ? 32 : 16); }
-
-template <int C>
-size_t fwd_mma_smem() {
-  using G = Geo<C>;
-  const size_t loop = static_cast<size_t>(G::BM) * (G::YS * 2 + kUS * 4 + kHS * 2);
-  const size_t epi = static_cast<size_t>(G::BM) * G::OS * 4;
-  return loop > epi ? loop : epi;
-}
-
-template <int C>
-size_t bwd_rows_mma_smem() {
-  using G = Geo<C>;
-  return static_cast<size_t>(G::BM) * (2 * G::YS * 2 + 2 * kUS * 4 + kHS * 2 + 2 * 4);
-}
-
-constexpr size_t kBwdWeightsMmaSmem =
-    static_cast<size_t>(kBT) * (2 * kBU * 4 + 2 * kBS * 2) + kThreads * 4;
-
-// u = y W1[:, c0 + 16 warp .. +16] for the block's RF row fragments, into
-// u_s (row stride kUS), column 16 * warp.
-template <int C>
-__device__ __forceinline__ void chunk_fc1(const bf16* y_s, const bf16* __restrict__ w1t,
-                                          int c0, float* u_s) {
-  using G = Geo<C>;
-  const int warp = threadIdx.x / 32;
-  FragC acc[G::RF];
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf) wmma::fill_fragment(acc[rf], 0.f);
-  const bf16* wb = w1t + static_cast<size_t>(c0 + 16 * warp) * C;
-  for (int k = 0; k < C; k += 16) {
-    FragBc b;
-    wmma::load_matrix_sync(b, wb + k, C);
-#pragma unroll
-    for (int rf = 0; rf < G::RF; ++rf) {
-      FragA a;
-      wmma::load_matrix_sync(a, y_s + 16 * rf * G::YS + k, G::YS);
-      wmma::mma_sync(acc[rf], a, b, acc[rf]);
-    }
-  }
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf)
-    wmma::store_matrix_sync(u_s + 16 * rf * kUS + 16 * warp, acc[rf], kUS, wmma::mem_row_major);
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                             const float* __restrict__ bias, const bf16* __restrict__ w1t,
-                             const float* __restrict__ b1, const bf16* __restrict__ w2t,
-                             const float* __restrict__ b2, bf16* __restrict__ out, int R,
-                             int Hd, int exact) {
-  using G = Geo<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* y_s = reinterpret_cast<bf16*>(smem);
-  float* u_s = reinterpret_cast<float*>(y_s + G::BM * G::YS);
-  bf16* h_s = reinterpret_cast<bf16*>(u_s + G::BM * kUS);
-  float* o_s = reinterpret_cast<float*>(smem);  // after the chunk loop
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = static_cast<int>(blockIdx.x) * G::BM;
-  const int col0 = warp * G::NF * 16;
-
-  layer_norm_tile<bf16, G::BM>(x, scale, bias, C, row0, R, y_s, G::YS, nullptr, nullptr,
-                               nullptr);
-  __syncthreads();
-
-  FragC o[G::RF][G::NF];
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf)
-#pragma unroll
-    for (int nf = 0; nf < G::NF; ++nf) wmma::fill_fragment(o[rf][nf], 0.f);
-
-  for (int c0 = 0; c0 < Hd; c0 += kHC) {
-    chunk_fc1<C>(y_s, w1t, c0, u_s);
-    __syncwarp();
-    for (int e = lane; e < G::BM * 16; e += 32) {  // this warp's 16 columns
-      const int r = e / 16, j = 16 * warp + e % 16;
-      h_s[r * kHS + j] = __float2bfloat16_rn(gelu(u_s[r * kUS + j] + b1[c0 + j], exact));
-    }
-    __syncthreads();
-    for (int k = 0; k < kHC; k += 16) {
-      FragA a[G::RF];
-#pragma unroll
-      for (int rf = 0; rf < G::RF; ++rf)
-        wmma::load_matrix_sync(a[rf], h_s + 16 * rf * kHS + k, kHS);
-#pragma unroll
-      for (int nf = 0; nf < G::NF; ++nf) {
-        FragBc b;
-        wmma::load_matrix_sync(b, w2t + static_cast<size_t>(col0 + 16 * nf) * Hd + c0 + k, Hd);
-#pragma unroll
-        for (int rf = 0; rf < G::RF; ++rf) wmma::mma_sync(o[rf][nf], a[rf], b, o[rf][nf]);
-      }
-    }
-    __syncthreads();  // h_s is rewritten by the next chunk
-  }
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf)
-#pragma unroll
-    for (int nf = 0; nf < G::NF; ++nf)
-      wmma::store_matrix_sync(o_s + 16 * rf * G::OS + col0 + 16 * nf, o[rf][nf], G::OS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < G::BM * C; e += kThreads) {
-    const int r = e / C, c = e - r * C;
-    const int n = row0 + r;
-    if (n < R) {
-      const size_t i = static_cast<size_t>(n) * C + c;
-      out[i] = __float2bfloat16_rn((o_s[r * G::OS + c] + b2[c]) + __bfloat162float(x[i]));
-    }
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_rows_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                                  const float* __restrict__ bias, const bf16* __restrict__ w1t,
-                                  const float* __restrict__ b1, const bf16* __restrict__ w2t,
-                                  const bf16* __restrict__ dout, bf16* __restrict__ dx,
-                                  bf16* __restrict__ ypad, bf16* __restrict__ gpad,
-                                  float* __restrict__ part, int R, int Hd, int exact) {
-  using G = Geo<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* y_s = reinterpret_cast<bf16*>(smem);
-  bf16* g_s = y_s + G::BM * G::YS;
-  float* u_s = reinterpret_cast<float*>(g_s + G::BM * G::YS);
-  float* dh_s = u_s + G::BM * kUS;
-  bf16* du_s = reinterpret_cast<bf16*>(dh_s + G::BM * kUS);
-  float* mu_s = reinterpret_cast<float*>(du_s + G::BM * kHS);
-  float* rs_s = mu_s + G::BM;
-  float* dy_s = reinterpret_cast<float*>(smem);  // over y_s and g_s, after the loop
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = static_cast<int>(blockIdx.x) * G::BM;
-  const int col0 = warp * G::NF * 16;
-
-  layer_norm_tile<bf16, G::BM>(x, scale, bias, C, row0, R, y_s, G::YS, mu_s, rs_s, ypad);
-  for (int e = threadIdx.x; e < G::BM * C / 8; e += kThreads) {
-    const int r = e / (C / 8), c = (e - r * (C / 8)) * 8;
-    const int n = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < R) v = *reinterpret_cast<const uint4*>(dout + static_cast<size_t>(n) * C + c);
-    *reinterpret_cast<uint4*>(g_s + r * G::YS + c) = v;
-    *reinterpret_cast<uint4*>(gpad + static_cast<size_t>(n) * C + c) = v;
-  }
-  __syncthreads();
-
-  FragC dy[G::RF][G::NF];
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf)
-#pragma unroll
-    for (int nf = 0; nf < G::NF; ++nf) wmma::fill_fragment(dy[rf][nf], 0.f);
-
-  for (int c0 = 0; c0 < Hd; c0 += kHC) {
-    chunk_fc1<C>(y_s, w1t, c0, u_s);
-    {  // dh = g W2^T for this warp's 16 hidden columns
-      FragC acc[G::RF];
-#pragma unroll
-      for (int rf = 0; rf < G::RF; ++rf) wmma::fill_fragment(acc[rf], 0.f);
-      for (int k = 0; k < C; k += 16) {
-        FragBr b;
-        wmma::load_matrix_sync(b, w2t + static_cast<size_t>(k) * Hd + c0 + 16 * warp, Hd);
-#pragma unroll
-        for (int rf = 0; rf < G::RF; ++rf) {
-          FragA a;
-          wmma::load_matrix_sync(a, g_s + 16 * rf * G::YS + k, G::YS);
-          wmma::mma_sync(acc[rf], a, b, acc[rf]);
-        }
-      }
-#pragma unroll
-      for (int rf = 0; rf < G::RF; ++rf)
-        wmma::store_matrix_sync(dh_s + 16 * rf * kUS + 16 * warp, acc[rf], kUS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < G::BM * 16; e += 32) {
-      const int r = e / 16, j = 16 * warp + e % 16;
-      const float u = u_s[r * kUS + j] + b1[c0 + j];
-      const float dh = round_to<bf16>(dh_s[r * kUS + j]);
-      du_s[r * kHS + j] = __float2bfloat16_rn(dh * gelu_grad(u, exact));
-    }
-    __syncthreads();
-    for (int k = 0; k < kHC; k += 16) {  // dy += du W1^T[c0 + k ..]
-      FragA a[G::RF];
-#pragma unroll
-      for (int rf = 0; rf < G::RF; ++rf)
-        wmma::load_matrix_sync(a[rf], du_s + 16 * rf * kHS + k, kHS);
-#pragma unroll
-      for (int nf = 0; nf < G::NF; ++nf) {
-        FragBr b;
-        wmma::load_matrix_sync(b, w1t + static_cast<size_t>(c0 + k) * C + col0 + 16 * nf, C);
-#pragma unroll
-        for (int rf = 0; rf < G::RF; ++rf) wmma::mma_sync(dy[rf][nf], a[rf], b, dy[rf][nf]);
-      }
-    }
-    __syncthreads();  // du_s is rewritten by the next chunk
-  }
-#pragma unroll
-  for (int rf = 0; rf < G::RF; ++rf)
-#pragma unroll
-    for (int nf = 0; nf < G::NF; ++nf)
-      wmma::store_matrix_sync(dy_s + 16 * rf * G::OS + col0 + 16 * nf, dy[rf][nf], G::OS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  ln_backward_tile<bf16, G::BM>(dy_s, G::OS, x, dout, scale, mu_s, rs_s, C, row0, R, dx, part,
-                                blockIdx.x, gridDim.x);
-}
-
-// Block (16 hidden columns j0.., row chunk blockIdx.y, column split
-// blockIdx.z): dW1^T[j0.., cols] and dW2^T[cols, j0..] summed over the
-// chunk's rows of the zero-padded y and g.
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_weights_mma_kernel(const bf16* __restrict__ ypad, const bf16* __restrict__ gpad,
-                                     const bf16* __restrict__ w1t, const float* __restrict__ b1,
-                                     const bf16* __restrict__ w2t, float* __restrict__ pw1,
-                                     float* __restrict__ pw2, float* __restrict__ pb1, int Rpad,
-                                     int Hd, int exact) {
-  using G = Geo<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* u_s = reinterpret_cast<float*>(smem);
-  float* dh_s = u_s + kBT * kBU;
-  bf16* du_s = reinterpret_cast<bf16*>(dh_s + kBT * kBU);
-  bf16* h_s = du_s + kBT * kBS;
-  float* red_s = reinterpret_cast<float*>(h_s + kBT * kBS);
-  const int warp = threadIdx.x / 32;
-  const int tid = threadIdx.x;
-  const int j0 = static_cast<int>(blockIdx.x) * kHB;
-  const int p = blockIdx.y;
-  const int cbase = static_cast<int>(blockIdx.z) * (C / G::CS) + warp * G::NW * 16;
-  const int r_end = min((p + 1) * kRC, Rpad);
-
-  FragC a1[G::NW], a2[G::NW];
-#pragma unroll
-  for (int i = 0; i < G::NW; ++i) {
-    wmma::fill_fragment(a1[i], 0.f);
-    wmma::fill_fragment(a2[i], 0.f);
-  }
-  float db1 = 0.f;  // column tid % 16, rows tid / 16 + 16 i of each tile
-  for (int r0 = p * kRC; r0 < r_end; r0 += kBT) {
-    {  // warps 0-3: u of row fragment warp; warps 4-7: dh of row fragment warp - 4
-      const int rf = warp & 3;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      const size_t arow = static_cast<size_t>(r0 + 16 * rf) * C;
-      if (warp < 4) {
-        for (int k = 0; k < C; k += 16) {
-          FragA a;
-          FragBc b;
-          wmma::load_matrix_sync(a, ypad + arow + k, C);
-          wmma::load_matrix_sync(b, w1t + static_cast<size_t>(j0) * C + k, C);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(u_s + 16 * rf * kBU, acc, kBU, wmma::mem_row_major);
-      } else {
-        for (int k = 0; k < C; k += 16) {
-          FragA a;
-          FragBr b;
-          wmma::load_matrix_sync(a, gpad + arow + k, C);
-          wmma::load_matrix_sync(b, w2t + static_cast<size_t>(k) * Hd + j0, Hd);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(dh_s + 16 * rf * kBU, acc, kBU, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < kBT * kHB; e += kThreads) {
-      const int r = e / kHB, j = e % kHB;
-      const float u = u_s[r * kBU + j] + b1[j0 + j];
-      const float du = round_to<bf16>(dh_s[r * kBU + j]) * gelu_grad(u, exact);
-      db1 += du;
-      du_s[r * kBS + j] = __float2bfloat16_rn(du);
-      h_s[r * kBS + j] = __float2bfloat16_rn(gelu(u, exact));
-    }
-    __syncthreads();
-    for (int k = 0; k < kBT; k += 16) {
-      FragAc du_t;  // du^T (hidden x rows)
-      FragBr hb;    // h (rows x hidden)
-      wmma::load_matrix_sync(du_t, du_s + k * kBS, kBS);
-      wmma::load_matrix_sync(hb, h_s + k * kBS, kBS);
-      const size_t grow = static_cast<size_t>(r0 + k) * C;
-#pragma unroll
-      for (int i = 0; i < G::NW; ++i) {
-        const int col = cbase + 16 * i;
-        FragBr yb;   // y (rows x C)
-        FragAc g_t;  // g^T (C x rows)
-        wmma::load_matrix_sync(yb, ypad + grow + col, C);
-        wmma::load_matrix_sync(g_t, gpad + grow + col, C);
-        wmma::mma_sync(a1[i], du_t, yb, a1[i]);
-        wmma::mma_sync(a2[i], g_t, hb, a2[i]);
-      }
-    }
-    __syncthreads();  // u_s .. h_s are rewritten by the next tile
-  }
-#pragma unroll
-  for (int i = 0; i < G::NW; ++i) {
-    const int col = cbase + 16 * i;
-    wmma::store_matrix_sync(pw1 + (static_cast<size_t>(p) * Hd + j0) * C + col, a1[i], C,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(pw2 + (static_cast<size_t>(p) * C + col) * Hd + j0, a2[i], Hd,
-                            wmma::mem_row_major);
-  }
-  red_s[tid] = db1;
-  __syncthreads();
-  if (blockIdx.z == 0 && tid < kHB) {
-    float s = 0.f;
-    for (int q = 0; q < kThreads / kHB; ++q) s += red_s[q * kHB + tid];
-    pb1[static_cast<size_t>(p) * Hd + j0 + tid] = s;
-  }
-}
-
 // ----------------------------------------------------- float32, CUDA cores
 
 constexpr int kFR = 16;       // rows per tile
@@ -564,6 +195,7 @@ constexpr int kFK = 32;       // depth of a staged weight slab
 constexpr int kFWS = kFH + 1; // its row stride
 constexpr int kFCols = 5;     // ceil(1280 / 256): output columns per thread
 constexpr int kFHB = 8;       // hidden columns per block of the weights pass
+constexpr int kRC = 1024;     // rows per partial of the weight gradients
 
 // Rows j < nrows of a row-major matrix (row stride ld) from `src`, columns
 // k0 .. k0 + 32, transposed into ws[kk * kFWS + j]; zeros for j >= nrows.
@@ -820,9 +452,9 @@ bool supported(int C, int Hd) {
   return (C == 384 || C == 768 || C == 1024 || C == 1280) && Hd > 0 && Hd % kFH == 0;
 }
 
-// Scratch of the backward, one allocation: y and g padded to the weights
-// pass's tile (zeros past R), the rows pass's per-tile partials of dscale,
-// dbias and db2, and the per-chunk partials of dW1^T, dW2^T and db1.
+// Scratch of the backward, one allocation: y and g padded to the 16-row tile
+// (zeros past R), the rows pass's per-tile partials of dscale, dbias and
+// db2, and the per-chunk partials of dW1^T, dW2^T and db1.
 struct Work {
   int Rpad, tiles, P;
   size_t y, g, pa, pw1, pw2, pb1, bytes;
@@ -830,19 +462,16 @@ struct Work {
 
 size_t align256(size_t v) { return (v + 255) / 256 * 256; }
 
-Work workspace(int R, int C, int Hd, int dtype) {
+Work workspace(int R, int C, int Hd) {
   Work w{};
-  const int tile = dtype == 1 ? kBT : kFR;
-  const int bm = dtype == 1 ? rows_per_block(C) : kFR;
-  const size_t esz = dtype == 1 ? 2 : 4;
-  w.Rpad = (R + tile - 1) / tile * tile;
-  w.tiles = w.Rpad / bm;
+  w.Rpad = (R + kFR - 1) / kFR * kFR;
+  w.tiles = w.Rpad / kFR;
   w.P = (w.Rpad + kRC - 1) / kRC;
   size_t off = 0;
   w.y = off;
-  off = align256(off + static_cast<size_t>(w.Rpad) * C * esz);
+  off = align256(off + static_cast<size_t>(w.Rpad) * C * 4);
   w.g = off;
-  off = align256(off + static_cast<size_t>(w.Rpad) * C * esz);
+  off = align256(off + static_cast<size_t>(w.Rpad) * C * 4);
   w.pa = off;
   off = align256(off + static_cast<size_t>(3) * w.tiles * C * 4);
   w.pw1 = off;
@@ -861,161 +490,67 @@ cudaError_t smem_attr(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int C>
-cudaError_t fwd_mma(const void* x, const float* scale, const float* bias, const void* w1t,
-                    const float* b1, const void* w2t, const float* b2, void* out, int R, int Hd,
-                    int exact, cudaStream_t s) {
-  const size_t smem = fwd_mma_smem<C>();
-  cudaError_t err = smem_attr(fused_mlp_fwd_mma_kernel<C>, smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (R + Geo<C>::BM - 1) / Geo<C>::BM;
-  fused_mlp_fwd_mma_kernel<C><<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(x), scale, bias, static_cast<const bf16*>(w1t), b1,
-      static_cast<const bf16*>(w2t), b2, static_cast<bf16*>(out), R, Hd, exact);
-  return cudaGetLastError();
+}  // namespace
+
+extern "C" long long fused_mlp_f32_bwd_workspace_bytes(int R, int C, int Hd) {
+  if (!supported(C, Hd) || R <= 0) return -1;
+  return static_cast<long long>(workspace(R, C, Hd).bytes);
 }
 
-template <int C>
-cudaError_t bwd_mma(const void* x, const float* scale, const float* bias, const void* w1t,
-                    const float* b1, const void* w2t, const void* dout, void* dx,
-                    unsigned char* work, const Work& w, int R, int Hd, int exact,
-                    cudaStream_t s) {
-  const size_t smem1 = bwd_rows_mma_smem<C>();
-  cudaError_t err = smem_attr(fused_mlp_bwd_rows_mma_kernel<C>, smem1);
+// x (R, C) -> out (R, C), float32; w1t (Hd, C), w2t (C, Hd); scale, bias,
+// b1, b2 float32.
+extern "C" int fused_mlp_f32_fwd(const float* x, const float* scale, const float* bias,
+                                 const float* w1t, const float* b1, const float* w2t,
+                                 const float* b2, float* out, int R, int C, int Hd, int exact,
+                                 int device, void* stream) {
+  if (!supported(C, Hd) || R <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = smem_attr(fused_mlp_bwd_weights_mma_kernel<C>, kBwdWeightsMmaSmem);
-  if (err != cudaSuccess) return err;
-  auto* ypad = reinterpret_cast<bf16*>(work + w.y);
-  auto* gpad = reinterpret_cast<bf16*>(work + w.g);
-  fused_mlp_bwd_rows_mma_kernel<C><<<w.tiles, kThreads, smem1, s>>>(
-      static_cast<const bf16*>(x), scale, bias, static_cast<const bf16*>(w1t), b1,
-      static_cast<const bf16*>(w2t), static_cast<const bf16*>(dout), static_cast<bf16*>(dx),
-      ypad, gpad, reinterpret_cast<float*>(work + w.pa), R, Hd, exact);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hd / kHB, w.P, Geo<C>::CS);
-  fused_mlp_bwd_weights_mma_kernel<C><<<grid, kThreads, kBwdWeightsMmaSmem, s>>>(
-      ypad, gpad, static_cast<const bf16*>(w1t), b1, static_cast<const bf16*>(w2t),
-      reinterpret_cast<float*>(work + w.pw1), reinterpret_cast<float*>(work + w.pw2),
-      reinterpret_cast<float*>(work + w.pb1), w.Rpad, Hd, exact);
-  return cudaGetLastError();
-}
-
-cudaError_t fwd_f32(const float* x, const float* scale, const float* bias, const float* w1t,
-                    const float* b1, const float* w2t, const float* b2, float* out, int R,
-                    int C, int Hd, int exact, cudaStream_t s) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = fwd_f32_smem(C);
-  cudaError_t err = smem_attr(fused_mlp_fwd_f32_kernel, smem);
+  err = smem_attr(fused_mlp_fwd_f32_kernel, smem);
   if (err != cudaSuccess) return err;
   fused_mlp_fwd_f32_kernel<<<(R + kFR - 1) / kFR, kThreads, smem, s>>>(
       x, scale, bias, w1t, b1, w2t, b2, out, R, C, Hd, exact);
   return cudaGetLastError();
 }
 
-cudaError_t bwd_f32(const float* x, const float* scale, const float* bias, const float* w1t,
-                    const float* b1, const float* w2t, const float* dout, float* dx,
-                    unsigned char* work, const Work& w, int R, int C, int Hd, int exact,
-                    cudaStream_t s) {
+// Backward: dout (R, C) -> dx (R, C), dw1t (Hd, C), dw2t (C, Hd), dscale,
+// dbias, db2 (C,) and db1 (Hd,), all float32. `work` holds
+// fused_mlp_f32_bwd_workspace_bytes(R, C, Hd).
+extern "C" int fused_mlp_f32_bwd(const float* x, const float* scale, const float* bias,
+                                 const float* w1t, const float* b1, const float* w2t,
+                                 const float* dout, float* dx, float* dscale, float* dbias,
+                                 float* dw1t, float* db1, float* dw2t, float* db2, void* work,
+                                 int R, int C, int Hd, int exact, int device, void* stream) {
+  if (!supported(C, Hd) || R <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Work w = workspace(R, C, Hd);
+  auto* wk = static_cast<unsigned char*>(work);
   const size_t smem1 = bwd_rows_f32_smem(C), smem2 = bwd_weights_f32_smem(C);
-  cudaError_t err = smem_attr(fused_mlp_bwd_rows_f32_kernel, smem1);
+  err = smem_attr(fused_mlp_bwd_rows_f32_kernel, smem1);
   if (err != cudaSuccess) return err;
   err = smem_attr(fused_mlp_bwd_weights_f32_kernel, smem2);
   if (err != cudaSuccess) return err;
-  auto* ypad = reinterpret_cast<float*>(work + w.y);
-  auto* gpad = reinterpret_cast<float*>(work + w.g);
+  auto* ypad = reinterpret_cast<float*>(wk + w.y);
+  auto* gpad = reinterpret_cast<float*>(wk + w.g);
+  auto* pa = reinterpret_cast<float*>(wk + w.pa);
+  auto* pw1 = reinterpret_cast<float*>(wk + w.pw1);
+  auto* pw2 = reinterpret_cast<float*>(wk + w.pw2);
+  auto* pb1 = reinterpret_cast<float*>(wk + w.pb1);
   fused_mlp_bwd_rows_f32_kernel<<<w.tiles, kThreads, smem1, s>>>(
-      x, scale, bias, w1t, b1, w2t, dout, dx, ypad, gpad,
-      reinterpret_cast<float*>(work + w.pa), R, C, Hd, exact);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+      x, scale, bias, w1t, b1, w2t, dout, dx, ypad, gpad, pa, R, C, Hd, exact);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   fused_mlp_bwd_weights_f32_kernel<<<dim3(Hd / kFHB, w.P), kThreads, smem2, s>>>(
-      ypad, gpad, w1t, b1, w2t, reinterpret_cast<float*>(work + w.pw1),
-      reinterpret_cast<float*>(work + w.pw2), reinterpret_cast<float*>(work + w.pb1), w.Rpad,
-      C, Hd, exact);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype codes shared with ops/kernels/mlp.py: 0 = float32, 1 = bfloat16.
-
-extern "C" int fused_mlp_supported(int C, int Hd, int dtype) {
-  return (dtype == 0 || dtype == 1) && supported(C, Hd) ? 1 : 0;
-}
-
-extern "C" long long fused_mlp_bwd_workspace_bytes(int R, int C, int Hd, int dtype) {
-  if (!fused_mlp_supported(C, Hd, dtype) || R <= 0) return -1;
-  return static_cast<long long>(workspace(R, C, Hd, dtype).bytes);
-}
-
-// x (R, C) -> out (R, C), both of the weights' dtype; w1t (Hd, C), w2t
-// (C, Hd); scale, bias, b1, b2 float32.
-extern "C" int fused_mlp_fwd(const void* x, const void* scale, const void* bias,
-                             const void* w1t, const void* b1, const void* w2t, const void* b2,
-                             void* out, int R, int C, int Hd, int dtype, int exact, int device,
-                             void* stream) {
-  if (!fused_mlp_supported(C, Hd, dtype) || R <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* c1 = static_cast<const float*>(b1);
-  const auto* c2 = static_cast<const float*>(b2);
-  if (dtype == 0)
-    return fwd_f32(static_cast<const float*>(x), sc, bi, static_cast<const float*>(w1t), c1,
-                   static_cast<const float*>(w2t), c2, static_cast<float*>(out), R, C, Hd,
-                   exact, s);
-  switch (C) {
-    case 384: return fwd_mma<384>(x, sc, bi, w1t, c1, w2t, c2, out, R, Hd, exact, s);
-    case 768: return fwd_mma<768>(x, sc, bi, w1t, c1, w2t, c2, out, R, Hd, exact, s);
-    case 1024: return fwd_mma<1024>(x, sc, bi, w1t, c1, w2t, c2, out, R, Hd, exact, s);
-    default: return fwd_mma<1280>(x, sc, bi, w1t, c1, w2t, c2, out, R, Hd, exact, s);
-  }
-}
-
-// Backward: dout (R, C) -> dx (R, C) in x's dtype, dw1t (Hd, C) and dw2t
-// (C, Hd) in the weights' dtype, dscale, dbias, db2 (C,) and db1 (Hd,) in
-// float32. `work` holds fused_mlp_bwd_workspace_bytes(R, C, Hd, dtype).
-extern "C" int fused_mlp_bwd(const void* x, const void* scale, const void* bias,
-                             const void* w1t, const void* b1, const void* w2t,
-                             const void* dout, void* dx, void* dscale, void* dbias, void* dw1t,
-                             void* db1, void* dw2t, void* db2, void* work, int R, int C, int Hd,
-                             int dtype, int exact, int device, void* stream) {
-  if (!fused_mlp_supported(C, Hd, dtype) || R <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Work w = workspace(R, C, Hd, dtype);
-  auto* wk = static_cast<unsigned char*>(work);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* c1 = static_cast<const float*>(b1);
-  if (dtype == 0) {
-    err = bwd_f32(static_cast<const float*>(x), sc, bi, static_cast<const float*>(w1t), c1,
-                  static_cast<const float*>(w2t), static_cast<const float*>(dout),
-                  static_cast<float*>(dx), wk, w, R, C, Hd, exact, s);
-  } else {
-    switch (C) {
-      case 384: err = bwd_mma<384>(x, sc, bi, w1t, c1, w2t, dout, dx, wk, w, R, Hd, exact, s); break;
-      case 768: err = bwd_mma<768>(x, sc, bi, w1t, c1, w2t, dout, dx, wk, w, R, Hd, exact, s); break;
-      case 1024: err = bwd_mma<1024>(x, sc, bi, w1t, c1, w2t, dout, dx, wk, w, R, Hd, exact, s); break;
-      default: err = bwd_mma<1280>(x, sc, bi, w1t, c1, w2t, dout, dx, wk, w, R, Hd, exact, s); break;
-    }
-  }
-  if (err != cudaSuccess) return err;
-  const auto* pa = reinterpret_cast<const float*>(wk + w.pa);
+      ypad, gpad, w1t, b1, w2t, pw1, pw2, pb1, w.Rpad, C, Hd, exact);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long nC = C, nW = static_cast<long long>(C) * Hd;
   if ((err = sum_partials<float>(pa, w.tiles, nC, dscale, s)) != cudaSuccess) return err;
   if ((err = sum_partials<float>(pa + static_cast<size_t>(w.tiles) * C, w.tiles, nC, dbias, s)) != cudaSuccess) return err;
   if ((err = sum_partials<float>(pa + static_cast<size_t>(2) * w.tiles * C, w.tiles, nC, db2, s)) != cudaSuccess) return err;
-  if ((err = sum_partials<float>(reinterpret_cast<const float*>(wk + w.pb1), w.P, Hd, db1, s)) != cudaSuccess) return err;
-  const auto* pw1 = reinterpret_cast<const float*>(wk + w.pw1);
-  const auto* pw2 = reinterpret_cast<const float*>(wk + w.pw2);
-  if (dtype == 0) {
-    if ((err = sum_partials<float>(pw1, w.P, nW, dw1t, s)) != cudaSuccess) return err;
-    return sum_partials<float>(pw2, w.P, nW, dw2t, s);
-  }
-  if ((err = sum_partials<bf16>(pw1, w.P, nW, dw1t, s)) != cudaSuccess) return err;
-  return sum_partials<bf16>(pw2, w.P, nW, dw2t, s);
+  if ((err = sum_partials<float>(pb1, w.P, Hd, db1, s)) != cudaSuccess) return err;
+  if ((err = sum_partials<float>(pw1, w.P, nW, dw1t, s)) != cudaSuccess) return err;
+  return sum_partials<float>(pw2, w.P, nW, dw2t, s);
 }

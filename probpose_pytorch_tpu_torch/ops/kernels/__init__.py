@@ -11,8 +11,9 @@
                    CUDA cores in f32 (csrc/tiled_attention.cu)
     sparsemax.py   K2, Triton (rows of any length)
     decode.py      K3 fused expected-value decode, CUDA C++ (csrc/decode.cu)
-    mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward,
-                   CUDA C++ (csrc/fused_mlp.cu)
+    mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward:
+                   CUDA C++ with wgmma and TMA in bf16 (csrc/fused_mlp_sm90.cu),
+                   on the CUDA cores in f32 (csrc/fused_mlp.cu)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor; it never falls back.

@@ -3,11 +3,14 @@ and backward, and their plain versions.
 
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/mlp_kernel.py (`fused_ln_mlp`, a
-`jax.custom_vjp` whose backward recomputes each row tile). The CUDA source,
-with the note on what bounds it on the card and how its design answers
-that, is csrc/fused_mlp.cu: bf16 on the tensor cores (WMMA), float32 on the
-CUDA cores, C in {384, 768, 1024, 1280} and a hidden width that is a
-multiple of 256.
+`jax.custom_vjp` whose backward recomputes each row tile). bf16 runs
+csrc/fused_mlp_sm90.cu: wgmma products fed by TMA, with the LayerNorm, the
+biases, GELU and the residual in the products' prologue passes and
+epilogues, and y, h (and, backward, du and dy) in device memory in bf16, the
+values the TPU kernel rounds before its products; the source's note says
+what bounds it and why. float32 runs csrc/fused_mlp.cu on the CUDA cores.
+Both take C in {384, 768, 1024, 1280} and a hidden width that is a multiple
+of 256.
 
 `fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, exact_gelu)` takes the JAX
 function's arguments in its layout: x (R, C) rows, w1 (C, Hd), w2 (Hd, C),
@@ -33,8 +36,10 @@ Where the rounding happens, read off `jax.make_jaxpr` of the vjp of
 The plain backward takes `chunk`: with a row count, each chunk's dW1 and
 dW2 are rounded to the weight type before the f32 sum, as the TPU kernel's
 row tiles are (max(tile // 4, 64) rows); with None, one f32 sum over all
-rows, which is what the CUDA kernel computes. On the tensor cores the
-kernel also rounds du to bf16 for the dy and dW1 products.
+rows. The bf16 kernel also rounds du to bf16 for the dy and dW1 products;
+`fused_ln_mlp_bwd_kernel_order_reference` is the plain backward in that
+order (du rounded, one f32 sum), the card's tighter yardstick.
+`mlp_workspace_bytes` mirrors the bf16 backward's scratch layout.
 """
 
 from __future__ import annotations
@@ -50,10 +55,12 @@ __all__ = [
     "fused_ln_mlp_reference",
     "fused_ln_mlp_backward",
     "fused_ln_mlp_bwd_reference",
+    "fused_ln_mlp_bwd_kernel_order_reference",
+    "mlp_workspace_bytes",
     "SUPPORTED_WIDTHS",
 ]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_WIDTHS = (384, 768, 1024, 1280)
 LN_EPS = 1e-6
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -100,18 +107,14 @@ def fused_ln_mlp_reference(x, scale, bias, w1, b1, w2, b2, exact_gelu: bool = Fa
     return (o + x.float()).to(x.dtype)
 
 
-def fused_ln_mlp_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout,
-                               exact_gelu: bool = False, chunk: int | None = None):
-    """Plain backward: (dx, dscale, dbias, dw1, db1, dw2, db2) with dx in x's
-    dtype, dw1 and dw2 in the weights' dtypes and the rest float32; the
-    rounding points are the module docstring's. `chunk` rows per rounded
-    partial of dw1 and dw2 (the TPU kernel's row tile), or None."""
+def _bwd_plain(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu, chunk, round_du):
     xhat, rstd, y, u = _recompute(x, scale, bias, w1, b1)
     g = dout.float()
     h = _rnd(_gelu(u, exact_gelu), w2.dtype)
     dh = _rnd(g @ w2.float().t(), w2.dtype)
     du = dh * _gelu_grad(u, exact_gelu)
-    dy = _rnd(du @ w1.float().t(), w1.dtype)
+    du_mm = _rnd(du, w1.dtype) if round_du else du
+    dy = _rnd(du_mm @ w1.float().t(), w1.dtype)
     dxhat = dy * scale.float()
     C = x.shape[-1]
     m1 = dxhat.sum(-1, keepdim=True) / C
@@ -123,11 +126,78 @@ def fused_ln_mlp_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout,
     dw2 = torch.zeros(w2.shape, dtype=torch.float32, device=x.device)
     for r0 in range(0, R, step):
         sl = slice(r0, r0 + step)
-        p1, p2 = y[sl].t() @ du[sl], h[sl].t() @ g[sl]
+        p1, p2 = y[sl].t() @ du_mm[sl], h[sl].t() @ g[sl]
         dw1 += p1 if chunk is None else _rnd(p1, w1.dtype)
         dw2 += p2 if chunk is None else _rnd(p2, w2.dtype)
     return (dx, (dy * xhat).sum(0), dy.sum(0), dw1.to(w1.dtype), du.sum(0),
             dw2.to(w2.dtype), g.sum(0))
+
+
+def fused_ln_mlp_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout,
+                               exact_gelu: bool = False, chunk: int | None = None):
+    """Plain backward: (dx, dscale, dbias, dw1, db1, dw2, db2) with dx in x's
+    dtype, dw1 and dw2 in the weights' dtypes and the rest float32; the
+    rounding points are the module docstring's. `chunk` rows per rounded
+    partial of dw1 and dw2 (the TPU kernel's row tile), or None."""
+    return _bwd_plain(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu, chunk, False)
+
+
+def fused_ln_mlp_bwd_kernel_order_reference(x, scale, bias, w1, b1, w2, b2, dout,
+                                            exact_gelu: bool = False):
+    """The plain backward in the bf16 kernel's order: du rounded to the
+    weights' dtype before the dy and dW1 products (db1 still sums the
+    unrounded du), and one f32 sum over all rows for dW1 and dW2. In float32
+    the rounding is the identity, so it equals `fused_ln_mlp_bwd_reference`.
+    Used by the tests and chip_smoke.py only."""
+    return _bwd_plain(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu, None, True)
+
+
+# The bf16 backward's scratch (csrc/fused_mlp_sm90.cu, `workspace`): its
+# tiles and the weight gradients' split over the rows (`split_k`).
+_BM, _BK, _LN_ROWS = 128, 64, 64
+_WAVE_SMS, _EPILOGUE_STEPS, _MAX_SPLITS = 132, 8, 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _shape(C: int, Hd: int) -> tuple[int, int]:
+    """(consumer warpgroups, tile width) of the GEMM blocks: 3 and 192 (tiles
+    of 192 x 192) where 192 divides C and Hd, else 2 and 256 or 128."""
+    if C % 192 == 0 and Hd % 192 == 0:
+        return 3, 192
+    return 2, 256 if C % 256 == 0 else 128
+
+
+def _split_k(R: int, tiles: int) -> tuple[int, int]:
+    """(splits, stages a chunk): the first S <= 16 minimising
+    ceil(tiles S / 132) x (stages a chunk + 8)."""
+    steps = _cdiv(R, _BK)
+    best = None
+    for s in range(1, _MAX_SPLITS + 1):
+        per = _cdiv(steps, s)
+        if _cdiv(steps, per) != s:
+            continue
+        cost = _cdiv(tiles * s, _WAVE_SMS) * (per + _EPILOGUE_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    return best[1], best[2]
+
+
+def mlp_workspace_bytes(R: int, C: int, Hd: int) -> int:
+    """Bytes of scratch the bf16 backward takes at R rows: y, h, du and dy in
+    bf16, the row mean and rstd, the LayerNorm backward's partials
+    (3, ceil(R / 64), C), db1's (ceil(R / 128), Hd) and the weight gradients'
+    split partials (splits, 2 C Hd) in f32, each at a 256-byte boundary."""
+    if C not in SUPPORTED_WIDTHS or Hd <= 0 or Hd % 256 or R <= 0:
+        raise ValueError(f"mlp_workspace_bytes: R={R}, C={C}, hidden={Hd} not taken")
+    w, bn = _shape(C, Hd)
+    tiles = _cdiv(Hd, 64 * w) * (C // bn) + _cdiv(C, 64 * w) * (Hd // bn)
+    splits, _ = _split_k(R, tiles)
+    sizes = (R * C * 2, R * Hd * 2, R * Hd * 2, R * C * 2, R * 4, R * 4,
+             3 * _cdiv(R, _LN_ROWS) * C * 4, _cdiv(R, _BM) * Hd * 4, splits * 2 * C * Hd * 4)
+    return sum(_cdiv(n, 256) * 256 for n in sizes)
 
 
 def _lib() -> ctypes.CDLL:
@@ -135,13 +205,18 @@ def _lib() -> ctypes.CDLL:
 
     lib = library()
     if not getattr(lib, "_mlp_bound", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fused_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-        lib.fused_mlp_fwd.restype = i32
-        lib.fused_mlp_bwd.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
-        lib.fused_mlp_bwd.restype = i32
-        lib.fused_mlp_bwd_workspace_bytes.argtypes = [i32] * 4
-        lib.fused_mlp_bwd_workspace_bytes.restype = ctypes.c_longlong
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fused_mlp_f32_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.fused_mlp_f32_bwd.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
+        lib.fused_mlp_f32_bwd_workspace_bytes.argtypes = [i32] * 3
+        lib.fused_mlp_f32_bwd_workspace_bytes.restype = i64
+        lib.fused_mlp_sm90_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        lib.fused_mlp_sm90_bwd.argtypes = [ptr] * 15 + [i64] + [i32] * 5 + [ptr]
+        lib.fused_mlp_bwd_workspace_bytes.argtypes = [i32] * 3
+        lib.fused_mlp_bwd_workspace_bytes.restype = i64
+        for fn in (lib.fused_mlp_f32_fwd, lib.fused_mlp_f32_bwd, lib.fused_mlp_sm90_fwd,
+                   lib.fused_mlp_sm90_bwd):
+            fn.restype = i32
         lib._mlp_bound = True
     return lib
 
@@ -183,8 +258,8 @@ def _kernel_args(x, scale, bias, w1, b1, w2, b2):
         raise ValueError("fused_ln_mlp: x must be contiguous")
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     vecs = [t.contiguous() for t in (scale, bias, b1, b2)]
-    if any(t.data_ptr() % 32 for t in (x, w1t, w2t)):
-        raise ValueError("fused_ln_mlp: x and the weights must be 32-byte aligned")
+    if any(t.data_ptr() % 32 for t in (x, w1t, w2t, *vecs)):
+        raise ValueError("fused_ln_mlp: x, the weights and the vectors must be 32-byte aligned")
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     return w1t, w2t, vecs, device
 
@@ -194,14 +269,22 @@ def _forward(x, scale, bias, w1, b1, w2, b2, exact_gelu):
         return fused_ln_mlp_reference(x, scale, bias, w1, b1, w2, b2, exact_gelu)
     w1t, w2t, (sc, bi, c1, c2), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
     R, C = x.shape
+    Hd = w1.shape[1]
     out = torch.empty_like(x)
-    err = _lib().fused_mlp_fwd(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
-        w2t.data_ptr(), c2.data_ptr(), out.data_ptr(), R, C, w1.shape[1], _DTYPES[x.dtype],
-        int(exact_gelu), device, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
+            w2t.data_ptr(), c2.data_ptr())
+    if x.dtype == torch.bfloat16:  # y and h, the bf16 values the products read
+        y = torch.empty_like(x)
+        h = torch.empty((R, Hd), dtype=x.dtype, device=x.device)
+        err = _lib().fused_mlp_sm90_fwd(*args, y.data_ptr(), h.data_ptr(), out.data_ptr(), R, C,
+                                        Hd, int(exact_gelu), device, stream)
+    else:
+        err = _lib().fused_mlp_f32_fwd(*args, out.data_ptr(), R, C, Hd, int(exact_gelu), device,
+                                       stream)
     if err:
         raise RuntimeError(f"fused_ln_mlp: kernel launch failed with cudaError {err} at x "
-                           f"{tuple(x.shape)} {x.dtype}, hidden {w1.shape[1]}")
+                           f"{tuple(x.shape)} {x.dtype}, hidden {Hd}")
     fused_ln_mlp.launches += 1
     return out
 
@@ -223,20 +306,23 @@ def fused_ln_mlp_backward(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu: bool
     R, C = x.shape
     Hd = w1.shape[1]
     lib = _lib()
-    dt = _DTYPES[x.dtype]
-    work = torch.empty(lib.fused_mlp_bwd_workspace_bytes(R, C, Hd, dt), dtype=torch.uint8,
-                       device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    nbytes = (mlp_workspace_bytes(R, C, Hd) if bf16
+              else lib.fused_mlp_f32_bwd_workspace_bytes(R, C, Hd))
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw1t = torch.empty((Hd, C), dtype=w1.dtype, device=x.device)
     dw2t = torch.empty((C, Hd), dtype=w2.dtype, device=x.device)
     dscale, dbias, db2 = (torch.empty(C, **f32) for _ in range(3))
     db1 = torch.empty(Hd, **f32)
-    err = lib.fused_mlp_bwd(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
-        w2t.data_ptr(), dout.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-        dw1t.data_ptr(), db1.data_ptr(), dw2t.data_ptr(), db2.data_ptr(), work.data_ptr(),
-        R, C, Hd, dt, int(exact_gelu), device, torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, sc, bi, w1t, c1, w2t, dout, dx, dscale, dbias, dw1t, db1,
+                                   dw2t, db2, work)]
+    tail = (R, C, Hd, int(exact_gelu), device, torch.cuda.current_stream(x.device).cuda_stream)
+    if bf16:  # the library checks the scratch against its own count
+        err = lib.fused_mlp_sm90_bwd(*ptrs, nbytes, *tail)
+    else:
+        err = lib.fused_mlp_f32_bwd(*ptrs, *tail)
     if err:
         raise RuntimeError(f"fused_ln_mlp_backward: kernel launch failed with cudaError {err} "
                            f"at x {tuple(x.shape)} {x.dtype}, hidden {Hd}")

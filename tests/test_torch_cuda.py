@@ -26,10 +26,13 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     packed_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+    SUPPORTED_WIDTHS,
     fused_ln_mlp,
     fused_ln_mlp_backward,
+    fused_ln_mlp_bwd_kernel_order_reference,
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
+    mlp_workspace_bytes,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     k1_smem_bytes,
@@ -305,17 +308,19 @@ def test_optimizer_skips_nonfinite_gradients_on_card(cuda_device):
             assert int(state.count) == 1 and not bool(torch.isfinite(updates[1]).all())
 
 
-def mlp_args(g, R, C, dtype, device):
+def mlp_args(g, R, C, dtype, device, hidden=None):
     """(x, scale, bias, w1, b1, w2, b2) of kernel K5: x and the weights in
     `dtype` (the weights at fan-in scale), the LayerNorm and bias vectors
-    float32, w1 and w2 as the transposed views a Linear's weight gives."""
+    float32, w1 and w2 as the transposed views a Linear's weight gives; the
+    hidden width 4 C unless given."""
     f32 = dict(generator=g, device=device)
+    Hd = hidden or 4 * C
     x = torch.randn(R, C, **f32).to(dtype)
     scale = 1 + 0.1 * torch.randn(C, **f32)
     bias = 0.1 * torch.randn(C, **f32)
-    w1 = (torch.randn(4 * C, C, **f32) / C**0.5).to(dtype).t()
-    w2 = (torch.randn(C, 4 * C, **f32) / (4 * C) ** 0.5).to(dtype).t()
-    return x, scale, bias, w1, 0.1 * torch.randn(4 * C, **f32), w2, 0.1 * torch.randn(C, **f32)
+    w1 = (torch.randn(Hd, C, **f32) / C**0.5).to(dtype).t()
+    w2 = (torch.randn(C, Hd, **f32) / Hd**0.5).to(dtype).t()
+    return x, scale, bias, w1, 0.1 * torch.randn(Hd, **f32), w2, 0.1 * torch.randn(C, **f32)
 
 
 @pytest.mark.cuda
@@ -355,7 +360,9 @@ def grad_bound(ref: torch.Tensor, dtype: torch.dtype) -> float:
     (8 * 192, 768, torch.bfloat16, False),
     (3 * 192 + 7, 768, torch.bfloat16, True),  # ragged, erf GELU
     (5 * 192 + 3, 384, torch.bfloat16, False),
+    (4 * 192 + 3, 1024, torch.bfloat16, False),
     (2 * 192 + 5, 1280, torch.bfloat16, False),
+    (97, 768, torch.bfloat16, True),  # less than one 128-row tile
     (2 * 192 + 7, 768, torch.float32, False),
     (97, 1024, torch.float32, True),
 ])
@@ -369,11 +376,50 @@ def test_fused_ln_mlp_backward_kernel(cuda_device, R, C, dtype, exact):
     torch.cuda.synchronize()
     assert fused_ln_mlp_backward.launches == before + 2
     refs = fused_ln_mlp_bwd_reference(*args, dout, exact)
-    for name, got, rerun, ref, arg in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
-                                          grads, again, refs, args):
+    twins = fused_ln_mlp_bwd_kernel_order_reference(*args, dout, exact)
+    for name, got, rerun, ref, twin, arg in zip(
+            ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, again, refs, twins, args):
         assert got.dtype == arg.dtype and got.shape == arg.shape, name
         assert torch.equal(got, rerun), name  # no atomics: two runs, the same bits
         assert max_err(got, ref) <= grad_bound(ref, dtype), name
+        if dtype == torch.bfloat16:
+            # the plain backward in the kernel's order (du rounded, one f32
+            # sum): two bf16 ulps (2 * 2**-8) of each cotangent's magnitude
+            assert max_err(got, twin) <= 2 * 2**-8 * twin.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 97, 3 * 192 + 7, 12288])
+@pytest.mark.parametrize("C", SUPPORTED_WIDTHS)
+def test_mlp_workspace_bytes_match_the_library(cuda_device, C, R):
+    """The Python count of the bf16 backward's scratch is the library's."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import _lib
+
+    for Hd in (4 * C, 1280, 2048):
+        assert _lib().fused_mlp_bwd_workspace_bytes(R, C, Hd) == mlp_workspace_bytes(R, C, Hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,hidden", [
+    (384, 1280),  # 192 does not divide the hidden width: blocks of 128 x 128
+    (768, 2048),  # nor here: 128 x 256
+])
+def test_fused_ln_mlp_kernels_at_other_hidden_widths(cuda_device, C, hidden):
+    """bf16 forward and backward at hidden widths other than 4 C (a multiple
+    of 256 that 192 does not divide), against the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    R = 2 * 192 + 9
+    args = mlp_args(g, R, C, torch.bfloat16, cuda_device, hidden)
+    out = fused_ln_mlp(*args)
+    ref = fused_ln_mlp_reference(*args)
+    assert max_err(out, ref) <= bound(ref)
+    dout = torch.randn(R, C, generator=g, device=cuda_device).to(torch.bfloat16)
+    grads = fused_ln_mlp_backward(*args, dout)
+    for name, got, ref, twin in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads,
+                                    fused_ln_mlp_bwd_reference(*args, dout),
+                                    fused_ln_mlp_bwd_kernel_order_reference(*args, dout)):
+        assert max_err(got, ref) <= grad_bound(ref, torch.bfloat16), name
+        assert max_err(got, twin) <= 2 * 2**-8 * twin.float().abs().max().item(), name
 
 
 @pytest.mark.cuda

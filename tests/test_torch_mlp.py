@@ -32,9 +32,14 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     fused_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+    SUPPORTED_WIDTHS,
+    _shape,
+    _split_k,
     fused_ln_mlp,
+    fused_ln_mlp_bwd_kernel_order_reference,
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
+    mlp_workspace_bytes,
 )
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
 from probpose_pytorch_tpu_torch.train.loop import Trainer
@@ -166,6 +171,78 @@ def test_fused_ln_mlp_bwd_plain_matches_pallas(dtype, exact):
         # f32: 1e-4, tests/test_pallas.py's bound on the Pallas gradients;
         # bf16: one bf16 ulp of each cotangent's magnitude.
         _close(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), dtype, 1e-4)
+
+
+@pytest.mark.parametrize("R", [100, 37])  # two JAX backward tiles, the second ragged; one
+@pytest.mark.parametrize("exact", [False, True])
+def test_kernel_order_bwd_twin_matches_pallas(exact, R):
+    """The bf16 kernel's plain twin (du rounded before the dy and dW1
+    products, one f32 sum for dW1 and dW2) against the Pallas backward."""
+    args = _args(6, R, "bfloat16")
+    g = np.random.default_rng(7).normal(size=(R, C)).astype(np.float32)
+    jargs = _jax_args(args, "bfloat16")
+    _, vjp = jax.vjp(lambda *a: jax_fused_ln_mlp(*a, exact, JAX_TILE, True), *jargs)
+    refs = vjp(jnp.asarray(g, jnp.bfloat16))
+    targs = _torch_args(args, "bfloat16")
+    outs = fused_ln_mlp_bwd_kernel_order_reference(*targs, _t(g).to(torch.bfloat16), exact)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    for name, out, ref, arg in zip(names, outs, refs, targs):
+        assert out.dtype == arg.dtype and tuple(out.shape) == tuple(ref.shape), name
+        ref = np.asarray(ref.astype(jnp.float32))
+        # four bf16 ulps (4 * 2**-8) of each cotangent's magnitude, the card's
+        # bound on K5 backward against the plain version: the twin rounds du
+        # where the TPU kernel keeps it f32, and sums dW once, not per tile
+        err = np.abs(out.float().numpy() - ref).max()
+        assert err <= 4 * 2**-8 * np.abs(ref).max(), (name, err)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_kernel_order_bwd_twin_is_the_plain_backward_in_f32(exact):
+    """In float32 rounding du is the identity: the twin is the plain backward."""
+    args = _torch_args(_args(8, 45, "float32"), "float32")
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(45, C)).astype(np.float32))
+    for got, want in zip(fused_ln_mlp_bwd_kernel_order_reference(*args, g, exact),
+                         fused_ln_mlp_bwd_reference(*args, g, exact)):
+        assert torch.equal(got, want)
+
+
+def test_mlp_workspace_bytes_at_vitb_step():
+    """ViT-B's step (R = 12,288 rows, C = 768, Hd = 3072): the weight
+    gradients' 128 tiles of 192 x 192 fit one wave of 132 SMs, so the rows
+    are not split (one chunk of 192 stages), and the scratch is the sum of
+    its buffers."""
+    R, C_, Hd = 12288, 768, 3072
+    assert _shape(C_, Hd) == (3, 192) and _split_k(R, 128) == (1, 192)
+    want = (2 * R * C_ * 2 + 2 * R * Hd * 2 + 2 * R * 4 + 3 * (R // 64) * C_ * 4
+            + (R // 128) * Hd * 4 + 1 * 2 * C_ * Hd * 4)
+    assert mlp_workspace_bytes(R, C_, Hd) == want == 210_665_472
+
+
+@pytest.mark.parametrize("R", [1, 97, 3 * 192 + 7, 12288 + 5])
+@pytest.mark.parametrize("C_", SUPPORTED_WIDTHS)
+def test_mlp_workspace_bytes_cover_every_buffer(C_, R):
+    """At each width and at ragged R: 256-byte aligned, at least every
+    buffer's bytes, and a split whose chunks cover the rows, none empty,
+    with no cheaper split by the wave model."""
+    Hd = 4 * C_
+    w, bn = _shape(C_, Hd)
+    tiles = -(-Hd // (64 * w)) * (C_ // bn) + -(-C_ // (64 * w)) * (Hd // bn)
+    splits, chunk = _split_k(R, tiles)
+    steps = -(-R // 64)
+    assert (splits - 1) * chunk < steps <= splits * chunk
+    cost = lambda s, per: -(-tiles * s // 132) * (per + 8)
+    assert all(cost(s, -(-steps // s)) >= cost(splits, chunk) for s in range(1, 17)
+               if -(-steps // -(-steps // s)) == s)
+    n = mlp_workspace_bytes(R, C_, Hd)
+    raw = (2 * R * C_ * 2 + 2 * R * Hd * 2 + 2 * R * 4 + 3 * (-(-R // 64)) * C_ * 4
+           + (-(-R // 128)) * Hd * 4 + splits * 2 * C_ * Hd * 4)
+    assert n % 256 == 0 and raw <= n < raw + 9 * 256
+
+
+def test_mlp_workspace_bytes_refuses_other_shapes():
+    for R, C_, Hd in ((8, 512, 2048), (8, 768, 3000), (0, 768, 3072)):
+        with pytest.raises(ValueError):
+            mlp_workspace_bytes(R, C_, Hd)
 
 
 def test_fused_ln_mlp_autograd_on_cpu_is_the_plain_backward():
