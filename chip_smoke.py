@@ -8,20 +8,23 @@ end to end at the full ViT-S flagship width, with weights drawn from a seeded
 generator:
 
   phase 0  card name and power limit; TF32 off; nvcc build of csrc/*.cu with
-           its -Xptxas -v register / shared-memory report
+           its -Xptxas -v register / shared-memory report (no spills in K2
+           or K3)
   phase 1  each hand-written kernel against its plain PyTorch version at the
            flagship shapes (K1 packed attention: bf16 on the short wgmma
            forward of csrc/tiled_attention_sm90.cu, f32 on K1's CUDA cores;
-           K2 sparsemax in Triton), plus ragged cases and the short
-           forward's other head widths
+           K2 sparsemax, csrc/sparsemax.cu), plus ragged cases, the short
+           forward's other head widths and K2's adversarial rows (every
+           element a candidate, ties at the max), bit-identical twice
   phase 2  a TopDownPredictor answers requests of 1, 8 and 64 crops; every
            output is checked for shape and finiteness, the kernels' launch
            counters must show 12 short attention forwards (and no K1
            CUDA-core launch) and 1 K2 launch per
            forward, and a float32 rerun through the kernels must agree with
            the same run through the plain versions
-  phase 3  K1 forward and K2 against their plain versions at the shapes of a
-           batch of 256; then numbers, printed and not gated: per-kernel
+  phase 3  K1 forward and K2 (random and adversarial rows) against their
+           plain versions at the shapes of a batch of 256; then numbers,
+           printed and not gated: per-kernel
            time against the plain version (CUDA events) and, for attention,
            against scaled_dot_product_attention (medians of three windows
            of 50 launches in turns) and against K4's tiled forward, serving
@@ -75,8 +78,10 @@ generator:
            plain versions (max abs, and normwise per q/k/v slice within
            2**-7); the backward bit-identical across two runs and
            whether it reads the forward's saved (out, lse) or makes them;
-           K2 at 36,864-pixel rows; K3 (the
-           fused decode) on phase 3's served heatmaps and on this path's.
+           K2 at 36,864-pixel rows (random, a ragged count, adversarial)
+           and at 65,536-pixel ones; K3 (the fused decode) on phase 3's
+           served heatmaps and on this path's, its bound counting the
+           band products the function needs.
            A TopDownPredictor answers requests of 1, 8 and 64 crops with 12
            K4 forward, 0 K1 and 1 K2 launch per forward, and a float32
            rerun agrees with the plain versions; Trainer.fit takes 10 bf16
@@ -145,6 +150,10 @@ K3_PX_TOL = 1e-3  # K3 against the plain decode, px
 # one draw says little about the margin.
 K1B_SEEDS = tuple(range(3, 11))
 K3_VAL_TOL = 1e-6  # and the raw values it reads
+# K2's rows beside the random ones: every element a candidate (within 1 of
+# the max, so the candidate buffer overflows past 1,024 or 4,096 and the
+# bisection runs over the whole row), and ties at the max.
+K2_ROWS = ("random", "all candidates", "ties")
 # H100 SXM at 700 W, NVIDIA's data sheet: device memory bytes/s, and dense
 # operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -272,6 +281,41 @@ def rel_gate(torch, label: str, out, ref, parts: int, phase: int) -> list[float]
         f"{', '.join(f'{r.abs().max().item():.4f}' for _, r in pairs)})")
     check(all(np.isfinite(rels)) and max(rels) <= ONLINE_REL_TOL, f"{label}: {rels}")
     return rels
+
+
+def k2_rows(torch, g, R: int, N: int, rows: str):
+    """(R, N) float32 rows of one of K2_ROWS on the card."""
+    dev = torch.device("cuda")
+    if rows == "all candidates":
+        return torch.rand(R, N, generator=g, device=dev)
+    z = torch.randn(R, N, generator=g, device=dev) / 0.5
+    if rows == "ties":
+        z[:, :: max(1, N // 7)] = z.amax(dim=-1, keepdim=True)
+    return z
+
+
+def k2_check(torch, z, label: str, phase: int) -> float:
+    """K2 on rows z against its plain version (K2_TOL), on the simplex, and
+    bit-identical across two launches; returns the max abs error. A row may
+    sum from 1 by K2_SUM_TOL, or by one ulp of tau (2**-23 max(1, |max z|))
+    for each element of its support where that is more: every output z -
+    tau carries tau's rounding, and the plain version's rows of 65,536
+    pixels all within 1 of the max sum 1.04e-5 from 1."""
+    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
+        sparsemax_reference,
+        sparsemax_rows,
+    )
+
+    out, again = sparsemax_rows(z), sparsemax_rows(z)
+    err = gate(torch, f"K2 sparsemax {tuple(z.shape)} float32, {label}", out,
+               sparsemax_reference(z), phase=phase, bound=K2_TOL)
+    ulps = (out > 0).sum(-1) * 2.0**-23 * z.abs().amax(-1).clamp_min(1.0)
+    sum_err = (out.sum(-1) - 1).abs()
+    say(f"phase {phase}: K2 {tuple(z.shape)}, {label}: row-sum err {sum_err.max().item():.3e} "
+        f"(bound {K2_SUM_TOL:g}, or {ulps.max().item():.3e} by the support's size)")
+    check(bool((sum_err <= ulps.clamp_min(K2_SUM_TOL)).all()), f"K2 {label}: row sums off")
+    check(torch.equal(out, again), f"K2 {tuple(z.shape)} {label} differs between launches")
+    return err
 
 
 def card_line() -> str:
@@ -1055,19 +1099,29 @@ def config_768(dtype: str, batch: int):
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, img_size=IMG_768))
 
 
+# Mangled-name pieces of the kernels phase 0 reports, and their labels.
+PTXAS_NAMES = {"10fwd_kernelILi64": "forward", "13bwd_dq_kernelILi64": "backward dQ",
+               "14bwd_dkv_kernelILi64": "backward dK/dV",
+               "16short_fwd_kernelILi64ELi3E": "short forward",
+               "11gemm_kernelILi3ELi192ELi0ELi0ELi0E": "K5 u = y W1, GELU",
+               "11gemm_kernelILi3ELi192ELi0ELi0ELi2E": "K5 o = h W2 + x",
+               "11dual_kernelILi0E": "K5 u and dh",
+               "11gemm_kernelILi3ELi192ELi0ELi1ELi3E": "K5 dy = du W1^T",
+               "11gemm_kernelILi3ELi192ELi1ELi1ELi4E": "K5 dW1^T, dW2^T",
+               "21sparsemax_warp_kernelILi96ELb1E": "K2 warp a row, 3,072 pixels",
+               "22sparsemax_block_kernelILb1ELb1E": "K2 block a row, staged",
+               "22sparsemax_block_kernelILb0ELb1E": "K2 block a row, unstaged",
+               "13decode_kernelILi4E": "K3 strip, radii <= 4",
+               "13decode_kernelILi9E": "K3 strip, radii <= 9", "18decode_pick_kernelE": "K3 pick"}
+
+
 def ptxas_kernels(log: str) -> dict:
-    """Registers and spill bytes (stores + loads) of each bf16 wgmma kernel:
-    attention at d = 64 (csrc/tiled_attention_sm90.cu; the short forward at
-    N = 192) and K5's at ViT-B widths (csrc/fused_mlp_sm90.cu), from nvcc's
-    -Xptxas -v report."""
-    names = {"10fwd_kernelILi64": "forward", "13bwd_dq_kernelILi64": "backward dQ",
-             "14bwd_dkv_kernelILi64": "backward dK/dV",
-             "16short_fwd_kernelILi64ELi3E": "short forward",
-             "11gemm_kernelILi3ELi192ELi0ELi0ELi0E": "K5 u = y W1, GELU",
-             "11gemm_kernelILi3ELi192ELi0ELi0ELi2E": "K5 o = h W2 + x",
-             "11dual_kernelILi0E": "K5 u and dh",
-             "11gemm_kernelILi3ELi192ELi0ELi1ELi3E": "K5 dy = du W1^T",
-             "11gemm_kernelILi3ELi192ELi1ELi1ELi4E": "K5 dW1^T, dW2^T"}
+    """Registers and spill bytes (stores + loads) of each kernel of
+    PTXAS_NAMES: attention at d = 64 (csrc/tiled_attention_sm90.cu; the
+    short forward at N = 192), K5's at ViT-B widths (csrc/fused_mlp_sm90.cu),
+    K2's (csrc/sparsemax.cu) and K3's (csrc/decode.cu), from nvcc's -Xptxas
+    -v report."""
+    names = PTXAS_NAMES
     found, current = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -1182,37 +1236,48 @@ def phase8_k4_kernels(torch, dev, card: str, g) -> dict:
                 k4b_online_rel=online_rel[("bwd", TRAIN_768_BATCH)])
 
 
-def phase8_k2_long_rows(torch, dev, card: str, g, K: int) -> dict:
-    """K2 at 192 x 192-pixel rows against its plain version (a batch's rows
-    and a ragged count), then timed."""
+def phase8_k2_long_rows(torch, card: str, g, K: int) -> dict:
+    """K2 at 192 x 192-pixel rows (staged in shared memory) and at 256 x
+    256-pixel ones (from 1024 x 1024 crops; read from device memory on each
+    pass) against its plain version: a batch's rows, a ragged count and the
+    adversarial rows; then timed."""
     from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
         sparsemax_reference,
         sparsemax_rows,
     )
 
-    P = 192 * 192
-    for R in (SERVE_768_BATCH * K, 17 * 3 + 5):
-        z = torch.randn(R, P, generator=g, device=dev) / 0.5
-        err = gate(torch, f"K2 sparsemax ({R}, {P}) float32", sparsemax_rows(z),
-                   sparsemax_reference(z), phase=8, bound=K2_TOL)
-        sum_err = (sparsemax_rows(z).sum(-1) - 1.0).abs().max().item()
-        check(sum_err <= K2_SUM_TOL, f"K2 ({R}, {P}) row sums off by {sum_err}")
-        if R == SERVE_768_BATCH * K:
-            k2_err = err
-    z = torch.randn(SERVE_768_BATCH * K, P, generator=g, device=dev) / 0.5
-    k2_ms, k2_plain_ms = paired_ms(torch, lambda: sparsemax_rows(z),
-                                   lambda: sparsemax_reference(z), iters=5)
-    k2_bound = bound_ms(2 * nbytes(z), 96 * z.numel(), "float32")
-    say(f"phase 8 [{card}]: K2 ({SERVE_768_BATCH * K}, {P}) f32: kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
-    return dict(shape=[SERVE_768_BATCH * K, P], max_abs_err=k2_err, ms=k2_ms,
-                plain_ms=k2_plain_ms, bound_ms=k2_bound[0], bound_by=k2_bound[1])
+    P, R = 192 * 192, SERVE_768_BATCH * K
+    k2_err = k2_check(torch, k2_rows(torch, g, 17 * 3 + 5, P, "random"), "random", phase=8)
+    times, extra = {}, {}
+    for n, rows in [(P, r) for r in K2_ROWS] + [(256 * 256, "random"),
+                                                (256 * 256, "all candidates")]:
+        z = k2_rows(torch, g, R if n == P else R // 2, n, rows)
+        err = k2_check(torch, z, rows, phase=8)
+        label = rows if n == P else f"{rows}, ({R // 2}, {n})"
+        if (n, rows) == (P, "random"):
+            k2_err = max(k2_err, err)
+            k2_ms, k2_plain_ms = paired_ms(torch, lambda: sparsemax_rows(z),
+                                           lambda: sparsemax_reference(z), iters=5)
+            k2_bound = bound_ms(2 * nbytes(z), 96 * z.numel(), "float32")
+        else:
+            times[label] = cuda_ms(torch, lambda: sparsemax_rows(z), iters=10)
+            extra[label] = dict(max_abs_err=err, ms=times[label],
+                                bound_ms=bound_ms(2 * nbytes(z), 96 * z.numel(), "float32")[0])
+        del z
+    say(f"phase 8 [{card}]: K2 ({R}, {P}) f32: kernel {k2_ms:.4f} ms on random rows ("
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"), plain {k2_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    return dict(shape=[R, P], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+                bound_ms=k2_bound[0], bound_by=k2_bound[1], other_rows=extra)
 
 
 def k3_check(torch, card: str, codec, heatmaps, label: str, phase: int) -> dict:
     """K3 on served heatmaps against the plain decode, then timed."""
     from probpose_pytorch_tpu_torch.ops.heatmap import expected_value_decode
-    from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+    from probpose_pytorch_tpu_torch.ops.kernels.decode import (
+        band_radius,
+        expected_value_decode_fused,
+    )
 
     hm = heatmaps.float().contiguous()
     row_op, col_op = codec.probmap.conv_operators(hm.device)
@@ -1228,13 +1293,19 @@ def k3_check(torch, card: str, codec, heatmaps, label: str, phase: int) -> dict:
     ms, plain_ms = paired_ms(torch, lambda: expected_value_decode_fused(hm, row_op, col_op),
                              lambda: expected_value_decode(hm, row_op, col_op), iters=10)
     B, K, H, W = hm.shape
-    # heatmaps and operators in, (x, y, value) out; 2 H W (H + W) per map
-    bound = bound_ms(nbytes(hm, row_op, col_op) + 12 * B * K, 2 * B * K * H * W * (H + W),
-                     "float32")
+    # Heatmaps and operators in, (x, y, value) out. The function needs the
+    # products over each keypoint's band only, 2 H W ((2 r_row + 1) + (2
+    # r_col + 1)) a map, r from the operators (ops/kernels/decode.py); the
+    # dense products, 2 H W (H + W) a map, give `dense_bound`.
+    bands = (2 * band_radius(row_op) + 1) + (2 * band_radius(col_op) + 1)
+    in_out = nbytes(hm, row_op, col_op) + 12 * B * K
+    bound = bound_ms(in_out, 2 * B * H * W * float(bands.sum()), "float32")
+    dense_bound = bound_ms(in_out, 2 * B * K * H * W * (H + W), "float32")
     say(f"phase {phase} [{card}]: K3 ({B}, {K}, {H}, {W}) f32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (no single library call computes it), bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
-    return dict(err=px, val_err=verr, ms=ms, plain_ms=plain_ms, bound=bound)
+        f"({bound[1]}; the dense products' {dense_bound[0]:.4f} ms)")
+    return dict(err=px, val_err=verr, ms=ms, plain_ms=plain_ms, bound=bound,
+                dense_bound=dense_bound)
 
 
 def phase8_serving(torch, dev, card: str, profile: bool) -> dict:
@@ -1479,9 +1550,12 @@ def main() -> None:
     if report.get("ptxas"):
         for line in report["ptxas"].strip().splitlines():
             say(f"  ptxas: {line.strip()}")
-    wgmma_ptxas = ptxas_kernels(report.get("ptxas", ""))
-    say(f"phase 0: bf16 wgmma kernels (attention at d = 64, K5 at ViT-B widths), registers "
-        f"and spill bytes: {wgmma_ptxas}")
+    ptxas = ptxas_kernels(report.get("ptxas", ""))
+    say(f"phase 0: registers and spill bytes (bf16 attention at d = 64, K5 at ViT-B widths, "
+        f"K2, K3): {ptxas}")
+    check(set(ptxas) == set(PTXAS_NAMES.values()), "a kernel is missing from nvcc's report")
+    check(all(ptxas[k]["spill_bytes"] == 0 for k in ptxas if k[:2] in ("K2", "K3")),
+          "K2 or K3 spills registers")
 
     # ---------------------------------------------------------------- phase 1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1498,19 +1572,12 @@ def main() -> None:
              f"via {kernel_path(N, d, dtype)}",
              packed_attention(qkv, heads), packed_attention_reference(qkv, heads), phase=1)
 
-    t0 = time.perf_counter()
-    for R in (64 * 17, 17 * 3 + 5):
-        z = torch.randn(R, 3072, generator=g, device=dev) / 0.5
-        out = sparsemax_rows(z)
-        torch.cuda.synchronize()
-        if R == 64 * 17:
-            say(f"phase 1: K2 Triton compile + first launch {time.perf_counter() - t0:.2f} s")
-        err = (out - sparsemax_reference(z)).abs().max().item()
-        sum_err = (out.sum(-1) - 1.0).abs().max().item()
-        say(f"phase 1: K2 sparsemax ({R}, 3072) float32: max_abs_err {err:.3e} "
-            f"(tolerance {K2_TOL:g}), row-sum err {sum_err:.3e} ({K2_SUM_TOL:g})")
-        check(err <= K2_TOL, f"K2 R={R} error {err}")
-        check(sum_err <= K2_SUM_TOL, f"K2 R={R} row sums off by {sum_err}")
+    # K2 at the flagship's rows, a ragged R and N (no float4 loads), and the
+    # adversarial rows.
+    for R, N, rows in ((64 * 17, 3072, "random"), (17 * 3 + 5, 3072, "random"),
+                       (17 * 3 + 5, 3071, "random"), (17 * 3 + 5, 3072, "all candidates"),
+                       (17 * 3 + 5, 3072, "ties")):
+        k2_check(torch, k2_rows(torch, g, R, N, rows), rows, phase=1)
 
     # ---------------------------------------------------------------- phase 2
     block = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())["model"]
@@ -1574,11 +1641,17 @@ def main() -> None:
     k1_ms, k1_lib_ms = yardstick_ms(torch, lambda: packed_attention(qkv, 6),
                                     sdpa_fwd_fn(torch, qkv, 6))
     k1_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * SERVE_BATCH * 6 * 192**2 * 64)
-    z = torch.randn(SERVE_BATCH * K, H * W, generator=g, device=dev) / 0.5
-    k2_err_main = gate(torch, f"K2 sparsemax ({SERVE_BATCH * K}, {H * W}) float32",
-                       sparsemax_rows(z), sparsemax_reference(z), phase=3, bound=K2_TOL)
-    k2_ms, k2_plain_ms = paired_ms(
-        torch, lambda: sparsemax_rows(z), lambda: sparsemax_reference(z), iters=20)
+    k2_adversarial = {}
+    for rows in K2_ROWS:
+        z = k2_rows(torch, g, SERVE_BATCH * K, H * W, rows)
+        err = k2_check(torch, z, rows, phase=3)
+        if rows == "random":
+            k2_err_main = err
+            k2_ms, k2_plain_ms = paired_ms(
+                torch, lambda: sparsemax_rows(z), lambda: sparsemax_reference(z), iters=20)
+        else:
+            k2_adversarial[rows] = dict(max_abs_err=err,
+                                        ms=cuda_ms(torch, lambda: sparsemax_rows(z), iters=20))
     # K2 reads and writes each f32 element once; per element it does ~96
     # operations: 30 bisection steps of a subtract, a max and a sum, then
     # the row max, the support, its sum and the output.
@@ -1595,7 +1668,9 @@ def main() -> None:
     say(f"phase 3 [{card}]: K1 qkv ({SERVE_BATCH}, 192, 1152) bf16 on K4's tiled forward "
         f"{k1_tiled_ms:.4f} ms against the short forward's {k1_short_ms:.4f} ms (in turns)")
     say(f"phase 3 [{card}]: K2 ({SERVE_BATCH * K}, {H * W}) f32: kernel "
-        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms (no library call computes sparsemax), "
+        f"{k2_ms:.4f} ms on random rows ("
+        + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in k2_adversarial.items())
+        + f"), plain {k2_plain_ms:.4f} ms (no library call computes sparsemax), "
         f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     del qkv, z
 
@@ -1644,7 +1719,7 @@ def main() -> None:
 
     # ---------------------------------------------------------------- phase 8
     k4 = phase8_k4_kernels(torch, dev, card, g)
-    k2_long = phase8_k2_long_rows(torch, dev, card, g, K)
+    k2_long = phase8_k2_long_rows(torch, card, g, K)
     serve_768 = phase8_serving(torch, dev, card, profile)
     train_768 = phase8_training(torch, dev, card, profile)
     k3 = serve_768["k3"]
@@ -1662,18 +1737,27 @@ def main() -> None:
                      train["k4b"], train["k1b_err"], train["k1b_ms"], train["k1b_plain_ms"],
                      train["k1b_bound"], train["k1b_lib_ms"], design="wgmma+TMA, sm90 tiled",
                      online_err=train["k1b_online_err"]),
-        kernel_entry("K2 sparsemax", "triton", "ops/kernels/sparsemax.py",
+        # K2: one warp a row up to 3,072 pixels, one block a row beyond
+        # (staged in shared memory where it fits); `long_rows` holds the
+        # 768 x 768 path's rows, with the adversarial and 65,536-pixel ones.
+        kernel_entry("K2 sparsemax", "cuda", "csrc/sparsemax.cu",
                      "sparsemax_kernel.py:29", train["k2"], k2_err_main, k2_ms, k2_plain_ms,
-                     k2_bound, long_rows=k2_long),
+                     k2_bound, design="candidate filter; warp a row, block a row staged by "
+                     "cp.async.bulk", redesigned_in="PR 8", other_rows=k2_adversarial,
+                     long_rows=k2_long),
         # No serving or training path calls K3, as in the JAX package: its
         # launches on the main paths are 0; its numbers are from the 768 x
         # 768 path's served heatmaps (and phase 3's, under "maps_64x48").
+        # bound_ms counts the band products; dense_bound_ms the dense ones.
         kernel_entry("K3 expected_value_decode_fused", "cuda", "csrc/decode.cu",
                      "decode_kernel.py:40", 0, k3["err"], k3["ms"], k3["plain_ms"],
                      k3["bound"], entry_point_only=True, value_err=k3["val_err"],
+                     design="band products, strips staged by cp.async.bulk",
+                     redesigned_in="PR 8", dense_bound_ms=k3["dense_bound"][0],
                      maps_64x48=dict(max_abs_err=k3_flagship["err"], ms=k3_flagship["ms"],
                                      plain_ms=k3_flagship["plain_ms"],
-                                     bound_ms=k3_flagship["bound"][0])),
+                                     bound_ms=k3_flagship["bound"][0],
+                                     dense_bound_ms=k3_flagship["dense_bound"][0])),
         kernel_entry("K4 tiled_attention forward", "cuda", tiled_cu, "attention_tiled.py:119",
                      train_768["k4f"], k4["k4f_err"], k4["k4f_ms"], k4["k4f_plain_ms"],
                      k4["k4f_bound"], k4["k4f_lib_ms"], design="wgmma+TMA",

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels of
-// csrc/tiled_attention_sm90.cu (K1, K4, K6) and csrc/fused_mlp_sm90.cu (K5):
-// mbarriers, TMA tile copies and the host-side tensor maps they read,
+// csrc/tiled_attention_sm90.cu (K1, K4, K6) and csrc/fused_mlp_sm90.cu (K5),
+// and by csrc/sparsemax.cu (K2) and csrc/decode.cu (K3): mbarriers, bulk
+// copies, TMA tile copies and the host-side tensor maps they read,
 // wgmma shared-memory descriptors for K-major and MN-major tiles, fences,
 // setmaxnreg and the wgmma products in raw PTX. Everything sits in an
 // anonymous namespace, so each source that includes it has its own copy.
@@ -60,6 +61,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // ------------------------------------------------------------------ TMA
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, as one bulk copy completing on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 // Rows row0 .. row0 + rows - 1 of columns col0 .. col0 + D - 1 of batch item
 // b into the tile at `dst`, completing on `bar` (rows past N come as zeros).

@@ -26,6 +26,7 @@ __all__ = [
     "heatmap_maximum",
     "subpixel_refine",
     "expected_value_decode",
+    "decode_convolved",
     "calc_distances",
     "distance_acc",
 ]
@@ -138,8 +139,18 @@ def expected_value_decode(
     """OKS convolution -> first-occurrence argmax -> sub-pixel Taylor step on
     the convolved map -> raw (unconvolved) value at the integer argmax.
     heatmaps (B, K, H, W) float32 -> locs (B, K, 2), vals (B, K)."""
-    B, K, H, W = heatmaps.shape
     conv = oks_conv(heatmaps, row_op, col_op)
+    locs, vals = decode_convolved(heatmaps, conv)
+    if return_heatmap:
+        return locs, vals, conv
+    return locs, vals
+
+
+def decode_convolved(heatmaps: torch.Tensor,
+                     conv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode after the convolution: first-occurrence argmax of conv,
+    sub-pixel Taylor step on conv, raw heatmap value at the integer argmax."""
+    B, K, H, W = heatmaps.shape
     idx = conv.reshape(B, K, H * W).argmax(dim=-1)
     x = (idx % W).float()
     y = (idx // W).float()
@@ -147,8 +158,6 @@ def expected_value_decode(
     xi = torch.round(x).long().clamp(0, W - 1)
     yi = torch.round(y).long().clamp(0, H - 1)
     vals = torch.gather(heatmaps.reshape(B, K, H * W), -1, (yi * W + xi)[..., None])[..., 0]
-    if return_heatmap:
-        return locs, vals, conv
     return locs, vals
 
 

@@ -9,8 +9,12 @@
                    backward, and K1's short bf16 forward: CUDA C++ with wgmma
                    and TMA in bf16 (csrc/tiled_attention_sm90.cu), on the
                    CUDA cores in f32 (csrc/tiled_attention.cu)
-    sparsemax.py   K2, Triton (rows of any length)
-    decode.py      K3 fused expected-value decode, CUDA C++ (csrc/decode.cu)
+    sparsemax.py   K2 row sparsemax, CUDA C++ (csrc/sparsemax.cu): one warp a
+                   row up to 3,072 pixels, one block a row beyond, the
+                   bisection over the row's candidates only
+    decode.py      K3 fused expected-value decode, CUDA C++ (csrc/decode.cu):
+                   products over the OKS operators' band, strips of a map
+                   staged once
     mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward:
                    CUDA C++ with wgmma and TMA in bf16 (csrc/fused_mlp_sm90.cu),
                    on the CUDA cores in f32 (csrc/fused_mlp.cu)

@@ -1,4 +1,4 @@
-"""Kernel K2: row-wise sparsemax in Triton, and its plain version.
+"""Kernel K2: row-wise sparsemax in CUDA C++ (csrc/sparsemax.cu), and its plain versions.
 
 Replaces the TPU kernel `_sparsemax_kernel` of
 probpose_pytorch_tpu/ops/pallas/sparsemax_kernel.py (`sparsemax_pallas`).
@@ -6,46 +6,71 @@ probpose_pytorch_tpu/ops/pallas/sparsemax_kernel.py (`sparsemax_pallas`).
 What it computes, per row z of R rows: 30 bisection steps on the threshold
 tau in [max(z) - 1, max(z)] (f(tau) = sum max(z - tau, 0) - 1), then the
 support S = {z > tau_approx}, the exact tau = (sum_S z - 1) / max(|S|, 1),
-and out = max(z - tau, 0). Both versions here sum the support relative to
+and out = max(z - tau, 0). The versions here sum the support relative to
 the row max, tau = max + (sum_S (z - max) - 1) / |S|: the same tau, but each
 z - max is exact (Sterbenz: z lies within 1 of the max) and the sum rounds at
 ulp(1) instead of ulp(|S| * max), so tau lands within half an ulp of the
 exact value and kernel and plain version agree to one ulp of tau.
 
-What bounds it on an H100: one read and one write of each f32 element
-(R x 3072 x 8 bytes, ~36 MB at a serving batch of 256 crops x 17 keypoints)
-against ~32 reductions over the row, i.e. ~4 FLOP per byte: memory- and
-latency-bound, no matrix product. Design: one program per row with the whole
-row (3,072 pixels, 12 KB) held in registers as one BLOCK = 4096 vector, so
-the 30 bisection reductions never touch memory again; lanes past the row end
-load -inf and drop out of every sum and of the support. The ragged tail of R
-needs no mask because the grid is exactly R programs.
+The kernel runs the bisection over the row's candidates only: with lo0 =
+fl(max - 1), the bracket's first low end as rounded, every midpoint is >=
+lo0, so an element z <= lo0 adds exactly 0 to every f and is never in the
+support. `sparsemax_candidates_reference` is that design's plain twin
+(compaction at lo0 in row order, the bisection over the candidates, the
+whole row where they overflow the buffer).
 
-Rows longer than one register block (16,384 pixels; a 768 x 768 crop's
-192 x 192 heatmap gives 36,864) run a second kernel with the same
-arithmetic: one program per row loops over the row in chunks of 4,096 on
-every sweep (the max, 30 bisection sums, the support and the output), each
-lane keeping its own partial sum. The row (147 KB of f32 at 36,864) is
-re-read on each of the 33 sweeps; the sweeps of the rows in flight stay
-largely in the 50 MB L2. Triton serves here as well as CUDA would: the
-work is a chain of row reductions with no matrix product, which Triton's
-block reductions express directly, and the kernel stays beside the short
-one with the same lines of arithmetic. A CUDA block that staged the row
-once in shared memory would read it from there instead of L2; that is a
-speed-up for a later version, not a change of result.
+What bounds it on an H100: one read and one write of each f32 element, ~4
+operations a byte: device-memory bytes. Rows of up to 3,072 pixels (the
+flagship's 64 x 48 heatmaps) run one warp a row with the row in registers;
+longer rows one block a row, staged once into shared memory where they fit
+(36,864 pixels from 768 x 768 crops), read from device memory on each of
+four passes where they do not (65,536 from 1024 x 1024). `sparsemax_route`
+picks the kernel from N and the card's shared memory.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from probpose_pytorch_tpu_torch.ops import kernels
 
-__all__ = ["sparsemax_rows", "sparsemax_reference", "BISECT_ITERS"]
+__all__ = [
+    "sparsemax_rows",
+    "sparsemax_reference",
+    "sparsemax_candidates_reference",
+    "sparsemax_route",
+    "block_smem_bytes",
+    "BISECT_ITERS",
+    "WARP_CANDIDATES",
+    "BLOCK_CANDIDATES",
+]
 
 BISECT_ITERS = 30
-_MAX_BLOCK = 16384
-_CHUNK = 4096  # the long-row kernel's chunk
+# Candidate buffers of csrc/sparsemax.cu: a short row's (one warp) and a
+# long row's (one block).
+WARP_CANDIDATES = 1024
+BLOCK_CANDIDATES = 4096
+# Pixels a lane holds in the short-row kernel: rows of up to 32 times that.
+_WARP_NPL = (8, 32, 96)
+
+
+def _tau(src: torch.Tensor, zmax: torch.Tensor) -> torch.Tensor:
+    """The threshold of each row: 30 bisection steps of sum max(src - mid, 0)
+    - 1 on [zmax - 1, zmax], then the exact tau from the support, summed
+    relative to zmax. -inf entries of `src` add nothing."""
+    lo, hi = zmax - 1.0, zmax
+    for _ in range(BISECT_ITERS):
+        mid = (lo + hi) / 2.0
+        f = torch.clamp_min(src - mid, 0.0).sum(dim=-1, keepdim=True) - 1.0
+        lo = torch.where(f > 0, mid, lo)
+        hi = torch.where(f > 0, hi, mid)
+    tau_approx = (lo + hi) / 2.0
+    support = src > tau_approx
+    k = support.sum(dim=-1, keepdim=True).float().clamp_min(1.0)
+    ssum = torch.where(support, src - zmax, 0.0).sum(dim=-1, keepdim=True)
+    return zmax + (ssum - 1.0) / k
 
 
 def sparsemax_reference(z: torch.Tensor) -> torch.Tensor:
@@ -54,99 +79,63 @@ def sparsemax_reference(z: torch.Tensor) -> torch.Tensor:
     with the support summed relative to the row max (module docstring)."""
     z32 = z.float()
     zmax = z32.amax(dim=-1, keepdim=True)
-    lo, hi = zmax - 1.0, zmax
-    for _ in range(BISECT_ITERS):
-        mid = (lo + hi) / 2.0
-        f = torch.clamp_min(z32 - mid, 0.0).sum(dim=-1, keepdim=True) - 1.0
-        lo = torch.where(f > 0, mid, lo)
-        hi = torch.where(f > 0, hi, mid)
-    tau_approx = (lo + hi) / 2.0
-    support = z32 > tau_approx
-    k = support.sum(dim=-1, keepdim=True).float().clamp_min(1.0)
-    ssum = torch.where(support, z32 - zmax, 0.0).sum(dim=-1, keepdim=True)
-    tau = zmax + (ssum - 1.0) / k
-    return torch.clamp_min(z32 - tau, 0.0).to(z.dtype)
+    return torch.clamp_min(z32 - _tau(z32, zmax), 0.0).to(z.dtype)
 
 
-_kernel = None
-tl = None  # triton.language, bound by _triton_kernel()
+def sparsemax_candidates_reference(z: torch.Tensor,
+                                   capacity: int = BLOCK_CANDIDATES) -> torch.Tensor:
+    """The kernel's design in plain PyTorch: each row's candidates z > lo0 =
+    fl(max - 1) compacted in row order (padded with -inf), the bisection and
+    the support sums over them; a row with more than `capacity` candidates
+    runs them over the whole row. The output covers the whole row."""
+    z32 = z.float()
+    flat = z32.reshape(-1, z32.shape[-1])
+    zmax = flat.amax(dim=-1, keepdim=True)
+    cand = flat > zmax - 1.0
+    n = cand.sum(dim=-1, keepdim=True)
+    fits = n <= capacity
+    width = max(1, int(torch.where(fits, n, 0).max()))
+    # Candidates first, in row order: a stable sort of the non-candidate flags.
+    order = torch.sort((~cand).to(torch.uint8), dim=-1, stable=True).indices[:, :width]
+    packed = torch.gather(flat, -1, order)
+    packed = torch.where(torch.arange(width, device=flat.device) < n, packed, float("-inf"))
+    tau = torch.where(fits, _tau(packed, zmax), _tau(flat, zmax))
+    return torch.clamp_min(flat - tau, 0.0).reshape(z32.shape).to(z.dtype)
 
 
-def _triton_kernel():
-    """Compile-on-first-use: triton is imported here, never at module import,
-    so the package loads where triton is absent. `tl` is bound as a module
-    global because triton resolves the kernel's names in its globals."""
-    global _kernel, tl
-    if _kernel is not None:
-        return _kernel
-    import triton
-    import triton.language as tl
+def block_smem_bytes(N: int, staged: bool) -> int:
+    """Shared memory of the long-row kernel at N pixels: the candidate
+    buffer, the row if staged, and the kernel's static words (under 256
+    bytes); mirrors csrc/sparsemax.cu's `sparsemax_block_smem_bytes` plus
+    those words, which a card test checks."""
+    return 4 * (BLOCK_CANDIDATES + (N if staged else 0)) + 256
 
-    @triton.jit
-    def sparsemax_kernel(z_ptr, out_ptr, N, stride, BLOCK: tl.constexpr,
-                         ITERS: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        offs = tl.arange(0, BLOCK)
-        mask = offs < N
-        z = tl.load(z_ptr + row * stride + offs, mask=mask,
-                    other=-float("inf"))
-        zmax = tl.max(z, axis=0)
-        lo = zmax - 1.0
-        hi = zmax
-        for _ in range(ITERS):
-            mid = (lo + hi) * 0.5
-            f = tl.sum(tl.maximum(z - mid, 0.0), axis=0) - 1.0
-            lo = tl.where(f > 0, mid, lo)
-            hi = tl.where(f > 0, hi, mid)
-        tau_approx = (lo + hi) * 0.5
-        support = z > tau_approx
-        k = tl.maximum(tl.sum(support.to(tl.float32), axis=0), 1.0)
-        ssum = tl.sum(tl.where(support, z - zmax, 0.0), axis=0)
-        tau = zmax + (ssum - 1.0) / k
-        tl.store(out_ptr + row * stride + offs, tl.maximum(z - tau, 0.0),
-                 mask=mask)
 
-    @triton.jit
-    def sparsemax_long_kernel(z_ptr, out_ptr, N, stride, CHUNK: tl.constexpr,
-                              ITERS: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        z_row = z_ptr + row * stride
-        offs = tl.arange(0, CHUNK)
-        mx = tl.full([CHUNK], -float("inf"), tl.float32)
-        for start in range(0, N, CHUNK):
-            z = tl.load(z_row + start + offs, mask=start + offs < N, other=-float("inf"))
-            mx = tl.maximum(mx, z)
-        zmax = tl.max(mx, axis=0)
-        lo = zmax - 1.0
-        hi = zmax
-        for _ in range(ITERS):
-            mid = (lo + hi) * 0.5
-            acc = tl.zeros([CHUNK], tl.float32)
-            for start in range(0, N, CHUNK):
-                z = tl.load(z_row + start + offs, mask=start + offs < N,
-                            other=-float("inf"))
-                acc += tl.maximum(z - mid, 0.0)
-            f = tl.sum(acc, axis=0) - 1.0
-            lo = tl.where(f > 0, mid, lo)
-            hi = tl.where(f > 0, hi, mid)
-        tau_approx = (lo + hi) * 0.5
-        cnt = tl.zeros([CHUNK], tl.float32)
-        ssum = tl.zeros([CHUNK], tl.float32)
-        for start in range(0, N, CHUNK):
-            z = tl.load(z_row + start + offs, mask=start + offs < N, other=-float("inf"))
-            support = z > tau_approx
-            cnt += support.to(tl.float32)
-            ssum += tl.where(support, z - zmax, 0.0)
-        k = tl.maximum(tl.sum(cnt, axis=0), 1.0)
-        tau = zmax + (tl.sum(ssum, axis=0) - 1.0) / k
-        for start in range(0, N, CHUNK):
-            mask = start + offs < N
-            z = tl.load(z_row + start + offs, mask=mask, other=-float("inf"))
-            tl.store(out_ptr + row * stride + start + offs, tl.maximum(z - tau, 0.0),
-                     mask=mask)
+def sparsemax_route(N: int, smem_limit: int) -> tuple[str, int]:
+    """The kernel for rows of N pixels on a card whose blocks may use
+    `smem_limit` bytes of shared memory: ("warp", pixels a lane) for rows
+    of up to 3,072, else ("block staged", 0) where the row fits shared
+    memory and ("block", 0) where it does not."""
+    for npl in _WARP_NPL:
+        if N <= 32 * npl:
+            return "warp", npl
+    if block_smem_bytes(N, True) <= smem_limit:
+        return "block staged", 0
+    return "block", 0
 
-    _kernel = (triton, sparsemax_kernel, sparsemax_long_kernel)
-    return _kernel
+
+def _lib() -> ctypes.CDLL:
+    from probpose_pytorch_tpu_torch.ops.kernels._build import library
+
+    lib = library()
+    if not getattr(lib, "_sparsemax_bound", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.sparsemax_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.sparsemax_fwd.restype = i32
+        lib.sparsemax_block_smem_bytes.argtypes = [i32, i32]
+        lib.sparsemax_block_smem_bytes.restype = ctypes.c_longlong
+        lib._sparsemax_bound = True
+    return lib
 
 
 def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
@@ -162,16 +151,20 @@ def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
         return sparsemax_reference(z)
     if R == 0 or N == 0:
         raise ValueError(f"sparsemax_rows: empty input {tuple(z.shape)}")
-    triton, kernel, long_kernel = _triton_kernel()
-    block = triton.next_power_of_2(N)
+    if R > 2**31 - 1:
+        raise ValueError(f"sparsemax_rows: {tuple(z.shape)} exceeds the grid")
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import max_shared_memory
+
+    device = z.device.index if z.device.index is not None else torch.cuda.current_device()
+    route, npl = sparsemax_route(N, max_shared_memory(device))
     out = torch.empty_like(z)
-    with torch.cuda.device(z.device):
-        if block <= _MAX_BLOCK:
-            kernel[(R,)](z, out, N, z.stride(0), BLOCK=block,
-                         ITERS=BISECT_ITERS, num_warps=8)
-        else:
-            long_kernel[(R,)](z, out, N, z.stride(0), CHUNK=_CHUNK,
-                              ITERS=BISECT_ITERS, num_warps=8)
+    vec = N % 4 == 0 and z.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    err = _lib().sparsemax_fwd(z.data_ptr(), out.data_ptr(), R, N, npl,
+                               int(route == "block staged"), int(vec), device,
+                               torch.cuda.current_stream(z.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sparsemax_rows: kernel launch failed with cudaError {err} at "
+                           f"{tuple(z.shape)} ({route})")
     sparsemax_rows.launches += 1
     return out
 

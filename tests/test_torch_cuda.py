@@ -46,13 +46,25 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     tiled_attention_reference,
     tiled_forward,
 )
-from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+from probpose_pytorch_tpu_torch.ops.kernels.decode import (
+    expected_value_decode_banded_reference,
+    expected_value_decode_fused,
+)
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
+    BLOCK_CANDIDATES,
+    WARP_CANDIDATES,
+    block_smem_bytes,
+    sparsemax_candidates_reference,
     sparsemax_reference,
     sparsemax_rows,
 )
 
 torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
+
+# The 17 COCO keypoint sigmas (probpose_pytorch_tpu/data/coco.py, which this
+# file may not import): their OKS operators have band radii 2 to 9.
+COCO_SIGMAS = [0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+               0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089]
 
 
 @pytest.fixture
@@ -204,17 +216,70 @@ def test_packed_attention_kernel_refuses_unsupported(cuda_device):
         short_forward(torch.zeros(1, 300, 3 * 128, device=cuda_device, dtype=torch.bfloat16), 2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("R", [64 * 17, 17 * 3 + 5])
-def test_sparsemax_kernel(cuda_device, R):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    z = torch.randn(R, 3072, generator=g, device=cuda_device) / 0.5
+def simplex_bound(out: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Per row, how far a float32 sparsemax row may sum from 1: 1e-5, or one
+    ulp of tau (2**-23 max(1, |max z|)) for each support element where that
+    is more, since every output z - tau carries tau's rounding (the plain
+    version's rows of 65,536 pixels all within 1 of the max, ~350 in the
+    support, sum 1.04e-5 from 1)."""
+    ulps = (out > 0).sum(-1) * 2.0**-23 * z.abs().amax(-1).clamp_min(1.0)
+    return ulps.clamp_min(1e-5)
+
+
+def check_sparsemax(z: torch.Tensor, capacity: int = BLOCK_CANDIDATES) -> None:
+    """K2 once: one launch, within 1e-6 of the plain version and of its plain
+    twin (exact tau from the same support, f32 sums in another order), rows
+    on the simplex, and a second launch bit-identical."""
     before = sparsemax_rows.launches
     out = sparsemax_rows(z)
+    again = sparsemax_rows(z)
     torch.cuda.synchronize()
-    assert sparsemax_rows.launches == before + 1
-    assert (out - sparsemax_reference(z)).abs().max().item() <= 1e-6  # exact tau
-    assert (out.sum(-1) - 1).abs().max().item() <= 1e-5  # on the simplex
+    assert sparsemax_rows.launches == before + 2
+    assert (out - sparsemax_reference(z)).abs().max().item() <= 1e-6
+    assert (out - sparsemax_candidates_reference(z, capacity)).abs().max().item() <= 1e-6
+    assert ((out.sum(-1) - 1).abs() <= simplex_bound(out, z)).all()  # on the simplex
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(64 * 17, 3072), (17 * 3 + 5, 3072), (5, 1), (3, 5),
+                                 (7, 300), (5, 3071), (5, 3073), (3, 65536)])
+def test_sparsemax_kernel(cuda_device, R, N):
+    """Random rows, ragged R and N: the short-row kernel (N <= 3,072, with
+    and without float4 loads), the staged long-row kernel (3,073) and the
+    one that reads device memory on each pass (65,536)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    check_sparsemax(torch.randn(R, N, generator=g, device=cuda_device) / 0.5,
+                    WARP_CANDIDATES if N <= 3072 else BLOCK_CANDIDATES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [300, 3072, 36864, 65536])
+@pytest.mark.parametrize("rows", ["all candidates", "ties", "at lo0"])
+def test_sparsemax_kernel_adversarial_rows(cuda_device, N, rows):
+    """Rows whose every element is a candidate (within 1 of the max: the
+    buffer overflows past 1,024 or 4,096 and the bisection runs over the
+    whole row), rows that tie at the max, and rows with elements exactly at
+    lo0 = max - 1, which are no candidates."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    z = torch.rand(6, N, generator=g, device=cuda_device)
+    if rows == "ties":
+        z = torch.randn(6, N, generator=g, device=cuda_device) / 0.5
+        z[:, :: max(1, N // 7)] = z.amax(dim=-1, keepdim=True)
+    elif rows == "at lo0":
+        z = 4.0 * z
+        z[:, 0], z[:, 1:: max(1, N // 9)] = 5.0, 4.0
+    check_sparsemax(z, WARP_CANDIDATES if N <= 3072 else BLOCK_CANDIDATES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [3073, 36864, 65536])
+def test_sparsemax_block_smem_bytes_match_the_library(cuda_device, N):
+    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import _lib
+
+    for staged in (False, True):
+        assert _lib().sparsemax_block_smem_bytes(N, int(staged)) + 256 == \
+            block_smem_bytes(N, staged)
 
 
 @pytest.mark.cuda
@@ -731,32 +796,44 @@ def _peaked_maps(g, B, K, H, W, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K,H,W", [(64, 17, 64, 48), (8, 17, 192, 192), (3, 5, 100, 70)])
-def test_fused_decode_kernel(cuda_device, B, K, H, W):
-    """K3 against the plain decode: 1e-3 px, raw values 1e-6."""
+@pytest.mark.parametrize("B,K,H,W,operators", [(64, 17, 64, 48, "oks"), (8, 17, 192, 192, "oks"),
+                                               (3, 5, 100, 70, "oks"), (4, 17, 64, 48, "coco"),
+                                               (2, 17, 192, 192, "coco"), (2, 3, 24, 20, "dense")])
+def test_fused_decode_kernel(cuda_device, B, K, H, W, operators):
+    """K3 against the plain decode and its banded twin: 1e-3 px, raw values
+    1e-6, and bit-identical across two runs. The OKS operators at sigma
+    0.05 (chip_smoke.py's), at the COCO sigmas (band radii 2 to 9 in one
+    launch), and dense random operators (band radius n - 1); 100 x 70 maps
+    (rows of 280 bytes) are staged without bulk copies, and 192 x 192 maps
+    run in strips."""
     g = torch.Generator(device=cuda_device).manual_seed(16)
     maps = _peaked_maps(g, B, K, H, W, cuda_device)
-    ops = build_oks_conv_operators([0.05] * K, H, W)
-    row_op = torch.from_numpy(ops.row_op).to(cuda_device)
-    col_op = torch.from_numpy(ops.col_op).to(cuda_device)
+    if operators == "dense":
+        row_op = torch.rand(K, H, H, generator=g, device=cuda_device) / H
+        col_op = torch.rand(K, W, W, generator=g, device=cuda_device) / W
+    else:
+        sigmas = COCO_SIGMAS[:K] if operators == "coco" else [0.05] * K
+        ops = build_oks_conv_operators(sigmas, H, W)
+        row_op = torch.from_numpy(ops.row_op).to(cuda_device)
+        col_op = torch.from_numpy(ops.col_op).to(cuda_device)
     before = expected_value_decode_fused.launches
     locs, vals = expected_value_decode_fused(maps, row_op, col_op)
+    again = expected_value_decode_fused(maps, row_op, col_op)
     torch.cuda.synchronize()
-    assert expected_value_decode_fused.launches == before + 1
-    ref_locs, ref_vals = expected_value_decode(maps, row_op, col_op)
-    assert max_err(locs, ref_locs) <= 1e-3
-    assert max_err(vals, ref_vals) <= 1e-6
+    assert expected_value_decode_fused.launches == before + 2
+    for ref_locs, ref_vals in (expected_value_decode(maps, row_op, col_op),
+                               expected_value_decode_banded_reference(maps, row_op, col_op)):
+        assert max_err(locs, ref_locs) <= 1e-3
+        assert max_err(vals, ref_vals) <= 1e-6
+    assert torch.equal(locs, again[0]) and torch.equal(vals, again[1])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [32 * 17, 17 * 3 + 5])
 def test_sparsemax_kernel_long_rows(cuda_device, R):
-    """K2 on 192 x 192-pixel rows, past one register block."""
+    """K2 on 192 x 192-pixel rows, staged in shared memory, and on a view
+    whose rows start off 16-byte boundaries (no bulk copies)."""
     g = torch.Generator(device=cuda_device).manual_seed(17)
-    z = torch.randn(R, 192 * 192, generator=g, device=cuda_device) / 0.5
-    before = sparsemax_rows.launches
-    out = sparsemax_rows(z)
-    torch.cuda.synchronize()
-    assert sparsemax_rows.launches == before + 1
-    assert (out - sparsemax_reference(z)).abs().max().item() <= 1e-6  # exact tau
-    assert (out.sum(-1) - 1).abs().max().item() <= 1e-5  # on the simplex
+    z = torch.randn(R, 192 * 192 + 1, generator=g, device=cuda_device) / 0.5
+    check_sparsemax(z[:, :-1].contiguous())
+    check_sparsemax(z.flatten()[1:1 + R * 192 * 192].view(R, 192 * 192))

@@ -31,7 +31,11 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     packed_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
+    BLOCK_CANDIDATES,
+    WARP_CANDIDATES,
+    sparsemax_candidates_reference,
     sparsemax_reference,
+    sparsemax_route,
     sparsemax_rows,
 )
 from probpose_pytorch_tpu_torch.ops.sparsemax import sparsemax
@@ -225,6 +229,56 @@ def test_sparsemax_grad_matches_jax():
     (sparsemax(zt) * _t(t)).sum().backward()
     # Closed form on the same support; one f32 mean per row.
     np.testing.assert_allclose(zt.grad.numpy(), np.asarray(g_ref), atol=1e-6)
+
+
+def _k2_rows(case: str) -> np.ndarray:
+    """Rows for K2's candidate twin: random rows of the flagship's and the
+    768 x 768 path's lengths, and the adversarial ones."""
+    rng = np.random.default_rng(6)
+    if case == "flagship":
+        return (rng.normal(size=(56, 3072)) / 0.5).astype(np.float32)
+    if case == "768":
+        return (rng.normal(size=(3, 36864)) / 0.5).astype(np.float32)
+    if case == "all candidates":  # every element within 1 of the max
+        return rng.random((4, 2000), dtype=np.float32)
+    if case == "ties":
+        z = (rng.normal(size=(4, 3072)) / 0.5).astype(np.float32)
+        z[:, ::500] = z.max(axis=-1, keepdims=True)
+        return z
+    if case == "N = 1":
+        return rng.normal(size=(5, 1)).astype(np.float32)
+    z = 4.0 * rng.random((4, 1000), dtype=np.float32)  # "at lo0"
+    z[:, 0], z[:, 1::97] = 5.0, 4.0  # lo0 = 4.0 exactly: no candidates
+    return z
+
+
+@pytest.mark.parametrize("case", ["flagship", "768", "all candidates", "ties", "N = 1",
+                                  "at lo0"])
+def test_sparsemax_candidates_twin_matches_plain_and_pallas(case):
+    """K2's design (bisection over the candidates z > fl(max - 1), compacted
+    in row order; the whole row where they overflow the buffer) against the
+    plain version and the Pallas kernel: exact tau from the same support,
+    f32 sums in another order, so 1e-6; rows on the simplex within 1e-5."""
+    z = _k2_rows(case)
+    ref = sparsemax_reference(_t(z)).numpy()
+    pallas = np.asarray(sparsemax_pallas(jnp.asarray(z), interpret=True))
+    capacities = (WARP_CANDIDATES, BLOCK_CANDIDATES, 2)  # 2: the whole-row fallback
+    for capacity in capacities:
+        twin = sparsemax_candidates_reference(_t(z), capacity).numpy()
+        np.testing.assert_allclose(twin, ref, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(twin, pallas, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(twin.sum(-1), 1.0, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,route", [(1, ("warp", 8)), (256, ("warp", 8)), (257, ("warp", 32)),
+                                     (3072, ("warp", 96)), (3073, ("block staged", 0)),
+                                     (36864, ("block staged", 0)), (53952, ("block staged", 0)),
+                                     (53953, ("block", 0)), (65536, ("block", 0))])
+def test_sparsemax_route(N, route):
+    """One warp a row up to 3,072 pixels; one block a row beyond, staged in
+    shared memory while the row and the candidate buffer fit an H100's
+    232,448 bytes."""
+    assert sparsemax_route(N, 232448) == route
 
 
 def test_sparsemax_rows_checks_inputs():

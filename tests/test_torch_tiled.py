@@ -16,6 +16,7 @@ import torch
 
 from probpose_pytorch_tpu.codec import Codec as JaxCodec
 from probpose_pytorch_tpu.codec import ProbMap as JaxProbMap
+from probpose_pytorch_tpu.data.coco import COCO_SIGMAS
 from probpose_pytorch_tpu.ops.heatmap import build_oks_conv_operators as jax_operators
 from probpose_pytorch_tpu.ops.pallas import expected_value_decode_pallas, tiled_attention as jax_tiled
 from probpose_pytorch_tpu.ops.sparsemax import sparsemax as jax_sparsemax
@@ -32,7 +33,16 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     tiled_attention_online_reference,
     tiled_attention_reference,
 )
-from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+from probpose_pytorch_tpu_torch.ops.heatmap import (
+    build_oks_conv_operators,
+    expected_value_decode,
+)
+from probpose_pytorch_tpu_torch.ops.kernels.decode import (
+    band_radius,
+    expected_value_decode_banded_reference,
+    expected_value_decode_fused,
+    operator_bands,
+)
 from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_reference, sparsemax_rows
 from test_torch_ops import _maps
 from test_torch_train import RAW, _port, build_jax_side
@@ -249,6 +259,67 @@ def test_decode_plain_matches_jax_fused_decode(case):
     # test_pallas.py's bar for the fused decode: 1e-4 px; raw values 1e-6.
     np.testing.assert_allclose(locs.numpy(), np.asarray(locs_ref), rtol=0, atol=1e-4)
     np.testing.assert_allclose(vals.numpy(), np.asarray(vals_ref), rtol=0, atol=1e-6)
+
+
+# Band radii of the COCO operators, keypoint by keypoint, by heatmap size.
+COCO_RADII = {(64, 48): [2, 2, 2, 2, 2, 7, 7, 6, 6, 5, 5, 9, 9, 9, 9, 9, 9],
+              (192, 192): [3, 3, 3, 5, 5, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9]}
+
+
+@pytest.mark.parametrize("H,W", list(COCO_RADII))
+def test_band_radius_of_coco_operators(H, W):
+    """K3's band radius: ceil(3 s) of each keypoint's OKS kernel, the same
+    for row and column operators, every nonzero inside it; a dense operator
+    gives n - 1."""
+    ops = build_oks_conv_operators(COCO_SIGMAS, H, W)
+    for op in (ops.row_op, ops.col_op):
+        radius = band_radius(_t(op))
+        assert radius.tolist() == COCO_RADII[(H, W)]
+        n = op.shape[-1]
+        dist = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
+        assert not (op != 0)[dist[None] > radius.numpy()[:, None, None]].any()
+    dense = np.random.default_rng(0).random((2, 9, 9)).astype(np.float32) + 0.1
+    assert band_radius(_t(dense)).tolist() == [8, 8]
+
+
+def test_operator_bands_pack_the_column_band_and_cache_it():
+    """col_band[k, d, w] = col_op[k, w, w - r_k + d] inside the band, zero
+    outside and in the padding to a multiple of 4 columns; the same tensors
+    give the cached pack, an in-place change a new one."""
+    ops = build_oks_conv_operators(COCO_SIGMAS, 64, 46)
+    row_op, col_op = _t(ops.row_op), _t(ops.col_op)
+    radius, band, R = operator_bands(row_op, col_op)
+    assert R == 9 and band.shape == (17, 19, 48) and radius.dtype == torch.int32
+    for k in range(17):
+        r = int(radius[k])
+        for w in range(48):
+            for d in range(19):
+                v = w - r + d
+                inside = w < 46 and 0 <= v < 46 and d <= 2 * r
+                assert band[k, d, w] == (col_op[k, w, v] if inside else 0.0)
+    assert operator_bands(row_op, col_op)[1] is band
+    col_op.mul_(2.0)
+    assert torch.equal(operator_bands(row_op, col_op)[1], 2.0 * band)
+    with torch.inference_mode():  # as the codec builds them while serving
+        row_op, col_op = row_op.clone(), col_op.clone()
+    assert torch.equal(operator_bands(row_op, col_op)[1], 2.0 * band)
+    assert operator_bands(row_op, col_op)[1] is operator_bands(row_op, col_op)[1]
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 64, 48), (1, 192, 192)])
+def test_banded_decode_twin_matches_jax_fused_decode(B, H, W):
+    """K3's design (products over each band, ascending index order) at the
+    COCO operators against the Pallas fused decode and the port's plain
+    decode: the repo's decode bar of 1e-3 px, raw values 1e-6."""
+    maps = _peaked(5, B, 17, H, W)
+    ops = jax_operators(COCO_SIGMAS, H, W)
+    locs, vals = expected_value_decode_banded_reference(_t(maps), _t(ops.row_op),
+                                                        _t(ops.col_op))
+    for ref_locs, ref_vals in (
+            expected_value_decode_pallas(jnp.asarray(maps), ops, interpret=True),
+            expected_value_decode(_t(maps), _t(ops.row_op), _t(ops.col_op))):
+        np.testing.assert_allclose(locs.numpy(), np.asarray(ref_locs), rtol=0, atol=1e-3)
+        np.testing.assert_allclose(vals.numpy(), np.asarray(ref_vals), rtol=0, atol=1e-6)
 
 
 def test_decode_fused_checks_inputs():
