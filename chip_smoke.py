@@ -92,6 +92,18 @@ generator:
            scaled_dot_product_attention times, serving crops/s, step time,
            the stage split and peak device memory
 
+  phase 9  the flagship recipe as shipped (configs/flagship_coco_vits.json:
+           full width and depth, bf16, B = 128, its augmentation) through
+           the training CLI, twice in this process on the synthetic
+           dataset: 3 steps that leave checkpoints/3, then a resume to a
+           checkpoint at step 6; the launch counters show K1 forward, K1
+           backward and K2 in those steps. The augmented preamble with
+           half-body and rotation on, crop and frame mode, B = 16, on the
+           card against the CPU with the same draws. Then, not gated: the
+           B = 256 frame-mode step with and without augmentation in turns,
+           and a save and a restore of the flagship state (the restore
+           bit for bit)
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -114,11 +126,15 @@ Nothing of JAX is imported: the port stands alone on the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -154,6 +170,19 @@ K3_VAL_TOL = 1e-6  # and the raw values it reads
 # the max, so the candidate buffer overflows past 1,024 or 4,096 and the
 # bisection runs over the whole row), and ties at the max.
 K2_ROWS = ("random", "all candidates", "ties")
+# Phase 9: the augmented preamble on the card against the CPU. Crop mode
+# has no bf16 product; frame mode's crop_resize rounds to bf16 and cuBLAS
+# sums in another order, so its crops may differ by one bf16 ulp of a value
+# <= 1 scaled by up to 1 + contrast.
+AUG_CROP_TOL = 1e-5
+AUG_FRAME_TOL = 2.0**-7
+AUG_KPT_TOL_PX = 1e-3
+AUG_HEATMAP_TOL = 1e-5
+AUG_BATCH = 16
+RECIPE_STEPS = 3
+# Where Trainer.fit writes metrics and checkpoints in this run (under
+# TMPDIR; removed at the end).
+RUN_DIR = Path(tempfile.gettempdir())
 # H100 SXM at 700 W, NVIDIA's data sheet: device memory bytes/s, and dense
 # operations/s by type (bf16 on the tensor cores, f32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -504,7 +533,14 @@ def train_config(dtype: str, batch: int):
     cfg = TrainConfig.load(REPO / "configs/flagship_coco_vits.json")
     return dataclasses.replace(
         cfg, augment=None, train_batch_size=batch, log_every=1, resume=False,
-        model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype), **fit_outputs("flagship"))
+
+
+def fit_outputs(name: str) -> dict:
+    """TrainConfig fields that keep Trainer.fit's files in this run's
+    directory: one checkpoint kept, written after the first epoch and at
+    the end only."""
+    return dict(out_dir=str(RUN_DIR / name), keep_checkpoints=1, checkpoint_every_epochs=10**6)
 
 
 def make_trainer(torch, cfg, dev):
@@ -796,7 +832,8 @@ def vitb_train_config(dtype: str, batch: int | None = None):
     cfg = TrainConfig.load(REPO / "configs/vitb_coco.json")
     return dataclasses.replace(
         cfg, augment=None, train_batch_size=batch or cfg.train_batch_size, log_every=1,
-        resume=False, model=dataclasses.replace(cfg.model, compute_dtype=dtype, mlp_impl="fused"))
+        resume=False, model=dataclasses.replace(cfg.model, compute_dtype=dtype, mlp_impl="fused"),
+        **fit_outputs("vitb"))
 
 
 def mlp_inputs(torch, block, R: int, g, dev):
@@ -1096,7 +1133,8 @@ def config_768(dtype: str, batch: int):
     """The flagship TrainConfig on 768 x 768 inputs (model.img_size, nothing
     else changed), augmentation off, at `dtype` and `batch`."""
     cfg = train_config(dtype, batch)
-    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, img_size=IMG_768))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, img_size=IMG_768),
+                               **fit_outputs("flagship_768"))
 
 
 # Mangled-name pieces of the kernels phase 0 reports, and their labels.
@@ -1452,6 +1490,176 @@ def phase8_training(torch, dev, card: str, profile: bool) -> dict:
     return counts
 
 
+class _Tee(io.StringIO):
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        return super().write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def recipe_cli_runs(torch, card: str) -> None:
+    """Phase 9 (a): the training CLI on configs/flagship_coco_vits.json as
+    shipped, twice in this process: RECIPE_STEPS steps, then a resume for
+    RECIPE_STEPS more. Both runs must leave their checkpoint, and the
+    second must resume; the launch counters must show K1 forward and
+    backward in every block and K2 once a forward."""
+    from probpose_pytorch_tpu_torch.train import cli
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    cfg_path = REPO / "configs/flagship_coco_vits.json"
+    cfg = TrainConfig.load(cfg_path)
+    out = RUN_DIR / "recipe"
+    args = [str(out), "--config", str(cfg_path), "--dataset-format", "synthetic",
+            "--device", "cuda", "--max-steps", str(RECIPE_STEPS)]
+    say(f"phase 9: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)} (B = "
+        f"{cfg.train_batch_size}, {cfg.model.backbone}, {cfg.model.compute_dtype}, augment "
+        f"{dataclasses.asdict(cfg.augment)})")
+    val_batches = 320 // cfg.val_batch_size  # the CLI's synthetic validation set
+    for run, start in enumerate((0, RECIPE_STEPS)):
+        end = start + RECIPE_STEPS
+        reset_counts()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        lines = (out / "metrics.jsonl").read_text().splitlines()
+        losses = [json.loads(x)["training/loss"] for x in lines if "training/loss" in x]
+        say(f"phase 9 [{card}]: CLI run {run + 1}, steps {start} to {end}: {wall:.2f} s wall "
+            f"(the whole CLI run)")
+        say(f"phase 9: metrics.jsonl last line: {lines[-1]}")
+        check(all(np.isfinite(losses)), "a recipe loss is not finite")
+        check((out / "checkpoints" / str(end)).is_file(), f"no checkpoints/{end} after run {run + 1}")
+        check((f"[trainer] resumed from step {start}" in tee.getvalue()) == (run == 1),
+              f"run {run + 1} did not {'resume' if run else 'start afresh'}")
+        # Run 1 validates at step 0 (val_every = 500) over the synthetic
+        # validation set; run 2 does not validate.
+        forwards = RECIPE_STEPS + (val_batches if run == 0 else 0)
+        check_attention_route(counts, 12 * forwards, 12 * RECIPE_STEPS, phase=9)
+        say(f"phase 9: K2 launches {counts['k2']} (expect {forwards})")
+        check(counts["k2"] == forwards, "K2 did not run once per forward")
+    say("phase 9: the CLI resumed from step 3 and checkpointed at step 6")
+
+
+def recipe_preamble_check(torch, dev, card: str) -> None:
+    """Phase 9 (b): the augmented preamble with half-body and rotation on,
+    B = AUG_BATCH, in crop and frame mode: the same draws on the card and
+    on the CPU."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.ops.augment import draw_augment
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+    from probpose_pytorch_tpu_torch.train.loop import _encode_targets, augment_batch, build_codecs
+
+    cfg = TrainConfig.load(REPO / "configs/flagship_coco_vits.json")
+    cfg = dataclasses.replace(cfg, augment=dataclasses.replace(
+        cfg.augment, half_body_prob=0.3, rotation_deg=30.0))
+    H, W = cfg.model.img_size
+    K = cfg.model.num_keypoints
+    enc, _ = build_codecs(cfg)
+    rng = np.random.default_rng(9)
+    crops = next(iter(batch_iterator(SyntheticPoseDataset(AUG_BATCH, (H, W), K, seed=9),
+                                     AUG_BATCH, num_workers=4)))
+    boxes = np.concatenate([rng.uniform(0, 200, (AUG_BATCH, 2)),
+                            rng.uniform(120, 260, (AUG_BATCH, 2))], 1).astype(np.float32)
+    frames = dict(frame=rng.integers(0, 256, (AUG_BATCH, 480, 640, 3), dtype=np.uint8),
+                  box=boxes,
+                  keypoints=(boxes[:, None, :2] + rng.random((AUG_BATCH, K, 2))
+                             * boxes[:, None, 2:]).astype(np.float32),
+                  keypoints_visible=np.ones((AUG_BATCH, K), np.float32),
+                  keypoints_visibility=(rng.random((AUG_BATCH, K)) > 0.1).astype(np.float32))
+    draws = draw_augment(cfg.seed, 7, AUG_BATCH, cfg.augment, "cpu")
+    reboxed = int((draws.half_u < cfg.augment.half_body_prob).sum())
+    check(reboxed > 0, "no sample drew half-body")
+    for mode, batch, tol in (("crop", crops, AUG_CROP_TOL), ("frame", frames, AUG_FRAME_TOL)):
+        host = {k: torch.as_tensor(v) for k, v in batch.items()}
+        img_c, b_c = augment_batch(cfg, host, draws)
+        img_g, b_g = augment_batch(cfg, {k: v.to(dev) for k, v in host.items()}, draws.to(dev))
+        hm_c = _encode_targets(enc, b_c)["heatmaps"]
+        hm_g = _encode_targets(enc, b_g)["heatmaps"]
+        torch.cuda.synchronize()
+        diff = (img_g.cpu() - img_c).abs()
+        kerr = (b_g["keypoints"].cpu() - b_c["keypoints"]).abs().max().item()
+        herr = (hm_g.cpu() - hm_c).abs().max().item()
+        say(f"phase 9: augmented preamble, {mode} mode, B = {AUG_BATCH} (flip, "
+            f"{'half-body on ' + str(reboxed) + ' draws, box jitter, ' if mode == 'frame' else ''}"
+            f"rotation, colour), card against CPU with the same draws: crops max "
+            f"{diff.max().item():.3e} (bound {tol:.3e}), mean {diff.mean().item():.3e}; "
+            f"keypoints {kerr:.3e} px (bound {AUG_KPT_TOL_PX:g}); heatmaps {herr:.3e} "
+            f"(bound {AUG_HEATMAP_TOL:g})")
+        check(torch.isfinite(img_g).all().item(), f"{mode} crops are not finite")
+        check(diff.max().item() <= tol, f"{mode} crops differ from the CPU's")
+        check(kerr <= AUG_KPT_TOL_PX, f"{mode} keypoints differ from the CPU's")
+        check(herr <= AUG_HEATMAP_TOL, f"{mode} heatmaps differ from the CPU's")
+
+
+def recipe_times(torch, dev, card: str) -> None:
+    """Phase 9 (c) and (d), not gated except the restore: the flagship's
+    B = 256 frame-mode step with its augmentation against the same step
+    without it, in turns; then a save and a restore of the flagship state,
+    the restore compared bit for bit."""
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+    from probpose_pytorch_tpu_torch.train.loop import make_train_step
+
+    cfg = dataclasses.replace(train_config("bfloat16", TRAIN_BATCH), augment=TrainConfig.load(
+        REPO / "configs/flagship_coco_vits.json").augment)
+    trainer = make_trainer(torch, cfg, dev)
+    plain_step = make_train_step(trainer.model, trainer.encode_codec, trainer.loss_fn,
+                                 trainer.tx, dataclasses.replace(cfg, augment=None))
+    rng = np.random.default_rng(10)
+    K = cfg.model.num_keypoints
+    boxes = np.concatenate([rng.uniform(0, 200, (TRAIN_BATCH, 2)),
+                            rng.uniform(120, 260, (TRAIN_BATCH, 2))], 1).astype(np.float32)
+    db = trainer.device_batch(dict(
+        frame=rng.integers(0, 256, (TRAIN_BATCH, 480, 640, 3), dtype=np.uint8), box=boxes,
+        keypoints=(boxes[:, None, :2] + rng.random((TRAIN_BATCH, K, 2))
+                   * boxes[:, None, 2:]).astype(np.float32),
+        keypoints_visible=np.ones((TRAIN_BATCH, K), np.float32),
+        keypoints_visibility=np.ones((TRAIN_BATCH, K), np.float32)))
+    aug_ms, plain_ms = yardstick_ms(torch, lambda: trainer.train_step(trainer.state, db),
+                                    lambda: plain_step(trainer.state, db), iters=10, windows=5)
+    say(f"phase 9 [{card}]: flagship bf16 step, B = {TRAIN_BATCH} frames of 480 x 640 on the "
+        f"card: with the recipe's augmentation (flip, box jitter, colour) {aug_ms:.3f} ms, "
+        f"without {plain_ms:.3f} ms (CUDA events, medians of 5 windows of 10 steps, in turns); "
+        f"augmentation {aug_ms - plain_ms:.3f} ms a step")
+
+    mgr = CheckpointManager(RUN_DIR / "checkpoint_times", keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(trainer.state.host_step, trainer.state)
+    save_s = time.perf_counter() - t0
+    size = (mgr.directory / str(trainer.state.host_step)).stat().st_size
+    fresh = make_trainer(torch, cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore(fresh.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    a, b = trainer.state, fresh.state
+    pairs = list(zip(a.params, b.params)) + list(zip(a.ema_params, b.ema_params))
+    pairs += list(zip(trainer.model.buffers(), fresh.model.buffers()))
+    pairs += list(zip(a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu))
+    pairs += [(getattr(a.opt_state, f), getattr(b.opt_state, f))
+              for f in ("count", "schedule_count", "notfinite_count", "last_finite",
+                        "total_notfinite")]
+    pairs.append((a.step, b.step))
+    same = all(x.device == y.device and torch.equal(x, y) for x, y in pairs)
+    say(f"phase 9 [{card}]: flagship checkpoint, {size / 2**20:.1f} MiB, step "
+        f"{a.host_step}: save {save_s:.3f} s, restore {restore_s:.3f} s (host clock); "
+        f"{len(pairs)} tensors restored bit for bit on the card: {same}")
+    check(same and b.host_step == a.host_step, "the restored state differs from the saved one")
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -1516,7 +1724,16 @@ def main() -> None:
     if "--attention-times" in sys.argv[1:]:
         attention_times(torch, card_line())
         return
+    global RUN_DIR
+    RUN_DIR = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        run(torch)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
 
+
+def run(torch) -> None:
+    """Phases 0 to 9, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -1723,6 +1940,12 @@ def main() -> None:
     serve_768 = phase8_serving(torch, dev, card, profile)
     train_768 = phase8_training(torch, dev, card, profile)
     k3 = serve_768["k3"]
+
+    # ---------------------------------------------------------------- phase 9
+    gc.collect()
+    recipe_cli_runs(torch, card)
+    recipe_preamble_check(torch, dev, card)
+    recipe_times(torch, dev, card)
 
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"

@@ -1,5 +1,4 @@
-"""PyTorch/CUDA port of probpose-tpu's top-down serving path and training
-step.
+"""PyTorch/CUDA port of probpose-tpu's top-down serving path and training.
 
 The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
 (the reference it is tested against) but imports only torch and numpy:
@@ -15,8 +14,12 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     codec.py              ProbMap and ArgMaxProbMap: encode and decode
     losses.py             the five-term ProbPoseLoss and its metrics
     inference.py          TopDownPredictor
-    data/pipeline.py      synthetic poses and numpy batching (host)
-    train/                TrainConfig, AdamW + one-cycle + EMA, Trainer
+    ops/augment.py        on-device augmentation: draws and transforms
+    data/                 synthetic poses, COCO and YOLO loaders, the crop
+                          cache, batching and prefetch (host)
+    train/                TrainConfig, AdamW + one-cycle + EMA (+ MultiSteps),
+                          Trainer, checkpoints, the training CLI (cli.py)
+    utils/logging.py      metrics.jsonl (and TensorBoard where installed)
     compat/from_jax.py    load the JAX package's weights and train state
     ops/kernels/          hand-written Hopper kernels, their plain versions,
                           and the nvcc builder for csrc/*.cu

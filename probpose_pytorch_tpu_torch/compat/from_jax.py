@@ -23,7 +23,7 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
-from probpose_pytorch_tpu_torch.train.state import TrainState
+from probpose_pytorch_tpu_torch.train.state import MultiStepsState, TrainState
 
 __all__ = ["state_dict_from_jax", "load_jax_variables", "load_jax_train_state"]
 
@@ -151,8 +151,9 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     """Carry a JAX `TrainState` with numpy leaves (`jax.device_get(state)`)
     into the port's `state` in place: step, params and batch_stats, the EMA
     params, and the optax state of train/state.py's chain (Adam mu, nu and
-    count, the schedule's count, and apply_if_finite's counters). The
-    moments go through the same layout conversions as the params."""
+    count, the schedule's count, apply_if_finite's counters and, with
+    accum_steps > 1, MultiSteps' counters and accumulator). The moments go
+    through the same layout conversions as the params."""
     load_jax_variables(state.model, jax_state.params, jax_state.batch_stats)
     device = state.params[0].device
 
@@ -164,6 +165,7 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
         return torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
 
     state.step = scalar(jax_state.step)
+    state.host_step = int(np.asarray(jax_state.step))
     if jax_state.ema_params is not None:
         state.ema_params = leaves(jax_state.ema_params)
     named = list(_named_tuples(jax_state.opt_state))
@@ -171,6 +173,11 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
                 "ScaleByAdamState")
     sched = _one([s for s in named if s._fields == ("count",)], "ScaleByScheduleState")
     opt = state.opt_state
+    if isinstance(opt, MultiStepsState):
+        multi = _one([s for s in named if "acc_grads" in s._fields], "MultiStepsState")
+        opt.mini_step, opt.gradient_step = scalar(multi.mini_step), scalar(multi.gradient_step)
+        opt.acc = leaves(multi.acc_grads)
+        opt = opt.inner
     opt.mu, opt.nu = leaves(adam.mu), leaves(adam.nu)
     opt.count, opt.schedule_count = scalar(adam.count), scalar(sched.count)
     finite = [s for s in named if "notfinite_count" in s._fields]

@@ -1,18 +1,20 @@
-"""Host-side synthetic poses and batching (copy of the host numpy code of
-probpose_pytorch_tpu/data/pipeline.py, which the port cannot import: the
-JAX package's `__init__` pulls in jax).
+"""Host-side synthetic poses, batching and prefetch (copy of the host numpy
+code of probpose_pytorch_tpu/data/pipeline.py, which the port cannot
+import: the JAX package's `__init__` pulls in jax).
 
-Samples are numpy; the train step moves each batch to the model's device.
+Samples are numpy; Trainer.fit moves each batch to the model's device.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import queue
+import threading
 from typing import Any, Iterator, Sequence
 
 import numpy as np
 
-__all__ = ["SyntheticPoseDataset", "batch_iterator"]
+__all__ = ["SyntheticPoseDataset", "batch_iterator", "Prefetcher"]
 
 
 class SyntheticPoseDataset:
@@ -76,10 +78,11 @@ def batch_iterator(
     num_workers: int = 4,
     epoch: int = 0,
 ) -> Iterator[dict[str, np.ndarray]]:
-    """Yield collated numpy batches, samples loaded in a thread pool.
-    Shuffling draws the permutation from the (seed, epoch) generator, as
-    the JAX iterator does. Its multi-host slicing is not ported (ROADMAP
-    item 13)."""
+    """Yield collated numpy batches. Datasets with `get_batch(indices)`
+    (CachedCropDataset, the COCO and YOLO loaders) are read a batch at a
+    time; other samples load in a thread pool. Shuffling draws the
+    permutation from the (seed, epoch) generator, as the JAX iterator does.
+    Its multi-host slicing is not ported (ROADMAP item 13)."""
     idx = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng((seed, epoch)).shuffle(idx)
@@ -87,6 +90,10 @@ def batch_iterator(
     groups = [idx[i : i + batch_size] for i in range(0, ends, batch_size)]
     if not drop_last and ends < len(idx):
         groups.append(idx[ends:])
+    if hasattr(dataset, "get_batch"):
+        for g in groups:
+            yield dataset.get_batch(g)
+        return
     if num_workers <= 1:
         for g in groups:
             yield _collate([dataset[int(i)] for i in g])
@@ -94,3 +101,54 @@ def batch_iterator(
     with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
         for g in groups:
             yield _collate(list(pool.map(dataset.__getitem__, (int(i) for i in g))))
+
+
+class Prefetcher:
+    """An iterator run ahead by a background thread into a queue of `depth`
+    items, so host data preparation overlaps device work. The consumer
+    sees the iterator's exception where it was raised. `close` stops the
+    thread (and closes the iterator) when the consumer leaves early."""
+
+    def __init__(self, iterator: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._err: BaseException | None = None
+        self._stop = threading.Event()
+
+        def run():
+            try:
+                for item in iterator:
+                    if not self._put(item):
+                        break
+            except BaseException as e:  # handed to the consumer
+                self._err = e
+            finally:
+                close = getattr(iterator, "close", None)
+                if close is not None:
+                    close()
+                self._put(self._done)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._done:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+
+    def close(self, timeout: float = 60.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout)

@@ -1,0 +1,187 @@
+"""Checkpoints with resume (port of probpose_pytorch_tpu/train/checkpoint.py),
+in the port's own format.
+
+A checkpoint is one `torch.save` file, `<directory>/<step>`, holding the
+step, the parameters and buffers (the BatchNorm statistics) by name, the
+optimizer state (with MultiSteps' accumulator) and the EMA, all on the CPU;
+beside it, `meta_<step>.json` holds the caller's metadata. Files are written
+under a temporary name and moved into place with `os.replace`, so a reader
+never sees half a checkpoint. A JAX run's state loads through
+compat/from_jax.py:load_jax_train_state instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from probpose_pytorch_tpu_torch.train.state import TrainState
+
+__all__ = ["CheckpointManager", "state_is_finite"]
+
+
+def _to_host(x: Any) -> Any:
+    """A copy of an optimizer-state tree on the CPU, dataclasses as dicts."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _to_host(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, (list, tuple)):
+        return [_to_host(v) for v in x]
+    return x.detach().to("cpu", copy=True)
+
+
+def _like(template: Any, saved: Any, what: str) -> Any:
+    """`saved` (a `_to_host` tree) in the structure, devices and dtypes of
+    `template`."""
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: _like(getattr(template, f.name), saved[f.name], f"{what}.{f.name}")
+            for f in dataclasses.fields(template)})
+    if isinstance(template, (list, tuple)):
+        if len(saved) != len(template):
+            raise ValueError(f"{what}: {len(saved)} saved tensors, the state has {len(template)}")
+        return [_like(t, s, f"{what}[{i}]") for i, (t, s) in enumerate(zip(template, saved))]
+    if saved.shape != template.shape:
+        raise ValueError(f"{what}: saved shape {tuple(saved.shape)} != {tuple(template.shape)}")
+    return saved.to(device=template.device, dtype=template.dtype)
+
+
+def state_is_finite(state: TrainState) -> bool:
+    """True when every parameter, floating buffer and EMA tensor is finite.
+    A non-finite state is never saved: the keep-N rotation would evict the
+    clean checkpoints that non-finite recovery restores. One read of the
+    device per call, at save sites only."""
+    tensors = list(state.params) + list(state.ema_params or [])
+    tensors += [b for b in state.model.buffers() if b.is_floating_point()]
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
+def _state_payload(state: TrainState) -> dict[str, Any]:
+    """The whole train state as CPU tensors (a snapshot: training may go on
+    changing the live tensors in place)."""
+    model = state.model
+    return {
+        "step": state.host_step,
+        "params": {n: p.detach().to("cpu", copy=True) for n, p in zip(state.names, state.params)},
+        "buffers": {n: b.detach().to("cpu", copy=True) for n, b in model.named_buffers()},
+        "opt_state": _to_host(state.opt_state),
+        "ema": (None if state.ema_params is None else
+                {n: e.detach().to("cpu", copy=True) for n, e in zip(state.names, state.ema_params)}),
+    }
+
+
+def _load_payload(state: TrainState, payload: dict[str, Any]) -> None:
+    """Copy a `_state_payload` into the live `state` in place, on its
+    devices: the model's parameters and buffers keep their identity."""
+    if sorted(payload["params"]) != sorted(state.names):
+        raise ValueError("the checkpoint's parameter names differ from the model's")
+    buffers = dict(state.model.named_buffers())
+    if sorted(payload["buffers"]) != sorted(buffers):
+        raise ValueError("the checkpoint's buffer names differ from the model's")
+    if (payload["ema"] is None) != (state.ema_params is None):
+        raise ValueError("the checkpoint and the state disagree on keeping an EMA")
+    with torch.no_grad():
+        for n, p in zip(state.names, state.params):
+            p.copy_(_like(p, payload["params"][n], n))
+        for n, b in buffers.items():
+            b.copy_(_like(b, payload["buffers"][n], n))
+        if state.ema_params is not None:
+            state.ema_params = [_like(e, payload["ema"][n], n)
+                                for n, e in zip(state.names, state.ema_params)]
+    state.opt_state = _like(state.opt_state, payload["opt_state"], "opt_state")
+    state.step = torch.tensor(payload["step"], dtype=torch.int32, device=state.step.device)
+    state.host_step = int(payload["step"])
+
+
+class CheckpointManager:
+    """Save, rotate and restore train states under one directory.
+
+    `async_save=True` returns from `save` once the state is copied to host
+    memory and writes the file in a background thread; `save`, `wait`,
+    `restore` and `close` first join the write in flight, so no read sees a
+    torn or missing file."""
+
+    def __init__(self, directory: str | Path, keep: int = 3, async_save: bool = False):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir() if p.name.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState, metadata: dict | None = None) -> None:
+        """Save `state` as checkpoint `step`, over any checkpoint of that
+        step (a stale one from an earlier run in a reused directory would
+        otherwise be restored), then remove the oldest until `keep` are
+        left."""
+        self.wait()
+        payload = _state_payload(state)
+        if self.async_save:
+            self._thread = threading.Thread(target=self._write_async,
+                                            args=(step, payload, metadata))
+            self._thread.start()
+        else:
+            self._write(step, payload, metadata)
+
+    def _write_async(self, step: int, payload: dict, metadata: dict | None) -> None:
+        try:
+            self._write(step, payload, metadata)
+        except BaseException as e:  # raised again by wait()
+            self._error = e
+
+    def _write(self, step: int, payload: dict, metadata: dict | None) -> None:
+        tmp = self.directory / f".{step}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.directory / str(step))
+        if metadata is not None:
+            tmp = self.directory / f".meta_{step}.json.tmp"
+            tmp.write_text(json.dumps(metadata))
+            os.replace(tmp, self.directory / f"meta_{step}.json")
+        for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
+            (self.directory / str(old)).unlink()
+            (self.directory / f"meta_{old}.json").unlink(missing_ok=True)
+
+    def wait(self) -> None:
+        """Join the write in flight, and raise its error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def read_metadata(self, step: int | None = None) -> dict:
+        """The metadata saved with checkpoint `step` (default the latest);
+        {} when there is none."""
+        self.wait()
+        step = self.latest_step() if step is None else step
+        path = self.directory / f"meta_{step}.json"
+        if step is None or not path.exists():
+            return {}
+        return json.loads(path.read_text())
+
+    def restore(self, state: TrainState, step: int | None = None) -> TrainState:
+        """Load checkpoint `step` (default the latest) into the live `state`
+        on its devices, and return it."""
+        self.wait()
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        payload = torch.load(self.directory / str(step), map_location="cpu", weights_only=True)
+        _load_payload(state, payload)
+        return state
+
+    def close(self) -> None:
+        self.wait()

@@ -1,0 +1,104 @@
+"""Training CLI (port of probpose_pytorch_tpu/train/cli.py):
+
+    python -m probpose_pytorch_tpu_torch.train.cli <out_dir> [--config cfg.json]
+        [--data-root DIR] [--dataset-format {yolo,coco,synthetic}]
+        [--max-steps N] [--no-resume] [--device cuda]
+
+Writes `config.json` into `out_dir`, builds the datasets of the config (and
+their crop cache when `cache_dir` is set) and runs `Trainer.fit`, which
+logs to `out_dir/metrics.jsonl` and checkpoints into `out_dir/checkpoints`.
+It runs on the card unless `--device cpu` is given. One process on one
+device: a mesh or several processes raise (ROADMAP item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from pathlib import Path
+
+__all__ = ["main", "build_datasets"]
+
+
+def build_datasets(cfg):
+    """(train, val) datasets of `cfg.dataset_format`, behind the crop cache
+    when `cfg.cache_dir` is set."""
+    from probpose_pytorch_tpu_torch.data import (
+        CachedCropDataset,
+        COCOPoseDataset,
+        SyntheticPoseDataset,
+        YOLOPoseDataset,
+        build_crop_cache,
+    )
+
+    kw = dict(resample=cfg.resample) if cfg.resample else {}
+    if cfg.dataset_format == "synthetic":
+        train_ds = SyntheticPoseDataset(3200, cfg.model.img_size, cfg.model.num_keypoints, seed=1)
+        val_ds = SyntheticPoseDataset(320, cfg.model.img_size, cfg.model.num_keypoints, seed=2)
+    elif cfg.dataset_format == "mixed":
+        raise NotImplementedError(
+            "dataset_format='mixed' is not ported to PyTorch yet (ROADMAP item 6)")
+    elif cfg.dataset_format == "coco":
+        root = Path(cfg.data_root)
+        train_ds = COCOPoseDataset(root / "annotations/person_keypoints_train2017.json",
+                                   root / "train2017", cfg.model.img_size, **kw)
+        val_ds = COCOPoseDataset(root / "annotations/person_keypoints_val2017.json",
+                                 root / "val2017", cfg.model.img_size, **kw)
+    else:
+        train_ds = YOLOPoseDataset(cfg.data_root, "train", cfg.model.img_size, **kw)
+        val_ds = YOLOPoseDataset(cfg.data_root, "valid", cfg.model.img_size, **kw)
+    if cfg.cache_dir:
+        root = Path(cfg.cache_dir)
+        train_ds = CachedCropDataset(build_crop_cache(train_ds, root / "train", cfg.num_workers))
+        val_ds = CachedCropDataset(build_crop_cache(val_ds, root / "val", cfg.num_workers))
+    return train_ds, val_ds
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="ProbPose training (PyTorch)")
+    parser.add_argument("out_dir", type=Path)
+    parser.add_argument("--config", type=Path, default=None)
+    parser.add_argument("--data-root", type=str, default=None)
+    parser.add_argument("--dataset-format", type=str, default=None,
+                        choices=["yolo", "coco", "synthetic"])
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--no-resume", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    from probpose_pytorch_tpu_torch.data import batch_iterator
+    from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "training in several processes is not ported to PyTorch yet (ROADMAP item 13)")
+    cfg = TrainConfig.load(args.config) if args.config else TrainConfig()
+    updates: dict = {"out_dir": str(args.out_dir)}
+    if args.data_root:
+        updates["data_root"] = args.data_root
+    if args.dataset_format:
+        updates["dataset_format"] = args.dataset_format
+    if args.no_resume:
+        updates["resume"] = False
+    cfg = dataclasses.replace(cfg, **updates)
+    args.out_dir.mkdir(parents=True, exist_ok=True)
+    cfg.save(args.out_dir / "config.json")
+
+    train_ds, val_ds = build_datasets(cfg)
+    steps_per_epoch = max(len(train_ds) // cfg.train_batch_size, 1)
+    trainer = Trainer.create(cfg, steps_per_epoch, device=args.device)
+
+    def train_batches():
+        # The (seed, 0) permutation every epoch, as the JAX CLI draws it.
+        return batch_iterator(train_ds, cfg.train_batch_size, shuffle=True, seed=cfg.seed,
+                              num_workers=cfg.num_workers)
+
+    def val_batches():
+        return batch_iterator(val_ds, cfg.val_batch_size, num_workers=cfg.num_workers)
+
+    trainer.fit(train_batches, val_batches, max_steps=args.max_steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,7 @@ The dataclasses take every key of the JAX ones, so every configs/*.json
 loads with the same field values as the JAX `TrainConfig.load`. Values this
 port does not run yet load all the same; they raise `NotImplementedError`,
 naming their ROADMAP item, where they would take effect (train/loop.py,
-train/state.py, models/model.py).
+train/state.py, train/cli.py, models/model.py).
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ COCO_FLIP_PAIRS = (
 @dataclass(frozen=True)
 class OptimConfig:
     """AdamW + one-cycle cosine schedule + global-norm clipping, optional
-    EMA and non-finite skipping. Only `optimizer="adamw"` and
-    `accum_steps=1` are ported."""
+    EMA, non-finite skipping and gradient accumulation over `accum_steps`
+    micro-steps. Only `optimizer="adamw"` is ported."""
 
     peak_lr: float = 5e-4
     weight_decay: float = 0.1
@@ -61,8 +61,9 @@ class LossWeights:
 
 @dataclass(frozen=True)
 class AugmentConfig:
-    """The JAX `ops.augment.AugmentConfig` fields; augmentation itself is
-    not ported (ROADMAP item 11)."""
+    """The JAX `ops.augment.AugmentConfig` fields (ROADMAP item 6): flip
+    with left/right swaps, box scale and shift jitter, rotation, brightness
+    and contrast, and half-body boxes in frame mode (ops/augment.py)."""
 
     flip_prob: float = 0.5
     scale_jitter: float = 0.15

@@ -1,40 +1,63 @@
 """The training loop (port of probpose_pytorch_tpu/train/loop.py): one train
-step (encode -> forward -> loss -> backward -> update), an eval step with
-accuracies, and `Trainer` with `create` and `fit`.
+step (augment -> encode -> forward -> loss -> backward -> update), an eval
+step with accuracies, and `Trainer` with `create` and `fit`.
 
-The step runs eagerly on the model's device. Targets are encoded on the
-device from the batch's keypoints, the ViT trunk runs kernel K1 forward
-and backward in every block and the head runs kernel K2, and the update is
-the functional AdamW of train/state.py applied in place. Nothing in the
-step reads a value back to the host.
+The step runs eagerly on the model's device. Augmentation (ROADMAP item 6,
+ops/augment.py) draws from generators seeded by (seed, domain, step) on the
+host, targets are encoded on the device from the batch's keypoints, the
+ViT trunk runs kernel K1 forward and backward in every block and the head
+runs kernel K2, and the update is the functional AdamW of train/state.py
+(in optax's MultiSteps with accum_steps > 1) applied in place. Nothing in
+the step reads a value back to the host.
+
+`fit` logs to `<out_dir>/metrics.jsonl`, checkpoints into
+`<out_dir>/checkpoints` (train/checkpoint.py), resumes from the latest,
+restores it after persistent non-finite losses, tracks a best validation
+metric and checkpoints on SIGTERM, as the JAX `fit` does.
 
 What the JAX loop does and this one does not yet raises
-`NotImplementedError` naming its ROADMAP item: augmentation and
-distillation (item 11), best-checkpoint tracking, asynchronous
-checkpoints, resume and non-finite recovery in `fit` (which writes no
-checkpoints yet), frozen-parameter masks (item 6), meshes and pipelines
-(item 13).
+`NotImplementedError` naming its ROADMAP item: distillation (item 11),
+frozen-parameter masks (item 6), meshes and pipelines (item 13).
 """
 
 from __future__ import annotations
 
 import math
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
-from pathlib import Path
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
 from probpose_pytorch_tpu_torch.codec import ArgMaxProbMap, Codec, ProbMap
+from probpose_pytorch_tpu_torch.data.pipeline import Prefetcher
 from probpose_pytorch_tpu_torch.losses import ProbPoseLoss
 from probpose_pytorch_tpu_torch.models.model import build_model, resolve_device
+from probpose_pytorch_tpu_torch.ops.augment import (
+    AugmentDraws,
+    augment_boxes,
+    color_jitter,
+    draw_augment,
+    flip_crops_and_keypoints,
+    half_body_boxes,
+    rotate_crops,
+)
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize, transform_keypoints
+from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager, state_is_finite
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
-from probpose_pytorch_tpu_torch.train.state import AdamW, TrainState, global_norm, make_optimizer
+from probpose_pytorch_tpu_torch.train.state import (
+    AdamW,
+    MultiSteps,
+    TrainState,
+    global_norm,
+    make_optimizer,
+)
+from probpose_pytorch_tpu_torch.utils.logging import MetricsLogger
 
-__all__ = ["build_codecs", "make_train_step", "make_eval_step", "Trainer"]
+__all__ = ["build_codecs", "augment_batch", "make_train_step", "make_eval_step", "Trainer"]
 
 # A callable the train step calls after each of its stages with the stage's
 # name ("encode", "forward", "loss", "backward", "optimizer"); chip_smoke.py
@@ -76,20 +99,47 @@ def _encode_targets(codec: Codec, batch: dict[str, torch.Tensor]) -> dict[str, t
     )
 
 
-def _augment_encode(cfg: TrainConfig, encode_codec: Codec,
-                    batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
-    """(images, gt) of a batch without augmentation. Crop mode: `image`
-    (B, H, W, 3) uint8 or float crops with crop-space keypoints. Frame mode:
-    `frame` (B, Hs, Ws, 3) and `box` (B, 4) xywh with frame-space
-    keypoints, cropped here with the port's crop_resize."""
+def augment_batch(cfg: TrainConfig, batch: dict[str, torch.Tensor],
+                  draws: AugmentDraws | None = None) -> tuple[torch.Tensor, dict]:
+    """(crops, batch with crop-space keypoints and visibilities) of a batch,
+    augmented with `draws` (None: not augmented, as the eval step), in the
+    JAX order. Crop mode: `image` (B, H, W, 3) uint8 or float crops with
+    crop-space keypoints. Frame mode: `frame` (B, Hs, Ws, 3) and `box`
+    (B, 4) xywh with frame-space keypoints: the boxes take half-body, then
+    scale and shift jitter, before crop_resize. Both modes: flip,
+    rotation, then brightness and contrast on the crops."""
+    aug = cfg.augment if draws is not None else None
+    H, W = cfg.model.img_size
     if "frame" in batch:
-        H, W = cfg.model.img_size
         boxes = batch["box"].float()
+        if aug is not None and aug.half_body_prob > 0:
+            boxes = half_body_boxes(boxes, batch["keypoints"].float(),
+                                    batch["keypoints_visibility"], draws.half_coin,
+                                    draws.half_u, aug, aspect=W / H)
+        if aug is not None and (aug.scale_jitter or aug.shift_jitter):
+            boxes = augment_boxes(boxes, draws.scale, draws.shift)
         images = crop_resize(batch["frame"], boxes, (H, W), cfg.preprocess_method)
         batch = dict(batch, keypoints=transform_keypoints(
             batch["keypoints"].float(), boxes, (H, W)))
     else:
         images = _prepare_images(batch["image"])
+    if aug is not None and aug.enabled:
+        images, kpts, vis, visibility = flip_crops_and_keypoints(
+            draws.flip, images, batch["keypoints"], batch["keypoints_visible"],
+            batch["keypoints_visibility"], aug)
+        if aug.rotation_deg > 0:
+            images, kpts = rotate_crops(images, kpts, draws.theta)
+        images = color_jitter(images, draws.brightness, draws.contrast)
+        batch = dict(batch, keypoints=kpts, keypoints_visible=vis,
+                     keypoints_visibility=visibility)
+    return images, batch
+
+
+def _augment_encode(cfg: TrainConfig, encode_codec: Codec, batch: dict[str, torch.Tensor],
+                    draws: AugmentDraws | None = None) -> tuple[torch.Tensor, dict]:
+    """(images, gt): `augment_batch`, then the targets encoded on the
+    batch's device."""
+    images, batch = augment_batch(cfg, batch, draws)
     return images, _encode_targets(encode_codec, batch)
 
 
@@ -98,20 +148,25 @@ def _total(losses: dict[str, torch.Tensor], weights: dict[str, float]) -> torch.
 
 
 def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPoseLoss,
-                    tx: AdamW, cfg: TrainConfig) -> Callable:
+                    tx: AdamW | MultiSteps, cfg: TrainConfig) -> Callable:
     """The train step: (state, batch[, mark]) -> (state, metrics), batch a
     dict of tensors on the model's device. The state is updated in place
-    and returned. Metrics stay on the device: `loss`, `loss/<term>` and
-    `grad_norm`, the global norm of the gradients before clipping."""
-    aug = cfg.augment
-    if aug is not None and (aug.enabled or aug.half_body_prob > 0):
-        raise _unported("augmentation (TrainConfig.augment; set it to null)", 11)
+    and returned. Augmentation draws are seeded by `state.host_step`, the
+    host's copy of the step. Metrics stay on the device: `loss`,
+    `loss/<term>` and `grad_norm`, the global norm of the gradients before
+    clipping."""
     weights = cfg.loss_weights.as_dict()
+    aug = cfg.augment
+    augment = aug is not None and (aug.enabled or aug.half_body_prob > 0)
 
     def step(state: TrainState, batch: dict[str, torch.Tensor],
              mark: StageMark | None = None):
         mark = mark or (lambda name: None)
-        images, gt = _augment_encode(cfg, encode_codec, batch)
+        draws = None
+        if augment:
+            kpts = batch["keypoints"]
+            draws = draw_augment(cfg.seed, state.host_step, kpts.shape[0], aug, kpts.device)
+        images, gt = _augment_encode(cfg, encode_codec, batch, draws)
         mark("encode")
         model.train()
         pred = model(images)
@@ -163,6 +218,8 @@ class Trainer:
 
         trainer = Trainer.create(cfg, steps_per_epoch, device="cuda")
         trainer.fit(lambda: batch_iterator(dataset, cfg.train_batch_size))
+
+    train/cli.py builds the datasets of a config and runs this.
     """
 
     cfg: TrainConfig
@@ -170,7 +227,7 @@ class Trainer:
     encode_codec: Codec
     fast_codec: Codec
     loss_fn: ProbPoseLoss
-    tx: AdamW
+    tx: AdamW | MultiSteps
     state: TrainState
     train_step: Callable
     eval_step: Callable
@@ -211,53 +268,194 @@ class Trainer:
         """A host batch (numpy arrays) as tensors on the model's device."""
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
+    def _prefetched(self, batches: Iterable[dict[str, Any]]) -> Iterator[dict[str, torch.Tensor]]:
+        """`batches` on the device with `device_prefetch` host batches made
+        ahead by a Prefetcher thread. On the card each batch is copied from
+        pinned memory without blocking on a side stream while the previous
+        step runs, and the step's stream waits for that copy; on the CPU
+        the copy is plain. 1 or less: made and copied in turn."""
+        depth = self.cfg.device_prefetch
+        if depth <= 1:
+            for batch in batches:
+                yield self.device_batch(batch)
+            return
+        host = Prefetcher(iter(batches), depth)
+        try:
+            if self.device.type != "cuda":
+                for batch in host:
+                    yield self.device_batch(batch)
+                return
+            side = torch.cuda.Stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+
+            def upload(batch):
+                with torch.cuda.stream(side):
+                    return {k: torch.as_tensor(np.asarray(v)).pin_memory().to(
+                        self.device, non_blocking=True) for k, v in batch.items()}
+
+            def ready(batch):
+                # The step's stream waits for the copies queued so far, and
+                # their memory is not reused before that stream is done.
+                main.wait_stream(side)
+                for t in batch.values():
+                    t.record_stream(main)
+                return batch
+
+            pending = None
+            for batch in host:
+                if pending is not None:
+                    done = ready(pending)
+                    pending = upload(batch)
+                    yield done
+                else:
+                    pending = upload(batch)
+            if pending is not None:
+                yield ready(pending)
+        finally:
+            host.close()
+
     def fit(self, train_batches: Callable[[], Iterable[dict[str, Any]]],
             val_batches: Callable[[], Iterable[dict[str, Any]]] | None = None,
             max_steps: int | None = None) -> TrainState:
         """Run `cfg.epochs` epochs of `train_batches()` (or `max_steps`
-        steps), printing the metrics every `log_every` steps and the
-        averaged eval metrics every `val_every`; each logged line is kept in
-        `self.history`. It writes no checkpoints (ROADMAP item 6), so
-        `checkpoint_every_epochs` has no effect here; what only
-        checkpointing serves (`track_best_metric`, `async_checkpoint`,
-        resume from `out_dir/checkpoints`) and recovery from non-finite
-        losses raise."""
+        steps from where it starts), logging every `log_every` steps and
+        the averaged eval metrics every `val_every` to
+        `<out_dir>/metrics.jsonl` and `self.history`, as the JAX `fit`:
+
+        - resume (`cfg.resume`) from the latest `<out_dir>/checkpoints`;
+        - a checkpoint at the end of every `checkpoint_every_epochs`-th
+          epoch and at the end, labelled by `state.step`, never of a
+          state with non-finite leaves;
+        - after two non-finite losses in a row at log points, restore the
+          latest checkpoint and rewind the step counter, up to
+          `max_recoveries` times (with none yet, log and go on);
+        - `track_best_metric` into `<out_dir>/checkpoints_best`;
+        - on SIGTERM (`handle_preemption`), finish the step, save, return.
+        """
         cfg = self.cfg
-        if cfg.track_best_metric or cfg.async_checkpoint:
-            raise _unported("checkpoints in Trainer.fit (track_best_metric, async_checkpoint)", 6)
-        ckpt_dir = Path(cfg.out_dir) / "checkpoints"
-        if cfg.resume and ckpt_dir.is_dir() and any(ckpt_dir.iterdir()):
-            raise _unported(f"resume from {ckpt_dir}", 6)
-        step_idx = start = int(self.state.step)
-        t0, last_log, strikes = time.perf_counter(), None, 0
-        for _ in range(cfg.epochs):
-            for batch in train_batches():
-                _, metrics = self.train_step(self.state, self.device_batch(batch))
+        logger = MetricsLogger(cfg.out_dir)
+        ckpt = CheckpointManager(f"{cfg.out_dir}/checkpoints", keep=cfg.keep_checkpoints,
+                                 async_save=cfg.async_checkpoint)
+        start_step = 0
+        if cfg.resume and ckpt.latest_step() is not None:
+            ckpt.restore(self.state)
+            start_step = self.state.host_step
+            print(f"[trainer] resumed from step {start_step}", flush=True)
+
+        best = None
+        if cfg.track_best_metric:
+            mode = cfg.track_best_mode
+            if mode == "auto":
+                mode = "min" if "loss" in cfg.track_best_metric else "max"
+            if mode not in ("min", "max"):
+                raise ValueError(f"track_best_mode {cfg.track_best_mode!r}")
+            best = _Best(CheckpointManager(f"{cfg.out_dir}/checkpoints_best", keep=1),
+                         1.0 if mode == "min" else -1.0)
+            prior = best.ckpt.read_metadata()
+            if prior.get("best_value") is not None:
+                best.value = float(prior["best_value"])
+
+        # Preemption: eviction arrives as SIGTERM with a grace window. Finish
+        # the step in flight, save, and return so that a resume continues.
+        preempted = threading.Event()
+        prev_sigterm = None
+        if cfg.handle_preemption:
+            def on_sigterm(signum, frame):
+                if not preempted.is_set():
+                    preempted.set()
+                    print("[trainer] SIGTERM: checkpointing at the next step boundary, "
+                          "then exiting cleanly", flush=True)
+
+            try:
+                prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+            except ValueError:  # fit() running off the main thread
+                prev_sigterm = None
+        try:
+            self._fit_loop(train_batches, val_batches, max_steps, logger, ckpt, best,
+                           start_step, preempted)
+        finally:
+            if prev_sigterm is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+            ckpt.close()
+            if best is not None:
+                best.ckpt.close()
+            logger.close()
+        return self.state
+
+    def _save(self, ckpt: CheckpointManager, what: str, metadata: dict | None = None) -> bool:
+        """Save the state at its step unless a leaf is non-finite."""
+        step = self.state.host_step
+        if not state_is_finite(self.state):
+            print(f"[trainer] NOT saving {what} at step {step}: the state has non-finite "
+                  f"leaves (latest clean checkpoint: step {ckpt.latest_step()})", flush=True)
+            return False
+        ckpt.save(step, self.state, metadata=metadata)
+        return True
+
+    def _fit_loop(self, train_batches, val_batches, max_steps, logger, ckpt, best,
+                  start_step, preempted) -> None:
+        cfg = self.cfg
+        step_idx = start_step
+        t0, last_log, done = time.perf_counter(), None, False
+        strikes = recoveries = 0  # consecutive non-finite losses at log points
+        for epoch in range(cfg.epochs):
+            if done:
+                break
+            for batch in self._prefetched(train_batches()):
+                _, metrics = self.train_step(self.state, batch)
                 if step_idx % cfg.log_every == 0:
                     host = {k: float(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
                     host["steps_per_sec"] = ((step_idx - last_log) / dt
                                              if last_log is not None and dt > 0 else 0.0)
                     last_log, t0 = step_idx, time.perf_counter()
-                    self._log("training", step_idx, host)
+                    self._log(logger, "training", step_idx, host)
                     if cfg.recover_on_nonfinite and not math.isfinite(host["loss"]):
                         strikes += 1
                         if strikes >= 2:
-                            raise _unported(
-                                f"recovery from the non-finite loss at step {step_idx}", 6)
+                            if recoveries >= cfg.max_recoveries:
+                                raise RuntimeError(
+                                    f"loss non-finite at step {step_idx} after {recoveries} "
+                                    "checkpoint recoveries; aborting")
+                            strikes, recoveries = 0, recoveries + 1
+                            restore_step = ckpt.latest_step()
+                            if restore_step is not None:
+                                ckpt.restore(self.state)
+                                print(f"[trainer] non-finite loss at step {step_idx}; restored "
+                                      f"checkpoint step {restore_step} (recovery {recoveries}/"
+                                      f"{cfg.max_recoveries})", flush=True)
+                                # Rewind with the state: checkpoint labels must
+                                # keep following state.step.
+                                step_idx, last_log = self.state.host_step, None
+                            else:
+                                print("[trainer] non-finite loss with no checkpoint yet; "
+                                      "relying on the optimizer's non-finite skip guard",
+                                      flush=True)
                     else:
                         strikes = 0
                 if val_batches is not None and step_idx % cfg.val_every == 0:
                     tv = time.perf_counter()
-                    self.validate(val_batches, step_idx)
-                    t0 += time.perf_counter() - tv
+                    val = self.validate(val_batches, step_idx, logger)
+                    t0 += time.perf_counter() - tv  # steps_per_sec counts training only
+                    if best is not None and val is not None:
+                        best.offer(self, cfg, val, step_idx)
                 step_idx += 1
-                if max_steps is not None and step_idx - start >= max_steps:
-                    return self.state
-        return self.state
+                if preempted.is_set() or (max_steps is not None
+                                          and step_idx - start_step >= max_steps):
+                    done = True
+                    break
+            if ((epoch % cfg.checkpoint_every_epochs == 0 or done)
+                    and ckpt.latest_step() != self.state.host_step):
+                self._save(ckpt, "a checkpoint")
+        ckpt.wait()
+        if ckpt.latest_step() != self.state.host_step:
+            self._save(ckpt, "the final checkpoint")
+        if preempted.is_set():
+            print(f"[trainer] preempted: latest checkpoint at step {ckpt.latest_step()}; "
+                  "resume will continue from there", flush=True)
 
     def validate(self, val_batches: Callable[[], Iterable[dict[str, Any]]],
-                 step_idx: int) -> dict[str, float] | None:
+                 step_idx: int, logger: MetricsLogger | None = None) -> dict[str, float] | None:
         """Eval metrics averaged over `val_batches()`, summed on the device
         and read back once."""
         total, n = None, 0
@@ -268,10 +466,38 @@ class Trainer:
         if total is None:
             return None
         averaged = {k: float(v) / n for k, v in total.items()}
-        self._log("validation", step_idx, averaged)
+        self._log(logger, "validation", step_idx, averaged)
         return averaged
 
-    def _log(self, prefix: str, step_idx: int, metrics: dict[str, float]) -> None:
+    def _log(self, logger: MetricsLogger | None, prefix: str, step_idx: int,
+             metrics: dict[str, float]) -> None:
         self.history.append((prefix, step_idx, metrics))
+        if logger is not None:
+            logger.log(step_idx, metrics, prefix=prefix)
         print(f"[{prefix}] step {step_idx} "
               + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()), flush=True)
+
+
+@dataclass
+class _Best:
+    """The best-metric checkpoint of a `fit` run: its manager, the sign that
+    makes lower better, and the best value so far."""
+
+    ckpt: CheckpointManager
+    sign: float
+    value: float | None = None
+
+    def offer(self, trainer: Trainer, cfg: TrainConfig, val: dict[str, float],
+              step_idx: int) -> None:
+        if cfg.track_best_metric not in val:
+            raise ValueError(f"track_best_metric {cfg.track_best_metric!r} not among "
+                             f"validation metrics {sorted(val)}")
+        v = float(val[cfg.track_best_metric])
+        if not math.isfinite(v) or (self.value is not None
+                                    and self.sign * v >= self.sign * self.value):
+            return
+        if trainer._save(self.ckpt, "the best checkpoint",
+                         metadata=dict(best_value=v, best_metric=cfg.track_best_metric)):
+            self.value = v
+            print(f"[trainer] new best {cfg.track_best_metric}={v:.5g} at step {step_idx} "
+                  "-> checkpoints_best", flush=True)

@@ -4,11 +4,12 @@ probpose_pytorch_tpu/train/state.py).
 The optimizer is a functional update written out in optax's order, so a run
 continues a JAX run step for step (compat/from_jax.py carries the state):
 
-    apply_if_finite(                  # when max_nonfinite_skips > 0
-      clip_by_global_norm(clip)       # optax form: t / |g| * clip, no epsilon
-      -> scale_by_adam(b1, b2, 1e-8)  # eps outside the square root
-      -> add_decayed_weights(wd)      # every leaf: biases, LN and BN too
-      -> scale_by_schedule(-lr(count)))
+    MultiSteps(k,                       # when accum_steps = k > 1
+      apply_if_finite(                  # when max_nonfinite_skips > 0
+        clip_by_global_norm(clip)       # optax form: t / |g| * clip, no epsilon
+        -> scale_by_adam(b1, b2, 1e-8)  # eps outside the square root
+        -> add_decayed_weights(wd)      # every leaf: biases, LN and BN too
+        -> scale_by_schedule(-lr(count))))
 
 `torch.optim.AdamW` with `clip_grad_norm_` and `OneCycleLR` is not the same
 function: clip_grad_norm_ adds 1e-6 to the norm and OneCycleLR's phase
@@ -22,7 +23,7 @@ stream). Parameters are updated in place.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
 import numpy as np
@@ -36,6 +37,8 @@ __all__ = [
     "global_norm",
     "AdamW",
     "OptState",
+    "MultiSteps",
+    "MultiStepsState",
     "make_optimizer",
     "TrainState",
 ]
@@ -184,38 +187,97 @@ class AdamW:
         )
 
 
-def make_optimizer(cfg: OptimConfig, total_steps: int) -> AdamW:
-    """The optimizer of `cfg`; the families, masks and accumulation this
-    port does not run raise, naming their ROADMAP item."""
+@dataclass
+class MultiStepsState:
+    """optax.MultiStepsState: the micro-step within the current k, the
+    count of emitted updates, the inner optimizer's state and the running
+    mean of the micro-steps' gradients (one tensor per parameter)."""
+
+    mini_step: torch.Tensor
+    gradient_step: torch.Tensor
+    inner: OptState
+    acc: list[torch.Tensor]
+
+
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=k) with use_grad_mean: the
+    gradients of k micro-steps are averaged (Welford: acc + (g - acc) /
+    (n + 1)) and the inner optimizer's update is applied on every k-th.
+    As optax does, the inner update is computed on every micro-step and
+    kept only on the k-th, the zero updates of the others are the inner
+    updates times 0, and the accumulator is reset by a product with 0, so
+    a non-finite micro-batch stays in it as it does in optax."""
+
+    def __init__(self, inner: AdamW, k: int):
+        self.inner = inner
+        self.k = k
+
+    def init(self, params: list[torch.Tensor]) -> MultiStepsState:
+        zero = torch.zeros((), dtype=torch.int32, device=params[0].device)
+        return MultiStepsState(mini_step=zero, gradient_step=zero.clone(),
+                               inner=self.inner.init(params),
+                               acc=[torch.zeros_like(p) for p in params])
+
+    def update(self, grads: list[torch.Tensor], state: MultiStepsState,
+               params: list[torch.Tensor]) -> tuple[list[torch.Tensor], MultiStepsState]:
+        grads = [g.float() for g in grads]
+        n = (state.mini_step + 1).float()
+        acc = torch._foreach_add(state.acc, torch._foreach_div(
+            torch._foreach_sub(grads, state.acc), n))
+        updates, inner = self.inner.update(acc, state.inner, params)
+        emit = state.mini_step == self.k - 1
+
+        def pick(new, old):  # the inner state moves on the k-th micro-step only
+            if isinstance(new, (list, tuple)):
+                return [torch.where(emit, a, b) for a, b in zip(new, old)]
+            return torch.where(emit, new, old)
+
+        return torch._foreach_mul(updates, emit.float()), MultiStepsState(
+            mini_step=((state.mini_step + 1) % self.k).int(),
+            gradient_step=torch.where(emit, state.gradient_step + 1, state.gradient_step).int(),
+            inner=OptState(**{f.name: pick(getattr(inner, f.name), getattr(state.inner, f.name))
+                              for f in fields(OptState)}),
+            acc=torch._foreach_mul(acc, (~emit).float()))
+
+
+def make_optimizer(cfg: OptimConfig, total_steps: int) -> AdamW | MultiSteps:
+    """The optimizer of `cfg`, wrapped in MultiSteps when accum_steps > 1;
+    the families this port does not run raise, naming their ROADMAP
+    item."""
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"optim.optimizer={cfg.optimizer!r} is not ported to PyTorch yet "
             "(ROADMAP item 6); the port has 'adamw'")
-    if cfg.accum_steps > 1:
-        raise NotImplementedError(
-            "optim.accum_steps > 1 is not ported to PyTorch yet (ROADMAP item 6)")
-    return AdamW(cfg, build_schedule(cfg, total_steps))
+    tx = AdamW(cfg, build_schedule(cfg, total_steps))
+    return MultiSteps(tx, cfg.accum_steps) if cfg.accum_steps > 1 else tx
 
 
 class TrainState:
     """step, the model's parameters (float32 masters, updated in place) and
     BatchNorm statistics (its buffers), the optimizer state and the EMA of
-    the parameters. `names` fixes the parameter order of every list."""
+    the parameters. `names` fixes the parameter order of every list.
 
-    def __init__(self, model: torch.nn.Module, tx: AdamW, ema: bool):
+    `host_step` mirrors `step` on the host, so the step can seed its
+    augmentation draws without reading the device; whatever sets `step`
+    (a checkpoint's restore, compat/from_jax.py) sets both."""
+
+    def __init__(self, model: torch.nn.Module, tx: AdamW | MultiSteps, ema: bool):
         self.model = model
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         device = self.params[0].device
         self.step = torch.zeros((), dtype=torch.int32, device=device)
+        self.host_step = 0
         self.opt_state = tx.init(self.params)
         self.ema_params = [p.detach().clone() for p in self.params] if ema else None
 
-    def apply_gradients(self, grads: list[torch.Tensor], tx: AdamW,
+    def apply_gradients(self, grads: list[torch.Tensor], tx: AdamW | MultiSteps,
                         ema_decay: float | None = None) -> None:
-        """One optimizer step in place; the EMA (e * decay + p * (1 - decay))
-        follows the new parameters even when the step was skipped."""
+        """One optimizer step (or micro-step) in place; the EMA (e * decay
+        + p * (1 - decay)) follows the new parameters even when the step was
+        skipped, and `step` and the EMA advance on every micro-step, as
+        the JAX TrainState's do."""
         updates, self.opt_state = tx.update(grads, self.opt_state, self.params)
         with torch.no_grad():
             torch._foreach_add_(self.params, updates)
@@ -224,3 +286,4 @@ class TrainState:
                                          torch._foreach_mul(self.params, 1.0 - ema_decay))
                 torch._foreach_copy_(self.ema_params, new)
         self.step = self.step + 1
+        self.host_step += 1

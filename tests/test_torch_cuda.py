@@ -7,6 +7,7 @@ a GPU machine without one:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -837,3 +838,93 @@ def test_sparsemax_kernel_long_rows(cuda_device, R):
     z = torch.randn(R, 192 * 192 + 1, generator=g, device=cuda_device) / 0.5
     check_sparsemax(z[:, :-1].contiguous())
     check_sparsemax(z.flatten()[1:1 + R * 192 * 192].view(R, 192 * 192))
+
+
+def _recipe_config(**aug):
+    from probpose_pytorch_tpu_torch.train.config import AugmentConfig, OptimConfig, TrainConfig
+
+    model = ModelConfig(img_size=(64, 48), num_keypoints=17, backbone="vit-nano",
+                        compute_dtype="float32", deconv_out_channels=(16, 16),
+                        pool_sizes=((2, 2), (2, 2)), attn_impl="fused")
+    return TrainConfig(model=model, augment=AugmentConfig(**aug), train_batch_size=8,
+                       optim=OptimConfig(ema_decay=0.999, max_nonfinite_skips=5))
+
+
+def _frame_batch(rng, B, K):
+    boxes = np.concatenate([rng.uniform(0, 60, (B, 2)), rng.uniform(40, 100, (B, 2))], 1)
+    return dict(frame=rng.integers(0, 256, (B, 160, 200, 3), dtype=np.uint8),
+                box=boxes.astype(np.float32),
+                keypoints=(boxes[:, None, :2] + rng.random((B, K, 2)) * boxes[:, None, 2:])
+                .astype(np.float32),
+                keypoints_visible=np.ones((B, K), np.float32),
+                keypoints_visibility=(rng.random((B, K)) > 0.1).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["crop", "frame"])
+def test_augmented_preamble_on_card_matches_cpu(cuda_device, mode):
+    """The same draws through train/loop.py:augment_batch and the target
+    encode on the card and on the CPU (half-body and rotation on). Crops:
+    1e-5 in crop mode; in frame mode one bf16 ulp of a value <= 1 times
+    up to 1 + contrast (crop_resize rounds to bf16, cuBLAS sums in another
+    order). Keypoints within 1e-3 px, heatmaps within 1e-5."""
+    from probpose_pytorch_tpu_torch.ops.augment import draw_augment
+    from probpose_pytorch_tpu_torch.train.loop import _encode_targets, augment_batch, build_codecs
+
+    cfg = _recipe_config(half_body_prob=0.5, rotation_deg=30.0)
+    H, W = cfg.model.img_size
+    B, K = 16, 17
+    rng = np.random.default_rng(3)
+    if mode == "crop":
+        batch = dict(image=rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+                     keypoints=rng.uniform(-5, 60, (B, K, 2)).astype(np.float32),
+                     keypoints_visible=np.ones((B, K), np.float32),
+                     keypoints_visibility=(rng.random((B, K)) > 0.2).astype(np.float32))
+    else:
+        batch = _frame_batch(rng, B, K)
+    draws = draw_augment(cfg.seed, 5, B, cfg.augment, "cpu")
+    assert bool((draws.half_u < 0.5).any())
+    enc, _ = build_codecs(cfg)
+    host = {k: torch.as_tensor(v) for k, v in batch.items()}
+    img_c, b_c = augment_batch(cfg, host, draws)
+    img_g, b_g = augment_batch(cfg, {k: v.to(cuda_device) for k, v in host.items()},
+                               draws.to(cuda_device))
+    hm_c = _encode_targets(enc, b_c)["heatmaps"]
+    hm_g = _encode_targets(enc, b_g)["heatmaps"]
+    torch.cuda.synchronize()
+    assert img_g.is_cuda and hm_g.is_cuda
+    assert max_err(img_g.cpu(), img_c) <= (1e-5 if mode == "crop" else 2.0**-7)
+    assert (img_g.cpu() - img_c).abs().mean().item() <= 1e-5
+    assert max_err(b_g["keypoints"].cpu(), b_c["keypoints"]) <= 1e-3
+    assert max_err(hm_g.cpu(), hm_c) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A state on the card after two augmented steps saves and restores into
+    a fresh trainer on the card bit for bit."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    cfg = _recipe_config()
+    a = Trainer.create(cfg, 10, device=cuda_device)
+    batches = list(batch_iterator(SyntheticPoseDataset(16, (64, 48), 17, seed=1), 8,
+                                  num_workers=1))
+    for batch in batches:
+        a.train_step(a.state, a.device_batch(batch))
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save(a.state.host_step, a.state)
+    b = Trainer.create(cfg, 10, device=cuda_device)
+    mgr.restore(b.state)
+
+    def tensors(t):
+        s = t.state
+        return (list(s.params) + list(s.ema_params) + list(t.model.buffers()) + list(s.opt_state.mu)
+                + list(s.opt_state.nu) + [s.opt_state.count, s.opt_state.schedule_count, s.step])
+
+    pairs = list(zip(tensors(a), tensors(b)))
+    assert len(pairs) > 100
+    for x, y in pairs:
+        assert y.is_cuda and torch.equal(x, y)
+    assert b.state.host_step == a.state.host_step == 2

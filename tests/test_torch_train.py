@@ -149,9 +149,9 @@ def test_synthetic_data_matches_jax():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(augment=dict(flip_prob=0.5)), "item 11"),
+    (dict(optim=dict(optimizer="adafactor")), "item 6"),
     (dict(distill=dict(teacher_checkpoint="runs/t")), "item 11"),
-    (dict(optim=dict(accum_steps=4)), "item 6"),
+    (dict(train_lora_only=True), "item 6"),
     (dict(optim=dict(optimizer="lion")), "item 6"),
     (dict(optim=dict(schedule="cosine")), "item 6"),
     (dict(model=dict(TINY_CFG, frozen_backbone=True)), "item 6"),
@@ -160,6 +160,23 @@ def test_synthetic_data_matches_jax():
 def test_unported_training_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer.create(TrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["flagship_coco_vits", "vitb_coco", "vitl_coco"])
+def test_shipped_configs_create(name, monkeypatch):
+    """The shipped COCO recipes (augmentation on; vitl_coco with
+    accum_steps 4) build a Trainer as they are, at full width; the trunk's
+    preset is cut to depth 1 to keep the CPU build small."""
+    from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+    from probpose_pytorch_tpu_torch.train.state import MultiSteps
+
+    cfg = TrainConfig.load(REPO / "configs" / f"{name}.json")
+    assert cfg.augment is not None and cfg.augment.enabled
+    monkeypatch.setitem(ViTConfig.PRESETS, cfg.model.backbone,
+                        dict(ViTConfig.PRESETS[cfg.model.backbone], depth=1))
+    trainer = Trainer.create(cfg, STEPS_PER_EPOCH, device="cpu")
+    assert len(trainer.model.backbone.blocks) == 1
+    assert isinstance(trainer.tx, MultiSteps) == (cfg.optim.accum_steps > 1)
 
 
 # --------------------------------------------------------------------------
@@ -229,6 +246,60 @@ def test_optimizer_matches_optax(skips, bad_steps):
         assert int(tstate.notfinite_count) == int(jstate.notfinite_count)
         assert int(tstate.total_notfinite) == int(jstate.total_notfinite)
         assert bool(tstate.last_finite) == bool(jstate.last_finite)
+
+
+@pytest.mark.parametrize("k,skips", [(2, 5), (4, 5), (2, 0)])
+def test_accum_steps_match_optax_multisteps(k, skips):
+    """accum_steps = k over 8 micro-steps, micro-step 3's gradients
+    non-finite, against optax.MultiSteps(apply_if_finite(chain)) (or the
+    bare chain without the guard): the averaged gradients, the inner AdamW
+    on every k-th micro-step with its own counts, and the NaN that stays in
+    the accumulator as in optax."""
+    cfg = OptimConfig(peak_lr=1e-2, weight_decay=0.1, clip_grad_norm=1.0,
+                      max_nonfinite_skips=skips, accum_steps=k)
+    rng = np.random.default_rng(10 + k)
+    params = _opt_params(rng)
+    tx = jax_state.make_optimizer(cfg, 10)
+    jstate, jparams = tx.init(params), params
+    ours_tx = make_optimizer(cfg, 10)
+    names = sorted(params)
+    tparams = [torch.from_numpy(params[key].copy()) for key in names]
+    tstate = ours_tx.init(tparams)
+    for i in range(8):
+        grads = {key: (rng.normal(size=v.shape) * 3).astype(np.float32)
+                 for key, v in params.items()}
+        if i == 3:
+            grads["a"][1, 2] = np.inf
+        upd, jstate = tx.update(grads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        tupd, tstate = ours_tx.update([torch.from_numpy(grads[key]) for key in names], tstate,
+                                      tparams)
+        with torch.no_grad():
+            torch._foreach_add_(tparams, tupd)
+        for key, t in zip(names, tparams):
+            # f32 update arithmetic in optax's order, as test_optimizer_matches_optax
+            np.testing.assert_allclose(t.numpy(), np.asarray(jparams[key]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"micro-step {i}")
+        assert int(tstate.mini_step) == int(jstate.mini_step)
+        assert int(tstate.gradient_step) == int(jstate.gradient_step)
+        for key, acc in zip(names, tstate.acc):
+            np.testing.assert_allclose(acc.numpy(), np.asarray(jstate.acc_grads[key]),
+                                       rtol=1e-6, atol=1e-7)
+    assert int(tstate.gradient_step) == 8 // k
+    inner = tstate.inner
+    if skips:
+        finite = jstate.inner_opt_state  # apply_if_finite(chain(clip, chain(adam, wd, lr)))
+        adam = finite.inner_state[1][0]
+        assert int(inner.count) == int(adam.count) and int(inner.count) < 8 // k  # one skipped
+        assert int(inner.notfinite_count) == int(finite.notfinite_count) > 0
+        assert int(inner.total_notfinite) == int(finite.total_notfinite)
+    else:
+        adam = jstate.inner_opt_state[1][0]  # chain(clip, chain(adam, wd, lr))
+        assert int(inner.count) == int(adam.count) == 8 // k
+        assert not all(np.isfinite(t.numpy()).all() for t in tparams)  # no guard: NaN lands
+    for key, mu, nu in zip(names, inner.mu, inner.nu):
+        np.testing.assert_allclose(mu.numpy(), np.asarray(adam.mu[key]), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(nu.numpy(), np.asarray(adam.nu[key]), rtol=1e-6, atol=1e-7)
 
 
 # --------------------------------------------------------------------------
@@ -447,11 +518,11 @@ def test_fit_logs_steps_and_validation(jax_side, tmp_path):
     val_lines = [(s, m) for p, s, m in trainer.history if p == "validation"]
     assert len(train_lines) == 3 and all(np.isfinite(m["loss"]) for m in train_lines)
     assert [s for s, _ in val_lines] == [0, 2] and "acc/kpt" in val_lines[0][1]
-    trainer.cfg = dataclasses.replace(trainer.cfg, track_best_metric="loss")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trainer.fit(batches)
-    trainer.cfg = dataclasses.replace(trainer.cfg, track_best_metric="")
-    (tmp_path / "checkpoints" / "3").mkdir(parents=True)
+    # metrics.jsonl holds every logged line; the run ends with a checkpoint
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 5 and '"training/loss"' in lines[0]
+    assert (tmp_path / "checkpoints" / "3").is_file()
+    # and resumes from it
     trainer.cfg = dataclasses.replace(trainer.cfg, resume=True)
-    with pytest.raises(NotImplementedError, match="resume"):
-        trainer.fit(batches)
+    assert int(trainer.fit(batches, max_steps=1).step) == 4
+    assert (tmp_path / "checkpoints" / "4").is_file()
