@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path and training step (probpose_pytorch_tpu_torch)
-end to end at the full ViT-S flagship width, with weights drawn from a seeded
-generator:
+Drives the port's serving path, training step and evaluation
+(probpose_pytorch_tpu_torch) end to end at the full ViT-S flagship width,
+with weights drawn from a seeded generator:
 
   phase 0  card name and power limit; TF32 off; nvcc build of csrc/*.cu with
            its -Xptxas -v register / shared-memory report (no spills in K2
@@ -104,6 +104,24 @@ generator:
            and a save and a restore of the flagship state (the restore
            bit for bit)
 
+  phase 10 evaluation of phase 9's checkpoint (step 6) through the eval CLI
+           (python -m probpose_pytorch_tpu_torch.eval.run) on a synthetic
+           COCO-format val set (data/synth_coco.py: 160 frames of 480 x
+           480), batch 128, three times in this process: plain; with
+           --flip-test --calibration --per-joint --dump-predictions; with
+           --scale-test 0.9,1.0,1.1. Each summary must carry the JAX CLI's
+           keys with finite AP/AR/PCK/AUC in [0, 1]; the launch counters
+           must show 12 short attention forwards and 1 K2 launch per model
+           forward (F = batches, x 2 with flip, x 3 with three scales);
+           --score-predictions on the dumped file must give the second
+           run's AP and AR keys exactly; the f32 predictor with flip and
+           scale test, through the kernels and through the plain versions,
+           must agree within 1e-2 px on well-defined keypoints, and
+           predict_stream must equal __call__ batch for batch. Then, not
+           gated: each run's wall time and its split, crops/s, the
+           predictor's device time per batch and peak device memory. A checkpoint of 6 steps
+           scores an AP near 0: the phase checks the path, not accuracy
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -117,9 +135,10 @@ serving batches and training steps.
 
 Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
-the kernels (launches on the main paths, error against the plain version,
-times, and the least time the card could take, `bound_ms`, from the H100
-SXM's published peaks) and {"ok": true, "device": {...}}.
+the kernels (launches on the main paths and, as `eval_launches`, in phase
+10's three eval runs, error against the plain version, times, and the
+least time the card could take, `bound_ms`, from the H100 SXM's published
+peaks) and {"ok": true, "device": {...}}.
 
 Nothing of JAX is imported: the port stands alone on the card.
 """
@@ -180,6 +199,18 @@ AUG_KPT_TOL_PX = 1e-3
 AUG_HEATMAP_TOL = 1e-5
 AUG_BATCH = 16
 RECIPE_STEPS = 3
+# Phase 10: the eval CLI on phase 9's checkpoint, at the flagship's
+# val_batch_size.
+EVAL_BATCH = 128
+EVAL_SCALES = (0.9, 1.0, 1.1)
+EVAL_F32_CROPS = 32
+# The summary keys of the JAX eval CLI's line (probpose_pytorch_tpu/eval/
+# run.py): the ten COCO keypoint stats, then EPE, PCK@0.2 and AUC.
+EVAL_AP_KEYS = ("AP", "AP50", "AP75", "AR", "AR50", "AR75", "AP_medium", "AP_large",
+                "AR_medium", "AR_large")
+EVAL_KEYS = EVAL_AP_KEYS + ("EPE", "PCK@0.2", "AUC")
+EVAL_CAL_KEYS = tuple(f"{k}_{b}" for b in ("presence", "visibility")
+                      for k in ("ece", "mce", "brier", "nll", "temperature"))
 # Where Trainer.fit writes metrics and checkpoints in this run (under
 # TMPDIR; removed at the end).
 RUN_DIR = Path(tempfile.gettempdir())
@@ -1660,6 +1691,201 @@ def recipe_times(torch, dev, card: str) -> None:
     check(same and b.host_step == a.host_step, "the restored state differs from the saved one")
 
 
+def eval_well_defined(torch, predictor, frames, boxes) -> np.ndarray:
+    """Keypoints well defined at every scale of `predictor`'s scale test:
+    the OKS-convolved (flip-averaged) map of each scale has a top-2 margin
+    above MARGIN. From the plain versions' maps."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, _scale_boxes
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+
+    one = TopDownPredictor(predictor.model, predictor.codec, predictor.input_size,
+                           flip_test=predictor.flip_test, return_heatmaps=True)
+    dev = predictor.device
+    ok = None
+    for s in predictor.scale_test or (1.0,):
+        b = _scale_boxes(torch.from_numpy(boxes), s).numpy()
+        with plain_versions():
+            hm = one(frames, b)["heatmaps"]
+        sel = well_defined(torch, predictor.codec, hm, dev)
+        ok = sel if ok is None else ok & sel
+    return ok
+
+
+def eval_runs(torch, card: str) -> dict:
+    """Phase 10: the eval CLI on phase 9's checkpoint, three runs, gated as
+    the module docstring says; returns the launches summed over the runs."""
+    from probpose_pytorch_tpu_torch.data import (
+        COCOPoseDataset,
+        batch_iterator,
+        generate_coco_synth,
+    )
+    from probpose_pytorch_tpu_torch.eval import evaluate_topdown
+    from probpose_pytorch_tpu_torch.eval import run as eval_run
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    recipe = RUN_DIR / "recipe"
+    t0 = time.perf_counter()
+    root = generate_coco_synth(RUN_DIR / "synth_coco", n_train_images=0, n_val_images=160,
+                               frame_hw=(480, 480), seed=0)
+    ann = root / "annotations" / "person_keypoints_val2017.json"
+    images = root / "val2017"
+    dataset = COCOPoseDataset(ann, images, (256, 192))
+    n = len(dataset)
+    batches = -(-n // EVAL_BATCH)
+    say(f"phase 10: synthetic COCO val set, 160 frames of 480 x 480, {n} instances "
+        f"({sum(len(v) for v in dataset.ignores_by_image.values())} ignore regions), written "
+        f"in {time.perf_counter() - t0:.2f} s; {batches} batches of <= {EVAL_BATCH}")
+    base = ["--checkpoint", str(recipe / "checkpoints"), "--config", str(recipe / "config.json"),
+            "--annotations", str(ann), "--images", str(images),
+            "--batch-size", str(EVAL_BATCH), "--device", "cuda"]
+    preds_json = RUN_DIR / "eval_predictions.json"
+    scales = ",".join(f"{s:g}" for s in EVAL_SCALES)
+    runs = (("plain", [], 1),
+            ("flip + calibration", ["--flip-test", "--calibration", "--per-joint",
+                                    "--dump-predictions", str(preds_json)], 2),
+            (f"scales {scales}", ["--scale-test", scales], len(EVAL_SCALES)))
+    total: dict = {}
+    lines, walls = [], []
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for label, extra, per_batch in runs:
+        args = base + extra
+        say(f"phase 10: python -m probpose_pytorch_tpu_torch.eval.run {' '.join(args)}")
+        reset_counts()
+        t0 = time.perf_counter()
+        line = eval_run.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        forwards = batches * per_batch
+        lines.append(line)
+        walls.append(wall)
+        say(f"phase 10 [{card}]: eval run '{label}': {wall:.2f} s wall (the whole CLI run: "
+            f"checkpoint load, data, {forwards} model forwards, scoring) = {n / wall:.1f} "
+            "crops/s")
+        missing = [k for k in EVAL_KEYS + (EVAL_CAL_KEYS if "--calibration" in extra else ())
+                   if k not in line]
+        check(not missing, f"eval run '{label}': summary lacks {missing}")
+        check(all(np.isfinite(v) for v in line.values()), f"eval run '{label}': not finite")
+        unit = [k for k in EVAL_AP_KEYS + ("PCK@0.2", "AUC") if not 0.0 <= line[k] <= 1.0]
+        check(not unit, f"eval run '{label}': {unit} outside [0, 1]")
+        check(line["EPE"] >= 0.0, f"eval run '{label}': negative EPE")
+        check_attention_route(counts, 12 * forwards, 0, phase=10)
+        say(f"phase 10: K2 launches {counts['k2']} (expect {forwards})")
+        check(counts["k2"] == forwards, "K2 did not run once per model forward")
+        check(counts["k5f"] == counts["k6"] == counts["k3"] == 0, "eval ran K3, K5 or K6")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated()
+
+    say(f"phase 10: python -m probpose_pytorch_tpu_torch.eval.run --score-predictions "
+        f"{preds_json} --annotations {ann} --images {images}")
+    scored = eval_run.main(["--score-predictions", str(preds_json), "--annotations", str(ann),
+                            "--images", str(images)])
+    differ = {k: (scored[k], lines[1][k]) for k in EVAL_AP_KEYS if scored[k] != lines[1][k]}
+    say(f"phase 10: re-scored predictions: {int(scored['n_results'])} results over "
+        f"{int(scored['n_images'])} images; AP/AR keys equal to the run's: {not differ}")
+    check(not differ, f"re-scored predictions differ from the run: {differ}")
+
+    # The f32 predictor with flip and scale test, kernels against plain
+    # versions, on the checkpoint's weights with the heatmap branch
+    # redrawn at fan-in scale (6 steps leave the maps nearly flat, so
+    # almost no argmax would be well defined).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = load_predictor(recipe / "checkpoints", recipe / "config.json", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
+                                compute_dtype="float32")
+    model32 = build_model(cfg32, "cuda")
+    model32.load_state_dict(pred.model.state_dict())
+    peak_heatmap_branch(torch, model32)
+    pred32 = TopDownPredictor(model32, pred.codec, pred.input_size, flip_test=True,
+                              scale_test=EVAL_SCALES)
+    crops = dataset.get_batch(range(EVAL_F32_CROPS))["image"]
+    H, W = pred.input_size
+    ident = np.tile(np.array([0, 0, W, H], np.float32), (len(crops), 1))
+    kern = pred32(crops, ident)
+    with plain_versions():
+        plain = pred32(crops, ident)
+    sel = eval_well_defined(torch, pred32, crops, ident)
+    kerr = float(np.abs(kern["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
+    perr = float(np.abs(kern["probabilities"] - plain["probabilities"]).max())
+    say(f"phase 10: f32 predictor with flip and scales {scales}, {len(crops)} val crops, "
+        f"kernels vs plain: keypoint max diff {kerr:.3e} px over {int(sel.sum())}/{sel.size} "
+        f"keypoints well defined at every scale (tolerance {KPT_TOL_PX:g}), probability max "
+        f"diff {perr:.3e} ({PROB_TOL:g})")
+    check(sel.mean() > 0.5, "too few keypoints well defined at every scale")
+    check(kerr <= KPT_TOL_PX, f"f32 TTA keypoints differ by {kerr} px")
+    check(perr <= PROB_TOL, f"f32 TTA probabilities differ by {perr}")
+    del model32, pred32
+
+    # Not gated: the bf16 predictor's device time per batch of EVAL_BATCH
+    # crops on the card, plain, with flip test and with the three scales.
+    batch = dataset.get_batch(range(EVAL_BATCH))["image"]
+    f_dev = torch.from_numpy(batch).cuda()
+    b_dev = torch.from_numpy(np.tile(np.array([0, 0, W, H], np.float32),
+                                     (EVAL_BATCH, 1))).cuda()
+    times = {}
+    for label, kw in (("plain", {}), ("flip", dict(flip_test=True)),
+                      ("scales", dict(scale_test=EVAL_SCALES)),
+                      ("flip + scales", dict(flip_test=True, scale_test=EVAL_SCALES))):
+        p = TopDownPredictor(pred.model, pred.codec, pred.input_size, **kw)
+        times[label] = cuda_ms(torch, lambda: p.predict(f_dev, b_dev), iters=10)
+    say(f"phase 10 [{card}]: bf16 predictor, B = {EVAL_BATCH} crops on the card, device time "
+        "per batch (CUDA events, mean of 10): "
+        + ", ".join(f"{k} {v:.3f} ms ({EVAL_BATCH / v * 1e3:.1f} crops/s)"
+                    for k, v in times.items()))
+    # predict_stream (uploads and launches on a worker thread) against
+    # __call__, batch for batch, on the card: the val batches four times
+    # over, so that the worker thread's start is spread over 12 batches.
+    stream_in = [(dataset.get_batch(range(i, min(i + EVAL_BATCH, n)))["image"],
+                  np.tile(np.array([0, 0, W, H], np.float32), (min(EVAL_BATCH, n - i), 1)))
+                 for i in range(0, n, EVAL_BATCH)] * 4
+    t0 = time.perf_counter()
+    called = [pred(*item) for item in stream_in]
+    call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = list(pred.predict_stream(iter(stream_in), depth=2))
+    stream_s = time.perf_counter() - t0
+    same = len(streamed) == len(called) and all(
+        sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(streamed, called))
+    say(f"phase 10 [{card}]: predict_stream over {len(stream_in)} val batches equal to "
+        f"__call__ batch for batch: {same}; {stream_s:.3f} s streamed, {call_s:.3f} s called in "
+        "turn (host clock, crops already decoded)")
+    check(same, "predict_stream differs from __call__ on the card")
+
+    # Where an eval run's wall goes (host clock, not gated): the predictor's
+    # build and restore, the val crops' decode alone, and evaluate_topdown
+    # (decode, forwards and scoring) with the plain predictor.
+    t0 = time.perf_counter()
+    for _ in batch_iterator(dataset, EVAL_BATCH, drop_last=False):
+        pass
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate_topdown(pred, dataset, batch_size=EVAL_BATCH)
+    eval_s = time.perf_counter() - t0
+    say(f"phase 10 [{card}]: eval run split: load_predictor {load_s:.3f} s, decoding the "
+        f"{n} val crops alone {data_s:.3f} s, evaluate_topdown {eval_s:.3f} s (its {batches} "
+        f"plain forwards ~{batches * times['plain'] / 1e3:.3f} s of device time)")
+    say(f"phase 10 [{card}]: eval CLI wall: plain {n / walls[0]:.1f} crops/s, with flip test "
+        f"(and calibration, per-joint, dump) {n / walls[1]:.1f} crops/s, three scales "
+        f"{n / walls[2]:.1f} crops/s; peak device memory over the three runs "
+        f"{peak / 2**20:.1f} MiB")
+    say(f"phase 10: summaries (AP near 0 is expected of a 6-step checkpoint; this phase checks "
+        f"the path, not accuracy): " + " | ".join(
+            f"{label}: AP {ln['AP']} AR {ln['AR']} EPE {ln['EPE']}"
+            for (label, _, _), ln in zip(runs, lines)))
+    say(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all")
+    return total
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -1733,7 +1959,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 9, then the kernels line and the result line."""
+    """Phases 0 to 10, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -1947,6 +2173,10 @@ def run(torch) -> None:
     recipe_preamble_check(torch, dev, card)
     recipe_times(torch, dev, card)
 
+    # --------------------------------------------------------------- phase 10
+    gc.collect()
+    evals = eval_runs(torch, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -2011,6 +2241,14 @@ def run(torch) -> None:
                      serve_b["k6_bound"], serve_b["k6_lib_ms"],
                      design="wgmma+TMA, sm90 short"),
     ]
+    # Phase 10's launches (the three eval runs) beside each kernel's.
+    eval_counter = {"K1 packed_attention forward": "k1s", "K1 packed_attention backward": "k4b",
+                    "K2 sparsemax": "k2", "K3 expected_value_decode_fused": "k3",
+                    "K4 tiled_attention forward": "k4f", "K4 tiled_attention backward": "k4b",
+                    "K5 fused_ln_mlp forward": "k5f", "K5 fused_ln_mlp backward": "k5b",
+                    "K6 fused_attention": "k6"}
+    for entry in kernels:
+        entry["eval_launches"] = evals[eval_counter[entry["name"]]]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of probpose-tpu's top-down serving path and training.
+"""PyTorch/CUDA port of probpose-tpu's top-down serving path, training and
+evaluation.
 
 The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
 (the reference it is tested against) but imports only torch and numpy:
@@ -13,7 +14,11 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     ops/oks.py            OKS targets from decoded coordinates
     codec.py              ProbMap and ArgMaxProbMap: encode and decode
     losses.py             the five-term ProbPoseLoss and its metrics
-    inference.py          TopDownPredictor
+    inference.py          TopDownPredictor (flip and scale test,
+                          temperatures, predict_stream), load_predictor
+    eval/                 COCO keypoint AP, calibration, results files,
+                          evaluate_topdown and the eval CLI (run.py)
+    viz.py                keypoint overlays and reliability diagrams
     ops/augment.py        on-device augmentation: draws and transforms
     data/                 synthetic poses, COCO and YOLO loaders, the crop
                           cache, batching and prefetch (host)

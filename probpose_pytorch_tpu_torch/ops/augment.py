@@ -33,6 +33,7 @@ __all__ = [
     "flip_crops_and_keypoints",
     "rotate_crops",
     "color_jitter",
+    "average_flip_pred",
 ]
 
 # Stream domains: flip, rotation and colour; box jitter; half-body boxes.
@@ -224,3 +225,19 @@ def color_jitter(crops: torch.Tensor, brightness: torch.Tensor,
     [0, 1]."""
     mean = crops.mean(dim=(1, 2, 3), keepdim=True)
     return torch.clamp((crops - mean) * contrast + mean + brightness, 0.0, 1.0)
+
+
+def average_flip_pred(pred: Sequence[torch.Tensor], pred_flipped: Sequence[torch.Tensor],
+                      pairs: Sequence[tuple[int, int]]) -> tuple[torch.Tensor, ...]:
+    """Average a head 5-tuple with its twin on the W-mirrored crops
+    (flip-test TTA): the twin's heatmaps (B, K, H, W) mirror back along W
+    and swap left/right channels, its per-keypoint scalars (B, K, 1, 1)
+    swap channels only; each pair is added, then halved, in the JAX order.
+    Under the codec's x_hm in [0, W_hm - 1] affine a reverse along W is the
+    exact mirror, so no sub-pixel shift is needed."""
+    hm, *scalars = pred
+    hm_f, *scalars_f = pred_flipped
+    out = [(hm + _swap_pairs(hm_f.flip(-1), pairs)) * 0.5]
+    for s, sf in zip(scalars, scalars_f):
+        out.append((s + _swap_pairs(sf, pairs)) * 0.5)
+    return tuple(out)

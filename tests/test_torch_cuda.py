@@ -928,3 +928,48 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     for x, y in pairs:
         assert y.is_cuda and torch.equal(x, y)
     assert b.state.host_step == a.state.host_step == 2
+
+
+@pytest.mark.cuda
+def test_predictor_tta_kernels_vs_plain(cuda_device):
+    """The full-width ViT-S predictor in f32 with flip test, three scales
+    and temperatures: through the kernels against the same predictor
+    through the plain versions, keypoints within the card's 1e-2 px on
+    every keypoint whose OKS-convolved map has a top-2 margin above 1e-4
+    at each scale; the K1 and K2 launches 12 and 1 per forward (2 x 3
+    forwards)."""
+    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, _scale_boxes
+    from probpose_pytorch_tpu_torch.ops.heatmap import oks_conv
+
+    cfg = ModelConfig(attn_impl="fused", compute_dtype="float32")
+    model = build_model(cfg, cuda_device, seed=3)
+    _peak_heatmap_branch(model)
+    codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
+                          sigma=2.0))
+    scales = (0.9, 1.0, 1.1)
+    pred = TopDownPredictor(model, codec, (256, 192), flip_test=True, scale_test=scales,
+                            calibration={"presence": 1.7, "visibility": 0.6})
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, size=(4, 320, 256, 3), dtype=np.uint8)
+    boxes = rng.uniform([0, 0, 120, 180], [60, 60, 196, 260], (4, 4)).astype(np.float32)
+    f0, s0 = forward_launches(), sparsemax_rows.launches
+    out = pred(frames, boxes)
+    assert (forward_launches() - f0, sparsemax_rows.launches - s0) == (12 * 6, 6)
+    with plain_versions():
+        ref = pred(frames, boxes)
+        one = TopDownPredictor(model, codec, (256, 192), flip_test=True, return_heatmaps=True)
+        maps = [one(frames, _scale_boxes(torch.from_numpy(boxes), s).numpy())["heatmaps"]
+                for s in scales]
+    row_op, col_op = codec.probmap.conv_operators(cuda_device)
+    ok = np.ones((4, 17), bool)
+    for hm in maps:
+        conv = oks_conv(torch.from_numpy(hm).to(cuda_device), row_op, col_op)
+        top2 = conv.flatten(2).topk(2).values
+        ok &= ((top2[..., 0] - top2[..., 1]) > 1e-4).cpu().numpy()
+    assert ok.mean() > 0.5
+    for k in out:
+        assert out[k].shape == ref[k].shape and np.isfinite(out[k]).all(), k
+    np.testing.assert_allclose(out["keypoints"][ok], ref["keypoints"][ok], atol=1e-2)
+    for k in ("probabilities", "visibilities", "oks", "errors"):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-5, err_msg=k)
