@@ -122,6 +122,29 @@ with weights drawn from a seeded generator:
            predictor's device time per batch and peak device memory. A checkpoint of 6 steps
            scores an AP near 0: the phase checks the path, not accuracy
 
+  phase 11 fine-tuning and checkpoint tooling through the CLIs, from a
+           temporary working directory, each shipped config as it is but
+           --data-root (a synthetic COCO-format set, data/synth_coco.py):
+           the LoRA recipe (configs/lora_finetune_vits.json, 3 steps):
+           frozen tensors bit-identical to the seed's, LoRA and head
+           tensors moved, 12 short forwards, 12 backwards and 1 K2 a step,
+           and an f32 LoRA-only step through the kernels held to the plain
+           one as in phase 5; compat.merge_lora on it, the eval CLI on the
+           merged checkpoint and the f32 merged predictor against the
+           unmerged one within 1e-4; train.average --last 2 over phase 9's
+           checkpoints 3 and 6 (the mean bit for bit) and the eval CLI on
+           it; the ViT-L teacher's vitl_coco.json run (4 micro-steps, one
+           update), then configs/distill_vits_from_vitl.json (3 steps):
+           the teacher unchanged, both distillation terms finite, 12 + 24
+           short forwards, 12 backwards and 2 K2 a step; the frozen RADIO
+           recipe (configs/radio_frozen_vitb.json, 3 steps at B = 64, seed
+           weights): the trunk bit-identical, adapter and head moved, 12
+           short forwards and no backward a step, and the short forward at
+           N = 193 against its plain version. Then, not gated: each
+           recipe's step time, the LoRA run's optimizer-state bytes
+           against the flagship's, the merge and average CLIs' wall time,
+           peak memory with the teacher and the phase's wall time
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -136,7 +159,8 @@ serving batches and training steps.
 Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
 the kernels (launches on the main paths and, as `eval_launches`, in phase
-10's three eval runs, error against the plain version, times, and the
+10's three eval runs, and as `finetune_launches`, in each of phase 11's
+runs, error against the plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
 peaks) and {"ok": true, "device": {...}}.
 
@@ -150,6 +174,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -211,6 +236,16 @@ EVAL_AP_KEYS = ("AP", "AP50", "AP75", "AR", "AR50", "AR75", "AP_medium", "AP_lar
 EVAL_KEYS = EVAL_AP_KEYS + ("EPE", "PCK@0.2", "AUC")
 EVAL_CAL_KEYS = tuple(f"{k}_{b}" for b in ("presence", "visibility")
                       for k in ("ece", "mce", "brier", "nll", "temperature"))
+# Phase 11: the fine-tuning recipes through the CLIs on a synthetic
+# COCO-format set of FT_TRAIN_IMAGES + FT_VAL_IMAGES frames (at least one
+# batch of 128 to train on).
+FT_TRAIN_IMAGES = 80
+FT_VAL_IMAGES = 40
+FT_STEPS = 3
+FT_TIMED_STEPS = 5
+# The f32 merged predictor against the unmerged one: JAX's bound for the
+# merge (tests/test_lora.py), on outputs and well-defined keypoints (px).
+MERGE_TOL = 1e-4
 # Where Trainer.fit writes metrics and checkpoints in this run (under
 # TMPDIR; removed at the end).
 RUN_DIR = Path(tempfile.gettempdir())
@@ -1886,6 +1921,354 @@ def eval_runs(torch, card: str) -> dict:
     return total
 
 
+@contextlib.contextmanager
+def fitted_trainers():
+    """The Trainers whose `fit` runs inside the block (a CLI's), each with a
+    copy of its parameters as `fit` found them: a fresh run's seed."""
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    seen = []
+    fit = Trainer.fit
+
+    def recording(self, *args, **kwargs):
+        seen.append((self, [p.detach().clone() for p in self.state.params]))
+        return fit(self, *args, **kwargs)
+
+    Trainer.fit = recording
+    try:
+        yield seen
+    finally:
+        Trainer.fit = fit
+
+
+def train_cli_run(torch, card: str, label: str, run: Path, config: Path, data_root: Path,
+                  steps: int):
+    """The training CLI on a shipped config, as a user runs it, from the
+    current directory: returns (its Trainer, the seed parameters, the
+    launch counts, its logged lines, its wall time in s)."""
+    from probpose_pytorch_tpu_torch.train import cli
+
+    args = [str(run), "--config", str(config), "--data-root", str(data_root),
+            "--max-steps", str(steps), "--device", "cuda"]
+    say(f"phase 11: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)}")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fitted_trainers() as seen:
+        cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    logged = [x for x in lines if "training/loss" in x]
+    say(f"phase 11 [{card}]: {label}: {steps} steps through the CLI in {wall:.2f} s wall; "
+        f"logged: {logged[-1] if logged else None}")
+    check(len(seen) == 1, f"{label}: the CLI ran {len(seen)} fits")
+    check(bool(logged) and all(np.isfinite(v) for x in logged for v in x.values()),
+          f"{label}: a logged training value is not finite")
+    check((run / "checkpoints" / str(steps)).is_file(), f"{label}: no checkpoints/{steps}")
+    trainer, seed = seen[0]
+    return trainer, seed, counts, logged, wall
+
+
+def check_moved(torch, label: str, trainer, seed, labels: list[str]) -> None:
+    """Frozen tensors bit-identical to their seed values (weight decay would
+    move them); every trainable tensor moved, but those the recipe cannot
+    move: a zero tensor of the visibility branch, whose loss weight is 0
+    (its gradient is 0, and weight decay does not move a zero)."""
+    frozen_kept, moved, idle, stuck = 0, 0, [], []
+    for name, lab, p, s in zip(trainer.state.names, labels, trainer.state.params, seed):
+        same = torch.equal(p, s)
+        if lab == "frozen":
+            check(same, f"{label}: frozen {name} moved")
+            frozen_kept += 1
+        elif not same:
+            moved += 1
+        elif name.startswith("head.branches.visibility.") and not s.any():
+            idle.append(name)
+        else:
+            stuck.append(name)
+    say(f"phase 11: {label}: {frozen_kept} frozen tensors bit-identical to the seed's; "
+        f"{moved} trainable tensors moved; {len(idle)} zero visibility-branch tensors "
+        f"(loss weight 0) could not")
+    check(frozen_kept > 0, f"{label}: nothing frozen")
+    check(not stuck, f"{label}: trainable tensors did not move: {stuck}")
+
+
+def recipe_step_ms(torch, trainer, K: int) -> float:
+    """Mean device time of the recipe's train step (its augmentation on) at
+    its batch, crops on the card (CUDA events, FT_TIMED_STEPS steps)."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+
+    B = trainer.cfg.train_batch_size
+    ds = SyntheticPoseDataset(B, trainer.cfg.model.img_size, K, seed=11)
+    db = trainer.device_batch(next(iter(batch_iterator(ds, B, num_workers=8))))
+    return cuda_ms(torch, lambda: trainer.train_step(trainer.state, db), iters=FT_TIMED_STEPS,
+                   warmup=1)
+
+
+def eval_cli_run(torch, label: str, run: Path, ann: Path, images: Path, n_val: int) -> dict:
+    """The eval CLI on a run's checkpoint: the summary's keys finite, 12
+    short attention forwards and 1 K2 launch per forward."""
+    from probpose_pytorch_tpu_torch.eval import run as eval_run
+
+    args = ["--checkpoint", str(run / "checkpoints"), "--annotations", str(ann),
+            "--images", str(images), "--batch-size", str(EVAL_BATCH), "--device", "cuda"]
+    say(f"phase 11: python -m probpose_pytorch_tpu_torch.eval.run {' '.join(args)}")
+    reset_counts()
+    line = eval_run.main(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = -(-n_val // EVAL_BATCH)
+    check(all(k in line and np.isfinite(line[k]) for k in EVAL_KEYS),
+          f"{label}: the eval summary lacks a key or is not finite")
+    check_attention_route(counts, 12 * forwards, 0, phase=11)
+    check(counts["k2"] == forwards, f"{label}: K2 did not run once per forward")
+    return counts
+
+
+def phase11_lora(torch, dev, card: str, root: Path, n_val: int) -> dict:
+    """Phase 11 (a) and (b): the LoRA recipe, its merge and the eval CLI on
+    the merged checkpoint."""
+    from probpose_pytorch_tpu_torch.compat import merge_lora
+    from probpose_pytorch_tpu_torch.data import COCOPoseDataset, SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+    from probpose_pytorch_tpu_torch.train.loop import frozen_labels
+
+    config = REPO / "configs/lora_finetune_vits.json"
+    cfg = TrainConfig.load(config)
+    run = Path("runs/lora")
+    trainer, seed, counts, _, _ = train_cli_run(torch, card, "LoRA recipe", run, config, root,
+                                                FT_STEPS)
+    forwards = FT_STEPS + n_val // cfg.val_batch_size
+    check_attention_route(counts, 12 * forwards, 12 * FT_STEPS, phase=11)
+    say(f"phase 11: LoRA recipe: K2 launches {counts['k2']} (expect {forwards})")
+    check(counts["k2"] == forwards, "K2 did not run once per forward")
+    names = trainer.state.names
+    labels = frozen_labels(cfg, names)
+    check_moved(torch, "LoRA recipe", trainer, seed, labels)
+    opt = trainer.state.opt_state
+    lora_bytes = nbytes(*opt.mu, *opt.nu)
+    full = CheckpointManager(RUN_DIR / "recipe" / "checkpoints").read(mmap=True)["opt_state"]
+    full_bytes = nbytes(*full["mu"], *full["nu"])
+    say(f"phase 11: LoRA recipe: Adam moments for {len(opt.mu)} of {len(names)} tensors, "
+        f"{lora_bytes / 2**20:.2f} MiB, against the full flagship run's {full_bytes / 2**20:.2f} "
+        f"MiB ({lora_bytes / full_bytes:.4f} of it)")
+    K = cfg.model.num_keypoints
+    step_ms = recipe_step_ms(torch, trainer, K)
+    say(f"phase 11 [{card}]: LoRA recipe bf16 step, B = {cfg.train_batch_size} crops on the card "
+        f"with its augmentation: {step_ms:.3f} ms (CUDA events, mean of {FT_TIMED_STEPS})")
+    del trainer, seed, opt
+    gc.collect()
+
+    # One f32 LoRA-only step through the kernels against the plain versions.
+    cfg32 = dataclasses.replace(
+        cfg, augment=None, train_batch_size=F32_TRAIN_BATCH, log_every=1, resume=False,
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"), **fit_outputs("lora32"))
+    ds = SyntheticPoseDataset(F32_TRAIN_BATCH, cfg.model.img_size, K, seed=0)
+    compare_f32_step(torch, dev, next(iter(batch_iterator(ds, F32_TRAIN_BATCH, num_workers=8))),
+                     cfg.optim.peak_lr, cfg32, phase=11)
+
+    # The merge CLI, then the eval CLI on what it wrote.
+    merged = Path("runs/lora_merged")
+    args = ["--checkpoint", str(run / "checkpoints"), "--out", str(merged), "--device", "cuda"]
+    say(f"phase 11: python -m probpose_pytorch_tpu_torch.compat.merge_lora {' '.join(args)}")
+    t0 = time.perf_counter()
+    merge_lora.main(args)
+    merge_s = time.perf_counter() - t0
+    mcfg = TrainConfig.load(merged / "config.json")
+    check(mcfg.model.lora_rank == 0 and not mcfg.train_lora_only, "the merged config keeps LoRA")
+    ann = root / "annotations" / "person_keypoints_val2017.json"
+    images = root / "val2017"
+    merged_counts = eval_cli_run(torch, "merged LoRA", merged, ann, images, n_val)
+
+    # The merged f32 predictor against the unmerged one, the heatmap branch
+    # redrawn alike on both (3 steps leave the maps nearly flat).
+    val = COCOPoseDataset(ann, images, cfg.model.img_size)
+    crops = val.get_batch(range(EVAL_F32_CROPS))["image"]
+    H, W = cfg.model.img_size
+    ident = np.tile(np.array([0, 0, W, H], np.float32), (len(crops), 1))
+    outs = {}
+    for label, model_cfg, ckpt in (("unmerged", cfg.model, run), ("merged", mcfg.model, merged)):
+        payload = CheckpointManager(ckpt / "checkpoints").read()
+        model = build_model(dataclasses.replace(model_cfg, compute_dtype="float32"), dev)
+        model.load_state_dict({**payload["params"], **payload["buffers"]}, strict=True)
+        peak_heatmap_branch(torch, model)
+        codec = make_codec(model_cfg)
+        outs[label] = TopDownPredictor(model, codec, (H, W), return_heatmaps=True)(crops, ident)
+    sel = well_defined(torch, codec, outs["unmerged"]["heatmaps"], dev)
+    kerr = float(np.abs(outs["merged"]["keypoints"] - outs["unmerged"]["keypoints"])[sel]
+                 .max(initial=0.0))
+    oerr = max(float(np.abs(outs["merged"][k] - outs["unmerged"][k]).max())
+               for k in ("heatmaps", "probabilities", "visibilities", "oks", "errors"))
+    say(f"phase 11: f32 merged against unmerged predictor, {len(crops)} val crops: keypoints "
+        f"{kerr:.3e} px over {int(sel.sum())}/{sel.size} well-defined keypoints, outputs "
+        f"{oerr:.3e} (bound {MERGE_TOL:g} each)")
+    check(sel.mean() > 0.5, "too few keypoints with a well-defined argmax")
+    check(kerr <= MERGE_TOL and oerr <= MERGE_TOL, "the merged predictor differs")
+    bf16 = []
+    for c in (run, merged):
+        pred = load_predictor(c / "checkpoints", device="cuda")
+        pred.return_heatmaps = True
+        bf16.append(pred(crops, ident))
+    say("phase 11: bf16 merged against unmerged predictor on the checkpoints' own (nearly "
+        "flat) maps, not gated: " + ", ".join(
+            f"{k} max diff {float(np.abs(bf16[0][k] - bf16[1][k]).max()):.3e}"
+            for k in ("heatmaps", "probabilities", "visibilities", "oks", "errors")))
+    say(f"phase 11 [{card}]: merge_lora CLI {merge_s:.2f} s wall")
+    return dict(lora=counts, merged_eval=merged_counts)
+
+
+def phase11_average(torch, card: str, n_val: int, root: Path) -> dict:
+    """Phase 11 (c): train.average over phase 9's checkpoints 3 and 6, then
+    the eval CLI on the average."""
+    from probpose_pytorch_tpu_torch.train import average
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+
+    recipe = RUN_DIR / "recipe" / "checkpoints"
+    check(CheckpointManager(recipe).all_steps() == [3, 6], "phase 9 left other checkpoints")
+    out = Path("runs/avg")
+    args = ["--checkpoint", str(recipe), "--last", "2", "--out", str(out), "--device", "cuda"]
+    say(f"phase 11: python -m probpose_pytorch_tpu_torch.train.average {' '.join(args)}")
+    t0 = time.perf_counter()
+    average.main(args)
+    avg_s = time.perf_counter() - t0
+    got = CheckpointManager(out / "checkpoints").read()
+    src = [CheckpointManager(recipe).read(s) for s in (3, 6)]
+    same = all(torch.equal(got[key][k], v)
+               for key in ("params", "buffers", "ema")
+               for k, v in average.average_trees([p[key] for p in src]).items())
+    say(f"phase 11: averaged checkpoint at step {got['step']}: params, EMA and BN statistics "
+        f"the mean of steps 3 and 6 bit for bit: {same}")
+    check(same and got["step"] == 6, "the averaged checkpoint is not the mean")
+    counts = eval_cli_run(torch, "averaged", out, root / "annotations" /
+                          "person_keypoints_val2017.json", root / "val2017", n_val)
+    say(f"phase 11 [{card}]: average CLI {avg_s:.2f} s wall")
+    return dict(avg_eval=counts)
+
+
+def phase11_distill(torch, card: str, root: Path, n_val: int) -> dict:
+    """Phase 11 (d): the ViT-L teacher's run (vitl_coco.json, the fewest
+    micro-steps that apply one update), then the distillation recipe, whose
+    relative ./runs/vitl paths find it."""
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    tcfg = TrainConfig.load(REPO / "configs/vitl_coco.json")
+    steps = tcfg.optim.accum_steps
+    trainer, _, tcounts, _, _ = train_cli_run(torch, card, "ViT-L teacher run", Path("runs/vitl"),
+                                              REPO / "configs/vitl_coco.json", root, steps)
+    del trainer
+    payload = CheckpointManager("runs/vitl/checkpoints").read(mmap=True)
+    check(int(payload["opt_state"]["gradient_step"]) == 1, "the teacher applied no update")
+    say(f"phase 11: ViT-L teacher run launches: short forward {tcounts['k1s']}, backward "
+        f"{tcounts['k4b']}, K2 {tcounts['k2']} (remat: two forwards a block a step)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = REPO / "configs/distill_vits_from_vitl.json"
+    cfg = TrainConfig.load(config)
+    trainer, _, counts, logged, _ = train_cli_run(torch, card, "distillation recipe",
+                                                  Path("runs/vits_distilled"), config, root,
+                                                  FT_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    teacher = trainer.teacher
+    want = {**(payload["ema"] if cfg.distill.ema_teacher else payload["params"]),
+            **payload["buffers"]}
+    kept = all(torch.equal(v.cpu(), want[k]) for k, v in teacher.state_dict().items())
+    say(f"phase 11: distillation: teacher ({tcfg.model.backbone}, {len(want)} tensors) in eval "
+        f"mode: {not teacher.training}; its tensors those of the checkpoint's "
+        f"{'EMA' if cfg.distill.ema_teacher else 'params'} bit for bit after the run: {kept}")
+    check(kept and not teacher.training, "the teacher changed")
+    terms = [(x["training/loss/distill_heatmap"], x["training/loss/distill_scalar"])
+             for x in logged]
+    say(f"phase 11: distillation terms logged (heatmap, scalar): {terms}")
+    check(bool(np.isfinite(terms).all()), "a distillation term is not finite")
+    forwards = n_val // cfg.val_batch_size
+    check_attention_route(counts, (12 + 24) * FT_STEPS + 12 * forwards, 12 * FT_STEPS, phase=11)
+    say(f"phase 11: distillation: K2 launches {counts['k2']} (expect {2 * FT_STEPS + forwards})")
+    check(counts["k2"] == 2 * FT_STEPS + forwards, "K2 did not run once per model forward")
+    step_ms = recipe_step_ms(torch, trainer, cfg.model.num_keypoints)
+    say(f"phase 11 [{card}]: distillation bf16 step, B = {cfg.train_batch_size} crops on the "
+        f"card with its augmentation and the ViT-L teacher's forward: {step_ms:.3f} ms (CUDA "
+        f"events, mean of {FT_TIMED_STEPS}); peak device memory of the CLI run "
+        f"{peak / 2**20:.1f} MiB")
+    return dict(vitl=tcounts, distill=counts)
+
+
+def phase11_radio(torch, dev, card: str, root: Path, n_val: int, g) -> dict:
+    """Phase 11 (e): the frozen RADIO recipe from the seed's weights."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        kernel_path,
+        packed_attention,
+        packed_attention_reference,
+    )
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+    from probpose_pytorch_tpu_torch.train.loop import frozen_labels
+
+    config = REPO / "configs/radio_frozen_vitb.json"
+    cfg = TrainConfig.load(config)
+    trainer, seed, counts, _, _ = train_cli_run(torch, card, "frozen RADIO recipe",
+                                                Path("runs/radio_frozen"), config, root, FT_STEPS)
+    forwards = FT_STEPS + n_val // cfg.val_batch_size
+    check_attention_route(counts, 12 * forwards, 0, phase=11)
+    check(counts["k2"] == forwards, "K2 did not run once per forward")
+    check_moved(torch, "frozen RADIO recipe", trainer, seed,
+                frozen_labels(cfg, trainer.state.names))
+    N = cfg.model.num_prefix_tokens + trainer.model.backbone.grid_size[0] * \
+        trainer.model.backbone.grid_size[1]
+    heads = trainer.model.backbone.num_heads
+    qkv = torch.randn(cfg.train_batch_size, N, 3 * trainer.model.backbone.embed_dim, generator=g,
+                      device=dev).to(torch.bfloat16)
+    path = kernel_path(N, 64, torch.bfloat16)
+    check(path == "sm90 short", f"N = {N} routes to {path}")
+    err = gate(torch, f"K1 packed_attention qkv {tuple(qkv.shape)} bfloat16 via {path} (one "
+               "prefix token)", packed_attention(qkv, heads),
+               packed_attention_reference(qkv, heads), phase=11)
+    step_ms = recipe_step_ms(torch, trainer, cfg.model.num_keypoints)
+    say(f"phase 11 [{card}]: frozen RADIO bf16 step, B = {cfg.train_batch_size} crops on the card "
+        f"with its augmentation: {step_ms:.3f} ms (CUDA events, mean of {FT_TIMED_STEPS})")
+    return dict(radio=counts, radio_n193_err=err)
+
+
+def phase11_finetuning(torch, dev, card: str, g) -> dict:
+    """Phase 11: the fine-tuning recipes and the checkpoint tools through
+    their CLIs, from a temporary working directory, on a synthetic
+    COCO-format set; returns each run's launch counts."""
+    from probpose_pytorch_tpu_torch.data import COCOPoseDataset, generate_coco_synth
+
+    t_phase = time.perf_counter()
+    work = RUN_DIR / "finetune"
+    root = generate_coco_synth(work / "coco", n_train_images=FT_TRAIN_IMAGES,
+                               n_val_images=FT_VAL_IMAGES, frame_hw=(480, 480), seed=1)
+    n_val = len(COCOPoseDataset(root / "annotations" / "person_keypoints_val2017.json",
+                                root / "val2017", (256, 192)))
+    n_train = len(COCOPoseDataset(root / "annotations" / "person_keypoints_train2017.json",
+                                  root / "train2017", (256, 192)))
+    say(f"phase 11: synthetic COCO set, {n_train} train and {n_val} val instances "
+        f"({FT_TRAIN_IMAGES} and {FT_VAL_IMAGES} frames of 480 x 480), written in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    check(n_train >= 128, "too few training instances for a batch of 128")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        out = phase11_lora(torch, dev, card, root, n_val)
+        gc.collect()
+        out.update(phase11_average(torch, card, n_val, root))
+        gc.collect()
+        out.update(phase11_distill(torch, card, root, n_val))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(phase11_radio(torch, dev, card, root, n_val, g))
+    finally:
+        os.chdir(cwd)
+    say(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all")
+    return out
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -1959,7 +2342,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 10, then the kernels line and the result line."""
+    """Phases 0 to 11, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -2177,6 +2560,11 @@ def run(torch) -> None:
     gc.collect()
     evals = eval_runs(torch, card)
 
+    # --------------------------------------------------------------- phase 11
+    gc.collect()
+    finetune = phase11_finetuning(torch, dev, card, g)
+    n193_err = finetune.pop("radio_n193_err")
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -2185,7 +2573,8 @@ def run(torch) -> None:
         # K4's backward fed the forward's saved out and lse.
         kernel_entry("K1 packed_attention forward", "cuda", tiled_cu, "attention_kernel.py:120",
                      train["k1s"], k1_err_main, k1_ms, k1_plain_ms, k1_bound, k1_lib_ms,
-                     design="wgmma+TMA, sm90 short", tiled_route_ms=k1_tiled_ms),
+                     design="wgmma+TMA, sm90 short", tiled_route_ms=k1_tiled_ms,
+                     n193_err=n193_err),
         kernel_entry("K1 packed_attention backward", "cuda", tiled_cu, "attention_kernel.py:146",
                      train["k4b"], train["k1b_err"], train["k1b_ms"], train["k1b_plain_ms"],
                      train["k1b_bound"], train["k1b_lib_ms"], design="wgmma+TMA, sm90 tiled",
@@ -2249,6 +2638,8 @@ def run(torch) -> None:
                     "K6 fused_attention": "k6"}
     for entry in kernels:
         entry["eval_launches"] = evals[eval_counter[entry["name"]]]
+        entry["finetune_launches"] = {run: c[eval_counter[entry["name"]]]
+                                      for run, c in finetune.items()}
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,6 +14,10 @@ compat/torch_export.py:
   * Dense kernel (I, O)                 -> Linear weight (O, I)
   * BN scale / bias + mean / var        -> BatchNorm2d weight / bias /
                                            running_mean / running_var
+  * LoRA `<layer>_lora/{a, b}`          -> `<layer>_lora.{a, b}`, as they are
+A masked optax state (`multi_transform` with frozen labels) holds moments
+for the trainable leaves only, `MaskedNode` in the frozen ones' places; it
+carries into the port's masked AdamW state, which holds the same.
 """
 
 from __future__ import annotations
@@ -44,6 +48,13 @@ def _deconv(sd: dict, prefix: str, p: Tree) -> None:
 def _dense(sd: dict, prefix: str, p: Tree) -> None:
     sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
     sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _lora(sd: dict, prefix: str, p: Tree, layers: tuple[str, ...]) -> None:
+    for layer in layers:
+        if f"{layer}_lora" in p:
+            for f in ("a", "b"):
+                sd[f"{prefix}.{layer}_lora.{f}"] = np.asarray(p[f"{layer}_lora"][f])
 
 
 def _norm(sd: dict, prefix: str, p: Tree) -> None:
@@ -80,6 +91,8 @@ def _backbone(sd: dict, p: Tree) -> None:
         _norm(sd, b + "norm2", blk["norm2"])
         _dense(sd, b + "mlp.fc1", blk["mlp"]["fc1"])
         _dense(sd, b + "mlp.fc2", blk["mlp"]["fc2"])
+        _lora(sd, b + "attn", blk["attn"], ("qkv", "proj"))
+        _lora(sd, b + "mlp", blk["mlp"], ("fc1", "fc2"))
     _norm(sd, q + "norm", p["norm"])
     for j in range(_count(p, "adapter", "adapters")):
         _dense(sd, f"{q}adapters.{j}", p[f"adapter{j}"])
@@ -133,12 +146,32 @@ def load_jax_variables(model: torch.nn.Module, params: Tree, batch_stats: Tree) 
 
 
 def _named_tuples(node: Any) -> Iterator[tuple]:
-    """Every NamedTuple in an optax state (nested tuples of NamedTuples)."""
-    if isinstance(node, tuple):
+    """Every NamedTuple in an optax state (nested tuples of NamedTuples, and
+    multi_transform's dict of masked states)."""
+    if isinstance(node, Mapping):
+        for child in node.values():
+            yield from _named_tuples(child)
+    elif isinstance(node, tuple):
         if hasattr(node, "_fields"):
             yield node
         for child in node:
             yield from _named_tuples(child)
+
+
+def _is_masked(leaf: Any) -> bool:
+    """optax's MaskedNode: the empty NamedTuple in a frozen leaf's place."""
+    return isinstance(leaf, tuple) and not leaf and hasattr(leaf, "_fields")
+
+
+def _unmask(tree: Any, like: Tree, present: bool = False) -> Any:
+    """A masked tree in the shapes of `like` (the params): each MaskedNode
+    as zeros; with `present`, every leaf as a bool array, True where the
+    tree holds a value."""
+    if isinstance(like, Mapping):
+        return {k: _unmask(tree[k], like[k], present) for k in like}
+    if present:
+        return np.full(np.shape(like), not _is_masked(tree))
+    return np.zeros(np.shape(like), np.float32) if _is_masked(tree) else tree
 
 
 def _one(states: list, what: str):
@@ -153,13 +186,15 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     params, and the optax state of train/state.py's chain (Adam mu, nu and
     count, the schedule's count, apply_if_finite's counters and, with
     accum_steps > 1, MultiSteps' counters and accumulator). The moments go
-    through the same layout conversions as the params."""
+    through the same layout conversions as the params. A masked state's
+    moments are carried for its trainable leaves, which must be those of
+    the port state's optimizer."""
     load_jax_variables(state.model, jax_state.params, jax_state.batch_stats)
     device = state.params[0].device
 
-    def leaves(tree: Tree) -> list[torch.Tensor]:
-        sd = state_dict_from_jax(tree, jax_state.batch_stats)
-        return [torch.from_numpy(sd[n]).to(device) for n in state.names]
+    def leaves(tree: Tree, names: list[str] = state.names) -> list[torch.Tensor]:
+        sd = state_dict_from_jax(_unmask(tree, jax_state.params), jax_state.batch_stats)
+        return [torch.from_numpy(sd[n]).to(device) for n in names]
 
     def scalar(v, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
@@ -178,7 +213,13 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
         opt.mini_step, opt.gradient_step = scalar(multi.mini_step), scalar(multi.gradient_step)
         opt.acc = leaves(multi.acc_grads)
         opt = opt.inner
-    opt.mu, opt.nu = leaves(adam.mu), leaves(adam.nu)
+    held = state_dict_from_jax(_unmask(adam.mu, jax_state.params, present=True),
+                               jax_state.batch_stats)
+    trainable = [n for n in state.names if held[n].all()]
+    if len(trainable) != len(opt.mu):
+        raise ValueError(f"the JAX optimizer trains {len(trainable)} leaves, the port's "
+                         f"{len(opt.mu)}: their frozen labels differ")
+    opt.mu, opt.nu = leaves(adam.mu, trainable), leaves(adam.nu, trainable)
     opt.count, opt.schedule_count = scalar(adam.count), scalar(sched.count)
     finite = [s for s in named if "notfinite_count" in s._fields]
     if finite:

@@ -13,8 +13,9 @@ Loads a checkpoint of the port's training CLI (train/checkpoint.py), streams
 the val set through the top-down predictor (inference.py) and prints the
 COCO keypoint summary as one JSON line, with the JAX CLI's keys. It runs on
 the card unless `--device cpu` is given. `--bundle` (ROADMAP item 8),
-`--bottomup` and `--detector` (item 10), `--data-parallel` and
-`--model-parallel` (item 13) are not ported and raise.
+`--bottomup` and `--detector` with its `--detector-threshold` (item 10),
+`--data-parallel` and `--model-parallel` (item 13) are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -96,6 +97,9 @@ def main(argv=None) -> dict:
                         "--calibration-dump JSON or 'presence=1.8,visibility=1.2'")
     parser.add_argument("--detector", type=Path, default=None,
                         help="not ported (ROADMAP item 10)")
+    parser.add_argument("--detector-threshold", type=float, default=0.3,
+                        help="with --detector: detection score threshold (not ported, "
+                        "ROADMAP item 10)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported (ROADMAP item 13)")
     parser.add_argument("--model-parallel", type=int, default=1,

@@ -207,6 +207,8 @@ def load_predictor(
     checkpoint_dir: str | Path,
     config_path: str | Path | None = None,
     ema: bool = False,
+    quantize: str | None = None,
+    mesh: Any = None,
     flip_test: bool = False,
     scale_test: tuple[float, ...] = (),
     scale_test_scores: str = "unit",
@@ -216,11 +218,17 @@ def load_predictor(
     """A predictor from a checkpoint directory of the port's training
     (train/checkpoint.py: the latest `<checkpoint_dir>/<step>`) and its
     config JSON, which defaults to `<checkpoint_dir>/../config.json`, then
-    to the flagship defaults. With `ema`, the EMA parameters. Runs on the
-    card unless `device` asks for the CPU."""
+    to the flagship defaults. With `ema`, the EMA parameters. The
+    parameters sit in the JAX function's places; `quantize` and `mesh`
+    take only their defaults here. Runs on the card unless `device` asks
+    for the CPU."""
     from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
     from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
 
+    if quantize is not None:
+        raise _unported(f"load_predictor(quantize={quantize!r})", 12)
+    if mesh is not None:
+        raise _unported("load_predictor(mesh=...)", 13)
     checkpoint_dir = Path(checkpoint_dir)
     if config_path is None:
         candidate = checkpoint_dir.parent / "config.json"

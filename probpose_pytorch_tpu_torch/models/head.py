@@ -157,6 +157,40 @@ class ProbMapHead(nn.Module):
             flat = sparsemax(flat / TEMPERATURE) * self.normalize
         return flat.clamp(0.0, 1.0).reshape(B, K, H, W)
 
+    @staticmethod
+    def frozen_param_labels(
+        names: Sequence[str],
+        freeze_heatmaps: bool = False,
+        freeze_probability: bool = False,
+        freeze_visibility: bool = False,
+        freeze_oks: bool = False,
+        freeze_error: bool = False,
+        prefix: str = "head",
+    ) -> list[str]:
+        """"frozen" or "trainable" for each parameter name, as the JAX
+        head labels its tree for an optimizer mask (the reference's
+        per-branch requires_grad flags): a scalar branch
+        (`<prefix>.branches.<name>.*`) by its flag, the heatmap branch
+        (`<prefix>.{deconvs,deconv_bns,convs,conv_bns,final}.*`) by
+        `freeze_heatmaps`; names outside `prefix` train."""
+        frozen = {branch for branch, flag in (
+            ("probability", freeze_probability), ("visibility", freeze_visibility),
+            ("oks", freeze_oks), ("error", freeze_error)) if flag}
+
+        def label(name: str) -> str:
+            parts = name.split(".")
+            if prefix not in parts:
+                return "trainable"
+            sub = parts[parts.index(prefix) + 1:] + [""]
+            if sub[0] == "branches":
+                sub = sub[1:]
+            if sub[0] in frozen or (freeze_heatmaps
+                                    and sub[0].startswith(("deconv", "conv", "final"))):
+                return "frozen"
+            return "trainable"
+
+        return [label(n) for n in names]
+
     def forward(self, feats: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """(B, h, w, C) features -> (heatmaps (B, K, H, W), probability,
         visibility, oks, error, each (B, K, 1, 1))."""

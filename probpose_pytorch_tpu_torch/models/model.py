@@ -75,7 +75,6 @@ class ModelConfig:
         unported = [
             (self.head_type == "simcc", "head_type='simcc'", 9),
             (self.backbone.startswith("conv"), f"backbone={self.backbone!r}", 10),
-            (self.lora_rank > 0, "lora_rank > 0", 11),
             (self.pp_stages > 1, "pp_stages > 1", 13),
             (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
             (any(k != 4 for k in self.deconv_kernel_sizes),
@@ -83,6 +82,8 @@ class ModelConfig:
             (self.attn_impl == "einsum" and self.softmax_dtype != "float32",
              f"attn_impl='einsum' with softmax_dtype={self.softmax_dtype!r}", 4),
         ]
+        if self.lora_rank > 0 and self.backbone.startswith("conv"):
+            raise ValueError("lora_rank applies to ViT backbones only")
         if self.lora_rank > 0 and self.mlp_impl == "fused":
             raise ValueError(
                 "lora_rank > 0 does not compose with mlp_impl='fused' (the fused "
@@ -148,12 +149,18 @@ def _trunc_normal(t: torch.Tensor, std: float, g: torch.Generator) -> None:
 def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
     """Draw the weights as the flax initializers do (lecun-normal trunk
     kernels, truncated-normal 0.02 position embedding, normal(0.001) head
-    convs, zero biases, unit BN scales and variances), from `generator`."""
+    convs, zero biases, unit BN scales and variances, LoRA `a` normal(0.02)
+    and `b` zero), from `generator`. The LoRA factors are drawn last, so a
+    LoRA model's base weights are those of the same model without LoRA."""
     # lecun_normal divides by 0.8796, the std of a unit normal truncated at
     # +-2; truncated_normal(0.02) scales the truncated draw as it is.
     lecun = lambda fan_in: 1.0 / math.sqrt(fan_in) / 0.87962566103423978
     with torch.no_grad():
+        lora = []
         for name, p in model.backbone.named_parameters():
+            if "_lora." in name:
+                lora.append((name, p))
+                continue
             if "norm" in name:
                 continue  # LayerNorm keeps its ones / zeros
             if name.endswith("bias"):
@@ -170,6 +177,11 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
                     0.0, 0.001, generator=generator))
                 if m.bias is not None:
                     m.bias.zero_()
+        for name, p in lora:
+            if name.endswith(".a"):
+                p.copy_(torch.empty(p.shape).normal_(0.0, 0.02, generator=generator))
+            else:
+                p.zero_()
 
 
 def resolve_device(device: torch.device | str, what: str) -> torch.device:
@@ -207,6 +219,8 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
         remat=cfg.remat,
         attn_impl=cfg.attn_impl,
         mlp_impl=cfg.mlp_impl,
+        lora_rank=cfg.lora_rank,
+        lora_alpha=cfg.lora_alpha,
     )
     feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
     head = ProbMapHead(

@@ -21,6 +21,11 @@ kernel K6 (`fused_attention`), forward only, as JAX does.
 weights cast to the compute dtype and the fc biases in f32, as the JAX
 branch does (models/vit.py:271-292 of the JAX package). Its parameters
 keep the dense path's names (`norm2`, `mlp.fc1`, `mlp.fc2`).
+
+`lora_rank > 0` adds a LoRA delta (models/lora.py) beside qkv, proj, fc1
+and fc2, where JAX places them: each is added to its projection's output,
+both in the compute dtype; qkv's before attention, so K1 (or K6) reads the
+summed projection, and fc2's reads the hidden state after the GELU.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from probpose_pytorch_tpu_torch.models.lora import LoRADelta
 from probpose_pytorch_tpu_torch.ops.kernels.attention import fused_attention, packed_attention
 from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp
 
@@ -67,47 +73,64 @@ class ViTConfig:
 
 class MlpBlock(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
         self.dtype = dtype
         self.approximate = "none" if exact_gelu else "tanh"
+        lora = lambda i, o: LoRADelta(i, o, lora_rank, lora_alpha, dtype) if lora_rank else None
+        self.fc1_lora, self.fc2_lora = lora(dim, hidden_dim), lora(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(linear(x, self.fc1, self.dtype), approximate=self.approximate)
-        return linear(h, self.fc2, self.dtype)
+        h = linear(x, self.fc1, self.dtype)
+        if self.fc1_lora is not None:
+            h = h + self.fc1_lora(x)
+        h = F.gelu(h, approximate=self.approximate)
+        out = linear(h, self.fc2, self.dtype)
+        if self.fc2_lora is not None:
+            out = out + self.fc2_lora(h)
+        return out
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, impl: str = "fused"):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, impl: str = "fused",
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.num_heads = num_heads
         self.dtype = dtype
         self.impl = impl
+        lora = lambda i, o: LoRADelta(i, o, lora_rank, lora_alpha, dtype) if lora_rank else None
+        self.qkv_lora, self.proj_lora = lora(dim, 3 * dim), lora(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = linear(x, self.qkv, self.dtype)  # (B, N, 3C), qkv-major
+        if self.qkv_lora is not None:
+            qkv = qkv + self.qkv_lora(x)
         if self.impl == "pallas":
             B, N, C3 = qkv.shape
             q, k, v = qkv.unflatten(-1, (3, self.num_heads, -1)).unbind(2)
             ctx = fused_attention(q, k, v).reshape(B, N, C3 // 3)
         else:
             ctx = packed_attention(qkv, self.num_heads)
-        return linear(ctx, self.proj, self.dtype)
+        out = linear(ctx, self.proj, self.dtype)
+        if self.proj_lora is not None:
+            out = out + self.proj_lora(ctx)
+        return out
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  dtype: torch.dtype, exact_gelu: bool = False,
-                 attn_impl: str = "fused", mlp_impl: str = "dense"):
+                 attn_impl: str = "fused", mlp_impl: str = "dense",
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, dtype, attn_impl)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl, lora_rank, lora_alpha)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, exact_gelu)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, exact_gelu, lora_rank, lora_alpha)
         self.mlp_impl = mlp_impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,6 +175,8 @@ class ViTBackbone(nn.Module):
         remat: bool = False,
         attn_impl: str = "fused",
         mlp_impl: str = "dense",
+        lora_rank: int = 0,
+        lora_alpha: float = 16.0,
     ):
         super().__init__()
         self.remat = remat
@@ -170,7 +195,8 @@ class ViTBackbone(nn.Module):
             if num_prefix_tokens else None
         )
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu, attn_impl, mlp_impl)
+            Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu, attn_impl, mlp_impl,
+                  lora_rank, lora_alpha)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)

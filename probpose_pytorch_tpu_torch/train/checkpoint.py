@@ -7,7 +7,8 @@ optimizer state (with MultiSteps' accumulator) and the EMA, all on the CPU;
 beside it, `meta_<step>.json` holds the caller's metadata. Files are written
 under a temporary name and moved into place with `os.replace`, so a reader
 never sees half a checkpoint. A JAX run's state loads through
-compat/from_jax.py:load_jax_train_state instead.
+compat/from_jax.py:load_jax_train_state instead; `write_run` writes a
+fresh run of given weights for the checkpoint tools.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from probpose_pytorch_tpu_torch.train.state import TrainState
 
-__all__ = ["CheckpointManager", "state_is_finite"]
+__all__ = ["CheckpointManager", "state_is_finite", "write_run"]
 
 
 def _to_host(x: Any) -> Any:
@@ -172,16 +173,52 @@ class CheckpointManager:
             return {}
         return json.loads(path.read_text())
 
-    def restore(self, state: TrainState, step: int | None = None) -> TrainState:
-        """Load checkpoint `step` (default the latest) into the live `state`
-        on its devices, and return it."""
+    def read(self, step: int | None = None, mmap: bool = False) -> dict[str, Any]:
+        """Checkpoint `step` (default the latest) as saved: a dict of `step`,
+        `params`, `buffers` and `ema` (name -> CPU tensor; `ema` may be
+        None) and `opt_state`. With `mmap`, the tensors are mapped from the
+        file (copy on write), so what the caller never reads is never
+        loaded."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        payload = torch.load(self.directory / str(step), map_location="cpu", weights_only=True)
-        _load_payload(state, payload)
+        return torch.load(self.directory / str(step), map_location="cpu", weights_only=True,
+                          mmap=mmap)
+
+    def restore(self, state: TrainState, step: int | None = None) -> TrainState:
+        """Load checkpoint `step` (default the latest) into the live `state`
+        on its devices, and return it."""
+        _load_payload(state, self.read(step))
         return state
 
     def close(self) -> None:
         self.wait()
+
+
+def write_run(cfg: Any, out_dir: str | Path, step: int, weights: dict[str, torch.Tensor],
+              ema: dict[str, torch.Tensor] | None, device: torch.device | str = "cuda",
+              partial: bool = False) -> None:
+    """Write `<out_dir>/config.json` (`cfg`) and `<out_dir>/checkpoints/<step>`:
+    the model of `cfg` with `weights` (parameters and buffers by name:
+    every one, or with `partial` any, the rest as `cfg.seed` draws them),
+    the EMA `ema` (the parameters when None and `cfg` keeps one) and a
+    fresh optimizer state, built on `device`. The tools that make a
+    checkpoint of their own write through this (compat/merge_lora.py,
+    train/average.py, compat/convert.py)."""
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    state = Trainer.create(cfg, steps_per_epoch=1, device=device).state
+    with torch.no_grad():
+        unknown = state.model.load_state_dict(weights, strict=not partial).unexpected_keys
+        if unknown:
+            raise ValueError(f"entries the model of the config lacks: {unknown}")
+        if state.ema_params is not None:
+            state.ema_params = [p.detach().clone() if ema is None else ema[n].to(p)
+                                for n, p in zip(state.names, state.params)]
+    state.step = torch.tensor(step, dtype=torch.int32, device=state.step.device)
+    state.host_step = int(step)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg.save(out_dir / "config.json")
+    CheckpointManager(out_dir / "checkpoints").save(int(step), state)

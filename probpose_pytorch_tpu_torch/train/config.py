@@ -86,7 +86,8 @@ class AugmentConfig:
 
 @dataclass(frozen=True)
 class DistillConfig:
-    """Distillation from a frozen teacher; not ported (ROADMAP item 11)."""
+    """Distillation from a frozen teacher, a port checkpoint with its
+    config (train/loop.py:load_teacher); `ema_teacher` takes its EMA."""
 
     teacher_checkpoint: str = ""
     teacher_config: str = ""

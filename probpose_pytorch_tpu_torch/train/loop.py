@@ -15,9 +15,13 @@ the step reads a value back to the host.
 restores it after persistent non-finite losses, tracks a best validation
 metric and checkpoints on SIGTERM, as the JAX `fit` does.
 
-What the JAX loop does and this one does not yet raises
-`NotImplementedError` naming its ROADMAP item: distillation (item 11),
-frozen-parameter masks (item 6), meshes and pipelines (item 13).
+`frozen_backbone` and `train_lora_only` mask the optimizer as the JAX
+`Trainer.create` does (train/state.py). With `TrainConfig.distill`, a
+frozen teacher loaded from a port checkpoint runs in eval mode on the
+step's augmented crops and the student also learns the MSE toward its
+heatmaps and scalar branches. What the JAX loop does and this one does not
+yet raises `NotImplementedError` naming its ROADMAP item: meshes and
+pipelines (item 13).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import signal
 import threading
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -35,6 +40,7 @@ import torch
 from probpose_pytorch_tpu_torch.codec import ArgMaxProbMap, Codec, ProbMap
 from probpose_pytorch_tpu_torch.data.pipeline import Prefetcher
 from probpose_pytorch_tpu_torch.losses import ProbPoseLoss
+from probpose_pytorch_tpu_torch.models.lora import lora_frozen_labels
 from probpose_pytorch_tpu_torch.models.model import build_model, resolve_device
 from probpose_pytorch_tpu_torch.ops.augment import (
     AugmentDraws,
@@ -57,7 +63,8 @@ from probpose_pytorch_tpu_torch.train.state import (
 )
 from probpose_pytorch_tpu_torch.utils.logging import MetricsLogger
 
-__all__ = ["build_codecs", "augment_batch", "make_train_step", "make_eval_step", "Trainer"]
+__all__ = ["build_codecs", "augment_batch", "load_teacher", "frozen_labels", "make_train_step",
+           "make_eval_step", "Trainer"]
 
 # A callable the train step calls after each of its stages with the stage's
 # name ("encode", "forward", "loss", "backward", "optimizer"); chip_smoke.py
@@ -147,14 +154,69 @@ def _total(losses: dict[str, torch.Tensor], weights: dict[str, float]) -> torch.
     return sum(losses[k] * w for k, w in weights.items())
 
 
+def load_teacher(cfg: TrainConfig, device: torch.device | str) -> torch.nn.Module:
+    """The frozen distillation teacher of `cfg.distill`, in eval mode with
+    no gradients, on `device`: the model of its config (`teacher_config`,
+    default `<teacher_checkpoint>/../config.json`) with the parameters, or
+    the EMA with `ema_teacher` when the checkpoint has one, and the BN
+    statistics of the latest port checkpoint under `teacher_checkpoint`.
+    Any architecture teaches whose head family, crop size and keypoint
+    count match the student's (the MSE targets must share shapes)."""
+    d = cfg.distill
+    ckpt_dir = Path(d.teacher_checkpoint)
+    config_path = Path(d.teacher_config) if d.teacher_config else ckpt_dir.parent / "config.json"
+    tcfg = TrainConfig.load(config_path)
+    if tcfg.model.head_type != cfg.model.head_type:
+        raise ValueError(
+            "distillation teacher/student head families must match: teacher "
+            f"{tcfg.model.head_type!r} vs student {cfg.model.head_type!r}")
+    if (tcfg.model.img_size != cfg.model.img_size
+            or tcfg.model.num_keypoints != cfg.model.num_keypoints):
+        raise ValueError(
+            "distillation teacher geometry mismatch: teacher "
+            f"img_size={tcfg.model.img_size} K={tcfg.model.num_keypoints} "
+            f"vs student img_size={cfg.model.img_size} K={cfg.model.num_keypoints}")
+    teacher = build_model(tcfg.model, device, seed=tcfg.seed)
+    payload = CheckpointManager(ckpt_dir).read(mmap=True)
+    params = payload["ema"] if d.ema_teacher and payload["ema"] is not None else payload["params"]
+    teacher.load_state_dict({**params, **payload["buffers"]}, strict=True)
+    return teacher.eval().requires_grad_(False)
+
+
+def frozen_labels(cfg: TrainConfig, names: list[str]) -> list[str] | None:
+    """The optimizer's mask of `cfg` over the parameter `names`, as the JAX
+    `Trainer.create` labels its tree: `frozen_backbone` freezes
+    `backbone.*` but the adapters; `train_lora_only` trains the LoRA deltas
+    and the head alone, and wins when both are set. None: nothing frozen."""
+    labels = None
+    if cfg.model.frozen_backbone:
+        labels = ["frozen" if n.startswith("backbone.") and "adapter" not in n else "trainable"
+                  for n in names]
+    if cfg.train_lora_only:
+        if cfg.model.lora_rank <= 0:
+            raise ValueError("train_lora_only requires model.lora_rank > 0")
+        labels = lora_frozen_labels(names)
+    return labels
+
+
+def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a.float() - b.float()) ** 2).mean()
+
+
 def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPoseLoss,
-                    tx: AdamW | MultiSteps, cfg: TrainConfig) -> Callable:
+                    tx: AdamW | MultiSteps, cfg: TrainConfig,
+                    teacher: torch.nn.Module | None = None) -> Callable:
     """The train step: (state, batch[, mark]) -> (state, metrics), batch a
     dict of tensors on the model's device. The state is updated in place
     and returned. Augmentation draws are seeded by `state.host_step`, the
     host's copy of the step. Metrics stay on the device: `loss`,
-    `loss/<term>` and `grad_norm`, the global norm of the gradients before
-    clipping."""
+    `loss/<term>` and `grad_norm`, the global norm of all the gradients
+    (frozen leaves' included) before clipping. With a `teacher` (eval
+    mode, no gradients), the total gains weight * (heatmap_weight * d_hm +
+    scalar_weight * d_sc): d_hm the f32 MSE of the heatmaps against the
+    teacher's on the same crops, d_sc the mean of the MSEs of the
+    probability, visibility and oks maps, logged as
+    `loss/distill_heatmap` and `loss/distill_scalar`."""
     weights = cfg.loss_weights.as_dict()
     aug = cfg.augment
     augment = aug is not None and (aug.enabled or aug.half_body_prob > 0)
@@ -173,6 +235,15 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPo
         mark("forward")
         losses = loss_fn(gt, pred, learn_heatmaps_from_zeros=cfg.learn_heatmaps_from_zeros)
         total = _total(losses, weights)
+        if teacher is not None:
+            d = cfg.distill
+            with torch.no_grad():
+                tpred = teacher(images)
+            d_hm = _mse(pred[0], tpred[0])
+            d_sc = (_mse(pred[1], tpred[1]) + _mse(pred[2], tpred[2])
+                    + _mse(pred[3], tpred[3])) / 3.0
+            losses = dict(losses, distill_heatmap=d_hm, distill_scalar=d_sc)
+            total = total + d.weight * (d.heatmap_weight * d_hm + d.scalar_weight * d_sc)
         mark("loss")
         grads = torch.autograd.grad(total, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, state.params)]
@@ -232,6 +303,8 @@ class Trainer:
     train_step: Callable
     eval_step: Callable
     device: torch.device
+    # The distillation teacher (eval mode, no gradients), outside the state.
+    teacher: torch.nn.Module | None = None
     # (prefix, step, metrics) of every line `fit` and `validate` logged.
     history: list[tuple[str, int, dict[str, float]]] = field(default_factory=list)
 
@@ -239,29 +312,31 @@ class Trainer:
     def create(cls, cfg: TrainConfig, steps_per_epoch: int,
                device: torch.device | str = "cuda") -> "Trainer":
         """Weights drawn from `cfg.seed` (compat/from_jax.py loads a JAX
-        run's state instead); the schedule spans steps_per_epoch * epochs.
-        Runs on the card unless `device` asks for the CPU."""
+        run's state instead); the schedule spans steps_per_epoch * epochs;
+        the optimizer is masked by `frozen_labels` and the teacher loaded
+        by `load_teacher`. Runs on the card unless `device` asks for the
+        CPU."""
         device = resolve_device(device, "Trainer.create")
         if cfg.model_parallel > 1 or cfg.pipeline_parallel > 1 or cfg.shard_opt_state:
             raise _unported("model_parallel, pipeline_parallel and shard_opt_state", 13)
         if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
-        if cfg.distill is not None and cfg.distill.teacher_checkpoint:
-            raise _unported("distillation (TrainConfig.distill)", 11)
-        if cfg.model.frozen_backbone or cfg.train_lora_only:
-            raise _unported("frozen-parameter masks (frozen_backbone, train_lora_only)", 6)
         model = build_model(cfg.model, device, seed=cfg.seed)
         encode_codec, fast_codec = build_codecs(cfg)
         loss_fn = ProbPoseLoss(fast_codec, freeze_error=cfg.freeze_error,
                                freeze_oks=cfg.freeze_oks)
-        tx = make_optimizer(cfg.optim, steps_per_epoch * cfg.epochs)
+        labels = frozen_labels(cfg, [n for n, _ in model.named_parameters()])
+        tx = make_optimizer(cfg.optim, steps_per_epoch * cfg.epochs, labels)
         state = TrainState(model, tx, ema=cfg.optim.ema_decay is not None)
+        teacher = None
+        if cfg.distill is not None and cfg.distill.teacher_checkpoint:
+            teacher = load_teacher(cfg, device)
         return cls(
             cfg=cfg, model=model, encode_codec=encode_codec, fast_codec=fast_codec,
             loss_fn=loss_fn, tx=tx, state=state,
-            train_step=make_train_step(model, encode_codec, loss_fn, tx, cfg),
+            train_step=make_train_step(model, encode_codec, loss_fn, tx, cfg, teacher),
             eval_step=make_eval_step(model, encode_codec, loss_fn, cfg),
-            device=device,
+            device=device, teacher=teacher,
         )
 
     def device_batch(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:

@@ -4,12 +4,21 @@ probpose_pytorch_tpu/train/state.py).
 The optimizer is a functional update written out in optax's order, so a run
 continues a JAX run step for step (compat/from_jax.py carries the state):
 
-    MultiSteps(k,                       # when accum_steps = k > 1
-      apply_if_finite(                  # when max_nonfinite_skips > 0
-        clip_by_global_norm(clip)       # optax form: t / |g| * clip, no epsilon
-        -> scale_by_adam(b1, b2, 1e-8)  # eps outside the square root
-        -> add_decayed_weights(wd)      # every leaf: biases, LN and BN too
-        -> scale_by_schedule(-lr(count))))
+    MultiSteps(k,                         # when accum_steps = k > 1
+      apply_if_finite(                    # when max_nonfinite_skips > 0
+        multi_transform(                  # with frozen labels
+          trainable:
+            clip_by_global_norm(clip)     # optax form: t / |g| * clip, no epsilon
+            -> scale_by_adam(b1, b2, 1e-8)  # eps outside the square root
+            -> add_decayed_weights(wd)    # every leaf: biases, LN and BN too
+            -> scale_by_schedule(-lr(count)),
+          frozen: set_to_zero())))
+
+With frozen labels (train/loop.py: `frozen_backbone`, `train_lora_only`)
+the inner chain sees the trainable leaves only, as optax's masked states
+do: the clip's norm is theirs, Adam keeps moments for them alone, and a
+frozen leaf's update is exactly 0, weight decay included. apply_if_finite
+still tests every leaf and MultiSteps accumulates every leaf.
 
 `torch.optim.AdamW` with `clip_grad_norm_` and `OneCycleLR` is not the same
 function: clip_grad_norm_ adds 1e-6 to the norm and OneCycleLR's phase
@@ -24,7 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -105,8 +114,9 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 @dataclass
 class OptState:
-    """optax's state of the chain above, one tensor per parameter in the
-    order of `TrainState.names`. `count` is scale_by_adam's,
+    """optax's state of the chain above, one tensor per trainable parameter
+    in the order of `TrainState.names` (every parameter without frozen
+    labels). `count` is scale_by_adam's,
     `schedule_count` scale_by_schedule's; the last three are
     apply_if_finite's (all 0-d, on the parameters' device)."""
 
@@ -121,16 +131,25 @@ class OptState:
 
 class AdamW:
     """The functional optimizer: `init(params)` and
-    `update(grads, state, params) -> (updates, state)`."""
+    `update(grads, state, params) -> (updates, state)`. `trainable`, the
+    indices of the parameters that train (None: all), masks the others as
+    optax.multi_transform with set_to_zero does."""
 
-    def __init__(self, cfg: OptimConfig, schedule: Schedule):
+    def __init__(self, cfg: OptimConfig, schedule: Schedule,
+                 trainable: Sequence[int] | None = None):
         self.cfg = cfg
         self.schedule = schedule
         self.eps = 1e-8
+        self.trainable = None if trainable is None else list(trainable)
+
+    def _masked(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The trainable entries of a per-parameter list."""
+        return tensors if self.trainable is None else [tensors[i] for i in self.trainable]
 
     def init(self, params: list[torch.Tensor]) -> OptState:
         dev = params[0].device
         zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
+        params = self._masked(params)
         return OptState(
             mu=[torch.zeros_like(p) for p in params],
             nu=[torch.zeros_like(p) for p in params],
@@ -145,6 +164,7 @@ class AdamW:
                params: list[torch.Tensor]) -> tuple[list[torch.Tensor], OptState]:
         cfg = self.cfg
         grads = [g.float() for g in grads]
+        every, grads, params = grads, self._masked(grads), self._masked(params)
         g_norm = global_norm(grads)
         # clip_by_global_norm: t where |g| < clip, else (t / |g|) * clip.
         clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), cfg.clip_grad_norm)
@@ -163,6 +183,11 @@ class AdamW:
         # add_decayed_weights on every leaf, then -lr(count).
         u = torch._foreach_add(u, torch._foreach_mul(params, cfg.weight_decay))
         u = torch._foreach_mul(u, -self.schedule(state.schedule_count))
+        if self.trainable is not None:  # set_to_zero on the frozen leaves
+            full = [torch.zeros_like(g) for g in every]
+            for i, t in zip(self.trainable, u):
+                full[i] = t
+            u = full
         new = OptState(mu, nu, count, state.schedule_count + 1, state.notfinite_count,
                        state.last_finite, state.total_notfinite)
         if cfg.max_nonfinite_skips <= 0:
@@ -171,7 +196,7 @@ class AdamW:
         # state (moments and both counts) as it was and updates nothing,
         # unless more than max_nonfinite_skips came in a row.
         finite = torch.isfinite(torch.stack(
-            torch._foreach_norm(grads, ord=float("inf")))).all()
+            torch._foreach_norm(every, ord=float("inf")))).all()
         notfinite = torch.where(finite, 0, state.notfinite_count + 1).int()
         accept = finite | (notfinite > cfg.max_nonfinite_skips)
         pick = lambda a, b: [torch.where(accept, x, y) for x, y in zip(a, b)]
@@ -240,15 +265,23 @@ class MultiSteps:
             acc=torch._foreach_mul(acc, (~emit).float()))
 
 
-def make_optimizer(cfg: OptimConfig, total_steps: int) -> AdamW | MultiSteps:
+def make_optimizer(cfg: OptimConfig, total_steps: int,
+                   frozen_labels: Sequence[str] | None = None) -> AdamW | MultiSteps:
     """The optimizer of `cfg`, wrapped in MultiSteps when accum_steps > 1;
     the families this port does not run raise, naming their ROADMAP
-    item."""
+    item. `frozen_labels`, "trainable" or "frozen" for each parameter in
+    the order the optimizer is given them, masks the frozen ones."""
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"optim.optimizer={cfg.optimizer!r} is not ported to PyTorch yet "
             "(ROADMAP item 6); the port has 'adamw'")
-    tx = AdamW(cfg, build_schedule(cfg, total_steps))
+    trainable = None
+    if frozen_labels is not None:
+        unknown = set(frozen_labels) - {"trainable", "frozen"}
+        if unknown:
+            raise ValueError(f"frozen labels must be 'trainable' or 'frozen', not {unknown}")
+        trainable = [i for i, label in enumerate(frozen_labels) if label == "trainable"]
+    tx = AdamW(cfg, build_schedule(cfg, total_steps), trainable)
     return MultiSteps(tx, cfg.accum_steps) if cfg.accum_steps > 1 else tx
 
 

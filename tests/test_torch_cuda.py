@@ -973,3 +973,95 @@ def test_predictor_tta_kernels_vs_plain(cuda_device):
     np.testing.assert_allclose(out["keypoints"][ok], ref["keypoints"][ok], atol=1e-2)
     for k in ("probabilities", "visibilities", "oks", "errors"):
         np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_short_forward_with_one_prefix_token(cuda_device):
+    """The frozen RADIO recipe's attention: ViT-B with one prefix token,
+    N = 193 (a ragged row past 192), 12 heads of d = 64, bf16, on the short
+    forward, against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    qkv = torch.randn(64, 193, 3 * 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    assert kernel_path(193, 64, torch.bfloat16) == "sm90 short"
+    before = short_forward.launches
+    out = packed_attention(qkv, 12)
+    torch.cuda.synchronize()
+    assert short_forward.launches == before + 1
+    ref = packed_attention_reference(qkv, 12)
+    assert max_err(out, ref) <= bound(ref)
+
+
+def _small_trainers(cuda_device, **over):
+    """Two trainers of a ViT-S-width, depth-2 float32 config with `over`,
+    heatmap branches peaked alike, and a synthetic batch of 8."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    ViTConfig.PRESETS.setdefault("vit-s-depth2", dict(ViTConfig.PRESETS["vit-s"], depth=2))
+    model = dict(img_size=(256, 192), num_keypoints=17, backbone="vit-s-depth2",
+                 compute_dtype="float32", attn_impl="fused", pool_sizes=((4, 3), (2, 2), (2, 2)))
+    model.update(over.pop("model", {}))
+    cfg = TrainConfig.from_dict(dict(model=model, optim=dict(ema_decay=0.999,
+                                                             max_nonfinite_skips=5),
+                                     epochs=10, resume=False, **over))
+    ds = SyntheticPoseDataset(8, (256, 192), 17)
+    batch = next(iter(batch_iterator(ds, 8, num_workers=1)))
+    trainers = [Trainer.create(cfg, 1, cuda_device) for _ in range(2)]
+    for t in trainers:
+        _peak_heatmap_branch(t.model)
+    return trainers, batch
+
+
+@pytest.mark.cuda
+def test_lora_step_kernels_vs_plain(cuda_device):
+    """A LoRA-only f32 step (rank 8 at all four sites, ViT-S width, depth
+    2) through the kernels against the plain versions: 2 K1 forward, 2 K1
+    backward (whose dqkv the qkv delta's products consume) and 1 K2; loss
+    1e-5 and grad_norm 1e-4 relative; frozen tensors unchanged on both
+    paths, trainable ones within Adam's 2 lr."""
+    from probpose_pytorch_tpu_torch.train.loop import frozen_labels
+
+    trainers, batch = _small_trainers(cuda_device, model=dict(lora_rank=8),
+                                      train_lora_only=True)
+    start = [p.detach().clone() for p in trainers[0].state.params]
+    f0, b0, s0 = forward_launches(), backward_launches(), sparsemax_rows.launches
+    _, mk = trainers[0].train_step(trainers[0].state, trainers[0].device_batch(batch))
+    torch.cuda.synchronize()
+    assert (forward_launches() - f0, backward_launches() - b0,
+            sparsemax_rows.launches - s0) == (2, 2, 1)
+    with plain_versions():
+        _, mp = trainers[1].train_step(trainers[1].state, trainers[1].device_batch(batch))
+    for key in mp:
+        rtol = 1e-4 if key == "grad_norm" else 1e-5
+        torch.testing.assert_close(mk[key], mp[key], rtol=rtol, atol=1e-12, msg=key)
+    lr = float(trainers[0].tx.schedule(torch.zeros((), dtype=torch.int32)))
+    labels = frozen_labels(trainers[0].cfg, trainers[0].state.names)
+    for lab, s, a, b in zip(labels, start, trainers[0].state.params, trainers[1].state.params):
+        if lab == "frozen":
+            assert torch.equal(a, s) and torch.equal(b, s)
+        else:
+            assert (a - b).abs().max().item() <= 2 * lr
+
+
+@pytest.mark.cuda
+def test_frozen_trunk_step_runs_no_attention_backward(cuda_device):
+    """The frozen RADIO recipe's step at depth 2 (frozen trunk, one prefix
+    token, exact GELU, an adapter): the detached trunk's attention runs
+    forward only; the trunk stays bit-identical, the adapter moves."""
+    trainers, batch = _small_trainers(cuda_device, model=dict(
+        frozen_backbone=True, num_prefix_tokens=1, exact_gelu=True, adapter_hidden=(384,)))
+    t = trainers[0]
+    start = [p.detach().clone() for p in t.state.params]
+    f0, b0 = forward_launches(), backward_launches()
+    _, metrics = t.train_step(t.state, t.device_batch(batch))
+    torch.cuda.synchronize()
+    assert (forward_launches() - f0, backward_launches() - b0) == (2, 0)
+    assert bool(torch.isfinite(metrics["loss"]))
+    for name, s, p in zip(t.state.names, start, t.state.params):
+        trunk = name.startswith("backbone.") and "adapters" not in name
+        if trunk:
+            assert torch.equal(p, s), name
+        elif name.startswith("backbone.adapters."):
+            assert not torch.equal(p, s), name

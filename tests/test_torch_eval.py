@@ -345,6 +345,7 @@ def test_eval_cli_on_cpu(tmp_path, coco_root, tiny_run, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--bundle", "b"], 8), (["--bottomup", "r"], 10), (["--detector", "d"], 10),
+    (["--detector", "d", "--detector-threshold", "0.5"], 10),
     (["--data-parallel"], 13), (["--model-parallel", "2"], 13)])
 def test_eval_cli_refuses_unported_flags(tmp_path, flags, item):
     args = ["--annotations", str(tmp_path / "a.json"), "--images", str(tmp_path)]

@@ -226,7 +226,6 @@ def test_flagship_geometry_loads_strictly():
 @pytest.mark.parametrize("over,item", [
     (dict(head_type="simcc"), "item 9"),
     (dict(backbone="conv-s"), "item 10"),
-    (dict(lora_rank=4), "item 11"),
     (dict(pp_stages=2), "item 13"),
     (dict(attn_impl="fused_tp"), "item 13"),
     (dict(deconv_kernel_sizes=(2, 4)), "item 4"),

@@ -6,6 +6,8 @@ Same tiny float32 model (weights carried across by compat/from_jax.py, head
 kernels redrawn so the heatmaps are peaked), same uint8 frames and boxes.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -305,3 +307,36 @@ def test_load_predictor_runs_on_the_card_unless_told(saved_runs, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         load_predictor(port_dir / "checkpoints")
+
+
+def test_load_predictor_signature_matches_jax():
+    """JAX's parameters keep their places and defaults (quantize and mesh
+    4th and 5th), so a positional call binds as in JAX; `device` is last."""
+    ours = inspect.signature(load_predictor).parameters
+    theirs = inspect.signature(jax_load_predictor).parameters
+    assert list(ours)[:len(theirs)] == list(theirs) and list(ours)[len(theirs):] == ["device"]
+    for name, p in theirs.items():
+        assert ours[name].default == p.default, name
+
+
+@pytest.mark.parametrize("args,kw,item", [
+    ((), dict(quantize="int8"), 12),
+    ((), dict(mesh=object()), 13),
+    ((None, False, "int8_wo"), {}, 12),
+    ((None, False, None, object()), {}, 13),
+])
+def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, item):
+    """quantize and mesh, by keyword or in their JAX places, raise naming
+    their ROADMAP item; a TypeError would mean a shifted signature."""
+    _, port_dir = saved_runs
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+
+
+def test_load_predictor_positional_call_binds_like_jax(saved_runs):
+    """(checkpoint, config, ema, quantize, mesh, flip_test, scale_test) by
+    position, as a JAX caller writes it."""
+    _, port_dir = saved_runs
+    pred = load_predictor(port_dir / "checkpoints", None, True, None, None, True, (0.9, 1.1),
+                          device="cpu")
+    assert pred.flip_test is True and pred.scale_test == (0.9, 1.1)

@@ -11,6 +11,7 @@ its assertion.
 
 import dataclasses
 import pathlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -150,11 +151,8 @@ def test_synthetic_data_matches_jax():
 
 @pytest.mark.parametrize("over,match", [
     (dict(optim=dict(optimizer="adafactor")), "item 6"),
-    (dict(distill=dict(teacher_checkpoint="runs/t")), "item 11"),
-    (dict(train_lora_only=True), "item 6"),
     (dict(optim=dict(optimizer="lion")), "item 6"),
     (dict(optim=dict(schedule="cosine")), "item 6"),
-    (dict(model=dict(TINY_CFG, frozen_backbone=True)), "item 6"),
     (dict(model_parallel=2), "item 13"),
 ])
 def test_unported_training_options_raise(over, match):
@@ -162,21 +160,56 @@ def test_unported_training_options_raise(over, match):
         Trainer.create(TrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["flagship_coco_vits", "vitb_coco", "vitl_coco"])
-def test_shipped_configs_create(name, monkeypatch):
-    """The shipped COCO recipes (augmentation on; vitl_coco with
-    accum_steps 4) build a Trainer as they are, at full width; the trunk's
-    preset is cut to depth 1 to keep the CPU build small."""
+def test_train_lora_only_needs_a_rank():
+    """train_lora_only without model.lora_rank > 0 raises JAX's ValueError."""
+    with pytest.raises(ValueError, match="train_lora_only requires model.lora_rank > 0"):
+        Trainer.create(TrainConfig.from_dict({**RAW, "train_lora_only": True}),
+                       STEPS_PER_EPOCH, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["flagship_coco_vits", "vitb_coco", "vitl_coco",
+                                  "lora_finetune_vits", "radio_frozen_vitb",
+                                  "reference_parity_fieldsynth", "distill_vits_from_vitl"])
+def test_shipped_configs_create(name, monkeypatch, tmp_path):
+    """The shipped recipes build a Trainer as they are, at full width
+    (augmentation as the file sets it; vitl_coco with accum_steps 4; LoRA
+    and the frozen RADIO trunk with their optimizer masks); the trunk's
+    preset is cut to depth 1 to keep the CPU build small. The distillation
+    recipe runs where its relative `./runs/vitl` paths find a depth-1
+    ViT-L teacher checkpoint of vitl_coco.json."""
+    import json
+
     from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.loop import frozen_labels
     from probpose_pytorch_tpu_torch.train.state import MultiSteps
 
-    cfg = TrainConfig.load(REPO / "configs" / f"{name}.json")
-    assert cfg.augment is not None and cfg.augment.enabled
-    monkeypatch.setitem(ViTConfig.PRESETS, cfg.model.backbone,
-                        dict(ViTConfig.PRESETS[cfg.model.backbone], depth=1))
+    path = REPO / "configs" / f"{name}.json"
+    cfg = TrainConfig.load(path)
+    if json.loads(path.read_text()).get("augment") is not None:
+        assert cfg.augment is not None and cfg.augment.enabled
+    else:
+        assert cfg.augment is None
+    for preset in ViTConfig.PRESETS:
+        monkeypatch.setitem(ViTConfig.PRESETS, preset, dict(ViTConfig.PRESETS[preset], depth=1))
+    if cfg.distill is not None:
+        monkeypatch.chdir(tmp_path)
+        tcfg = TrainConfig.load(REPO / "configs" / "vitl_coco.json")
+        teacher = Trainer.create(tcfg, STEPS_PER_EPOCH, device="cpu")
+        Path("runs/vitl").mkdir(parents=True)
+        tcfg.save("runs/vitl/config.json")
+        CheckpointManager("runs/vitl/checkpoints").save(0, teacher.state)
     trainer = Trainer.create(cfg, STEPS_PER_EPOCH, device="cpu")
     assert len(trainer.model.backbone.blocks) == 1
     assert isinstance(trainer.tx, MultiSteps) == (cfg.optim.accum_steps > 1)
+    names = trainer.state.names
+    labels = frozen_labels(cfg, names)
+    assert (labels is not None) == (cfg.train_lora_only or cfg.model.frozen_backbone)
+    opt = trainer.state.opt_state.inner if cfg.optim.accum_steps > 1 else trainer.state.opt_state
+    assert len(opt.mu) == (len(names) if labels is None else labels.count("trainable"))
+    assert (trainer.teacher is not None) == (cfg.distill is not None)
+    if trainer.teacher is not None:
+        assert trainer.teacher.backbone.embed_dim == 1024 and not trainer.teacher.training
 
 
 # --------------------------------------------------------------------------
