@@ -145,6 +145,30 @@ with weights drawn from a seeded generator:
            against the flagship's, the merge and average CLIs' wall time,
            peak memory with the teacher and the phase's wall time
 
+  phase 12 the serving front ends on phase 9's checkpoint (step 6), bf16
+           unless said: predict_frame on a 1080 x 1920 frame at 1, 7, 64
+           and 300 boxes over the card's bucket ladder (JAX's keys and
+           shapes, finite; 12 short attention forwards, no K1 CUDA-core
+           launch and 1 K2 a dispatch, as many dispatches as the buckets
+           imply); OKS-NMS on each box given twice ("oks" keeps one of each
+           pair, "soft_oks" decays the twin); f32 predict_frame through the
+           kernels against the plain versions within KPT_TOL_PX; the HTTP
+           server in this process over an f32 MicroBatcher at frame shape
+           1080,1920, 8 clients, every reply against the direct predictor
+           within KPT_TOL_PX, /healthz, /stats and /metrics; the server CLI
+           as a subprocess (--warmup), /healthz and /predict, exit 0 on
+           SIGTERM within SERVER_EXIT_S; the inference CLI on a PNG (17
+           heatmaps, the overlay, predictions.json against an in-process
+           predictor); f32 run_video against run_video_stream on 12 frames
+           of 720 x 1280 (track ids equal, keypoints and smoothed keypoints
+           within KPT_TOL_PX); the video CLI per frame and at 64 crops a
+           dispatch on 60 frames. Then, not gated: predict_frame's times,
+           a dispatch's device time at 1 to 512 boxes and the serving
+           record's entry derived from it, crop_resize's share and the peak
+           memory at bucket 256, the bf16 server under 32 clients x 16
+           requests (crops/s, p50/p99, mean batch), the server CLI's start
+           and stop, the video CLI's frames/s and the phase's wall time
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -159,8 +183,9 @@ serving batches and training steps.
 Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
 the kernels (launches on the main paths and, as `eval_launches`, in phase
-10's three eval runs, and as `finetune_launches`, in each of phase 11's
-runs, error against the plain version, times, and the
+10's three eval runs, as `finetune_launches`, in each of phase 11's runs,
+and as `frontend_launches`, summed over phase 12's runs, error against the
+plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
 peaks) and {"ok": true, "device": {...}}.
 
@@ -246,6 +271,24 @@ FT_TIMED_STEPS = 5
 # The f32 merged predictor against the unmerged one: JAX's bound for the
 # merge (tests/test_lora.py), on outputs and well-defined keypoints (px).
 MERGE_TOL = 1e-4
+# Phase 12: the serving front ends on phase 9's checkpoint at camera frames.
+FRAME_HW = (1080, 1920)
+FRAME_BOX_COUNTS = (1, 7, 64, 300)
+NMS_PAIRS = 7
+SERVER_CLIENTS = 8
+SERVER_REQUESTS = 3  # each client's, gated against the direct predictor
+LOAD_CLIENTS = 32
+LOAD_REQUESTS = 16
+MAX_REQUEST_BOXES = 12
+SWEEP_BATCHES = tuple(2**i for i in range(10))  # 1 .. 512
+THROUGHPUT_BATCHES = (64, 128, 256, 512)
+VIDEO_HW = (720, 1280)
+VIDEO_PEOPLE = 6
+VIDEO_F32_FRAMES = 12
+VIDEO_F32_BATCH = 16
+VIDEO_CLI_FRAMES = 60
+VIDEO_CLI_BATCH = 64
+SERVER_EXIT_S = 30
 # Where Trainer.fit writes metrics and checkpoints in this run (under
 # TMPDIR; removed at the end).
 RUN_DIR = Path(tempfile.gettempdir())
@@ -2269,6 +2312,560 @@ def phase11_finetuning(torch, dev, card: str, g) -> dict:
     return out
 
 
+def camera_boxes(rng, n: int, hw: tuple[int, int] = FRAME_HW) -> np.ndarray:
+    """n person boxes (x, y, w, h) on an (H, W) frame, some past its edges."""
+    H, W = hw
+    wh = rng.uniform([0.05 * H, 0.1 * H], [0.35 * H, 0.5 * H], (n, 2))
+    margin = 0.03 * H
+    xy = rng.uniform(-margin, np.stack([W - wh[:, 0], H - wh[:, 1]], axis=1) + margin)
+    return np.concatenate([xy, wh], axis=1).astype(np.float32)
+
+
+def frontend_buckets() -> tuple[int, ...]:
+    """The buckets predict_frame and the server CLI take by default: the
+    card's recorded ladder, else powers of two up to its serving batch."""
+    from probpose_pytorch_tpu_torch.inference import tuned_bucket_ladder, tuned_serving_batch
+
+    top = tuned_serving_batch()
+    return tuned_bucket_ladder() or tuple(
+        b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512) if b < top) + (top,)
+
+
+def counted(torch, total: dict, fn):
+    """fn() with the launch counters set to 0 just before and read just
+    after; the counts are added to `total`. Returns (fn's value, counts)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return out, counts
+
+
+def check_dispatches(counts: dict, dispatches: int, dtype: str, label: str) -> None:
+    """12 attention forwards and 1 K2 a dispatch: bf16 on the short wgmma
+    forward (no CUDA-core launch), f32 on K1's CUDA cores; no K3, K5 or K6."""
+    if dtype == "bfloat16":
+        check_attention_route(counts, 12 * dispatches, 0, phase=12)
+    else:
+        say(f"phase 12: {label}: K1 CUDA-core forwards {counts['k1f']} (expect "
+            f"{12 * dispatches})")
+        check(counts["k1f"] == 12 * dispatches and counts["k1s"] == 0,
+              f"{label}: the f32 trunk did not run K1's CUDA cores once per block")
+    say(f"phase 12: {label}: K2 launches {counts['k2']} (expect {dispatches})")
+    check(counts["k2"] == dispatches, f"{label}: K2 did not run once per dispatch")
+    check(counts["k3"] == counts["k5f"] == counts["k6"] == 0, f"{label}: ran K3, K5 or K6")
+
+
+FRAME_FIELDS = ("keypoints", "scores", "probabilities", "visibilities", "oks", "errors")
+
+
+def check_fields(out: dict, n: int, K: int, label: str, extra=()) -> None:
+    """JAX's keys for n poses, their shapes, all finite."""
+    shapes = dict(keypoints=(n, K, 2), scores=(n, K), probabilities=(n, 1, K),
+                  visibilities=(n, 1, K), oks=(n, 1, K), errors=(n, 1, K))
+    check(sorted(out) == sorted(FRAME_FIELDS + tuple(extra)), f"{label}: keys {sorted(out)}")
+    for k, shape in shapes.items():
+        check(out[k].shape == shape, f"{label}: {k} shape {out[k].shape} != {shape}")
+        check(np.isfinite(out[k]).all(), f"{label}: {k} not finite")
+
+
+def frontend_predict_frame(torch, card: str, pred, pred32, K: int, total: dict) -> None:
+    """Phase 12 (1, 2): predict_frame in bf16 at 1, 7, 64 and 300 boxes,
+    OKS-NMS on duplicated boxes, then f32 through the kernels against the
+    plain versions; times printed."""
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+
+    dev = pred.device
+    buckets = frontend_buckets()
+    rng = np.random.default_rng(120)
+    frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    # the frame as predict_frame pads it, on the card, for the device times
+    f_dev = torch.from_numpy(np.pad(frame, ((0, -FRAME_HW[0] % 64), (0, -FRAME_HW[1] % 64),
+                                            (0, 0)))[None]).to(dev)
+    say(f"phase 12: predict_frame on a {FRAME_HW[0]} x {FRAME_HW[1]} frame (padded to a "
+        f"multiple of {pred.frame_size_multiple}), buckets {buckets}")
+    times = []
+    for n in FRAME_BOX_COUNTS:
+        boxes = camera_boxes(rng, n)
+        out, counts = counted(torch, total, lambda: pred.predict_frame(frame, boxes))
+        dispatches = -(-n // buckets[-1])
+        check_fields(out, n, K, f"predict_frame of {n} boxes")
+        check_dispatches(counts, dispatches, "bfloat16", f"predict_frame of {n} boxes, "
+                         f"{dispatches} dispatches")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pred.predict_frame(frame, boxes)
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        bucket = next((b for b in buckets if b >= n), buckets[-1])
+        b_dev = torch.from_numpy(camera_boxes(rng, bucket)).to(dev)
+        ids = torch.zeros(bucket, dtype=torch.int64, device=dev)
+        dev_ms = cuda_ms(torch, lambda: pred.predict(f_dev, b_dev, ids), iters=5)
+        times.append((n, dispatches, bucket, host_ms, dev_ms))
+    for n, d, bucket, host_ms, dev_ms in times:
+        say(f"phase 12 [{card}]: bf16 predict_frame of {n} boxes ({d} dispatch(es) at bucket "
+            f"{bucket}): {host_ms:.3f} ms a call (host clock, mean of 5: upload, compute, "
+            f"download), {dev_ms:.3f} ms device time of one dispatch at bucket {bucket} with "
+            "the frame on the card (CUDA events, mean of 5)")
+
+    # OKS-NMS: NMS_PAIRS boxes far apart, each given twice.
+    H, W = FRAME_HW
+    base = np.stack([[(i + 0.1) * W / NMS_PAIRS, (0.1 + 0.05 * i) * H, 0.8 * W / NMS_PAIRS,
+                      0.45 * H] for i in range(NMS_PAIRS)])
+    dup = np.concatenate([base, base]).astype(np.float32)
+    raw, _ = counted(torch, total, lambda: pred.predict_frame(frame, dup))
+    raw_scores = (raw["scores"] * raw["probabilities"][:, 0]).mean(axis=1)
+    hard, counts = counted(torch, total, lambda: pred.predict_frame(frame, dup, nms="oks"))
+    check_dispatches(counts, 1, "bfloat16", "predict_frame with nms='oks'")
+    check_fields(hard, NMS_PAIRS, K, "nms='oks'", ("pose_scores", "keep"))
+    check(sorted(hard["keep"] % NMS_PAIRS) == list(range(NMS_PAIRS)),
+          f"nms='oks' did not keep one of each pair: keep {hard['keep']}")
+    soft, _ = counted(torch, total, lambda: pred.predict_frame(frame, dup, nms="soft_oks"))
+    check_fields(soft, 2 * NMS_PAIRS, K, "nms='soft_oks'", ("pose_scores", "keep"))
+    decay = float(np.exp(-1 / 0.9))
+    for i in range(NMS_PAIRS):
+        pair = soft["pose_scores"][soft["keep"] % NMS_PAIRS == i]
+        check(len(pair) == 2 and pair.min() <= raw_scores[i] * decay * (1 + 1e-5),
+              f"soft_oks did not decay the duplicate of box {i}: {pair} vs {raw_scores[i]}")
+    say(f"phase 12: OKS-NMS over {NMS_PAIRS} boxes given twice: 'oks' kept "
+        f"{hard['keep'].tolist()}; 'soft_oks' kept all {2 * NMS_PAIRS}, each duplicate's "
+        f"score at most exp(-1/0.9) = {decay:.4f} of its twin's")
+
+    # f32 through the kernels against the plain versions.
+    boxes = camera_boxes(rng, 64)
+    kern, counts = counted(torch, total, lambda: pred32.predict_frame(frame, boxes))
+    check_dispatches(counts, -(-64 // buckets[-1]), "float32", "f32 predict_frame")
+    with plain_versions():
+        plain = pred32.predict_frame(frame, boxes)
+    sel = well_defined(torch, pred32.codec, plain["heatmaps"], dev)
+    kerr = float(np.abs(kern["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
+    perr = float(np.abs(kern["probabilities"] - plain["probabilities"]).max())
+    say(f"phase 12: f32 predict_frame of 64 boxes, kernels vs plain: keypoint max diff "
+        f"{kerr:.3e} px over {int(sel.sum())}/{sel.size} well-defined keypoints (tolerance "
+        f"{KPT_TOL_PX:g}), probability max diff {perr:.3e} ({PROB_TOL:g})")
+    check(sel.mean() > 0.5, "too few keypoints with a well-defined argmax")
+    check(kerr <= KPT_TOL_PX, f"f32 predict_frame keypoints differ by {kerr} px")
+    check(perr <= PROB_TOL, f"f32 predict_frame probabilities differ by {perr}")
+
+
+def frontend_sweep(torch, card: str, pred) -> None:
+    """Phase 12, not gated: one dispatch of a camera frame at 1, 2, ..., 512
+    boxes (device time, CUDA events: the least of three windows of 10; and
+    the host clock of the whole call, mean of 5),
+    the crop stage's share and peak memory at bucket 256, and the serving
+    record's entry for this card."""
+    from probpose_pytorch_tpu_torch.inference import derive_bucket_ladder
+    from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
+
+    dev = pred.device
+    rng = np.random.default_rng(121)
+    frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    f_dev = torch.from_numpy(np.pad(frame, ((0, -FRAME_HW[0] % 64), (0, -FRAME_HW[1] % 64),
+                                            (0, 0)))[None]).to(dev)
+    rows = []
+    for B in SWEEP_BATCHES:
+        boxes = camera_boxes(rng, B)
+        ids = np.zeros(B, np.int64)
+        b_dev, i_dev = torch.from_numpy(boxes).to(dev), torch.from_numpy(ids).to(dev)
+        # small batches sit on the host's launch floor, whose jitter moves
+        # one window by a few ms: the least of three windows
+        ms = min(cuda_ms(torch, lambda: pred.predict(f_dev, b_dev, i_dev), iters=10)
+                 for _ in range(3))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pred(frame[None], boxes, ids)
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        rows.append(dict(batch=B, ms_per_batch=round(ms, 3),
+                         crops_per_sec=round(B / ms * 1e3, 1), host_ms=round(host_ms, 3)))
+        say(f"phase 12 [{card}]: bucket sweep, B = {B}: {ms:.3f} ms device time a dispatch "
+            f"({B / ms * 1e3:.1f} crops/s), {host_ms:.3f} ms host clock a call")
+    sweep = [r for r in rows if r["batch"] in THROUGHPUT_BATCHES]
+    best = max(sweep, key=lambda r: r["crops_per_sec"])
+    bucket_sweep = [{k: r[k] for k in ("batch", "ms_per_batch", "crops_per_sec")}
+                    for r in rows if r["batch"] <= best["batch"]]
+    ladder = derive_bucket_ladder(bucket_sweep)
+    say(f"phase 12 [{card}]: derive_bucket_ladder over B <= {best['batch']} (the most crops/s "
+        f"of B in {THROUGHPUT_BATCHES}): {ladder}")
+    limit = card.rsplit(",", 1)[1].strip()
+    entry = {torch.cuda.get_device_name(0): dict(power_limit=limit,
+                        sweep=[{k: r[k] for k in ("batch", "ms_per_batch", "crops_per_sec")}
+                               for r in sweep],
+                        batch=best["batch"], crops_per_sec=best["crops_per_sec"],
+                        bucket_sweep=bucket_sweep, bucket_ladder=list(ladder))}
+    say("phase 12: serving record entry (probpose_pytorch_tpu_torch/configs/"
+        f"autotune_serving.json): {json.dumps(entry)}")
+
+    B = 256
+    b_dev = torch.from_numpy(camera_boxes(rng, B)).to(dev)
+    i_dev = torch.zeros(B, dtype=torch.int64, device=dev)
+    crop_ms = cuda_ms(torch, lambda: crop_resize(f_dev.index_select(0, i_dev), b_dev,
+                                                 pred.input_size), iters=5, warmup=1)
+    all_ms = cuda_ms(torch, lambda: pred.predict(f_dev, b_dev, i_dev), iters=5, warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pred.predict(f_dev, b_dev, i_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    H, W = pred.input_size
+    _, Hs, Ws, C = f_dev.shape
+    flop = 2 * B * H * Hs * Ws * C + 2 * B * H * W * Ws * C  # rows, then columns
+    say(f"phase 12 [{card}]: bucket {B} at {Hs} x {Ws} (indexed, one "
+        f"frame): crop_resize {crop_ms:.3f} ms of the dispatch's {all_ms:.3f} ms "
+        f"({crop_ms / all_ms:.3f}; its two f32 products {flop / 1e12:.3f} TFLOP), peak device "
+        f"memory of the dispatch above what was allocated {peak / 2**30:.2f} GiB")
+    del f_dev, b_dev, i_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def post_json(url: str, body: bytes, timeout: float = 300.0) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_text(url: str, timeout: float = 60.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        check(resp.status == 200, f"GET {url}: {resp.status}")
+        return resp.read().decode()
+
+
+def predict_body(b64: str, shape, boxes: np.ndarray) -> bytes:
+    """A /predict request body around an already base64-encoded frame."""
+    return (f'{{"frame_b64": "{b64}", "shape": {list(shape)}, '
+            f'"boxes": {json.dumps(boxes.tolist())}}}').encode()
+
+
+def run_clients(url: str, bodies: list[list[bytes]]) -> tuple[list, float]:
+    """One thread per list of bodies, each posting its bodies in turn;
+    returns the replies in the same nesting and the wall time in s."""
+    import threading
+
+    replies = [[None] * len(b) for b in bodies]
+
+    def client(c):
+        for r, body in enumerate(bodies[c]):
+            replies[c][r] = post_json(url, body)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread did not finish")
+    return replies, wall
+
+
+def frontend_server(torch, card: str, pred, pred32, total: dict) -> None:
+    """Phase 12 (3): PoseHTTPServer in this process over an f32 MicroBatcher
+    at 1080 x 1920: SERVER_CLIENTS clients, every reply against the direct
+    predictor; then, not gated, the bf16 server under LOAD_CLIENTS clients."""
+    import base64
+
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.serve import MicroBatcher, PoseHTTPServer
+
+    buckets = frontend_buckets()
+    rng = np.random.default_rng(122)
+    H, W = FRAME_HW
+    shapes = (FRAME_HW, (H * 2 // 3, W * 2 // 3), (H - 80, W - 20))  # padded to FRAME_HW
+    frames = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for hw in shapes]
+    b64 = [base64.b64encode(f.tobytes()).decode() for f in frames]
+    reqs = [[(i % len(frames), camera_boxes(rng, int(rng.integers(1, MAX_REQUEST_BOXES + 1)),
+                                            frames[i % len(frames)].shape[:2]))
+             for i in range(c, c + SERVER_REQUESTS)] for c in range(SERVER_CLIENTS)]
+    serve32 = TopDownPredictor(pred32.model, pred32.codec, pred32.input_size)
+    mb = MicroBatcher(serve32, buckets, FRAME_HW, max_wait_ms=5.0, indexed=True)
+    srv = PoseHTTPServer(mb, host="127.0.0.1", port=0)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        (replies, wall), counts = counted(torch, total, lambda: run_clients(
+            base + "/predict", [[predict_body(b64[f], frames[f].shape, b) for f, b in rc]
+                                for rc in reqs]))
+        stats = mb.stats_snapshot()
+        check_dispatches(counts, stats["dispatches"], "float32",
+                         f"f32 server, {stats['dispatches']} dispatches")
+        worst, n_sel, n_all = 0.0, 0, 0
+        for rc, rr in zip(reqs, replies):
+            for (f, boxes), (status, out) in zip(rc, rr):
+                check(status == 200, f"/predict answered {status}: {out}")
+                H, W = frames[f].shape[:2]
+                padded = np.pad(frames[f], ((0, FRAME_HW[0] - H), (0, FRAME_HW[1] - W), (0, 0)))
+                direct = pred32(padded[None], boxes, np.zeros(len(boxes), np.int64))
+                sel = well_defined(torch, pred32.codec, direct["heatmaps"], pred32.device)
+                got = np.asarray(out["keypoints"], np.float32)
+                check(got.shape == direct["keypoints"].shape, f"reply shape {got.shape}")
+                worst = max(worst, float(np.abs(got - direct["keypoints"])[sel].max(initial=0)))
+                n_sel, n_all = n_sel + int(sel.sum()), n_all + sel.size
+        say(f"phase 12: f32 server, {SERVER_CLIENTS} clients x {SERVER_REQUESTS} requests of "
+            f"1-{MAX_REQUEST_BOXES} boxes on frames of {shapes}: all 200, "
+            f"keypoints vs the direct predictor max diff {worst:.3e} px over {n_sel}/{n_all} "
+            f"well-defined keypoints (tolerance {KPT_TOL_PX:g}); {stats['dispatches']} "
+            f"dispatches, mean batch {stats.get('mean_batch')}, {wall:.2f} s")
+        check(n_sel > n_all / 2, "too few keypoints with a well-defined argmax")
+        check(worst <= KPT_TOL_PX, f"server keypoints differ by {worst} px")
+        check(json.loads(get_text(base + "/healthz")) == {"ok": True}, "/healthz")
+        check(json.loads(get_text(base + "/stats"))["requests"] == SERVER_CLIENTS *
+              SERVER_REQUESTS, "/stats")
+        check('pose_requests_total{model="default"}' in get_text(base + "/metrics"), "/metrics")
+        say("phase 12: /healthz, /stats and /metrics answered")
+    finally:
+        srv.shutdown()
+
+    # Not gated: the bf16 server under load.
+    mb = MicroBatcher(pred, buckets, FRAME_HW, max_wait_ms=5.0, indexed=True)
+    srv = PoseHTTPServer(mb, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        bodies = []
+        for c in range(LOAD_CLIENTS):
+            mine = []
+            for r in range(LOAD_REQUESTS):
+                f = (c + r) % len(frames)
+                n = int(rng.integers(1, MAX_REQUEST_BOXES + 1))
+                mine.append(predict_body(b64[f], frames[f].shape,
+                                         camera_boxes(rng, n, frames[f].shape[:2])))
+            bodies.append(mine)
+        (replies, wall), counts = counted(torch, total, lambda: run_clients(
+            f"http://127.0.0.1:{srv.port}/predict", bodies))
+        check(all(st == 200 for rr in replies for st, _ in rr), "a loaded request failed")
+        stats = json.loads(get_text(f"http://127.0.0.1:{srv.port}/stats"))
+        check_dispatches(counts, stats["dispatches"], "bfloat16", "bf16 server under load")
+        say(f"phase 12 [{card}]: bf16 server, {LOAD_CLIENTS} clients x {LOAD_REQUESTS} requests "
+            f"of 1-{MAX_REQUEST_BOXES} boxes, frames padded to {FRAME_HW[0]} x {FRAME_HW[1]}, "
+            f"buckets {buckets}: {stats['crops']} crops in {wall:.2f} s = "
+            f"{stats['crops'] / wall:.1f} crops/s ({stats['requests'] / wall:.1f} requests/s); "
+            f"latency p50 {stats['latency_ms']['p50']} ms, p99 {stats['latency_ms']['p99']} ms "
+            f"(/stats, submit to result); mean batch {stats['mean_batch']}, "
+            f"{stats['dispatches']} dispatches")
+    finally:
+        srv.shutdown()
+
+
+def frontend_server_cli(torch, dev, card: str, recipe: Path) -> None:
+    """Phase 12 (4): python -m probpose_pytorch_tpu_torch.serve.server on
+    phase 9's checkpoint as a user starts it: /healthz, one /predict, and
+    exit 0 on SIGTERM within SERVER_EXIT_S."""
+    import base64
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    args = [sys.executable, "-m", "probpose_pytorch_tpu_torch.serve.server", "--checkpoint",
+            str(recipe / "checkpoints"), "--host", "127.0.0.1", "--port", str(port), "--warmup",
+            "--device", dev.type]
+    say(f"phase 12: {' '.join(args[1:])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = []
+    try:
+        while True:
+            line = proc.stdout.readline()
+            if not line or time.perf_counter() - t0 > 600:
+                break
+            lines.append(line)
+            if line.startswith("serving "):
+                break
+        start_s = time.perf_counter() - t0
+        check(bool(lines) and lines[-1].startswith("serving "),
+              "the server CLI did not start:\n" + "".join(lines[-40:]))
+        for line in lines:
+            if not line.startswith("[warmup]"):
+                say(f"  server: {line.rstrip()}")
+        base = f"http://127.0.0.1:{port}"
+        check(json.loads(get_text(base + "/healthz")) == {"ok": True}, "server CLI /healthz")
+        rng = np.random.default_rng(123)
+        frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+        boxes = camera_boxes(rng, 3)
+        status, out = post_json(base + "/predict", predict_body(
+            base64.b64encode(frame.tobytes()).decode(), frame.shape, boxes))
+        check(status == 200 and np.asarray(out["keypoints"]).shape == (3, 17, 2),
+              f"server CLI /predict: {status}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVER_EXIT_S)
+        stop_s = time.perf_counter() - t1
+        tail = proc.stdout.read()
+        check(rc == 0, f"the server CLI exited {rc} on SIGTERM:\n{tail}")
+        say(f"phase 12 [{card}]: server CLI up (checkpoint load, kernel library, warmup) in "
+            f"{start_s:.2f} s; answered /healthz and /predict; exit 0 {stop_s:.2f} s after "
+            f"SIGTERM ({tail.strip().splitlines()[-1] if tail.strip() else ''})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
+
+
+def frontend_inference_cli(torch, dev, card: str, recipe: Path, total: dict) -> None:
+    """Phase 12 (5): the single-image CLI on a PNG this phase writes, against
+    an in-process predictor on the whole-image box."""
+    import PIL.Image
+
+    from probpose_pytorch_tpu_torch import inference
+
+    work = RUN_DIR / "frontend"
+    work.mkdir(parents=True, exist_ok=True)
+    image = np.random.default_rng(124).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    PIL.Image.fromarray(image).save(work / "image.png")
+    args = ["--checkpoint", str(recipe / "checkpoints"), "--image", str(work / "image.png"),
+            "--output", str(work / "infer"), "--device", dev.type]
+    say(f"phase 12: python -m probpose_pytorch_tpu_torch.inference {' '.join(args)}")
+    t0 = time.perf_counter()
+    _, counts = counted(torch, total, lambda: inference.main(args))
+    wall = time.perf_counter() - t0
+    check_dispatches(counts, 1, "bfloat16", "the inference CLI")
+    pngs = sorted((work / "infer").glob("heatmap_*.png"))
+    check(len(pngs) == 17 and (work / "infer" / "output_image.png").is_file(),
+          f"the inference CLI wrote {len(pngs)} heatmaps")
+    check(np.asarray(PIL.Image.open(pngs[0])).shape == (64, 48, 4), "heatmap PNG shape")
+    preds = json.loads((work / "infer" / "predictions.json").read_text())
+    check(sorted(preds) == sorted(FRAME_FIELDS), f"predictions.json keys {sorted(preds)}")
+    ref = inference.load_predictor(recipe / "checkpoints", device=dev)(
+        image[None], np.array([[0, 0, 640, 480]], np.float32))
+    err = float(np.abs(np.asarray(preds["keypoints"], np.float32) - ref["keypoints"]).max())
+    say(f"phase 12 [{card}]: inference CLI in {wall:.2f} s wall: 17 heatmap PNGs, "
+        f"output_image.png, predictions.json; keypoints vs the in-process predictor max diff "
+        f"{err:.3e} px (tolerance {KPT_TOL_PX:g})")
+    check(err <= KPT_TOL_PX, f"the inference CLI's keypoints differ by {err} px")
+
+
+def video_input(n_frames: int, seed: int):
+    """Frames of VIDEO_HW and per-frame boxes of VIDEO_PEOPLE people that
+    drift across the frame, each present in a frame with probability 0.7."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n_frames, *VIDEO_HW, 3), dtype=np.uint8)
+    start = camera_boxes(rng, VIDEO_PEOPLE, VIDEO_HW)
+    step = rng.normal(0, 4, (VIDEO_PEOPLE, 2))
+    boxes = []
+    for i in range(n_frames):
+        b = start.copy()
+        b[:, :2] += i * step
+        boxes.append(b[rng.random(VIDEO_PEOPLE) < 0.7])
+    return frames, boxes
+
+
+def frontend_video(torch, dev, card: str, recipe: Path, pred32, total: dict) -> None:
+    """Phase 12 (6): run_video against run_video_stream in f32, then the
+    video CLI in bf16, per frame and streamed."""
+    from probpose_pytorch_tpu_torch import video
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+
+    frames, boxes = video_input(VIDEO_F32_FRAMES, 125)
+    serve32 = TopDownPredictor(pred32.model, pred32.codec, pred32.input_size)
+    crops = sum(len(b) for b in boxes)
+    per_frame, counts = counted(torch, total, lambda: list(
+        video.run_video(serve32, frames, boxes, nms=None)))
+    check_dispatches(counts, sum(len(b) > 0 for b in boxes), "float32", "f32 run_video")
+    streamed, counts = counted(torch, total, lambda: list(video.run_video_stream(
+        serve32, frames, boxes, nms=None, batch=VIDEO_F32_BATCH)))
+    check_dispatches(counts, -(-crops // VIDEO_F32_BATCH), "float32", "f32 run_video_stream")
+    check(len(per_frame) == len(streamed) == VIDEO_F32_FRAMES, "video record counts")
+    kerr = serr = 0.0
+    n_sel = n_all = 0
+    stable: dict = {}  # track id -> keypoints well defined in all its frames so far
+    for frame, a, b in zip(frames, per_frame, streamed):
+        check(np.array_equal(a["track_ids"], b["track_ids"]),
+              f"frame {a['frame']}: track ids {a['track_ids']} vs {b['track_ids']}")
+        if not len(a["boxes"]):
+            continue
+        hm = pred32(frame[None], a["boxes"], np.zeros(len(a["boxes"]), np.int64))["heatmaps"]
+        sel = well_defined(torch, pred32.codec, hm, dev)
+        for j, tid in enumerate(a["track_ids"]):
+            stable[tid] = stable.get(tid, np.ones(sel.shape[1], bool)) & sel[j]
+        smooth_sel = np.stack([stable[t] for t in a["track_ids"]])
+        kerr = max(kerr, float(np.abs(a["keypoints"] - b["keypoints"])[sel].max(initial=0)))
+        serr = max(serr, float(np.abs(a["smoothed"] - b["smoothed"])[smooth_sel].max(initial=0)))
+        check(np.abs(a["probabilities"] - b["probabilities"]).max() <= PROB_TOL,
+              f"frame {a['frame']}: probabilities differ")
+        n_sel, n_all = n_sel + int(sel.sum()), n_all + sel.size
+    say(f"phase 12: f32 run_video vs run_video_stream(batch={VIDEO_F32_BATCH}), "
+        f"{VIDEO_F32_FRAMES} frames of {VIDEO_HW[0]} x {VIDEO_HW[1]}, {crops} boxes: track ids "
+        f"equal; keypoints max diff {kerr:.3e} px over {n_sel}/{n_all} well-defined, smoothed "
+        f"{serr:.3e} px over those well defined in every frame of their track (tolerance "
+        f"{KPT_TOL_PX:g})")
+    check(n_sel > n_all / 2, "too few keypoints with a well-defined argmax")
+    check(kerr <= KPT_TOL_PX and serr <= KPT_TOL_PX, "stream mode differs from per-frame mode")
+
+    frames, boxes = video_input(VIDEO_CLI_FRAMES, 126)
+    work = RUN_DIR / "frontend"
+    work.mkdir(parents=True, exist_ok=True)
+    np.save(work / "frames.npy", frames)
+    (work / "boxes.json").write_text(json.dumps([b.tolist() for b in boxes]))
+    crops = sum(len(b) for b in boxes)
+    fps = {}
+    for label, extra, dispatches in (
+            ("per frame", [], sum(len(b) > 0 for b in boxes)),
+            (f"--stream-batch {VIDEO_CLI_BATCH}", ["--stream-batch", str(VIDEO_CLI_BATCH)],
+             -(-crops // VIDEO_CLI_BATCH))):
+        out = work / f"video_{len(extra)}"
+        args = ["--checkpoint", str(recipe / "checkpoints"), "--frames",
+                str(work / "frames.npy"), "--boxes", str(work / "boxes.json"), "--out", str(out),
+                "--device", dev.type] + extra
+        say(f"phase 12: python -m probpose_pytorch_tpu_torch.video {' '.join(args)}")
+        t0 = time.perf_counter()
+        _, counts = counted(torch, total, lambda: video.main(args))
+        wall = time.perf_counter() - t0
+        check_dispatches(counts, dispatches, "bfloat16", f"video CLI {label}")
+        records = (out / "poses.jsonl").read_text().splitlines()
+        check(len(records) == VIDEO_CLI_FRAMES, f"video CLI {label}: {len(records)} records")
+        check(all(len(json.loads(r)["track_ids"]) <= len(b) for r, b in zip(records, boxes)),
+              f"video CLI {label}: more poses than boxes")
+        fps[label] = VIDEO_CLI_FRAMES / wall
+    say(f"phase 12 [{card}]: video CLI, bf16, {VIDEO_CLI_FRAMES} frames of {VIDEO_HW[0]} x "
+        f"{VIDEO_HW[1]} ({crops} boxes), whole CLI run (checkpoint load included): "
+        + ", ".join(f"{k} {v:.2f} frames/s" for k, v in fps.items()))
+
+
+def phase12_frontends(torch, dev, card: str) -> dict:
+    """Phase 12: the serving front ends on phase 9's checkpoint (step 6),
+    gated as the module docstring says; returns the launches of its runs
+    whose counts it checks, summed."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    recipe = RUN_DIR / "recipe"
+    pred = load_predictor(recipe / "checkpoints", device=dev)
+    cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
+                                compute_dtype="float32")
+    model32 = build_model(cfg32, dev)
+    model32.load_state_dict(pred.model.state_dict())
+    # 6 steps leave the maps nearly flat: the f32 comparisons redraw the
+    # heatmap branch at fan-in scale, as phase 10 does
+    peak_heatmap_branch(torch, model32)
+    pred32 = TopDownPredictor(model32, pred.codec, pred.input_size, return_heatmaps=True)
+    total: dict = {}
+    frontend_predict_frame(torch, card, pred, pred32, cfg32.num_keypoints, total)
+    frontend_sweep(torch, card, pred)
+    frontend_server(torch, card, pred, pred32, total)
+    frontend_server_cli(torch, dev, card, recipe)
+    frontend_inference_cli(torch, dev, card, recipe, total)
+    frontend_video(torch, dev, card, recipe, pred32, total)
+    say(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+    return total
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -2342,7 +2939,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 11, then the kernels line and the result line."""
+    """Phases 0 to 12, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -2565,6 +3162,11 @@ def run(torch) -> None:
     finetune = phase11_finetuning(torch, dev, card, g)
     n193_err = finetune.pop("radio_n193_err")
 
+    # --------------------------------------------------------------- phase 12
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend = phase12_frontends(torch, dev, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -2640,6 +3242,7 @@ def run(torch) -> None:
         entry["eval_launches"] = evals[eval_counter[entry["name"]]]
         entry["finetune_launches"] = {run: c[eval_counter[entry["name"]]]
                                       for run, c in finetune.items()}
+        entry["frontend_launches"] = frontend.get(eval_counter[entry["name"]], 0)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of probpose-tpu's top-down serving path, training and
-evaluation.
+"""PyTorch/CUDA port of probpose-tpu's top-down serving path and its front
+ends, training and evaluation.
 
 The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
 (the reference it is tested against) but imports only torch and numpy:
@@ -15,7 +15,15 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     codec.py              ProbMap and ArgMaxProbMap: encode and decode
     losses.py             the five-term ProbPoseLoss and its metrics
     inference.py          TopDownPredictor (flip and scale test,
-                          temperatures, predict_stream), load_predictor
+                          temperatures, predict_stream, predict_frame with
+                          its buckets and OKS-NMS), load_predictor, the
+                          single-image CLI (main)
+    configs/              the serving record: batch and bucket ladder by card
+    ops/oks_nms.py        pose OKS-NMS and soft OKS-NMS (numpy)
+    serve/server.py       MicroBatcher, the HTTP server and its CLI
+    video.py              frame sequences: OksTracker, run_video,
+                          run_video_stream and the video CLI
+    utils/smoothing.py    one-euro smoothing of tracked poses (numpy)
     eval/                 COCO keypoint AP, calibration, results files,
                           evaluate_topdown and the eval CLI (run.py)
     viz.py                keypoint overlays and reliability diagrams

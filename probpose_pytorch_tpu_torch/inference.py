@@ -1,6 +1,11 @@
-"""Batched top-down predictor (port of the serving path of
-probpose_pytorch_tpu/inference.py: TopDownPredictor, predict_stream and
-load_predictor).
+"""Batched top-down predictor and the single-image CLI (port of
+probpose_pytorch_tpu/inference.py: TopDownPredictor with predict_stream and
+predict_frame, the bucket ladder, load_predictor and main).
+
+    python -m probpose_pytorch_tpu_torch.inference \
+        --checkpoint runs/x/checkpoints --image img.jpg --output out/ \
+        [--config runs/x/config.json] [--input-size 256,192] [--normalize] \
+        [--device cuda]
 
 frames + person boxes -> crop_resize ("bilinear_matmul") -> ProbPoseModel
 (ViT trunk with kernel K1, ProbMap head with kernel K2) -> Codec.decode ->
@@ -11,17 +16,24 @@ visibilities, oks, errors (B, 1, K), plus heatmaps (B, K, H, W) with
 calibration run on the model's device, as the JAX predictor runs them
 inside its jitted program.
 
-Not ported yet: quantisation (ROADMAP item 12), mesh serving (item 13), and
-`predict_frame` with its buckets, NMS and detector mode (item 8).
+`predict_frame` pads a variable box list to a batch bucket (the card's
+record in configs/autotune_serving.json, keyed by
+`torch.cuda.get_device_name()`, else powers of two), zero-pads the frame to
+`frame_size_multiple` and can run pose OKS-NMS over the results.
+
+Not ported yet: quantisation (`--int8`, ROADMAP item 12), mesh serving
+(item 13) and the detector (`detector=`, item 10).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -36,13 +48,75 @@ from probpose_pytorch_tpu_torch.ops.preprocess import (
 )
 from probpose_pytorch_tpu_torch.train.config import COCO_FLIP_PAIRS
 
-__all__ = ["TopDownPredictor", "load_predictor"]
+__all__ = ["TopDownPredictor", "derive_bucket_ladder", "load_predictor", "main",
+           "tuned_bucket_ladder", "tuned_serving_batch"]
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
     )
+
+
+def _load_autotune_entry() -> dict:
+    """This card's entry of the port's serving record
+    (configs/autotune_serving.json, package data), keyed by
+    `torch.cuda.get_device_name()`; {} on a host without CUDA or a card
+    with no entry."""
+    if not torch.cuda.is_available():
+        return {}
+    try:
+        from importlib.resources import files
+
+        text = (files("probpose_pytorch_tpu_torch")
+                .joinpath("configs/autotune_serving.json").read_text())
+        return json.loads(text)[torch.cuda.get_device_name()]
+    except (KeyError, ValueError, RuntimeError, OSError):
+        return {}
+
+
+def tuned_serving_batch(default: int = 64) -> int:
+    """Best serving batch recorded for this card; `default` without one."""
+    try:
+        return int(_load_autotune_entry()["batch"])
+    except (KeyError, ValueError):
+        return default
+
+
+def derive_bucket_ladder(sweep: Sequence[dict], margin: float = 0.10) -> tuple[int, ...]:
+    """Prune a measured per-batch latency sweep into a padding-bucket ladder.
+
+    `predict_frame` pads a variable box count up to the next bucket, so a
+    rung is worth keeping only when it is measurably faster than padding up
+    to the next one. Walking from the largest batch down, a smaller batch
+    stays on the ladder iff its latency beats the next kept rung by at least
+    `margin`.
+
+    sweep rows: {"batch": int, "ms_per_batch": float} (extra keys ignored).
+    Returns ascending batch sizes ending at the largest swept batch.
+    """
+    rows = sorted(({"batch": int(r["batch"]), "ms": float(r["ms_per_batch"])} for r in sweep),
+                  key=lambda r: r["batch"])
+    if not rows:
+        raise ValueError("empty sweep")
+    bad = [r for r in rows if r["ms"] <= 0]
+    if bad:
+        raise ValueError(
+            f"non-positive latency for batches {[r['batch'] for r in bad]} — "
+            "below the measurement noise floor; re-sweep with more repeats")
+    ladder = [rows[-1]]
+    for row in reversed(rows[:-1]):
+        if row["ms"] < ladder[-1]["ms"] * (1.0 - margin):
+            ladder.append(row)
+    return tuple(r["batch"] for r in reversed(ladder))
+
+
+def tuned_bucket_ladder() -> tuple[int, ...] | None:
+    """The `predict_frame` bucket ladder recorded for this card, or None."""
+    ladder = _load_autotune_entry().get("bucket_ladder")
+    if ladder:
+        return tuple(int(b) for b in ladder)
+    return None
 
 
 def _scale_boxes(boxes: torch.Tensor, s: float) -> torch.Tensor:
@@ -84,6 +158,11 @@ class TopDownPredictor:
     calibration: dict | None = None
     quantize: str | None = None
     mesh: Any = None
+    # `predict_frame` zero-pads the frame's (H, W) up to this multiple, so
+    # slightly different camera sizes share one padded shape; crop_resize
+    # samples black outside the frame either way. None keeps exact shapes.
+    frame_size_multiple: int | None = 64
+    detector: Any = None
 
     def __post_init__(self):
         self.scale_test = tuple(float(s) for s in (self.scale_test or ()))
@@ -106,6 +185,8 @@ class TopDownPredictor:
             raise _unported(f"TopDownPredictor(quantize={self.quantize!r})", 12)
         if self.mesh is not None:
             raise _unported("TopDownPredictor(mesh=...)", 13)
+        if self.detector is not None:
+            raise _unported("TopDownPredictor(detector=...)", 10)
         self.model.eval()
 
     @property
@@ -202,6 +283,78 @@ class TopDownPredictor:
             while in_flight:
                 yield self._download(in_flight.popleft().result())
 
+    def predict_frame(
+        self,
+        frame: np.ndarray,
+        boxes: np.ndarray | None = None,
+        buckets: tuple[int, ...] | None = None,
+        nms: str | None = None,
+        nms_threshold: float = 0.9,
+        nms_sigmas: np.ndarray | None = None,
+        detector_threshold: float | None = None,
+    ) -> dict:
+        """Variable-count person boxes (N, 4) xywh on one (H, W, 3) uint8
+        frame: the box list pads to the next bucket (unless given: the card's
+        recorded ladder, else powers of two up to `tuned_serving_batch()`;
+        a list past the top bucket runs in top-bucket parts),
+        the frame zero-pads to `frame_size_multiple` and crosses to the
+        device once (indexed, frame_ids all 0), and the padding rows are
+        stripped from the outputs; {} for no boxes.
+
+        nms: None, "oks" or "soft_oks": pose-level OKS-NMS over the results
+        (ops/oks_nms.py), pose score = mean over keypoints of score x
+        probability, OKS area = box w*h. Adds "pose_scores" (decayed ones
+        under "soft_oks") and "keep", the input-box indices of the kept
+        poses. `detector_threshold` belongs to the detector (item 10)."""
+        if boxes is None:
+            raise ValueError("predict_frame needs boxes, or construct the predictor "
+                             "with detector= for standalone mode")
+        if nms is not None:
+            raw = self.predict_frame(frame, boxes, buckets)
+            if not raw:
+                return raw
+            from probpose_pytorch_tpu_torch.ops.oks_nms import oks_nms, soft_oks_nms
+
+            pose_scores = (raw["scores"] * raw["probabilities"][:, 0, :]).mean(axis=1)
+            boxes = np.asarray(boxes, np.float32)
+            areas = boxes[:, 2] * boxes[:, 3]
+            if nms == "oks":
+                keep = oks_nms(raw["keypoints"], pose_scores, areas,
+                               threshold=nms_threshold, sigmas=nms_sigmas)
+                kept_scores = pose_scores[keep]
+            elif nms == "soft_oks":
+                keep, kept_scores = soft_oks_nms(raw["keypoints"], pose_scores, areas,
+                                                 threshold=nms_threshold, sigmas=nms_sigmas)
+            else:
+                raise ValueError(f"unknown nms mode {nms!r}")
+            out = {k: v[keep] for k, v in raw.items()}
+            out["pose_scores"] = np.asarray(kept_scores, np.float32)
+            out["keep"] = np.asarray(keep, np.int64)
+            return out
+        if buckets is None:
+            buckets = tuned_bucket_ladder()
+        if buckets is None:
+            top = tuned_serving_batch()
+            buckets = tuple(b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+                            if b < top) + (top,)
+        n = len(boxes)
+        if n == 0:
+            return {}
+        bucket = next((b for b in buckets if b >= n), None)
+        if bucket is None:
+            parts = [self.predict_frame(frame, boxes[i:i + buckets[-1]], buckets)
+                     for i in range(0, n, buckets[-1])]
+            return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        m = self.frame_size_multiple
+        if m:
+            pad_h, pad_w = -frame.shape[0] % m, -frame.shape[1] % m
+            if pad_h or pad_w:
+                frame = np.pad(frame, ((0, pad_h), (0, pad_w), (0, 0)))
+        padded = np.concatenate([boxes, np.tile(boxes[-1:], (bucket - n, 1))],
+                                axis=0).astype(np.float32)
+        out = self(frame[None], padded, np.zeros((bucket,), np.int64))
+        return {k: v[:n] for k, v in out.items()}
+
 
 def load_predictor(
     checkpoint_dir: str | Path,
@@ -252,3 +405,72 @@ def load_predictor(
         scale_test_scores=scale_test_scores,
         calibration=calibration,
     )
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    """The single-image CLI: the whole image as one box through the
+    predictor, writing heatmap_{i}.png, output_image.png and
+    predictions.json to --output. Runs on the card unless --device cpu."""
+    parser = argparse.ArgumentParser(description="ProbPose inference (PyTorch)")
+    parser.add_argument("--checkpoint", type=Path, required=True,
+                        help="checkpoint directory of the port's training CLI")
+    parser.add_argument("--config", type=Path, default=None,
+                        help="TrainConfig JSON (default: beside checkpoint)")
+    parser.add_argument("--image", type=Path, required=True)
+    parser.add_argument("--output", type=Path, required=True)
+    parser.add_argument("--input-size", type=str, default=None, help="H,W override")
+    parser.add_argument("--normalize", action="store_true",
+                        help="normalize heatmap PNGs to their max")
+    parser.add_argument("--prob-threshold", type=float, default=0.9)
+    parser.add_argument("--ema", action="store_true", help="use EMA params")
+    parser.add_argument("--int8", action="store_true", help="not ported (ROADMAP item 12)")
+    parser.add_argument("--int8-weight-only", action="store_true",
+                        help="not ported (ROADMAP item 12)")
+    parser.add_argument("--flip-test", action="store_true",
+                        help="flip-test TTA: average predictions with the horizontally "
+                        "mirrored forward (COCO-17 left/right pairs)")
+    parser.add_argument("--scale-test", type=str, default="",
+                        help="multi-scale TTA: comma-separated box scales (e.g. "
+                        "'0.9,1.0,1.1'); predictions decode per scale and average in "
+                        "frame space")
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(argv)
+
+    import PIL.Image
+
+    from probpose_pytorch_tpu_torch.viz import draw_keypoints, inferno_rgba
+
+    predictor = load_predictor(
+        args.checkpoint, args.config, ema=args.ema,
+        quantize="int8_wo" if args.int8_weight_only else "int8" if args.int8 else None,
+        flip_test=args.flip_test,
+        scale_test=tuple(float(s) for s in args.scale_test.split(",") if s.strip()),
+        device=args.device,
+    )
+    predictor.return_heatmaps = True  # one forward serves decode and PNGs
+    if args.input_size:
+        h, w = (int(v) for v in args.input_size.split(","))
+        predictor.input_size = (h, w)
+
+    image = PIL.Image.open(args.image).convert("RGB")
+    frame = np.asarray(image, np.uint8)[None]
+    # the whole image as the box, as the JAX CLI does
+    box = np.array([[0, 0, frame.shape[2], frame.shape[1]]], np.float32)
+    out = predictor(frame, box)
+
+    args.output.mkdir(parents=True, exist_ok=True)
+    hm = out.pop("heatmaps")[0].astype(np.float32)
+    for i in range(hm.shape[0]):
+        h = hm[i] / hm[i].max() if args.normalize and hm[i].max() > 0 else hm[i]
+        PIL.Image.fromarray(inferno_rgba(h)).save(args.output / f"heatmap_{i}.png")
+
+    rendered = draw_keypoints(image, out["keypoints"][0], out["probabilities"][0, 0],
+                              prob_threshold=args.prob_threshold)
+    rendered.save(args.output / "output_image.png")
+    (args.output / "predictions.json").write_text(
+        json.dumps({k: v.tolist() for k, v in out.items()}, indent=2))
+    print(f"wrote {args.output}/output_image.png, heatmap_*.png, predictions.json")
+
+
+if __name__ == "__main__":
+    main()

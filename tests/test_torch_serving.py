@@ -7,6 +7,7 @@ kernels redrawn so the heatmaps are peaked), same uint8 frames and boxes.
 """
 
 import inspect
+import json
 
 import jax
 import jax.numpy as jnp
@@ -340,3 +341,69 @@ def test_load_predictor_positional_call_binds_like_jax(saved_runs):
     pred = load_predictor(port_dir / "checkpoints", None, True, None, None, True, (0.9, 1.1),
                           device="cpu")
     assert pred.flip_test is True and pred.scale_test == (0.9, 1.1)
+
+
+def test_inferno_table_equals_matplotlib():
+    """The inference CLI's heatmap colours: matplotlib's inferno colormap
+    byte for byte, out-of-range and NaN values included."""
+    from matplotlib import colormaps
+
+    from probpose_pytorch_tpu_torch.viz import inferno_rgba
+
+    x = np.random.default_rng(16).uniform(-0.2, 1.2, (64, 48)).astype(np.float32)
+    x[0, :8] = [0.0, 1.0, np.nan, 255 / 256, np.nextafter(np.float32(1), 0), -1e-9, np.inf,
+                -np.inf]
+    np.testing.assert_array_equal(inferno_rgba(x), (colormaps["inferno"](x) * 255).astype(np.uint8))
+    np.testing.assert_array_equal(inferno_rgba(x.astype(np.float64)),
+                                  (colormaps["inferno"](x.astype(np.float64)) * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("flags", [[], ["--normalize", "--ema", "--flip-test"]])
+def test_inference_cli_matches_jax(saved_runs, tmp_path, flags):
+    """python -m ...inference --device cpu on the port's checkpoint against
+    the JAX CLI on the same state saved by JAX: predictions.json with JAX's
+    keys within the bars of test_load_predictor_matches_jax, heatmap PNGs
+    within 1 grey level, the rendered image."""
+    import PIL.Image
+
+    from probpose_pytorch_tpu.inference import main as jax_main
+    from probpose_pytorch_tpu_torch.inference import main
+
+    jax_dir, port_dir = saved_runs
+    image = np.random.default_rng(17).integers(0, 256, (80, 100, 3), dtype=np.uint8)
+    PIL.Image.fromarray(image).save(tmp_path / "img.png")
+    common = ["--image", str(tmp_path / "img.png"), "--prob-threshold", "0.0"] + flags
+    main(["--checkpoint", str(port_dir / "checkpoints"), "--output", str(tmp_path / "port"),
+          "--device", "cpu"] + common)
+    jax_main(["--checkpoint", str(jax_dir / "checkpoints"), "--output", str(tmp_path / "jax")]
+             + common)
+    got, ref = (json.loads((tmp_path / d / "predictions.json").read_text())
+                for d in ("port", "jax"))
+    assert sorted(got) == sorted(ref)
+    got, ref = ({k: np.asarray(v, np.float32) for k, v in r.items()} for r in (got, ref))
+    jax_pred = jax_load_predictor(jax_dir / "checkpoints", ema="--ema" in flags,
+                                  flip_test="--flip-test" in flags)
+    jax_pred.return_heatmaps = True
+    box = np.array([[0, 0, 100, 80]], np.float32)
+    ok = _well_defined(jax_pred.model, jax_pred.variables, image[None], box,
+                       flip_test="--flip-test" in flags)
+    ref["heatmaps"] = jax_pred(image[None], box)["heatmaps"]
+    got["heatmaps"] = ref["heatmaps"]  # compared below, as the PNGs
+    _same_answers(got, ref, ok)
+    for i in range(K):
+        a, b = (np.asarray(PIL.Image.open(tmp_path / d / f"heatmap_{i}.png"), np.int16)
+                for d in ("port", "jax"))
+        assert a.shape == b.shape == (16, 12, 4)
+        assert np.abs(a - b).max() <= 1
+    rendered = PIL.Image.open(tmp_path / "port" / "output_image.png")
+    assert rendered.size == (100, 80)
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--int8-weight-only"])
+def test_inference_cli_refuses_int8(saved_runs, tmp_path, flag):
+    from probpose_pytorch_tpu_torch.inference import main
+
+    _, port_dir = saved_runs
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        main(["--checkpoint", str(port_dir / "checkpoints"), "--image", "x.png",
+              "--output", str(tmp_path), "--device", "cpu", flag])
