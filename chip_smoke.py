@@ -169,6 +169,33 @@ with weights drawn from a seeded generator:
            requests (crops/s, p50/p99, mean batch), the server CLI's start
            and stop, the video CLI's frames/s and the phase's wall time
 
+  phase 13 the remaining shipped recipes and training options, on phase 11's
+           synthetic COCO-format set, bf16 unless said:
+           configs/simcc_coco_vits.json as shipped (B = 128, its
+           augmentation) through the training CLI, 3 steps then a resume
+           to 6, with 12 short attention forwards, 12 backwards and no K2 a
+           step; its f32 step through the kernels against the plain one;
+           the eval CLI on its checkpoint, plain and with --flip-test (no
+           K2); predict_frame on a 1080 x 1920 frame at 1, 64 and 256 boxes;
+           the f32 predictor with flip test, kernels against plain within
+           KPT_TOL_PX; the inference CLI's PNG dump (17 maps of Hb x Wb).
+           configs/reference_parity_fieldsynth.json as shipped (B = 32,
+           384 x 384, vit-s-timm, 20 keypoints) on a YOLO set this phase
+           writes, 3 steps then a resume to 6, with 12 tiled wgmma
+           forwards, 12 wgmma backwards and 1 K2 a step (N = 576, d = 32),
+           Trainer.validate on its valid split, its f32 step against
+           plain; K4 forward and backward at (32, 576, 1152) and K2 at
+           (640, 9216) against their plain versions; yolo2coco on the set,
+           whose COCOPoseDataset gives YOLOPoseDataset's samples bit for
+           bit. The flagship with AdamW, Lion, then Adafactor, on the
+           cosine schedule: 3 bf16 steps at B = 64 after an untimed first,
+           and for Lion and Adafactor one f32 step against plain; the training CLI with dataset_format "mixed" over the
+           COCO-format set and its coco2yolo copy (repeats 1 and 2), 2
+           steps. Then, not gated: step times, crops/s, the eval CLI's and
+           predict_frame's times, the optimizers' state bytes against
+           AdamW's, K4 and K2 times against the library at those shapes,
+           and the phase's wall time
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -184,7 +211,9 @@ Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
 the kernels (launches on the main paths and, as `eval_launches`, in phase
 10's three eval runs, as `finetune_launches`, in each of phase 11's runs,
-and as `frontend_launches`, summed over phase 12's runs, error against the
+as `frontend_launches`, summed over phase 12's runs, and as
+`phase13_launches`, in each of phase 13's runs; K4's entries carry its
+numbers at the fieldsynth step's shape and K2's at its rows), error against the
 plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
 peaks) and {"ok": true, "device": {...}}.
@@ -531,6 +560,8 @@ def peak_heatmap_branch(torch, model, seed: int = 1) -> None:
     """Freshly drawn head convs (std 0.001) give nearly flat heatmaps, whose
     argmax is ill-defined. Redraw the heatmap branch's convs at fan-in
     scale, from a seeded generator, so the maps are peaked."""
+    if not hasattr(model.head, "deconvs"):
+        return  # the SimCC head: lecun-normal projections, no heatmaps to peak
     hg = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in [*model.head.deconvs, model.head.final]:
@@ -1616,44 +1647,21 @@ class _Tee(io.StringIO):
 
 def recipe_cli_runs(torch, card: str) -> None:
     """Phase 9 (a): the training CLI on configs/flagship_coco_vits.json as
-    shipped, twice in this process: RECIPE_STEPS steps, then a resume for
-    RECIPE_STEPS more. Both runs must leave their checkpoint, and the
-    second must resume; the launch counters must show K1 forward and
-    backward in every block and K2 once a forward."""
-    from probpose_pytorch_tpu_torch.train import cli
+    shipped, twice in this process (`cli_runs`): RECIPE_STEPS steps, then a
+    resume for RECIPE_STEPS more; the launch counters must show K1 forward
+    and backward in every block and K2 once a forward."""
     from probpose_pytorch_tpu_torch.train.config import TrainConfig
 
     cfg_path = REPO / "configs/flagship_coco_vits.json"
     cfg = TrainConfig.load(cfg_path)
-    out = RUN_DIR / "recipe"
-    args = [str(out), "--config", str(cfg_path), "--dataset-format", "synthetic",
-            "--device", "cuda", "--max-steps", str(RECIPE_STEPS)]
-    say(f"phase 9: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)} (B = "
-        f"{cfg.train_batch_size}, {cfg.model.backbone}, {cfg.model.compute_dtype}, augment "
-        f"{dataclasses.asdict(cfg.augment)})")
+    say(f"phase 9: the flagship recipe (B = {cfg.train_batch_size}, {cfg.model.backbone}, "
+        f"{cfg.model.compute_dtype}, augment {dataclasses.asdict(cfg.augment)})")
+    runs = cli_runs(torch, card, "flagship recipe", cfg_path, RUN_DIR / "recipe",
+                    ("--dataset-format", "synthetic"), phase=9)
     val_batches = 320 // cfg.val_batch_size  # the CLI's synthetic validation set
-    for run, start in enumerate((0, RECIPE_STEPS)):
-        end = start + RECIPE_STEPS
-        reset_counts()
-        tee = _Tee(sys.stdout)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            cli.main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        lines = (out / "metrics.jsonl").read_text().splitlines()
-        losses = [json.loads(x)["training/loss"] for x in lines if "training/loss" in x]
-        say(f"phase 9 [{card}]: CLI run {run + 1}, steps {start} to {end}: {wall:.2f} s wall "
-            f"(the whole CLI run)")
-        say(f"phase 9: metrics.jsonl last line: {lines[-1]}")
-        check(all(np.isfinite(losses)), "a recipe loss is not finite")
-        check((out / "checkpoints" / str(end)).is_file(), f"no checkpoints/{end} after run {run + 1}")
-        check((f"[trainer] resumed from step {start}" in tee.getvalue()) == (run == 1),
-              f"run {run + 1} did not {'resume' if run else 'start afresh'}")
-        # Run 1 validates at step 0 (val_every = 500) over the synthetic
-        # validation set; run 2 does not validate.
-        forwards = RECIPE_STEPS + (val_batches if run == 0 else 0)
+    for i, (_, counts, _) in enumerate(runs):
+        # Run 1 validates at step 0 (val_every = 500); run 2 does not.
+        forwards = RECIPE_STEPS + (val_batches if i == 0 else 0)
         check_attention_route(counts, 12 * forwards, 12 * RECIPE_STEPS, phase=9)
         say(f"phase 9: K2 launches {counts['k2']} (expect {forwards})")
         check(counts["k2"] == forwards, "K2 did not run once per forward")
@@ -2050,23 +2058,32 @@ def recipe_step_ms(torch, trainer, K: int) -> float:
                    warmup=1)
 
 
-def eval_cli_run(torch, label: str, run: Path, ann: Path, images: Path, n_val: int) -> dict:
-    """The eval CLI on a run's checkpoint: the summary's keys finite, 12
-    short attention forwards and 1 K2 launch per forward."""
+def eval_cli_run(torch, label: str, run: Path, ann: Path, images: Path, n_val: int,
+                 flags: tuple[str, ...] = (), k2_per_forward: int = 1, phase: int = 11) -> dict:
+    """The eval CLI on a run's checkpoint (with `flags`): the summary's keys
+    finite, 12 short attention forwards and `k2_per_forward` K2 launches
+    per forward (two forwards a batch with --flip-test)."""
     from probpose_pytorch_tpu_torch.eval import run as eval_run
 
     args = ["--checkpoint", str(run / "checkpoints"), "--annotations", str(ann),
-            "--images", str(images), "--batch-size", str(EVAL_BATCH), "--device", "cuda"]
-    say(f"phase 11: python -m probpose_pytorch_tpu_torch.eval.run {' '.join(args)}")
+            "--images", str(images), "--batch-size", str(EVAL_BATCH), "--device", "cuda",
+            *flags]
+    say(f"phase {phase}: python -m probpose_pytorch_tpu_torch.eval.run {' '.join(args)}")
     reset_counts()
+    t0 = time.perf_counter()
     line = eval_run.main(args)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     counts = read_counts()
-    forwards = -(-n_val // EVAL_BATCH)
+    forwards = -(-n_val // EVAL_BATCH) * (2 if "--flip-test" in flags else 1)
     check(all(k in line and np.isfinite(line[k]) for k in EVAL_KEYS),
           f"{label}: the eval summary lacks a key or is not finite")
-    check_attention_route(counts, 12 * forwards, 0, phase=11)
-    check(counts["k2"] == forwards, f"{label}: K2 did not run once per forward")
+    check_attention_route(counts, 12 * forwards, 0, phase=phase)
+    check(counts["k2"] == k2_per_forward * forwards,
+          f"{label}: K2 did not run {k2_per_forward} times a forward")
+    if phase != 11:
+        say(f"phase {phase}: {label}: {wall:.2f} s wall, {n_val / wall:.1f} crops/s; AP "
+            f"{line['AP']} AR {line['AR']} EPE {line['EPE']}")
     return counts
 
 
@@ -2866,6 +2883,520 @@ def phase12_frontends(torch, dev, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ phase 13
+# The SimCC family, the fieldsynth recipe, Lion and Adafactor, mixed data.
+FS_TRAIN_FRAMES = 48
+FS_VAL_FRAMES = 24
+# Width and height halve into 10^6: the labels' 6 decimals hold whole pixels
+# and their halves, so the COCO conversion keeps every value (phase 13 (b)).
+FS_FRAME_WH = (500, 400)
+FS_K = 20
+FS_F32_BATCH = 4
+OPT_BATCH = 64
+OPT_STEPS = 3
+SIMCC_FRAME_BOXES = (1, 64, 256)
+MIXED_STEPS = 2
+
+
+def cli_runs(torch, card: str, label: str, config: Path, run: Path, extra: tuple[str, ...],
+             phase: int) -> list:
+    """The training CLI on a config with `extra` arguments, as a user runs
+    it: RECIPE_STEPS steps that leave checkpoints/3, then a resume to
+    checkpoints/6. Returns, per run, (its Trainer, the launch counts, the
+    wall time in s); the logged values must be finite."""
+    from probpose_pytorch_tpu_torch.train import cli
+
+    args = [str(run), "--config", str(config), "--max-steps", str(RECIPE_STEPS),
+            "--device", "cuda", *extra]
+    say(f"phase {phase}: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)}")
+    out = []
+    for i, start in enumerate((0, RECIPE_STEPS)):
+        end = start + RECIPE_STEPS
+        reset_counts()
+        torch.cuda.synchronize()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with fitted_trainers() as seen, contextlib.redirect_stdout(tee):
+            cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        check(bool(lines) and all(np.isfinite(v) for x in lines for v in x.values()),
+              f"{label}: a logged value is not finite")
+        check((run / "checkpoints" / str(end)).is_file(), f"{label}: no checkpoints/{end}")
+        check((f"[trainer] resumed from step {start}" in tee.getvalue()) == (i == 1),
+              f"{label}: run {i + 1} did not {'resume' if i else 'start afresh'}")
+        say(f"phase {phase} [{card}]: {label}: CLI run {i + 1}, steps {start} to {end}: "
+            f"{wall:.2f} s wall; last line {lines[-1]}")
+        out.append((seen[0][0], counts, wall))
+    return out
+
+
+def check_no_other_kernel(counts: dict, label: str) -> None:
+    check(counts["k3"] == counts["k5f"] == counts["k5b"] == counts["k6"] == 0,
+          f"{label}: ran K3, K5 or K6")
+
+
+def simcc_well_defined(heatmaps: np.ndarray) -> np.ndarray:
+    """SimCC keypoints whose two axis distributions (the marginals of the
+    predictor's (B, K, Hb, Wb) outer product) both have a top-2 gap above
+    MARGIN of their top value, a logit gap: only there is the argmax, and
+    so the keypoint, stable. (An absolute gap would pass few: after a few
+    steps each probability lies near 1 / the bin count.)"""
+    ok = None
+    for axis in (-2, -1):  # x, then y
+        p = np.sort(heatmaps.sum(axis), axis=-1)
+        sel = p[..., -1] - p[..., -2] > MARGIN * p[..., -1]
+        ok = sel if ok is None else ok & sel
+    return ok
+
+
+def phase13_simcc(torch, dev, card: str, root: Path, n_val: int) -> dict:
+    """Phase 13 (a): configs/simcc_coco_vits.json as shipped through the
+    training CLI, its f32 step, the eval CLI, predict_frame, the f32
+    predictor and the inference CLI on its checkpoint."""
+    import PIL.Image
+
+    from probpose_pytorch_tpu_torch import inference
+    from probpose_pytorch_tpu_torch.data import COCOPoseDataset, SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    config = REPO / "configs/simcc_coco_vits.json"
+    cfg = TrainConfig.load(config)
+    check(cfg.model.head_type == "simcc", "the SimCC recipe has another head")
+    K, B = cfg.model.num_keypoints, cfg.train_batch_size
+    run = RUN_DIR / "phase13" / "simcc"
+    launches = {}
+    runs = cli_runs(torch, card, "SimCC recipe", config, run, ("--data-root", str(root)),
+                    phase=13)
+    for i, (_, counts, _) in enumerate(runs):
+        forwards = RECIPE_STEPS + (n_val // cfg.val_batch_size if i == 0 else 0)
+        check_attention_route(counts, 12 * forwards, 12 * RECIPE_STEPS, phase=13)
+        say(f"phase 13: SimCC recipe run {i + 1}: K2 launches {counts['k2']} (expect 0)")
+        check(counts["k2"] == 0, "the SimCC head ran K2")
+        check_no_other_kernel(counts, "SimCC recipe")
+        launches[f"simcc_cli_{i + 1}"] = counts
+    trainer = runs[1][0]
+    step_ms = recipe_step_ms(torch, trainer, K)
+    say(f"phase 13 [{card}]: SimCC recipe bf16 step, B = {B} crops on the card with its "
+        f"augmentation: {step_ms:.3f} ms = {B / step_ms * 1e3:.1f} crops/s (CUDA events, mean "
+        f"of {FT_TIMED_STEPS})")
+    del trainer, runs
+    gc.collect()
+
+    cfg32 = dataclasses.replace(
+        cfg, augment=None, train_batch_size=F32_TRAIN_BATCH, log_every=1, resume=False,
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"), **fit_outputs("simcc32"))
+    ds = SyntheticPoseDataset(F32_TRAIN_BATCH, cfg.model.img_size, K, seed=0)
+    compare_f32_step(torch, dev, next(iter(batch_iterator(ds, F32_TRAIN_BATCH, num_workers=8))),
+                     cfg.optim.peak_lr, cfg32, phase=13)
+
+    ann, images = root / "annotations" / "person_keypoints_val2017.json", root / "val2017"
+    for flags in ((), ("--flip-test",)):
+        launches["simcc_eval" + "_flip" * bool(flags)] = eval_cli_run(
+            torch, "SimCC eval CLI" + " with flip test" * bool(flags), run, ann, images, n_val,
+            flags=flags, k2_per_forward=0, phase=13)
+
+    pred = load_predictor(run / "checkpoints", device=dev)
+    rng = np.random.default_rng(131)
+    frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    buckets = frontend_buckets()
+    total: dict = {}
+    for n in SIMCC_FRAME_BOXES:
+        boxes = camera_boxes(rng, n)
+        out, counts = counted(torch, total, lambda: pred.predict_frame(frame, boxes))
+        check_fields(out, n, K, f"SimCC predict_frame, {n} boxes")
+        check_attention_route(counts, 12, 0, phase=13)
+        check(counts["k2"] == 0, "SimCC predict_frame ran K2")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict_frame(frame, boxes)
+            times.append((time.perf_counter() - t0) * 1e3)
+        say(f"phase 13 [{card}]: SimCC predict_frame, {n} boxes on a {FRAME_HW[0]} x "
+            f"{FRAME_HW[1]} frame (bucket {next(b for b in buckets if b >= n)}): "
+            f"{float(np.median(times)):.3f} ms a call (median of 3, host clock)")
+    launches["simcc_predict_frame"] = total
+
+    cfg_m = TrainConfig.load(run / "config.json").model
+    model32 = build_model(dataclasses.replace(cfg_m, compute_dtype="float32"), dev)
+    model32.load_state_dict(pred.model.state_dict())
+    pred32 = TopDownPredictor(model32, pred.codec, pred.input_size, return_heatmaps=True,
+                              flip_test=True)
+    val = COCOPoseDataset(ann, images, cfg_m.img_size)
+    crops = val.get_batch(range(EVAL_F32_CROPS))["image"]
+    H, W = cfg_m.img_size
+    ident = np.tile(np.array([0, 0, W, H], np.float32), (len(crops), 1))
+    kern = pred32(crops, ident)
+    with plain_versions():
+        plain = pred32(crops, ident)
+    sel = simcc_well_defined(plain["heatmaps"])
+    kerr = float(np.abs(kern["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
+    perr = float(np.abs(kern["probabilities"] - plain["probabilities"]).max())
+    say(f"phase 13: SimCC f32 predictor with flip test, kernels vs plain, {len(crops)} val "
+        f"crops: keypoints {kerr:.3e} px over {int(sel.sum())}/{sel.size} well-defined "
+        f"keypoints (tolerance {KPT_TOL_PX:g}), probabilities {perr:.3e} ({PROB_TOL:g})")
+    check(sel.mean() > 0.5, "too few SimCC keypoints with a well-defined argmax")
+    check(kerr <= KPT_TOL_PX and perr <= PROB_TOL, "the SimCC f32 predictor differs")
+    del model32, pred32
+
+    work = RUN_DIR / "phase13" / "infer"
+    work.mkdir(parents=True, exist_ok=True)
+    image = np.random.default_rng(132).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    PIL.Image.fromarray(image).save(work / "image.png")
+    args = ["--checkpoint", str(run / "checkpoints"), "--image", str(work / "image.png"),
+            "--output", str(work / "out"), "--device", "cuda"]
+    say(f"phase 13: python -m probpose_pytorch_tpu_torch.inference {' '.join(args)}")
+    _, counts = counted(torch, {}, lambda: inference.main(args))
+    check_attention_route(counts, 12, 0, phase=13)
+    check(counts["k2"] == 0, "the SimCC inference CLI ran K2")
+    launches["simcc_inference_cli"] = counts
+    pngs = sorted((work / "out").glob("heatmap_*.png"))
+    Wb, Hb = pred.codec.label.bins
+    check(len(pngs) == K and (work / "out" / "output_image.png").is_file(),
+          f"the SimCC inference CLI wrote {len(pngs)} heatmaps")
+    check(np.asarray(PIL.Image.open(pngs[0])).shape == (Hb, Wb, 4), "SimCC heatmap PNG shape")
+    preds = json.loads((work / "out" / "predictions.json").read_text())
+    ref = pred(image[None], np.array([[0, 0, 640, 480]], np.float32))
+    err = float(np.abs(np.asarray(preds["keypoints"], np.float32) - ref["keypoints"]).max())
+    say(f"phase 13: SimCC inference CLI: {len(pngs)} heatmap PNGs of {Hb} x {Wb} (the outer "
+        f"product of the two axes' distributions), keypoints vs the in-process predictor "
+        f"{err:.3e} px (tolerance {KPT_TOL_PX:g})")
+    check(err <= KPT_TOL_PX, f"the SimCC inference CLI's keypoints differ by {err} px")
+    return launches
+
+
+def write_fieldsynth_yolo(root: Path, split: str, n_frames: int, seed: int) -> None:
+    """A YOLO-pose split of FS_K-keypoint people on noise frames of
+    FS_FRAME_WH: one or two square boxes of even side a frame, keypoints
+    on whole pixels inside them (drawn as dots), flags 0 or 2."""
+    import PIL.Image
+
+    rng = np.random.default_rng(seed)
+    W, H = FS_FRAME_WH
+    (root / split / "images").mkdir(parents=True, exist_ok=True)
+    (root / split / "labels").mkdir(parents=True, exist_ok=True)
+    for i in range(n_frames):
+        img = rng.integers(0, 60, (H, W, 3), dtype=np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(1, 3))):
+            side = 2 * int(rng.integers(60, 150))
+            x0, y0 = int(rng.integers(0, W - side)), int(rng.integers(0, H - side))
+            xs = rng.integers(x0, x0 + side, FS_K)
+            ys = rng.integers(y0, y0 + side, FS_K)
+            v = np.where(rng.random(FS_K) < 0.85, 2, 0)
+            for x, y, f in zip(xs, ys, v):
+                if f:
+                    img[max(y - 3, 0):y + 4, max(x - 3, 0):x + 4] = rng.integers(100, 256, 3)
+            row = ["0"] + [f"{c:.6f}" for c in ((x0 + side / 2) / W, (y0 + side / 2) / H,
+                                               side / W, side / H)]
+            for x, y, f in zip(xs, ys, v):
+                row += [f"{x / W:.6f}", f"{y / H:.6f}", str(int(f))]
+            rows.append(" ".join(row))
+        PIL.Image.fromarray(img).save(root / split / "images" / f"{i:04d}.png")
+        (root / split / "labels" / f"{i:04d}.txt").write_text("\n".join(rows) + "\n")
+
+
+def check_fieldsynth_launches(counts: dict, forwards: int, backwards: int, label: str) -> None:
+    """vit-s-timm at 384 x 384 in bf16 (N = 576, d = 32): 12 tiled wgmma
+    forwards a forward, 12 wgmma backwards from the saved (out, lse) a
+    step, no short forward or CUDA-core kernel, 1 K2 a forward."""
+    say(f"phase 13: {label}: K4 forward {counts['k4f']} (expect {12 * forwards}), backward "
+        f"{counts['k4b']} (expect {12 * backwards}) with {counts['k4b_recomputes']} forwards "
+        f"of its own (expect 0), K2 {counts['k2']} (expect {forwards}); short forward "
+        f"{counts['k1s']}, K1 CUDA cores {counts['k1f']} / {counts['k1b']} (expect 0 each)")
+    check(counts["k4f"] == 12 * forwards and counts["k4b"] == 12 * backwards,
+          f"{label}: K4 did not run once per block")
+    check(counts["k4b_recomputes"] == 0, f"{label}: the backward ran a forward of its own")
+    check(counts["k1s"] == counts["k1f"] == counts["k1b"] == 0, f"{label}: ran K1")
+    check(counts["k2"] == forwards, f"{label}: K2 did not run once per forward")
+    check_no_other_kernel(counts, label)
+
+
+def phase13_fieldsynth_kernels(torch, dev, card: str, g) -> dict:
+    """Phase 13 (b): K4 forward and backward at the fieldsynth step's
+    (32, 576, 1152), d = 32, and K2 at its (640, 9216) rows, against their
+    plain versions, then timed against the library as phase 8 does."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import kernel_path
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        tiled_attention,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_online_bwd_reference,
+        tiled_attention_online_reference,
+        tiled_attention_reference,
+        tiled_forward,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import (
+        sparsemax_reference,
+        sparsemax_rows,
+    )
+
+    B, N, heads, d = 32, 576, 12, 32
+    C = heads * d
+    bf16 = torch.bfloat16
+    routes = (kernel_path(N, d, bf16), kernel_path(N, d, bf16, backward=True))
+    say(f"phase 13: attention_route at N = {N}, d = {d}, bf16: forward {routes[0]!r}, "
+        f"backward {routes[1]!r}")
+    check(routes == ("sm90 tiled", "sm90 tiled"), f"fieldsynth attention routes {routes}")
+    qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(bf16)
+    dout = torch.randn(B, N, C, generator=g, device=dev).to(bf16)
+    label = f"K4 forward qkv ({B}, {N}, {3 * C}) bf16, d = {d}"
+    out, lse = tiled_forward(qkv, heads, with_lse=True)
+    fwd_err = gate(torch, label, tiled_attention(qkv, heads),
+                   tiled_attention_reference(qkv, heads), phase=13)
+    ref, _ = tiled_attention_online_reference(qkv, heads)
+    rel_gate(torch, f"{label} against the kernel-order plain version", out, ref, 1, phase=13)
+    label = f"K4 backward qkv ({B}, {N}, {3 * C}) bf16, d = {d}"
+    got = tiled_attention_backward(qkv, dout, heads, out, lse)
+    bwd_err = gate(torch, label, got, tiled_attention_bwd_reference(qkv, dout, heads),
+                   phase=13)
+    check(torch.equal(got, tiled_attention_backward(qkv, dout, heads, out, lse)),
+          "K4 backward at N = 576 differs between runs")
+    rel_gate(torch, f"{label} against the kernel-order plain version", got,
+             tiled_attention_online_bwd_reference(qkv, dout, heads), 3, phase=13)
+    fwd_ms, fwd_plain = paired_ms(torch, lambda: tiled_attention(qkv, heads),
+                                  lambda: tiled_attention_reference(qkv, heads), iters=5)
+    _, fwd_lib = yardstick_ms(torch, lambda: tiled_attention(qkv, heads),
+                              sdpa_fwd_fn(torch, qkv, heads))
+    bwd_ms, bwd_plain = paired_ms(
+        torch, lambda: tiled_attention_backward(qkv, dout, heads, out, lse),
+        lambda: tiled_attention_bwd_reference(qkv, dout, heads), iters=5)
+    _, bwd_lib = yardstick_ms(torch, lambda: tiled_attention_backward(qkv, dout, heads, out, lse),
+                              sdpa_bwd_fn(torch, qkv, dout, heads))
+    fwd_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * C)
+    bwd_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * C)
+    say(f"phase 13 [{card}]: K4 at qkv ({B}, {N}, {3 * C}) bf16, d = {d}: forward {fwd_ms:.4f} "
+        f"ms (plain {fwd_plain:.4f}, scaled_dot_product_attention {fwd_lib:.4f}, bound "
+        f"{fwd_bound[0]:.4f} {fwd_bound[1]}); backward from the saved out and lse {bwd_ms:.4f} "
+        f"ms (plain {bwd_plain:.4f}, scaled_dot_product_attention backward {bwd_lib:.4f}, "
+        f"bound {bwd_bound[0]:.4f} {bwd_bound[1]})")
+    del qkv, dout, out, lse, got, ref
+    z = k2_rows(torch, g, B * FS_K, 96 * 96, "random")
+    k2_err = k2_check(torch, z, "random, the fieldsynth step's rows", phase=13)
+    k2_ms, k2_plain = paired_ms(torch, lambda: sparsemax_rows(z),
+                                lambda: sparsemax_reference(z), iters=10)
+    k2_bound = bound_ms(2 * nbytes(z), 96 * z.numel(), "float32")
+    say(f"phase 13 [{card}]: K2 ({B * FS_K}, {96 * 96}) f32: kernel {k2_ms:.4f} ms, plain "
+        f"{k2_plain:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    shape = lambda err, ms, plain, bound, lib, dims: dict(
+        shape=dims, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=lib)
+    return dict(k4f=shape(fwd_err, fwd_ms, fwd_plain, fwd_bound, fwd_lib, [B, N, 3 * C]),
+                k4b=shape(bwd_err, bwd_ms, bwd_plain, bwd_bound, bwd_lib, [B, N, 3 * C]),
+                k2=shape(k2_err, k2_ms, k2_plain, k2_bound, None, [B * FS_K, 96 * 96]))
+
+
+def phase13_fieldsynth(torch, dev, card: str, g) -> tuple[dict, dict]:
+    """Phase 13 (b): configs/reference_parity_fieldsynth.json as shipped on
+    a 20-keypoint YOLO set through the training CLI, Trainer.validate on
+    its `valid` split, its f32 step, its kernels at their shapes, and the
+    set's COCO conversion loaded back."""
+    from probpose_pytorch_tpu_torch.data import (
+        COCOPoseDataset,
+        SyntheticPoseDataset,
+        YOLOPoseDataset,
+        batch_iterator,
+    )
+    from probpose_pytorch_tpu_torch.data.convert_format import main as convert_main
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    config = REPO / "configs/reference_parity_fieldsynth.json"
+    cfg = TrainConfig.load(config)
+    check(cfg.augment is None and cfg.optim.ema_decay is None
+          and cfg.optim.max_nonfinite_skips == 0 and cfg.model.num_keypoints == FS_K,
+          "the fieldsynth recipe's values changed")
+    root = RUN_DIR / "phase13" / "field"
+    t0 = time.perf_counter()
+    write_fieldsynth_yolo(root, "train", FS_TRAIN_FRAMES, seed=13)
+    write_fieldsynth_yolo(root, "valid", FS_VAL_FRAMES, seed=14)
+    H, W = cfg.model.img_size
+    val_ds = YOLOPoseDataset(root, "valid", (H, W))
+    n_train = len(YOLOPoseDataset(root, "train", (H, W)))
+    say(f"phase 13: YOLO set of {FS_K}-keypoint people, {n_train} train and {len(val_ds)} valid "
+        f"instances on {FS_FRAME_WH[0]} x {FS_FRAME_WH[1]} frames, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(n_train >= cfg.train_batch_size, "too few fieldsynth training instances")
+    launches = {}
+    runs = cli_runs(torch, card, "fieldsynth recipe", config, RUN_DIR / "phase13" / "fieldrun",
+                    ("--data-root", str(root)), phase=13)
+    val_forwards = len(val_ds) // cfg.val_batch_size
+    for i, (_, counts, _) in enumerate(runs):
+        check_fieldsynth_launches(counts, RECIPE_STEPS + (val_forwards if i == 0 else 0),
+                                  RECIPE_STEPS, f"fieldsynth CLI run {i + 1}")
+        launches[f"fieldsynth_cli_{i + 1}"] = counts
+    trainer = runs[1][0]
+    reset_counts()
+    t0 = time.perf_counter()
+    val = trainer.validate(lambda: batch_iterator(val_ds, cfg.val_batch_size, num_workers=8),
+                           trainer.state.host_step)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(val is not None and all(np.isfinite(v) for v in val.values()) and "acc/kpt" in val,
+          "fieldsynth validation is missing or not finite")
+    check_fieldsynth_launches(counts, val_forwards, 0, "fieldsynth Trainer.validate")
+    launches["fieldsynth_validate"] = counts
+    say(f"phase 13 [{card}]: fieldsynth Trainer.validate on the valid split, {val_forwards} "
+        f"batches of {cfg.val_batch_size}: {time.perf_counter() - t0:.2f} s; loss "
+        f"{val['loss']:.6g}, acc/kpt {val['acc/kpt']:.4f}")
+    step_ms = recipe_step_ms(torch, trainer, FS_K)
+    B = cfg.train_batch_size
+    say(f"phase 13 [{card}]: fieldsynth recipe bf16 step, B = {B} crops of {H} x {W} on the "
+        f"card: {step_ms:.3f} ms = {B / step_ms * 1e3:.1f} crops/s (CUDA events, mean of "
+        f"{FT_TIMED_STEPS})")
+    del trainer, runs
+    gc.collect()
+
+    cfg32 = dataclasses.replace(
+        cfg, train_batch_size=FS_F32_BATCH, log_every=1, resume=False,
+        model=dataclasses.replace(cfg.model, compute_dtype="float32"), **fit_outputs("field32"))
+    ds = SyntheticPoseDataset(FS_F32_BATCH, (H, W), FS_K, seed=0)
+    # f32 at N = 576 runs K1's or K4's CUDA cores, whose sums run in another
+    # order than the plain path's: the scalar branches' max-pools route, as
+    # in phases 7 and 8.
+    compare_f32_step(torch, dev, next(iter(batch_iterator(ds, FS_F32_BATCH, num_workers=8))),
+                     cfg.optim.peak_lr, cfg32, phase=13, routed=("head.branches.",),
+                     floor=2**-23)
+    gc.collect()
+    shapes = phase13_fieldsynth_kernels(torch, dev, card, g)
+
+    ann = root / "valid_coco.json"
+    args = ["yolo2coco", "--root", str(root), "--split", "valid", "--out", str(ann)]
+    say(f"phase 13: python -m probpose_pytorch_tpu_torch.data.convert_format {' '.join(args)}")
+    convert_main(args)
+    coco = COCOPoseDataset(ann, root / "valid" / "images", (H, W), bbox_scale=1.0,
+                           resample="lanczos")
+    check(len(coco) == len(val_ds), f"{len(coco)} converted instances, {len(val_ds)} YOLO ones")
+    for i in range(len(val_ds)):
+        a, b = coco[i], val_ds[i]
+        check(all(np.array_equal(a[k], b[k]) for k in b),
+              f"converted sample {i} differs from the YOLO loader's")
+    say(f"phase 13: COCOPoseDataset on the yolo2coco output (the YOLO loader's crop: the box as "
+        f"it is, Lanczos) gives YOLOPoseDataset's {len(val_ds)} samples bit for bit")
+    return launches, shapes
+
+
+def state_bytes(tree) -> int:
+    """Bytes of every tensor in an optimizer state (dataclasses, lists)."""
+    if dataclasses.is_dataclass(tree):
+        return sum(state_bytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    if isinstance(tree, (list, tuple)):
+        return sum(state_bytes(t) for t in tree)
+    return nbytes(tree)
+
+
+def phase13_optimizers(torch, dev, card: str, root: Path, n_val: int) -> dict:
+    """Phase 13 (c): the flagship with AdamW, Lion, then Adafactor on the
+    cosine schedule (OPT_STEPS bf16 steps at OPT_BATCH after an untimed
+    first, timed in turn; for Lion and Adafactor one f32 step, kernels
+    against plain), and the training CLI on a mixed set."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.data.convert_format import coco_to_yolo
+    from probpose_pytorch_tpu_torch.train import cli
+    from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    adam = CheckpointManager(RUN_DIR / "recipe" / "checkpoints").read(mmap=True)["opt_state"]
+    adam_bytes = nbytes(*adam["mu"], *adam["nu"])
+    launches = {}
+    for family in ("adamw", "lion", "adafactor"):
+        pick = lambda cfg: dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, optimizer=family, schedule="cosine"))
+        cfg = pick(train_config("bfloat16", OPT_BATCH))
+        trainer = make_trainer(torch, cfg, dev)
+        ds = SyntheticPoseDataset(OPT_BATCH, cfg.model.img_size, cfg.model.num_keypoints, seed=5)
+        db = trainer.device_batch(next(iter(batch_iterator(ds, OPT_BATCH, num_workers=8))))
+        losses = [trainer.train_step(trainer.state, db)[1]["loss"]]  # the first step, untimed
+        reset_counts()
+        ms = cuda_ms(torch, lambda: losses.append(trainer.train_step(trainer.state, db)[1]["loss"]),
+                     iters=OPT_STEPS, warmup=0)
+        counts = read_counts()
+        check_attention_route(counts, 12 * OPT_STEPS, 12 * OPT_STEPS, phase=13)
+        check(counts["k2"] == OPT_STEPS, f"{family}: K2 did not run once per step")
+        launches[f"{family}_steps"] = counts
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{family}: a loss is not finite")
+        opt_bytes = state_bytes(trainer.state.opt_state)
+        say(f"phase 13 [{card}]: flagship with {family} and the cosine schedule, B = "
+            f"{OPT_BATCH}, bf16: {ms:.3f} ms a step (CUDA events, mean of steps 2 to "
+            f"{OPT_STEPS + 1}); losses {', '.join(f'{x:.6g}' for x in losses)}; optimizer state "
+            f"{opt_bytes / 2**20:.2f} MiB (AdamW's in phase 9's checkpoint: "
+            f"{adam_bytes / 2**20:.2f} MiB)")
+        del trainer, db
+        gc.collect()
+        if family == "adamw":
+            continue  # its f32 step is phase 5's
+        cfg32 = pick(train_config("float32", F32_TRAIN_BATCH))
+        cfg32 = dataclasses.replace(cfg32, **fit_outputs(f"{family}32"))
+        ds = SyntheticPoseDataset(F32_TRAIN_BATCH, cfg32.model.img_size,
+                                  cfg32.model.num_keypoints, seed=0)
+        compare_f32_step(torch, dev, next(iter(batch_iterator(ds, F32_TRAIN_BATCH,
+                                                              num_workers=8))),
+                         cfg32.optim.peak_lr, cfg32, phase=13)
+        gc.collect()
+
+    yolo = RUN_DIR / "phase13" / "yolo_copy"
+    for split, src in (("train", "train2017"), ("valid", "val2017")):
+        coco_to_yolo(root / "annotations" / f"person_keypoints_{src}.json", root / src, yolo,
+                     split)
+    cfg = TrainConfig.load(REPO / "configs/flagship_coco_vits.json")
+    cfg = dataclasses.replace(cfg, dataset_format="mixed", mixed_datasets=(
+        {"root": str(root), "format": "coco", "repeat": 1},
+        {"root": str(yolo), "format": "yolo", "repeat": 2}))
+    config = RUN_DIR / "phase13" / "mixed.json"
+    cfg.save(config)
+    run = RUN_DIR / "phase13" / "mixed"
+    args = [str(run), "--config", str(config), "--max-steps", str(MIXED_STEPS), "--device",
+            "cuda"]
+    say(f"phase 13: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)} "
+        f"(dataset_format mixed: {cfg.mixed_datasets})")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = MIXED_STEPS + n_val // cfg.val_batch_size
+    check_attention_route(counts, 12 * forwards, 12 * MIXED_STEPS, phase=13)
+    check(counts["k2"] == forwards, "mixed: K2 did not run once per forward")
+    launches["mixed_cli"] = counts
+    train, _ = cli.build_datasets(TrainConfig.load(run / "config.json"))
+    sizes = [len(ds) for ds in train.datasets]
+    check(len(train) == sizes[0] + 2 * sizes[1], "the mixed set is not weighted 1 : 2")
+    lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    check(all(np.isfinite(v) for x in lines for v in x.values()), "mixed: a value not finite")
+    check((run / "checkpoints" / str(MIXED_STEPS)).is_file(), "mixed: no checkpoint")
+    say(f"phase 13 [{card}]: mixed CLI, {MIXED_STEPS} steps over {sizes[0]} COCO and "
+        f"{sizes[1]} YOLO instances (repeats 1 and 2, {len(train)} an epoch): {wall:.2f} s wall")
+    return launches
+
+
+def phase13(torch, dev, card: str, g) -> tuple[dict, dict]:
+    """Phase 13: the SimCC recipe, the fieldsynth recipe, Lion and Adafactor
+    and mixed data, on phase 11's synthetic COCO-format set; returns each
+    run's launch counts and the fieldsynth kernels' numbers at its shapes."""
+    from probpose_pytorch_tpu_torch.data import COCOPoseDataset
+
+    t_phase = time.perf_counter()
+    root = RUN_DIR / "finetune" / "coco"
+    n_val = len(COCOPoseDataset(root / "annotations" / "person_keypoints_val2017.json",
+                                root / "val2017", (256, 192)))
+    launches = phase13_simcc(torch, dev, card, root, n_val)
+    gc.collect()
+    torch.cuda.empty_cache()
+    field, shapes = phase13_fieldsynth(torch, dev, card, g)
+    launches.update(field)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase13_optimizers(torch, dev, card, root, n_val))
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches, shapes
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -2939,7 +3470,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 12, then the kernels line and the result line."""
+    """Phases 0 to 13, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -3167,6 +3698,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     frontend = phase12_frontends(torch, dev, card)
 
+    # --------------------------------------------------------------- phase 13
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipes13, fieldsynth = phase13(torch, dev, card, g)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -3188,7 +3724,7 @@ def run(torch) -> None:
                      "sparsemax_kernel.py:29", train["k2"], k2_err_main, k2_ms, k2_plain_ms,
                      k2_bound, design="candidate filter; warp a row, block a row staged by "
                      "cp.async.bulk", redesigned_in="PR 8", other_rows=k2_adversarial,
-                     long_rows=k2_long),
+                     long_rows=k2_long, fieldsynth_rows=fieldsynth["k2"]),
         # No serving or training path calls K3, as in the JAX package: its
         # launches on the main paths are 0; its numbers are from the 768 x
         # 768 path's served heatmaps (and phase 3's, under "maps_64x48").
@@ -3206,12 +3742,13 @@ def run(torch) -> None:
                      train_768["k4f"], k4["k4f_err"], k4["k4f_ms"], k4["k4f_plain_ms"],
                      k4["k4f_bound"], k4["k4f_lib_ms"], design="wgmma+TMA",
                      redesigned_in="PR 5", online_err=k4["k4f_online_err"],
-                     online_rel_err=k4["k4f_online_rel"]),
+                     online_rel_err=k4["k4f_online_rel"], fieldsynth=fieldsynth["k4f"]),
         kernel_entry("K4 tiled_attention backward", "cuda", tiled_cu, "attention_tiled.py:147",
                      train_768["k4b"], k4["k4b_err"], k4["k4b_ms"], k4["k4b_plain_ms"],
                      k4["k4b_bound"], k4["k4b_lib_ms"], design="wgmma+TMA",
                      redesigned_in="PR 5", recompute_ms=k4["k4b_recompute_ms"],
-                     online_err=k4["k4b_online_err"], online_rel_err=k4["k4b_online_rel"]),
+                     online_err=k4["k4b_online_err"], online_rel_err=k4["k4b_online_rel"],
+                     fieldsynth=fieldsynth["k4b"]),
         # K5's bf16 path runs csrc/fused_mlp_sm90.cu (f32: csrc/fused_mlp.cu);
         # the library call is the same half-block on cuBLAS (dense_half_block).
         # The forward's numbers are at serving's 49,152 rows; `step_rows`
@@ -3243,6 +3780,8 @@ def run(torch) -> None:
         entry["finetune_launches"] = {run: c[eval_counter[entry["name"]]]
                                       for run, c in finetune.items()}
         entry["frontend_launches"] = frontend.get(eval_counter[entry["name"]], 0)
+        entry["phase13_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in recipes13.items()}
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

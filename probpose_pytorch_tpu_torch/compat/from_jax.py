@@ -11,13 +11,16 @@ compat/torch_export.py:
   * Conv kernel (kh, kw, I, O)          -> Conv2d weight (O, I, kh, kw)
   * ConvTranspose kernel (kh, kw, I, O) -> ConvTranspose2d weight
                                            (I, O, kh, kw), spatially flipped
-  * Dense kernel (I, O)                 -> Linear weight (O, I)
+  * Dense kernel (I, O)                 -> Linear weight (O, I) (the
+                                           SimCC head's mlp_x, mlp_y too)
   * BN scale / bias + mean / var        -> BatchNorm2d weight / bias /
                                            running_mean / running_var
   * LoRA `<layer>_lora/{a, b}`          -> `<layer>_lora.{a, b}`, as they are
 A masked optax state (`multi_transform` with frozen labels) holds moments
 for the trainable leaves only, `MaskedNode` in the frozen ones' places; it
-carries into the port's masked AdamW state, which holds the same.
+carries into the port's masked optimizer state, which holds the same.
+Adafactor's factored `v_row` and `v_col` lose one axis of their leaf's JAX
+layout; they are carried onto the port's layout of the axes left.
 """
 
 from __future__ import annotations
@@ -27,7 +30,16 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
-from probpose_pytorch_tpu_torch.train.state import MultiStepsState, TrainState
+from probpose_pytorch_tpu_torch.train.state import (
+    JAX_AXES,
+    AdafactorState,
+    LionState,
+    MultiStepsState,
+    OptState,
+    TrainState,
+    factored_dims,
+    param_layouts,
+)
 
 __all__ = ["state_dict_from_jax", "load_jax_variables", "load_jax_train_state"]
 
@@ -108,6 +120,9 @@ def _head(sd: dict, p: Tree, s: Tree) -> None:
         _bn(sd, f"{q}conv_bns.{i}", p[f"conv_bn{i}"], s[f"conv_bn{i}"])
     if "final" in p:
         _conv(sd, q + "final", p["final"])
+    for name in ("mlp_x", "mlp_y"):  # the SimCC head's projections
+        if name in p:
+            _dense(sd, q + name, p[name])
     for name in ("probability", "visibility", "oks", "error"):
         bp, bs, b = p[name], s[name], f"{q}branches.{name}."
         for i in range(_count(bp, "conv")):
@@ -180,11 +195,72 @@ def _one(states: list, what: str):
     return states[0]
 
 
+def _leaves_in_order(tree: Any) -> list:
+    """The leaves of a nested dict, keys sorted at every level (the order of
+    any tree of the params' structure)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in _leaves_in_order(tree[k])]
+    return [tree]
+
+
+def _port_leaf_index(params: Tree, batch_stats: Tree, names: list[str]) -> list[int]:
+    """For each port parameter name, the index of its JAX leaf in
+    `_leaves_in_order(params)`: every leaf is filled with its index and
+    sent through the layout conversions."""
+    counter = iter(range(1 << 30))
+
+    def fill(node):
+        if isinstance(node, Mapping):
+            return {k: fill(node[k]) for k in sorted(node)}
+        return np.full(np.shape(node), next(counter), np.float64)
+
+    sd = state_dict_from_jax(fill(params), batch_stats)
+    return [int(sd[n].flat[0]) for n in names]
+
+
+def _onto_port_axes(a: np.ndarray, kind: str, ndim: int, drop: int | None) -> np.ndarray:
+    """A moment in the JAX layout of a `kind` leaf of `ndim` axes, with the
+    port axis `drop` reduced away (None: none), in the port's layout: the
+    axes left in the port's order, a ConvTranspose's spatial axes flipped."""
+    axes = JAX_AXES.get(kind, tuple(range(ndim)))
+    keep = [p for p in range(ndim) if p != drop]
+    jax_kept = sorted(axes[p] for p in keep)
+    out = np.transpose(np.asarray(a), [jax_kept.index(axes[p]) for p in keep])
+    if kind == "deconv":
+        out = np.flip(out, [i for i, p in enumerate(keep) if p in (2, 3)])
+    return np.array(out, order="C")
+
+
+def _factored_moments(state: TrainState, fac: Any, params: Tree, batch_stats: Tree,
+                      trainable: list[str]) -> dict[str, list[torch.Tensor]]:
+    """optax's FactoredState trees (v_row, v_col, v) on the port's
+    trainable leaves, each onto its port layout."""
+    device = state.params[0].device
+    kinds = dict(zip(state.names, param_layouts(state.model)))
+    shapes = {n: tuple(p.shape) for n, p in zip(state.names, state.params)}
+    index = dict(zip(trainable, _port_leaf_index(params, batch_stats, trainable)))
+    trees = {f: _leaves_in_order(getattr(fac, f)) for f in ("v_row", "v_col", "v")}
+    out: dict[str, list[torch.Tensor]] = {f: [] for f in trees}
+    for n in trainable:
+        kind, shape = kinds[n], shapes[n]
+        dims = factored_dims(shape, kind)
+        drops = {"v_row": None, "v_col": None, "v": None}
+        if dims is not None:
+            drops["v_row"], drops["v_col"] = dims[1], dims[0]
+        for f, leaves in trees.items():
+            a = np.asarray(leaves[index[n]])
+            placeholder = (dims is None) == (f != "v")
+            moved = a if placeholder else _onto_port_axes(a, kind, len(shape), drops[f])
+            out[f].append(torch.from_numpy(np.array(moved, np.float32)).to(device))
+    return out
+
+
 def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     """Carry a JAX `TrainState` with numpy leaves (`jax.device_get(state)`)
     into the port's `state` in place: step, params and batch_stats, the EMA
-    params, and the optax state of train/state.py's chain (Adam mu, nu and
-    count, the schedule's count, apply_if_finite's counters and, with
+    params, and the optax state of train/state.py's chain (Adam's mu, nu
+    and count, Lion's mu and count, or Adafactor's v_row, v_col, v and
+    count; the schedule's count, apply_if_finite's counters and, with
     accum_steps > 1, MultiSteps' counters and accumulator). The moments go
     through the same layout conversions as the params. A masked state's
     moments are carried for its trainable leaves, which must be those of
@@ -204,8 +280,6 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     if jax_state.ema_params is not None:
         state.ema_params = leaves(jax_state.ema_params)
     named = list(_named_tuples(jax_state.opt_state))
-    adam = _one([s for s in named if {"mu", "nu", "count"} <= set(s._fields)],
-                "ScaleByAdamState")
     sched = _one([s for s in named if s._fields == ("count",)], "ScaleByScheduleState")
     opt = state.opt_state
     if isinstance(opt, MultiStepsState):
@@ -213,14 +287,26 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
         opt.mini_step, opt.gradient_step = scalar(multi.mini_step), scalar(multi.gradient_step)
         opt.acc = leaves(multi.acc_grads)
         opt = opt.inner
-    held = state_dict_from_jax(_unmask(adam.mu, jax_state.params, present=True),
+    fields = {OptState: {"mu", "nu", "count"}, LionState: {"mu", "count"},
+              AdafactorState: {"v_row", "v_col", "v", "count"}}[type(opt)]
+    family = _one([s for s in named if set(s._fields) == fields],
+                  f"state with the fields {sorted(fields)}")
+    first = family.v if isinstance(opt, AdafactorState) else family.mu
+    held = state_dict_from_jax(_unmask(first, jax_state.params, present=True),
                                jax_state.batch_stats)
     trainable = [n for n in state.names if held[n].all()]
-    if len(trainable) != len(opt.mu):
+    if len(trainable) != len(opt.v if isinstance(opt, AdafactorState) else opt.mu):
         raise ValueError(f"the JAX optimizer trains {len(trainable)} leaves, the port's "
-                         f"{len(opt.mu)}: their frozen labels differ")
-    opt.mu, opt.nu = leaves(adam.mu, trainable), leaves(adam.nu, trainable)
-    opt.count, opt.schedule_count = scalar(adam.count), scalar(sched.count)
+                         "do not match: their frozen labels differ")
+    if isinstance(opt, AdafactorState):
+        for f, moments in _factored_moments(state, family, jax_state.params,
+                                            jax_state.batch_stats, trainable).items():
+            setattr(opt, f, moments)
+    else:
+        opt.mu = leaves(family.mu, trainable)
+        if isinstance(opt, OptState):
+            opt.nu = leaves(family.nu, trainable)
+    opt.count, opt.schedule_count = scalar(family.count), scalar(sched.count)
     finite = [s for s in named if "notfinite_count" in s._fields]
     if finite:
         f = _one(finite, "ApplyIfFiniteState")

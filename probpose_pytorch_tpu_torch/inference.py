@@ -8,13 +8,14 @@ predict_frame, the bucket ladder, load_predictor and main).
         [--device cuda]
 
 frames + person boxes -> crop_resize ("bilinear_matmul") -> ProbPoseModel
-(ViT trunk with kernel K1, ProbMap head with kernel K2) -> Codec.decode ->
-keypoints mapped back to frame space. Returns the JAX predictor's dict of
-numpy arrays: keypoints (B, K, 2), scores (B, K), and probabilities,
-visibilities, oks, errors (B, 1, K), plus heatmaps (B, K, H, W) with
-`return_heatmaps`. Flip-test and multi-scale TTA and per-branch temperature
-calibration run on the model's device, as the JAX predictor runs them
-inside its jitted program.
+(ViT trunk with kernel K1, ProbMap head with kernel K2, or the SimCC head)
+-> Codec.decode (SimCCCodec.decode) -> keypoints mapped back to frame
+space. Returns the JAX predictor's dict of numpy arrays: keypoints (B, K,
+2), scores (B, K), and probabilities, visibilities, oks, errors (B, 1, K),
+plus heatmaps (B, K, H, W) with `return_heatmaps` (for SimCC the outer
+product of the two axes' softmaxes, (B, K, Hb, Wb)). Flip-test and
+multi-scale TTA and per-branch temperature calibration run on the model's
+device, as the JAX predictor runs them inside its jitted program.
 
 `predict_frame` pads a variable box list to a batch bucket (the card's
 record in configs/autotune_serving.json, keyed by
@@ -39,9 +40,10 @@ import numpy as np
 import torch
 
 from probpose_pytorch_tpu_torch.codec import Codec
+from probpose_pytorch_tpu_torch.codec_simcc import SimCCCodec
 from probpose_pytorch_tpu_torch.eval.calibration import P_HI, P_LO
 from probpose_pytorch_tpu_torch.models.model import ProbPoseModel
-from probpose_pytorch_tpu_torch.ops.augment import average_flip_pred
+from probpose_pytorch_tpu_torch.ops.augment import average_flip_pred, average_flip_pred_simcc
 from probpose_pytorch_tpu_torch.ops.preprocess import (
     crop_resize,
     untransform_keypoints,
@@ -138,7 +140,7 @@ def _rescale(p: torch.Tensor, t: float) -> torch.Tensor:
 @dataclasses.dataclass
 class TopDownPredictor:
     model: ProbPoseModel
-    codec: Codec
+    codec: Codec | SimCCCodec
     input_size: tuple[int, int]  # (H, W)
     preprocess_method: str = "bilinear_matmul"
     return_heatmaps: bool = False
@@ -201,7 +203,11 @@ class TopDownPredictor:
         if self.flip_test:
             pairs = self.flip_pairs if self.flip_pairs is not None else COCO_FLIP_PAIRS
             # crops are (B, H, W, C): W is axis 2
-            pred = average_flip_pred(pred, self.model(crops.flip(2)), pairs)
+            pred_f = self.model(crops.flip(2))
+            if isinstance(pred[0], (tuple, list)):
+                pred = average_flip_pred_simcc(pred, pred_f, pairs, self.codec.label.split_ratio)
+            else:
+                pred = average_flip_pred(pred, pred_f, pairs)
         (kpts, scores), probs, vis, oks, errs = self.codec.decode(pred)
         kpts = untransform_keypoints(kpts, boxes, self.input_size)
         return (kpts, scores, probs, vis, oks, errs), pred
@@ -239,8 +245,13 @@ class TopDownPredictor:
                    visibilities=vis, oks=oks, errors=errs)
         if self.return_heatmaps:
             # Maps of different box geometries share no grid: the unit-scale
-            # (or first-scale) ones.
-            out["heatmaps"] = pred_unit[0]
+            # (or first-scale) ones. SimCC renders the outer product of its
+            # two axes' distributions, which the CLI's PNG dump takes as is.
+            loc = pred_unit[0]
+            if isinstance(loc, (tuple, list)):
+                px, py = (torch.softmax(t.float(), dim=-1) for t in loc)
+                loc = py[..., :, None] * px[..., None, :]
+            out["heatmaps"] = loc
         return out
 
     def _dispatch(self, frames: np.ndarray, boxes: np.ndarray,

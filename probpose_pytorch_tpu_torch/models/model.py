@@ -2,9 +2,11 @@
 probpose_pytorch_tpu/models/model.py).
 
 `ModelConfig` takes every key of the JAX `ModelConfig`, so the `model`
-block of any configs/*.json loads as `ModelConfig(**block)`. `build_model`
-raises `NotImplementedError` for the values this port does not run yet,
-naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
+block of any configs/*.json loads as `ModelConfig(**block)`. The head is
+`head_type`'s: the ProbMap heatmap head or the SimCC coordinate
+classifier (models/simcc.py). `build_model` raises `NotImplementedError`
+for the values this port does not run yet, naming the ROADMAP item that
+ports each (`ModelConfig.check_ported`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from probpose_pytorch_tpu_torch.models.head import ProbMapHead
+from probpose_pytorch_tpu_torch.models.simcc import SimCCHead
 from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
 
 __all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights", "resolve_device"]
@@ -73,7 +76,6 @@ class ModelConfig:
         """Raise for values the port cannot build yet, naming the ROADMAP
         item that ports each; ValueError for values that are no option."""
         unported = [
-            (self.head_type == "simcc", "head_type='simcc'", 9),
             (self.backbone.startswith("conv"), f"backbone={self.backbone!r}", 10),
             (self.pp_stages > 1, "pp_stages > 1", 13),
             (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
@@ -94,8 +96,9 @@ class ModelConfig:
                 raise NotImplementedError(
                     f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
                 )
-        if self.head_type != "probmap":
-            raise ValueError(f"unknown head_type {self.head_type!r}")
+        if self.head_type not in ("probmap", "simcc"):
+            raise ValueError(
+                f"unknown head_type {self.head_type!r} (expected probmap | simcc)")
         if self.attn_impl not in ("fused", "einsum", "pallas"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.mlp_impl not in ("dense", "fused"):
@@ -122,9 +125,10 @@ class ModelConfig:
 
 class ProbPoseModel(nn.Module):
     """forward = head(backbone(x)): (B, H, W, 3) image in [0, 1] -> the
-    5-tuple (heatmaps, probability, visibility, oks, error)."""
+    5-tuple (heatmaps, probability, visibility, oks, error); with the SimCC
+    head the first entry is the pair (x_logits, y_logits)."""
 
-    def __init__(self, backbone: ViTBackbone, head: ProbMapHead):
+    def __init__(self, backbone: ViTBackbone, head: ProbMapHead | SimCCHead):
         super().__init__()
         self.backbone = backbone
         self.head = head
@@ -150,8 +154,10 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
     """Draw the weights as the flax initializers do (lecun-normal trunk
     kernels, truncated-normal 0.02 position embedding, normal(0.001) head
     convs, zero biases, unit BN scales and variances, LoRA `a` normal(0.02)
-    and `b` zero), from `generator`. The LoRA factors are drawn last, so a
-    LoRA model's base weights are those of the same model without LoRA."""
+    and `b` zero; the SimCC head's 1x1 conv and Linears lecun-normal, as
+    flax's defaults draw them), from `generator`. The LoRA factors are
+    drawn last, so a LoRA model's base weights are those of the same model
+    without LoRA."""
     # lecun_normal divides by 0.8796, the std of a unit normal truncated at
     # +-2; truncated_normal(0.02) scales the truncated draw as it is.
     lecun = lambda fan_in: 1.0 / math.sqrt(fan_in) / 0.87962566103423978
@@ -171,8 +177,13 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
             else:
                 fan_in = p[0].numel() if p.dim() > 2 else p.shape[1]
                 _trunc_normal(p, lecun(fan_in), generator)
+        simcc = isinstance(model.head, SimCCHead)
         for m in model.head.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if simcc and m in (model.head.final, model.head.mlp_x, model.head.mlp_y):
+                w = m.weight
+                _trunc_normal(w, lecun(w[0].numel()), generator)
+                m.bias.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.weight.copy_(torch.empty(m.weight.shape).normal_(
                     0.0, 0.001, generator=generator))
                 if m.bias is not None:
@@ -223,18 +234,30 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
         lora_alpha=cfg.lora_alpha,
     )
     feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
-    head = ProbMapHead(
-        in_channels=feat_ch,
-        out_channels=cfg.num_keypoints,
-        pool_sizes=cfg.pool_sizes,
-        deconv_out_channels=cfg.deconv_out_channels,
-        deconv_kernel_sizes=cfg.deconv_kernel_sizes,
-        conv_out_channels=cfg.conv_out_channels,
-        conv_kernel_sizes=cfg.conv_kernel_sizes,
-        final_layer_kernel_size=cfg.final_layer_kernel_size,
-        normalize=cfg.normalize,
-        dtype=cfg.dtype,
-    )
+    if cfg.head_type == "simcc":
+        H, W = cfg.img_size
+        head = SimCCHead(
+            in_channels=feat_ch,
+            out_channels=cfg.num_keypoints,
+            input_size=cfg.img_size,
+            grid=(H // cfg.patch_size, W // cfg.patch_size),
+            split_ratio=cfg.simcc_split_ratio,
+            pool_sizes=cfg.pool_sizes,
+            dtype=cfg.dtype,
+        )
+    else:
+        head = ProbMapHead(
+            in_channels=feat_ch,
+            out_channels=cfg.num_keypoints,
+            pool_sizes=cfg.pool_sizes,
+            deconv_out_channels=cfg.deconv_out_channels,
+            deconv_kernel_sizes=cfg.deconv_kernel_sizes,
+            conv_out_channels=cfg.conv_out_channels,
+            conv_kernel_sizes=cfg.conv_kernel_sizes,
+            final_layer_kernel_size=cfg.final_layer_kernel_size,
+            normalize=cfg.normalize,
+            dtype=cfg.dtype,
+        )
     model = ProbPoseModel(backbone, head)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -34,6 +34,7 @@ __all__ = [
     "rotate_crops",
     "color_jitter",
     "average_flip_pred",
+    "average_flip_pred_simcc",
 ]
 
 # Stream domains: flip, rotation and colour; box jitter; half-body boxes.
@@ -238,6 +239,39 @@ def average_flip_pred(pred: Sequence[torch.Tensor], pred_flipped: Sequence[torch
     hm, *scalars = pred
     hm_f, *scalars_f = pred_flipped
     out = [(hm + _swap_pairs(hm_f.flip(-1), pairs)) * 0.5]
+    for s, sf in zip(scalars, scalars_f):
+        out.append((s + _swap_pairs(sf, pairs)) * 0.5)
+    return tuple(out)
+
+
+def _mirror_x_bins(p: torch.Tensor, split_ratio: float) -> torch.Tensor:
+    """The crop mirror x -> (W - 1) - x on SimCC x-bin distributions: bin b
+    (pixel b / split) maps to Wb - split - b, a reverse along the bins then
+    a left shift by round(split) - 1 bins, zero-filled at the end (mass
+    that would land at x < 0). A non-integer ratio rounds, a sub-half-bin
+    error."""
+    rev = p.flip(-1)
+    s = int(round(split_ratio)) - 1
+    if s > 0:
+        rev = torch.cat([rev[..., s:], torch.zeros_like(rev[..., :s])], dim=-1)
+    return rev
+
+
+def average_flip_pred_simcc(pred: Sequence, pred_flipped: Sequence,
+                            pairs: Sequence[tuple[int, int]], split_ratio: float) -> tuple:
+    """Flip-test averaging for the SimCC family, in probability space (the
+    two forwards' logits share no scale): each axis's softmax, the twin's x
+    distributions mirrored by `_mirror_x_bins`, both twins' channels
+    swapped left/right, the pair added and halved, and log(average +
+    1e-12) returned, which the decoder's softmax maps back to the average.
+    The scalars average as in `average_flip_pred`."""
+    (x, y), *scalars = pred
+    (xf, yf), *scalars_f = pred_flipped
+    px, py = torch.softmax(x.float(), dim=-1), torch.softmax(y.float(), dim=-1)
+    pxf, pyf = torch.softmax(xf.float(), dim=-1), torch.softmax(yf.float(), dim=-1)
+    avg_x = 0.5 * (px + _swap_pairs(_mirror_x_bins(pxf, split_ratio), pairs))
+    avg_y = 0.5 * (py + _swap_pairs(pyf, pairs))
+    out = [(torch.log(avg_x + 1e-12), torch.log(avg_y + 1e-12))]
     for s, sf in zip(scalars, scalars_f):
         out.append((s + _swap_pairs(sf, pairs)) * 0.5)
     return tuple(out)

@@ -4,9 +4,10 @@
         [--data-root DIR] [--dataset-format {yolo,coco,synthetic}]
         [--max-steps N] [--no-resume] [--device cuda]
 
-Writes `config.json` into `out_dir`, builds the datasets of the config (and
-their crop cache when `cache_dir` is set) and runs `Trainer.fit`, which
-logs to `out_dir/metrics.jsonl` and checkpoints into `out_dir/checkpoints`.
+Writes `config.json` into `out_dir`, builds the datasets of the config
+(for `mixed`, those of its `mixed_datasets`: data/mixed.py) and their crop
+cache when `cache_dir` is set, and runs `Trainer.fit`, which logs to
+`out_dir/metrics.jsonl` and checkpoints into `out_dir/checkpoints`.
 It runs on the card unless `--device cpu` is given. One process on one
 device: a mesh or several processes raise (ROADMAP item 13).
 """
@@ -37,8 +38,9 @@ def build_datasets(cfg):
         train_ds = SyntheticPoseDataset(3200, cfg.model.img_size, cfg.model.num_keypoints, seed=1)
         val_ds = SyntheticPoseDataset(320, cfg.model.img_size, cfg.model.num_keypoints, seed=2)
     elif cfg.dataset_format == "mixed":
-        raise NotImplementedError(
-            "dataset_format='mixed' is not ported to PyTorch yet (ROADMAP item 6)")
+        from probpose_pytorch_tpu_torch.data.mixed import build_mixed_datasets
+
+        train_ds, val_ds = build_mixed_datasets(cfg)
     elif cfg.dataset_format == "coco":
         root = Path(cfg.data_root)
         train_ds = COCOPoseDataset(root / "annotations/person_keypoints_train2017.json",

@@ -4,7 +4,7 @@ The dataclasses take every key of the JAX ones, so every configs/*.json
 loads with the same field values as the JAX `TrainConfig.load`. Values this
 port does not run yet load all the same; they raise `NotImplementedError`,
 naming their ROADMAP item, where they would take effect (train/loop.py,
-train/state.py, train/cli.py, models/model.py).
+train/cli.py, models/model.py, data/coco.py).
 """
 
 from __future__ import annotations
@@ -26,13 +26,14 @@ COCO_FLIP_PAIRS = (
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """AdamW + one-cycle cosine schedule + global-norm clipping, optional
-    EMA, non-finite skipping and gradient accumulation over `accum_steps`
-    micro-steps. Only `optimizer="adamw"` is ported."""
+    """AdamW (or Lion, or Adafactor) + one-cycle cosine schedule (or
+    warm-up cosine, or constant) + global-norm clipping, optional EMA,
+    non-finite skipping and gradient accumulation over `accum_steps`
+    micro-steps."""
 
     peak_lr: float = 5e-4
     weight_decay: float = 0.1
-    optimizer: str = "adamw"  # "lion" and "adafactor" are not ported
+    optimizer: str = "adamw"  # or "lion", "adafactor"
     schedule: str = "onecycle"  # or "cosine", "constant"
     pct_start: float = 0.1
     div_factor: float = 25.0

@@ -6,9 +6,11 @@ The step runs eagerly on the model's device. Augmentation (ROADMAP item 6,
 ops/augment.py) draws from generators seeded by (seed, domain, step) on the
 host, targets are encoded on the device from the batch's keypoints, the
 ViT trunk runs kernel K1 forward and backward in every block and the head
-runs kernel K2, and the update is the functional AdamW of train/state.py
-(in optax's MultiSteps with accum_steps > 1) applied in place. Nothing in
-the step reads a value back to the host.
+runs kernel K2 (the SimCC head runs no kernel; its targets are 1-D bin
+labels and its loss is losses_simcc.py's), and the update is the
+functional optimizer of train/state.py (AdamW, Lion or Adafactor, in
+optax's MultiSteps with accum_steps > 1) applied in place. Nothing in the
+step reads a value back to the host.
 
 `fit` logs to `<out_dir>/metrics.jsonl`, checkpoints into
 `<out_dir>/checkpoints` (train/checkpoint.py), resumes from the latest,
@@ -19,9 +21,9 @@ metric and checkpoints on SIGTERM, as the JAX `fit` does.
 `Trainer.create` does (train/state.py). With `TrainConfig.distill`, a
 frozen teacher loaded from a port checkpoint runs in eval mode on the
 step's augmented crops and the student also learns the MSE toward its
-heatmaps and scalar branches. What the JAX loop does and this one does not
-yet raises `NotImplementedError` naming its ROADMAP item: meshes and
-pipelines (item 13).
+heatmaps (or SimCC logits) and scalar branches. What the JAX loop does and
+this one does not yet raises `NotImplementedError` naming its ROADMAP
+item: meshes and pipelines (item 13).
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ import numpy as np
 import torch
 
 from probpose_pytorch_tpu_torch.codec import ArgMaxProbMap, Codec, ProbMap
+from probpose_pytorch_tpu_torch.codec_simcc import SimCCCodec, SimCCLabel
 from probpose_pytorch_tpu_torch.data.pipeline import Prefetcher
 from probpose_pytorch_tpu_torch.losses import ProbPoseLoss
+from probpose_pytorch_tpu_torch.losses_simcc import SimCCLoss
 from probpose_pytorch_tpu_torch.models.lora import lora_frozen_labels
 from probpose_pytorch_tpu_torch.models.model import build_model, resolve_device
 from probpose_pytorch_tpu_torch.ops.augment import (
@@ -55,11 +59,12 @@ from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize, transform_key
 from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager, state_is_finite
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
 from probpose_pytorch_tpu_torch.train.state import (
-    AdamW,
     MultiSteps,
+    Optimizer,
     TrainState,
     global_norm,
     make_optimizer,
+    param_layouts,
 )
 from probpose_pytorch_tpu_torch.utils.logging import MetricsLogger
 
@@ -76,14 +81,17 @@ def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
-def build_codecs(cfg: TrainConfig) -> tuple[Codec, Codec]:
+def build_codecs(cfg: TrainConfig) -> tuple[Codec, Codec] | tuple[SimCCCodec, SimCCCodec]:
     """(encode codec, loss-decode codec): a ProbMap with the fixed spread
     `cfg.sigma` encodes the targets, an ArgMaxProbMap with `decode_sigma`
-    decodes both heatmaps inside the loss."""
-    if cfg.model.head_type == "simcc":
-        raise _unported("head_type='simcc'", 9)
+    decodes both heatmaps inside the loss. The SimCC family uses one codec
+    in both roles: its argmax and parabola are the fast decode."""
     sigmas = np.full(cfg.model.num_keypoints, cfg.kpt_sigma_value, np.float32)
     img_wh = (cfg.model.img_size[1], cfg.model.img_size[0])
+    if cfg.model.head_type == "simcc":
+        codec = SimCCCodec(SimCCLabel(img_wh, split_ratio=cfg.model.simcc_split_ratio,
+                                      sigma=cfg.model.simcc_sigma, sigmas=sigmas))
+        return codec, codec
     W, H = cfg.model.heatmap_size
     encode_codec = Codec(ProbMap(img_wh, (W, H), sigmas=sigmas, sigma=cfg.sigma))
     fast_codec = Codec(ArgMaxProbMap(img_wh, (W, H), sigmas=sigmas, sigma=cfg.decode_sigma))
@@ -94,15 +102,18 @@ def _prepare_images(images: torch.Tensor) -> torch.Tensor:
     return images.float() / 255.0 if images.dtype == torch.uint8 else images
 
 
-def _encode_targets(codec: Codec, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def _encode_targets(codec: Codec | SimCCCodec,
+                    batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The loss's targets: heatmaps, or the SimCC family's x and y labels."""
     enc = codec.encode(batch["keypoints"], batch["keypoints_visible"],
                        keypoints_visibility=batch["keypoints_visibility"])
+    targets = ("heatmaps",) if "heatmaps" in enc else ("x_labels", "y_labels")
     return dict(
         in_image=enc["in_image"],
         keypoints_visible=batch["keypoints_visible"],
         keypoints_visibility=batch["keypoints_visibility"],
         keypoint_weights=enc["keypoint_weights"],
-        heatmaps=enc["heatmaps"],
+        **{k: enc[k] for k in targets},
     )
 
 
@@ -203,8 +214,14 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a.float() - b.float()) ** 2).mean()
 
 
-def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPoseLoss,
-                    tx: AdamW | MultiSteps, cfg: TrainConfig,
+def _is_pair(loc: Any) -> bool:
+    """pred[0] of the SimCC family: the (x_logits, y_logits) pair."""
+    return isinstance(loc, (tuple, list))
+
+
+def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
+                    loss_fn: ProbPoseLoss | SimCCLoss, tx: Optimizer | MultiSteps,
+                    cfg: TrainConfig,
                     teacher: torch.nn.Module | None = None) -> Callable:
     """The train step: (state, batch[, mark]) -> (state, metrics), batch a
     dict of tensors on the model's device. The state is updated in place
@@ -214,7 +231,8 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPo
     (frozen leaves' included) before clipping. With a `teacher` (eval
     mode, no gradients), the total gains weight * (heatmap_weight * d_hm +
     scalar_weight * d_sc): d_hm the f32 MSE of the heatmaps against the
-    teacher's on the same crops, d_sc the mean of the MSEs of the
+    teacher's on the same crops (the mean of the two axes' MSEs for SimCC
+    logits), d_sc the mean of the MSEs of the
     probability, visibility and oks maps, logged as
     `loss/distill_heatmap` and `loss/distill_scalar`."""
     weights = cfg.loss_weights.as_dict()
@@ -239,7 +257,10 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPo
             d = cfg.distill
             with torch.no_grad():
                 tpred = teacher(images)
-            d_hm = _mse(pred[0], tpred[0])
+            if _is_pair(pred[0]):
+                d_hm = sum(_mse(a, b) for a, b in zip(pred[0], tpred[0])) / len(pred[0])
+            else:
+                d_hm = _mse(pred[0], tpred[0])
             d_sc = (_mse(pred[1], tpred[1]) + _mse(pred[2], tpred[2])
                     + _mse(pred[3], tpred[3])) / 3.0
             losses = dict(losses, distill_heatmap=d_hm, distill_scalar=d_sc)
@@ -259,11 +280,11 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPo
     return step
 
 
-def make_eval_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPoseLoss,
-                   cfg: TrainConfig) -> Callable:
+def make_eval_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
+                   loss_fn: ProbPoseLoss | SimCCLoss, cfg: TrainConfig) -> Callable:
     """(state, batch) -> metrics: losses, accuracies (`acc/<term>`),
-    `max_heatmap` and `mean_prob`, with the model in eval mode and the
-    BatchNorm running statistics."""
+    `max_heatmap` (of the x logits for SimCC, as JAX) and `mean_prob`, with
+    the model in eval mode and the BatchNorm running statistics."""
     weights = cfg.loss_weights.as_dict()
 
     @torch.no_grad()
@@ -276,7 +297,7 @@ def make_eval_step(model: torch.nn.Module, encode_codec: Codec, loss_fn: ProbPos
             "loss": _total(losses, weights),
             **{f"loss/{k}": v for k, v in losses.items()},
             **{f"acc/{k}": v for k, v in acc.items()},
-            "max_heatmap": pred[0].max(),
+            "max_heatmap": pred[0][0].max() if _is_pair(pred[0]) else pred[0].max(),
             "mean_prob": pred[1].mean(),
         }
 
@@ -295,10 +316,10 @@ class Trainer:
 
     cfg: TrainConfig
     model: torch.nn.Module
-    encode_codec: Codec
-    fast_codec: Codec
-    loss_fn: ProbPoseLoss
-    tx: AdamW | MultiSteps
+    encode_codec: Codec | SimCCCodec
+    fast_codec: Codec | SimCCCodec
+    loss_fn: ProbPoseLoss | SimCCLoss
+    tx: Optimizer | MultiSteps
     state: TrainState
     train_step: Callable
     eval_step: Callable
@@ -323,10 +344,11 @@ class Trainer:
             raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
         model = build_model(cfg.model, device, seed=cfg.seed)
         encode_codec, fast_codec = build_codecs(cfg)
-        loss_fn = ProbPoseLoss(fast_codec, freeze_error=cfg.freeze_error,
-                               freeze_oks=cfg.freeze_oks)
+        loss_cls = SimCCLoss if cfg.model.head_type == "simcc" else ProbPoseLoss
+        loss_fn = loss_cls(fast_codec, freeze_error=cfg.freeze_error, freeze_oks=cfg.freeze_oks)
         labels = frozen_labels(cfg, [n for n, _ in model.named_parameters()])
-        tx = make_optimizer(cfg.optim, steps_per_epoch * cfg.epochs, labels)
+        tx = make_optimizer(cfg.optim, steps_per_epoch * cfg.epochs, labels,
+                            param_layouts(model))
         state = TrainState(model, tx, ema=cfg.optim.ema_decay is not None)
         teacher = None
         if cfg.distill is not None and cfg.distill.teacher_checkpoint:

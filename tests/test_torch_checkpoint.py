@@ -89,6 +89,32 @@ def test_round_trip_is_exact(tmp_path):
     _assert_same(a, b)
 
 
+@pytest.mark.parametrize("family", ["lion", "adafactor"])
+def test_lion_and_adafactor_states_round_trip(tmp_path, family):
+    """A Lion or Adafactor state with the cosine schedule (and, for
+    Adafactor, factored and unfactored leaves of a width-128 model) saves
+    and restores bit for bit, and the restored trainer goes on exactly as
+    the saved one."""
+    over = dict(optim={**RAW["optim"], "optimizer": family, "schedule": "cosine"})
+    if family == "adafactor":
+        from test_torch_train import OPT_VIT  # registers the width-128 preset
+
+        assert OPT_VIT["embed_dim"] == 128
+        over["model"] = dict(RAW["model"], backbone="vit-opt-port")
+    a = _trainer(tmp_path, **over)
+    _steps(a, 2)
+    if family == "adafactor":
+        assert any(tuple(v.shape) == (1,) for v in a.state.opt_state.v)  # factored leaves
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save(2, a.state)
+    b = _trainer(tmp_path, **over)
+    mgr.restore(b.state)
+    _assert_same(a, b)
+    _steps(a, 1, seed=10)
+    _steps(b, 1, seed=10)
+    _assert_same(a, b)
+
+
 def test_keep_n_and_overwrite(tmp_path):
     t = _trainer(tmp_path)
     mgr = CheckpointManager(tmp_path / "ck", keep=2)

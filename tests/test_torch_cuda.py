@@ -244,10 +244,12 @@ def check_sparsemax(z: torch.Tensor, capacity: int = BLOCK_CANDIDATES) -> None:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,N", [(64 * 17, 3072), (17 * 3 + 5, 3072), (5, 1), (3, 5),
-                                 (7, 300), (5, 3071), (5, 3073), (3, 65536)])
+                                 (7, 300), (5, 3071), (5, 3073), (3, 65536),
+                                 (32 * 20, 9216)])
 def test_sparsemax_kernel(cuda_device, R, N):
     """Random rows, ragged R and N: the short-row kernel (N <= 3,072, with
-    and without float4 loads), the staged long-row kernel (3,073) and the
+    and without float4 loads), the staged long-row kernel (3,073; 9,216,
+    the fieldsynth recipe's 96 x 96 heatmaps of a batch of 32) and the
     one that reads device memory on each pass (65,536)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     check_sparsemax(torch.randn(R, N, generator=g, device=cuda_device) / 0.5,
@@ -302,6 +304,29 @@ def test_flagship_forward_kernels_vs_plain(cuda_device):
     for o, r in zip(out, ref):
         assert o.shape == r.shape
         # f32 everywhere; attention sums in another order.
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_simcc_forward_kernels_vs_plain(cuda_device):
+    """The SimCC head on the full-width ViT-S trunk in f32
+    (configs/simcc_coco_vits.json's model): 12 attention forwards and no
+    K2 launch per forward; logits and scalars through the kernels against
+    the plain path (attention sums in another order)."""
+    cfg = ModelConfig(attn_impl="fused", compute_dtype="float32", head_type="simcc",
+                      pool_sizes=((4, 3), (2, 2), (2, 2)))
+    model = build_model(cfg, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.rand(4, 256, 192, 3, generator=g, device=cuda_device)
+    f0, s0 = forward_launches(), sparsemax_rows.launches
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+        assert (forward_launches() - f0, sparsemax_rows.launches - s0) == (12, 0)
+        with plain_versions():
+            ref = model(x)
+    assert out[0][0].shape == (4, 17, 384) and out[0][1].shape == (4, 17, 512)
+    for o, r in zip((*out[0], *out[1:]), (*ref[0], *ref[1:])):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-5)
 
 
@@ -593,6 +618,7 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
     (3, 1, 2, 32, torch.bfloat16),      # a single token
     (3, 1, 2, 64, torch.bfloat16),
     (3, 1, 2, 128, torch.bfloat16),
+    (4, 576, 12, 32, torch.bfloat16),   # vit-s-timm at 384 x 384: 4.5 tiles of 128 rows
 ])
 def test_tiled_attention_kernels(cuda_device, B, N, heads, d, dtype):
     """K4 forward and backward against their plain versions; the backward
@@ -614,7 +640,7 @@ def test_tiled_attention_kernels(cuda_device, B, N, heads, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d", [(2304, 64), (1000, 128), (129, 32)])
+@pytest.mark.parametrize("N,d", [(2304, 64), (1000, 128), (129, 32), (576, 32)])
 def test_tiled_attention_backward_with_saved_residuals(cuda_device, N, d):
     """bf16: the forward's lse matches the kernel-order plain version, and
     the backward from the saved (out, lse) gives the same bits as the one

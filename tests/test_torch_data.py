@@ -211,14 +211,42 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, synth_roots, capsys):
     assert "resumed" not in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("what", ["mixed", "processes", "no card"])
+def test_cli_trains_on_mixed_datasets(tmp_path, synth_roots, capsys):
+    """dataset_format "mixed" through the CLI (--device cpu): the COCO-format
+    set (repeat 1) and its coco2yolo copy (repeat 2), 2 steps, validation
+    on the first member's val split; the datasets are JAX's CLI's."""
+    from probpose_pytorch_tpu.data.mixed import build_mixed_datasets as jax_build_mixed
+    from probpose_pytorch_tpu.train.config import TrainConfig as JaxTrainConfig
+    from probpose_pytorch_tpu_torch.data.convert_format import coco_to_yolo
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    root, _ = synth_roots
+    for split, src in (("train", "train2017"), ("valid", "val2017")):
+        coco_to_yolo(root / f"annotations/person_keypoints_{src}.json", root / src,
+                     tmp_path / "yolo", split)
+    members = [{"root": str(root), "format": "coco"},
+               {"root": str(tmp_path / "yolo"), "format": "yolo", "repeat": 2}]
+    cfg = _cli_config(tmp_path, dataset_format="mixed", mixed_datasets=members)
+    out = tmp_path / "run"
+    cli.main([str(out), "--config", str(cfg), "--max-steps", "2", "--device", "cpu"])
+    lines = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in lines if "training/loss" in r] == [0, 1]
+    assert any("validation/acc/kpt" in r for r in lines)
+    assert (out / "checkpoints" / "2").is_file()
+    saved = TrainConfig.load(out / "config.json")
+    train, val = cli.build_datasets(saved)
+    jtrain, jval = jax_build_mixed(JaxTrainConfig.load(out / "config.json"))
+    assert len(train) == len(jtrain) > 0 and len(val) == len(jval) > 0
+    for i in (0, len(train) - 1):
+        for k, v in train[i].items():  # the fields both formats have
+            np.testing.assert_array_equal(v, jtrain[i][k])
+
+
+@pytest.mark.parametrize("what", ["processes", "no card"])
 def test_cli_refusals(tmp_path, what, monkeypatch):
-    cfg = _cli_config(tmp_path, dataset_format="mixed" if what == "mixed" else "synthetic")
+    cfg = _cli_config(tmp_path, dataset_format="synthetic")
     args = [str(tmp_path / "run"), "--config", str(cfg), "--max-steps", "1"]
-    if what == "mixed":
-        with pytest.raises(NotImplementedError, match="mixed.*ROADMAP item 6"):
-            cli.main(args + ["--device", "cpu"])
-    elif what == "processes":
+    if what == "processes":
         monkeypatch.setenv("WORLD_SIZE", "2")
         with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
             cli.main(args + ["--device", "cpu"])

@@ -158,17 +158,22 @@ def test_model_matches_jax(pair):
     dict(attn_impl="einsum", num_prefix_tokens=2, adapter_hidden=(24, 16),
          frozen_backbone=True, exact_gelu=True, conv_out_channels=(8,),
          conv_kernel_sizes=(3,)),
+    dict(head_type="simcc"),
+    dict(head_type="simcc", simcc_split_ratio=3.0, adapter_hidden=(24,),
+         pool_sizes=((4, 3), (2, 2))),
 ])
 def test_model_options_match_jax(over):
-    """The accepted-but-equal XLA knobs, and the small trunk/head options
-    the flagship leaves off."""
+    """The accepted-but-equal XLA knobs, the small trunk/head options the
+    flagship leaves off, and the SimCC head (its (x, y) logits pair first)."""
     kw = {**TINY_CFG, **over}
     jm, variables, pm = init_pair(kw, seed=1)
     x = _images(5)
     ref = jm.apply(variables, jnp.asarray(x), train=False)
     with torch.no_grad():
         out = pm(torch.from_numpy(x))
-    for o, r in zip(out, ref):
+    flat = lambda pred: [t for p in pred for t in (p if isinstance(p, tuple) else (p,))]
+    assert len(flat(out)) == len(flat(ref)) == (6 if kw.get("head_type") == "simcc" else 5)
+    for o, r in zip(flat(out), flat(ref)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
 
 
@@ -224,7 +229,6 @@ def test_flagship_geometry_loads_strictly():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(head_type="simcc"), "item 9"),
     (dict(backbone="conv-s"), "item 10"),
     (dict(pp_stages=2), "item 13"),
     (dict(attn_impl="fused_tp"), "item 13"),

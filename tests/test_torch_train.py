@@ -23,6 +23,7 @@ import torch
 from probpose_pytorch_tpu.data import pipeline as jax_pipeline
 from probpose_pytorch_tpu.losses import ProbPoseLoss as JaxLoss
 from probpose_pytorch_tpu.models import model as jax_model
+from probpose_pytorch_tpu.models.vit import ViTConfig as JaxViTConfig
 from probpose_pytorch_tpu.train import loop as jax_loop
 from probpose_pytorch_tpu.train import state as jax_state
 from probpose_pytorch_tpu.train.config import TrainConfig as JaxTrainConfig
@@ -33,10 +34,17 @@ from probpose_pytorch_tpu_torch.compat.from_jax import (
 )
 from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
 from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
+from probpose_pytorch_tpu_torch.models.vit import ViTConfig
 from probpose_pytorch_tpu_torch.train import loop
 from probpose_pytorch_tpu_torch.train.config import OptimConfig, TrainConfig
 from probpose_pytorch_tpu_torch.train.loop import Trainer
-from probpose_pytorch_tpu_torch.train.state import make_optimizer, onecycle_schedule
+from probpose_pytorch_tpu_torch.train.state import (
+    cosine_schedule,
+    factored_dims,
+    make_optimizer,
+    onecycle_schedule,
+    param_layouts,
+)
 from test_torch_models import TINY_CFG, peaked_variables
 
 torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
@@ -150,9 +158,6 @@ def test_synthetic_data_matches_jax():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(optim=dict(optimizer="adafactor")), "item 6"),
-    (dict(optim=dict(optimizer="lion")), "item 6"),
-    (dict(optim=dict(schedule="cosine")), "item 6"),
     (dict(model_parallel=2), "item 13"),
 ])
 def test_unported_training_options_raise(over, match):
@@ -169,7 +174,8 @@ def test_train_lora_only_needs_a_rank():
 
 @pytest.mark.parametrize("name", ["flagship_coco_vits", "vitb_coco", "vitl_coco",
                                   "lora_finetune_vits", "radio_frozen_vitb",
-                                  "reference_parity_fieldsynth", "distill_vits_from_vitl"])
+                                  "reference_parity_fieldsynth", "distill_vits_from_vitl",
+                                  "simcc_coco_vits"])
 def test_shipped_configs_create(name, monkeypatch, tmp_path):
     """The shipped recipes build a Trainer as they are, at full width
     (augmentation as the file sets it; vitl_coco with accum_steps 4; LoRA
@@ -333,6 +339,201 @@ def test_accum_steps_match_optax_multisteps(k, skips):
     for key, mu, nu in zip(names, inner.mu, inner.nu):
         np.testing.assert_allclose(mu.numpy(), np.asarray(adam.mu[key]), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(nu.numpy(), np.asarray(adam.nu[key]), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kw,total", [
+    (dict(), 50),
+    (dict(pct_start=0.3, div_factor=10.0, final_div_factor=100.0), 37),
+    (dict(pct_start=0.1), 3),  # warm-up floored at 1 step; decay_steps = total
+    (dict(pct_start=0.5), 1),  # decay_steps floored at warm-up + 1
+])
+def test_cosine_schedule_matches_optax(kw, total):
+    """optax.warmup_cosine_decay_schedule as the JAX package builds it,
+    jitted, at every step to past the end: 1e-6 relative (float32 cos and
+    products that XLA may fuse)."""
+    cfg = OptimConfig(schedule="cosine", **kw)
+    ours = cosine_schedule(cfg, total)
+    ref = jax.jit(jax_state.build_schedule(cfg, total))
+    for count in range(total + 6):
+        o = float(ours(torch.tensor(count, dtype=torch.int32)))
+        r = float(ref(jnp.int32(count)))
+        assert abs(o - r) <= 1e-6 * abs(r), (count, o, r)
+
+
+# The JAX layout of each leaf of the optimizer tree, and the port's: a
+# factored Dense kernel, a square one, a conv and a deconv (factored over
+# their channel axes), a plain factored tensor (pos_embed's shape), and
+# unfactored ones (a bias, a plain matrix whose smaller axis is < 128).
+OPT_TREE = {"bias": ((130,), "plain"), "conv": ((3, 3, 144, 136), "conv"),
+            "deconv": ((4, 4, 130, 128), "deconv"), "dense": ((160, 130), "dense"),
+            "pos": ((1, 140, 129), "plain"), "small": ((5, 200), "plain"),
+            "square": ((128, 128), "dense")}
+
+
+def _to_port(a, kind):
+    """A JAX-layout array in the port's layout (compat/from_jax.py's maps)."""
+    if kind == "dense":
+        return a.T
+    if kind == "conv":
+        return a.transpose(3, 2, 0, 1)
+    if kind == "deconv":
+        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return a
+
+
+def _optimizer_pair(cfg, labels=None):
+    """(optax transformation, port optimizer, names, JAX params, port
+    params) over OPT_TREE, with `labels` {name: label} masking both."""
+    rng = np.random.default_rng(cfg.accum_steps + len(cfg.optimizer))
+    params = {k: rng.normal(size=shape).astype(np.float32) * 0.1
+              for k, (shape, _) in OPT_TREE.items()}
+    names = sorted(params)
+    tx = jax_state.make_optimizer(cfg, 10, labels)
+    ours = make_optimizer(cfg, 10, None if labels is None else [labels[k] for k in names],
+                          [OPT_TREE[k][1] for k in names])
+    tparams = [torch.from_numpy(np.ascontiguousarray(_to_port(params[k], OPT_TREE[k][1])))
+               for k in names]
+    return tx, ours, names, params, tparams
+
+
+def test_factored_dims_follow_the_jax_layout():
+    """optax factors each leaf over the two largest axes of its JAX shape;
+    the port finds the same physical axes in its own layout (for the
+    square Dense kernel the transposed pair)."""
+    from optax._src.factorized import _factored_dims
+
+    for name, (shape, kind) in OPT_TREE.items():
+        ref = _factored_dims(shape, True, 128)
+        port_shape = _to_port(np.zeros(shape), kind).shape
+        ours = factored_dims(port_shape, kind)
+        assert (ours is None) == (ref is None), name
+        if ref is not None:
+            axes = {"dense": (1, 0), "conv": (3, 2, 0, 1), "deconv": (2, 3, 0, 1)}.get(
+                kind, tuple(range(len(shape))))
+            assert (axes[ours[0]], axes[ours[1]]) == ref, name
+    assert factored_dims((128, 128), "dense") == (1, 0)  # JAX's (0, 1), transposed
+
+
+@pytest.mark.parametrize("family", ["lion", "adafactor"])
+@pytest.mark.parametrize("case", ["wd, guard", "masks, MultiSteps", "no wd"])
+def test_optimizer_family_matches_optax(family, case):
+    """optax.lion and optax.adafactor (with cosine) as the JAX package
+    builds them, over 5 steps on OPT_TREE's leaves in each package's
+    layout: with weight decay and apply_if_finite (step 2's gradient
+    non-finite, skipped), with frozen masks under MultiSteps(2) (10
+    micro-steps), and with no weight decay (adafactor drops the term).
+    Params within 1e-5 relative and 1e-7 absolute (factored means and the
+    block rms summed in another order, pow in float32), frozen leaves
+    bit-equal, and the families' moments (in the port's layout) and counts
+    as optax's."""
+    over = {"wd, guard": dict(weight_decay=0.1, max_nonfinite_skips=5),
+            "masks, MultiSteps": dict(weight_decay=0.1, accum_steps=2),
+            "no wd": dict(weight_decay=0.0)}[case]
+    cfg = OptimConfig(optimizer=family, schedule="cosine", peak_lr=1e-2, clip_grad_norm=1.0,
+                      b2=0.99 if family == "lion" else 0.999, **over)
+    labels = None
+    if case == "masks, MultiSteps":
+        labels = {k: "frozen" if k in ("bias", "square") else "trainable" for k in OPT_TREE}
+    tx, ours, names, params, tparams = _optimizer_pair(cfg, labels)
+    jstate, jparams = tx.init(params), params
+    tstate = ours.init(tparams)
+    rng = np.random.default_rng(7)
+    for i in range(5 * cfg.accum_steps):
+        grads = {k: (rng.normal(size=v.shape) * 0.02).astype(np.float32)
+                 for k, v in params.items()}
+        if i == 2 and cfg.max_nonfinite_skips:
+            grads["conv"][0, 0, 1, 2] = np.nan
+        upd, jstate = tx.update(grads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        tupd, tstate = ours.update([torch.from_numpy(np.ascontiguousarray(
+            _to_port(grads[k], OPT_TREE[k][1]))) for k in names], tstate, tparams)
+        with torch.no_grad():
+            torch._foreach_add_(tparams, tupd)
+        for k, t in zip(names, tparams):
+            np.testing.assert_allclose(t.numpy(), _to_port(np.asarray(jparams[k]), OPT_TREE[k][1]),
+                                       rtol=1e-5, atol=1e-7, err_msg=f"micro-step {i}, {k}")
+    for k, t in zip(names, tparams):
+        if labels is not None and labels[k] == "frozen":
+            np.testing.assert_array_equal(t.numpy(), _to_port(params[k], OPT_TREE[k][1]))
+    inner = tstate.inner if cfg.accum_steps > 1 else tstate
+    fields = {"lion": ("count", "mu"), "adafactor": ("count", "v_row", "v_col", "v")}[family]
+    fam = [s for s in jax.tree_util.tree_leaves(
+        jstate, is_leaf=lambda s: getattr(s, "_fields", None) == fields)
+        if getattr(s, "_fields", None) == fields]
+    assert len(fam) == 1
+    assert int(inner.count) == int(fam[0].count) == 5 - (cfg.max_nonfinite_skips > 0)
+    trainable = [k for k in names if labels is None or labels[k] == "trainable"]
+    if family == "lion":
+        for k, mu in zip(trainable, inner.mu):
+            np.testing.assert_allclose(mu.numpy(), _to_port(np.asarray(fam[0].mu[k]),
+                                                            OPT_TREE[k][1]),
+                                       rtol=1e-6, atol=1e-9, err_msg=k)
+    else:
+        for k, v in zip(trainable, inner.v):
+            if factored_dims(tparams[names.index(k)].shape, OPT_TREE[k][1]) is None:
+                np.testing.assert_allclose(v.numpy(), _to_port(np.asarray(fam[0].v[k]),
+                                                               OPT_TREE[k][1]),
+                                           rtol=1e-5, atol=0, err_msg=k)
+            else:
+                assert tuple(v.shape) == (1,) and not v.any()
+
+
+# Width 128 everywhere, so that adafactor factors the trunk's Dense kernels,
+# the first deconv and the scalar branches' 3x3 convs.
+OPT_VIT = dict(embed_dim=128, depth=1, num_heads=2, mlp_ratio=2.0)
+JaxViTConfig.PRESETS.setdefault("vit-opt-port", OPT_VIT)
+ViTConfig.PRESETS.setdefault("vit-opt-port", OPT_VIT)
+
+
+@pytest.mark.parametrize("family", ["lion", "adafactor"])
+def test_load_jax_train_state_carries_lion_and_adafactor(family):
+    """Two JAX steps with lion (or adafactor) and cosine on a width-128
+    model, carried into a port Trainer (adafactor's factored v_row and
+    v_col onto the port's layout of the axes it factors, for Dense, conv
+    and deconv leaves), then one more step on each side: the loss within
+    1e-5 relative and the params within 1e-5 where the gradient (lion:
+    the momentum-mixed gradient it takes the sign of) is above 1e-4 of its
+    leaf's largest and the leaf's gradient is not all rounding noise;
+    elsewhere within 2 lr (a sign that flips on rounding noise moves an
+    element by 2 lr; adafactor normalises noise to steps below that)."""
+    model = dict(TINY_CFG, backbone="vit-opt-port", deconv_out_channels=(128, 16))
+    raw = dict(RAW, model=model, optim=dict(RAW["optim"], optimizer=family, schedule="cosine"))
+    js = build_jax_side(raw)
+    batch = {k: jnp.asarray(v) for k, v in _batch(1).items()}
+    jstate, _ = js["step"](js["state"], batch)
+    jstate, _ = js["step"](jstate, batch)
+    trainer = Trainer.create(TrainConfig.from_dict(raw), STEPS_PER_EPOCH, device="cpu")
+    load_jax_train_state(trainer.state, jax.device_get(jstate))
+    opt = trainer.state.opt_state
+    assert int(opt.count) == int(opt.schedule_count) == 2
+    if family == "adafactor":
+        kinds = {kind for p, kind in zip(trainer.state.params, param_layouts(trainer.model))
+                 if factored_dims(p.shape, kind) is not None}
+        assert kinds == {"dense", "conv", "deconv"}
+        assert all(tuple(v.shape) == (1,) for v, p, kind in zip(
+            opt.v, trainer.state.params, param_layouts(trainer.model))
+            if factored_dims(p.shape, kind) is not None)
+    mu = None if family == "adafactor" else [_n(m) for m in opt.mu]
+    jstate2, jm = js["step"](jstate, batch)
+    _, metrics = trainer.train_step(trainer.state, trainer.device_batch(_batch(1)))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jm["loss"]), rtol=1e-5)
+    _, rgrads, _ = _jax_grads(dict(js, state=jstate), batch)
+    names = trainer.state.names
+    grads_ref = _by_name(rgrads, jstate.batch_stats, names)
+    noise, _ = _noise_leaves(grads_ref)
+    if mu is not None:  # lion steps by the sign of (1 - b1) g + b1 m, g clipped
+        g_norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in grads_ref.values()))
+        clip = min(1.0, trainer.cfg.optim.clip_grad_norm / g_norm)
+        b1 = trainer.cfg.optim.b1
+        grads_ref = {n: (1 - b1) * grads_ref[n] * clip + b1 * m for n, m in zip(names, mu)}
+    lr = float(jax.jit(jax_state.build_schedule(js["cfg"].optim, STEPS_PER_EPOCH))(2))
+    ref = _by_name(jstate2.params, jstate2.batch_stats, names)
+    for n, p in zip(names, trainer.state.params):
+        d = np.abs(_n(p) - ref[n])
+        g = np.abs(grads_ref[n])
+        small = (g < 1e-4 * g.max()) | (n in noise)
+        assert (d[~small] <= 1e-5 * np.abs(ref[n][~small]) + 1e-7).all(), (n, d[~small].max())
+        assert (d[small] <= 2 * lr * (1 + 1e-5)).all(), (n, d[small].max())
 
 
 # --------------------------------------------------------------------------
