@@ -196,6 +196,33 @@ with weights drawn from a seeded generator:
            AdamW's, K4 and K2 times against the library at those shapes,
            and the phase's wall time
 
+  phase 14 the detector and bottom-up family (models/convnet.py, detect/) on
+           a generate_coco_synth set the phase writes (32 + 16 frames of 480 x
+           480, crowds and unlabeled people included) and phase 9's
+           checkpoint, bf16 unless said: the detect CLI (conv-s, 512^2, B =
+           16, 3 steps), then with --keypoints 17 --kpt-heatmaps, finite
+           losses, detector.json and the checkpoint, which load_detector and
+           load_bottomup restore bit for bit; the f32 bottom-up model's maps
+           on the card against the CPU (normwise 1e-5, TF32 off), then
+           decode_boxes and decode_poses card against CPU on the same maps
+           (equal); an f32 DetectorTrainer step card against CPU (256^2, B =
+           2); the eval CLI with --detector (threshold 0: 12 short K1
+           forwards and 1 K2 a pose forward) and with --bottomup (no
+           kernel); TopDownPredictor(detector=).predict_frame and
+           FusedTwoStagePredictor (8 slots) on 1080 x 1920 frames, f32 fused
+           slots against the two-stage poses and the fused kernels against
+           the plain versions within KPT_TOL_PX, the fused device path under
+           torch.cuda.set_sync_debug_mode("error"), bf16 launches; the
+           server in process with a detector, a bottom-up and a fused model;
+           the video CLI with --detector, --detector --fused and --bottomup;
+           the flagship's ProbMap model on a conv-s trunk at 1, 8 and 64
+           crops (0 K1, 1 K2 a forward; f32 kernels vs plain); `python -m
+           probpose_pytorch_tpu_torch.doctor` exits 0. Then, not gated: the
+           detector's and bottom-up model's step at B = 16, 512^2, their
+           serving frames/s, two-stage against fused frames/s at 1080p in
+           turns, the conv-s pose model's crops/s, peak memory and the
+           phase's wall time
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -211,8 +238,9 @@ Every failure ends the run with a non-zero exit and no result line. The
 last three lines are the card's name and power limit, a JSON summary of
 the kernels (launches on the main paths and, as `eval_launches`, in phase
 10's three eval runs, as `finetune_launches`, in each of phase 11's runs,
-as `frontend_launches`, summed over phase 12's runs, and as
-`phase13_launches`, in each of phase 13's runs; K4's entries carry its
+as `frontend_launches`, summed over phase 12's runs, as
+`phase13_launches`, in each of phase 13's runs, and as `phase14_launches`,
+in each of phase 14's counted runs; K4's entries carry its
 numbers at the fieldsynth step's shape and K2's at its rows), error against the
 plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
@@ -3397,6 +3425,522 @@ def phase13(torch, dev, card: str, g) -> tuple[dict, dict]:
     return launches, shapes
 
 
+# ------------------------------------------------------------------ phase 14
+# The detector and bottom-up family: the detect CLI, eval, standalone and
+# fused serving, the server, the video CLI, a conv-trunk pose model, doctor.
+DET_TRAIN_FRAMES = 32
+DET_VAL_FRAMES = 16
+DET_FRAME_HW = (480, 480)
+DET_IMG = 512
+DET_BATCH = 16
+DET_STEPS = 3
+DET_PRESET = "conv-s"
+# The f32 DetectorTrainer step card vs CPU runs at this input (its CPU half
+# costs seconds a step at 512).
+DET_F32_IMG = 256
+FUSED_PEOPLE = 8
+FUSED_FRAMES = 4  # frames a dispatch in the two-stage vs fused timing
+DET_VIDEO_FRAMES = 6
+# Card vs CPU: an f32 forward of the same weights, normwise relative error.
+DET_FWD_REL_TOL = 1e-5
+
+
+def det_cli_run(torch, card: str, label: str, root: Path, out: Path, extra=()) -> tuple:
+    """`python -m probpose_pytorch_tpu_torch.detect.train` (on the card, its
+    default) at DET_PRESET, DET_IMG, DET_BATCH for DET_STEPS steps: finite
+    losses, detector.json and checkpoints/DET_STEPS. Returns (logged terms,
+    wall s)."""
+    from probpose_pytorch_tpu_torch.detect import train as detect_train
+
+    args = ["--data-root", str(root), "--out", str(out), "--steps", str(DET_STEPS),
+            "--batch-size", str(DET_BATCH), "--img-size", str(DET_IMG), "--preset", DET_PRESET,
+            "--log-every", "1", "--num-workers", "4", *extra]
+    say(f"phase 14: python -m probpose_pytorch_tpu_torch.detect.train {' '.join(args)}")
+    t0 = time.perf_counter()
+    logged = detect_train.main(args)
+    wall = time.perf_counter() - t0
+    check(len(logged) == DET_STEPS and all(np.isfinite(v) for t in logged for v in t.values()),
+          f"{label}: a loss is not finite: {logged}")
+    check((out / "detector.json").is_file() and (out / "checkpoints" / str(DET_STEPS)).is_file(),
+          f"{label}: no detector.json or checkpoints/{DET_STEPS}")
+    say(f"phase 14 [{card}]: {label} CLI: {DET_STEPS} steps in {wall:.2f} s wall (build, data "
+        f"and checkpoint included); last terms {logged[-1]}")
+    return logged, wall
+
+
+def check_restored(torch, label: str, model, ckpt: Path) -> None:
+    """The loaded model holds the checkpoint's tensors bit for bit."""
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    named = {**saved["params"], **saved["buffers"]}
+    bad = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), named[k])]
+    check(not bad, f"{label}: restored tensors differ: {bad[:3]}")
+
+
+def det_f32_model(torch, state: dict, dev, **kw):
+    """An f32 PersonDetector of DET_PRESET with `state`, in eval mode."""
+    from probpose_pytorch_tpu_torch.detect.model import PersonDetector
+
+    model = PersonDetector(img_size=(DET_IMG, DET_IMG), preset=DET_PRESET, dtype=torch.float32,
+                           **kw)
+    model.load_state_dict(state)
+    return model.to(dev).eval()
+
+
+def phase14_card_vs_cpu(torch, dev, card: str, bu_model) -> None:
+    """Phase 14 (3, 4): the f32 bottom-up model (every head) on the card
+    against the CPU, TF32 off; decode_boxes and decode_poses on the same
+    maps, card against CPU; an f32 DetectorTrainer step, card against CPU."""
+    from probpose_pytorch_tpu_torch.detect import DetectorTrainer
+    from probpose_pytorch_tpu_torch.detect.codec import decode_boxes, decode_poses
+
+    state = {k: v.cpu() for k, v in bu_model.state_dict().items()}
+    kw = dict(num_keypoints=17, kpt_heatmaps=True)
+    card_m, cpu_m = det_f32_model(torch, state, dev, **kw), det_f32_model(torch, state, "cpu", **kw)
+    x = torch.rand(1, DET_IMG, DET_IMG, 3, generator=torch.Generator().manual_seed(140))
+    with torch.no_grad():
+        ref, out = cpu_m(x), card_m(x.to(dev))
+    rels = {k: ((out[k].cpu() - ref[k]).norm() / ref[k].norm()).item() for k in ref}
+    say(f"phase 14: f32 {DET_PRESET} bottom-up forward at {DET_IMG}^2, card vs CPU, normwise "
+        f"relative error per map: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f" (tolerance {DET_FWD_REL_TOL:g})")
+    check(max(rels.values()) <= DET_FWD_REL_TOL, f"f32 detector forward card vs CPU: {rels}")
+    maps = {k: v.cpu() for k, v in ref.items()}
+    on = {k: v.to(dev) for k, v in maps.items()}
+    # The peaks' cells decide boxes and poses: equal. Scores are sigmoids,
+    # whose CUDA and CPU versions may differ by an ulp: within two.
+    box_args = ("center", "size", "offset")
+
+    def pose_args(m):
+        return dict(center_logits=m["center"], size=m["size"], offset=m["offset"],
+                    kpts=m["kpts"], kpt_heat=m["kpt_heat"], kpt_offset=m["kpt_offset"])
+
+    outs = {"decode_boxes": (decode_boxes(*(on[k] for k in box_args), k=64),
+                             decode_boxes(*(maps[k] for k in box_args), k=64), ("boxes",)),
+            "decode_poses": (decode_poses(**pose_args(on), k=32),
+                             decode_poses(**pose_args(maps), k=32), ("boxes", "", "poses"))}
+    serr = 0.0
+    for fn, (got, want, exact) in outs.items():
+        for i, (o, r) in enumerate(zip(got, want)):
+            if i < len(exact) and exact[i]:
+                check(torch.equal(o.cpu(), r), f"{fn} {exact[i]} on the card differ from the CPU's")
+            else:
+                rel = ((o.cpu() - r).abs() / r.abs().clamp_min(1e-30)).max().item()
+                serr = max(serr, rel)
+                check(rel <= 2.4e-7, f"{fn} scores differ by {rel:.2e} relative")
+    say(f"phase 14: decode_boxes (k = 64) and decode_poses (k = 32, snap) on the card: boxes "
+        f"and poses equal to the CPU's; scores within {serr:.1e} relative (2 ulps: 2.4e-7)")
+
+    # One f32 step each side from the same weights (card_m's), B = 2.
+    rng = np.random.default_rng(141)
+    H = W = DET_F32_IMG + 64
+    boxes = np.concatenate([rng.uniform(0, 0.6 * W, (2, 4, 2)),
+                            rng.uniform(30, 0.4 * W, (2, 4, 2))], -1).astype(np.float32)
+    kp = boxes[..., None, :2] + rng.uniform(0, 1, (2, 4, 17, 2)) * boxes[..., None, 2:]
+    batch = dict(frame=rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8), boxes=boxes,
+                 box_mask=np.ones((2, 4), np.float32),
+                 ignore_boxes=np.zeros((2, 2, 4), np.float32), ignore_mask=np.zeros((2, 2),
+                                                                                    np.float32),
+                 keypoints=np.concatenate([kp, np.full((2, 4, 17, 1), 2.0)], -1).astype(
+                     np.float32))
+    trainers = [DetectorTrainer.create(img_size=(DET_F32_IMG, DET_F32_IMG), preset=DET_PRESET,
+                                       total_steps=40, num_keypoints=17, kpt_heatmaps=True,
+                                       dtype=torch.float32, device=d) for d in (dev, "cpu")]
+    for t in trainers:
+        t.model.load_state_dict(state)
+    terms = [t.train_step(batch) for t in trainers]
+    rel = {k: abs(terms[0][k].item() - terms[1][k].item()) / abs(terms[1][k].item())
+           for k in terms[1]}
+    lr0 = float(trainers[1].tx.schedule(torch.tensor(0)))
+    sd_card = trainers[0].model.state_dict()
+    pdiff = max((sd_card[n].cpu() - v).abs().max().item()
+                for n, v in trainers[1].model.state_dict().items()
+                if v.is_floating_point() and "running" not in n)
+    sdiff = max((sd_card[n].cpu() - v).abs().max().item() / max(1.0, v.abs().max().item())
+                for n, v in trainers[1].model.state_dict().items() if "running" in n)
+    say(f"phase 14: f32 DetectorTrainer step ({DET_PRESET}, {DET_F32_IMG}^2, B = 2, 17 joints "
+        f"with heat heads), card vs CPU: loss terms relative "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (tolerance 1e-4); params max diff {pdiff:.2e} (Adam's bound 2 lr = {2 * lr0:.2e}); "
+        f"BN statistics {sdiff:.2e} of their scale (1e-4)")
+    check(max(rel.values()) <= 1e-4, f"f32 detector step loss terms: {rel}")
+    check(pdiff <= 2 * lr0 * 1.01, f"f32 detector step params differ by {pdiff}")
+    check(sdiff <= 1e-4, f"f32 detector step BN statistics differ by {sdiff}")
+
+
+def phase14_eval(torch, card: str, root: Path, det_run: Path, bu_run: Path) -> dict:
+    """Phase 14 (5): the eval CLI with --detector (phase 9's checkpoint,
+    threshold 0) and with --bottomup; JAX's keys, AP/AR finite in [0, 1];
+    12 short K1 forwards and 1 K2 a pose forward, none with --bottomup."""
+    from probpose_pytorch_tpu_torch.eval import run as eval_run
+
+    ann, images = root / "annotations" / "person_keypoints_val2017.json", root / "val2017"
+    raw = json.loads(ann.read_text())
+    n_images = len({a["image_id"] for a in raw["annotations"]})
+    keys = set(EVAL_AP_KEYS) | {"det_ap50", "det_recall50"}
+    out = {}
+    for label, args, extra_keys in (
+            ("eval_detector", ["--checkpoint", str(RUN_DIR / "recipe" / "checkpoints"),
+                               "--detector", str(det_run), "--detector-threshold", "0"],
+             {"det_per_image"}),
+            ("eval_bottomup", ["--bottomup", str(bu_run), "--detector-threshold", "0"], set())):
+        argv = args + ["--annotations", str(ann), "--images", str(images)]
+        say(f"phase 14: python -m probpose_pytorch_tpu_torch.eval.run {' '.join(argv)}")
+        reset_counts()
+        t0 = time.perf_counter()
+        line = eval_run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(set(line) == keys | extra_keys, f"{label}: keys {sorted(line)}")
+        check(all(np.isfinite(line[k]) and 0.0 <= line[k] <= 1.0
+                  for k in keys if not k.startswith("det_per")), f"{label}: {line}")
+        if label == "eval_detector":
+            dispatches = n_images * -(-64 // frontend_buckets()[-1])
+            say(f"phase 14: {label}: {dispatches} pose forwards ({n_images} images, 64 "
+                f"detections each at threshold 0)")
+            check_attention_route(counts, 12 * dispatches, 0, phase=14)
+            check(counts["k2"] == dispatches, f"{label}: K2 {counts['k2']} != {dispatches}")
+        else:
+            check(all(v == 0 for v in counts.values()),
+                  f"{label}: the single-stage model launched a kernel: {counts}")
+        check_no_other_kernel(counts, label)
+        say(f"phase 14 [{card}]: {label}: {wall:.2f} s wall; launches {counts}; line {line}")
+        out[label] = counts
+    return out
+
+
+def phase14_standalone(torch, dev, card: str, det_run: Path) -> dict:
+    """Phase 14 (6): TopDownPredictor(detector=).predict_frame(frame) and
+    FusedTwoStagePredictor at FUSED_PEOPLE slots on 1080 x 1920 frames:
+    in f32 each fused slot against the two-stage pose for its box and the
+    kernels against the plain versions, within KPT_TOL_PX on well-defined
+    keypoints; the fused device path under set_sync_debug_mode("error");
+    bf16 launches; then two-stage against fused frames/s, in turns."""
+    from probpose_pytorch_tpu_torch.detect import (
+        DetectorPredictor,
+        FusedTwoStagePredictor,
+        load_detector,
+    )
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    recipe = RUN_DIR / "recipe"
+    det = load_detector(det_run / "checkpoints", score_threshold=0.0, max_detections=64)
+    pose = load_predictor(recipe / "checkpoints", device=dev)
+    det32 = DetectorPredictor(det_f32_model(torch, {k: v.cpu() for k, v in
+                                                   det.model.state_dict().items()}, dev),
+                              score_threshold=0.0, max_detections=64)
+    cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
+                                compute_dtype="float32")
+    model32 = build_model(cfg32, dev)
+    model32.load_state_dict(pose.model.state_dict())
+    peak_heatmap_branch(torch, model32)
+    pose32 = TopDownPredictor(model32, pose.codec, pose.input_size)
+    heat32 = TopDownPredictor(model32, pose.codec, pose.input_size, return_heatmaps=True,
+                              detector=det32)
+    rng = np.random.default_rng(142)
+    frames = rng.integers(0, 256, (2, *FRAME_HW, 3), dtype=np.uint8)
+    fused32 = FusedTwoStagePredictor(det32, pose32, max_people=FUSED_PEOPLE, score_threshold=0.0)
+    out = fused32(frames)
+    kerr = 0.0
+    n_sel = n_all = 0
+    for b in range(len(frames)):
+        two = heat32.predict_frame(frames[b], detector_threshold=0.0)
+        check(len(two["boxes"]) == 64, f"two-stage kept {len(two['boxes'])} of 64 boxes")
+        berr = float(np.abs(out["boxes"][b] - two["boxes"][:FUSED_PEOPLE]).max())
+        check(berr <= 1e-3, f"fused crop boxes differ from the two-stage ones by {berr} px")
+        sel = well_defined(torch, pose.codec, two["heatmaps"][:FUSED_PEOPLE], dev)
+        kerr = max(kerr, float(np.abs(out["keypoints"][b] - two["keypoints"][:FUSED_PEOPLE])
+                               [sel].max(initial=0.0)))
+        n_sel, n_all = n_sel + int(sel.sum()), n_all + sel.size
+    with plain_versions():
+        plain = fused32(frames)
+    ids = np.repeat(np.arange(len(frames)), FUSED_PEOPLE)
+    hm = heat32(frames, out["boxes"].reshape(-1, 4), ids)["heatmaps"]
+    sel = well_defined(torch, pose.codec, hm, dev).reshape(len(frames), FUSED_PEOPLE, -1)
+    perr = float(np.abs(out["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
+    say(f"phase 14: f32 fused ({FUSED_PEOPLE} slots) vs two-stage predict_frame on "
+        f"{len(frames)} frames of {FRAME_HW[0]} x {FRAME_HW[1]}: keypoints max diff {kerr:.3e} px "
+        f"over {n_sel}/{n_all} well-defined; fused kernels vs plain {perr:.3e} px over "
+        f"{int(sel.sum())}/{sel.size} (tolerance {KPT_TOL_PX:g})")
+    check(n_sel > n_all / 2 and sel.mean() > 0.5, "too few keypoints with a well-defined argmax")
+    check(kerr <= KPT_TOL_PX, f"fused keypoints differ from the two-stage ones by {kerr} px")
+    check(perr <= KPT_TOL_PX, f"fused kernels differ from plain by {perr} px")
+
+    # bf16: launches, the sync check, and times in turns.
+    fused = FusedTwoStagePredictor(det, pose, max_people=FUSED_PEOPLE, score_threshold=0.0)
+    pose.detector = det
+    batch = rng.integers(0, 256, (FUSED_FRAMES, *FRAME_HW, 3), dtype=np.uint8)
+    f_dev = torch.from_numpy(batch).to(dev)
+    fused.predict(f_dev)  # warm: builds the codec's constants on the card
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = fused.predict(f_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(res["keypoints"].shape == (FUSED_FRAMES, FUSED_PEOPLE, 17, 2)
+          and bool(torch.isfinite(res["keypoints"]).all()), "fused bf16 outputs")
+    say(f"phase 14: the fused device path ({FUSED_FRAMES} frames) ran under "
+        f"set_sync_debug_mode('error'): no host synchronisation between its stages")
+    check_attention_route(counts, 12, 0, phase=14)
+    check(counts["k2"] == 1, f"fused: K2 {counts['k2']} != 1")
+    launches = {"fused": counts}
+    two_counts = {}
+    _, two_counts = counted(torch, {}, lambda: pose.predict_frame(batch[0],
+                                                                  detector_threshold=0.0))
+    check_attention_route(two_counts, 12, 0, phase=14)
+    check(two_counts["k2"] == 1, "two-stage: K2 did not run once")
+    launches["two_stage"] = two_counts
+
+    def two_stage():
+        for f in batch:
+            boxes = pose.predict_frame(f, detector_threshold=0.0)["boxes"]
+            check(len(boxes) == 64, "two-stage boxes")
+    run_fused = lambda: fused(batch)  # noqa: E731
+    times = {}
+    for name, fn in (("two-stage", two_stage), ("fused", run_fused), ("fused", run_fused),
+                     ("two-stage", two_stage)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(3 * FUSED_FRAMES / (time.perf_counter() - t0))
+    say(f"phase 14 [{card}]: bf16 at {FRAME_HW[0]} x {FRAME_HW[1]}, from host numpy: two-stage "
+        f"predict_frame (64 detections a frame, one pose dispatch each) "
+        f"{np.mean(times['two-stage']):.2f} frames/s, fused ({FUSED_PEOPLE} slots, "
+        f"{FUSED_FRAMES} frames a dispatch) {np.mean(times['fused']):.2f} frames/s (host clock, "
+        f"3 calls, two-stage, fused, fused, two-stage: {times})")
+    return launches
+
+
+def phase14_server(torch, dev, det_run: Path, bu_run: Path) -> None:
+    """Phase 14 (7): PoseHTTPServer in this process with a detector, a
+    bottom-up and a fused model: requests without boxes answered with the
+    right shapes, fused rows with det_scores."""
+    import base64
+
+    from probpose_pytorch_tpu_torch.detect import (
+        FusedTwoStagePredictor,
+        load_bottomup,
+        load_detector,
+    )
+    from probpose_pytorch_tpu_torch.inference import load_predictor
+    from probpose_pytorch_tpu_torch.serve import MicroBatcher, PoseHTTPServer
+    from probpose_pytorch_tpu_torch.serve.server import BottomUpRunner, FusedRunner
+
+    det = load_detector(det_run / "checkpoints", score_threshold=0.0)
+    pose = load_predictor(RUN_DIR / "recipe" / "checkpoints", device=dev)
+    bu = load_bottomup(bu_run, score_threshold=0.0)
+    fused = FusedTwoStagePredictor(det, load_predictor(RUN_DIR / "recipe" / "checkpoints",
+                                                       device=dev),
+                                   max_people=FUSED_PEOPLE, score_threshold=0.0)
+    batchers = {"pose": MicroBatcher(pose, frontend_buckets(), FRAME_HW, indexed=True),
+                "bu": MicroBatcher(BottomUpRunner(bu), (1, 2, 4, 8), FRAME_HW),
+                "fused": MicroBatcher(FusedRunner(fused), (1, 2, 4), FRAME_HW)}
+    srv = PoseHTTPServer(batchers, host="127.0.0.1", port=0, detector=det)
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}/predict"
+        frame = np.random.default_rng(143).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+        b64 = base64.b64encode(frame.tobytes()).decode()
+        shapes = {}
+        for model, K in (("pose", 17), ("bu", 17), ("fused", 17)):
+            body = json.dumps({"frame_b64": b64, "shape": list(frame.shape),
+                               "model": model}).encode()
+            status, out = post_json(url, body)
+            check(status == 200, f"server {model}: {status} {out}")
+            n = len(out["keypoints"])
+            want = {"pose": 64, "bu": 32, "fused": FUSED_PEOPLE}[model]
+            check(n == want and np.asarray(out["keypoints"]).shape == (n, K, 2)
+                  and np.isfinite(np.asarray(out["keypoints"], np.float32)).all(),
+                  f"server {model}: keypoints {np.asarray(out['keypoints']).shape}")
+            check(len(out["boxes"]) == n, f"server {model}: boxes")
+            if model == "fused":
+                check(len(out["det_scores"]) == n, "server fused: no det_scores")
+            shapes[model] = sorted(out)
+        say(f"phase 14: the server in process answered whole-frame requests: top-down with the "
+            f"detector 64 poses, bottom-up 32, fused {FUSED_PEOPLE} with det_scores; keys "
+            f"{shapes}")
+    finally:
+        srv.shutdown()
+
+
+def phase14_video(torch, dev, card: str, det_run: Path, bu_run: Path) -> None:
+    """Phase 14 (8): the video CLI with --detector (per frame), --detector
+    --fused, and --bottomup on a short clip: a record per frame of the
+    right shape."""
+    from probpose_pytorch_tpu_torch import video
+
+    work = RUN_DIR / "phase14_video"
+    work.mkdir(parents=True, exist_ok=True)
+    frames, _ = video_input(DET_VIDEO_FRAMES, 144)
+    np.save(work / "frames.npy", frames)
+    ckpt = str(RUN_DIR / "recipe" / "checkpoints")
+    for label, args, n in (
+            ("--detector", ["--checkpoint", ckpt, "--detector", str(det_run / "checkpoints")], 64),
+            ("--detector --fused", ["--checkpoint", ckpt, "--detector",
+                                    str(det_run / "checkpoints"), "--fused", "--max-people",
+                                    str(FUSED_PEOPLE)], FUSED_PEOPLE),
+            ("--bottomup", ["--bottomup", str(bu_run)], 32)):
+        out = work / label.replace(" ", "").replace("-", "_")
+        argv = args + ["--frames", str(work / "frames.npy"), "--detector-threshold", "0",
+                       "--nms", "none", "--out", str(out)]
+        say(f"phase 14: python -m probpose_pytorch_tpu_torch.video {' '.join(argv)}")
+        t0 = time.perf_counter()
+        video.main(argv)
+        wall = time.perf_counter() - t0
+        recs = [json.loads(x) for x in (out / "poses.jsonl").read_text().splitlines()]
+        check(len(recs) == DET_VIDEO_FRAMES, f"video {label}: {len(recs)} records")
+        for r in recs:
+            k = np.asarray(r["keypoints"], np.float32)
+            check(k.shape == (n, 17, 2) and np.isfinite(k).all()
+                  and np.asarray(r["boxes"]).shape == (n, 4), f"video {label}: {k.shape}")
+        say(f"phase 14 [{card}]: video CLI {label}: {DET_VIDEO_FRAMES} frames of {VIDEO_HW[0]} x "
+            f"{VIDEO_HW[1]}, {n} poses a frame, {wall:.2f} s wall (loads included)")
+
+
+def phase14_conv_pose(torch, dev, card: str) -> dict:
+    """Phase 14 (9): the flagship's ProbMap model on a conv-s trunk answers
+    requests of REQUEST_SIZES crops with 0 K1 and 1 K2 a forward; its f32
+    kernel path equals the plain one within KPT_TOL_PX."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
+    from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
+
+    block = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())["model"]
+    cfg = ModelConfig(**dict(block, backbone="conv-s"))
+    model = build_model(cfg, dev, seed=14)
+    codec = make_codec(cfg)
+    pred = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
+    requests = [request(140 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    answers, counts = counted(torch, {}, lambda: [pred(f, b) for f, b in requests])
+    check_answers(cfg, requests, answers, phase=14)
+    say(f"phase 14: conv-s pose model, {len(requests)} forwards: launches {counts}")
+    check(counts["k2"] == len(requests), "conv-s pose: K2 did not run once a forward")
+    check(all(v == 0 for k, v in counts.items() if k != "k2"), f"conv-s pose ran {counts}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32, dev)
+    model32.load_state_dict(model.state_dict())
+    peak_heatmap_branch(torch, model32)
+    pred32 = TopDownPredictor(model32, codec, cfg.img_size, return_heatmaps=True)
+    frames, boxes = requests[-1]
+    kern = pred32(frames, boxes)
+    with plain_versions():
+        plain = pred32(frames, boxes)
+    sel = well_defined(torch, codec, plain["heatmaps"], dev)
+    kerr = float(np.abs(kern["keypoints"] - plain["keypoints"])[sel].max(initial=0.0))
+    say(f"phase 14: f32 conv-s pose model, kernels vs plain, {len(frames)} crops: keypoint max "
+        f"diff {kerr:.3e} px over {int(sel.sum())}/{sel.size} well-defined (tolerance "
+        f"{KPT_TOL_PX:g})")
+    check(sel.mean() > 0.5, "too few keypoints with a well-defined argmax")
+    check(kerr <= KPT_TOL_PX, f"f32 conv-s keypoints differ by {kerr} px")
+    f_dev, b_dev = (torch.from_numpy(a).to(dev) for a in request(149, SERVE_BATCH))
+    pred.return_heatmaps = False
+    ms = cuda_ms(torch, lambda: pred.predict(f_dev, b_dev), iters=10)
+    say(f"phase 14 [{card}]: conv-s pose model serving B = {SERVE_BATCH}, frames on the card: "
+        f"{ms:.3f} ms a batch = {SERVE_BATCH / ms * 1e3:.1f} crops/s (CUDA events, mean of 10)")
+    return counts
+
+
+def phase14_times(torch, dev, card: str, root: Path, det_run: Path, bu_run: Path) -> None:
+    """Phase 14, not gated: the detector's and the bottom-up model's bf16
+    step at B = DET_BATCH, DET_IMG^2 (host clock, the batch decoded
+    beforehand), their serving frames/s, and peak memory."""
+    from probpose_pytorch_tpu_torch.data.pipeline import batch_iterator
+    from probpose_pytorch_tpu_torch.detect import (
+        DetectorTrainer,
+        FrameDetectionDataset,
+        load_bottomup,
+        load_detector,
+    )
+
+    ann, images = root / "annotations" / "person_keypoints_train2017.json", root / "train2017"
+    for label, K in (("detector", 0), ("bottom-up", 17)):
+        ds = FrameDetectionDataset(ann, images, num_keypoints=K)
+        batch = next(batch_iterator(ds, DET_BATCH, num_workers=4))
+        trainer = DetectorTrainer.create(img_size=(DET_IMG, DET_IMG), preset=DET_PRESET,
+                                         num_keypoints=K, kpt_heatmaps=bool(K))
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        say(f"phase 14 [{card}]: bf16 {label} step ({DET_PRESET}, {DET_IMG}^2, B = {DET_BATCH}, "
+            f"frames {DET_FRAME_HW[0]} x {DET_FRAME_HW[1]} resized on the card): {ms:.3f} ms a "
+            f"step = {DET_BATCH / ms * 1e3:.1f} frames/s (host clock, mean of 5); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del trainer
+    frames = torch.from_numpy(np.random.default_rng(145).integers(
+        0, 256, (DET_BATCH, *DET_FRAME_HW, 3), dtype=np.uint8)).to(dev)
+    for label, pred in (("detector", load_detector(det_run / "checkpoints")),
+                        ("bottom-up", load_bottomup(bu_run))):
+        ms = cuda_ms(torch, lambda: pred.predict(frames), iters=10)
+        say(f"phase 14 [{card}]: bf16 {label} serving B = {DET_BATCH} frames of "
+            f"{DET_FRAME_HW[0]} x {DET_FRAME_HW[1]} on the card (resize, forward, decode): "
+            f"{ms:.3f} ms = {DET_BATCH / ms * 1e3:.1f} frames/s (CUDA events, mean of 10)")
+
+
+def phase14_doctor(card: str) -> None:
+    """Phase 14 (10): `python -m probpose_pytorch_tpu_torch.doctor` exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "probpose_pytorch_tpu_torch.doctor"],
+                          capture_output=True, text=True, cwd=REPO, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    for line in proc.stdout.strip().splitlines():
+        say(f"  doctor: {line}")
+    check(proc.returncode == 0, f"doctor exited {proc.returncode}: {proc.stderr[-2000:]}")
+    say(f"phase 14 [{card}]: doctor exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def phase14(torch, dev, card: str) -> dict:
+    """Phase 14: the detector and bottom-up family on a generate_coco_synth
+    set the phase writes and phase 9's checkpoint; returns its runs'
+    launch counts."""
+    from probpose_pytorch_tpu_torch.data import generate_coco_synth
+    from probpose_pytorch_tpu_torch.detect import load_bottomup, load_detector
+
+    t_phase = time.perf_counter()
+    work = RUN_DIR / "phase14"
+    root = generate_coco_synth(work / "coco", DET_TRAIN_FRAMES, DET_VAL_FRAMES, DET_FRAME_HW,
+                               seed=14)
+    det_run, bu_run = work / "detector", work / "bottomup"
+    det_cli_run(torch, card, "detector", root, det_run)
+    det = load_detector(det_run / "checkpoints")
+    check_restored(torch, "load_detector", det.model, det_run / "checkpoints" / str(DET_STEPS))
+    det_cli_run(torch, card, "bottom-up", root, bu_run, ("--keypoints", "17", "--kpt-heatmaps"))
+    bu = load_bottomup(bu_run)
+    check_restored(torch, "load_bottomup", bu.model, bu_run / "checkpoints" / str(DET_STEPS))
+    check(bu.model.kpt_heatmaps and bu.model.num_keypoints == 17, "load_bottomup's heads")
+    say("phase 14: load_detector and load_bottomup restored the CLI's checkpoints bit for bit")
+    phase14_card_vs_cpu(torch, dev, card, bu.model)
+    del det, bu
+    launches = phase14_eval(torch, card, root, det_run, bu_run)
+    launches.update(phase14_standalone(torch, dev, card, det_run))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase14_server(torch, dev, det_run, bu_run)
+    phase14_video(torch, dev, card, det_run, bu_run)
+    launches["conv_pose"] = phase14_conv_pose(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase14_times(torch, dev, card, root, det_run, bu_run)
+    phase14_doctor(card)
+    say(f"phase 14: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -3470,7 +4014,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 13, then the kernels line and the result line."""
+    """Phases 0 to 14, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -3703,6 +4247,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     recipes13, fieldsynth = phase13(torch, dev, card, g)
 
+    # --------------------------------------------------------------- phase 14
+    gc.collect()
+    torch.cuda.empty_cache()
+    detectors14 = phase14(torch, dev, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -3782,6 +4331,8 @@ def run(torch) -> None:
         entry["frontend_launches"] = frontend.get(eval_counter[entry["name"]], 0)
         entry["phase13_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in recipes13.items()}
+        entry["phase14_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in detectors14.items()}
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,7 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     ops/preprocess.py     crop_resize ("bilinear_matmul"), keypoint maps
     models/vit.py         ViTBackbone; attention goes through kernel K1
     models/head.py        ProbMapHead; sparsemax goes through kernel K2
+    models/convnet.py     ConvBackbone, the conv-s / conv-t trunks
     models/model.py       ModelConfig, ProbPoseModel, build_model
     ops/heatmap.py        expected-value decode, PCK distances
     ops/probmaps.py       OKS target maps (encode)
@@ -27,6 +28,11 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     eval/                 COCO keypoint AP, calibration, results files,
                           evaluate_topdown and the eval CLI (run.py)
     viz.py                keypoint overlays and reliability diagrams
+    detect/               the person detector (CenterNet heads on the conv
+                          trunk), its codec, loss, data, trainer and CLI,
+                          DetectorPredictor, the single-stage BottomUpPredictor,
+                          FusedTwoStagePredictor and the end-to-end evals
+    doctor.py             the environment self-check
     ops/augment.py        on-device augmentation: draws and transforms
     data/                 synthetic poses, COCO and YOLO loaders, the crop
                           cache, batching and prefetch (host)

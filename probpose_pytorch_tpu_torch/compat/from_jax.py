@@ -2,7 +2,8 @@
 
 `load_jax_variables(model, params, batch_stats)` takes the JAX model's
 `variables["params"]` and `variables["batch_stats"]` as nested dicts of
-numpy arrays (no jax needed here) and loads them into a `ProbPoseModel`.
+numpy arrays (no jax needed here) and loads them into a `ProbPoseModel`
+(ViT or conv trunk) or a `PersonDetector`.
 `load_jax_train_state(state, jax_state)` carries a whole JAX `TrainState`
 (after `jax.device_get`) into the port's train/state.py `TrainState`, so a
 run started in JAX continues in the port step for step.
@@ -16,6 +17,7 @@ compat/torch_export.py:
   * BN scale / bias + mean / var        -> BatchNorm2d weight / bias /
                                            running_mean / running_var
   * LoRA `<layer>_lora/{a, b}`          -> `<layer>_lora.{a, b}`, as they are
+  * conv trunk `stage{s}_block{b}`      -> `blocks.{i}`, in stage order
 A masked optax state (`multi_transform` with frozen labels) holds moments
 for the trainable leaves only, `MaskedNode` in the frozen ones' places; it
 carries into the port's masked optimizer state, which holds the same.
@@ -89,6 +91,32 @@ def _count(tree: Tree, stem: str, not_stem: str | None = None) -> int:
     )
 
 
+def _conv_backbone(sd: dict, p: Tree, s: Tree) -> None:
+    """models/convnet.py's trunk: stem, then the blocks in stage order."""
+    q = "backbone."
+    _conv(sd, q + "stem", p["stem"])
+    _bn(sd, q + "stem_bn", p["stem_bn"], s["stem_bn"])
+    names = sorted((k for k in p if k.startswith("stage")),
+                   key=lambda k: tuple(int(v) for v in k[5:].split("_block")))
+    for i, name in enumerate(names):
+        blk, st, b = p[name], s[name], f"{q}blocks.{i}."
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("proj", "proj_bn")):
+            if conv in blk:
+                _conv(sd, b + conv, blk[conv])
+                _bn(sd, b + bn, blk[bn], st[bn])
+
+
+def _detector(sd: dict, p: Tree, s: Tree) -> None:
+    """detect/model.py's PersonDetector: the trunk, then its layers under
+    their flax names."""
+    _conv_backbone(sd, p["backbone"], s["backbone"])
+    for name in p:
+        if name.endswith("_bn"):
+            _bn(sd, name, p[name], s[name])
+        elif name != "backbone":
+            _conv(sd, name, p[name])
+
+
 def _backbone(sd: dict, p: Tree) -> None:
     q = "backbone."
     _conv(sd, q + "patch_embed", p["patch_embed"])
@@ -132,24 +160,33 @@ def _head(sd: dict, p: Tree, s: Tree) -> None:
 
 
 def state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, np.ndarray]:
-    """The port's state dict, as numpy arrays, from a ProbPoseModel's JAX
-    params and batch_stats ({"backbone": ..., "head": ...} each)."""
-    if "blocks" in params["backbone"]:
-        raise NotImplementedError(
-            "stacked pipeline-parallel trunk params are not ported (ROADMAP "
-            "item 13); unstack them with the JAX package's "
-            "compat.unstack_vit_blocks first"
-        )
+    """The port's state dict, as numpy arrays, from the JAX params and
+    batch_stats of a ProbPoseModel ({"backbone": ..., "head": ...} each) or
+    of a PersonDetector (its trunk under "backbone", "center" among its
+    heads)."""
     sd: dict[str, np.ndarray] = {}
-    _backbone(sd, params["backbone"])
-    _head(sd, params["head"], batch_stats["head"])
+    if "head" not in params:
+        _detector(sd, params, batch_stats)
+    elif "stem" in params["backbone"]:
+        _conv_backbone(sd, params["backbone"], batch_stats["backbone"])
+        _head(sd, params["head"], batch_stats["head"])
+    else:
+        if "blocks" in params["backbone"]:
+            raise NotImplementedError(
+                "stacked pipeline-parallel trunk params are not ported (ROADMAP "
+                "item 13); unstack them with the JAX package's "
+                "compat.unstack_vit_blocks first"
+            )
+        _backbone(sd, params["backbone"])
+        _head(sd, params["head"], batch_stats["head"])
     # np.array, not np.ascontiguousarray, which turns 0-d arrays into (1,).
     return {k: np.array(v, order="C") for k, v in sd.items()}
 
 
 def load_jax_variables(model: torch.nn.Module, params: Tree, batch_stats: Tree) -> None:
     """Load JAX `variables["params"]` / `["batch_stats"]` into the port's
-    `ProbPoseModel` in place (strict: every tensor must be matched)."""
+    `ProbPoseModel` or `PersonDetector` in place (strict: every tensor must
+    be matched)."""
     sd = state_dict_from_jax(params, batch_stats)
     ref = model.state_dict()
     tensors = {}

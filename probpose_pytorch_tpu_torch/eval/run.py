@@ -8,14 +8,21 @@ COCO keypoint AP.
     # model-free: re-score a COCO keypoint-results file
     python -m probpose_pytorch_tpu_torch.eval.run \
         --score-predictions preds.json --annotations ... --images ...
+    # end to end with the person detector's boxes (detect.train's run dir)
+    python -m probpose_pytorch_tpu_torch.eval.run --checkpoint ... \
+        --detector runs/detector [--detector-threshold 0.3] --annotations ... --images ...
+    # the single-stage (bottom-up) pose family
+    python -m probpose_pytorch_tpu_torch.eval.run --bottomup runs/bottomup \
+        --annotations ... --images ...
 
 Loads a checkpoint of the port's training CLI (train/checkpoint.py), streams
 the val set through the top-down predictor (inference.py) and prints the
 COCO keypoint summary as one JSON line, with the JAX CLI's keys. It runs on
-the card unless `--device cpu` is given. `--bundle` (ROADMAP item 8),
-`--bottomup` and `--detector` with its `--detector-threshold` (item 10),
-`--data-parallel` and `--model-parallel` (item 13) are not ported and
-raise.
+the card unless `--device cpu` is given. With `--detector` the pose model
+gets the person detector's boxes (detect/pipeline.py:
+evaluate_detector_topdown); `--bottomup` scores a single-stage model
+(evaluate_bottomup). `--bundle` (ROADMAP item 8), `--data-parallel` and
+`--model-parallel` (item 13) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ def main(argv=None) -> dict:
                      help="model-free: re-score a COCO keypoint-results file "
                      "(--dump-predictions output) against the annotations")
     src.add_argument("--bottomup", type=Path, metavar="RUN_DIR",
-                     help="not ported (ROADMAP item 10)")
+                     help="single-stage pose model (detect.train --keypoints run dir): "
+                     "COCO AP of its own detections, no boxes needed")
     parser.add_argument("--config", type=Path, default=None)
     parser.add_argument("--annotations", type=Path, required=True)
     parser.add_argument("--images", type=Path, required=True)
@@ -96,10 +104,10 @@ def main(argv=None) -> dict:
                         help="per-branch temperatures to apply before scoring: a "
                         "--calibration-dump JSON or 'presence=1.8,visibility=1.2'")
     parser.add_argument("--detector", type=Path, default=None,
-                        help="not ported (ROADMAP item 10)")
+                        help="person-detector run directory (detect.train output): score "
+                        "end to end on its boxes instead of the ground-truth boxes")
     parser.add_argument("--detector-threshold", type=float, default=0.3,
-                        help="with --detector: detection score threshold (not ported, "
-                        "ROADMAP item 10)")
+                        help="with --detector / --bottomup: detection score threshold")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported (ROADMAP item 13)")
     parser.add_argument("--model-parallel", type=int, default=1,
@@ -121,10 +129,6 @@ def main(argv=None) -> dict:
 
     if args.bundle is not None:
         raise _unported("--bundle (serving bundles)", 8)
-    if args.bottomup is not None:
-        raise _unported("--bottomup", 10)
-    if args.detector is not None:
-        raise _unported("--detector", 10)
     if args.data_parallel or args.model_parallel != 1:
         raise _unported("--data-parallel / --model-parallel", 13)
 
@@ -134,8 +138,20 @@ def main(argv=None) -> dict:
         line = _rounded(score_results(load_results(args.score_predictions), dataset))
         print(json.dumps(line))
         return line
+    if args.bottomup is not None:
+        from probpose_pytorch_tpu_torch.detect import evaluate_bottomup, load_bottomup
+
+        predictor = load_bottomup(args.bottomup, score_threshold=args.detector_threshold,
+                                  device=args.device)
+        line = _rounded(evaluate_bottomup(predictor, args.annotations, args.images,
+                                          max_images=args.max_samples, verbose=True))
+        print(json.dumps(line))
+        return line
     if args.checkpoint is None:
-        parser.error("one of --checkpoint / --score-predictions is required")
+        parser.error("one of --checkpoint / --score-predictions / --bottomup is required")
+    if args.detector is not None and (args.calibration or args.per_joint or args.dump_worst):
+        parser.error("--detector reports the end-to-end AP summary; --calibration/"
+                     "--per-joint/--dump-worst need the GT-box crop stream (instance-matched GT)")
 
     calibration = (_parse_temperatures(args.apply_temperature)
                    if args.apply_temperature else None)
@@ -149,6 +165,19 @@ def main(argv=None) -> dict:
         calibration=calibration,
         device=args.device,
     )
+    if args.detector is not None:
+        from probpose_pytorch_tpu_torch.detect import evaluate_detector_topdown, load_detector
+
+        det_dir = args.detector
+        if (det_dir / "checkpoints").exists():
+            det_dir = det_dir / "checkpoints"
+        detector = load_detector(det_dir, score_threshold=args.detector_threshold,
+                                 device=args.device)
+        line = _rounded(evaluate_detector_topdown(
+            predictor, detector, args.annotations, args.images, bbox_scale=args.bbox_scale,
+            max_images=args.max_samples, verbose=True))
+        print(json.dumps(line))
+        return line
     dataset = COCOPoseDataset(args.annotations, args.images, predictor.input_size,
                               bbox_scale=args.bbox_scale)
     summary = evaluate_topdown(

@@ -22,8 +22,11 @@ record in configs/autotune_serving.json, keyed by
 `torch.cuda.get_device_name()`, else powers of two), zero-pads the frame to
 `frame_size_multiple` and can run pose OKS-NMS over the results.
 
-Not ported yet: quantisation (`--int8`, ROADMAP item 12), mesh serving
-(item 13) and the detector (`detector=`, item 10).
+With `detector=` (detect/pipeline.py:DetectorPredictor), `predict_frame`
+without boxes runs standalone: the person detector finds the boxes.
+
+Not ported yet: quantisation (`--int8`, ROADMAP item 12) and mesh serving
+(item 13).
 """
 
 from __future__ import annotations
@@ -187,8 +190,6 @@ class TopDownPredictor:
             raise _unported(f"TopDownPredictor(quantize={self.quantize!r})", 12)
         if self.mesh is not None:
             raise _unported("TopDownPredictor(mesh=...)", 13)
-        if self.detector is not None:
-            raise _unported("TopDownPredictor(detector=...)", 10)
         self.model.eval()
 
     @property
@@ -316,10 +317,27 @@ class TopDownPredictor:
         (ops/oks_nms.py), pose score = mean over keypoints of score x
         probability, OKS area = box w*h. Adds "pose_scores" (decayed ones
         under "soft_oks") and "keep", the input-box indices of the kept
-        poses. `detector_threshold` belongs to the detector (item 10)."""
+        poses.
+
+        boxes=None (standalone mode, needs `detector=`): the detector's
+        boxes above `detector_threshold` (default: the detector's own),
+        expanded to the crop aspect (`expand_detections`), are used and
+        returned under "boxes"."""
         if boxes is None:
-            raise ValueError("predict_frame needs boxes, or construct the predictor "
-                             "with detector= for standalone mode")
+            if self.detector is None:
+                raise ValueError("predict_frame needs boxes, or construct the predictor "
+                                 "with detector= for standalone mode")
+            from probpose_pytorch_tpu_torch.detect.pipeline import expand_detections
+
+            det, _ = self.detector.detect_frame(frame, detector_threshold)
+            boxes = expand_detections(det, self.input_size)
+            out = self.predict_frame(frame, boxes, buckets, nms, nms_threshold, nms_sigmas)
+            if out:
+                kept = out.get("keep")
+                out["boxes"] = boxes if kept is None else boxes[kept]
+            else:
+                out = {"boxes": boxes}
+            return out
         if nms is not None:
             raw = self.predict_frame(frame, boxes, buckets)
             if not raw:

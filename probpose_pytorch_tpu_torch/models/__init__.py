@@ -1,1 +1,2 @@
-"""Models of the port: ViT backbone, ProbMap head, their composition."""
+"""Models of the port: ViT and conv backbones, ProbMap and SimCC heads,
+their composition."""

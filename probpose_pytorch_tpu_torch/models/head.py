@@ -36,7 +36,7 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.Conv(dtype=...)` in NCHW: input, kernel and bias in `dtype`."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
-                    padding=layer.padding)
+                    stride=layer.stride, padding=layer.padding)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

@@ -2,11 +2,12 @@
 probpose_pytorch_tpu/models/model.py).
 
 `ModelConfig` takes every key of the JAX `ModelConfig`, so the `model`
-block of any configs/*.json loads as `ModelConfig(**block)`. The head is
-`head_type`'s: the ProbMap heatmap head or the SimCC coordinate
-classifier (models/simcc.py). `build_model` raises `NotImplementedError`
-for the values this port does not run yet, naming the ROADMAP item that
-ports each (`ModelConfig.check_ported`).
+block of any configs/*.json loads as `ModelConfig(**block)`. The trunk is
+a ViT, or with `backbone="conv-s"` / `"conv-t"` the residual conv family
+(models/convnet.py). The head is `head_type`'s: the ProbMap heatmap head
+or the SimCC coordinate classifier (models/simcc.py). `build_model`
+raises `NotImplementedError` for the values this port does not run yet,
+naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from typing import Any
 import torch
 from torch import nn
 
+from probpose_pytorch_tpu_torch.models.convnet import (
+    CONV_PRESETS,
+    ConvBackbone,
+    init_conv_weights,
+)
 from probpose_pytorch_tpu_torch.models.head import ProbMapHead
 from probpose_pytorch_tpu_torch.models.simcc import SimCCHead
 from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
@@ -76,7 +82,6 @@ class ModelConfig:
         """Raise for values the port cannot build yet, naming the ROADMAP
         item that ports each; ValueError for values that are no option."""
         unported = [
-            (self.backbone.startswith("conv"), f"backbone={self.backbone!r}", 10),
             (self.pp_stages > 1, "pp_stages > 1", 13),
             (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
             (any(k != 4 for k in self.deconv_kernel_sizes),
@@ -128,7 +133,7 @@ class ProbPoseModel(nn.Module):
     5-tuple (heatmaps, probability, visibility, oks, error); with the SimCC
     head the first entry is the pair (x_logits, y_logits)."""
 
-    def __init__(self, backbone: ViTBackbone, head: ProbMapHead | SimCCHead):
+    def __init__(self, backbone: ViTBackbone | ConvBackbone, head: ProbMapHead | SimCCHead):
         super().__init__()
         self.backbone = backbone
         self.head = head
@@ -157,13 +162,18 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
     and `b` zero; the SimCC head's 1x1 conv and Linears lecun-normal, as
     flax's defaults draw them), from `generator`. The LoRA factors are
     drawn last, so a LoRA model's base weights are those of the same model
-    without LoRA."""
+    without LoRA. A conv trunk draws as `init_conv_weights` does."""
     # lecun_normal divides by 0.8796, the std of a unit normal truncated at
     # +-2; truncated_normal(0.02) scales the truncated draw as it is.
     lecun = lambda fan_in: 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    if isinstance(model.backbone, ConvBackbone):
+        init_conv_weights(model.backbone, generator)
+        trunk = []
+    else:
+        trunk = model.backbone.named_parameters()
     with torch.no_grad():
         lora = []
-        for name, p in model.backbone.named_parameters():
+        for name, p in trunk:
             if "_lora." in name:
                 lora.append((name, p))
                 continue
@@ -207,13 +217,8 @@ def resolve_device(device: torch.device | str, what: str) -> torch.device:
     return device
 
 
-def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
-                seed: int = 0) -> ProbPoseModel:
-    """The model of `cfg` on `device` (the card unless the caller asks for
-    the CPU), in eval mode, with weights drawn from a `torch.Generator`
-    seeded with `seed`."""
-    device = resolve_device(device, "build_model")
-    cfg.check_ported()
+def _vit_backbone(cfg: ModelConfig) -> tuple[ViTBackbone, int]:
+    """The ViT trunk of `cfg` and the width of its feature grid."""
     vit = ViTConfig.PRESETS[cfg.backbone]
     backbone = ViTBackbone(
         img_size=cfg.img_size,
@@ -233,7 +238,22 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
         lora_rank=cfg.lora_rank,
         lora_alpha=cfg.lora_alpha,
     )
-    feat_ch = cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
+    return backbone, cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
+
+
+def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
+                seed: int = 0) -> ProbPoseModel:
+    """The model of `cfg` on `device` (the card unless the caller asks for
+    the CPU), in eval mode, with weights drawn from a `torch.Generator`
+    seeded with `seed`."""
+    device = resolve_device(device, "build_model")
+    cfg.check_ported()
+    if cfg.backbone.startswith("conv"):
+        channels, blocks = CONV_PRESETS[cfg.backbone]
+        backbone = ConvBackbone(channels, blocks, dtype=cfg.dtype, frozen=cfg.frozen_backbone)
+        feat_ch = backbone.out_channels
+    else:
+        backbone, feat_ch = _vit_backbone(cfg)
     if cfg.head_type == "simcc":
         H, W = cfg.img_size
         head = SimCCHead(

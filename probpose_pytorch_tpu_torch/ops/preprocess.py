@@ -67,13 +67,15 @@ def transform_keypoints(keypoints: torch.Tensor, boxes: torch.Tensor,
                         out_hw: tuple[int, int]) -> torch.Tensor:
     """Frame keypoints (B, K, 2) -> crop coordinates for xywh boxes (B, 4)."""
     H, W = out_hw
-    scale = torch.tensor([W, H], dtype=torch.float32, device=keypoints.device)
-    return (keypoints - boxes[:, None, 0:2]) / boxes[:, None, 2:4] * scale
+    d = (keypoints - boxes[:, None, 0:2]) / boxes[:, None, 2:4]
+    return torch.stack([d[..., 0] * W, d[..., 1] * H], dim=-1)
 
 
 def untransform_keypoints(keypoints: torch.Tensor, boxes: torch.Tensor,
                           out_hw: tuple[int, int]) -> torch.Tensor:
-    """Crop coordinates (B, K, 2) -> frame coordinates (inverse map)."""
+    """Crop coordinates (B, K, 2) -> frame coordinates (inverse map). The
+    crop size divides as Python scalars, which needs no host-to-device copy
+    (a tensor of [W, H] would be one, and would block the host)."""
     H, W = out_hw
-    scale = torch.tensor([W, H], dtype=torch.float32, device=keypoints.device)
-    return keypoints / scale * boxes[:, None, 2:4] + boxes[:, None, 0:2]
+    crop = torch.stack([keypoints[..., 0] / W, keypoints[..., 1] / H], dim=-1)
+    return crop * boxes[:, None, 2:4] + boxes[:, None, 0:2]

@@ -12,11 +12,14 @@ Two layers, separately usable:
 * `PoseHTTPServer` / `main`, a stdlib ThreadingHTTPServer front end:
 
       python -m probpose_pytorch_tpu_torch.serve.server \\
-          --checkpoint runs/flagship/checkpoints --port 8000 [--device cuda]
+          --checkpoint runs/flagship/checkpoints --port 8000 [--device cuda] \\
+          [--detector runs/detector] [--bottomup [NAME=]runs/bottomup] \\
+          [--fused [NAME=]runs/flagship/checkpoints --max-people 8]
 
   POST /predict   {"frame_b64": <base64 raw HxWx3 uint8>,
                    "shape": [H, W, 3], "boxes": [[x,y,w,h], ...],
-                   "model": NAME (optional)}
+                   "model": NAME (optional), "detector_threshold" /
+                   "score_threshold" (optional)}
                   -> {"keypoints": ..., "scores": ..., ...} (JSON lists)
   GET  /healthz   -> {"ok": true}
   GET  /models    -> served model names and the default
@@ -31,9 +34,15 @@ crop i reads frame frame_ids[i].
 
 On a CUDA predictor the dispatcher thread uploads and launches and the
 completion thread downloads, both on the device's current stream, so a
-batch's readback waits for its own work only. Not ported: `--bundle`
-(exported programs, ROADMAP item 8), and the detector, bottom-up and fused
-modes (`--detector`, `--bottomup`, `--fused`, item 10).
+batch's readback waits for its own work only.
+
+With `--detector`, a top-down request may omit "boxes": the handler finds
+the people itself (detect/pipeline.py) and returns the boxes it used.
+`--bottomup` models (one forward per frame, `BottomUpRunner`) and
+`--fused` models (detector -> crops -> pose with the boxes kept on the
+card, `FusedRunner`) take whole frames and no "boxes"; their rows are
+thresholded on "scores" or "det_scores". Not ported: `--bundle` (exported
+programs, ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import numpy as np
 
 from probpose_pytorch_tpu_torch.inference import _unported
 
-__all__ = ["MicroBatcher", "PoseHTTPServer", "main"]
+__all__ = ["BottomUpRunner", "FusedRunner", "MicroBatcher", "PoseHTTPServer", "main"]
 
 # One 4K RGB frame base64-encodes to ~33 MB; 128 MB bounds any sane request
 # while keeping a ThreadingHTTPServer from buffering unbounded bodies.
@@ -356,6 +365,35 @@ class MicroBatcher:
         return out
 
 
+class BottomUpRunner:
+    """The single-stage pose family (detect.BottomUpPredictor) as a
+    MicroBatcher runner: each request is one frame, one batch row; the
+    full-frame box rows the batcher assembles are ignored. `kind` tells the
+    handler to threshold each row on "scores"."""
+
+    kind = "bottomup"
+
+    def __init__(self, predictor):
+        self.predictor = predictor
+        self.score_threshold = float(predictor.score_threshold)
+
+    def _dispatch(self, frames: np.ndarray, boxes: np.ndarray) -> dict:
+        del boxes  # one full-frame row per request: nothing to crop
+        return self.predictor.dispatch(frames)
+
+    @staticmethod
+    def _download(out: dict) -> dict[str, np.ndarray]:
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+class FusedRunner(BottomUpRunner):
+    """The fused two-stage predictor (detect.FusedTwoStagePredictor) as a
+    runner: whole-frame rows like the bottom-up family, detector -> crops
+    -> pose in one dispatch, rows thresholded on "det_scores"."""
+
+    kind = "fused"
+
+
 def _metrics_text(batchers: dict[str, MicroBatcher]) -> str:
     """Prometheus text exposition, one label set per model."""
     lines = ["# TYPE pose_requests_total counter", "# TYPE pose_crops_total counter",
@@ -377,9 +415,12 @@ def _metrics_text(batchers: dict[str, MicroBatcher]) -> str:
 
 
 def _make_handler(batchers: dict[str, MicroBatcher], default: str,
-                  request_timeout_s: float = 300.0):
+                  request_timeout_s: float = 300.0, detector=None):
     # batchers: one MicroBatcher per served model; requests pick one with
     # the JSON "model" field (default: the first configured model).
+    # detector: a detect.DetectorPredictor; top-down requests that omit
+    # "boxes" then detect people in the frame (in the handler's thread),
+    # and the reply carries the boxes used.
     from http.server import BaseHTTPRequestHandler
 
     class Handler(BaseHTTPRequestHandler):
@@ -442,10 +483,33 @@ def _make_handler(batchers: dict[str, MicroBatcher], default: str,
                 self._reply(404, {"error": f"unknown model {model!r} "
                                   f"(serving: {sorted(batchers)})"})
                 return
-            if boxes is None:
+            kind = getattr(batcher.runner, "kind", None)
+            whole = kind in ("bottomup", "fused")
+            if whole:
+                if boxes is not None:
+                    fam = "fused two-stage" if kind == "fused" else "bottom-up"
+                    self._reply(400, {"error": f"{fam} models take whole frames — omit "
+                                      "'boxes' (pass 'score_threshold' to filter)"})
+                    return
+                boxes = np.array([[0.0, 0.0, frame.shape[1], frame.shape[0]]], np.float32)
+            elif boxes is None and detector is None:
                 self._reply(400, {"error": "request has no 'boxes' and the server has "
                                   "no --detector configured"})
                 return
+            detected = None
+            if boxes is None:
+                from probpose_pytorch_tpu_torch.video import detector_boxes
+
+                try:
+                    boxes = detector_boxes(detector, frame, batcher.runner.input_size,
+                                           threshold=req.get("detector_threshold"))
+                except Exception as e:  # noqa: BLE001 — server error -> 500
+                    self._reply(500, {"error": f"detector: {e}"})
+                    return
+                detected = boxes
+                if len(boxes) == 0:
+                    self._reply(200, {"boxes": [], "keypoints": []})
+                    return
             try:
                 fut = batcher.submit(frame, boxes)
             except ValueError as e:
@@ -458,7 +522,16 @@ def _make_handler(batchers: dict[str, MicroBatcher], default: str,
             except Exception as e:  # noqa: BLE001 — server error -> 500
                 self._reply(500, {"error": str(e)})
                 return
-            self._reply(200, {k: v.tolist() for k, v in out.items()})
+            if whole:
+                # one row per request: (1, k, ...) -> the kept (n, ...) slots
+                thr = float(req.get("score_threshold", batcher.runner.score_threshold))
+                keep = out["det_scores" if kind == "fused" else "scores"][0] >= thr
+                payload = {k: v[0][keep].tolist() for k, v in out.items()}
+            else:
+                payload = {k: v.tolist() for k, v in out.items()}
+            if detected is not None:
+                payload["boxes"] = detected.tolist()
+            self._reply(200, payload)
 
     return Handler
 
@@ -468,16 +541,14 @@ class PoseHTTPServer:
     in the calling thread, or `start()` / `shutdown()` for embedding. A dict
     {name: MicroBatcher} serves several models from one port (requests
     route with the JSON "model" field; `default`, else the first name,
-    serves unrouted requests). `detector` is the detector mode of ROADMAP
-    item 10 and is not ported."""
+    serves unrouted requests). With `detector` (a DetectorPredictor),
+    top-down requests may omit "boxes"."""
 
     def __init__(self, batcher, host: str = "0.0.0.0", port: int = 8000,
                  request_timeout_s: float = 300.0, default: str | None = None,
                  detector=None):
         from http.server import ThreadingHTTPServer
 
-        if detector is not None:
-            raise _unported("PoseHTTPServer(detector=...)", 10)
         batchers = {"default": batcher} if isinstance(batcher, MicroBatcher) else dict(batcher)
         if not batchers:
             raise ValueError("no batchers to serve")
@@ -487,7 +558,8 @@ class PoseHTTPServer:
         if default not in batchers:
             raise ValueError(f"default model {default!r} not in {sorted(batchers)}")
         self.httpd = ThreadingHTTPServer((host, port),
-                                         _make_handler(batchers, default, request_timeout_s))
+                                         _make_handler(batchers, default, request_timeout_s,
+                                                       detector))
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
 
@@ -515,11 +587,14 @@ def main(argv=None) -> None:
     parser.add_argument("--bundle", action="append", default=[], metavar="[NAME=]DIR",
                         help="not ported (ROADMAP item 8)")
     parser.add_argument("--bottomup", action="append", default=[], metavar="[NAME=]DIR",
-                        help="not ported (ROADMAP item 10)")
+                        help="single-stage pose model (detect.train --keypoints run dir): "
+                        "requests send whole frames, no 'boxes'; cost is per frame")
     parser.add_argument("--fused", action="append", default=[], metavar="[NAME=]DIR",
-                        help="not ported (ROADMAP item 10)")
+                        help="pose checkpoint composed with --detector into the fused "
+                        "two-stage predictor: requests send whole frames, no 'boxes'; "
+                        "detector -> crops -> pose in one dispatch, boxes kept on the card")
     parser.add_argument("--max-people", type=int, default=8,
-                        help="pose slots per frame for --fused (not ported, ROADMAP item 10)")
+                        help="pose slots per frame for --fused models")
     parser.add_argument("--config", type=Path, default=None)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
@@ -527,12 +602,14 @@ def main(argv=None) -> None:
                         help="H,W all frames are padded to")
     parser.add_argument("--buckets", type=str, default=None,
                         help="comma-separated batch buckets (default: this card's recorded "
-                        "ladder, else its serving batch)")
+                        "ladder, else its serving batch; (1, 2, 4, 8) frames for "
+                        "--bottomup, (1, 2, 4) for --fused)")
     parser.add_argument("--max-wait-ms", type=float, default=5.0)
     parser.add_argument("--detector", type=Path, default=None,
-                        help="not ported (ROADMAP item 10)")
-    parser.add_argument("--detector-threshold", type=float, default=0.3,
-                        help="with --detector (not ported, ROADMAP item 10)")
+                        help="person-detector run directory (detect.train output): "
+                        "top-down requests may omit 'boxes' and the server detects people "
+                        "itself (the reply carries the boxes used)")
+    parser.add_argument("--detector-threshold", type=float, default=0.3)
     parser.add_argument("--ema", action="store_true")
     parser.add_argument("--warmup", action="store_true",
                         help="dispatch every (bucket, frame-count) batch once before "
@@ -541,12 +618,11 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.bundle:
         raise _unported("--bundle", 8)
-    for flag, given in (("--bottomup", args.bottomup), ("--fused", args.fused),
-                        ("--detector", args.detector)):
-        if given:
-            raise _unported(flag, 10)
-    if not args.checkpoint:
-        parser.error("need at least one --checkpoint")
+    if not (args.checkpoint or args.bottomup or args.fused):
+        parser.error("need at least one --checkpoint / --bottomup / --fused")
+    if args.fused and args.detector is None:
+        parser.error("--fused composes a pose checkpoint with the person detector: "
+                     "pass --detector too")
 
     # Graceful stop on SIGTERM (what orchestrators send), installed before
     # the models load so a stop during startup also exits promptly.
@@ -557,6 +633,11 @@ def main(argv=None) -> None:
 
     signal.signal(signal.SIGTERM, _term)
 
+    from probpose_pytorch_tpu_torch.detect import (
+        FusedTwoStagePredictor,
+        load_bottomup,
+        load_detector,
+    )
     from probpose_pytorch_tpu_torch.inference import (
         load_predictor,
         tuned_bucket_ladder,
@@ -564,25 +645,51 @@ def main(argv=None) -> None:
     )
 
     frame_shape = tuple(int(v) for v in args.frame_shape.split(","))
+    multi = len(args.checkpoint) + len(args.bottomup) + len(args.fused) > 1
     batchers: dict[str, MicroBatcher] = {}
-    for i, entry in enumerate(args.checkpoint):
+
+    def add(entry: str, prefix: str, i: int, make, buckets, indexed: bool) -> None:
         name, _, path = entry.rpartition("=")
-        name = name or (f"model{i}" if len(args.checkpoint) > 1 else "default")
+        name = name or (f"{prefix}{i}" if multi else "default")
         if name in batchers:
             raise ValueError(f"duplicate model name {name!r}")
-        predictor = load_predictor(Path(path), args.config, ema=args.ema, device=args.device)
-        buckets = (tuple(int(b) for b in args.buckets.split(",")) if args.buckets
-                   else tuned_bucket_ladder() or (tuned_serving_batch(),))
-        batchers[name] = MicroBatcher(predictor, buckets, frame_shape,
-                                      max_wait_ms=args.max_wait_ms, indexed=True)
-        print(f"model {name!r}: buckets {tuple(buckets)}, frame {frame_shape}, indexed=True, "
-              f"device {predictor.device}", flush=True)
+        runner = make(Path(path))
+        if args.buckets:
+            buckets = tuple(int(b) for b in args.buckets.split(","))
+        batchers[name] = MicroBatcher(runner, buckets, frame_shape,
+                                      max_wait_ms=args.max_wait_ms, indexed=indexed)
+        print(f"model {name!r}: buckets {tuple(buckets)}, frame {frame_shape}, "
+              f"indexed={indexed}", flush=True)
+
+    # Loaded first: live --fused models compose with it, and the handler's
+    # top-down requests without boxes use it.
+    detector = None
+    if args.detector is not None:
+        det_dir = args.detector
+        if (det_dir / "checkpoints").exists():
+            det_dir = det_dir / "checkpoints"
+        detector = load_detector(det_dir, score_threshold=args.detector_threshold,
+                                 max_detections=max(args.max_people, 64), device=args.device)
+        print(f"detector: {det_dir} (threshold {args.detector_threshold})", flush=True)
+    pose = lambda path: load_predictor(path, args.config, ema=args.ema,  # noqa: E731
+                                       device=args.device)
+    ladder = tuned_bucket_ladder() or (tuned_serving_batch(),)
+    for i, entry in enumerate(args.checkpoint):
+        add(entry, "model", i, pose, ladder, True)
+    for i, entry in enumerate(args.bottomup):
+        add(entry, "bottomup", i, lambda path: BottomUpRunner(load_bottomup(
+            path, score_threshold=args.detector_threshold, device=args.device)),
+            (1, 2, 4, 8), False)
+    for i, entry in enumerate(args.fused):
+        add(entry, "fused", i, lambda path: FusedRunner(FusedTwoStagePredictor(
+            detector=detector, pose=pose(path), max_people=args.max_people,
+            score_threshold=args.detector_threshold)), (1, 2, 4), False)
 
     if args.warmup:
         t0 = time.perf_counter()
         n = sum(mb.warmup(verbose=True) for mb in batchers.values())
         print(f"warmed {n} programs in {time.perf_counter() - t0:.1f}s", flush=True)
-    server = PoseHTTPServer(batchers, args.host, args.port)
+    server = PoseHTTPServer(batchers, args.host, args.port, detector=detector)
     print(f"serving {sorted(batchers)} on {args.host}:{server.port} "
           f"(wait {args.max_wait_ms} ms)", flush=True)
     try:

@@ -59,6 +59,7 @@ from probpose_pytorch_tpu_torch.train.config import OptimConfig
 __all__ = [
     "onecycle_schedule",
     "cosine_schedule",
+    "warmup_cosine_decay_schedule",
     "build_schedule",
     "global_norm",
     "Optimizer",
@@ -117,21 +118,20 @@ def onecycle_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
     return schedule
 
 
-def cosine_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
-    """optax.warmup_cosine_decay_schedule(peak_lr / div_factor, peak_lr,
-    warmup, max(total_steps, warmup + 1), peak_lr / final_div_factor) with
-    warmup = max(int(total_steps * pct_start), 1): a linear ramp over the
-    warm-up, then a cosine to the end value over the rest of decay_steps,
-    which counts the warm-up. Rounded as XLA rounds the jitted optax
-    schedule: each division by a constant is a product with the float32
-    reciprocal, and constant factors are folded in float32."""
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0) -> Schedule:
+    """optax.warmup_cosine_decay_schedule(init_value, peak_value,
+    warmup_steps, decay_steps, end_value): a linear ramp over the warm-up,
+    then a cosine to `end_value` over the rest of decay_steps, which counts
+    the warm-up. Rounded as XLA rounds the jitted optax schedule: each
+    division by a constant is a product with the float32 reciprocal, and
+    constant factors are folded in float32."""
     f32 = np.float32
-    warmup = max(int(total_steps * cfg.pct_start), 1)
-    span = float(max(total_steps, warmup + 1) - warmup)
-    init, peak = cfg.peak_lr / cfg.div_factor, cfg.peak_lr
-    alpha = 0.0 if peak == 0.0 else (cfg.peak_lr / cfg.final_div_factor) / peak
+    warmup = int(warmup_steps)
+    span = float(decay_steps - warmup)
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
     inv_warmup = float(f32(1.0 / warmup))
-    rise, top, end = float(f32(init - peak)), float(f32(peak)), float(f32(alpha))
+    rise, top, end = float(f32(init_value - peak_value)), float(f32(peak_value)), float(f32(alpha))
     omega = float(f32(f32(math.pi) * f32(1.0 / span)))
     half = float(f32(f32(0.5) * f32(1.0 - alpha)))
 
@@ -144,6 +144,16 @@ def cosine_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
         return torch.where(count < warmup, ramp, ((cos + 1) * half + end) * top)
 
     return schedule
+
+
+def cosine_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
+    """optax.warmup_cosine_decay_schedule(peak_lr / div_factor, peak_lr,
+    warmup, max(total_steps, warmup + 1), peak_lr / final_div_factor) with
+    warmup = max(int(total_steps * pct_start), 1)."""
+    warmup = max(int(total_steps * cfg.pct_start), 1)
+    return warmup_cosine_decay_schedule(cfg.peak_lr / cfg.div_factor, cfg.peak_lr, warmup,
+                                        max(total_steps, warmup + 1),
+                                        cfg.peak_lr / cfg.final_div_factor)
 
 
 def build_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:

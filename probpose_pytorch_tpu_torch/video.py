@@ -6,11 +6,18 @@ buckets, optional pose OKS-NMS), OKS-greedy track association across frames
 (`OksTracker`) and one-euro temporal smoothing per track
 (`utils/smoothing.PoseSmoother`); or, in throughput mode, crops of
 consecutive frames batched through `predict_stream` (`run_video_stream`).
+Standalone, the person detector supplies the boxes (`detector=`, per frame,
+or `fused=True`: detector -> crops -> pose with the boxes kept on the card,
+and `run_video_fused_stream` over batches of whole frames); the
+single-stage family needs no boxes at all (`run_video_bottomup`).
 
     python -m probpose_pytorch_tpu_torch.video \\
         --checkpoint runs/flagship/checkpoints --frames frames_dir_or.npy \\
-        [--boxes boxes.json] [--fps 30] [--nms soft_oks] [--no-smooth] \\
-        [--render] [--stream-batch 64] [--device cuda] --out out_dir
+        [--boxes boxes.json | --detector runs/detector [--fused]] [--fps 30] \\
+        [--nms soft_oks] [--no-smooth] [--render] [--stream-batch 64] \\
+        [--device cuda] --out out_dir
+    python -m probpose_pytorch_tpu_torch.video --bottomup runs/bottomup \\
+        --frames ... --out out_dir
 
 Frames: a directory of image files (sorted by name; any PIL format) or a
 `.npy`/`.npz` stack of shape (T, H, W, 3) uint8. Boxes: a JSON list with one
@@ -21,8 +28,7 @@ pose scores) and, with --render, `frame_%06d.png` overlays.
 
 Tracking, smoothing and IO run in NumPy on the host; the model runs on the
 predictor's device (the card unless --device cpu). Not ported: `--bundle`
-(ROADMAP item 8) and the detector, bottom-up and fused modes (`--detector`,
-`--bottomup`, `--fused`, item 10).
+(ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ import numpy as np
 from probpose_pytorch_tpu_torch.data.coco import COCO_SIGMAS
 from probpose_pytorch_tpu_torch.inference import _unported
 
-__all__ = ["iter_frames", "load_boxes", "OksTracker", "run_video", "run_video_stream", "main"]
+__all__ = ["iter_frames", "load_boxes", "OksTracker", "detector_boxes", "run_video",
+           "run_video_stream", "run_video_fused_stream", "run_video_bottomup", "main"]
 
 _IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -175,6 +182,17 @@ class OksTracker:
         return ids
 
 
+def detector_boxes(detector, frame: np.ndarray, input_size: tuple[int, int],
+                   bbox_scale: float = 1.25, threshold: float | None = None) -> np.ndarray:
+    """The person detector's boxes for one frame, expanded to the pose crop
+    (`expand_detections`, the conditioning pose training used), ready for
+    `predict_frame`."""
+    from probpose_pytorch_tpu_torch.detect.pipeline import expand_detections
+
+    det, _ = detector.detect_frame(frame, threshold)
+    return expand_detections(det, input_size, bbox_scale)
+
+
 def _smoother(smooth: bool):
     from probpose_pytorch_tpu_torch.utils.smoothing import PoseSmoother
 
@@ -202,26 +220,46 @@ def run_video(
 
     predictor: a TopDownPredictor. frames: iterable of (H, W, 3) uint8.
     boxes: per-frame (N_i, 4) xywh arrays (None: one full-frame box per
-    frame). Records carry numpy arrays: frame index, time, track_ids,
-    keypoints (raw), smoothed (== raw when smooth=False), probabilities,
-    scores, pose_scores, boxes. `detector`, `detector_threshold`,
-    `bbox_scale`, `fused` and `max_people` belong to the detector modes
-    (ROADMAP item 10)."""
-    if detector is not None:
-        raise _unported("run_video(detector=...)", 10)
-    if fused:
-        raise _unported("run_video(fused=True)", 10)
+    frame). detector: a DetectorPredictor; the boxes then come from it per
+    frame (exclusive with `boxes`). fused=True (needs `detector`): detector
+    -> crops -> pose per frame with the boxes kept on the card
+    (detect/fused.py), every frame carrying `max_people` pose slots.
+    Records carry numpy arrays: frame index, time, track_ids, keypoints
+    (raw), smoothed (== raw when smooth=False), probabilities, scores,
+    pose_scores, boxes."""
+    if detector is not None and boxes is not None:
+        raise ValueError("pass either boxes or a detector, not both")
+    if fused and detector is None:
+        raise ValueError("fused=True needs a detector")
     if tracker is None:
         tracker = OksTracker(threshold=track_threshold)
     if smoother is None:
         smoother = _smoother(smooth)
+    fused_pred = None
+    if fused:
+        from probpose_pytorch_tpu_torch.detect.fused import FusedTwoStagePredictor
+
+        fused_pred = FusedTwoStagePredictor(
+            detector=detector, pose=predictor,
+            max_people=min(max_people, detector.max_detections), bbox_scale=bbox_scale,
+            score_threshold=(detector.score_threshold if detector_threshold is None
+                             else detector_threshold))
     for i, frame in enumerate(frames):
         t = i / fps
-        fb = _frame_boxes(boxes, i, frame)
+        if fused_pred is not None:
+            out = fused_pred.predict_frame(frame)
+            fb = out.pop("boxes")
+            out.pop("det_scores")
+        else:
+            if detector is not None:
+                fb = detector_boxes(detector, frame, predictor.input_size, bbox_scale,
+                                    detector_threshold)
+            else:
+                fb = _frame_boxes(boxes, i, frame)
+            out = predictor.predict_frame(frame, fb) if len(fb) else None
         if len(fb) == 0:
             yield _empty_record(i, t, fb)
             continue
-        out = predictor.predict_frame(frame, fb)
         yield _postprocess_frame(out, fb, i, t, nms, nms_threshold, tracker, smoother)
 
 
@@ -261,6 +299,107 @@ def _postprocess_frame(out: dict, fb: np.ndarray, i: int, t: float, nms: str | N
         "pose_scores": np.asarray(pose_scores, np.float32),
         "boxes": kept_boxes,
     }
+
+
+def run_video_fused_stream(
+    fused,
+    frames,
+    fps: float = 30.0,
+    nms: str | None = "soft_oks",
+    nms_threshold: float = 0.9,
+    smooth: bool = True,
+    track_threshold: float = 0.3,
+    batch: int = 4,
+    frame_shape: tuple[int, int] | None = None,
+    depth: int = 2,
+    score_threshold: float | None = None,
+) -> Iterator[dict]:
+    """Standalone throughput mode: batches of `batch` whole frames through
+    the fused two-stage predictor (one dispatch each), with up to `depth`
+    batches in flight, so the next batch's upload and launch overlap this
+    one's compute. frame_shape: (H, W) every frame zero-pads to (default:
+    the first frame's). Records are `run_video`'s; tracking and smoothing
+    stay sequential, and results lag the input by up to `batch` frames plus
+    the batches in flight."""
+    tracker = OksTracker(threshold=track_threshold)
+    smoother = _smoother(smooth)
+    thr = fused.score_threshold if score_threshold is None else score_threshold
+    state = {"shape": frame_shape}
+
+    def pad_frame(frame: np.ndarray) -> np.ndarray:
+        if state["shape"] is None:
+            state["shape"] = tuple(frame.shape[:2])
+        H, W = state["shape"]
+        h, w = frame.shape[:2]
+        if h > H or w > W:
+            raise ValueError(f"frame {(h, w)} exceeds the stream shape {(H, W)} — pass "
+                             "frame_shape= sized for the largest frame")
+        return frame if (h, w) == (H, W) else np.pad(frame, ((0, H - h), (0, W - w), (0, 0)))
+
+    def postprocess(row: dict, i: int) -> dict:
+        keep = row["det_scores"] >= thr
+        fb = row["boxes"][keep]
+        if not keep.any():
+            return _empty_record(i, i / fps, fb)
+        out = {k: v[keep] for k, v in row.items() if k not in ("boxes", "det_scores")}
+        return _postprocess_frame(out, fb, i, i / fps, nms, nms_threshold, tracker, smoother)
+
+    in_flight: deque = deque()  # (device outputs, frame indices)
+
+    def drain_one():
+        dev, idxs = in_flight.popleft()
+        host = {k: v.float().cpu().numpy() for k, v in dev.items()}
+        for j, i in enumerate(idxs):
+            yield postprocess({k: v[j] for k, v in host.items()}, i)
+
+    buf, idxs = [], []
+    for i, frame in enumerate(frames):
+        buf.append(pad_frame(np.asarray(frame, np.uint8)))
+        idxs.append(i)
+        if len(buf) == batch:
+            in_flight.append((fused.dispatch(np.stack(buf)), idxs))
+            buf, idxs = [], []
+            if len(in_flight) > depth:
+                yield from drain_one()
+    if buf:  # the short tail: zero frames pad the batch, their rows dropped
+        buf += [np.zeros_like(buf[0])] * (batch - len(buf))
+        in_flight.append((fused.dispatch(np.stack(buf)), idxs))
+    while in_flight:
+        yield from drain_one()
+
+
+def run_video_bottomup(
+    predictor,
+    frames,
+    fps: float = 30.0,
+    nms: str | None = "soft_oks",
+    nms_threshold: float = 0.9,
+    smooth: bool = True,
+    track_threshold: float = 0.3,
+    score_threshold: float | None = None,
+) -> Iterator[dict]:
+    """Single-stage mode of `run_video`: every pose from one forward per
+    frame (detect.BottomUpPredictor), no boxes and no detector. Records are
+    `run_video`'s; `scores` carries the per-joint confidences and
+    `probabilities` is all ones (every joint renders)."""
+    tracker = OksTracker(threshold=track_threshold)
+    smoother = _smoother(smooth)
+    for i, frame in enumerate(frames):
+        t = i / fps
+        out = predictor.predict_frame(np.asarray(frame, np.uint8), score_threshold)
+        kpts = np.asarray(out["keypoints"], np.float32)
+        fb = np.asarray(out["boxes"], np.float32).reshape(-1, 4)
+        if len(kpts) == 0:
+            yield _empty_record(i, t, fb)
+            continue
+        Kj = kpts.shape[1]
+        js = out.get("keypoint_scores")
+        joint_scores = (np.asarray(js, np.float32) if js is not None
+                        else np.tile(np.asarray(out["scores"], np.float32)[:, None], (1, Kj)))
+        yield _postprocess_frame(
+            {"keypoints": kpts, "scores": joint_scores,
+             "probabilities": np.ones((len(kpts), 1, Kj), np.float32)},
+            fb, i, t, nms, nms_threshold, tracker, smoother)
 
 
 def run_video_stream(
@@ -378,18 +517,24 @@ def main(argv: Sequence[str] | None = None) -> None:
     src.add_argument("--checkpoint", type=Path,
                      help="checkpoint directory of the port's training CLI")
     src.add_argument("--bundle", type=Path, help="not ported (ROADMAP item 8)")
-    src.add_argument("--bottomup", type=Path, help="not ported (ROADMAP item 10)")
+    src.add_argument("--bottomup", type=Path,
+                     help="single-stage pose model (detect.train --keypoints run dir): "
+                     "every person's pose in one forward per frame, no --boxes or --detector")
     parser.add_argument("--config", type=Path, default=None,
                         help="TrainConfig JSON (default: beside checkpoint)")
     parser.add_argument("--frames", type=Path, required=True,
                         help="frame directory or (T, H, W, 3) .npy/.npz")
     parser.add_argument("--detector", type=Path, default=None,
-                        help="not ported (ROADMAP item 10)")
+                        help="person-detector checkpoint directory (detect.train's "
+                        "<out>/checkpoints): the boxes come from the port's own detector, "
+                        "no --boxes file needed")
     parser.add_argument("--detector-threshold", type=float, default=None,
-                        help="with --detector (not ported, ROADMAP item 10)")
-    parser.add_argument("--fused", action="store_true", help="not ported (ROADMAP item 10)")
+                        help="detection (or --bottomup) score threshold override")
+    parser.add_argument("--fused", action="store_true",
+                        help="with --detector: detector -> crops -> pose with the boxes kept "
+                        "on the card (--max-people pose slots a frame)")
     parser.add_argument("--max-people", type=int, default=8,
-                        help="with --fused (not ported, ROADMAP item 10)")
+                        help="pose slots per frame in --fused mode")
     parser.add_argument("--boxes", type=Path, default=None,
                         help="per-frame [[x,y,w,h], ...] JSON (default: full-frame box)")
     parser.add_argument("--out", type=Path, required=True)
@@ -414,18 +559,41 @@ def main(argv: Sequence[str] | None = None) -> None:
     args = parser.parse_args(argv)
     if args.bundle is not None:
         raise _unported("--bundle", 8)
-    for flag, given in (("--bottomup", args.bottomup is not None),
-                        ("--detector", args.detector is not None), ("--fused", args.fused)):
-        if given:
-            raise _unported(flag, 10)
     if args.stream_batch is not None and args.render:
         parser.error("--stream-batch is incompatible with --render")
+    if args.bottomup is not None:
+        for flag, bad in (("--boxes", args.boxes), ("--detector", args.detector),
+                          ("--stream-batch", args.stream_batch)):
+            if bad is not None:
+                parser.error(f"--bottomup is incompatible with {flag} (the model finds "
+                             "people itself, per frame)")
+        if args.ema or args.flip_test:
+            parser.error("--ema/--flip-test are top-down options")
+    if args.detector is not None:
+        if args.boxes is not None:
+            parser.error("--detector and --boxes are mutually exclusive")
+        if args.stream_batch is not None and not args.fused:
+            parser.error("--detector runs per frame; in --stream-batch throughput mode add "
+                         "--fused (batched whole-frame dispatches) or pre-compute boxes")
+    if args.fused and args.detector is None:
+        parser.error("--fused needs --detector")
 
+    from probpose_pytorch_tpu_torch.detect import (
+        FusedTwoStagePredictor,
+        load_bottomup,
+        load_detector,
+    )
     from probpose_pytorch_tpu_torch.inference import load_predictor
 
-    predictor = load_predictor(args.checkpoint, args.config, ema=args.ema,
-                               flip_test=args.flip_test, device=args.device)
+    if args.bottomup is not None:
+        predictor = load_bottomup(args.bottomup, device=args.device)
+    else:
+        predictor = load_predictor(args.checkpoint, args.config, ema=args.ema,
+                                   flip_test=args.flip_test, device=args.device)
     boxes = load_boxes(args.boxes) if args.boxes else None
+    detector = None
+    if args.detector is not None:
+        detector = load_detector(args.detector, device=args.device)
     args.out.mkdir(parents=True, exist_ok=True)
 
     frames = iter_frames(args.frames)
@@ -443,16 +611,31 @@ def main(argv: Sequence[str] | None = None) -> None:
     common = dict(boxes=boxes, fps=args.fps, nms=None if args.nms == "none" else args.nms,
                   nms_threshold=args.nms_threshold, smooth=not args.no_smooth,
                   track_threshold=args.track_threshold)
-    if args.stream_batch is not None:
-        frame_shape = None
-        if args.stream_frame_shape is not None:
-            frame_shape = tuple(int(v) for v in args.stream_frame_shape.split(","))
-            if len(frame_shape) != 2:
-                parser.error("--stream-frame-shape expects H,W")
+    frame_shape = None
+    if args.stream_frame_shape is not None:
+        frame_shape = tuple(int(v) for v in args.stream_frame_shape.split(","))
+        if len(frame_shape) != 2:
+            parser.error("--stream-frame-shape expects H,W")
+    if args.bottomup is not None:
+        del common["boxes"]  # whole frames in
+        records = run_video_bottomup(predictor, frames,
+                                     score_threshold=args.detector_threshold, **common)
+    elif args.stream_batch is not None and args.fused:
+        del common["boxes"]
+        fused = FusedTwoStagePredictor(
+            detector=detector, pose=predictor,
+            max_people=min(args.max_people, detector.max_detections),
+            score_threshold=(detector.score_threshold if args.detector_threshold is None
+                             else args.detector_threshold))
+        records = run_video_fused_stream(fused, frames, batch=args.stream_batch or 4,
+                                         frame_shape=frame_shape, **common)
+    elif args.stream_batch is not None:
         records = run_video_stream(predictor, frames, batch=args.stream_batch or None,
                                    frame_shape=frame_shape, **common)
     else:
-        records = run_video(predictor, frames, **common)
+        records = run_video(predictor, frames, detector=detector,
+                            detector_threshold=args.detector_threshold, fused=args.fused,
+                            max_people=args.max_people, **common)
 
     n = 0
     with (args.out / "poses.jsonl").open("w") as sink:

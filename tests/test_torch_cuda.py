@@ -15,6 +15,7 @@ from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
 from probpose_pytorch_tpu_torch.ops.heatmap import (
     build_oks_conv_operators,
     expected_value_decode,
+    oks_conv,
 )
 from probpose_pytorch_tpu_torch.ops.kernels import plain_versions
 from probpose_pytorch_tpu_torch.ops.kernels.attention import (
@@ -1091,3 +1092,159 @@ def test_frozen_trunk_step_runs_no_attention_backward(cuda_device):
             assert torch.equal(p, s), name
         elif name.startswith("backbone.adapters."):
             assert not torch.equal(p, s), name
+
+
+# --------------------------------------------------------------------------
+# the detector family (models/convnet.py, detect/) on the card
+
+
+def _detector(seed, **kw):
+    from probpose_pytorch_tpu_torch.detect.model import PersonDetector, init_detector_weights
+
+    model = PersonDetector(dtype=torch.float32, **kw)
+    init_detector_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_detector_forward_on_card_matches_cpu(cuda_device, train):
+    """The f32 detector (conv-t, joint heat heads) at 128 x 128, TF32 off:
+    every map on the card within 1e-5 (eval) or 1e-4 (train: BatchNorm of a
+    batch of 2 magnifies summation order) of the CPU's, normwise."""
+    import copy
+
+    cpu = _detector(0, img_size=(128, 128), num_keypoints=17, kpt_heatmaps=True).train(train)
+    card = copy.deepcopy(cpu).to(cuda_device).train(train)
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref, out = cpu(x), card(x.to(cuda_device))
+    tol = 1e-4 if train else 1e-5
+    for k in ref:
+        rel = ((out[k].cpu() - ref[k]).norm() / ref[k].norm()).item()
+        assert rel <= tol, (k, rel)
+    if train:
+        for (n, a), b in zip(cpu.named_buffers(), card.buffers()):
+            if a.is_floating_point():
+                torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5, msg=n)
+
+
+def _tied_maps(B=2, H=16, W=16, Kj=5):
+    """Center logits with ties (a low random background whose non-peaks
+    decode to exactly 0.0, a plateau of equal peaks, two equal isolated
+    peaks) and the pose maps, as tests/test_torch_detect.py builds them."""
+    g = torch.Generator().manual_seed(3)
+    c = -8.0 + 0.5 * torch.randn(B, H, W, 1, generator=g)
+    c[0, 2, 3] = c[0, 9, 12] = 1.5
+    c[0, 5:7, 5:7] = 0.7
+    heat = -6.0 + 0.5 * torch.randn(B, H, W, Kj, generator=g)
+    heat[0, 7:9, 4:6, 0] = 2.0
+    heat[:, ::5, ::3, :] = 1.0
+    return dict(center_logits=c, size=torch.rand(B, H, W, 2, generator=g) * 6,
+                offset=torch.rand(B, H, W, 2, generator=g),
+                kpts=torch.randn(B, H, W, 2 * Kj, generator=g) * 2, kpt_heat=heat,
+                kpt_offset=torch.rand(B, H, W, 2, generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 40])
+def test_decode_on_card_keeps_the_tie_order(cuda_device, k):
+    """decode_boxes and decode_poses on the card equal the CPU's on maps
+    with ties: lax.top_k's order (the lower index first), not torch.topk's,
+    so the boxes and poses are equal; the scores within two ulps."""
+    from probpose_pytorch_tpu_torch.detect.codec import decode_boxes, decode_poses
+
+    maps = _tied_maps()
+    card = {n: v.to(cuda_device) for n, v in maps.items()}
+    box_keys = ("center_logits", "size", "offset")
+    (boxes, scores), (rb, rs) = (decode_boxes(*(card[n] for n in box_keys), k=k),
+                                 decode_boxes(*(maps[n] for n in box_keys), k=k))
+    # the peaks' cells decide the boxes: equal; the scores are sigmoids,
+    # whose CUDA and CPU versions may differ by an ulp
+    assert torch.equal(boxes.cpu(), rb)
+    torch.testing.assert_close(scores.cpu(), rs, rtol=2.4e-7, atol=0)
+    got, want = decode_poses(**card, k=k), decode_poses(**maps, k=k)
+    for i, (o, r) in enumerate(zip(got, want)):
+        if i in (0, 2):  # boxes and poses
+            assert torch.equal(o.cpu(), r)
+        else:
+            torch.testing.assert_close(o.cpu(), r, rtol=2.4e-7, atol=0)
+
+
+def _pose_predictor(device, dtype="float32"):
+    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+
+    cfg = ModelConfig(img_size=(64, 48), num_keypoints=17, backbone="vit-nano",
+                      compute_dtype=dtype, attn_impl="fused", deconv_out_channels=(16, 16),
+                      pool_sizes=((2, 2), (2, 2)))
+    codec = Codec(ProbMap(input_size=(64, 48), heatmap_size=(12, 16),
+                          sigmas=np.asarray(COCO_SIGMAS, np.float32), sigma=2.0))
+    model = build_model(cfg, "cpu", seed=3)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():  # head kernels at fan-in scale: peaked, sparse maps
+        for m in model.head.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / m.weight[0].numel() ** 0.5)
+    return TopDownPredictor(model=model.to(device), codec=codec, input_size=(64, 48))
+
+
+@pytest.mark.cuda
+def test_fused_matches_two_stage_on_card(cuda_device):
+    """FusedTwoStagePredictor against TopDownPredictor(detector=...) on the
+    same frames (f32, threshold 0): each slot's well-defined keypoints
+    within 1e-2 px of the two-stage pose for its box; the fused device path runs without a
+    host synchronisation; K1 and K2 run in its pose stage."""
+    from probpose_pytorch_tpu_torch.detect import DetectorPredictor, FusedTwoStagePredictor
+
+    det = DetectorPredictor(model=_detector(5, img_size=(64, 64)).to(cuda_device),
+                            max_detections=8, score_threshold=0.0)
+    det.model.size.bias.data.fill_(6.0)
+    pose = _pose_predictor(cuda_device)
+    fused = FusedTwoStagePredictor(detector=det, pose=pose, max_people=4, score_threshold=0.0)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 120, 160, 3), dtype=np.uint8)
+    out = fused(frames)
+    pose.detector, pose.return_heatmaps = det, True
+    row_op, col_op = pose.codec.probmap.conv_operators(cuda_device)
+    for b in range(2):
+        two = pose.predict_frame(frames[b], buckets=(8,), detector_threshold=0.0)
+        np.testing.assert_allclose(out["boxes"][b], two["boxes"][:4], rtol=0, atol=1e-3)
+        # keypoints whose OKS-convolved map has a top-2 margin above 1e-4
+        conv = oks_conv(torch.from_numpy(two["heatmaps"][:4]).to(cuda_device), row_op, col_op)
+        top2 = conv.flatten(2).topk(2, dim=-1).values
+        ok = ((top2[..., 0] - top2[..., 1]) > 1e-4).cpu().numpy()
+        assert ok.mean() > 0.5
+        np.testing.assert_allclose(out["keypoints"][b][ok], two["keypoints"][:4][ok], rtol=0,
+                                   atol=1e-2)
+    pose.return_heatmaps = False
+    dev = torch.as_tensor(frames).to(cuda_device)
+    torch.cuda.synchronize()
+    k1, k2 = forward_launches(), sparsemax_rows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = fused.predict(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert res["keypoints"].shape == (2, 4, 17, 2)
+    assert forward_launches() - k1 == len(pose.model.backbone.blocks)
+    assert sparsemax_rows.launches - k2 == 1
+
+
+@pytest.mark.cuda
+def test_detect_entry_points_default_to_the_card(cuda_device, tmp_path):
+    """DetectorTrainer.create, the detect CLI, load_detector and
+    load_bottomup build on the card when no device is named."""
+    from probpose_pytorch_tpu_torch.data import generate_coco_synth
+    from probpose_pytorch_tpu_torch.detect import DetectorTrainer, load_bottomup, load_detector
+    from probpose_pytorch_tpu_torch.detect import train as detect_train
+
+    assert DetectorTrainer.create(img_size=(64, 64)).state.params[0].is_cuda
+    root = generate_coco_synth(tmp_path / "coco", n_train_images=2, n_val_images=1,
+                               frame_hw=(96, 128), seed=1)
+    common = ["--data-root", str(root), "--steps", "1", "--batch-size", "2", "--img-size", "64",
+              "--num-workers", "1"]
+    detect_train.main(common + ["--out", str(tmp_path / "det")])
+    detect_train.main(common + ["--out", str(tmp_path / "bu"), "--keypoints", "17"])
+    assert next(load_detector(tmp_path / "det" / "checkpoints").model.parameters()).is_cuda
+    assert next(load_bottomup(tmp_path / "bu").model.parameters()).is_cuda

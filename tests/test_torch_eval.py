@@ -344,15 +344,65 @@ def test_eval_cli_on_cpu(tmp_path, coco_root, tiny_run, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bundle", "b"], 8), (["--bottomup", "r"], 10), (["--detector", "d"], 10),
-    (["--detector", "d", "--detector-threshold", "0.5"], 10),
-    (["--data-parallel"], 13), (["--model-parallel", "2"], 13)])
+    (["--bundle", "b"], 8), (["--data-parallel"], 13), (["--model-parallel", "2"], 13)])
 def test_eval_cli_refuses_unported_flags(tmp_path, flags, item):
     args = ["--annotations", str(tmp_path / "a.json"), "--images", str(tmp_path)]
     if "--bundle" not in flags and "--bottomup" not in flags:
         args += ["--checkpoint", str(tmp_path / "c")]
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         eval_run.main(args + flags + ["--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def det_runs(tmp_path_factory):
+    from test_torch_video import make_det_runs
+
+    return make_det_runs(tmp_path_factory.mktemp("det"))
+
+
+@pytest.mark.parametrize("threshold", ["0", "0.5"])
+def test_eval_cli_detector_on_cpu(coco_root, tiny_run, det_runs, threshold):
+    """--detector RUN_DIR (--detector-threshold) on the CPU: JAX's summary
+    keys with det_ap50, det_recall50 and det_per_image, equal to
+    evaluate_detector_topdown run in process on the same checkpoints."""
+    from probpose_pytorch_tpu_torch.detect import evaluate_detector_topdown, load_detector
+    from probpose_pytorch_tpu_torch.inference import load_predictor
+
+    ckpt, _ = tiny_run
+    det_dir, _ = det_runs
+    ann, images = _val(coco_root)
+    line = eval_run.main(["--checkpoint", str(ckpt), "--detector", str(det_dir),
+                          "--detector-threshold", threshold, "--annotations", str(ann),
+                          "--images", str(images), "--device", "cpu"])
+    assert set(line) == set(AP_KEYS) | {"det_ap50", "det_recall50", "det_per_image"}
+    assert all(0.0 <= line[k] <= 1.0 for k in AP_KEYS)
+    ref = evaluate_detector_topdown(
+        load_predictor(ckpt, device="cpu"),
+        load_detector(det_dir / "checkpoints", score_threshold=float(threshold), device="cpu"),
+        ann, images)
+    assert line == {k: round(float(v), 4) for k, v in ref.items()}
+    if threshold == "0":  # 64 a frame, less those an ignore region absorbs
+        assert 32 < line["det_per_image"] <= 64
+
+
+def test_eval_cli_bottomup_on_cpu(coco_root, det_runs):
+    """--bottomup RUN_DIR on the CPU: JAX's keys (AP/AR, det_ap50,
+    det_recall50), in [0, 1]."""
+    _, bu_dir = det_runs
+    ann, images = _val(coco_root)
+    line = eval_run.main(["--bottomup", str(bu_dir), "--detector-threshold", "0",
+                          "--annotations", str(ann), "--images", str(images), "--device", "cpu"])
+    assert set(line) == set(AP_KEYS) | {"det_ap50", "det_recall50"}
+    assert all(0.0 <= v <= 1.0 for v in line.values())
+
+
+@pytest.mark.parametrize("flag", [["--calibration"], ["--per-joint"], ["--dump-worst", "2"]])
+def test_eval_cli_detector_refuses_gt_box_reports(tmp_path, flag):
+    """--detector reports the end-to-end summary only, as in JAX."""
+    with pytest.raises(SystemExit):
+        eval_run.main(["--checkpoint", str(tmp_path), "--detector", str(tmp_path),
+                       "--annotations", str(tmp_path / "a.json"), "--images", str(tmp_path),
+                       "--device", "cpu"] + flag)
 
 
 def test_eval_cli_needs_the_card_unless_told(coco_root, tiny_run, monkeypatch):

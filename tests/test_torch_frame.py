@@ -302,11 +302,26 @@ def test_predict_frame_no_boxes(frame_pair):
         port_pred.predict_frame(frame, np.ones((1, 4), np.float32), buckets=(1,), nms="x")
 
 
-def test_predictor_refuses_detector(frame_pair):
+def test_predictor_takes_a_detector(frame_pair):
+    """TopDownPredictor(detector=...): predict_frame without boxes uses the
+    detector's boxes above detector_threshold, expanded to the crop, and
+    returns them; with boxes the detector is not asked."""
+    from probpose_pytorch_tpu_torch.detect import DetectorPredictor
+    from probpose_pytorch_tpu_torch.detect.pipeline import expand_detections
+    from test_torch_detect import detector_pair
+
     _, port_pred = frame_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        TopDownPredictor(model=port_pred.model, codec=port_pred.codec,
-                         input_size=port_pred.input_size, detector=object())
+    det = DetectorPredictor(model=detector_pair(seed=14)[2], max_detections=5)
+    pred = TopDownPredictor(model=port_pred.model, codec=port_pred.codec,
+                            input_size=port_pred.input_size, detector=det)
+    frame, boxes = _frame_and_boxes(1, 2)
+    out = pred.predict_frame(frame, buckets=(8,), detector_threshold=0.0)
+    want = expand_detections(det.detect_frame(frame, 0.0)[0], pred.input_size)
+    np.testing.assert_array_equal(out["boxes"], want)
+    direct = pred.predict_frame(frame, want, buckets=(8,))
+    for k in direct:
+        np.testing.assert_array_equal(out[k], direct[k], err_msg=k)
+    assert set(pred.predict_frame(frame, boxes, buckets=(8,))) == set(direct)
 
 
 def test_predict_frame_default_buckets(frame_pair, monkeypatch):

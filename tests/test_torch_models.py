@@ -161,10 +161,13 @@ def test_model_matches_jax(pair):
     dict(head_type="simcc"),
     dict(head_type="simcc", simcc_split_ratio=3.0, adapter_hidden=(24,),
          pool_sizes=((4, 3), (2, 2))),
+    dict(backbone="conv-t"),
+    dict(backbone="conv-t", head_type="simcc", frozen_backbone=True),
 ])
 def test_model_options_match_jax(over):
     """The accepted-but-equal XLA knobs, the small trunk/head options the
-    flagship leaves off, and the SimCC head (its (x, y) logits pair first)."""
+    flagship leaves off, the SimCC head (its (x, y) logits pair first) and
+    the conv-t trunk (models/convnet.py)."""
     kw = {**TINY_CFG, **over}
     jm, variables, pm = init_pair(kw, seed=1)
     x = _images(5)
@@ -229,7 +232,6 @@ def test_flagship_geometry_loads_strictly():
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(backbone="conv-s"), "item 10"),
     (dict(pp_stages=2), "item 13"),
     (dict(attn_impl="fused_tp"), "item 13"),
     (dict(deconv_kernel_sizes=(2, 4)), "item 4"),

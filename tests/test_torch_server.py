@@ -454,13 +454,96 @@ def test_multi_model_routing():
         PoseHTTPServer({"a": MicroBatcher(tag(1.0), (2,), (16, 16))}, port=0, default="b")
 
 
-def test_server_refuses_detector():
-    mb = MicroBatcher(EchoRunner({2}), (2,), (16, 16))
+@pytest.fixture(scope="module")
+def detector_env():
+    """The port's and JAX's DetectorPredictor (f32, same weights, every top-3
+    box kept) and a tiny port pose predictor: (port detector, JAX detector,
+    pose predictor)."""
+    from probpose_pytorch_tpu.detect.pipeline import DetectorPredictor as JaxDetectorPredictor
+    from probpose_pytorch_tpu_torch.detect import DetectorPredictor
+    from test_torch_detect import detector_pair
+
+    jm, variables, dm = detector_pair(seed=12)
+    _, _, pm = init_pair()
+    pose = TopDownPredictor(model=pm, codec=Codec(ProbMap(**CODEC_KW)),
+                            input_size=TINY_CFG["img_size"])
+    return (DetectorPredictor(model=dm, max_detections=3, score_threshold=0.0),
+            JaxDetectorPredictor(model=jm, variables=variables, max_detections=3,
+                                 score_threshold=0.0), pose)
+
+
+def test_server_detects_when_boxes_are_omitted(detector_env):
+    """PoseHTTPServer(detector=...): a top-down request without boxes gets
+    the detector's expanded boxes (JAX's within 1e-3 px) back with the
+    poses of predict_frame on them; a request with boxes is served as
+    before; a detector_threshold above every score answers no one."""
+    from probpose_pytorch_tpu import video as jax_video
+    from probpose_pytorch_tpu_torch import video
+
+    det, jax_det, pose = detector_env
+    srv = PoseHTTPServer(MicroBatcher(pose, (1, 4), (64, 64), max_wait_ms=2.0, indexed=True),
+                         host="127.0.0.1", port=0, detector=det)
+    srv.start()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            PoseHTTPServer(mb, host="127.0.0.1", port=0, detector=object())
+        base = f"http://127.0.0.1:{srv.port}"
+        frame = np.random.default_rng(3).integers(0, 256, (60, 62, 3), dtype=np.uint8)
+        status, out = _post(base + "/predict", _payload(frame))
+        assert status == 200
+        boxes = video.detector_boxes(det, frame, pose.input_size)
+        np.testing.assert_allclose(out["boxes"], boxes, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(
+            out["boxes"], jax_video.detector_boxes(jax_det, frame, pose.input_size), atol=1e-3)
+        direct = pose(np.stack([np.pad(frame, ((0, 4), (0, 2), (0, 0)))] * 3), boxes)
+        for k in direct:
+            np.testing.assert_allclose(np.asarray(out[k]), direct[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+        status, given = _post(base + "/predict", _payload(frame, boxes[:1]))
+        assert status == 200 and "boxes" not in given
+        status, none = _post(base + "/predict", _payload(frame, detector_threshold=2.0))
+        assert status == 200 and none == {"boxes": [], "keypoints": []}
     finally:
-        mb.close()
+        srv.shutdown()
+
+
+def test_whole_frame_runners_over_http(detector_env):
+    """BottomUpRunner and FusedRunner behind the MicroBatcher: whole frames
+    in (no 'boxes'), each reply thresholded on its row's scores (fused:
+    det_scores) and equal to the predictor's own output on the padded
+    frame; a request with boxes is a 400."""
+    from probpose_pytorch_tpu_torch.detect import BottomUpPredictor, FusedTwoStagePredictor
+    from probpose_pytorch_tpu_torch.serve.server import BottomUpRunner, FusedRunner
+    from test_torch_detect import detector_pair
+
+    det, _, pose = detector_env
+    _, _, bm = detector_pair(5, kpt_heatmaps=True, seed=13)
+    bu = BottomUpPredictor(model=bm, max_detections=4, score_threshold=0.0)
+    fused = FusedTwoStagePredictor(detector=det, pose=pose, max_people=2, score_threshold=0.0)
+    batchers = {"bu": MicroBatcher(BottomUpRunner(bu), (1, 2), (64, 64), max_wait_ms=2.0),
+                "fused": MicroBatcher(FusedRunner(fused), (1, 2), (64, 64), max_wait_ms=2.0)}
+    srv = PoseHTTPServer(batchers, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        frame = np.random.default_rng(4).integers(0, 256, (64, 60, 3), dtype=np.uint8)
+        padded = np.pad(frame, ((0, 0), (0, 4), (0, 0)))[None]
+        status, out = _post(base + "/predict", _payload(frame, model="bu"))
+        assert status == 200
+        direct = dict(zip(("boxes", "scores", "keypoints", "keypoint_scores"), bu(padded)))
+        for k, v in direct.items():
+            np.testing.assert_allclose(np.asarray(out[k]), v[0], rtol=0, atol=1e-5, err_msg=k)
+        thr = float(direct["scores"][0, 1])
+        status, cut = _post(base + "/predict", _payload(frame, model="bu", score_threshold=thr))
+        assert status == 200 and len(cut["scores"]) == 2
+        status, out = _post(base + "/predict", _payload(frame, model="fused"))
+        assert status == 200 and len(out["det_scores"]) == 2
+        ref = fused(padded)
+        for k, v in ref.items():
+            np.testing.assert_allclose(np.asarray(out[k]), v[0], rtol=0, atol=1e-5, err_msg=k)
+        for model in ("bu", "fused"):
+            status, err = _post(base + "/predict", _payload(frame, [[0, 0, 5, 5]], model=model))
+            assert status == 400 and "whole frames" in err["error"]
+    finally:
+        srv.shutdown()
 
 
 # --------------------------------------------------------------------------
@@ -469,12 +552,62 @@ def test_server_refuses_detector():
 
 @pytest.mark.parametrize("flags,item", [
     (["--bundle", "x"], 8), (["--checkpoint", "x", "--bundle", "y"], 8),
-    (["--bottomup", "x"], 10), (["--fused", "x"], 10),
-    (["--checkpoint", "x", "--detector", "d", "--detector-threshold", "0.5"], 10),
 ])
 def test_main_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         port_server.main(flags)
+
+
+@pytest.mark.parametrize("flags", [[], ["--fused", "x"]])
+def test_main_usage_errors(flags):
+    """No model at all, and --fused without the --detector it composes with."""
+    with pytest.raises(SystemExit):
+        port_server.main(flags)
+
+
+@pytest.fixture(scope="module")
+def det_runs(tmp_path_factory):
+    from test_torch_video import make_det_runs
+
+    return make_det_runs(tmp_path_factory.mktemp("det"))
+
+
+def test_main_serves_detector_modes(saved_runs, det_runs, monkeypatch):  # noqa: F811
+    """main with --checkpoint, --detector, --bottomup and --fused on the CPU:
+    each model's batcher (kind, buckets, indexed) and the detector the
+    handler gets; a SIGTERM stops it."""
+    _, port_dir = saved_runs
+    det_dir, bu_dir = det_runs
+    seen = {}
+
+    def stop(self):
+        seen["models"] = {name: (getattr(mb.runner, "kind", None), mb.buckets, mb.indexed)
+                          for name, mb in self.batchers.items()}
+        threading.Timer(0.2, os.kill, (os.getpid(), signal.SIGTERM)).start()
+        self.httpd.serve_forever()
+
+    make_handler = port_server._make_handler
+
+    def spy(*args, **kw):
+        seen["detector"] = args[3] if len(args) > 3 else kw.get("detector")
+        return make_handler(*args, **kw)
+
+    monkeypatch.setattr(PoseHTTPServer, "serve_forever", stop)
+    monkeypatch.setattr(port_server, "_make_handler", spy)
+    monkeypatch.setattr(inference, "_load_autotune_entry", lambda: {"batch": 4})
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        port_server.main(["--checkpoint", f"{port_dir}/checkpoints", "--detector", str(det_dir),
+                          "--detector-threshold", "0", "--bottomup", f"b={bu_dir}", "--fused",
+                          f"f={port_dir}/checkpoints", "--max-people", "2", "--port", "0",
+                          "--host", "127.0.0.1", "--frame-shape", "64,64", "--device", "cpu"])
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    assert seen["models"] == {"model0": (None, (4,), True), "b": ("bottomup", (1, 2, 4, 8), False),
+                              "f": ("fused", (1, 2, 4), False)}
+    det = seen["detector"]
+    assert det.score_threshold == 0.0 and det.max_detections == 64
+    assert det.model.img_size == (64, 64)
 
 
 def test_main_uses_recorded_ladder(saved_runs, monkeypatch, capsys):  # noqa: F811

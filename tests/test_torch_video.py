@@ -197,15 +197,117 @@ def test_run_video_without_boxes_and_smoothing(video_pair):
 def test_run_video_refusals(video_pair):
     _, port_pred, _ = video_pair
     frames, boxes = _sequence(4, n_frames=2)
-    for kw in (dict(detector=object()), dict(fused=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            next(video.run_video(port_pred, frames, **kw))
+    with pytest.raises(ValueError, match="either boxes or a detector"):
+        next(video.run_video(port_pred, frames, boxes, detector=object()))
+    with pytest.raises(ValueError, match="needs a detector"):
+        next(video.run_video(port_pred, frames, fused=True))
     with pytest.raises(ValueError, match="boxes list has 1 entries"):
         list(video.run_video(port_pred, frames, boxes[:1]))
     big = [np.zeros((HW[0] + 80, HW[1], 3), np.uint8)]
     with pytest.raises(ValueError, match="exceeds the stream frame shape"):
         list(video.run_video_stream(port_pred, [frames[0], big[0]],
                                     [np.ones((1, 4), np.float32)] * 2, batch=1))
+
+
+# --------------------------------------------------------------------------
+# the detector modes
+
+
+@pytest.fixture(scope="module")
+def detectors():
+    """(JAX DetectorPredictor, the port's) on the same f32 weights, every
+    top-4 box kept (threshold 0)."""
+    from probpose_pytorch_tpu.detect.pipeline import DetectorPredictor as JaxDetectorPredictor
+    from probpose_pytorch_tpu_torch.detect import DetectorPredictor
+    from test_torch_detect import detector_pair
+
+    jm, variables, pm = detector_pair(seed=8)
+    return (JaxDetectorPredictor(model=jm, variables=variables, max_detections=4,
+                                 score_threshold=0.0),
+            DetectorPredictor(model=pm, max_detections=4, score_threshold=0.0))
+
+
+def _close_records(got, ref, box_tol=1e-3):
+    """Records of two runs on boxes that agree to `box_tol` px: the same
+    track ids and shapes, boxes within box_tol, keypoints within 0.05 px
+    (a crop moved by 1e-3 px moves a keypoint by far less on this model's
+    smooth maps), the other fields within 1e-3."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r) and g["frame"] == r["frame"]
+        np.testing.assert_array_equal(g["track_ids"], r["track_ids"])
+        np.testing.assert_allclose(g["boxes"], r["boxes"], rtol=0, atol=box_tol)
+        for k in ("keypoints", "smoothed"):
+            np.testing.assert_allclose(g[k], r[k], rtol=0, atol=0.05, err_msg=k)
+        for k in ("probabilities", "scores", "pose_scores"):
+            np.testing.assert_allclose(g[k], r[k], rtol=0, atol=1e-3, err_msg=k)
+
+
+def test_detector_boxes_match_jax(video_pair, detectors):
+    jax_det, port_det = detectors
+    frames, _ = _sequence(5, n_frames=3)
+    for f in frames:
+        for thr in (None, 0.5):
+            got = video.detector_boxes(port_det, f, TINY_CFG["img_size"], 1.25, thr)
+            ref = jax_video.detector_boxes(jax_det, f, TINY_CFG["img_size"], 1.25, thr)
+            assert got.shape == ref.shape
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("nms", [None, "soft_oks"])
+def test_run_video_with_detector_matches_jax(video_pair, detectors, nms):
+    """Standalone mode, per frame: the detector's boxes each frame, then the
+    records of JAX's run_video(detector=...)."""
+    jax_pred, port_pred, _ = video_pair
+    jax_det, port_det = detectors
+    frames, _ = _sequence(6, n_frames=4)
+    got = list(video.run_video(port_pred, frames, detector=port_det, nms=nms))
+    ref = list(jax_video.run_video(jax_pred, frames, detector=jax_det, nms=nms))
+    assert all(len(r["boxes"]) == 4 for r in ref) or nms
+    _close_records(got, ref)
+
+
+def test_run_video_fused_matches_the_two_stage_path(video_pair, detectors):
+    """fused=True (boxes kept on the device) against the per-frame detector
+    mode and JAX's fused mode; run_video_fused_stream against run_video's
+    fused records, with a short tail batch."""
+    jax_pred, port_pred, _ = video_pair
+    jax_det, port_det = detectors
+    frames, _ = _sequence(7, n_frames=5)
+    fused = list(video.run_video(port_pred, frames, detector=port_det, fused=True,
+                                 max_people=3, nms=None))
+    two = list(video.run_video(port_pred, frames, detector=port_det, nms=None))
+    ref = list(jax_video.run_video(jax_pred, frames, detector=jax_det, fused=True,
+                                   max_people=3, nms=None))
+    _close_records(fused, ref)
+    for f, t in zip(fused, two):
+        np.testing.assert_allclose(f["boxes"], t["boxes"][:3], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(f["keypoints"], t["keypoints"][:3], rtol=0, atol=0.05)
+    from probpose_pytorch_tpu_torch.detect import FusedTwoStagePredictor
+
+    fp = FusedTwoStagePredictor(detector=port_det, pose=port_pred, max_people=3,
+                                score_threshold=0.0)
+    stream = list(video.run_video_fused_stream(fp, frames, nms=None, batch=2))
+    _close_records(stream, fused)
+
+
+def test_run_video_bottomup_matches_jax():
+    """Single-stage mode against JAX's run_video_bottomup on the same f32
+    bottom-up model (joint heat heads: per-joint scores)."""
+    from probpose_pytorch_tpu.detect.pipeline import BottomUpPredictor as JaxBottomUp
+    from probpose_pytorch_tpu_torch.detect import BottomUpPredictor
+    from test_torch_detect import detector_pair
+
+    jm, variables, pm = detector_pair(17, kpt_heatmaps=True, seed=9)
+    frames, _ = _sequence(8, n_frames=4)
+    for thr in (0.0, 0.0035):
+        got = list(video.run_video_bottomup(BottomUpPredictor(model=pm, max_detections=5),
+                                            frames, score_threshold=thr, nms="oks"))
+        ref = list(jax_video.run_video_bottomup(
+            JaxBottomUp(model=jm, variables=variables, max_detections=5), frames,
+            score_threshold=thr, nms="oks"))
+        _close_records(got, ref)
+        assert sum(len(r["boxes"]) for r in ref) > 0
 
 
 # --------------------------------------------------------------------------
@@ -247,12 +349,96 @@ def test_video_cli_matches_jax(saved_runs, tmp_path, extra):  # noqa: F811
         assert np.asarray(PIL.Image.open(pngs[0])).shape == (*HW, 3)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--bundle", "b"], 8), (["--bottomup", "b"], 10),
-    (["--checkpoint", "c", "--detector", "d"], 10), (["--checkpoint", "c", "--fused"], 10),
-])
+@pytest.mark.parametrize("flags,item", [(["--bundle", "b"], 8)])
 def test_video_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        video.main(flags + ["--frames", str(tmp_path), "--out", str(tmp_path / "o")])
+
+
+def make_det_runs(root):
+    """A detector run and a bottom-up run (--keypoints 17 --kpt-heatmaps)
+    of the port's detect.train CLI on a synthetic COCO set, 2 steps each at
+    a 64 x 64 input, --device cpu: (detector run dir, bottom-up run dir)."""
+    from probpose_pytorch_tpu_torch.data import generate_coco_synth
+    from probpose_pytorch_tpu_torch.detect import train as detect_train
+
+    coco = generate_coco_synth(root / "coco", n_train_images=4, n_val_images=1,
+                               frame_hw=(160, 200), seed=11)
+    common = ["--data-root", str(coco), "--steps", "2", "--batch-size", "2", "--img-size", "64",
+              "--num-workers", "1", "--device", "cpu"]
+    detect_train.main(common + ["--out", str(root / "det")])
+    detect_train.main(common + ["--out", str(root / "bu"), "--keypoints", "17", "--kpt-heatmaps"])
+    return root / "det", root / "bu"
+
+
+@pytest.fixture(scope="module")
+def det_runs(tmp_path_factory):
+    return make_det_runs(tmp_path_factory.mktemp("det"))
+
+
+def _jsonl(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("mode", [[], ["--fused", "--max-people", "3"],
+                                  ["--fused", "--max-people", "3", "--stream-batch", "2"]],
+                         ids=["per-frame", "fused", "fused-stream"])
+def test_video_cli_detector_modes(saved_runs, det_runs, tmp_path, mode):  # noqa: F811
+    """--detector (the detect.train run's checkpoints/, as JAX's CLI takes
+    it) with --detector-threshold 0 on the CPU: a record per frame with the
+    detector's boxes; per frame the same records as run_video(detector=...)
+    in process; --fused keeps --max-people slots a frame."""
+    _, port_dir = saved_runs
+    det_dir, _ = det_runs
+    frames, _ = _sequence(9, n_frames=3)
+    np.save(tmp_path / "frames.npy", frames)
+    video.main(["--checkpoint", str(port_dir / "checkpoints"), "--frames",
+                str(tmp_path / "frames.npy"), "--detector", str(det_dir / "checkpoints"),
+                "--detector-threshold", "0", "--nms", "none", "--out", str(tmp_path / "o"),
+                "--device", "cpu"] + mode)
+    recs = _jsonl(tmp_path / "o" / "poses.jsonl")
+    assert [r["frame"] for r in recs] == [0, 1, 2]
+    n = 3 if mode else 64
+    assert all(np.asarray(r["boxes"]).shape == (n, 4) for r in recs)
+    assert all(np.asarray(r["keypoints"]).shape == (n, TINY_CFG["num_keypoints"], 2)
+               for r in recs)
+    if not mode:
+        from probpose_pytorch_tpu_torch.detect import load_detector
+        from probpose_pytorch_tpu_torch.inference import load_predictor
+
+        ref = list(video.run_video(load_predictor(port_dir / "checkpoints", device="cpu"),
+                                   frames, nms=None, detector_threshold=0.0,
+                                   detector=load_detector(det_dir / "checkpoints",
+                                                          device="cpu")))
+        for r, g in zip(ref, recs):
+            np.testing.assert_array_equal(np.asarray(g["keypoints"], np.float32),
+                                          r["keypoints"].astype(np.float32))
+
+
+def test_video_cli_bottomup(det_runs, tmp_path):
+    """--bottomup RUN_DIR on the CPU: one forward a frame, records with each
+    kept person's 17 joints."""
+    _, bu_dir = det_runs
+    frames, _ = _sequence(10, n_frames=3)
+    np.save(tmp_path / "frames.npy", frames)
+    video.main(["--bottomup", str(bu_dir), "--frames", str(tmp_path / "frames.npy"),
+                "--detector-threshold", "0", "--out", str(tmp_path / "o"), "--device", "cpu"])
+    recs = _jsonl(tmp_path / "o" / "poses.jsonl")
+    assert len(recs) == 3
+    for r in recs:
+        k = np.asarray(r["keypoints"])
+        assert k.ndim == 3 and k.shape[1:] == (17, 2) and len(r["boxes"]) == len(k) > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--checkpoint", "c", "--fused"],
+    ["--checkpoint", "c", "--detector", "d", "--boxes", "b.json"],
+    ["--checkpoint", "c", "--detector", "d", "--stream-batch", "4"],
+    ["--bottomup", "b", "--detector", "d"],
+])
+def test_video_cli_detector_flag_errors(tmp_path, flags):
+    """The combinations JAX's CLI refuses with a usage error."""
+    with pytest.raises(SystemExit):
         video.main(flags + ["--frames", str(tmp_path), "--out", str(tmp_path / "o")])
 
 
