@@ -223,6 +223,35 @@ with weights drawn from a seeded generator:
            turns, the conv-s pose model's crops/s, peak memory and the
            phase's wall time
 
+  phase 15 the serving bundles and the native data plane, bf16, on phase
+           9's checkpoint, phase 14's detector runs and 1088 x 1920
+           frames: the export CLI writes a pose bundle (buckets 1 and 64,
+           with the frame-indexed program), an eval bundle (64 crops of
+           256 x 192), a detector, a bottom-up and a fused bundle (8
+           slots); export_predictor_bundle a ViT-B (configs/vitb_coco.json
+           with the fused MLP, phase 6's random weights) and a 768 x 768
+           bundle at bucket 8; every program's graph holds the probpose::
+           ops it should (12 short K1 forwards and 1 K2 in a pose program,
+           plus 12 K5 at ViT-B, 12 K4 forwards at 768^2, none in the
+           detector's and the bottom-up model's); a fresh process with
+           none of the port's models, train, detect.model, codec or
+           inference modules loaded serves each bundle, with 12 K1 and 1
+           K2 launches a pose program call, and its outputs equal the live
+           predictors' within KPT_TOL_PX and PROB_TOL (TF32 off on both
+           sides); the pose bundle's dispatch under
+           set_sync_debug_mode("error"); predict_frame at 1, 64 and 256
+           boxes, bundle against live in turns; the eval CLI with --bundle
+           on phase 10's set (320 instances, batch 64), its summary equal
+           to the live checkpoint's; the server CLI with --bundle (crops/s,
+           p50/p99); the video CLI with --bundle --stream-batch 64
+           (frames/s). Then the native data plane: its build report (the
+           JPEG half where jpeglib.h is found), crop_resize_batch against
+           crop_resize(..., "bilinear_gather") on the card within one
+           uint8 level, the JPEG half against PIL's decode where built,
+           native against PIL crops/s on the same records (a PNG copy of
+           phase 11's set without the JPEG half), and the training CLI
+           for 2 steps with resample="native"
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -239,8 +268,9 @@ last three lines are the card's name and power limit, a JSON summary of
 the kernels (launches on the main paths and, as `eval_launches`, in phase
 10's three eval runs, as `finetune_launches`, in each of phase 11's runs,
 as `frontend_launches`, summed over phase 12's runs, as
-`phase13_launches`, in each of phase 13's runs, and as `phase14_launches`,
-in each of phase 14's counted runs; K4's entries carry its
+`phase13_launches`, in each of phase 13's runs, as `phase14_launches`,
+in each of phase 14's counted runs, and as `phase15_launches`, in each
+bundle call and bundle CLI run of phase 15; K4's entries carry its
 numbers at the fieldsynth step's shape and K2's at its rows), error against the
 plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
@@ -3941,6 +3971,533 @@ def phase14(torch, dev, card: str) -> dict:
     return launches
 
 
+BUNDLE_HW = (1088, 1920)
+BUNDLE_BUCKETS = (1, 64)
+BUNDLE_SMALL_BUCKET = 8  # the ViT-B and 768 x 768 bundles'
+BUNDLE_FRAME_BOXES = (1, 64, 256)
+BUNDLE_EVAL_BATCH = 64
+BUNDLE_EVAL_SAMPLES = 320  # whole batches: the live run's batches equal the bundle's
+BUNDLE_SERVER_CLIENTS = 8
+BUNDLE_SERVER_REQUESTS = 4
+PLANE_RECORDS = 256
+PLANE_STEPS = 2
+PLANE_BATCH = 16
+COUNTER_KEYS = ("k1f", "k1b", "k1s", "k2", "k3", "k4f", "k4b", "k5f", "k5b", "k6")
+
+# The fresh process that serves each bundle: it imports the bundle module
+# and the kernels' counters only, serves, and reports the launches of each
+# call, the load times, the outputs (an npz per bundle) and which of the
+# port's model, training, codec and predictor modules it holds afterwards.
+BUNDLE_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+from probpose_pytorch_tpu_torch.serve.export import (
+    BottomUpBundle, DetectorBundle, FusedBundle, ServingBundle)
+from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+    fused_attention, packed_attention, packed_attention_backward)
+from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    short_forward, tiled_attention, tiled_attention_backward)
+from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp, fused_ln_mlp_backward
+from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_rows
+
+W = dict(k1f=packed_attention, k1b=packed_attention_backward, k1s=short_forward,
+         k2=sparsemax_rows, k3=expected_value_decode_fused, k4f=tiled_attention,
+         k4b=tiled_attention_backward, k5f=fused_ln_mlp, k5b=fused_ln_mlp_backward,
+         k6=fused_attention)
+# as the parent process: float32 products and convolutions without TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work = Path(sys.argv[1])
+inp = np.load(work / "inputs.npz")
+frame = inp["frame"]
+
+def counted(fn):
+    for w in W.values():
+        w.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in W.items()}
+
+jobs = {
+    "pose_1": (ServingBundle, "pose", lambda b: b.predict_frame(frame, inp["boxes1"])),
+    "pose_64": (ServingBundle, "pose", lambda b: b.predict_frame(frame, inp["boxes64"])),
+    "detector": (DetectorBundle, "detector",
+                 lambda b: dict(zip(("boxes", "scores"), b.detect_frame(frame, 0.0)))),
+    "bottomup": (BottomUpBundle, "bottomup", lambda b: b.predict_frame(frame, 0.0)),
+    "fused": (FusedBundle, "fused", lambda b: b.predict_frame(frame, 0.0)),
+    "vitb": (ServingBundle, "vitb", lambda b: b.predict_frame(frame, inp["boxes8"])),
+    "768": (ServingBundle, "768", lambda b: b.predict_frame(frame, inp["boxes8"])),
+}
+loaded = {}
+for name, (cls, directory, call) in jobs.items():
+    if directory not in loaded:
+        t0 = time.perf_counter()
+        loaded[directory] = cls.load(work / directory, device=sys.argv[2])
+        load_s = time.perf_counter() - t0
+    else:
+        load_s = 0.0
+    call(loaded[directory])  # the first call reads the program
+    t0 = time.perf_counter()
+    out, counts = counted(lambda: call(loaded[directory]))
+    np.savez(work / f"child_{name}.npz", **out)
+    print(json.dumps(dict(bundle=name, load_s=load_s, call_s=time.perf_counter() - t0,
+                          counts=counts)), flush=True)
+banned = ("models", "train", "detect.model", "codec", "codec_simcc", "inference")
+held = sorted(m for m in sys.modules if m.startswith("probpose_pytorch_tpu_torch.")
+              and m.split(".", 1)[1].startswith(banned))
+print(json.dumps(dict(modules=held)), flush=True)
+
+# Then the live predictors on the same calls, in this process, so that both
+# sides run under the same library state (cuDNN picks its algorithms by the
+# memory free at the call).
+sys.path.insert(0, str(Path.cwd()))
+from chip_smoke import peak_heatmap_branch, make_codec
+from probpose_pytorch_tpu_torch.detect import (
+    FusedTwoStagePredictor, load_bottomup, load_detector)
+from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+from probpose_pytorch_tpu_torch.models.model import build_model
+from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+dev = torch.device(sys.argv[2])
+runs = json.loads((work / "runs.json").read_text())
+pose = load_predictor(runs["recipe"], device=dev)
+det = load_detector(runs["detector"], score_threshold=0.0, device=dev)
+bu = load_bottomup(runs["bottomup"], score_threshold=0.0, device=dev)
+fused = FusedTwoStagePredictor(
+    load_detector(runs["detector"], score_threshold=0.0, max_detections=runs["people"],
+                  device=dev), pose, max_people=runs["people"], score_threshold=0.0)
+small = {}
+for name in ("vitb", "768"):
+    cfg = TrainConfig.load(work / f"{name}.json").model
+    model = build_model(cfg, dev, seed=0)
+    peak_heatmap_branch(torch, model)
+    small[name] = TopDownPredictor(model, make_codec(cfg), cfg.img_size)
+buckets = tuple(runs["buckets"])
+live = {
+    "pose_1": lambda: pose.predict_frame(frame, inp["boxes1"], buckets=buckets),
+    "pose_64": lambda: pose.predict_frame(frame, inp["boxes64"], buckets=buckets),
+    "detector": lambda: dict(zip(("boxes", "scores"), det.detect_frame(frame, 0.0))),
+    "bottomup": lambda: bu.predict_frame(frame, 0.0),
+    "fused": lambda: fused.predict_frame(frame, 0.0),
+    "vitb": lambda: small["vitb"].predict_frame(frame, inp["boxes8"],
+                                                buckets=(runs["small_bucket"],)),
+    "768": lambda: small["768"].predict_frame(frame, inp["boxes8"],
+                                              buckets=(runs["small_bucket"],)),
+}
+for name, fn in live.items():
+    np.savez(work / f"live_{name}.npz", **fn())
+print(json.dumps(dict(live="done")), flush=True)
+"""
+
+
+def bundle_graph_ops(path: Path) -> dict:
+    """The `probpose::` ops of a saved program's graph, by name: count."""
+    import gzip
+
+    import torch
+
+    from probpose_pytorch_tpu_torch.ops.kernels import register_ops
+
+    register_ops()
+    graph = str(torch.export.load(io.BytesIO(gzip.decompress(path.read_bytes()))).graph)
+    names = ("short_attention_fwd", "tiled_attention_fwd", "packed_attention_fwd",
+             "flat_attention_fwd", "fused_ln_mlp_fwd", "sparsemax_rows")
+    return {n: graph.count(f"probpose.{n}") for n in names if f"probpose.{n}" in graph}
+
+
+def phase15_export(torch, dev, card: str, work: Path, det_run: Path, bu_run: Path) -> None:
+    """Phase 15 (1): every bundle kind through the export CLI on the card
+    (and the ViT-B and 768 x 768 models of phases 6 and 8 through
+    export_predictor_bundle); each program's graph holds the ops it should.
+    The ViT-B and 768 x 768 configs go to `work` for the serving process."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.serve import export
+
+    recipe = RUN_DIR / "recipe" / "checkpoints"
+    H, W = BUNDLE_HW
+    frame = f"{H},{W}"
+    runs = (
+        ("pose", ["--checkpoint", str(recipe), "--buckets", ",".join(map(str, BUNDLE_BUCKETS)),
+                  "--frame-size", frame]),
+        ("eval", ["--checkpoint", str(recipe), "--buckets", str(BUNDLE_EVAL_BATCH),
+                  "--frame-size", "256,192", "--no-indexed"]),
+        ("detector", ["--detector-checkpoint", str(det_run), "--frame-size", frame]),
+        ("bottomup", ["--bottomup-checkpoint", str(bu_run), "--frame-size", frame]),
+        ("fused", ["--checkpoint", str(recipe), "--fused-detector", str(det_run),
+                   "--frame-size", frame, "--max-people", str(FUSED_PEOPLE)]),
+    )
+    for name, args in runs:
+        argv = args + ["--out", str(work / name), "--device", dev.type]
+        say(f"phase 15: python -m probpose_pytorch_tpu_torch.serve.export {' '.join(argv)}")
+        t0 = time.perf_counter()
+        export.main(argv)
+        wall = time.perf_counter() - t0
+        programs = sorted((work / name).glob("*.pt2.gz"))
+        size = sum(p.stat().st_size for p in (work / name).iterdir())
+        say(f"phase 15 [{card}]: {name} bundle: {len(programs)} programs in {wall:.2f} s "
+            f"(the CLI's checkpoint load included) = {wall / len(programs):.2f} s a program; "
+            f"{size / 2**20:.2f} MiB on disk (params.pt "
+            f"{(work / name / 'params.pt').stat().st_size / 2**20:.2f} MiB)")
+    for name, train_cfg in (("vitb", vitb_train_config("bfloat16")),
+                            ("768", config_768("bfloat16", BUNDLE_SMALL_BUCKET))):
+        train_cfg.save(work / f"{name}.json")
+        cfg = train_cfg.model
+        model = build_model(cfg, dev, seed=0)
+        peak_heatmap_branch(torch, model)
+        t0 = time.perf_counter()
+        export.export_predictor_bundle(TopDownPredictor(model, make_codec(cfg), cfg.img_size),
+                                       work / name, (BUNDLE_SMALL_BUCKET,), BUNDLE_HW,
+                                       indexed=False)
+        size = sum(p.stat().st_size for p in (work / name).iterdir())
+        say(f"phase 15 [{card}]: {name} bundle ({cfg.backbone} at {cfg.img_size}, "
+            f"mlp_impl {cfg.mlp_impl!r}): 1 program in {time.perf_counter() - t0:.2f} s; "
+            f"{size / 2**20:.2f} MiB on disk")
+    want = {"pose": {"short_attention_fwd": 12, "sparsemax_rows": 1},
+            "eval": {"short_attention_fwd": 12, "sparsemax_rows": 1},
+            "fused": {"short_attention_fwd": 12, "sparsemax_rows": 1},
+            "vitb": {"short_attention_fwd": 12, "fused_ln_mlp_fwd": 12, "sparsemax_rows": 1},
+            "768": {"tiled_attention_fwd": 12, "sparsemax_rows": 1},
+            "detector": {}, "bottomup": {}}
+    for name, ops in want.items():
+        for program in sorted((work / name).glob("*.pt2.gz")):
+            got = bundle_graph_ops(program)
+            say(f"phase 15: {name}/{program.name}: probpose ops {got}")
+            check(got == ops, f"{name}/{program.name}: ops {got}, expected {ops}")
+
+
+def phase15_serve_alone(torch, dev, card: str, work: Path, det_run: Path,
+                        bu_run: Path) -> dict:
+    """Phase 15 (2-4): each bundle served by a fresh process that imports no
+    model code: 12 short K1 forwards and 1 K2 a pose program call; after
+    its modules are checked, the same process runs the live predictors on
+    the same calls, and their outputs are held to the bundles'."""
+    rng = np.random.default_rng(150)
+    frame = rng.integers(0, 256, (*BUNDLE_HW, 3), dtype=np.uint8)
+    np.savez(work / "inputs.npz", frame=frame, boxes1=camera_boxes(rng, 1, BUNDLE_HW),
+             boxes64=camera_boxes(rng, 64, BUNDLE_HW),
+             boxes8=camera_boxes(rng, BUNDLE_SMALL_BUCKET, BUNDLE_HW))
+    (work / "runs.json").write_text(json.dumps(dict(
+        recipe=str(RUN_DIR / "recipe" / "checkpoints"), detector=str(det_run / "checkpoints"),
+        bottomup=str(bu_run), people=FUSED_PEOPLE, buckets=list(BUNDLE_BUCKETS),
+        small_bucket=BUNDLE_SMALL_BUCKET)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", BUNDLE_CHILD, str(work), dev.type], cwd=REPO,
+                          capture_output=True, text=True, timeout=900,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    check(proc.returncode == 0, f"the bundle process failed:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    say(f"phase 15: the fresh process served {len(lines) - 2} bundle calls, then the live "
+        f"predictors' same calls, in {time.perf_counter() - t0:.2f} s wall (start, kernel "
+        "library, loads)")
+    held = lines[-2]["modules"]
+    check(held == [], f"the bundle process imported model code: {held}")
+    check(lines[-1] == {"live": "done"}, "the bundle process did not run the live predictors")
+    say("phase 15: after serving, the fresh process held none of the port's models, train, "
+        "detect.model, codec or inference modules")
+    expect = {"pose_1": dict(k1s=12, k2=1), "pose_64": dict(k1s=12, k2=1), "detector": {},
+              "bottomup": {}, "fused": dict(k1s=12, k2=1), "vitb": dict(k1s=12, k5f=12, k2=1),
+              "768": dict(k4f=12, k2=1)}
+    launches = {}
+    for c in lines[:-2]:
+        name = c["bundle"]
+        want = {k: expect[name].get(k, 0) for k in COUNTER_KEYS}
+        say(f"phase 15: bundle {name}: launches {c['counts']}, load {c['load_s']:.3f} s, "
+            f"call {c['call_s'] * 1e3:.2f} ms (fresh process)")
+        check(c["counts"] == want, f"bundle {name}: launches {c['counts']}, expected {want}")
+        launches[name] = c["counts"]
+        got = dict(np.load(work / f"child_{name}.npz"))
+        ref = dict(np.load(work / f"live_{name}.npz"))
+        check(sorted(got) == sorted(ref), f"bundle {name}: keys {sorted(got)} vs {sorted(ref)}")
+        gaps = {}
+        for k in ref:
+            check(got[k].shape == ref[k].shape, f"bundle {name}: {k} {got[k].shape}")
+            gaps[k] = float(np.abs(got[k].astype(np.float64) - ref[k]).max(initial=0.0))
+        kgap = gaps.get("keypoints", 0.0)
+        fgap = max((v for k, v in gaps.items() if k not in ("keypoints", "boxes")), default=0.0)
+        say(f"phase 15: bundle {name} vs the live predictor on the same frame: keypoints max gap "
+            f"{kgap:.3e} px (gate {KPT_TOL_PX:g}), other fields {fgap:.3e} ({PROB_TOL:g}), "
+            f"boxes {gaps.get('boxes', 0.0):.3e} px")
+        check(kgap <= KPT_TOL_PX and gaps.get("boxes", 0.0) <= KPT_TOL_PX,
+              f"bundle {name}: keypoints or boxes differ from live by {gaps}")
+        check(fgap <= PROB_TOL, f"bundle {name}: fields differ from live by {gaps}")
+    check(len(launches) == len(expect), f"bundle calls {sorted(launches)}")
+    return launches
+
+
+def phase15_frontends(torch, dev, card: str, work: Path) -> dict:
+    """Phase 15 (5-8): the pose bundle's dispatch under
+    set_sync_debug_mode("error"), predict_frame against the live predictor
+    in turns; the eval, server and video CLIs with --bundle."""
+    import base64
+    import signal
+    import socket
+
+    from probpose_pytorch_tpu_torch import video
+    from probpose_pytorch_tpu_torch.eval import run as eval_run
+    from probpose_pytorch_tpu_torch.inference import load_predictor
+    from probpose_pytorch_tpu_torch.serve.export import ServingBundle
+
+    recipe = RUN_DIR / "recipe"
+    bundle = ServingBundle.load(work / "pose", device=dev)
+    pose = load_predictor(recipe / "checkpoints", device=dev)
+    rng = np.random.default_rng(151)
+    frame = rng.integers(0, 256, (*BUNDLE_HW, 3), dtype=np.uint8)
+    top = BUNDLE_BUCKETS[-1]
+    boxes = camera_boxes(rng, top, BUNDLE_HW)
+    bundle.predict_frame(frame, boxes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev_out = bundle.dispatch(frame[None], boxes, np.zeros(top, np.int64))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(dev_out["keypoints"].device.type == dev.type
+          and dev_out["keypoints"].shape == (top, 17, 2), "bundle dispatch outputs")
+    say(f"phase 15: the pose bundle's dispatch ({top} crops, indexed) ran under "
+        "set_sync_debug_mode('error'): no host synchronisation")
+    times = {}
+    for n in BUNDLE_FRAME_BOXES:
+        b = camera_boxes(rng, n, BUNDLE_HW)
+        fns = {"live": lambda: pose.predict_frame(frame, b, buckets=BUNDLE_BUCKETS),
+               "bundle": lambda: bundle.predict_frame(frame, b)}
+        for name in ("live", "bundle", "bundle", "live"):
+            fns[name]()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fns[name]()
+            times.setdefault(n, {}).setdefault(name, []).append(
+                (time.perf_counter() - t0) / 5 * 1e3)
+    say(f"phase 15 [{card}]: predict_frame on a {BUNDLE_HW[0]} x {BUNDLE_HW[1]} frame, bf16, "
+        f"buckets {BUNDLE_BUCKETS}, ms a call (host clock, 5 calls, live, bundle, bundle, live): "
+        + "; ".join(f"{n} boxes: live {np.mean(t['live']):.3f}, bundle {np.mean(t['bundle']):.3f}"
+                    for n, t in times.items()))
+
+    # the eval CLI: --bundle against --checkpoint on phase 10's set
+    root = RUN_DIR / "synth_coco"
+    ann = root / "annotations" / "person_keypoints_val2017.json"
+    base = ["--annotations", str(ann), "--images", str(root / "val2017"), "--batch-size",
+            str(BUNDLE_EVAL_BATCH), "--max-samples", str(BUNDLE_EVAL_SAMPLES),
+            "--device", dev.type]
+    lines, launches = {}, {}
+    for name, args in (("bundle", ["--bundle", str(work / "eval")]),
+                       ("live", ["--checkpoint", str(recipe / "checkpoints")])):
+        t0 = time.perf_counter()
+        (line, counts) = counted(torch, {}, lambda: eval_run.main(base + args))
+        lines[name] = line
+        launches[name] = counts
+        say(f"phase 15 [{card}]: eval CLI {args[0]}: {time.perf_counter() - t0:.2f} s wall; AP "
+            f"{line['AP']}, EPE {line['EPE']}")
+    batches = BUNDLE_EVAL_SAMPLES // BUNDLE_EVAL_BATCH
+    check_attention_route(launches["bundle"], 12 * batches, 0, phase=15)
+    check(launches["bundle"]["k2"] == batches, "eval --bundle: K2 not once a batch")
+    check(lines["bundle"] == lines["live"],
+          f"eval --bundle summary {lines['bundle']} != live {lines['live']}")
+    say("phase 15: the eval CLI's summary with --bundle equals the live checkpoint's")
+
+    # the server CLI with --bundle
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    args = [sys.executable, "-m", "probpose_pytorch_tpu_torch.serve.server", "--bundle",
+            str(work / "pose"), "--host", "127.0.0.1", "--port", str(port), "--warmup",
+            "--device", dev.type]
+    say(f"phase 15: {' '.join(args[1:])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out_lines = []
+        while True:
+            line = proc.stdout.readline()
+            if not line or time.perf_counter() - t0 > 600:
+                break
+            out_lines.append(line)
+            if line.startswith("serving "):
+                break
+        check(bool(out_lines) and out_lines[-1].startswith("serving "),
+              "the server CLI did not start:\n" + "".join(out_lines[-40:]))
+        start_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        b64 = base64.b64encode(frame.tobytes()).decode()
+        bodies = [[predict_body(b64, frame.shape, camera_boxes(rng, int(rng.integers(
+            1, MAX_REQUEST_BOXES + 1)), BUNDLE_HW)) for _ in range(BUNDLE_SERVER_REQUESTS)]
+            for _ in range(BUNDLE_SERVER_CLIENTS)]
+        replies, wall = run_clients(url + "/predict", bodies)
+        crops = 0
+        for reply_list in replies:
+            for status, out in reply_list:
+                check(status == 200, f"server --bundle /predict: {status} {out}")
+                k = np.asarray(out["keypoints"], np.float32)
+                check(k.shape[1:] == (17, 2) and np.isfinite(k).all(), "server --bundle reply")
+                crops += len(k)
+        stats = json.loads(get_text(url + "/stats"))
+        check(stats["crops"] == crops, f"server --bundle /stats: {stats}")
+        lat = dict(stats["latency_ms"], mean_batch=stats["mean_batch"])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVER_EXIT_S)
+        check(rc == 0, f"the server CLI exited {rc} on SIGTERM")
+        say(f"phase 15 [{card}]: server CLI --bundle up in {start_s:.2f} s (load, warmup); "
+            f"{BUNDLE_SERVER_CLIENTS} clients x {BUNDLE_SERVER_REQUESTS} requests of 1-"
+            f"{MAX_REQUEST_BOXES} boxes on {BUNDLE_HW[0]} x {BUNDLE_HW[1]} frames: {crops} crops "
+            f"in {wall:.2f} s = {crops / wall:.1f} crops/s; latency {lat}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
+
+    # the video CLI with --bundle, in stream mode
+    frames, vboxes = video_input(VIDEO_CLI_FRAMES, 152)
+    vwork = work / "video"
+    vwork.mkdir(parents=True, exist_ok=True)
+    np.save(vwork / "frames.npy", frames)
+    (vwork / "boxes.json").write_text(json.dumps([b.tolist() for b in vboxes]))
+    n_crops = sum(len(b) for b in vboxes)
+    args = ["--bundle", str(work / "pose"), "--frames", str(vwork / "frames.npy"), "--boxes",
+            str(vwork / "boxes.json"), "--out", str(vwork / "out"), "--stream-batch",
+            str(BUNDLE_BUCKETS[-1]), "--device", dev.type]
+    say(f"phase 15: python -m probpose_pytorch_tpu_torch.video {' '.join(args)}")
+    t0 = time.perf_counter()
+    _, counts = counted(torch, {}, lambda: video.main(args))
+    wall = time.perf_counter() - t0
+    dispatches = -(-n_crops // BUNDLE_BUCKETS[-1])
+    check_attention_route(counts, 12 * dispatches, 0, phase=15)
+    check(counts["k2"] == dispatches, "video --bundle: K2 not once a dispatch")
+    records = (vwork / "out" / "poses.jsonl").read_text().splitlines()
+    check(len(records) == VIDEO_CLI_FRAMES, f"video --bundle: {len(records)} records")
+    say(f"phase 15 [{card}]: video CLI --bundle --stream-batch {BUNDLE_BUCKETS[-1]}: "
+        f"{VIDEO_CLI_FRAMES} frames of {VIDEO_HW[0]} x {VIDEO_HW[1]} ({n_crops} boxes) in "
+        f"{wall:.2f} s wall (bundle load included) = {VIDEO_CLI_FRAMES / wall:.2f} frames/s")
+    launches["eval"] = launches.pop("bundle")
+    del launches["live"]
+    launches["video"] = counts
+    return launches
+
+
+def phase15_dataplane(torch, dev, card: str, work: Path) -> None:
+    """Phase 15 (9-12): the native data plane: its build, crop_resize_batch
+    against crop_resize "bilinear_gather" on the card, the JPEG half against
+    PIL's decode where it is built, native crops/s against the PIL path on
+    the same records, and the training CLI with resample="native"."""
+    import PIL.Image
+
+    from probpose_pytorch_tpu_torch import native
+    from probpose_pytorch_tpu_torch.data import COCOPoseDataset
+    from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
+    from probpose_pytorch_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    check(native.native_available(), f"no native data plane: {native.build_report()}")
+    report = native.build_report()
+    say(f"phase 15: native data plane in {time.perf_counter() - t0:.2f} s: {report}")
+    say(f"phase 15: data plane halves: crop-resize built; JPEG "
+        f"{'built (libjpeg linked)' if report['jpeg'] else 'NOT built: ' + report['jpeg_missing']}")
+    rng = np.random.default_rng(153)
+    frames = rng.integers(0, 256, (8, 480, 640, 3), dtype=np.uint8)
+    boxes = camera_boxes(rng, 8, (480, 640))
+    crops = native.crop_resize_batch(frames, boxes, (256, 192))
+    dev_crops = crop_resize(torch.from_numpy(frames).to(dev).float(),
+                            torch.from_numpy(boxes).to(dev), (256, 192), "bilinear_gather")
+    want = dev_crops.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    gap = int(np.abs(crops.astype(int) - want.astype(int)).max())
+    say(f"phase 15: crop_resize_batch vs crop_resize(..., 'bilinear_gather') on the card, 8 "
+        f"crops of 256 x 192 from 480 x 640 frames: max gap {gap} uint8 levels (gate 1)")
+    check(gap <= 1, f"native crops differ from the card's by {gap} levels")
+
+    # the records: phase 11's synthetic COCO set; without the JPEG half, a
+    # PNG copy of it (the plane crops PIL-decoded PNGs, as JAX's loaders do)
+    root = RUN_DIR / "finetune" / "coco"
+    if report["jpeg"]:
+        data = root
+        bufs = [(root / "val2017" / p).read_bytes()
+                for p in sorted(os.listdir(root / "val2017"))[:4]]
+        got, failed = native.decode_crop_resize_batch(bufs, boxes[:4], (256, 192))
+        check(failed == 0, f"{failed} JPEG decodes failed")
+        pil = np.stack([np.asarray(PIL.Image.open(io.BytesIO(b)).convert("RGB")) for b in bufs])
+        ref = native.crop_resize_batch(pil, boxes[:4], (256, 192))
+        dgap = int(np.abs(got.astype(int) - ref.astype(int)).max())
+        say(f"phase 15: decode_crop_resize_batch on 4 JPEGs of the set vs PIL's decode + the "
+            f"native crop: max gap {dgap} levels (gate 2, IDCT variants)")
+        check(dgap <= 2, f"native JPEG decode differs from PIL's by {dgap}")
+    else:
+        data = work / "coco_png"
+        for split in ("train2017", "val2017"):
+            (data / split).mkdir(parents=True, exist_ok=True)
+            for p in sorted((root / split).iterdir()):
+                PIL.Image.open(p).save(data / split / (p.stem + ".png"))
+        (data / "annotations").mkdir(parents=True, exist_ok=True)
+        for ann in (root / "annotations").iterdir():
+            raw = json.loads(ann.read_text())
+            for im in raw["images"]:
+                im["file_name"] = Path(im["file_name"]).stem + ".png"
+            (data / "annotations" / ann.name).write_text(json.dumps(raw))
+        say("phase 15: without the JPEG half the records are a PNG copy of the set")
+    ann = data / "annotations" / "person_keypoints_train2017.json"
+    ds = {r: COCOPoseDataset(ann, data / "train2017", (256, 192), resample=r)
+          for r in ("native", "bilinear")}
+    n = min(PLANE_RECORDS, len(ds["native"]))
+    rates = {}
+    for r in ("bilinear", "native", "native", "bilinear"):
+        t0 = time.perf_counter()
+        b = ds[r].get_batch(range(n))
+        rates.setdefault(r, []).append(n / (time.perf_counter() - t0))
+        check(b["image"].shape == (n, 256, 192, 3), f"{r} batch shape")
+    say(f"phase 15 [{card}]: COCO get_batch of {n} records (480 x 480 frames -> 256 x 192): "
+        f"native {np.mean(rates['native']):.1f} crops/s, PIL bilinear "
+        f"{np.mean(rates['bilinear']):.1f} crops/s (host clock, in turns: {rates})")
+
+    cfg = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())
+    cfg.update(resample="native", train_batch_size=PLANE_BATCH, val_batch_size=PLANE_BATCH,
+               log_every=1, val_every=10_000)
+    (work / "native.json").write_text(json.dumps(cfg))
+    run = work / "native_run"
+    args = [str(run), "--config", str(work / "native.json"), "--data-root", str(data),
+            "--dataset-format", "coco", "--max-steps", str(PLANE_STEPS), "--device", dev.type]
+    say(f"phase 15: python -m probpose_pytorch_tpu_torch.train.cli {' '.join(args)}")
+    t0 = time.perf_counter()
+    (_, counts) = counted(torch, {}, lambda: cli.main(args))
+    wall = time.perf_counter() - t0
+    check((run / "checkpoints" / str(PLANE_STEPS)).is_file(), "native train CLI checkpoint")
+    losses = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    check(losses and all(np.isfinite(v) for x in losses for v in x.values()
+                         if isinstance(v, float)), f"native train CLI: {losses[-1:]}")
+    say(f"phase 15 [{card}]: training CLI with resample='native', B = {PLANE_BATCH}: "
+        f"{PLANE_STEPS} steps in {wall:.2f} s wall (build, data and checkpoint included); "
+        f"K1 short forwards {counts['k1s']}, K2 {counts['k2']}")
+
+
+def phase15(torch, dev, card: str) -> dict:
+    """Phase 15: the serving bundles exported, served without model code and
+    held to the live predictors, through the CLIs; then the native data
+    plane. Returns the bundles' launch counts."""
+    t_phase = time.perf_counter()
+    work = RUN_DIR / "phase15"
+    work.mkdir(parents=True, exist_ok=True)
+    det_run, bu_run = RUN_DIR / "phase14" / "detector", RUN_DIR / "phase14" / "bottomup"
+    phase15_export(torch, dev, card, work, det_run, bu_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase15_serve_alone(torch, dev, card, work, det_run, bu_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase15_frontends(torch, dev, card, work))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase15_dataplane(torch, dev, card, work)
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -4014,7 +4571,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 14, then the kernels line and the result line."""
+    """Phases 0 to 15, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -4252,6 +4809,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     detectors14 = phase14(torch, dev, card)
 
+    # --------------------------------------------------------------- phase 15
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundles15 = phase15(torch, dev, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -4333,6 +4895,8 @@ def run(torch) -> None:
                                      for run, c in recipes13.items()}
         entry["phase14_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in detectors14.items()}
+        entry["phase15_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in bundles15.items()}
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,6 +22,10 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     configs/              the serving record: batch and bucket ladder by card
     ops/oks_nms.py        pose OKS-NMS and soft OKS-NMS (numpy)
     serve/server.py       MicroBatcher, the HTTP server and its CLI
+    serve/export.py       exported serving bundles (torch.export programs
+                          of the pose, detector, bottom-up and fused
+                          predictors, the weights stored once) and the
+                          export CLI; they serve without model code
     video.py              frame sequences: OksTracker, run_video,
                           run_video_stream and the video CLI
     utils/smoothing.py    one-euro smoothing of tracked poses (numpy)
@@ -36,15 +40,18 @@ The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
     ops/augment.py        on-device augmentation: draws and transforms
     data/                 synthetic poses, COCO and YOLO loaders, the crop
                           cache, batching and prefetch (host)
+    native/               the C++ data plane (JPEG decode and crop-resize
+                          on the host, resample="native"), built with g++
     train/                TrainConfig, AdamW + one-cycle + EMA (+ MultiSteps),
                           Trainer, checkpoints, the training CLI (cli.py)
     utils/logging.py      metrics.jsonl (and TensorBoard where installed)
     compat/from_jax.py    load the JAX package's weights and train state
     ops/kernels/          hand-written Hopper kernels, their plain versions,
-                          and the nvcc builder for csrc/*.cu
+                          the probpose:: ops of the serving launches, and
+                          the nvcc builder for csrc/*.cu
 
 Importing the package builds nothing: kernels are compiled at their first
-launch on a CUDA tensor.
+launch on a CUDA tensor, the data plane at its first use.
 """
 
 __all__: list[str] = []

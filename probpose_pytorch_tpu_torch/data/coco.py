@@ -24,7 +24,7 @@ __all__ = [
     "COCOPoseDataset",
     "COCO_SIGMAS",
     "COCO_KEYPOINT_NAMES",
-    "native_unported",
+    "native_crops",
 ]
 
 # The 17 COCO person keypoints, protocol order.
@@ -46,10 +46,40 @@ COCO_SIGMAS = np.array(
 )
 
 
-def native_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "resample='native' (the C++ data plane) is not ported to PyTorch yet "
-        "(ROADMAP item 6); use 'bilinear' or 'lanczos'")
+def native_crops(paths, boxes, size: tuple[int, int]) -> np.ndarray:
+    """(n, H, W, 3) uint8 crops of the images at `paths` for xywh `boxes`
+    through the native data plane (native/dataplane.cpp), as JAX's loaders
+    read with resample="native": the JPEG files decoded and cropped in one
+    threaded native call, the others decoded by PIL and cropped by the
+    native resampler, so every crop has the device's "bilinear_gather"
+    sampling convention."""
+    import PIL.Image
+
+    from probpose_pytorch_tpu_torch import native
+
+    if not native.native_available():
+        raise RuntimeError(
+            "resample='native' requires the C++ data plane (native/dataplane.cpp, "
+            f"built at first use with g++): {native.build_report().get('reason')}")
+    H, W = size
+    out = np.empty((len(paths), H, W, 3), np.uint8)
+    jpeg_pos, bufs, jboxes = [], [], []
+    for j, (path, box) in enumerate(zip(paths, boxes)):
+        path = Path(path)
+        if path.suffix.lower() in (".jpg", ".jpeg"):
+            jpeg_pos.append(j)
+            bufs.append(path.read_bytes())
+            jboxes.append(box)
+        else:
+            with PIL.Image.open(path) as im:
+                frame = np.asarray(im.convert("RGB"), np.uint8)
+            out[j] = native.crop_resize_batch(frame[None], np.asarray([box], np.float32),
+                                              (H, W))[0]
+    if jpeg_pos:
+        crops, _failed = native.decode_crop_resize_batch(bufs, np.asarray(jboxes, np.float32),
+                                                         (H, W))
+        out[jpeg_pos] = crops
+    return out
 
 
 def parse_coco_annotations(
@@ -127,8 +157,6 @@ class COCOPoseDataset:
     resample: str = "bilinear"
 
     def __post_init__(self):
-        if self.resample == "native":
-            raise native_unported()
         self.records, ignores = parse_coco_annotations(
             self.annotation_file, self.image_root, self.min_keypoints, include_ignore=True)
         # Ignore-regions (crowds, sub-min-keypoint instances) by image, for
@@ -161,13 +189,25 @@ class COCOPoseDataset:
         )
 
     def get_batch(self, indices) -> dict[str, np.ndarray]:
-        """The samples of `indices`, read in a thread pool and collated."""
-        with cf.ThreadPoolExecutor(max_workers=8) as pool:
-            return _collate(list(pool.map(self.__getitem__, [int(i) for i in indices])))
+        """The samples of `indices`, read in a thread pool and collated;
+        with resample="native", decoded and cropped by the native data plane
+        (`native_crops`) in one call."""
+        indices = [int(i) for i in indices]
+        if self.resample != "native":
+            with cf.ThreadPoolExecutor(max_workers=8) as pool:
+                return _collate(list(pool.map(self.__getitem__, indices)))
+        H, W = self.input_size
+        recs = [self.records[i] for i in indices]
+        boxes = [expand_bbox(rec["bbox"], self.bbox_scale, W / H) for rec in recs]
+        image = native_crops([rec["image_path"] for rec in recs], boxes, (H, W))
+        labels = [self._labels(rec, box) for rec, box in zip(recs, boxes)]
+        return dict(image=image, **{k: np.stack([lb[k] for lb in labels]) for k in labels[0]})
 
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         import PIL.Image
 
+        if self.resample == "native":
+            return {k: v[0] for k, v in self.get_batch([idx]).items()}
         rec = self.records[idx]
         H, W = self.input_size
         box = expand_bbox(rec["bbox"], self.bbox_scale, W / H)

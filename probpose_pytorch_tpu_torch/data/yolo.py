@@ -15,7 +15,7 @@ from typing import Any
 
 import numpy as np
 
-from probpose_pytorch_tpu_torch.data.coco import native_unported
+from probpose_pytorch_tpu_torch.data.coco import native_crops
 from probpose_pytorch_tpu_torch.data.pipeline import _collate
 
 __all__ = ["parse_yolo_annotations", "YOLOPoseDataset"]
@@ -82,11 +82,9 @@ class YOLOPoseDataset:
     split: str
     input_size: tuple[int, int]  # (H, W)
     target_single_class: int | None = None
-    resample: str = "lanczos"
+    resample: str = "lanczos"  # "native" = the C++ data plane, the device convention
 
     def __post_init__(self):
-        if self.resample == "native":
-            raise native_unported()
         self.records = parse_yolo_annotations(Path(self.root) / self.split,
                                               self.target_single_class)
 
@@ -110,6 +108,8 @@ class YOLOPoseDataset:
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         import PIL.Image
 
+        if self.resample == "native":
+            return {k: v[0] for k, v in self.get_batch([idx]).items()}
         rec = self.records[idx]
         H, W = self.input_size
         x0, y0, bw, bh = rec["bbox"]
@@ -122,6 +122,16 @@ class YOLOPoseDataset:
         return dict(image=np.asarray(crop, np.uint8), **self._labels(rec))
 
     def get_batch(self, indices) -> dict[str, np.ndarray]:
-        """The samples of `indices`, read in a thread pool and collated."""
-        with cf.ThreadPoolExecutor(max_workers=8) as pool:
-            return _collate(list(pool.map(self.__getitem__, [int(i) for i in indices])))
+        """The samples of `indices`, read in a thread pool and collated;
+        with resample="native", decoded and cropped by the native data plane
+        (`native_crops`, JPEG records in one threaded native call) in the
+        device preprocess's sampling convention."""
+        indices = [int(i) for i in indices]
+        if self.resample != "native":
+            with cf.ThreadPoolExecutor(max_workers=8) as pool:
+                return _collate(list(pool.map(self.__getitem__, indices)))
+        recs = [self.records[i] for i in indices]
+        image = native_crops([rec["image_path"] for rec in recs],
+                             [rec["bbox"] for rec in recs], self.input_size)
+        labels = [self._labels(rec) for rec in recs]
+        return dict(image=image, **{k: np.stack([lb[k] for lb in labels]) for k in labels[0]})

@@ -58,8 +58,9 @@ class FusedTwoStagePredictor:
 
     def __post_init__(self):
         if not hasattr(self.detector, "predict") or not hasattr(self.pose, "predict"):
-            raise ValueError("fusing composes the live predictors' device paths; exported "
-                             "bundles (ROADMAP item 8) cannot be fused")
+            raise ValueError("fusing composes the LIVE predictors' programs; exported bundles "
+                             "are already-traced programs (export the fused program itself: "
+                             "serve.export --fused-detector)")
         if self.detector.mesh is not None or self.pose.mesh is not None:
             raise ValueError("fused two-stage serving is single-device; scale the two "
                              "stages' own mesh= knobs instead")

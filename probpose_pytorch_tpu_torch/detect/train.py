@@ -137,6 +137,12 @@ def _bundle_kind(checkpoint_dir: Path) -> str | None:
     return json.loads(manifest.read_text()).get("kind") if manifest.exists() else None
 
 
+def _bundle_mesh(mesh) -> None:
+    if mesh is not None:
+        raise ValueError("mesh serving needs a live checkpoint; exported bundles are "
+                         "single-device programs")
+
+
 def _restored(checkpoint_dir: Path, device, num_keypoints: int | None = None,
               kpt_heatmaps: bool = False) -> DetectorTrainer:
     """A trainer of `detector.json` (beside `checkpoint_dir`) with the
@@ -161,13 +167,17 @@ def load_detector(checkpoint_dir: str | Path, score_threshold: float = 0.3,
                   max_detections: int = 64, mesh=None, device: torch.device | str = "cuda"):
     """A DetectorPredictor from a detector checkpoint directory (the CLI's
     `<out>/checkpoints`; its `detector.json` is read from the parent). Runs
-    on the card unless `device` asks for the CPU. Exported detector bundles
-    (ROADMAP item 8) and `mesh` (item 13) are not ported."""
+    on the card unless `device` asks for the CPU. A directory holding an
+    exported detector bundle (serve/export.py) loads as a DetectorBundle,
+    with the same detect_frame contract. `mesh` (item 13) is not ported."""
     from probpose_pytorch_tpu_torch.detect.pipeline import DetectorPredictor
 
     checkpoint_dir = Path(checkpoint_dir)
     if _bundle_kind(checkpoint_dir) == "detector":
-        raise _unported("an exported detector bundle", 8)
+        from probpose_pytorch_tpu_torch.serve.export import DetectorBundle
+
+        _bundle_mesh(mesh)
+        return DetectorBundle.load(checkpoint_dir, device=device)
     if mesh is not None:
         raise _unported("load_detector(mesh=...)", 13)
     trainer = _restored(checkpoint_dir, device)
@@ -179,13 +189,17 @@ def load_bottomup(checkpoint_dir: str | Path, score_threshold: float = 0.3,
                   max_detections: int = 32, mesh=None, device: torch.device | str = "cuda"):
     """A BottomUpPredictor from a checkpoint trained with --keypoints K > 0:
     the run directory or its `checkpoints/`. Runs on the card unless
-    `device` asks for the CPU. Exported bottom-up bundles (ROADMAP item 8)
-    and `mesh` (item 13) are not ported."""
+    `device` asks for the CPU. A directory holding an exported bottom-up
+    bundle (serve/export.py) loads as a BottomUpBundle, with the same
+    predict_frame contract. `mesh` (item 13) is not ported."""
     from probpose_pytorch_tpu_torch.detect.pipeline import BottomUpPredictor
 
     checkpoint_dir = Path(checkpoint_dir)
     if _bundle_kind(checkpoint_dir) == "bottomup":
-        raise _unported("an exported bottom-up bundle", 8)
+        from probpose_pytorch_tpu_torch.serve.export import BottomUpBundle
+
+        _bundle_mesh(mesh)
+        return BottomUpBundle.load(checkpoint_dir, device=device)
     if mesh is not None:
         raise _unported("load_bottomup(mesh=...)", 13)
     if (checkpoint_dir / "checkpoints").exists():

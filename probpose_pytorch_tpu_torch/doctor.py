@@ -92,8 +92,16 @@ def detector_forward(device: str = "cuda") -> str:
 
 
 def native() -> str:
-    raise RuntimeError("the C++ data plane (resample='native') is not ported "
-                       "(ROADMAP 6.9); the loaders decode with PIL")
+    from probpose_pytorch_tpu_torch import native as plane
+
+    if not plane.native_available():
+        raise RuntimeError(f"C++ data plane unavailable ({plane.build_report().get('reason')}); "
+                           "resample='native' raises, the other resamplers decode with PIL")
+    report = plane.build_report()
+    if not report["jpeg"]:
+        raise RuntimeError("C++ data plane built with its crop-resize half only (jpeglib.h not "
+                           "found): native JPEG decode raises")
+    return "crop-resize and JPEG halves built (libjpeg linked)"
 
 
 def serving_record() -> str:

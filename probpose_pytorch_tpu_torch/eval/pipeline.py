@@ -123,10 +123,13 @@ def evaluate_topdown(
     for batch in batches:
         bs = len(batch["image"])
         crops = batch["image"]
+        if bs < batch_size and hasattr(predictor, "buckets"):
+            # an exported bundle runs its buckets only: pad the tail
+            crops = np.concatenate([crops, np.repeat(crops[-1:], batch_size - bs, axis=0)])
         # The predictor re-crops from frames; here samples are already crops,
         # so feed identity boxes and un-map with the true boxes.
         ident = np.tile(
-            np.array([0, 0, W, H], np.float32), (bs, 1)
+            np.array([0, 0, W, H], np.float32), (len(crops), 1)
         )
         out = predictor(crops, ident)
         kpts = out["keypoints"][:bs]  # crop space

@@ -21,8 +21,11 @@ COCO keypoint summary as one JSON line, with the JAX CLI's keys. It runs on
 the card unless `--device cpu` is given. With `--detector` the pose model
 gets the person detector's boxes (detect/pipeline.py:
 evaluate_detector_topdown); `--bottomup` scores a single-stage model
-(evaluate_bottomup). `--bundle` (ROADMAP item 8), `--data-parallel` and
-`--model-parallel` (item 13) are not ported and raise.
+(evaluate_bottomup). `--bundle` scores an exported serving bundle
+(serve/export.py) in place of the checkpoint, its batch size snapped to an
+exported bucket; the TTA and temperatures are baked into a bundle at
+export. `--data-parallel` and `--model-parallel` (ROADMAP item 13) are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ def main(argv=None) -> dict:
     src = parser.add_mutually_exclusive_group(required=False)
     src.add_argument("--checkpoint", type=Path,
                      help="checkpoint directory of the port's training CLI")
-    src.add_argument("--bundle", type=Path, help="not ported (ROADMAP item 8)")
+    src.add_argument("--bundle", type=Path,
+                     help="serving bundle directory (serve.export) instead of a checkpoint")
     src.add_argument("--score-predictions", type=Path, metavar="RESULTS_JSON",
                      help="model-free: re-score a COCO keypoint-results file "
                      "(--dump-predictions output) against the annotations")
@@ -127,8 +131,6 @@ def main(argv=None) -> dict:
     )
     from probpose_pytorch_tpu_torch.inference import load_predictor
 
-    if args.bundle is not None:
-        raise _unported("--bundle (serving bundles)", 8)
     if args.data_parallel or args.model_parallel != 1:
         raise _unported("--data-parallel / --model-parallel", 13)
 
@@ -147,24 +149,40 @@ def main(argv=None) -> dict:
                                           max_images=args.max_samples, verbose=True))
         print(json.dumps(line))
         return line
-    if args.checkpoint is None:
-        parser.error("one of --checkpoint / --score-predictions / --bottomup is required")
+    if args.checkpoint is None and args.bundle is None:
+        parser.error("one of --checkpoint / --bundle / --score-predictions / --bottomup is "
+                     "required")
+    if args.bundle and (args.ema or args.flip_test or args.scale_test
+                        or args.apply_temperature):
+        parser.error("--ema/--flip-test/--scale-test/--apply-temperature are baked into "
+                     "bundles at export")
     if args.detector is not None and (args.calibration or args.per_joint or args.dump_worst):
         parser.error("--detector reports the end-to-end AP summary; --calibration/"
                      "--per-joint/--dump-worst need the GT-box crop stream (instance-matched GT)")
 
     calibration = (_parse_temperatures(args.apply_temperature)
                    if args.apply_temperature else None)
-    predictor = load_predictor(
-        args.checkpoint,
-        args.config,
-        ema=args.ema,
-        flip_test=args.flip_test,
-        scale_test=tuple(float(s) for s in args.scale_test.split(",") if s.strip()),
-        scale_test_scores=args.scale_test_scores,
-        calibration=calibration,
-        device=args.device,
-    )
+    if args.bundle:
+        from probpose_pytorch_tpu_torch.serve.export import ServingBundle
+
+        predictor = ServingBundle.load(args.bundle, device=args.device)
+        # the bundle holds its bucket ladder only: snap the batch size
+        if args.batch_size not in predictor.buckets:
+            snapped = max((b for b in predictor.buckets if b <= args.batch_size),
+                          default=predictor.buckets[0])
+            print(f"[eval] batch {args.batch_size} -> bucket {snapped}")
+            args.batch_size = snapped
+    else:
+        predictor = load_predictor(
+            args.checkpoint,
+            args.config,
+            ema=args.ema,
+            flip_test=args.flip_test,
+            scale_test=tuple(float(s) for s in args.scale_test.split(",") if s.strip()),
+            scale_test_scores=args.scale_test_scores,
+            calibration=calibration,
+            device=args.device,
+        )
     if args.detector is not None:
         from probpose_pytorch_tpu_torch.detect import evaluate_detector_topdown, load_detector
 

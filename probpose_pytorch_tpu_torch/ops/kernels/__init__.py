@@ -21,6 +21,18 @@
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor; it never falls back.
+
+The forward launches a serving program makes are `torch.library` custom ops
+in the `probpose::` namespace (`SERVING_OPS`), so that `torch.export`
+records each as one graph node and a loaded program launches the same
+kernel: K1's short wgmma forward (`short_attention_fwd`) and its CUDA-core
+forward (`packed_attention_fwd`), K4's forward (`tiled_attention_fwd`), K6
+(`flat_attention_fwd`), K5's forward (`fused_ln_mlp_fwd`) and K2
+(`sparsemax_rows`). An op's body is the launch and its `.launches` count;
+its fake implementation gives the output shapes and touches neither the
+library nor nvcc. `register_ops()` imports the modules that define them,
+which import only torch, ctypes and this package; a program that holds
+them loads after it.
 `plain_versions()` is the one exception, an explicit switch with which
 chip_smoke.py and the tests run the same model through the plain versions
 on the card to compare the two paths.
@@ -30,7 +42,15 @@ from __future__ import annotations
 
 import contextlib
 
-__all__ = ["plain_versions", "plain_enabled", "use_plain"]
+__all__ = ["plain_versions", "plain_enabled", "use_plain", "register_ops", "SERVING_OPS"]
+
+# The `probpose::` ops, by the module that defines them.
+SERVING_OPS = {
+    "attention_tiled": ("short_attention_fwd", "tiled_attention_fwd"),
+    "attention": ("packed_attention_fwd", "flat_attention_fwd"),
+    "mlp": ("fused_ln_mlp_fwd",),
+    "sparsemax": ("sparsemax_rows",),
+}
 
 _PLAIN = False
 
@@ -58,3 +78,13 @@ def use_plain(t, what: str) -> bool:
     if not t.is_cuda:
         raise ValueError(f"{what}: unsupported device {t.device}")
     return False
+
+
+def register_ops() -> tuple[str, ...]:
+    """Register every `probpose::` op (importing the modules that define
+    them builds nothing); returns their qualified names."""
+    import importlib
+
+    for module in SERVING_OPS:
+        importlib.import_module(f"{__name__}.{module}")
+    return tuple(f"probpose::{op}" for ops in SERVING_OPS.values() for op in ops)

@@ -229,6 +229,14 @@ def _forward(qkv: torch.Tensor, heads: int, with_lse: bool):
         return short_forward(qkv, heads, with_lse)
     if route != K1_CUDA_CORES:
         return tiled_forward(qkv, heads, with_lse)
+    return torch.ops.probpose.packed_attention_fwd(qkv, heads), None
+
+
+@torch.library.custom_op("probpose::packed_attention_fwd", mutates_args=(),
+                         schema="(Tensor qkv, int heads) -> Tensor")
+def _packed_fwd_op(qkv, heads):
+    """K1's CUDA-core forward launch as an op that torch.export records."""
+    qkv = qkv.contiguous()  # at run time, as attention_tiled.py notes at _QKV_SCHEMA
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_smem_bytes,
                                     "packed_attention")
@@ -244,7 +252,13 @@ def _forward(qkv: torch.Tensor, heads: int, with_lse: bool):
             f"at qkv {tuple(qkv.shape)} {qkv.dtype}"
         )
     packed_attention.launches += 1
-    return out, None
+    return out
+
+
+@_packed_fwd_op.register_fake
+def _(qkv, heads):
+    B, N, C3 = qkv.shape
+    return qkv.new_empty((B, N, C3 // 3))
 
 
 def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
@@ -339,6 +353,16 @@ def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         return fused_attention_reference(q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} not supported (float32 or bfloat16)")
+    if q.shape[0] > 65535:
+        raise ValueError(f"fused_attention: batch {q.shape[0]} exceeds the grid's 65535")
+    return torch.ops.probpose.flat_attention_fwd(q, k, v)
+
+
+@torch.library.custom_op("probpose::flat_attention_fwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
+def _flat_fwd_op(q, k, v):
+    """K6's launch as an op that torch.export records: q, k and v are read
+    through their strides where they share them, else made contiguous."""
     B, N, H, d = q.shape
     # bf16 at the short forward's widths and lengths: its wgmma kernel, the
     # one that serves packed_attention there, so K6 and K1 give the same bits
@@ -346,8 +370,6 @@ def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1 \
             or (wgmma and q.stride(2) != d):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if B > 65535:
-        raise ValueError(f"fused_attention: batch {B} exceeds the grid's 65535")
     if wgmma:
         device = _device_index(q)
     else:
@@ -370,6 +392,11 @@ def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
                            f"q {tuple(q.shape)} {q.dtype}")
     fused_attention.launches += 1
     return out
+
+
+@_flat_fwd_op.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)
 
 
 class _FlatAttention(torch.autograd.Function):

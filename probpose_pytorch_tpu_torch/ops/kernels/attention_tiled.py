@@ -401,24 +401,57 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
     return out, lse
 
 
+# The forward ops' schema: the context and the lse (empty where none is made).
+_QKV_SCHEMA = "(Tensor qkv, int heads, bool with_lse) -> (Tensor, Tensor)"
+# An op's body makes its inputs contiguous before it reads their pointers:
+# the wrappers check contiguity when a program is traced, on fake tensors,
+# and a loaded program's real tensors can differ from them in layout (a
+# convolution's output at batch 1 is channels-last on cuDNN where its fake
+# was not), so a body must not trust the check it was traced with. A
+# contiguous tensor passes through uncopied.
+
+
 def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
     """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
-    tensor (or under `plain_versions()`), else one kernel launch; lse, the
-    (B, heads, N) f32 row log-sum-exp, only on the wgmma route (bf16, d in
-    {32, 64, 128}) on the card with `with_lse`, else None."""
+    tensor (or under `plain_versions()`), else one kernel launch through the
+    `probpose::tiled_attention_fwd` op; lse, the (B, heads, N) f32 row
+    log-sum-exp, only on the wgmma route (bf16, d in {32, 64, 128}) on the
+    card with `with_lse`, else None."""
     if kernels.use_plain(qkv, "tiled_attention"):
         return tiled_attention_reference(qkv, heads), None
+    out, lse = torch.ops.probpose.tiled_attention_fwd(qkv, heads, with_lse)
+    return out, (lse if with_lse and _wgmma(qkv, heads) else None)
+
+
+@torch.library.custom_op("probpose::tiled_attention_fwd", mutates_args=(), schema=_QKV_SCHEMA)
+def _tiled_fwd_op(qkv, heads, with_lse):
+    """K4's forward launch as an op that torch.export records; the lse is
+    an empty tensor where none is made."""
+    qkv = qkv.contiguous()  # at run time: the note at _QKV_SCHEMA
     device = _device(qkv, heads, False, "tiled_attention")
     out, lse = _launch_fwd(qkv, heads, device, with_lse)
     tiled_attention.launches += 1
-    return out, lse
+    return out, _no_lse(qkv) if lse is None else lse
+
+
+@_tiled_fwd_op.register_fake
+def _(qkv, heads, with_lse):
+    B, N, C3 = qkv.shape
+    lse_shape = (B, heads, N) if with_lse and _wgmma(qkv, heads) else (0,)
+    return qkv.new_empty((B, N, C3 // 3)), qkv.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _no_lse(qkv: torch.Tensor) -> torch.Tensor:
+    """The empty tensor an op returns in place of an lse it did not make."""
+    return torch.empty((0,), dtype=torch.float32, device=qkv.device)
 
 
 def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
     """K1's bf16 forward for N <= 256 on a checked qkv: (out, lse). The plain
     version for a CPU tensor (or under `plain_versions()`), else one launch
-    of the short kernel of csrc/tiled_attention_sm90.cu; lse, the
-    (B, heads, N) f32 row log-sum-exp, only with `with_lse`, else None."""
+    of the short kernel of csrc/tiled_attention_sm90.cu through the
+    `probpose::short_attention_fwd` op; lse, the (B, heads, N) f32 row
+    log-sum-exp, only with `with_lse`, else None."""
     if kernels.use_plain(qkv, "short_forward"):
         out, lse = short_attention_reference(qkv, heads)
         return out, lse if with_lse else None
@@ -427,6 +460,17 @@ def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
     if qkv.dtype != torch.bfloat16 or d not in HEAD_DIMS or N > SHORT_MAX_N:
         raise ValueError(f"short_forward: takes bf16 with d in {HEAD_DIMS} and N <= "
                          f"{SHORT_MAX_N}, got N={N}, d={d} ({qkv.dtype})")
+    out, lse = torch.ops.probpose.short_attention_fwd(qkv, heads, with_lse)
+    return out, lse if with_lse else None
+
+
+@torch.library.custom_op("probpose::short_attention_fwd", mutates_args=(), schema=_QKV_SCHEMA)
+def _short_fwd_op(qkv, heads, with_lse):
+    """The short kernel's launch as an op that torch.export records; the
+    lse is an empty tensor without `with_lse`."""
+    qkv = qkv.contiguous()  # at run time: the note at _QKV_SCHEMA
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
     device = _device(qkv, heads, False, "short_forward")
     need = _lib().short_attention_sm90_smem_bytes(d, N)
     if need > max_shared_memory(device):
@@ -440,7 +484,14 @@ def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
         raise RuntimeError(f"short_forward: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
     short_forward.launches += 1
-    return out, lse
+    return out, _no_lse(qkv) if lse is None else lse
+
+
+@_short_fwd_op.register_fake
+def _(qkv, heads, with_lse):
+    B, N, C3 = qkv.shape
+    return (qkv.new_empty((B, N, C3 // 3)),
+            qkv.new_empty((B, heads, N) if with_lse else (0,), dtype=torch.float32))
 
 
 def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,

@@ -267,6 +267,17 @@ def _kernel_args(x, scale, bias, w1, b1, w2, b2):
 def _forward(x, scale, bias, w1, b1, w2, b2, exact_gelu):
     if kernels.use_plain(x, "fused_ln_mlp"):
         return fused_ln_mlp_reference(x, scale, bias, w1, b1, w2, b2, exact_gelu)
+    return torch.ops.probpose.fused_ln_mlp_fwd(x, scale, bias, w1, b1, w2, b2, exact_gelu)
+
+
+@torch.library.custom_op(
+    "probpose::fused_ln_mlp_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor scale, Tensor bias, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+           "bool exact_gelu) -> Tensor")
+def _fwd_op(x, scale, bias, w1, b1, w2, b2, exact_gelu):
+    """K5's forward launch as an op that torch.export records (x made
+    contiguous at run time, as attention_tiled's op bodies do)."""
+    x = x.contiguous()
     w1t, w2t, (sc, bi, c1, c2), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
     R, C = x.shape
     Hd = w1.shape[1]
@@ -287,6 +298,11 @@ def _forward(x, scale, bias, w1, b1, w2, b2, exact_gelu):
                            f"{tuple(x.shape)} {x.dtype}, hidden {Hd}")
     fused_ln_mlp.launches += 1
     return out
+
+
+@_fwd_op.register_fake
+def _(x, scale, bias, w1, b1, w2, b2, exact_gelu):
+    return x.new_empty(x.shape)
 
 
 def fused_ln_mlp_backward(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu: bool = False):

@@ -153,8 +153,17 @@ def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sparsemax_rows: empty input {tuple(z.shape)}")
     if R > 2**31 - 1:
         raise ValueError(f"sparsemax_rows: {tuple(z.shape)} exceeds the grid")
+    return torch.ops.probpose.sparsemax_rows(z)
+
+
+@torch.library.custom_op("probpose::sparsemax_rows", mutates_args=(), schema="(Tensor z) -> Tensor")
+def _sparsemax_op(z):
+    """K2's launch as an op that torch.export records (z made contiguous at
+    run time, as attention_tiled's op bodies do)."""
     from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import max_shared_memory
 
+    z = z.contiguous()
+    R, N = z.shape
     device = z.device.index if z.device.index is not None else torch.cuda.current_device()
     route, npl = sparsemax_route(N, max_shared_memory(device))
     out = torch.empty_like(z)
@@ -167,6 +176,11 @@ def sparsemax_rows(z: torch.Tensor) -> torch.Tensor:
                            f"{tuple(z.shape)} ({route})")
     sparsemax_rows.launches += 1
     return out
+
+
+@_sparsemax_op.register_fake
+def _(z):
+    return z.new_empty(z.shape)
 
 
 sparsemax_rows.launches = 0

@@ -1,13 +1,19 @@
 """Batched crop + resize of person boxes (port of
 probpose_pytorch_tpu/ops/preprocess.py) and the matching keypoint maps.
 
-Only the serving method "bilinear_matmul" is ported: per sample, the 2-tap
-bilinear resample is two matrix products, crop[b] = R[b] @ image[b] @ C[b]^T,
-with weights built from the box. The JAX version rounds the weights, the
-image and the intermediate product to bfloat16 and accumulates in float32,
-whatever the model's dtype; this port rounds at the same three places and
-accumulates in float32 (on the card with TF32 off, so the f32 products are
-exact), so the crops agree with JAX's to float32 summation order.
+Two of the JAX methods are ported:
+  * "bilinear_matmul", the serving method: per sample, the 2-tap bilinear
+    resample is two matrix products, crop[b] = R[b] @ image[b] @ C[b]^T,
+    with weights built from the box. The JAX version rounds the weights, the
+    image and the intermediate product to bfloat16 and accumulates in
+    float32, whatever the model's dtype; this port rounds at the same three
+    places and accumulates in float32 (on the card with TF32 off, so the f32
+    products are exact), so the crops agree with JAX's to float32 summation
+    order.
+  * "bilinear_gather": the 4-tap gather in float32, JAX's
+    `_crop_one_bilinear` over the batch; the native data plane
+    (native/dataplane.cpp) samples in the same convention.
+"linear", "lanczos3" and "cubic" are not ported (ROADMAP item 3).
 """
 
 from __future__ import annotations
@@ -36,6 +42,43 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _crop_bilinear_gather(images: torch.Tensor, boxes: torch.Tensor,
+                          out_hw: tuple[int, int]) -> torch.Tensor:
+    """4-tap bilinear gather with zero padding outside the image, JAX's
+    `_crop_one_bilinear` (ops/preprocess.py) for every box at once, in its
+    order of float32 operations."""
+    B, Hs, Ws, C = images.shape
+    H, W = out_hw
+    x0, y0, bw, bh = boxes.unbind(-1)
+    dev = images.device
+    ox = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) * (bw / W)[:, None] \
+        + x0[:, None] - 0.5
+    oy = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) * (bh / H)[:, None] \
+        + y0[:, None] - 0.5
+    xf, yf = torch.floor(ox), torch.floor(oy)
+    wx, wy = ox - xf, oy - yf
+    b = torch.arange(B, device=dev)
+
+    def take_rows(yi):  # (B, H, Ws, C)
+        valid = ((yi >= 0) & (yi < Hs)).to(images.dtype)
+        return images[b[:, None], yi.clamp(0, Hs - 1)] * valid[:, :, None, None]
+
+    def take_cols(rows, xi):  # (B, H, W, C)
+        valid = ((xi >= 0) & (xi < Ws)).to(images.dtype)
+        cols = rows[b[:, None, None], torch.arange(H, device=dev)[None, :, None],
+                    xi.clamp(0, Ws - 1)[:, None, :]]
+        return cols * valid[:, None, :, None]
+
+    y0i, x0i = yf.long(), xf.long()
+    top, bot = take_rows(y0i), take_rows(y0i + 1)
+    tl, tr = take_cols(top, x0i), take_cols(top, x0i + 1)
+    bl, br = take_cols(bot, x0i), take_cols(bot, x0i + 1)
+    wxc = wx[:, None, :, None]
+    wyc = wy[:, :, None, None]
+    return (tl * (1 - wxc) * (1 - wyc) + tr * wxc * (1 - wyc)
+            + bl * (1 - wxc) * wyc + br * wxc * wyc)
+
+
 def crop_resize(
     images: torch.Tensor,
     boxes: torch.Tensor,
@@ -44,12 +87,14 @@ def crop_resize(
 ) -> torch.Tensor:
     """Crop each (Hs, Ws, C) image to its (x, y, w, h) box and resize to
     `out_hw`. images: (B, Hs, Ws, C) uint8 (scaled to [0, 1]) or float;
-    boxes: (B, 4). Returns (B, H, W, C) float32 crops, black outside the
-    image."""
+    boxes: (B, 4). `method`: "bilinear_matmul" or "bilinear_gather".
+    Returns (B, H, W, C) float32 crops, black outside the image."""
+    if method == "bilinear_gather":
+        return _crop_bilinear_gather(_to_float01(images), boxes.float(), out_hw)
     if method != "bilinear_matmul":
         raise NotImplementedError(
             f"crop_resize method {method!r} is not ported; the port has "
-            "'bilinear_matmul' only (ROADMAP item 3)"
+            "'bilinear_matmul' and 'bilinear_gather' (ROADMAP item 3)"
         )
     images = _to_float01(images)
     boxes = boxes.float()

@@ -14,7 +14,8 @@ Two layers, separately usable:
       python -m probpose_pytorch_tpu_torch.serve.server \\
           --checkpoint runs/flagship/checkpoints --port 8000 [--device cuda] \\
           [--detector runs/detector] [--bottomup [NAME=]runs/bottomup] \\
-          [--fused [NAME=]runs/flagship/checkpoints --max-people 8]
+          [--fused [NAME=]runs/flagship/checkpoints --max-people 8] \\
+          [--bundle [NAME=]bundle_dir]
 
   POST /predict   {"frame_b64": <base64 raw HxWx3 uint8>,
                    "shape": [H, W, 3], "boxes": [[x,y,w,h], ...],
@@ -41,8 +42,11 @@ the people itself (detect/pipeline.py) and returns the boxes it used.
 `--bottomup` models (one forward per frame, `BottomUpRunner`) and
 `--fused` models (detector -> crops -> pose with the boxes kept on the
 card, `FusedRunner`) take whole frames and no "boxes"; their rows are
-thresholded on "scores" or "det_scores". Not ported: `--bundle` (exported
-programs, ROADMAP item 8).
+thresholded on "scores" or "det_scores". `--bundle` serves an exported
+pose bundle (serve/export.py: `ServingBundle`, its buckets and frame shape),
+and `--bottomup` and `--fused` take bottom-up and fused bundle directories
+as well as run directories; a detector bundle answers boxes-omitted
+requests but cannot be fused live.
 """
 
 from __future__ import annotations
@@ -59,8 +63,6 @@ from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
-
-from probpose_pytorch_tpu_torch.inference import _unported
 
 __all__ = ["BottomUpRunner", "FusedRunner", "MicroBatcher", "PoseHTTPServer", "main"]
 
@@ -585,7 +587,8 @@ def main(argv=None) -> None:
                         help="checkpoint directory of the port's training CLI; repeat "
                         "with NAME=DIR to serve several models")
     parser.add_argument("--bundle", action="append", default=[], metavar="[NAME=]DIR",
-                        help="not ported (ROADMAP item 8)")
+                        help="exported serving bundle (serve.export); repeat with NAME=DIR "
+                        "to serve several")
     parser.add_argument("--bottomup", action="append", default=[], metavar="[NAME=]DIR",
                         help="single-stage pose model (detect.train --keypoints run dir): "
                         "requests send whole frames, no 'boxes'; cost is per frame")
@@ -616,13 +619,8 @@ def main(argv=None) -> None:
                         "accepting traffic (builds the kernels; adds startup time)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.bundle:
-        raise _unported("--bundle", 8)
-    if not (args.checkpoint or args.bottomup or args.fused):
-        parser.error("need at least one --checkpoint / --bottomup / --fused")
-    if args.fused and args.detector is None:
-        parser.error("--fused composes a pose checkpoint with the person detector: "
-                     "pass --detector too")
+    if not (args.checkpoint or args.bundle or args.bottomup or args.fused):
+        parser.error("need at least one --checkpoint / --bundle / --bottomup / --fused")
 
     # Graceful stop on SIGTERM (what orchestrators send), installed before
     # the models load so a stop during startup also exits promptly.
@@ -643,12 +641,14 @@ def main(argv=None) -> None:
         tuned_bucket_ladder,
         tuned_serving_batch,
     )
+    from probpose_pytorch_tpu_torch.serve.export import FusedBundle, ServingBundle
 
     frame_shape = tuple(int(v) for v in args.frame_shape.split(","))
-    multi = len(args.checkpoint) + len(args.bottomup) + len(args.fused) > 1
+    multi = len(args.checkpoint) + len(args.bundle) + len(args.bottomup) + len(args.fused) > 1
     batchers: dict[str, MicroBatcher] = {}
 
-    def add(entry: str, prefix: str, i: int, make, buckets, indexed: bool) -> None:
+    def add(entry: str, prefix: str, i: int, make, buckets, indexed: bool,
+            shape=lambda runner: frame_shape) -> None:
         name, _, path = entry.rpartition("=")
         name = name or (f"{prefix}{i}" if multi else "default")
         if name in batchers:
@@ -656,10 +656,12 @@ def main(argv=None) -> None:
         runner = make(Path(path))
         if args.buckets:
             buckets = tuple(int(b) for b in args.buckets.split(","))
-        batchers[name] = MicroBatcher(runner, buckets, frame_shape,
+        elif callable(buckets):
+            buckets = buckets(runner)
+        batchers[name] = MicroBatcher(runner, buckets, shape(runner),
                                       max_wait_ms=args.max_wait_ms, indexed=indexed)
-        print(f"model {name!r}: buckets {tuple(buckets)}, frame {frame_shape}, "
-              f"indexed={indexed}", flush=True)
+        print(f"model {name!r}: buckets {tuple(batchers[name].buckets)}, frame "
+              f"{batchers[name].frame_shape}, indexed={indexed}", flush=True)
 
     # Loaded first: live --fused models compose with it, and the handler's
     # top-down requests without boxes use it.
@@ -673,17 +675,39 @@ def main(argv=None) -> None:
         print(f"detector: {det_dir} (threshold {args.detector_threshold})", flush=True)
     pose = lambda path: load_predictor(path, args.config, ema=args.ema,  # noqa: E731
                                        device=args.device)
+    for i, entry in enumerate(args.bundle):
+        bundle = ServingBundle.load(Path(entry.rpartition("=")[2]), device=args.device)
+        add(entry, "bundle", i, lambda path: bundle, bundle.buckets, bool(bundle.indexed_buckets),
+            shape=lambda runner: runner.frame_shape)
     ladder = tuned_bucket_ladder() or (tuned_serving_batch(),)
     for i, entry in enumerate(args.checkpoint):
         add(entry, "model", i, pose, ladder, True)
+    # an exported bottom-up or fused bundle runs its own (batch, frame shape)
+    # programs only; a live predictor takes any
+    ladder_of = lambda default: lambda r: getattr(r.predictor, "batches", default)  # noqa: E731
+    fit = lambda r: (r.predictor._fit_shape(*frame_shape)  # noqa: E731
+                     if hasattr(r.predictor, "batches") else frame_shape)
     for i, entry in enumerate(args.bottomup):
         add(entry, "bottomup", i, lambda path: BottomUpRunner(load_bottomup(
             path, score_threshold=args.detector_threshold, device=args.device)),
-            (1, 2, 4, 8), False)
-    for i, entry in enumerate(args.fused):
-        add(entry, "fused", i, lambda path: FusedRunner(FusedTwoStagePredictor(
+            ladder_of((1, 2, 4, 8)), False, fit)
+
+    def fused(path: Path) -> FusedRunner:
+        if (path / "manifest.json").exists() and json.loads(
+                (path / "manifest.json").read_text()).get("kind") == "fused":
+            return FusedRunner(FusedBundle.load(path, device=args.device))
+        if detector is None:
+            parser.error(f"--fused {path}: not a fused bundle, so it must be a pose checkpoint "
+                         "composed live: pass --detector too")
+        if not hasattr(detector, "predict"):
+            parser.error("live --fused composition needs a live --detector checkpoint "
+                         "(exported detector bundles are already-traced programs)")
+        return FusedRunner(FusedTwoStagePredictor(
             detector=detector, pose=pose(path), max_people=args.max_people,
-            score_threshold=args.detector_threshold)), (1, 2, 4), False)
+            score_threshold=args.detector_threshold))
+
+    for i, entry in enumerate(args.fused):
+        add(entry, "fused", i, fused, ladder_of((1, 2, 4)), False, fit)
 
     if args.warmup:
         t0 = time.perf_counter()

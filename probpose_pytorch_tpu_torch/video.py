@@ -27,8 +27,10 @@ frame: track ids, raw and smoothed keypoints, per-keypoint probabilities,
 pose scores) and, with --render, `frame_%06d.png` overlays.
 
 Tracking, smoothing and IO run in NumPy on the host; the model runs on the
-predictor's device (the card unless --device cpu). Not ported: `--bundle`
-(ROADMAP item 8).
+predictor's device (the card unless --device cpu). `--bundle` serves an
+exported pose bundle (serve/export.py) in place of the checkpoint; in
+--stream-batch mode its frame shape and top bucket are the defaults, and
+its frame shape is fixed.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from probpose_pytorch_tpu_torch.data.coco import COCO_SIGMAS
-from probpose_pytorch_tpu_torch.inference import _unported
 
 __all__ = ["iter_frames", "load_boxes", "OksTracker", "detector_boxes", "run_video",
            "run_video_stream", "run_video_fused_stream", "run_video_bottomup", "main"]
@@ -516,7 +517,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint", type=Path,
                      help="checkpoint directory of the port's training CLI")
-    src.add_argument("--bundle", type=Path, help="not ported (ROADMAP item 8)")
+    src.add_argument("--bundle", type=Path,
+                     help="serving bundle directory (serve.export) instead of a checkpoint")
     src.add_argument("--bottomup", type=Path,
                      help="single-stage pose model (detect.train --keypoints run dir): "
                      "every person's pose in one forward per frame, no --boxes or --detector")
@@ -557,8 +559,6 @@ def main(argv: Sequence[str] | None = None) -> None:
                         "first frame's shape rounded up to the predictor's size multiple)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.bundle is not None:
-        raise _unported("--bundle", 8)
     if args.stream_batch is not None and args.render:
         parser.error("--stream-batch is incompatible with --render")
     if args.bottomup is not None:
@@ -577,6 +577,11 @@ def main(argv: Sequence[str] | None = None) -> None:
                          "--fused (batched whole-frame dispatches) or pre-compute boxes")
     if args.fused and args.detector is None:
         parser.error("--fused needs --detector")
+    if args.bundle is not None:
+        if args.ema or args.flip_test:
+            parser.error("--ema/--flip-test are baked in at bundle export time")
+        if args.stream_batch is not None and args.stream_frame_shape is not None:
+            parser.error("--stream-frame-shape is fixed at bundle export time")
 
     from probpose_pytorch_tpu_torch.detect import (
         FusedTwoStagePredictor,
@@ -585,8 +590,14 @@ def main(argv: Sequence[str] | None = None) -> None:
     )
     from probpose_pytorch_tpu_torch.inference import load_predictor
 
+    stream_batch = None
     if args.bottomup is not None:
         predictor = load_bottomup(args.bottomup, device=args.device)
+    elif args.bundle is not None:
+        from probpose_pytorch_tpu_torch.serve.export import ServingBundle
+
+        predictor = ServingBundle.load(args.bundle, device=args.device)
+        stream_batch = predictor.buckets[-1]
     else:
         predictor = load_predictor(args.checkpoint, args.config, ema=args.ema,
                                    flip_test=args.flip_test, device=args.device)
@@ -611,7 +622,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     common = dict(boxes=boxes, fps=args.fps, nms=None if args.nms == "none" else args.nms,
                   nms_threshold=args.nms_threshold, smooth=not args.no_smooth,
                   track_threshold=args.track_threshold)
-    frame_shape = None
+    frame_shape = getattr(predictor, "frame_shape", None)
     if args.stream_frame_shape is not None:
         frame_shape = tuple(int(v) for v in args.stream_frame_shape.split(","))
         if len(frame_shape) != 2:
@@ -630,7 +641,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         records = run_video_fused_stream(fused, frames, batch=args.stream_batch or 4,
                                          frame_shape=frame_shape, **common)
     elif args.stream_batch is not None:
-        records = run_video_stream(predictor, frames, batch=args.stream_batch or None,
+        records = run_video_stream(predictor, frames, batch=args.stream_batch or stream_batch,
                                    frame_shape=frame_shape, **common)
     else:
         records = run_video(predictor, frames, detector=detector,

@@ -175,8 +175,11 @@ def test_bottomup_cli_and_load_bottomup(bu_run, coco_root):
 def test_load_bottomup_refusals(tmp_path, bu_run, monkeypatch):
     out, _ = bu_run
     (tmp_path / "manifest.json").write_text(json.dumps({"kind": "bottomup"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    # a bundle directory loads as a BottomUpBundle: this one has no version
+    with pytest.raises(ValueError, match="bundle version"):
         load_bottomup(tmp_path, device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        load_bottomup(tmp_path, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         load_bottomup(out, mesh=object(), device="cpu")
     (tmp_path / "manifest.json").unlink()

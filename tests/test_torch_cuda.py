@@ -1248,3 +1248,137 @@ def test_detect_entry_points_default_to_the_card(cuda_device, tmp_path):
     detect_train.main(common + ["--out", str(tmp_path / "bu"), "--keypoints", "17"])
     assert next(load_detector(tmp_path / "det" / "checkpoints").model.parameters()).is_cuda
     assert next(load_bottomup(tmp_path / "bu").model.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["short", "tiled", "packed", "flat", "mlp", "sparsemax"])
+def test_serving_ops_match_their_wrappers(cuda_device, op):
+    """Each `probpose::` op called directly launches the kernel its wrapper
+    launches: the same bits, one count on the same wrapper, and the op's
+    fake implementation's shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    rnd = lambda *s, dtype=torch.bfloat16: torch.randn(  # noqa: E731
+        s, generator=g, device=cuda_device).to(dtype)
+    if op in ("short", "tiled", "packed"):
+        shape, heads, dtype = {"short": ((8, 192, 1152), 6, torch.bfloat16),
+                               "tiled": ((2, 576, 1152), 6, torch.bfloat16),
+                               "packed": ((4, 192, 1152), 6, torch.float32)}[op]
+        x = rnd(*shape, dtype=dtype)
+        counter = {"short": short_forward, "tiled": tiled_attention,
+                   "packed": packed_attention}[op]
+        name = {"short": "short_attention_fwd", "tiled": "tiled_attention_fwd",
+                "packed": "packed_attention_fwd"}[op]
+        args = (x, heads) if op == "packed" else (x, heads, False)
+        want = packed_attention(x, heads) if op != "tiled" else tiled_attention(x, heads)
+    elif op == "flat":
+        q, k, v = (rnd(16, 192, 12, 64) for _ in range(3))
+        counter, name, args, want = fused_attention, "flat_attention_fwd", (q, k, v), \
+            fused_attention(q, k, v)
+    elif op == "mlp":
+        x = rnd(1024, 768)
+        vecs = [rnd(768, dtype=torch.float32), rnd(768, dtype=torch.float32)]
+        w1, b1 = rnd(768, 3072) * 0.03, rnd(3072, dtype=torch.float32)
+        w2, b2 = rnd(3072, 768) * 0.03, rnd(768, dtype=torch.float32)
+        args = (x, *vecs, w1, b1, w2, b2, False)
+        counter, name, want = fused_ln_mlp, "fused_ln_mlp_fwd", fused_ln_mlp(*args)
+    else:
+        z = rnd(17 * 8, 3072, dtype=torch.float32)
+        counter, name, args, want = sparsemax_rows, "sparsemax_rows", (z,), sparsemax_rows(z)
+    before = counter.launches
+    got = getattr(torch.ops.probpose, name)(*args)
+    torch.cuda.synchronize()
+    got = got[0] if isinstance(got, tuple) else got
+    assert counter.launches == before + 1
+    assert torch.equal(got, want)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = getattr(torch.ops.probpose, name)(*(mode.from_tensor(a) if isinstance(
+            a, torch.Tensor) else a for a in args))
+    fake = fake[0] if isinstance(fake, tuple) else fake
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+    assert counter.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_card_bundle_holds_the_ops_and_matches_live(cuda_device, tmp_path):
+    """vit-nano in bf16 with the fused attention, exported on the card: the
+    graph holds K1's short forward and K2 as `probpose::` ops, the loaded
+    bundle launches 2 (depth) K1 and 1 K2 per call and equals the live
+    predictor at buckets 4 and 1; a dispatch does not synchronise."""
+    import gzip
+    import io
+
+    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.serve.export import ServingBundle, export_predictor_bundle
+
+    model = build_model(ModelConfig(backbone="vit-nano", attn_impl="fused"), cuda_device, seed=2)
+    _peak_heatmap_branch(model)
+    codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
+                          sigma=2.0))
+    live = TopDownPredictor(model, codec, (256, 192))
+    out = export_predictor_bundle(live, tmp_path / "b", buckets=(1, 4), frame_shape=(320, 256))
+    raw = gzip.decompress((out / "fn_b4.pt2.gz").read_bytes())
+    graph = str(torch.export.load(io.BytesIO(raw)).graph)
+    assert graph.count("probpose.short_attention_fwd") == 2
+    assert graph.count("probpose.sparsemax_rows") == 1
+    bundle = ServingBundle.load(out)
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, size=(4, 320, 256, 3), dtype=np.uint8)
+    boxes = rng.uniform([0, 0, 120, 180], [60, 60, 196, 260], (4, 4)).astype(np.float32)
+    k1, k2 = short_forward.launches, sparsemax_rows.launches
+    got = bundle(frames, boxes)
+    assert (short_forward.launches - k1, sparsemax_rows.launches - k2) == (2, 1)
+    want = live(frames, boxes)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # batch 1: BatchNorm runs cuDNN's kernel in the program as in eager
+    one, one_live = bundle(frames[:1], boxes[:1]), live(frames[:1], boxes[:1])
+    for k in one_live:
+        np.testing.assert_array_equal(one[k], one_live[k], err_msg=k)
+    bundle(frames, boxes)  # warm: the first call loads the program
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev = bundle.dispatch(frames, boxes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dev["keypoints"].is_cuda
+
+
+@pytest.mark.cuda
+def test_portable_bundle_moves_to_the_card(cuda_device, tmp_path):
+    """A bundle exported on the CPU for ("cpu", "cuda") (traced with the
+    plain versions, attn_impl="einsum") loads on the card and matches the
+    same predictor on the CPU; a CPU-only bundle refuses the card."""
+    from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.serve.export import ServingBundle, export_predictor_bundle
+
+    cfg = ModelConfig(backbone="vit-nano", attn_impl="einsum", compute_dtype="float32")
+    model = build_model(cfg, "cpu", seed=2)
+    _peak_heatmap_branch(model)
+    codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
+                          sigma=2.0))
+    live = TopDownPredictor(model, codec, (256, 192))
+    out = export_predictor_bundle(live, tmp_path / "b", buckets=(2,), frame_shape=(320, 256),
+                                  platforms=("cpu", "cuda"))
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, size=(2, 320, 256, 3), dtype=np.uint8)
+    boxes = rng.uniform([0, 0, 120, 180], [60, 60, 196, 260], (2, 4)).astype(np.float32)
+    got = ServingBundle.load(out)(frames, boxes)
+    want = live(frames, boxes)
+    # keypoints where the OKS-convolved map's top-2 margin exceeds 1e-4
+    live.return_heatmaps = True
+    maps = torch.from_numpy(live(frames, boxes)["heatmaps"])
+    conv = oks_conv(maps, *codec.probmap.conv_operators("cpu")).flatten(2)
+    top2 = conv.topk(2, dim=-1).values
+    ok = ((top2[..., 0] - top2[..., 1]) > 1e-4).numpy()
+    assert ok.mean() > 0.5
+    np.testing.assert_allclose(got["keypoints"][ok], want["keypoints"][ok], atol=1e-2)
+    for k in ("probabilities", "visibilities", "oks", "errors"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    cpu_only = export_predictor_bundle(live, tmp_path / "c", buckets=(2,), frame_shape=(320, 256))
+    with pytest.raises(ValueError, match="not for 'cuda'"):
+        ServingBundle.load(cpu_only)

@@ -152,13 +152,18 @@ def test_yolo_dataset_matches_jax_and_promotes_v1(yolo_root):
     np.testing.assert_array_equal(s["keypoints_visibility"], [0, 1, 1, 1])
 
 
-def test_native_resample_raises(yolo_root, synth_roots):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        YOLOPoseDataset(yolo_root, "train", (64, 48), resample="native")
+def test_native_resample_raises(yolo_root, synth_roots, monkeypatch):
+    """resample="native" reads through the C++ data plane; where the plane
+    is unavailable the loaders raise JAX's RuntimeError, never a PIL path."""
+    from probpose_pytorch_tpu_torch import native
+
+    monkeypatch.setattr(native, "native_available", lambda: False)
+    with pytest.raises(RuntimeError, match="requires the C\\+\\+ data plane"):
+        YOLOPoseDataset(yolo_root, "train", (64, 48), resample="native").get_batch([0])
     root, _ = synth_roots
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(RuntimeError, match="requires the C\\+\\+ data plane"):
         COCOPoseDataset(root / "annotations/person_keypoints_val2017.json", root / "val2017",
-                        (64, 48), resample="native")
+                        (64, 48), resample="native")[0]
 
 
 def test_crop_cache_round_trips(tmp_path, synth_roots):

@@ -633,8 +633,11 @@ def test_detect_cli_and_load_detector(cli_run):
 def test_load_detector_refusals(tmp_path, cli_run, monkeypatch):
     out, _ = cli_run
     (tmp_path / "manifest.json").write_text(json.dumps({"kind": "detector"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    # a bundle directory loads as a DetectorBundle: this one has no version
+    with pytest.raises(ValueError, match="bundle version"):
         load_detector(tmp_path, device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        load_detector(tmp_path, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         load_detector(out / "checkpoints", mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -655,7 +658,7 @@ def test_doctor_on_cpu(capsys):
     assert exit_.value.code == 1
     out = capsys.readouterr().out
     assert "[FAIL] card: torch sees no CUDA device" in out
-    assert "[warn] native data plane" in out and "ROADMAP 6.9" in out
+    assert "[ok]   native data plane: crop-resize and JPEG halves built" in out
     assert "REQUIRED CHECKS FAILED" in out
     assert doctor.detector_forward("cpu") == "boxes (1, 4, 4)"
     assert "heatmaps (1, 5, 16, 12)" in doctor.model_forward("cpu")

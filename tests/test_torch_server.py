@@ -553,9 +553,16 @@ def test_whole_frame_runners_over_http(detector_env):
 @pytest.mark.parametrize("flags,item", [
     (["--bundle", "x"], 8), (["--checkpoint", "x", "--bundle", "y"], 8),
 ])
-def test_main_refuses_unported_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        port_server.main(flags)
+def test_main_refuses_unported_flags(tmp_path, flags, item):
+    """--bundle serves the port's bundles (item 8, done); a JAX bundle
+    directory is refused, naming the port's export CLI."""
+    for name in ("x", "y"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "manifest.json").write_text(json.dumps({"version": 2}))
+        (tmp_path / name / "fn_b1.bin").write_bytes(b"")
+    flags = [f if f.startswith("--") else str(tmp_path / f) for f in flags]
+    with pytest.raises(ValueError, match="probpose_pytorch_tpu_torch.serve.export"):
+        port_server.main(flags + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [[], ["--fused", "x"]])

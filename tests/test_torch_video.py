@@ -351,8 +351,15 @@ def test_video_cli_matches_jax(saved_runs, tmp_path, extra):  # noqa: F811
 
 @pytest.mark.parametrize("flags,item", [(["--bundle", "b"], 8)])
 def test_video_cli_refuses_unported_flags(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        video.main(flags + ["--frames", str(tmp_path), "--out", str(tmp_path / "o")])
+    """--bundle serves the port's bundles (item 8, done); a JAX bundle
+    directory is refused, naming the port's export CLI."""
+    (tmp_path / "b").mkdir()
+    (tmp_path / "b" / "manifest.json").write_text(json.dumps({"version": 2}))
+    (tmp_path / "b" / "fn_b1.bin").write_bytes(b"")
+    flags = [f if f.startswith("--") else str(tmp_path / f) for f in flags]
+    with pytest.raises(ValueError, match="probpose_pytorch_tpu_torch.serve.export"):
+        video.main(flags + ["--frames", str(tmp_path), "--out", str(tmp_path / "o"),
+                            "--device", "cpu"])
 
 
 def make_det_runs(root):
