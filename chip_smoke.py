@@ -252,12 +252,48 @@ with weights drawn from a seeded generator:
            phase 11's set without the JPEG half), and the training CLI
            for 2 steps with resample="native"
 
+  phase 16 int8 serving, the scale-and-translate crops and the head
+           options, on phase 9's checkpoint (heads peaked) and a ViT-B at
+           configs/vitb_coco.json width: load_predictor(quantize="int8")
+           and "int8_wo" on the card and the CPU from the same weights,
+           their int8 codes and float32 scales equal, the activation codes
+           and int32 products of block 0's four layers equal, 1 K2 and no
+           other kernel a forward, each stage of the trunk (embedding,
+           every block's update, final norm) on the card against the CPU
+           fed the card's input within 1e-2 normwise, heatmaps correlated
+           above 0.95 against the bf16 predictor (JAX's bar) and above 0.9
+           card against CPU with 0.6 of the well-defined keypoints within
+           KPT_TOL_PX (12 random blocks amplify the stages' rare
+           differences); the same at ViT-B; predict_frame with preprocess_method "linear",
+           "cubic" and "lanczos3" at 1, 64 and 256 boxes on a 1088 x 1920
+           frame (12 short K1 + 1 K2 a call), their crops of 8 boxes (4
+           partly off the frame) card against CPU within 1e-5; the
+           flagship geometry with deconv_kernel_sizes (2, 3) and the einsum
+           attention with a bf16 softmax, float32 compute card against CPU
+           within KPT_TOL_PX and PROB_TOL (bf16 compute served, printed);
+           the int8 predictor exported as a bundle (buckets 1 and 64,
+           indexed), 48 aten._int_mm and 1 probpose::sparsemax_rows a
+           program, served by a fresh process without model code (1 K2 a
+           call) equal to the live int8 predictor there. Then, not gated:
+           int8, int8_wo and bf16 ms per batch at B = 1 and 256 (ViT-S,
+           ViT-B), torch._int_mm against the bf16 product at the fc1
+           shapes, each crop method's time and peak memory at 256 boxes
+           against bilinear_matmul's, and the phase's wall time
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
-one JSON line per shape, with the package beside this script. It uses only
-packed_attention, so a copy of this script in another commit's checkout
-times that commit on the same card.
+one JSON line per shape, and K2's loop at phase 3's rows, with the package
+beside this script. It uses only packed_attention and sparsemax_rows, so a
+copy of this script in another commit's checkout times that commit on the
+same card.
+
+`--serving-times` runs no phase either: it times the flagship bf16
+predictor end to end (predict_frame at 1, 64 and 256 boxes of a 1080 x
+1920 frame, a call on 64 crops) on the host clock, with the device's busy
+time and idle share from torch.profiler, one JSON line each. It uses only
+build_model and TopDownPredictor, so it too times another commit's
+checkout.
 
 `--profile` adds torch.profiler tables of three bf16 flagship training steps,
 three ViT-B serving batches, three ViT-B training steps, and three 768 x 768
@@ -269,8 +305,9 @@ the kernels (launches on the main paths and, as `eval_launches`, in phase
 10's three eval runs, as `finetune_launches`, in each of phase 11's runs,
 as `frontend_launches`, summed over phase 12's runs, as
 `phase13_launches`, in each of phase 13's runs, as `phase14_launches`,
-in each of phase 14's counted runs, and as `phase15_launches`, in each
-bundle call and bundle CLI run of phase 15; K4's entries carry its
+in each of phase 14's counted runs, as `phase15_launches`, in each
+bundle call and bundle CLI run of phase 15, and as `phase16_launches`, in
+each counted run of phase 16; K4's entries carry its
 numbers at the fieldsynth step's shape and K2's at its rows), error against the
 plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
@@ -1095,7 +1132,7 @@ def phase6_vitb_serving(torch, dev, card: str, g, profile: bool) -> dict:
 
     cfg = vitb_train_config("bfloat16").model
     check(cfg.backbone == "vit-b" and cfg.attn_impl == "fused", "vitb_coco.json changed")
-    model = build_model(cfg, dev, seed=0)
+    model = build_model(cfg, device=dev, seed=0)
     peak_heatmap_branch(torch, model)
     codec = make_codec(cfg)
     predictor = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
@@ -1115,7 +1152,7 @@ def phase6_vitb_serving(torch, dev, card: str, g, profile: bool) -> dict:
     check(counts["k2"] == n and counts["k6"] == 0, "K2 or K6 count off")
 
     # The same weights with attn_impl="pallas": K6 in place of K1.
-    model6 = build_model(dataclasses.replace(cfg, attn_impl="pallas"), dev)
+    model6 = build_model(dataclasses.replace(cfg, attn_impl="pallas"), device=dev)
     model6.load_state_dict(model.state_dict())
     pred6 = TopDownPredictor(model6, codec, cfg.img_size, return_heatmaps=True)
     reset_counts()
@@ -1553,7 +1590,7 @@ def phase8_serving(torch, dev, card: str, profile: bool) -> dict:
 
     cfg = config_768("bfloat16", SERVE_768_BATCH).model
     check(cfg.attn_impl == "fused" and cfg.heatmap_size == (192, 192), "768 config off")
-    model = build_model(cfg, dev, seed=0)
+    model = build_model(cfg, device=dev, seed=0)
     peak_heatmap_branch(torch, model)
     codec = make_codec(cfg)
     predictor = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
@@ -1578,7 +1615,7 @@ def phase8_serving(torch, dev, card: str, profile: bool) -> dict:
     check(counts["k2"] == n, "K2 did not run once per forward")
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    model32 = build_model(cfg32, dev)
+    model32 = build_model(cfg32, device=dev)
     model32.load_state_dict(model.state_dict())
     pred32 = TopDownPredictor(model32, codec, cfg.img_size, return_heatmaps=True)
     for frames, boxes in requests:
@@ -1946,7 +1983,7 @@ def eval_runs(torch, card: str) -> dict:
     load_s = time.perf_counter() - t0
     cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
                                 compute_dtype="float32")
-    model32 = build_model(cfg32, "cuda")
+    model32 = build_model(cfg32, device="cuda")
     model32.load_state_dict(pred.model.state_dict())
     peak_heatmap_branch(torch, model32)
     pred32 = TopDownPredictor(model32, pred.codec, pred.input_size, flip_test=True,
@@ -2212,7 +2249,7 @@ def phase11_lora(torch, dev, card: str, root: Path, n_val: int) -> dict:
     outs = {}
     for label, model_cfg, ckpt in (("unmerged", cfg.model, run), ("merged", mcfg.model, merged)):
         payload = CheckpointManager(ckpt / "checkpoints").read()
-        model = build_model(dataclasses.replace(model_cfg, compute_dtype="float32"), dev)
+        model = build_model(dataclasses.replace(model_cfg, compute_dtype="float32"), device=dev)
         model.load_state_dict({**payload["params"], **payload["buffers"]}, strict=True)
         peak_heatmap_branch(torch, model)
         codec = make_codec(model_cfg)
@@ -2575,7 +2612,8 @@ def frontend_sweep(torch, card: str, pred) -> None:
     b_dev = torch.from_numpy(camera_boxes(rng, B)).to(dev)
     i_dev = torch.zeros(B, dtype=torch.int64, device=dev)
     crop_ms = cuda_ms(torch, lambda: crop_resize(f_dev.index_select(0, i_dev), b_dev,
-                                                 pred.input_size), iters=5, warmup=1)
+                                                 pred.input_size, "bilinear_matmul"),
+                      iters=5, warmup=1)
     all_ms = cuda_ms(torch, lambda: pred.predict(f_dev, b_dev, i_dev), iters=5, warmup=1)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2924,7 +2962,7 @@ def phase12_frontends(torch, dev, card: str) -> dict:
     pred = load_predictor(recipe / "checkpoints", device=dev)
     cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
                                 compute_dtype="float32")
-    model32 = build_model(cfg32, dev)
+    model32 = build_model(cfg32, device=dev)
     model32.load_state_dict(pred.model.state_dict())
     # 6 steps leave the maps nearly flat: the f32 comparisons redraw the
     # heatmap branch at fan-in scale, as phase 10 does
@@ -3081,7 +3119,7 @@ def phase13_simcc(torch, dev, card: str, root: Path, n_val: int) -> dict:
     launches["simcc_predict_frame"] = total
 
     cfg_m = TrainConfig.load(run / "config.json").model
-    model32 = build_model(dataclasses.replace(cfg_m, compute_dtype="float32"), dev)
+    model32 = build_model(dataclasses.replace(cfg_m, compute_dtype="float32"), device=dev)
     model32.load_state_dict(pred.model.state_dict())
     pred32 = TopDownPredictor(model32, pred.codec, pred.input_size, return_heatmaps=True,
                               flip_test=True)
@@ -3664,7 +3702,7 @@ def phase14_standalone(torch, dev, card: str, det_run: Path) -> dict:
                               score_threshold=0.0, max_detections=64)
     cfg32 = dataclasses.replace(TrainConfig.load(recipe / "config.json").model,
                                 compute_dtype="float32")
-    model32 = build_model(cfg32, dev)
+    model32 = build_model(cfg32, device=dev)
     model32.load_state_dict(pose.model.state_dict())
     peak_heatmap_branch(torch, model32)
     pose32 = TopDownPredictor(model32, pose.codec, pose.input_size)
@@ -3847,7 +3885,7 @@ def phase14_conv_pose(torch, dev, card: str) -> dict:
 
     block = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())["model"]
     cfg = ModelConfig(**dict(block, backbone="conv-s"))
-    model = build_model(cfg, dev, seed=14)
+    model = build_model(cfg, device=dev, seed=14)
     codec = make_codec(cfg)
     pred = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
     requests = [request(140 + i, B) for i, B in enumerate(REQUEST_SIZES)]
@@ -3857,7 +3895,7 @@ def phase14_conv_pose(torch, dev, card: str) -> dict:
     check(counts["k2"] == len(requests), "conv-s pose: K2 did not run once a forward")
     check(all(v == 0 for k, v in counts.items() if k != "k2"), f"conv-s pose ran {counts}")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    model32 = build_model(cfg32, dev)
+    model32 = build_model(cfg32, device=dev)
     model32.load_state_dict(model.state_dict())
     peak_heatmap_branch(torch, model32)
     pred32 = TopDownPredictor(model32, codec, cfg.img_size, return_heatmaps=True)
@@ -4073,7 +4111,7 @@ fused = FusedTwoStagePredictor(
 small = {}
 for name in ("vitb", "768"):
     cfg = TrainConfig.load(work / f"{name}.json").model
-    model = build_model(cfg, dev, seed=0)
+    model = build_model(cfg, device=dev, seed=0)
     peak_heatmap_branch(torch, model)
     small[name] = TopDownPredictor(model, make_codec(cfg), cfg.img_size)
 buckets = tuple(runs["buckets"])
@@ -4147,7 +4185,7 @@ def phase15_export(torch, dev, card: str, work: Path, det_run: Path, bu_run: Pat
                             ("768", config_768("bfloat16", BUNDLE_SMALL_BUCKET))):
         train_cfg.save(work / f"{name}.json")
         cfg = train_cfg.model
-        model = build_model(cfg, dev, seed=0)
+        model = build_model(cfg, device=dev, seed=0)
         peak_heatmap_branch(torch, model)
         t0 = time.perf_counter()
         export.export_predictor_bundle(TopDownPredictor(model, make_codec(cfg), cfg.img_size),
@@ -4498,6 +4536,436 @@ def phase15(torch, dev, card: str) -> dict:
     return launches
 
 
+# Phase 16: int8 serving, the scale-and-translate crop methods, the head
+# options no config uses.
+Q_MODES = ("int8", "int8_wo")
+Q_CPU_CROPS = 32  # crops served on the card and on the CPU side by side
+Q_TIMED_BATCHES = (1, 256)
+Q_CORR = 0.95  # JAX's tests/test_quant.py bar for int8 heatmaps against float ones
+# Each stage of a quantised trunk (embedding, every block's update, the
+# final norm) on the card against the same stage on the CPU fed the card's
+# input: normwise relative error. Only rare elements differ there (a
+# LayerNorm row one ulp apart flips a dynamic int8 code; bf16 sums in
+# another order round the other way).
+Q_STAGE_TOL = 1e-2
+# End to end, card against CPU, heads peaked: 12 random blocks amplify
+# those rare differences (the bf16 float trunk alone correlates 0.990686
+# on an H100), so the bars are the amplified ones, set below the H100's
+# readings (0.956659-0.991752, and 0.748-0.876 of the well-defined
+# keypoints within KPT_TOL_PX); a wrong product or code breaks a stage
+# above.
+Q_CARD_CORR = 0.9
+Q_KPT_SHARE = 0.6
+Q_PRODUCTS = 4  # int8 products a block: qkv, proj, fc1, fc2
+CROP_METHODS = ("linear", "cubic", "lanczos3")
+CROP_TOL = 1e-5
+CROP_SAMPLE = 8
+CROP_BUCKETS = (1, 64, 256)
+
+# The fresh process that serves the int8 bundle: it reports each call's
+# launches, saves the outputs, lists the port's model modules it holds,
+# then runs the live int8 predictor on the same calls in the same process.
+Q_CHILD = r"""
+import json, sys
+from pathlib import Path
+import numpy as np
+import torch
+from probpose_pytorch_tpu_torch.serve.export import ServingBundle
+from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+    fused_attention, packed_attention, packed_attention_backward)
+from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    short_forward, tiled_attention, tiled_attention_backward)
+from probpose_pytorch_tpu_torch.ops.kernels.decode import expected_value_decode_fused
+from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp, fused_ln_mlp_backward
+from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_rows
+
+W = dict(k1f=packed_attention, k1b=packed_attention_backward, k1s=short_forward,
+         k2=sparsemax_rows, k3=expected_value_decode_fused, k4f=tiled_attention,
+         k4b=tiled_attention_backward, k5f=fused_ln_mlp, k5b=fused_ln_mlp_backward,
+         k6=fused_attention)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, recipe, dev = Path(sys.argv[1]), sys.argv[2], sys.argv[3]
+inp = np.load(work / "q_inputs.npz")
+bundle = ServingBundle.load(work / "int8", device=dev)
+calls = {n: inp[f"boxes{n}"] for n in (1, 64)}
+for n, boxes in calls.items():
+    bundle.predict_frame(inp["frame"], boxes)  # the first call reads the program
+    for w in W.values():
+        w.launches = 0
+    out = bundle.predict_frame(inp["frame"], boxes)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    np.savez(work / f"q_child_{n}.npz", **out)
+    print(json.dumps(dict(call=n, counts={k: w.launches for k, w in W.items()})), flush=True)
+banned = ("models", "train", "detect.model", "codec", "codec_simcc", "inference")
+print(json.dumps(dict(modules=sorted(m for m in sys.modules
+                                     if m.startswith("probpose_pytorch_tpu_torch.")
+                                     and m.split(".", 1)[1].startswith(banned)))), flush=True)
+from probpose_pytorch_tpu_torch.inference import load_predictor
+live = load_predictor(recipe, quantize="int8", device=dev)
+for n, boxes in calls.items():
+    np.savez(work / f"q_live_{n}.npz", **live.predict_frame(inp["frame"], boxes,
+                                                            buckets=tuple(bundle.buckets)))
+print(json.dumps(dict(live="done")), flush=True)
+"""
+
+
+def check_quantized_launches(counts: dict, forwards: int, label: str) -> None:
+    """The int8 trunk launches no kernel (its attention is plain, its
+    products torch._int_mm); the ProbMap head K2 once a forward."""
+    say(f"phase 16: {label}: K2 launches {counts['k2']} (expect {forwards}), attention, "
+        f"K3, K5 and K6 {sum(counts[k] for k in COUNTER_KEYS if k != 'k2')} (expect 0)")
+    check(counts["k2"] == forwards, f"{label}: K2 did not run once per forward")
+    check(all(counts[k] == 0 for k in COUNTER_KEYS if k != "k2"),
+          f"{label}: ran a kernel besides K2: {counts}")
+
+
+def map_agreement(torch, codec, a: dict, b: dict) -> tuple[float, float, np.ndarray]:
+    """(heatmap correlation, share of keypoints well defined in b's maps,
+    keypoint gaps there in px) of two answers on the same crops."""
+    sel = well_defined(torch, codec, b["heatmaps"], "cpu")
+    gap = np.abs(a["keypoints"] - b["keypoints"]).max(-1)[sel]
+    corr = float(np.corrcoef(a["heatmaps"].ravel(), b["heatmaps"].ravel())[0, 1])
+    return corr, float(sel.mean()), gap
+
+
+def phase16_products(torch, dev, card: str, label: str, qvit) -> None:
+    """The int8 products of a quantised trunk on the card: its codes and
+    scales equal those quantised on the CPU from the same float32 weights
+    (checked by the caller); here the activation codes of the same float32
+    rows and the int32 products of block 0's four layers, card against
+    CPU, equal."""
+    from probpose_pytorch_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(165)
+    state = qvit.state()
+    for layer in ("attn_qkv", "attn_proj", "mlp_fc1", "mlp_fc2"):
+        w_q = state[f"blocks.0.{layer}.weight_q"]
+        x = torch.randn(Q_CPU_CROPS * 192, w_q.shape[1], generator=g) * 3
+        xq, xs = quant.dynamic_quantize_rows(x)
+        xqd, xsd = quant.dynamic_quantize_rows(x.to(dev))
+        check(torch.equal(xqd.cpu(), xq) and torch.equal(xsd.cpu(), xs),
+              f"{label} {layer}: activation codes differ card against CPU")
+        acc = torch._int_mm(xqd, w_q.t())
+        check(torch.equal(acc.cpu(), torch._int_mm(xq, w_q.cpu().t())),
+              f"{label} {layer}: int32 products differ card against CPU")
+    say(f"phase 16: {label}: activation codes and the int32 products of block 0's qkv, proj, "
+        f"fc1 and fc2 at {Q_CPU_CROPS * 192} rows equal card against CPU")
+
+
+def phase16_stages(torch, dev, label: str, card_pred, cpu_pred) -> None:
+    """Each stage of the quantised trunk on the card against the same
+    stage on the CPU, fed the card's input: the embedding, every block's
+    update of the residual stream, the final norm; normwise within
+    Q_STAGE_TOL. This is where a wrong product, code or scale shows, free
+    of the trunk's amplification."""
+    from probpose_pytorch_tpu_torch.models import vit_int8
+
+    cq, pq = card_pred.model.backbone, cpu_pred.model.backbone
+    cs, ps = cq.state(), pq.state()
+    H, W = card_pred.input_size
+    g = torch.Generator().manual_seed(169)
+    images = torch.rand(Q_CPU_CROPS, H, W, 3, generator=g)
+
+    def rel(got, want):
+        got, want = got.cpu().float(), want.float()
+        return float((got - want).norm() / want.norm())
+
+    x = vit_int8.embed_int8(cs, images.to(dev), cq.patch_size)
+    errs = [rel(x, vit_int8.embed_int8(ps, images, pq.patch_size))]
+    for i in range(cq.depth):
+        y = vit_int8.block_int8(cs, i, x, cq.num_heads, cq.weight_only)
+        x_cpu = x.cpu()
+        ref = vit_int8.block_int8(ps, i, x_cpu, pq.num_heads, pq.weight_only)
+        errs.append(rel(y.float() - x.float(), ref.float() - x_cpu.float()))
+        x = y
+    errs.append(rel(vit_int8.layernorm(x, cs["norm.weight"], cs["norm.bias"]),
+                    vit_int8.layernorm(x.cpu(), ps["norm.weight"], ps["norm.bias"])))
+    say(f"phase 16: {label}, each stage card against CPU on the card's input ({Q_CPU_CROPS} "
+        f"images), normwise: embedding {errs[0]:.3e}, block updates "
+        + " ".join(f"{e:.2e}" for e in errs[1:-1]) + f", final norm {errs[-1]:.3e} "
+        f"(gate {Q_STAGE_TOL:g})")
+    check(max(errs) <= Q_STAGE_TOL, f"{label}: a quantised stage differs card against CPU: "
+          f"{max(errs):.3e}")
+
+
+def phase16_quantized(torch, dev, card: str, label: str, card_pred, cpu_pred, float_pred,
+                      frames, boxes) -> dict:
+    """One quantised predictor on the card against the same on the CPU and
+    against the float predictor on the card; returns its launches. As
+    loaded, its heatmaps are held to the float predictor's (JAX's bar, on
+    an untrained head's diffuse maps as JAX's test has them); then both
+    quantised predictors' heatmap branches are redrawn peaked, the same on
+    both devices, and their keypoints compared where well defined."""
+    bufs = dict(cpu_pred.model.backbone.named_buffers())
+    same = all(torch.equal(t.cpu(), bufs[k]) for k, t in card_pred.model.backbone.named_buffers())
+    say(f"phase 16: {label}: {len(bufs)} quantised trunk tensors (int8 codes, float32 scales) "
+        f"{'equal' if same else 'DIFFER'} card against CPU")
+    check(same, f"{label}: the quantised weights differ card against CPU")
+    phase16_products(torch, dev, card, label, card_pred.model.backbone)
+    phase16_stages(torch, dev, label, card_pred, cpu_pred)
+    for p in (card_pred, cpu_pred, float_pred):
+        p.return_heatmaps = True
+    out, counts = counted(torch, {}, lambda: card_pred(frames, boxes))
+    check_quantized_launches(counts, 1, label)
+    for k, v in out.items():
+        check(np.isfinite(v).all(), f"{label}: {k} not finite")
+    fref = float_pred(frames, boxes)["heatmaps"]
+    fcorr = float(np.corrcoef(out["heatmaps"].ravel(), fref.ravel())[0, 1])
+    say(f"phase 16 [{card}]: {label} against the bf16 predictor on the card, {len(frames)} "
+        f"crops: heatmap correlation {fcorr:.6f} (gate {Q_CORR}, JAX's "
+        "test_int8_predictor_tracks_f32)")
+    check(fcorr > Q_CORR, f"{label}: int8 heatmaps track the bf16 ones at {fcorr}")
+    for p in (card_pred, cpu_pred):
+        peak_heatmap_branch(torch, p.model)
+    corr, share, gap = map_agreement(torch, cpu_pred.codec, card_pred(frames, boxes),
+                                     cpu_pred(frames, boxes))
+    within = float((gap <= KPT_TOL_PX).mean()) if gap.size else 0.0
+    say(f"phase 16 [{card}]: {label}, heads peaked, card against CPU: heatmap correlation "
+        f"{corr:.6f} (gate {Q_CARD_CORR}); of the {share:.3f} well defined keypoints "
+        f"{within:.3f} within {KPT_TOL_PX:g} px (gate {Q_KPT_SHARE}: the rest jump, as the "
+        "stages' rare differences are amplified by 12 random blocks), gaps median "
+        f"{np.median(gap) if gap.size else 0.0:.3e} px, 90 % "
+        f"{np.quantile(gap, 0.9) if gap.size else 0.0:.3e}, max {gap.max(initial=0.0):.3e}")
+    check(corr > Q_CARD_CORR, f"{label}: heatmaps correlate {corr} card against CPU")
+    check(share > 0.5 and within >= Q_KPT_SHARE,
+          f"{label}: {within} of the well-defined keypoints agree card against CPU")
+    for p in (card_pred, cpu_pred, float_pred):
+        p.return_heatmaps = False
+    return counts
+
+
+def phase16_int8(torch, dev, card: str) -> dict:
+    """Phase 16 (1): int8 and int8_wo through load_predictor on phase 9's
+    checkpoint, and on a ViT-B predictor at configs/vitb_coco.json width
+    (random weights); then their times against bf16 and torch._int_mm's
+    against the bf16 product. Returns the launches by run."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+
+    recipe = RUN_DIR / "recipe" / "checkpoints"
+    frames, boxes = request(160, Q_CPU_CROPS)
+    cfg = vitb_train_config("bfloat16").model
+
+    def vitb(d, mode=None):
+        return TopDownPredictor(build_model(cfg, device=d, seed=0), make_codec(cfg),
+                                cfg.img_size, quantize=mode)
+
+    launches, preds = {}, {"vit-s": {}, "vit-b": {}}
+    for mode in Q_MODES:
+        float_pred = load_predictor(recipe, device=dev)
+        preds["vit-s"][mode] = load_predictor(recipe, quantize=mode, device=dev)
+        launches[f"vit-s {mode}"] = phase16_quantized(
+            torch, dev, card, f"flagship checkpoint {mode}", preds["vit-s"][mode],
+            load_predictor(recipe, quantize=mode, device="cpu"), float_pred, frames, boxes)
+        float_pred = vitb(dev)
+        preds["vit-b"][mode] = TopDownPredictor(float_pred.model, float_pred.codec,
+                                                cfg.img_size, quantize=mode)
+        launches[f"vit-b {mode}"] = phase16_quantized(
+            torch, dev, card, f"ViT-B {mode}", preds["vit-b"][mode], vitb("cpu", mode),
+            float_pred, frames, boxes)
+    preds["vit-s"][None] = load_predictor(recipe, device=dev)
+    preds["vit-b"][None] = vitb(dev)
+    for name, by_mode in preds.items():
+        for B in Q_TIMED_BATCHES:
+            f, b = request(166, B)
+            f_dev, b_dev = torch.from_numpy(f).to(dev), torch.from_numpy(b).to(dev)
+            ms = {str(m): cuda_ms(torch, lambda p=p: p.predict(f_dev, b_dev), iters=5, warmup=2)
+                  for m, p in by_mode.items()}
+            say(f"phase 16 [{card}]: {name} ms per batch of {B} (frames on the card, CUDA "
+                f"events, mean of 5): bf16 {ms['None']:.3f}, int8 {ms['int8']:.3f}, int8_wo "
+                f"{ms['int8_wo']:.3f}")
+    for name, (C, hidden) in (("vit-s", (384, 1536)), ("vit-b", (768, 3072))):
+        M = Q_TIMED_BATCHES[-1] * 192
+        g = torch.Generator(device=dev).manual_seed(167)
+        a = torch.randint(-127, 128, (M, C), dtype=torch.int8, device=dev, generator=g)
+        w = torch.randint(-127, 128, (hidden, C), dtype=torch.int8, device=dev, generator=g)
+        ab, wb = a.bfloat16(), w.bfloat16()
+        int_ms, bf_ms = paired_ms(torch, lambda: torch._int_mm(a, w.t()), lambda: ab @ wb.t(),
+                                  iters=20)
+        ops = 2 * M * C * hidden
+        say(f"phase 16 [{card}]: {name} fc1 ({M}, {C}) x ({C}, {hidden}): torch._int_mm "
+            f"{int_ms:.4f} ms against the bf16 cuBLAS product's {bf_ms:.4f} ms (in turns); "
+            f"{ops / int_ms / 1e9:.1f} and {ops / bf_ms / 1e9:.1f} TOP/s")
+        del a, w, ab, wb
+    del preds
+    return launches
+
+
+def phase16_crops(torch, dev, card: str) -> dict:
+    """Phase 16 (2): predict_frame with each scale-and-translate method on
+    phase 9's checkpoint at 1088 x 1920 and 1, 64 and 256 boxes; crops of
+    a sample of boxes, half of them partly off the frame, card against
+    CPU; each method's crop time and peak memory at 256 boxes against
+    bilinear_matmul's. Returns the launches by run."""
+    from probpose_pytorch_tpu_torch.inference import load_predictor
+    from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
+
+    pred = load_predictor(RUN_DIR / "recipe" / "checkpoints", device=dev)
+    K = len(pred.codec.probmap.sigmas_array)
+    H, W = BUNDLE_HW
+    rng = np.random.default_rng(168)
+    frame = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    box_sets = {n: camera_boxes(rng, n, BUNDLE_HW) for n in CROP_BUCKETS}
+    launches = {}
+    for method in CROP_METHODS:
+        p = dataclasses.replace(pred, preprocess_method=method)
+        for n, bx in box_sets.items():
+            out, counts = counted(torch, {}, lambda: p.predict_frame(frame, bx,
+                                                                     buckets=CROP_BUCKETS))
+            check_fields(out, n, K, f"{method} at {n} boxes")
+            check_attention_route(counts, 12, 0, phase=16)
+            check(counts["k2"] == 1, f"{method} at {n} boxes: K2 did not run once")
+            launches[f"crop {method} {n}"] = counts
+        say(f"phase 16: predict_frame with preprocess_method {method!r} at {CROP_BUCKETS} boxes "
+            f"on a {H} x {W} frame: all fields finite, 12 short K1 forwards and 1 K2 a call")
+    bx = box_sets[CROP_BUCKETS[-1]]
+    off = (bx[:, 0] < 0) | (bx[:, 1] < 0) | (bx[:, 0] + bx[:, 2] > W) | (bx[:, 1] + bx[:, 3] > H)
+    pick = np.concatenate([np.flatnonzero(off)[:CROP_SAMPLE // 2],
+                           np.flatnonzero(~off)[:CROP_SAMPLE // 2]])
+    check(off[pick].sum() == CROP_SAMPLE // 2, "too few boxes partly off the frame")
+    frames_cpu = torch.from_numpy(frame)[None].expand(len(pick), -1, -1, -1)
+    f_dev = torch.from_numpy(frame).to(dev)[None]
+    for method in CROP_METHODS:
+        ids = torch.zeros(len(pick), dtype=torch.int64, device=dev)
+        got = crop_resize(f_dev.index_select(0, ids), torch.from_numpy(bx[pick]).to(dev),
+                          pred.input_size, method).cpu()
+        want = crop_resize(frames_cpu, torch.from_numpy(bx[pick]), pred.input_size, method)
+        gap = float((got - want).abs().max())
+        say(f"phase 16: {method} crops of {len(pick)} boxes ({CROP_SAMPLE // 2} partly off the "
+            f"frame) card against CPU: max gap {gap:.3e} (gate {CROP_TOL:g})")
+        check(gap <= CROP_TOL, f"{method}: card crops differ from the CPU's by {gap}")
+    b_dev = torch.from_numpy(bx).to(dev)
+    i_dev = torch.zeros(len(bx), dtype=torch.int64, device=dev)
+    for method in CROP_METHODS + ("bilinear_matmul",):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda m=method: crop_resize(f_dev.index_select(0, i_dev), b_dev,
+                                                         pred.input_size, m),
+                     iters=3, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        say(f"phase 16 [{card}]: crop_resize {method!r} of {len(bx)} boxes from one {H} x {W} "
+            f"frame (the indexed dispatch's gather included): {ms:.3f} ms, peak {peak:.2f} GiB "
+            "above the inputs")
+    return launches
+
+
+def phase16_head_options(torch, dev, card: str) -> dict:
+    """Phase 16 (3): the flagship geometry with deconv_kernel_sizes (2, 3)
+    and the einsum attention with a bf16 softmax, served on the card and
+    the CPU from the same weights: float32 compute against the CPU within
+    KPT_TOL_PX and PROB_TOL; bf16 compute served. Returns the launches."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
+
+    block = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())["model"]
+    frames, boxes = request(169, Q_CPU_CROPS)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(**{**block, "deconv_kernel_sizes": (2, 3), "attn_impl": "einsum",
+                             "softmax_dtype": "bfloat16", "compute_dtype": dtype})
+        on_card, on_cpu = (TopDownPredictor(build_model(cfg, device=d, seed=16), make_codec(cfg),
+                                            cfg.img_size, return_heatmaps=True)
+                           for d in (dev, torch.device("cpu")))
+        for p in (on_card, on_cpu):
+            peak_heatmap_branch(torch, p.model)
+        out, counts = counted(torch, {}, lambda: on_card(frames, boxes))
+        label = f"deconv (2, 3) + einsum bf16-softmax trunk, {dtype} compute"
+        check_quantized_launches(counts, 1, label)
+        launches[f"head options {dtype}"] = counts
+        ref = on_cpu(frames, boxes)
+        corr, share, gap = map_agreement(torch, on_cpu.codec, out, ref)
+        fgap = max(float(np.abs(out[k] - ref[k]).max())
+                   for k in ("probabilities", "visibilities", "oks", "errors"))
+        say(f"phase 16 [{card}]: {label}, card against CPU on {len(frames)} crops: heatmaps "
+            f"{out['heatmaps'].shape[-2:]}, correlation {corr:.6f}, keypoint max gap "
+            f"{gap.max(initial=0.0):.3e} px over the {share:.3f} well defined, other fields "
+            f"{fgap:.3e}" + (f" (gates {KPT_TOL_PX:g}, {PROB_TOL:g})" if dtype == "float32"
+                              else " (bf16 trunk: printed, not gated)"))
+        check(out["heatmaps"].shape[-2:] == (64, 48), f"{label}: heatmap shape")
+        if dtype == "float32":
+            check(share > 0.5 and gap.max(initial=0.0) <= KPT_TOL_PX and fgap <= PROB_TOL,
+                  f"{label}: card and CPU differ (keypoints {gap.max(initial=0.0)}, fields {fgap})")
+    return launches
+
+
+def phase16_bundle(torch, dev, card: str, work: Path) -> dict:
+    """Phase 16 (4): the int8 predictor of phase 9's checkpoint exported as
+    a bundle (buckets 1 and 64, indexed); every program holds 48
+    aten._int_mm and one probpose::sparsemax_rows; a fresh process with no
+    model code serves it with 1 K2 and no other kernel a call and equals
+    the live int8 predictor there at 0 px. Returns the launches by call."""
+    import gzip
+
+    from probpose_pytorch_tpu_torch.inference import load_predictor
+    from probpose_pytorch_tpu_torch.serve.export import export_predictor_bundle
+
+    recipe = RUN_DIR / "recipe" / "checkpoints"
+    pred = load_predictor(recipe, quantize="int8", device=dev)
+    t0 = time.perf_counter()
+    export_predictor_bundle(pred, work / "int8", BUNDLE_BUCKETS, BUNDLE_HW)
+    programs = sorted((work / "int8").glob("*.pt2.gz"))
+    say(f"phase 16 [{card}]: int8 bundle: {len(programs)} programs in "
+        f"{time.perf_counter() - t0:.2f} s, params.pt "
+        f"{(work / 'int8' / 'params.pt').stat().st_size / 2**20:.2f} MiB")
+    for program in programs:
+        graph = str(torch.export.load(io.BytesIO(gzip.decompress(program.read_bytes()))).graph)
+        ops, int_mm = bundle_graph_ops(program), graph.count("aten._int_mm")
+        say(f"phase 16: int8/{program.name}: aten._int_mm {int_mm}, probpose ops {ops}")
+        check(int_mm == 12 * Q_PRODUCTS and ops == {"sparsemax_rows": 1},
+              f"int8/{program.name}: {int_mm} int8 products, ops {ops}")
+    del pred
+    rng = np.random.default_rng(170)
+    frame = rng.integers(0, 256, (*BUNDLE_HW, 3), dtype=np.uint8)
+    np.savez(work / "q_inputs.npz", frame=frame, boxes1=camera_boxes(rng, 1, BUNDLE_HW),
+             boxes64=camera_boxes(rng, 64, BUNDLE_HW))
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", Q_CHILD, str(work), str(recipe), dev.type],
+                          cwd=REPO,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    check(proc.returncode == 0, f"the int8 bundle process failed:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    check(lines[-2] == {"modules": []}, f"the int8 bundle process imported model code: {lines[-2]}")
+    check(lines[-1] == {"live": "done"}, "the int8 bundle process did not run the live predictor")
+    launches = {}
+    for c in lines[:-2]:
+        n = c["call"]
+        check_quantized_launches(c["counts"], 1, f"int8 bundle at {n} boxes (fresh process)")
+        launches[f"int8 bundle {n}"] = c["counts"]
+        got, ref = dict(np.load(work / f"q_child_{n}.npz")), dict(np.load(work / f"q_live_{n}.npz"))
+        check(sorted(got) == sorted(ref), f"int8 bundle at {n}: keys {sorted(got)}")
+        gap = max(float(np.abs(got[k].astype(np.float64) - ref[k]).max()) for k in ref)
+        say(f"phase 16: int8 bundle at {n} boxes against the live int8 predictor in the same "
+            f"fresh process: max gap {gap:.3e} over every field (gate 0)")
+        check(gap == 0.0, f"int8 bundle at {n}: differs from live by {gap}")
+    check(sorted(launches) == ["int8 bundle 1", "int8 bundle 64"], f"calls {sorted(launches)}")
+    return launches
+
+
+def phase16(torch, dev, card: str) -> dict:
+    """Phase 16: int8 serving, the crop methods, the head options and the
+    int8 bundle. Returns the launches of its counted runs."""
+    t_phase = time.perf_counter()
+    work = RUN_DIR / "phase16"
+    work.mkdir(parents=True, exist_ok=True)
+    launches = phase16_int8(torch, dev, card)
+    for part in (phase16_crops, phase16_head_options):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(part(torch, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase16_bundle(torch, dev, card, work))
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s in all")
+    return launches
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -4525,13 +4993,18 @@ ATTENTION_SHAPES = (
 def attention_times(torch, card: str) -> None:
     """packed_attention's forward, and its backward alone through autograd
     (reading what the forward saved), against the library's on the same
-    q, k, v and dO, at ATTENTION_SHAPES in bf16; printed, not gated. Uses
-    only the package's public attention call, so any commit of the port
-    can be timed."""
+    q, k, v and dO, at ATTENTION_SHAPES in bf16; then K2's loop at phase
+    3's rows; printed, not gated. Uses only the package's public attention
+    and sparsemax calls, so any commit of the port can be timed."""
     from probpose_pytorch_tpu_torch.ops.kernels.attention import packed_attention
+    from probpose_pytorch_tpu_torch.ops.kernels.sparsemax import sparsemax_rows
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(30)
+    z = k2_rows(torch, g, SERVE_BATCH * 17, 3072, "random")
+    say(json.dumps(dict(sparsemax="flagship serving", card=card, rows=list(z.shape),
+                        ms=cuda_ms(torch, lambda: sparsemax_rows(z), iters=50))))
+    del z
     for label, B, N, heads, d in ATTENTION_SHAPES:
         C = heads * d
         qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
@@ -4553,6 +5026,60 @@ def attention_times(torch, card: str) -> None:
         del qkv, dout, x, y
 
 
+SERVING_TIMED_CALLS = 20
+SERVING_BOX_COUNTS = (1, 64, 256)
+
+
+def serving_times(torch, card: str) -> None:
+    """The flagship bf16 predictor (configs/flagship_coco_vits.json, random
+    weights) served end to end: predict_frame on one 1080 x 1920 frame at
+    SERVING_BOX_COUNTS boxes and a call on REQUEST_SIZES[-1] crops, each
+    timed on the host clock over SERVING_TIMED_CALLS calls (upload,
+    compute, download) and traced with torch.profiler over 5 calls for the
+    device's busy time and idle share; one JSON line each, printed, not
+    gated. Uses only build_model, TopDownPredictor and its calls, so a
+    copy of this script in another commit's checkout times that commit on
+    the same card."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = TrainConfig.load(REPO / "configs/flagship_coco_vits.json").model
+    pred = TopDownPredictor(build_model(cfg, device=dev, seed=0), make_codec(cfg), cfg.img_size)
+    rng = np.random.default_rng(40)
+    frame = rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    calls = [(f"predict_frame, {n} boxes", lambda b=camera_boxes(rng, n): pred.predict_frame(
+        frame, b)) for n in SERVING_BOX_COUNTS]
+    frames, boxes = request(41, REQUEST_SIZES[-1])
+    calls.append((f"call, {len(frames)} crops", lambda: pred(frames, boxes)))
+    for label, fn in calls:
+        for _ in range(3):
+            fn()
+        host = []
+        for _ in range(SERVING_TIMED_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        say(json.dumps(dict(serving=label, card=card, host_ms_median=float(np.median(host)),
+                            host_ms_min=min(host), host_ms_max=max(host),
+                            traced_ms=wall / 5, device_busy_ms=busy / 5,
+                            idle_share=1 - busy / wall)))
+
+
 def main() -> None:
     import torch
 
@@ -4561,6 +5088,9 @@ def main() -> None:
                          "run needs an NVIDIA GPU")
     if "--attention-times" in sys.argv[1:]:
         attention_times(torch, card_line())
+        return
+    if "--serving-times" in sys.argv[1:]:
+        serving_times(torch, card_line())
         return
     global RUN_DIR
     RUN_DIR = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -4571,7 +5101,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 15, then the kernels line and the result line."""
+    """Phases 0 to 16, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -4638,7 +5168,7 @@ def run(torch) -> None:
     block = json.loads((REPO / "configs/flagship_coco_vits.json").read_text())["model"]
     cfg = ModelConfig(**block)
     check(cfg.attn_impl == "fused", "flagship config does not select kernel K1")
-    model = build_model(cfg, dev, seed=0)
+    model = build_model(cfg, device=dev, seed=0)
     peak_heatmap_branch(torch, model)
     codec = make_codec(cfg)
     predictor = TopDownPredictor(model, codec, cfg.img_size, return_heatmaps=True)
@@ -4665,7 +5195,7 @@ def run(torch) -> None:
     say(f"phase 2: bf16 kernel-vs-plain heatmap max abs diff {hm_diff:.3e} (not gated)")
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    model32 = build_model(cfg32, dev)
+    model32 = build_model(cfg32, device=dev)
     model32.load_state_dict(model.state_dict())
     pred32 = TopDownPredictor(model32, codec, cfg.img_size, return_heatmaps=True)
     for frames, boxes in requests:
@@ -4814,6 +5344,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     bundles15 = phase15(torch, dev, card)
 
+    # --------------------------------------------------------------- phase 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_16 = phase16(torch, dev, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -4897,6 +5432,8 @@ def run(torch) -> None:
                                      for run, c in detectors14.items()}
         entry["phase15_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in bundles15.items()}
+        entry["phase16_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in int8_16.items()}
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,11 @@ ends, training and evaluation.
 The package mirrors the module names of the JAX package `probpose_pytorch_tpu`
 (the reference it is tested against) but imports only torch and numpy:
 
-    ops/preprocess.py     crop_resize ("bilinear_matmul"), keypoint maps
+    ops/preprocess.py     crop_resize (every JAX method), keypoint maps
+    ops/quant.py          int8 weights, dynamic int8 rows, int8 products
     models/vit.py         ViTBackbone; attention goes through kernel K1
     models/head.py        ProbMapHead; sparsemax goes through kernel K2
+    models/vit_int8.py    QuantizedViT, the int8 serving trunk
     models/convnet.py     ConvBackbone, the conv-s / conv-t trunks
     models/model.py       ModelConfig, ProbPoseModel, build_model
     ops/heatmap.py        expected-value decode, PCK distances
@@ -54,4 +56,25 @@ Importing the package builds nothing: kernels are compiled at their first
 launch on a CUDA tensor, the data plane at its first use.
 """
 
-__all__: list[str] = []
+__version__ = "0.1.0"
+
+# The JAX package's top-level names, bound on first use: importing one
+# submodule (a serving bundle's loader, say) loads no model code.
+_EXPORTS = {
+    "codec": None, "losses": None, "models": None, "ops": None,
+    "ArgMaxProbMap": "codec", "Codec": "codec", "ProbMap": "codec",
+    "ProbPoseLoss": "losses",
+    "ModelConfig": "models", "ProbMapHead": "models", "ProbPoseModel": "models",
+    "ViTBackbone": "models", "build_model": "models",
+}
+
+__all__ = [n for n, m in _EXPORTS.items() if m is not None]
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    module = importlib.import_module(f"{__name__}.{_EXPORTS[name] or name}")
+    return module if _EXPORTS[name] is None else getattr(module, name)

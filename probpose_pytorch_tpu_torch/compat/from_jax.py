@@ -1,5 +1,8 @@
 """Carry the JAX package's weights and training state into the port.
 
+`quantized_state_dict_from_jax(variables)` carries a JAX quantized
+predictor's variables (int8 trunk, float head) into the state dict of the
+port's quantized model.
 `load_jax_variables(model, params, batch_stats)` takes the JAX model's
 `variables["params"]` and `variables["batch_stats"]` as nested dicts of
 numpy arrays (no jax needed here) and loads them into a `ProbPoseModel`
@@ -43,7 +46,8 @@ from probpose_pytorch_tpu_torch.train.state import (
     param_layouts,
 )
 
-__all__ = ["state_dict_from_jax", "load_jax_variables", "load_jax_train_state"]
+__all__ = ["state_dict_from_jax", "load_jax_variables", "load_jax_train_state",
+           "quantized_state_dict_from_jax"]
 
 Tree = Mapping[str, Any]
 
@@ -180,6 +184,32 @@ def state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, np.ndarray
         _backbone(sd, params["backbone"])
         _head(sd, params["head"], batch_stats["head"])
     # np.array, not np.ascontiguousarray, which turns 0-d arrays into (1,).
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def quantized_state_dict_from_jax(variables: Tree) -> dict[str, np.ndarray]:
+    """The state dict of a quantized predictor's model (a ProbPoseModel
+    whose trunk is models/vit_int8.py's QuantizedViT), as numpy arrays, from
+    the JAX quantized predictor's `variables`: {"qparams": the output of
+    JAX's `quantize_vit_params`, "head": {"params", "batch_stats"}}. The
+    int8 (in, out) kernels are stored (out, in), as QuantizedViT holds
+    them; codes and scales are carried as they are."""
+    qp, sd = variables["qparams"], {}
+    q = "backbone."
+    _conv(sd, q + "patch_embed", qp["patch_embed"])
+    sd[q + "pos_embed"] = np.asarray(qp["pos_embed"])
+    _norm(sd, q + "norm", qp["norm"])
+    for i in range(_count(qp, "block")):
+        blk, b = qp[f"block{i}"], f"{q}blocks.{i}."
+        _norm(sd, b + "norm1", blk["norm1"])
+        _norm(sd, b + "norm2", blk["norm2"])
+        for name in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            leaf, key = blk[name], b + name.replace(".", "_")
+            sd[f"{key}.weight_q"] = np.asarray(leaf["kernel_q"]).T
+            sd[f"{key}.scale"] = np.asarray(leaf["scale"])
+            sd[f"{key}.bias"] = np.asarray(leaf["bias"])
+    head = variables["head"]
+    _head(sd, head["params"], head.get("batch_stats", {}))
     return {k: np.array(v, order="C") for k, v in sd.items()}
 
 

@@ -17,6 +17,7 @@ nothing in either.
 
 from probpose_pytorch_tpu_torch.data.cache import CachedCropDataset, build_crop_cache
 from probpose_pytorch_tpu_torch.data.coco import COCOPoseDataset, parse_coco_annotations
+from probpose_pytorch_tpu_torch.data.mixed import MixedPoseDataset, build_mixed_datasets
 from probpose_pytorch_tpu_torch.data.pipeline import Prefetcher, SyntheticPoseDataset, batch_iterator
 from probpose_pytorch_tpu_torch.data.synth_coco import generate_coco_synth
 from probpose_pytorch_tpu_torch.data.yolo import YOLOPoseDataset, parse_yolo_annotations
@@ -32,4 +33,6 @@ __all__ = [
     "CachedCropDataset",
     "build_crop_cache",
     "generate_coco_synth",
+    "MixedPoseDataset",
+    "build_mixed_datasets",
 ]

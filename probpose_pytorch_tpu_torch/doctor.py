@@ -63,7 +63,7 @@ def model_forward(device: str = "cuda") -> str:
     cfg = ModelConfig(img_size=(64, 48), num_keypoints=5, backbone="vit-nano",
                       compute_dtype="bfloat16", attn_impl="fused",
                       deconv_out_channels=(16, 16), pool_sizes=((2, 2), (2, 2)))
-    model = build_model(cfg, device)
+    model = build_model(cfg, device=device)
     k1, k2 = short_forward.launches, sparsemax_rows.launches
     with torch.inference_mode():
         out = model(torch.zeros(1, 64, 48, 3, device=device))

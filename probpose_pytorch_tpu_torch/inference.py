@@ -7,10 +7,13 @@ predict_frame, the bucket ladder, load_predictor and main).
         [--config runs/x/config.json] [--input-size 256,192] [--normalize] \
         [--device cuda]
 
-frames + person boxes -> crop_resize ("bilinear_matmul") -> ProbPoseModel
-(ViT trunk with kernel K1, ProbMap head with kernel K2, or the SimCC head)
--> Codec.decode (SimCCCodec.decode) -> keypoints mapped back to frame
-space. Returns the JAX predictor's dict of numpy arrays: keypoints (B, K,
+frames + person boxes -> crop_resize ("bilinear_matmul", or any method of
+JAX's `Method`) -> ProbPoseModel (ViT trunk with kernel K1, ProbMap head
+with kernel K2, or the SimCC head) -> Codec.decode (SimCCCodec.decode) ->
+keypoints mapped back to frame space. With `quantize="int8"` (or
+"int8_wo", weight-only) the trunk is models/vit_int8.py's QuantizedViT,
+its weights quantized once, before the same head. Returns the JAX
+predictor's dict of numpy arrays: keypoints (B, K,
 2), scores (B, K), and probabilities, visibilities, oks, errors (B, 1, K),
 plus heatmaps (B, K, H, W) with `return_heatmaps` (for SimCC the outer
 product of the two axes' softmaxes, (B, K, Hb, Wb)). Flip-test and
@@ -25,8 +28,7 @@ record in configs/autotune_serving.json, keyed by
 With `detector=` (detect/pipeline.py:DetectorPredictor), `predict_frame`
 without boxes runs standalone: the person detector finds the boxes.
 
-Not ported yet: quantisation (`--int8`, ROADMAP item 12) and mesh serving
-(item 13).
+Not ported yet: mesh serving (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from probpose_pytorch_tpu_torch.codec import Codec
 from probpose_pytorch_tpu_torch.codec_simcc import SimCCCodec
 from probpose_pytorch_tpu_torch.eval.calibration import P_HI, P_LO
 from probpose_pytorch_tpu_torch.models.model import ProbPoseModel
+from probpose_pytorch_tpu_torch.models.vit_int8 import QuantizedViT
 from probpose_pytorch_tpu_torch.ops.augment import average_flip_pred, average_flip_pred_simcc
 from probpose_pytorch_tpu_torch.ops.preprocess import (
     crop_resize,
@@ -61,6 +64,16 @@ def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
     )
+
+
+def _check_quantize(quantize: str | None, mesh: Any) -> None:
+    """JAX's refusals of a quantize mode (inference.py:217-220 there)."""
+    if quantize is None:
+        return
+    if quantize not in ("int8", "int8_wo"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if mesh is not None:
+        raise ValueError(f"quantize={quantize!r} is single-device only")
 
 
 def _load_autotune_entry() -> dict:
@@ -161,6 +174,10 @@ class TopDownPredictor:
     # Per-branch temperatures {"presence": T, "visibility": T}, applied to
     # `probabilities` / `visibilities` in logit space on the device.
     calibration: dict | None = None
+    # "int8": the trunk's qkv, proj, fc1 and fc2 as int8 x int8 -> int32
+    # products with dynamic per-row activation scales; "int8_wo": int8
+    # weights dequantized into bf16 products (models/vit_int8.py). Plain ViT
+    # trunks only (no prefix tokens, no adapters), single device.
     quantize: str | None = None
     mesh: Any = None
     # `predict_frame` zero-pads the frame's (H, W) up to this multiple, so
@@ -186,10 +203,18 @@ class TopDownPredictor:
                 if not (0.0 < t < float("inf")):
                     raise ValueError(f"calibration temperature {k}={t!r} must be a "
                                      "positive finite float")
-        if self.quantize is not None:
-            raise _unported(f"TopDownPredictor(quantize={self.quantize!r})", 12)
+        _check_quantize(self.quantize, self.mesh)
         if self.mesh is not None:
             raise _unported("TopDownPredictor(mesh=...)", 13)
+        if self.quantize is not None:
+            weight_only = self.quantize == "int8_wo"
+            bb = self.model.backbone
+            if not (isinstance(bb, QuantizedViT) and bb.weight_only == weight_only):
+                # not a copy of a quantized predictor (dataclasses.replace):
+                # the float trunk's weights are quantized once (QuantizedViT
+                # refuses any other trunk); the head is shared with the
+                # float model
+                self.model = ProbPoseModel(QuantizedViT(bb, weight_only), self.model.head)
         self.model.eval()
 
     @property
@@ -401,14 +426,13 @@ def load_predictor(
     (train/checkpoint.py: the latest `<checkpoint_dir>/<step>`) and its
     config JSON, which defaults to `<checkpoint_dir>/../config.json`, then
     to the flagship defaults. With `ema`, the EMA parameters. The
-    parameters sit in the JAX function's places; `quantize` and `mesh`
-    take only their defaults here. Runs on the card unless `device` asks
-    for the CPU."""
+    parameters sit in the JAX function's places; `quantize` quantizes the
+    trunk (TopDownPredictor's), and `mesh` is refused (ROADMAP item 13).
+    Runs on the card unless `device` asks for the CPU."""
     from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
     from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
 
-    if quantize is not None:
-        raise _unported(f"load_predictor(quantize={quantize!r})", 12)
+    _check_quantize(quantize, mesh)
     if mesh is not None:
         raise _unported("load_predictor(mesh=...)", 13)
     checkpoint_dir = Path(checkpoint_dir)
@@ -433,6 +457,7 @@ def load_predictor(
         scale_test=scale_test,
         scale_test_scores=scale_test_scores,
         calibration=calibration,
+        quantize=quantize,
     )
 
 
@@ -452,9 +477,11 @@ def main(argv: Sequence[str] | None = None) -> None:
                         help="normalize heatmap PNGs to their max")
     parser.add_argument("--prob-threshold", type=float, default=0.9)
     parser.add_argument("--ema", action="store_true", help="use EMA params")
-    parser.add_argument("--int8", action="store_true", help="not ported (ROADMAP item 12)")
+    parser.add_argument("--int8", action="store_true",
+                        help="post-training int8-quantized backbone products "
+                        "(models/vit_int8.py)")
     parser.add_argument("--int8-weight-only", action="store_true",
-                        help="not ported (ROADMAP item 12)")
+                        help="weight-only int8 backbone products (bf16 activations)")
     parser.add_argument("--flip-test", action="store_true",
                         help="flip-test TTA: average predictions with the horizontally "
                         "mirrored forward (COCO-17 left/right pairs)")

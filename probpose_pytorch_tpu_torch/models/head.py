@@ -10,9 +10,11 @@ BatchNorm in float32 (eps 1e-5) -- from its running statistics in eval
 mode, from the batch's statistics in train mode, where it also updates the
 running ones -- and the heatmap branch goes to float32 before sparsemax
 (temperature 0.5, then x normalize and clamp to [0, 1]). Sparsemax is kernel K2 on the card.
-A flax `ConvTranspose(k=4, s=2, padding="SAME")` is a
-`conv_transpose2d(stride=2, padding=1)` with the kernel flipped spatially;
-compat/from_jax.py does the flip when it loads the weights.
+A flax `ConvTranspose(k, s=2, padding="SAME")` is a
+`conv_transpose2d(stride=2)` with the kernel flipped spatially (compat/
+from_jax.py does the flip when it loads the weights) and, for k = 4,
+padding 1; for k = 2, padding 0; for k = 3, whose SAME padding flax splits
+unevenly, padding 0 (2n + 1 outputs) and the last row and column dropped.
 """
 
 from __future__ import annotations
@@ -114,18 +116,16 @@ class ProbMapHead(nn.Module):
     ):
         super().__init__()
         for k in deconv_kernel_sizes:
-            if k != 4:
-                raise NotImplementedError(
-                    f"deconv kernel size {k}: the port has k=4 only; kernels "
-                    "2 and 3 are ROADMAP item 4"
-                )
+            if k not in (2, 3, 4):
+                raise ValueError(f"unsupported deconv kernel size {k}")
         self.dtype = dtype
         self.normalize = normalize
         c = in_channels
         self.deconvs = nn.ModuleList()
         self.deconv_bns = nn.ModuleList()
-        for ch in deconv_out_channels:
-            self.deconvs.append(nn.ConvTranspose2d(c, ch, 4, stride=2, padding=1, bias=False))
+        for ch, k in zip(deconv_out_channels, deconv_kernel_sizes):
+            self.deconvs.append(nn.ConvTranspose2d(c, ch, k, stride=2, padding=int(k == 4),
+                                                   bias=False))
             self.deconv_bns.append(nn.BatchNorm2d(ch, eps=BN_EPS, momentum=0.1))
             c = ch
         self.convs = nn.ModuleList()
@@ -145,7 +145,9 @@ class ProbMapHead(nn.Module):
         """NCHW features -> (B, K, H, W) float32 heatmaps."""
         for deconv, bn in zip(self.deconvs, self.deconv_bns):
             x = F.conv_transpose2d(x.to(self.dtype), deconv.weight.to(self.dtype),
-                                   stride=2, padding=1)
+                                   stride=2, padding=deconv.padding)
+            if deconv.kernel_size[0] == 3:
+                x = x[:, :, :-1, :-1]
             x = F.relu(batch_norm(x, bn))
         for conv_i, bn in zip(self.convs, self.conv_bns):
             x = F.relu(batch_norm(conv(x, conv_i, self.dtype), bn))

@@ -57,8 +57,9 @@ class ModelConfig:
     normalize: float | None = 1.0
     compute_dtype: str = "bfloat16"
     softmax_dtype: str = "float32"
-    # "fused" and "einsum" both run kernel K1 (f32 softmax); "pallas" runs
-    # kernel K6, forward only.
+    # "fused" and "einsum" both run kernel K1 (f32 softmax); "einsum" with a
+    # bf16 softmax_dtype runs JAX's einsum attention in plain PyTorch;
+    # "pallas" runs kernel K6, forward only.
     attn_impl: str = "einsum"
     mlp_impl: str = "dense"  # "fused": kernel K5
     # "fused" and "fastvjp" were XLA rewrites, pinned numerically equal to
@@ -84,10 +85,6 @@ class ModelConfig:
         unported = [
             (self.pp_stages > 1, "pp_stages > 1", 13),
             (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
-            (any(k != 4 for k in self.deconv_kernel_sizes),
-             f"deconv_kernel_sizes={self.deconv_kernel_sizes}", 4),
-            (self.attn_impl == "einsum" and self.softmax_dtype != "float32",
-             f"attn_impl='einsum' with softmax_dtype={self.softmax_dtype!r}", 4),
         ]
         if self.lora_rank > 0 and self.backbone.startswith("conv"):
             raise ValueError("lora_rank applies to ViT backbones only")
@@ -237,15 +234,19 @@ def _vit_backbone(cfg: ModelConfig) -> tuple[ViTBackbone, int]:
         mlp_impl=cfg.mlp_impl,
         lora_rank=cfg.lora_rank,
         lora_alpha=cfg.lora_alpha,
+        softmax_dtype=_DTYPES[cfg.softmax_dtype],
     )
     return backbone, cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
 
 
-def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
+def build_model(cfg: ModelConfig, mesh: Any = None, *, device: torch.device | str = "cuda",
                 seed: int = 0) -> ProbPoseModel:
     """The model of `cfg` on `device` (the card unless the caller asks for
     the CPU), in eval mode, with weights drawn from a `torch.Generator`
-    seeded with `seed`."""
+    seeded with `seed`. `mesh` sits in JAX's place; a mesh is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_model(mesh=...) is not ported to PyTorch yet (ROADMAP item 13)")
     device = resolve_device(device, "build_model")
     cfg.check_ported()
     if cfg.backbone.startswith("conv"):

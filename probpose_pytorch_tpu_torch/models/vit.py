@@ -11,7 +11,11 @@ Attention reads the (B, N, 3C) qkv projection in qkv-major order, exactly
 the input of kernel K1, and hands it to
 `ops.kernels.attention.packed_attention` unchanged. K1's softmax is f32, so
 it computes both the JAX "fused" attention and the JAX "einsum" attention
-at its default float32 `softmax_dtype` (models/model.py refuses the rest).
+at its default float32 `softmax_dtype`. `attn_impl="einsum"` with another
+`softmax_dtype` runs JAX's einsum attention as it is, in plain PyTorch:
+the scores in the compute dtype, scaled in float32 (JAX's NumPy-scalar
+scale promotes them), the softmax in `softmax_dtype`, then the compute
+dtype.
 `attn_impl="pallas"` hands the q, k, v views of the same projection to
 kernel K6 (`fused_attention`), forward only, as JAX does.
 
@@ -30,6 +34,7 @@ summed projection, and fc2's reads the hidden state after the GELU.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -93,15 +98,31 @@ class MlpBlock(nn.Module):
         return out
 
 
+def einsum_attention(qkv: torch.Tensor, num_heads: int, softmax_dtype: torch.dtype,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """JAX's einsum attention (models/vit.py:190-197 there) in plain
+    PyTorch: (B, N, 3C) qkv-major -> (B, N, C). The scores are scaled in
+    float32 (JAX's NumPy-scalar scale promotes them), the softmax runs in
+    `softmax_dtype` and its probabilities are cast to `out_dtype`."""
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.unflatten(-1, (3, num_heads, -1)).unbind(2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    attn = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
+    attn = torch.softmax(attn.to(softmax_dtype), dim=-1).to(out_dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C3 // 3)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, impl: str = "fused",
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.num_heads = num_heads
         self.dtype = dtype
         self.impl = impl
+        self.softmax_dtype = softmax_dtype
         lora = lambda i, o: LoRADelta(i, o, lora_rank, lora_alpha, dtype) if lora_rank else None
         self.qkv_lora, self.proj_lora = lora(dim, 3 * dim), lora(dim, dim)
 
@@ -113,6 +134,8 @@ class Attention(nn.Module):
             B, N, C3 = qkv.shape
             q, k, v = qkv.unflatten(-1, (3, self.num_heads, -1)).unbind(2)
             ctx = fused_attention(q, k, v).reshape(B, N, C3 // 3)
+        elif self.impl == "einsum" and self.softmax_dtype != torch.float32:
+            ctx = einsum_attention(qkv, self.num_heads, self.softmax_dtype, self.dtype)
         else:
             ctx = packed_attention(qkv, self.num_heads)
         out = linear(ctx, self.proj, self.dtype)
@@ -125,10 +148,12 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  dtype: torch.dtype, exact_gelu: bool = False,
                  attn_impl: str = "fused", mlp_impl: str = "dense",
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 softmax_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, dtype, attn_impl, lora_rank, lora_alpha)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl, lora_rank, lora_alpha,
+                              softmax_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, exact_gelu, lora_rank, lora_alpha)
         self.mlp_impl = mlp_impl
@@ -177,6 +202,7 @@ class ViTBackbone(nn.Module):
         mlp_impl: str = "dense",
         lora_rank: int = 0,
         lora_alpha: float = 16.0,
+        softmax_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.remat = remat
@@ -196,7 +222,7 @@ class ViTBackbone(nn.Module):
         )
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, dtype, exact_gelu, attn_impl, mlp_impl,
-                  lora_rank, lora_alpha)
+                  lora_rank, lora_alpha, softmax_dtype)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)

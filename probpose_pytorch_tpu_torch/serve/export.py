@@ -293,8 +293,6 @@ def _fit_shape(shapes, H: int, W: int) -> tuple[int, int]:
 def _check_exportable(predictor, what: str) -> None:
     if getattr(predictor, "mesh", None) is not None:
         raise _unported(f"{what} of a mesh predictor", 13)
-    if getattr(predictor, "quantize", None) is not None:
-        raise _unported(f"{what} of a quantized predictor", 12)
 
 
 # --------------------------------------------------------------------------

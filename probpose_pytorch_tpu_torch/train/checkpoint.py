@@ -122,11 +122,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState, metadata: dict | None = None) -> None:
+    def save(self, step: int, state: TrainState, force: bool = True,
+             metadata: dict | None = None) -> None:
         """Save `state` as checkpoint `step`, over any checkpoint of that
         step (a stale one from an earlier run in a reused directory would
         otherwise be restored), then remove the oldest until `keep` are
-        left."""
+        left. `force` is JAX's flag; the port always overwrites, so any
+        value writes."""
         self.wait()
         payload = _state_payload(state)
         if self.async_save:
@@ -186,11 +188,11 @@ class CheckpointManager:
         return torch.load(self.directory / str(step), map_location="cpu", weights_only=True,
                           mmap=mmap)
 
-    def restore(self, state: TrainState, step: int | None = None) -> TrainState:
-        """Load checkpoint `step` (default the latest) into the live `state`
-        on its devices, and return it."""
-        _load_payload(state, self.read(step))
-        return state
+    def restore(self, target_state: TrainState, step: int | None = None) -> TrainState:
+        """Load checkpoint `step` (default the latest) into the live
+        `target_state` on its devices, and return it."""
+        _load_payload(target_state, self.read(step))
+        return target_state
 
     def close(self) -> None:
         self.wait()

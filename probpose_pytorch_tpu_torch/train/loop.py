@@ -187,7 +187,7 @@ def load_teacher(cfg: TrainConfig, device: torch.device | str) -> torch.nn.Modul
             "distillation teacher geometry mismatch: teacher "
             f"img_size={tcfg.model.img_size} K={tcfg.model.num_keypoints} "
             f"vs student img_size={cfg.model.img_size} K={cfg.model.num_keypoints}")
-    teacher = build_model(tcfg.model, device, seed=tcfg.seed)
+    teacher = build_model(tcfg.model, device=device, seed=tcfg.seed)
     payload = CheckpointManager(ckpt_dir).read(mmap=True)
     params = payload["ema"] if d.ema_teacher and payload["ema"] is not None else payload["params"]
     teacher.load_state_dict({**params, **payload["buffers"]}, strict=True)
@@ -330,19 +330,21 @@ class Trainer:
     history: list[tuple[str, int, dict[str, float]]] = field(default_factory=list)
 
     @classmethod
-    def create(cls, cfg: TrainConfig, steps_per_epoch: int,
+    def create(cls, cfg: TrainConfig, steps_per_epoch: int, mesh: Any = None, *,
                device: torch.device | str = "cuda") -> "Trainer":
         """Weights drawn from `cfg.seed` (compat/from_jax.py loads a JAX
         run's state instead); the schedule spans steps_per_epoch * epochs;
         the optimizer is masked by `frozen_labels` and the teacher loaded
         by `load_teacher`. Runs on the card unless `device` asks for the
-        CPU."""
+        CPU. `mesh` sits in JAX's place; a mesh is not ported."""
+        if mesh is not None:
+            raise _unported("Trainer.create(mesh=...)", 13)
         device = resolve_device(device, "Trainer.create")
         if cfg.model_parallel > 1 or cfg.pipeline_parallel > 1 or cfg.shard_opt_state:
             raise _unported("model_parallel, pipeline_parallel and shard_opt_state", 13)
         if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
-        model = build_model(cfg.model, device, seed=cfg.seed)
+        model = build_model(cfg.model, device=device, seed=cfg.seed)
         encode_codec, fast_codec = build_codecs(cfg)
         loss_cls = SimCCLoss if cfg.model.head_type == "simcc" else ProbPoseLoss
         loss_fn = loss_cls(fast_codec, freeze_error=cfg.freeze_error, freeze_oks=cfg.freeze_oks)

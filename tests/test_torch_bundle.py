@@ -102,7 +102,7 @@ def _field_atol(frames, boxes, ids=None, frame_shape=(64, 64)):
         frames = frames[np.asarray(ids)]
     frames = np.ascontiguousarray(np.broadcast_to(frames, (len(boxes), H, W, 3)))
     crops = crop_resize(torch.from_numpy(frames), torch.from_numpy(np.array(boxes, np.float32)),
-                        MODEL["img_size"]).numpy()
+                        MODEL["img_size"], "bilinear_matmul").numpy()
     ref = np.asarray(jax_crop_resize(frames, np.asarray(boxes), MODEL["img_size"],
                                      "bilinear_matmul"))
     assert (np.abs(crops - ref) <= 2.0**-7 * np.abs(ref)).all()
@@ -325,12 +325,18 @@ def test_card_bundle_on_the_cpu_raises(bundle_env, tmp_path):
 
 
 def test_quantize_and_mesh_raise_their_items(bundle_env, tmp_path):
+    """A mesh predictor still raises citing ROADMAP item 13; a quantized
+    one exports (item 12 is ported), its program holding the int8
+    product."""
     _, _, live = bundle_env
-    for attr, item in (("quantize", 12), ("mesh", 13)):
-        pred = dataclasses.replace(live)
-        object.__setattr__(pred, attr, object())
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            export_predictor_bundle(pred, tmp_path / attr, buckets=(1,), frame_shape=(64, 64))
+    pred = dataclasses.replace(live)
+    object.__setattr__(pred, "mesh", object())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        export_predictor_bundle(pred, tmp_path / "mesh", buckets=(1,), frame_shape=(64, 64))
+    pred = dataclasses.replace(live, quantize="int8")
+    out = export_predictor_bundle(pred, tmp_path / "quantize", buckets=(1,), frame_shape=(64, 64),
+                                  indexed=False)
+    assert "aten._int_mm" in _graph(out / "fn_b1.pt2.gz")
 
 
 def test_portable_guard_and_platforms(tmp_path):
@@ -354,6 +360,78 @@ def test_portable_guard_and_platforms(tmp_path):
         with pytest.raises(ValueError, match="per-platform"):
             export_predictor_bundle(pred, tmp_path / impl, buckets=(2,), frame_shape=(64, 64),
                                     platforms=("cpu", "cuda"))
+
+
+def _graph(path: Path) -> str:
+    import gzip
+    import io
+
+    return str(torch.export.load(io.BytesIO(gzip.decompress(path.read_bytes()))).graph)
+
+
+QUANT_ALONE = """
+import sys
+import numpy as np
+from probpose_pytorch_tpu_torch.serve.export import ServingBundle
+d = np.load(sys.argv[1])
+for mode in ("int8", "int8_wo"):
+    b = ServingBundle.load(sys.argv[2] + "/" + mode, device="cpu")
+    np.savez(sys.argv[2] + "/" + mode + ".npz", **b(d["frames"], d["boxes"], d["ids"]))
+banned = ("models", "train", "detect.model", "codec", "codec_simcc", "inference")
+print(sorted(m for m in sys.modules if m.startswith("probpose_pytorch_tpu_torch.")
+             and m.split(".", 1)[1].startswith(banned)))
+"""
+
+
+@pytest.fixture(scope="module")
+def quant_env(bundle_env, tmp_path_factory):
+    """{mode: (live quantized predictor, bundle directory)}: buckets 1 and
+    4, indexed, 64 x 64 frames."""
+    root = tmp_path_factory.mktemp("quant")
+    live = bundle_env[2]
+    out = {}
+    for mode in ("int8", "int8_wo"):
+        pred = dataclasses.replace(live, quantize=mode)
+        out[mode] = pred, export_predictor_bundle(pred, root / mode, buckets=(1, 4),
+                                                  frame_shape=(64, 64))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_wo"])
+def test_quantized_bundle_matches_live(quant_env, mode):
+    """A quantized pose bundle: the int8 codes and float32 scales are stored
+    as weights, the program holds aten._int_mm (int8) or the bf16
+    dequantisation (int8_wo), and it equals the live quantized predictor at
+    each bucket, plain and indexed."""
+    pred, out = quant_env[mode]
+    weights = torch.load(out / "params.pt", weights_only=True)
+    codes = [k for k in weights if k.endswith(".weight_q")]
+    assert len(codes) == 4 and all(weights[k].dtype == torch.int8 for k in codes)
+    assert ("aten._int_mm" in _graph(out / "fn_b4_f.pt2.gz")) == (mode == "int8")
+    pb = ServingBundle.load(out, device="cpu")
+    rng = np.random.default_rng(20)
+    for b in (1, 4):
+        frames, boxes = _frames_boxes(rng, b)
+        _equal_live(pb(frames, boxes), pred(frames, boxes))
+    ids = rng.integers(0, 2, 4)
+    _equal_live(pb(frames[:2], boxes, ids), pred(frames[:2], boxes, ids))
+
+
+def test_quantized_bundles_serve_alone(quant_env, tmp_path):
+    """Both quantized bundles served by a fresh process that loads no model
+    code equal their live predictors."""
+    rng = np.random.default_rng(22)
+    frames, boxes = _frames_boxes(rng, 4)
+    ids = rng.integers(0, 2, 4)
+    np.savez(tmp_path / "in.npz", frames=frames[:2], boxes=boxes, ids=ids)
+    root = quant_env["int8"][1].parent
+    proc = subprocess.run([sys.executable, "-c", QUANT_ALONE, str(tmp_path / "in.npz"),
+                           str(root)], capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    for mode, (pred, _) in quant_env.items():
+        _equal_live(dict(np.load(root / f"{mode}.npz")), pred(frames[:2], boxes, ids))
 
 
 # --------------------------------------------------------------------------
@@ -615,6 +693,22 @@ def test_fused_bundle_matches_jax(fused_env, b):
                        frame_shape=(72, 80))
     _close_to_jax(flat(out), flat(ref), atol)
     _equal_live(out, live(frames))
+
+
+def test_fused_bundle_of_a_quantized_pose_predictor(fused_env, tmp_path):
+    """The fused program over a quantized pose predictor (JAX applies the
+    quantization inside its fused program): it exports, holds the int8
+    product, and equals the live fused predictor over the same quantized
+    pose stage."""
+    live = fused_env[0]
+    qlive = dataclasses.replace(live, pose=dataclasses.replace(live.pose, quantize="int8"))
+    out = export_fused_bundle(qlive, tmp_path / "q", frame_shapes=[(72, 80)], batches=(2,))
+    assert "aten._int_mm" in _graph(out / "fused_b2_h72w80.pt2.gz")
+    pb = FusedBundle.load(out, device="cpu")
+    frames = np.random.default_rng(30).integers(0, 256, (2, 72, 80, 3), dtype=np.uint8)
+    _equal_live(pb(frames), qlive(frames))
+    assert not np.array_equal(qlive(frames)["keypoints"],
+                              live(frames)["keypoints"])
 
 
 def test_fused_bundle_gates(fused_env, bu_env):

@@ -277,3 +277,27 @@ def test_resumed_run_equals_uninterrupted(tmp_path, mode):
     assert [s for p, s, _ in second.history if p == "training"] == [2, 3]
     assert ([m["loss"] for p, _, m in whole.history if p == "training"][2:]
             == [m["loss"] for p, _, m in second.history if p == "training"])
+
+
+def test_save_and_restore_bind_like_jax(tmp_path):
+    """JAX's CheckpointManager.save(step, state, force=True, metadata=None)
+    and restore(target_state, step=None): the same names in the same
+    places; `force` either way overwrites (the port always does)."""
+    import inspect
+
+    from probpose_pytorch_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+    for name in ("save", "restore"):
+        ours = inspect.signature(getattr(CheckpointManager, name)).parameters
+        theirs = inspect.signature(getattr(JaxManager, name)).parameters
+        assert list(ours) == list(theirs), name
+        assert [p.default for p in ours.values()] == [p.default for p in theirs.values()]
+    a = _trainer(tmp_path)
+    _steps(a, 1)
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save(1, a.state, False, {"k": 1})
+    mgr.save(1, a.state, force=True, metadata={"k": 2})
+    b = _trainer(tmp_path)
+    assert mgr.restore(target_state=b.state, step=1) is b.state
+    _assert_same(a, b)
+    assert mgr.read_metadata(1) == {"k": 2} and mgr.all_steps() == [1]

@@ -194,13 +194,23 @@ def test_export_round_trip_is_exact_and_matches_jax():
     """The port's model (a conv stage in the head) exported and imported
     back gives every tensor bit for bit, and the export equals the JAX
     package's export of the same weights."""
-    kw = dict(TINY_CFG, conv_out_channels=(8,), conv_kernel_sizes=(3,))
+    _export_round_trip(dict(TINY_CFG, conv_out_channels=(8,), conv_kernel_sizes=(3,)))
+
+
+def test_export_round_trip_takes_deconv_kernels_2_and_3():
+    """The same with deconv kernel sizes 2 and 3, whose weights flip as
+    k = 4's do."""
+    _export_round_trip(dict(TINY_CFG, deconv_kernel_sizes=(2, 3)))
+
+
+def _export_round_trip(kw):
     _, variables, pm = init_pair(kw)
     sd = pm.state_dict()
     trunk = torch_export.export_timm_vit_state_dict(sd)
     head = torch_export.export_head_state_dict(sd, prefix="head.")
     back = {**torch_import.import_timm_vit_state_dict(trunk, depth=2),
-            **torch_import.import_head_state_dict(head, num_deconv=2, num_conv=1,
+            **torch_import.import_head_state_dict(head, num_deconv=2,
+                                                   num_conv=len(kw.get("conv_out_channels", ())),
                                                    num_pool_stages=2, prefix="head.")}
     assert sorted(back) == sorted(sd)
     for k, v in sd.items():

@@ -291,7 +291,7 @@ def test_flagship_forward_kernels_vs_plain(cuda_device):
     """Full-width ViT-S forward in f32: kernel path against plain path, and
     12 K1 launches plus 1 K2 launch per forward."""
     cfg = ModelConfig(attn_impl="fused", compute_dtype="float32")
-    model = build_model(cfg, cuda_device)
+    model = build_model(cfg, device=cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.rand(4, 256, 192, 3, generator=g, device=cuda_device)
     a0, s0 = packed_attention.launches, sparsemax_rows.launches
@@ -316,7 +316,7 @@ def test_simcc_forward_kernels_vs_plain(cuda_device):
     the plain path (attention sums in another order)."""
     cfg = ModelConfig(attn_impl="fused", compute_dtype="float32", head_type="simcc",
                       pool_sizes=((4, 3), (2, 2), (2, 2)))
-    model = build_model(cfg, cuda_device)
+    model = build_model(cfg, device=cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.rand(4, 256, 192, 3, generator=g, device=cuda_device)
     f0, s0 = forward_launches(), sparsemax_rows.launches
@@ -358,7 +358,7 @@ def test_train_step_kernels_vs_plain(cuda_device):
         optim=dict(ema_decay=0.999, max_nonfinite_skips=5), epochs=10, resume=False))
     ds = SyntheticPoseDataset(8, (64, 48), 5)
     batch = next(iter(batch_iterator(ds, 8, num_workers=1)))
-    trainers = [Trainer.create(cfg, 1, cuda_device) for _ in range(2)]
+    trainers = [Trainer.create(cfg, 1, device=cuda_device) for _ in range(2)]
     for t in trainers:
         _peak_heatmap_branch(t.model)
     counts = (packed_attention.launches, packed_attention_backward.launches,
@@ -581,7 +581,7 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
     with attn_impl="pallas", 2 K6) launches per forward."""
     cfg = ModelConfig(backbone="vit-b", attn_impl=attn_impl, mlp_impl="fused",
                       compute_dtype="float32")
-    model = build_model(cfg, cuda_device)
+    model = build_model(cfg, device=cuda_device)
     del model.backbone.blocks[2:]
     g = torch.Generator(device=cuda_device).manual_seed(12)
     x = torch.rand(3, 256, 192, 3, generator=g, device=cuda_device)
@@ -970,7 +970,7 @@ def test_predictor_tta_kernels_vs_plain(cuda_device):
     from probpose_pytorch_tpu_torch.ops.heatmap import oks_conv
 
     cfg = ModelConfig(attn_impl="fused", compute_dtype="float32")
-    model = build_model(cfg, cuda_device, seed=3)
+    model = build_model(cfg, device=cuda_device, seed=3)
     _peak_heatmap_branch(model)
     codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
                           sigma=2.0))
@@ -1035,7 +1035,7 @@ def _small_trainers(cuda_device, **over):
                                      epochs=10, resume=False, **over))
     ds = SyntheticPoseDataset(8, (256, 192), 17)
     batch = next(iter(batch_iterator(ds, 8, num_workers=1)))
-    trainers = [Trainer.create(cfg, 1, cuda_device) for _ in range(2)]
+    trainers = [Trainer.create(cfg, 1, device=cuda_device) for _ in range(2)]
     for t in trainers:
         _peak_heatmap_branch(t.model)
     return trainers, batch
@@ -1180,7 +1180,7 @@ def _pose_predictor(device, dtype="float32"):
                       pool_sizes=((2, 2), (2, 2)))
     codec = Codec(ProbMap(input_size=(64, 48), heatmap_size=(12, 16),
                           sigmas=np.asarray(COCO_SIGMAS, np.float32), sigma=2.0))
-    model = build_model(cfg, "cpu", seed=3)
+    model = build_model(cfg, device="cpu", seed=3)
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():  # head kernels at fan-in scale: peaked, sparse maps
         for m in model.head.modules():
@@ -1313,7 +1313,7 @@ def test_card_bundle_holds_the_ops_and_matches_live(cuda_device, tmp_path):
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.serve.export import ServingBundle, export_predictor_bundle
 
-    model = build_model(ModelConfig(backbone="vit-nano", attn_impl="fused"), cuda_device, seed=2)
+    model = build_model(ModelConfig(backbone="vit-nano", attn_impl="fused"), device=cuda_device, seed=2)
     _peak_heatmap_branch(model)
     codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
                           sigma=2.0))
@@ -1357,7 +1357,7 @@ def test_portable_bundle_moves_to_the_card(cuda_device, tmp_path):
     from probpose_pytorch_tpu_torch.serve.export import ServingBundle, export_predictor_bundle
 
     cfg = ModelConfig(backbone="vit-nano", attn_impl="einsum", compute_dtype="float32")
-    model = build_model(cfg, "cpu", seed=2)
+    model = build_model(cfg, device="cpu", seed=2)
     _peak_heatmap_branch(model)
     codec = Codec(ProbMap((192, 256), (48, 64), sigmas=np.full(17, 0.05, np.float32),
                           sigma=2.0))
@@ -1382,3 +1382,120 @@ def test_portable_bundle_moves_to_the_card(cuda_device, tmp_path):
     cpu_only = export_predictor_bundle(live, tmp_path / "c", buckets=(2,), frame_shape=(320, 256))
     with pytest.raises(ValueError, match="not for 'cuda'"):
         ServingBundle.load(cpu_only)
+
+
+# --------------------------------------------------------------------------
+# int8 serving, the scale-and-translate crops, the head options
+
+
+VIT_WIDTHS = {"vit-s": (384, 1536), "vit-b": (768, 3072)}  # (C, mlp hidden)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", sorted(VIT_WIDTHS))
+@pytest.mark.parametrize("B", [1, 64])
+def test_int_mm_at_vit_shapes(cuda_device, backbone, B):
+    """torch._int_mm at the trunk's four products (M = B * 192 tokens), with
+    the weight stored (N, K) and passed transposed as QuantizedViT passes
+    it, equals the int32 product on the CPU; the codes and scales that
+    quantize_weight and dynamic_quantize_rows give on the card equal the
+    CPU's."""
+    from probpose_pytorch_tpu_torch.ops import quant
+
+    C, hidden = VIT_WIDTHS[backbone]
+    g = torch.Generator().manual_seed(B)
+    for K, N in ((C, 3 * C), (C, C), (C, hidden), (hidden, C)):
+        w = torch.randn(K, N, generator=g) * 0.05
+        x = torch.randn(B * 192, K, generator=g) * 3
+        q, s = quant.quantize_weight(w)
+        qd, sd = quant.quantize_weight(w.to(cuda_device))
+        assert torch.equal(qd.cpu(), q) and torch.equal(sd.cpu(), s)
+        xq, xs = quant.dynamic_quantize_rows(x)
+        xqd, xsd = quant.dynamic_quantize_rows(x.to(cuda_device))
+        assert torch.equal(xqd.cpu(), xq) and torch.equal(xsd.cpu(), xs)
+        stored = q.t().contiguous()
+        got = torch._int_mm(xqd, stored.to(cuda_device).t())
+        assert torch.equal(got.cpu(), torch._int_mm(xq, stored.t())), (K, N)
+    with pytest.raises(ValueError, match="more than 16 rows"):
+        quant.int8_matmul(torch.randn(16, C, device=cuda_device), qd, sd)
+
+
+def _gap_stats(a, b, codec):
+    """(heatmap correlation, well-defined share, largest keypoint gap there)
+    of two predictor outputs on the same crops."""
+    maps = torch.from_numpy(b["heatmaps"])
+    conv = oks_conv(maps, *codec.probmap.conv_operators("cpu")).flatten(2)
+    top2 = conv.topk(2, dim=-1).values
+    ok = ((top2[..., 0] - top2[..., 1]) > 1e-4).numpy()
+    gap = np.abs(a["keypoints"] - b["keypoints"]).max(-1)
+    corr = np.corrcoef(a["heatmaps"].ravel(), b["heatmaps"].ravel())[0, 1]
+    return corr, ok.mean(), gap[ok].max(initial=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8_wo"])
+def test_quantized_predictor_on_card_matches_cpu(cuda_device, mode):
+    """vit-nano (N = 12 tokens, B = 8: 96 rows) quantised on the card and on
+    the CPU from the same float32 weights: the same codes, one K2 launch
+    and no attention kernel a forward on the card, and the same keypoints
+    within 1e-2 px where the map is well defined (a two-block trunk: bf16
+    products summed in another order move few values)."""
+    import dataclasses
+
+    cpu = dataclasses.replace(_pose_predictor("cpu"), quantize=mode, return_heatmaps=True)
+    card = dataclasses.replace(_pose_predictor(cuda_device), quantize=mode,
+                               return_heatmaps=True)
+    for a, b in zip(card.model.backbone.buffers(), cpu.model.backbone.buffers()):
+        assert torch.equal(a.cpu(), b)
+    rng = np.random.default_rng(16)
+    frames = rng.integers(0, 256, (8, 96, 80, 3), dtype=np.uint8)
+    boxes = rng.uniform([0, 0, 40, 60], [30, 30, 70, 90], (8, 4)).astype(np.float32)
+    k1, k2 = short_forward.launches, sparsemax_rows.launches
+    got = card(frames, boxes)
+    assert (short_forward.launches - k1, sparsemax_rows.launches - k2) == (0, 1)
+    corr, share, gap = _gap_stats(got, cpu(frames, boxes), cpu.codec)
+    assert corr > 0.999 and share > 0.5 and gap <= 1e-2, (corr, share, gap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "cubic", "lanczos3"])
+def test_crop_methods_on_card_match_cpu(cuda_device, method):
+    """The scale-and-translate crops on the card, shrinking, enlarging and
+    partly off the frame, within 1e-5 of the CPU's: float32 products with
+    TF32 off (PyTorch's default, the module's stated requirement)."""
+    from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
+
+    rng = np.random.default_rng(17)
+    frames = rng.integers(0, 256, (4, 480, 640, 3), dtype=np.uint8)
+    boxes = np.array([[10, 20, 300, 400], [600, 400, 80, 120], [-50, -30, 200, 260],
+                      [100.5, 50.25, 64, 96]], np.float32)
+    ref = crop_resize(torch.from_numpy(frames), torch.from_numpy(boxes), (256, 192), method)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = crop_resize(torch.from_numpy(frames).to(cuda_device),
+                      torch.from_numpy(boxes).to(cuda_device), (256, 192), method)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_head_options_on_card_match_cpu(cuda_device):
+    """deconv_kernel_sizes (2, 3) and the einsum attention with a bf16
+    softmax (float32 compute): no attention kernel, 1 K2, and the CPU's
+    outputs within 1e-3: a float32 score one ulp off may round its bf16
+    probability the other way, a step of up to 2^-9."""
+    cfg = ModelConfig(img_size=(64, 48), num_keypoints=17, backbone="vit-nano",
+                      compute_dtype="float32", attn_impl="einsum", softmax_dtype="bfloat16",
+                      deconv_kernel_sizes=(2, 3), deconv_out_channels=(16, 16),
+                      pool_sizes=((2, 2), (2, 2)))
+    cpu = build_model(cfg, device="cpu", seed=4)
+    card = build_model(cfg, device=cuda_device, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(6, 64, 48, 3, generator=torch.Generator().manual_seed(5))
+    counts = (short_forward.launches, packed_attention.launches, sparsemax_rows.launches)
+    with torch.no_grad():
+        got = card(x.to(cuda_device))
+        want = cpu(x)
+    after = (short_forward.launches, packed_attention.launches, sparsemax_rows.launches)
+    assert tuple(b - a for a, b in zip(counts, after)) == (0, 0, 1)
+    assert got[0].shape == (6, 17, 16, 12)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, rtol=1e-3, atol=1e-3)

@@ -194,7 +194,7 @@ def _field_tol(frame, boxes, multiple=64):
                                (0, -frame.shape[1] % multiple), (0, 0)))
     frames = np.broadcast_to(frame, (len(boxes), *frame.shape))
     crops = crop_resize(torch.from_numpy(np.ascontiguousarray(frames)),
-                        torch.from_numpy(boxes), TINY_CFG["img_size"]).numpy()
+                        torch.from_numpy(boxes), TINY_CFG["img_size"], "bilinear_matmul").numpy()
     ref = np.asarray(jax_crop_resize(frames, boxes, TINY_CFG["img_size"], "bilinear_matmul"))
     assert (np.abs(crops - ref) <= 2.0**-7 * np.abs(ref)).all()
     assert (crops != ref).mean() < 0.02

@@ -234,13 +234,116 @@ def test_flagship_geometry_loads_strictly():
 @pytest.mark.parametrize("over,item", [
     (dict(pp_stages=2), "item 13"),
     (dict(attn_impl="fused_tp"), "item 13"),
-    (dict(deconv_kernel_sizes=(2, 4)), "item 4"),
-    (dict(deconv_kernel_sizes=(4, 3)), "item 4"),
-    (dict(attn_impl="einsum", softmax_dtype="bfloat16"), "item 4"),
+    (dict(deconv_kernel_sizes=(2, 4), mesh=True), "item 13"),
+    (dict(deconv_kernel_sizes=(4, 3), mesh=True), "item 13"),
+    (dict(attn_impl="einsum", softmax_dtype="bfloat16", pp_stages=2), "item 13"),
 ])
 def test_model_config_names_roadmap_item_for_unported(over, item):
     """Such a config loads (training configs carry it) and the model build
-    refuses it, naming the ROADMAP item."""
+    refuses it, naming the ROADMAP item: scale-out (item 13), a pipeline or
+    a mesh, still refuses with the head and attention options of item 4,
+    which build since."""
+    over = dict(over)
+    mesh = object() if over.pop("mesh", False) else None
     cfg = ModelConfig(**over)
     with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, device="cpu")
+        build_model(cfg, mesh, device="cpu")
+
+
+def test_build_model_and_trainer_create_bind_like_jax():
+    """JAX's build_model(cfg, mesh=None) and Trainer.create(cfg,
+    steps_per_epoch, mesh=None): `mesh` in its place, `device` and `seed`
+    keyword-only after it; a mesh raises citing item 13, by position or by
+    keyword."""
+    import inspect
+
+    from probpose_pytorch_tpu.train.loop import Trainer as JaxTrainer
+    from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
+
+    pairs = ((build_model, jax_model.build_model), (Trainer.create, JaxTrainer.create))
+    for ours, theirs in pairs:
+        ours = inspect.signature(ours).parameters
+        theirs = inspect.signature(theirs).parameters
+        n = len(theirs)
+        assert list(ours)[:n] == list(theirs)
+        assert all(ours[k].default == theirs[k].default for k in theirs)
+        assert all(p.kind is p.KEYWORD_ONLY for p in list(ours.values())[n:])
+    cfg = TrainConfig.from_dict(dict(model=dict(TINY_CFG)))
+    for call in (lambda: build_model(cfg.model, object(), device="cpu"),
+                 lambda: build_model(cfg.model, mesh=object(), device="cpu"),
+                 lambda: Trainer.create(cfg, 1, object(), device="cpu"),
+                 lambda: Trainer.create(cfg, 1, mesh=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            call()
+    with pytest.raises(TypeError):
+        build_model(cfg.model, None, "cpu")  # device is no longer positional
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("kernels", [(2, 3), (3, 2), (3, 4)])
+def test_deconv_kernel_sizes_match_jax(kernels, train):
+    """flax ConvTranspose(k, strides=2, padding="SAME") at k = 2 and 3, with
+    weights from compat/from_jax.py: eval mode against JAX's apply, train
+    mode (batch statistics and their running update) against JAX's
+    train=True apply; the model bar (rtol 1e-4, atol 1e-5)."""
+    kw = {**TINY_CFG, "deconv_kernel_sizes": kernels}
+    jm, variables, pm = init_pair(kw, seed=3)
+    x = _images(6)
+    pm.train(train)
+    if train:
+        ref, upd = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    else:
+        ref = jm.apply(variables, jnp.asarray(x), train=False)
+    out = pm(torch.from_numpy(x))
+    assert out[0].shape == (2, 5, 16, 12)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+    if train:
+        head = pm.head
+        for i in range(2):
+            stats = upd["batch_stats"]["head"][f"deconv_bn{i}"]
+            np.testing.assert_allclose(head.deconv_bns[i].running_mean.numpy(),
+                                       np.asarray(stats["mean"]), rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(head.deconv_bns[i].running_var.numpy(),
+                                       np.asarray(stats["var"]), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_einsum_bf16_softmax_trunk_matches_jax(compute):
+    """attn_impl="einsum" with softmax_dtype="bfloat16": the scores scaled
+    in float32, the softmax in bf16, then the compute dtype, in plain
+    PyTorch. Against JAX's trunk within bf16 bounds: the probabilities
+    round to bf16 (and XLA's bf16 softmax keeps excess precision where
+    PyTorch rounds once), so 2 * 2^-8 * max(1, max|ref|) with float32
+    compute, twice that with bf16 compute. The path is the einsum, not
+    kernel K1: the float32-softmax trunk on the same weights differs."""
+    kw = {**TINY_CFG, "attn_impl": "einsum", "softmax_dtype": "bfloat16",
+          "compute_dtype": compute}
+    jm, variables, pm = init_pair(kw, seed=4)
+    x = _images(7)
+    ref = np.asarray(jm.backbone.apply({"params": variables["params"]["backbone"]},
+                                       jnp.asarray(x)), np.float32)
+    with torch.no_grad():
+        out = pm.backbone(torch.from_numpy(x)).float().numpy()
+    bound = (2 if compute == "float32" else 4) * 2.0**-8 * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=bound)
+    f32 = build_model(ModelConfig(**{**kw, "softmax_dtype": "float32"}), device="cpu")
+    f32.load_state_dict(pm.state_dict())
+    with torch.no_grad():
+        assert not np.array_equal(f32.backbone(torch.from_numpy(x)).float().numpy(), out)
+
+
+def test_einsum_bf16_softmax_trains_with_remat():
+    """The bf16-softmax einsum attention under remat (each block under
+    torch.utils.checkpoint) gives the gradients of the same model without
+    remat, exactly."""
+    kw = {**TINY_CFG, "attn_impl": "einsum", "softmax_dtype": "bfloat16"}
+    grads = []
+    for remat in (False, True):
+        pm = build_model(ModelConfig(**kw, remat=remat), device="cpu", seed=5).train()
+        out = pm(torch.from_numpy(_images(8)))
+        sum(o.float().square().mean() for o in out).backward()
+        grads.append([p.grad.clone() for p in pm.backbone.parameters()])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert any(g.abs().sum() > 0 for g in grads[1])

@@ -80,6 +80,65 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+# The JAX names of the seven __init__ namespaces the port leaves out, and why.
+EXPORT_EXCLUSIONS = {
+    # renamed: the port's take and return PyTorch state dicts
+    ("models", "merge_lora_params"): "models.lora.merge_lora_state_dict",
+    ("compat", "import_head_params"): "compat.torch_import.import_head_state_dict",
+    ("compat", "import_timm_vit_params"): "compat.torch_import.import_timm_vit_state_dict",
+    # flax: init from an rng and a sample input; the port's
+    # TrainState(model, tx, ema) takes a built module
+    ("train", "create_train_state"): "train.state.TrainState",
+    # scale-out (ROADMAP item 13): stacked and head-major layouts
+    ("train", "layout_metadata"): "item 13",
+    ("train", "qkv_layout_of"): "item 13",
+    ("train", "restore_state_with_layout"): "item 13",
+    ("compat", "convert_qkv_layout"): "item 13",
+    ("compat", "convert_trunk_layout"): "item 13",
+    ("compat", "qkv_head_major_permutation"): "item 13",
+    ("compat", "qkv_to_head_major"): "item 13",
+    ("compat", "qkv_to_qkv_major"): "item 13",
+    ("compat", "stack_vit_blocks"): "item 13",
+    ("compat", "unstack_vit_blocks"): "item 13",
+}
+
+
+def _jax_init_names(sub: str) -> list[str]:
+    """The names a JAX package __init__ binds: its imports and assignments."""
+    path = REPO / "probpose_pytorch_tpu" / sub / "__init__.py"
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets]
+    return names
+
+
+@pytest.mark.parametrize("sub", ["", "models", "train", "data", "ops", "compat", "utils"])
+def test_port_exports_the_jax_names(sub):
+    """Every name of the JAX package's __init__ files is bound in the port's
+    counterpart, or is on EXPORT_EXCLUSIONS with the reason; the int8
+    primitives ride with ops."""
+    import importlib
+
+    port = importlib.import_module("probpose_pytorch_tpu_torch" + (f".{sub}" if sub else ""))
+    names = _jax_init_names(sub)
+    assert names
+    missing = [n for n in names if not hasattr(port, n)
+               and (sub or "pkg", n) not in EXPORT_EXCLUSIONS]
+    assert not missing, missing
+    stale = [n for (s, n) in EXPORT_EXCLUSIONS if s == sub and hasattr(port, n)]
+    assert not stale, stale
+    for n in getattr(port, "__all__", []):
+        assert hasattr(port, n), n
+    if sub == "ops":
+        assert {"quantize_weight", "dynamic_quantize_rows", "int8_matmul",
+                "weight_only_matmul"} <= set(port.__all__)
+    if sub == "":
+        assert port.__version__ == "0.1.0"
+
+
 # --------------------------------------------------------------------------
 # preprocess
 
@@ -90,7 +149,7 @@ def test_crop_resize_matches_jax():
     boxes = rng.uniform([-4, -4, 10, 15], [10, 12, 30, 40], (3, 4)).astype(np.float32)
     ref = np.asarray(jax_pre.crop_resize(jnp.asarray(frames), jnp.asarray(boxes),
                                          (32, 24), "bilinear_matmul"))
-    out = preprocess.crop_resize(_t(frames), _t(boxes), (32, 24)).numpy()
+    out = preprocess.crop_resize(_t(frames), _t(boxes), (32, 24), "bilinear_matmul").numpy()
     assert out.shape == ref.shape == (3, 32, 24, 3)
     # Both sides round weights, image and the row product to bf16 and sum in
     # f32; a different f32 summation order can move the intermediate across
@@ -100,8 +159,13 @@ def test_crop_resize_matches_jax():
 
 
 def test_crop_resize_rejects_other_methods():
-    with pytest.raises(NotImplementedError, match="bilinear_matmul"):
-        preprocess.crop_resize(torch.zeros(1, 8, 8, 3), torch.ones(1, 4), (4, 4), "linear")
+    """A method outside JAX's `Method` raises ValueError, as
+    jax.image.scale_and_translate does for an unknown method."""
+    for method in ("nearest", "bicubic_gather"):
+        with pytest.raises(ValueError, match=f"unknown crop_resize method '{method}'"):
+            preprocess.crop_resize(torch.zeros(1, 8, 8, 3), torch.ones(1, 4), (4, 4), method)
+        with pytest.raises(ValueError):
+            jax_pre.crop_resize(jnp.zeros((1, 8, 8, 3)), jnp.ones((1, 4)), (4, 4), method)
 
 
 def test_keypoint_maps_match_jax_and_invert():

@@ -99,11 +99,15 @@ def test_predictor_matches_jax(predictors, B, indexed):
 
 
 def test_predictor_refuses_unported_options(predictors):
+    """A mesh raises citing ROADMAP item 13; with a quantize mode, JAX's
+    ValueError comes first (quantized serving is single-device)."""
     _, port_pred = predictors
-    for kw, item in ((dict(quantize="int8"), 12), (dict(mesh=object()), 13)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            TopDownPredictor(model=port_pred.model, codec=port_pred.codec,
-                             input_size=(64, 48), **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TopDownPredictor(model=port_pred.model, codec=port_pred.codec, input_size=(64, 48),
+                         mesh=object())
+    with pytest.raises(ValueError, match="quantize='int8' is single-device only"):
+        TopDownPredictor(model=port_pred.model, codec=port_pred.codec, input_size=(64, 48),
+                         quantize="int8", mesh=object())
 
 
 def _pair(jm, variables, pm, **kw):
@@ -320,18 +324,42 @@ def test_load_predictor_signature_matches_jax():
         assert ours[name].default == p.default, name
 
 
-@pytest.mark.parametrize("args,kw,item", [
-    ((), dict(quantize="int8"), 12),
-    ((), dict(mesh=object()), 13),
-    ((None, False, "int8_wo"), {}, 12),
-    ((None, False, None, object()), {}, 13),
+@pytest.mark.parametrize("args,kw,error", [
+    ((), dict(quantize="int8", mesh=object()), ValueError),
+    ((), dict(mesh=object()), NotImplementedError),
+    ((None, False, "int8_wo", object()), {}, ValueError),
+    ((None, False, None, object()), {}, NotImplementedError),
 ])
-def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, item):
-    """quantize and mesh, by keyword or in their JAX places, raise naming
-    their ROADMAP item; a TypeError would mean a shifted signature."""
+def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, error):
+    """quantize and mesh, by keyword or in their JAX places: a mesh raises
+    citing ROADMAP item 13, and a quantize mode with a mesh raises JAX's
+    ValueError (single device) first; a TypeError would mean a shifted
+    signature."""
     _, port_dir = saved_runs
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    match = "ROADMAP item 13" if error is NotImplementedError else "single-device only"
+    with pytest.raises(error, match=match):
         load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("args,kw", [((), dict(quantize="int8")), ((None, True, "int8_wo"), {})])
+def test_load_predictor_quantizes(saved_runs, args, kw):
+    """load_predictor(quantize=...), by keyword or in JAX's place: the
+    predictor of the checkpoint (EMA with ema) with its trunk quantised,
+    equal to TopDownPredictor(quantize=...) over the float predictor's
+    model. tests/test_torch_quant.py holds the quantised predictor to
+    JAX's."""
+    _, port_dir = saved_runs
+    pred = load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+    mode = kw.get("quantize") or args[2]
+    assert pred.quantize == mode and type(pred.model.backbone).__name__ == "QuantizedViT"
+    assert pred.model.backbone.weight_only == (mode == "int8_wo")
+    plain = load_predictor(port_dir / "checkpoints", ema=bool(args and args[1]), device="cpu")
+    same = TopDownPredictor(model=plain.model, codec=plain.codec, input_size=plain.input_size,
+                            quantize=mode)
+    frames, boxes = _request(16, 3)
+    a, b = pred(frames, boxes), same(frames, boxes)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_load_predictor_positional_call_binds_like_jax(saved_runs):
@@ -401,9 +429,24 @@ def test_inference_cli_matches_jax(saved_runs, tmp_path, flags):
 
 @pytest.mark.parametrize("flag", ["--int8", "--int8-weight-only"])
 def test_inference_cli_refuses_int8(saved_runs, tmp_path, flag):
+    """--int8 and --int8-weight-only, refused until the int8 path was
+    ported, now serve: predictions.json is the quantised predictor's
+    answer on the whole image (JAX's keys), and the heatmap PNGs are
+    written."""
+    import PIL.Image
+
     from probpose_pytorch_tpu_torch.inference import main
 
     _, port_dir = saved_runs
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        main(["--checkpoint", str(port_dir / "checkpoints"), "--image", "x.png",
-              "--output", str(tmp_path), "--device", "cpu", flag])
+    image = np.random.default_rng(18).integers(0, 256, (80, 100, 3), dtype=np.uint8)
+    PIL.Image.fromarray(image).save(tmp_path / "img.png")
+    main(["--checkpoint", str(port_dir / "checkpoints"), "--image", str(tmp_path / "img.png"),
+          "--output", str(tmp_path / "out"), "--device", "cpu", flag])
+    got = json.loads((tmp_path / "out" / "predictions.json").read_text())
+    mode = "int8" if flag == "--int8" else "int8_wo"
+    pred = load_predictor(port_dir / "checkpoints", quantize=mode, device="cpu")
+    ref = pred(image[None], np.array([[0, 0, 100, 80]], np.float32))
+    assert sorted(got) == sorted(k for k in ref if k != "heatmaps")
+    for k, v in got.items():
+        np.testing.assert_array_equal(np.asarray(v, np.float32), ref[k], err_msg=k)
+    assert len(list((tmp_path / "out").glob("heatmap_*.png"))) == K
