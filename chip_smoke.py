@@ -280,6 +280,37 @@ with weights drawn from a seeded generator:
            shapes, each crop method's time and peak memory at 256 boxes
            against bilinear_matmul's, and the phase's wall time
 
+  phase 17 scale-out, part 1. 17a, one card: the flagship's weights
+           converted to head-major by compat.qkv_to_head_major and served
+           at B = 256 with attn_impl="fused_tp" (12 short K1 forwards read
+           the head-major layout, 1 K2), its heatmaps against the
+           qkv-major run of the same weights within K1's bf16 bound (they
+           are equal: only addresses move); one bf16 fused_tp step at B =
+           256 (12 short K1 forwards, 12 K4 backwards from the saved out
+           and lse); at 768 x 768 a fused_tp forward at B = 64 (12 K4
+           forwards) and a step at B = 32 (12 K4 each way); K1 forward and
+           backward at (256, 192, 1152) and K4 forward at (64, 2304, 1152)
+           and backward at (32, 2304, ·), head-major, against their plain
+           head-major versions and bit for bit against the qkv-major
+           kernels on the same numbers, timed in turns against the
+           qkv-major kernels (backwards from the saved out and lse), the
+           plain versions and SDPA on the head-major q, k, v views. 17b: two ranks of a
+           torch.distributed world spawned from this script
+           (`--phase17-rank`), each on cuda:(rank % device count); the
+           backend follows parallel/distributed.py's rule (gloo with both
+           ranks on one card: NCCL refuses two ranks on one GPU; gloo's
+           all-gathers of CUDA tensors go through host memory); an f32
+           step each of DDP (data = 2, global B = 256) and TP (model = 2,
+           fused_tp), two ZeRO-1 steps, and the data-parallel predictor at
+           B = 256, against the single process on the same card (losses to
+           1e-4, Adam's first moment per leaf to P17_MU_RTOL of its
+           largest entry, the max-routed scalar branches' normwise to
+           P17_ROUTED_RTOL, parameters to 1e-5 except where the gradient
+           is within the moment tolerance of zero and in the scalar
+           branches, there Adam's bound of 2 lr a step, keypoints within
+           KPT_TOL_PX); the backend, each rank's card, each step's ms and
+           the phase's seconds printed
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -306,8 +337,10 @@ the kernels (launches on the main paths and, as `eval_launches`, in phase
 as `frontend_launches`, summed over phase 12's runs, as
 `phase13_launches`, in each of phase 13's runs, as `phase14_launches`,
 in each of phase 14's counted runs, as `phase15_launches`, in each
-bundle call and bundle CLI run of phase 15, and as `phase16_launches`, in
-each counted run of phase 16; K4's entries carry its
+bundle call and bundle CLI run of phase 15, as `phase16_launches`, in
+each counted run of phase 16, and as `phase17_launches`, in each of
+phase 17's runs (rank 0's for 17b); the head-major entries are K1's and
+K4's numbers on that layout; K4's entries carry its
 numbers at the fieldsynth step's shape and K2's at its rows), error against the
 plain version, times, and the
 least time the card could take, `bound_ms`, from the H100 SXM's published
@@ -4966,6 +4999,527 @@ def phase16(torch, dev, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 17
+
+P17_SERVE_BATCH = 256
+P17_TRAIN_BATCH = 256
+P17_768_SERVE = 64
+P17_768_TRAIN = 32
+P17_WORLD = 2
+P17_DEADLINE_S = 400
+# The f32 steps of the two-rank world against the single process on the
+# same card (sums over other row splits and another GEMM tiling, TF32 off):
+# the loss to 1e-4; Adam's first moment, every leaf within P17_MU_RTOL of
+# its largest entry in the single process (the BatchNorm and LayerNorm
+# leaves are sums over every pixel of the batch that nearly cancel: their
+# rounding reads up to 2.4e-3 of the leaf's largest entry; a wrong shard
+# or a missing reduction moves a leaf by a large part of it); a leaf that
+# is all rounding noise (a convolution's bias before a train-mode
+# BatchNorm has no gradient), below P17_NOISE of the largest entry
+# anywhere, within P17_NOISE of that. The head's scalar branches
+# (P17_ROUTED) route their gradient through max-pool windows and a max
+# over the grid: where a window's two largest entries lie within the
+# convolution's rounding (cuDNN picks its algorithm by batch size), the
+# other entry takes a sample's whole share, so their first moments are
+# held normwise, within P17_ROUTED_RTOL of the leaf's norm, after the
+# first step (a second starts from parameters that may differ by Adam's
+# bound). The other leaves' moments are held after every step. Every
+# parameter within 1e-5, except where a step's gradient (read off the
+# first moments after each step) took another sign in the world than in
+# the single process, or lay within P17_FLIP_RTOL of the leaf's largest
+# entry of zero, and the scalar branches: Adam moves an element by lr
+# whatever its gradient's size, so those stay within two learning rates a
+# step, plus 1e-5.
+P17_LOSS_RTOL = 1e-4
+P17_MU_RTOL = 1e-2
+P17_NOISE = 1e-5
+P17_PARAM_ATOL = 1e-5
+P17_ROUTED = "head.branches."
+P17_ROUTED_RTOL = 5e-2
+P17_FLIP_RTOL = 1e-4
+
+
+def head_major_copy(torch, qkv, heads: int):
+    """The head-major packing of a qkv-major (B, N, 3C) tensor, a copy."""
+    B, N, C3 = qkv.shape
+    return qkv.reshape(B, N, 3, heads, -1).transpose(2, 3).reshape(B, N, C3).contiguous()
+
+
+def sdpa_views(torch, qkv, heads: int, layout: str):
+    """q, k, v (B, heads, N, d) views of a packed qkv in `layout` for
+    F.scaled_dot_product_attention, the yardstick (never called by the port)."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import split_qkv
+
+    return tuple(t.transpose(1, 2) for t in split_qkv(qkv, heads, layout))
+
+
+def phase17_kernel(torch, card: str, g, label: str, B: int, N: int, heads: int, backward: bool,
+                   tiled: bool) -> dict:
+    """One head-major kernel at (B, N, heads, d = 64) bf16: gated against its
+    plain head-major version, its bits equal to the qkv-major kernel's on
+    the same numbers, then timed in turns against the qkv-major kernel (a
+    backward from the forward's saved out and lse, as the step calls it),
+    and against the plain version and the library's attention on the
+    head-major q, k, v views."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        packed_attention,
+        packed_attention_backward,
+        packed_attention_bwd_reference,
+        packed_attention_reference,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        short_forward,
+        tiled_attention,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_reference,
+        tiled_forward,
+    )
+
+    dev = torch.device("cuda")
+    C = heads * 64
+    hm = "head_major"
+    qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+    hq = head_major_copy(torch, qkv, heads)
+    shape = f"qkv ({B}, {N}, {3 * C}) bf16 head-major"
+    if not backward:
+        fwd = tiled_attention if tiled else packed_attention
+        out = fwd(hq, heads, hm)
+        ref = (tiled_attention_reference(hq, heads, layout=hm) if tiled
+               else packed_attention_reference(hq, heads, hm))
+        err = gate(torch, f"{label} {shape}", out, ref, phase=17)
+        check(torch.equal(out, fwd(qkv, heads)), f"{label}: head-major bits differ")
+        del out, ref
+        kernel, qkv_major = lambda: fwd(hq, heads, hm), lambda: fwd(qkv, heads)
+        plain = ((lambda: tiled_attention_reference(hq, heads, layout=hm)) if tiled
+                 else (lambda: packed_attention_reference(hq, heads, hm)))
+        q, k, v = sdpa_views(torch, hq, heads, hm)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * C)
+    else:
+        fwd_lse = tiled_forward if tiled else short_forward
+        bwd = tiled_attention_backward if tiled else packed_attention_backward
+        dout = torch.randn(B, N, C, generator=g, device=dev).to(torch.bfloat16)
+        out_h, lse_h = fwd_lse(hq, heads, True, hm)
+        out_q, lse_q = fwd_lse(qkv, heads, True)
+        got = bwd(hq, dout, heads, out_h, lse_h, layout=hm)
+        ref = (tiled_attention_bwd_reference(hq, dout, heads, layout=hm) if tiled
+               else packed_attention_bwd_reference(hq, dout, heads, hm))
+        err = gate(torch, f"{label} {shape}", got, ref, phase=17)
+        check(torch.equal(got, head_major_copy(torch, bwd(qkv, dout, heads, out_q, lse_q),
+                                               heads)), f"{label}: head-major bits differ")
+        del got, ref
+        kernel = lambda: bwd(hq, dout, heads, out_h, lse_h, layout=hm)
+        qkv_major = lambda: bwd(qkv, dout, heads, out_q, lse_q)
+        plain = ((lambda: tiled_attention_bwd_reference(hq, dout, heads, layout=hm)) if tiled
+                 else (lambda: packed_attention_bwd_reference(hq, dout, heads, hm)))
+        q, k, v = (t.detach().requires_grad_(True) for t in sdpa_views(torch, hq, heads, hm))
+        ctx = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        do = dout.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(ctx, (q, k, v), do, retain_graph=True)
+        bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * C)
+    iters = 20 if tiled else 50
+    _, plain_ms = paired_ms(torch, kernel, plain, iters=3 if tiled else 10)
+    ms, qkv_major_ms = yardstick_ms(torch, kernel, qkv_major, iters=iters)
+    _, lib_ms = yardstick_ms(torch, kernel, lib, iters=iters)
+    say(f"phase 17 [{card}]: {label} {shape}: kernel {ms:.4f} ms against the qkv-major "
+        f"kernel's {qkv_major_ms:.4f} ms (in turns), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention on the q, k, v views {lib_ms:.4f} ms (medians of 3 "
+        f"windows, in turns), bound {bound[0]:.4f} ms ({bound[1]})")
+    return dict(err=err, ms=ms, qkv_major_ms=qkv_major_ms, plain_ms=plain_ms, bound=bound,
+                lib_ms=lib_ms)
+
+
+def phase17_flagship(torch, dev, card: str, g) -> tuple[dict, dict]:
+    """17a on one card: the flagship's weights converted to head-major by the
+    port's qkv_to_head_major, served and trained with attn_impl="fused_tp"
+    (K1 and K4 head-major, counted), the serving output against the
+    qkv-major run of the same weights; the same at 768 x 768 through K4;
+    then each head-major kernel against its plain version and timed.
+    Returns (launches by run, kernel numbers)."""
+    from probpose_pytorch_tpu_torch.compat.layouts import qkv_to_head_major
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+
+    launches = {}
+    tp = lambda cfg: dataclasses.replace(cfg, attn_impl="fused_tp")
+    cfg = train_config("bfloat16", P17_TRAIN_BATCH)
+    heads = 6
+    qm = build_model(cfg.model, device=dev, seed=0)
+    peak_heatmap_branch(torch, qm)
+    hm = build_model(tp(cfg.model), device=dev, seed=0)
+    hm.load_state_dict(qkv_to_head_major(qm.state_dict(), heads))
+    codec = make_codec(cfg.model)
+    frames, boxes = request(170, P17_SERVE_BATCH)
+    ref = TopDownPredictor(qm, codec, cfg.model.img_size, return_heatmaps=True)(frames, boxes)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = TopDownPredictor(hm, codec, cfg.model.img_size, return_heatmaps=True)(frames, boxes)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches["17a flagship serving"] = counts = read_counts()
+    check_attention_route(counts, 12, 0, phase=17)
+    check(counts["k2"] == 1, "K2 did not run once in the head-major forward")
+    bound = 2 * 2**-8 * max(1.0, float(np.abs(ref["heatmaps"]).max()))
+    err = float(np.abs(got["heatmaps"] - ref["heatmaps"]).max())
+    say(f"phase 17: fused_tp (head-major) serving at B={P17_SERVE_BATCH}: heatmaps against "
+        f"the qkv-major run of the same weights, max abs diff {err:.3e} (K1's bf16 bound "
+        f"{bound:.3e}); keypoints max diff "
+        f"{float(np.abs(got['keypoints'] - ref['keypoints']).max()):.3e} px; "
+        f"{serve_ms:.1f} ms from host numpy")
+    check(err <= bound, f"head-major serving differs from qkv-major by {err}")
+    del qm, hm, got, ref
+
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    H, W = cfg.model.img_size
+    ds = SyntheticPoseDataset(P17_TRAIN_BATCH, (H, W), cfg.model.num_keypoints, seed=0)
+    batch = next(iter(batch_iterator(ds, P17_TRAIN_BATCH, num_workers=8)))
+    trainer = Trainer.create(dataclasses.replace(cfg, model=tp(cfg.model)), 1, device=dev)
+    peak_heatmap_branch(torch, trainer.model)
+    db = trainer.device_batch(batch)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, m = trainer.train_step(trainer.state, db)
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches["17a flagship step"] = counts = read_counts()
+    say(f"phase 17: fused_tp bf16 train step at B={P17_TRAIN_BATCH}: loss {loss:.6f}, "
+        f"{step_ms:.1f} ms (first step)")
+    check(np.isfinite(loss), "the head-major step's loss is not finite")
+    check_attention_route(counts, 12, 12, phase=17)
+    del trainer, db
+
+    cfg768 = config_768("bfloat16", P17_768_TRAIN)
+    model = build_model(tp(cfg768.model), device=dev, seed=0)
+    x = torch.rand(P17_768_SERVE, *IMG_768, 3, generator=g, device=dev)
+    reset_counts()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    launches["17a 768 serving"] = counts = read_counts()
+    say(f"phase 17: fused_tp at 768 x 768, B={P17_768_SERVE}: K4 forward {counts['k4f']} "
+        "(expect 12), short forward and K1 CUDA cores 0")
+    check(counts["k4f"] == 12 and counts["k1s"] == counts["k1f"] == 0,
+          "the 768 x 768 head-major forward did not run K4 once per block")
+    check(all(torch.isfinite(o).all() for o in out), "768 x 768 head-major outputs not finite")
+    del model, out, x
+    trainer = Trainer.create(dataclasses.replace(cfg768, model=tp(cfg768.model)), 1, device=dev)
+    H, W = IMG_768
+    ds = SyntheticPoseDataset(P17_768_TRAIN, (H, W), cfg768.model.num_keypoints, seed=2)
+    db = trainer.device_batch(next(iter(batch_iterator(ds, P17_768_TRAIN, num_workers=8))))
+    reset_counts()
+    _, m = trainer.train_step(trainer.state, db)
+    check(np.isfinite(float(m["loss"])), "the 768 x 768 head-major step's loss is not finite")
+    launches["17a 768 step"] = counts = read_counts()
+    say(f"phase 17: fused_tp bf16 step at 768 x 768, B={P17_768_TRAIN}: K4 forward "
+        f"{counts['k4f']}, backward {counts['k4b']} (expect 12 each, "
+        f"{counts['k4b_recomputes']} recomputes)")
+    check(counts["k4f"] == counts["k4b"] == 12 and counts["k4b_recomputes"] == 0,
+          "the 768 x 768 head-major step did not run K4 once per block each way")
+    del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    numbers = dict(
+        k1f=phase17_kernel(torch, card, g, "K1 forward", P17_SERVE_BATCH, 192, heads,
+                           False, False),
+        k1b=phase17_kernel(torch, card, g, "K1 backward", P17_TRAIN_BATCH, 192, heads,
+                           True, False),
+        k4f=phase17_kernel(torch, card, g, "K4 forward", P17_768_SERVE, 2304, heads,
+                           False, True),
+        k4b=phase17_kernel(torch, card, g, "K4 backward", P17_768_TRAIN, 2304, heads,
+                           True, True))
+    return launches, numbers
+
+
+def phase17_scenarios():
+    """(name, model axis, TrainConfig overrides, steps) of 17b's steps: f32
+    flagship at the global batch, augmentation off; one step each, and a
+    second ZeRO-1 step (it reads the first's sharded moments). The TP
+    step's model axis is 2 (the flagship's 6 heads), its data axis the rest
+    of the world."""
+    return (("ddp", 1, {}, 1), ("tp", 2, dict(attn_impl="fused_tp"), 1),
+            ("zero1", 1, dict(shard_opt_state=True), 2))
+
+
+def phase17_whole(trainer) -> tuple[dict, dict]:
+    """(parameters, Adam's first moments) of the trainer's state, whole and
+    on the CPU, by name (collective on a mesh)."""
+    from probpose_pytorch_tpu_torch.train.checkpoint import _state_payload
+
+    payload = _state_payload(trainer.state)
+    opt = payload["opt_state"]
+    opt = opt.get("inner", opt)
+    return payload["params"], dict(zip(trainer.state.names, opt["mu"]))
+
+
+def phase17_tolerances(leaves: dict, rtol: float = P17_MU_RTOL) -> dict:
+    """Per leaf: `rtol` of its largest entry, or P17_NOISE of the largest
+    entry anywhere for a leaf that is all rounding noise (its largest
+    entry below that)."""
+    top = max(float(abs(a).max()) for a in leaves.values())
+    return {n: P17_NOISE * top if float(abs(a).max()) < P17_NOISE * top
+            else rtol * float(abs(a).max()) for n, a in leaves.items()}
+
+
+def phase17_grads(mus: list, b1: float) -> list:
+    """Each step's gradient, as numpy by name, from Adam's first moments
+    after each step: g = (mu - b1 mu') / (1 - b1)."""
+    out, prev = [], None
+    for mu in mus:
+        out.append({n: ((m - (0.0 if prev is None else b1 * prev[n])) / (1 - b1)).numpy()
+                    for n, m in mu.items()})
+        prev = mu
+    return out
+
+
+def phase17_config(over: dict):
+    cfg = train_config("float32", P17_TRAIN_BATCH)
+    attn = over.get("attn_impl")
+    if attn:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_impl=attn))
+    if over.get("shard_opt_state"):
+        cfg = dataclasses.replace(cfg, shard_opt_state=True)
+    return cfg
+
+
+def phase17_batch():
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+
+    cfg = phase17_config({})
+    ds = SyntheticPoseDataset(P17_TRAIN_BATCH, cfg.model.img_size, cfg.model.num_keypoints,
+                              seed=0)
+    return next(iter(batch_iterator(ds, P17_TRAIN_BATCH, num_workers=8)))
+
+
+def phase17_rank(rank: int, world: int, work: Path) -> None:
+    """One rank of 17b's world on cuda:(rank % device count): the world's
+    backend follows parallel/distributed.py's rule (gloo where ranks share a
+    card); the DDP, TP and ZeRO-1 steps and the data-parallel predictor;
+    every rank writes its numbers and rank 0 each scenario's whole
+    parameters and its first moments after each step."""
+    import torch
+
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(f"file://{work / 'rendezvous'}", world, rank, device="cuda")
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mine = dict(rank=rank, world=world, backend=dist.get_backend(), device=str(dev),
+                card=torch.cuda.get_device_name(dev))
+    batch = phase17_batch()
+    for name, mp, over, steps in phase17_scenarios():
+        mesh = make_mesh(world, mp)
+        trainer = Trainer.create(phase17_config(over), 1, mesh, device="cuda")
+        peak_heatmap_branch(torch, trainer.model)
+        db = trainer.device_batch(batch)
+        losses, ms, mus = [], [], []
+        reset_counts()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = trainer.train_step(trainer.state, db)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            params, mu = phase17_whole(trainer)
+            mus.append(mu)
+        mine[name] = dict(losses=losses, ms=ms, attn_impl=trainer.cfg.model.attn_impl,
+                          counts=read_counts(), split=len(trainer.model.tp_splits))
+        if rank == 0:
+            torch.save(dict(params=params, mus=mus), work / f"{name}.pt")
+        del trainer, db, params, mus
+        torch.cuda.empty_cache()
+    cfg = phase17_config({})
+    model = build_model(cfg.model, device=dev, seed=0)
+    peak_heatmap_branch(torch, model)
+    pred = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size,
+                            return_heatmaps=True, mesh=make_mesh(world, 1))
+    frames, boxes = request(171, P17_SERVE_BATCH)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pred(frames, boxes)
+    mine["predict"] = dict(ms=(time.perf_counter() - t0) * 1e3, counts=read_counts())
+    np.savez(work / f"predict{rank}.npz", **out)
+    (work / f"rank{rank}.json").write_text(json.dumps(mine))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase17_world(torch, dev, card: str) -> dict:
+    """17b: P17_WORLD ranks spawned from this script, each on
+    cuda:(rank % device count), held against the single process on the
+    same card (f32, TF32 off): the DDP (data = 2) and TP (model = 2,
+    "fused_tp") steps and two ZeRO-1 steps at the global batch (the loss,
+    Adam's first moment, the parameters), and the data-parallel predictor.
+    Returns rank 0's launches by run."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    work = RUN_DIR / "phase17"
+    work.mkdir(parents=True, exist_ok=True)
+    # The single process's steps and predictor first, then the world (both
+    # on one card at once would hold three f32 batches of 256).
+    batch = phase17_batch()
+    steps_of = {}  # one process per attention, as many steps as its scenarios take
+    for _, _, over, steps in phase17_scenarios():
+        attn = over.get("attn_impl")
+        steps_of[attn] = max(steps_of.get(attn, 0), steps)
+    runs = {}  # the state after each step
+    for attn, steps in steps_of.items():
+        trainer = Trainer.create(phase17_config(dict(attn_impl=attn)), 1, device=dev)
+        peak_heatmap_branch(torch, trainer.model)
+        db = trainer.device_batch(batch)
+        schedule = getattr(trainer.tx, "inner", trainer.tx).schedule
+        runs[attn] = []
+        for i in range(steps):
+            loss = float(trainer.train_step(trainer.state, db)[1]["loss"])
+            params, mu = phase17_whole(trainer)
+            runs[attn].append(dict(loss=loss, params=params, mu=mu,
+                                   lr=float(schedule(torch.tensor(i, device=dev)))))
+        del trainer, db
+    cfg = phase17_config({})
+    b1 = cfg.optim.b1
+    model = build_model(cfg.model, device=dev, seed=0)
+    peak_heatmap_branch(torch, model)
+    codec = make_codec(cfg.model)
+    frames, boxes = request(171, P17_SERVE_BATCH)
+    ref_pred = TopDownPredictor(model, codec, cfg.model.img_size, return_heatmaps=True)(
+        frames, boxes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    logs = [open(work / f"log{r}.txt", "w+") for r in range(P17_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--phase17-rank",
+                               str(r), str(P17_WORLD), str(work)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(P17_WORLD)]
+    deadline = time.monotonic() + P17_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            say(f"phase 17: rank {r} log:\n{text[-6000:]}")
+        check(p.returncode == 0, f"phase 17: rank {r} failed (exit {p.returncode})")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(P17_WORLD)]
+    say(f"phase 17 [{card}]: world of {P17_WORLD}, backend {ranks[0]['backend']}, cards "
+        + ", ".join(f"rank {r['rank']} {r['device']} ({r['card']})" for r in ranks))
+    expect = "nccl" if torch.cuda.device_count() >= P17_WORLD else "gloo"
+    check(ranks[0]["backend"] == expect, f"backend {ranks[0]['backend']}, the rule says {expect}")
+    launches = {}
+    for name, mp, over, steps in phase17_scenarios():
+        ref = runs[over.get("attn_impl")][:steps]
+        losses = [st["loss"] for st in ref]
+        got = torch.load(work / f"{name}.pt", weights_only=True)
+        for r in ranks:
+            say(f"phase 17: {name} rank {r['rank']}: losses {r[name]['losses']} against one "
+                f"process's {losses}, step ms {[round(t, 1) for t in r[name]['ms']]}, "
+                f"attention {r[name]['attn_impl']}, {r[name]['split']} split leaves")
+            check(np.allclose(r[name]["losses"], losses, rtol=P17_LOSS_RTOL, atol=0),
+                  f"phase 17: {name} rank {r['rank']}'s loss differs")
+        ratios, normwise = {}, {}
+        for k, (st, mu_got) in enumerate(zip(ref, got["mus"])):
+            tols = phase17_tolerances(st["mu"])
+            top = max(float(m.abs().max()) for m in st["mu"].values())
+            for n, m in st["mu"].items():
+                if n.startswith(P17_ROUTED) and float(m.abs().max()) >= P17_NOISE * top:
+                    if k == 0:  # later steps start from parameters Adam's bound lets differ
+                        normwise[n] = float((mu_got[n] - m).norm() / m.norm())
+                else:
+                    ratios[n] = max(ratios.get(n, 0.0),
+                                    float((mu_got[n] - m).abs().max()) / tols[n])
+        worst = sorted(ratios, key=ratios.get)[-3:][::-1]
+        worst_routed = sorted(normwise, key=normwise.get)[-3:][::-1]
+        say(f"phase 17: {name}: Adam's mu after each of {steps} step(s), the worst leaves "
+            + ", ".join(f"{n} {ratios[n]:.3e}" for n in worst)
+            + f" of their tolerance ({P17_MU_RTOL:g} of the leaf's largest entry, or "
+            f"{P17_NOISE:g} of the largest anywhere); the scalar branches' after the first "
+            + ", ".join(f"{n} {normwise[n]:.3e}" for n in worst_routed)
+            + f" normwise (tolerance {P17_ROUTED_RTOL:g})")
+        check(ratios[worst[0]] <= 1.0 and normwise[worst_routed[0]] <= P17_ROUTED_RTOL,
+              f"phase 17: {name}'s first moments differ")
+        # where a step's gradient took another sign, or lay within
+        # P17_FLIP_RTOL of zero, Adam's update may differ by 2 lr
+        flips = {}
+        for g_ref, g_got in zip(phase17_grads([st["mu"] for st in ref], b1),
+                                phase17_grads(got["mus"], b1)):
+            for n, tol in phase17_tolerances(g_ref, P17_FLIP_RTOL).items():
+                flips[n] = (flips.get(n, False) | (np.abs(g_ref[n]) <= tol)
+                            | (np.sign(g_ref[n]) != np.sign(g_got[n])) | n.startswith(P17_ROUTED))
+        bound = 2 * sum(st["lr"] for st in ref) + P17_PARAM_ATOL
+        worst = worst_flip = 0.0
+        for n, p in ref[-1]["params"].items():
+            d = (got["params"][n] - p).abs().numpy()
+            worst = max(worst, float(d[~flips[n]].max(initial=0.0)))
+            worst_flip = max(worst_flip, float(d[flips[n]].max(initial=0.0)))
+        n_flip = sum(int(m.sum()) for m in flips.values())
+        n_all = sum(m.size for m in flips.values())
+        say(f"phase 17: {name}: parameters after {steps} step(s) max abs diff {worst:.3e} "
+            f"(bound {P17_PARAM_ATOL:g}); {n_flip} of {n_all} elements in the scalar branches "
+            f"or where a gradient took another sign or lay near zero {worst_flip:.3e} "
+            f"(bound {bound:.3e})")
+        check(worst <= P17_PARAM_ATOL and worst_flip <= bound,
+              f"phase 17: {name}'s parameters differ by {worst} ({worst_flip} where Adam's "
+              "update may take the other sign)")
+        launches[f"17b {name} rank 0"] = ranks[0][name]["counts"]
+    check(ranks[0]["tp"]["attn_impl"] == "fused_tp" and ranks[0]["tp"]["split"] == 72,
+          "phase 17: the TP step did not split the 12 blocks' six Megatron leaves")
+    tp = ranks[0]["tp"]["counts"]
+    tp_steps = next(n for name, _, _, n in phase17_scenarios() if name == "tp")
+    check(tp["k1f"] == tp["k1b"] == 12 * tp_steps,
+          "phase 17: the f32 TP step did not run K1 head-major once per block each way")
+    sel = well_defined(torch, codec, ref_pred["heatmaps"], dev)
+    for r in ranks:
+        got = dict(np.load(work / f"predict{r['rank']}.npz"))
+        kerr = float(np.abs(got["keypoints"] - ref_pred["keypoints"])[sel].max(initial=0.0))
+        perr = float(np.abs(got["probabilities"] - ref_pred["probabilities"]).max())
+        say(f"phase 17: data-parallel predictor rank {r['rank']}, B={P17_SERVE_BATCH}: "
+            f"{r['predict']['ms']:.1f} ms; keypoint max diff {kerr:.3e} px over "
+            f"{int(sel.sum())} well-defined (tolerance {KPT_TOL_PX:g}), probability "
+            f"{perr:.3e} ({PROB_TOL:g})")
+        check(kerr <= KPT_TOL_PX and perr <= PROB_TOL,
+              f"phase 17: rank {r['rank']}'s predictions differ")
+    launches["17b predict rank 0"] = ranks[0]["predict"]["counts"]
+    return launches
+
+
+def phase17(torch, dev, card: str, g) -> tuple[dict, dict]:
+    """Phase 17: the head-major layout on one card (17a), then a two-rank
+    world (17b). Returns (launches by run, head-major kernel numbers)."""
+    t_phase = time.perf_counter()
+    launches, numbers = phase17_flagship(torch, dev, card, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_world = time.perf_counter()
+    launches.update(phase17_world(torch, dev, card))
+    say(f"phase 17: 17b in {time.perf_counter() - t_world:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return launches, numbers
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -5086,6 +5640,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false; this smoke "
                          "run needs an NVIDIA GPU")
+    if sys.argv[1:2] == ["--phase17-rank"]:  # one rank of phase 17's world
+        phase17_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return
     if "--attention-times" in sys.argv[1:]:
         attention_times(torch, card_line())
         return
@@ -5101,7 +5658,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 16, then the kernels line and the result line."""
+    """Phases 0 to 17, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -5349,6 +5906,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     int8_16 = phase16(torch, dev, card)
 
+    # --------------------------------------------------------------- phase 17
+    gc.collect()
+    torch.cuda.empty_cache()
+    world17, hm17 = phase17(torch, dev, card, g)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -5415,13 +5977,37 @@ def run(torch) -> None:
                      serve_b["k6_bound"], serve_b["k6_lib_ms"],
                      design="wgmma+TMA, sm90 short"),
     ]
+    # The head-major layout of attn_impl="fused_tp" (phase 17): the same
+    # kernels reading q, k and v at a head stride of 3d; launches on the
+    # fused_tp main paths (the flagship step, the 768 x 768 step), the
+    # library's time on the head-major q, k, v views.
+    for label, key, cu, replaces, run_key, counter in (
+            ("K1 packed_attention forward", "k1f", tiled_cu, "attention_kernel.py:120",
+             "17a flagship step", "k1s"),
+            ("K1 packed_attention backward", "k1b", tiled_cu, "attention_kernel.py:146",
+             "17a flagship step", "k4b"),
+            ("K4 tiled_attention forward", "k4f", tiled_cu, "attention_tiled.py:119",
+             "17a 768 step", "k4f"),
+            ("K4 tiled_attention backward", "k4b", tiled_cu, "attention_tiled.py:147",
+             "17a 768 step", "k4b")):
+        n = hm17[key]
+        kernels.append(kernel_entry(
+            f"{label}, head-major", "cuda", cu, replaces, world17[run_key][counter], n["err"],
+            n["ms"], n["plain_ms"], n["bound"], n["lib_ms"], design="wgmma+TMA",
+            layout="head_major", qkv_major_ms=n["qkv_major_ms"]))
     # Phase 10's launches (the three eval runs) beside each kernel's.
     eval_counter = {"K1 packed_attention forward": "k1s", "K1 packed_attention backward": "k4b",
                     "K2 sparsemax": "k2", "K3 expected_value_decode_fused": "k3",
                     "K4 tiled_attention forward": "k4f", "K4 tiled_attention backward": "k4b",
                     "K5 fused_ln_mlp forward": "k5f", "K5 fused_ln_mlp backward": "k5b",
                     "K6 fused_attention": "k6"}
+    for name in list(eval_counter):
+        eval_counter[f"{name}, head-major"] = eval_counter[name]
     for entry in kernels:
+        entry["phase17_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in world17.items()}
+        if entry.get("layout") == "head_major":
+            continue  # no earlier phase runs the head-major layout
         entry["eval_launches"] = evals[eval_counter[entry["name"]]]
         entry["finetune_launches"] = {run: c[eval_counter[entry["name"]]]
                                       for run, c in finetune.items()}

@@ -178,8 +178,7 @@ def state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, np.ndarray
         if "blocks" in params["backbone"]:
             raise NotImplementedError(
                 "stacked pipeline-parallel trunk params are not ported (ROADMAP "
-                "item 13); unstack them with the JAX package's "
-                "compat.unstack_vit_blocks first"
+                "item 13b); unstack them with compat.unstack_vit_blocks first"
             )
         _backbone(sd, params["backbone"])
         _head(sd, params["head"], batch_stats["head"])

@@ -15,7 +15,10 @@
 //   ctx[b, :, h*d:(h+1)*d] = round_T(softmax_f32(q k^T * scale)) v
 // where q, k and v are column slices of the (B, N, 3C) projection in the
 // qkv-major order `Dense(3C)` + `reshape(B, N, 3, H, d)` gives: q at column
-// h*d, k at C + h*d, v at 2C + h*d. Scores and softmax are f32; the scale is
+// h*d, k at C + h*d, v at 2C + h*d; or, in the head-major layout of
+// attn_impl="fused_tp" (JAX's `_qkv_offsets`), q at 3d*h, k at 3d*h + d, v at
+// 3d*h + 2d, so a tensor-parallel rank's column slice holds whole heads.
+// Scores and softmax are f32; the scale is
 // applied after the q.k product and P is rounded to the input type before
 // P.V, as the TPU kernel does. The context is written h-major into (B, N, C):
 // no (B, H, N, N) matrix and no transpose ever reaches device memory.
@@ -230,7 +233,7 @@ template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
     packed_attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                                    T* __restrict__ dqkv, float* __restrict__ stats,
-                                   int N, int C, int H, int d, float scale) {
+                                   int N, int C, int H, int d, int ts, int hs, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ks = k_stride<T>(d);
   T* k_s = reinterpret_cast<T*>(smem);
@@ -253,8 +256,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     const int j = i / d;
     const int c = i - j * d;
     const T* row = base + j * C3;
-    k_s[j * ks + c] = row[C + h * d + c];
-    v_s[j * d + c] = row[2 * C + h * d + c];
+    k_s[j * ks + c] = row[ts + h * hs + c];
+    v_s[j * d + c] = row[2 * ts + h * hs + c];
   }
   __syncthreads();
 
@@ -264,7 +267,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int row_end = min(row0 + kRowsPerBlock, N);
   for (int n = row0 + warp; n < row_end; n += kBwdWarps) {
     for (int c = lane; c < d; c += 32) {
-      q_w[c] = to_float(base[n * C3 + h * d + c]);
+      q_w[c] = to_float(base[n * C3 + h * hs + c]);
       o_w[c] = to_float(obase[n * C + h * d + c]);
     }
     __syncwarp();
@@ -306,7 +309,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int c = lane; c < d; c += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(p_w[j], to_float(k_s[j * ks + c]), acc);
-      gbase[n * C3 + h * d + c] = from_float<T>(acc);
+      gbase[n * C3 + h * hs + c] = from_float<T>(acc);
     }
     __syncwarp();
   }
@@ -317,7 +320,7 @@ template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
     packed_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                                     T* __restrict__ dqkv, const float* __restrict__ stats,
-                                    int N, int C, int H, int d, float scale) {
+                                    int N, int C, int H, int d, int ts, int hs, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ks = k_stride<T>(d);
   T* q_s = reinterpret_cast<T*>(smem);
@@ -339,7 +342,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int i = threadIdx.x; i < N * d; i += kBwdThreads) {
     const int j = i / d;
     const int c = i - j * d;
-    q_s[j * ks + c] = base[j * C3 + h * d + c];
+    q_s[j * ks + c] = base[j * C3 + h * hs + c];
     o_s[j * d + c] = obase[j * C + h * d + c];
   }
   __syncthreads();
@@ -350,8 +353,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int row_end = min(row0 + kRowsPerBlock, N);
   for (int j = row0 + warp; j < row_end; j += kBwdWarps) {
     for (int c = lane; c < d; c += 32) {
-      k_w[c] = to_float(base[j * C3 + C + h * d + c]);
-      v_w[c] = to_float(base[j * C3 + 2 * C + h * d + c]);
+      k_w[c] = to_float(base[j * C3 + ts + h * hs + c]);
+      v_w[c] = to_float(base[j * C3 + 2 * ts + h * hs + c]);
     }
     __syncwarp();
     for (int i = lane; i < N; i += 32) {
@@ -372,8 +375,8 @@ __global__ void __launch_bounds__(kBwdThreads)
         dv = fmaf(pb_w[i], to_float(o_s[i * d + c]), dv);
         dk = fmaf(ds_w[i], to_float(q_s[i * ks + c]), dk);
       }
-      gbase[j * C3 + C + h * d + c] = from_float<T>(dk);
-      gbase[j * C3 + 2 * C + h * d + c] = from_float<T>(dv);
+      gbase[j * C3 + ts + h * hs + c] = from_float<T>(dk);
+      gbase[j * C3 + 2 * ts + h * hs + c] = from_float<T>(dv);
     }
     __syncwarp();
   }
@@ -381,8 +384,11 @@ __global__ void __launch_bounds__(kBwdThreads)
 
 template <typename T>
 int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int B,
-               int N, int C, int heads, cudaStream_t stream) {
+               int N, int C, int heads, bool head_major, cudaStream_t stream) {
   const int d = C / heads;
+  // Column of (t, h, c), t in {q, k, v}: t * ts + h * hs + c.
+  const int ts = head_major ? d : C;
+  const int hs = head_major ? 3 * d : d;
   const size_t smem = bwd_smem_bytes<T>(N, d);
   cudaError_t err = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -398,11 +404,11 @@ int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int 
   const T* o = static_cast<const T*>(dout);
   T* g = static_cast<T*>(dqkv);
   packed_attention_bwd_dq_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
-      q, o, g, stats, N, C, heads, d, scale);
+      q, o, g, stats, N, C, heads, d, ts, hs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   packed_attention_bwd_dkv_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
-      q, o, g, stats, N, C, heads, d, scale);
+      q, o, g, stats, N, C, heads, d, ts, hs, scale);
   return cudaGetLastError();
 }
 
@@ -438,14 +444,18 @@ size_t element_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
-// K1: q, k and v are column slices of the packed (B, N, 3C) qkv.
+// K1: q, k and v are column slices of the packed (B, N, 3C) qkv, in the
+// qkv-major layout ([q | k | v], heads within each) or, with head_major, in
+// the head-major one ([h0 (q | k | v) | h1 (q | k | v) | ...]); only the
+// head stride and the k and v offsets differ.
 extern "C" int packed_attention_fwd(const void* qkv, void* out, int B, int N,
-                                    int C, int heads, int dtype, int device,
+                                    int C, int heads, int head_major, int dtype, int device,
                                     void* stream) {
   const auto* base = static_cast<const unsigned char*>(qkv);
   const size_t row = 3 * static_cast<size_t>(C);
-  const Strides st{N * row, row, static_cast<size_t>(C / heads)};
-  const size_t col = static_cast<size_t>(C) * element_size(dtype);
+  const size_t d = static_cast<size_t>(C / heads);
+  const Strides st{N * row, row, head_major ? 3 * d : d};
+  const size_t col = (head_major ? d : static_cast<size_t>(C)) * element_size(dtype);
   return attention_fwd(base, base + col, base + 2 * col, st, out, B, N, C, heads, dtype,
                        device, stream);
 }
@@ -471,17 +481,19 @@ extern "C" long long packed_attention_bwd_smem_bytes(int N, int d, int dtype) {
 }
 
 // qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out, all of one
-// dtype; stats is (3, B, heads, N) float32 scratch.
+// dtype, qkv and dqkv in one layout (head_major as in packed_attention_fwd);
+// stats is (3, B, heads, N) float32 scratch.
 extern "C" int packed_attention_bwd(const void* qkv, const void* dout, void* dqkv,
                                     void* stats, int B, int N, int C, int heads,
-                                    int dtype, int device, void* stream) {
+                                    int head_major, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   const int d = C / heads;
-  if (dtype == 0) return launch_bwd<float>(qkv, dout, dqkv, st, B, N, C, heads, s);
+  if (dtype == 0)
+    return launch_bwd<float>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
   return cudaErrorInvalidValue;
 }

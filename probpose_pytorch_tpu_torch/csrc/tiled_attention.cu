@@ -15,7 +15,8 @@
 //
 // What it computes, per (batch b, head h), as K1 does (csrc/packed_attention.cu):
 //   ctx[b, :, h*d:(h+1)*d] = softmax_f32(q k^T * scale) v
-// with q, k, v the column slices of the qkv-major (B, N, 3C) projection and
+// with q, k, v the column slices of the qkv-major or head-major (B, N, 3C)
+// projection (the layout changes only the head stride and k and v offsets) and
 // the context written h-major into (B, N, C). The softmax is exact over the
 // whole key axis: p = exp(s - max) / sum in f32. bf16 inputs are widened to
 // f32 as they are staged; P and dS are rounded to bf16 before the products
@@ -201,7 +202,7 @@ struct Mma {
 template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
     tiled_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C,
-                     float scale) {
+                     int ts, int hs, float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -216,7 +217,7 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * hs;
   stage<D>(q_s, base, C3, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
@@ -235,7 +236,7 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   // Sweep 1: row max and sum of exponentials over every key tile.
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();  // the previous tile is no longer read
-    stage<D>(k_s, base + C, C3, key0, kTile, N);
+    stage<D>(k_s, base + ts, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -259,8 +260,8 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   o.zero();
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<D>(k_s, base + C, C3, key0, kTile, N);
-    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + ts, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * ts, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -288,7 +289,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
     tiled_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                         T* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
-                        int H, float scale) {
+                        int H, int ts, int hs, float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -304,9 +305,9 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * hs;
   const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * hs;
   stage<D>(q_s, base, C3, row0, G::rows, N);
   stage<D>(o_s, obase, C, row0, G::rows, N);
 
@@ -329,8 +330,8 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   // Sweep 1: m, l and u = sum dP exp(s - m), rescaled together.
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<D>(k_s, base + C, C3, key0, kTile, N);
-    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + ts, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * ts, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);   // S = Q K^T
@@ -373,8 +374,8 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   dq.zero();
   for (int key0 = 0; key0 < N; key0 += kTile) {
     __syncthreads();
-    stage<D>(k_s, base + C, C3, key0, kTile, N);
-    stage<D>(v_s, base + 2 * C, C3, key0, kTile, N);
+    stage<D>(k_s, base + ts, C3, key0, kTile, N);
+    stage<D>(v_s, base + 2 * ts, C3, key0, kTile, N);
     __syncthreads();
     if (!active) continue;
     M::abt(q_w, k_s, s_w);
@@ -405,7 +406,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(Geo<D>::threads)
     tiled_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                          T* __restrict__ dqkv, const float* __restrict__ stats, int N,
-                         int C, int H, float scale) {
+                         int C, int H, int ts, int hs, float scale) {
   using G = Geo<D>;
   using M = Mma<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -424,11 +425,11 @@ __global__ void __launch_bounds__(Geo<D>::threads)
   const int b = blockIdx.z;
   const int row0 = static_cast<int>(blockIdx.x) * G::rows;  // first key row
   const size_t C3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * D;
+  const T* base = qkv + static_cast<size_t>(b) * N * C3 + h * hs;
   const T* obase = dout + static_cast<size_t>(b) * N * C + h * D;
-  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * D;
-  stage<D>(k_s, base + C, C3, row0, G::rows, N);
-  stage<D>(v_s, base + 2 * C, C3, row0, G::rows, N);
+  T* gbase = dqkv + static_cast<size_t>(b) * N * C3 + h * hs;
+  stage<D>(k_s, base + ts, C3, row0, G::rows, N);
+  stage<D>(v_s, base + 2 * ts, C3, row0, G::rows, N);
 
   const int r0 = warp * kWarpRows;
   const bool active = row0 + r0 < N;
@@ -482,15 +483,15 @@ __global__ void __launch_bounds__(Geo<D>::threads)
     __syncwarp();
   }
   if (active) {
-    dv.store(gbase + 2 * C, C3, row0 + r0, N);
-    dk.store(gbase + C, C3, row0 + r0, N);
+    dv.store(gbase + 2 * ts, C3, row0 + r0, N);
+    dk.store(gbase + ts, C3, row0 + r0, N);
   }
 }
 
 // ------------------------------------------------------------------ launch
 
 template <typename T, int D>
-int launch_fwd(const void* qkv, void* out, int B, int N, int C, int heads,
+int launch_fwd(const void* qkv, void* out, int B, int N, int C, int heads, bool head_major,
                cudaStream_t stream) {
   using G = Geo<D>;
   cudaError_t err = cudaFuncSetAttribute(tiled_fwd_kernel<T, D>,
@@ -500,13 +501,14 @@ int launch_fwd(const void* qkv, void* out, int B, int N, int C, int heads,
   const dim3 grid((N + G::rows - 1) / G::rows, heads, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   tiled_fwd_kernel<T, D><<<grid, G::threads, G::fwd_smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, scale);
+      static_cast<const T*>(qkv), static_cast<T*>(out), N, C, head_major ? D : C,
+      head_major ? 3 * D : D, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int B, int N,
-               int C, int heads, cudaStream_t stream) {
+               int C, int heads, bool head_major, cudaStream_t stream) {
   using G = Geo<D>;
   cudaError_t err = cudaFuncSetAttribute(tiled_bwd_dq_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -521,12 +523,14 @@ int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* stats, int 
   const T* q = static_cast<const T*>(qkv);
   const T* o = static_cast<const T*>(dout);
   T* g = static_cast<T*>(dqkv);
+  const int ts = head_major ? D : C, hs = head_major ? 3 * D : D;
   tiled_bwd_dq_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N, C,
-                                                                          heads, scale);
+                                                                          heads, ts, hs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tiled_bwd_dkv_kernel<T, D><<<grid, G::threads, G::bwd_smem, stream>>>(q, o, g, stats, N,
-                                                                           C, heads, scale);
+                                                                           C, heads, ts, hs,
+                                                                           scale);
   return cudaGetLastError();
 }
 
@@ -553,43 +557,46 @@ extern "C" long long tiled_attention_smem_bytes(int d, int backward) {
   }
 }
 
-// qkv (B, N, 3C) qkv-major in -> context (B, N, C) out.
+// qkv (B, N, 3C) qkv-major, or head-major with head_major (column of
+// (t, h, c): t * d + h * 3d + c; csrc/packed_attention.cu), in -> context
+// (B, N, C) out.
 extern "C" int tiled_attention_fwd(const void* qkv, void* out, int B, int N, int C,
-                                   int heads, int dtype, int device, void* stream) {
+                                   int heads, int head_major, int dtype, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = C / heads;
   if (dtype == 1)
-    return d == 80 ? launch_fwd<__nv_bfloat16, 80>(qkv, out, B, N, C, heads, s)
+    return d == 80 ? launch_fwd<__nv_bfloat16, 80>(qkv, out, B, N, C, heads, head_major, s)
                    : cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch_fwd<float, 32>(qkv, out, B, N, C, heads, s);
-    case 64: return launch_fwd<float, 64>(qkv, out, B, N, C, heads, s);
-    case 80: return launch_fwd<float, 80>(qkv, out, B, N, C, heads, s);
-    case 128: return launch_fwd<float, 128>(qkv, out, B, N, C, heads, s);
+    case 32: return launch_fwd<float, 32>(qkv, out, B, N, C, heads, head_major, s);
+    case 64: return launch_fwd<float, 64>(qkv, out, B, N, C, heads, head_major, s);
+    case 80: return launch_fwd<float, 80>(qkv, out, B, N, C, heads, head_major, s);
+    case 128: return launch_fwd<float, 128>(qkv, out, B, N, C, heads, head_major, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out; stats is
-// (3, B, heads, N) f32 scratch.
+// qkv (B, N, 3C) and dout (B, N, C) in -> dqkv (B, N, 3C) out, qkv and dqkv
+// in one layout; stats is (3, B, heads, N) f32 scratch.
 extern "C" int tiled_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
-                                   int B, int N, int C, int heads, int dtype, int device,
-                                   void* stream) {
+                                   int B, int N, int C, int heads, int head_major, int dtype,
+                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   const int d = C / heads;
   if (dtype == 1)
-    return d == 80 ? launch_bwd<__nv_bfloat16, 80>(qkv, dout, dqkv, st, B, N, C, heads, s)
+    return d == 80 ? launch_bwd<__nv_bfloat16, 80>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s)
                    : cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch_bwd<float, 32>(qkv, dout, dqkv, st, B, N, C, heads, s);
-    case 64: return launch_bwd<float, 64>(qkv, dout, dqkv, st, B, N, C, heads, s);
-    case 80: return launch_bwd<float, 80>(qkv, dout, dqkv, st, B, N, C, heads, s);
-    case 128: return launch_bwd<float, 128>(qkv, dout, dqkv, st, B, N, C, heads, s);
+    case 32: return launch_bwd<float, 32>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
+    case 64: return launch_bwd<float, 64>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
+    case 80: return launch_bwd<float, 80>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
+    case 128: return launch_bwd<float, 128>(qkv, dout, dqkv, st, B, N, C, heads, head_major, s);
     default: return cudaErrorInvalidValue;
   }
 }

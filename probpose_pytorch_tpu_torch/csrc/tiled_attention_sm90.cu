@@ -140,7 +140,7 @@ struct Dkv {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out,
-               float* __restrict__ lse, int N, int C, int H, float scale) {
+               float* __restrict__ lse, int N, int C, int H, int ts, int hs, float scale) {
   using L = Fwd<D>;
   extern __shared__ unsigned char smem[];
   const uint32_t base = aligned_base(smem);
@@ -169,14 +169,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_bar, L::kQ);
-      tma_tile<D>(q_s, &qkv_map, q_bar, h * D, row0, b, kBlockRows);
+      tma_tile<D>(q_s, &qkv_map, q_bar, h * hs, row0, b, kBlockRows);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
         const uint32_t k_s = kv_s + s * 2 * L::kKV;
         mbar_expect_tx(full + 8 * s, 2 * L::kKV);
-        tma_tile<D>(k_s, &qkv_map, full + 8 * s, C + h * D, j * kBlockRows, b, kBlockRows);
-        tma_tile<D>(k_s + L::kKV, &qkv_map, full + 8 * s, 2 * C + h * D, j * kBlockRows, b,
+        tma_tile<D>(k_s, &qkv_map, full + 8 * s, ts + h * hs, j * kBlockRows, b, kBlockRows);
+        tma_tile<D>(k_s + L::kKV, &qkv_map, full + 8 * s, 2 * ts + h * hs, j * kBlockRows, b,
                     kBlockRows);
       }
     }
@@ -302,15 +302,16 @@ struct Short {
 // K6's: the score row of every query stays in registers, so the softmax is
 // exact and single-pass, and P is normalised and rounded to bf16 before
 // P.V, the TPU kernel's order (plain twin: packed_attention_reference).
-// Head h of q, k and v is columns col + h * D of their maps (K1: one packed
-// qkv, col 0, C, 2C; K6: three (B, N, heads, d) views, col 0). Writes the
+// Head h of q, k and v is columns col + h * hs of their maps (K1: one packed
+// qkv, col 0, C, 2C and hs = D qkv-major, col 0, D, 2D and hs = 3D
+// head-major; K6: three (B, N, heads, d) views, col 0, hs = D). Writes the
 // row log-sum-exp when lse is not null.
 template <int D, int NT>
 __global__ void __launch_bounds__(128)
     short_fwd_kernel(const __grid_constant__ CUtensorMap q_map,  // boxes of 64 rows
                      const __grid_constant__ CUtensorMap k_map,  // boxes of 64 NT rows
                      const __grid_constant__ CUtensorMap v_map,  // boxes of 64 NT rows
-                     int q_col, int k_col, int v_col, bf16* __restrict__ out,
+                     int q_col, int k_col, int v_col, int hs, bf16* __restrict__ out,
                      float* __restrict__ lse, int N, int C, int H, float scale) {
   using L = Short<D, NT>;
   extern __shared__ unsigned char smem[];
@@ -331,9 +332,9 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar, L::kQ + 2 * L::kKV);
-    tma_tile<D>(q_s, &q_map, bar, q_col + h * D, row0, b, 64);
-    tma_tile<D>(k_s, &k_map, bar, k_col + h * D, 0, b, L::kKeys);
-    tma_tile<D>(v_s, &v_map, bar, v_col + h * D, 0, b, L::kKeys);
+    tma_tile<D>(q_s, &q_map, bar, q_col + h * hs, row0, b, 64);
+    tma_tile<D>(k_s, &k_map, bar, k_col + h * hs, 0, b, L::kKeys);
+    tma_tile<D>(v_s, &v_map, bar, v_col + h * hs, 0, b, L::kKeys);
   }
   const int g = (tid % 32) / 4;
   const int t = tid % 4;
@@ -430,7 +431,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const __grid_constant__ CUtensorMap do_map,  // dout, boxes of 128 rows
                   const bf16* __restrict__ out, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ dsum,
-                  bf16* __restrict__ dqkv, int N, int C, int H, float scale, int exact_d) {
+                  bf16* __restrict__ dqkv, int N, int C, int H, int ts, int hs, float scale,
+                  int exact_d) {
   using L = Dq<D>;
   extern __shared__ unsigned char smem[];
   const uint32_t base = aligned_base(smem);
@@ -463,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_bar, 2 * L::kQ);
-      tma_tile<D>(q_s, &q_map, q_bar, h * D, row0, b, kBlockRows);
+      tma_tile<D>(q_s, &q_map, q_bar, h * hs, row0, b, kBlockRows);
       tma_tile<D>(do_s, &do_map, q_bar, h * D, row0, b, kBlockRows);
       // exact_d: every K/V tile twice, once for D and once for dQ
       const int n_loads = exact_d ? 2 * n_tiles : n_tiles;
@@ -473,8 +475,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t k_s = kv_s + s * 2 * L::kKV;
         const int key0 = (j % n_tiles) * kTileRows;
         mbar_expect_tx(full + 8 * s, 2 * L::kKV);
-        tma_tile<D>(k_s, &kv_map, full + 8 * s, C + h * D, key0, b, kTileRows);
-        tma_tile<D>(k_s + L::kKV, &kv_map, full + 8 * s, 2 * C + h * D, key0, b, kTileRows);
+        tma_tile<D>(k_s, &kv_map, full + 8 * s, ts + h * hs, key0, b, kTileRows);
+        tma_tile<D>(k_s + L::kKV, &kv_map, full + 8 * s, 2 * ts + h * hs, key0, b, kTileRows);
       }
     }
   } else {
@@ -618,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const int na = row0 + ra, nb = na + 8;
-    bf16* gq = dqkv + static_cast<size_t>(b) * N * C3 + h * D + 2 * t;
+    bf16* gq = dqkv + static_cast<size_t>(b) * N * C3 + h * hs + 2 * t;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
       if (na < N)
@@ -639,7 +641,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap q_map,   // qkv, boxes of 64 rows
                    const __grid_constant__ CUtensorMap do_map,  // dout, boxes of 64 rows
                    const float* __restrict__ lse, const float* __restrict__ dsum,
-                   bf16* __restrict__ dqkv, int N, int C, int H, float scale) {
+                   bf16* __restrict__ dqkv, int N, int C, int H, int ts, int hs, float scale) {
   using L = Dkv<D>;
   extern __shared__ unsigned char smem[];
   const uint32_t base = aligned_base(smem);
@@ -674,8 +676,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
         mbar_expect_tx(kv_bar, 2 * L::kKV);
-        tma_tile<D>(k_s, &kv_map, kv_bar, C + h * D, key0, b, kBlockRows);
-        tma_tile<D>(v_s, &kv_map, kv_bar, 2 * C + h * D, key0, b, kBlockRows);
+        tma_tile<D>(k_s, &kv_map, kv_bar, ts + h * hs, key0, b, kBlockRows);
+        tma_tile<D>(v_s, &kv_map, kv_bar, 2 * ts + h * hs, key0, b, kBlockRows);
       }
       const size_t row = (static_cast<size_t>(b) * H + h) * N;
       for (int j = 0; j < n_tiles; ++j) {
@@ -690,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           const uint32_t q_s = qd_s + s * 2 * L::kQ;
           mbar_expect_tx(full + 8 * s, 2 * L::kQ);
-          tma_tile<D>(q_s, &q_map, full + 8 * s, h * D, j * kTileRows, b, kTileRows);
+          tma_tile<D>(q_s, &q_map, full + 8 * s, h * hs, j * kTileRows, b, kTileRows);
           tma_tile<D>(q_s + L::kQ, &do_map, full + 8 * s, h * D, j * kTileRows, b, kTileRows);
         } else {
           mbar_arrive(full + 8 * s);
@@ -763,19 +765,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const int na = key0 + wg * 64 + (tid / 32) * 16 + g, nb = na + 8;
-    bf16* gk = dqkv + static_cast<size_t>(b) * N * C3 + C + h * D + 2 * t;
+    bf16* gk = dqkv + static_cast<size_t>(b) * N * C3 + ts + h * hs + 2 * t;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn) {
       if (na < N) {
         *reinterpret_cast<__nv_bfloat162*>(gk + na * C3 + 8 * jn) =
             __floats2bfloat162_rn(dk[4 * jn], dk[4 * jn + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(gk + C + na * C3 + 8 * jn) =
+        *reinterpret_cast<__nv_bfloat162*>(gk + ts + na * C3 + 8 * jn) =
             __floats2bfloat162_rn(dv[4 * jn], dv[4 * jn + 1]);
       }
       if (nb < N) {
         *reinterpret_cast<__nv_bfloat162*>(gk + nb * C3 + 8 * jn) =
             __floats2bfloat162_rn(dk[4 * jn + 2], dk[4 * jn + 3]);
-        *reinterpret_cast<__nv_bfloat162*>(gk + C + nb * C3 + 8 * jn) =
+        *reinterpret_cast<__nv_bfloat162*>(gk + ts + nb * C3 + 8 * jn) =
             __floats2bfloat162_rn(dv[4 * jn + 2], dv[4 * jn + 3]);
       }
     }
@@ -786,22 +788,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 int launch_fwd(const void* qkv, void* out, float* lse, int B, int N, int C, int H,
-               cudaStream_t stream) {
+               bool head_major, cudaStream_t stream) {
   CUtensorMap map;
   int err = make_map<D>(&map, qkv, 3 * C, N, B, kBlockRows);
   if (err == cudaSuccess) err = allow_smem(fwd_kernel<D>, Fwd<D>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
   fwd_kernel<D><<<grid, kThreads, Fwd<D>::kSmem, stream>>>(
-      map, static_cast<bf16*>(out), lse, N, C, H, 1.0f / sqrtf(static_cast<float>(D)));
+      map, static_cast<bf16*>(out), lse, N, C, H, head_major ? D : C, head_major ? 3 * D : D,
+      1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
-// q, k and v: (B, N, heads * D) bf16 column ranges with element strides
-// (batch, row) and unit stride along the columns; head h at column col + h D.
+// q, k and v: (B, N, width) bf16 column ranges with element strides
+// (batch, row) and unit stride along the columns; head h at column
+// col + h * head_stride.
 struct ShortArgs {
   const void *q, *k, *v;
-  int q_col, k_col, v_col, width;
+  int q_col, k_col, v_col, width, head_stride;
   long long batch, row;
 };
 
@@ -816,7 +820,8 @@ int launch_short(const ShortArgs& a, void* out, float* lse, int B, int N, int C,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + 63) / 64, H, B);
   short_fwd_kernel<D, NT><<<grid, 128, Short<D, NT>::kSmem, stream>>>(
-      q_map, k_map, v_map, a.q_col, a.k_col, a.v_col, static_cast<bf16*>(out), lse, N, C, H,
+      q_map, k_map, v_map, a.q_col, a.k_col, a.v_col, a.head_stride, static_cast<bf16*>(out),
+      lse, N, C, H,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -843,8 +848,8 @@ int launch_short_any(const ShortArgs& a, void* out, float* lse, int B, int N, in
 
 template <int D>
 int launch_bwd(const void* qkv, const void* out, const void* dout, const float* lse,
-               float* dsum, void* dqkv, int B, int N, int C, int H, int exact_d,
-               cudaStream_t stream) {
+               float* dsum, void* dqkv, int B, int N, int C, int H, bool head_major,
+               int exact_d, cudaStream_t stream) {
   CUtensorMap qkv128, qkv64, do128, do64;
   int err = make_map<D>(&qkv128, qkv, 3 * C, N, B, kBlockRows);
   if (err == cudaSuccess) err = make_map<D>(&qkv64, qkv, 3 * C, N, B, kTileRows);
@@ -856,13 +861,14 @@ int launch_bwd(const void* qkv, const void* out, const void* dout, const float* 
   const dim3 grid((N + kBlockRows - 1) / kBlockRows, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   bf16* g = static_cast<bf16*>(dqkv);
+  const int ts = head_major ? D : C, hs = head_major ? 3 * D : D;
   bwd_dq_kernel<D><<<grid, kThreads, Dq<D>::kSmem, stream>>>(
       qkv128, qkv64, do128, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse,
-      dsum, g, N, C, H, scale, exact_d);
+      dsum, g, N, C, H, ts, hs, scale, exact_d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkv_kernel<D><<<grid, kThreads, Dkv<D>::kSmem, stream>>>(qkv128, qkv64, do64, lse, dsum,
-                                                               g, N, C, H, scale);
+                                                               g, N, C, H, ts, hs, scale);
   return cudaGetLastError();
 }
 
@@ -892,15 +898,18 @@ extern "C" long long short_attention_sm90_smem_bytes(int d, int N) {
   }
 }
 
-// Short-sequence forward, 1 <= N <= 256: bf16 qkv (B, N, 3C) qkv-major in ->
+// Short-sequence forward, 1 <= N <= 256: bf16 qkv (B, N, 3C) qkv-major, or
+// head-major with head_major (column of (t, h, c): t * d + h * 3d + c), in ->
 // context (B, N, C) out and, unless lse is null, the row log-sum-exp
 // (B, heads, N) f32.
 extern "C" int short_attention_sm90_fwd(const void* qkv, void* out, void* lse, int B, int N,
-                                        int C, int heads, int device, void* stream) {
+                                        int C, int heads, int head_major, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long row = 3LL * C;
-  const ShortArgs a{qkv, qkv, qkv, 0, C, 2 * C, 3 * C, row * N, row};
+  const int d = C / heads, ts = head_major ? d : C;
+  const ShortArgs a{qkv, qkv, qkv, 0, ts, 2 * ts, 3 * C, head_major ? 3 * d : d, row * N, row};
   return launch_short_any(a, out, static_cast<float*>(lse), B, N, C, heads,
                           static_cast<cudaStream_t>(stream));
 }
@@ -915,44 +924,53 @@ extern "C" int flat_short_attention_sm90_fwd(const void* q, const void* k, const
                                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const ShortArgs a{q, k, v, 0, 0, 0, heads * d, batch_stride, row_stride};
+  const ShortArgs a{q, k, v, 0, 0, 0, heads * d, d, batch_stride, row_stride};
   return launch_short_any(a, out, nullptr, B, N, heads * d, heads,
                           static_cast<cudaStream_t>(stream));
 }
 
-// bf16 qkv (B, N, 3C) qkv-major in -> context (B, N, C) out and, unless lse
-// is null, the row log-sum-exp (B, heads, N) f32.
+// bf16 qkv (B, N, 3C) qkv-major, or head-major with head_major, in ->
+// context (B, N, C) out and, unless lse is null, the row log-sum-exp
+// (B, heads, N) f32.
 extern "C" int tiled_attention_sm90_fwd(const void* qkv, void* out, void* lse, int B, int N,
-                                        int C, int heads, int device, void* stream) {
+                                        int C, int heads, int head_major, int device,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (C / heads) {
-    case 32: return launch_fwd<32>(qkv, out, l, B, N, C, heads, s);
-    case 64: return launch_fwd<64>(qkv, out, l, B, N, C, heads, s);
-    case 128: return launch_fwd<128>(qkv, out, l, B, N, C, heads, s);
+    case 32: return launch_fwd<32>(qkv, out, l, B, N, C, heads, head_major, s);
+    case 64: return launch_fwd<64>(qkv, out, l, B, N, C, heads, head_major, s);
+    case 128: return launch_fwd<128>(qkv, out, l, B, N, C, heads, head_major, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// bf16 qkv (B, N, 3C), the forward's context out and its lse, and dout
-// (B, N, C) in -> dqkv (B, N, 3C) out; dsum is (B, heads, N) f32 scratch
+// bf16 qkv (B, N, 3C) (head-major with head_major), the forward's context out
+// and its lse, and dout (B, N, C) in -> dqkv (B, N, 3C) out, in qkv's layout;
+// dsum is (B, heads, N) f32 scratch
 // for D: rowsum(dP * P) over the unrounded P (the TPU's order) when exact_d,
 // else rowsum(dout * out), which reads out instead of sweeping the keys twice.
 extern "C" int tiled_attention_sm90_bwd(const void* qkv, const void* out, const void* dout,
                                         const void* lse, void* dsum, void* dqkv, int B, int N,
-                                        int C, int heads, int exact_d, int device,
-                                        void* stream) {
+                                        int C, int heads, int head_major, int exact_d,
+                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
   switch (C / heads) {
-    case 32: return launch_bwd<32>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
-    case 64: return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
-    case 128: return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, exact_d, s);
+    case 32:
+      return launch_bwd<32>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,
+                             exact_d, s);
+    case 64:
+      return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,
+                             exact_d, s);
+    case 128:
+      return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,
+                             exact_d, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -77,12 +77,18 @@ def batch_iterator(
     drop_last: bool = True,
     num_workers: int = 4,
     epoch: int = 0,
+    process_index: int | None = None,
+    process_count: int | None = None,
 ) -> Iterator[dict[str, np.ndarray]]:
     """Yield collated numpy batches. Datasets with `get_batch(indices)`
     (CachedCropDataset, the COCO and YOLO loaders) are read a batch at a
     time; other samples load in a thread pool. Shuffling draws the
     permutation from the (seed, epoch) generator, as the JAX iterator does.
-    Its multi-host slicing is not ported (ROADMAP item 13)."""
+
+    Several processes: with (process_index, process_count) `batch_size`
+    stays the global batch, every process draws the same permutation and
+    yields its contiguous slice of each global batch (on a mesh: the data
+    coordinate and the data axis's size, train/loop.py `local_batches`)."""
     idx = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng((seed, epoch)).shuffle(idx)
@@ -90,6 +96,15 @@ def batch_iterator(
     groups = [idx[i : i + batch_size] for i in range(0, ends, batch_size)]
     if not drop_last and ends < len(idx):
         groups.append(idx[ends:])
+    if process_count is not None and process_count > 1:
+        if process_index is None:
+            raise ValueError("process_index required with process_count")
+        if batch_size % process_count != 0:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"process_count {process_count}")
+        local = batch_size // process_count
+        groups = [g[process_index * local:(process_index + 1) * local] for g in groups
+                  if len(g) == batch_size]  # a ragged tail does not split evenly
     if hasattr(dataset, "get_batch"):
         for g in groups:
             yield dataset.get_batch(g)

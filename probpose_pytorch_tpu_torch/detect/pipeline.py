@@ -24,6 +24,9 @@ from probpose_pytorch_tpu_torch.data.coco import COCO_SIGMAS, expand_bbox, parse
 from probpose_pytorch_tpu_torch.detect.codec import decode_boxes, decode_poses
 from probpose_pytorch_tpu_torch.detect.model import PersonDetector
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
+from probpose_pytorch_tpu_torch.parallel.collectives import all_gather_cat
+from probpose_pytorch_tpu_torch.parallel.mesh import mesh_shape
+from probpose_pytorch_tpu_torch.parallel.sharding import shard_batch
 
 __all__ = [
     "DetectorPredictor",
@@ -34,10 +37,6 @@ __all__ = [
     "evaluate_detector_topdown",
     "evaluate_bottomup",
 ]
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
 def full_frame_boxes(frames: torch.Tensor) -> torch.Tensor:
@@ -71,12 +70,25 @@ def _download(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 class _FramePredictor:
     """What both predictors share: the model in eval mode on its device,
-    and frames uploaded to it."""
+    frames uploaded to it and the model's maps of them. On a `mesh` (JAX's
+    `_device_frames`, detect/pipeline.py:38-52 there) every rank is called
+    with the same frames, pads them with zero frames to a multiple of the
+    data axis, runs its rows and gathers the maps over the data axis before
+    the one decode; the weights are whole on every rank."""
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise _unported(f"{type(self).__name__}(mesh=...)", 13)
         self.model.eval()
+
+    def _maps(self, frames: torch.Tensor):
+        """(the model's maps of every frame, Wf / Wd, Hf / Hd)."""
+        if self.mesh is None:
+            return _forward(self.model, frames)
+        n, dp = frames.shape[0], mesh_shape(self.mesh)["data"]
+        if n % dp:
+            frames = torch.cat([frames, frames.new_zeros((dp - n % dp, *frames.shape[1:]))])
+        pred, sx, sy = _forward(self.model, shard_batch(frames, self.mesh))
+        group = self.mesh.get_group("data")
+        return {k: all_gather_cat(v, group)[:n] for k, v in pred.items()}, sx, sy
 
     @property
     def device(self) -> torch.device:
@@ -95,14 +107,14 @@ class DetectorPredictor(_FramePredictor):
     model: PersonDetector
     score_threshold: float = 0.3
     max_detections: int = 64
-    mesh: Any = None  # ROADMAP item 13
+    mesh: Any = None  # data-parallel serving (_FramePredictor)
 
     @torch.inference_mode()
     def predict(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """frames (B, Hf, Wf, 3) uint8 already on the model's device ->
         (boxes (B, k, 4), scores (B, k)) there, frame pixels,
         score-descending, unthresholded; no host synchronisation."""
-        pred, sx, sy = _forward(self.model, frames)
+        pred, sx, sy = self._maps(frames)
         boxes, scores = decode_boxes(pred["center"], pred["size"], pred["offset"],
                                      k=self.max_detections, stride=self.model.out_stride)
         return scale_xy(boxes, sx, sy), scores
@@ -132,14 +144,14 @@ class BottomUpPredictor(_FramePredictor):
     model: PersonDetector
     score_threshold: float = 0.3
     max_detections: int = 32
-    mesh: Any = None  # ROADMAP item 13
+    mesh: Any = None  # data-parallel serving (_FramePredictor)
 
     @torch.inference_mode()
     def predict(self, frames: torch.Tensor) -> dict[str, torch.Tensor]:
         """frames on the model's device -> dict of boxes (B, k, 4), scores
         (B, k), keypoints (B, k, Kj, 2), keypoint_scores (B, k, Kj) there,
         frame pixels, score-descending, unthresholded."""
-        pred, sx, sy = _forward(self.model, frames)
+        pred, sx, sy = self._maps(frames)
         boxes, scores, poses, kscores = decode_poses(
             pred["center"], pred["size"], pred["offset"], pred["kpts"],
             k=self.max_detections, stride=self.model.out_stride,

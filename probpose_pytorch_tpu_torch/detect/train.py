@@ -37,16 +37,13 @@ from probpose_pytorch_tpu_torch.detect.codec import encode_boxes
 from probpose_pytorch_tpu_torch.detect.loss import detection_loss
 from probpose_pytorch_tpu_torch.detect.model import PersonDetector, init_detector_weights
 from probpose_pytorch_tpu_torch.detect.pipeline import full_frame_boxes, scale_xy
+from probpose_pytorch_tpu_torch.parallel.mesh import mesh_device
 from probpose_pytorch_tpu_torch.models.model import resolve_device
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
 from probpose_pytorch_tpu_torch.train.config import OptimConfig
 from probpose_pytorch_tpu_torch.train.state import AdamW, TrainState, warmup_cosine_decay_schedule
 
 __all__ = ["DetectorTrainer", "detector_optimizer", "load_detector", "load_bottomup", "main"]
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
 def detector_optimizer(lr: float, total_steps: int, weight_decay: float = 1e-4) -> AdamW:
@@ -169,7 +166,8 @@ def load_detector(checkpoint_dir: str | Path, score_threshold: float = 0.3,
     `<out>/checkpoints`; its `detector.json` is read from the parent). Runs
     on the card unless `device` asks for the CPU. A directory holding an
     exported detector bundle (serve/export.py) loads as a DetectorBundle,
-    with the same detect_frame contract. `mesh` (item 13) is not ported."""
+    with the same detect_frame contract. On a `mesh` it serves data-parallel
+    (detect/pipeline.py: _FramePredictor); a bundle takes no mesh."""
     from probpose_pytorch_tpu_torch.detect.pipeline import DetectorPredictor
 
     checkpoint_dir = Path(checkpoint_dir)
@@ -178,11 +176,9 @@ def load_detector(checkpoint_dir: str | Path, score_threshold: float = 0.3,
 
         _bundle_mesh(mesh)
         return DetectorBundle.load(checkpoint_dir, device=device)
-    if mesh is not None:
-        raise _unported("load_detector(mesh=...)", 13)
-    trainer = _restored(checkpoint_dir, device)
+    trainer = _restored(checkpoint_dir, mesh_device(mesh, device))
     return DetectorPredictor(model=trainer.model, score_threshold=score_threshold,
-                             max_detections=max_detections)
+                             max_detections=max_detections, mesh=mesh)
 
 
 def load_bottomup(checkpoint_dir: str | Path, score_threshold: float = 0.3,
@@ -191,7 +187,8 @@ def load_bottomup(checkpoint_dir: str | Path, score_threshold: float = 0.3,
     the run directory or its `checkpoints/`. Runs on the card unless
     `device` asks for the CPU. A directory holding an exported bottom-up
     bundle (serve/export.py) loads as a BottomUpBundle, with the same
-    predict_frame contract. `mesh` (item 13) is not ported."""
+    predict_frame contract. On a `mesh` it serves data-parallel, as
+    load_detector; a bundle takes no mesh."""
     from probpose_pytorch_tpu_torch.detect.pipeline import BottomUpPredictor
 
     checkpoint_dir = Path(checkpoint_dir)
@@ -200,8 +197,6 @@ def load_bottomup(checkpoint_dir: str | Path, score_threshold: float = 0.3,
 
         _bundle_mesh(mesh)
         return BottomUpBundle.load(checkpoint_dir, device=device)
-    if mesh is not None:
-        raise _unported("load_bottomup(mesh=...)", 13)
     if (checkpoint_dir / "checkpoints").exists():
         checkpoint_dir = checkpoint_dir / "checkpoints"
     cfg_path = checkpoint_dir.parent / "detector.json"
@@ -210,10 +205,10 @@ def load_bottomup(checkpoint_dir: str | Path, score_threshold: float = 0.3,
     if num_keypoints <= 0:
         raise ValueError(f"{cfg_path}: not a single-stage pose checkpoint "
                          "(num_keypoints == 0; train with detect.train --keypoints K)")
-    trainer = _restored(checkpoint_dir, device, num_keypoints,
+    trainer = _restored(checkpoint_dir, mesh_device(mesh, device), num_keypoints,
                         bool(cfg.get("kpt_heatmaps", False)))
     return BottomUpPredictor(model=trainer.model, score_threshold=score_threshold,
-                             max_detections=max_detections)
+                             max_detections=max_detections, mesh=mesh)
 
 
 def main(argv: Sequence[str] | None = None) -> list[dict[str, float]]:

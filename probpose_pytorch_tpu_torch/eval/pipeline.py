@@ -123,8 +123,10 @@ def evaluate_topdown(
     for batch in batches:
         bs = len(batch["image"])
         crops = batch["image"]
-        if bs < batch_size and hasattr(predictor, "buckets"):
-            # an exported bundle runs its buckets only: pad the tail
+        if bs < batch_size and (hasattr(predictor, "buckets")
+                                or getattr(predictor, "mesh", None) is not None):
+            # an exported bundle runs its buckets only, a mesh predictor
+            # batches that divide its data axis: pad the tail
             crops = np.concatenate([crops, np.repeat(crops[-1:], batch_size - bs, axis=0)])
         # The predictor re-crops from frames; here samples are already crops,
         # so feed identity boxes and un-map with the true boxes.

@@ -24,8 +24,11 @@ evaluate_detector_topdown); `--bottomup` scores a single-stage model
 (evaluate_bottomup). `--bundle` scores an exported serving bundle
 (serve/export.py) in place of the checkpoint, its batch size snapped to an
 exported bucket; the TTA and temperatures are baked into a bundle at
-export. `--data-parallel` and `--model-parallel` (ROADMAP item 13) are not
-ported and raise.
+export. `--data-parallel` serves on a mesh over the world of processes
+(parallel/distributed.py: JAX's launcher variables or torchrun), with
+`--model-parallel` ranks on its model axis (JAX's run.py:130-182); the
+batch size rounds up to a multiple of the data axis and every rank scores
+the whole set; rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -35,10 +38,6 @@ import json
 from pathlib import Path
 
 __all__ = ["main"]
-
-
-def _unported(flag: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
 def _parse_temperatures(spec: str) -> dict[str, float]:
@@ -113,9 +112,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--detector-threshold", type=float, default=0.3,
                         help="with --detector / --bottomup: detection score threshold")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported (ROADMAP item 13)")
+                        help="shard eval batches over the world's ranks (a mesh); the batch "
+                        "size is rounded up to a multiple of the data axis")
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="not ported (ROADMAP item 13)")
+                        help="with --data-parallel: shard attention heads over a model axis "
+                        "of this size (tensor-parallel serving)")
     parser.add_argument("--dump-predictions", type=Path, default=None, metavar="OUT_JSON",
                         help="write predictions in the COCO keypoint-results format "
                         "(re-score with --score-predictions)")
@@ -131,8 +132,21 @@ def main(argv=None) -> dict:
     )
     from probpose_pytorch_tpu_torch.inference import load_predictor
 
-    if args.data_parallel or args.model_parallel != 1:
-        raise _unported("--data-parallel / --model-parallel", 13)
+    mesh, main_rank = None, True
+    if args.data_parallel:
+        from probpose_pytorch_tpu_torch.parallel import (
+            make_mesh,
+            maybe_initialize_distributed,
+            process_info,
+        )
+
+        maybe_initialize_distributed(device=args.device)
+        rank, world = process_info()
+        main_rank = rank == 0
+        if world > 1:
+            mesh = make_mesh(world, model_parallel=args.model_parallel)
+            dp = world // args.model_parallel
+            args.batch_size = -(-args.batch_size // dp) * dp
 
     if args.score_predictions is not None:
         dataset = COCOPoseDataset(args.annotations, args.images, (256, 192),
@@ -144,18 +158,20 @@ def main(argv=None) -> dict:
         from probpose_pytorch_tpu_torch.detect import evaluate_bottomup, load_bottomup
 
         predictor = load_bottomup(args.bottomup, score_threshold=args.detector_threshold,
+                                  mesh=None if mesh is None else make_mesh(world),
                                   device=args.device)
         line = _rounded(evaluate_bottomup(predictor, args.annotations, args.images,
                                           max_images=args.max_samples, verbose=True))
-        print(json.dumps(line))
+        if main_rank:
+            print(json.dumps(line))
         return line
     if args.checkpoint is None and args.bundle is None:
         parser.error("one of --checkpoint / --bundle / --score-predictions / --bottomup is "
                      "required")
-    if args.bundle and (args.ema or args.flip_test or args.scale_test
+    if args.bundle and (args.ema or args.flip_test or args.scale_test or args.data_parallel
                         or args.apply_temperature):
         parser.error("--ema/--flip-test/--scale-test/--apply-temperature are baked into "
-                     "bundles at export")
+                     "bundles at export; --data-parallel needs a live predictor")
     if args.detector is not None and (args.calibration or args.per_joint or args.dump_worst):
         parser.error("--detector reports the end-to-end AP summary; --calibration/"
                      "--per-joint/--dump-worst need the GT-box crop stream (instance-matched GT)")
@@ -181,6 +197,7 @@ def main(argv=None) -> dict:
             scale_test=tuple(float(s) for s in args.scale_test.split(",") if s.strip()),
             scale_test_scores=args.scale_test_scores,
             calibration=calibration,
+            mesh=mesh,
             device=args.device,
         )
     if args.detector is not None:
@@ -190,11 +207,12 @@ def main(argv=None) -> dict:
         if (det_dir / "checkpoints").exists():
             det_dir = det_dir / "checkpoints"
         detector = load_detector(det_dir, score_threshold=args.detector_threshold,
-                                 device=args.device)
+                                 mesh=mesh, device=args.device)
         line = _rounded(evaluate_detector_topdown(
             predictor, detector, args.annotations, args.images, bbox_scale=args.bbox_scale,
             max_images=args.max_samples, verbose=True))
-        print(json.dumps(line))
+        if main_rank:
+            print(json.dumps(line))
         return line
     dataset = COCOPoseDataset(args.annotations, args.images, predictor.input_size,
                               bbox_scale=args.bbox_scale)
@@ -212,14 +230,16 @@ def main(argv=None) -> dict:
     joints = summary.pop("per_joint", {})
     instances = summary.pop("instances", [])
     preds = summary.pop("predictions", [])
-    if args.dump_predictions is not None:
-        args.dump_predictions.parent.mkdir(parents=True, exist_ok=True)
-        save_results(preds, args.dump_predictions)
-        print(f"[eval] {len(preds)} COCO-format results -> {args.dump_predictions}")
     line = _rounded(summary)
     for branch, rep in cal.items():
         for key in ("ece", "mce", "brier", "nll", "temperature"):
             line[f"{key}_{branch}"] = round(rep[key], 4)
+    if not main_rank:  # rank 0 prints and writes for the world
+        return line
+    if args.dump_predictions is not None:
+        args.dump_predictions.parent.mkdir(parents=True, exist_ok=True)
+        save_results(preds, args.dump_predictions)
+        print(f"[eval] {len(preds)} COCO-format results -> {args.dump_predictions}")
     print(json.dumps(line))
     if joints:
         worst = sorted(joints, key=lambda n: -joints[n]["EPE"])[:3]

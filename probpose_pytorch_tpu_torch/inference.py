@@ -28,12 +28,19 @@ record in configs/autotune_serving.json, keyed by
 With `detector=` (detect/pipeline.py:DetectorPredictor), `predict_frame`
 without boxes runs standalone: the person detector finds the boxes.
 
-Not ported yet: mesh serving (ROADMAP item 13).
+With `mesh=` (parallel/mesh.py) it is JAX's mesh predictor on one rank of
+the world: every rank calls it with the same batch and gets the whole
+result. The rank crops its rows of the batch (the batch must divide the
+data axis), the model runs them (on a model axis, "fused" weights are
+converted to head-major and their heads split, as JAX's predictor does;
+parallel/sharding.py), and the head's outputs are gathered over the ranks
+before the one decode. Indexed frames stay single-device, as in JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 from collections import deque
@@ -50,6 +57,8 @@ from probpose_pytorch_tpu_torch.eval.calibration import P_HI, P_LO
 from probpose_pytorch_tpu_torch.models.model import ProbPoseModel
 from probpose_pytorch_tpu_torch.models.vit_int8 import QuantizedViT
 from probpose_pytorch_tpu_torch.ops.augment import average_flip_pred, average_flip_pred_simcc
+from probpose_pytorch_tpu_torch.parallel.collectives import all_gather_cat
+from probpose_pytorch_tpu_torch.parallel.sharding import shard_batch
 from probpose_pytorch_tpu_torch.ops.preprocess import (
     crop_resize,
     untransform_keypoints,
@@ -64,6 +73,42 @@ def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
     )
+
+
+def _mesh_model(model: ProbPoseModel, mesh: Any) -> ProbPoseModel:
+    """A copy of a single-device model on `mesh`, as JAX's predictor
+    re-clones its model (inference.py:247-296 there): on a model axis > 1,
+    "fused" weights convert to head-major and run "fused_tp" with their
+    heads split where the heads divide the axis; any fused attention that
+    cannot split runs "einsum" (qkv-major) whole. The weights are then laid
+    on the mesh (parallel/sharding.py:shard_params)."""
+    from probpose_pytorch_tpu_torch.compat.layouts import qkv_to_head_major, qkv_to_qkv_major
+    from probpose_pytorch_tpu_torch.parallel.mesh import mesh_device, mesh_shape
+    from probpose_pytorch_tpu_torch.parallel.sharding import shard_params
+
+    model = copy.deepcopy(model)
+    backbone = model.backbone
+    model_size = mesh_shape(mesh).get("model", 1)
+    blocks = getattr(backbone, "blocks", None)
+    if model_size > 1 and blocks is not None:
+        impl, heads = blocks[0].attn.impl, backbone.num_heads
+        sd = model.state_dict()
+        if impl in ("fused", "fused_tp") and heads % model_size == 0:
+            impl_new = "fused_tp"
+            if impl == "fused":
+                sd = qkv_to_head_major(sd, heads)
+        elif impl in ("fused", "fused_tp", "pallas"):
+            impl_new = "einsum"
+            if impl == "fused_tp":
+                sd = qkv_to_qkv_major(sd, heads)
+        else:
+            impl_new = impl
+        model.load_state_dict(sd)
+        for block in blocks:
+            block.attn.impl = impl_new
+    model.mesh = mesh
+    shard_params(model, mesh)
+    return model.to(mesh_device(mesh, next(model.parameters()).device))
 
 
 def _check_quantize(quantize: str | None, mesh: Any) -> None:
@@ -204,8 +249,8 @@ class TopDownPredictor:
                     raise ValueError(f"calibration temperature {k}={t!r} must be a "
                                      "positive finite float")
         _check_quantize(self.quantize, self.mesh)
-        if self.mesh is not None:
-            raise _unported("TopDownPredictor(mesh=...)", 13)
+        if self.mesh is not None and getattr(self.model, "mesh", None) is not self.mesh:
+            self.model = _mesh_model(self.model, self.mesh)
         if self.quantize is not None:
             weight_only = self.quantize == "int8_wo"
             bb = self.model.backbone
@@ -221,15 +266,30 @@ class TopDownPredictor:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def _forward(self, crops: torch.Tensor):
+        """The model's outputs of the batch: on a mesh, of this rank's
+        crops gathered over the ranks whose head rows make the batch."""
+        pred = self.model(crops)
+        if self.mesh is None:
+            return pred
+        group = self.model.head_group(crops.shape[0])
+        gather = lambda t: all_gather_cat(t, group)
+        return tuple([gather(t) for t in x] if isinstance(x, (tuple, list)) else gather(x)
+                     for x in pred)
+
     def _predict_boxes(self, frames: torch.Tensor, boxes: torch.Tensor):
         """One forward (two with flip test) and decode at one box geometry,
         keypoints un-mapped to frame space; returns (fields, head output)."""
-        crops = crop_resize(frames, boxes, self.input_size, self.preprocess_method)
-        pred = self.model(crops)
+        if self.mesh is None:
+            crops = crop_resize(frames, boxes, self.input_size, self.preprocess_method)
+        else:  # this rank's rows
+            crops = crop_resize(shard_batch(frames, self.mesh), shard_batch(boxes, self.mesh),
+                                self.input_size, self.preprocess_method)
+        pred = self._forward(crops)
         if self.flip_test:
             pairs = self.flip_pairs if self.flip_pairs is not None else COCO_FLIP_PAIRS
             # crops are (B, H, W, C): W is axis 2
-            pred_f = self.model(crops.flip(2))
+            pred_f = self._forward(crops.flip(2))
             if isinstance(pred[0], (tuple, list)):
                 pred = average_flip_pred_simcc(pred, pred_f, pairs, self.codec.label.split_ratio)
             else:
@@ -244,6 +304,9 @@ class TopDownPredictor:
         """The serving path on tensors already on the model's device; the
         outputs stay there (no host copy, no synchronisation)."""
         if frame_ids is not None:
+            if self.mesh is not None:
+                raise ValueError("indexed frames are single-device; mesh serving takes "
+                                 "per-crop frames")
             # indexed serving: frames holds each unique frame once.
             frames = frames.index_select(0, frame_ids)
         scales = self.scale_test or (1.0,)
@@ -406,7 +469,11 @@ class TopDownPredictor:
                 frame = np.pad(frame, ((0, pad_h), (0, pad_w), (0, 0)))
         padded = np.concatenate([boxes, np.tile(boxes[-1:], (bucket - n, 1))],
                                 axis=0).astype(np.float32)
-        out = self(frame[None], padded, np.zeros((bucket,), np.int64))
+        if self.mesh is None:
+            # indexed: the frame crosses the host->device link once
+            out = self(frame[None], padded, np.zeros((bucket,), np.int64))
+        else:
+            out = self(np.broadcast_to(frame, (bucket, *frame.shape)), padded)
         return {k: v[:n] for k, v in out.items()}
 
 
@@ -427,25 +494,23 @@ def load_predictor(
     config JSON, which defaults to `<checkpoint_dir>/../config.json`, then
     to the flagship defaults. With `ema`, the EMA parameters. The
     parameters sit in the JAX function's places; `quantize` quantizes the
-    trunk (TopDownPredictor's), and `mesh` is refused (ROADMAP item 13).
+    trunk (TopDownPredictor's). On a `mesh` the trainer of the config is
+    laid on it ("fused" becomes "fused_tp" on a model axis) and the
+    checkpoint's qkv layout converted to its (restore_state_with_layout).
     Runs on the card unless `device` asks for the CPU."""
     from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
     from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from probpose_pytorch_tpu_torch.train.loop import restore_state_with_layout
 
     _check_quantize(quantize, mesh)
-    if mesh is not None:
-        raise _unported("load_predictor(mesh=...)", 13)
     checkpoint_dir = Path(checkpoint_dir)
     if config_path is None:
         candidate = checkpoint_dir.parent / "config.json"
         config_path = candidate if candidate.exists() else None
     cfg = TrainConfig.load(config_path) if config_path else TrainConfig()
     ckpt = CheckpointManager(checkpoint_dir)
-    if (cfg.model.attn_impl == "fused_tp"
-            or ckpt.read_metadata().get("qkv_layout") == "head_major"):
-        raise _unported("a head-major qkv layout (attn_impl='fused_tp')", 13)
-    trainer = Trainer.create(cfg, steps_per_epoch=1, device=device)
-    state = ckpt.restore(trainer.state)
+    trainer = Trainer.create(cfg, steps_per_epoch=1, mesh=mesh, device=device)
+    state = restore_state_with_layout(ckpt, trainer.state, trainer.cfg)
     if ema and state.ema_params is not None:
         with torch.no_grad():
             torch._foreach_copy_(state.params, state.ema_params)
@@ -453,6 +518,7 @@ def load_predictor(
         model=trainer.model,
         codec=trainer.encode_codec,
         input_size=cfg.model.img_size,
+        mesh=mesh,
         flip_test=flip_test,
         scale_test=scale_test,
         scale_test_scores=scale_test_scores,

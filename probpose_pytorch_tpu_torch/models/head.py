@@ -19,6 +19,8 @@ unevenly, padding 0 (2n + 1 outputs) and the last row and column dropped.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence
 
 import torch
@@ -26,8 +28,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from probpose_pytorch_tpu_torch.ops.sparsemax import sparsemax
+from probpose_pytorch_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 
-__all__ = ["ProbMapHead"]
+__all__ = ["ProbMapHead", "bn_sync"]
+
+# The process group whose ranks' rows make one batch for train-mode
+# BatchNorm statistics (models/model.py sets it on a mesh); None: this
+# rank's rows are the batch.
+_BN_GROUP = contextvars.ContextVar("bn_group", default=None)
+
+
+@contextlib.contextmanager
+def bn_sync(group):
+    """Train-mode BatchNorm inside takes the statistics of every rank of
+    `group`'s rows, as JAX's BatchNorm of the global batch does."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
@@ -48,13 +67,23 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     Train mode: the f32 batch mean and flax's fast variance, E[x^2] - E[x]^2
     clamped at 0 (biased), normalise x and carry gradients; the running
     statistics become 0.9 * running + 0.1 * batch, biased variance included
-    (`F.batch_norm(training=True)` would store the unbiased one)."""
+    (`F.batch_norm(training=True)` would store the unbiased one). Under
+    `bn_sync(group)` the two means are of the rows of every rank of the
+    group: their sums are summed over it (the ranks hold equal counts)."""
     x = x.float()
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, training=False, eps=bn.eps)
-    mean = x.mean(dim=(0, 2, 3))
-    var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    group = _BN_GROUP.get()
+    if group is None:
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    else:
+        count = x.numel() // x.shape[1] * group_size(group)
+        sums = all_reduce_sum(torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+                              group)
+        mean = sums[0] / count
+        var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
     with torch.no_grad():
         for stat, batch in ((bn.running_mean, mean), (bn.running_var, var)):
             stat.copy_(BN_MOMENTUM * stat + (1.0 - BN_MOMENTUM) * batch)

@@ -8,6 +8,15 @@ a ViT, or with `backbone="conv-s"` / `"conv-t"` the residual conv family
 or the SimCC coordinate classifier (models/simcc.py). `build_model`
 raises `NotImplementedError` for the values this port does not run yet,
 naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
+
+On a mesh (parallel/mesh.py) every rank builds the same weights from the
+seed and keeps its slices (parallel/sharding.py:shard_params). The model
+takes the rank's rows of the batch; its head follows JAX's
+`head_batch_spec`: where the rows divide the model axis too, each model
+rank runs the head on its share of them (`scatter_rows`), else on all of
+them. Train-mode BatchNorm takes the statistics of the global batch:
+the head's over the ranks whose rows it runs (`head_group`), a conv
+trunk's over the data axis.
 """
 
 from __future__ import annotations
@@ -24,9 +33,12 @@ from probpose_pytorch_tpu_torch.models.convnet import (
     ConvBackbone,
     init_conv_weights,
 )
-from probpose_pytorch_tpu_torch.models.head import ProbMapHead
+from probpose_pytorch_tpu_torch.models.head import ProbMapHead, bn_sync
 from probpose_pytorch_tpu_torch.models.simcc import SimCCHead
 from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
+from probpose_pytorch_tpu_torch.parallel.collectives import scatter_rows
+from probpose_pytorch_tpu_torch.parallel.mesh import mesh_shape
+from probpose_pytorch_tpu_torch.parallel.sharding import head_batch_spec, shard_params
 
 __all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights", "resolve_device"]
 
@@ -59,7 +71,8 @@ class ModelConfig:
     softmax_dtype: str = "float32"
     # "fused" and "einsum" both run kernel K1 (f32 softmax); "einsum" with a
     # bf16 softmax_dtype runs JAX's einsum attention in plain PyTorch;
-    # "pallas" runs kernel K6, forward only.
+    # "pallas" runs kernel K6, forward only; "fused_tp" runs K1 on head-major
+    # qkv weights (compat/layouts.py), split by heads on a model axis.
     attn_impl: str = "einsum"
     mlp_impl: str = "dense"  # "fused": kernel K5
     # "fused" and "fastvjp" were XLA rewrites, pinned numerically equal to
@@ -82,10 +95,7 @@ class ModelConfig:
     def check_ported(self) -> None:
         """Raise for values the port cannot build yet, naming the ROADMAP
         item that ports each; ValueError for values that are no option."""
-        unported = [
-            (self.pp_stages > 1, "pp_stages > 1", 13),
-            (self.attn_impl == "fused_tp", "attn_impl='fused_tp'", 13),
-        ]
+        unported = [(self.pp_stages > 1, "pp_stages > 1", "13b")]
         if self.lora_rank > 0 and self.backbone.startswith("conv"):
             raise ValueError("lora_rank applies to ViT backbones only")
         if self.lora_rank > 0 and self.mlp_impl == "fused":
@@ -101,7 +111,7 @@ class ModelConfig:
         if self.head_type not in ("probmap", "simcc"):
             raise ValueError(
                 f"unknown head_type {self.head_type!r} (expected probmap | simcc)")
-        if self.attn_impl not in ("fused", "einsum", "pallas"):
+        if self.attn_impl not in ("fused", "fused_tp", "einsum", "pallas"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.mlp_impl not in ("dense", "fused"):
             raise ValueError(f"unknown mlp_impl {self.mlp_impl!r}")
@@ -130,13 +140,39 @@ class ProbPoseModel(nn.Module):
     5-tuple (heatmaps, probability, visibility, oks, error); with the SimCC
     head the first entry is the pair (x_logits, y_logits)."""
 
-    def __init__(self, backbone: ViTBackbone | ConvBackbone, head: ProbMapHead | SimCCHead):
+    def __init__(self, backbone: ViTBackbone | ConvBackbone, head: ProbMapHead | SimCCHead,
+                 mesh: Any = None):
         super().__init__()
         self.backbone = backbone
         self.head = head
+        self.mesh = mesh
+
+    def head_split(self, rows: int) -> bool:
+        """Whether the model ranks share the head's `rows` (this rank's
+        rows of the batch): JAX's head_batch_spec of the global batch."""
+        shape = mesh_shape(self.mesh)
+        return head_batch_spec(self.mesh, rows * shape.get("data", 1)) is not None
+
+    def head_group(self, rows: int):
+        """The ranks whose head rows make the batch: the world where the
+        head is split, else the data axis; None off a mesh."""
+        if self.mesh is None:
+            return None
+        if self.head_split(rows):
+            return torch.distributed.group.WORLD
+        return self.mesh.get_group("data")
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        return self.head(self.backbone(x))
+        """On a mesh: x is this rank's rows; the outputs are its head rows
+        (`head_group`)."""
+        if self.mesh is None:
+            return self.head(self.backbone(x))
+        with bn_sync(self.mesh.get_group("data")):
+            feats = self.backbone(x)
+        if self.head_split(x.shape[0]):
+            feats = scatter_rows(feats, self.mesh.get_group("model"))
+        with bn_sync(self.head_group(x.shape[0])):
+            return self.head(feats)
 
 
 def _trunc_normal(t: torch.Tensor, std: float, g: torch.Generator) -> None:
@@ -243,11 +279,11 @@ def build_model(cfg: ModelConfig, mesh: Any = None, *, device: torch.device | st
                 seed: int = 0) -> ProbPoseModel:
     """The model of `cfg` on `device` (the card unless the caller asks for
     the CPU), in eval mode, with weights drawn from a `torch.Generator`
-    seeded with `seed`. `mesh` sits in JAX's place; a mesh is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_model(mesh=...) is not ported to PyTorch yet (ROADMAP item 13)")
-    device = resolve_device(device, "build_model")
+    seeded with `seed`. On a `mesh` each rank keeps its slices of the
+    weights (on the rank's card when `device` is a card)."""
+    from probpose_pytorch_tpu_torch.parallel.mesh import mesh_device
+
+    device = mesh_device(mesh, resolve_device(device, "build_model"))
     cfg.check_ported()
     if cfg.backbone.startswith("conv"):
         channels, blocks = CONV_PRESETS[cfg.backbone]
@@ -279,6 +315,11 @@ def build_model(cfg: ModelConfig, mesh: Any = None, *, device: torch.device | st
             normalize=cfg.normalize,
             dtype=cfg.dtype,
         )
-    model = ProbPoseModel(backbone, head)
+    model = ProbPoseModel(backbone, head, mesh)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if mesh is not None:
+        if cfg.lora_rank > 0 and mesh_shape(mesh).get("model", 1) > 1:
+            raise NotImplementedError("LoRA deltas on a model-parallel mesh are not ported to "
+                                      "PyTorch yet (ROADMAP item 13b)")
+        shard_params(model, mesh)
     return model.to(device).eval()

@@ -18,6 +18,19 @@ scale promotes them), the softmax in `softmax_dtype`, then the compute
 dtype.
 `attn_impl="pallas"` hands the q, k, v views of the same projection to
 kernel K6 (`fused_attention`), forward only, as JAX does.
+`attn_impl="fused_tp"` reads the projection head-major (compat/layouts.py;
+JAX's `_qkv_offsets`) and runs K1 with `layout="head_major"`; on the CPU
+that is the plain head-major attention, JAX's einsum fallback there
+(models/vit.py:174-177 of the JAX package).
+
+On a model-parallel mesh (parallel/sharding.py:shard_params) a block is
+JAX's Megatron block (`tp_block_apply`): the head-major qkv and fc1 keep
+this rank's output columns, proj and fc2 its input columns, the input of
+each enters through `tp_enter` and the two row-parallel products are summed
+over the model group by `tp_leave` before their whole bias is added. The
+attention runs K1 head-major on the rank's own heads, with no collective
+(JAX's `sharded_packed_attention`). An attention or MLP that stays whole
+(qkv-major weights, the fused MLP) runs as on one device.
 
 `mlp_impl="fused"` runs the block's second half, LayerNorm -> fc1 -> GELU
 -> fc2 -> +residual, as kernel K5 (`ops.kernels.mlp.fused_ln_mlp`) on the
@@ -46,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from probpose_pytorch_tpu_torch.models.lora import LoRADelta
 from probpose_pytorch_tpu_torch.ops.kernels.attention import fused_attention, packed_attention
 from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp
+from probpose_pytorch_tpu_torch.parallel.pipeline import tp_enter, tp_leave
 
 __all__ = ["ViTConfig", "Attention", "MlpBlock", "Block", "ViTBackbone"]
 
@@ -86,8 +100,14 @@ class MlpBlock(nn.Module):
         self.approximate = "none" if exact_gelu else "tanh"
         lora = lambda i, o: LoRADelta(i, o, lora_rank, lora_alpha, dtype) if lora_rank else None
         self.fc1_lora, self.fc2_lora = lora(dim, hidden_dim), lora(hidden_dim, dim)
+        self.tp_group = None  # the model group when fc1 and fc2 hold this rank's columns
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            h = F.gelu(linear(tp_enter(x, self.tp_group), self.fc1, self.dtype),
+                       approximate=self.approximate)
+            out = F.linear(h, self.fc2.weight.to(self.dtype))
+            return tp_leave(out, self.tp_group) + self.fc2.bias.to(self.dtype)
         h = linear(x, self.fc1, self.dtype)
         if self.fc1_lora is not None:
             h = h + self.fc1_lora(x)
@@ -125,9 +145,18 @@ class Attention(nn.Module):
         self.softmax_dtype = softmax_dtype
         lora = lambda i, o: LoRADelta(i, o, lora_rank, lora_alpha, dtype) if lora_rank else None
         self.qkv_lora, self.proj_lora = lora(dim, 3 * dim), lora(dim, dim)
+        # The model group when qkv and proj hold this rank's heads
+        # (num_heads is then the rank's own count).
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = linear(x, self.qkv, self.dtype)  # (B, N, 3C), qkv-major
+        if self.tp_group is not None:
+            qkv = linear(tp_enter(x, self.tp_group), self.qkv, self.dtype)
+            ctx = packed_attention(qkv, self.num_heads, "head_major")
+            out = F.linear(ctx, self.proj.weight.to(self.dtype))
+            return tp_leave(out, self.tp_group) + self.proj.bias.to(self.dtype)
+        # (B, N, 3C), qkv-major, or head-major under "fused_tp"
+        qkv = linear(x, self.qkv, self.dtype)
         if self.qkv_lora is not None:
             qkv = qkv + self.qkv_lora(x)
         if self.impl == "pallas":
@@ -136,6 +165,8 @@ class Attention(nn.Module):
             ctx = fused_attention(q, k, v).reshape(B, N, C3 // 3)
         elif self.impl == "einsum" and self.softmax_dtype != torch.float32:
             ctx = einsum_attention(qkv, self.num_heads, self.softmax_dtype, self.dtype)
+        elif self.impl == "fused_tp":
+            ctx = packed_attention(qkv, self.num_heads, "head_major")
         else:
             ctx = packed_attention(qkv, self.num_heads)
         out = linear(ctx, self.proj, self.dtype)

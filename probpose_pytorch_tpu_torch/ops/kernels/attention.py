@@ -5,8 +5,15 @@ Replaces the TPU kernels `_packed_fwd_kernel` and `_packed_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_kernel.py (`packed_attention`, a
 `jax.custom_vjp` whose backward recomputes the scores, qkv-major layout).
 
-`packed_attention(qkv, heads)` takes the (B, N, 3C) output of the qkv
-projection as it is and returns the (B, N, C) context. It is a
+`packed_attention(qkv, heads, layout)` takes the (B, N, 3C) output of the
+qkv projection as it is, qkv-major or head-major (the packing of
+attn_impl="fused_tp", JAX's `_qkv_offsets`: each head's q, k and v side by
+side, so a tensor-parallel rank's column shard holds whole heads), and
+returns the (B, N, C) context. Every kernel reads either layout in place
+(a head stride and the k and v offsets); no permuted copy is made.
+`sharded_packed_attention` is JAX's wrapper of that name for one rank of a
+mesh: the rank's qkv holds its own heads (head-major) or its own rows, so
+it is K1 on the local heads, with no collective. It is a
 `torch.autograd.Function`; its backward is `packed_attention_backward`,
 which writes dqkv straight in the packed layout. Which kernel serves a call
 is decided by the shape alone, forward and backward each on its own
@@ -55,11 +62,14 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     DTYPES as _DTYPES,
     HEAD_DIMS,
     K1_CUDA_CORES,
+    LAYOUTS,
     NO_KERNEL,
     SHORT_MAX_N,
     SM90_SHORT,
     attention_route,
     max_shared_memory,
+    pack_qkv,
+    split_qkv,
     short_forward,
     tiled_attention_backward,
     tiled_forward,
@@ -70,6 +80,7 @@ __all__ = [
     "packed_attention_reference",
     "packed_attention_backward",
     "packed_attention_bwd_reference",
+    "sharded_packed_attention",
     "kernel_path",
     "attention_route",
     "fused_attention",
@@ -77,20 +88,21 @@ __all__ = [
 ]
 
 
-def _unpack(qkv: torch.Tensor, heads: int):
-    """(B, N, 3C) -> float32 q, k, v, each (B, N, heads, d), and 1/sqrt(d)."""
-    B, N, C3 = qkv.shape
-    d = C3 // 3 // heads
-    q, k, v = qkv.float().reshape(B, N, 3, heads, d).unbind(2)
-    return q, k, v, 1.0 / d**0.5
+def _unpack(qkv: torch.Tensor, heads: int, layout: str):
+    """(B, N, 3C) in `layout` -> float32 q, k, v, each (B, N, heads, d), and
+    1/sqrt(d)."""
+    q, k, v = split_qkv(qkv.float(), heads, layout)
+    return q, k, v, 1.0 / q.shape[-1]**0.5
 
 
-def packed_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Plain version: `_einsum_packed_attention` (attention_kernel.py:335)
-    with the f32 softmax. q.k and P.V accumulate in f32; P is rounded to
-    qkv's dtype before P.V; the context comes back in qkv's dtype."""
+def packed_attention_reference(qkv: torch.Tensor, heads: int,
+                               layout: str = "qkv_major") -> torch.Tensor:
+    """Plain version: `_einsum_packed_attention(qkv, heads, layout)`
+    (attention_kernel.py:335) with the f32 softmax. q.k and P.V accumulate
+    in f32; P is rounded to qkv's dtype before P.V; the context comes back in
+    qkv's dtype."""
     B, N, C3 = qkv.shape
-    q, k, v, scale = _unpack(qkv, heads)
+    q, k, v, scale = _unpack(qkv, heads, layout)
     s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v)
@@ -98,7 +110,7 @@ def packed_attention_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def packed_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor,
-                                   heads: int) -> torch.Tensor:
+                                   heads: int, layout: str = "qkv_major") -> torch.Tensor:
     """Plain backward, line by line `_packed_bwd_kernel`
     (attention_kernel.py:146-191): f32 scores and softmax recomputed from
     qkv; dV = round(P)^T dO; dS = round(P * (dP - rowsum(dP * P)) * scale)
@@ -106,7 +118,7 @@ def packed_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor,
     in f32. round() is to qkv's dtype. Returns dqkv (B, N, 3C) packed in
     qkv's layout and dtype."""
     B, N, C3 = qkv.shape
-    q, k, v, scale = _unpack(qkv, heads)
+    q, k, v, scale = _unpack(qkv, heads, layout)
     do = dout.float().reshape(B, N, heads, -1)
     rnd = lambda t: t.to(qkv.dtype).float()
     p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
@@ -116,7 +128,7 @@ def packed_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor,
     ds = rnd(p * (dp - dsum) * scale)
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
-    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3).to(qkv.dtype)
+    return pack_qkv(dq, dk, dv, layout).to(qkv.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -125,9 +137,9 @@ def _lib() -> ctypes.CDLL:
     lib = library()
     if not getattr(lib, "_attention_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.packed_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
+        lib.packed_attention_fwd.argtypes = [ptr, ptr] + [i32] * 7 + [ptr]
         lib.packed_attention_fwd.restype = i32
-        lib.packed_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.packed_attention_bwd.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.packed_attention_bwd.restype = i32
         for name in ("packed_attention_smem_bytes", "packed_attention_bwd_smem_bytes"):
             getattr(lib, name).argtypes = [i32] * 3
@@ -169,7 +181,9 @@ def _no_kernel(qkv: torch.Tensor, heads: int, route: str, what: str) -> NotImple
         "section 2, item 8)")
 
 
-def _check(qkv: torch.Tensor, heads: int) -> None:
+def _check(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"packed_attention: unknown layout {layout!r} (one of {LAYOUTS})")
     if qkv.dim() != 3:
         raise ValueError(f"packed_attention: qkv must be (B, N, 3C), got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -216,25 +230,25 @@ def _device_and_smem_check(qkv: torch.Tensor, heads: int, smem_fn, what: str) ->
     return device
 
 
-def _forward(qkv: torch.Tensor, heads: int, with_lse: bool):
+def _forward(qkv: torch.Tensor, heads: int, with_lse: bool, layout: str):
     """(context, lse) on qkv's route; lse is the (B, heads, N) f32 row
     log-sum-exp where `with_lse` asks for it and a wgmma kernel runs, else
     None."""
     if kernels.use_plain(qkv, "packed_attention"):
-        return packed_attention_reference(qkv, heads), None
+        return packed_attention_reference(qkv, heads, layout), None
     route = _route(qkv, heads, backward=False)
     if route.startswith(NO_KERNEL):
         raise _no_kernel(qkv, heads, route, "packed_attention")
     if route == SM90_SHORT:
-        return short_forward(qkv, heads, with_lse)
+        return short_forward(qkv, heads, with_lse, layout)
     if route != K1_CUDA_CORES:
-        return tiled_forward(qkv, heads, with_lse)
-    return torch.ops.probpose.packed_attention_fwd(qkv, heads), None
+        return tiled_forward(qkv, heads, with_lse, layout)
+    return torch.ops.probpose.packed_attention_fwd(qkv, heads, layout == "head_major"), None
 
 
 @torch.library.custom_op("probpose::packed_attention_fwd", mutates_args=(),
-                         schema="(Tensor qkv, int heads) -> Tensor")
-def _packed_fwd_op(qkv, heads):
+                         schema="(Tensor qkv, int heads, bool head_major=False) -> Tensor")
+def _packed_fwd_op(qkv, heads, head_major=False):
     """K1's CUDA-core forward launch as an op that torch.export records."""
     qkv = qkv.contiguous()  # at run time, as attention_tiled.py notes at _QKV_SCHEMA
     lib = _lib()
@@ -243,8 +257,8 @@ def _packed_fwd_op(qkv, heads):
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     err = lib.packed_attention_fwd(
-        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, _DTYPES[qkv.dtype],
-        device, torch.cuda.current_stream(qkv.device).cuda_stream,
+        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, int(head_major),
+        _DTYPES[qkv.dtype], device, torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:
         raise RuntimeError(
@@ -256,19 +270,21 @@ def _packed_fwd_op(qkv, heads):
 
 
 @_packed_fwd_op.register_fake
-def _(qkv, heads):
+def _(qkv, heads, head_major=False):
     B, N, C3 = qkv.shape
     return qkv.new_empty((B, N, C3 // 3))
 
 
 def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                               out: torch.Tensor | None = None,
-                              lse: torch.Tensor | None = None) -> torch.Tensor:
-    """dqkv (B, N, 3C) of `packed_attention` from qkv and the context's
-    gradient dout (B, N, C), both of one dtype; dout is made contiguous.
+                              lse: torch.Tensor | None = None, *,
+                              layout: str = "qkv_major") -> torch.Tensor:
+    """dqkv (B, N, 3C), in qkv's `layout`, of `packed_attention` from qkv
+    and the context's gradient dout (B, N, C), both of one dtype; dout is
+    made contiguous.
     `out` and `lse`, the forward's context and log-sum-exp, are read on the
     wgmma route (which makes them when absent) and ignored elsewhere."""
-    _check(qkv, heads)
+    _check(qkv, heads, layout)
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
         raise ValueError(
@@ -281,12 +297,12 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             f"qkv {qkv.dtype} on {qkv.device}"
         )
     if kernels.use_plain(qkv, "packed_attention_backward"):
-        return packed_attention_bwd_reference(qkv, dout, heads)
+        return packed_attention_bwd_reference(qkv, dout, heads, layout)
     route = _route(qkv, heads, backward=True)
     if route.startswith(NO_KERNEL):
         raise _no_kernel(qkv, heads, route, "packed_attention_backward")
     if route != K1_CUDA_CORES:
-        return tiled_attention_backward(qkv, dout, heads, out, lse)
+        return tiled_attention_backward(qkv, dout, heads, out, lse, layout=layout)
     dout = dout.contiguous()
     lib = _lib()
     device = _device_and_smem_check(qkv, heads, lib.packed_attention_bwd_smem_bytes,
@@ -297,7 +313,7 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
     err = lib.packed_attention_bwd(
         qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        B, N, C3 // 3, heads, _DTYPES[qkv.dtype], device,
+        B, N, C3 // 3, heads, int(layout == "head_major"), _DTYPES[qkv.dtype], device,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if err:
@@ -315,23 +331,44 @@ class _PackedAttention(torch.autograd.Function):
     backward reads instead of rebuilding them."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
-        ctx.heads = heads
-        out, lse = _forward(qkv, heads, ctx.needs_input_grad[0])
+    def forward(ctx, qkv: torch.Tensor, heads: int, layout: str) -> torch.Tensor:
+        ctx.heads, ctx.layout = heads, layout
+        out, lse = _forward(qkv, heads, ctx.needs_input_grad[0], layout)
         ctx.save_for_backward(*((qkv,) if lse is None else (qkv, out, lse)))
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         qkv, *residuals = ctx.saved_tensors
-        return packed_attention_backward(qkv, grad, ctx.heads, *residuals), None
+        return (packed_attention_backward(qkv, grad, ctx.heads, *residuals, layout=ctx.layout),
+                None, None)
 
 
-def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv;
-    differentiable through the routed backward."""
-    _check(qkv, heads)
-    return _PackedAttention.apply(qkv, heads)
+def packed_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv in
+    `layout`; differentiable through the routed backward."""
+    _check(qkv, heads, layout)
+    return _PackedAttention.apply(qkv, heads, layout)
+
+
+def sharded_packed_attention(qkv: torch.Tensor, heads: int, mesh=None, axis: str | None = "data",
+                             layout: str = "qkv_major", model_axis: str | None = None
+                             ) -> torch.Tensor:
+    """JAX's `sharded_packed_attention` (attention_kernel.py:469-529) on one
+    rank of a mesh. `qkv` is the rank's shard: its rows of the batch along
+    `axis` and, with `model_axis`, its columns of a head-major projection,
+    which are whole heads, `heads // model` of them. So the rank runs K1 on
+    its shard and nothing is exchanged: `heads` is the global head count
+    and the local one is read off the mesh."""
+    from probpose_pytorch_tpu_torch.parallel.mesh import mesh_shape
+
+    model = mesh_shape(mesh).get(model_axis, 1) if model_axis is not None else 1
+    if model > 1:
+        if heads % model:
+            raise ValueError(f"sharded_packed_attention: heads ({heads}) must divide the "
+                             f"model axis ({model})")
+        return packed_attention(qkv, heads // model, "head_major")
+    return packed_attention(qkv, heads, layout)
 
 
 packed_attention.launches = 0

@@ -23,8 +23,12 @@ P.V as the TPU kernel does; its plain version is K1's own
 lse); K6 (`attention.fused_attention`) runs it on its q, k, v views. K1's
 bf16 backward with d in {32, 64, 128} is K4's, at every N.
 
-`tiled_attention(qkv, heads)` has K1's contract (ops/kernels/attention.py):
-the (B, N, 3C) qkv-major projection in, the h-major (B, N, C) context out;
+`tiled_attention(qkv, heads, layout)` has K1's contract (ops/kernels/
+attention.py): the (B, N, 3C) projection in, qkv-major ([q | k | v], heads
+within each) or head-major ([h0 (q | k | v) | h1 (q | k | v) | ...], the
+packing of attn_impl="fused_tp"), the h-major (B, N, C) context out. The
+layout moves only where a kernel reads q, k and v and writes their
+gradients (a head stride and two offsets, `LAYOUTS`); nothing is permuted;
 it is a `torch.autograd.Function` whose backward is
 `tiled_attention_backward`. In bf16 on the card, where qkv needs a
 gradient, it saves (qkv, out, lse); otherwise only qkv, and serving (no
@@ -66,11 +70,18 @@ __all__ = [
     "short_forward",
     "short_attention_reference",
     "attention_route",
+    "split_qkv",
+    "pack_qkv",
+    "LAYOUTS",
     "k1_smem_bytes",
     "max_shared_memory",
 ]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The packings of the (B, N, 3C) qkv projection; the kernels take the second
+# as their `head_major` flag. Column of (t, h, c), t in {q, k, v}:
+# t * C + h * d + c qkv-major, h * 3d + t * d + c head-major.
+LAYOUTS = ("qkv_major", "head_major")
 HEAD_DIMS = (32, 64, 128)
 # Query rows per chunk of the plain versions: (B, heads, 256, N) f32 scores,
 # 0.9 GB at (64, 2304, 1152).
@@ -121,7 +132,8 @@ def attention_route(N: int, d: int, dtype: torch.dtype, limit: int,
         d in {32, 64, 80, 128}, bf16 d = 80), as the JAX package's
         packed_attention hands such shapes to its row-tiled kernel;
       * else "no kernel (d=.., N=..)": the card raises
-        NotImplementedError, the CPU computes the plain version."""
+        NotImplementedError, the CPU computes the plain version.
+    The qkv layout takes no part: every kernel reads both (`LAYOUTS`)."""
     if dtype == torch.bfloat16 and d in HEAD_DIMS:
         return SM90_SHORT if N <= SHORT_MAX_N and not backward else SM90_TILED
     if k1_smem_bytes(N, d, dtype) <= limit:
@@ -129,6 +141,23 @@ def attention_route(N: int, d: int, dtype: torch.dtype, limit: int,
     if d in CUDA_CORE_DIMS[dtype]:
         return K4_CUDA_CORES
     return f"{NO_KERNEL} (d={d}, N={N})"
+
+
+def split_qkv(qkv: torch.Tensor, heads: int, layout: str = "qkv_major"):
+    """Views q, k, v, each (B, N, heads, d), of a (B, N, 3C) qkv in `layout`."""
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    if layout == "head_major":
+        return qkv.reshape(B, N, heads, 3, d).unbind(3)
+    return qkv.reshape(B, N, 3, heads, d).unbind(2)
+
+
+def pack_qkv(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+             layout: str = "qkv_major") -> torch.Tensor:
+    """(B, N, 3C) in `layout` from three (B, N, heads, d): split_qkv's inverse."""
+    B, N, H, d = dq.shape
+    return torch.stack([dq, dk, dv], dim=3 if layout == "head_major" else 2).reshape(
+        B, N, 3 * H * d)
 
 
 def _head_dims(dtype: torch.dtype) -> tuple[int, ...]:
@@ -142,34 +171,33 @@ def _wgmma(qkv: torch.Tensor, heads: int) -> bool:
     return qkv.dtype == torch.bfloat16 and qkv.shape[2] // 3 // heads in HEAD_DIMS
 
 
-def short_attention_reference(qkv: torch.Tensor, heads: int):
+def short_attention_reference(qkv: torch.Tensor, heads: int, layout: str = "qkv_major"):
     """Plain version of `short_forward`, in the TPU kernel's order: the
     context of `attention.packed_attention_reference` (f32 softmax, P
     rounded to qkv's dtype before P.V) and the row log-sum-exp of the
     scaled scores, (B, heads, N) f32. Returns (out, lse)."""
     B, N, C3 = qkv.shape
-    q, k, v, d, scale = _heads_split(qkv, heads)
+    q, k, v, d, scale = _heads_split(qkv, heads, layout)
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k) * scale
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v)
     return out.reshape(B, N, C3 // 3).to(qkv.dtype), torch.logsumexp(s, dim=-1)
 
 
-def _heads_split(qkv: torch.Tensor, heads: int):
-    B, N, C3 = qkv.shape
-    d = C3 // 3 // heads
-    q, k, v = qkv.reshape(B, N, 3, heads, d).unbind(2)
+def _heads_split(qkv: torch.Tensor, heads: int, layout: str = "qkv_major"):
+    q, k, v = split_qkv(qkv, heads, layout)
+    d = q.shape[-1]
     return q, k.float(), v.float(), d, 1.0 / d**0.5
 
 
-def tiled_attention_reference(qkv: torch.Tensor, heads: int,
-                              chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+def tiled_attention_reference(qkv: torch.Tensor, heads: int, chunk: int = PLAIN_CHUNK,
+                              layout: str = "qkv_major") -> torch.Tensor:
     """Plain forward, line by line `_tiled_fwd_kernel` (attention_tiled.py:
     119-144), over chunks of `chunk` query rows: s = q.k * scale in f32,
     s - rowmax, exp, divided by its row sum, P rounded to qkv's dtype before
     P.V in f32; the context (B, N, C) in qkv's dtype."""
     B, N, C3 = qkv.shape
-    q, k, v, d, scale = _heads_split(qkv, heads)
+    q, k, v, d, scale = _heads_split(qkv, heads, layout)
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     for n0 in range(0, N, chunk):
         s = torch.einsum("bnhd,bmhd->bhnm", q[:, n0:n0 + chunk].float(), k) * scale
@@ -182,7 +210,8 @@ def tiled_attention_reference(qkv: torch.Tensor, heads: int,
 
 
 def tiled_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
-                                  chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                                  chunk: int = PLAIN_CHUNK,
+                                  layout: str = "qkv_major") -> torch.Tensor:
     """Plain backward, line by line `_tiled_bwd_kernel` (attention_tiled.py:
     147-192), over chunks of query rows: the f32 softmax recomputed from qkv;
     dP = dO V^T; dsum = rowsum(dP * P) over the unrounded P;
@@ -190,7 +219,7 @@ def tiled_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: 
     and dV += round(P)^T dO summed in f32 over the chunks. round() is to
     qkv's dtype. Returns dqkv (B, N, 3C) packed like qkv, in its dtype."""
     B, N, C3 = qkv.shape
-    q, k, v, d, scale = _heads_split(qkv, heads)
+    q, k, v, d, scale = _heads_split(qkv, heads, layout)
     do = dout.reshape(B, N, heads, d)
     rnd = lambda t: t.to(qkv.dtype).float()
     dq = torch.empty((B, N, heads, d), dtype=torch.float32, device=qkv.device)
@@ -210,7 +239,7 @@ def tiled_attention_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: 
         dk += torch.einsum("bhnm,bnhd->bmhd", ds, qc)
         dv += torch.einsum("bhnm,bnhd->bmhd", rnd(p), doc)
     dq, dk, dv = (t.to(qkv.dtype) for t in (dq, dk, dv))
-    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3)
+    return pack_qkv(dq, dk, dv, layout)
 
 
 def _heads_d(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -220,7 +249,7 @@ def _heads_d(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def tiled_attention_online_reference(qkv: torch.Tensor, heads: int, chunk: int = PLAIN_CHUNK,
-                                     key_tile: int = KEY_TILE):
+                                     key_tile: int = KEY_TILE, layout: str = "qkv_major"):
     """Plain forward in the bf16 kernel's order: per chunk of query rows,
     one sweep over tiles of `key_tile` keys with the running max m (raw
     scores) and sum l; p = 2^(s * scale * log2 e - m * scale * log2 e),
@@ -229,7 +258,7 @@ def tiled_attention_online_reference(qkv: torch.Tensor, heads: int, chunk: int =
     lse = m * scale + log l. Returns (out (B, N, C) in qkv's dtype, lse
     (B, heads, N) f32)."""
     B, N, C3 = qkv.shape
-    q, k, v, d, scale = _heads_split(qkv, heads)
+    q, k, v, d, scale = _heads_split(qkv, heads, layout)
     sl2 = scale * LOG2E
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
@@ -256,7 +285,8 @@ def tiled_attention_online_reference(qkv: torch.Tensor, heads: int, chunk: int =
 def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                                          out: torch.Tensor | None = None,
                                          lse: torch.Tensor | None = None,
-                                         chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                                         chunk: int = PLAIN_CHUNK,
+                                         layout: str = "qkv_major") -> torch.Tensor:
     """Plain backward in the bf16 kernels' order, from the forward's `out`
     and `lse` (made by `tiled_attention_online_reference` when either is
     None): per chunk of query rows P = 2^(S * scale * log2 e - lse * log2 e),
@@ -265,9 +295,9 @@ def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, 
     scale); dQ = dS K, dK += dS^T Q and dV += round(P)^T dO in f32. Returns
     dqkv (B, N, 3C) in qkv's dtype."""
     if out is None or lse is None:
-        out, lse = tiled_attention_online_reference(qkv, heads, chunk)
+        out, lse = tiled_attention_online_reference(qkv, heads, chunk, layout=layout)
     B, N, C3 = qkv.shape
-    q, k, v, d, scale = _heads_split(qkv, heads)
+    q, k, v, d, scale = _heads_split(qkv, heads, layout)
     sl2 = scale * LOG2E
     do = _heads_d(dout, heads)
     exact = N <= EXACT_D_MAX_N
@@ -289,7 +319,7 @@ def tiled_attention_online_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, 
         dk += torch.einsum("bhnm,bnhd->bmhd", ds, qc)
         dv += torch.einsum("bhnm,bnhd->bmhd", rnd(p), doc)
     dq, dk, dv = (t.to(qkv.dtype) for t in (dq, dk, dv))
-    return torch.stack([dq, dk, dv], dim=2).reshape(B, N, C3)
+    return pack_qkv(dq, dk, dv, layout)
 
 
 def _lib() -> ctypes.CDLL:
@@ -298,11 +328,11 @@ def _lib() -> ctypes.CDLL:
     lib = library()
     if not getattr(lib, "_tiled_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
-        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-        lib.tiled_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        lib.tiled_attention_sm90_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.short_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.tiled_attention_fwd.argtypes = [ptr, ptr] + [i32] * 7 + [ptr]
+        lib.tiled_attention_bwd.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.tiled_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.tiled_attention_sm90_bwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        lib.short_attention_sm90_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
         for name in ("tiled_attention_fwd", "tiled_attention_bwd", "tiled_attention_sm90_fwd",
                      "tiled_attention_sm90_bwd", "short_attention_sm90_fwd"):
             getattr(lib, name).restype = i32
@@ -327,12 +357,8 @@ def max_shared_memory(device: int) -> int:
 
 
 def _check(qkv: torch.Tensor, heads: int, layout: str, what: str) -> None:
-    if layout == "head_major":
-        raise NotImplementedError(
-            f"{what}: layout='head_major' is the tensor-parallel packing, not ported "
-            "to PyTorch yet (ROADMAP item 13)")
-    if layout != "qkv_major":
-        raise ValueError(f"{what}: unknown layout {layout!r}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"{what}: unknown layout {layout!r} (one of {LAYOUTS})")
     if qkv.dim() != 3:
         raise ValueError(f"{what}: qkv must be (B, N, 3C), got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -381,7 +407,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
+def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool, head_major: bool):
     """One forward launch: (out, lse), lse None unless asked for (bf16)."""
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
@@ -391,10 +417,11 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
             lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_sm90_fwd(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-            B, N, C3 // 3, heads, device, _stream(qkv))
+            B, N, C3 // 3, heads, int(head_major), device, _stream(qkv))
     else:
         err = _lib().tiled_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads,
-                                         DTYPES[qkv.dtype], device, _stream(qkv))
+                                         int(head_major), DTYPES[qkv.dtype], device,
+                                         _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -402,7 +429,8 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool):
 
 
 # The forward ops' schema: the context and the lse (empty where none is made).
-_QKV_SCHEMA = "(Tensor qkv, int heads, bool with_lse) -> (Tensor, Tensor)"
+_QKV_SCHEMA = ("(Tensor qkv, int heads, bool with_lse, bool head_major=False) "
+               "-> (Tensor, Tensor)")
 # An op's body makes its inputs contiguous before it reads their pointers:
 # the wrappers check contiguity when a program is traced, on fake tensors,
 # and a loaded program's real tensors can differ from them in layout (a
@@ -411,31 +439,33 @@ _QKV_SCHEMA = "(Tensor qkv, int heads, bool with_lse) -> (Tensor, Tensor)"
 # contiguous tensor passes through uncopied.
 
 
-def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
+def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False,
+                  layout: str = "qkv_major"):
     """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
     tensor (or under `plain_versions()`), else one kernel launch through the
     `probpose::tiled_attention_fwd` op; lse, the (B, heads, N) f32 row
     log-sum-exp, only on the wgmma route (bf16, d in {32, 64, 128}) on the
     card with `with_lse`, else None."""
     if kernels.use_plain(qkv, "tiled_attention"):
-        return tiled_attention_reference(qkv, heads), None
-    out, lse = torch.ops.probpose.tiled_attention_fwd(qkv, heads, with_lse)
+        return tiled_attention_reference(qkv, heads, layout=layout), None
+    out, lse = torch.ops.probpose.tiled_attention_fwd(qkv, heads, with_lse,
+                                                      layout == "head_major")
     return out, (lse if with_lse and _wgmma(qkv, heads) else None)
 
 
 @torch.library.custom_op("probpose::tiled_attention_fwd", mutates_args=(), schema=_QKV_SCHEMA)
-def _tiled_fwd_op(qkv, heads, with_lse):
+def _tiled_fwd_op(qkv, heads, with_lse, head_major=False):
     """K4's forward launch as an op that torch.export records; the lse is
     an empty tensor where none is made."""
     qkv = qkv.contiguous()  # at run time: the note at _QKV_SCHEMA
     device = _device(qkv, heads, False, "tiled_attention")
-    out, lse = _launch_fwd(qkv, heads, device, with_lse)
+    out, lse = _launch_fwd(qkv, heads, device, with_lse, head_major)
     tiled_attention.launches += 1
     return out, _no_lse(qkv) if lse is None else lse
 
 
 @_tiled_fwd_op.register_fake
-def _(qkv, heads, with_lse):
+def _(qkv, heads, with_lse, head_major=False):
     B, N, C3 = qkv.shape
     lse_shape = (B, heads, N) if with_lse and _wgmma(qkv, heads) else (0,)
     return qkv.new_empty((B, N, C3 // 3)), qkv.new_empty(lse_shape, dtype=torch.float32)
@@ -446,26 +476,28 @@ def _no_lse(qkv: torch.Tensor) -> torch.Tensor:
     return torch.empty((0,), dtype=torch.float32, device=qkv.device)
 
 
-def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False):
+def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False,
+                  layout: str = "qkv_major"):
     """K1's bf16 forward for N <= 256 on a checked qkv: (out, lse). The plain
     version for a CPU tensor (or under `plain_versions()`), else one launch
     of the short kernel of csrc/tiled_attention_sm90.cu through the
     `probpose::short_attention_fwd` op; lse, the (B, heads, N) f32 row
     log-sum-exp, only with `with_lse`, else None."""
     if kernels.use_plain(qkv, "short_forward"):
-        out, lse = short_attention_reference(qkv, heads)
+        out, lse = short_attention_reference(qkv, heads, layout)
         return out, lse if with_lse else None
     B, N, C3 = qkv.shape
     d = C3 // 3 // heads
     if qkv.dtype != torch.bfloat16 or d not in HEAD_DIMS or N > SHORT_MAX_N:
         raise ValueError(f"short_forward: takes bf16 with d in {HEAD_DIMS} and N <= "
                          f"{SHORT_MAX_N}, got N={N}, d={d} ({qkv.dtype})")
-    out, lse = torch.ops.probpose.short_attention_fwd(qkv, heads, with_lse)
+    out, lse = torch.ops.probpose.short_attention_fwd(qkv, heads, with_lse,
+                                                      layout == "head_major")
     return out, lse if with_lse else None
 
 
 @torch.library.custom_op("probpose::short_attention_fwd", mutates_args=(), schema=_QKV_SCHEMA)
-def _short_fwd_op(qkv, heads, with_lse):
+def _short_fwd_op(qkv, heads, with_lse, head_major=False):
     """The short kernel's launch as an op that torch.export records; the
     lse is an empty tensor without `with_lse`."""
     qkv = qkv.contiguous()  # at run time: the note at _QKV_SCHEMA
@@ -479,7 +511,8 @@ def _short_fwd_op(qkv, heads, with_lse):
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device) if with_lse else None
     err = _lib().short_attention_sm90_fwd(qkv.data_ptr(), out.data_ptr(),
                                           lse.data_ptr() if with_lse else None,
-                                          B, N, C3 // 3, heads, device, _stream(qkv))
+                                          B, N, C3 // 3, heads, int(head_major), device,
+                                          _stream(qkv))
     if err:
         raise RuntimeError(f"short_forward: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -488,7 +521,7 @@ def _short_fwd_op(qkv, heads, with_lse):
 
 
 @_short_fwd_op.register_fake
-def _(qkv, heads, with_lse):
+def _(qkv, heads, with_lse, head_major=False):
     B, N, C3 = qkv.shape
     return (qkv.new_empty((B, N, C3 // 3)),
             qkv.new_empty((B, heads, N) if with_lse else (0,), dtype=torch.float32))
@@ -496,14 +529,16 @@ def _(qkv, heads, with_lse):
 
 def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                              out: torch.Tensor | None = None,
-                             lse: torch.Tensor | None = None) -> torch.Tensor:
-    """dqkv (B, N, 3C) of `tiled_attention` from qkv and the context's
+                             lse: torch.Tensor | None = None, *,
+                             layout: str = "qkv_major") -> torch.Tensor:
+    """dqkv (B, N, 3C), in qkv's `layout`, of `tiled_attention` from qkv and the context's
     gradient dout (B, N, C), both of one dtype; dout is made contiguous. In
     bf16 on the card the backward reads the forward's context `out` and
     `lse`; where either is None, it runs the forward kernel first to make
     them, counted in `tiled_attention_backward.recomputes` and not as a
     forward launch. The CPU path and the CUDA-core kernels ignore them."""
-    _check(qkv, heads, "qkv_major", "tiled_attention_backward")
+    _check(qkv, heads, layout, "tiled_attention_backward")
+    head_major = layout == "head_major"
     B, N, C3 = qkv.shape
     if tuple(dout.shape) != (B, N, C3 // 3):
         raise ValueError(f"tiled_attention_backward: dout {tuple(dout.shape)} does not "
@@ -512,7 +547,7 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         raise TypeError(f"tiled_attention_backward: dout is {dout.dtype} on {dout.device}, "
                         f"qkv {qkv.dtype} on {qkv.device}")
     if kernels.use_plain(qkv, "tiled_attention_backward"):
-        return tiled_attention_bwd_reference(qkv, dout, heads)
+        return tiled_attention_bwd_reference(qkv, dout, heads, layout=layout)
     device = _device(qkv, heads, True, "tiled_attention_backward")
     dout = dout.contiguous()
     if dout.data_ptr() % 16:
@@ -520,7 +555,7 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     dqkv = torch.empty_like(qkv)
     if _wgmma(qkv, heads):
         if out is None or lse is None:
-            out, lse = _launch_fwd(qkv, heads, device, with_lse=True)
+            out, lse = _launch_fwd(qkv, heads, device, True, head_major)
             tiled_attention_backward.recomputes += 1
         if out.shape != dout.shape or out.dtype != qkv.dtype or not out.is_contiguous() \
                 or lse.shape != (B, heads, N) or lse.dtype != torch.float32 \
@@ -530,13 +565,13 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         dsum = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_sm90_bwd(
             qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            dqkv.data_ptr(), B, N, C3 // 3, heads, int(N <= EXACT_D_MAX_N), device,
-            _stream(qkv))
+            dqkv.data_ptr(), B, N, C3 // 3, heads, int(head_major), int(N <= EXACT_D_MAX_N),
+            device, _stream(qkv))
     else:
         stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
         err = _lib().tiled_attention_bwd(
             qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, N, C3 // 3, heads, DTYPES[qkv.dtype], device, _stream(qkv))
+            B, N, C3 // 3, heads, int(head_major), DTYPES[qkv.dtype], device, _stream(qkv))
     if err:
         raise RuntimeError(f"tiled_attention_backward: kernel launch failed with cudaError "
                            f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -550,23 +585,24 @@ class _TiledAttention(torch.autograd.Function):
     qkv."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
-        ctx.heads = heads
-        out, lse = tiled_forward(qkv, heads, with_lse=ctx.needs_input_grad[0])
+    def forward(ctx, qkv: torch.Tensor, heads: int, layout: str) -> torch.Tensor:
+        ctx.heads, ctx.layout = heads, layout
+        out, lse = tiled_forward(qkv, heads, ctx.needs_input_grad[0], layout)
         ctx.save_for_backward(*((qkv,) if lse is None else (qkv, out, lse)))
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         qkv, *residuals = ctx.saved_tensors
-        return tiled_attention_backward(qkv, grad, ctx.heads, *residuals), None
+        return (tiled_attention_backward(qkv, grad, ctx.heads, *residuals, layout=ctx.layout),
+                None, None)
 
 
 def tiled_attention(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv, by K4
-    at any N; differentiable through K4's backward."""
+    """softmax(q k^T / sqrt(d)) v per head from packed (B, N, 3C) qkv in
+    `layout`, by K4 at any N; differentiable through K4's backward."""
     _check(qkv, heads, layout, "tiled_attention")
-    return _TiledAttention.apply(qkv, heads)
+    return _TiledAttention.apply(qkv, heads, layout)
 
 
 short_forward.launches = 0

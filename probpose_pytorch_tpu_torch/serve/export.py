@@ -76,10 +76,6 @@ PLATFORMS = ("cpu", "cuda")
 PARAMS = "params.pt"
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
-
-
 def _pow2_ladder(top: int) -> list[int]:
     """Powers of two up to `top`, plus `top` itself: callers pad the
     unique-frame count to min(next_pow2(F), bucket), so a bucket that is no
@@ -291,8 +287,9 @@ def _fit_shape(shapes, H: int, W: int) -> tuple[int, int]:
 
 
 def _check_exportable(predictor, what: str) -> None:
-    if getattr(predictor, "mesh", None) is not None:
-        raise _unported(f"{what} of a mesh predictor", 13)
+    if getattr(predictor, "mesh", None) is not None:  # JAX's refusal (serve/export.py there)
+        raise ValueError("bundle export is single-device; pass a mesh-free predictor "
+                         "(data-parallel serving replicates single-device bundles)")
 
 
 # --------------------------------------------------------------------------

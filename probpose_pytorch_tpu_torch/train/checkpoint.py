@@ -9,6 +9,13 @@ under a temporary name and moved into place with `os.replace`, so a reader
 never sees half a checkpoint. A JAX run's state loads through
 compat/from_jax.py:load_jax_train_state instead; `write_run` writes a
 fresh run of given weights for the checkpoint tools.
+
+A run on a mesh saves the same file as a run on one device: every rank
+calls `save`, the split parameters, their EMA and the moments are gathered
+whole (train/state.py: the optimizer's `ShardPlan`), rank 0 writes, and
+every rank waits for the file before it goes on (the write is then not
+asynchronous). Every rank restores from the whole tensors and keeps its
+slices, so a checkpoint moves between one device and any mesh.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from pathlib import Path
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from probpose_pytorch_tpu_torch.train.state import TrainState
+from probpose_pytorch_tpu_torch.train.state import TrainState, _part, _whole
 
 __all__ = ["CheckpointManager", "state_is_finite", "write_run"]
 
@@ -59,20 +67,39 @@ def state_is_finite(state: TrainState) -> bool:
     device per call, at save sites only."""
     tensors = list(state.params) + list(state.ema_params or [])
     tensors += [b for b in state.model.buffers() if b.is_floating_point()]
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+    finite = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    if _on_mesh(state):  # every rank decides alike, or the save's gathers hang
+        finite = finite.float()
+        dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+    return bool(finite)
+
+
+def _on_mesh(state: TrainState) -> bool:
+    return getattr(state.model, "mesh", None) is not None
+
+
+def _split(state: TrainState) -> tuple[list, object]:
+    """(each parameter's model-axis dim, the model group) of the state's plan."""
+    plan = getattr(state.tx, "plan", None)
+    if plan is None or plan.tp_dims is None:
+        return [None] * len(state.params), None
+    return plan.tp_dims, plan.tp_group
 
 
 def _state_payload(state: TrainState) -> dict[str, Any]:
     """The whole train state as CPU tensors (a snapshot: training may go on
     changing the live tensors in place)."""
     model = state.model
+    dims, group = _split(state)
+    whole = lambda ts: {n: _whole(t.detach(), d, group).to("cpu", copy=True)
+                        for n, t, d in zip(state.names, ts, dims)}
+    opt = state.tx.whole_state(state.opt_state) if _on_mesh(state) else state.opt_state
     return {
         "step": state.host_step,
-        "params": {n: p.detach().to("cpu", copy=True) for n, p in zip(state.names, state.params)},
+        "params": whole(state.params),
         "buffers": {n: b.detach().to("cpu", copy=True) for n, b in model.named_buffers()},
-        "opt_state": _to_host(state.opt_state),
-        "ema": (None if state.ema_params is None else
-                {n: e.detach().to("cpu", copy=True) for n, e in zip(state.names, state.ema_params)}),
+        "opt_state": _to_host(opt),
+        "ema": None if state.ema_params is None else whole(state.ema_params),
     }
 
 
@@ -86,15 +113,20 @@ def _load_payload(state: TrainState, payload: dict[str, Any]) -> None:
         raise ValueError("the checkpoint's buffer names differ from the model's")
     if (payload["ema"] is None) != (state.ema_params is None):
         raise ValueError("the checkpoint and the state disagree on keeping an EMA")
+    dims, group = _split(state)
     with torch.no_grad():
-        for n, p in zip(state.names, state.params):
-            p.copy_(_like(p, payload["params"][n], n))
+        for n, p, d in zip(state.names, state.params, dims):
+            p.copy_(_like(p, _part(payload["params"][n], d, group), n))
         for n, b in buffers.items():
             b.copy_(_like(b, payload["buffers"][n], n))
         if state.ema_params is not None:
-            state.ema_params = [_like(e, payload["ema"][n], n)
-                                for n, e in zip(state.names, state.ema_params)]
-    state.opt_state = _like(state.opt_state, payload["opt_state"], "opt_state")
+            state.ema_params = [_like(e, _part(payload["ema"][n], d, group), n)
+                                for n, e, d in zip(state.names, state.ema_params, dims)]
+    if _on_mesh(state):
+        template = state.tx.whole_state(state.opt_state)
+        state.opt_state = state.tx.part_state(_like(template, payload["opt_state"], "opt_state"))
+    else:
+        state.opt_state = _like(state.opt_state, payload["opt_state"], "opt_state")
     state.step = torch.tensor(payload["step"], dtype=torch.int32, device=state.step.device)
     state.host_step = int(payload["step"])
 
@@ -131,7 +163,11 @@ class CheckpointManager:
         value writes."""
         self.wait()
         payload = _state_payload(state)
-        if self.async_save:
+        if _on_mesh(state):
+            if dist.get_rank() == 0:
+                self._write(step, payload, metadata)
+            dist.barrier()
+        elif self.async_save:
             self._thread = threading.Thread(target=self._write_async,
                                             args=(step, payload, metadata))
             self._thread.start()

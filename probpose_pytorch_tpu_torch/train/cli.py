@@ -8,15 +8,27 @@ Writes `config.json` into `out_dir`, builds the datasets of the config
 (for `mixed`, those of its `mixed_datasets`: data/mixed.py) and their crop
 cache when `cache_dir` is set, and runs `Trainer.fit`, which logs to
 `out_dir/metrics.jsonl` and checkpoints into `out_dir/checkpoints`.
-It runs on the card unless `--device cpu` is given. One process on one
-device: a mesh or several processes raise (ROADMAP item 13).
+It runs on the card unless `--device cpu` is given.
+
+Several processes, one per rank (parallel/distributed.py): JAX's launcher
+variables on every process,
+
+    JAX_COORDINATOR_ADDRESS=host:port JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=<i> \
+        python -m probpose_pytorch_tpu_torch.train.cli <out_dir> --config cfg.json
+
+or torchrun (`torchrun --nproc-per-node 2 -m probpose_pytorch_tpu_torch.train.cli
+...`). The mesh is built as JAX's CLI builds it: (data, model) over the
+world with `model_parallel` on the model axis (make_hybrid_mesh). Every rank
+loads its data slice of each global batch; rank 0 writes config.json, the
+log and the checkpoints. The data axis must divide the train and val
+batches (JAX's CLI shrinks its mesh to a sub-mesh there; a port mesh spans
+the world). `pipeline_parallel > 1` is ROADMAP item 13b.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 from pathlib import Path
 
 __all__ = ["main", "build_datasets"]
@@ -69,12 +81,19 @@ def main(argv=None) -> None:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from probpose_pytorch_tpu_torch.data import batch_iterator
+    from probpose_pytorch_tpu_torch.parallel import (
+        make_hybrid_mesh,
+        maybe_initialize_distributed,
+        process_info,
+    )
+    from probpose_pytorch_tpu_torch.parallel.mesh import mesh_coords, mesh_shape
     from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "training in several processes is not ported to PyTorch yet (ROADMAP item 13)")
+    maybe_initialize_distributed(device=args.device)
+    rank, world = process_info()
     cfg = TrainConfig.load(args.config) if args.config else TrainConfig()
     updates: dict = {"out_dir": str(args.out_dir)}
     if args.data_root:
@@ -84,20 +103,38 @@ def main(argv=None) -> None:
     if args.no_resume:
         updates["resume"] = False
     cfg = dataclasses.replace(cfg, **updates)
-    args.out_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(args.out_dir / "config.json")
+    if rank == 0:
+        args.out_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save(args.out_dir / "config.json")
+        train_ds, val_ds = build_datasets(cfg)  # rank 0 fills a crop cache first
+    if world > 1:
+        dist.barrier()
+    if rank != 0:
+        train_ds, val_ds = build_datasets(cfg)
 
-    train_ds, val_ds = build_datasets(cfg)
     steps_per_epoch = max(len(train_ds) // cfg.train_batch_size, 1)
-    trainer = Trainer.create(cfg, steps_per_epoch, device=args.device)
+    mesh, shard_kw = None, {}
+    if world > 1 or cfg.model_parallel > 1 or cfg.pipeline_parallel > 1:
+        data = world // cfg.model_parallel
+        if data and (cfg.train_batch_size % data or cfg.val_batch_size % data):
+            raise ValueError(f"the data axis ({data} = {world} processes / model_parallel "
+                             f"{cfg.model_parallel}) must divide train_batch_size "
+                             f"{cfg.train_batch_size} and val_batch_size {cfg.val_batch_size}")
+        mesh = make_hybrid_mesh(cfg.model_parallel)
+        # each rank loads its data slice of every global batch
+        shard_kw = dict(process_index=mesh_coords(mesh)["data"],
+                        process_count=mesh_shape(mesh)["data"])
+    trainer = Trainer.create(cfg, steps_per_epoch, mesh, device=args.device)
+    trainer.local_batches = mesh is not None
 
     def train_batches():
         # The (seed, 0) permutation every epoch, as the JAX CLI draws it.
         return batch_iterator(train_ds, cfg.train_batch_size, shuffle=True, seed=cfg.seed,
-                              num_workers=cfg.num_workers)
+                              num_workers=cfg.num_workers, **shard_kw)
 
     def val_batches():
-        return batch_iterator(val_ds, cfg.val_batch_size, num_workers=cfg.num_workers)
+        return batch_iterator(val_ds, cfg.val_batch_size, num_workers=cfg.num_workers,
+                              **shard_kw)
 
     trainer.fit(train_batches, val_batches, max_steps=args.max_steps)
 

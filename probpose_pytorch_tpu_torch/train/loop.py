@@ -21,13 +21,23 @@ metric and checkpoints on SIGTERM, as the JAX `fit` does.
 `Trainer.create` does (train/state.py). With `TrainConfig.distill`, a
 frozen teacher loaded from a port checkpoint runs in eval mode on the
 step's augmented crops and the student also learns the MSE toward its
-heatmaps (or SimCC logits) and scalar branches. What the JAX loop does and
-this one does not yet raises `NotImplementedError` naming its ROADMAP
-item: meshes and pipelines (item 13).
+heatmaps (or SimCC logits) and scalar branches.
+
+On a mesh (parallel/mesh.py) every rank runs the step on its rows of the
+global batch, as JAX's one program over the global batch computes: the
+augmentation draws are the global batch's, the model runs the rank's rows
+(and its slices of a split trunk), the head outputs and the targets are
+gathered over the ranks whose head rows make the batch, so every rank
+computes the one global loss and metrics (each mean, each weighted mean
+with its count, each accuracy's max(count, 1) is the global batch's), and
+the gradients are summed over the data axis, the head's also over the
+model axis where the model ranks share the head's rows. The pipeline axis
+and its schedules raise `NotImplementedError` naming ROADMAP item 13b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import signal
 import threading
@@ -38,6 +48,7 @@ from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from probpose_pytorch_tpu_torch.codec import ArgMaxProbMap, Codec, ProbMap
 from probpose_pytorch_tpu_torch.codec_simcc import SimCCCodec, SimCCLabel
@@ -56,11 +67,23 @@ from probpose_pytorch_tpu_torch.ops.augment import (
     rotate_crops,
 )
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize, transform_keypoints
-from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager, state_is_finite
+from probpose_pytorch_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_reduce_,
+    gather_rows,
+)
+from probpose_pytorch_tpu_torch.parallel.mesh import mesh_coords, mesh_device, mesh_shape
+from probpose_pytorch_tpu_torch.parallel.sharding import local_slice, shard_opt_state
+from probpose_pytorch_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    _load_payload,
+    state_is_finite,
+)
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
 from probpose_pytorch_tpu_torch.train.state import (
     MultiSteps,
     Optimizer,
+    ShardPlan,
     TrainState,
     global_norm,
     make_optimizer,
@@ -69,7 +92,8 @@ from probpose_pytorch_tpu_torch.train.state import (
 from probpose_pytorch_tpu_torch.utils.logging import MetricsLogger
 
 __all__ = ["build_codecs", "augment_batch", "load_teacher", "frozen_labels", "make_train_step",
-           "make_eval_step", "Trainer"]
+           "make_eval_step", "Trainer", "qkv_layout_of", "trunk_layout_of", "layout_metadata",
+           "restore_state_with_layout"]
 
 # A callable the train step calls after each of its stages with the stage's
 # name ("encode", "forward", "loss", "backward", "optimizer"); chip_smoke.py
@@ -77,8 +101,97 @@ __all__ = ["build_codecs", "augment_batch", "load_teacher", "frozen_labels", "ma
 StageMark = Callable[[str], None]
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
+def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+
+
+def qkv_layout_of(model_cfg) -> str:
+    """The layout of the attention's qkv columns: head-major under
+    "fused_tp" (compat/layouts.py), qkv-major under every other attn_impl."""
+    return "head_major" if model_cfg.attn_impl == "fused_tp" else "qkv_major"
+
+
+def trunk_layout_of(model_cfg) -> str:
+    """"stacked" for a pipeline-parallel trunk (ROADMAP item 13b), else
+    "per_block"."""
+    return "stacked" if model_cfg.pp_stages > 1 else "per_block"
+
+
+def layout_metadata(cfg: TrainConfig) -> dict:
+    """A checkpoint's sidecar metadata naming its qkv and trunk layouts,
+    so a restore onto another layout converts (`restore_state_with_layout`)."""
+    from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+
+    heads = ViTConfig.PRESETS.get(cfg.model.backbone, {}).get("num_heads", 0)
+    return {"qkv_layout": qkv_layout_of(cfg.model), "trunk_layout": trunk_layout_of(cfg.model),
+            "num_heads": heads, "backbone": cfg.model.backbone}
+
+
+def _qkv_moment(t: torch.Tensor, three_c: int, perm: np.ndarray) -> torch.Tensor:
+    """A moment of a qkv leaf with its axis of the 3C columns permuted
+    (Adafactor's reduced moments may have none)."""
+    for axis, n in enumerate(t.shape):
+        if n == three_c:
+            return t.index_select(axis, torch.as_tensor(perm))
+    return t
+
+
+def _convert_payload(payload: dict, names: list[str], trainable: list[str], heads: int,
+                     src: str, dst: str) -> dict:
+    """A checkpoint payload's parameters, EMA and optimizer moments from
+    qkv layout `src` to `dst`."""
+    from probpose_pytorch_tpu_torch.compat.layouts import (
+        _qkv_axis,
+        convert_qkv_layout,
+        qkv_head_major_permutation,
+    )
+
+    params = payload["params"]
+    perms = {}
+    for n, p in params.items():
+        axis = _qkv_axis(n.split("."), p.dim())
+        if axis is not None:
+            perm = qkv_head_major_permutation(p.shape[axis] // 3, heads)
+            perms[n] = (p.shape[axis], perm if dst == "head_major" else np.argsort(perm))
+
+    def moments(node):
+        if isinstance(node, dict):
+            return {k: moments(v) for k, v in node.items()}
+        if isinstance(node, list):
+            order = trainable if len(node) == len(trainable) else names
+            return [_qkv_moment(t, *perms[n]) if n in perms else t
+                    for n, t in zip(order, node)]
+        return node
+
+    out = dict(payload, params=convert_qkv_layout(params, heads, src, dst),
+               opt_state=moments(payload["opt_state"]))
+    if payload["ema"] is not None:
+        out["ema"] = convert_qkv_layout(payload["ema"], heads, src, dst)
+    return out
+
+
+def restore_state_with_layout(ckpt: CheckpointManager, target_state: TrainState,
+                              cfg: TrainConfig, step: int | None = None) -> TrainState:
+    """`ckpt.restore` with the qkv layout converted where the checkpoint's
+    metadata (none: qkv-major) differs from `cfg`'s: the parameters, the
+    EMA and the optimizer's moments alike, before a mesh takes its slices,
+    so the resume is exact. A trunk layout that differs is ROADMAP item 13b."""
+    meta = ckpt.read_metadata(step)
+    own_qkv, stored_qkv = qkv_layout_of(cfg.model), meta.get("qkv_layout", "qkv_major")
+    own_trunk, stored_trunk = trunk_layout_of(cfg.model), meta.get("trunk_layout", "per_block")
+    if stored_trunk != own_trunk:
+        raise _unported(f"restoring a {stored_trunk!r} trunk onto a {own_trunk!r} one", "13b")
+    heads = meta.get("num_heads") or layout_metadata(cfg)["num_heads"]
+    if stored_qkv == own_qkv or not heads:
+        return ckpt.restore(target_state, step=step)
+    tx = target_state.tx
+    inner = getattr(tx, "inner", tx)
+    trainable = (target_state.names if inner.trainable is None
+                 else [target_state.names[i] for i in inner.trainable])
+    _load_payload(target_state, _convert_payload(ckpt.read(step), target_state.names, trainable,
+                                                  heads, stored_qkv, own_qkv))
+    print(f"[checkpoint] converted qkv layout: {stored_qkv} -> {own_qkv}")
+    return target_state
 
 
 def build_codecs(cfg: TrainConfig) -> tuple[Codec, Codec] | tuple[SimCCCodec, SimCCCodec]:
@@ -219,6 +332,48 @@ def _is_pair(loc: Any) -> bool:
     return isinstance(loc, (tuple, list))
 
 
+def _draw_rows(cfg: TrainConfig, step: int, rows: int, mesh: Any,
+               device: torch.device) -> AugmentDraws:
+    """The draws of this rank's `rows` of the step's global batch."""
+    data = mesh_shape(mesh).get("data", 1)
+    draws = draw_augment(cfg.seed, step, rows * data, cfg.augment, device)
+    if data == 1:
+        return draws
+    index = mesh_coords(mesh)["data"]
+    return AugmentDraws(**{f.name: local_slice(getattr(draws, f.name), 0, index, data)
+                           for f in dataclasses.fields(draws)})
+
+
+def _gather_global(model: torch.nn.Module, rows: int, pred: Any, gt: dict) -> tuple[Any, dict]:
+    """(pred, gt) of the global batch from this rank's `rows`: the head's
+    outputs (its head rows) and the targets, gathered over the ranks whose
+    head rows make the batch (ProbPoseModel.head_group)."""
+    group = model.head_group(rows)
+    if model.head_split(rows):  # the targets of this rank's share of the rows
+        sub = model.mesh.get_group("model")
+        m, index = mesh_shape(model.mesh)["model"], dist.get_rank(sub)
+        gt = {k: local_slice(v, 0, index, m) for k, v in gt.items()}
+    gather = lambda x: ([gather_rows(t, group) for t in x] if isinstance(x, (tuple, list))
+                        else gather_rows(x, group))
+    return [gather(x) for x in pred], {k: all_gather_cat(v, group) for k, v in gt.items()}
+
+
+def _reduce_grads(model: torch.nn.Module, names: list[str], grads: list[torch.Tensor],
+                  rows: int) -> None:
+    """Sum the gradients over the data axis, in place (one flat buffer),
+    and the head's then also over the model axis where the model ranks
+    share the head's rows."""
+    mesh = model.mesh
+    flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), mesh.get_group("data"))
+    for g, t in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(t)
+    if model.head_split(rows):
+        head = [grads[i] for i, n in enumerate(names) if n.startswith("head.")]
+        flat = all_reduce_(torch._utils._flatten_dense_tensors(head), mesh.get_group("model"))
+        for g, t in zip(head, torch._utils._unflatten_dense_tensors(flat, head)):
+            g.copy_(t)
+
+
 def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
                     loss_fn: ProbPoseLoss | SimCCLoss, tx: Optimizer | MultiSteps,
                     cfg: TrainConfig,
@@ -234,22 +389,26 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
     teacher's on the same crops (the mean of the two axes' MSEs for SimCC
     logits), d_sc the mean of the MSEs of the
     probability, visibility and oks maps, logged as
-    `loss/distill_heatmap` and `loss/distill_scalar`."""
+    `loss/distill_heatmap` and `loss/distill_scalar`. On the model's mesh,
+    the batch is this rank's rows (see the module's docstring)."""
     weights = cfg.loss_weights.as_dict()
     aug = cfg.augment
     augment = aug is not None and (aug.enabled or aug.half_body_prob > 0)
+    mesh = getattr(model, "mesh", None)
 
     def step(state: TrainState, batch: dict[str, torch.Tensor],
              mark: StageMark | None = None):
         mark = mark or (lambda name: None)
         draws = None
+        rows = batch["keypoints"].shape[0]
         if augment:
-            kpts = batch["keypoints"]
-            draws = draw_augment(cfg.seed, state.host_step, kpts.shape[0], aug, kpts.device)
+            draws = _draw_rows(cfg, state.host_step, rows, mesh, batch["keypoints"].device)
         images, gt = _augment_encode(cfg, encode_codec, batch, draws)
         mark("encode")
         model.train()
         pred = model(images)
+        if mesh is not None:
+            pred, gt = _gather_global(model, rows, pred, gt)
         mark("forward")
         losses = loss_fn(gt, pred, learn_heatmaps_from_zeros=cfg.learn_heatmaps_from_zeros)
         total = _total(losses, weights)
@@ -257,6 +416,10 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
             d = cfg.distill
             with torch.no_grad():
                 tpred = teacher(images)
+                if mesh is not None:  # the teacher is whole on every rank
+                    group = mesh.get_group("data")
+                    tpred = [[all_gather_cat(t, group) for t in x] if _is_pair(x)
+                             else all_gather_cat(x, group) for x in tpred]
             if _is_pair(pred[0]):
                 d_hm = sum(_mse(a, b) for a, b in zip(pred[0], tpred[0])) / len(pred[0])
             else:
@@ -268,8 +431,12 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
         mark("loss")
         grads = torch.autograd.grad(total, state.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, state.params)]
+        plan = tx.plan
+        if mesh is not None:
+            _reduce_grads(model, state.names, grads, rows)
         mark("backward")
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, plan.tp_dims if plan else None,
+                                plan.tp_group if plan else None)
         state.apply_gradients(grads, tx, ema_decay=cfg.optim.ema_decay)
         mark("optimizer")
         metrics = {"loss": total.detach(),
@@ -284,14 +451,18 @@ def make_eval_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
                    loss_fn: ProbPoseLoss | SimCCLoss, cfg: TrainConfig) -> Callable:
     """(state, batch) -> metrics: losses, accuracies (`acc/<term>`),
     `max_heatmap` (of the x logits for SimCC, as JAX) and `mean_prob`, with
-    the model in eval mode and the BatchNorm running statistics."""
+    the model in eval mode and the BatchNorm running statistics; on the
+    model's mesh, of the global batch from this rank's rows."""
     weights = cfg.loss_weights.as_dict()
+    mesh = getattr(model, "mesh", None)
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         images, gt = _augment_encode(cfg, encode_codec, batch)
         model.eval()
         pred = model(images)
+        if mesh is not None:
+            pred, gt = _gather_global(model, images.shape[0], pred, gt)
         losses, acc = loss_fn(gt, pred, compute_acc=True)
         return {
             "loss": _total(losses, weights),
@@ -326,6 +497,12 @@ class Trainer:
     device: torch.device
     # The distillation teacher (eval mode, no gradients), outside the state.
     teacher: torch.nn.Module | None = None
+    mesh: Any = None
+    # On a mesh: whether each batch given to the trainer is already this
+    # rank's data slice (JAX's several-process feeding, batch_iterator with
+    # process_index / process_count of the data axis), else the global
+    # batch, of which the trainer takes the rank's rows.
+    local_batches: bool = False
     # (prefix, step, metrics) of every line `fit` and `validate` logged.
     history: list[tuple[str, int, dict[str, float]]] = field(default_factory=list)
 
@@ -336,22 +513,56 @@ class Trainer:
         run's state instead); the schedule spans steps_per_epoch * epochs;
         the optimizer is masked by `frozen_labels` and the teacher loaded
         by `load_teacher`. Runs on the card unless `device` asks for the
-        CPU. `mesh` sits in JAX's place; a mesh is not ported."""
-        if mesh is not None:
-            raise _unported("Trainer.create(mesh=...)", 13)
-        device = resolve_device(device, "Trainer.create")
-        if cfg.model_parallel > 1 or cfg.pipeline_parallel > 1 or cfg.shard_opt_state:
-            raise _unported("model_parallel, pipeline_parallel and shard_opt_state", 13)
+        CPU. On a `mesh` (JAX's `Trainer.create` mesh logic): "fused"
+        becomes "fused_tp" where the heads divide a model axis > 1, and any
+        fused attention "einsum" where they do not; the weights, the
+        optimizer's plan and, with `shard_opt_state` (data-parallel meshes
+        only), the ZeRO-1 moments are laid on the mesh."""
+        device = mesh_device(mesh, resolve_device(device, "Trainer.create"))
+        if cfg.pipeline_parallel > 1 or mesh_shape(mesh).get("pipe", 1) > 1:
+            raise _unported("pipeline_parallel > 1", "13b")
         if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
-        model = build_model(cfg.model, device=device, seed=cfg.seed)
+        model_size = mesh_shape(mesh).get("model", 1)
+        if model_size > 1 and cfg.model.attn_impl in ("fused", "fused_tp"):
+            from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+
+            heads = ViTConfig.PRESETS.get(cfg.model.backbone, {}).get("num_heads", 0)
+            if heads and heads % model_size == 0:
+                if cfg.model.attn_impl == "fused":
+                    print("[trainer] tensor-parallel mesh: using attn_impl='fused_tp' "
+                          "(head-major qkv layout; convert qkv-major checkpoints with "
+                          "compat.qkv_to_head_major)")
+                    cfg = dataclasses.replace(
+                        cfg, model=dataclasses.replace(cfg.model, attn_impl="fused_tp"))
+            else:
+                print(f"[trainer] attn heads ({heads}) don't divide the model axis "
+                      f"({model_size}); using 'einsum' on this mesh")
+                cfg = dataclasses.replace(
+                    cfg, model=dataclasses.replace(cfg.model, attn_impl="einsum"))
+        if mesh is not None and cfg.shard_opt_state and model_size > 1:
+            raise ValueError(
+                "shard_opt_state (ZeRO-1 over the data axis) is supported on dp-only meshes; "
+                "with tensor/pipeline parallelism the moments inherit the param layouts")
+        model = build_model(cfg.model, mesh, device=device, seed=cfg.seed)
         encode_codec, fast_codec = build_codecs(cfg)
         loss_cls = SimCCLoss if cfg.model.head_type == "simcc" else ProbPoseLoss
         loss_fn = loss_cls(fast_codec, freeze_error=cfg.freeze_error, freeze_oks=cfg.freeze_oks)
         labels = frozen_labels(cfg, [n for n, _ in model.named_parameters()])
         tx = make_optimizer(cfg.optim, steps_per_epoch * cfg.epochs, labels,
                             param_layouts(model))
+        names = [n for n, _ in model.named_parameters()]
+        if mesh is not None:
+            tx.plan = ShardPlan(
+                tp_group=mesh.get_group("model") if model_size > 1 else None,
+                tp_dims=[model.tp_splits.get(n) for n in names],
+                dp_group=mesh.get_group("data"))
         state = TrainState(model, tx, ema=cfg.optim.ema_decay is not None)
+        if mesh is not None and cfg.shard_opt_state:
+            inner = getattr(tx, "inner", tx)
+            layouts = None if inner.layouts is None else inner._masked(inner.layouts)
+            state.opt_state, tx.plan.zero_dims = shard_opt_state(state.opt_state, mesh,
+                                                                 layouts=layouts)
         teacher = None
         if cfg.distill is not None and cfg.distill.teacher_checkpoint:
             teacher = load_teacher(cfg, device)
@@ -360,12 +571,22 @@ class Trainer:
             loss_fn=loss_fn, tx=tx, state=state,
             train_step=make_train_step(model, encode_codec, loss_fn, tx, cfg, teacher),
             eval_step=make_eval_step(model, encode_codec, loss_fn, cfg),
-            device=device, teacher=teacher,
+            device=device, teacher=teacher, mesh=mesh,
         )
 
+    def _rows(self, batch: dict[str, Any]) -> dict[str, Any]:
+        """On a mesh, this rank's rows of a global batch (a batch that is
+        already the rank's slice, `local_batches`, as it is)."""
+        if self.mesh is None or self.local_batches:
+            return batch
+        return {k: local_slice(np.asarray(v), 0, mesh_coords(self.mesh)["data"],
+                               mesh_shape(self.mesh)["data"]) for k, v in batch.items()}
+
     def device_batch(self, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
-        """A host batch (numpy arrays) as tensors on the model's device."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        """A host batch (numpy arrays) as tensors on the model's device (on
+        a mesh, the rank's rows)."""
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in self._rows(batch).items()}
 
     def _prefetched(self, batches: Iterable[dict[str, Any]]) -> Iterator[dict[str, torch.Tensor]]:
         """`batches` on the device with `device_prefetch` host batches made
@@ -389,8 +610,8 @@ class Trainer:
 
             def upload(batch):
                 with torch.cuda.stream(side):
-                    return {k: torch.as_tensor(np.asarray(v)).pin_memory().to(
-                        self.device, non_blocking=True) for k, v in batch.items()}
+                    return {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory().to(
+                        self.device, non_blocking=True) for k, v in self._rows(batch).items()}
 
             def ready(batch):
                 # The step's stream waits for the copies queued so far, and
@@ -430,9 +651,13 @@ class Trainer:
           `max_recoveries` times (with none yet, log and go on);
         - `track_best_metric` into `<out_dir>/checkpoints_best`;
         - on SIGTERM (`handle_preemption`), finish the step, save, return.
+
+        On a mesh every rank runs the loop (the saves gather over the mesh)
+        and rank 0 alone logs.
         """
         cfg = self.cfg
-        logger = MetricsLogger(cfg.out_dir)
+        main = not dist.is_initialized() or dist.get_rank() == 0
+        logger = MetricsLogger(cfg.out_dir) if main else None
         ckpt = CheckpointManager(f"{cfg.out_dir}/checkpoints", keep=cfg.keep_checkpoints,
                                  async_save=cfg.async_checkpoint)
         start_step = 0
@@ -478,7 +703,8 @@ class Trainer:
             ckpt.close()
             if best is not None:
                 best.ckpt.close()
-            logger.close()
+            if logger is not None:
+                logger.close()
         return self.state
 
     def _save(self, ckpt: CheckpointManager, what: str, metadata: dict | None = None) -> bool:
@@ -573,6 +799,8 @@ class Trainer:
         self.history.append((prefix, step_idx, metrics))
         if logger is not None:
             logger.log(step_idx, metrics, prefix=prefix)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         print(f"[{prefix}] step {step_idx} "
               + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()), flush=True)
 

@@ -42,6 +42,19 @@ and nothing here synchronises with the host: a non-finite step is skipped
 with `torch.where`, not a Python branch, and the schedule's constants are
 copied to a device once (a blocking host-to-device copy waits for the
 stream). Parameters are updated in place.
+
+On a mesh (`ShardPlan`) the optimizer takes the gradients already summed
+over the data axis and works as JAX's sharded program computes:
+  * a leaf split over the model axis (parallel/sharding.py:shard_params)
+    adds its squares to the clip's global norm once over the model group,
+    a whole leaf once;
+  * AdamW and Lion, elementwise, update the rank's slices: of a split leaf
+    its own slice, and under ZeRO-1 the data-axis slice of each moment the
+    plan splits, after which the parameter delta is gathered over "data";
+  * Adafactor, whose factored rows and columns and block RMS span whole
+    leaves, gathers the leaves and the ZeRO-1 moments it needs, computes
+    whole (its moments of a split leaf stay whole on every model rank) and
+    keeps the rank's slices.
 """
 
 from __future__ import annotations
@@ -54,6 +67,12 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from probpose_pytorch_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_reduce_,
+    group_rank,
+    group_size,
+)
 from probpose_pytorch_tpu_torch.train.config import OptimConfig
 
 __all__ = [
@@ -75,6 +94,7 @@ __all__ = [
     "MultiStepsState",
     "make_optimizer",
     "TrainState",
+    "ShardPlan",
 ]
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -171,9 +191,48 @@ def build_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
                      "(expected onecycle | cosine | constant)")
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: list[torch.Tensor], dims: Sequence[int | None] | None = None,
+                group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors (optax.global_norm). With the
+    model group `group`, the tensors whose `dims` entry is not None are
+    this rank's slices of split leaves: their squares are summed over the
+    group, the whole ones' counted once."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if group is None or dims is None or all(d is None for d in dims):
+        return torch.linalg.vector_norm(norms)
+    split = torch.tensor([d is not None for d in dims], device=norms.device)
+    sq = norms * norms
+    parts = all_reduce_(torch.where(split, sq, 0.0).sum(), group)
+    return torch.sqrt(torch.where(split, 0.0, sq).sum() + parts)
+
+
+def _part(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
+    """This rank's slice of a whole `t` along `dim` over `group`."""
+    if dim is None or group is None:
+        return t
+    n = t.shape[dim] // group_size(group)
+    return t.narrow(dim, group_rank(group) * n, n)
+
+
+def _whole(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
+    """The whole tensor of which every rank of `group` holds a slice."""
+    if dim is None or group is None:
+        return t
+    return all_gather_cat(t, group, dim)
+
+
+@dataclass
+class ShardPlan:
+    """Where the optimizer's tensors lie on a mesh: `tp_dims`, per
+    parameter (the order of `TrainState.names`), the dimension split over
+    the model group `tp_group` (None: whole); `zero_dims`, per moment field
+    of the family's state, per leaf, the dimension split over the data group
+    `dp_group` by ZeRO-1 (parallel/sharding.py:shard_opt_state)."""
+
+    tp_group: object = None
+    tp_dims: list[int | None] | None = None
+    dp_group: object = None
+    zero_dims: dict[str, list[int | None]] | None = None
 
 
 # apply_if_finite's counters, the last three fields of every state below.
@@ -279,6 +338,7 @@ class Optimizer:
     from the clipped gradients (`_direction`)."""
 
     State: type = OptState
+    elementwise = True  # whether the update of an element reads that element only
 
     def __init__(self, cfg: OptimConfig, schedule: Schedule,
                  trainable: Sequence[int] | None = None,
@@ -287,6 +347,7 @@ class Optimizer:
         self.schedule = schedule
         self.trainable = None if trainable is None else list(trainable)
         self.layouts = None if layouts is None else list(layouts)
+        self.plan: ShardPlan | None = None
 
     def _masked(self, items: list) -> list:
         """The trainable entries of a per-parameter list."""
@@ -301,11 +362,24 @@ class Optimizer:
         trainable leaves, `lr` the schedule's value at this step."""
         raise NotImplementedError
 
+    def _tp_dims(self, n: int) -> list[int | None]:
+        """The model-axis dims of the `n` trainable leaves (all None off a
+        model axis)."""
+        if self.plan is None or self.plan.tp_dims is None:
+            return [None] * n
+        return self._masked(self.plan.tp_dims)
+
     def init(self, params: list[torch.Tensor]) -> State:
         dev = params[0].device
         zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
+        leaves = self._masked(params)
+        if not self.elementwise and self.plan is not None and self.plan.tp_dims is not None:
+            group = self.plan.tp_group  # moments of the whole leaves
+            leaves = [p if d is None else p.new_zeros(
+                p.shape[:d] + (p.shape[d] * group_size(group),) + p.shape[d + 1:])
+                for p, d in zip(leaves, self._tp_dims(len(leaves)))]
         return self.State(
-            **self._moments(self._masked(params)),
+            **self._moments(leaves),
             count=zero(torch.int32),
             schedule_count=zero(torch.int32),
             notfinite_count=zero(torch.int32),
@@ -318,12 +392,15 @@ class Optimizer:
         cfg = self.cfg
         grads = [g.float() for g in grads]
         every, grads, params = grads, self._masked(grads), self._masked(params)
-        g_norm = global_norm(grads)
+        plan = self.plan
+        g_norm = global_norm(grads, self._tp_dims(len(grads)),
+                             plan.tp_group if plan else None)
         # clip_by_global_norm: t where |g| < clip, else (t / |g|) * clip.
         clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), cfg.clip_grad_norm)
         trigger = g_norm < cfg.clip_grad_norm
         g = [torch.where(trigger, t, c) for t, c in zip(grads, clipped)]
-        u, moments = self._direction(g, state, params, self.schedule(state.schedule_count))
+        u, moments = self._planned_direction(g, state, params,
+                                             self.schedule(state.schedule_count))
         if self.trainable is not None:  # set_to_zero on the frozen leaves
             full = [torch.zeros_like(g) for g in every]
             for i, t in zip(self.trainable, u):
@@ -356,6 +433,64 @@ class Optimizer:
             total_notfinite=torch.where(finite, state.total_notfinite,
                                         state.total_notfinite + 1).int(),
         )
+
+
+    def _moment_dims(self, state: State) -> dict[str, tuple[list, object, list, object]]:
+        """Per moment field: (its leaves' model-axis dims, the model group,
+        their data-axis dims, the data group)."""
+        plan = self.plan
+        out = {}
+        for f in dataclasses.fields(state):
+            leaves = getattr(state, f.name)
+            if not isinstance(leaves, (list, tuple)):
+                continue
+            tp = self._tp_dims(len(leaves)) if self.elementwise else [None] * len(leaves)
+            zero = (plan.zero_dims or {}).get(f.name, [None] * len(leaves))
+            out[f.name] = (tp, plan.tp_group, zero, plan.dp_group)
+        return out
+
+    def whole_state(self, state: State) -> State:
+        """`state` with every moment whole (collective over the mesh)."""
+        if self.plan is None:
+            return state
+        return dataclasses.replace(state, **{
+            f: [_whole(_whole(t, z, dg), d, tg)
+                for t, d, z in zip(getattr(state, f), tp, zero)]
+            for f, (tp, tg, zero, dg) in self._moment_dims(state).items()})
+
+    def part_state(self, state: State) -> State:
+        """Inverse of `whole_state`: this rank's slices of whole moments."""
+        if self.plan is None:
+            return state
+        return dataclasses.replace(state, **{
+            f: [_part(_part(t, d, tg), z, dg).clone()
+                for t, d, z in zip(getattr(state, f), tp, zero)]
+            for f, (tp, tg, zero, dg) in self._moment_dims(state).items()})
+
+    def _planned_direction(self, g, state, params, lr):
+        """`_direction` under the plan: see the module's docstring."""
+        plan = self.plan
+        if plan is None:
+            return self._direction(g, state, params, lr)
+        zero, dp = plan.zero_dims or {}, plan.dp_group
+        if self.elementwise:
+            if not zero:  # a split leaf's slice is all its elements need
+                return self._direction(g, state, params, lr)
+            dims = next(iter(zero.values()))  # every moment has its leaf's shape
+            gl = [_part(t, d, dp) for t, d in zip(g, dims)]
+            pl = [_part(t, d, dp) for t, d in zip(params, dims)]
+            u, moments = self._direction(gl, state, pl, lr)
+            return [_whole(t, d, dp) for t, d in zip(u, dims)], moments
+        tp, tg = self._tp_dims(len(g)), plan.tp_group
+        gf = [_whole(t, d, tg) for t, d in zip(g, tp)]
+        pf = [_whole(t, d, tg) for t, d in zip(params, tp)]
+        whole = dataclasses.replace(state, **{
+            f: [_whole(t, d, dp) for t, d in zip(getattr(state, f), ds)]
+            for f, ds in zero.items()})
+        u, moments = self._direction(gf, whole, pf, lr)
+        moments = {f: [_part(t, d, dp) for t, d in zip(v, zero[f])] if f in zero else v
+                   for f, v in moments.items()}
+        return [_part(t, d, tg) for t, d in zip(u, tp)], moments
 
 
 class AdamW(Optimizer):
@@ -421,6 +556,7 @@ class Adafactor(Optimizer):
     axes onto the port's."""
 
     State = AdafactorState
+    elementwise = False
     decay_rate, eps, min_dim, min_scale = 0.8, 1e-30, 128, 1e-3
 
     def _dims(self, params: list[torch.Tensor]) -> list[tuple[int, int] | None]:
@@ -498,6 +634,29 @@ class MultiSteps:
         self.inner = inner
         self.k = k
 
+    @property
+    def plan(self) -> ShardPlan | None:
+        return self.inner.plan
+
+    @plan.setter
+    def plan(self, plan: ShardPlan | None) -> None:
+        self.inner.plan = plan
+
+    def _acc_dims(self) -> list[int | None]:
+        plan = self.inner.plan
+        return plan.tp_dims if plan is not None and plan.tp_dims is not None else None
+
+    def whole_state(self, state: MultiStepsState) -> MultiStepsState:
+        dims, group = self._acc_dims(), self.plan.tp_group if self.plan else None
+        acc = state.acc if dims is None else [_whole(t, d, group) for t, d in zip(state.acc, dims)]
+        return dataclasses.replace(state, inner=self.inner.whole_state(state.inner), acc=acc)
+
+    def part_state(self, state: MultiStepsState) -> MultiStepsState:
+        dims, group = self._acc_dims(), self.plan.tp_group if self.plan else None
+        acc = state.acc if dims is None else [_part(t, d, group).clone()
+                                              for t, d in zip(state.acc, dims)]
+        return dataclasses.replace(state, inner=self.inner.part_state(state.inner), acc=acc)
+
     def init(self, params: list[torch.Tensor]) -> MultiStepsState:
         zero = torch.zeros((), dtype=torch.int32, device=params[0].device)
         return MultiStepsState(mini_step=zero, gradient_step=zero.clone(),
@@ -558,6 +717,7 @@ class TrainState:
 
     def __init__(self, model: torch.nn.Module, tx: Optimizer | MultiSteps, ema: bool):
         self.model = model
+        self.tx = tx  # its plan places the state on a mesh (checkpoints read it)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]

@@ -16,6 +16,7 @@ float32, weights carried by compat/from_jax.py. Tolerances:
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -180,8 +181,10 @@ def test_load_bottomup_refusals(tmp_path, bu_run, monkeypatch):
         load_bottomup(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="single-device"):
         load_bottomup(tmp_path, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        load_bottomup(out, mesh=object(), device="cpu")
+    # a live checkpoint serves on a mesh (data-parallel; the world-free
+    # 1 x 1 mesh here binds it)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.zeros(1, 1))
+    assert load_bottomup(out, mesh=mesh, device="cpu").mesh is mesh
     (tmp_path / "manifest.json").unlink()
     (tmp_path / "checkpoints").mkdir()
     (tmp_path / "detector.json").write_text(json.dumps({"num_keypoints": 0}))

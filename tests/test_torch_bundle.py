@@ -325,13 +325,13 @@ def test_card_bundle_on_the_cpu_raises(bundle_env, tmp_path):
 
 
 def test_quantize_and_mesh_raise_their_items(bundle_env, tmp_path):
-    """A mesh predictor still raises citing ROADMAP item 13; a quantized
-    one exports (item 12 is ported), its program holding the int8
-    product."""
+    """A mesh predictor raises JAX's ValueError (bundle export is
+    single-device); a quantized one exports (item 12 is ported), its
+    program holding the int8 product."""
     _, _, live = bundle_env
     pred = dataclasses.replace(live)
     object.__setattr__(pred, "mesh", object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(ValueError, match="bundle export is single-device"):
         export_predictor_bundle(pred, tmp_path / "mesh", buckets=(1,), frame_shape=(64, 64))
     pred = dataclasses.replace(live, quantize="int8")
     out = export_predictor_bundle(pred, tmp_path / "quantize", buckets=(1,), frame_shape=(64, 64),

@@ -598,6 +598,47 @@ def test_vitb_fused_mlp_forward_kernels_vs_plain(cuda_device, attn_impl):
         torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-5)
 
 
+def to_head_major(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The head-major packing of a qkv-major (B, N, 3C) tensor, a copy."""
+    B, N, C3 = qkv.shape
+    return qkv.reshape(B, N, 3, heads, -1).transpose(2, 3).reshape(B, N, C3).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,B,N,heads,d,dtype", [
+    ("packed", 16, 192, 6, 64, torch.bfloat16),   # sm90 short forward, sm90 tiled backward
+    ("packed", 3, 300, 2, 64, torch.bfloat16),    # sm90 tiled both ways
+    ("packed", 5, 96, 3, 48, torch.bfloat16),     # K1 CUDA cores
+    ("packed", 4, 192, 6, 64, torch.float32),     # K1 CUDA cores, f32
+    ("packed", 2, 130, 4, 32, torch.bfloat16),
+    ("tiled", 2, 2304, 6, 64, torch.bfloat16),    # K4 wgmma at 768 x 768
+    ("tiled", 2, 1000, 6, 64, torch.float32),     # K4 CUDA cores
+    ("tiled", 2, 130, 8, 80, torch.bfloat16),     # K4 CUDA cores, d = 80
+])
+def test_head_major_attention_kernels(cuda_device, fn, B, N, heads, d, dtype):
+    """layout="head_major": K1 and K4, forward and backward, read the
+    head-major packing in place and give the qkv-major kernels' bits on the
+    same numbers (dqkv in the head-major packing), within the bound of the
+    plain head-major versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=cuda_device).to(dtype)
+    dout = torch.randn(B, N, heads * d, generator=g, device=cuda_device).to(dtype)
+    hm = to_head_major(qkv, heads)
+    attn, bwd = ((packed_attention, packed_attention_backward) if fn == "packed"
+                 else (tiled_attention, tiled_attention_backward))
+    f0, b0 = forward_launches(), backward_launches()
+    out = attn(hm, heads, "head_major")
+    dhm = bwd(hm, dout, heads, layout="head_major")
+    torch.cuda.synchronize()
+    assert (forward_launches() - f0, backward_launches() - b0) == (1, 1)
+    assert torch.equal(out, attn(qkv, heads))
+    assert torch.equal(dhm, to_head_major(bwd(qkv, dout, heads), heads))
+    ref = packed_attention_reference(hm, heads, "head_major")
+    assert max_err(out, ref) <= bound(ref)
+    dref = packed_attention_bwd_reference(hm, dout, heads, "head_major")
+    assert max_err(dhm, dref) <= bound(dref)
+
+
 # --------------------------------------------------------------------------
 # K4 row-tiled attention, K3 fused decode, K2 at 192 x 192-pixel rows
 

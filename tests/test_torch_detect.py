@@ -24,6 +24,7 @@ cross with compat/from_jax.py. Tolerances:
 """
 
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -638,8 +639,10 @@ def test_load_detector_refusals(tmp_path, cli_run, monkeypatch):
         load_detector(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="single-device"):
         load_detector(tmp_path, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        load_detector(out / "checkpoints", mesh=object(), device="cpu")
+    # a live checkpoint serves on a mesh (data-parallel; the world-free
+    # 1 x 1 mesh here binds it, tests/test_torch_parallel.py runs it)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.zeros(1, 1))
+    assert load_detector(out / "checkpoints", mesh=mesh, device="cpu").mesh is mesh
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         load_detector(out / "checkpoints")

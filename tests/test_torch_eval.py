@@ -347,17 +347,16 @@ def test_eval_cli_on_cpu(tmp_path, coco_root, tiny_run, capsys):
     (["--bundle", "b", "--flip-test"], None), (["--data-parallel"], 13),
     (["--model-parallel", "2"], 13)])
 def test_eval_cli_refuses_unported_flags(tmp_path, flags, item):
-    """Scale-out raises its item; with --bundle, the flags a bundle bakes
-    in at export are usage errors, as in JAX."""
-    args = ["--annotations", str(tmp_path / "a.json"), "--images", str(tmp_path)]
-    if "--bundle" not in flags and "--bottomup" not in flags:
-        args += ["--checkpoint", str(tmp_path / "c")]
-    if item is None:
-        with pytest.raises(SystemExit):
-            eval_run.main(args + flags + ["--device", "cpu"])
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        eval_run.main(args + flags + ["--device", "cpu"])
+    """With --bundle, the flags a bundle bakes in at export are usage
+    errors, as in JAX, and so is scale-out (item 13): --data-parallel
+    (--model-parallel rides with it) needs a live predictor, as in JAX."""
+    args = ["--annotations", str(tmp_path / "a.json"), "--images", str(tmp_path),
+            "--bundle", str(tmp_path / "b")]
+    if item is not None:
+        flags = flags + ["--data-parallel"] * ("--data-parallel" not in flags)
+    with pytest.raises(SystemExit):
+        eval_run.main(args + [f for f in flags if f not in ("--bundle", "b")]
+                      + ["--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ Everything runs in float32; tolerances are stated beside each assertion.
 import json
 import pathlib
 import re
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -233,28 +234,27 @@ def test_flagship_geometry_loads_strictly():
 
 @pytest.mark.parametrize("over,item", [
     (dict(pp_stages=2), "item 13"),
-    (dict(attn_impl="fused_tp"), "item 13"),
-    (dict(deconv_kernel_sizes=(2, 4), mesh=True), "item 13"),
-    (dict(deconv_kernel_sizes=(4, 3), mesh=True), "item 13"),
+    (dict(attn_impl="fused_tp", pp_stages=2), "item 13"),
+    (dict(deconv_kernel_sizes=(2, 4), pp_stages=2), "item 13"),
+    (dict(deconv_kernel_sizes=(4, 3), pp_stages=2), "item 13"),
     (dict(attn_impl="einsum", softmax_dtype="bfloat16", pp_stages=2), "item 13"),
 ])
 def test_model_config_names_roadmap_item_for_unported(over, item):
     """Such a config loads (training configs carry it) and the model build
-    refuses it, naming the ROADMAP item: scale-out (item 13), a pipeline or
-    a mesh, still refuses with the head and attention options of item 4,
-    which build since."""
-    over = dict(over)
-    mesh = object() if over.pop("mesh", False) else None
+    refuses it, naming the ROADMAP item: a pipeline (item 13b, the rest of
+    scale-out) still refuses with the head-major layout and the head and
+    attention options, which build since."""
     cfg = ModelConfig(**over)
     with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, mesh, device="cpu")
+        build_model(cfg, device="cpu")
 
 
 def test_build_model_and_trainer_create_bind_like_jax():
     """JAX's build_model(cfg, mesh=None) and Trainer.create(cfg,
     steps_per_epoch, mesh=None): `mesh` in its place, `device` and `seed`
-    keyword-only after it; a mesh raises citing item 13, by position or by
-    keyword."""
+    keyword-only after it; a mesh binds by position or by keyword (a
+    world-free 1 x 1 mesh here; one with a pipe axis raises citing item
+    13b in Trainer.create)."""
     import inspect
 
     from probpose_pytorch_tpu.train.loop import Trainer as JaxTrainer
@@ -269,10 +269,12 @@ def test_build_model_and_trainer_create_bind_like_jax():
         assert all(ours[k].default == theirs[k].default for k in theirs)
         assert all(p.kind is p.KEYWORD_ONLY for p in list(ours.values())[n:])
     cfg = TrainConfig.from_dict(dict(model=dict(TINY_CFG)))
-    for call in (lambda: build_model(cfg.model, object(), device="cpu"),
-                 lambda: build_model(cfg.model, mesh=object(), device="cpu"),
-                 lambda: Trainer.create(cfg, 1, object(), device="cpu"),
-                 lambda: Trainer.create(cfg, 1, mesh=object(), device="cpu")):
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.zeros(1, 1))
+    assert build_model(cfg.model, mesh, device="cpu").mesh is mesh
+    assert build_model(cfg.model, mesh=mesh, device="cpu").mesh is mesh
+    pipe = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2))
+    for call in (lambda: Trainer.create(cfg, 1, pipe, device="cpu"),
+                 lambda: Trainer.create(cfg, 1, mesh=pipe, device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
             call()
     with pytest.raises(TypeError):

@@ -80,7 +80,7 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
-# The JAX names of the seven __init__ namespaces the port leaves out, and why.
+# The JAX names of the eight __init__ namespaces the port leaves out, and why.
 EXPORT_EXCLUSIONS = {
     # renamed: the port's take and return PyTorch state dicts
     ("models", "merge_lora_params"): "models.lora.merge_lora_state_dict",
@@ -89,17 +89,6 @@ EXPORT_EXCLUSIONS = {
     # flax: init from an rng and a sample input; the port's
     # TrainState(model, tx, ema) takes a built module
     ("train", "create_train_state"): "train.state.TrainState",
-    # scale-out (ROADMAP item 13): stacked and head-major layouts
-    ("train", "layout_metadata"): "item 13",
-    ("train", "qkv_layout_of"): "item 13",
-    ("train", "restore_state_with_layout"): "item 13",
-    ("compat", "convert_qkv_layout"): "item 13",
-    ("compat", "convert_trunk_layout"): "item 13",
-    ("compat", "qkv_head_major_permutation"): "item 13",
-    ("compat", "qkv_to_head_major"): "item 13",
-    ("compat", "qkv_to_qkv_major"): "item 13",
-    ("compat", "stack_vit_blocks"): "item 13",
-    ("compat", "unstack_vit_blocks"): "item 13",
 }
 
 
@@ -115,7 +104,8 @@ def _jax_init_names(sub: str) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("sub", ["", "models", "train", "data", "ops", "compat", "utils"])
+@pytest.mark.parametrize("sub", ["", "models", "train", "data", "ops", "compat", "utils",
+                                 "parallel"])
 def test_port_exports_the_jax_names(sub):
     """Every name of the JAX package's __init__ files is bound in the port's
     counterpart, or is on EXPORT_EXCLUSIONS with the reason; the int8

@@ -8,6 +8,7 @@ kernels redrawn so the heatmaps are peaked), same uint8 frames and boxes.
 
 import inspect
 import json
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -99,12 +100,17 @@ def test_predictor_matches_jax(predictors, B, indexed):
 
 
 def test_predictor_refuses_unported_options(predictors):
-    """A mesh raises citing ROADMAP item 13; with a quantize mode, JAX's
-    ValueError comes first (quantized serving is single-device)."""
+    """On a mesh, indexed frames raise JAX's ValueError (mesh serving takes
+    per-crop frames; a world-free 1 x 1 mesh here); with a quantize mode,
+    JAX's ValueError comes first (quantized serving is single-device)."""
     _, port_pred = predictors
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TopDownPredictor(model=port_pred.model, codec=port_pred.codec, input_size=(64, 48),
-                         mesh=object())
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.zeros(1, 1))
+    pred = TopDownPredictor(model=port_pred.model, codec=port_pred.codec, input_size=(64, 48),
+                            mesh=mesh)
+    assert pred.model.mesh is mesh and port_pred.model.mesh is None
+    with pytest.raises(ValueError, match="indexed frames are single-device"):
+        pred(np.zeros((1, 64, 48, 3), np.uint8), np.zeros((2, 4), np.float32),
+             np.zeros((2,), np.int64))
     with pytest.raises(ValueError, match="quantize='int8' is single-device only"):
         TopDownPredictor(model=port_pred.model, codec=port_pred.codec, input_size=(64, 48),
                          quantize="int8", mesh=object())
@@ -324,17 +330,22 @@ def test_load_predictor_signature_matches_jax():
         assert ours[name].default == p.default, name
 
 
+# A world-free mesh with a pipe axis: pipelines are ROADMAP item 13b.
+PIPE_MESH = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2))
+
+
 @pytest.mark.parametrize("args,kw,error", [
     ((), dict(quantize="int8", mesh=object()), ValueError),
-    ((), dict(mesh=object()), NotImplementedError),
+    ((), dict(mesh=PIPE_MESH), NotImplementedError),
     ((None, False, "int8_wo", object()), {}, ValueError),
-    ((None, False, None, object()), {}, NotImplementedError),
+    ((None, False, None, PIPE_MESH), {}, NotImplementedError),
 ])
 def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, error):
-    """quantize and mesh, by keyword or in their JAX places: a mesh raises
-    citing ROADMAP item 13, and a quantize mode with a mesh raises JAX's
-    ValueError (single device) first; a TypeError would mean a shifted
-    signature."""
+    """quantize and mesh, by keyword or in their JAX places: a mesh with a
+    pipe axis raises citing ROADMAP item 13b (a (data, model) mesh serves:
+    tests/test_torch_parallel.py), and a quantize mode with a mesh raises
+    JAX's ValueError (single device) first; a TypeError would mean a
+    shifted signature."""
     _, port_dir = saved_runs
     match = "ROADMAP item 13" if error is NotImplementedError else "single-device only"
     with pytest.raises(error, match=match):

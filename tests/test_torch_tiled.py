@@ -208,8 +208,11 @@ def test_tiled_attention_cpu_wrapper_is_plain_and_differentiable():
 
 
 def test_tiled_attention_refuses_head_major_and_bad_shapes():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tiled_attention(torch.zeros(1, 8, 96), 2, layout="head_major")
+    # the head-major layout runs since item 13a (tests/test_torch_parallel.py
+    # holds it to JAX); an unknown layout is refused
+    assert tiled_attention(torch.zeros(1, 8, 96), 2, layout="head_major").shape == (1, 8, 32)
+    with pytest.raises(ValueError, match="unknown layout"):
+        tiled_attention(torch.zeros(1, 8, 96), 2, layout="other")
     with pytest.raises(ValueError, match="3 \\* heads"):
         tiled_attention(torch.zeros(1, 8, 30), 3)
     with pytest.raises(TypeError):

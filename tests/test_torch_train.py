@@ -158,7 +158,7 @@ def test_synthetic_data_matches_jax():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(model_parallel=2), "item 13"),
+    (dict(pipeline_parallel=2), "item 13"),  # item 13b: model_parallel runs on a mesh
 ])
 def test_unported_training_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
