@@ -311,6 +311,31 @@ with weights drawn from a seeded generator:
            KPT_TOL_PX); the backend, each rank's card, each step's ms and
            the phase's seconds printed
 
+  phase 18 pipeline parallelism (scale-out, part 2): a world of 4 ranks
+           and one of 2 spawned from this script (`--phase18-rank`) when
+           phase 15 starts, running beside the host-bound phases 15 and 16
+           (so their step ms are upper bounds; `build/chip18.py`-style runs
+           of phase18 alone time them), each rank on cuda:(rank % device
+           count), gloo where ranks share a card (the pipe's sends staged
+           through host memory); at phase 18's place one process's
+           references, the timed ones alone on the card. 18a: the bf16
+           flagship served through the GPipe forward at B = 256 on pipe =
+           2 (6 blocks a stage, 24 short K1 forwards of (64, 192, 1152)
+           and 1 K2 a rank), its heatmaps within K1's bf16 bound and its
+           keypoints within KPT_TOL_PX of one process's. 18b: f32 steps at
+           B = 256 against one process at phase 17's gates (the GPipe
+           and pipe x model references are phase 17's single-process
+           steps): GPipe on pipe = 2 (24 K1 each way a rank), 1F1B with
+           the fused MLP on pipe = 2 against one process stepping the same
+           8 microbatches in turn (stage 0: 96 K1 and K5 forwards, a
+           forward slot and a recompute each, 48 backwards), and pipe 2 x
+           model 2 with "fused_tp" in the world of 4, which runs while
+           the untimed references are made (K1 head-major in the stages).
+           18c: configs/vitl_coco.json (ViT-L, bf16, remat, B = 32)
+           stepped with GPipe, then 1F1B, on pipe = 2 (K1 counted a block a
+           slot): each rank's step ms and peak memory against one
+           process's
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -4165,8 +4190,8 @@ print(json.dumps(dict(live="done")), flush=True)
 """
 
 
-def bundle_graph_ops(path: Path) -> dict:
-    """The `probpose::` ops of a saved program's graph, by name: count."""
+def bundle_graph(path: Path) -> str:
+    """A saved program's graph as text."""
     import gzip
 
     import torch
@@ -4174,7 +4199,13 @@ def bundle_graph_ops(path: Path) -> dict:
     from probpose_pytorch_tpu_torch.ops.kernels import register_ops
 
     register_ops()
-    graph = str(torch.export.load(io.BytesIO(gzip.decompress(path.read_bytes()))).graph)
+    return str(torch.export.load(io.BytesIO(gzip.decompress(path.read_bytes()))).graph)
+
+
+def bundle_graph_ops(path: Path, graph: str | None = None) -> dict:
+    """The `probpose::` ops of a saved program's graph (or of its text,
+    `graph`), by name: count."""
+    graph = bundle_graph(path) if graph is None else graph
     names = ("short_attention_fwd", "tiled_attention_fwd", "packed_attention_fwd",
              "flat_attention_fwd", "fused_ln_mlp_fwd", "sparsemax_rows")
     return {n: graph.count(f"probpose.{n}") for n in names if f"probpose.{n}" in graph}
@@ -4932,7 +4963,6 @@ def phase16_bundle(torch, dev, card: str, work: Path) -> dict:
     aten._int_mm and one probpose::sparsemax_rows; a fresh process with no
     model code serves it with 1 K2 and no other kernel a call and equals
     the live int8 predictor there at 0 px. Returns the launches by call."""
-    import gzip
 
     from probpose_pytorch_tpu_torch.inference import load_predictor
     from probpose_pytorch_tpu_torch.serve.export import export_predictor_bundle
@@ -4946,8 +4976,8 @@ def phase16_bundle(torch, dev, card: str, work: Path) -> dict:
         f"{time.perf_counter() - t0:.2f} s, params.pt "
         f"{(work / 'int8' / 'params.pt').stat().st_size / 2**20:.2f} MiB")
     for program in programs:
-        graph = str(torch.export.load(io.BytesIO(gzip.decompress(program.read_bytes()))).graph)
-        ops, int_mm = bundle_graph_ops(program), graph.count("aten._int_mm")
+        graph = bundle_graph(program)
+        ops, int_mm = bundle_graph_ops(program, graph), graph.count("aten._int_mm")
         say(f"phase 16: int8/{program.name}: aten._int_mm {int_mm}, probpose ops {ops}")
         check(int_mm == 12 * Q_PRODUCTS and ops == {"sparsemax_rows": 1},
               f"int8/{program.name}: {int_mm} int8 products, ops {ops}")
@@ -5354,13 +5384,66 @@ def phase17_rank(rank: int, world: int, work: Path) -> None:
     dist.destroy_process_group()
 
 
-def phase17_world(torch, dev, card: str) -> dict:
+def compare_world_state(torch, phase: int, name: str, ref: list, got: dict, b1: float,
+                        steps: int) -> None:
+    """A world's whole state after its steps (`got`: rank 0's parameters
+    and Adam's first moments after each step, by the per-block names)
+    against one process's (`ref`: per step, loss, parameters, first
+    moments, learning rate) at phase 17's gates (see P17_*)."""
+    ratios, normwise = {}, {}
+    for k, (st, mu_got) in enumerate(zip(ref, got["mus"])):
+        tols = phase17_tolerances(st["mu"])
+        top = max(float(m.abs().max()) for m in st["mu"].values())
+        for n, m in st["mu"].items():
+            if n.startswith(P17_ROUTED) and float(m.abs().max()) >= P17_NOISE * top:
+                if k == 0:  # later steps start from parameters Adam's bound lets differ
+                    normwise[n] = float((mu_got[n] - m).norm() / m.norm())
+            else:
+                ratios[n] = max(ratios.get(n, 0.0),
+                                float((mu_got[n] - m).abs().max()) / tols[n])
+    worst = sorted(ratios, key=ratios.get)[-3:][::-1]
+    worst_routed = sorted(normwise, key=normwise.get)[-3:][::-1]
+    say(f"phase {phase}: {name}: Adam's mu after each of {steps} step(s), the worst leaves "
+        + ", ".join(f"{n} {ratios[n]:.3e}" for n in worst)
+        + f" of their tolerance ({P17_MU_RTOL:g} of the leaf's largest entry, or "
+        f"{P17_NOISE:g} of the largest anywhere); the scalar branches' after the first "
+        + ", ".join(f"{n} {normwise[n]:.3e}" for n in worst_routed)
+        + f" normwise (tolerance {P17_ROUTED_RTOL:g})")
+    check(ratios[worst[0]] <= 1.0 and normwise[worst_routed[0]] <= P17_ROUTED_RTOL,
+          f"phase {phase}: {name}'s first moments differ")
+    # where a step's gradient took another sign, or lay within
+    # P17_FLIP_RTOL of zero, Adam's update may differ by 2 lr
+    flips = {}
+    for g_ref, g_got in zip(phase17_grads([st["mu"] for st in ref], b1),
+                            phase17_grads(got["mus"], b1)):
+        for n, tol in phase17_tolerances(g_ref, P17_FLIP_RTOL).items():
+            flips[n] = (flips.get(n, False) | (np.abs(g_ref[n]) <= tol)
+                        | (np.sign(g_ref[n]) != np.sign(g_got[n])) | n.startswith(P17_ROUTED))
+    bound = 2 * sum(st["lr"] for st in ref) + P17_PARAM_ATOL
+    worst = worst_flip = 0.0
+    for n, p in ref[-1]["params"].items():
+        d = (got["params"][n] - p).abs().numpy()
+        worst = max(worst, float(d[~flips[n]].max(initial=0.0)))
+        worst_flip = max(worst_flip, float(d[flips[n]].max(initial=0.0)))
+    n_flip = sum(int(m.sum()) for m in flips.values())
+    n_all = sum(m.size for m in flips.values())
+    say(f"phase {phase}: {name}: parameters after {steps} step(s) max abs diff {worst:.3e} "
+        f"(bound {P17_PARAM_ATOL:g}); {n_flip} of {n_all} elements in the scalar branches "
+        f"or where a gradient took another sign or lay near zero {worst_flip:.3e} "
+        f"(bound {bound:.3e})")
+    check(worst <= P17_PARAM_ATOL and worst_flip <= bound,
+          f"phase {phase}: {name}'s parameters differ by {worst} ({worst_flip} where Adam's "
+          "update may take the other sign)")
+
+
+def phase17_world(torch, dev, card: str) -> tuple[dict, dict]:
     """17b: P17_WORLD ranks spawned from this script, each on
     cuda:(rank % device count), held against the single process on the
     same card (f32, TF32 off): the DDP (data = 2) and TP (model = 2,
     "fused_tp") steps and two ZeRO-1 steps at the global batch (the loss,
     Adam's first moment, the parameters), and the data-parallel predictor.
-    Returns rank 0's launches by run."""
+    Returns (rank 0's launches by run, the single process's states after
+    each step by attn_impl: phase 18 holds its worlds to them too)."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import build_model
     from probpose_pytorch_tpu_torch.train.loop import Trainer
@@ -5440,50 +5523,7 @@ def phase17_world(torch, dev, card: str) -> dict:
                 f"attention {r[name]['attn_impl']}, {r[name]['split']} split leaves")
             check(np.allclose(r[name]["losses"], losses, rtol=P17_LOSS_RTOL, atol=0),
                   f"phase 17: {name} rank {r['rank']}'s loss differs")
-        ratios, normwise = {}, {}
-        for k, (st, mu_got) in enumerate(zip(ref, got["mus"])):
-            tols = phase17_tolerances(st["mu"])
-            top = max(float(m.abs().max()) for m in st["mu"].values())
-            for n, m in st["mu"].items():
-                if n.startswith(P17_ROUTED) and float(m.abs().max()) >= P17_NOISE * top:
-                    if k == 0:  # later steps start from parameters Adam's bound lets differ
-                        normwise[n] = float((mu_got[n] - m).norm() / m.norm())
-                else:
-                    ratios[n] = max(ratios.get(n, 0.0),
-                                    float((mu_got[n] - m).abs().max()) / tols[n])
-        worst = sorted(ratios, key=ratios.get)[-3:][::-1]
-        worst_routed = sorted(normwise, key=normwise.get)[-3:][::-1]
-        say(f"phase 17: {name}: Adam's mu after each of {steps} step(s), the worst leaves "
-            + ", ".join(f"{n} {ratios[n]:.3e}" for n in worst)
-            + f" of their tolerance ({P17_MU_RTOL:g} of the leaf's largest entry, or "
-            f"{P17_NOISE:g} of the largest anywhere); the scalar branches' after the first "
-            + ", ".join(f"{n} {normwise[n]:.3e}" for n in worst_routed)
-            + f" normwise (tolerance {P17_ROUTED_RTOL:g})")
-        check(ratios[worst[0]] <= 1.0 and normwise[worst_routed[0]] <= P17_ROUTED_RTOL,
-              f"phase 17: {name}'s first moments differ")
-        # where a step's gradient took another sign, or lay within
-        # P17_FLIP_RTOL of zero, Adam's update may differ by 2 lr
-        flips = {}
-        for g_ref, g_got in zip(phase17_grads([st["mu"] for st in ref], b1),
-                                phase17_grads(got["mus"], b1)):
-            for n, tol in phase17_tolerances(g_ref, P17_FLIP_RTOL).items():
-                flips[n] = (flips.get(n, False) | (np.abs(g_ref[n]) <= tol)
-                            | (np.sign(g_ref[n]) != np.sign(g_got[n])) | n.startswith(P17_ROUTED))
-        bound = 2 * sum(st["lr"] for st in ref) + P17_PARAM_ATOL
-        worst = worst_flip = 0.0
-        for n, p in ref[-1]["params"].items():
-            d = (got["params"][n] - p).abs().numpy()
-            worst = max(worst, float(d[~flips[n]].max(initial=0.0)))
-            worst_flip = max(worst_flip, float(d[flips[n]].max(initial=0.0)))
-        n_flip = sum(int(m.sum()) for m in flips.values())
-        n_all = sum(m.size for m in flips.values())
-        say(f"phase 17: {name}: parameters after {steps} step(s) max abs diff {worst:.3e} "
-            f"(bound {P17_PARAM_ATOL:g}); {n_flip} of {n_all} elements in the scalar branches "
-            f"or where a gradient took another sign or lay near zero {worst_flip:.3e} "
-            f"(bound {bound:.3e})")
-        check(worst <= P17_PARAM_ATOL and worst_flip <= bound,
-              f"phase 17: {name}'s parameters differ by {worst} ({worst_flip} where Adam's "
-              "update may take the other sign)")
+        compare_world_state(torch, 17, name, ref, got, b1, steps)
         launches[f"17b {name} rank 0"] = ranks[0][name]["counts"]
     check(ranks[0]["tp"]["attn_impl"] == "fused_tp" and ranks[0]["tp"]["split"] == 72,
           "phase 17: the TP step did not split the 12 blocks' six Megatron leaves")
@@ -5503,21 +5543,430 @@ def phase17_world(torch, dev, card: str) -> dict:
         check(kerr <= KPT_TOL_PX and perr <= PROB_TOL,
               f"phase 17: rank {r['rank']}'s predictions differ")
     launches["17b predict rank 0"] = ranks[0]["predict"]["counts"]
-    return launches
+    return launches, runs
 
 
-def phase17(torch, dev, card: str, g) -> tuple[dict, dict]:
+def phase17(torch, dev, card: str, g) -> tuple[dict, dict, dict]:
     """Phase 17: the head-major layout on one card (17a), then a two-rank
-    world (17b). Returns (launches by run, head-major kernel numbers)."""
+    world (17b). Returns (launches by run, head-major kernel numbers, the
+    single process's f32 states by attn_impl)."""
     t_phase = time.perf_counter()
     launches, numbers = phase17_flagship(torch, dev, card, g)
     gc.collect()
     torch.cuda.empty_cache()
     t_world = time.perf_counter()
-    launches.update(phase17_world(torch, dev, card))
+    world, runs = phase17_world(torch, dev, card)
+    launches.update(world)
     say(f"phase 17: 17b in {time.perf_counter() - t_world:.1f} s; "
         f"{time.perf_counter() - t_phase:.1f} s in all")
-    return launches, numbers
+    return launches, numbers, runs
+
+
+# ------------------------------------------------------------------ phase 18
+
+P18_SERVE_BATCH = 256
+P18_TRAIN_BATCH = 256
+# The pipe 2 x model 2 step takes the first 128 rows of the flagship's
+# batch: gloo moves its Megatron all-reduces through host memory, four
+# ranks on one card (256 rows cost 18-30 s a step there, and the world of 4
+# shares the card with the world of 2).
+P18_TP_BATCH = 128
+P18_VITL_BATCH = 32
+P18_DEADLINE_S = 420
+# The 1F1B step's microbatch count: JAX's automatic one at the flagship's
+# 256 rows on pipe = 2 (the largest divisor <= 4 S).
+P18_MICROBATCHES = 8
+
+
+def phase18_config(dtype: str, batch: int, **over):
+    """The flagship TrainConfig (train_config) with TrainConfig and model
+    overrides."""
+    cfg = train_config(dtype, batch)
+    model = {k: over.pop(k) for k in list(over) if hasattr(cfg.model, k)}
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model), **over)
+
+
+def phase18_vitl_config():
+    """configs/vitl_coco.json as shipped (ViT-L, bf16, remat, its four
+    micro-steps an update) at B = P18_VITL_BATCH, augmentation off."""
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig.load(REPO / "configs/vitl_coco.json")
+    return dataclasses.replace(cfg, augment=None, train_batch_size=P18_VITL_BATCH,
+                               resume=False, **fit_outputs("vitl18"))
+
+
+def phase18_whole(trainer) -> tuple[dict, dict]:
+    """phase17_whole by the per-block names (a pipelined trainer's stacked
+    leaves unstacked, compat/layouts.py)."""
+    from probpose_pytorch_tpu_torch.compat.layouts import unstack_state_dict
+
+    params, mu = phase17_whole(trainer)
+    return unstack_state_dict(params), unstack_state_dict(mu)
+
+
+def phase18_microbatched_step(torch, trainer, batch, M: int) -> float:
+    """One process's step over M microbatches in turn (JAX's
+    test_full_step_matches_microbatched_sequential): per microbatch, the
+    model in train mode from the step's BatchNorm statistics, its loss and
+    gradients, each 1/M of the step's; the running statistics the
+    microbatches' mean; then the update. Returns the loss."""
+    from probpose_pytorch_tpu_torch.train.loop import _augment_encode, _total
+
+    cfg, model, state = trainer.cfg, trainer.model, trainer.state
+    images, gt = _augment_encode(cfg, trainer.encode_codec, batch)
+    model.train()
+    bns = [m for m in model.head.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    start = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]
+    weights = cfg.loss_weights.as_dict()
+    grads = [torch.zeros_like(p) for p in state.params]
+    stats = [torch.zeros_like(t) for pair in start for t in pair]
+    loss = 0.0
+    mb = images.shape[0] // M
+    for j in range(M):
+        sl = slice(j * mb, (j + 1) * mb)
+        with torch.no_grad():
+            for bn, (mean, var) in zip(bns, start):
+                bn.running_mean.copy_(mean)
+                bn.running_var.copy_(var)
+        pred = model(images[sl])
+        total = _total(trainer.loss_fn({k: v[sl] for k, v in gt.items()}, pred,
+                                       learn_heatmaps_from_zeros=cfg.learn_heatmaps_from_zeros),
+                       weights)
+        got = torch.autograd.grad(total, state.params, allow_unused=True)
+        for acc, g in zip(grads, got):
+            if g is not None:
+                acc += g / M
+        for acc, t in zip(stats, [t for bn in bns for t in (bn.running_mean, bn.running_var)]):
+            acc += t / M
+        loss += float(total.detach()) / M
+    with torch.no_grad():
+        for i, bn in enumerate(bns):
+            bn.running_mean.copy_(stats[2 * i])
+            bn.running_var.copy_(stats[2 * i + 1])
+    state.apply_gradients(grads, trainer.tx, ema_decay=cfg.optim.ema_decay)
+    return loss
+
+
+def phase18_scenarios(world: int):
+    """(name, model axis, global batch, config overrides) of the f32 steps
+    a world of `world` ranks takes on pipe = 2 (the 1F1B one with the fused
+    MLP, so that K5 runs in the stages)."""
+    if world == 2:
+        return (("gpipe", 1, P18_TRAIN_BATCH, {}),
+                ("1f1b", 1, P18_TRAIN_BATCH,
+                 dict(pipeline_schedule="1f1b", mlp_impl="fused")))
+    return (("pipe x model", 2, P18_TP_BATCH, dict(attn_impl="fused_tp")),)
+
+
+def phase18_batch(rows: int) -> dict:
+    """The first `rows` rows of the flagship's batch (phase17_batch)."""
+    return {k: v[:rows] for k, v in phase17_batch().items()}
+
+
+def phase18_step(torch, trainer, db) -> tuple[float, float, dict]:
+    """(loss, ms, launches) of one step of the trainer."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = trainer.train_step(trainer.state, db)
+    loss = float(m["loss"])
+    return loss, (time.perf_counter() - t0) * 1e3, read_counts()
+
+
+def phase18_rank(rank: int, world: int, work: Path) -> None:
+    """One rank of phase 18's worlds on cuda:(rank % device count), gloo
+    where ranks share a card (the pipe's sends staged through host
+    memory). A world of 2 (pipe = 2): 18a, the bf16 flagship served through
+    the GPipe forward; 18b, the f32 GPipe step and the 1F1B step with the
+    fused MLP (K5 in the stages); 18c, configs/vitl_coco.json stepped with
+    GPipe, then 1F1B, each rank's step ms and peak memory. A world of 4: the
+    f32 pipe 2 x model 2 "fused_tp" step. Rank 0 writes each f32 step's
+    whole state; every rank its numbers."""
+    import torch
+
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+    from probpose_pytorch_tpu_torch.train.loop import Trainer, make_train_step_1f1b
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(f"file://{work / 'rendezvous'}", world, rank, device="cuda")
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mine = dict(rank=rank, world=world, backend=dist.get_backend(), device=str(dev))
+    if world == 2:
+        mesh = make_mesh(world, 1, pipeline_parallel=2)
+        cfg = phase18_config("bfloat16", P18_SERVE_BATCH)
+        model = build_model(cfg.model, device=dev, seed=0)
+        peak_heatmap_branch(torch, model)
+        pred = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size,
+                                return_heatmaps=True, mesh=mesh)
+        frames, boxes = request(180, P18_SERVE_BATCH)
+        pred(frames, boxes)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred(frames, boxes)
+        mine["serve"] = dict(ms=(time.perf_counter() - t0) * 1e3, counts=read_counts(),
+                             stage_blocks=int(pred.model.backbone.blocks.qkv_kernel.shape[0]))
+        np.savez(work / f"serve{rank}.npz", **out)
+        del model, pred, out
+    else:
+        mesh = make_mesh(world, 2, pipeline_parallel=2)
+    for name, mp, rows, over in phase18_scenarios(world):
+        trainer = Trainer.create(phase18_config("float32", rows, **over), 1, mesh,
+                                 device="cuda")
+        peak_heatmap_branch(torch, trainer.model)
+        loss, ms, counts = phase18_step(torch, trainer, trainer.device_batch(phase18_batch(rows)))
+        params, mu = phase18_whole(trainer)
+        mine[name] = dict(losses=[loss], ms=[ms], counts=counts,
+                          attn_impl=trainer.cfg.model.attn_impl,
+                          pp_stages=trainer.cfg.model.pp_stages,
+                          split=len(trainer.model.tp_splits), staged=len(trainer.model.pp_splits))
+        if rank == 0:
+            torch.save(dict(params=params, mus=[mu]), work / f"{name}.pt")
+        del trainer, params, mu
+        torch.cuda.empty_cache()
+    if world == 2:
+        cfg = phase18_vitl_config()
+        trainer = Trainer.create(cfg, 1, mesh, device="cuda")
+        ds_batch = phase18_vitl_batch()
+        db = trainer.device_batch(ds_batch)
+        for label in ("gpipe", "1f1b"):
+            if label == "1f1b":
+                trainer.train_step = make_train_step_1f1b(
+                    trainer.model, trainer.encode_codec, trainer.loss_fn, trainer.tx, cfg, mesh)
+            phase18_step(torch, trainer, db)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, ms, counts = phase18_step(torch, trainer, db)
+            mine[f"vitl {label}"] = dict(losses=[loss], ms=[ms], counts=counts,
+                                         peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        del trainer, db
+    (work / f"rank{rank}.json").write_text(json.dumps(mine))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase18_vitl_batch():
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+
+    cfg = phase18_vitl_config()
+    ds = SyntheticPoseDataset(P18_VITL_BATCH, cfg.model.img_size, cfg.model.num_keypoints,
+                              seed=3)
+    return next(iter(batch_iterator(ds, P18_VITL_BATCH, num_workers=8)))
+
+
+# The rank processes phase 18 started, which main() kills if a phase fails
+# before phase 18 waits for them.
+STARTED: list = []
+
+
+def phase18_start(world: int, work: Path) -> tuple:
+    """Start a world of `world` ranks of this script on phase 18's work;
+    phase18_end takes what this returns."""
+    logs = [open(work / f"log{world}_{r}.txt", "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--phase18-rank",
+                               str(r), str(world), str(work / f"w{world}")],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(world)]
+    STARTED.extend(procs)
+    return world, work, procs, logs, time.monotonic() + P18_DEADLINE_S
+
+
+def phase18_begin() -> list[tuple]:
+    """Start phase 18's worlds (4 ranks, then 2) in RUN_DIR; phase18 waits
+    for them. run() starts them before phase 15: phases 15 and 16 are
+    host-bound (exports, fresh processes, CPU comparisons), so the worlds
+    share the card with them rather than lengthen the run."""
+    work = RUN_DIR / "phase18"
+    for w in (2, 4):
+        (work / f"w{w}").mkdir(parents=True, exist_ok=True)
+    return [phase18_start(4, work), phase18_start(2, work)]
+
+
+def phase18_end(handle: tuple) -> tuple:
+    """Wait for a world's ranks until its deadline, kill what is left;
+    (the handle, each rank's exit code and output)."""
+    world, work, procs, logs, deadline = handle
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    return handle, [p.returncode for p in procs], texts
+
+
+def phase18_ranks(ended: tuple) -> list[dict]:
+    """Each rank's numbers of an ended world; a rank that failed fails the
+    phase (its log printed)."""
+    (world, work, *_), codes, texts = ended
+    for r, (code, text) in enumerate(zip(codes, texts)):
+        if code != 0:
+            say(f"phase 18: rank {r} of {world} log:\n{text[-6000:]}")
+        check(code == 0, f"phase 18: rank {r} of {world} failed (exit {code})")
+    return [json.loads((work / f"w{world}" / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase18(torch, dev, card: str, refs17: dict | None = None,
+            worlds: list[tuple] | None = None) -> dict:
+    """Phase 18: pipeline parallelism on the card. A world of 4 ranks (pipe
+    2 x model 2) and one of 2 (pipe 2), spawned from this script
+    (phase18_rank; `worlds` from phase18_begin, started here when None),
+    waited for first; then one process's timed references, alone on the
+    card (the bf16 flagship served; ViT-L's step ms and peak memory), and
+    its untimed ones (the f32 GPipe step is phase 17's single-process step,
+    `refs17`, made here when None; the fused-MLP step over microbatches in
+    turn for 1F1B; the fused_tp step at P18_TP_BATCH rows). Returns the
+    launches by run."""
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    work = RUN_DIR / "phase18"
+    ended = [phase18_end(w) for w in (worlds or phase18_begin())]
+    t_worlds = time.perf_counter() - t_phase
+    cfg = phase18_config("bfloat16", P18_SERVE_BATCH)
+    model = build_model(cfg.model, device=dev, seed=0)
+    peak_heatmap_branch(torch, model)
+    codec = make_codec(cfg.model)
+    frames, boxes = request(180, P18_SERVE_BATCH)
+    pred = TopDownPredictor(model, codec, cfg.model.img_size, return_heatmaps=True)
+    pred(frames, boxes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_serve = pred(frames, boxes)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    del model, pred
+    trainer = Trainer.create(phase18_vitl_config(), 1, device=dev)
+    db = trainer.device_batch(phase18_vitl_batch())
+    phase18_step(torch, trainer, db)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vitl_loss, vitl_ms, _ = phase18_step(torch, trainer, db)
+    vitl_peak = torch.cuda.max_memory_allocated() / 2**20
+    del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = {}
+    for name, _, rows, over in phase18_scenarios(2) + phase18_scenarios(4):
+        if refs17 is not None and name == "gpipe":
+            refs[name] = refs17[None][:1]
+            continue
+        trainer = Trainer.create(phase18_config("float32", rows, **over), 1, device=dev)
+        peak_heatmap_branch(torch, trainer.model)
+        db = trainer.device_batch(phase18_batch(rows))
+        schedule = getattr(trainer.tx, "inner", trainer.tx).schedule
+        if name == "1f1b":
+            loss = phase18_microbatched_step(torch, trainer, db, P18_MICROBATCHES)
+        else:
+            loss = float(trainer.train_step(trainer.state, db)[1]["loss"])
+        params, mu = phase17_whole(trainer)
+        refs[name] = [dict(loss=loss, params=params, mu=mu,
+                           lr=float(schedule(torch.tensor(0, device=dev))))]
+        del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks4, ranks2 = (phase18_ranks(e) for e in ended)
+    b1 = train_config("float32", P18_TRAIN_BATCH).optim.b1
+
+    launches = {}
+    say(f"phase 18 [{card}]: worlds of 4 and 2 ranks, backend {ranks2[0]['backend']}, "
+        f"cards {sorted({r['device'] for r in ranks4 + ranks2})}")
+
+    # 18a: the bf16 flagship served through the GPipe forward
+    sel = well_defined(torch, codec, ref_serve["heatmaps"], dev)
+    bound = 2 * 2**-8 * max(1.0, float(np.abs(ref_serve["heatmaps"]).max()))
+    for r in ranks2:
+        got = dict(np.load(work / "w2" / f"serve{r['rank']}.npz"))
+        herr = float(np.abs(got["heatmaps"] - ref_serve["heatmaps"]).max())
+        kerr = float(np.abs(got["keypoints"] - ref_serve["keypoints"])[sel].max(initial=0.0))
+        c = r["serve"]["counts"]
+        say(f"phase 18: 18a GPipe serving B={P18_SERVE_BATCH} bf16 on pipe = 2, rank "
+            f"{r['rank']} ({r['serve']['stage_blocks']} blocks): {r['serve']['ms']:.1f} ms "
+            f"against one process's {serve_ms:.1f} ms; K1 short forward {c['k1s']} (expect "
+            f"{r['serve']['stage_blocks']} x 4 microbatches = {r['serve']['stage_blocks'] * 4}), "
+            f"K2 {c['k2']}; heatmaps max abs diff {herr:.3e} (K1's bf16 bound {bound:.3e}), "
+            f"keypoints {kerr:.3e} px over {int(sel.sum())} well-defined (tolerance "
+            f"{KPT_TOL_PX:g})")
+        check(r["serve"]["stage_blocks"] == 6, "phase 18: a stage does not hold 6 blocks")
+        check(c["k1s"] == 24 and c["k2"] == 1 and c["k1f"] == 0,
+              "phase 18: the GPipe forward did not run K1 per block per microbatch")
+        check(herr <= bound and kerr <= KPT_TOL_PX,
+              f"phase 18: rank {r['rank']}'s served outputs differ")
+        launches[f"18a serving rank {r['rank']}"] = c
+
+    # 18b: the f32 steps against one process
+    for ranks, world in ((ranks2, 2), (ranks4, 4)):
+        for name, _, _, _ in phase18_scenarios(world):
+            ref = refs[name]
+            for r in ranks:
+                got_r = r[name]
+                say(f"phase 18: 18b {name} f32 step, world {world} rank {r['rank']}: loss "
+                    f"{got_r['losses']} against one process's {ref[0]['loss']!r}, "
+                    f"{got_r['ms'][0]:.1f} ms, attention {got_r['attn_impl']}, pp_stages "
+                    f"{got_r['pp_stages']}, {got_r['staged']} staged and {got_r['split']} "
+                    f"model-split leaves; K1 forward {got_r['counts']['k1f']}, backward "
+                    f"{got_r['counts']['k1b']}, K5 forward {got_r['counts']['k5f']}, backward "
+                    f"{got_r['counts']['k5b']}, K2 {got_r['counts']['k2']}")
+                check(np.allclose(got_r["losses"], [ref[0]["loss"]], rtol=P17_LOSS_RTOL, atol=0),
+                      f"phase 18: {name} rank {r['rank']}'s loss differs")
+                check(got_r["pp_stages"] == 2 and got_r["staged"] == 12,
+                      f"phase 18: {name} did not stage the 12 stacked leaves")
+            got = torch.load(work / f"w{world}" / f"{name}.pt", weights_only=True)
+            compare_world_state(torch, 18, name, ref, got, b1, 1)
+            launches[f"18b {name} rank 0"] = ranks[0][name]["counts"]
+    c = ranks2[0]["gpipe"]["counts"]
+    check(c["k1f"] == c["k1b"] == 6 * 4, "phase 18: the f32 GPipe step did not run K1 each way "
+          "per block per microbatch")
+    # 1F1B: a forward slot and a recompute a block a microbatch on stage 0,
+    # one forward on the last stage; one backward a block a microbatch
+    for r in ranks2:
+        c, slots = r["1f1b"]["counts"], 6 * P18_MICROBATCHES
+        fwd = slots if r["rank"] == 1 else 2 * slots
+        check(c["k1f"] == c["k5f"] == fwd and c["k1b"] == c["k5b"] == slots,
+              f"phase 18: the 1F1B stage of rank {r['rank']} did not run K1 and K5 once a "
+              "block a slot")
+    c = ranks4[0]["pipe x model"]["counts"]
+    check(ranks4[0]["pipe x model"]["attn_impl"] == "fused_tp" and c["k1f"] == c["k1b"] == 24,
+          "phase 18: the pipe x model step did not run K1 head-major in its stage")
+
+    # 18c: ViT-L, the model pipelining is for (remat: GPipe 4 microbatches
+    # of 8, 1F1B 8 of 4; each block's forward once more under remat)
+    for r in ranks2:
+        for label, fwd, bwd in (("gpipe", 2 * 12 * 4, 12 * 4), ("1f1b", 3 * 12 * 8, 12 * 8)):
+            v = r[f"vitl {label}"]
+            fwd_r = fwd if r["rank"] == 0 or label == "gpipe" else 2 * 12 * 8
+            say(f"phase 18 [{card}]: 18c ViT-L (configs/vitl_coco.json, bf16, remat, B="
+                f"{P18_VITL_BATCH}) {label} on pipe = 2, rank {r['rank']}: step "
+                f"{v['ms'][0]:.1f} ms, peak {v['peak_mib']:.1f} MiB, loss {v['losses'][0]:.6f}; "
+                f"one process: {vitl_ms:.1f} ms, peak {vitl_peak:.1f} MiB; K1 short forward "
+                f"{v['counts']['k1s']} (expect {fwd_r}), backward {v['counts']['k4b']} "
+                f"(expect {bwd})")
+            check(np.isfinite(v["losses"][0]), f"phase 18: ViT-L {label} loss not finite")
+            check(v["counts"]["k1s"] == fwd_r and v["counts"]["k4b"] == bwd
+                  and v["counts"]["k4b_recomputes"] == 0,
+                  f"phase 18: ViT-L {label} did not run K1 once a block a slot")
+    launches["18c vitl gpipe rank 0"] = ranks2[0]["vitl gpipe"]["counts"]
+    launches["18c vitl 1f1b rank 0"] = ranks2[0]["vitl 1f1b"]["counts"]
+    say(f"phase 18: {time.perf_counter() - t_phase:.1f} s in all ({t_worlds:.1f} s waiting "
+        "for the worlds)")
+    return launches
 
 
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
@@ -5643,6 +6092,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--phase17-rank"]:  # one rank of phase 17's world
         phase17_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
         return
+    if sys.argv[1:2] == ["--phase18-rank"]:  # one rank of phase 18's worlds
+        phase18_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return
     if "--attention-times" in sys.argv[1:]:
         attention_times(torch, card_line())
         return
@@ -5654,11 +6106,15 @@ def main() -> None:
     try:
         run(torch)
     finally:
+        for p in STARTED:  # ranks a failed phase left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
 
 def run(torch) -> None:
-    """Phases 0 to 17, then the kernels line and the result line."""
+    """Phases 0 to 18, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -5899,6 +6355,7 @@ def run(torch) -> None:
     # --------------------------------------------------------------- phase 15
     gc.collect()
     torch.cuda.empty_cache()
+    worlds18 = phase18_begin()  # phase 18's worlds run beside phases 15 and 16
     bundles15 = phase15(torch, dev, card)
 
     # --------------------------------------------------------------- phase 16
@@ -5909,7 +6366,12 @@ def run(torch) -> None:
     # --------------------------------------------------------------- phase 17
     gc.collect()
     torch.cuda.empty_cache()
-    world17, hm17 = phase17(torch, dev, card, g)
+    world17, hm17, refs17 = phase17(torch, dev, card, g)
+
+    # --------------------------------------------------------------- phase 18
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe18 = phase18(torch, dev, card, refs17, worlds18)
 
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
@@ -6006,6 +6468,8 @@ def run(torch) -> None:
     for entry in kernels:
         entry["phase17_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in world17.items()}
+        entry["phase18_launches"] = {run: c[eval_counter[entry["name"]]]
+                                     for run, c in pipe18.items()}
         if entry.get("layout") == "head_major":
             continue  # no earlier phase runs the head-major layout
         entry["eval_launches"] = evals[eval_counter[entry["name"]]]

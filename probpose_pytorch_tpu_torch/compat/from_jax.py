@@ -21,6 +21,12 @@ compat/torch_export.py:
                                            running_mean / running_var
   * LoRA `<layer>_lora/{a, b}`          -> `<layer>_lora.{a, b}`, as they are
   * conv trunk `stage{s}_block{b}`      -> `blocks.{i}`, in stage order
+  * stacked ViT trunk `blocks/<name>`   -> `backbone.blocks.<name>`, as it
+                                           is (JAX's layout, models/vit.py)
+A stacked JAX trunk loads into a per-block port model, and a per-block one
+into a stacked port model, through compat/layouts.py's
+`unstack_state_dict` / `stack_state_dict` (`load_jax_variables`,
+`load_jax_train_state`).
 A masked optax state (`multi_transform` with frozen labels) holds moments
 for the trainable leaves only, `MaskedNode` in the frozen ones' places; it
 carries into the port's masked optimizer state, which holds the same.
@@ -127,6 +133,9 @@ def _backbone(sd: dict, p: Tree) -> None:
     sd[q + "pos_embed"] = np.asarray(p["pos_embed"])
     if "prefix_tokens" in p:
         sd[q + "prefix_tokens"] = np.asarray(p["prefix_tokens"])
+    if "blocks" in p:  # the stacked trunk: JAX's leaves as they are
+        for name, leaf in p["blocks"].items():
+            sd[f"{q}blocks.{name}"] = np.asarray(leaf)
     for i in range(_count(p, "block", "blocks")):
         blk, b = p[f"block{i}"], f"{q}blocks.{i}."
         _norm(sd, b + "norm1", blk["norm1"])
@@ -175,11 +184,6 @@ def state_dict_from_jax(params: Tree, batch_stats: Tree) -> dict[str, np.ndarray
         _conv_backbone(sd, params["backbone"], batch_stats["backbone"])
         _head(sd, params["head"], batch_stats["head"])
     else:
-        if "blocks" in params["backbone"]:
-            raise NotImplementedError(
-                "stacked pipeline-parallel trunk params are not ported (ROADMAP "
-                "item 13b); unstack them with compat.unstack_vit_blocks first"
-            )
         _backbone(sd, params["backbone"])
         _head(sd, params["head"], batch_stats["head"])
     # np.array, not np.ascontiguousarray, which turns 0-d arrays into (1,).
@@ -212,12 +216,25 @@ def quantized_state_dict_from_jax(variables: Tree) -> dict[str, np.ndarray]:
     return {k: np.array(v, order="C") for k, v in sd.items()}
 
 
+def _to_trunk_of(sd: dict, keys) -> dict:
+    """`sd` in the trunk layout (stacked or per-block) of a model whose
+    state dict has `keys`."""
+    from probpose_pytorch_tpu_torch.compat.layouts import stack_state_dict, unstack_state_dict
+
+    stacked = "backbone.blocks.qkv_kernel" in keys
+    if stacked and "backbone.blocks.qkv_kernel" not in sd:
+        return stack_state_dict(sd)
+    if not stacked and "backbone.blocks.qkv_kernel" in sd:
+        return unstack_state_dict(sd)
+    return sd
+
+
 def load_jax_variables(model: torch.nn.Module, params: Tree, batch_stats: Tree) -> None:
     """Load JAX `variables["params"]` / `["batch_stats"]` into the port's
     `ProbPoseModel` or `PersonDetector` in place (strict: every tensor must
-    be matched)."""
-    sd = state_dict_from_jax(params, batch_stats)
+    be matched), the trunk converted to the model's layout."""
     ref = model.state_dict()
+    sd = _to_trunk_of(state_dict_from_jax(params, batch_stats), ref)
     tensors = {}
     for k, v in sd.items():
         if k in ref and tuple(ref[k].shape) != v.shape:
@@ -281,6 +298,8 @@ def _port_leaf_index(params: Tree, batch_stats: Tree, names: list[str]) -> list[
         return np.full(np.shape(node), next(counter), np.float64)
 
     sd = state_dict_from_jax(fill(params), batch_stats)
+    if any(n not in sd for n in names):
+        raise ValueError("Adafactor's moments carry only between the same trunk layout")
     return [int(sd[n].flat[0]) for n in names]
 
 
@@ -335,8 +354,9 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     device = state.params[0].device
 
     def leaves(tree: Tree, names: list[str] = state.names) -> list[torch.Tensor]:
-        sd = state_dict_from_jax(_unmask(tree, jax_state.params), jax_state.batch_stats)
-        return [torch.from_numpy(sd[n]).to(device) for n in names]
+        sd = _to_trunk_of(state_dict_from_jax(_unmask(tree, jax_state.params),
+                                              jax_state.batch_stats), state.names)
+        return [torch.from_numpy(np.ascontiguousarray(sd[n])).to(device) for n in names]
 
     def scalar(v, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
@@ -358,8 +378,8 @@ def load_jax_train_state(state: TrainState, jax_state: Any) -> None:
     family = _one([s for s in named if set(s._fields) == fields],
                   f"state with the fields {sorted(fields)}")
     first = family.v if isinstance(opt, AdafactorState) else family.mu
-    held = state_dict_from_jax(_unmask(first, jax_state.params, present=True),
-                               jax_state.batch_stats)
+    held = _to_trunk_of(state_dict_from_jax(_unmask(first, jax_state.params, present=True),
+                                            jax_state.batch_stats), state.names)
     trainable = [n for n in state.names if held[n].all()]
     if len(trainable) != len(opt.v if isinstance(opt, AdafactorState) else opt.mu):
         raise ValueError(f"the JAX optimizer trains {len(trainable)} leaves, the port's "

@@ -14,8 +14,11 @@ weight": tensor, ...}) and the JAX package's nested numpy trees
 ({"backbone": {"block0": {"attn": {"qkv": {"kernel": ...}}}}}) alike: a
 leaf's path is its keys split at "/" and ".". `stack_vit_blocks`,
 `unstack_vit_blocks` and `convert_trunk_layout` move a nested tree between
-the per-block trunk and the stacked one of pipeline parallelism (ROADMAP
-item 13b runs it); they are dict operations.
+the per-block trunk and the stacked one of pipeline parallelism; they are
+dict operations. `stack_state_dict` and `unstack_state_dict` do the same
+for the port's state dicts: `backbone.blocks.<i>.attn.qkv.weight` (out,
+in) and its siblings against `backbone.blocks.qkv_kernel` (depth, in, out),
+JAX's stacked leaves (models/vit.py:_StackedBlockParams).
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ __all__ = [
     "qkv_to_qkv_major",
     "stack_vit_blocks",
     "unstack_vit_blocks",
+    "stack_state_dict",
+    "unstack_state_dict",
     "BLOCK_LEAF_PATHS",
+    "PORT_BLOCK_LEAVES",
 ]
 
 # The JAX block's leaves by their stacked names (models/vit.py there).
@@ -51,6 +57,94 @@ BLOCK_LEAF_PATHS = {
     "fc2_kernel": ("mlp", "fc2", "kernel"),
     "fc2_bias": ("mlp", "fc2", "bias"),
 }
+
+
+# The port's per-block name of each stacked leaf (after blocks.<i>.), and
+# whether it is a Linear weight, stored (out, in) per block and (in, out)
+# stacked.
+PORT_BLOCK_LEAVES = {
+    "norm1_scale": ("norm1.weight", False), "norm1_bias": ("norm1.bias", False),
+    "qkv_kernel": ("attn.qkv.weight", True), "qkv_bias": ("attn.qkv.bias", False),
+    "proj_kernel": ("attn.proj.weight", True), "proj_bias": ("attn.proj.bias", False),
+    "norm2_scale": ("norm2.weight", False), "norm2_bias": ("norm2.bias", False),
+    "fc1_kernel": ("mlp.fc1.weight", True), "fc1_bias": ("mlp.fc1.bias", False),
+    "fc2_kernel": ("mlp.fc2.weight", True), "fc2_bias": ("mlp.fc2.bias", False),
+}
+
+
+def _swap(t: Any) -> Any:
+    return t.transpose(-1, -2) if isinstance(t, torch.Tensor) else np.swapaxes(t, -1, -2)
+
+
+def _stack(parts: list) -> Any:
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack([p.contiguous() for p in parts])
+    return np.stack([np.asarray(p) for p in parts])
+
+
+def _block_index(key: str, prefix: str) -> int | None:
+    if not key.startswith(prefix):
+        return None
+    head = key[len(prefix):].split(".")[0]
+    return int(head) if head.isdigit() else None
+
+
+def _moment_kind(t: Any, shape: tuple | None) -> str:
+    """How a tensor of a leaf whose parameter has `shape` moves between the
+    layouts: "param" (its parameter's shape, or no shape given), "scalar"
+    (a (1,) placeholder, as Adafactor keeps), "reduced" (one axis of each
+    block's kernel reduced away: Adafactor's rows and columns, stacked along
+    the depth axis as they are)."""
+    if shape is None or tuple(t.shape) == tuple(shape):
+        return "param"
+    return "scalar" if tuple(t.shape) == (1,) else "reduced"
+
+
+def stack_state_dict(sd: Mapping[str, Any], prefix: str = "backbone.blocks.",
+                     shapes: Mapping[str, tuple] | None = None) -> dict:
+    """A port state dict (tensors or arrays) from the per-block trunk to the
+    stacked one; every other entry passes through. The per-block trunk
+    must hold exactly `PORT_BLOCK_LEAVES` (no LoRA, as JAX's stacked trunk
+    takes none). With `shapes` ({name: its parameter's shape}) the entries
+    may be optimizer moments of those parameters (`_moment_kind`)."""
+    depth = 1 + max((i for k in sd if (i := _block_index(k, prefix)) is not None), default=-1)
+    if not depth:
+        return dict(sd)
+    out = {k: v for k, v in sd.items() if _block_index(k, prefix) is None}
+    per_block = {k for k in sd if _block_index(k, prefix) is not None}
+    for name, (leaf, kernel) in PORT_BLOCK_LEAVES.items():
+        keys = [f"{prefix}{i}.{leaf}" for i in range(depth)]
+        per_block -= set(keys)
+        kinds = {_moment_kind(sd[k], None if shapes is None else shapes[k]) for k in keys}
+        if kinds == {"scalar"}:
+            out[prefix + name] = sd[keys[0]]
+        else:
+            swap = kernel and kinds == {"param"}
+            out[prefix + name] = _stack([_swap(sd[k]) if swap else sd[k] for k in keys])
+    if per_block:
+        raise ValueError(f"per-block entries the stacked trunk has no place for: "
+                         f"{sorted(per_block)[:4]}")
+    return out
+
+
+def unstack_state_dict(sd: Mapping[str, Any], prefix: str = "backbone.blocks.",
+                       shapes: Mapping[str, tuple] | None = None) -> dict:
+    """Inverse of `stack_state_dict` (with `shapes`, the stacked
+    parameters' shapes)."""
+    if prefix + "qkv_kernel" not in sd:
+        return dict(sd)
+    out = {k: v for k, v in sd.items()
+           if not (k.startswith(prefix) and k[len(prefix):] in PORT_BLOCK_LEAVES)}
+    depth = (shapes or {}).get(prefix + "qkv_kernel", sd[prefix + "qkv_kernel"].shape)[0]
+    for name, (leaf, kernel) in PORT_BLOCK_LEAVES.items():
+        t = sd[prefix + name]
+        kind = _moment_kind(t, None if shapes is None else shapes[prefix + name])
+        for i in range(depth):
+            part = t if kind == "scalar" else t[i]
+            part = _swap(part) if kernel and kind == "param" else part
+            out[f"{prefix}{i}.{leaf}"] = (part.contiguous() if isinstance(part, torch.Tensor)
+                                          else np.ascontiguousarray(part))
+    return out
 
 
 def qkv_head_major_permutation(embed_dim: int, num_heads: int) -> np.ndarray:

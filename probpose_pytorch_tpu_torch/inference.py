@@ -80,32 +80,54 @@ def _mesh_model(model: ProbPoseModel, mesh: Any) -> ProbPoseModel:
     re-clones its model (inference.py:247-296 there): on a model axis > 1,
     "fused" weights convert to head-major and run "fused_tp" with their
     heads split where the heads divide the axis; any fused attention that
-    cannot split runs "einsum" (qkv-major) whole. The weights are then laid
-    on the mesh (parallel/sharding.py:shard_params)."""
-    from probpose_pytorch_tpu_torch.compat.layouts import qkv_to_head_major, qkv_to_qkv_major
+    cannot split runs "einsum" (qkv-major) whole. On a pipe axis > 1 the
+    trunk is stacked (compat/layouts.py:stack_state_dict) and served as a
+    pipeline, each rank its stage. The weights are then laid on the mesh
+    (parallel/sharding.py:shard_params)."""
+    from probpose_pytorch_tpu_torch.compat.layouts import (
+        qkv_to_head_major,
+        qkv_to_qkv_major,
+        stack_state_dict,
+    )
+    from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, _StackedBlockParams
     from probpose_pytorch_tpu_torch.parallel.mesh import mesh_device, mesh_shape
     from probpose_pytorch_tpu_torch.parallel.sharding import shard_params
 
     model = copy.deepcopy(model)
     backbone = model.backbone
-    model_size = mesh_shape(mesh).get("model", 1)
-    blocks = getattr(backbone, "blocks", None)
-    if model_size > 1 and blocks is not None:
-        impl, heads = blocks[0].attn.impl, backbone.num_heads
+    shape = mesh_shape(mesh)
+    model_size, pipe = shape.get("model", 1), shape.get("pipe", 1)
+    if isinstance(backbone, ViTBackbone) and (model_size > 1 or pipe > 1):
+        stacked = backbone.stacked or pipe > 1
+        impl = backbone.attn_impl if backbone.stacked else backbone.blocks[0].attn.impl
+        heads = backbone.num_heads
         sd = model.state_dict()
-        if impl in ("fused", "fused_tp") and heads % model_size == 0:
-            impl_new = "fused_tp"
-            if impl == "fused":
-                sd = qkv_to_head_major(sd, heads)
-        elif impl in ("fused", "fused_tp", "pallas"):
-            impl_new = "einsum"
-            if impl == "fused_tp":
-                sd = qkv_to_qkv_major(sd, heads)
-        else:
-            impl_new = impl
+        impl_new = impl
+        if model_size > 1:
+            if impl in ("fused", "fused_tp") and heads % model_size == 0:
+                impl_new = "fused_tp"
+                if impl == "fused":
+                    sd = qkv_to_head_major(sd, heads)
+            elif impl in ("fused", "fused_tp", "pallas"):
+                if stacked:
+                    raise ValueError(
+                        "tensor parallelism inside a pipeline stage requires "
+                        "attn_impl='fused'/'fused_tp' with heads divisible by model_parallel "
+                        f"(got attn_impl={impl!r}, model axis {model_size})")
+                impl_new = "einsum"
+                if impl == "fused_tp":
+                    sd = qkv_to_qkv_major(sd, heads)
+        if stacked and not backbone.stacked:
+            depth = len(backbone.blocks)
+            backbone.blocks = _StackedBlockParams(depth, backbone.embed_dim,
+                                                  int(backbone.embed_dim * backbone.mlp_ratio))
+            backbone.pp_stages = pipe
+            sd = stack_state_dict(sd)
         model.load_state_dict(sd)
-        for block in blocks:
-            block.attn.impl = impl_new
+        backbone.attn_impl = impl_new
+        if not backbone.stacked:
+            for block in backbone.blocks:
+                block.attn.impl = impl_new
     model.mesh = mesh
     shard_params(model, mesh)
     return model.to(mesh_device(mesh, next(model.parameters()).device))

@@ -8,15 +8,18 @@ a ViT, or with `backbone="conv-s"` / `"conv-t"` the residual conv family
 or the SimCC coordinate classifier (models/simcc.py). `build_model`
 raises `NotImplementedError` for the values this port does not run yet,
 naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
+`pp_stages > 1` stacks the ViT's blocks for pipeline parallelism
+(models/vit.py); its weights are drawn as the per-block trunk's.
 
 On a mesh (parallel/mesh.py) every rank builds the same weights from the
-seed and keeps its slices (parallel/sharding.py:shard_params). The model
-takes the rank's rows of the batch; its head follows JAX's
-`head_batch_spec`: where the rows divide the model axis too, each model
-rank runs the head on its share of them (`scatter_rows`), else on all of
-them. Train-mode BatchNorm takes the statistics of the global batch:
-the head's over the ranks whose rows it runs (`head_group`), a conv
-trunk's over the data axis.
+seed and keeps its slices (parallel/sharding.py:shard_params): its
+Megatron slices on a model axis, its pipeline stage of a stacked trunk on
+a pipe axis. The model takes the rank's rows of the batch; its head
+follows JAX's `head_batch_spec`: where the rows divide the model and pipe
+axes too, each rank runs the head on its share of them (`scatter_rows`
+over each axis in turn), else on all of them. Train-mode BatchNorm takes
+the statistics of the global batch: the head's over the ranks whose rows
+it runs (`head_group`), a conv trunk's over the data axis.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ from probpose_pytorch_tpu_torch.models.head import ProbMapHead, bn_sync
 from probpose_pytorch_tpu_torch.models.simcc import SimCCHead
 from probpose_pytorch_tpu_torch.models.vit import ViTBackbone, ViTConfig
 from probpose_pytorch_tpu_torch.parallel.collectives import scatter_rows
-from probpose_pytorch_tpu_torch.parallel.mesh import mesh_shape
-from probpose_pytorch_tpu_torch.parallel.sharding import head_batch_spec, shard_params
+from probpose_pytorch_tpu_torch.parallel.mesh import mesh_coords, mesh_shape
+from probpose_pytorch_tpu_torch.parallel.sharding import head_batch_spec, local_slice, shard_params
 
 __all__ = ["ModelConfig", "ProbPoseModel", "build_model", "init_weights", "resolve_device"]
 
@@ -93,9 +96,8 @@ class ModelConfig:
             object.__setattr__(self, f.name, _tuples(getattr(self, f.name)))
 
     def check_ported(self) -> None:
-        """Raise for values the port cannot build yet, naming the ROADMAP
-        item that ports each; ValueError for values that are no option."""
-        unported = [(self.pp_stages > 1, "pp_stages > 1", "13b")]
+        """ValueError for values that are no option (every option of the
+        JAX config is ported)."""
         if self.lora_rank > 0 and self.backbone.startswith("conv"):
             raise ValueError("lora_rank applies to ViT backbones only")
         if self.lora_rank > 0 and self.mlp_impl == "fused":
@@ -103,11 +105,9 @@ class ModelConfig:
                 "lora_rank > 0 does not compose with mlp_impl='fused' (the fused "
                 "LN+MLP kernel bypasses the Dense modules)"
             )
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
-                )
+        if self.lora_rank > 0 and self.pp_stages > 1:
+            raise ValueError("lora_rank > 0 does not compose with the stacked pipeline-parallel "
+                             "trunk layout (pp_stages > 1)")
         if self.head_type not in ("probmap", "simcc"):
             raise ValueError(
                 f"unknown head_type {self.head_type!r} (expected probmap | simcc)")
@@ -162,6 +162,20 @@ class ProbPoseModel(nn.Module):
             return torch.distributed.group.WORLD
         return self.mesh.get_group("data")
 
+    def head_axes(self) -> list[str]:
+        """The axes beyond "data" that a split head's rows are shared over,
+        outermost first."""
+        shape = mesh_shape(self.mesh)
+        return [ax for ax in ("model", "pipe") if shape.get(ax, 1) > 1]
+
+    def head_share(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's head rows of a tensor of its data rows (the rows a
+        split head runs here)."""
+        shape, coords = mesh_shape(self.mesh), mesh_coords(self.mesh)
+        for ax in self.head_axes():
+            t = local_slice(t, 0, coords[ax], shape[ax])
+        return t
+
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """On a mesh: x is this rank's rows; the outputs are its head rows
         (`head_group`)."""
@@ -170,20 +184,24 @@ class ProbPoseModel(nn.Module):
         with bn_sync(self.mesh.get_group("data")):
             feats = self.backbone(x)
         if self.head_split(x.shape[0]):
-            feats = scatter_rows(feats, self.mesh.get_group("model"))
+            for ax in self.head_axes():
+                feats = scatter_rows(feats, self.mesh.get_group(ax))
         with bn_sync(self.head_group(x.shape[0])):
             return self.head(feats)
 
 
 def _trunc_normal(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     """Normal truncated at +-2 std (flax `truncated_normal` /
-    `lecun_normal`'s shape), drawn on the CPU from `g`."""
+    `lecun_normal`'s shape), drawn on the CPU from `g`: the draws outside
+    +-2 drawn again, in index order, until none is left (only the redrawn
+    elements are checked again)."""
     v = torch.empty(t.shape).normal_(generator=g)
-    while True:
-        bad = v.abs() > 2.0
-        if not bad.any():
-            break
-        v[bad] = torch.empty(int(bad.sum())).normal_(generator=g)
+    flat = v.view(-1)
+    idx = (flat.abs() > 2.0).nonzero().squeeze(1)
+    while idx.numel():
+        draw = torch.empty(idx.numel()).normal_(generator=g)
+        flat[idx] = draw
+        idx = idx[draw.abs() > 2.0]
     with torch.no_grad():
         t.copy_(v * std)
 
@@ -206,7 +224,12 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
         trunk = model.backbone.named_parameters()
     with torch.no_grad():
         lora = []
+        stacked = getattr(model.backbone, "stacked", False)
         for name, p in trunk:
+            if stacked and name.startswith("blocks."):
+                if name == "blocks.norm1_scale":
+                    _init_stacked(model.backbone.blocks, generator, lecun)
+                continue
             if "_lora." in name:
                 lora.append((name, p))
                 continue
@@ -236,6 +259,17 @@ def init_weights(model: ProbPoseModel, generator: torch.Generator) -> None:
                 p.copy_(torch.empty(p.shape).normal_(0.0, 0.02, generator=generator))
             else:
                 p.zero_()
+
+
+def _init_stacked(blocks: nn.Module, generator: torch.Generator, lecun) -> None:
+    """The stacked trunk's kernels drawn as the per-block trunk's: per block,
+    qkv, proj, fc1 and fc2 in (out, in), then stored (in, out)."""
+    for i in range(blocks.qkv_kernel.shape[0]):
+        for name in ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel"):
+            leaf = getattr(blocks, name)
+            v = torch.empty(leaf.shape[2], leaf.shape[1])
+            _trunc_normal(v, lecun(leaf.shape[1]), generator)
+            leaf[i].copy_(v.t())
 
 
 def resolve_device(device: torch.device | str, what: str) -> torch.device:
@@ -271,6 +305,8 @@ def _vit_backbone(cfg: ModelConfig) -> tuple[ViTBackbone, int]:
         lora_rank=cfg.lora_rank,
         lora_alpha=cfg.lora_alpha,
         softmax_dtype=_DTYPES[cfg.softmax_dtype],
+        pp_stages=cfg.pp_stages,
+        pp_microbatches=cfg.pp_microbatches,
     )
     return backbone, cfg.adapter_hidden[-1] if cfg.adapter_hidden else vit["embed_dim"]
 
@@ -280,7 +316,8 @@ def build_model(cfg: ModelConfig, mesh: Any = None, *, device: torch.device | st
     """The model of `cfg` on `device` (the card unless the caller asks for
     the CPU), in eval mode, with weights drawn from a `torch.Generator`
     seeded with `seed`. On a `mesh` each rank keeps its slices of the
-    weights (on the rank's card when `device` is a card)."""
+    weights (on the rank's card when `device` is a card): on a pipe axis,
+    its stage of a stacked trunk."""
     from probpose_pytorch_tpu_torch.parallel.mesh import mesh_device
 
     device = mesh_device(mesh, resolve_device(device, "build_model"))
@@ -318,8 +355,5 @@ def build_model(cfg: ModelConfig, mesh: Any = None, *, device: torch.device | st
     model = ProbPoseModel(backbone, head, mesh)
     init_weights(model, torch.Generator().manual_seed(seed))
     if mesh is not None:
-        if cfg.lora_rank > 0 and mesh_shape(mesh).get("model", 1) > 1:
-            raise NotImplementedError("LoRA deltas on a model-parallel mesh are not ported to "
-                                      "PyTorch yet (ROADMAP item 13b)")
         shard_params(model, mesh)
     return model.to(device).eval()

@@ -2,12 +2,15 @@
 
 A mesh is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of
 the world (parallel/distributed.py) with JAX's axis names ("data",
-"model"). The "model" axis is innermost: rank = data index * model + model
-index, so a model group is consecutive ranks, which a launcher places on
-one host, and the world's rank order is the order of the global batch's
-rows. The trainer and the predictor reduce over its groups explicitly
-(parallel/collectives.py): gradients over "data", the Megatron block's two
-activations over "model". `mesh_shape(mesh)` reads the axis sizes as JAX's
+"model"), and "pipe" after them when `pipeline_parallel > 1`. The last
+axis is innermost: rank = (data index * model + model index) * pipe + pipe
+index, so a pipeline's stages are consecutive ranks (neighbours for the
+per-tick send, as JAX keeps them ICI neighbours) and the world's rank order
+is the order of the global batch's rows. The trainer and the predictor
+reduce over its groups explicitly (parallel/collectives.py): gradients over
+"data", the Megatron block's two activations over "model", a pipeline's
+activations and cotangents between the "pipe" neighbours
+(parallel/pipeline.py). `mesh_shape(mesh)` reads the axis sizes as JAX's
 `dict(mesh.shape)` does.
 """
 
@@ -28,9 +31,10 @@ def _device_type() -> str:
 def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
               axis_names: tuple[str, str] = ("data", "model"),
               pipeline_parallel: int = 1) -> DeviceMesh:
-    """A (data, model) mesh over the first `n_devices` ranks (default: the
-    world). `model_parallel` must divide them; 1 is pure data
-    parallelism. `pipeline_parallel > 1` is ROADMAP item 13b."""
+    """A (data, model[, pipe]) mesh over the first `n_devices` ranks
+    (default: the world). `model_parallel * pipeline_parallel` must divide
+    them; 1 and 1 is pure data parallelism. With `pipeline_parallel > 1`
+    the mesh gains a trailing "pipe" axis, innermost, as JAX's."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices is None:
         n_devices = world
@@ -40,26 +44,28 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
         raise ValueError(
             f"model_parallel={model_parallel} * pipeline_parallel="
             f"{pipeline_parallel} must divide n_devices={n_devices}")
-    if pipeline_parallel > 1:
-        raise NotImplementedError("a pipe axis (pipeline_parallel > 1) is not ported to "
-                                  "PyTorch yet (ROADMAP item 13b)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a torch.distributed world: start one with "
                            "parallel.maybe_initialize_distributed (JAX's launcher variables "
                            "or torchrun's)")
     if n_devices != world:
         raise ValueError(f"a mesh spans the whole world of {world} ranks, not {n_devices}")
+    if pipeline_parallel > 1:
+        grid = torch.arange(n_devices).reshape(
+            n_devices // (model_parallel * pipeline_parallel), model_parallel, pipeline_parallel)
+        return DeviceMesh(_device_type(), grid, mesh_dim_names=(*axis_names[:2], "pipe"))
     grid = torch.arange(n_devices).reshape(n_devices // model_parallel, model_parallel)
     return DeviceMesh(_device_type(), grid, mesh_dim_names=tuple(axis_names))
 
 
 def make_hybrid_mesh(model_parallel: int = 1,
-                     axis_names: tuple[str, str] = ("data", "model")) -> DeviceMesh:
-    """JAX's multi-slice mesh: data parallelism across hosts, the model axis
-    within one. With the model axis innermost and a launcher that numbers a
-    host's ranks consecutively, `make_mesh`'s layout is that already: only
-    the gradient all-reduce crosses hosts."""
-    return make_mesh(None, model_parallel, axis_names)
+                     axis_names: tuple[str, str] = ("data", "model"), *,
+                     pipeline_parallel: int = 1) -> DeviceMesh:
+    """JAX's multi-slice mesh: data parallelism across hosts, the model (and
+    pipe) axes within one. With those axes innermost and a launcher that
+    numbers a host's ranks consecutively, `make_mesh`'s layout is that
+    already: only the gradient all-reduce crosses hosts."""
+    return make_mesh(None, model_parallel, axis_names, pipeline_parallel)
 
 
 def mesh_shape(mesh: DeviceMesh | None) -> dict[str, int]:

@@ -1,5 +1,5 @@
-"""How parameters, batches and optimizer moments lie on a (data, model)
-mesh (port of probpose_pytorch_tpu/parallel/sharding.py).
+"""How parameters, batches and optimizer moments lie on a (data, model[,
+pipe]) mesh (port of probpose_pytorch_tpu/parallel/sharding.py).
 
 JAX states shardings and GSPMD moves the data; here each rank holds its
 slice and the code that reads it calls the collectives
@@ -15,9 +15,15 @@ on it: a head-major ("fused_tp") attention whose heads divide the model
 axis, and the dense MLP. An attention with qkv-major weights (heads that do
 not divide the axis, "einsum") and the fused MLP (kernel K5 takes whole
 weights, as GSPMD gives JAX's pallas_call) keep their weights whole on
-every model rank and compute the same numbers there. It records what it
-split in `model.tp_splits` ({name: dim}), which the optimizer, the norm of
-the gradient and the checkpoint read.
+every model rank and compute the same numbers there. LoRA deltas stay
+whole (JAX's `_param_spec` names no axis for them); beside a split
+projection each rank's gradients of them are its part of the sum
+(`model.tp_partial`). A stacked (pipeline) trunk's leaves follow JAX's
+"blocks" specs: a rank keeps its stage's rows along the depth axis on a
+pipe axis > 1 and, on a model axis > 1, its Megatron slice
+(models/vit.py:stacked_param_specs). It records what it split in
+`model.tp_splits` and `model.pp_splits` ({name: dim}), which the
+optimizer, the norm of the gradient and the checkpoint read.
 
 ZeRO-1 (`opt_state_shardings`, `shard_opt_state`): each moment leaf of at
 least `min_size` elements is split over "data" along its largest
@@ -62,9 +68,17 @@ def head_batch_spec(mesh: Any, batch_size: int) -> tuple[str, ...] | None:
     return ("data", *extra)
 
 
-def _param_spec(name: str, ndim: int) -> tuple:
+def _param_spec(name: str, ndim: int, axes: tuple = ()) -> tuple:
     names = name.split(".")
     joined = "/".join(names)
+    if "blocks" in names and not names[names.index("blocks") + 1].isdigit():
+        # the stacked trunk: JAX's specs, which name an axis the mesh has
+        from probpose_pytorch_tpu_torch.models.vit import stacked_param_specs
+
+        if "pipe" not in axes:
+            return ()
+        spec = stacked_param_specs()[names[-1]]
+        return tuple(a if a in axes else None for a in spec)
     if "attn" in joined and names[-1] == "weight" and ndim == 2:
         if "qkv" in joined:
             return _OUT
@@ -85,9 +99,11 @@ def _param_spec(name: str, ndim: int) -> tuple:
 def param_shardings(params: nn.Module | Mapping[str, torch.Tensor], mesh: Any = None
                     ) -> dict[str, tuple]:
     """{name: spec} for a model's parameters (or a state dict), JAX's
-    `_param_spec` of the non-stacked trunk on the port's names and axes."""
+    `_param_spec` on the port's names and axes (a stacked trunk's leaves
+    by the axes of `mesh`)."""
     items = params.named_parameters() if isinstance(params, nn.Module) else params.items()
-    return {n: _param_spec(n, p.dim()) for n, p in items}
+    axes = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return {n: _param_spec(n, p.dim(), axes) for n, p in items}
 
 
 def local_slice(t: torch.Tensor, dim: int | None, index: int, count: int) -> torch.Tensor:
@@ -100,21 +116,38 @@ def local_slice(t: torch.Tensor, dim: int | None, index: int, count: int) -> tor
 
 
 def shard_params(model: nn.Module, mesh: Any) -> nn.Module:
-    """Keep this rank's model-axis slice of every parameter the port's
-    block runs split (see the module's docstring), in place, and give the
-    blocks their model group; record the splits in `model.tp_splits`.
-    Returns the model. On a mesh without a model axis > 1 nothing moves."""
-    model.tp_splits = {}
-    m = mesh_shape(mesh).get("model", 1)
-    if m == 1:
-        return model
+    """Keep this rank's slices of the parameters (see the module's
+    docstring), in place: on a model axis, of every parameter the port's
+    block runs split, and the blocks get their model group; on a pipe
+    axis, its stage of a stacked trunk. Records the splits in
+    `model.tp_splits`, `model.pp_splits` and the partial LoRA leaves in
+    `model.tp_partial`. Returns the model."""
+    model.tp_splits, model.pp_splits, model.tp_partial = {}, {}, set()
+    shape = mesh_shape(mesh)
+    m, pipe = shape.get("model", 1), shape.get("pipe", 1)
     from probpose_pytorch_tpu_torch.models.vit import ViTBackbone
 
     backbone = getattr(model, "backbone", None)
-    if not isinstance(backbone, ViTBackbone):
+    if not isinstance(backbone, ViTBackbone) or (m == 1 and pipe == 1):
         return model
-    group, index = mesh.get_group("model"), mesh_coords(mesh)["model"]
-    specs = param_shardings(model)
+    coords = mesh_coords(mesh)
+    specs = param_shardings(model, mesh)
+    if backbone.stacked:
+        backbone.mesh = mesh
+        if m > 1:
+            backbone.blocks.tp_group = mesh.get_group("model")
+        for pname, p in backbone.blocks.named_parameters():
+            name = f"backbone.blocks.{pname}"
+            data = p.data
+            for dim, ax in enumerate(specs[name]):
+                if ax is not None and shape[ax] > 1:
+                    data = local_slice(data, dim, coords[ax], shape[ax])
+                    (model.pp_splits if ax == "pipe" else model.tp_splits)[name] = dim
+            p.data = data.clone()
+        return model
+    if m == 1:
+        return model
+    group, index = mesh.get_group("model"), coords["model"]
     for i, block in enumerate(backbone.blocks):
         split = []
         if block.attn.impl == "fused_tp" and block.attn.num_heads % m == 0:
@@ -128,6 +161,8 @@ def shard_params(model: nn.Module, mesh: Any) -> nn.Module:
             for pname, p in getattr(block, sub).named_parameters():
                 name = f"backbone.blocks.{i}.{sub}.{pname}"
                 spec = specs[name]
+                if "_lora." in name:
+                    model.tp_partial.add(name)
                 if "model" not in spec:
                     continue
                 dim = spec.index("model")

@@ -12,7 +12,8 @@ fresh run of given weights for the checkpoint tools.
 
 A run on a mesh saves the same file as a run on one device: every rank
 calls `save`, the split parameters, their EMA and the moments are gathered
-whole (train/state.py: the optimizer's `ShardPlan`), rank 0 writes, and
+whole (train/state.py: the optimizer's `ShardPlan`; a pipelined trunk's
+stages over the pipe axis, into JAX's stacked layout), rank 0 writes, and
 every rank waits for the file before it goes on (the write is then not
 asynchronous). Every rank restores from the whole tensors and keeps its
 slices, so a checkpoint moves between one device and any mesh.
@@ -30,7 +31,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from probpose_pytorch_tpu_torch.train.state import TrainState, _part, _whole
+from probpose_pytorch_tpu_torch.train.state import ShardPlan, TrainState
 
 __all__ = ["CheckpointManager", "state_is_finite", "write_run"]
 
@@ -78,21 +79,20 @@ def _on_mesh(state: TrainState) -> bool:
     return getattr(state.model, "mesh", None) is not None
 
 
-def _split(state: TrainState) -> tuple[list, object]:
-    """(each parameter's model-axis dim, the model group) of the state's plan."""
-    plan = getattr(state.tx, "plan", None)
-    if plan is None or plan.tp_dims is None:
-        return [None] * len(state.params), None
-    return plan.tp_dims, plan.tp_group
+def _split(state: TrainState) -> tuple[ShardPlan, list, list]:
+    """(the state's plan, each parameter's model-axis dim and pipe-axis dim)."""
+    plan = getattr(state.tx, "plan", None) or ShardPlan()
+    none = [None] * len(state.params)
+    return plan, plan.tp_dims or none, plan.pp_dims or none
 
 
 def _state_payload(state: TrainState) -> dict[str, Any]:
     """The whole train state as CPU tensors (a snapshot: training may go on
     changing the live tensors in place)."""
     model = state.model
-    dims, group = _split(state)
-    whole = lambda ts: {n: _whole(t.detach(), d, group).to("cpu", copy=True)
-                        for n, t, d in zip(state.names, ts, dims)}
+    plan, dims, pp = _split(state)
+    whole = lambda ts: {n: plan.whole(t.detach(), d, e).to("cpu", copy=True)
+                        for n, t, d, e in zip(state.names, ts, dims, pp)}
     opt = state.tx.whole_state(state.opt_state) if _on_mesh(state) else state.opt_state
     return {
         "step": state.host_step,
@@ -113,15 +113,15 @@ def _load_payload(state: TrainState, payload: dict[str, Any]) -> None:
         raise ValueError("the checkpoint's buffer names differ from the model's")
     if (payload["ema"] is None) != (state.ema_params is None):
         raise ValueError("the checkpoint and the state disagree on keeping an EMA")
-    dims, group = _split(state)
+    plan, dims, pp = _split(state)
     with torch.no_grad():
-        for n, p, d in zip(state.names, state.params, dims):
-            p.copy_(_like(p, _part(payload["params"][n], d, group), n))
+        for n, p, d, e in zip(state.names, state.params, dims, pp):
+            p.copy_(_like(p, plan.part(payload["params"][n], d, e), n))
         for n, b in buffers.items():
             b.copy_(_like(b, payload["buffers"][n], n))
         if state.ema_params is not None:
-            state.ema_params = [_like(e, _part(payload["ema"][n], d, group), n)
-                                for n, e, d in zip(state.names, state.ema_params, dims)]
+            state.ema_params = [_like(t, plan.part(payload["ema"][n], d, e), n)
+                                for n, t, d, e in zip(state.names, state.ema_params, dims, pp)]
     if _on_mesh(state):
         template = state.tx.whole_state(state.opt_state)
         state.opt_state = state.tx.part_state(_like(template, payload["opt_state"], "opt_state"))

@@ -17,12 +17,14 @@ variables on every process,
         python -m probpose_pytorch_tpu_torch.train.cli <out_dir> --config cfg.json
 
 or torchrun (`torchrun --nproc-per-node 2 -m probpose_pytorch_tpu_torch.train.cli
-...`). The mesh is built as JAX's CLI builds it: (data, model) over the
-world with `model_parallel` on the model axis (make_hybrid_mesh). Every rank
+...`). The mesh is built as JAX's CLI builds it: (data, model[, pipe]) over
+the world with `model_parallel` on the model axis and `pipeline_parallel`
+on a pipe axis (make_hybrid_mesh), the data axis the rest. Every rank
 loads its data slice of each global batch; rank 0 writes config.json, the
 log and the checkpoints. The data axis must divide the train and val
 batches (JAX's CLI shrinks its mesh to a sub-mesh there; a port mesh spans
-the world). `pipeline_parallel > 1` is ROADMAP item 13b.
+the world), and model_parallel * pipeline_parallel the world (JAX's error
+where they exceed it).
 """
 
 from __future__ import annotations
@@ -115,12 +117,18 @@ def main(argv=None) -> None:
     steps_per_epoch = max(len(train_ds) // cfg.train_batch_size, 1)
     mesh, shard_kw = None, {}
     if world > 1 or cfg.model_parallel > 1 or cfg.pipeline_parallel > 1:
-        data = world // cfg.model_parallel
+        mp_total = cfg.model_parallel * cfg.pipeline_parallel
+        data = world // mp_total
+        if cfg.pipeline_parallel > 1 and data < 1:
+            raise ValueError(
+                f"pipeline_parallel={cfg.pipeline_parallel} * model_parallel="
+                f"{cfg.model_parallel} exceeds the {world} available devices")
         if data and (cfg.train_batch_size % data or cfg.val_batch_size % data):
             raise ValueError(f"the data axis ({data} = {world} processes / model_parallel "
-                             f"{cfg.model_parallel}) must divide train_batch_size "
+                             f"{cfg.model_parallel} / pipeline_parallel "
+                             f"{cfg.pipeline_parallel}) must divide train_batch_size "
                              f"{cfg.train_batch_size} and val_batch_size {cfg.val_batch_size}")
-        mesh = make_hybrid_mesh(cfg.model_parallel)
+        mesh = make_hybrid_mesh(cfg.model_parallel, pipeline_parallel=cfg.pipeline_parallel)
         # each rank loads its data slice of every global batch
         shard_kw = dict(process_index=mesh_coords(mesh)["data"],
                         process_count=mesh_shape(mesh)["data"])

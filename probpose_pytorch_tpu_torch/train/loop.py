@@ -31,8 +31,16 @@ gathered over the ranks whose head rows make the batch, so every rank
 computes the one global loss and metrics (each mean, each weighted mean
 with its count, each accuracy's max(count, 1) is the global batch's), and
 the gradients are summed over the data axis, the head's also over the
-model axis where the model ranks share the head's rows. The pipeline axis
-and its schedules raise `NotImplementedError` naming ROADMAP item 13b.
+model and pipe axes where their ranks share the head's rows.
+
+On a mesh with a pipe axis the trunk is stacked and staged
+(parallel/pipeline.py). `pipeline_schedule="gpipe"` runs the step above
+through the pipelined forward, whose backward is autograd through the
+ticks; the patch embedding's gradients, which stage 0 alone computes, are
+summed over the pipe axis. "1f1b" runs `make_train_step_1f1b`: the embed
+segment, then `pipeline_1f1b` with the final norm, the head and the loss as
+its last stage's loss, JAX's two semantic changes included (BatchNorm on
+each microbatch's statistics, masked means per microbatch).
 """
 
 from __future__ import annotations
@@ -92,17 +100,14 @@ from probpose_pytorch_tpu_torch.train.state import (
 from probpose_pytorch_tpu_torch.utils.logging import MetricsLogger
 
 __all__ = ["build_codecs", "augment_batch", "load_teacher", "frozen_labels", "make_train_step",
-           "make_eval_step", "Trainer", "qkv_layout_of", "trunk_layout_of", "layout_metadata",
+           "make_train_step_1f1b", "make_eval_step", "Trainer", "qkv_layout_of",
+           "trunk_layout_of", "layout_metadata",
            "restore_state_with_layout"]
 
 # A callable the train step calls after each of its stages with the stage's
 # name ("encode", "forward", "loss", "backward", "optimizer"); chip_smoke.py
 # records a CUDA event there.
 StageMark = Callable[[str], None]
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
 
 
 def qkv_layout_of(model_cfg) -> str:
@@ -112,7 +117,7 @@ def qkv_layout_of(model_cfg) -> str:
 
 
 def trunk_layout_of(model_cfg) -> str:
-    """"stacked" for a pipeline-parallel trunk (ROADMAP item 13b), else
+    """"stacked" for a pipeline-parallel trunk (pp_stages > 1), else
     "per_block"."""
     return "stacked" if model_cfg.pp_stages > 1 else "per_block"
 
@@ -170,27 +175,63 @@ def _convert_payload(payload: dict, names: list[str], trainable: list[str], head
     return out
 
 
+def _convert_trunk(payload: dict, names: list[str], trainable: list[str],
+                   own_names: list[str], own_trainable: list[str], src: str, dst: str) -> dict:
+    """A checkpoint payload's parameters, EMA and optimizer moments from
+    trunk layout `src` to `dst` (compat/layouts.py:stack_state_dict;
+    Adafactor's reduced moments stacked along the depth axis), the moments
+    re-ordered to the target's parameters."""
+    from probpose_pytorch_tpu_torch.compat.layouts import stack_state_dict, unstack_state_dict
+
+    convert = stack_state_dict if dst == "stacked" else unstack_state_dict
+    params = payload["params"]
+    shapes = {n: tuple(t.shape) for n, t in params.items()}
+
+    def moments(node):
+        if isinstance(node, dict):
+            return {k: moments(v) for k, v in node.items()}
+        if isinstance(node, list):
+            order, own = ((trainable, own_trainable) if len(node) == len(trainable)
+                          else (names, own_names))
+            moved = convert(dict(zip(order, node)), shapes=shapes)
+            return [moved[n] for n in own]
+        return node
+
+    out = dict(payload, params=convert(params), opt_state=moments(payload["opt_state"]))
+    if payload["ema"] is not None:
+        out["ema"] = convert(payload["ema"])
+    return out
+
+
 def restore_state_with_layout(ckpt: CheckpointManager, target_state: TrainState,
                               cfg: TrainConfig, step: int | None = None) -> TrainState:
-    """`ckpt.restore` with the qkv layout converted where the checkpoint's
-    metadata (none: qkv-major) differs from `cfg`'s: the parameters, the
-    EMA and the optimizer's moments alike, before a mesh takes its slices,
-    so the resume is exact. A trunk layout that differs is ROADMAP item 13b."""
+    """`ckpt.restore` with the qkv and trunk layouts converted where the
+    checkpoint's metadata (none: qkv-major, per-block) differs from `cfg`'s:
+    the parameters, the EMA and the optimizer's moments alike, before a
+    mesh takes its slices, so the resume is exact."""
     meta = ckpt.read_metadata(step)
     own_qkv, stored_qkv = qkv_layout_of(cfg.model), meta.get("qkv_layout", "qkv_major")
     own_trunk, stored_trunk = trunk_layout_of(cfg.model), meta.get("trunk_layout", "per_block")
-    if stored_trunk != own_trunk:
-        raise _unported(f"restoring a {stored_trunk!r} trunk onto a {own_trunk!r} one", "13b")
     heads = meta.get("num_heads") or layout_metadata(cfg)["num_heads"]
-    if stored_qkv == own_qkv or not heads:
+    qkv = stored_qkv != own_qkv and heads
+    if not qkv and stored_trunk == own_trunk:
         return ckpt.restore(target_state, step=step)
-    tx = target_state.tx
-    inner = getattr(tx, "inner", tx)
-    trainable = (target_state.names if inner.trainable is None
-                 else [target_state.names[i] for i in inner.trainable])
-    _load_payload(target_state, _convert_payload(ckpt.read(step), target_state.names, trainable,
-                                                  heads, stored_qkv, own_qkv))
-    print(f"[checkpoint] converted qkv layout: {stored_qkv} -> {own_qkv}")
+    payload = ckpt.read(step)
+    names = list(payload["params"])
+    labels = frozen_labels(cfg, names)
+    trainable = names if labels is None else [n for n, k in zip(names, labels)
+                                              if k == "trainable"]
+    if qkv:
+        payload = _convert_payload(payload, names, trainable, heads, stored_qkv, own_qkv)
+        print(f"[checkpoint] converted qkv layout: {stored_qkv} -> {own_qkv}")
+    if stored_trunk != own_trunk:
+        inner = getattr(target_state.tx, "inner", target_state.tx)
+        own_trainable = (target_state.names if inner.trainable is None
+                         else [target_state.names[i] for i in inner.trainable])
+        payload = _convert_trunk(payload, names, trainable, target_state.names, own_trainable,
+                                 stored_trunk, own_trunk)
+        print(f"[checkpoint] converted trunk layout: {stored_trunk} -> {own_trunk}")
+    _load_payload(target_state, payload)
     return target_state
 
 
@@ -350,28 +391,52 @@ def _gather_global(model: torch.nn.Module, rows: int, pred: Any, gt: dict) -> tu
     head rows make the batch (ProbPoseModel.head_group)."""
     group = model.head_group(rows)
     if model.head_split(rows):  # the targets of this rank's share of the rows
-        sub = model.mesh.get_group("model")
-        m, index = mesh_shape(model.mesh)["model"], dist.get_rank(sub)
-        gt = {k: local_slice(v, 0, index, m) for k, v in gt.items()}
+        gt = {k: model.head_share(v) for k, v in gt.items()}
     gather = lambda x: ([gather_rows(t, group) for t in x] if isinstance(x, (tuple, list))
                         else gather_rows(x, group))
     return [gather(x) for x in pred], {k: all_gather_cat(v, group) for k, v in gt.items()}
 
 
-def _reduce_grads(model: torch.nn.Module, names: list[str], grads: list[torch.Tensor],
-                  rows: int) -> None:
-    """Sum the gradients over the data axis, in place (one flat buffer),
-    and the head's then also over the model axis where the model ranks
-    share the head's rows."""
-    mesh = model.mesh
-    flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), mesh.get_group("data"))
+# The parameters before a stacked trunk, which stage 0 alone differentiates.
+_EMBED = ("backbone.patch_embed.", "backbone.pos_embed", "backbone.prefix_tokens")
+
+
+def _sum_over(grads: list[torch.Tensor], group) -> None:
+    """Sum `grads` over `group`, in place (one flat buffer)."""
+    if not grads:
+        return
+    flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), group)
     for g, t in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
         g.copy_(t)
-    if model.head_split(rows):
-        head = [grads[i] for i, n in enumerate(names) if n.startswith("head.")]
-        flat = all_reduce_(torch._utils._flatten_dense_tensors(head), mesh.get_group("model"))
-        for g, t in zip(head, torch._utils._unflatten_dense_tensors(flat, head)):
-            g.copy_(t)
+
+
+def _reduce_grads(model: torch.nn.Module, names: list[str], grads: list[torch.Tensor],
+                  rows: int) -> None:
+    """Sum the gradients over the data axis, in place, then over the model
+    and pipe axes those that are partial there: the head's where those
+    ranks share the head's rows, the LoRA deltas beside a split projection
+    over the model axis, the embedding's before a stacked trunk over the
+    pipe axis."""
+    mesh = model.mesh
+    _sum_over(grads, mesh.get_group("data"))
+    split, shape = model.head_split(rows), mesh_shape(mesh)
+    stacked = getattr(model.backbone, "stacked", False)
+    partial = getattr(model, "tp_partial", set())
+    for ax in ("model", "pipe"):
+        if shape.get(ax, 1) == 1:
+            continue
+        _sum_over([g for g, n in zip(grads, names)
+                   if (split and n.startswith("head."))
+                   or (ax == "model" and n in partial)
+                   or (ax == "pipe" and stacked and n.startswith(_EMBED))],
+                  mesh.get_group(ax))
+
+
+def _grad_norm(grads: list[torch.Tensor], plan: ShardPlan | None) -> torch.Tensor:
+    """The global norm of every gradient, split leaves counted once."""
+    if plan is None:
+        return global_norm(grads)
+    return global_norm(grads, plan.tp_dims, plan.tp_group, plan.pp_dims, plan.pp_group)
 
 
 def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
@@ -435,12 +500,90 @@ def make_train_step(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
         if mesh is not None:
             _reduce_grads(model, state.names, grads, rows)
         mark("backward")
-        grad_norm = global_norm(grads, plan.tp_dims if plan else None,
-                                plan.tp_group if plan else None)
+        grad_norm = _grad_norm(grads, plan)
         state.apply_gradients(grads, tx, ema_decay=cfg.optim.ema_decay)
         mark("optimizer")
         metrics = {"loss": total.detach(),
                    **{f"loss/{k}": v.detach() for k, v in losses.items()},
+                   "grad_norm": grad_norm}
+        return state, metrics
+
+    return step
+
+
+def make_train_step_1f1b(model: torch.nn.Module, encode_codec: Codec | SimCCCodec,
+                         loss_fn: ProbPoseLoss | SimCCLoss, tx: Optimizer | MultiSteps,
+                         cfg: TrainConfig, mesh: Any) -> Callable:
+    """JAX's 1F1B train step (`pipeline_schedule="1f1b"` on a mesh with a
+    pipe axis > 1): the augmented, encoded batch; the embed segment under
+    autograd; the trunk, final norm, head and loss through
+    `pipeline_1f1b`, whose last stage runs `backbone.post_trunk` and the
+    head on each microbatch as its loss; the engine's dx into the embed's
+    gradients (summed over the data axis, as GSPMD sums them); the update.
+    As in JAX, the head's BatchNorm normalises each microbatch by its own
+    statistics and its running statistics take the microbatches' mean
+    update, and masked loss means are taken per microbatch, then averaged.
+    Same call and metrics as `make_train_step`."""
+    from probpose_pytorch_tpu_torch.parallel.pipeline import pipeline_1f1b
+
+    weights = cfg.loss_weights.as_dict()
+    aug = cfg.augment
+    augment = aug is not None and (aug.enabled or aug.half_body_prob > 0)
+    backbone, head = model.backbone, model.head
+    params = dict(model.named_parameters())
+    names = list(params)
+    embed = [n for n in names if n.startswith(_EMBED)]
+    post = [n for n in names if not n.startswith(_EMBED)
+            and not n.startswith("backbone.blocks.")]
+    bns = [m for m in head.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    model_axis = "model" if mesh_shape(mesh).get("model", 1) > 1 else None
+
+    def step(state: TrainState, batch: dict[str, torch.Tensor],
+             mark: StageMark | None = None):
+        mark = mark or (lambda name: None)
+        draws = None
+        rows = batch["keypoints"].shape[0]
+        if augment:
+            draws = _draw_rows(cfg, state.host_step, rows, mesh, batch["keypoints"].device)
+        images, gt = _augment_encode(cfg, encode_codec, batch, draws)
+        mark("encode")
+        model.train()
+        tokens = backbone(images, segment="embed")
+        start = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]
+
+        def pp_loss(lp, h, t_mb):
+            with torch.no_grad():  # every microbatch from the step's running statistics
+                for bn, (mean, var) in zip(bns, start):
+                    bn.running_mean.copy_(mean)
+                    bn.running_var.copy_(var)
+            pred = head(backbone(h, segment="post_trunk"))
+            losses = loss_fn(t_mb, pred, learn_heatmaps_from_zeros=cfg.learn_heatmaps_from_zeros)
+            stats = [t.clone() for bn in bns for t in (bn.running_mean, bn.running_var)]
+            return _total(losses, weights), (losses, stats)
+
+        block_fn, seq_block_fn, specs = backbone.block_fns()
+        loss, d_trunk, d_post, dx, (losses, stats) = pipeline_1f1b(
+            block_fn, backbone.blocks.flat(), pp_loss, [params[n] for n in post],
+            tokens.detach(), gt, mesh, model_axis=model_axis,
+            microbatches=cfg.model.pp_microbatches, param_specs=specs,
+            seq_block_fn=seq_block_fn, loss_has_aux=True)
+        mark("loss")
+        d_embed = torch.autograd.grad(tokens, [params[n] for n in embed], dx, allow_unused=True)
+        d_embed = [torch.zeros_like(params[n]) if g is None else g
+                   for n, g in zip(embed, d_embed)]
+        _sum_over(d_embed, mesh.get_group("data"))
+        with torch.no_grad():
+            for i, bn in enumerate(bns):
+                bn.running_mean.copy_(stats[2 * i])
+                bn.running_var.copy_(stats[2 * i + 1])
+        by_name = {**dict(zip(embed, d_embed)), **dict(zip(post, d_post)),
+                   **{f"backbone.blocks.{k}": v for k, v in d_trunk.items()}}
+        grads = [by_name[n].to(params[n].dtype) for n in names]
+        mark("backward")
+        grad_norm = _grad_norm(grads, tx.plan)
+        state.apply_gradients(grads, tx, ema_decay=cfg.optim.ema_decay)
+        mark("optimizer")
+        metrics = {"loss": loss, **{f"loss/{k}": v for k, v in losses.items()},
                    "grad_norm": grad_norm}
         return state, metrics
 
@@ -517,13 +660,15 @@ class Trainer:
         becomes "fused_tp" where the heads divide a model axis > 1, and any
         fused attention "einsum" where they do not; the weights, the
         optimizer's plan and, with `shard_opt_state` (data-parallel meshes
-        only), the ZeRO-1 moments are laid on the mesh."""
+        only), the ZeRO-1 moments are laid on the mesh. A pipe axis > 1
+        stages the stacked trunk over it (`pp_stages` set from the mesh, as
+        JAX's) and `pipeline_schedule` picks the GPipe or the 1F1B step."""
         device = mesh_device(mesh, resolve_device(device, "Trainer.create"))
-        if cfg.pipeline_parallel > 1 or mesh_shape(mesh).get("pipe", 1) > 1:
-            raise _unported("pipeline_parallel > 1", "13b")
         if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
-            raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
+            raise ValueError(f"unknown pipeline_schedule {cfg.pipeline_schedule!r} "
+                             "(expected gpipe | 1f1b)")
         model_size = mesh_shape(mesh).get("model", 1)
+        pipe_size = mesh_shape(mesh).get("pipe", 1)
         if model_size > 1 and cfg.model.attn_impl in ("fused", "fused_tp"):
             from probpose_pytorch_tpu_torch.models.vit import ViTConfig
 
@@ -540,7 +685,23 @@ class Trainer:
                       f"({model_size}); using 'einsum' on this mesh")
                 cfg = dataclasses.replace(
                     cfg, model=dataclasses.replace(cfg.model, attn_impl="einsum"))
-        if mesh is not None and cfg.shard_opt_state and model_size > 1:
+        if pipe_size > 1:
+            from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+
+            if model_size > 1 and cfg.model.attn_impl != "fused_tp":
+                raise ValueError(
+                    "tensor parallelism inside a pipeline stage requires "
+                    "attn_impl='fused'/'fused_tp' with heads divisible by model_parallel "
+                    f"(got attn_impl={cfg.model.attn_impl!r}, model axis {model_size})")
+            depth = ViTConfig.PRESETS.get(cfg.model.backbone, {}).get("depth", 0)
+            if cfg.model.backbone.startswith("conv") or depth % pipe_size:
+                raise ValueError(
+                    "pipeline parallelism needs a ViT backbone whose depth divides the pipe "
+                    f"axis (backbone={cfg.model.backbone}, pipe={pipe_size})")
+            if cfg.model.pp_stages != pipe_size:
+                cfg = dataclasses.replace(
+                    cfg, model=dataclasses.replace(cfg.model, pp_stages=pipe_size))
+        if mesh is not None and cfg.shard_opt_state and (model_size > 1 or pipe_size > 1):
             raise ValueError(
                 "shard_opt_state (ZeRO-1 over the data axis) is supported on dp-only meshes; "
                 "with tensor/pipeline parallelism the moments inherit the param layouts")
@@ -556,7 +717,9 @@ class Trainer:
             tx.plan = ShardPlan(
                 tp_group=mesh.get_group("model") if model_size > 1 else None,
                 tp_dims=[model.tp_splits.get(n) for n in names],
-                dp_group=mesh.get_group("data"))
+                dp_group=mesh.get_group("data"),
+                pp_group=mesh.get_group("pipe") if pipe_size > 1 else None,
+                pp_dims=[model.pp_splits.get(n) for n in names])
         state = TrainState(model, tx, ema=cfg.optim.ema_decay is not None)
         if mesh is not None and cfg.shard_opt_state:
             inner = getattr(tx, "inner", tx)
@@ -566,10 +729,18 @@ class Trainer:
         teacher = None
         if cfg.distill is not None and cfg.distill.teacher_checkpoint:
             teacher = load_teacher(cfg, device)
+        if pipe_size > 1 and cfg.pipeline_schedule == "1f1b":
+            if teacher is not None:
+                raise ValueError(
+                    "distillation does not compose with pipeline_schedule='1f1b' (the frozen "
+                    "teacher would have to run on every pipeline stage); use 'gpipe'")
+            train_step = make_train_step_1f1b(model, encode_codec, loss_fn, tx, cfg, mesh)
+        else:
+            train_step = make_train_step(model, encode_codec, loss_fn, tx, cfg, teacher)
         return cls(
             cfg=cfg, model=model, encode_codec=encode_codec, fast_codec=fast_codec,
             loss_fn=loss_fn, tx=tx, state=state,
-            train_step=make_train_step(model, encode_codec, loss_fn, tx, cfg, teacher),
+            train_step=train_step,
             eval_step=make_eval_step(model, encode_codec, loss_fn, cfg),
             device=device, teacher=teacher, mesh=mesh,
         )
@@ -662,7 +833,7 @@ class Trainer:
                                  async_save=cfg.async_checkpoint)
         start_step = 0
         if cfg.resume and ckpt.latest_step() is not None:
-            ckpt.restore(self.state)
+            restore_state_with_layout(ckpt, self.state, cfg)
             start_step = self.state.host_step
             print(f"[trainer] resumed from step {start_step}", flush=True)
 
@@ -708,13 +879,14 @@ class Trainer:
         return self.state
 
     def _save(self, ckpt: CheckpointManager, what: str, metadata: dict | None = None) -> bool:
-        """Save the state at its step unless a leaf is non-finite."""
+        """Save the state at its step unless a leaf is non-finite, with the
+        layouts' metadata (`layout_metadata`) and `metadata`."""
         step = self.state.host_step
         if not state_is_finite(self.state):
             print(f"[trainer] NOT saving {what} at step {step}: the state has non-finite "
                   f"leaves (latest clean checkpoint: step {ckpt.latest_step()})", flush=True)
             return False
-        ckpt.save(step, self.state, metadata=metadata)
+        ckpt.save(step, self.state, metadata={**layout_metadata(self.cfg), **(metadata or {})})
         return True
 
     def _fit_loop(self, train_batches, val_batches, max_steps, logger, ckpt, best,

@@ -192,18 +192,31 @@ def build_schedule(cfg: OptimConfig, total_steps: int) -> Schedule:
 
 
 def global_norm(tensors: list[torch.Tensor], dims: Sequence[int | None] | None = None,
-                group=None) -> torch.Tensor:
+                group=None, pp_dims: Sequence[int | None] | None = None,
+                pp_group=None) -> torch.Tensor:
     """sqrt(sum of squares) over all tensors (optax.global_norm). With the
     model group `group`, the tensors whose `dims` entry is not None are
     this rank's slices of split leaves: their squares are summed over the
-    group, the whole ones' counted once."""
+    group, the whole ones' counted once; likewise `pp_dims` over the pipe
+    group `pp_group` (a stacked trunk's stage)."""
     norms = torch.stack(torch._foreach_norm(tensors))
-    if group is None or dims is None or all(d is None for d in dims):
+    n = len(tensors)
+    tp = [group is not None and dims is not None and dims[i] is not None for i in range(n)]
+    pp = [pp_group is not None and pp_dims is not None and pp_dims[i] is not None
+          for i in range(n)]
+    if not any(tp) and not any(pp):
         return torch.linalg.vector_norm(norms)
-    split = torch.tensor([d is not None for d in dims], device=norms.device)
     sq = norms * norms
-    parts = all_reduce_(torch.where(split, sq, 0.0).sum(), group)
-    return torch.sqrt(torch.where(split, 0.0, sq).sum() + parts)
+    kind = lambda t, p: torch.where(torch.tensor([a == t and b == p for a, b in zip(tp, pp)],
+                                                 device=sq.device), sq, 0.0).sum()
+    whole, tp_only = kind(False, False), kind(True, False)
+    pp_sums = torch.stack([kind(False, True), kind(True, True)])
+    if any(pp):
+        pp_sums = all_reduce_(pp_sums, pp_group)
+    tp_sums = torch.stack([tp_only, pp_sums[1]])
+    if any(tp):
+        tp_sums = all_reduce_(tp_sums, group)
+    return torch.sqrt(whole + pp_sums[0] + tp_sums.sum())
 
 
 def _part(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
@@ -212,6 +225,13 @@ def _part(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
         return t
     n = t.shape[dim] // group_size(group)
     return t.narrow(dim, group_rank(group) * n, n)
+
+
+def _whole_shape(shape: Sequence[int], dim: int | None, group) -> tuple[int, ...]:
+    """The shape of the whole tensor of which a slice of `shape` is one."""
+    if dim is None or group is None:
+        return tuple(shape)
+    return (*shape[:dim], shape[dim] * group_size(group), *shape[dim + 1:])
 
 
 def _whole(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
@@ -225,14 +245,25 @@ def _whole(t: torch.Tensor, dim: int | None, group) -> torch.Tensor:
 class ShardPlan:
     """Where the optimizer's tensors lie on a mesh: `tp_dims`, per
     parameter (the order of `TrainState.names`), the dimension split over
-    the model group `tp_group` (None: whole); `zero_dims`, per moment field
-    of the family's state, per leaf, the dimension split over the data group
-    `dp_group` by ZeRO-1 (parallel/sharding.py:shard_opt_state)."""
+    the model group `tp_group` (None: whole); `pp_dims` likewise over the
+    pipe group `pp_group` (a stacked trunk's stage); `zero_dims`, per moment
+    field of the family's state, per leaf, the dimension split over the data
+    group `dp_group` by ZeRO-1 (parallel/sharding.py:shard_opt_state)."""
 
     tp_group: object = None
     tp_dims: list[int | None] | None = None
     dp_group: object = None
     zero_dims: dict[str, list[int | None]] | None = None
+    pp_group: object = None
+    pp_dims: list[int | None] | None = None
+
+    def whole(self, t: torch.Tensor, tp: int | None, pp: int | None) -> torch.Tensor:
+        """The whole leaf of which this rank holds the slice `t`."""
+        return _whole(_whole(t, tp, self.tp_group), pp, self.pp_group)
+
+    def part(self, t: torch.Tensor, tp: int | None, pp: int | None) -> torch.Tensor:
+        """This rank's slice of a whole leaf `t`."""
+        return _part(_part(t, tp, self.tp_group), pp, self.pp_group)
 
 
 # apply_if_finite's counters, the last three fields of every state below.
@@ -369,15 +400,28 @@ class Optimizer:
             return [None] * n
         return self._masked(self.plan.tp_dims)
 
+    def _pp_dims(self, n: int) -> list[int | None]:
+        """The pipe-axis dims of the `n` trainable leaves (all None off a
+        pipe axis)."""
+        if self.plan is None or self.plan.pp_dims is None:
+            return [None] * n
+        return self._masked(self.plan.pp_dims)
+
+    def _norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        plan = self.plan
+        return global_norm(grads, self._tp_dims(len(grads)), plan.tp_group if plan else None,
+                           self._pp_dims(len(grads)), plan.pp_group if plan else None)
+
     def init(self, params: list[torch.Tensor]) -> State:
         dev = params[0].device
         zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
         leaves = self._masked(params)
-        if not self.elementwise and self.plan is not None and self.plan.tp_dims is not None:
-            group = self.plan.tp_group  # moments of the whole leaves
-            leaves = [p if d is None else p.new_zeros(
-                p.shape[:d] + (p.shape[d] * group_size(group),) + p.shape[d + 1:])
-                for p, d in zip(leaves, self._tp_dims(len(leaves)))]
+        if not self.elementwise and self.plan is not None:
+            plan = self.plan  # moments of the whole leaves
+            leaves = [p.new_zeros(_whole_shape(_whole_shape(p.shape, d, plan.tp_group),
+                                               e, plan.pp_group))
+                      for p, d, e in zip(leaves, self._tp_dims(len(leaves)),
+                                         self._pp_dims(len(leaves)))]
         return self.State(
             **self._moments(leaves),
             count=zero(torch.int32),
@@ -392,9 +436,7 @@ class Optimizer:
         cfg = self.cfg
         grads = [g.float() for g in grads]
         every, grads, params = grads, self._masked(grads), self._masked(params)
-        plan = self.plan
-        g_norm = global_norm(grads, self._tp_dims(len(grads)),
-                             plan.tp_group if plan else None)
+        g_norm = self._norm(grads)
         # clip_by_global_norm: t where |g| < clip, else (t / |g|) * clip.
         clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), cfg.clip_grad_norm)
         trigger = g_norm < cfg.clip_grad_norm
@@ -435,37 +477,41 @@ class Optimizer:
         )
 
 
-    def _moment_dims(self, state: State) -> dict[str, tuple[list, object, list, object]]:
-        """Per moment field: (its leaves' model-axis dims, the model group,
-        their data-axis dims, the data group)."""
+    def _moment_dims(self, state: State) -> dict[str, tuple[list, list, list]]:
+        """Per moment field: (its leaves' model-axis dims, their pipe-axis
+        dims, their data-axis dims)."""
         plan = self.plan
         out = {}
         for f in dataclasses.fields(state):
             leaves = getattr(state, f.name)
             if not isinstance(leaves, (list, tuple)):
                 continue
-            tp = self._tp_dims(len(leaves)) if self.elementwise else [None] * len(leaves)
-            zero = (plan.zero_dims or {}).get(f.name, [None] * len(leaves))
-            out[f.name] = (tp, plan.tp_group, zero, plan.dp_group)
+            n = len(leaves)
+            tp = self._tp_dims(n) if self.elementwise else [None] * n
+            pp = self._pp_dims(n) if self.elementwise else [None] * n
+            zero = (plan.zero_dims or {}).get(f.name, [None] * n)
+            out[f.name] = (tp, pp, zero)
         return out
 
     def whole_state(self, state: State) -> State:
         """`state` with every moment whole (collective over the mesh)."""
-        if self.plan is None:
+        plan = self.plan
+        if plan is None:
             return state
         return dataclasses.replace(state, **{
-            f: [_whole(_whole(t, z, dg), d, tg)
-                for t, d, z in zip(getattr(state, f), tp, zero)]
-            for f, (tp, tg, zero, dg) in self._moment_dims(state).items()})
+            f: [plan.whole(_whole(t, z, plan.dp_group), d, e)
+                for t, d, e, z in zip(getattr(state, f), tp, pp, zero)]
+            for f, (tp, pp, zero) in self._moment_dims(state).items()})
 
     def part_state(self, state: State) -> State:
         """Inverse of `whole_state`: this rank's slices of whole moments."""
-        if self.plan is None:
+        plan = self.plan
+        if plan is None:
             return state
         return dataclasses.replace(state, **{
-            f: [_part(_part(t, d, tg), z, dg).clone()
-                for t, d, z in zip(getattr(state, f), tp, zero)]
-            for f, (tp, tg, zero, dg) in self._moment_dims(state).items()})
+            f: [_part(plan.part(t, d, e), z, plan.dp_group).clone()
+                for t, d, e, z in zip(getattr(state, f), tp, pp, zero)]
+            for f, (tp, pp, zero) in self._moment_dims(state).items()})
 
     def _planned_direction(self, g, state, params, lr):
         """`_direction` under the plan: see the module's docstring."""
@@ -481,16 +527,16 @@ class Optimizer:
             pl = [_part(t, d, dp) for t, d in zip(params, dims)]
             u, moments = self._direction(gl, state, pl, lr)
             return [_whole(t, d, dp) for t, d in zip(u, dims)], moments
-        tp, tg = self._tp_dims(len(g)), plan.tp_group
-        gf = [_whole(t, d, tg) for t, d in zip(g, tp)]
-        pf = [_whole(t, d, tg) for t, d in zip(params, tp)]
+        tp, pp = self._tp_dims(len(g)), self._pp_dims(len(g))
+        gf = [plan.whole(t, d, e) for t, d, e in zip(g, tp, pp)]
+        pf = [plan.whole(t, d, e) for t, d, e in zip(params, tp, pp)]
         whole = dataclasses.replace(state, **{
             f: [_whole(t, d, dp) for t, d in zip(getattr(state, f), ds)]
             for f, ds in zero.items()})
         u, moments = self._direction(gf, whole, pf, lr)
         moments = {f: [_part(t, d, dp) for t, d in zip(v, zero[f])] if f in zero else v
                    for f, v in moments.items()}
-        return [_part(t, d, tg) for t, d in zip(u, tp)], moments
+        return [plan.part(t, d, e) for t, d, e in zip(u, tp, pp)], moments
 
 
 class AdamW(Optimizer):
@@ -642,19 +688,27 @@ class MultiSteps:
     def plan(self, plan: ShardPlan | None) -> None:
         self.inner.plan = plan
 
-    def _acc_dims(self) -> list[int | None]:
+    def _acc_dims(self, n: int) -> tuple[list, list]:
+        """(model-axis dims, pipe-axis dims) of the accumulator's leaves."""
         plan = self.inner.plan
-        return plan.tp_dims if plan is not None and plan.tp_dims is not None else None
+        none = [None] * n
+        if plan is None:
+            return none, none
+        return plan.tp_dims or none, plan.pp_dims or none
 
     def whole_state(self, state: MultiStepsState) -> MultiStepsState:
-        dims, group = self._acc_dims(), self.plan.tp_group if self.plan else None
-        acc = state.acc if dims is None else [_whole(t, d, group) for t, d in zip(state.acc, dims)]
+        plan = self.plan
+        if plan is None:
+            return state
+        acc = [plan.whole(t, d, e) for t, d, e in zip(state.acc, *self._acc_dims(len(state.acc)))]
         return dataclasses.replace(state, inner=self.inner.whole_state(state.inner), acc=acc)
 
     def part_state(self, state: MultiStepsState) -> MultiStepsState:
-        dims, group = self._acc_dims(), self.plan.tp_group if self.plan else None
-        acc = state.acc if dims is None else [_part(t, d, group).clone()
-                                              for t, d in zip(state.acc, dims)]
+        plan = self.plan
+        if plan is None:
+            return state
+        acc = [plan.part(t, d, e).clone()
+               for t, d, e in zip(state.acc, *self._acc_dims(len(state.acc)))]
         return dataclasses.replace(state, inner=self.inner.part_state(state.inner), acc=acc)
 
     def init(self, params: list[torch.Tensor]) -> MultiStepsState:

@@ -19,7 +19,7 @@ import torch
 from probpose_pytorch_tpu_torch.train import checkpoint as ckpt_mod
 from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager, state_is_finite
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
-from probpose_pytorch_tpu_torch.train.loop import Trainer
+from probpose_pytorch_tpu_torch.train.loop import Trainer, layout_metadata
 from test_torch_train import RAW, STEPS_PER_EPOCH, _batch
 
 torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
@@ -235,7 +235,9 @@ def test_track_best_metric(tmp_path):
     mgr = CheckpointManager(tmp_path / "checkpoints_best")
     # validation after step s logs step s; the state saved then is at s + 1
     assert mgr.all_steps() == [best_step + 1]
-    assert mgr.read_metadata() == {"best_value": best, "best_metric": "loss"}
+    # JAX's best checkpoint carries the layouts' metadata too (layout_metadata)
+    assert mgr.read_metadata() == {**layout_metadata(t.cfg), "best_value": best,
+                                   "best_metric": "loss"}
     # A resumed run reads the prior best from the metadata: nothing beats -1.
     meta = mgr.directory / f"meta_{best_step + 1}.json"
     meta.write_text(json.dumps({"best_value": -1.0, "best_metric": "loss"}))

@@ -5,8 +5,9 @@ from a stand-in): param_shardings name by name, head_batch_spec, ZeRO-1's
 axis per leaf, batch_iterator's process slices, compat/layouts.py's
 conversions (exact), the head-major plain attention and its gradient, one
 tensor-parallel rank's attention, the fused_tp model's forward on
-converted weights, and the refusals left for ROADMAP item 13b. The
-scale-out runs themselves are tests/test_torch_parallel.py's."""
+converted weights, and what ROADMAP item 13b refused, which builds since
+(the pipelines' runs are tests/test_torch_pipeline.py's). The scale-out
+runs themselves are tests/test_torch_parallel.py's."""
 
 import dataclasses
 from pathlib import Path
@@ -276,30 +277,62 @@ def test_fused_tp_forward_matches_jax(backbone):
 
 
 # --------------------------------------------------------------------------
-# what stays for ROADMAP item 13b
+# what ROADMAP item 13b refused, which builds since
 
 
 def test_pipeline_refusals_cite_item_13b(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-        build_model(ModelConfig(**MODEL, pp_stages=2), device="cpu")
-    cfg = TrainConfig.from_json(_jax_cfg(tmp_path).to_json())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-        Trainer.create(dataclasses.replace(cfg, pipeline_parallel=2), 1, device="cpu")
-    jm = jax_model.build_model(jax_model.ModelConfig(**MODEL))
-    v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)))
+    """The calls that raised citing ROADMAP item 13b build as JAX's do:
+    build_model(pp_stages=2) stacks the trunk in JAX's leaves (names and
+    shapes); Trainer.create(pipeline_parallel=2) with no mesh trains one
+    device's per-block trunk, as JAX's; stacked JAX parameters convert
+    (state_dict_from_jax: JAX's leaves as they are, the per-block ones
+    stacked equal them); a stacked checkpoint restores onto a per-block
+    trainer (its parameters exactly the stacked ones, unstacked); and
+    pipeline_spmd with no mesh is JAX's sequential fallback (rtol and atol
+    1e-6, JAX's bound). The pipelines run in tests/test_torch_pipeline.py."""
+    jm = jax_model.build_model(jax_model.ModelConfig(**MODEL, pp_stages=2))
+    v = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)))
     params = jax.device_get(v["params"])
-    params = dict(params, backbone=jax_layouts.stack_vit_blocks(params["backbone"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-        state_dict_from_jax(params, jax.device_get(v["batch_stats"]))
-    trainer = Trainer.create(cfg, 1, device="cpu")
+    pm = build_model(ModelConfig(**MODEL, pp_stages=2), device="cpu")
+    sd = pm.state_dict()
+    for name, leaf in params["backbone"]["blocks"].items():
+        assert tuple(sd[f"backbone.blocks.{name}"].shape) == leaf.shape, name
+    cfg = TrainConfig.from_json(_jax_cfg(tmp_path).to_json())
+    piped = dataclasses.replace(cfg, pipeline_parallel=2)
+    theirs = JaxTrainer.create(_jax_cfg(tmp_path, pipeline_parallel=2), 1)
+    ours = Trainer.create(piped, 1, device="cpu")
+    assert ours.cfg.model.pp_stages == theirs.cfg.model.pp_stages == 1
+    assert not ours.model.backbone.stacked and "block0" in theirs.state.params["backbone"]
+    stacked = state_dict_from_jax(params, jax.device_get(v["batch_stats"]))
+    per_block = state_dict_from_jax(
+        dict(params, backbone=jax_layouts.unstack_vit_blocks(params["backbone"])),
+        jax.device_get(v["batch_stats"]))
+    restacked = layouts.stack_state_dict(per_block)
+    assert sorted(restacked) == sorted(stacked)
+    for k in stacked:
+        np.testing.assert_array_equal(restacked[k], stacked[k])
+    stacked_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, pp_stages=2))
+    src = Trainer.create(stacked_cfg, 1, device="cpu")
     ckpt = CheckpointManager(tmp_path / "ck")
-    ckpt.save(0, trainer.state, metadata=dict(layout_metadata(cfg), trunk_layout="stacked"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-        restore_state_with_layout(ckpt, trainer.state, cfg)
+    ckpt.save(0, src.state, metadata=layout_metadata(stacked_cfg))
+    assert ckpt.read_metadata()["trunk_layout"] == "stacked"
+    restore_state_with_layout(ckpt, ours.state, cfg)
+    want = layouts.unstack_state_dict(dict(src.model.named_parameters()))
+    for n, p in zip(ours.state.names, ours.state.params):
+        assert torch.equal(p, want[n]), n
+    from probpose_pytorch_tpu.parallel import pipeline_spmd as jax_pipeline_spmd
     from probpose_pytorch_tpu_torch.parallel import pipeline_spmd
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-        pipeline_spmd()
+    rng = np.random.RandomState(5)
+    w, b, x = rng.randn(4, 8, 8) * 0.3, rng.randn(4, 8) * 0.1, rng.randn(4, 5, 8)
+    ref = jax_pipeline_spmd(lambda p, h: jnp.tanh(h @ p["w"] + p["b"]),
+                            {"w": jnp.asarray(w, jnp.float32), "b": jnp.asarray(b, jnp.float32)},
+                            jnp.asarray(x, jnp.float32), None)
+    out = pipeline_spmd(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                        {"w": torch.tensor(w, dtype=torch.float32),
+                         "b": torch.tensor(b, dtype=torch.float32)},
+                        torch.tensor(x, dtype=torch.float32), None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
 def test_ranks_per_host_decide_the_backend(monkeypatch):

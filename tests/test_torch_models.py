@@ -232,29 +232,47 @@ def test_flagship_geometry_loads_strictly():
     assert n_port == n_jax
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(pp_stages=2), "item 13"),
-    (dict(attn_impl="fused_tp", pp_stages=2), "item 13"),
-    (dict(deconv_kernel_sizes=(2, 4), pp_stages=2), "item 13"),
-    (dict(deconv_kernel_sizes=(4, 3), pp_stages=2), "item 13"),
-    (dict(attn_impl="einsum", softmax_dtype="bfloat16", pp_stages=2), "item 13"),
+@pytest.mark.parametrize("over,bound", [
+    pytest.param(dict(pp_stages=2), None, id="over0-item 13"),
+    pytest.param(dict(attn_impl="fused_tp", pp_stages=2), None, id="over1-item 13"),
+    pytest.param(dict(deconv_kernel_sizes=(2, 4), pp_stages=2), None, id="over2-item 13"),
+    pytest.param(dict(deconv_kernel_sizes=(4, 3), pp_stages=2), None, id="over3-item 13"),
+    pytest.param(dict(attn_impl="einsum", softmax_dtype="bfloat16", pp_stages=2), 2 * 2.0**-8,
+                 id="over4-item 13"),
 ])
-def test_model_config_names_roadmap_item_for_unported(over, item):
-    """Such a config loads (training configs carry it) and the model build
-    refuses it, naming the ROADMAP item: a pipeline (item 13b, the rest of
-    scale-out) still refuses with the head-major layout and the head and
-    attention options, which build since."""
-    cfg = ModelConfig(**over)
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, device="cpu")
+def test_model_config_names_roadmap_item_for_unported(over, bound):
+    """The configs that named ROADMAP item 13b (a pipeline: `pp_stages`
+    with the head-major layout and the head and attention options) build:
+    the trunk stacked in JAX's leaves, JAX's stacked variables loaded
+    through compat/from_jax.py, and the forward (one device: the blocks in
+    turn, JAX's sequential fallback) equal to JAX's build_model of the same
+    config: the model bar (rtol 1e-4, atol 1e-5); the bf16-softmax trunk
+    within test_einsum_bf16_softmax_trunk_matches_jax's bound, 2 * 2^-8 *
+    max(1, max|ref|), on every output."""
+    jm, variables, pm = init_pair({**TINY_CFG, **over}, seed=5)
+    assert "blocks" in variables["params"]["backbone"]
+    assert pm.backbone.stacked
+    x = _images(9)
+    ref = jax.jit(lambda v, a: jm.apply(v, a, train=False))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        out = pm(torch.from_numpy(x))
+    for a, b in zip(out, ref):
+        b = np.asarray(b)
+        if bound is None:
+            np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                       atol=bound * max(1.0, float(np.abs(b).max())))
 
 
 def test_build_model_and_trainer_create_bind_like_jax():
     """JAX's build_model(cfg, mesh=None) and Trainer.create(cfg,
     steps_per_epoch, mesh=None): `mesh` in its place, `device` and `seed`
     keyword-only after it; a mesh binds by position or by keyword (a
-    world-free 1 x 1 mesh here; one with a pipe axis raises citing item
-    13b in Trainer.create)."""
+    world-free 1 x 1 mesh here; on one with a pipe axis of 2, stage 0 of a
+    stand-in, Trainer.create stages the trunk as JAX's does: pp_stages 2,
+    this stage half of each stacked leaf's depth; the pipelines themselves
+    run in tests/test_torch_pipeline.py's world)."""
     import inspect
 
     from probpose_pytorch_tpu.train.loop import Trainer as JaxTrainer
@@ -272,11 +290,15 @@ def test_build_model_and_trainer_create_bind_like_jax():
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.zeros(1, 1))
     assert build_model(cfg.model, mesh, device="cpu").mesh is mesh
     assert build_model(cfg.model, mesh=mesh, device="cpu").mesh is mesh
-    pipe = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2))
+    pipe = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2),
+                           get_group=lambda name: None, get_coordinate=lambda: [0, 0, 0])
+    depth = ViTConfig.PRESETS[cfg.model.backbone]["depth"]
     for call in (lambda: Trainer.create(cfg, 1, pipe, device="cpu"),
                  lambda: Trainer.create(cfg, 1, mesh=pipe, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            call()
+        trainer = call()
+        assert trainer.mesh is pipe and trainer.model.mesh is pipe
+        assert trainer.cfg.model.pp_stages == 2
+        assert trainer.model.backbone.blocks.qkv_kernel.shape[0] == depth // 2
     with pytest.raises(TypeError):
         build_model(cfg.model, None, "cpu")  # device is no longer positional
 

@@ -10,8 +10,10 @@ tests/test_native.py holds its own. The COCO and YOLO loaders with
 resample="native" equal JAX's batch for batch.
 """
 
+import functools
 import io
 import json
+import time
 
 import numpy as np
 import pytest
@@ -37,10 +39,28 @@ BOXES = np.asarray([[10, 5, 60, 70], [-8, -4, 50, 60], [70, 50, 60, 60],
                     [12.3, 7.7, 41.9, 55.1]], np.float32)
 
 
+@functools.cache
+def _jax_plane() -> bool:
+    """Whether JAX's plane loads. JAX's `_build` writes its library in
+    place, so a load may meet another test process's build in flight (the
+    library "too short" or with an "invalid ELF header"); JAX's loader
+    caches no failure, so such a load is tried again once the file is whole
+    (at most 60 s). A host that cannot build it (no g++, no libjpeg) fails
+    at once."""
+    for _ in range(60):
+        if jax_native.native_available():
+            return True
+        error = str(jax_native._build_error or "")
+        if "too short" not in error and "invalid ELF header" not in error:
+            return False
+        time.sleep(1.0)
+    return False
+
+
 @pytest.fixture(autouse=True)
 def _plane():
     """Skip only where JAX's tests/test_native.py skips: no plane built."""
-    if not jax_native.native_available():
+    if not _jax_plane():
         pytest.skip("native data plane not built (no g++/libjpeg on this host)")
 
 

@@ -292,7 +292,9 @@ def test_mesh_construction_and_errors(world):
     """make_mesh over the 4-rank world: JAX's shapes and errors, the model
     axis innermost (the rows of a global batch follow the data
     coordinate), make_hybrid_mesh on one host = make_mesh, a pipe axis
-    ROADMAP item 13b; process_info and local_batch_size as JAX's."""
+    innermost with JAX's dict(mesh.shape); process_info and
+    local_batch_size as JAX's."""
+    want_pipe = {k: int(v) for k, v in jax_make_mesh(4, 1, pipeline_parallel=2).shape.items()}
     for r, got in enumerate(_ranks(world, "mesh")):
         assert got["shape"] == got["hybrid"] == {"data": 2, "model": 2}
         assert got["dp"] == {"data": 4, "model": 1} and got["spec"] == ["data"]
@@ -302,7 +304,7 @@ def test_mesh_construction_and_errors(world):
         assert got["local_batch_6"].startswith("ValueError: global batch 6 not divisible")
         assert got["model_3"].startswith("ValueError: model_parallel=3")
         assert got["too_many"] == "ValueError: requested 8 devices, only 4 available"
-        assert got["pipe"].startswith("NotImplementedError") and "13b" in got["pipe"]
+        assert got["pipe"] == want_pipe == {"data": 2, "model": 1, "pipe": 2}
 
 
 def _port_views(jcfg, states) -> list[dict[str, np.ndarray]]:

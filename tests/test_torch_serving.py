@@ -31,6 +31,7 @@ from probpose_pytorch_tpu_torch.codec import Codec, ProbMap
 from probpose_pytorch_tpu_torch.compat.from_jax import load_jax_train_state
 from probpose_pytorch_tpu_torch.eval import calibration
 from probpose_pytorch_tpu_torch.inference import TopDownPredictor, _scale_boxes, load_predictor
+from probpose_pytorch_tpu_torch.models.vit import ViTConfig
 from probpose_pytorch_tpu_torch.ops.augment import average_flip_pred
 from probpose_pytorch_tpu_torch.ops.preprocess import crop_resize
 from probpose_pytorch_tpu_torch.train import TrainConfig, Trainer
@@ -330,26 +331,43 @@ def test_load_predictor_signature_matches_jax():
         assert ours[name].default == p.default, name
 
 
-# A world-free mesh with a pipe axis: pipelines are ROADMAP item 13b.
-PIPE_MESH = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2))
+# A world-free mesh with a pipe axis: stage 0 of 2 (the pipelines' runs are
+# tests/test_torch_pipeline.py's).
+PIPE_MESH = SimpleNamespace(mesh_dim_names=("data", "model", "pipe"), mesh=torch.zeros(1, 1, 2),
+                            get_group=lambda name: None, get_coordinate=lambda: [0, 0, 0])
 
 
 @pytest.mark.parametrize("args,kw,error", [
     ((), dict(quantize="int8", mesh=object()), ValueError),
-    ((), dict(mesh=PIPE_MESH), NotImplementedError),
+    pytest.param((), dict(mesh=PIPE_MESH), None, id="args1-kw1-NotImplementedError"),
     ((None, False, "int8_wo", object()), {}, ValueError),
-    ((None, False, None, PIPE_MESH), {}, NotImplementedError),
+    pytest.param((None, False, None, PIPE_MESH), {}, None, id="args3-kw3-NotImplementedError"),
 ])
-def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, error):
-    """quantize and mesh, by keyword or in their JAX places: a mesh with a
-    pipe axis raises citing ROADMAP item 13b (a (data, model) mesh serves:
-    tests/test_torch_parallel.py), and a quantize mode with a mesh raises
-    JAX's ValueError (single device) first; a TypeError would mean a
-    shifted signature."""
+def test_load_predictor_refuses_quantize_and_mesh(saved_runs, args, kw, error, monkeypatch):
+    """quantize and mesh, by keyword or in their JAX places: a quantize
+    mode with a mesh raises JAX's ValueError (single device); a mesh with a
+    pipe axis binds: the trainer of the config is built on it with its
+    trunk staged (pp_stages 2, this stage half of each stacked leaf's
+    depth) and the predictor serves on it (the checkpoint's restore onto
+    the stages and the served outputs against JAX's are
+    tests/test_torch_pipeline.py's world: restoring needs the pipe group,
+    so it is recorded here, not run). A TypeError would mean a shifted
+    signature."""
     _, port_dir = saved_runs
-    match = "ROADMAP item 13" if error is NotImplementedError else "single-device only"
-    with pytest.raises(error, match=match):
-        load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+    if error is not None:
+        with pytest.raises(error, match="single-device only"):
+            load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+        return
+    from probpose_pytorch_tpu_torch.train import loop
+
+    restored = []
+    monkeypatch.setattr(loop, "restore_state_with_layout",
+                        lambda ckpt, state, cfg: restored.append(cfg) or state)
+    pred = load_predictor(port_dir / "checkpoints", *args, device="cpu", **kw)
+    assert pred.mesh is PIPE_MESH and pred.model.mesh is PIPE_MESH
+    assert restored and restored[0].model.pp_stages == 2
+    depth = ViTConfig.PRESETS[restored[0].model.backbone]["depth"]
+    assert pred.model.backbone.blocks.qkv_kernel.shape[0] == depth // 2
 
 
 @pytest.mark.parametrize("args,kw", [((), dict(quantize="int8")), ((None, True, "int8_wo"), {})])

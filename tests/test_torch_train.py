@@ -157,12 +157,21 @@ def test_synthetic_data_matches_jax():
             np.testing.assert_array_equal(ours[k], ref[k])
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(pipeline_parallel=2), "item 13"),  # item 13b: model_parallel runs on a mesh
-])
-def test_unported_training_options_raise(over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer.create(TrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH, device="cpu")
+@pytest.mark.parametrize("over", [pytest.param(dict(pipeline_parallel=2), id="over0-item 13")])
+def test_unported_training_options_raise(over):
+    """The training option that raised citing ROADMAP item 13b builds as
+    JAX's does: pipeline_parallel=2 with no mesh is one device's run, the
+    trunk per-block (pp_stages stays 1: the pipe axis of a mesh stages it,
+    tests/test_torch_pipeline.py), and the parameters' names and shapes are
+    those of the run without the option."""
+    cfg = TrainConfig.from_dict({**RAW, **over})
+    theirs = jax_loop.Trainer.create(JaxTrainConfig.from_dict({**RAW, **over}), STEPS_PER_EPOCH)
+    ours = Trainer.create(cfg, STEPS_PER_EPOCH, device="cpu")
+    plain = Trainer.create(TrainConfig.from_dict(RAW), STEPS_PER_EPOCH, device="cpu")
+    assert ours.cfg.model.pp_stages == theirs.cfg.model.pp_stages == 1
+    assert ours.mesh is None and theirs.mesh is None
+    assert [(n, p.shape) for n, p in ours.model.named_parameters()] == \
+        [(n, p.shape) for n, p in plain.model.named_parameters()]
 
 
 def test_train_lora_only_needs_a_rank():

@@ -1,5 +1,6 @@
 """One rank of a gloo world on the CPU for the port's scale-out tests
-(tests/test_torch_parallel.py, tests/test_torch_multiprocess.py).
+(tests/test_torch_parallel.py, tests/test_torch_multiprocess.py,
+tests/test_torch_pipeline.py).
 
     python tests/torch_mp_worker.py <job dir> <rank> <world size>
 
@@ -31,11 +32,13 @@ def _cfg(path: Path):
 
 def _whole_state(trainer) -> dict[str, np.ndarray]:
     """Every parameter, buffer and moment of the trainer's state, whole, by
-    name (the checkpoint payload's gathers; collective)."""
+    name (the checkpoint payload's gathers; collective); a stacked trunk's
+    leaves by the per-block names (compat/layouts.py:unstack_state_dict)."""
+    from probpose_pytorch_tpu_torch.compat.layouts import unstack_state_dict
     from probpose_pytorch_tpu_torch.train.checkpoint import _state_payload
 
     payload = _state_payload(trainer.state)
-    out = {f"param/{k}": v.numpy() for k, v in payload["params"].items()}
+    out = {f"param/{k}": v.numpy() for k, v in unstack_state_dict(payload["params"]).items()}
     out.update({f"buffer/{k}": v.numpy() for k, v in payload["buffers"].items()})
     opt = payload["opt_state"]
     opt = opt.get("inner", opt)
@@ -44,7 +47,8 @@ def _whole_state(trainer) -> dict[str, np.ndarray]:
     trainable = names if inner.trainable is None else [names[i] for i in inner.trainable]
     for field, leaves in opt.items():
         if isinstance(leaves, list):
-            out.update({f"{field}/{n}": t.numpy() for n, t in zip(trainable, leaves)})
+            moved = unstack_state_dict(dict(zip(trainable, leaves)))
+            out.update({f"{field}/{n}": t.numpy() for n, t in moved.items()})
     return out
 
 
@@ -78,7 +82,8 @@ def run_step(spec: dict, job: Path, out: Path, rank: int) -> None:
     from probpose_pytorch_tpu_torch.train.checkpoint import CheckpointManager
     from probpose_pytorch_tpu_torch.train.loop import restore_state_with_layout
 
-    mesh = make_mesh(None, spec["model_parallel"])
+    mesh = make_mesh(None, spec["model_parallel"],
+                     pipeline_parallel=spec.get("pipeline_parallel", 1))
     cfg = _cfg(job / spec["config"])
     trainer = Trainer.create(cfg, spec["steps_per_epoch"], mesh, device="cpu")
     ckpt = CheckpointManager(job / spec["checkpoint"])
@@ -93,12 +98,16 @@ def run_step(spec: dict, job: Path, out: Path, rank: int) -> None:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     mine = {"losses": losses, "grad_norms": norms, "attn_impl": trainer.cfg.model.attn_impl,
+            "pp_stages": trainer.cfg.model.pp_stages,
             "moment_numel": [int(t.numel()) for t in getattr(
                 getattr(trainer.state.opt_state, "inner", trainer.state.opt_state), "mu", [])],
             "param_numel": [int(p.numel()) for p in trainer.state.params]}
     whole = _whole_state(trainer)
     if spec.get("save_to"):
-        CheckpointManager(job / spec["save_to"]).save(trainer.state.host_step, trainer.state)
+        from probpose_pytorch_tpu_torch.train.loop import layout_metadata
+
+        CheckpointManager(job / spec["save_to"]).save(trainer.state.host_step, trainer.state,
+                                                      metadata=layout_metadata(trainer.cfg))
     if rank == 0:
         np.savez(out / "out.npz", **whole)
     (out / f"rank{rank}.json").write_text(json.dumps(mine))
@@ -140,18 +149,27 @@ def run_fit(spec: dict, job: Path, out: Path, rank: int) -> None:
 def run_predict(spec: dict, job: Path, out: Path, rank: int) -> None:
     """load_predictor on the mesh from the single-device checkpoint; every
     rank calls with the same frames and boxes and writes what it got."""
-    from probpose_pytorch_tpu_torch.inference import load_predictor
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor, load_predictor
     from probpose_pytorch_tpu_torch.parallel import make_mesh
 
-    mesh = make_mesh(None, spec["model_parallel"])
+    mesh = make_mesh(None, spec["model_parallel"],
+                     pipeline_parallel=spec.get("pipeline_parallel", 1))
     pred = load_predictor(job / spec["checkpoint"], config_path=job / spec["config"],
                           mesh=mesh, device="cpu")
     data = np.load(job / spec["inputs"])
     res = pred(data["frames"], data["boxes"])
     np.savez(out / f"rank{rank}.npz", **res)
-    (out / f"rank{rank}.json").write_text(json.dumps({
-        "attn_impl": pred.model.backbone.blocks[0].attn.impl,
-        "split": sorted(pred.model.tp_splits)}))
+    bb = pred.model.backbone
+    mine = {"attn_impl": bb.attn_impl if bb.stacked else bb.blocks[0].attn.impl,
+            "split": sorted(pred.model.tp_splits), "staged": sorted(pred.model.pp_splits)}
+    if spec.get("from_model"):  # a single-device model handed to the mesh predictor
+        one = load_predictor(job / spec["checkpoint"], config_path=job / spec["config"],
+                             device="cpu")
+        staged = TopDownPredictor(model=one.model, codec=one.codec, input_size=one.input_size,
+                                  mesh=mesh)
+        np.savez(out / f"model{rank}.npz", **staged(data["frames"], data["boxes"]))
+        mine["model_staged"] = sorted(staged.model.pp_splits)
+    (out / f"rank{rank}.json").write_text(json.dumps(mine))
 
 
 def run_detect(spec: dict, job: Path, out: Path, rank: int) -> None:
@@ -207,7 +225,7 @@ def run_mesh(spec: dict, job: Path, out: Path, rank: int) -> None:
         "local_batch_6": outcome(lambda: local_batch_size(6)),
         "model_3": outcome(lambda: make_mesh(4, model_parallel=3)),
         "too_many": outcome(lambda: make_mesh(8)),
-        "pipe": outcome(lambda: make_mesh(4, 1, pipeline_parallel=2)),
+        "pipe": outcome(lambda: mesh_shape(make_mesh(4, 1, pipeline_parallel=2))),
     }
     (out / f"rank{rank}.json").write_text(json.dumps(mine))
 
@@ -222,8 +240,151 @@ def run_eval_cli(spec: dict, job: Path, out: Path, rank: int) -> None:
     (out / f"rank{rank}.json").write_text(json.dumps(line))
 
 
+def _toy_block(name: str, mesh):
+    """(block_fn, seq_block_fn) of the pipeline tests' blocks (the JAX
+    tests' toys and the ViT block) on `mesh`."""
+    import torch.nn.functional as F
+
+    from probpose_pytorch_tpu_torch.parallel.pipeline import tp_enter, tp_leave
+
+    if name == "toy":
+        fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])  # noqa: E731
+        return fn, fn
+    if name == "bf16":
+        fn = lambda p, h: torch.tanh(h @ p["w"].bfloat16() + p["b"].bfloat16())  # noqa: E731
+        return fn, fn
+    if name == "tp":
+        g = mesh.get_group("model")
+        return (lambda p, h: h + tp_leave(torch.tanh(tp_enter(h, g) @ p["w1"]) @ p["w2"], g)
+                + p["b"],
+                lambda p, h: h + torch.tanh(h @ p["w1"]) @ p["w2"] + p["b"])
+    raise ValueError(name)
+
+
+def _toy_loss(name: str):
+    mse = lambda lp, h, t: ((h @ lp["w"] - t) ** 2).mean()  # noqa: E731
+    if name == "bf16":
+        return lambda lp, h, t: ((h.float() @ lp["w"] - t) ** 2).mean()
+    if name == "aux":
+        def aux(lp, h, t):
+            loss = mse(lp, h, t)
+            return loss, {"h_mean": h.float().mean(), "loss_copy": loss}
+        return aux
+    return mse
+
+
+def _local(arrays: dict, specs: dict, coords: dict, shape: dict) -> dict:
+    """This rank's slices of whole stacked leaves under their specs."""
+    from probpose_pytorch_tpu_torch.parallel.sharding import local_slice
+
+    out = {}
+    for k, a in arrays.items():
+        t = torch.from_numpy(a)
+        for dim, ax in enumerate(specs.get(k, ["pipe"])):
+            if ax is not None and shape.get(ax, 1) > 1:
+                t = local_slice(t, dim, coords[ax], shape[ax])
+        out[k] = t.clone().requires_grad_()
+    return out
+
+
+def run_pp_toy(spec: dict, job: Path, out: Path, rank: int) -> None:
+    """The pipeline engines on the job's cases (GPipe forward and
+    gradients, 1F1B and interleaved 1F1B; the toys, bf16, aux, dx chained
+    into an embedding, a Megatron toy and the ViT block in stages); every
+    rank writes its outputs: its rows, its stage's (and model slice's)
+    gradients, summed over the data axis where they are partial."""
+    import torch.distributed as dist
+
+    from probpose_pytorch_tpu_torch.models.vit import pp_block_fns
+    from probpose_pytorch_tpu_torch.parallel import make_mesh
+    from probpose_pytorch_tpu_torch.parallel.mesh import mesh_coords, mesh_shape
+    from probpose_pytorch_tpu_torch.parallel.pipeline import (
+        pipeline_1f1b,
+        pipeline_1f1b_interleaved,
+        pipeline_spmd,
+    )
+
+    data = dict(np.load(job / spec["inputs"]))
+    res, meshes = {}, {}
+    for case in spec["cases"]:
+        key = (case["model"], case["pipe"])
+        if key not in meshes:
+            meshes[key] = make_mesh(None, case["model"], pipeline_parallel=case["pipe"])
+        mesh = meshes[key]
+        coords, shape = mesh_coords(mesh), mesh_shape(mesh)
+        name = case["name"]
+        arrays = {k[len(name) + 3:]: v for k, v in data.items() if k.startswith(f"{name}/p_")}
+        local = _local(arrays, case.get("specs", {}), coords, shape)
+        rows = lambda a: torch.from_numpy(a).chunk(shape["data"])[coords["data"]]  # noqa: E731
+        x = rows(data[f"{name}/x"])
+        if case.get("x_dtype") == "bfloat16":
+            x = x.bfloat16()
+        if case["block"] == "vit":
+            g = mesh.get_group("model") if shape.get("model", 1) > 1 else None
+            block, seq, _ = pp_block_fns(num_heads=case["heads"], mlp_ratio=2.0,
+                                         embed_dim=x.shape[-1], dtype=torch.float32,
+                                         attn_impl=case["attn"], tp=shape.get("model", 1),
+                                         remat=case.get("remat", False), tp_group=g)
+        else:
+            block, seq = _toy_block(case["block"], mesh)
+        if case["kind"] == "gpipe":
+            out_ = pipeline_spmd(block, local, x, mesh, microbatches=case["m"],
+                                 seq_block_fn=seq)
+            res[f"{name}/out"] = out_.detach().numpy()
+            grads = torch.autograd.grad((out_ ** 2).sum() if case["block"] != "vit"
+                                        else (out_ ** 2).mean() / shape["data"],
+                                        list(local.values()))
+            for k, gr in zip(local, grads):
+                gr = gr.contiguous()
+                if shape["data"] > 1:
+                    dist.all_reduce(gr, group=mesh.get_group("data"))
+                res[f"{name}/g_{k}"] = gr.numpy()
+            continue
+        t = rows(data[f"{name}/t"])
+        lp = {"w": torch.from_numpy(data[f"{name}/lp_w"]).requires_grad_()}
+        loss_fn = _toy_loss(case.get("loss", "mse"))
+        ep = None
+        if f"{name}/ep_w" in data:  # dx chained into an upstream embedding
+            ep = torch.from_numpy(data[f"{name}/ep_w"]).requires_grad_()
+            x = torch.tanh(x @ ep)
+        kw = dict(microbatches=case["m"], seq_block_fn=seq, loss_has_aux=case.get("aux", False),
+                  model_axis="model" if shape.get("model", 1) > 1 else None)
+        if case["kind"] == "interleaved":
+            got = pipeline_1f1b_interleaved(block, local, loss_fn, lp, x.detach(), t, mesh,
+                                            virtual=case["v"], **kw)
+        else:
+            got = pipeline_1f1b(block, local, loss_fn, lp, x.detach(), t, mesh, **kw)
+        loss, d_p, d_lp, dx = got[:4]
+        res[f"{name}/loss"] = loss.numpy()
+        res.update({f"{name}/g_{k}": v.numpy() for k, v in d_p.items()})
+        res[f"{name}/dlp_w"] = d_lp["w"].numpy()
+        res[f"{name}/dx"] = dx.float().numpy()
+        res[f"{name}/dx_dtype"] = np.array(str(dx.dtype))
+        if case.get("aux"):
+            res.update({f"{name}/aux_{k}": v.numpy() for k, v in got[4].items()})
+        if ep is not None:
+            (dep,) = torch.autograd.grad(x, [ep], dx)
+            if shape["data"] > 1:
+                dist.all_reduce(dep, group=mesh.get_group("data"))
+            res[f"{name}/dep_w"] = dep.numpy()
+    np.savez(out / f"rank{rank}.npz", **res)
+    (out / f"rank{rank}.json").write_text(json.dumps({"coords": mesh_coords(
+        next(iter(meshes.values())))}))
+
+
+def run_train_cli(spec: dict, job: Path, out: Path, rank: int) -> None:
+    """The training CLI on every rank of the world (the world already up:
+    the CLI's launch finds it)."""
+    from probpose_pytorch_tpu_torch.train import cli
+
+    cli.main([str(a) if not str(a).startswith("@") else str(job / str(a)[1:])
+              for a in spec["args"]])
+    (out / f"rank{rank}.json").write_text(json.dumps({}))
+
+
 RUNNERS = {"step": run_step, "fit": run_fit, "predict": run_predict, "detect": run_detect,
-           "eval_cli": run_eval_cli, "mesh": run_mesh}
+           "eval_cli": run_eval_cli, "mesh": run_mesh, "pp_toy": run_pp_toy,
+           "train_cli": run_train_cli}
 
 
 def main() -> None:
