@@ -336,6 +336,31 @@ with weights drawn from a seeded generator:
            slot): each rank's step ms and peak memory against one
            process's
 
+  phase 19 the shapes the JAX package's kernels take that the port once
+           refused (faults 9-12), then vit-h's d = 80 attention on the
+           wgmma kernels: K4's CUDA-core kernels at d in {16, 48, 96, 112,
+           160, 256} in bf16 and f32 past K1's shared memory, forward and
+           backward against the plain versions (the backward twice bit
+           for bit), one head-major case, and timed at d = 48; K5's
+           CUDA-core kernels at (C, hidden) in {(64, 128), (200, 600),
+           (576, 2304), (1536, 6144)} in both dtypes, forward and the
+           seven cotangents (bf16 also against the kernel-order twin); a
+           batch of 70,000 through K1, K4 and K6; int8 at M = 5, K = 60
+           card == CPU; the d = 80 short forward at (64, 192, 3840), the
+           tiled forward at (8, 2304, 3840) and the backward from the saved
+           out and lse against both plain orders, twice bit for bit, timed
+           against the plain versions, SDPA and the CUDA-core kernels they
+           replace; vit-nano with mlp_impl="fused" served (2 K5 a forward)
+           and stepped 3 times (2 K5 each way a step); vit-h (1280 wide,
+           depth 32, bf16, attn_impl="fused") served at 256 x 192 (32 short
+           forwards, 1 K2 a forward, no CUDA-core attention), trained by
+           Trainer.fit with remat for 5 steps at B = 32 (64 short forwards,
+           32 backwards from the saved out and lse a step; losses finite
+           and falling; the final save skipped: vit-h's ~10 GB state would
+           take the card machine past its disk budget), its f32 step at
+           depth 2 held to the plain step (phase 5's gates), and served at
+           768 x 768 at depth 8 (a K4 wgmma forward a block)
+
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
 scaled_dot_product_attention (medians of three windows of 50, in turns),
@@ -5969,6 +5994,598 @@ def phase18(torch, dev, card: str, refs17: dict | None = None,
     return launches
 
 
+# --------------------------------------------------------------- phase 19
+
+P19_WIDTHS = (16, 48, 96, 112, 160, 256)
+# Tokens past K1's shared memory at every width of P19_WIDTHS (bf16 d = 16
+# fits K1 up to N = 2,319, f32 d = 16 up to 1,414).
+P19_N = {"bfloat16": 2400, "float32": 1500}
+P19_MLP = ((64, 128), (200, 600), (576, 2304), (1536, 6144))
+P19_MLP_ROWS = 2 * 192 + 9
+P19_BATCH = 70000  # past the grid's 65,535
+P19_STEPS = 3
+VITH_DEPTH = 32
+VITH_TRAIN_BATCH = 32
+VITH_TRAIN_STEPS = 5
+VITH_F32_DEPTH = 2
+VITH_F32_BATCH = 8
+VITH_768_DEPTH = 8  # the 768 x 768 model's blocks: its build draws every weight on the host
+VITH_768_BATCH = 4
+VITH_HEADS, VITH_D = 16, 80
+# The d = 80 wgmma shapes: vit-h served at 256 x 192 (N = 192) and at 768 x
+# 768 (N = 2304).
+P19_D80_SHAPES = ((64, 192), (8, 2304))
+
+
+def vith_config(dtype: str, batch: int, backbone: str = "vit-h", img_size=None):
+    """configs/vitb_coco.json (remat on, augmentation off) with the vit-h
+    trunk and its dense MLP, attn_impl="fused", at `dtype` and `batch`;
+    `img_size` replaces the crop (768 x 768 for the long-sequence path)."""
+    from probpose_pytorch_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig.load(REPO / "configs/vitb_coco.json")
+    model = dataclasses.replace(cfg.model, backbone=backbone, compute_dtype=dtype,
+                                attn_impl="fused", mlp_impl="dense",
+                                img_size=img_size or cfg.model.img_size)
+    return dataclasses.replace(cfg, augment=None, train_batch_size=batch, log_every=1,
+                               resume=False, model=model, **fit_outputs(backbone))
+
+
+def cuda_core_attention(torch, qkv, heads: int, kind: str, dout=None):
+    """One launch of a CUDA-core attention kernel the route no longer gives
+    bf16 d = 80 (K1's csrc/packed_attention.cu, "k1", or K4's
+    csrc/tiled_attention.cu, "k4"): the context, or dqkv with `dout`. The
+    yardstick the d = 80 wgmma kernels replace; timed, never on a path."""
+    from probpose_pytorch_tpu_torch.ops.kernels import attention, attention_tiled
+
+    B, N, C3 = qkv.shape
+    dev, s = qkv.device.index or 0, torch.cuda.current_stream().cuda_stream
+    code = attention_tiled.DTYPES[qkv.dtype]
+    lib = attention._lib() if kind == "k1" else attention_tiled._lib()
+    if dout is None:
+        out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+        fn = lib.packed_attention_fwd if kind == "k1" else lib.tiled_attention_fwd
+        err = fn(qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, 0, code, dev, s)
+    else:
+        out = torch.empty_like(qkv)
+        stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
+        fn = lib.packed_attention_bwd if kind == "k1" else lib.tiled_attention_bwd
+        err = fn(qkv.data_ptr(), dout.data_ptr(), out.data_ptr(), stats.data_ptr(), B, N,
+                 C3 // 3, heads, 0, code, dev, s)
+    check(err == 0, f"the {kind} CUDA-core kernel failed with cudaError {err}")
+    return out
+
+
+def phase19_widths(torch, card: str, g) -> dict:
+    """Fault 9: every P19_WIDTHS head width in both dtypes past K1's shared
+    memory on K4's CUDA-core kernels, forward and backward against the
+    plain versions (K1's bound), the backward twice bit for bit, one
+    head-major case; then K4's CUDA cores timed at d = 48, N = 1024 (bf16,
+    the width a ViT with 48-wide heads gives), against the plain version
+    and SDPA."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        kernel_path,
+        packed_attention,
+        packed_attention_backward,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        tiled_attention,
+        tiled_attention_bwd_reference,
+        tiled_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    fwd_err = bwd_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        N = P19_N[name]
+        for d in P19_WIDTHS:
+            route = (kernel_path(N, d, dtype), kernel_path(N, d, dtype, backward=True))
+            check(route == ("K4 CUDA cores",) * 2, f"d = {d} {name} routes to {route}")
+            qkv = torch.randn(1, N, 6 * d, generator=g, device=dev).to(dtype)
+            dout = torch.randn(1, N, 2 * d, generator=g, device=dev).to(dtype)
+            label = f"K4 CUDA cores d = {d} qkv {tuple(qkv.shape)} {name}"
+            fwd_err = max(fwd_err, gate(torch, f"{label} forward", packed_attention(qkv, 2),
+                                        tiled_attention_reference(qkv, 2), phase=19))
+            got = packed_attention_backward(qkv, dout, 2)
+            check(torch.equal(got, packed_attention_backward(qkv, dout, 2)),
+                  f"{label} backward differs between two runs")
+            bwd_err = max(bwd_err, gate(torch, f"{label} backward", got,
+                                        tiled_attention_bwd_reference(qkv, dout, 2), phase=19))
+    # head-major (attn_impl="fused_tp"), d = 96 in bf16
+    qkv = torch.randn(1, P19_N["bfloat16"], 6 * 96, generator=g, device=dev).to(torch.bfloat16)
+    gate(torch, "K4 CUDA cores d = 96 head-major forward", tiled_attention(qkv, 2, "head_major"),
+         tiled_attention_reference(qkv, 2, layout="head_major"), phase=19)
+    # timed, not gated
+    B, N, heads, d = 8, 1024, 8, 48
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(B, N, heads * d, generator=g, device=dev).to(torch.bfloat16)
+    f_ms, f_plain = paired_ms(torch, lambda: packed_attention(qkv, heads),
+                              lambda: tiled_attention_reference(qkv, heads), iters=5)
+    b_ms, b_plain = paired_ms(torch, lambda: packed_attention_backward(qkv, dout, heads),
+                              lambda: tiled_attention_bwd_reference(qkv, dout, heads), iters=3)
+    f_lib = cuda_ms(torch, sdpa_fwd_fn(torch, qkv, heads), iters=10)
+    b_lib = cuda_ms(torch, sdpa_bwd_fn(torch, qkv, dout, heads), iters=10)
+    f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * heads * d)
+    b_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * heads * d)
+    say(f"phase 19 [{card}]: K4 CUDA cores qkv {tuple(qkv.shape)} bf16, d = {d}: forward "
+        f"{f_ms:.4f} ms (plain {f_plain:.4f}, SDPA {f_lib:.4f}, bound {f_bound[0]:.4f}), "
+        f"backward {b_ms:.4f} ms (plain {b_plain:.4f}, SDPA {b_lib:.4f}, bound "
+        f"{b_bound[0]:.4f})")
+    shape = [B, N, 3 * heads * d]
+    return dict(fwd=dict(err=fwd_err, ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                         qkv=shape),
+                bwd=dict(err=bwd_err, ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                         qkv=shape))
+
+
+def phase19_d80(torch, card: str, g) -> dict:
+    """vit-h's attention (16 heads, d = 80) on the wgmma kernels at
+    P19_D80_SHAPES: the short forward (N = 192) against the TPU-order plain
+    version, the tiled forward (N = 2304) against the plain and
+    kernel-order versions, the backward from the saved (out, lse) against
+    both orders, each twice bit for bit; the short forward head-major too.
+    Then, not gated, each against its plain version, SDPA and the
+    CUDA-core kernel bf16 d = 80 ran before (K1's at N = 192, K4's at
+    2304), in turns."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import kernel_path
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        short_attention_reference,
+        short_forward,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_online_bwd_reference,
+        tiled_attention_online_reference,
+        tiled_attention_reference,
+        tiled_forward,
+    )
+
+    dev = torch.device("cuda")
+    heads, C = VITH_HEADS, VITH_HEADS * VITH_D
+    out_rows = {}
+    for B, N in P19_D80_SHAPES:
+        short = N <= 256
+        route = kernel_path(N, VITH_D, torch.bfloat16)
+        check(route == ("sm90 short" if short else "sm90 tiled"), f"d = 80, N = {N}: {route}")
+        check(kernel_path(N, VITH_D, torch.bfloat16, backward=True) == "sm90 tiled",
+              "the d = 80 backward is not on wgmma")
+        qkv = torch.randn(B, N, 3 * C, generator=g, device=dev).to(torch.bfloat16)
+        dout = torch.randn(B, N, C, generator=g, device=dev).to(torch.bfloat16)
+        fwd = short_forward if short else tiled_forward
+        out, lse = fwd(qkv, heads, True)
+        again = fwd(qkv, heads, True)
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"d = 80 forward at N = {N} differs between two runs")
+        label = f"d = 80 {route} qkv {tuple(qkv.shape)} bf16"
+        if short:
+            ref, lse_ref = short_attention_reference(qkv, heads)
+            f_err = gate(torch, f"{label} forward", out, ref, phase=19)
+            hm = qkv.unflatten(-1, (3, heads, VITH_D)).transpose(2, 3).reshape(qkv.shape)
+            gate(torch, f"{label} forward, head-major, against qkv-major",
+                 short_forward(hm, heads, False, "head_major")[0], out, phase=19,
+                 bound=0.0)  # the same bits: only addresses move
+        else:
+            ref = tiled_attention_reference(qkv, heads)
+            f_err = gate(torch, f"{label} forward", out, ref, phase=19)
+            ref, lse_ref = tiled_attention_online_reference(qkv, heads)
+            gate(torch, f"{label} forward vs the kernel-order plain version", out, ref,
+                 phase=19)
+        lse_err = (lse - lse_ref).abs().max().item()
+        say(f"phase 19: {label}: lse max abs err {lse_err:.3e}")
+        check(lse_err <= 1e-5 * max(1.0, lse_ref.abs().max().item()), "d = 80 lse off")
+        got = tiled_attention_backward(qkv, dout, heads, out, lse)
+        check(torch.equal(got, tiled_attention_backward(qkv, dout, heads, out, lse)),
+              f"d = 80 backward at N = {N} differs between two runs")
+        b_err = gate(torch, f"{label} backward", got,
+                     tiled_attention_bwd_reference(qkv, dout, heads), phase=19)
+        gate(torch, f"{label} backward vs the kernel-order plain version", got,
+             tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse), phase=19)
+        # timed, not gated
+        plain = short_attention_reference if short else tiled_attention_reference
+        f_ms, f_plain = paired_ms(torch, lambda: fwd(qkv, heads, True),
+                                  lambda: plain(qkv, heads), iters=10)
+        b_ms, b_plain = paired_ms(torch, lambda: tiled_attention_backward(qkv, dout, heads,
+                                                                          out, lse),
+                                  lambda: tiled_attention_bwd_reference(qkv, dout, heads),
+                                  iters=5)
+        kind = "k1" if short else "k4"
+        cc = cuda_core_attention(torch, qkv, heads, kind)
+        gate(torch, f"{label}: the {kind} CUDA-core forward it replaces", cc,
+             short_attention_reference(qkv, heads)[0] if short
+             else tiled_attention_reference(qkv, heads), phase=19)
+        f_cc, f_ms2 = paired_ms(torch, lambda: cuda_core_attention(torch, qkv, heads, kind),
+                                lambda: fwd(qkv, heads, True), iters=10)
+        b_cc, b_ms2 = paired_ms(torch, lambda: cuda_core_attention(torch, qkv, heads, kind,
+                                                                    dout),
+                                lambda: tiled_attention_backward(qkv, dout, heads, out, lse),
+                                iters=5)
+        f_ms_lib, f_lib = yardstick_ms(torch, lambda: fwd(qkv, heads, True),
+                                       sdpa_fwd_fn(torch, qkv, heads), iters=20, windows=1)
+        b_ms_lib, b_lib = yardstick_ms(torch, lambda: tiled_attention_backward(
+            qkv, dout, heads, out, lse), sdpa_bwd_fn(torch, qkv, dout, heads), iters=10,
+            windows=1)
+        f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * C)
+        b_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * C)
+        say(f"phase 19 [{card}]: {label}: forward {f_ms:.4f} ms ({f_ms2:.4f} in turns with "
+            f"the CUDA-core {f_cc:.4f}; {f_ms_lib:.4f} in turns with SDPA {f_lib:.4f}), plain "
+            f"{f_plain:.4f}, bound {f_bound[0]:.4f} ({f_bound[1]}); backward {b_ms:.4f} ms "
+            f"({b_ms2:.4f} with the CUDA-core {b_cc:.4f}; {b_ms_lib:.4f} with SDPA "
+            f"{b_lib:.4f}), plain {b_plain:.4f}, bound {b_bound[0]:.4f} ({b_bound[1]})")
+        key = "n192" if short else "n2304"
+        out_rows[key] = dict(
+            qkv=[B, N, 3 * C],
+            fwd=dict(err=f_err, ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                     cuda_core_ms=f_cc),
+            bwd=dict(err=b_err, ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                     cuda_core_ms=b_cc))
+        del qkv, dout, out, lse, got, again, cc
+    return out_rows
+
+
+def phase19_mlp(torch, card: str, g) -> dict:
+    """Fault 10: K5 at P19_MLP's widths in both dtypes on its CUDA-core
+    kernels, forward against the plain version (K1's bound), the seven
+    cotangents against the plain backward (phase 7's bound) and, in bf16,
+    the kernel-order twin (two ulps), twice bit for bit."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        fused_ln_mlp,
+        fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_kernel_order_reference,
+        fused_ln_mlp_bwd_reference,
+        fused_ln_mlp_reference,
+        mlp_route,
+    )
+
+    dev = torch.device("cuda")
+    f_err = b_err = 0.0
+    R = P19_MLP_ROWS
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for C, Hd in P19_MLP:
+            check(mlp_route(C, Hd, dtype) == "CUDA cores", f"K5 ({C}, {Hd}) {name} route")
+            a = p19_mlp_args(torch, g, dev, R, C, Hd, dtype)
+            label = f"K5 CUDA cores x ({R}, {C}) hidden {Hd} {name}"
+            f_err = max(f_err, gate(torch, f"{label} forward", fused_ln_mlp(*a),
+                                    fused_ln_mlp_reference(*a), phase=19))
+            dout = torch.randn(R, C, generator=g, device=dev).to(dtype)
+            grads = fused_ln_mlp_backward(*a, dout)
+            again = fused_ln_mlp_backward(*a, dout)
+            for gname, got, rerun, ref, twin in zip(
+                    ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, again,
+                    fused_ln_mlp_bwd_reference(*a, dout),
+                    fused_ln_mlp_bwd_kernel_order_reference(*a, dout)):
+                check(torch.equal(got, rerun), f"{label} {gname} differs between two runs")
+                bound = k5_grad_bound(ref) if dtype == torch.bfloat16 else \
+                    1e-4 * ref.float().abs().max().item()
+                b_err = max(b_err, gate(torch, f"{label} backward {gname}", got, ref,
+                                        phase=19, bound=bound))
+                if dtype == torch.bfloat16:
+                    gate(torch, f"{label} backward {gname} vs the kernel-order twin", got, twin,
+                         phase=19, bound=2 * 2**-8 * twin.float().abs().max().item())
+    return dict(f_err=f_err, b_err=b_err)
+
+
+def p19_mlp_args(torch, g, dev, R: int, C: int, Hd: int, dtype):
+    """K5's arguments at (R, C, Hd): x and the weights (fan-in scale, the
+    transposed views a Linear gives) in `dtype`, the vectors f32."""
+    x = torch.randn(R, C, generator=g, device=dev).to(dtype)
+    w1 = (torch.randn(Hd, C, generator=g, device=dev) / C**0.5).to(dtype).t()
+    w2 = (torch.randn(C, Hd, generator=g, device=dev) / Hd**0.5).to(dtype).t()
+    vec = lambda n, s: s * torch.randn(n, generator=g, device=dev)
+    return x, 1 + vec(C, 0.1), vec(C, 0.1), w1, vec(Hd, 0.1), w2, vec(C, 0.1)
+
+
+def phase19_vit_nano(torch, dev, card: str) -> dict:
+    """vit-nano with mlp_impl="fused" (C = 64, hidden 128: K5's CUDA cores)
+    served at REQUEST_SIZES and stepped P19_STEPS bf16 steps through
+    Trainer.fit: 2 K5 forwards (and 2 short attention forwards) a forward,
+    2 K5 forwards and 2 backwards a step; then K5 at its step's rows timed
+    against the plain version and the dense half-block."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        fused_ln_mlp,
+        fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_reference,
+        fused_ln_mlp_reference,
+        mlp_route,
+    )
+
+    cfg = dataclasses.replace(train_config("bfloat16", 64), **fit_outputs("vit-nano"))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone="vit-nano",
+                                                             mlp_impl="fused"))
+    check(mlp_route(64, 128, torch.bfloat16) == "CUDA cores", "vit-nano's K5 route")
+    model = build_model(cfg.model, device=dev, seed=0)
+    depth = len(model.backbone.blocks)
+    predictor = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size)
+    requests = [request(60 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    reset_counts()
+    answers = [predictor(f, b) for f, b in requests]
+    torch.cuda.synchronize()
+    serve = read_counts()
+    check_answers(cfg.model, requests, answers, phase=19)
+    say(f"phase 19: vit-nano (fused MLP) over {len(requests)} forwards: K5 forward "
+        f"{serve['k5f']} (expect {depth * len(requests)}), short attention forward "
+        f"{serve['k1s']} (expect {depth * len(requests)}), K2 {serve['k2']}")
+    check(serve["k5f"] == depth * len(requests), "vit-nano's K5 did not run once a block")
+    check(serve["k1s"] == depth * len(requests) and serve["k2"] == len(requests),
+          "vit-nano's attention or K2 count off")
+
+    B = cfg.train_batch_size
+    H, W = cfg.model.img_size
+    ds = SyntheticPoseDataset(B, (H, W), cfg.model.num_keypoints, seed=2)
+    batch = next(iter(batch_iterator(ds, B, num_workers=4)))
+    trainer = make_trainer(torch, cfg, dev)
+    reset_counts()
+    trainer.fit(lambda: iter([batch]), max_steps=P19_STEPS)
+    torch.cuda.synchronize()
+    step = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 19: vit-nano (fused MLP), {P19_STEPS} bf16 steps at B={B}: loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; K5 forward {step['k5f']} (expect "
+        f"{depth * P19_STEPS}), K5 backward {step['k5b']} (expect {depth * P19_STEPS})")
+    check(len(losses) == P19_STEPS and all(np.isfinite(losses)), "vit-nano losses not finite")
+    check(step["k5f"] == step["k5b"] == depth * P19_STEPS, "vit-nano's K5 step count off")
+
+    # K5 at the step's rows, timed (not gated)
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = B * trainer.model.backbone.pos_embed.shape[1]
+    a = mlp_inputs(torch, trainer.model.backbone.blocks[0], rows, g, dev)
+    dout = torch.randn(rows, 64, generator=g, device=dev).to(torch.bfloat16)
+    f_err = gate(torch, f"K5 CUDA cores vit-nano x ({rows}, 64) forward", fused_ln_mlp(*a),
+                 fused_ln_mlp_reference(*a), phase=19)
+    grads = fused_ln_mlp_backward(*a, dout)
+    b_err = max(gate(torch, f"K5 CUDA cores vit-nano backward {n}", got, ref, phase=19,
+                     bound=k5_grad_bound(ref))
+                for n, got, ref in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
+                                       grads, fused_ln_mlp_bwd_reference(*a, dout)))
+    f_ms, f_plain = paired_ms(torch, lambda: fused_ln_mlp(*a),
+                              lambda: fused_ln_mlp_reference(*a), iters=20)
+    b_ms, b_plain = paired_ms(torch, lambda: fused_ln_mlp_backward(*a, dout),
+                              lambda: fused_ln_mlp_bwd_reference(*a, dout), iters=10)
+    f_lib = cuda_ms(torch, dense_fwd_fn(torch, a), iters=20)
+    b_lib = cuda_ms(torch, dense_bwd_fn(torch, a, dout), iters=10)
+    C, Hd = 64, 128
+    f_bound = bound_ms(nbytes(*a, a[0]), 4 * rows * C * Hd)
+    b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * rows * C * Hd)
+    say(f"phase 19 [{card}]: K5 CUDA cores x ({rows}, {C}) hidden {Hd} bf16: forward "
+        f"{f_ms:.4f} ms (plain {f_plain:.4f}, dense half-block {f_lib:.4f}, bound "
+        f"{f_bound[0]:.4f}), backward {b_ms:.4f} ms (plain {b_plain:.4f}, dense "
+        f"{b_lib:.4f}, bound {b_bound[0]:.4f})")
+    del trainer, model, predictor, a, grads
+    return dict(serve=serve, step=step,
+                fwd=dict(err=f_err, ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                         rows=rows),
+                bwd=dict(err=b_err, ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                         rows=rows))
+
+
+def phase19_grid_and_int8(torch, g) -> None:
+    """Fault 11: a batch of P19_BATCH at N = 8 through K1 (the short forward
+    and K4's wgmma backward in bf16, the CUDA cores in f32), K4 (wgmma and
+    CUDA cores) and K6 against the plain versions. Fault 12: int8 products
+    at M = 5, K = 60 (and 16 rows, N = 100) equal to the CPU's."""
+    from probpose_pytorch_tpu_torch.ops import quant
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        fused_attention,
+        fused_attention_reference,
+        packed_attention,
+        packed_attention_backward,
+        packed_attention_bwd_reference,
+        packed_attention_reference,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        tiled_attention,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    B, N, heads, d = P19_BATCH, 8, 2, 32
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=dev).to(dtype)
+        dout = torch.randn(B, N, heads * d, generator=g, device=dev).to(dtype)
+        label = f"batch {B} qkv {tuple(qkv.shape)} {name}"
+        gate(torch, f"K1 {label} forward", packed_attention(qkv, heads),
+             packed_attention_reference(qkv, heads), phase=19)
+        gate(torch, f"K1 {label} backward", packed_attention_backward(qkv, dout, heads),
+             packed_attention_bwd_reference(qkv, dout, heads), phase=19)
+        gate(torch, f"K4 {label} forward", tiled_attention(qkv, heads),
+             tiled_attention_reference(qkv, heads), phase=19)
+        gate(torch, f"K4 {label} backward", tiled_attention_backward(qkv, dout, heads),
+             tiled_attention_bwd_reference(qkv, dout, heads), phase=19)
+        q, k, v = qkv.unflatten(-1, (3, heads, d)).unbind(2)
+        gate(torch, f"K6 {label}", fused_attention(q, k, v), fused_attention_reference(q, k, v),
+             phase=19)
+        del qkv, dout, q, k, v
+    for M, K, N_ in ((5, 60, 64), (16, 64, 100)):
+        x = torch.randn(M, K, generator=g, device=dev)
+        wq, ws = quant.quantize_weight(torch.randn(K, N_, generator=g, device=dev))
+        got = quant.int8_matmul(x, wq, ws, out_dtype=torch.float32).cpu()
+        want = quant.int8_matmul(x.cpu(), wq.cpu(), ws.cpu(), out_dtype=torch.float32)
+        say(f"phase 19: int8 ({M}, {K}) x ({K}, {N_}) on the card, padded to "
+            f"{quant.int_mm_padding(M, K, N_)}: equal to the CPU's: {torch.equal(got, want)}")
+        check(torch.equal(got, want), f"int8 ({M}, {K}, {N_}) card differs from the CPU")
+
+
+def phase19_vith(torch, dev, card: str) -> dict:
+    """vit-h (1280 wide, depth 32, 16 heads of 80, bf16, attn_impl="fused")
+    through the entry points: served by a TopDownPredictor at 256 x 192 (32
+    short forwards and 1 K2 a forward, no CUDA-core attention); trained by
+    Trainer.fit with remat (64 short forwards, 32 backwards from the saved
+    out and lse, 1 K2 a step), losses finite and falling; an f32 step at
+    vit-h width and depth 2 through the kernels against the plain
+    versions (phase 5's gates); served at 768 x 768 at vit-h width and
+    depth VITH_768_DEPTH (a K4 wgmma forward a block). The predictor
+    serves the trainer's model before it trains, so the 632M weights are
+    drawn once."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+    from probpose_pytorch_tpu_torch.models.model import build_model
+    from probpose_pytorch_tpu_torch.models.vit import ViTConfig
+
+    t_phase = time.perf_counter()
+    cfg = vith_config("bfloat16", VITH_TRAIN_BATCH)
+    trainer = make_trainer(torch, cfg, dev)
+    model = trainer.model
+    depth = len(model.backbone.blocks)
+    check(depth == VITH_DEPTH and model.backbone.blocks[0].attn.num_heads == VITH_HEADS,
+          "vit-h geometry off")
+    predictor = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size)
+    requests = [request(70 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    reset_counts()
+    answers = [predictor(f, b) for f, b in requests]
+    torch.cuda.synchronize()
+    serve = read_counts()
+    check_answers(cfg.model, requests, answers, phase=19)
+    say(f"phase 19: vit-h served, {len(requests)} forwards: K2 {serve['k2']}")
+    check_attention_route(serve, depth * len(requests), 0, phase=19)
+    check(serve["k2"] == len(requests), "vit-h's K2 did not run once a forward")
+    f_dev = torch.from_numpy(requests[-1][0]).to(dev)
+    b_dev = torch.from_numpy(requests[-1][1]).to(dev)
+    serve_ms = cuda_ms(torch, lambda: predictor.predict(f_dev, b_dev), iters=5)
+    say(f"phase 19 [{card}]: vit-h bf16 serving B={len(f_dev)} crops on the card: "
+        f"{serve_ms:.3f} ms/batch ({time.perf_counter() - t_phase:.1f} s into the path)")
+    del predictor, model, answers
+
+    H, W = cfg.model.img_size
+    B = cfg.train_batch_size
+    ds = SyntheticPoseDataset(B, (H, W), cfg.model.num_keypoints, seed=3)
+    batch = next(iter(batch_iterator(ds, B, num_workers=8)))
+    check(trainer.model.backbone.remat, "the vit-h config does not train with remat")
+    # Trainer.fit ends by saving the state; vit-h's (params, EMA and Adam's
+    # two moments in f32, ~10 GB) would take the card machine past its disk
+    # budget for one run, so this fit keeps it in memory: the steps, the
+    # schedule, the logging and the history are fit's own.
+    trainer._save = lambda ckpt, what, metadata=None: False
+    steps = VITH_TRAIN_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(lambda: iter([batch]), max_steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 19: Trainer.fit, {steps} bf16 vit-h steps with remat at B={B} in {fit_s:.2f} "
+        f"s; loss {losses[0]:.6f} -> {losses[-1]:.6f}; K2 {train['k2']} (expect {steps})")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a vit-h loss is not finite")
+    check(losses[-1] < losses[0], "the vit-h loss did not fall over the fixed batch")
+    check_attention_route(train, 2 * depth * steps, depth * steps, phase=19)
+    check(train["k2"] == steps, "vit-h's K2 did not run once a step")
+    db = trainer.device_batch(batch)
+    trainer.train_step(trainer.state, db)
+    step_ms = cuda_ms(torch, lambda: trainer.train_step(trainer.state, db), iters=3, warmup=0)
+    say(f"phase 19 [{card}]: vit-h bf16 train step with remat, B={B}: {step_ms:.3f} ms")
+    lr0 = float(trainer.tx.schedule(torch.zeros((), dtype=torch.int32, device=dev)))
+    del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 19: vit-h training done {time.perf_counter() - t_phase:.1f} s into the path")
+
+    # f32 at vit-h width and depth 2: a preset of this run, not of the package
+    ViTConfig.PRESETS["vit-h-depth2"] = dict(ViTConfig.PRESETS["vit-h"], depth=VITH_F32_DEPTH)
+    cfg32 = vith_config("float32", VITH_F32_BATCH, backbone="vit-h-depth2")
+    compare_f32_step(torch, dev, {k: v[:VITH_F32_BATCH] for k, v in batch.items()}, lr0,
+                     cfg32, phase=19, routed=("head.branches.",))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ViTConfig.PRESETS["vit-h-depth8"] = dict(ViTConfig.PRESETS["vit-h"], depth=VITH_768_DEPTH)
+    cfg768 = vith_config("bfloat16", VITH_768_BATCH, backbone="vit-h-depth8",
+                         img_size=IMG_768).model
+    model = build_model(cfg768, device=dev, seed=0)
+    depth = len(model.backbone.blocks)
+    predictor = TopDownPredictor(model, make_codec(cfg768), cfg768.img_size)
+    frames, boxes = request(75, VITH_768_BATCH)
+    reset_counts()
+    answer = predictor(frames, boxes)
+    torch.cuda.synchronize()
+    s768 = read_counts()
+    check_answers(cfg768, [(frames, boxes)], [answer], phase=19)
+    say(f"phase 19: vit-h at 768 x 768, B={VITH_768_BATCH}: K4 forward {s768['k4f']} (expect "
+        f"{depth}), short forward {s768['k1s']}, K1 CUDA cores {s768['k1f']} (expect 0 each)")
+    check(s768["k4f"] == depth and s768["k1s"] == s768["k1f"] == s768["k4b"] == 0,
+          "vit-h at 768 x 768 did not run K4's wgmma forward once a block")
+    del predictor, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 19: vit-h path {time.perf_counter() - t_phase:.1f} s")
+    return dict(serve=serve, train=train, s768=s768)
+
+
+def phase19(torch, dev, card: str) -> dict:
+    """Phase 19: faults 9-12 closed and vit-h's d = 80 attention on wgmma
+    (the module docstring)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(19)
+    widths = phase19_widths(torch, card, g)
+    mlp = phase19_mlp(torch, card, g)
+    phase19_grid_and_int8(torch, g)
+    d80 = phase19_d80(torch, card, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nano = phase19_vit_nano(torch, dev, card)
+    vith = phase19_vith(torch, dev, card)
+    say(f"phase 19: {time.perf_counter() - t0:.1f} s in all")
+    return dict(widths=widths, mlp=mlp, d80=d80, nano=nano, vith=vith)
+
+
+def phase19_kernels(p19: dict) -> list:
+    """The kernels line's entries of phase 19: the d = 80 wgmma kernels
+    (launches on the vit-h path), K4's CUDA cores at any d and K5's at other
+    widths (vit-nano's step)."""
+    tiled_cu = "csrc/tiled_attention_sm90.cu"
+    entries = []
+    vith, d80 = p19["vith"], p19["d80"]
+    for label, key, replaces, launches, cc in (
+            ("K1 packed_attention forward, d = 80 (vit-h)", "n192", "attention_kernel.py:120",
+             vith["train"]["k1s"], "K1 CUDA cores"),
+            ("K4 tiled_attention forward, d = 80 (vit-h 768^2)", "n2304",
+             "attention_tiled.py:119", vith["s768"]["k4f"], "K4 CUDA cores")):
+        n = d80[key]["fwd"]
+        entries.append(kernel_entry(label, "cuda", tiled_cu, replaces, launches, n["err"],
+                                    n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
+                                    design="wgmma+TMA, 32-byte swizzle", qkv=d80[key]["qkv"],
+                                    cuda_core_ms=n["cuda_core_ms"], replaced_route=cc))
+    for label, key, replaces, cc in (
+            ("K1 packed_attention backward, d = 80 (vit-h)", "n192", "attention_kernel.py:146",
+             "K1 CUDA cores"),
+            ("K4 tiled_attention backward, d = 80", "n2304", "attention_tiled.py:147",
+             "K4 CUDA cores")):
+        n = d80[key]["bwd"]
+        entries.append(kernel_entry(label, "cuda", tiled_cu, replaces, vith["train"]["k4b"],
+                                    n["err"], n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
+                                    design="wgmma+TMA, 32-byte swizzle", qkv=d80[key]["qkv"],
+                                    cuda_core_ms=n["cuda_core_ms"], replaced_route=cc))
+    w = p19["widths"]
+    for label, key, replaces in (("K4 tiled_attention forward, CUDA cores, any d", "fwd",
+                                  "attention_tiled.py:119"),
+                                 ("K4 tiled_attention backward, CUDA cores, any d", "bwd",
+                                  "attention_tiled.py:147")):
+        n = w[key]
+        entries.append(kernel_entry(label, "cuda", "csrc/tiled_attention.cu", replaces, 0,
+                                    n["err"], n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
+                                    design="CUDA cores, run-time d <= 256", qkv=n["qkv"],
+                                    widths=list(P19_WIDTHS), entry_point_only=True))
+    nano = p19["nano"]
+    for label, key, replaces, counter in (
+            ("K5 fused_ln_mlp forward, CUDA cores, other widths", "fwd", "mlp_kernel.py:49",
+             "k5f"),
+            ("K5 fused_ln_mlp backward, CUDA cores, other widths", "bwd", "mlp_kernel.py:57",
+             "k5b")):
+        n = nano[key]
+        err = max(n["err"], p19["mlp"]["f_err" if key == "fwd" else "b_err"])
+        entries.append(kernel_entry(label, "cuda", "csrc/fused_mlp.cu", replaces,
+                                    nano["step"][counter], err, n["ms"], n["plain_ms"],
+                                    n["bound"], n["lib_ms"], design="CUDA cores, any C <= 2048",
+                                    rows=n["rows"], path="vit-nano, mlp_impl fused",
+                                    widths=[list(p) for p in P19_MLP]))
+    return entries
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -6114,7 +6731,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 18, then the kernels line and the result line."""
+    """Phases 0 to 19, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -6373,6 +6990,11 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     pipe18 = phase18(torch, dev, card, refs17, worlds18)
 
+    # --------------------------------------------------------------- phase 19
+    gc.collect()
+    torch.cuda.empty_cache()
+    p19 = phase19(torch, dev, card)
+
     mlp_cu = "csrc/fused_mlp_sm90.cu"
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     kernels = [
@@ -6484,6 +7106,7 @@ def run(torch) -> None:
                                      for run, c in bundles15.items()}
         entry["phase16_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in int8_16.items()}
+    kernels += phase19_kernels(p19)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

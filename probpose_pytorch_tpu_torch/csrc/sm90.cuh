@@ -18,13 +18,20 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // Shared-memory layout of a (rows x D) bf16 tile as TMA writes it: boxes of
-// kCols columns, each kSpan-byte row swizzled, one box after another.
+// kCols columns, each kSpan-byte row swizzled, one box after another. D a
+// multiple of 64 takes the 128-byte swizzle (64-column boxes), D = 32 the
+// 64-byte one, and any other multiple of 16 (d = 80: five boxes) the 32-byte
+// one, so that one descriptor names one swizzle over the whole tile.
 template <int D>
 struct Tile {
-  static constexpr int kSpan = D >= 64 ? 128 : 64;  // bytes per swizzled row
-  static constexpr int kCols = kSpan / 2;           // columns per box
+  static_assert(D % 16 == 0, "a head width of whole 16-column boxes");
+  static constexpr int kSpan = D % 64 == 0 ? 128 : D == 32 ? 64 : 32;  // bytes per row
+  static constexpr int kCols = kSpan / 2;  // columns per box
   static constexpr int kBoxes = D / kCols;
-  static constexpr uint64_t kLayout = D >= 64 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  static constexpr uint64_t kLayout = kSpan == 128 ? 1 : kSpan == 64 ? 2 : 3;  // wgmma's code
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : kSpan == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr uint32_t bytes(int rows) { return static_cast<uint32_t>(rows) * D * 2; }
 };
 
@@ -234,6 +241,24 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 80,
+// smem, MN-major): d = 80, five 16-column boxes of the 32-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128,
 // smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
@@ -403,7 +428,7 @@ int make_map(CUtensorMap* map, const void* ptr, int width, long long row, int N,
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            Tile<D>::kSwizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -1,0 +1,11 @@
+// Kernel K4 on the CUDA cores, the launchers of the backward (dQ and dK/dV passes), float32 at every
+// instantiated column count (csrc/tiled_attention.cuh; the design and the
+// plain-C interface are csrc/tiled_attention.cu's).
+
+#include "tiled_attention.cuh"
+
+namespace probpose_k4cc {
+
+PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_BWD_INST, float)
+
+}  // namespace probpose_k4cc

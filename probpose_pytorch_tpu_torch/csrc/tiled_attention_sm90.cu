@@ -7,7 +7,7 @@
 // (probpose_pytorch_tpu/ops/pallas/attention_tiled.py:119-192), which the JAX
 // package's `packed_attention` takes wherever the packed kernel's (N, N)
 // scores do not fit (a ViT trunk on 768 x 768 inputs, N = 2304), and, in
-// bf16 with d in {32, 64, 128}, `_packed_fwd_kernel` and `_packed_bwd_kernel`
+// bf16 with d in {32, 64, 80, 128}, `_packed_fwd_kernel` and `_packed_bwd_kernel`
 // (attention_kernel.py:120-191). The float32 path stays on the CUDA cores in
 // csrc/tiled_attention.cu and csrc/packed_attention.cu.
 //
@@ -68,7 +68,15 @@
 //
 // Shared-memory tiles carry TMA's 128-byte swizzle (64-byte at d = 32), the
 // layout the wgmma descriptors name; d = 128 loads each tile as two 64-column
-// boxes. Head widths d in {32, 64, 128}.
+// boxes. Head widths d in {32, 64, 80, 128}. d = 80 (the vit-h preset) is 160
+// bytes a row, past the 128-byte swizzle's span and no multiple of it, and a
+// wgmma descriptor names one swizzle: its tiles are five 16-column boxes of
+// the 32-byte swizzle from one tensor map, so every product keeps one
+// descriptor per operand (QK^T's k = 80 is five k16 steps, one a box; P.V
+// is one m64n80k16 whose B operand walks the boxes by its leading offset).
+// The 32-byte swizzle reads an 8 x 16-byte core matrix without bank
+// conflicts as the wider ones do; the TMA copies are 32-byte rows, five a
+// tile.
 //
 // Plain-C interface, loaded with ctypes (ops/kernels/attention_tiled.py).
 // Every entry point returns a cudaError_t as int (0 = success).
@@ -97,6 +105,12 @@ template <>
 struct Rs<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t* a, uint64_t b) {
     wgmma_rs_n64(d, a, b);
+  }
+};
+template <>
+struct Rs<80> {
+  static __device__ __forceinline__ void mma(float (&d)[40], const uint32_t* a, uint64_t b) {
+    wgmma_rs_n80(d, a, b);
   }
 };
 template <>
@@ -840,6 +854,7 @@ int launch_short_any(const ShortArgs& a, void* out, float* lse, int B, int N, in
   switch (C / H) {
     case 32: PROBPOSE_SHORT(32)
     case 64: PROBPOSE_SHORT(64)
+    case 80: PROBPOSE_SHORT(80)
     case 128: PROBPOSE_SHORT(128)
     default: return cudaErrorInvalidValue;
   }
@@ -880,6 +895,7 @@ extern "C" long long tiled_attention_sm90_smem_bytes(int d, int pass) {
   switch (d) {
     case 32: return pass == 0 ? Fwd<32>::kSmem : pass == 1 ? Dq<32>::kSmem : Dkv<32>::kSmem;
     case 64: return pass == 0 ? Fwd<64>::kSmem : pass == 1 ? Dq<64>::kSmem : Dkv<64>::kSmem;
+    case 80: return pass == 0 ? Fwd<80>::kSmem : pass == 1 ? Dq<80>::kSmem : Dkv<80>::kSmem;
     case 128: return pass == 0 ? Fwd<128>::kSmem : pass == 1 ? Dq<128>::kSmem : Dkv<128>::kSmem;
     default: return -1;
   }
@@ -893,6 +909,7 @@ extern "C" long long short_attention_sm90_smem_bytes(int d, int N) {
   switch (d) {
     case 32: return Short<32, 1>::kSmem + (nt - 1) * 2 * Tile<32>::bytes(64);
     case 64: return Short<64, 1>::kSmem + (nt - 1) * 2 * Tile<64>::bytes(64);
+    case 80: return Short<80, 1>::kSmem + (nt - 1) * 2 * Tile<80>::bytes(64);
     case 128: return Short<128, 1>::kSmem + (nt - 1) * 2 * Tile<128>::bytes(64);
     default: return -1;
   }
@@ -942,6 +959,7 @@ extern "C" int tiled_attention_sm90_fwd(const void* qkv, void* out, void* lse, i
   switch (C / heads) {
     case 32: return launch_fwd<32>(qkv, out, l, B, N, C, heads, head_major, s);
     case 64: return launch_fwd<64>(qkv, out, l, B, N, C, heads, head_major, s);
+    case 80: return launch_fwd<80>(qkv, out, l, B, N, C, heads, head_major, s);
     case 128: return launch_fwd<128>(qkv, out, l, B, N, C, heads, head_major, s);
     default: return cudaErrorInvalidValue;
   }
@@ -967,6 +985,9 @@ extern "C" int tiled_attention_sm90_bwd(const void* qkv, const void* out, const 
                              exact_d, s);
     case 64:
       return launch_bwd<64>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,
+                             exact_d, s);
+    case 80:
+      return launch_bwd<80>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,
                              exact_d, s);
     case 128:
       return launch_bwd<128>(qkv, out, dout, l, ds, dqkv, B, N, C, heads, head_major,

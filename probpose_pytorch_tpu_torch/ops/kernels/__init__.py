@@ -7,8 +7,9 @@
     attention_tiled.py
                    K4 row-tiled attention for long sequences, forward and
                    backward, and K1's short bf16 forward: CUDA C++ with wgmma
-                   and TMA in bf16 (csrc/tiled_attention_sm90.cu), on the
-                   CUDA cores in f32 (csrc/tiled_attention.cu)
+                   and TMA in bf16 at d in {32, 64, 80, 128}
+                   (csrc/tiled_attention_sm90.cu), on the CUDA cores in f32
+                   and at every other d <= 256 (csrc/tiled_attention.cu)
     sparsemax.py   K2 row sparsemax, CUDA C++ (csrc/sparsemax.cu): one warp a
                    row up to 3,072 pixels, one block a row beyond, the
                    bisection over the row's candidates only
@@ -16,8 +17,9 @@
                    products over the OKS operators' band, strips of a map
                    staged once
     mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward:
-                   CUDA C++ with wgmma and TMA in bf16 (csrc/fused_mlp_sm90.cu),
-                   on the CUDA cores in f32 (csrc/fused_mlp.cu)
+                   CUDA C++ with wgmma and TMA in bf16 at the four preset
+                   widths (csrc/fused_mlp_sm90.cu), on the CUDA cores in f32
+                   and at every other width up to C = 2048 (csrc/fused_mlp.cu)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor; it never falls back.

@@ -19,19 +19,20 @@ which writes dqkv straight in the packed layout. Which kernel serves a call
 is decided by the shape alone, forward and backward each on its own
 (`attention_route` in ops/kernels/attention_tiled.py, a pure function of N,
 d, the dtype and the card's shared memory; `kernel_path` names it):
-  * "sm90 short": bf16, d in {32, 64, 128}, N <= 256 (the ViT trunks'
+  * "sm90 short": bf16, d in {32, 64, 80, 128}, N <= 256 (the ViT trunks'
     N = 192), forward: `short_forward`, csrc/tiled_attention_sm90.cu;
   * "sm90 tiled": the same dtype and widths at longer N, and their every
     backward: K4's wgmma kernels, which read the forward's saved context
     and log-sum-exp (`_PackedAttention` saves (qkv, out, lse) there);
   * "K1 CUDA cores": float32, and bf16 with another d, where K1's shared
     memory fits: csrc/packed_attention.cu (the f32 parity checks run here);
-  * "K4 CUDA cores": past K1's shared memory, float32 with d in
-    {32, 64, 80, 128} and bf16 with d = 80 (the vit-h preset at N >= 646):
-    csrc/tiled_attention.cu, as the JAX package hands such shapes to its
-    row-tiled kernel;
-  * "no kernel (...)": any other shape past K1's shared memory (e.g. d = 48
-    at N = 1024): NotImplementedError on the card.
+  * "K4 CUDA cores": past K1's shared memory, float32 and bf16 at every
+    other d <= 256 (e.g. d = 48 at N = 1024): csrc/tiled_attention.cu, as
+    the JAX package hands such shapes to its row-tiled kernel;
+  * "no kernel (...)": d > 256 past K1's shared memory: NotImplementedError
+    on the card.
+Any batch: past 65,535 (the grid's batch extent) a call launches once a
+chunk of `batch_chunks`.
 Both wrappers:
   * CPU tensor  -> the plain version (`packed_attention_reference`,
                    `packed_attention_bwd_reference`) on every route;
@@ -44,8 +45,8 @@ Kernel K6, `fused_attention(q, k, v)`, replaces `_attn_kernel` of the same
 file (`fused_attention`, the `attn_impl="pallas"` serving knob): K1's
 forward read from q, k and v each (B, N, heads, d) through their strides,
 so the views the qkv projection gives are not copied (JAX transposes them
-to (B * heads, N, d) around its kernel). bf16 with d in {32, 64, 128} and
-N <= 256 runs the short wgmma forward, one tensor map per view, and gives
+to (B * heads, N, d) around its kernel). bf16 with d in {32, 64, 80, 128}
+and N <= 256 runs the short wgmma forward, one tensor map per view, and gives
 K1's bits; every other shape runs K1's CUDA-core body. It returns the
 context (B, N, heads, d). It is forward only, as in JAX: a gradient through
 it raises. `fused_attention_reference` is its plain version.
@@ -63,9 +64,12 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     HEAD_DIMS,
     K1_CUDA_CORES,
     LAYOUTS,
+    MAX_GRID_Z,
     NO_KERNEL,
     SHORT_MAX_N,
     SM90_SHORT,
+    _at,
+    _launch_chunks,
     attention_route,
     max_shared_memory,
     pack_qkv,
@@ -176,9 +180,8 @@ def kernel_path(N: int, d: int, dtype: torch.dtype, backward: bool = False) -> s
 def _no_kernel(qkv: torch.Tensor, heads: int, route: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: qkv {tuple(qkv.shape)} {qkv.dtype} with {heads} heads: {route}; K1's "
-        "shared memory does not fit, and K4 takes d in {32, 64, 128} in bf16 on wgmma, "
-        "d in {32, 64, 80, 128} in f32 and d = 80 in bf16 on the CUDA cores (ROADMAP "
-        "section 2, item 8)")
+        "shared memory does not fit, and K4 takes head widths up to 256 (its CUDA-core "
+        "kernels hold eight columns a lane; ROADMAP section 3)")
 
 
 def _check(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> None:
@@ -200,8 +203,6 @@ def _check(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> None:
         raise ValueError("packed_attention: qkv must be contiguous")
     if B == 0 or N == 0:
         raise ValueError(f"packed_attention: empty qkv {tuple(qkv.shape)}")
-    if B > 65535:
-        raise ValueError(f"packed_attention: batch {B} exceeds the grid's 65535")
 
 
 def _smem_check(t: torch.Tensor, N: int, d: int, smem_fn, what: str) -> int:
@@ -256,10 +257,10 @@ def _packed_fwd_op(qkv, heads, head_major=False):
                                     "packed_attention")
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = lib.packed_attention_fwd(
-        qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads, int(head_major),
-        _DTYPES[qkv.dtype], device, torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = _launch_chunks(B, lambda b0, nb: lib.packed_attention_fwd(
+        _at(qkv, b0), _at(out, b0), nb, N, C3 // 3, heads, int(head_major),
+        _DTYPES[qkv.dtype], device, stream))
     if err:
         raise RuntimeError(
             f"packed_attention: kernel launch failed with cudaError {err} "
@@ -310,12 +311,13 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     if dout.data_ptr() % 16:
         raise ValueError("packed_attention_backward: dout must be 16-byte aligned")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
-    err = lib.packed_attention_bwd(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        B, N, C3 // 3, heads, int(layout == "head_major"), _DTYPES[qkv.dtype], device,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    # (3, chunk, heads, N) statistics a chunk, one buffer the chunks reuse in turn
+    stats = torch.empty((3, min(B, MAX_GRID_Z), heads, N), dtype=torch.float32,
+                        device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = _launch_chunks(B, lambda b0, nb: lib.packed_attention_bwd(
+        _at(qkv, b0), _at(dout, b0), _at(dqkv, b0), stats.data_ptr(), nb, N, C3 // 3, heads,
+        int(layout == "head_major"), _DTYPES[qkv.dtype], device, stream))
     if err:
         raise RuntimeError(
             f"packed_attention_backward: kernel launch failed with cudaError "
@@ -390,8 +392,6 @@ def _flat_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         return fused_attention_reference(q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} not supported (float32 or bfloat16)")
-    if q.shape[0] > 65535:
-        raise ValueError(f"fused_attention: batch {q.shape[0]} exceeds the grid's 65535")
     return torch.ops.probpose.flat_attention_fwd(q, k, v)
 
 
@@ -416,14 +416,13 @@ def _flat_fwd_op(q, k, v):
         raise ValueError("fused_attention: q, k and v must be 16-byte aligned, row by row")
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = lambda b0: (_at(q, b0), _at(k, b0), _at(v, b0), _at(out, b0))
     if wgmma:
-        err = _lib().flat_short_attention_sm90_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
-            q.stride(0), q.stride(1), device, stream)
+        err = _launch_chunks(B, lambda b0, nb: _lib().flat_short_attention_sm90_fwd(
+            *ptrs(b0), nb, N, H, d, q.stride(0), q.stride(1), device, stream))
     else:
-        err = _lib().flat_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, d,
-            *q.stride()[:3], _DTYPES[q.dtype], device, stream)
+        err = _launch_chunks(B, lambda b0, nb: _lib().flat_attention_fwd(
+            *ptrs(b0), nb, N, H, d, *q.stride()[:3], _DTYPES[q.dtype], device, stream))
     if err:
         raise RuntimeError(f"fused_attention: kernel launch failed with cudaError {err} at "
                            f"q {tuple(q.shape)} {q.dtype}")

@@ -5,15 +5,17 @@ Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_tiled.py (`tiled_attention`, a
 `jax.custom_vjp` whose backward recomputes the scores). Two CUDA sources,
 each with its design and what bounds it on the card; no shape bounded by N:
-  * bf16 with d in {32, 64, 128}, csrc/tiled_attention_sm90.cu: a one-sweep
-    forward (online softmax, wgmma fed by a TMA ring of K/V tiles) that can
-    also write the row log-sum-exp `lse`, and a backward of two kernels (dQ,
-    then dK/dV) that takes the forward's output and `lse` instead of
-    rebuilding the softmax statistics; no atomics.
-  * float32 with d in {32, 64, 80, 128}, and bf16 at d = 80 (the vit-h
-    preset), csrc/tiled_attention.cu: CUDA cores, two sweeps (exact softmax)
-    and a two-pass recompute backward in the TPU kernels' order; it carries
-    the f32 parity checks.
+  * bf16 with d in {32, 64, 80, 128} (`HEAD_DIMS`; d = 80 is the vit-h
+    preset), csrc/tiled_attention_sm90.cu: a one-sweep forward (online
+    softmax, wgmma fed by a TMA ring of K/V tiles) that can also write the
+    row log-sum-exp `lse`, and a backward of two kernels (dQ, then dK/dV)
+    that takes the forward's output and `lse` instead of rebuilding the
+    softmax statistics; no atomics.
+  * float32, and bf16 at every other head width, up to d = 256
+    (`MAX_HEAD_DIM`), csrc/tiled_attention.cu: CUDA cores, two sweeps (exact
+    softmax) and a two-pass recompute backward in the TPU kernels' order;
+    it carries the f32 parity checks. Its block owns 64, 32 or 16 query rows
+    as d's staged tiles fit the card's shared memory (`cuda_core_warps`).
 
 The same bf16 source holds K1's redesigned forward for N <= 256,
 `short_forward` (one warpgroup per 64 query rows, every key of the head in
@@ -21,7 +23,12 @@ registers, an exact single-pass softmax, P normalised and rounded before
 P.V as the TPU kernel does; its plain version is K1's own
 `packed_attention_reference`, and `short_attention_reference` adds the
 lse); K6 (`attention.fused_attention`) runs it on its q, k, v views. K1's
-bf16 backward with d in {32, 64, 128} is K4's, at every N.
+bf16 backward with d in HEAD_DIMS is K4's, at every N.
+
+Every launch takes a batch of at most 65,535 (the grid's z extent, where
+the kernels put the batch); a larger batch runs as several launches over
+`batch_chunks`, each on its own slice of the tensors, as JAX's grids take
+any batch.
 
 `tiled_attention(qkv, heads, layout)` has K1's contract (ops/kernels/
 attention.py): the (B, N, 3C) projection in, qkv-major ([q | k | v], heads
@@ -75,6 +82,9 @@ __all__ = [
     "LAYOUTS",
     "k1_smem_bytes",
     "max_shared_memory",
+    "batch_chunks",
+    "cuda_core_warps",
+    "cuda_core_smem_bytes",
 ]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,7 +92,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # as their `head_major` flag. Column of (t, h, c), t in {q, k, v}:
 # t * C + h * d + c qkv-major, h * 3d + t * d + c head-major.
 LAYOUTS = ("qkv_major", "head_major")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
+# Widest head of K4's CUDA-core kernels (eight columns a lane).
+MAX_HEAD_DIM = 256
+# The grid's z extent, where every attention kernel puts the batch.
+MAX_GRID_Z = 65535
 # Query rows per chunk of the plain versions: (B, heads, 256, N) f32 scores,
 # 0.9 GB at (64, 2304, 1152).
 PLAIN_CHUNK = 256
@@ -99,9 +113,11 @@ SHORT_MAX_N = 256
 # version on one of eight draws at (256, 192, 1152), past K1's bound.
 EXACT_D_MAX_N = SHORT_MAX_N
 
-# Head widths of K4's CUDA-core kernels (csrc/tiled_attention.cu), per
-# dtype: bf16 only where the wgmma kernels (HEAD_DIMS) do not reach.
-CUDA_CORE_DIMS = {torch.float32: (32, 64, 80, 128), torch.bfloat16: (80,)}
+# K4's CUDA-core tiles (csrc/tiled_attention.cu): 64 keys a step, 16 query
+# rows a warp, 4, 2 or 1 warps a block.
+CUDA_CORE_KEY_TILE = 64
+CUDA_CORE_WARP_ROWS = 16
+CUDA_CORE_WARPS = (4, 2, 1)
 
 # packed_attention's routes (`attention_route`, `attention.kernel_path`).
 SM90_SHORT = "sm90 short"  # short_forward, csrc/tiled_attention_sm90.cu
@@ -120,25 +136,73 @@ def k1_smem_bytes(N: int, d: int, dtype: torch.dtype) -> int:
     return N * (2 * d + 4 // size) * size + 32 * (d + N)
 
 
+def cuda_core_smem_bytes(d: int, warps: int, backward: bool) -> int:
+    """Shared memory per block of K4's CUDA-core forward (or of either
+    backward pass) at head width d with `warps` warps (csrc/
+    tiled_attention.cu, Geo): f32 tiles with rows padded by one word, the
+    block's query rows and the key tile(s), and a (16, max(d, 64) + 4) f32
+    tile a warp (two in the backward, with 64 keys' statistics)."""
+    rows, ks = warps * CUDA_CORE_WARP_ROWS, d + 1
+    tile = CUDA_CORE_WARP_ROWS * (max(d, CUDA_CORE_KEY_TILE) + 4) * 4
+    if backward:
+        return (2 * (rows + CUDA_CORE_KEY_TILE) * ks * 4 + 2 * warps * tile
+                + 3 * CUDA_CORE_KEY_TILE * 4)
+    return (rows + 2 * CUDA_CORE_KEY_TILE) * ks * 4 + warps * tile
+
+
+def cuda_core_warps(d: int, backward: bool, limit: int) -> int:
+    """Warps a block of K4's CUDA-core kernels (query rows / 16) at head
+    width d on a card of `limit` bytes of shared memory a block: the most of
+    4, 2, 1 that fits, 0 where none does or d > MAX_HEAD_DIM (csrc/
+    tiled_attention.cu: pick_warps). Shared memory holds f32 in both
+    dtypes, so the dtype takes no part."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        return 0
+    return next((w for w in CUDA_CORE_WARPS if cuda_core_smem_bytes(d, w, backward) <= limit),
+                0)
+
+
+def batch_chunks(B: int, limit: int = MAX_GRID_Z) -> list[tuple[int, int]]:
+    """(first item, items) of the launches that cover a batch of B on a grid
+    whose batch extent is at most `limit`: one launch up to the limit, then
+    whole chunks of it and the rest."""
+    return [(b0, min(limit, B - b0)) for b0 in range(0, B, limit)]
+
+
+def _at(t: torch.Tensor, b0: int) -> int:
+    """Address of item b0 along the leading (batch) axis of t."""
+    return t.data_ptr() + b0 * t.stride(0) * t.element_size()
+
+
+def _launch_chunks(B: int, launch) -> int:
+    """launch(b0, nb) for each chunk of `batch_chunks(B)` in order, until one
+    returns a cudaError; that error, or 0."""
+    for b0, nb in batch_chunks(B):
+        err = launch(b0, nb)
+        if err:
+            return err
+    return 0
+
+
 def attention_route(N: int, d: int, dtype: torch.dtype, limit: int,
                     backward: bool = False) -> str:
     """The kernel that serves attention of N tokens with head width d in
     `dtype`, forward or backward, on a card whose opt-in shared memory per
     block is `limit` bytes. The shape decides alone:
-      * bf16, d in {32, 64, 128}: the wgmma kernels, "sm90 short" (forward,
+      * bf16, d in HEAD_DIMS: the wgmma kernels, "sm90 short" (forward,
         N <= 256) or "sm90 tiled" (K4: longer forwards, every backward);
       * else "K1 CUDA cores" where K1's shared memory fits the card;
-      * else "K4 CUDA cores" at K4's CUDA-core widths (`CUDA_CORE_DIMS`: f32
-        d in {32, 64, 80, 128}, bf16 d = 80), as the JAX package's
-        packed_attention hands such shapes to its row-tiled kernel;
-      * else "no kernel (d=.., N=..)": the card raises
-        NotImplementedError, the CPU computes the plain version.
+      * else "K4 CUDA cores" at every d <= MAX_HEAD_DIM, as the JAX
+        package's packed_attention hands such shapes to its row-tiled
+        kernel;
+      * else "no kernel (d=.., N=..)" (d > 256 past K1's shared memory): the
+        card raises NotImplementedError, the CPU computes the plain version.
     The qkv layout takes no part: every kernel reads both (`LAYOUTS`)."""
     if dtype == torch.bfloat16 and d in HEAD_DIMS:
         return SM90_SHORT if N <= SHORT_MAX_N and not backward else SM90_TILED
     if k1_smem_bytes(N, d, dtype) <= limit:
         return K1_CUDA_CORES
-    if d in CUDA_CORE_DIMS[dtype]:
+    if cuda_core_warps(d, backward, limit):
         return K4_CUDA_CORES
     return f"{NO_KERNEL} (d={d}, N={N})"
 
@@ -158,12 +222,6 @@ def pack_qkv(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
     B, N, H, d = dq.shape
     return torch.stack([dq, dk, dv], dim=3 if layout == "head_major" else 2).reshape(
         B, N, 3 * H * d)
-
-
-def _head_dims(dtype: torch.dtype) -> tuple[int, ...]:
-    """The head widths K4's kernels take in `dtype`, wgmma and CUDA cores."""
-    wgmma = HEAD_DIMS if dtype == torch.bfloat16 else ()
-    return tuple(sorted(wgmma + CUDA_CORE_DIMS[dtype]))
 
 
 def _wgmma(qkv: torch.Tensor, heads: int) -> bool:
@@ -336,11 +394,13 @@ def _lib() -> ctypes.CDLL:
         for name in ("tiled_attention_fwd", "tiled_attention_bwd", "tiled_attention_sm90_fwd",
                      "tiled_attention_sm90_bwd", "short_attention_sm90_fwd"):
             getattr(lib, name).restype = i32
-        lib.short_attention_sm90_smem_bytes.argtypes = [i32] * 2
-        lib.short_attention_sm90_smem_bytes.restype = ctypes.c_longlong
-        for name in ("tiled_attention_smem_bytes", "tiled_attention_sm90_smem_bytes"):
+        for name in ("short_attention_sm90_smem_bytes", "tiled_attention_sm90_smem_bytes"):
             getattr(lib, name).argtypes = [i32] * 2
             getattr(lib, name).restype = ctypes.c_longlong
+        lib.tiled_attention_smem_bytes.argtypes = [i32] * 3
+        lib.tiled_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.tiled_attention_warps.argtypes = [i32, i32, ctypes.c_longlong]
+        lib.tiled_attention_warps.restype = i32
         lib.packed_attention_max_smem.argtypes = [i32, ctypes.POINTER(i32)]
         lib.packed_attention_max_smem.restype = i32
         lib._tiled_bound = True
@@ -372,11 +432,14 @@ def _check(qkv: torch.Tensor, heads: int, layout: str, what: str) -> None:
         raise ValueError(f"{what}: empty qkv {tuple(qkv.shape)}")
 
 
-def _smem_need(d: int, dtype: torch.dtype, backward: bool) -> int:
-    """Shared memory per block of K4's largest kernel for (d, dtype)."""
+def _smem_need(d: int, dtype: torch.dtype, backward: bool, limit: int) -> int:
+    """Shared memory per block of K4's largest kernel for (d, dtype) on a
+    card of `limit` bytes a block (the CUDA cores' smallest tile where none
+    fits)."""
     lib = _lib()
     if dtype == torch.float32 or d not in HEAD_DIMS:
-        return lib.tiled_attention_smem_bytes(d, int(backward))
+        warps = lib.tiled_attention_warps(d, int(backward), limit) or 1
+        return lib.tiled_attention_smem_bytes(d, int(backward), warps)
     passes = (0, 1, 2) if backward else (0,)  # the backward may run the forward
     return max(lib.tiled_attention_sm90_smem_bytes(d, p) for p in passes)
 
@@ -387,14 +450,12 @@ def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
     aligned."""
     B, N, C3 = qkv.shape
     d = C3 // 3 // heads
-    if d not in _head_dims(qkv.dtype):
-        raise ValueError(f"{what}: head width d={d} not supported in {qkv.dtype} "
-                         f"(one of {_head_dims(qkv.dtype)})")
-    if B > 65535:
-        raise ValueError(f"{what}: batch {B} exceeds the grid's 65535")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head width d={d} not supported (K4 takes d <= "
+                         f"{MAX_HEAD_DIM})")
     device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
-    need = _smem_need(d, qkv.dtype, backward)
     limit = max_shared_memory(device)
+    need = _smem_need(d, qkv.dtype, backward, limit)
     if need > limit:
         raise ValueError(f"{what}: d={d} ({qkv.dtype}) needs {need} bytes of shared "
                          f"memory, the card allows {limit}")
@@ -408,20 +469,21 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _launch_fwd(qkv: torch.Tensor, heads: int, device: int, with_lse: bool, head_major: bool):
-    """One forward launch: (out, lse), lse None unless asked for (bf16)."""
+    """One forward kernel (a launch a batch chunk): (out, lse), lse None
+    unless asked for (bf16)."""
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lse = None
-    if _wgmma(qkv, heads):
-        if with_lse:
-            lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
-        err = _lib().tiled_attention_sm90_fwd(
-            qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-            B, N, C3 // 3, heads, int(head_major), device, _stream(qkv))
+    wgmma = _wgmma(qkv, heads)
+    lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device) \
+        if wgmma and with_lse else None
+    if wgmma:
+        err = _launch_chunks(B, lambda b0, nb: _lib().tiled_attention_sm90_fwd(
+            _at(qkv, b0), _at(out, b0), _at(lse, b0) if with_lse else None, nb, N, C3 // 3,
+            heads, int(head_major), device, _stream(qkv)))
     else:
-        err = _lib().tiled_attention_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C3 // 3, heads,
-                                         int(head_major), DTYPES[qkv.dtype], device,
-                                         _stream(qkv))
+        err = _launch_chunks(B, lambda b0, nb: _lib().tiled_attention_fwd(
+            _at(qkv, b0), _at(out, b0), nb, N, C3 // 3, heads, int(head_major),
+            DTYPES[qkv.dtype], device, _stream(qkv)))
     if err:
         raise RuntimeError(f"tiled_attention: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -444,7 +506,7 @@ def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False,
     """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
     tensor (or under `plain_versions()`), else one kernel launch through the
     `probpose::tiled_attention_fwd` op; lse, the (B, heads, N) f32 row
-    log-sum-exp, only on the wgmma route (bf16, d in {32, 64, 128}) on the
+    log-sum-exp, only on the wgmma route (bf16, d in HEAD_DIMS) on the
     card with `with_lse`, else None."""
     if kernels.use_plain(qkv, "tiled_attention"):
         return tiled_attention_reference(qkv, heads, layout=layout), None
@@ -509,10 +571,9 @@ def _short_fwd_op(qkv, heads, with_lse, head_major=False):
         raise ValueError(f"short_forward: N={N}, d={d} needs {need} bytes of shared memory")
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device) if with_lse else None
-    err = _lib().short_attention_sm90_fwd(qkv.data_ptr(), out.data_ptr(),
-                                          lse.data_ptr() if with_lse else None,
-                                          B, N, C3 // 3, heads, int(head_major), device,
-                                          _stream(qkv))
+    err = _launch_chunks(B, lambda b0, nb: _lib().short_attention_sm90_fwd(
+        _at(qkv, b0), _at(out, b0), _at(lse, b0) if with_lse else None, nb, N, C3 // 3,
+        heads, int(head_major), device, _stream(qkv)))
     if err:
         raise RuntimeError(f"short_forward: kernel launch failed with cudaError {err} "
                            f"at qkv {tuple(qkv.shape)} {qkv.dtype}")
@@ -563,15 +624,18 @@ def tiled_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             raise ValueError("tiled_attention_backward: out must be the forward's contiguous "
                              f"(B, N, C) context and lse its ({B}, {heads}, {N}) f32 lse")
         dsum = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
-        err = _lib().tiled_attention_sm90_bwd(
-            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-            dqkv.data_ptr(), B, N, C3 // 3, heads, int(head_major), int(N <= EXACT_D_MAX_N),
-            device, _stream(qkv))
+        err = _launch_chunks(B, lambda b0, nb: _lib().tiled_attention_sm90_bwd(
+            _at(qkv, b0), _at(out, b0), _at(dout, b0), _at(lse, b0), _at(dsum, b0),
+            _at(dqkv, b0), nb, N, C3 // 3, heads, int(head_major), int(N <= EXACT_D_MAX_N),
+            device, _stream(qkv)))
     else:
-        stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=qkv.device)
-        err = _lib().tiled_attention_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, N, C3 // 3, heads, int(head_major), DTYPES[qkv.dtype], device, _stream(qkv))
+        # (3, chunk, heads, N) statistics a chunk, in one buffer that the
+        # chunks reuse one after another on the stream
+        stats = torch.empty((3, min(B, MAX_GRID_Z), heads, N), dtype=torch.float32,
+                            device=qkv.device)
+        err = _launch_chunks(B, lambda b0, nb: _lib().tiled_attention_bwd(
+            _at(qkv, b0), _at(dout, b0), _at(dqkv, b0), stats.data_ptr(), nb, N, C3 // 3,
+            heads, int(head_major), DTYPES[qkv.dtype], device, _stream(qkv)))
     if err:
         raise RuntimeError(f"tiled_attention_backward: kernel launch failed with cudaError "
                            f"{err} at qkv {tuple(qkv.shape)} {qkv.dtype}")

@@ -8,9 +8,12 @@ csrc/fused_mlp_sm90.cu: wgmma products fed by TMA, with the LayerNorm, the
 biases, GELU and the residual in the products' prologue passes and
 epilogues, and y, h (and, backward, du and dy) in device memory in bf16, the
 values the TPU kernel rounds before its products; the source's note says
-what bounds it and why. float32 runs csrc/fused_mlp.cu on the CUDA cores.
-Both take C in {384, 768, 1024, 1280} and a hidden width that is a multiple
-of 256.
+what bounds it and why. It takes C in {384, 768, 1024, 1280} and a hidden
+width that is a multiple of 256. Every other shape up to C = 2048 and a
+hidden width of 8,192, and float32 at every width, runs csrc/fused_mlp.cu on
+the CUDA cores, which rounds in bf16 where the sm90 kernel does.
+`mlp_route(C, hidden, dtype)` names the kernel, a pure function of the
+shape, as JAX's `fused_ln_mlp` takes any (R, C) and hidden width.
 
 `fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, exact_gelu)` takes the JAX
 function's arguments in its layout: x (R, C) rows, w1 (C, Hd), w2 (Hd, C),
@@ -39,7 +42,7 @@ row tiles are (max(tile // 4, 64) rows); with None, one f32 sum over all
 rows. The bf16 kernel also rounds du to bf16 for the dy and dW1 products;
 `fused_ln_mlp_bwd_kernel_order_reference` is the plain backward in that
 order (du rounded, one f32 sum), the card's tighter yardstick.
-`mlp_workspace_bytes` mirrors the bf16 backward's scratch layout.
+`mlp_workspace_bytes` mirrors each route's backward scratch layout.
 """
 
 from __future__ import annotations
@@ -57,11 +60,22 @@ __all__ = [
     "fused_ln_mlp_bwd_reference",
     "fused_ln_mlp_bwd_kernel_order_reference",
     "mlp_workspace_bytes",
+    "mlp_route",
     "SUPPORTED_WIDTHS",
 ]
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Widths of the bf16 wgmma kernels (csrc/fused_mlp_sm90.cu), with a hidden
+# width that is a multiple of 256.
 SUPPORTED_WIDTHS = (384, 768, 1024, 1280)
+# The CUDA-core kernels' limits (csrc/fused_mlp.cu): eight 256-column
+# output slices a thread, and the hidden widths they were checked at.
+MAX_C = 2048
+MAX_HIDDEN = 8192
+# mlp_route's answers.
+MLP_SM90 = "sm90"  # csrc/fused_mlp_sm90.cu
+MLP_CUDA_CORES = "CUDA cores"  # csrc/fused_mlp.cu
+MLP_NO_KERNEL = "no kernel"
 LN_EPS = 1e-6
 _SQRT_2_OVER_PI = 0.7978845608028654
 _SQRT_HALF = 0.7071067811865476
@@ -185,13 +199,53 @@ def _split_k(R: int, tiles: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def mlp_workspace_bytes(R: int, C: int, Hd: int) -> int:
-    """Bytes of scratch the bf16 backward takes at R rows: y, h, du and dy in
-    bf16, the row mean and rstd, the LayerNorm backward's partials
-    (3, ceil(R / 64), C), db1's (ceil(R / 128), Hd) and the weight gradients'
-    split partials (splits, 2 C Hd) in f32, each at a 256-byte boundary."""
-    if C not in SUPPORTED_WIDTHS or Hd <= 0 or Hd % 256 or R <= 0:
+def mlp_route(C: int, Hd: int, dtype: torch.dtype) -> str:
+    """The kernel that serves K5 at width C and hidden width Hd in `dtype`:
+    "sm90" (bf16, C in SUPPORTED_WIDTHS, Hd a multiple of 256), else "CUDA
+    cores" up to C = MAX_C and Hd = MAX_HIDDEN, else "no kernel (C=..,
+    hidden=..)", which raises on the card (the CPU computes the plain
+    version)."""
+    if dtype == torch.bfloat16 and C in SUPPORTED_WIDTHS and Hd > 0 and Hd % 256 == 0:
+        return MLP_SM90
+    if 1 <= C <= MAX_C and 1 <= Hd <= MAX_HIDDEN:
+        return MLP_CUDA_CORES
+    return f"{MLP_NO_KERNEL} (C={C}, hidden={Hd})"
+
+
+# The CUDA-core backward's scratch (csrc/fused_mlp.cu, `workspace`): rows a
+# tile and rows a weight-gradient partial.
+_CC_CHUNK_ROWS = 1024
+
+
+def _cc_tile_rows(C: int) -> int:
+    """Rows a tile of the CUDA-core kernels: 16, or 8 past C = 1280."""
+    return 16 if C <= 1280 else 8
+
+
+def _cc_workspace_bytes(R: int, C: int, Hd: int) -> int:
+    """The CUDA-core backward's scratch: y and g in f32 padded to the row
+    tile, the rows pass's (3, tiles, C) partials and the per-1,024-row
+    partials of dW1^T, dW2^T and db1, each at a 256-byte boundary."""
+    fr = _cc_tile_rows(C)
+    rpad = _cdiv(R, fr) * fr
+    chunks = _cdiv(rpad, _CC_CHUNK_ROWS)
+    sizes = (rpad * C * 4, rpad * C * 4, 3 * (rpad // fr) * C * 4, chunks * Hd * C * 4,
+             chunks * C * Hd * 4, chunks * Hd * 4)
+    return sum(_cdiv(n, 256) * 256 for n in sizes)
+
+
+def mlp_workspace_bytes(R: int, C: int, Hd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of scratch the backward takes at R rows on `mlp_route`'s
+    kernel. The bf16 wgmma backward: y, h, du and dy in bf16, the row mean
+    and rstd, the LayerNorm backward's partials (3, ceil(R / 64), C), db1's
+    (ceil(R / 128), Hd) and the weight gradients' split partials (splits,
+    2 C Hd) in f32, each at a 256-byte boundary; the CUDA cores'
+    `_cc_workspace_bytes`. Raises ValueError for a shape no kernel takes."""
+    route = mlp_route(C, Hd, dtype)
+    if route.startswith(MLP_NO_KERNEL) or R <= 0:
         raise ValueError(f"mlp_workspace_bytes: R={R}, C={C}, hidden={Hd} not taken")
+    if route == MLP_CUDA_CORES:
+        return _cc_workspace_bytes(R, C, Hd)
     w, bn = _shape(C, Hd)
     tiles = _cdiv(Hd, 64 * w) * (C // bn) + _cdiv(C, 64 * w) * (Hd // bn)
     splits, _ = _split_k(R, tiles)
@@ -206,15 +260,14 @@ def _lib() -> ctypes.CDLL:
     lib = library()
     if not getattr(lib, "_mlp_bound", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fused_mlp_f32_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        lib.fused_mlp_f32_bwd.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
-        lib.fused_mlp_f32_bwd_workspace_bytes.argtypes = [i32] * 3
-        lib.fused_mlp_f32_bwd_workspace_bytes.restype = i64
+        lib.fused_mlp_cc_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        lib.fused_mlp_cc_bwd.argtypes = [ptr] * 15 + [i64] + [i32] * 6 + [ptr]
         lib.fused_mlp_sm90_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.fused_mlp_sm90_bwd.argtypes = [ptr] * 15 + [i64] + [i32] * 5 + [ptr]
-        lib.fused_mlp_bwd_workspace_bytes.argtypes = [i32] * 3
-        lib.fused_mlp_bwd_workspace_bytes.restype = i64
-        for fn in (lib.fused_mlp_f32_fwd, lib.fused_mlp_f32_bwd, lib.fused_mlp_sm90_fwd,
+        for name in ("fused_mlp_bwd_workspace_bytes", "fused_mlp_cc_bwd_workspace_bytes"):
+            getattr(lib, name).argtypes = [i32] * 3
+            getattr(lib, name).restype = i64
+        for fn in (lib.fused_mlp_cc_fwd, lib.fused_mlp_cc_bwd, lib.fused_mlp_sm90_fwd,
                    lib.fused_mlp_sm90_bwd):
             fn.restype = i32
         lib._mlp_bound = True
@@ -236,8 +289,9 @@ def _check(x, scale, bias, w1, b1, w2, b2) -> None:
 
 
 def _kernel_args(x, scale, bias, w1, b1, w2, b2):
-    """Check what the CUDA kernel takes; the weights in nn.Linear's layout
-    (free for the transposed views a Linear's weight gives) and the device."""
+    """Check what the CUDA kernels take; the route, the weights in
+    nn.Linear's layout (free for the transposed views a Linear's weight
+    gives) and the device."""
     R, C = x.shape
     Hd = w1.shape[1]
     if x.dtype not in _DTYPES or w1.dtype != x.dtype or w2.dtype != x.dtype:
@@ -247,10 +301,10 @@ def _kernel_args(x, scale, bias, w1, b1, w2, b2):
     for name, t in dict(scale=scale, bias=bias, b1=b1, b2=b2).items():
         if t.dtype != torch.float32:
             raise TypeError(f"fused_ln_mlp: {name} must be float32, got {t.dtype}")
-    if C not in SUPPORTED_WIDTHS or Hd % 256:
-        raise ValueError(
-            f"fused_ln_mlp: C={C}, hidden={Hd} not taken by the kernel (C in "
-            f"{SUPPORTED_WIDTHS}, hidden a multiple of 256)")
+    route = mlp_route(C, Hd, x.dtype)
+    if route.startswith(MLP_NO_KERNEL):
+        raise ValueError(f"fused_ln_mlp: C={C}, hidden={Hd} not taken by the kernels (C <= "
+                         f"{MAX_C}, hidden <= {MAX_HIDDEN})")
     tensors = [x, scale, bias, w1, b1, w2, b2]
     if any(t.device != x.device for t in tensors):
         raise ValueError("fused_ln_mlp: all arguments must be on one device")
@@ -258,10 +312,10 @@ def _kernel_args(x, scale, bias, w1, b1, w2, b2):
         raise ValueError("fused_ln_mlp: x must be contiguous")
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     vecs = [t.contiguous() for t in (scale, bias, b1, b2)]
-    if any(t.data_ptr() % 32 for t in (x, w1t, w2t, *vecs)):
+    if route == MLP_SM90 and any(t.data_ptr() % 32 for t in (x, w1t, w2t, *vecs)):
         raise ValueError("fused_ln_mlp: x, the weights and the vectors must be 32-byte aligned")
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return w1t, w2t, vecs, device
+    return route, w1t, w2t, vecs, device
 
 
 def _forward(x, scale, bias, w1, b1, w2, b2, exact_gelu):
@@ -278,21 +332,21 @@ def _fwd_op(x, scale, bias, w1, b1, w2, b2, exact_gelu):
     """K5's forward launch as an op that torch.export records (x made
     contiguous at run time, as attention_tiled's op bodies do)."""
     x = x.contiguous()
-    w1t, w2t, (sc, bi, c1, c2), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
+    route, w1t, w2t, (sc, bi, c1, c2), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
     R, C = x.shape
     Hd = w1.shape[1]
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
             w2t.data_ptr(), c2.data_ptr())
-    if x.dtype == torch.bfloat16:  # y and h, the bf16 values the products read
+    if route == MLP_SM90:  # y and h, the bf16 values the products read
         y = torch.empty_like(x)
         h = torch.empty((R, Hd), dtype=x.dtype, device=x.device)
         err = _lib().fused_mlp_sm90_fwd(*args, y.data_ptr(), h.data_ptr(), out.data_ptr(), R, C,
                                         Hd, int(exact_gelu), device, stream)
     else:
-        err = _lib().fused_mlp_f32_fwd(*args, out.data_ptr(), R, C, Hd, int(exact_gelu), device,
-                                       stream)
+        err = _lib().fused_mlp_cc_fwd(*args, out.data_ptr(), R, C, Hd, int(exact_gelu),
+                                      _DTYPES[x.dtype], device, stream)
     if err:
         raise RuntimeError(f"fused_ln_mlp: kernel launch failed with cudaError {err} at x "
                            f"{tuple(x.shape)} {x.dtype}, hidden {Hd}")
@@ -315,16 +369,14 @@ def fused_ln_mlp_backward(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu: bool
                          f"{dout.device} does not match x {tuple(x.shape)} {x.dtype}")
     if kernels.use_plain(x, "fused_ln_mlp_backward"):
         return fused_ln_mlp_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu)
-    w1t, w2t, (sc, bi, c1, _), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
+    route, w1t, w2t, (sc, bi, c1, _), device = _kernel_args(x, scale, bias, w1, b1, w2, b2)
     dout = dout.contiguous()
     if dout.data_ptr() % 32:
         raise ValueError("fused_ln_mlp_backward: dout must be 32-byte aligned")
     R, C = x.shape
     Hd = w1.shape[1]
     lib = _lib()
-    bf16 = x.dtype == torch.bfloat16
-    nbytes = (mlp_workspace_bytes(R, C, Hd) if bf16
-              else lib.fused_mlp_f32_bwd_workspace_bytes(R, C, Hd))
+    nbytes = mlp_workspace_bytes(R, C, Hd, x.dtype)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -335,10 +387,11 @@ def fused_ln_mlp_backward(x, scale, bias, w1, b1, w2, b2, dout, exact_gelu: bool
     ptrs = [t.data_ptr() for t in (x, sc, bi, w1t, c1, w2t, dout, dx, dscale, dbias, dw1t, db1,
                                    dw2t, db2, work)]
     tail = (R, C, Hd, int(exact_gelu), device, torch.cuda.current_stream(x.device).cuda_stream)
-    if bf16:  # the library checks the scratch against its own count
+    # the library checks the scratch against its own count
+    if route == MLP_SM90:
         err = lib.fused_mlp_sm90_bwd(*ptrs, nbytes, *tail)
     else:
-        err = lib.fused_mlp_f32_bwd(*ptrs, *tail)
+        err = lib.fused_mlp_cc_bwd(*ptrs, nbytes, *tail[:4], _DTYPES[x.dtype], *tail[4:])
     if err:
         raise RuntimeError(f"fused_ln_mlp_backward: kernel launch failed with cudaError {err} "
                            f"at x {tuple(x.shape)} {x.dtype}, hidden {Hd}")

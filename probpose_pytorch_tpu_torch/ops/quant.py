@@ -14,10 +14,14 @@ inputs, and the int32 products are exact. The float32 dequantization keeps
 JAX's order: acc * x_scale * w_scale, then + bias, then the cast.
 
 `torch._int_mm` on a CUDA tensor takes (M, K) x (K, N) with M > 16 and K
-and N multiples of 8; `int8_matmul` raises ValueError for other shapes on
-the card rather than running another product. A (K, N) weight that is the
-transpose of a contiguous (N, K) tensor, as models/vit_int8.py stores it,
-is the operand layout cuBLASLt's integer GEMM takes without a copy.
+and N multiples of 8; JAX's `int8_matmul` (a plain `lax.dot_general`) takes
+any shape. So `int8_matmul` pads what falls short with zeros, M to 17 and K
+and N to multiples of 8 (`padded_int_mm`), and slices the product back:
+integer sums with zero terms are exact, so the result is the unpadded
+product bit for bit. Shapes that meet the rules pass through uncopied. A
+(K, N) weight that is the transpose of a contiguous (N, K) tensor, as
+models/vit_int8.py stores it, is the operand layout cuBLASLt's integer GEMM
+takes without a copy; a padded copy is made in that layout.
 """
 
 from __future__ import annotations
@@ -29,7 +33,13 @@ __all__ = [
     "int8_matmul",
     "dynamic_quantize_rows",
     "weight_only_matmul",
+    "padded_int_mm",
+    "int_mm_padding",
 ]
+
+# torch._int_mm's rules on the card: more than 16 rows, K and N multiples of 8.
+INT_MM_MIN_ROWS = 17
+INT_MM_MULTIPLE = 8
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -57,11 +67,30 @@ def dynamic_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _check_int_mm(M: int, K: int, N: int, device: torch.device) -> None:
-    if device.type == "cuda" and (M <= 16 or K % 8 or N % 8):
-        raise ValueError(
-            f"int8 product ({M}, {K}) x ({K}, {N}): torch._int_mm on the card needs more "
-            "than 16 rows and K and N multiples of 8")
+def int_mm_padding(M: int, K: int, N: int) -> tuple[int, int, int]:
+    """The (M, K, N) an int8 product of that shape is padded to before
+    torch._int_mm: M at least 17, K and N rounded up to multiples of 8."""
+    up = lambda n: -(-n // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
+    return max(M, INT_MM_MIN_ROWS), up(K), up(N)
+
+
+def padded_int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 (M, N) = a (M, K) int8 @ b (K, N) int8 by torch._int_mm, with
+    zeros padded to `int_mm_padding`'s shape where (M, K, N) falls short of
+    its rules and the product sliced back; equal bit for bit to the
+    unpadded product. The padded b is the transpose of a contiguous
+    (Np, Kp), the layout cuBLASLt's integer GEMM takes (it refuses two
+    untransposed operands)."""
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = int_mm_padding(M, K, N)
+    if (Mp, Kp, Np) == (M, K, N):
+        return torch._int_mm(a, b)
+    ap = a.new_zeros((Mp, Kp))
+    ap[:M, :K] = a
+    bp = b.new_zeros((Np, Kp)).t()
+    bp[:K, :N] = b
+    return torch._int_mm(ap, bp)[:M, :N]
 
 
 def int8_matmul(
@@ -76,8 +105,7 @@ def int8_matmul(
     x: (..., K); w_q: (K, N) int8; w_scale: (N,) float32."""
     *lead, K = x.shape
     xq, x_scale = dynamic_quantize_rows(x.reshape(-1, K))
-    _check_int_mm(xq.shape[0], K, w_q.shape[1], xq.device)
-    acc = torch._int_mm(xq, w_q)
+    acc = padded_int_mm(xq, w_q)
     y = acc.float() * x_scale * w_scale[None, :]
     if bias is not None:
         y = y + bias.float()[None, :]

@@ -34,10 +34,14 @@ from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
     fused_ln_mlp_bwd_kernel_order_reference,
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
+    mlp_route,
     mlp_workspace_bytes,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    cuda_core_smem_bytes,
+    cuda_core_warps,
     k1_smem_bytes,
+    max_shared_memory,
     short_attention_reference,
     short_forward,
     tiled_attention,
@@ -203,16 +207,16 @@ def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype,
 def test_packed_attention_kernel_refuses_unsupported(cuda_device):
     with pytest.raises(TypeError):
         packed_attention(torch.zeros(1, 8, 96, dtype=torch.float16, device=cuda_device), 2)
-    # K4 takes no head width of 48, so past K1's shared memory
-    # packed_attention has no kernel for it and says so
+    # K4 takes head widths up to 256, so past K1's shared memory
+    # packed_attention has no kernel for d = 272 and says so
     with pytest.raises(ValueError, match="head width"):
-        tiled_attention(torch.zeros(1, 4096, 3 * 96, device=cuda_device), 2)
+        tiled_attention(torch.zeros(1, 4096, 3 * 544, device=cuda_device), 2)
     for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.zeros(1, 1024, 3 * 96, device=cuda_device, dtype=dtype)
+        qkv = torch.zeros(1, 1024, 3 * 544, device=cuda_device, dtype=dtype)
         with pytest.raises(NotImplementedError, match="no kernel"):
             packed_attention(qkv, 2)
         with pytest.raises(NotImplementedError, match="no kernel"):
-            packed_attention_backward(qkv, qkv[..., :96].contiguous(), 2)
+            packed_attention_backward(qkv, qkv[..., :544].contiguous(), 2)
     # the short forward takes no N above 256
     with pytest.raises(ValueError, match="N <= 256"):
         short_forward(torch.zeros(1, 300, 3 * 128, device=cuda_device, dtype=torch.bfloat16), 2)
@@ -536,8 +540,9 @@ def test_fused_ln_mlp_kernel_refuses_unsupported(cuda_device):
     x, scale, bias, w1, b1, w2, b2 = mlp_args(g, 16, 384, torch.bfloat16, cuda_device)
     with pytest.raises(TypeError):
         fused_ln_mlp(x.half(), scale, bias, w1.half(), b1, w2.half(), b2)
-    x, scale, bias, w1, b1, w2, b2 = mlp_args(g, 16, 512, torch.bfloat16, cuda_device)
-    with pytest.raises(ValueError, match="C=512"):
+    # past the CUDA-core kernels' widest row (C = 2048)
+    x, scale, bias, w1, b1, w2, b2 = mlp_args(g, 16, 2056, torch.bfloat16, cuda_device, 256)
+    with pytest.raises(ValueError, match="C=2056"):
         fused_ln_mlp(x, scale, bias, w1, b1, w2, b2)
 
 
@@ -652,7 +657,7 @@ def test_head_major_attention_kernels(cuda_device, fn, B, N, heads, d, dtype):
     (3, 77, 2, 32, torch.bfloat16),
     (2, 130, 2, 128, torch.bfloat16),
     (2, 130, 2, 128, torch.float32),
-    (2, 130, 8, 80, torch.bfloat16),    # d 80 (vit-h), on the CUDA cores
+    (2, 130, 8, 80, torch.bfloat16),    # d 80 (vit-h), on wgmma
     (2, 130, 8, 80, torch.float32),
     (2, 129, 2, 32, torch.bfloat16),    # one key past a 128-key tile
     (2, 129, 2, 64, torch.bfloat16),
@@ -822,12 +827,14 @@ def test_short_forward_and_backward_kernels(cuda_device, B, N, heads, d):
 def test_vith_long_sequence_runs_k4_cuda_cores(cuda_device, dtype):
     """qkv (1, 672, 3840) with 16 heads (vit-h, d = 80, on 448 x 384 crops),
     past K1's shared memory: packed_attention's forward and autograd.grad
-    launch K4's CUDA-core kernels once each and meet the K1 bound against
-    the plain versions in the TPU kernels' order."""
+    launch K4's kernels once each (f32 on the CUDA cores, bf16 on the d = 80
+    wgmma kernels) and meet the K1 bound against the plain versions in the
+    TPU kernels' order."""
     g = torch.Generator(device=cuda_device).manual_seed(22)
     qkv = torch.randn(1, 672, 3840, generator=g, device=cuda_device).to(dtype)
     w = torch.randn(1, 672, 1280, generator=g, device=cuda_device).to(dtype)
-    assert kernel_path(672, 80, dtype) == kernel_path(672, 80, dtype, True) == "K4 CUDA cores"
+    route = "sm90 tiled" if dtype == torch.bfloat16 else "K4 CUDA cores"
+    assert kernel_path(672, 80, dtype) == kernel_path(672, 80, dtype, True) == route
     f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
     x = qkv.clone().requires_grad_(True)
     y = packed_attention(x, 16)
@@ -1457,8 +1464,10 @@ def test_int_mm_at_vit_shapes(cuda_device, backbone, B):
         stored = q.t().contiguous()
         got = torch._int_mm(xqd, stored.to(cuda_device).t())
         assert torch.equal(got.cpu(), torch._int_mm(xq, stored.t())), (K, N)
-    with pytest.raises(ValueError, match="more than 16 rows"):
-        quant.int8_matmul(torch.randn(16, C, device=cuda_device), qd, sd)
+    # 16 rows, below torch._int_mm's 17: padded, and equal to the CPU's
+    x = torch.randn(16, hidden, generator=g)
+    got = quant.int8_matmul(x.to(cuda_device), qd, sd, out_dtype=torch.float32)
+    assert torch.equal(got.cpu(), quant.int8_matmul(x, q, s, out_dtype=torch.float32))
 
 
 def _gap_stats(a, b, codec):
@@ -1540,3 +1549,188 @@ def test_head_options_on_card_match_cpu(cuda_device):
     assert got[0].shape == (6, 17, 16, 12)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_.cpu(), w_, rtol=1e-3, atol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# The shapes JAX takes that the port once refused: every head width up to
+# 256 on K4's CUDA cores, d = 80 on the wgmma kernels, K5 at every width,
+# batches past the grid, small int8 products.
+
+
+def k4_case(g, device, B, N, heads, d, dtype):
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=device).to(dtype)
+    dout = torch.randn(B, N, heads * d, generator=g, device=device).to(dtype)
+    return qkv, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 48, 96, 112, 160, 256])
+def test_k4_cuda_cores_at_every_head_width(cuda_device, d, dtype):
+    """Past K1's shared memory every d <= 256 routes to K4's CUDA cores,
+    forward and backward; both meet K1's bound against the TPU-order plain
+    versions, the backward gives the same bits twice, and the head-major
+    layout gives the qkv-major run's numbers at its columns."""
+    N = 2400 if dtype == torch.bfloat16 else 1500
+    assert kernel_path(N, d, dtype) == kernel_path(N, d, dtype, True) == "K4 CUDA cores"
+    g = torch.Generator(device=cuda_device).manual_seed(40 + d)
+    qkv, dout = k4_case(g, cuda_device, 1, N, 2, d, dtype)
+    f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
+    out = packed_attention(qkv, 2)
+    got = packed_attention_backward(qkv, dout, 2)
+    again = packed_attention_backward(qkv, dout, 2)
+    torch.cuda.synchronize()
+    assert (tiled_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 2)
+    ref = tiled_attention_reference(qkv, 2)
+    assert max_err(out, ref) <= bound(ref)
+    dref = tiled_attention_bwd_reference(qkv, dout, 2)
+    assert max_err(got, dref) <= bound(dref)
+    assert torch.equal(got, again)  # no atomics
+    hm = qkv.unflatten(-1, (3, 2, d)).transpose(2, 3).reshape(qkv.shape).contiguous()
+    assert torch.equal(tiled_attention(hm, 2, "head_major"), out)
+
+
+@pytest.mark.cuda
+def test_cuda_core_tiles_match_the_library(cuda_device):
+    """The route's count of K4's CUDA-core warps and shared memory is the
+    library's, at every width the card's limit makes it choose."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import _lib
+
+    limit = max_shared_memory(0)
+    for d in (1, 16, 48, 80, 128, 129, 160, 224, 225, 256, 257):
+        for bwd in (0, 1):
+            w = cuda_core_warps(d, bool(bwd), limit)
+            assert _lib().tiled_attention_warps(d, bwd, limit) == w, (d, bwd)
+            if w:
+                assert _lib().tiled_attention_smem_bytes(d, bwd, w) == \
+                    cuda_core_smem_bytes(d, w, bool(bwd)) <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv_major", "head_major"])
+def test_d80_wgmma_kernels(cuda_device, layout):
+    """vit-h's attention (16 heads, d = 80) on the wgmma kernels: the short
+    forward at N = 192 against the TPU-order plain version (context and
+    lse), the tiled forward at N = 2304 against the kernel-order one, the
+    backward from the saved (out, lse) against both orders; each the same
+    bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(50)
+    for B, N in ((64, 192), (2, 2304)):
+        qkv, dout = k4_case(g, cuda_device, B, N, 16, 80, torch.bfloat16)
+        assert kernel_path(N, 80, torch.bfloat16) == ("sm90 short" if N <= 256 else "sm90 tiled")
+        if N <= 256:
+            out, lse = short_forward(qkv, 16, True, layout)
+            ref, lse_ref = short_attention_reference(qkv, 16, layout)
+        else:
+            out, lse = tiled_forward(qkv, 16, True, layout)
+            ref, lse_ref = tiled_attention_online_reference(qkv, 16, layout=layout)
+            plain = tiled_attention_reference(qkv, 16, layout=layout)
+            assert max_err(out, plain) <= bound(plain)
+        again = (short_forward if N <= 256 else tiled_forward)(qkv, 16, True, layout)
+        torch.cuda.synchronize()
+        assert max_err(out, ref) <= bound(ref)
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(1.0, lse_ref.abs().max().item())
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        got = tiled_attention_backward(qkv, dout, 16, out, lse, layout=layout)
+        twice = tiled_attention_backward(qkv, dout, 16, out, lse, layout=layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, twice)
+        oref = tiled_attention_online_bwd_reference(qkv, dout, 16, out, lse, layout=layout)
+        assert max_err(got, oref) <= bound(oref)
+        dref = tiled_attention_bwd_reference(qkv, dout, 16, layout=layout)
+        assert max_err(got, dref) <= bound(dref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("C,hidden", [(64, 128), (200, 600), (576, 2304), (1536, 6144)])
+def test_fused_ln_mlp_cuda_cores_at_other_widths(cuda_device, C, hidden, dtype):
+    """K5 at widths the wgmma kernels do not take (vit-nano's 64 / 128, a C
+    and hidden width with ragged tails, 576, and 1536 past the 16-row
+    tile): forward and the seven cotangents against the plain versions (in
+    bf16 also within two ulps of the kernel-order twin), the same bits
+    twice."""
+    assert mlp_route(C, hidden, dtype) == "CUDA cores"
+    g = torch.Generator(device=cuda_device).manual_seed(60)
+    R = 2 * 192 + 9
+    args = mlp_args(g, R, C, dtype, cuda_device, hidden)
+    f0, b0 = fused_ln_mlp.launches, fused_ln_mlp_backward.launches
+    out = fused_ln_mlp(*args)
+    ref = fused_ln_mlp_reference(*args)
+    assert max_err(out, ref) <= bound(ref)
+    dout = torch.randn(R, C, generator=g, device=cuda_device).to(dtype)
+    grads = fused_ln_mlp_backward(*args, dout)
+    again = fused_ln_mlp_backward(*args, dout)
+    torch.cuda.synchronize()
+    assert (fused_ln_mlp.launches - f0, fused_ln_mlp_backward.launches - b0) == (1, 2)
+    for name, got, rerun, ref, twin in zip(
+            ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, again,
+            fused_ln_mlp_bwd_reference(*args, dout),
+            fused_ln_mlp_bwd_kernel_order_reference(*args, dout)):
+        assert torch.equal(got, rerun), name
+        assert max_err(got, ref) <= grad_bound(ref, dtype), name
+        if dtype == torch.bfloat16:
+            assert max_err(got, twin) <= 2 * 2**-8 * twin.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 97, 3 * 192 + 7, 12288])
+def test_cuda_core_mlp_workspace_bytes_match_the_library(cuda_device, R):
+    """The Python count of the CUDA-core backward's scratch is the
+    library's, at the 16-row and the 8-row tile."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import _lib
+
+    for C, Hd, dtype in ((64, 128, torch.bfloat16), (200, 600, torch.float32),
+                         (768, 3072, torch.float32), (1536, 6144, torch.bfloat16)):
+        assert _lib().fused_mlp_cc_bwd_workspace_bytes(R, C, Hd) == \
+            mlp_workspace_bytes(R, C, Hd, dtype)
+
+
+@pytest.mark.cuda
+def test_attention_batch_past_the_grid(cuda_device):
+    """A batch of 70,000 (past the grid's 65,535) through K1 (CUDA cores and
+    the short forward), K4 (CUDA cores and wgmma) and K6, forward and
+    backward, against the plain versions: each call launches over two
+    batch chunks."""
+    g = torch.Generator(device=cuda_device).manual_seed(70)
+    B, N, heads, d = 70000, 8, 2, 32
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, dout = k4_case(g, cuda_device, B, N, heads, d, dtype)
+        out = packed_attention(qkv, heads)
+        ref = packed_attention_reference(qkv, heads)
+        assert max_err(out, ref) <= bound(ref)
+        got = packed_attention_backward(qkv, dout, heads)
+        dref = packed_attention_bwd_reference(qkv, dout, heads)
+        assert max_err(got, dref) <= bound(dref)
+        tout = tiled_attention(qkv, heads)
+        tref = tiled_attention_reference(qkv, heads)
+        assert max_err(tout, tref) <= bound(tref)
+        tgot = tiled_attention_backward(qkv, dout, heads)
+        tdref = tiled_attention_bwd_reference(qkv, dout, heads)
+        assert max_err(tgot, tdref) <= bound(tdref)
+        q, k, v = qkv.unflatten(-1, (3, heads, d)).unbind(2)
+        fout = fused_attention(q, k, v)
+        fref = fused_attention_reference(q, k, v)
+        assert max_err(fout, fref) <= bound(fref)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_int_mm_small_products(cuda_device):
+    """int8 products below torch._int_mm's rules (M <= 16, K or N not a
+    multiple of 8) run padded on the card and equal the exact integer
+    product."""
+    from probpose_pytorch_tpu_torch.ops.quant import int8_matmul, padded_int_mm, quantize_weight
+
+    g = torch.Generator(device=cuda_device).manual_seed(80)
+    for M, K, N in ((5, 60, 64), (1, 12, 5), (16, 60, 100), (5, 64, 64)):
+        a = torch.randint(-127, 128, (M, K), generator=g, device=cuda_device, dtype=torch.int8)
+        b = torch.randint(-127, 128, (N, K), generator=g, device=cuda_device,
+                          dtype=torch.int8).t()
+        got = padded_int_mm(a, b)
+        assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int())
+    x = torch.randn(5, 60, generator=g, device=cuda_device)
+    q, s = quantize_weight(torch.randn(60, 64, generator=g, device=cuda_device))
+    y = int8_matmul(x, q, s, out_dtype=torch.float32)
+    want = int8_matmul(x.cpu(), q.cpu(), s.cpu(), out_dtype=torch.float32)
+    assert torch.equal(y.cpu(), want)

@@ -39,8 +39,10 @@ from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
     fused_ln_mlp_bwd_kernel_order_reference,
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
+    mlp_route,
     mlp_workspace_bytes,
 )
+from probpose_pytorch_tpu_torch.models import vit as port_vit
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
 from probpose_pytorch_tpu_torch.train.loop import Trainer
 from test_torch_models import TINY_CFG, _images, init_pair
@@ -67,13 +69,15 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def _args(seed, R, dtype):
+def _args(seed, R, dtype, width=C, hidden=HID):
     """(x, scale, bias, w1, b1, w2, b2) as numpy f32, with x and the weights
-    already rounded to `dtype` when it is bfloat16."""
+    already rounded to `dtype` when it is bfloat16; the weights at 0.3 at
+    the default (C, HID), at fan-in scale at another width."""
     rng = np.random.default_rng(seed)
-    args = [rng.normal(size=(R, C)), rng.normal(1, 0.1, C), rng.normal(0, 0.1, C),
-            rng.normal(0, 0.3, (C, HID)), rng.normal(0, 0.1, HID),
-            rng.normal(0, 0.3, (HID, C)), rng.normal(0, 0.1, C)]
+    s1, s2 = (0.3, 0.3) if (width, hidden) == (C, HID) else (width**-0.5, hidden**-0.5)
+    args = [rng.normal(size=(R, width)), rng.normal(1, 0.1, width), rng.normal(0, 0.1, width),
+            rng.normal(0, s1, (width, hidden)), rng.normal(0, 0.1, hidden),
+            rng.normal(0, s2, (hidden, width)), rng.normal(0, 0.1, width)]
     args = [a.astype(np.float32) for a in args]
     if dtype == "bfloat16":
         for i in (0, 3, 5):
@@ -240,9 +244,79 @@ def test_mlp_workspace_bytes_cover_every_buffer(C_, R):
 
 
 def test_mlp_workspace_bytes_refuses_other_shapes():
-    for R, C_, Hd in ((8, 512, 2048), (8, 768, 3000), (0, 768, 3072)):
+    """Past the CUDA-core kernels' limits (C = 2048, hidden 8,192) and at no
+    rows no kernel takes the shape; the widths the wgmma kernels do not take
+    below them are the CUDA cores' (test_cuda_core_workspace_bytes)."""
+    for R, C_, Hd in ((8, 2056, 256), (8, 768, 8200), (0, 768, 3072)):
         with pytest.raises(ValueError):
             mlp_workspace_bytes(R, C_, Hd)
+
+
+@pytest.mark.parametrize("C_,Hd,dtype,route", [
+    (768, 3072, torch.bfloat16, "sm90"),
+    (384, 1280, torch.bfloat16, "sm90"),
+    (768, 3072, torch.float32, "CUDA cores"),
+    (64, 128, torch.bfloat16, "CUDA cores"),    # vit-nano
+    (200, 600, torch.bfloat16, "CUDA cores"),
+    (768, 3000, torch.bfloat16, "CUDA cores"),  # hidden no multiple of 256
+    (512, 2048, torch.bfloat16, "CUDA cores"),
+    (2048, 8192, torch.float32, "CUDA cores"),
+    (2056, 256, torch.bfloat16, "no kernel (C=2056, hidden=256)"),
+    (768, 8200, torch.float32, "no kernel (C=768, hidden=8200)"),
+])
+def test_mlp_route(C_, Hd, dtype, route):
+    """K5's kernel is a pure function of the shape: the wgmma kernels at
+    the four preset widths in bf16, the CUDA cores at every other shape up
+    to C = 2048 and hidden 8,192 (and in f32), as JAX's fused_ln_mlp takes
+    any (R, C) and hidden width."""
+    assert mlp_route(C_, Hd, dtype) == route
+
+
+@pytest.mark.parametrize("R", [1, 15, 17, 1023, 1025])
+def test_cuda_core_workspace_bytes(R):
+    """The CUDA-core backward's scratch (csrc/fused_mlp.cu, `workspace`; the
+    card test holds it to the library's): y and g padded to the row tile
+    (16 rows, 8 past C = 1280), the tiles' (3, C) partials and the
+    1,024-row chunks' dW1, dW2 and db1 partials, each 256-byte aligned."""
+    al = lambda n: -(-n // 256) * 256
+    for C_, Hd, fr in ((64, 128, 16), (200, 600, 16), (1536, 6144, 8)):
+        rpad = -(-R // fr) * fr
+        chunks = -(-rpad // 1024)
+        want = (2 * al(rpad * C_ * 4) + al(3 * (rpad // fr) * C_ * 4)
+                + 2 * al(chunks * Hd * C_ * 4) + al(chunks * Hd * 4))
+        for dtype in (torch.bfloat16, torch.float32):
+            assert mlp_workspace_bytes(R, C_, Hd, dtype) == want, (C_, R)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,width,hidden", [(130, 64, 128), (77, 200, 600)])
+def test_other_widths_match_pallas(R, width, hidden, dtype):
+    """At widths only the CUDA-core kernels take (vit-nano's 64 / 128; 200 /
+    600, whose tails are ragged on every tile), JAX's fused_ln_mlp in
+    interpret mode against the port's plain forward and plain backward
+    (f32 1e-5 and 1e-4, bf16 one ulp, as above) and the kernel-order twin
+    (four bf16 ulps, the twin's bound above; equal to the plain backward in
+    f32)."""
+    assert mlp_route(width, hidden, getattr(torch, dtype)) == "CUDA cores"
+    args = _args(10, R, dtype, width, hidden)
+    jargs = _jax_args(args, dtype)
+    targs = _torch_args(args, dtype)
+    ref = jax_fused_ln_mlp(*jargs, False, JAX_TILE, True)
+    _close(fused_ln_mlp(*targs).float().numpy(), np.asarray(ref.astype(jnp.float32)), dtype,
+           1e-5)
+    g = np.random.default_rng(11).normal(size=(R, width)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jax_fused_ln_mlp(*a, False, JAX_TILE, True), *jargs)
+    refs = [np.asarray(r.astype(jnp.float32)) for r in vjp(jnp.asarray(g, jargs[0].dtype))]
+    tg = _t(g).to(targs[0].dtype)
+    plain = fused_ln_mlp_bwd_reference(*targs, tg, chunk=JAX_BWD_TILE)
+    twin = fused_ln_mlp_bwd_kernel_order_reference(*targs, tg)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    for name, p, t, r in zip(names, plain, twin, refs):
+        _close(p.float().numpy(), r, dtype, 1e-4)
+        err = np.abs(t.float().numpy() - r).max()
+        tol = 4 * 2**-8 * np.abs(r).max() if dtype == "bfloat16" else 1e-4 * max(
+            1.0, np.abs(r).max())
+        assert err <= tol, (name, err)
 
 
 def test_fused_ln_mlp_autograd_on_cpu_is_the_plain_backward():
@@ -414,3 +488,43 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, ent
 def test_lora_with_fused_mlp_is_refused_like_jax():
     with pytest.raises(ValueError, match="mlp_impl='fused'"):
         build_model(ModelConfig(**FUSED_CFG, lora_rank=4), device="cpu")
+
+
+# --------------------------------------------------------------------------
+# models at the widths the port once refused on the card
+
+
+def test_vit_nano_fused_mlp_matches_jax():
+    """vit-nano (C = 64, hidden 128) with mlp_impl="fused": on the card K5's
+    CUDA-core kernels take it; on the CPU the port's plain version against
+    JAX's model, whose CPU path is its dense block, the same function
+    (test_torch_models.py's bar)."""
+    cfg = dict(TINY_CFG, backbone="vit-nano", mlp_impl="fused")
+    assert mlp_route(64, 128, torch.bfloat16) == "CUDA cores"
+    jm, variables, pm = init_pair(cfg, seed=4)
+    assert pm.backbone.blocks[0].mlp_impl == "fused"
+    x = _images(8)
+    ref = jm.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = pm(torch.from_numpy(x))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+def test_d80_vit_through_from_jax_matches_jax(monkeypatch):
+    """A ViT with vit-h's head width d = 80 at a small width (embed_dim 160,
+    2 heads, depth 2), a preset added to both packages' tables inside the
+    test: JAX's weights loaded by compat/from_jax.py, the port's forward
+    (K1's plain version on the CPU; the d = 80 wgmma kernels on the card)
+    against JAX's within test_torch_models.py's bar."""
+    geo = dict(embed_dim=160, depth=2, num_heads=2, mlp_ratio=2.0)
+    monkeypatch.setitem(jax_vit.ViTConfig.PRESETS, "vit-d80-test", geo)
+    monkeypatch.setitem(port_vit.ViTConfig.PRESETS, "vit-d80-test", geo)
+    jm, variables, pm = init_pair(dict(TINY_CFG, backbone="vit-d80-test"), seed=5)
+    assert pm.backbone.blocks[0].attn.num_heads == 2
+    x = _images(9)
+    ref = jm.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = pm(torch.from_numpy(x))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)

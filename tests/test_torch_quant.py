@@ -118,15 +118,40 @@ def test_weight_only_matmul_matches_jax():
 
 def test_int8_matmul_shape_rules_on_the_card():
     """torch._int_mm's rules on a CUDA tensor (more than 16 rows, K and N
-    multiples of 8) raise before the product; the CPU takes any shape."""
-    cuda = torch.device("cuda")
-    for M, K, N in ((16, 64, 64), (192, 60, 64), (192, 64, 100)):
-        with pytest.raises(ValueError, match="torch._int_mm on the card"):
-            quant._check_int_mm(M, K, N, cuda)
-    quant._check_int_mm(17, 64, 64, cuda)
+    multiples of 8) are met by zero padding, as JAX's int8_matmul (a plain
+    dot_general) takes any shape: the padded shape, and shapes that meet
+    the rules pass unpadded."""
+    assert quant.int_mm_padding(16, 64, 64) == (17, 64, 64)
+    assert quant.int_mm_padding(192, 60, 64) == (192, 64, 64)
+    assert quant.int_mm_padding(192, 64, 100) == (192, 64, 104)
+    assert quant.int_mm_padding(1, 12, 5) == (17, 16, 8)
+    assert quant.int_mm_padding(17, 64, 64) == (17, 64, 64)
     x = torch.randn(3, 12)
     q, s = quant.quantize_weight(torch.randn(12, 5))
     assert quant.int8_matmul(x, q, s).shape == (3, 5)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 12, 5), (16, 60, 100), (5, 64, 64)])
+@pytest.mark.parametrize("layout", ["transposed", "row_major"])
+def test_padded_int_mm_is_the_plain_product_bit_for_bit(M, K, N, layout):
+    """The padded product equals the plain int32 product bit for bit (sums
+    with zero terms are exact), for a weight stored (N, K) and passed
+    transposed (QuantizedViT's layout) and for a row-major one; and
+    int8_matmul on it equals JAX's at the same shape."""
+    rng = np.random.default_rng(M * 1000 + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    b = w.t().contiguous().t() if layout == "transposed" else w
+    got = quant.padded_int_mm(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, a.int() @ w.int())
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    wf = _weights(M + K, (K, N))
+    jq, js = jax_quant.quantize_weight(jnp.asarray(wf))
+    ref = jax_quant.int8_matmul(jnp.asarray(x), jq, js, out_dtype=jnp.float32)
+    q, s = quant.quantize_weight(torch.from_numpy(wf))
+    out = quant.int8_matmul(torch.from_numpy(x), q, s, out_dtype=torch.float32)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 @pytest.fixture(scope="module")

@@ -2,15 +2,16 @@
 against the JAX package, on the CPU.
 
 `attention_route` is a pure function of (N, d, dtype, the card's shared
-memory): the trunks' bf16 shapes go to the wgmma kernels of
-csrc/tiled_attention_sm90.cu, float32 stays on K1's CUDA cores, and past
-K1's shared memory float32 and the vit-h preset's bf16 (d = 80, N >= 646)
-go to K4's CUDA-core kernels, as JAX's `packed_attention` hands them to its
+memory): the trunks' bf16 shapes (d in {32, 64, 80, 128}, the vit-h
+preset's d = 80 among them) go to the wgmma kernels of
+csrc/tiled_attention_sm90.cu, float32 and other widths stay on K1's CUDA
+cores, and past K1's shared memory every other d <= 256 goes to K4's
+CUDA-core kernels, as JAX's `packed_attention` hands such shapes to its
 row-tiled kernel. The plain versions of the wgmma design (the short forward
 in the TPU kernel's order, the tiled forward's online order, and the
-backward from the saved (out, lse)) are held against JAX's
-`packed_attention` in interpret mode; inputs come from numpy generators,
-tolerances stand beside each check.
+backward from the saved (out, lse)) and of K4's CUDA-core kernels (the TPU
+order) are held against JAX's `packed_attention` in interpret mode; inputs
+come from numpy generators, tolerances stand beside each check.
 """
 
 import jax
@@ -25,14 +26,21 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     packed_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+    MAX_GRID_Z,
+    MAX_HEAD_DIM,
     SHORT_MAX_N,
     attention_route,
+    batch_chunks,
+    cuda_core_smem_bytes,
+    cuda_core_warps,
     k1_smem_bytes,
     short_attention_reference,
     short_forward,
     tiled_attention,
+    tiled_attention_bwd_reference,
     tiled_attention_online_bwd_reference,
     tiled_attention_online_reference,
+    tiled_attention_reference,
 )
 
 torch.set_num_threads(2)  # the suite runs in several workers beside timing tests
@@ -62,18 +70,70 @@ def k1_bound(ref: np.ndarray) -> float:
     ("fieldsynth_f32", 576, 32, F32, "K1 CUDA cores", "K1 CUDA cores"),
     ("768sq_f32", 2304, 64, F32, "K4 CUDA cores", "K4 CUDA cores"),
     ("d48", 96, 48, BF16, "K1 CUDA cores", "K1 CUDA cores"),
-    ("vith_645", 645, 80, BF16, "K1 CUDA cores", "K1 CUDA cores"),
-    ("vith_646", 646, 80, BF16, "K4 CUDA cores", "K4 CUDA cores"),
-    ("vith_672", 672, 80, BF16, "K4 CUDA cores", "K4 CUDA cores"),
+    # vit-h (d = 80) in bf16: the wgmma kernels at every N
+    ("vith_645", 645, 80, BF16, "sm90 tiled", "sm90 tiled"),
+    ("vith_646", 646, 80, BF16, "sm90 tiled", "sm90 tiled"),
+    ("vith_672", 672, 80, BF16, "sm90 tiled", "sm90 tiled"),
+    ("vith_192", 192, 80, BF16, "sm90 short", "sm90 tiled"),
     ("vith_f32_340", 340, 80, F32, "K1 CUDA cores", "K1 CUDA cores"),
     ("vith_f32_341", 341, 80, F32, "K4 CUDA cores", "K4 CUDA cores"),
-    # a width no preset has, past K1's shared memory: no kernel takes it
-    ("d48_1024", 1024, 48, BF16, "no kernel (d=48, N=1024)", "no kernel (d=48, N=1024)"),
-    ("d48_f32_1024", 1024, 48, F32, "no kernel (d=48, N=1024)", "no kernel (d=48, N=1024)"),
+    # a width no preset has, past K1's shared memory: K4's CUDA cores
+    ("d48_1024", 1024, 48, BF16, "K4 CUDA cores", "K4 CUDA cores"),
+    ("d48_f32_1024", 1024, 48, F32, "K4 CUDA cores", "K4 CUDA cores"),
+    # past K4's widest head (256) and K1's shared memory: no kernel
+    ("d272_1024", 1024, 272, BF16, "no kernel (d=272, N=1024)", "no kernel (d=272, N=1024)"),
 ])
 def test_route_of_shipped_shapes(name, N, d, dtype, fwd, bwd):
     assert attention_route(N, d, dtype, H100_SMEM) == fwd
     assert attention_route(N, d, dtype, H100_SMEM, backward=True) == bwd
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [192, 1024, 2304, 4096])
+def test_every_head_width_up_to_256_has_a_kernel(N, dtype):
+    """No head width d <= 256 routes to "no kernel" on an H100, forward or
+    backward, as JAX's packed_attention takes every d; K4's CUDA-core tile
+    shrinks (64 -> 32 -> 16 query rows) where d's f32 tiles need it. The
+    vit-h rows (bf16, d = 80) take the wgmma kernels."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        for backward in (False, True):
+            route = attention_route(N, d, dtype, H100_SMEM, backward)
+            assert not route.startswith("no kernel"), (d, backward, route)
+            if route == "K4 CUDA cores":
+                w = cuda_core_warps(d, backward, H100_SMEM)
+                assert cuda_core_smem_bytes(d, w, backward) <= H100_SMEM
+    if dtype == BF16:
+        assert attention_route(N, 80, BF16, H100_SMEM) == ("sm90 short" if N <= 256
+                                                            else "sm90 tiled")
+        assert attention_route(N, 80, BF16, H100_SMEM, True) == "sm90 tiled"
+
+
+def test_cuda_core_tile_at_the_widest_heads():
+    """K4's CUDA-core bytes (csrc/tiled_attention.cu: Geo; the card test
+    holds them to the library's): 249,600 for the backward at d = 160 with
+    four warps and 397,056 at d = 256, past an H100's 232,448, so those
+    take two and one; the forward takes four warps up to d = 225."""
+    assert cuda_core_smem_bytes(160, 4, True) == 249600
+    assert cuda_core_smem_bytes(256, 4, True) == 397056
+    assert cuda_core_smem_bytes(256, 4, False) == 263936
+    assert [cuda_core_warps(d, True, H100_SMEM) for d in (128, 160, 256)] == [4, 2, 1]
+    assert [cuda_core_warps(d, False, H100_SMEM) for d in (225, 226, 256)] == [4, 2, 2]
+    assert cuda_core_warps(257, False, H100_SMEM) == 0
+
+
+@pytest.mark.parametrize("B,want", [
+    (1, [(0, 1)]),
+    (MAX_GRID_Z, [(0, MAX_GRID_Z)]),
+    (MAX_GRID_Z + 1, [(0, MAX_GRID_Z), (MAX_GRID_Z, 1)]),
+    (70000, [(0, 65535), (65535, 4465)]),
+    (3 * MAX_GRID_Z, [(0, MAX_GRID_Z), (MAX_GRID_Z, MAX_GRID_Z), (2 * MAX_GRID_Z, MAX_GRID_Z)]),
+])
+def test_batch_chunks_cover_the_batch(B, want):
+    """The launches of a batch past the grid's 65,535: whole chunks of the
+    limit, then the rest, in order, covering every item once."""
+    assert batch_chunks(B) == want
+    assert sum(n for _, n in want) == B and all(n <= MAX_GRID_Z for _, n in want)
+    assert batch_chunks(7, limit=3) == [(0, 3), (3, 3), (6, 1)]
 
 
 def test_k1_bytes_at_d80():
@@ -166,28 +226,87 @@ def _d80_case(qkv, dout, heads, jq, jo, fn):
 
 def test_vith_at_672_matches_jax():
     """The vit-h preset (16 heads, d = 80) on 448 x 384 crops, N = 672, in
-    bf16: past K1's shared memory on an H100, so it routes to K4's CUDA-core
-    kernels, as JAX's packed_attention runs its row-tiled kernel there;
-    packed_attention and the K4 wrapper (each its plain version on the CPU)
-    meet K1's bound against JAX's packed_attention."""
-    assert attention_route(672, 80, BF16, H100_SMEM) == "K4 CUDA cores"
+    bf16: K4's d = 80 wgmma kernels, as JAX's packed_attention runs its
+    row-tiled kernel there; packed_attention and the K4 wrapper (each its
+    plain version on the CPU) meet K1's bound against JAX's
+    packed_attention."""
+    assert attention_route(672, 80, BF16, H100_SMEM) == "sm90 tiled"
     qkv, dout, jq, jo = _inputs((1, 672, 3 * 16 * 80), 23)
     _d80_case(qkv, dout, 16, jq, jo, packed_attention)
     _d80_case(qkv, dout, 16, jq, jo, tiled_attention)
 
 
 def test_d80_k4_route_at_small_n():
-    """K4's d = 80 route at N = 40 with eight heads (JAX's tiled kernel
-    groups d = 80 heads by eight), on a card whose shared memory K1
-    exceeds there: the K4 wrapper's plain version against JAX."""
-    assert attention_route(40, 80, BF16, k1_smem_bytes(40, 80, BF16) - 1) == "K4 CUDA cores"
+    """K4 at d = 80 and N = 40 with eight heads (JAX's tiled kernel groups
+    d = 80 heads by eight), on a card whose shared memory K1 exceeds there:
+    bf16 routes to the short wgmma forward and K4's wgmma backward whatever
+    the card's K1 bytes (f32 takes K1 there, whose tiles are smaller than
+    K4's CUDA-core ones); the K4 wrapper's plain version against JAX."""
+    assert attention_route(40, 80, F32, H100_SMEM) == "K1 CUDA cores"
+    limit = k1_smem_bytes(40, 80, BF16) - 1
+    assert attention_route(40, 80, BF16, limit) == "sm90 short"
+    assert attention_route(40, 80, BF16, limit, backward=True) == "sm90 tiled"
     qkv, dout, jq, jo = _inputs((2, 40, 3 * 8 * 80), 24)
     _d80_case(qkv, dout, 8, jq, jo, tiled_attention)
 
 
 def test_no_kernel_shape_is_plain_on_the_cpu():
-    """A width no kernel takes past K1's shared memory (d = 48, N = 1024)
+    """A width no kernel takes past K1's shared memory (d = 272, N = 1024)
     raises on the card (tests/test_torch_cuda.py); on the CPU the wrapper
     is the plain version, as on every route."""
-    qkv, _, _, _ = _inputs((1, 1024, 3 * 2 * 48), 25)
+    assert attention_route(1024, 272, BF16, H100_SMEM).startswith("no kernel")
+    qkv, _, _, _ = _inputs((1, 1024, 3 * 2 * 272), 25)
     assert torch.equal(packed_attention(qkv, 2), packed_attention_reference(qkv, 2))
+
+
+# --------------------------------------------------------------------------
+# fault 9: every head width, and d = 80 on the wgmma design, against JAX
+
+
+def _jax_case(qkv, dout, heads, jq, jo):
+    """JAX's packed_attention and its vjp on (jq, jo), as f32 numpy."""
+    ref = np.asarray(jax_packed_attention(jq, heads, interpret=True).astype(jnp.float32))
+    _, vjp = jax.vjp(lambda y: jax_packed_attention(y, heads, interpret=True), jq)
+    return ref, np.asarray(vjp(jo)[0].astype(jnp.float32))
+
+
+def _f32_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=shape).astype(np.float32)
+    dout = rng.normal(size=(*shape[:2], shape[2] // 3)).astype(np.float32)
+    return torch.from_numpy(qkv), torch.from_numpy(dout), jnp.asarray(qkv), jnp.asarray(dout)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 48, 96, 160])
+def test_k4_cuda_core_order_matches_jax(d, dtype):
+    """K4's CUDA-core kernels follow the TPU kernels' order
+    (`tiled_attention_reference` and `_bwd_reference`, their plain twins):
+    at widths only they take past K1's shared memory, forward and backward
+    against jax.vjp of packed_attention within K1's bound (bf16) or 1e-5
+    of max(1, |ref|) (f32)."""
+    shape, heads = (1, 40, 3 * 2 * d), 2
+    qkv, dout, jq, jo = (_inputs if dtype == "bf16" else _f32_inputs)(shape, 30 + d)
+    ref, gref = _jax_case(qkv, dout, heads, jq, jo)
+    out = tiled_attention_reference(qkv, heads)
+    got = tiled_attention_bwd_reference(qkv, dout, heads)
+    for o, r in ((out, ref), (got, gref)):
+        tol = k1_bound(r) if dtype == "bf16" else 1e-5 * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B,N,heads", [(1, 192, 16), (1, 300, 8)], ids=["n192", "n300"])
+def test_d80_wgmma_design_matches_jax(B, N, heads, dtype):
+    """vit-h's width on the wgmma design: the short forward's plain version
+    (N <= 256) or the tiled forward's online order (N = 300), and the
+    backward from the saved (out, lse), against JAX's packed_attention and
+    its vjp: K1's bound in bf16, 1e-5 of max(1, |ref|) in f32."""
+    shape = (B, N, 3 * heads * 80)
+    qkv, dout, jq, jo = (_inputs if dtype == "bf16" else _f32_inputs)(shape, 40 + N)
+    ref, gref = _jax_case(qkv, dout, heads, jq, jo)
+    out, lse = _design_forward(qkv, heads)
+    got = tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse)
+    for o, r in ((out, ref), (got, gref)):
+        tol = k1_bound(r) if dtype == "bf16" else 1e-5 * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(o.float().numpy(), r, rtol=0, atol=tol)
