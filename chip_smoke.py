@@ -339,9 +339,12 @@ with weights drawn from a seeded generator:
   phase 19 the shapes the JAX package's kernels take that the port once
            refused (faults 9-12), then vit-h's d = 80 attention on the
            wgmma kernels: K4's CUDA-core kernels at d in {16, 48, 96, 112,
-           160, 256} in bf16 and f32 past K1's shared memory, forward and
-           backward against the plain versions (the backward twice bit
-           for bit), one head-major case, and timed at d = 48; K5's
+           160, 256} in f32 and {20, 44, 100, 108, 156, 252} in bf16 (no
+           multiples of 8: the widths bf16 keeps on the CUDA cores) past
+           K1's shared memory, forward and backward against the plain
+           versions (the backward twice bit for bit), one head-major case;
+           packed_attention timed at bf16 d = 48 (the wgmma route since
+           phase 20's redesign); K5's
            CUDA-core kernels at (C, hidden) in {(64, 128), (200, 600),
            (576, 2304), (1536, 6144)} in both dtypes, forward and the
            seven cotangents (bf16 also against the kernel-order twin); a
@@ -352,14 +355,39 @@ with weights drawn from a seeded generator:
            against the plain versions, SDPA and the CUDA-core kernels they
            replace; vit-nano with mlp_impl="fused" served (2 K5 a forward)
            and stepped 3 times (2 K5 each way a step); vit-h (1280 wide,
-           depth 32, bf16, attn_impl="fused") served at 256 x 192 (32 short
-           forwards, 1 K2 a forward, no CUDA-core attention), trained by
-           Trainer.fit with remat for 5 steps at B = 32 (64 short forwards,
-           32 backwards from the saved out and lse a step; losses finite
-           and falling; the final save skipped: vit-h's ~10 GB state would
-           take the card machine past its disk budget), its f32 step at
+           16 heads of 80, bf16, attn_impl="fused", depth cut from 32 to 8
+           for time: phase 20 runs ViT-g at full depth) served at 256 x 192
+           (8 short forwards, 1 K2 a forward, no CUDA-core attention),
+           trained by Trainer.fit with remat for 5 steps at B = 32 (16 short
+           forwards, 8 backwards from the saved out and lse a step; losses
+           finite and falling; the final save skipped), its f32 step at
            depth 2 held to the plain step (phase 5's gates), and served at
-           768 x 768 at depth 8 (a K4 wgmma forward a block)
+           768 x 768 at depth 4 (a K4 wgmma forward a block)
+  phase 20 fault 13 closed and bf16 attention at every head width that is a
+           multiple of 8 on the wgmma kernels: phase 0 holds every padded
+           width's kernels (16 to 256) to no spills; bf16 at d in {16, 24,
+           48, 72, 88, 96, 104, 112, 160, 192, 256}, both qkv layouts, at
+           (8, 192) (the short forward) and (1, 2304) (the tiled one): the
+           route, each forward against the TPU-order plain version (and
+           the kernel order) with its lse, the backward from the saved out
+           and lse against both orders, forward and backward twice bit for
+           bit; K6 at d = 88 against its plain version and K1's bits; K4's
+           CUDA cores at d in {272, 320, 512, 1024}, N in {192, 1024}, f32
+           and bf16, against the plain versions (fault 13: once no kernel),
+           timed at d = 512; the wgmma kernels timed at d = 48 (8, 1024,
+           1152) and ViT-g's d = 88 at (64, 192, 4224) and (8, 2304, 4224)
+           against the CUDA-core kernels they replace, SDPA and the plain
+           versions (and d = 48 at (64, 192, 1152), K1's CUDA cores
+           before); ViT-g/14 (1408 wide, depth 40, 16 heads of 88, MLP
+           6,144, bf16, attn_impl="fused", remat) under the ProbMap head,
+           composed as JAX's build_model composes a trunk (no preset in
+           either package): served at 256 x 192 up to B = 64 (40 short
+           forwards and 1 K2 a forward, no CUDA-core attention), trained by
+           Trainer.fit for 3 steps at B = 32 (80 short forwards, 40
+           backwards from the saved out and lse a step; its ~16 GB state
+           kept in memory), ms a step and peak memory, its f32 step at
+           depth 2 held to the plain step, and served at 768 x 768 at
+           depth 4 (a tiled wgmma forward a block at d = 88)
 
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
@@ -5997,19 +6025,25 @@ def phase18(torch, dev, card: str, refs17: dict | None = None,
 # --------------------------------------------------------------- phase 19
 
 P19_WIDTHS = (16, 48, 96, 112, 160, 256)
-# Tokens past K1's shared memory at every width of P19_WIDTHS (bf16 d = 16
-# fits K1 up to N = 2,319, f32 d = 16 up to 1,414).
+# bf16 takes the wgmma kernels at every multiple of 8 from 16 to 256; its
+# CUDA-core widths here are none.
+P19_BF16_WIDTHS = (20, 44, 100, 108, 156, 252)
+# Tokens past K1's shared memory at every width of P19_WIDTHS and
+# P19_BF16_WIDTHS (bf16 d = 16 fits K1 up to N = 2,319, f32 d = 16 up to
+# 1,414).
 P19_N = {"bfloat16": 2400, "float32": 1500}
 P19_MLP = ((64, 128), (200, 600), (576, 2304), (1536, 6144))
 P19_MLP_ROWS = 2 * 192 + 9
 P19_BATCH = 70000  # past the grid's 65,535
 P19_STEPS = 3
-VITH_DEPTH = 32
+# vit-h's 32 blocks cut to 8 (a run-time preset, as depth 2 and the 768 x
+# 768 depth are) for the smoke's time; phase 20 runs ViT-g at full depth.
+VITH_DEPTH = 8
 VITH_TRAIN_BATCH = 32
 VITH_TRAIN_STEPS = 5
 VITH_F32_DEPTH = 2
 VITH_F32_BATCH = 8
-VITH_768_DEPTH = 8  # the 768 x 768 model's blocks: its build draws every weight on the host
+VITH_768_DEPTH = 4  # the 768 x 768 model's blocks: its build draws every weight on the host
 VITH_768_BATCH = 4
 VITH_HEADS, VITH_D = 16, 80
 # The d = 80 wgmma shapes: vit-h served at 256 x 192 (N = 192) and at 768 x
@@ -6057,12 +6091,14 @@ def cuda_core_attention(torch, qkv, heads: int, kind: str, dout=None):
 
 
 def phase19_widths(torch, card: str, g) -> dict:
-    """Fault 9: every P19_WIDTHS head width in both dtypes past K1's shared
-    memory on K4's CUDA-core kernels, forward and backward against the
-    plain versions (K1's bound), the backward twice bit for bit, one
-    head-major case; then K4's CUDA cores timed at d = 48, N = 1024 (bf16,
-    the width a ViT with 48-wide heads gives), against the plain version
-    and SDPA."""
+    """Fault 9: every P19_WIDTHS head width in f32 and every
+    P19_BF16_WIDTHS one in bf16 (widths that are no multiple of 8) past
+    K1's shared memory on K4's CUDA-core kernels, forward and backward
+    against the plain versions (K1's bound), the backward twice bit for
+    bit, one head-major case; then packed_attention timed at d = 48, N =
+    1024 (bf16, the width a ViT with 48-wide heads gives; on the wgmma
+    kernels since phase 20's redesign, its backward recomputing the
+    forward), against the plain version and SDPA."""
     from probpose_pytorch_tpu_torch.ops.kernels.attention import (
         kernel_path,
         packed_attention,
@@ -6079,7 +6115,7 @@ def phase19_widths(torch, card: str, g) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         N = P19_N[name]
-        for d in P19_WIDTHS:
+        for d in P19_BF16_WIDTHS if dtype == torch.bfloat16 else P19_WIDTHS:
             route = (kernel_path(N, d, dtype), kernel_path(N, d, dtype, backward=True))
             check(route == ("K4 CUDA cores",) * 2, f"d = {d} {name} routes to {route}")
             qkv = torch.randn(1, N, 6 * d, generator=g, device=dev).to(dtype)
@@ -6092,9 +6128,9 @@ def phase19_widths(torch, card: str, g) -> dict:
                   f"{label} backward differs between two runs")
             bwd_err = max(bwd_err, gate(torch, f"{label} backward", got,
                                         tiled_attention_bwd_reference(qkv, dout, 2), phase=19))
-    # head-major (attn_impl="fused_tp"), d = 96 in bf16
-    qkv = torch.randn(1, P19_N["bfloat16"], 6 * 96, generator=g, device=dev).to(torch.bfloat16)
-    gate(torch, "K4 CUDA cores d = 96 head-major forward", tiled_attention(qkv, 2, "head_major"),
+    # head-major (attn_impl="fused_tp"), d = 100 in bf16
+    qkv = torch.randn(1, P19_N["bfloat16"], 6 * 100, generator=g, device=dev).to(torch.bfloat16)
+    gate(torch, "K4 CUDA cores d = 100 head-major forward", tiled_attention(qkv, 2, "head_major"),
          tiled_attention_reference(qkv, 2, layout="head_major"), phase=19)
     # timed, not gated
     B, N, heads, d = 8, 1024, 8, 48
@@ -6108,7 +6144,8 @@ def phase19_widths(torch, card: str, g) -> dict:
     b_lib = cuda_ms(torch, sdpa_bwd_fn(torch, qkv, dout, heads), iters=10)
     f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * heads * d)
     b_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * heads * d)
-    say(f"phase 19 [{card}]: K4 CUDA cores qkv {tuple(qkv.shape)} bf16, d = {d}: forward "
+    say(f"phase 19 [{card}]: {kernel_path(N, d, torch.bfloat16)} qkv {tuple(qkv.shape)} bf16, "
+        f"d = {d}: forward "
         f"{f_ms:.4f} ms (plain {f_plain:.4f}, SDPA {f_lib:.4f}, bound {f_bound[0]:.4f}), "
         f"backward {b_ms:.4f} ms (plain {b_plain:.4f}, SDPA {b_lib:.4f}, bound "
         f"{b_bound[0]:.4f})")
@@ -6412,23 +6449,25 @@ def phase19_grid_and_int8(torch, g) -> None:
 
 
 def phase19_vith(torch, dev, card: str) -> dict:
-    """vit-h (1280 wide, depth 32, 16 heads of 80, bf16, attn_impl="fused")
-    through the entry points: served by a TopDownPredictor at 256 x 192 (32
-    short forwards and 1 K2 a forward, no CUDA-core attention); trained by
-    Trainer.fit with remat (64 short forwards, 32 backwards from the saved
-    out and lse, 1 K2 a step), losses finite and falling; an f32 step at
-    vit-h width and depth 2 through the kernels against the plain
-    versions (phase 5's gates); served at 768 x 768 at vit-h width and
-    depth VITH_768_DEPTH (a K4 wgmma forward a block). The predictor
-    serves the trainer's model before it trains, so the 632M weights are
-    drawn once."""
+    """vit-h (1280 wide, 16 heads of 80, bf16, attn_impl="fused") at depth
+    VITH_DEPTH through the entry points: served by a TopDownPredictor at
+    256 x 192 (a short forward a block and 1 K2 a forward, no CUDA-core
+    attention); trained by Trainer.fit with remat (two short forwards and a
+    backward from the saved out and lse a block, 1 K2 a step), losses
+    finite and falling; an f32 step at vit-h width and depth 2 through the
+    kernels against the plain versions (phase 5's gates); served at 768 x
+    768 at vit-h width and depth VITH_768_DEPTH (a K4 wgmma forward a
+    block). The predictor serves the trainer's model before it trains, so
+    the weights are drawn once."""
     from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import build_model
     from probpose_pytorch_tpu_torch.models.vit import ViTConfig
 
     t_phase = time.perf_counter()
-    cfg = vith_config("bfloat16", VITH_TRAIN_BATCH)
+    ViTConfig.PRESETS[f"vit-h-depth{VITH_DEPTH}"] = dict(ViTConfig.PRESETS["vit-h"],
+                                                         depth=VITH_DEPTH)
+    cfg = vith_config("bfloat16", VITH_TRAIN_BATCH, backbone=f"vit-h-depth{VITH_DEPTH}")
     trainer = make_trainer(torch, cfg, dev)
     model = trainer.model
     depth = len(model.backbone.blocks)
@@ -6457,9 +6496,9 @@ def phase19_vith(torch, dev, card: str) -> dict:
     batch = next(iter(batch_iterator(ds, B, num_workers=8)))
     check(trainer.model.backbone.remat, "the vit-h config does not train with remat")
     # Trainer.fit ends by saving the state; vit-h's (params, EMA and Adam's
-    # two moments in f32, ~10 GB) would take the card machine past its disk
-    # budget for one run, so this fit keeps it in memory: the steps, the
-    # schedule, the logging and the history are fit's own.
+    # two moments in f32, ~10 GB at full depth) took the card machine past
+    # its disk budget for one run, so this fit keeps it in memory: the
+    # steps, the schedule, the logging and the history are fit's own.
     trainer._save = lambda ckpt, what, metadata=None: False
     steps = VITH_TRAIN_STEPS
     reset_counts()
@@ -6493,8 +6532,9 @@ def phase19_vith(torch, dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    ViTConfig.PRESETS["vit-h-depth8"] = dict(ViTConfig.PRESETS["vit-h"], depth=VITH_768_DEPTH)
-    cfg768 = vith_config("bfloat16", VITH_768_BATCH, backbone="vit-h-depth8",
+    ViTConfig.PRESETS[f"vit-h-depth{VITH_768_DEPTH}"] = dict(ViTConfig.PRESETS["vit-h"],
+                                                             depth=VITH_768_DEPTH)
+    cfg768 = vith_config("bfloat16", VITH_768_BATCH, backbone=f"vit-h-depth{VITH_768_DEPTH}",
                          img_size=IMG_768).model
     model = build_model(cfg768, device=dev, seed=0)
     depth = len(model.backbone.blocks)
@@ -6533,10 +6573,11 @@ def phase19(torch, dev, card: str) -> dict:
     return dict(widths=widths, mlp=mlp, d80=d80, nano=nano, vith=vith)
 
 
-def phase19_kernels(p19: dict) -> list:
+def phase19_kernels(p19: dict, p20: dict) -> list:
     """The kernels line's entries of phase 19: the d = 80 wgmma kernels
-    (launches on the vit-h path), K4's CUDA cores at any d and K5's at other
-    widths (vit-nano's step)."""
+    (launches on the vit-h path), K4's CUDA cores at any d (timed by phase
+    20 at d = 48, where they ran bf16 before its redesign) and K5's at
+    other widths (vit-nano's step)."""
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     entries = []
     vith, d80 = p19["vith"], p19["d80"]
@@ -6560,16 +6601,18 @@ def phase19_kernels(p19: dict) -> list:
                                     n["err"], n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
                                     design="wgmma+TMA, 32-byte swizzle", qkv=d80[key]["qkv"],
                                     cuda_core_ms=n["cuda_core_ms"], replaced_route=cc))
-    w = p19["widths"]
+    w, d48 = p19["widths"], p20["times"]["d = 48 (8, 1024, 1152)"]
     for label, key, replaces in (("K4 tiled_attention forward, CUDA cores, any d", "fwd",
                                   "attention_tiled.py:119"),
                                  ("K4 tiled_attention backward, CUDA cores, any d", "bwd",
                                   "attention_tiled.py:147")):
-        n = w[key]
+        n = d48[key]
         entries.append(kernel_entry(label, "cuda", "csrc/tiled_attention.cu", replaces, 0,
-                                    n["err"], n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
-                                    design="CUDA cores, run-time d <= 256", qkv=n["qkv"],
-                                    widths=list(P19_WIDTHS), entry_point_only=True))
+                                    w[key]["err"], n["cuda_core_ms"], n["plain_ms"],
+                                    n["bound"], n["lib_ms"],
+                                    design="CUDA cores, run-time d", qkv=d48["qkv"],
+                                    widths=list(P19_WIDTHS),
+                                    bf16_widths=list(P19_BF16_WIDTHS), entry_point_only=True))
     nano = p19["nano"]
     for label, key, replaces, counter in (
             ("K5 fused_ln_mlp forward, CUDA cores, other widths", "fwd", "mlp_kernel.py:49",
@@ -6583,6 +6626,501 @@ def phase19_kernels(p19: dict) -> list:
                                     n["bound"], n["lib_ms"], design="CUDA cores, any C <= 2048",
                                     rows=n["rows"], path="vit-nano, mlp_impl fused",
                                     widths=[list(p) for p in P19_MLP]))
+    return entries
+
+
+# --------------------------------------------------------------- phase 20
+
+# bf16 head widths of phase 20's kernel checks: multiples of 8 from 16 to
+# 256, those 8 (mod 16) among them (24, 72, 88 for ViT-g, 104).
+P20_WIDTHS = (16, 24, 48, 72, 88, 96, 104, 112, 160, 192, 256)
+P20_HEADS = 2
+# (batch, tokens): the short forward at 256 x 192 and the tiled one at 768^2.
+P20_SHAPES = ((8, 192), (1, 2304))
+# Fault 13: K4's CUDA cores past d = 256, one head, at these tokens.
+P20_WIDE = (272, 320, 512, 1024)
+P20_WIDE_N = (192, 1024)
+# ViT-g/14 (Zhai et al., "Scaling Vision Transformers", 2022): 1408 wide,
+# 40 deep, 16 heads of 88, MLP 6,144 (48/11 of the width). Neither package
+# has a preset; vitg_model composes it as JAX's build_model would.
+VITG_WIDTH, VITG_DEPTH, VITG_HEADS, VITG_MLP_RATIO = 1408, 40, 16, 48 / 11
+VITG_D = VITG_WIDTH // VITG_HEADS
+VITG_SERVE_BATCH = 64
+VITG_TRAIN_BATCH = 32
+VITG_TRAIN_STEPS = 3
+VITG_F32_DEPTH = 2
+VITG_F32_BATCH = 8
+VITG_768_DEPTH = 4  # cut for time: its build draws every weight on the host
+VITG_768_BATCH = 4
+# Timed shapes: (label, B, N, heads, d, the CUDA-core kernel the route gave
+# them before this redesign: K1's at N <= 256, where its shared memory fits,
+# else K4's).
+P20_TIMED = (("d = 48 (64, 192, 1152)", 64, 192, 8, 48, "k1"),
+             ("d = 48 (8, 1024, 1152)", 8, 1024, 8, 48, "k4"),
+             ("d = 88 ViT-g (64, 192, 4224)", 64, 192, 16, 88, "k1"),
+             ("d = 88 ViT-g 768^2 (8, 2304, 4224)", 8, 2304, 16, 88, "k4"))
+
+
+def sm90_ptxas(log: str) -> dict:
+    """(registers, spill bytes) of every bf16 attention kernel of
+    csrc/tiled_attention_sm90.cuh by padded width and kind, from nvcc's
+    -Xptxas -v report."""
+    import re
+
+    found, current = {}, None
+    pat = re.compile(r"probpose_sm90\d+(fwd_kernel|short_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)"
+                     r"ILi(\d+)E(?:Li(\d)E)?")
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = pat.search(line)
+            current = (int(m.group(2)), m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) \
+                if m else None
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found.setdefault(current, {})["spill_bytes"] = nums[1] + nums[2]
+        elif current and line.strip().startswith("ptxas info") and "Used" in line:
+            found.setdefault(current, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return found
+
+
+def vitg_model(torch, m, depth: int, device, seed: int = 0):
+    """ViT-g/14's trunk at `depth` under the ProbMap head, with the rest of
+    ModelConfig `m` (crop, dtype, attention and MLP, remat, head), composed
+    as ProbPoseModel(ViTBackbone(...), ProbMapHead(...)) the way JAX's
+    build_model composes a preset (models/model.py:130-140), in eval mode.
+    The model is made on `device` and init_weights draws there from a
+    generator of that device seeded with `seed`: drawing ViT-g's 1.23B
+    weights on the host took 28 s."""
+    from probpose_pytorch_tpu_torch.models.head import ProbMapHead
+    from probpose_pytorch_tpu_torch.models.model import ProbPoseModel, init_weights
+    from probpose_pytorch_tpu_torch.models.vit import ViTBackbone
+
+    device = torch.device(device)
+    with torch.device(device):
+        backbone = ViTBackbone(img_size=m.img_size, patch_size=m.patch_size,
+                               embed_dim=VITG_WIDTH, depth=depth, num_heads=VITG_HEADS,
+                               mlp_ratio=VITG_MLP_RATIO, dtype=m.dtype,
+                               exact_gelu=m.exact_gelu, remat=m.remat, attn_impl=m.attn_impl,
+                               mlp_impl=m.mlp_impl,
+                               softmax_dtype=getattr(torch, m.softmax_dtype))
+        head = ProbMapHead(in_channels=VITG_WIDTH, out_channels=m.num_keypoints,
+                           pool_sizes=m.pool_sizes, deconv_out_channels=m.deconv_out_channels,
+                           deconv_kernel_sizes=m.deconv_kernel_sizes,
+                           conv_out_channels=m.conv_out_channels,
+                           conv_kernel_sizes=m.conv_kernel_sizes,
+                           final_layer_kernel_size=m.final_layer_kernel_size,
+                           normalize=m.normalize, dtype=m.dtype)
+        model = ProbPoseModel(backbone, head)
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval()
+
+
+@contextlib.contextmanager
+def vitg_trainers(torch, depth: int):
+    """Within it, Trainer.create (train/loop.py, through the build_model it
+    imported) builds ViT-g's model at `depth` from a config's other fields
+    (`vitg_model`), so that the trainer, its step and fit are the
+    package's own."""
+    from probpose_pytorch_tpu_torch.train import loop
+
+    saved = loop.build_model
+    loop.build_model = lambda cfg, mesh=None, *, device, seed=0: vitg_model(
+        torch, cfg, depth, device, seed)
+    try:
+        yield
+    finally:
+        loop.build_model = saved
+
+
+def vitg_config(dtype: str, batch: int, img_size=None):
+    """configs/vitb_coco.json's recipe (remat on, augmentation off, dense
+    MLP, attn_impl="fused") at `dtype` and `batch`, for vitg_model;
+    `img_size` replaces the crop."""
+    return dataclasses.replace(vith_config(dtype, batch, img_size=img_size),
+                               **fit_outputs("vit-g"))
+
+
+def phase20_widths(torch, g) -> dict:
+    """bf16 at every P20_WIDTHS head width on the wgmma kernels, both qkv
+    layouts, at P20_SHAPES: the route checked (the short forward at N =
+    192, the tiled forward at 2304, the tiled backward at both), each
+    forward against the TPU-order plain version (the tiled one also against
+    the kernel-order one) with its lse, the backward from the saved (out,
+    lse) against both orders, forward and backward twice bit for bit; K6 at
+    d = 88 against its plain version and K1's bits."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import (
+        fused_attention,
+        fused_attention_reference,
+        kernel_path,
+        packed_attention,
+    )
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        LAYOUTS,
+        short_attention_reference,
+        short_forward,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_online_bwd_reference,
+        tiled_attention_online_reference,
+        tiled_attention_reference,
+        tiled_forward,
+    )
+
+    dev = torch.device("cuda")
+    heads = P20_HEADS
+    errs = dict(short=0.0, tiled=0.0, bwd=0.0)
+    for d in P20_WIDTHS:
+        for B, N in P20_SHAPES:
+            short = N <= 256
+            routes = (kernel_path(N, d, torch.bfloat16),
+                      kernel_path(N, d, torch.bfloat16, backward=True))
+            want = ("sm90 short" if short else "sm90 tiled", "sm90 tiled")
+            check(routes == want, f"bf16 d = {d}, N = {N} routes to {routes}")
+            for layout in LAYOUTS:
+                qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=dev).to(torch.bfloat16)
+                dout = torch.randn(B, N, heads * d, generator=g, device=dev).to(torch.bfloat16)
+                label = f"d = {d} {routes[0]} {layout} qkv {tuple(qkv.shape)}"
+                fwd = short_forward if short else tiled_forward
+                out, lse = fwd(qkv, heads, True, layout)
+                again = fwd(qkv, heads, True, layout)
+                check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                      f"{label} forward differs between two runs")
+                if short:
+                    ref, lse_ref = short_attention_reference(qkv, heads, layout)
+                else:
+                    gate(torch, f"{label} forward vs the TPU order", out,
+                         tiled_attention_reference(qkv, heads, layout=layout), phase=20)
+                    ref, lse_ref = tiled_attention_online_reference(qkv, heads, layout=layout)
+                key = "short" if short else "tiled"
+                errs[key] = max(errs[key], gate(torch, f"{label} forward", out, ref, phase=20))
+                lse_err = (lse - lse_ref).abs().max().item()
+                check(lse_err <= 1e-5 * max(1.0, lse_ref.abs().max().item()),
+                      f"{label}: lse off by {lse_err}")
+                got = tiled_attention_backward(qkv, dout, heads, out, lse, layout=layout)
+                check(torch.equal(got, tiled_attention_backward(qkv, dout, heads, out, lse,
+                                                                layout=layout)),
+                      f"{label} backward differs between two runs")
+                errs["bwd"] = max(errs["bwd"], gate(
+                    torch, f"{label} backward", got,
+                    tiled_attention_bwd_reference(qkv, dout, heads, layout=layout), phase=20))
+                gate(torch, f"{label} backward vs the kernel order", got,
+                     tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse,
+                                                          layout=layout), phase=20)
+    say(f"phase 20: bf16 d in {P20_WIDTHS} on wgmma, both layouts, N = 192 and 2304: "
+        f"largest errors {errs}, every forward and backward twice bit for bit")
+    # K6 at ViT-g's width: the short forward, one tensor map per view
+    qkv = torch.randn(8, 192, 3 * VITG_WIDTH, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unflatten(-1, (3, VITG_HEADS, VITG_D)).unbind(2)
+    before = fused_attention.launches
+    out = fused_attention(q, k, v)
+    check(fused_attention.launches == before + 1, "K6 did not launch once")
+    errs["k6"] = gate(torch, "K6 fused_attention d = 88 (8, 192, 16, 88)", out,
+                      fused_attention_reference(q, k, v), phase=20)
+    check(torch.equal(out.flatten(-2), packed_attention(qkv, VITG_HEADS)),
+          "K6 at d = 88 differs from K1's bits")
+    return errs
+
+
+
+def phase20_fault13(torch, g) -> dict:
+    """Fault 13: K4's CUDA-core kernels at P20_WIDE head widths and
+    P20_WIDE_N tokens, one head, f32 and bf16, forward and backward through
+    the K4 wrappers against the TPU-order plain versions (K1's bound), the
+    backward twice bit for bit; packed_attention routes each to a kernel
+    (K1's CUDA cores where their shared memory fits, else K4's)."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import kernel_path, packed_attention
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        tiled_attention,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    errs = dict(fwd=0.0, bwd=0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for d in P20_WIDE:
+            for N in P20_WIDE_N:
+                route = kernel_path(N, d, dtype)
+                check(route in ("K1 CUDA cores", "K4 CUDA cores"), f"d = {d} N = {N}: {route}")
+                qkv = torch.randn(1, N, 3 * d, generator=g, device=dev).to(dtype)
+                dout = torch.randn(1, N, d, generator=g, device=dev).to(dtype)
+                label = f"K4 CUDA cores d = {d} qkv {tuple(qkv.shape)} {name}"
+                ref = tiled_attention_reference(qkv, 1)
+                errs["fwd"] = max(errs["fwd"], gate(torch, f"{label} forward",
+                                                    tiled_attention(qkv, 1), ref, phase=20))
+                got = tiled_attention_backward(qkv, dout, 1)
+                check(torch.equal(got, tiled_attention_backward(qkv, dout, 1)),
+                      f"{label} backward differs between two runs")
+                errs["bwd"] = max(errs["bwd"], gate(
+                    torch, f"{label} backward", got,
+                    tiled_attention_bwd_reference(qkv, dout, 1), phase=20))
+                gate(torch, f"{label}: packed_attention via {route}", packed_attention(qkv, 1),
+                     ref, phase=20)
+    # timed, not gated: d = 512 at N = 1024, one head, bf16
+    N, d = 1024, 512
+    qkv = torch.randn(1, N, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(1, N, d, generator=g, device=dev).to(torch.bfloat16)
+    f_ms, f_plain = paired_ms(torch, lambda: tiled_attention(qkv, 1),
+                              lambda: tiled_attention_reference(qkv, 1), iters=3)
+    b_ms, b_plain = paired_ms(torch, lambda: tiled_attention_backward(qkv, dout, 1),
+                              lambda: tiled_attention_bwd_reference(qkv, dout, 1), iters=2)
+    f_lib = cuda_ms(torch, sdpa_fwd_fn(torch, qkv, 1), iters=5)
+    b_lib = cuda_ms(torch, sdpa_bwd_fn(torch, qkv, dout, 1), iters=5)
+    f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * N * N * d)
+    b_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * N * N * d)
+    say(f"phase 20: K4 CUDA cores d = {d} qkv {tuple(qkv.shape)} bf16: forward {f_ms:.4f} ms "
+        f"(plain {f_plain:.4f}, SDPA {f_lib:.4f}, bound {f_bound[0]:.4f}), backward "
+        f"{b_ms:.4f} ms (plain {b_plain:.4f}, SDPA {b_lib:.4f}, bound {b_bound[0]:.4f})")
+    shape = [1, N, 3 * d]
+    errs["timed"] = dict(
+        fwd=dict(err=errs["fwd"], ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                 qkv=shape),
+        bwd=dict(err=errs["bwd"], ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                 qkv=shape))
+    return errs
+
+
+def phase20_times(torch, card: str, g) -> dict:
+    """Not gated: the new route at P20_TIMED's shapes against the CUDA-core
+    kernel that took them before (in turns), SDPA and its backward (in
+    turns), and the plain versions; the backward from the saved (out,
+    lse). Each CUDA-core kernel is first held to its plain version."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention import kernel_path, packed_attention
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
+        short_attention_reference,
+        short_forward,
+        tiled_attention_backward,
+        tiled_attention_bwd_reference,
+        tiled_attention_reference,
+        tiled_forward,
+    )
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, B, N, heads, d, kind in P20_TIMED:
+        qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=dev).to(torch.bfloat16)
+        dout = torch.randn(B, N, heads * d, generator=g, device=dev).to(torch.bfloat16)
+        short = N <= 256
+        route = kernel_path(N, d, torch.bfloat16)
+        fwd = short_forward if short else tiled_forward
+        out, lse = fwd(qkv, heads, True)
+        plain = short_attention_reference if short else tiled_attention_reference
+        f_err = gate(torch, f"{label} {route} forward", packed_attention(qkv, heads),
+                     plain(qkv, heads)[0] if short else plain(qkv, heads), phase=20)
+        dref = tiled_attention_bwd_reference(qkv, dout, heads)
+        b_err = gate(torch, f"{label} backward", tiled_attention_backward(
+            qkv, dout, heads, out, lse), dref, phase=20)
+        cc = cuda_core_attention(torch, qkv, heads, kind)
+        gate(torch, f"{label}: the {kind} CUDA-core forward it replaces", cc,
+             short_attention_reference(qkv, heads)[0] if short
+             else tiled_attention_reference(qkv, heads), phase=20)
+        gate(torch, f"{label}: the {kind} CUDA-core backward it replaces",
+             cuda_core_attention(torch, qkv, heads, kind, dout), dref, phase=20)
+        fk = lambda: fwd(qkv, heads, True)
+        bk = lambda: tiled_attention_backward(qkv, dout, heads, out, lse)
+        f_ms, f_plain = paired_ms(torch, fk, lambda: plain(qkv, heads), iters=5)
+        b_ms, b_plain = paired_ms(torch, bk, lambda: tiled_attention_bwd_reference(
+            qkv, dout, heads), iters=3)
+        f_cc, f_ms2 = paired_ms(torch, lambda: cuda_core_attention(torch, qkv, heads, kind),
+                                fk, iters=5)
+        b_cc, b_ms2 = paired_ms(torch, lambda: cuda_core_attention(torch, qkv, heads, kind,
+                                                                    dout), bk, iters=3)
+        f_ms3, f_lib = yardstick_ms(torch, fk, sdpa_fwd_fn(torch, qkv, heads), iters=20,
+                                    windows=1)
+        b_ms3, b_lib = yardstick_ms(torch, bk, sdpa_bwd_fn(torch, qkv, dout, heads), iters=10,
+                                    windows=1)
+        f_bound = bound_ms(nbytes(qkv) * 4 / 3, 4 * B * N * N * heads * d)
+        b_bound = bound_ms(nbytes(qkv) * 7 / 3, 10 * B * N * N * heads * d)
+        say(f"phase 20 [{card}]: {label} bf16 via {route}: forward {f_ms:.4f} ms ({f_ms2:.4f} "
+            f"in turns with the {kind} CUDA cores' {f_cc:.4f}; {f_ms3:.4f} with SDPA "
+            f"{f_lib:.4f}), plain {f_plain:.4f}, bound {f_bound[0]:.4f} ({f_bound[1]}); "
+            f"backward from the saved (out, lse) {b_ms:.4f} ms ({b_ms2:.4f} with the CUDA "
+            f"cores' {b_cc:.4f}; {b_ms3:.4f} with SDPA backward {b_lib:.4f}), plain "
+            f"{b_plain:.4f}, bound {b_bound[0]:.4f} ({b_bound[1]})")
+        rows[label] = dict(
+            qkv=[B, N, 3 * heads * d], route=route, replaced=kind,
+            fwd=dict(err=f_err, ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                     cuda_core_ms=f_cc),
+            bwd=dict(err=b_err, ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                     cuda_core_ms=b_cc))
+        del qkv, dout, out, lse, cc, dref
+    return rows
+
+
+def phase20_vitg(torch, dev, card: str) -> dict:
+    """ViT-g/14 (VITG_* geometry, bf16, attn_impl="fused", dense MLP, remat)
+    under the ProbMap head at 256 x 192 (N = 192, d = 88): served by a
+    TopDownPredictor at full depth (40 short wgmma forwards and 1 K2 a
+    forward, no CUDA-core attention), ms a batch of 64; trained by
+    Trainer.fit with remat at B = 32 (80 short forwards, 40 backwards from
+    the saved out and lse, 1 K2 a step; losses finite and falling; its
+    ~16 GB state kept in memory), ms a step and peak memory; its f32 step
+    at depth 2 held to the plain step (phase 5's gates); served at 768 x
+    768 at depth VITG_768_DEPTH (the tiled wgmma forward at d = 88)."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+
+    t_phase = time.perf_counter()
+    cfg = vitg_config("bfloat16", VITG_TRAIN_BATCH)
+    with vitg_trainers(torch, VITG_DEPTH):
+        trainer = make_trainer(torch, cfg, dev)
+    model = trainer.model
+    depth = len(model.backbone.blocks)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(depth == VITG_DEPTH and model.backbone.blocks[0].attn.num_heads == VITG_HEADS
+          and model.backbone.blocks[0].mlp.fc1.out_features == 6144, "ViT-g geometry off")
+    say(f"phase 20: ViT-g/14 trunk ({VITG_WIDTH} wide, depth {depth}, {VITG_HEADS} heads of "
+        f"{VITG_D}, MLP 6144) under the ProbMap head: {n_params / 1e6:.1f}M parameters, "
+        f"built in {time.perf_counter() - t_phase:.1f} s")
+    predictor = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size)
+    requests = [request(80 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    reset_counts()
+    answers = [predictor(f, b) for f, b in requests]
+    torch.cuda.synchronize()
+    serve = read_counts()
+    check_answers(cfg.model, requests, answers, phase=20)
+    say(f"phase 20: ViT-g served, {len(requests)} forwards: K2 {serve['k2']}")
+    check_attention_route(serve, depth * len(requests), 0, phase=20)
+    check(serve["k2"] == len(requests), "ViT-g's K2 did not run once a forward")
+    check(max(REQUEST_SIZES) == VITG_SERVE_BATCH, "ViT-g's serving batch")
+    f_dev = torch.from_numpy(requests[-1][0]).to(dev)
+    b_dev = torch.from_numpy(requests[-1][1]).to(dev)
+    serve_ms = cuda_ms(torch, lambda: predictor.predict(f_dev, b_dev), iters=5)
+    say(f"phase 20 [{card}]: ViT-g bf16 serving B={len(f_dev)} crops on the card: "
+        f"{serve_ms:.3f} ms/batch ({time.perf_counter() - t_phase:.1f} s into the path)")
+    del predictor, model, answers
+
+    H, W = cfg.model.img_size
+    B = cfg.train_batch_size
+    ds = SyntheticPoseDataset(B, (H, W), cfg.model.num_keypoints, seed=4)
+    batch = next(iter(batch_iterator(ds, B, num_workers=8)))
+    check(trainer.model.backbone.remat, "the ViT-g config does not train with remat")
+    # Trainer.fit ends by saving the state; ViT-g's (params, EMA and Adam's
+    # two moments in f32, ~16 GB) would take the card machine past its disk
+    # budget, so this fit keeps it in memory: the steps, the schedule, the
+    # logging and the history are fit's own.
+    trainer._save = lambda ckpt, what, metadata=None: False
+    steps = VITG_TRAIN_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(lambda: iter([batch]), max_steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 20: Trainer.fit, {steps} bf16 ViT-g steps with remat at B={B} in {fit_s:.2f} "
+        f"s; loss {losses[0]:.6f} -> {losses[-1]:.6f}; K2 {train['k2']} (expect {steps})")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a ViT-g loss is not finite")
+    check(losses[-1] < losses[0], "the ViT-g loss did not fall over the fixed batch")
+    check_attention_route(train, 2 * depth * steps, depth * steps, phase=20)
+    check(train["k2"] == steps, "ViT-g's K2 did not run once a step")
+    db = trainer.device_batch(batch)
+    trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: trainer.train_step(trainer.state, db), iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 20 [{card}]: ViT-g bf16 train step with remat, B={B}: {step_ms:.3f} ms; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    lr0 = float(trainer.tx.schedule(torch.zeros((), dtype=torch.int32, device=dev)))
+    del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 20: ViT-g training done {time.perf_counter() - t_phase:.1f} s into the path")
+
+    cfg32 = vitg_config("float32", VITG_F32_BATCH)
+    with vitg_trainers(torch, VITG_F32_DEPTH):
+        compare_f32_step(torch, dev, {k: v[:VITG_F32_BATCH] for k, v in batch.items()}, lr0,
+                         cfg32, phase=20, routed=("head.branches.",))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg768 = vitg_config("bfloat16", VITG_768_BATCH, img_size=IMG_768).model
+    model = vitg_model(torch, cfg768, VITG_768_DEPTH, dev)
+    predictor = TopDownPredictor(model, make_codec(cfg768), cfg768.img_size)
+    frames, boxes = request(85, VITG_768_BATCH)
+    reset_counts()
+    answer = predictor(frames, boxes)
+    torch.cuda.synchronize()
+    s768 = read_counts()
+    check_answers(cfg768, [(frames, boxes)], [answer], phase=20)
+    say(f"phase 20: ViT-g at 768 x 768 (depth {VITG_768_DEPTH}), B={VITG_768_BATCH}: K4 "
+        f"forward {s768['k4f']} (expect {VITG_768_DEPTH}), short forward {s768['k1s']}, K1 "
+        f"CUDA cores {s768['k1f']} (expect 0 each)")
+    check(s768["k4f"] == VITG_768_DEPTH and s768["k1s"] == s768["k1f"] == s768["k4b"] == 0,
+          "ViT-g at 768 x 768 did not run K4's wgmma forward once a block")
+    del predictor, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 20: ViT-g path {time.perf_counter() - t_phase:.1f} s")
+    return dict(serve=serve, train=train, s768=s768, serve_ms=serve_ms, step_ms=step_ms,
+                peak_gib=peak / 2**30)
+
+
+def phase20(torch, dev, card: str) -> dict:
+    """Phase 20: fault 13 closed and bf16 attention at every head width
+    that is a multiple of 8 on the wgmma kernels, with ViT-g's d = 88 as
+    the path (the module docstring)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(20)
+    widths = phase20_widths(torch, g)
+    wide = phase20_fault13(torch, g)
+    times = phase20_times(torch, card, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vitg = phase20_vitg(torch, dev, card)
+    say(f"phase 20: {time.perf_counter() - t0:.1f} s in all")
+    return dict(widths=widths, wide=wide, times=times, vitg=vitg)
+
+
+def phase20_kernels(p20: dict) -> list:
+    """The kernels line's entries of phase 20: the wgmma kernels at ViT-g's
+    d = 88 (launches on the ViT-g path) and at d = 48, each beside the
+    CUDA-core kernel it replaces; K6 at d = 88; K4's CUDA cores past
+    d = 256 (fault 13, no path's width)."""
+    tiled_cu = "csrc/tiled_attention_sm90.cu"
+    vitg, times, widths = p20["vitg"], p20["times"], p20["widths"]
+    entries = []
+    for label, key, direction, replaces, launches in (
+            ("K1 packed_attention forward, d = 88 (ViT-g)", "d = 88 ViT-g (64, 192, 4224)",
+             "fwd", "attention_kernel.py:120", vitg["train"]["k1s"]),
+            ("K1 packed_attention backward, d = 88 (ViT-g)", "d = 88 ViT-g (64, 192, 4224)",
+             "bwd", "attention_kernel.py:146", vitg["train"]["k4b"]),
+            ("K4 tiled_attention forward, d = 88 (ViT-g 768^2)",
+             "d = 88 ViT-g 768^2 (8, 2304, 4224)", "fwd", "attention_tiled.py:119",
+             vitg["s768"]["k4f"]),
+            ("K4 tiled_attention backward, d = 88 (ViT-g 768^2 shape)",
+             "d = 88 ViT-g 768^2 (8, 2304, 4224)", "bwd", "attention_tiled.py:147", 0),
+            ("K1 packed_attention forward, d = 48", "d = 48 (64, 192, 1152)", "fwd",
+             "attention_kernel.py:120", 0),
+            ("K1 packed_attention backward, d = 48", "d = 48 (64, 192, 1152)", "bwd",
+             "attention_kernel.py:146", 0),
+            ("K4 tiled_attention forward, d = 48", "d = 48 (8, 1024, 1152)", "fwd",
+             "attention_tiled.py:119", 0),
+            ("K4 tiled_attention backward, d = 48", "d = 48 (8, 1024, 1152)", "bwd",
+             "attention_tiled.py:147", 0)):
+        row = times[key]
+        n = row[direction]
+        replaced = "K1 CUDA cores" if row["replaced"] == "k1" else "K4 CUDA cores"
+        entries.append(kernel_entry(label, "cuda", tiled_cu, replaces, launches, n["err"],
+                                    n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
+                                    design="wgmma+TMA, padded width, 4-D head maps",
+                                    qkv=row["qkv"], replaced_route=replaced,
+                                    cuda_core_ms=n["cuda_core_ms"],
+                                    entry_point_only=launches == 0,
+                                    widths_gated=list(P20_WIDTHS),
+                                    width_errs=widths if direction == "fwd" else None))
+    for label, key, replaces in (("K4 tiled_attention forward, CUDA cores, d > 256", "fwd",
+                                  "attention_tiled.py:119"),
+                                 ("K4 tiled_attention backward, CUDA cores, d > 256", "bwd",
+                                  "attention_tiled.py:147")):
+        n = p20["wide"]["timed"][key]
+        entries.append(kernel_entry(label, "cuda", "csrc/tiled_attention.cu", replaces, 0,
+                                    n["err"], n["ms"], n["plain_ms"], n["bound"], n["lib_ms"],
+                                    design="CUDA cores, 128-column chunks", qkv=n["qkv"],
+                                    widths=list(P20_WIDE), entry_point_only=True))
     return entries
 
 
@@ -6731,7 +7269,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 19, then the kernels line and the result line."""
+    """Phases 0 to 20, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -6771,6 +7309,18 @@ def run(torch) -> None:
     check(set(ptxas) == set(PTXAS_NAMES.values()), "a kernel is missing from nvcc's report")
     check(all(ptxas[k]["spill_bytes"] == 0 for k in ptxas if k[:2] in ("K2", "K3")),
           "K2 or K3 spills registers")
+    sm90 = sm90_ptxas(report.get("ptxas", ""))
+    widths = sorted({dp for dp, _ in sm90})
+    say(f"phase 0: bf16 attention kernels (csrc/tiled_attention_sm90.cuh) at padded widths "
+        f"{widths}: registers " + ", ".join(
+            f"{dp}: " + "/".join(str(sm90[(dp, k)]["registers"]) for k in
+                                 ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel"))
+            for dp in widths) + " (forward / dQ / dK,dV); spill bytes "
+        f"{sum(v.get('spill_bytes', 0) for v in sm90.values())} over {len(sm90)} kernels")
+    check(widths == list(range(16, 257, 16)), "a padded width is missing from nvcc's report")
+    check(all(v.get("spill_bytes", 0) == 0 for v in sm90.values()),
+          "a bf16 attention kernel spills: " + str({k: v for k, v in sm90.items()
+                                                    if v.get("spill_bytes")}))
 
     # ---------------------------------------------------------------- phase 1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -7106,7 +7656,12 @@ def run(torch) -> None:
                                      for run, c in bundles15.items()}
         entry["phase16_launches"] = {run: c[eval_counter[entry["name"]]]
                                      for run, c in int8_16.items()}
-    kernels += phase19_kernels(p19)
+    # --------------------------------------------------------------- phase 20
+    gc.collect()
+    torch.cuda.empty_cache()
+    p20 = phase20(torch, dev, card)
+
+    kernels += phase19_kernels(p19, p20) + phase20_kernels(p20)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

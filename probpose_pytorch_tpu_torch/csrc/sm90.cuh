@@ -96,6 +96,24 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, u
   }
 }
 
+// Rows row0 .. row0 + rows - 1 of slot `slot` of batch item b from a map
+// of `make_head_map` into the tile at `dst`, completing on `bar`. Columns
+// past the slot's d and rows past N come as zeros.
+template <int D>
+__device__ __forceinline__ void tma_head(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int slot, int row0, int b, int rows) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < T::kBoxes; ++c) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst + c * rows * T::kSpan),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c * T::kCols), "r"(slot),
+        "r"(row0), "r"(b)
+        : "memory");
+  }
+}
+
 // ---------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -210,77 +228,81 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 32, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32,
-// smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+// D (64 x N, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x N,
+// smem, MN-major): the register-A products of the attention kernels, one
+// for every N = 16 K (K = 1 .. 16, their padded head widths), generated
+// here from one asm template. The A pairs and the descriptor are operands
+// %0 - %4 and the accumulate flag %5 (read-write copies, so that they come
+// first), and the accumulators %6 on, PROBPOSE_RS_ACC<K> naming 8 K of them.
+template <int N>
+struct WgmmaRs;
 
-// D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64,
-// smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+#define PROBPOSE_RS_ACC1 "%6, %7, %8, %9, %10, %11, %12, %13"
+#define PROBPOSE_RS_ACC2 PROBPOSE_RS_ACC1 ", %14, %15, %16, %17, %18, %19, %20, %21"
+#define PROBPOSE_RS_ACC3 PROBPOSE_RS_ACC2 ", %22, %23, %24, %25, %26, %27, %28, %29"
+#define PROBPOSE_RS_ACC4 PROBPOSE_RS_ACC3 ", %30, %31, %32, %33, %34, %35, %36, %37"
+#define PROBPOSE_RS_ACC5 PROBPOSE_RS_ACC4 ", %38, %39, %40, %41, %42, %43, %44, %45"
+#define PROBPOSE_RS_ACC6 PROBPOSE_RS_ACC5 ", %46, %47, %48, %49, %50, %51, %52, %53"
+#define PROBPOSE_RS_ACC7 PROBPOSE_RS_ACC6 ", %54, %55, %56, %57, %58, %59, %60, %61"
+#define PROBPOSE_RS_ACC8 PROBPOSE_RS_ACC7 ", %62, %63, %64, %65, %66, %67, %68, %69"
+#define PROBPOSE_RS_ACC9 PROBPOSE_RS_ACC8 ", %70, %71, %72, %73, %74, %75, %76, %77"
+#define PROBPOSE_RS_ACC10 PROBPOSE_RS_ACC9 ", %78, %79, %80, %81, %82, %83, %84, %85"
+#define PROBPOSE_RS_ACC11 PROBPOSE_RS_ACC10 ", %86, %87, %88, %89, %90, %91, %92, %93"
+#define PROBPOSE_RS_ACC12 PROBPOSE_RS_ACC11 ", %94, %95, %96, %97, %98, %99, %100, %101"
+#define PROBPOSE_RS_ACC13 PROBPOSE_RS_ACC12 ", %102, %103, %104, %105, %106, %107, %108, %109"
+#define PROBPOSE_RS_ACC14 PROBPOSE_RS_ACC13 ", %110, %111, %112, %113, %114, %115, %116, %117"
+#define PROBPOSE_RS_ACC15 PROBPOSE_RS_ACC14 ", %118, %119, %120, %121, %122, %123, %124, %125"
+#define PROBPOSE_RS_ACC16 PROBPOSE_RS_ACC15 ", %126, %127, %128, %129, %130, %131, %132, %133"
+#define PROBPOSE_RS_F8(i)                                                                    \
+  "+f"(d[8 * (i)]), "+f"(d[8 * (i) + 1]), "+f"(d[8 * (i) + 2]), "+f"(d[8 * (i) + 3]),        \
+      "+f"(d[8 * (i) + 4]), "+f"(d[8 * (i) + 5]), "+f"(d[8 * (i) + 6]), "+f"(d[8 * (i) + 7])
+#define PROBPOSE_RS_OPS1 PROBPOSE_RS_F8(0)
+#define PROBPOSE_RS_OPS2 PROBPOSE_RS_OPS1, PROBPOSE_RS_F8(1)
+#define PROBPOSE_RS_OPS3 PROBPOSE_RS_OPS2, PROBPOSE_RS_F8(2)
+#define PROBPOSE_RS_OPS4 PROBPOSE_RS_OPS3, PROBPOSE_RS_F8(3)
+#define PROBPOSE_RS_OPS5 PROBPOSE_RS_OPS4, PROBPOSE_RS_F8(4)
+#define PROBPOSE_RS_OPS6 PROBPOSE_RS_OPS5, PROBPOSE_RS_F8(5)
+#define PROBPOSE_RS_OPS7 PROBPOSE_RS_OPS6, PROBPOSE_RS_F8(6)
+#define PROBPOSE_RS_OPS8 PROBPOSE_RS_OPS7, PROBPOSE_RS_F8(7)
+#define PROBPOSE_RS_OPS9 PROBPOSE_RS_OPS8, PROBPOSE_RS_F8(8)
+#define PROBPOSE_RS_OPS10 PROBPOSE_RS_OPS9, PROBPOSE_RS_F8(9)
+#define PROBPOSE_RS_OPS11 PROBPOSE_RS_OPS10, PROBPOSE_RS_F8(10)
+#define PROBPOSE_RS_OPS12 PROBPOSE_RS_OPS11, PROBPOSE_RS_F8(11)
+#define PROBPOSE_RS_OPS13 PROBPOSE_RS_OPS12, PROBPOSE_RS_F8(12)
+#define PROBPOSE_RS_OPS14 PROBPOSE_RS_OPS13, PROBPOSE_RS_F8(13)
+#define PROBPOSE_RS_OPS15 PROBPOSE_RS_OPS14, PROBPOSE_RS_F8(14)
+#define PROBPOSE_RS_OPS16 PROBPOSE_RS_OPS15, PROBPOSE_RS_F8(15)
 
-// D (64 x 80, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 80,
-// smem, MN-major): d = 80, five 16-column boxes of the 32-byte swizzle.
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39 "
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+#define PROBPOSE_WGMMA_RS(N, K)                                                            \
+  template <>                                                                               \
+  struct WgmmaRs<N> {                                                                       \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2], const uint32_t* a,       \
+                                               uint64_t db) {                              \
+      uint32_t a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3], one = 1;                         \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                             \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"             \
+                   PROBPOSE_RS_ACC##K "}, {%0, %1, %2, %3}, %4, p, 1, 1, 1;\n}\n"          \
+                   : "+r"(a0), "+r"(a1), "+r"(a2), "+r"(a3), "+l"(db), "+r"(one),          \
+                     PROBPOSE_RS_OPS##K);                                                  \
+    }                                                                                       \
+  };
 
-// D (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128,
-// smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+PROBPOSE_WGMMA_RS(16, 1)
+PROBPOSE_WGMMA_RS(32, 2)
+PROBPOSE_WGMMA_RS(48, 3)
+PROBPOSE_WGMMA_RS(64, 4)
+PROBPOSE_WGMMA_RS(80, 5)
+PROBPOSE_WGMMA_RS(96, 6)
+PROBPOSE_WGMMA_RS(112, 7)
+PROBPOSE_WGMMA_RS(128, 8)
+PROBPOSE_WGMMA_RS(144, 9)
+PROBPOSE_WGMMA_RS(160, 10)
+PROBPOSE_WGMMA_RS(176, 11)
+PROBPOSE_WGMMA_RS(192, 12)
+PROBPOSE_WGMMA_RS(208, 13)
+PROBPOSE_WGMMA_RS(224, 14)
+PROBPOSE_WGMMA_RS(240, 15)
+PROBPOSE_WGMMA_RS(256, 16)
 
 __device__ __forceinline__ uint32_t aligned_base(unsigned char* smem) {
   return (smem_u32(smem) + 1023u) & ~1023u;
@@ -438,6 +460,32 @@ int make_map(CUtensorMap* map, const void* ptr, int width, long long row, int N,
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, int width, int N, int B, int rows) {
   return make_map<D>(map, ptr, width, width, N, static_cast<long long>(width) * N, B, rows);
+}
+
+// 4-D map over head slots of d bf16 columns each: element (c, s, n, b) at
+// ptr + b * batch + n * row + s * d + c, c < d, s < slots (a packed qkv
+// projection is 3 H slots, a (B, N, C) context H), boxes of Tile<D>::kCols
+// columns of `rows` rows of one slot, D the padded width 16 ceil(d / 16).
+// A box's columns past d come as zeros, so a tile of a head whose d is
+// 8 (mod 16) holds nothing of the neighbouring slot.
+template <int D>
+int make_head_map(CUtensorMap* map, const void* ptr, int d, int slots, int N, long long row,
+                  int B, long long batch, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(slots),
+                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(row) * 2,
+                                 static_cast<cuuint64_t>(batch) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::kCols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            Tile<D>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename Kernel>

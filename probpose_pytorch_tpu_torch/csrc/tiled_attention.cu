@@ -1,8 +1,8 @@
 // Kernel K4 on the CUDA cores: row-tiled multi-head attention for long
 // sequences, its forward and its recompute backward, read straight from the
-// packed qkv, in float32 and bf16 at every head width 1 <= d <= 256 that the
-// wgmma kernels do not take (bf16 with d in {32, 64, 80, 128}, the path every
-// shipped model runs, is the wgmma + TMA design of
+// packed qkv, in float32 at every head width and in bf16 at every head
+// width that the wgmma kernels do not take (bf16 with d a multiple of 8 in
+// [16, 256], the path every shipped model runs, is the wgmma + TMA design of
 // csrc/tiled_attention_sm90.cu).
 //
 // Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel`
@@ -50,7 +50,16 @@
 // 8} (ceil(d / 32) rounded up to one of them) covers every width with six
 // instantiations a kernel and dtype, the widths a preset has at their own
 // NC. Past d = 160 the two accumulators of the dK/dV pass exceed the
-// registers and spill: those widths are taken for coverage, not speed. The
+// registers and spill: those widths are taken for coverage, not speed.
+// Past d = 256 (`wide_*` kernels, templated on the dtype alone) a tile holds
+// 128 columns of the head at a time: each score sums over the column
+// chunks in registers, one pass over the d columns in order, and each
+// product that yields d columns (O, dQ, dK, dV) sweeps the other side once
+// a chunk of 128 of its columns with four columns a lane, recomputing the
+// scores; no row's order differs from the kernels below d = 256, the
+// scores cost ceil(d / 128) times as much, and four warps fit at every d.
+// The JAX package runs such widths (its row-tiled kernel takes any d whose
+// tiles fit its VMEM), so the port takes them too. The
 // kernels live in csrc/tiled_attention.cuh and are instantiated in three
 // units (forward; backward f32; backward bf16) that nvcc builds side by
 // side.
@@ -68,6 +77,10 @@ PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_FWD_EXTERN, float)
 PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_FWD_EXTERN, __nv_bfloat16)
 PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_BWD_EXTERN, float)
 PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_BWD_EXTERN, __nv_bfloat16)
+extern template PROBPOSE_K4CC_WIDE_FWD_SIG(float);
+extern template PROBPOSE_K4CC_WIDE_FWD_SIG(__nv_bfloat16);
+extern template PROBPOSE_K4CC_WIDE_BWD_SIG(float);
+extern template PROBPOSE_K4CC_WIDE_BWD_SIG(__nv_bfloat16);
 
 namespace {
 
@@ -86,6 +99,7 @@ template <typename T>
 int fwd_any(const void* qkv, void* out, int B, int N, int C, int heads, bool head_major,
             int warps, cudaStream_t s) {
   const int d = C / heads;
+  if (d > kMaxD) return launch_wide_fwd<T>(qkv, out, B, N, C, heads, head_major, warps, s);
 #define PROBPOSE_FWD(NC) launch_fwd<T, NC>(qkv, out, B, N, C, heads, head_major, warps, s)
   PROBPOSE_BY_COLUMNS(PROBPOSE_FWD)
 #undef PROBPOSE_FWD
@@ -95,6 +109,8 @@ template <typename T>
 int bwd_any(const void* qkv, const void* dout, void* dqkv, float* st, int B, int N, int C,
             int heads, bool head_major, int warps, cudaStream_t s) {
   const int d = C / heads;
+  if (d > kMaxD)
+    return launch_wide_bwd<T>(qkv, dout, dqkv, st, B, N, C, heads, head_major, warps, s);
 #define PROBPOSE_BWD(NC) \
   launch_bwd<T, NC>(qkv, dout, dqkv, st, B, N, C, heads, head_major, warps, s)
   PROBPOSE_BY_COLUMNS(PROBPOSE_BWD)
@@ -108,7 +124,7 @@ int bwd_any(const void* qkv, const void* dout, void* dqkv, float* st, int B, int
 
 using namespace probpose_k4cc;
 
-// Head widths 1 <= d <= 256 in float32 (dtype 0) and bf16 (dtype 1); bf16 at
+// Every head width d >= 1 in float32 (dtype 0) and bf16 (dtype 1); bf16 at
 // the wgmma widths runs csrc/tiled_attention_sm90.cu instead. Shared memory
 // holds f32 in both, so the tile depends on d alone.
 
@@ -121,7 +137,7 @@ extern "C" int tiled_attention_warps(int d, int backward, long long limit) {
 
 // Shared memory of that launch at `warps` warps; -1 for a d it does not take.
 extern "C" long long tiled_attention_smem_bytes(int d, int backward, int warps) {
-  if (d < 1 || d > kMaxD || (warps != 1 && warps != 2 && warps != 4)) return -1;
+  if (d < 1 || (warps != 1 && warps != 2 && warps != 4)) return -1;
   return static_cast<long long>(Geo{d, warps}.smem(backward != 0));
 }
 

@@ -1,5 +1,5 @@
 // Kernel K4 on the CUDA cores, the launchers of the backward (dQ and dK/dV passes), bf16 at every
-// instantiated column count (csrc/tiled_attention.cuh; the design and the
+// instantiated column count and past d = 256 (csrc/tiled_attention.cuh; the design and the
 // plain-C interface are csrc/tiled_attention.cu's).
 
 #include "tiled_attention.cuh"
@@ -7,5 +7,6 @@
 namespace probpose_k4cc {
 
 PROBPOSE_K4CC_COLUMNS(PROBPOSE_K4CC_BWD_INST, __nv_bfloat16)
+template PROBPOSE_K4CC_WIDE_BWD_SIG(__nv_bfloat16);
 
 }  // namespace probpose_k4cc

@@ -19,18 +19,19 @@ which writes dqkv straight in the packed layout. Which kernel serves a call
 is decided by the shape alone, forward and backward each on its own
 (`attention_route` in ops/kernels/attention_tiled.py, a pure function of N,
 d, the dtype and the card's shared memory; `kernel_path` names it):
-  * "sm90 short": bf16, d in {32, 64, 80, 128}, N <= 256 (the ViT trunks'
-    N = 192), forward: `short_forward`, csrc/tiled_attention_sm90.cu;
+  * "sm90 short": bf16 with d a multiple of 8 in [16, 256] (`wgmma_width`),
+    N <= 256 (the ViT trunks' N = 192) where its tiles fit, forward:
+    `short_forward`, csrc/tiled_attention_sm90.cu;
   * "sm90 tiled": the same dtype and widths at longer N, and their every
     backward: K4's wgmma kernels, which read the forward's saved context
     and log-sum-exp (`_PackedAttention` saves (qkv, out, lse) there);
   * "K1 CUDA cores": float32, and bf16 with another d, where K1's shared
     memory fits: csrc/packed_attention.cu (the f32 parity checks run here);
-  * "K4 CUDA cores": past K1's shared memory, float32 and bf16 at every
-    other d <= 256 (e.g. d = 48 at N = 1024): csrc/tiled_attention.cu, as
-    the JAX package hands such shapes to its row-tiled kernel;
-  * "no kernel (...)": d > 256 past K1's shared memory: NotImplementedError
-    on the card.
+  * "K4 CUDA cores": past K1's shared memory, float32 at every d and bf16
+    at the other widths (e.g. d = 100 at N = 1024, or d = 320):
+    csrc/tiled_attention.cu, as the JAX package hands such shapes to its
+    row-tiled kernel.
+Every shape has a kernel.
 Any batch: past 65,535 (the grid's batch extent) a call launches once a
 chunk of `batch_chunks`.
 Both wrappers:
@@ -45,9 +46,9 @@ Kernel K6, `fused_attention(q, k, v)`, replaces `_attn_kernel` of the same
 file (`fused_attention`, the `attn_impl="pallas"` serving knob): K1's
 forward read from q, k and v each (B, N, heads, d) through their strides,
 so the views the qkv projection gives are not copied (JAX transposes them
-to (B * heads, N, d) around its kernel). bf16 with d in {32, 64, 80, 128}
-and N <= 256 runs the short wgmma forward, one tensor map per view, and gives
-K1's bits; every other shape runs K1's CUDA-core body. It returns the
+to (B * heads, N, d) around its kernel). bf16 where the short wgmma
+forward takes the shape (`short_fits`) runs it, one tensor map per view, and
+gives K1's bits; every other shape runs K1's CUDA-core body. It returns the
 context (B, N, heads, d). It is forward only, as in JAX: a gradient through
 it raises. `fused_attention_reference` is its plain version.
 """
@@ -61,12 +62,9 @@ import torch
 from probpose_pytorch_tpu_torch.ops import kernels
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     DTYPES as _DTYPES,
-    HEAD_DIMS,
     K1_CUDA_CORES,
     LAYOUTS,
     MAX_GRID_Z,
-    NO_KERNEL,
-    SHORT_MAX_N,
     SM90_SHORT,
     _at,
     _launch_chunks,
@@ -74,6 +72,7 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     max_shared_memory,
     pack_qkv,
     split_qkv,
+    short_fits,
     short_forward,
     tiled_attention_backward,
     tiled_forward,
@@ -171,17 +170,10 @@ def _route(qkv: torch.Tensor, heads: int, backward: bool) -> str:
 
 def kernel_path(N: int, d: int, dtype: torch.dtype, backward: bool = False) -> str:
     """Which kernel serves (N, d, dtype) on the current card, forward or
-    backward: "sm90 short", "sm90 tiled", "K1 CUDA cores", "K4 CUDA cores"
-    or "no kernel (d=.., N=..)" (see `attention_route`)."""
+    backward: "sm90 short", "sm90 tiled", "K1 CUDA cores" or "K4 CUDA
+    cores" (see `attention_route`)."""
     return attention_route(N, d, dtype, max_shared_memory(torch.cuda.current_device()),
                            backward)
-
-
-def _no_kernel(qkv: torch.Tensor, heads: int, route: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: qkv {tuple(qkv.shape)} {qkv.dtype} with {heads} heads: {route}; K1's "
-        "shared memory does not fit, and K4 takes head widths up to 256 (its CUDA-core "
-        "kernels hold eight columns a lane; ROADMAP section 3)")
 
 
 def _check(qkv: torch.Tensor, heads: int, layout: str = "qkv_major") -> None:
@@ -238,8 +230,6 @@ def _forward(qkv: torch.Tensor, heads: int, with_lse: bool, layout: str):
     if kernels.use_plain(qkv, "packed_attention"):
         return packed_attention_reference(qkv, heads, layout), None
     route = _route(qkv, heads, backward=False)
-    if route.startswith(NO_KERNEL):
-        raise _no_kernel(qkv, heads, route, "packed_attention")
     if route == SM90_SHORT:
         return short_forward(qkv, heads, with_lse, layout)
     if route != K1_CUDA_CORES:
@@ -300,8 +290,6 @@ def packed_attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     if kernels.use_plain(qkv, "packed_attention_backward"):
         return packed_attention_bwd_reference(qkv, dout, heads, layout)
     route = _route(qkv, heads, backward=True)
-    if route.startswith(NO_KERNEL):
-        raise _no_kernel(qkv, heads, route, "packed_attention_backward")
     if route != K1_CUDA_CORES:
         return tiled_attention_backward(qkv, dout, heads, out, lse, layout=layout)
     dout = dout.contiguous()
@@ -401,15 +389,14 @@ def _flat_fwd_op(q, k, v):
     """K6's launch as an op that torch.export records: q, k and v are read
     through their strides where they share them, else made contiguous."""
     B, N, H, d = q.shape
-    # bf16 at the short forward's widths and lengths: its wgmma kernel, the
-    # one that serves packed_attention there, so K6 and K1 give the same bits
-    wgmma = q.dtype == torch.bfloat16 and d in HEAD_DIMS and N <= SHORT_MAX_N
+    # where the short wgmma forward takes the shape: that kernel, the one
+    # that serves packed_attention there, so K6 and K1 give the same bits
+    device = _device_index(q)
+    wgmma = short_fits(N, d, q.dtype)
     if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(3) != 1 \
             or (wgmma and q.stride(2) != d):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if wgmma:
-        device = _device_index(q)
-    else:
+    if not wgmma:
         device = _smem_check(q, N, d, _lib().packed_attention_smem_bytes, "fused_attention")
     align = 16 // q.element_size()
     if any(t.data_ptr() % 16 for t in (q, k, v)) or any(s % align for s in q.stride()[:3]):

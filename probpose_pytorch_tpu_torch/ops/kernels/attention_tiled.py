@@ -5,17 +5,19 @@ Replaces the TPU kernels `_tiled_fwd_kernel` and `_tiled_bwd_kernel` of
 probpose_pytorch_tpu/ops/pallas/attention_tiled.py (`tiled_attention`, a
 `jax.custom_vjp` whose backward recomputes the scores). Two CUDA sources,
 each with its design and what bounds it on the card; no shape bounded by N:
-  * bf16 with d in {32, 64, 80, 128} (`HEAD_DIMS`; d = 80 is the vit-h
-    preset), csrc/tiled_attention_sm90.cu: a one-sweep forward (online
-    softmax, wgmma fed by a TMA ring of K/V tiles) that can also write the
-    row log-sum-exp `lse`, and a backward of two kernels (dQ, then dK/dV)
-    that takes the forward's output and `lse` instead of rebuilding the
-    softmax statistics; no atomics.
-  * float32, and bf16 at every other head width, up to d = 256
-    (`MAX_HEAD_DIM`), csrc/tiled_attention.cu: CUDA cores, two sweeps (exact
-    softmax) and a two-pass recompute backward in the TPU kernels' order;
-    it carries the f32 parity checks. Its block owns 64, 32 or 16 query rows
-    as d's staged tiles fit the card's shared memory (`cuda_core_warps`).
+  * bf16 with d a multiple of 8 from 16 to 256 (`wgmma_width`; the vit-h
+    preset's d = 80, ViT-g's d = 88), csrc/tiled_attention_sm90.cu: a
+    one-sweep forward (online softmax, wgmma fed by a TMA ring of K/V
+    tiles) that can also write the row log-sum-exp `lse`, and a backward of
+    two kernels (dQ, then dK/dV) that takes the forward's output and `lse`
+    instead of rebuilding the softmax statistics; no atomics. Its kernels
+    are instantiated at the padded widths 16 ceil(d / 16), d at run time.
+  * float32 at every head width, and bf16 at the others,
+    csrc/tiled_attention.cu: CUDA cores, two sweeps (exact softmax) and a
+    two-pass recompute backward in the TPU kernels' order; it carries the
+    f32 parity checks. Its block owns 64, 32 or 16 query rows as d's staged
+    tiles fit the card's shared memory (`cuda_core_warps`); past d = 256 a
+    tile holds 128 of the head's columns at a time.
 
 The same bf16 source holds K1's redesigned forward for N <= 256,
 `short_forward` (one warpgroup per 64 query rows, every key of the head in
@@ -23,7 +25,7 @@ registers, an exact single-pass softmax, P normalised and rounded before
 P.V as the TPU kernel does; its plain version is K1's own
 `packed_attention_reference`, and `short_attention_reference` adds the
 lse); K6 (`attention.fused_attention`) runs it on its q, k, v views. K1's
-bf16 backward with d in HEAD_DIMS is K4's, at every N.
+bf16 backward at the wgmma widths is K4's, at every N.
 
 Every launch takes a batch of at most 65,535 (the grid's z extent, where
 the kernels put the batch); a larger batch runs as several launches over
@@ -52,9 +54,10 @@ hold 8 GB):
     the TPU kernels line by line; the wrappers' CPU path and every gate use
     them.
   * `tiled_attention_online_reference` / `tiled_attention_online_bwd_reference`
-    follow the bf16 kernels' arithmetic order (online softmax over 128-key
-    tiles, P rounded relative to the running max; P = exp(S * scale - lse)
-    in the backward, and D = rowsum(dO * O) past EXACT_D_MAX_N tokens).
+    follow the bf16 kernels' arithmetic order (online softmax over key
+    tiles of 128, or 64 past d = 128, P rounded relative to the running
+    max; P = exp(S * scale - lse) in the backward, and D = rowsum(dO * O)
+    past EXACT_D_MAX_N tokens).
     Only tests and chip_smoke.py use them, to show how far the kernels'
     order moves from the TPU's.
 """
@@ -77,6 +80,9 @@ __all__ = [
     "short_forward",
     "short_attention_reference",
     "attention_route",
+    "wgmma_width",
+    "short_fits",
+    "short_smem_bytes",
     "split_qkv",
     "pack_qkv",
     "LAYOUTS",
@@ -92,15 +98,25 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # as their `head_major` flag. Column of (t, h, c), t in {q, k, v}:
 # t * C + h * d + c qkv-major, h * 3d + t * d + c head-major.
 LAYOUTS = ("qkv_major", "head_major")
-HEAD_DIMS = (32, 64, 80, 128)
-# Widest head of K4's CUDA-core kernels (eight columns a lane).
-MAX_HEAD_DIM = 256
+# Head widths of the wgmma kernels (bf16): the multiples of 8 in
+# [WGMMA_MIN_D, WGMMA_MAX_D] (`wgmma_width`).
+WGMMA_MIN_D, WGMMA_MAX_D = 16, 256
+# Shared memory a block may opt into on an H100; the wgmma kernels' tiles
+# are sized against it at compile time (csrc/tiled_attention_sm90.cuh:
+# kSmemLimit), so every tiled kernel fits it; the short forward fits it
+# where `short_fits` says so.
+SM90_SMEM_LIMIT = 232448
+# Widest head that K4's CUDA-core kernels stage whole (eight columns a
+# lane); past it a tile holds CUDA_CORE_WIDE_COLS of the head's columns.
+CUDA_CORE_MAX_D = 256
+CUDA_CORE_WIDE_COLS = 128
 # The grid's z extent, where every attention kernel puts the batch.
 MAX_GRID_Z = 65535
 # Query rows per chunk of the plain versions: (B, heads, 256, N) f32 scores,
 # 0.9 GB at (64, 2304, 1152).
 PLAIN_CHUNK = 256
-# Keys per tile of the bf16 forward kernel (its online softmax's step).
+# Keys per tile of the bf16 forward kernel (its online softmax's step) up to
+# d = 128; past it 64 (`sm90_key_tile`).
 KEY_TILE = 128
 LOG2E = 1.4426950408889634
 # Longest sequence of the short forward: every key of a head in registers.
@@ -124,7 +140,6 @@ SM90_SHORT = "sm90 short"  # short_forward, csrc/tiled_attention_sm90.cu
 SM90_TILED = "sm90 tiled"  # K4 bf16, csrc/tiled_attention_sm90.cu
 K1_CUDA_CORES = "K1 CUDA cores"  # csrc/packed_attention.cu
 K4_CUDA_CORES = "K4 CUDA cores"  # csrc/tiled_attention.cu
-NO_KERNEL = "no kernel"  # raises on the card; the plain version on the CPU
 
 
 def k1_smem_bytes(N: int, d: int, dtype: torch.dtype) -> int:
@@ -136,14 +151,50 @@ def k1_smem_bytes(N: int, d: int, dtype: torch.dtype) -> int:
     return N * (2 * d + 4 // size) * size + 32 * (d + N)
 
 
+def wgmma_width(d: int, dtype: torch.dtype) -> bool:
+    """Whether attention with head width d in `dtype` has wgmma kernels
+    (csrc/tiled_attention_sm90.cu): bf16 with d a multiple of 8 from 16 to
+    256. The one predicate of K1's, K4's and K6's wrappers."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and WGMMA_MIN_D <= d <= WGMMA_MAX_D
+
+
+def _padded(d: int) -> int:
+    """The wgmma kernels' padded width, 16 ceil(d / 16)."""
+    return -(-d // 16) * 16
+
+
+def sm90_key_tile(d: int) -> int:
+    """Keys per tile of the wgmma forward at head width d."""
+    return KEY_TILE if _padded(d) <= 128 else 64
+
+
+def short_smem_bytes(d: int, N: int) -> int:
+    """Shared memory per block of the short wgmma forward (1 <= N <= 256):
+    64 query rows and the head's whole K and V, 64 ceil(N / 64) rows each,
+    at the padded width (csrc/tiled_attention_sm90.cuh: Short)."""
+    dp = _padded(d)
+    return 1024 + 64 * dp * 2 + 2 * 64 * -(-N // 64) * dp * 2 + 8
+
+
+def short_fits(N: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the short wgmma forward takes (N, d, dtype): a wgmma width,
+    N <= 256 and its tiles within SM90_SMEM_LIMIT (d >= 200 passes it past
+    N = 192). A function of the shape alone, as the route is; the launch
+    checks the card's own limit."""
+    return wgmma_width(d, dtype) and N <= SHORT_MAX_N and \
+        short_smem_bytes(d, N) <= SM90_SMEM_LIMIT
+
+
 def cuda_core_smem_bytes(d: int, warps: int, backward: bool) -> int:
     """Shared memory per block of K4's CUDA-core forward (or of either
     backward pass) at head width d with `warps` warps (csrc/
-    tiled_attention.cu, Geo): f32 tiles with rows padded by one word, the
-    block's query rows and the key tile(s), and a (16, max(d, 64) + 4) f32
-    tile a warp (two in the backward, with 64 keys' statistics)."""
-    rows, ks = warps * CUDA_CORE_WARP_ROWS, d + 1
-    tile = CUDA_CORE_WARP_ROWS * (max(d, CUDA_CORE_KEY_TILE) + 4) * 4
+    tiled_attention.cu, Geo): f32 tiles of dc = min(d, 256) columns, or 128
+    past 256, with rows padded by one word, the block's query rows and the
+    key tile(s), and a (16, max(dc, 64) + 4) f32 tile a warp (two in the
+    backward, with 64 keys' statistics)."""
+    dc = d if d <= CUDA_CORE_MAX_D else CUDA_CORE_WIDE_COLS
+    rows, ks = warps * CUDA_CORE_WARP_ROWS, dc + 1
+    tile = CUDA_CORE_WARP_ROWS * (max(dc, CUDA_CORE_KEY_TILE) + 4) * 4
     if backward:
         return (2 * (rows + CUDA_CORE_KEY_TILE) * ks * 4 + 2 * warps * tile
                 + 3 * CUDA_CORE_KEY_TILE * 4)
@@ -153,10 +204,10 @@ def cuda_core_smem_bytes(d: int, warps: int, backward: bool) -> int:
 def cuda_core_warps(d: int, backward: bool, limit: int) -> int:
     """Warps a block of K4's CUDA-core kernels (query rows / 16) at head
     width d on a card of `limit` bytes of shared memory a block: the most of
-    4, 2, 1 that fits, 0 where none does or d > MAX_HEAD_DIM (csrc/
-    tiled_attention.cu: pick_warps). Shared memory holds f32 in both
-    dtypes, so the dtype takes no part."""
-    if not 1 <= d <= MAX_HEAD_DIM:
+    4, 2, 1 that fits, 0 where none does (csrc/tiled_attention.cu:
+    pick_warps; on an H100 one fits at every d). Shared memory holds f32 in
+    both dtypes, so the dtype takes no part."""
+    if d < 1:
         return 0
     return next((w for w in CUDA_CORE_WARPS if cuda_core_smem_bytes(d, w, backward) <= limit),
                 0)
@@ -189,22 +240,19 @@ def attention_route(N: int, d: int, dtype: torch.dtype, limit: int,
     """The kernel that serves attention of N tokens with head width d in
     `dtype`, forward or backward, on a card whose opt-in shared memory per
     block is `limit` bytes. The shape decides alone:
-      * bf16, d in HEAD_DIMS: the wgmma kernels, "sm90 short" (forward,
-        N <= 256) or "sm90 tiled" (K4: longer forwards, every backward);
+      * bf16 at a `wgmma_width` (d a multiple of 8 in [16, 256]): the wgmma
+        kernels, "sm90 short" (a forward with N <= 256 whose K and V fit,
+        `short_fits`) or "sm90 tiled" (K4: other forwards, every backward);
       * else "K1 CUDA cores" where K1's shared memory fits the card;
-      * else "K4 CUDA cores" at every d <= MAX_HEAD_DIM, as the JAX
-        package's packed_attention hands such shapes to its row-tiled
-        kernel;
-      * else "no kernel (d=.., N=..)" (d > 256 past K1's shared memory): the
-        card raises NotImplementedError, the CPU computes the plain version.
-    The qkv layout takes no part: every kernel reads both (`LAYOUTS`)."""
-    if dtype == torch.bfloat16 and d in HEAD_DIMS:
-        return SM90_SHORT if N <= SHORT_MAX_N and not backward else SM90_TILED
+      * else "K4 CUDA cores", at every d, as the JAX package's
+        packed_attention hands such shapes to its row-tiled kernel.
+    Every shape has a kernel. The qkv layout takes no part: every kernel
+    reads both (`LAYOUTS`)."""
+    if wgmma_width(d, dtype):
+        return SM90_SHORT if not backward and short_fits(N, d, dtype) else SM90_TILED
     if k1_smem_bytes(N, d, dtype) <= limit:
         return K1_CUDA_CORES
-    if cuda_core_warps(d, backward, limit):
-        return K4_CUDA_CORES
-    return f"{NO_KERNEL} (d={d}, N={N})"
+    return K4_CUDA_CORES
 
 
 def split_qkv(qkv: torch.Tensor, heads: int, layout: str = "qkv_major"):
@@ -226,7 +274,7 @@ def pack_qkv(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 
 def _wgmma(qkv: torch.Tensor, heads: int) -> bool:
     """Whether K4 runs qkv on its wgmma kernels (else on the CUDA cores)."""
-    return qkv.dtype == torch.bfloat16 and qkv.shape[2] // 3 // heads in HEAD_DIMS
+    return wgmma_width(qkv.shape[2] // 3 // heads, qkv.dtype)
 
 
 def short_attention_reference(qkv: torch.Tensor, heads: int, layout: str = "qkv_major"):
@@ -307,16 +355,18 @@ def _heads_d(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def tiled_attention_online_reference(qkv: torch.Tensor, heads: int, chunk: int = PLAIN_CHUNK,
-                                     key_tile: int = KEY_TILE, layout: str = "qkv_major"):
+                                     key_tile: int | None = None, layout: str = "qkv_major"):
     """Plain forward in the bf16 kernel's order: per chunk of query rows,
     one sweep over tiles of `key_tile` keys with the running max m (raw
     scores) and sum l; p = 2^(s * scale * log2 e - m * scale * log2 e),
     rounded to qkv's dtype before P.V, o and l rescaled by
     2^((m_old - m) * scale * log2 e) when m grows; out = round(o / l) and
-    lse = m * scale + log l. Returns (out (B, N, C) in qkv's dtype, lse
+    lse = m * scale + log l. `key_tile` defaults to the kernel's at d
+    (`sm90_key_tile`). Returns (out (B, N, C) in qkv's dtype, lse
     (B, heads, N) f32)."""
     B, N, C3 = qkv.shape
     q, k, v, d, scale = _heads_split(qkv, heads, layout)
+    key_tile = key_tile or sm90_key_tile(d)
     sl2 = scale * LOG2E
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
@@ -437,7 +487,7 @@ def _smem_need(d: int, dtype: torch.dtype, backward: bool, limit: int) -> int:
     card of `limit` bytes a block (the CUDA cores' smallest tile where none
     fits)."""
     lib = _lib()
-    if dtype == torch.float32 or d not in HEAD_DIMS:
+    if not wgmma_width(d, dtype):
         warps = lib.tiled_attention_warps(d, int(backward), limit) or 1
         return lib.tiled_attention_smem_bytes(d, int(backward), warps)
     passes = (0, 1, 2) if backward else (0,)  # the backward may run the forward
@@ -445,14 +495,10 @@ def _smem_need(d: int, dtype: torch.dtype, backward: bool, limit: int) -> int:
 
 
 def _device(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> int:
-    """CUDA device index of qkv, after checking that K4 takes its head
-    width, that its shared memory fits the card and that qkv is 16-byte
-    aligned."""
+    """CUDA device index of qkv, after checking that K4's shared memory
+    fits the card and that qkv is 16-byte aligned."""
     B, N, C3 = qkv.shape
     d = C3 // 3 // heads
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head width d={d} not supported (K4 takes d <= "
-                         f"{MAX_HEAD_DIM})")
     device = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
     limit = max_shared_memory(device)
     need = _smem_need(d, qkv.dtype, backward, limit)
@@ -506,8 +552,8 @@ def tiled_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False,
     """K4 forward on a checked qkv: (out, lse). The plain version for a CPU
     tensor (or under `plain_versions()`), else one kernel launch through the
     `probpose::tiled_attention_fwd` op; lse, the (B, heads, N) f32 row
-    log-sum-exp, only on the wgmma route (bf16, d in HEAD_DIMS) on the
-    card with `with_lse`, else None."""
+    log-sum-exp, only on the wgmma route (`wgmma_width`) on the card with
+    `with_lse`, else None."""
     if kernels.use_plain(qkv, "tiled_attention"):
         return tiled_attention_reference(qkv, heads, layout=layout), None
     out, lse = torch.ops.probpose.tiled_attention_fwd(qkv, heads, with_lse,
@@ -550,9 +596,10 @@ def short_forward(qkv: torch.Tensor, heads: int, with_lse: bool = False,
         return out, lse if with_lse else None
     B, N, C3 = qkv.shape
     d = C3 // 3 // heads
-    if qkv.dtype != torch.bfloat16 or d not in HEAD_DIMS or N > SHORT_MAX_N:
-        raise ValueError(f"short_forward: takes bf16 with d in {HEAD_DIMS} and N <= "
-                         f"{SHORT_MAX_N}, got N={N}, d={d} ({qkv.dtype})")
+    if not wgmma_width(d, qkv.dtype) or N > SHORT_MAX_N:
+        raise ValueError(f"short_forward: takes bf16 with d a multiple of 8 in "
+                         f"[{WGMMA_MIN_D}, {WGMMA_MAX_D}] and N <= {SHORT_MAX_N}, got N={N}, "
+                         f"d={d} ({qkv.dtype})")
     out, lse = torch.ops.probpose.short_attention_fwd(qkv, heads, with_lse,
                                                       layout == "head_major")
     return out, lse if with_lse else None

@@ -170,7 +170,7 @@ def test_packed_attention_autograd_on_card(cuda_device, dtype):
     (77, 4, 32, "sm90 short"),
     (50, 2, 128, "sm90 short"),
     (300, 2, 64, "sm90 tiled"),     # N above the short forward's 256
-    (96, 3, 48, "K1 CUDA cores"),   # d outside {32, 64, 128}
+    (96, 3, 48, "sm90 short"),      # a multiple of 8: the wgmma kernels
 ])
 def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -188,7 +188,7 @@ def test_packed_attention_kernel_paths_bf16(cuda_device, N, heads, d, path):
     (200, 2, 64, torch.bfloat16, "sm90 tiled"),  # queries/keys past a 64-row tile
     (77, 4, 32, torch.bfloat16, "sm90 tiled"),
     (300, 2, 64, torch.bfloat16, "sm90 tiled"),  # N above 256
-    (96, 3, 48, torch.bfloat16, "K1 CUDA cores"),  # d outside {32, 64, 128}
+    (96, 3, 48, torch.bfloat16, "sm90 tiled"),  # a multiple of 8: the wgmma kernels
     (192, 2, 128, torch.bfloat16, "sm90 tiled"),  # ran on CUDA cores before
     (77, 3, 40, torch.float32, "K1 CUDA cores"),
 ])
@@ -207,16 +207,24 @@ def test_packed_attention_backward_kernel_paths(cuda_device, N, heads, d, dtype,
 def test_packed_attention_kernel_refuses_unsupported(cuda_device):
     with pytest.raises(TypeError):
         packed_attention(torch.zeros(1, 8, 96, dtype=torch.float16, device=cuda_device), 2)
-    # K4 takes head widths up to 256, so past K1's shared memory
-    # packed_attention has no kernel for d = 272 and says so
-    with pytest.raises(ValueError, match="head width"):
-        tiled_attention(torch.zeros(1, 4096, 3 * 544, device=cuda_device), 2)
+    # d = 272 past K1's shared memory once had no kernel; K4's CUDA cores
+    # take it now (fault 13), so these shapes run and meet the plain versions
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    qkv = torch.randn(1, 4096, 3 * 544, generator=g, device=cuda_device)
+    out = tiled_attention(qkv, 2)
+    ref = tiled_attention_reference(qkv, 2)
+    assert max_err(out, ref) <= bound(ref)
     for dtype in (torch.float32, torch.bfloat16):
-        qkv = torch.zeros(1, 1024, 3 * 544, device=cuda_device, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="no kernel"):
-            packed_attention(qkv, 2)
-        with pytest.raises(NotImplementedError, match="no kernel"):
-            packed_attention_backward(qkv, qkv[..., :544].contiguous(), 2)
+        assert kernel_path(1024, 272, dtype) == kernel_path(1024, 272, dtype, True) \
+            == "K4 CUDA cores"
+        qkv = torch.randn(1, 1024, 3 * 544, generator=g, device=cuda_device).to(dtype)
+        dout = qkv[..., :544].contiguous()
+        out = packed_attention(qkv, 2)
+        ref = packed_attention_reference(qkv, 2)
+        assert max_err(out, ref) <= bound(ref)
+        got = packed_attention_backward(qkv, dout, 2)
+        dref = packed_attention_bwd_reference(qkv, dout, 2)
+        assert max_err(got, dref) <= bound(dref)
     # the short forward takes no N above 256
     with pytest.raises(ValueError, match="N <= 256"):
         short_forward(torch.zeros(1, 300, 3 * 128, device=cuda_device, dtype=torch.bfloat16), 2)
@@ -613,7 +621,7 @@ def to_head_major(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 @pytest.mark.parametrize("fn,B,N,heads,d,dtype", [
     ("packed", 16, 192, 6, 64, torch.bfloat16),   # sm90 short forward, sm90 tiled backward
     ("packed", 3, 300, 2, 64, torch.bfloat16),    # sm90 tiled both ways
-    ("packed", 5, 96, 3, 48, torch.bfloat16),     # K1 CUDA cores
+    ("packed", 5, 96, 3, 48, torch.bfloat16),     # sm90 short, d = 48
     ("packed", 4, 192, 6, 64, torch.float32),     # K1 CUDA cores, f32
     ("packed", 2, 130, 4, 32, torch.bfloat16),
     ("tiled", 2, 2304, 6, 64, torch.bfloat16),    # K4 wgmma at 768 x 768
@@ -1567,12 +1575,14 @@ def k4_case(g, device, B, N, heads, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("d", [16, 48, 96, 112, 160, 256])
 def test_k4_cuda_cores_at_every_head_width(cuda_device, d, dtype):
-    """Past K1's shared memory every d <= 256 routes to K4's CUDA cores,
-    forward and backward; both meet K1's bound against the TPU-order plain
-    versions, the backward gives the same bits twice, and the head-major
-    layout gives the qkv-major run's numbers at its columns."""
+    """Past K1's shared memory every f32 d routes to K4's CUDA cores and
+    every bf16 d here (multiples of 8) to the wgmma kernels, forward and
+    backward; both meet K1's bound against the TPU-order plain versions,
+    the backward gives the same bits twice, and the head-major layout gives
+    the qkv-major run's numbers at its columns."""
     N = 2400 if dtype == torch.bfloat16 else 1500
-    assert kernel_path(N, d, dtype) == kernel_path(N, d, dtype, True) == "K4 CUDA cores"
+    want = "sm90 tiled" if dtype == torch.bfloat16 else "K4 CUDA cores"
+    assert kernel_path(N, d, dtype) == kernel_path(N, d, dtype, True) == want
     g = torch.Generator(device=cuda_device).manual_seed(40 + d)
     qkv, dout = k4_case(g, cuda_device, 1, N, 2, d, dtype)
     f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
@@ -1597,7 +1607,7 @@ def test_cuda_core_tiles_match_the_library(cuda_device):
     from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import _lib
 
     limit = max_shared_memory(0)
-    for d in (1, 16, 48, 80, 128, 129, 160, 224, 225, 256, 257):
+    for d in (1, 16, 48, 80, 128, 129, 160, 224, 225, 256, 257, 320, 1024):
         for bwd in (0, 1):
             w = cuda_core_warps(d, bool(bwd), limit)
             assert _lib().tiled_attention_warps(d, bwd, limit) == w, (d, bwd)
@@ -1639,6 +1649,162 @@ def test_d80_wgmma_kernels(cuda_device, layout):
         assert max_err(got, oref) <= bound(oref)
         dref = tiled_attention_bwd_reference(qkv, dout, 16, layout=layout)
         assert max_err(got, dref) <= bound(dref)
+
+
+# --------------------------------------------------------------------------
+# bf16 attention at every head width that is a multiple of 8 on the wgmma
+# kernels (ViT-g's d = 88 among them), and fault 13: K4's CUDA cores past
+# d = 256.
+
+WGMMA_WIDTHS = [16, 24, 40, 48, 56, 72, 88, 96, 104, 112, 136, 160, 184, 192, 200, 232, 248, 256]
+
+
+@pytest.mark.cuda
+def test_sm90_smem_matches_the_library(cuda_device):
+    """The route's count of the short wgmma forward's shared memory is the
+    library's at every width it takes, the tiled kernels fit the card at
+    every width (the route gives them every bf16 multiple of 8), and the
+    library refuses the other widths."""
+    from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import _lib, short_smem_bytes
+
+    limit = max_shared_memory(0)
+    for d in range(8, 265, 4):
+        takes = d % 8 == 0 and 16 <= d <= 256
+        for p in (0, 1, 2):
+            got = _lib().tiled_attention_sm90_smem_bytes(d, p)
+            assert (0 < got <= limit) if takes else got == -1, (d, p, got)
+        for N in (1, 64, 65, 192, 193, 256):
+            assert _lib().short_attention_sm90_smem_bytes(d, N) == \
+                (short_smem_bytes(d, N) if takes else -1), (d, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv_major", "head_major"])
+@pytest.mark.parametrize("d", WGMMA_WIDTHS)
+def test_wgmma_kernels_at_every_width(cuda_device, d, layout):
+    """bf16 at d: the short forward at N = 192 (where it fits) against the
+    TPU-order plain version (context and lse), the tiled forward at N = 300
+    against both orders, the backward from the saved (out, lse) at each N
+    against both orders, each the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(80 + d)
+    heads = 3
+    for B, N in ((4, 192), (2, 300)):
+        qkv, dout = k4_case(g, cuda_device, B, N, heads, d, torch.bfloat16)
+        if layout == "head_major":
+            qkv = to_head_major(qkv, heads)
+        path = kernel_path(N, d, torch.bfloat16)
+        assert path == ("sm90 short" if N <= 256 else "sm90 tiled")
+        assert kernel_path(N, d, torch.bfloat16, backward=True) == "sm90 tiled"
+        if N <= 256:
+            out, lse = short_forward(qkv, heads, True, layout)
+            ref, lse_ref = short_attention_reference(qkv, heads, layout)
+        else:
+            out, lse = tiled_forward(qkv, heads, True, layout)
+            ref, lse_ref = tiled_attention_online_reference(qkv, heads, layout=layout)
+            plain = tiled_attention_reference(qkv, heads, layout=layout)
+            assert max_err(out, plain) <= bound(plain)
+        again = (short_forward if N <= 256 else tiled_forward)(qkv, heads, True, layout)
+        torch.cuda.synchronize()
+        assert max_err(out, ref) <= bound(ref), (N, max_err(out, ref))
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(1.0, lse_ref.abs().max().item())
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        got = tiled_attention_backward(qkv, dout, heads, out, lse, layout=layout)
+        twice = tiled_attention_backward(qkv, dout, heads, out, lse, layout=layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, twice)
+        oref = tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse, layout=layout)
+        assert max_err(got, oref) <= bound(oref), (N, max_err(got, oref))
+        dref = tiled_attention_bwd_reference(qkv, dout, heads, layout=layout)
+        assert max_err(got, dref) <= bound(dref), (N, max_err(got, dref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv_major", "head_major"])
+@pytest.mark.parametrize("d", [24, 88, 248])
+def test_wgmma_widths_read_and_write_no_neighbour(cuda_device, d, layout):
+    """d = 8 (mod 16): the last 16-column box of a head holds 8 columns of
+    the next slot. With head 1's q, k, v and dO all NaN, every other head's
+    context and gradients (short forward, tiled forward, backward) keep the
+    bits of the clean run, and head 1's own columns are all NaN: nothing of
+    a neighbour is read, and no block writes into another's columns."""
+    g = torch.Generator(device=cuda_device).manual_seed(90 + d)
+    heads = 3
+    for B, N in ((2, 192), (2, 300)):
+        qkv, dout = k4_case(g, cuda_device, B, N, heads, d, torch.bfloat16)
+        bad = qkv.clone().unflatten(-1, (3, heads, d))
+        bad_do = dout.clone().unflatten(-1, (heads, d))
+        bad[:, :, :, 1] = float("nan")
+        bad_do[:, :, 1] = float("nan")
+        bad, bad_do = bad.flatten(-3), bad_do.flatten(-2)
+        if layout == "head_major":
+            qkv, bad = to_head_major(qkv, heads), to_head_major(bad, heads)
+        fwd = short_forward if N <= 256 else tiled_forward
+        runs = []
+        for x, do in ((qkv, dout), (bad, bad_do)):
+            out, lse = fwd(x, heads, True, layout)
+            dx = tiled_attention_backward(x, do, heads, out, lse, layout=layout)
+            runs.append((out.unflatten(-1, (heads, d)), dx))
+        torch.cuda.synchronize()
+        (out0, dx0), (out1, dx1) = runs
+        for h in (0, 2):
+            assert torch.equal(out0[:, :, h], out1[:, :, h]), h
+        assert torch.isnan(out1[:, :, 1]).all()
+        if layout == "head_major":
+            dx0, dx1 = (t.unflatten(-1, (heads, 3, d)).transpose(2, 3) for t in (dx0, dx1))
+        else:
+            dx0, dx1 = (t.unflatten(-1, (3, heads, d)) for t in (dx0, dx1))
+        for h in (0, 2):
+            assert torch.equal(dx0[:, :, :, h], dx1[:, :, :, h]), h
+        assert torch.isnan(dx1[:, :, :, 1]).all()
+
+
+@pytest.mark.cuda
+def test_k6_at_d88(cuda_device):
+    """K6 (fused_attention) at ViT-g's d = 88 runs the short wgmma forward,
+    one tensor map per view, with K1's bits, within K1's bound of its plain
+    version."""
+    g = torch.Generator(device=cuda_device).manual_seed(95)
+    qkv = torch.randn(8, 192, 3 * 16 * 88, generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.unflatten(-1, (3, 16, 88)).unbind(2)
+    f0, s0 = fused_attention.launches, short_forward.launches
+    out = fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches - f0 == 1 and short_forward.launches == s0
+    ref = fused_attention_reference(q, k, v)
+    assert max_err(out, ref) <= bound(ref)
+    assert torch.equal(out.flatten(-2), packed_attention(qkv, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [100, 272, 320, 512, 1024])
+def test_k4_cuda_cores_past_256(cuda_device, d, dtype):
+    """Fault 13: K4's CUDA-core kernels take every head width, here past 256
+    (and bf16 d = 100, not a multiple of 8), forward and backward, at N =
+    192 and 1024, both layouts: within K1's bound of the TPU-order plain
+    versions, the backward the same bits twice. packed_attention routes
+    every such shape to a kernel (K1's CUDA cores where they fit)."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + d)
+    for N in (192, 1024):
+        assert kernel_path(N, d, dtype) in ("K1 CUDA cores", "K4 CUDA cores")
+        assert kernel_path(1024, d, dtype) == "K4 CUDA cores"
+        qkv, dout = k4_case(g, cuda_device, 1, N, 2, d, dtype)
+        f0, b0 = tiled_attention.launches, tiled_attention_backward.launches
+        out = tiled_attention(qkv, 2)
+        got = tiled_attention_backward(qkv, dout, 2)
+        again = tiled_attention_backward(qkv, dout, 2)
+        torch.cuda.synchronize()
+        assert (tiled_attention.launches - f0, tiled_attention_backward.launches - b0) == (1, 2)
+        ref = tiled_attention_reference(qkv, 2)
+        assert max_err(out, ref) <= bound(ref)
+        dref = tiled_attention_bwd_reference(qkv, dout, 2)
+        assert max_err(got, dref) <= bound(dref)
+        assert torch.equal(got, again)
+        hm = to_head_major(qkv, 2)
+        assert torch.equal(tiled_attention(hm, 2, "head_major"), out)
+        routed = packed_attention(qkv, 2)
+        pref = packed_attention_reference(qkv, 2)
+        assert max_err(routed, pref) <= bound(pref)
 
 
 @pytest.mark.cuda

@@ -2,12 +2,13 @@
 against the JAX package, on the CPU.
 
 `attention_route` is a pure function of (N, d, dtype, the card's shared
-memory): the trunks' bf16 shapes (d in {32, 64, 80, 128}, the vit-h
-preset's d = 80 among them) go to the wgmma kernels of
-csrc/tiled_attention_sm90.cu, float32 and other widths stay on K1's CUDA
-cores, and past K1's shared memory every other d <= 256 goes to K4's
-CUDA-core kernels, as JAX's `packed_attention` hands such shapes to its
-row-tiled kernel. The plain versions of the wgmma design (the short forward
+memory): bf16 at every head width that is a multiple of 8 from 16 to 256
+(the vit-h preset's d = 80 and ViT-g's d = 88 among them) goes to the wgmma
+kernels of csrc/tiled_attention_sm90.cu where their tiles fit, float32 and
+other widths stay on K1's CUDA cores, and past K1's shared memory every
+other d, past 256 too, goes to K4's CUDA-core kernels, as JAX's
+`packed_attention` hands such shapes to its row-tiled kernel (fault 13:
+the port once had no kernel past d = 256). The plain versions of the wgmma design (the short forward
 in the TPU kernel's order, the tiled forward's online order, and the
 backward from the saved (out, lse)) and of K4's CUDA-core kernels (the TPU
 order) are held against JAX's `packed_attention` in interpret mode; inputs
@@ -21,13 +22,13 @@ import pytest
 import torch
 
 from probpose_pytorch_tpu.ops.pallas import packed_attention as jax_packed_attention
+from probpose_pytorch_tpu.ops.pallas.attention_tiled import tiled_feasible_bq
 from probpose_pytorch_tpu_torch.ops.kernels.attention import (
     packed_attention,
     packed_attention_reference,
 )
 from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     MAX_GRID_Z,
-    MAX_HEAD_DIM,
     SHORT_MAX_N,
     attention_route,
     batch_chunks,
@@ -35,6 +36,7 @@ from probpose_pytorch_tpu_torch.ops.kernels.attention_tiled import (
     cuda_core_warps,
     k1_smem_bytes,
     short_attention_reference,
+    short_smem_bytes,
     short_forward,
     tiled_attention,
     tiled_attention_bwd_reference,
@@ -69,7 +71,7 @@ def k1_bound(ref: np.ndarray) -> float:
     ("flagship_f32", 192, 64, F32, "K1 CUDA cores", "K1 CUDA cores"),
     ("fieldsynth_f32", 576, 32, F32, "K1 CUDA cores", "K1 CUDA cores"),
     ("768sq_f32", 2304, 64, F32, "K4 CUDA cores", "K4 CUDA cores"),
-    ("d48", 96, 48, BF16, "K1 CUDA cores", "K1 CUDA cores"),
+    ("d48", 96, 48, BF16, "sm90 short", "sm90 tiled"),  # every multiple of 8 on wgmma
     # vit-h (d = 80) in bf16: the wgmma kernels at every N
     ("vith_645", 645, 80, BF16, "sm90 tiled", "sm90 tiled"),
     ("vith_646", 646, 80, BF16, "sm90 tiled", "sm90 tiled"),
@@ -77,11 +79,15 @@ def k1_bound(ref: np.ndarray) -> float:
     ("vith_192", 192, 80, BF16, "sm90 short", "sm90 tiled"),
     ("vith_f32_340", 340, 80, F32, "K1 CUDA cores", "K1 CUDA cores"),
     ("vith_f32_341", 341, 80, F32, "K4 CUDA cores", "K4 CUDA cores"),
-    # a width no preset has, past K1's shared memory: K4's CUDA cores
-    ("d48_1024", 1024, 48, BF16, "K4 CUDA cores", "K4 CUDA cores"),
+    # a width no preset has, past K1's shared memory: K4's CUDA cores in
+    # f32, the wgmma kernels in bf16
+    ("d48_1024", 1024, 48, BF16, "sm90 tiled", "sm90 tiled"),
     ("d48_f32_1024", 1024, 48, F32, "K4 CUDA cores", "K4 CUDA cores"),
-    # past K4's widest head (256) and K1's shared memory: no kernel
-    ("d272_1024", 1024, 272, BF16, "no kernel (d=272, N=1024)", "no kernel (d=272, N=1024)"),
+    # past 256 and K1's shared memory: K4's CUDA cores (fault 13)
+    ("d272_1024", 1024, 272, BF16, "K4 CUDA cores", "K4 CUDA cores"),
+    # ViT-g/14 (16 heads of 88) at 256 x 192 and 768 x 768
+    ("vitg_192", 192, 88, BF16, "sm90 short", "sm90 tiled"),
+    ("vitg_2304", 2304, 88, BF16, "sm90 tiled", "sm90 tiled"),
 ])
 def test_route_of_shipped_shapes(name, N, d, dtype, fwd, bwd):
     assert attention_route(N, d, dtype, H100_SMEM) == fwd
@@ -95,7 +101,7 @@ def test_every_head_width_up_to_256_has_a_kernel(N, dtype):
     backward, as JAX's packed_attention takes every d; K4's CUDA-core tile
     shrinks (64 -> 32 -> 16 query rows) where d's f32 tiles need it. The
     vit-h rows (bf16, d = 80) take the wgmma kernels."""
-    for d in range(1, MAX_HEAD_DIM + 1):
+    for d in range(1, 257):
         for backward in (False, True):
             route = attention_route(N, d, dtype, H100_SMEM, backward)
             assert not route.startswith("no kernel"), (d, backward, route)
@@ -112,13 +118,16 @@ def test_cuda_core_tile_at_the_widest_heads():
     """K4's CUDA-core bytes (csrc/tiled_attention.cu: Geo; the card test
     holds them to the library's): 249,600 for the backward at d = 160 with
     four warps and 397,056 at d = 256, past an H100's 232,448, so those
-    take two and one; the forward takes four warps up to d = 225."""
+    take two and one; the forward takes four warps up to d = 225. Past
+    256 (fault 13) the tiles hold 128 of the head's columns at a time, and
+    four warps fit both ways."""
     assert cuda_core_smem_bytes(160, 4, True) == 249600
     assert cuda_core_smem_bytes(256, 4, True) == 397056
     assert cuda_core_smem_bytes(256, 4, False) == 263936
     assert [cuda_core_warps(d, True, H100_SMEM) for d in (128, 160, 256)] == [4, 2, 1]
     assert [cuda_core_warps(d, False, H100_SMEM) for d in (225, 226, 256)] == [4, 2, 2]
-    assert cuda_core_warps(257, False, H100_SMEM) == 0
+    assert cuda_core_warps(257, False, H100_SMEM) == 4
+    assert cuda_core_smem_bytes(1024, 4, True) == cuda_core_smem_bytes(128, 4, True) == 200448
 
 
 @pytest.mark.parametrize("B,want", [
@@ -251,10 +260,11 @@ def test_d80_k4_route_at_small_n():
 
 
 def test_no_kernel_shape_is_plain_on_the_cpu():
-    """A width no kernel takes past K1's shared memory (d = 272, N = 1024)
-    raises on the card (tests/test_torch_cuda.py); on the CPU the wrapper
-    is the plain version, as on every route."""
-    assert attention_route(1024, 272, BF16, H100_SMEM).startswith("no kernel")
+    """A width that once had no kernel past K1's shared memory (d = 272,
+    N = 1024; fault 13) routes to K4's CUDA cores, which the card runs
+    (tests/test_torch_cuda.py); on the CPU the wrapper is the plain
+    version, as on every route."""
+    assert attention_route(1024, 272, BF16, H100_SMEM) == "K4 CUDA cores"
     qkv, _, _, _ = _inputs((1, 1024, 3 * 2 * 272), 25)
     assert torch.equal(packed_attention(qkv, 2), packed_attention_reference(qkv, 2))
 
@@ -310,3 +320,84 @@ def test_d80_wgmma_design_matches_jax(B, N, heads, dtype):
     for o, r in ((out, ref), (got, gref)):
         tol = k1_bound(r) if dtype == "bf16" else 1e-5 * max(1.0, float(np.abs(r).max()))
         np.testing.assert_allclose(o.float().numpy(), r, rtol=0, atol=tol)
+
+
+# --------------------------------------------------------------------------
+# fault 13 and the wgmma kernels at every multiple of 8
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [64, 192, 1024, 2304])
+def test_route_at_every_width_to_1024(N, dtype):
+    """Every head width d = 1 .. 1024 has a kernel both ways on an H100;
+    bf16 takes the wgmma kernels exactly at the multiples of 8 in
+    [16, 256] (the short forward up to N = 256 where its K and V fit, the
+    tiled forward and backward else, whose tiles fit an H100 at every
+    width), every other shape a CUDA-core kernel whose shared memory
+    fits."""
+    for d in range(1, 1025):
+        wgmma = dtype == BF16 and d % 8 == 0 and 16 <= d <= 256
+        for backward in (False, True):
+            route = attention_route(N, d, dtype, H100_SMEM, backward)
+            if wgmma:
+                short = not backward and N <= 256 and short_smem_bytes(d, N) <= H100_SMEM
+                assert route == ("sm90 short" if short else "sm90 tiled"), (d, route)
+            elif route == "K1 CUDA cores":
+                assert k1_smem_bytes(N, d, dtype) <= H100_SMEM
+            else:
+                assert route == "K4 CUDA cores", (d, backward, route)
+                w = cuda_core_warps(d, backward, H100_SMEM)
+                assert w and cuda_core_smem_bytes(d, w, backward) <= H100_SMEM
+
+
+def test_wgmma_shared_memory_borders():
+    """The short wgmma forward's bytes (csrc/tiled_attention_sm90.cuh; the
+    card test holds them to the library's, and the tiled kernels' to the
+    card's limit at every width): the short forward holds the head's whole
+    K and V, which fits at N = 192 up to d = 256 and at N = 256 up to
+    d = 192, so d >= 200 at N > 192 takes the tiled forward."""
+    assert short_smem_bytes(256, 192) == 230408 <= H100_SMEM
+    assert short_smem_bytes(192, 256) == 222216 <= H100_SMEM < short_smem_bytes(200, 256)
+    assert attention_route(192, 256, BF16, H100_SMEM) == "sm90 short"
+    assert attention_route(193, 256, BF16, H100_SMEM) == "sm90 tiled"
+    assert attention_route(256, 192, BF16, H100_SMEM) == "sm90 short"
+    assert attention_route(256, 200, BF16, H100_SMEM) == "sm90 tiled"
+    # the padded width sets the bytes: d = 88 takes Dp = 96's tiles
+    assert short_smem_bytes(88, 192) == short_smem_bytes(96, 192)
+
+
+@pytest.mark.parametrize("N,d", [(192, 320), (192, 512), (1024, 320), (1024, 512),
+                                 (2304, 320), (2304, 512)])
+def test_fault13_route_where_jax_runs_a_kernel(N, d):
+    """Fault 13: where JAX's packed_attention runs its row-tiled Pallas
+    kernel (tiled_feasible_bq > 0 for the single-head qkv) at d > 256, the
+    port routes to a kernel too, forward and backward, in both dtypes."""
+    for bwd in (False, True):
+        if tiled_feasible_bq((1, N, 3 * d), 1, bwd=bwd) == 0:
+            continue
+        for dtype in (BF16, F32):
+            route = attention_route(N, d, dtype, H100_SMEM, bwd)
+            assert route in ("K1 CUDA cores", "K4 CUDA cores"), (N, d, bwd, route)
+    assert tiled_feasible_bq((1, 192, 3 * 512), 1, bwd=True) == 512
+    assert tiled_feasible_bq((1, 1024, 3 * 512), 1, bwd=False) == 512
+    assert attention_route(1024, 512, BF16, H100_SMEM) == "K4 CUDA cores"
+
+
+@pytest.mark.parametrize("d", [24, 88, 104, 320])
+def test_plain_versions_match_jax_at_new_widths(d):
+    """The plain versions the new kernels are held to, at widths that
+    reach them (d = 24, 88, 104: the wgmma kernels; 320: K4's CUDA cores),
+    against JAX's packed_attention and its vjp in interpret mode, bf16:
+    the TPU order (tiled_attention_reference and its backward), the short
+    forward's order at N <= 256 and the tiled forward's online order past
+    it with the backward from the saved (out, lse), within K1's bound."""
+    heads = 2
+    for N in (40, 300):
+        qkv, dout, jq, jo = _inputs((1, N, 3 * heads * d), 60 + d + N)
+        ref, gref = _jax_case(qkv, dout, heads, jq, jo)
+        out, lse = _design_forward(qkv, heads)
+        pairs = ((tiled_attention_reference(qkv, heads), ref), (out, ref),
+                 (tiled_attention_bwd_reference(qkv, dout, heads), gref),
+                 (tiled_attention_online_bwd_reference(qkv, dout, heads, out, lse), gref))
+        for got, want in pairs:
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=k1_bound(want))
