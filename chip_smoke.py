@@ -165,7 +165,7 @@ with weights drawn from a seeded generator:
            dispatch on 60 frames. Then, not gated: predict_frame's times,
            a dispatch's device time at 1 to 512 boxes and the serving
            record's entry derived from it, crop_resize's share and the peak
-           memory at bucket 256, the bf16 server under 32 clients x 16
+           memory at bucket 256, the bf16 server under 32 clients x 8
            requests (crops/s, p50/p99, mean batch), the server CLI's start
            and stop, the video CLI's frames/s and the phase's wall time
 
@@ -346,20 +346,23 @@ with weights drawn from a seeded generator:
            packed_attention timed at bf16 d = 48 (the wgmma route since
            phase 20's redesign); K5's
            CUDA-core kernels at (C, hidden) in {(64, 128), (200, 600),
-           (576, 2304), (1536, 6144)} in both dtypes, forward and the
-           seven cotangents (bf16 also against the kernel-order twin); a
+           (576, 2304), (1536, 6144)} in f32 and at each plus 4 (no
+           multiples of 8: the widths bf16 keeps on the CUDA cores since
+           phase 21's redesign) in bf16, forward and the seven cotangents
+           (bf16 also against the kernel-order twin); a
            batch of 70,000 through K1, K4 and K6; int8 at M = 5, K = 60
            card == CPU; the d = 80 short forward at (64, 192, 3840), the
            tiled forward at (8, 2304, 3840) and the backward from the saved
            out and lse against both plain orders, twice bit for bit, timed
            against the plain versions, SDPA and the CUDA-core kernels they
-           replace; vit-nano with mlp_impl="fused" served (2 K5 a forward)
-           and stepped 3 times (2 K5 each way a step); vit-h (1280 wide,
-           16 heads of 80, bf16, attn_impl="fused", depth cut from 32 to 8
+           replace; vit-nano with mlp_impl="fused" served (2 K5 a forward,
+           on its wgmma kernels since phase 21's redesign) and stepped 3
+           times (2 K5 each way a step); vit-h (1280 wide,
+           16 heads of 80, bf16, attn_impl="fused", depth cut from 32 to 4
            for time: phase 20 runs ViT-g at full depth) served at 256 x 192
-           (8 short forwards, 1 K2 a forward, no CUDA-core attention),
-           trained by Trainer.fit with remat for 5 steps at B = 32 (16 short
-           forwards, 8 backwards from the saved out and lse a step; losses
+           (4 short forwards, 1 K2 a forward, no CUDA-core attention),
+           trained by Trainer.fit with remat for 5 steps at B = 32 (8 short
+           forwards, 4 backwards from the saved out and lse a step; losses
            finite and falling; the final save skipped), its f32 step at
            depth 2 held to the plain step (phase 5's gates), and served at
            768 x 768 at depth 4 (a K4 wgmma forward a block)
@@ -388,6 +391,24 @@ with weights drawn from a seeded generator:
            kept in memory), ms a step and peak memory, its f32 step at
            depth 2 held to the plain step, and served at 768 x 768 at
            depth 4 (a tiled wgmma forward a block at d = 88)
+  phase 21 bf16 K5 (fused LayerNorm + MLP) on the wgmma kernels at every
+           width that is a multiple of 8: phase 0 holds every kernel of
+           csrc/fused_mlp_sm90.cu to no spills (k5_ptxas); ViT-g's (1408,
+           6144) at 12,288 and 6,144 rows, both GELU forms, the forward
+           within K1's bound of the plain version, the seven cotangents
+           within phase 7's bound of the plain backward and two ulps of
+           the kernel-order twin, twice bit for bit, the scratch as the
+           library counts it; the bits at the four preset widths (C in
+           {384, 768, 1024, 1280}, two hidden widths each, 393 and 4,105
+           rows, both forms) against the parent commit's
+           (P21_PARENT_DIGESTS, scripts/k5_bits.py); K5 at (12288, 1408),
+           (6144, 1408) and (12288, 1536), hidden 6,144, timed against the
+           CUDA-core kernels it replaces (held to the plain versions
+           first), the dense half-block on cuBLAS and the plain versions;
+           ViT-g with mlp_impl="fused" served at full depth up to B = 64
+           (40 K5 forwards a forward) and trained by Trainer.fit for 3
+           remat steps at B = 32 (80 K5 forwards and 40 backwards a step),
+           ms a batch, ms a step and peak memory (under 80 GiB)
 
 `--attention-times` runs no phase: it times packed_attention's forward and
 its backward through autograd at the phases' attention shapes against
@@ -513,7 +534,7 @@ NMS_PAIRS = 7
 SERVER_CLIENTS = 8
 SERVER_REQUESTS = 3  # each client's, gated against the direct predictor
 LOAD_CLIENTS = 32
-LOAD_REQUESTS = 16
+LOAD_REQUESTS = 8
 MAX_REQUEST_BOXES = 12
 SWEEP_BATCHES = tuple(2**i for i in range(10))  # 1 .. 512
 THROUGHPUT_BATCHES = (64, 128, 256, 512)
@@ -1950,10 +1971,10 @@ def recipe_times(torch, dev, card: str) -> None:
         keypoints_visible=np.ones((TRAIN_BATCH, K), np.float32),
         keypoints_visibility=np.ones((TRAIN_BATCH, K), np.float32)))
     aug_ms, plain_ms = yardstick_ms(torch, lambda: trainer.train_step(trainer.state, db),
-                                    lambda: plain_step(trainer.state, db), iters=10, windows=5)
+                                    lambda: plain_step(trainer.state, db), iters=10, windows=3)
     say(f"phase 9 [{card}]: flagship bf16 step, B = {TRAIN_BATCH} frames of 480 x 640 on the "
         f"card: with the recipe's augmentation (flip, box jitter, colour) {aug_ms:.3f} ms, "
-        f"without {plain_ms:.3f} ms (CUDA events, medians of 5 windows of 10 steps, in turns); "
+        f"without {plain_ms:.3f} ms (CUDA events, medians of 3 windows of 10 steps, in turns); "
         f"augmentation {aug_ms - plain_ms:.3f} ms a step")
 
     mgr = CheckpointManager(RUN_DIR / "checkpoint_times", keep=1)
@@ -4071,16 +4092,24 @@ def phase14_times(torch, dev, card: str, root: Path, det_run: Path, bu_run: Path
             f"{ms:.3f} ms = {DET_BATCH / ms * 1e3:.1f} frames/s (CUDA events, mean of 10)")
 
 
-def phase14_doctor(card: str) -> None:
-    """Phase 14 (10): `python -m probpose_pytorch_tpu_torch.doctor` exits 0."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "probpose_pytorch_tpu_torch.doctor"],
-                          capture_output=True, text=True, cwd=REPO, timeout=300,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)))
-    for line in proc.stdout.strip().splitlines():
+def phase14_doctor_start() -> tuple:
+    """Phase 14 (10): `python -m probpose_pytorch_tpu_torch.doctor`, started
+    beside the phase's other work (a host-bound process of ~30 s)."""
+    proc = subprocess.Popen([sys.executable, "-m", "probpose_pytorch_tpu_torch.doctor"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    STARTED.append(proc)
+    return proc, time.perf_counter()
+
+
+def phase14_doctor_end(card: str, handle: tuple) -> None:
+    """The doctor started by phase14_doctor_start exits 0."""
+    proc, t0 = handle
+    out, err = proc.communicate(timeout=300)
+    for line in out.strip().splitlines():
         say(f"  doctor: {line}")
-    check(proc.returncode == 0, f"doctor exited {proc.returncode}: {proc.stderr[-2000:]}")
-    say(f"phase 14 [{card}]: doctor exit 0 in {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"doctor exited {proc.returncode}: {err[-2000:]}")
+    say(f"phase 14 [{card}]: doctor exit 0, {time.perf_counter() - t0:.1f} s after its start")
 
 
 def phase14(torch, dev, card: str) -> dict:
@@ -4091,6 +4120,7 @@ def phase14(torch, dev, card: str) -> dict:
     from probpose_pytorch_tpu_torch.detect import load_bottomup, load_detector
 
     t_phase = time.perf_counter()
+    doctor = phase14_doctor_start()
     work = RUN_DIR / "phase14"
     root = generate_coco_synth(work / "coco", DET_TRAIN_FRAMES, DET_VAL_FRAMES, DET_FRAME_HW,
                                seed=14)
@@ -4114,8 +4144,8 @@ def phase14(torch, dev, card: str) -> dict:
     launches["conv_pose"] = phase14_conv_pose(torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    phase14_doctor_end(card, doctor)
     phase14_times(torch, dev, card, root, det_run, bu_run)
-    phase14_doctor(card)
     say(f"phase 14: {time.perf_counter() - t_phase:.1f} s in all")
     return launches
 
@@ -4325,12 +4355,10 @@ def phase15_export(torch, dev, card: str, work: Path, det_run: Path, bu_run: Pat
             check(got == ops, f"{name}/{program.name}: ops {got}, expected {ops}")
 
 
-def phase15_serve_alone(torch, dev, card: str, work: Path, det_run: Path,
-                        bu_run: Path) -> dict:
+def phase15_serve_alone_start(torch, dev, work: Path, det_run: Path, bu_run: Path) -> tuple:
     """Phase 15 (2-4): each bundle served by a fresh process that imports no
-    model code: 12 short K1 forwards and 1 K2 a pose program call; after
-    its modules are checked, the same process runs the live predictors on
-    the same calls, and their outputs are held to the bundles'."""
+    model code, started beside the phase's front ends and data plane (its
+    ~60 s are host-bound loads); phase15_serve_alone_end checks it."""
     rng = np.random.default_rng(150)
     frame = rng.integers(0, 256, (*BUNDLE_HW, 3), dtype=np.uint8)
     np.savez(work / "inputs.npz", frame=frame, boxes1=camera_boxes(rng, 1, BUNDLE_HW),
@@ -4342,15 +4370,30 @@ def phase15_serve_alone(torch, dev, card: str, work: Path, det_run: Path,
         small_bucket=BUNDLE_SMALL_BUCKET)))
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", BUNDLE_CHILD, str(work), dev.type], cwd=REPO,
-                          capture_output=True, text=True, timeout=900,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)))
-    check(proc.returncode == 0, f"the bundle process failed:\n{proc.stderr[-4000:]}")
-    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    logs = [open(work / f"child_{k}.txt", "w") for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, "-c", BUNDLE_CHILD, str(work), dev.type], cwd=REPO,
+                            stdout=logs[0], stderr=logs[1], text=True,
+                            env=dict(os.environ, PYTHONPATH=str(REPO)))
+    STARTED.append(proc)
+    return proc, logs, time.perf_counter()
+
+
+def phase15_serve_alone_end(work: Path, handle: tuple) -> dict:
+    """The fresh process of phase15_serve_alone_start: 12 short K1 forwards
+    and 1 K2 a pose program call; after its modules are checked, the same
+    process runs the live predictors on the same calls, and their outputs
+    are held to the bundles'. Its call times shared the card with the front
+    ends."""
+    proc, logs, t0 = handle
+    proc.wait(timeout=900)
+    for f in logs:
+        f.close()
+    out, err = ((work / f"child_{k}.txt").read_text() for k in ("out", "err"))
+    check(proc.returncode == 0, f"the bundle process failed:\n{err[-4000:]}")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
     say(f"phase 15: the fresh process served {len(lines) - 2} bundle calls, then the live "
         f"predictors' same calls, in {time.perf_counter() - t0:.2f} s wall (start, kernel "
-        "library, loads)")
+        "library, loads; beside the front ends)")
     held = lines[-2]["modules"]
     check(held == [], f"the bundle process imported model code: {held}")
     check(lines[-1] == {"live": "done"}, "the bundle process did not run the live predictors")
@@ -4642,13 +4685,12 @@ def phase15(torch, dev, card: str) -> dict:
     phase15_export(torch, dev, card, work, det_run, bu_run)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = phase15_serve_alone(torch, dev, card, work, det_run, bu_run)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase15_frontends(torch, dev, card, work))
+    alone = phase15_serve_alone_start(torch, dev, work, det_run, bu_run)
+    launches = phase15_frontends(torch, dev, card, work)
     gc.collect()
     torch.cuda.empty_cache()
     phase15_dataplane(torch, dev, card, work)
+    launches.update(phase15_serve_alone_end(work, alone))
     say(f"phase 15: {time.perf_counter() - t_phase:.1f} s in all")
     return launches
 
@@ -6033,12 +6075,15 @@ P19_BF16_WIDTHS = (20, 44, 100, 108, 156, 252)
 # 1,414).
 P19_N = {"bfloat16": 2400, "float32": 1500}
 P19_MLP = ((64, 128), (200, 600), (576, 2304), (1536, 6144))
+# bf16 takes the wgmma kernels at every multiple of 8 since phase 21's
+# redesign: its CUDA-core widths here are P19_MLP's plus 4, no multiples of 8.
+P19_MLP_BF16 = tuple((C + 4, Hd + 4) for C, Hd in P19_MLP)
 P19_MLP_ROWS = 2 * 192 + 9
 P19_BATCH = 70000  # past the grid's 65,535
 P19_STEPS = 3
-# vit-h's 32 blocks cut to 8 (a run-time preset, as depth 2 and the 768 x
+# vit-h's 32 blocks cut to 4 (a run-time preset, as depth 2 and the 768 x
 # 768 depth are) for the smoke's time; phase 20 runs ViT-g at full depth.
-VITH_DEPTH = 8
+VITH_DEPTH = 4
 VITH_TRAIN_BATCH = 32
 VITH_TRAIN_STEPS = 5
 VITH_F32_DEPTH = 2
@@ -6088,6 +6133,41 @@ def cuda_core_attention(torch, qkv, heads: int, kind: str, dout=None):
                  C3 // 3, heads, 0, code, dev, s)
     check(err == 0, f"the {kind} CUDA-core kernel failed with cudaError {err}")
     return out
+
+
+def cuda_core_mlp(torch, a, dout=None, exact: bool = False):
+    """One call of K5's CUDA-core kernels (csrc/fused_mlp.cu) on K5's
+    arguments `a`, whatever `mlp_route` gives the shape: the output, or the
+    seven cotangents with `dout`. The yardstick the bf16 wgmma kernels
+    replace at widths past the four presets; timed, never on a path."""
+    from probpose_pytorch_tpu_torch.ops.kernels import mlp
+
+    x = a[0]
+    R, C = x.shape
+    Hd = a[3].shape[1]
+    _, w1t, w2t, (sc, bi, c1, c2), device = mlp._kernel_args(*a)
+    lib, code = mlp._lib(), mlp._DTYPES[x.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+    if dout is None:
+        out = torch.empty_like(x)
+        err = lib.fused_mlp_cc_fwd(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1t.data_ptr(),
+                                   c1.data_ptr(), w2t.data_ptr(), c2.data_ptr(), out.data_ptr(),
+                                   R, C, Hd, int(exact), code, device, stream)
+        check(err == 0, f"K5's CUDA-core forward failed with cudaError {err}")
+        return out
+    nbytes_ = mlp._cc_workspace_bytes(R, C, Hd)
+    work = torch.empty(nbytes_, dtype=torch.uint8, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw1t = torch.empty((Hd, C), dtype=x.dtype, device=x.device)
+    dw2t = torch.empty((C, Hd), dtype=x.dtype, device=x.device)
+    dscale, dbias, db2 = (torch.empty(C, **f32) for _ in range(3))
+    db1 = torch.empty(Hd, **f32)
+    ptrs = [t.data_ptr() for t in (x, sc, bi, w1t, c1, w2t, dout, dx, dscale, dbias, dw1t, db1,
+                                   dw2t, db2, work)]
+    err = lib.fused_mlp_cc_bwd(*ptrs, nbytes_, R, C, Hd, int(exact), code, device, stream)
+    check(err == 0, f"K5's CUDA-core backward failed with cudaError {err}")
+    return dx, dscale, dbias, dw1t.t(), db1, dw2t.t(), db2
 
 
 def phase19_widths(torch, card: str, g) -> dict:
@@ -6260,10 +6340,10 @@ def phase19_d80(torch, card: str, g) -> dict:
 
 
 def phase19_mlp(torch, card: str, g) -> dict:
-    """Fault 10: K5 at P19_MLP's widths in both dtypes on its CUDA-core
-    kernels, forward against the plain version (K1's bound), the seven
-    cotangents against the plain backward (phase 7's bound) and, in bf16,
-    the kernel-order twin (two ulps), twice bit for bit."""
+    """Fault 10: K5 on its CUDA-core kernels at P19_MLP's widths in f32 and
+    P19_MLP_BF16's in bf16, forward against the plain version (K1's bound),
+    the seven cotangents against the plain backward (phase 7's bound) and,
+    in bf16, the kernel-order twin (two ulps), twice bit for bit."""
     from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
         fused_ln_mlp,
         fused_ln_mlp_backward,
@@ -6278,7 +6358,7 @@ def phase19_mlp(torch, card: str, g) -> dict:
     R = P19_MLP_ROWS
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for C, Hd in P19_MLP:
+        for C, Hd in P19_MLP if dtype == torch.float32 else P19_MLP_BF16:
             check(mlp_route(C, Hd, dtype) == "CUDA cores", f"K5 ({C}, {Hd}) {name} route")
             a = p19_mlp_args(torch, g, dev, R, C, Hd, dtype)
             label = f"K5 CUDA cores x ({R}, {C}) hidden {Hd} {name}"
@@ -6313,8 +6393,9 @@ def p19_mlp_args(torch, g, dev, R: int, C: int, Hd: int, dtype):
 
 
 def phase19_vit_nano(torch, dev, card: str) -> dict:
-    """vit-nano with mlp_impl="fused" (C = 64, hidden 128: K5's CUDA cores)
-    served at REQUEST_SIZES and stepped P19_STEPS bf16 steps through
+    """vit-nano with mlp_impl="fused" (C = 64, hidden 128: K5's wgmma kernels
+    since phase 21's redesign, the CUDA cores before) served at
+    REQUEST_SIZES and stepped P19_STEPS bf16 steps through
     Trainer.fit: 2 K5 forwards (and 2 short attention forwards) a forward,
     2 K5 forwards and 2 backwards a step; then K5 at its step's rows timed
     against the plain version and the dense half-block."""
@@ -6332,7 +6413,7 @@ def phase19_vit_nano(torch, dev, card: str) -> dict:
     cfg = dataclasses.replace(train_config("bfloat16", 64), **fit_outputs("vit-nano"))
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone="vit-nano",
                                                              mlp_impl="fused"))
-    check(mlp_route(64, 128, torch.bfloat16) == "CUDA cores", "vit-nano's K5 route")
+    check(mlp_route(64, 128, torch.bfloat16) == "sm90", "vit-nano's K5 route")
     model = build_model(cfg.model, device=dev, seed=0)
     depth = len(model.backbone.blocks)
     predictor = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size)
@@ -6370,10 +6451,10 @@ def phase19_vit_nano(torch, dev, card: str) -> dict:
     rows = B * trainer.model.backbone.pos_embed.shape[1]
     a = mlp_inputs(torch, trainer.model.backbone.blocks[0], rows, g, dev)
     dout = torch.randn(rows, 64, generator=g, device=dev).to(torch.bfloat16)
-    f_err = gate(torch, f"K5 CUDA cores vit-nano x ({rows}, 64) forward", fused_ln_mlp(*a),
+    f_err = gate(torch, f"K5 sm90 vit-nano x ({rows}, 64) forward", fused_ln_mlp(*a),
                  fused_ln_mlp_reference(*a), phase=19)
     grads = fused_ln_mlp_backward(*a, dout)
-    b_err = max(gate(torch, f"K5 CUDA cores vit-nano backward {n}", got, ref, phase=19,
+    b_err = max(gate(torch, f"K5 sm90 vit-nano backward {n}", got, ref, phase=19,
                      bound=k5_grad_bound(ref))
                 for n, got, ref in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
                                        grads, fused_ln_mlp_bwd_reference(*a, dout)))
@@ -6386,7 +6467,7 @@ def phase19_vit_nano(torch, dev, card: str) -> dict:
     C, Hd = 64, 128
     f_bound = bound_ms(nbytes(*a, a[0]), 4 * rows * C * Hd)
     b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * rows * C * Hd)
-    say(f"phase 19 [{card}]: K5 CUDA cores x ({rows}, {C}) hidden {Hd} bf16: forward "
+    say(f"phase 19 [{card}]: K5 sm90 x ({rows}, {C}) hidden {Hd} bf16: forward "
         f"{f_ms:.4f} ms (plain {f_plain:.4f}, dense half-block {f_lib:.4f}, bound "
         f"{f_bound[0]:.4f}), backward {b_ms:.4f} ms (plain {b_plain:.4f}, dense "
         f"{b_lib:.4f}, bound {b_bound[0]:.4f})")
@@ -6576,8 +6657,9 @@ def phase19(torch, dev, card: str) -> dict:
 def phase19_kernels(p19: dict, p20: dict) -> list:
     """The kernels line's entries of phase 19: the d = 80 wgmma kernels
     (launches on the vit-h path), K4's CUDA cores at any d (timed by phase
-    20 at d = 48, where they ran bf16 before its redesign) and K5's at
-    other widths (vit-nano's step)."""
+    20 at d = 48, where they ran bf16 before its redesign) and K5's wgmma
+    kernels at vit-nano's (64, 128) (its step; the CUDA cores' before phase
+    21's redesign, which phase 21 times at ViT-g's widths)."""
     tiled_cu = "csrc/tiled_attention_sm90.cu"
     entries = []
     vith, d80 = p19["vith"], p19["d80"]
@@ -6615,17 +6697,16 @@ def phase19_kernels(p19: dict, p20: dict) -> list:
                                     bf16_widths=list(P19_BF16_WIDTHS), entry_point_only=True))
     nano = p19["nano"]
     for label, key, replaces, counter in (
-            ("K5 fused_ln_mlp forward, CUDA cores, other widths", "fwd", "mlp_kernel.py:49",
-             "k5f"),
-            ("K5 fused_ln_mlp backward, CUDA cores, other widths", "bwd", "mlp_kernel.py:57",
-             "k5b")):
+            ("K5 fused_ln_mlp forward, vit-nano (64, 128)", "fwd", "mlp_kernel.py:49", "k5f"),
+            ("K5 fused_ln_mlp backward, vit-nano (64, 128)", "bwd", "mlp_kernel.py:57", "k5b")):
         n = nano[key]
-        err = max(n["err"], p19["mlp"]["f_err" if key == "fwd" else "b_err"])
-        entries.append(kernel_entry(label, "cuda", "csrc/fused_mlp.cu", replaces,
-                                    nano["step"][counter], err, n["ms"], n["plain_ms"],
-                                    n["bound"], n["lib_ms"], design="CUDA cores, any C <= 2048",
+        entries.append(kernel_entry(label, "cuda", "csrc/fused_mlp_sm90.cu", replaces,
+                                    nano["step"][counter], n["err"], n["ms"], n["plain_ms"],
+                                    n["bound"], n["lib_ms"],
+                                    design="wgmma+TMA, ragged tiles and stages",
                                     rows=n["rows"], path="vit-nano, mlp_impl fused",
-                                    widths=[list(p) for p in P19_MLP]))
+                                    cuda_core_widths_err=p19["mlp"][
+                                        "f_err" if key == "fwd" else "b_err"]))
     return entries
 
 
@@ -6674,6 +6755,40 @@ def sm90_ptxas(log: str) -> dict:
         if "Compiling entry function" in line or "Function properties for" in line:
             m = pat.search(line)
             current = (int(m.group(2)), m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")) \
+                if m else None
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            found.setdefault(current, {})["spill_bytes"] = nums[1] + nums[2]
+        elif current and line.strip().startswith("ptxas info") and "Used" in line:
+            found.setdefault(current, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return found
+
+
+# The kernels of csrc/fused_mlp_sm90.cu by their template arguments: the
+# GEMM's (W, BN, TA, TB, epilogue) at each tile of `_shape` for u = y W1
+# (both GELU forms), o = h W2 + x, dy = du W1^T and dW1^T, dW2^T; the dual
+# product's GELU form; the LayerNorm passes' pairs a lane; the sums.
+K5_TILES = ((3, 192), (2, 256), (2, 128))
+K5_GEMMS = ((0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 1, 3), (1, 1, 4))
+K5_LN_PAIRS = (2, 4, 6, 8, 12, 16, 20, 24, 28, 32)
+K5_SM90_KERNELS = frozenset(
+    [("gemm", (w, bn, *t)) for w, bn in K5_TILES for t in K5_GEMMS]
+    + [("dual", (e,)) for e in (0, 1)]
+    + [(k, (p,)) for k in ("ln_rows", "ln_bwd") for p in K5_LN_PAIRS] + [("sum", ())])
+
+
+def k5_ptxas(log: str) -> dict:
+    """(registers, spill bytes) of every kernel of csrc/fused_mlp_sm90.cu,
+    keyed as K5_SM90_KERNELS, from nvcc's -Xptxas -v report."""
+    import re
+
+    found, current = {}, None
+    pat = re.compile(r"\d+(gemm|dual|ln_rows|ln_bwd|sum)_kernel(I(?:Li-?\d+E)+E)?")
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = pat.search(line)
+            current = (m.group(1), tuple(int(v) for v in re.findall(r"Li(-?\d+)E",
+                                                                   m.group(2) or ""))) \
                 if m else None
         elif current and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
@@ -7124,6 +7239,350 @@ def phase20_kernels(p20: dict) -> list:
     return entries
 
 
+# --------------------------------------------------------------- phase 21
+
+# K5's bits at the widths the wgmma kernels took before phase 21's redesign
+# (C in SUPPORTED_WIDTHS, a hidden width that is a multiple of 256: 4 C and
+# one more, so that every tile shape of `_shape` runs), both GELU forms,
+# ragged rows.
+P21_BITS_SHAPES = ((384, 1536), (384, 1280), (768, 3072), (768, 2048), (1024, 4096),
+                   (1024, 2560), (1280, 5120), (1280, 3328))
+P21_BITS_ROWS = (393, 4105)
+
+
+def k5_digests(torch) -> dict:
+    """The first 16 hex digits of the sha256 of K5's bf16 forward output and
+    its seven cotangents, concatenated, at each P21_BITS_SHAPES x
+    P21_BITS_ROWS x GELU form, on inputs drawn with numpy (the same bits on
+    any torch). Only the package's public K5 calls: scripts/k5_bits.py runs
+    it on another commit's package."""
+    import hashlib
+
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import fused_ln_mlp, fused_ln_mlp_backward
+
+    dev = torch.device("cuda")
+    out = {}
+    for C, Hd in P21_BITS_SHAPES:
+        for R in P21_BITS_ROWS:
+            rng = np.random.default_rng(C * 7 + Hd + R)
+            draw = lambda *shape, s=1.0, m=0.0: torch.from_numpy(
+                rng.normal(m, s, shape).astype(np.float32)).to(dev)
+            bf = torch.bfloat16
+            a = (draw(R, C).to(bf), draw(C, s=0.1, m=1.0), draw(C, s=0.1),
+                 draw(Hd, C, s=C**-0.5).to(bf).t(), draw(Hd, s=0.1),
+                 draw(C, Hd, s=Hd**-0.5).to(bf).t(), draw(C, s=0.1))
+            dout = draw(R, C).to(bf)
+            for exact in (False, True):
+                h = hashlib.sha256()
+                for t in (fused_ln_mlp(*a, exact), *fused_ln_mlp_backward(*a, dout, exact)):
+                    t = t.contiguous()
+                    h.update((t.view(torch.int16) if t.dtype == bf else t).cpu().numpy().tobytes())
+                out[f"{C}x{Hd} R={R} {'erf' if exact else 'tanh'}"] = h.hexdigest()[:16]
+    return out
+
+
+# k5_digests of the commit before the widths were opened (scripts/k5_bits.py
+# on a `git archive` of it, NVIDIA H100 80GB HBM3, 700.00 W).
+P21_PARENT_DIGESTS = {
+    "384x1536 R=393 tanh": "bafe109686dba58a",
+    "384x1536 R=393 erf": "5f925fc6c224f605",
+    "384x1536 R=4105 tanh": "aea0fa3caf180a10",
+    "384x1536 R=4105 erf": "ed3674736cc443bc",
+    "384x1280 R=393 tanh": "7cbad8ce565a43e3",
+    "384x1280 R=393 erf": "eecc37980fbf93ca",
+    "384x1280 R=4105 tanh": "0439788ee6237e24",
+    "384x1280 R=4105 erf": "c532f1c10845f52a",
+    "768x3072 R=393 tanh": "567d6323b32c1020",
+    "768x3072 R=393 erf": "c8b1b143001cfc5c",
+    "768x3072 R=4105 tanh": "6f0a68b7c42885c9",
+    "768x3072 R=4105 erf": "c3bb1a9f02a1ddd4",
+    "768x2048 R=393 tanh": "1db4193d8d6ebb63",
+    "768x2048 R=393 erf": "b9a2905f74e59eb6",
+    "768x2048 R=4105 tanh": "2c28d2664756f5c4",
+    "768x2048 R=4105 erf": "164dc0d0020924ab",
+    "1024x4096 R=393 tanh": "97de790657bac5d7",
+    "1024x4096 R=393 erf": "9bfb8d84b5ee4827",
+    "1024x4096 R=4105 tanh": "9d459c1af418de43",
+    "1024x4096 R=4105 erf": "6fdd6e3657fef7f6",
+    "1024x2560 R=393 tanh": "59956db17726234b",
+    "1024x2560 R=393 erf": "0db1d8926542a051",
+    "1024x2560 R=4105 tanh": "2e66d56399d18733",
+    "1024x2560 R=4105 erf": "298199249e10420d",
+    "1280x5120 R=393 tanh": "6c0c06a5744be30f",
+    "1280x5120 R=393 erf": "4c2b6497f909bfe7",
+    "1280x5120 R=4105 tanh": "a91a0003c0d6b357",
+    "1280x5120 R=4105 erf": "70581970ce119c20",
+    "1280x3328 R=393 tanh": "7b307426fc5432c8",
+    "1280x3328 R=393 erf": "c34a45402937d5f0",
+    "1280x3328 R=4105 tanh": "5004005fef65cb10",
+    "1280x3328 R=4105 erf": "fbca5705f5c28fc8",
+}
+# ViT-g's rows of K5: serving B = 64 and the remat step's B = 32, 192 tokens.
+P21_ROWS = (VITG_SERVE_BATCH * 192, VITG_TRAIN_BATCH * 192)
+P21_TIMED = ((VITG_SERVE_BATCH * 192, VITG_WIDTH, 6144), (VITG_TRAIN_BATCH * 192, VITG_WIDTH, 6144),
+             (VITG_SERVE_BATCH * 192, 1536, 6144))
+
+
+def phase21_gates(torch, g) -> dict:
+    """bf16 K5 at ViT-g's exact shapes, P21_ROWS x (1408, 6144), both GELU
+    forms, on the wgmma kernels: the forward within K1's bound of the plain
+    version, the seven cotangents within phase 7's bound of the plain
+    backward and two bf16 ulps of the kernel-order twin, both twice bit for
+    bit; the scratch as the library counts it."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        _lib,
+        fused_ln_mlp,
+        fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_kernel_order_reference,
+        fused_ln_mlp_bwd_reference,
+        fused_ln_mlp_reference,
+        mlp_route,
+        mlp_workspace_bytes,
+    )
+
+    dev = torch.device("cuda")
+    C, Hd = VITG_WIDTH, 6144
+    check(mlp_route(C, Hd, torch.bfloat16) == "sm90", "ViT-g's K5 does not route to sm90")
+    errs = dict(fwd=0.0, bwd=0.0, twin=0.0)
+    for R in P21_ROWS:
+        check(_lib().fused_mlp_bwd_workspace_bytes(R, C, Hd) == mlp_workspace_bytes(R, C, Hd),
+              f"K5's scratch at ({R}, {C}, {Hd}) differs from the library's")
+        a = p19_mlp_args(torch, g, dev, R, C, Hd, torch.bfloat16)
+        dout = torch.randn(R, C, generator=g, device=dev).to(torch.bfloat16)
+        for exact in (False, True):
+            label = f"K5 sm90 x ({R}, {C}) hidden {Hd} {'erf' if exact else 'tanh'}"
+            out = fused_ln_mlp(*a, exact)
+            check(torch.equal(out, fused_ln_mlp(*a, exact)), f"{label}: two forwards differ")
+            errs["fwd"] = max(errs["fwd"], gate(torch, f"{label} forward", out,
+                                                fused_ln_mlp_reference(*a, exact), phase=21))
+            grads = fused_ln_mlp_backward(*a, dout, exact)
+            again = fused_ln_mlp_backward(*a, dout, exact)
+            for name, got, rerun, ref, twin in zip(
+                    ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, again,
+                    fused_ln_mlp_bwd_reference(*a, dout, exact),
+                    fused_ln_mlp_bwd_kernel_order_reference(*a, dout, exact)):
+                check(torch.equal(got, rerun), f"{label} {name} differs between two runs")
+                errs["bwd"] = max(errs["bwd"], gate(torch, f"{label} backward {name}", got, ref,
+                                                    phase=21, bound=k5_grad_bound(ref)))
+                errs["twin"] = max(errs["twin"], gate(
+                    torch, f"{label} backward {name} vs the kernel-order twin", got, twin,
+                    phase=21, bound=2 * 2**-8 * twin.float().abs().max().item()))
+            del grads, again
+        del a, dout
+    return errs
+
+
+def phase21_bits(torch) -> None:
+    """K5's bits at the widths the wgmma kernels took before (k5_digests)
+    against the parent commit's, P21_PARENT_DIGESTS."""
+    got = k5_digests(torch)
+    differ = sorted(k for k in P21_PARENT_DIGESTS if got.get(k) != P21_PARENT_DIGESTS[k])
+    say(f"phase 21: K5 at C in {sorted({c for c, _ in P21_BITS_SHAPES})}: {len(got)} cases of "
+        f"8 outputs, {len(got) - len(differ)} with the parent commit's bits")
+    check(set(got) == set(P21_PARENT_DIGESTS) and not differ,
+          f"K5's bits at the preset widths changed: {differ}")
+
+
+def phase21_times(torch, card: str, g) -> dict:
+    """Not gated: K5 at P21_TIMED's shapes in bf16, the wgmma kernels against
+    the CUDA-core ones they replace (`cuda_core_mlp`, in turns, three
+    launches a window: a CUDA-core backward takes ~0.4-0.9 s), the dense
+    half-block on cuBLAS (in turns) and the plain versions; forward at each
+    shape, backward at each but the serving rows of 1408."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
+        fused_ln_mlp,
+        fused_ln_mlp_backward,
+        fused_ln_mlp_bwd_reference,
+        fused_ln_mlp_reference,
+    )
+
+    dev = torch.device("cuda")
+    rows = {}
+    for R, C, Hd in P21_TIMED:
+        a = p19_mlp_args(torch, g, dev, R, C, Hd, torch.bfloat16)
+        dout = torch.randn(R, C, generator=g, device=dev).to(torch.bfloat16)
+        key = f"({R}, {C}, {Hd})"
+        cc = cuda_core_mlp(torch, a)
+        f_cc_err = gate(torch, f"{key} the CUDA-core forward it replaces", cc,
+                        fused_ln_mlp_reference(*a), phase=21)
+        fk = lambda: fused_ln_mlp(*a)
+        f_ms, f_plain = paired_ms(torch, fk, lambda: fused_ln_mlp_reference(*a), iters=10)
+        f_cc, f_ms2 = (cuda_ms(torch, lambda: cuda_core_mlp(torch, a), 3, warmup=1),
+                       cuda_ms(torch, fk, 10))
+        f_ms3, f_lib = yardstick_ms(torch, fk, dense_fwd_fn(torch, a), iters=20, windows=1)
+        f_bound = bound_ms(nbytes(*a, a[0]), 4 * R * C * Hd)
+        row = dict(x=[R, C], hidden=Hd,
+                   fwd=dict(ms=f_ms, plain_ms=f_plain, lib_ms=f_lib, bound=f_bound,
+                            cuda_core_ms=f_cc, cuda_core_err=f_cc_err, ms_in_turns=[f_ms2, f_ms3]))
+        msg = (f"phase 21 [{card}]: K5 x ({R}, {C}) hidden {Hd} bf16: forward {f_ms:.4f} ms "
+               f"({f_ms2:.4f} beside the CUDA cores' {f_cc:.4f}; {f_ms3:.4f} in turns with the "
+               f"dense half-block's {f_lib:.4f}), plain {f_plain:.4f}, bound {f_bound[0]:.4f}")
+        if (R, C) != (P21_ROWS[0], VITG_WIDTH):
+            grads = cuda_core_mlp(torch, a, dout)
+            ref = fused_ln_mlp_bwd_reference(*a, dout)
+            b_cc_err = max(gate(torch, f"{key} the CUDA-core backward it replaces, {n}", got, r,
+                                phase=21, bound=k5_grad_bound(r))
+                           for n, got, r in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2",
+                                                 "db2"), grads, ref))
+            bk = lambda: fused_ln_mlp_backward(*a, dout)
+            b_ms, b_plain = paired_ms(torch, bk, lambda: fused_ln_mlp_bwd_reference(*a, dout),
+                                      iters=5)
+            b_cc, b_ms2 = (cuda_ms(torch, lambda: cuda_core_mlp(torch, a, dout), 3, warmup=1),
+                           cuda_ms(torch, bk, 5))
+            b_ms3, b_lib = yardstick_ms(torch, bk, dense_bwd_fn(torch, a, dout), iters=10,
+                                        windows=1)
+            b_bound = bound_ms(nbytes(*a, dout) + nbytes(*grads), 10 * R * C * Hd)
+            row["bwd"] = dict(ms=b_ms, plain_ms=b_plain, lib_ms=b_lib, bound=b_bound,
+                              cuda_core_ms=b_cc, cuda_core_err=b_cc_err,
+                              ms_in_turns=[b_ms2, b_ms3])
+            msg += (f"; backward {b_ms:.4f} ms ({b_ms2:.4f} beside the CUDA cores' {b_cc:.4f}; "
+                    f"{b_ms3:.4f} with the dense backward's {b_lib:.4f}), plain {b_plain:.4f}, "
+                    f"bound {b_bound[0]:.4f}")
+            del grads, ref
+        say(msg)
+        rows[key] = row
+        del a, dout, cc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase21_vitg(torch, dev, card: str) -> dict:
+    """ViT-g/14 as phase 20 builds it (VITG_* geometry, bf16,
+    attn_impl="fused", remat) with mlp_impl="fused": served by a
+    TopDownPredictor at full depth (40 K5 forwards and 40 short attention
+    forwards a forward), ms a batch of 64; trained by Trainer.fit with remat
+    for 3 steps at B = 32 (80 K5 forwards and 40 K5 backwards a step, 80
+    short forwards and 40 attention backwards; losses finite and falling;
+    the state kept in memory), ms a step and peak memory (under the card's
+    80 GiB)."""
+    from probpose_pytorch_tpu_torch.data import SyntheticPoseDataset, batch_iterator
+    from probpose_pytorch_tpu_torch.inference import TopDownPredictor
+
+    t_phase = time.perf_counter()
+    cfg = vitg_config("bfloat16", VITG_TRAIN_BATCH)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, mlp_impl="fused"),
+                              **fit_outputs("vit-g-fused"))
+    with vitg_trainers(torch, VITG_DEPTH):
+        trainer = make_trainer(torch, cfg, dev)
+    model = trainer.model
+    depth = len(model.backbone.blocks)
+    check(depth == VITG_DEPTH and all(b.mlp_impl == "fused" for b in model.backbone.blocks),
+          "ViT-g's blocks do not run the fused MLP")
+    predictor = TopDownPredictor(model, make_codec(cfg.model), cfg.model.img_size)
+    requests = [request(90 + i, B) for i, B in enumerate(REQUEST_SIZES)]
+    reset_counts()
+    answers = [predictor(f, b) for f, b in requests]
+    torch.cuda.synchronize()
+    serve = read_counts()
+    check_answers(cfg.model, requests, answers, phase=21)
+    say(f"phase 21: ViT-g (fused MLP) served, {len(requests)} forwards: K5 forward "
+        f"{serve['k5f']} (expect {depth * len(requests)}), K5 backward {serve['k5b']}, K2 "
+        f"{serve['k2']}")
+    check(serve["k5f"] == depth * len(requests) and serve["k5b"] == 0,
+          "ViT-g's K5 did not run once a block")
+    check_attention_route(serve, depth * len(requests), 0, phase=21)
+    check(serve["k2"] == len(requests), "ViT-g's K2 did not run once a forward")
+    f_dev = torch.from_numpy(requests[-1][0]).to(dev)
+    b_dev = torch.from_numpy(requests[-1][1]).to(dev)
+    serve_ms = cuda_ms(torch, lambda: predictor.predict(f_dev, b_dev), iters=5)
+    say(f"phase 21 [{card}]: ViT-g (fused MLP) bf16 serving B={len(f_dev)} crops on the "
+        f"card: {serve_ms:.3f} ms/batch (phase 20's dense MLP: see its line)")
+    del predictor, model, answers, f_dev, b_dev
+
+    B = cfg.train_batch_size
+    H, W = cfg.model.img_size
+    ds = SyntheticPoseDataset(B, (H, W), cfg.model.num_keypoints, seed=5)
+    batch = next(iter(batch_iterator(ds, B, num_workers=8)))
+    check(trainer.model.backbone.remat, "the ViT-g config does not train with remat")
+    trainer._save = lambda ckpt, what, metadata=None: False  # as phase 20: state in memory
+    steps = VITG_TRAIN_STEPS
+    reset_counts()
+    trainer.fit(lambda: iter([batch]), max_steps=steps)
+    torch.cuda.synchronize()
+    train = read_counts()
+    losses = [m["loss"] for p, _, m in trainer.history if p == "training"]
+    say(f"phase 21: Trainer.fit, {steps} bf16 ViT-g (fused MLP) steps with remat at B={B}: "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; K5 forward {train['k5f']} (expect "
+        f"{2 * depth * steps}), backward {train['k5b']} (expect {depth * steps})")
+    check(len(losses) == steps and all(np.isfinite(losses)), "a ViT-g loss is not finite")
+    check(losses[-1] < losses[0], "the ViT-g loss did not fall over the fixed batch")
+    check(train["k5f"] == 2 * depth * steps and train["k5b"] == depth * steps,
+          "ViT-g's K5 step count off")
+    check_attention_route(train, 2 * depth * steps, depth * steps, phase=21)
+    db = trainer.device_batch(batch)
+    trainer.train_step(trainer.state, db)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: trainer.train_step(trainer.state, db), iters=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 21 [{card}]: ViT-g (fused MLP) bf16 train step with remat, B={B}: "
+        f"{step_ms:.3f} ms; peak device memory {peak / 2**30:.2f} GiB")
+    check(peak < 80 * 2**30, "ViT-g's fused step peaks past 80 GiB")
+    del trainer, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 21: ViT-g (fused MLP) path {time.perf_counter() - t_phase:.1f} s")
+    return dict(serve=serve, train=train, serve_ms=serve_ms, step_ms=step_ms,
+                peak_gib=peak / 2**30)
+
+
+def phase21(torch, dev, card: str) -> dict:
+    """Phase 21: bf16 K5 on the wgmma kernels at every width that is a
+    multiple of 8, with ViT-g's (1408, 6144) fused MLP as the path (the
+    module docstring)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(21)
+    errs = phase21_gates(torch, g)
+    phase21_bits(torch)
+    times = phase21_times(torch, card, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vitg = phase21_vitg(torch, dev, card)
+    say(f"phase 21: {time.perf_counter() - t0:.1f} s in all")
+    return dict(errs=errs, times=times, vitg=vitg)
+
+
+def phase21_kernels(p21: dict) -> list:
+    """The kernels line's entries of phase 21: the wgmma kernels at ViT-g's
+    (1408, 6144) (launches on the ViT-g path; the forward at serving's rows,
+    the backward at the step's) beside the CUDA-core kernels they replace,
+    and the CUDA-core kernels themselves (f32 at every width, bf16 at widths
+    that are not multiples of 8: on no bf16 path), timed at those shapes."""
+    mlp_cu = "csrc/fused_mlp_sm90.cu"
+    train, times, errs = p21["vitg"]["train"], p21["times"], p21["errs"]
+    fwd = times[f"({P21_ROWS[0]}, {VITG_WIDTH}, 6144)"]["fwd"]
+    bwd = times[f"({P21_ROWS[1]}, {VITG_WIDTH}, 6144)"]["bwd"]
+    step_fwd = times[f"({P21_ROWS[1]}, {VITG_WIDTH}, 6144)"]["fwd"]
+    wide = times[f"({P21_ROWS[0]}, 1536, 6144)"]
+    shape = lambda R: dict(x=[R, VITG_WIDTH], hidden=6144)
+    return [
+        kernel_entry("K5 fused_ln_mlp forward, ViT-g (1408, 6144)", "cuda", mlp_cu,
+                     "mlp_kernel.py:49", train["k5f"], errs["fwd"], fwd["ms"], fwd["plain_ms"],
+                     fwd["bound"], fwd["lib_ms"], design="wgmma+TMA, 128 x 128 tiles",
+                     replaced_route="K5 CUDA cores", cuda_core_ms=fwd["cuda_core_ms"],
+                     step_rows=dict(ms=step_fwd["ms"], bound_ms=step_fwd["bound"][0],
+                                    cuda_core_ms=step_fwd["cuda_core_ms"],
+                                    library_ms=step_fwd["lib_ms"]),
+                     serve_launches=p21["vitg"]["serve"]["k5f"], **shape(P21_ROWS[0]),
+                     at_1536=wide),
+        kernel_entry("K5 fused_ln_mlp backward, ViT-g (1408, 6144)", "cuda", mlp_cu,
+                     "mlp_kernel.py:57", train["k5b"], errs["bwd"], bwd["ms"], bwd["plain_ms"],
+                     bwd["bound"], bwd["lib_ms"], design="wgmma+TMA, 128 x 128 tiles",
+                     replaced_route="K5 CUDA cores", cuda_core_ms=bwd["cuda_core_ms"],
+                     twin_err=errs["twin"], **shape(P21_ROWS[1])),
+        kernel_entry("K5 fused_ln_mlp forward, CUDA cores (f32; bf16 off multiples of 8)",
+                     "cuda", "csrc/fused_mlp.cu", "mlp_kernel.py:49", 0, fwd["cuda_core_err"],
+                     fwd["cuda_core_ms"], fwd["plain_ms"], fwd["bound"], fwd["lib_ms"],
+                     design="CUDA cores, any C <= 2048", entry_point_only=True,
+                     **shape(P21_ROWS[0])),
+        kernel_entry("K5 fused_ln_mlp backward, CUDA cores (f32; bf16 off multiples of 8)",
+                     "cuda", "csrc/fused_mlp.cu", "mlp_kernel.py:57", 0, bwd["cuda_core_err"],
+                     bwd["cuda_core_ms"], bwd["plain_ms"], bwd["bound"], bwd["lib_ms"],
+                     design="CUDA cores, any C <= 2048", entry_point_only=True,
+                     **shape(P21_ROWS[1])),
+    ]
+
+
 def kernel_entry(name: str, route: str, source: str, replaces: str, launches: int,
                  err: float, ms: float, plain_ms: float, bound: tuple[float, str],
                  library_ms: float | None = None, **extra) -> dict:
@@ -7269,7 +7728,7 @@ def main() -> None:
 
 
 def run(torch) -> None:
-    """Phases 0 to 20, then the kernels line and the result line."""
+    """Phases 0 to 21, then the kernels line and the result line."""
     from probpose_pytorch_tpu_torch.inference import TopDownPredictor
     from probpose_pytorch_tpu_torch.models.model import ModelConfig, build_model
     from probpose_pytorch_tpu_torch.ops.kernels import _build, plain_versions
@@ -7321,6 +7780,15 @@ def run(torch) -> None:
     check(all(v.get("spill_bytes", 0) == 0 for v in sm90.values()),
           "a bf16 attention kernel spills: " + str({k: v for k, v in sm90.items()
                                                     if v.get("spill_bytes")}))
+    k5 = k5_ptxas(report.get("ptxas", ""))
+    say("phase 0: K5's bf16 kernels (csrc/fused_mlp_sm90.cu), registers: " + ", ".join(
+        f"{name}<{','.join(map(str, targs))}> {v.get('registers')}"
+        for (name, targs), v in sorted(k5.items())) + f"; spill bytes "
+        f"{sum(v.get('spill_bytes', 0) for v in k5.values())} over {len(k5)} kernels")
+    check(set(k5) == K5_SM90_KERNELS, "a K5 sm90 kernel is missing from nvcc's report: "
+          f"{sorted(K5_SM90_KERNELS - set(k5))}")
+    check(all(v.get("spill_bytes", 0) == 0 for v in k5.values()),
+          "a K5 sm90 kernel spills: " + str({k: v for k, v in k5.items() if v.get("spill_bytes")}))
 
     # ---------------------------------------------------------------- phase 1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -7661,7 +8129,12 @@ def run(torch) -> None:
     torch.cuda.empty_cache()
     p20 = phase20(torch, dev, card)
 
-    kernels += phase19_kernels(p19, p20) + phase20_kernels(p20)
+    # --------------------------------------------------------------- phase 21
+    gc.collect()
+    torch.cuda.empty_cache()
+    p21 = phase21(torch, dev, card)
+
+    kernels += phase19_kernels(p19, p20) + phase20_kernels(p20) + phase21_kernels(p21)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

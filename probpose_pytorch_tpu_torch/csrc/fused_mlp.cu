@@ -2,9 +2,8 @@
 //   out = x + fc2(gelu(fc1(LayerNorm(x)))),
 // its forward and its recompute backward (FMA, no TF32), in float32 at
 // every width and in bf16 at the widths the wgmma kernels of
-// csrc/fused_mlp_sm90.cu do not take (C outside {384, 768, 1024, 1280} or a
-// hidden width that is no multiple of 256, e.g. the vit-nano preset's
-// C = 64, hidden 128).
+// csrc/fused_mlp_sm90.cu do not take (a C or a hidden width that is no
+// multiple of 8).
 //
 // Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel`
 // (probpose_pytorch_tpu/ops/pallas/mlp_kernel.py, called from `_fwd` / `_bwd`

@@ -33,8 +33,10 @@
 // The GEMM core. One block per SM walks over output tiles (persistent):
 // W consumer warpgroups own 64 rows each and issue wgmma m64nBNk16 into f32
 // registers, and one producer thread keeps a ring of stages in flight with
-// TMA (128-byte swizzle, 64 columns of contraction a stage; ragged rows
-// arrive as zeros). A consumer releases a stage once the wgmma group after
+// TMA (128-byte swizzle, 64 columns of contraction a stage; TMA fills
+// zeros past the tensor, so ragged rows, ragged output columns and a ragged
+// last stage of contraction all arrive as zeros and add nothing). A
+// consumer releases a stage once the wgmma group after
 // it has been issued (wait_group 1), one thread of each warpgroup arriving.
 // The operands arrive in nn.Linear's layout, w1t = W1^T (Hd, C) and
 // w2t = W2^T (C, Hd), read K-major or MN-major as each product needs:
@@ -51,9 +53,10 @@
 //     not by the tensor cores: a variant of o = h W2 with its wgmmas removed
 //     took as long as the product. So tiles are as large as registers
 //     allow: 192 x 192 with W = 3 (96 accumulators a thread, 98 FLOP a byte
-//     loaded) where 192 divides C and Hd (384 and 768 with Hd = 4 C), else
-//     128 x 256 with W = 2 (128 accumulators, 87 FLOP a byte; 1024, 1280),
-//     or 128 x 128. 192 x 192 took o = h W2 from 459 to 383 us. The ring
+//     loaded; 384 and 768 with Hd = 4 C), 128 x 256 with W = 2 (128
+//     accumulators, 87 FLOP a byte; 1024, 1280), or 128 x 128, whichever
+//     pads the least work (`shape_of`). 192 x 192 took o = h W2 from 459 to
+//     383 us. The ring
 //     holds 4 stages of 48 KB (197 KB of shared memory, one block an SM).
 //   * Pairs of blocks in 2-block clusters sharing B by TMA multicast read a
 //     third less from L2 but made the forward slower (u = y W1 622 -> 710
@@ -92,10 +95,21 @@
 //      written once;
 //   6. the partials summed in order, in f32; dW1 and dW2 cast to bf16.
 //
-// Shapes: C in {384, 768, 1024, 1280}, Hd a multiple of 256. Plain-C
-// interface, loaded with ctypes (ops/kernels/mlp.py, which mirrors the
-// scratch layout in `mlp_workspace_bytes`); every entry point returns a
-// cudaError_t as int (0 = success).
+// Shapes: every C <= 2048 and Hd <= 8192 that are multiples of 8 (ViT-g's
+// 1408 and 6144 among them). TMA reads rows of 16-byte multiples and fills
+// zeros past the tensor, so the grids round up (ceil(N / BN) tiles,
+// ceil(K / 64) stages) and the zeros past C or Hd add nothing to the sums.
+// An epilogue stores 8 columns a thread (16 bytes of bf16, 32 of f32) from a
+// multiple of 8, so each store lies wholly inside or wholly past the
+// columns and is masked as a whole; the bias, residual and db1 reads are
+// masked with it, and db1's and the split partials hold only real rows and
+// columns. The LayerNorm passes take C at run time, P pairs a lane from a
+// few buckets (the pairs past C / 2 masked). At the widths taken before
+// (C in {384, 768, 1024, 1280}, Hd a multiple of 256) every tile, stage and
+// sum is the same, and so are the bits. Plain-C interface, loaded with
+// ctypes (ops/kernels/mlp.py, which mirrors the tile rule and the scratch
+// layout in `_shape` and `mlp_workspace_bytes`); every entry point returns
+// a cudaError_t as int (0 = success).
 
 #include <math.h>
 
@@ -117,6 +131,8 @@ constexpr int kLnRows = 64;         // rows per block of the LayerNorm backward
 constexpr int kWaveSms = 132;       // H100 SXM: the wave split_k fills
 constexpr int kEpilogueSteps = 8;   // split_k's cost of a tile's epilogue, in stages
 constexpr int kMaxSplits = 16;
+constexpr int kMaxC = 2048;         // the CUDA-core kernels' limits (csrc/fused_mlp.cu)
+constexpr int kMaxHidden = 8192;
 constexpr float kEps = 1e-6f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -170,40 +186,51 @@ __device__ __forceinline__ void consumers_sync() {
 // ---------------------------------------------------------- LayerNorm rows
 
 // y = round(LN_f32(x) * scale + bias), one warp a row, two-pass variance;
-// the row's mean and rstd too when `mean` is not null.
-template <int C>
+// the row's mean and rstd too when `mean` is not null. P bf16 pairs a lane
+// (columns 2 (lane + 32 i) + {0, 1}), at least C / 64: the pairs past C / 2
+// are neither read nor summed, so a width that fills its P gives the bits
+// of one that fills it exactly.
+template <int P>
 __global__ void __launch_bounds__(kLnWarps * 32)
     ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, bf16* __restrict__ y,
-                   float* __restrict__ mean, float* __restrict__ rstd, int R) {
-  constexpr int P = C / 64;  // bf16 pairs a lane: columns 2 (lane + 32 i) + {0, 1}
+                   float* __restrict__ mean, float* __restrict__ rstd, int R, int C) {
   const int lane = threadIdx.x % 32;
   const int n = static_cast<int>(blockIdx.x) * kLnWarps + threadIdx.x / 32;
   if (n >= R) return;
+  const int pairs = C / 2;
   const auto* xr = reinterpret_cast<const __nv_bfloat162*>(x + static_cast<size_t>(n) * C);
   float2 v[P];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    v[i] = __bfloat1622float2(xr[lane + 32 * i]);
-    s += v[i].x + v[i].y;
+    const int p = lane + 32 * i;
+    if (p < pairs) {
+      v[i] = __bfloat1622float2(xr[p]);
+      s += v[i].x + v[i].y;
+    }
   }
-  const float mu = warp_sum(s) / C;
+  const float mu = warp_sum(s) / static_cast<float>(C);
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const float a = v[i].x - mu, b = v[i].y - mu;
-    q += a * a + b * b;
+    if (lane + 32 * i < pairs) {
+      const float a = v[i].x - mu, b = v[i].y - mu;
+      q += a * a + b * b;
+    }
   }
-  const float rs = rsqrtf(warp_sum(q) / C + kEps);
+  const float rs = rsqrtf(warp_sum(q) / static_cast<float>(C) + kEps);
   const auto* sc = reinterpret_cast<const float2*>(scale);
   const auto* bi = reinterpret_cast<const float2*>(bias);
   auto* yr = reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(n) * C);
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int p = lane + 32 * i;
-    const float2 a = sc[p], b = bi[p];
-    yr[p] = __floats2bfloat162_rn((v[i].x - mu) * rs * a.x + b.x, (v[i].y - mu) * rs * a.y + b.y);
+    if (p < pairs) {
+      const float2 a = sc[p], b = bi[p];
+      yr[p] = __floats2bfloat162_rn((v[i].x - mu) * rs * a.x + b.x,
+                                    (v[i].y - mu) * rs * a.y + b.y);
+    }
   }
   if (mean != nullptr && lane == 0) {
     mean[n] = mu;
@@ -211,23 +238,25 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
-// The LayerNorm backward of 64 rows from dy (bf16), C / 2 threads: per row
-// (one warp each) the means of dy s and dy s xhat, then per column pair
-// (one thread each) dx and the block's partial sums of dscale, dbias and
-// db2 into part (3, tiles, C), reading the rows eight at a time.
-template <int C>
-__global__ void __launch_bounds__(C / 2)
+// The LayerNorm backward of 64 rows from dy (bf16), 32 ceil(C / 64) threads:
+// per row (one warp each) the means of dy s and dy s xhat over P pairs a
+// lane (those past C / 2 left out), then per column pair (one thread each;
+// the threads past C / 2 idle) dx and the block's partial sums of dscale,
+// dbias and db2 into part (3, tiles, C), reading the rows eight at a time.
+template <int P>
+__global__ void __launch_bounds__(32 * P)
     ln_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ x,
                   const bf16* __restrict__ g, const float* __restrict__ scale,
                   const float* __restrict__ mean, const float* __restrict__ rstd,
-                  bf16* __restrict__ dx, float* __restrict__ part, int R) {
-  constexpr int P = C / 64;  // pairs a lane in the row pass; also the warps
+                  bf16* __restrict__ dx, float* __restrict__ part, int R, int C) {
   constexpr int kBatch = 8;
   __shared__ float s1_s[kLnRows], s2_s[kLnRows], mu_s[kLnRows], rs_s[kLnRows];
   const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int pairs = C / 2;
   const int row0 = static_cast<int>(blockIdx.x) * kLnRows;
   const auto* sc = reinterpret_cast<const float2*>(scale);
-  for (int r = threadIdx.x / 32; r < kLnRows; r += P) {
+  for (int r = threadIdx.x / 32; r < kLnRows; r += warps) {
     const int n = row0 + r;
     float a = 0.f, b = 0.f, mu = 0.f, rs = 0.f;
     if (n < R) {
@@ -239,15 +268,17 @@ __global__ void __launch_bounds__(C / 2)
 #pragma unroll
       for (int i = 0; i < P; ++i) {
         const int p = lane + 32 * i;
-        const float2 d = __bfloat1622float2(dr[p]), xv = __bfloat1622float2(xr[p]);
-        const float2 s = sc[p];
-        const float h0 = d.x * s.x, h1 = d.y * s.y;
-        a += h0 + h1;
-        b += h0 * ((xv.x - mu) * rs) + h1 * ((xv.y - mu) * rs);
+        if (p < pairs) {
+          const float2 d = __bfloat1622float2(dr[p]), xv = __bfloat1622float2(xr[p]);
+          const float2 s = sc[p];
+          const float h0 = d.x * s.x, h1 = d.y * s.y;
+          a += h0 + h1;
+          b += h0 * ((xv.x - mu) * rs) + h1 * ((xv.y - mu) * rs);
+        }
       }
     }
-    a = warp_sum(a) / C;
-    b = warp_sum(b) / C;
+    a = warp_sum(a) / static_cast<float>(C);
+    b = warp_sum(b) / static_cast<float>(C);
     if (lane == 0) {
       s1_s[r] = a;
       s2_s[r] = b;
@@ -256,8 +287,9 @@ __global__ void __launch_bounds__(C / 2)
     }
   }
   __syncthreads();
-  const int rows = min(kLnRows, R - row0);
   const int p = threadIdx.x;
+  if (p >= pairs) return;
+  const int rows = min(kLnRows, R - row0);
   const float2 s = sc[p];
   const auto* dy2 = reinterpret_cast<const __nv_bfloat162*>(dy);
   const auto* x2 = reinterpret_cast<const __nv_bfloat162*>(x);
@@ -268,7 +300,7 @@ __global__ void __launch_bounds__(C / 2)
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       if (r0 + q < rows) {
-        const size_t at = static_cast<size_t>(row0 + r0 + q) * (C / 2) + p;
+        const size_t at = static_cast<size_t>(row0 + r0 + q) * pairs + p;
         d[q] = dy2[at];
         xv[q] = x2[at];
         gv[q] = g2[at];
@@ -282,7 +314,7 @@ __global__ void __launch_bounds__(C / 2)
       const float2 gf = __bfloat1622float2(gv[q]);
       const float mu = mu_s[r], rs = rs_s[r], m1 = s1_s[r], m2 = s2_s[r];
       const float xh0 = (xf.x - mu) * rs, xh1 = (xf.y - mu) * rs;
-      reinterpret_cast<__nv_bfloat162*>(dx)[static_cast<size_t>(row0 + r) * (C / 2) + p] =
+      reinterpret_cast<__nv_bfloat162*>(dx)[static_cast<size_t>(row0 + r) * pairs + p] =
           __floats2bfloat162_rn(gf.x + rs * (df.x * s.x - m1 - xh0 * m2),
                                 gf.y + rs * (df.y * s.y - m1 - xh1 * m2));
       dsc.x += df.x * xh0;
@@ -293,8 +325,8 @@ __global__ void __launch_bounds__(C / 2)
       db2.y += gf.y;
     }
   }
-  const size_t plane = static_cast<size_t>(gridDim.x) * C / 2;  // float2s of one sum
-  auto* out = reinterpret_cast<float2*>(part) + static_cast<size_t>(blockIdx.x) * (C / 2) + p;
+  const size_t plane = static_cast<size_t>(gridDim.x) * pairs;  // float2s of one sum
+  auto* out = reinterpret_cast<float2*>(part) + static_cast<size_t>(blockIdx.x) * pairs + p;
   out[0] = dsc;
   out[plane] = dbi;
   out[2 * plane] = db2;
@@ -346,11 +378,12 @@ struct Block {
 // into `splits` chunks of `chunk` stages. Work items run split-major, then
 // problem, then tile (N fastest), so neighbouring blocks share A rows.
 struct Gemm {
-  int tiles_n[2];   // N / BN
+  int tiles_n[2];   // ceil(N / BN)
   int tiles[2];     // ceil(M / 64 W) x tiles_n; 0 for an absent problem
   int m[2];         // M: output rows that exist (R for the row products)
-  int n[2];         // N: the row stride of the output
-  int steps;        // contraction stages in all: ceil(K / 64)
+  int n[2];         // N: output columns that exist, the row stride of the output
+  int steps;        // contraction stages in all: ceil(K / 64), the last one
+                    // ragged where 64 does not divide K (zeros from TMA)
   int chunk;        // stages of one split
   int splits;
   const float* bias;  // b1 (kGelu*Out), b2 (kResidualOut)
@@ -473,8 +506,9 @@ __device__ __forceinline__ void epilogue(const Gemm& a, const Item& w, int wg,
       for (int jj = 0; jj < 4; ++jj)
         p[jj] = make_float2(d[4 * (4 * q + jj) + 2 * h], d[4 * (4 * q + jj) + 2 * h + 1]);
       quad_transpose(p, t);  // now the quad's pairs of group 4 q + t
-      if (!live) continue;
       const int col = w.n0 + 8 * (4 * q + t);
+      // N is a multiple of 8: a group lies wholly inside or past the columns
+      if (!live || col >= a.n[w.p]) continue;
       const size_t at = static_cast<size_t>(row) * ld + col;
       float v[8] = {p[0].x, p[0].y, p[1].x, p[1].y, p[2].x, p[2].y, p[3].x, p[3].y};
       if constexpr (E == kPartialOut) {
@@ -582,6 +616,7 @@ __global__ void __launch_bounds__(Block<W>::kThreads, 1)
 
 struct Dual {
   int tiles_n, tiles, steps, rows;
+  int hd;           // hidden columns, the row stride of h and du
   const float* b1;
   bf16* h;
   bf16* du;
@@ -607,8 +642,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t base = aligned_base(smem);
   const uint32_t full = base + L::kBars;
   const uint32_t empty = full + 8 * S;
-  // after the barriers: the 8 consumer warps' column sums of a tile
+  // after the barriers: the 8 consumer warps' column sums of a tile, then
+  // the tile's 128 values of b1 (zeros past Hd)
   float* red = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) + L::kBars + 16 * S);
+  float* b1_s = red + 8 * 128;
   const int wg = threadIdx.x / 128;
   init_ring<L, 2>(base);
 
@@ -639,6 +676,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = blockIdx.x; i < args.tiles; i += gridDim.x) {
       const int mt = i / args.tiles_n;
       const int m0 = mt * kBM, n0 = (i % args.tiles_n) * 128;
+      // read after the first consumers_sync below; the last tile's reads
+      // ended before its second
+      if (threadIdx.x < 128)
+        b1_s[threadIdx.x] = n0 + static_cast<int>(threadIdx.x) < args.hd
+                                ? args.b1[n0 + threadIdx.x] : 0.f;
       float u[64], dh[64];
       for (int ks = 0; ks < args.steps; ++ks, ++it) {
         const int s = it % S;
@@ -660,61 +702,66 @@ __global__ void __launch_bounds__(kThreads, 1)
       reg_fence(dh);
 
       const int ra = m0 + wg * 64 + (tid / 32) * 16 + (tid % 32) / 4;
-      const int col0 = n0 + 2 * (tid % 4);
       consumers_sync();  // the last tile's column sums have been read
-      uint32_t hp[2][16], dp[2][16];  // h and du as bf16 pairs, rows ra and ra + 8
+      const int t = tid % 4;
+      // Four groups of 32 columns: each group's h and du as bf16 pairs of
+      // rows ra and ra + 8, written as the GEMM epilogue writes (16 bytes a
+      // thread) before the next group's are made, so that few of them live
+      // beside the accumulators.
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = col0 + 8 * j;
-        const float2 b = *reinterpret_cast<const float2*>(args.b1 + col);
-        float sum[2] = {0.f, 0.f};
+      for (int q = 0; q < 4; ++q) {
+        uint32_t hp[2][4], dp[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj;
+          // columns n0 + 8 j + 2 t (+ 1); past Hd u and dh are zeros (TMA),
+          // so du is 0 there, and nothing is stored
+          const float2 b = reinterpret_cast<const float2*>(b1_s)[4 * j + t];
+          float sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float hv[2], dv[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * hh + c;
+              const float gd = gelu_and_grad<EXACT>(u[e] + (c ? b.y : b.x), &hv[c]);
+              dv[c] = round_bf16(dh[e]) * gd;
+            }
+            hp[hh][jj] = pack_bf16(hv[0], hv[1]);
+            dp[hh][jj] = pack_bf16(dv[0], dv[1]);
+            if (ra + 8 * hh < args.rows) {
+              sum[0] += dv[0];
+              sum[1] += dv[1];
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {  // over the 8 row pairs of the warp
+            float v = sum[c];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (tid % 32 < 4) red[warp * 128 + 8 * j + 2 * t + c] = v;
+          }
+        }
+        const int col = n0 + 8 * (4 * q + t);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          float hv[2], dv[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * hh + c;
-            const float gd = gelu_and_grad<EXACT>(u[e] + (c ? b.y : b.x), &hv[c]);
-            dv[c] = round_bf16(dh[e]) * gd;
-          }
-          hp[hh][j] = pack_bf16(hv[0], hv[1]);
-          dp[hh][j] = pack_bf16(dv[0], dv[1]);
-          if (ra + 8 * hh < args.rows) {
-            sum[0] += dv[0];
-            sum[1] += dv[1];
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {  // over the 8 row pairs of the warp
-          float v = sum[c];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (tid % 32 < 4) red[warp * 128 + 8 * j + 2 * (tid % 4) + c] = v;
-        }
-      }
-      // h and du written as the GEMM epilogue writes: 16 bytes a thread
-      const int t = tid % 4;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = ra + 8 * hh;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t ph[4] = {hp[hh][4 * q], hp[hh][4 * q + 1], hp[hh][4 * q + 2], hp[hh][4 * q + 3]};
-          uint32_t pd[4] = {dp[hh][4 * q], dp[hh][4 * q + 1], dp[hh][4 * q + 2], dp[hh][4 * q + 3]};
-          quad_transpose(ph, t);
-          quad_transpose(pd, t);
-          if (row >= args.rows) continue;
-          const size_t at = static_cast<size_t>(row) * (args.tiles_n * 128) + n0 + 8 * (4 * q + t);
-          *reinterpret_cast<uint4*>(args.h + at) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
-          *reinterpret_cast<uint4*>(args.du + at) = make_uint4(pd[0], pd[1], pd[2], pd[3]);
+          quad_transpose(hp[hh], t);
+          quad_transpose(dp[hh], t);
+          const int row = ra + 8 * hh;
+          if (row >= args.rows || col >= args.hd) continue;
+          const size_t at = static_cast<size_t>(row) * args.hd + col;
+          *reinterpret_cast<uint4*>(args.h + at) = make_uint4(hp[hh][0], hp[hh][1], hp[hh][2],
+                                                              hp[hh][3]);
+          *reinterpret_cast<uint4*>(args.du + at) = make_uint4(dp[hh][0], dp[hh][1], dp[hh][2],
+                                                               dp[hh][3]);
         }
       }
       consumers_sync();
-      if (threadIdx.x < 128) {
+      if (threadIdx.x < 128 && n0 + static_cast<int>(threadIdx.x) < args.hd) {
         float v = 0.f;
         for (int q = 0; q < 8; ++q) v += red[q * 128 + threadIdx.x];
-        args.db1_part[static_cast<size_t>(mt) * (args.tiles_n * 128) + n0 + threadIdx.x] = v;
+        args.db1_part[static_cast<size_t>(mt) * args.hd + n0 + threadIdx.x] = v;
       }
     }
   }
@@ -771,17 +818,40 @@ int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b
 
 size_t align256(size_t v) { return (v + 255) / 256 * 256; }
 
+int pad(int n, int to) { return (n + to - 1) / to * to; }
+
 // The GEMM blocks of a width: W = 3 consumer warpgroups with tiles of
-// 192 x 192 where 192 divides C and Hd (ViT-S and ViT-B: 384 and 768 with
-// the 4x hidden width), else W = 2 with 128 x 256 (1024, 1280), or 128 x 128
-// (C = 384 with another hidden width). Every product of a call takes it.
+// 192 x 192, or W = 2 with 128 x 256 or 128 x 128; every product of a call
+// takes the one with the least padded work, the first in that order on a
+// tie. The work counts the multiply-adds of the five products a row of R
+// (u = y W1, o = h W2, dy = du W1^T) or a contraction step (dW1^T, dW2^T)
+// over the tiles' padded output and the 64-column stages' padded depth.
+// Where a tile divides C and Hd it pads nothing, so the widths taken first
+// keep their tiles: 192 x 192 for 384 and 768 with the 4x hidden width,
+// 128 x 256 for 1024 and 1280, 128 x 128 for C = 384 with a hidden width 192
+// does not divide; ViT-g's 1408 takes 128 x 128 (11 x 128).
 struct Shape {
   int w, bn;
 };
 
+long long padded_work(int C, int Hd, int bm, int bn) {
+  const auto mac = [](int a, int b) { return static_cast<long long>(a) * b; };
+  return mac(pad(Hd, bn), pad(C, kBK)) + 2 * mac(pad(C, bn), pad(Hd, kBK)) +
+         mac(pad(Hd, bm), pad(C, bn)) + mac(pad(C, bm), pad(Hd, bn));
+}
+
 Shape shape_of(int C, int Hd) {
-  if (C % 192 == 0 && Hd % 192 == 0) return {3, 192};
-  return {2, C % 256 == 0 ? 256 : 128};
+  const Shape shapes[3] = {{3, 192}, {2, 256}, {2, 128}};
+  Shape best = shapes[0];
+  long long least = padded_work(C, Hd, 192, 192);
+  for (int i = 1; i < 3; ++i) {
+    const long long w = padded_work(C, Hd, 64 * shapes[i].w, shapes[i].bn);
+    if (w < least) {
+      least = w;
+      best = shapes[i];
+    }
+  }
+  return best;
 }
 
 int sm_count() {
@@ -791,8 +861,10 @@ int sm_count() {
   return n;
 }
 
+// Every C and Hd that are multiples of 8 (TMA's 16-byte row strides; the
+// epilogues' 16-byte stores of 8 columns) up to the CUDA-core kernels' limits.
 bool supported(int C, int Hd) {
-  return (C == 384 || C == 768 || C == 1024 || C == 1280) && Hd > 0 && Hd % 256 == 0;
+  return C > 0 && C <= kMaxC && C % 8 == 0 && Hd > 0 && Hd <= kMaxHidden && Hd % 8 == 0;
 }
 
 // The weight gradients' split of the R rows into chunks of whole stages:
@@ -831,7 +903,7 @@ Work workspace(int R, int C, int Hd) {
   const int bm = 64 * sh.w;
   w.ln_tiles = ceil_div(R, kLnRows);
   w.m_tiles = ceil_div(R, kBM);
-  w.tiles = ceil_div(Hd, bm) * (C / sh.bn) + ceil_div(C, bm) * (Hd / sh.bn);
+  w.tiles = ceil_div(Hd, bm) * ceil_div(C, sh.bn) + ceil_div(C, bm) * ceil_div(Hd, sh.bn);
   split_k(R, w.tiles, &w.splits, &w.chunk);
   const size_t r = static_cast<size_t>(R);
   size_t off = 0;
@@ -890,54 +962,58 @@ int launch_shape(const Shape& sh, const CUtensorMap& a0, const CUtensorMap& b0,
 // A row product (splits 1, one problem) of rows R, N columns, K = `depth`.
 Gemm row_gemm(const Shape& sh, int R, int N, int depth) {
   Gemm g{};
-  g.tiles_n[0] = N / sh.bn;
+  g.tiles_n[0] = ceil_div(N, sh.bn);
   g.tiles[0] = ceil_div(R, 64 * sh.w) * g.tiles_n[0];
   g.tiles_n[1] = 1;
   g.m[0] = R;
   g.n[0] = N;
-  g.steps = depth / kBK;
+  g.steps = ceil_div(depth, kBK);
   g.chunk = g.steps;
   g.splits = 1;
   return g;
 }
 
-template <int C>
+template <int P>
 int launch_ln_rows(const void* x, const float* scale, const float* bias, void* y, float* mean,
-                   float* rstd, int R, cudaStream_t s) {
-  ln_rows_kernel<C><<<ceil_div(R, kLnWarps), kLnWarps * 32, 0, s>>>(
-      static_cast<const bf16*>(x), scale, bias, static_cast<bf16*>(y), mean, rstd, R);
+                   float* rstd, int R, int C, cudaStream_t s) {
+  ln_rows_kernel<P><<<ceil_div(R, kLnWarps), kLnWarps * 32, 0, s>>>(
+      static_cast<const bf16*>(x), scale, bias, static_cast<bf16*>(y), mean, rstd, R, C);
   return cudaGetLastError();
 }
 
-int ln_rows(const void* x, const float* scale, const float* bias, void* y, float* mean,
-            float* rstd, int R, int C, cudaStream_t s) {
-  switch (C) {
-    case 384: return launch_ln_rows<384>(x, scale, bias, y, mean, rstd, R, s);
-    case 768: return launch_ln_rows<768>(x, scale, bias, y, mean, rstd, R, s);
-    case 1024: return launch_ln_rows<1024>(x, scale, bias, y, mean, rstd, R, s);
-    default: return launch_ln_rows<1280>(x, scale, bias, y, mean, rstd, R, s);
-  }
-}
-
-template <int C>
+template <int P>
 int launch_ln_bwd(const void* dy, const void* x, const void* g, const float* scale,
-                  const float* mean, const float* rstd, void* dx, float* part, int R,
+                  const float* mean, const float* rstd, void* dx, float* part, int R, int C,
                   cudaStream_t s) {
-  ln_bwd_kernel<C><<<ceil_div(R, kLnRows), C / 2, 0, s>>>(
+  ln_bwd_kernel<P><<<ceil_div(R, kLnRows), 32 * ceil_div(C, 64), 0, s>>>(
       static_cast<const bf16*>(dy), static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      scale, mean, rstd, static_cast<bf16*>(dx), part, R);
+      scale, mean, rstd, static_cast<bf16*>(dx), part, R, C);
   return cudaGetLastError();
 }
 
-int ln_bwd(const void* dy, const void* x, const void* g, const float* scale, const float* mean,
-           const float* rstd, void* dx, float* part, int R, int C, cudaStream_t s) {
-  switch (C) {
-    case 384: return launch_ln_bwd<384>(dy, x, g, scale, mean, rstd, dx, part, R, s);
-    case 768: return launch_ln_bwd<768>(dy, x, g, scale, mean, rstd, dx, part, R, s);
-    case 1024: return launch_ln_bwd<1024>(dy, x, g, scale, mean, rstd, dx, part, R, s);
-    default: return launch_ln_bwd<1280>(dy, x, g, scale, mean, rstd, dx, part, R, s);
+// The LayerNorm passes at each pair count a lane in Ps; a width takes the
+// least at or past C / 64 (the four preset widths fill theirs).
+template <int... Ps>
+struct LnPasses {
+  static int bucket(int C) {
+    constexpr int pairs[] = {Ps...};
+    int i = 0;
+    while (i + 1 < static_cast<int>(sizeof...(Ps)) && 64 * pairs[i] < C) ++i;
+    return i;
   }
-}
+  static int rows(const void* x, const float* scale, const float* bias, void* y, float* mean,
+                  float* rstd, int R, int C, cudaStream_t s) {
+    constexpr decltype(&launch_ln_rows<2>) fns[] = {launch_ln_rows<Ps>...};
+    return fns[bucket(C)](x, scale, bias, y, mean, rstd, R, C, s);
+  }
+  static int bwd(const void* dy, const void* x, const void* g, const float* scale,
+                 const float* mean, const float* rstd, void* dx, float* part, int R, int C,
+                 cudaStream_t s) {
+    constexpr decltype(&launch_ln_bwd<2>) fns[] = {launch_ln_bwd<Ps>...};
+    return fns[bucket(C)](dy, x, g, scale, mean, rstd, dx, part, R, C, s);
+  }
+};
+using Ln = LnPasses<2, 4, 6, 8, 12, 16, 20, 24, 28, 32>;
 
 }  // namespace
 
@@ -958,8 +1034,8 @@ extern "C" int fused_mlp_sm90_fwd(const void* x, const void* scale, const void* 
   int err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = ln_rows(x, static_cast<const float*>(scale), static_cast<const float*>(bias), y,
-                nullptr, nullptr, R, C, s);
+  err = Ln::rows(x, static_cast<const float*>(scale), static_cast<const float*>(bias), y,
+                 nullptr, nullptr, R, C, s);
   if (err != cudaSuccess) return err;
   const Shape sh = shape_of(C, Hd);
   const int bm = 64 * sh.w;
@@ -986,7 +1062,7 @@ template <int EXACT>
 int launch_dual(const CUtensorMap& y, const CUtensorMap& g, const CUtensorMap& w1,
                 const CUtensorMap& w2, const Dual& d, cudaStream_t s) {
   using L = Ring<4 * kTileA>;
-  const size_t smem = L::kSmem + 8 * 128 * 4;
+  const size_t smem = L::kSmem + (8 + 1) * 128 * 4;
   const int err = allow_smem(dual_kernel<EXACT>, smem);
   if (err != cudaSuccess) return err;
   dual_kernel<EXACT><<<std::min(d.tiles, sm_count()), kThreads, smem, s>>>(y, g, w1, w2, d);
@@ -1022,7 +1098,7 @@ extern "C" int fused_mlp_sm90_bwd(const void* x, const void* scale, const void* 
   const Shape sh = shape_of(C, Hd);
   const int bm = 64 * sh.w;
 
-  err = ln_rows(x, sc, static_cast<const float*>(bias), y, mean, rstd, R, C, s);
+  err = Ln::rows(x, sc, static_cast<const float*>(bias), y, mean, rstd, R, C, s);
   if (err != cudaSuccess) return err;
 
   CUtensorMap y128, g128, w1_128, w2_64, du_bm, w1_64, du64, y64, g64, h64;
@@ -1039,10 +1115,11 @@ extern "C" int fused_mlp_sm90_bwd(const void* x, const void* scale, const void* 
   if (err != cudaSuccess) return err;
 
   Dual d{};  // u and dh -> h, du, db1's partials
-  d.tiles_n = Hd / 128;
+  d.tiles_n = ceil_div(Hd, 128);
   d.tiles = w.m_tiles * d.tiles_n;
-  d.steps = C / kBK;
+  d.steps = ceil_div(C, kBK);
   d.rows = R;
+  d.hd = Hd;
   d.b1 = static_cast<const float*>(b1);
   d.h = reinterpret_cast<bf16*>(h);
   d.du = reinterpret_cast<bf16*>(du);
@@ -1056,15 +1133,15 @@ extern "C" int fused_mlp_sm90_bwd(const void* x, const void* scale, const void* 
   err = launch_shape<0, 1, kRoundOut>(sh, du_bm, w1_64, du_bm, w1_64, g3, s);
   if (err != cudaSuccess) return err;
 
-  err = ln_bwd(dy, x, dout, sc, mean, rstd, dx, pln, R, C, s);
+  err = Ln::bwd(dy, x, dout, sc, mean, rstd, dx, pln, R, C, s);
   if (err != cudaSuccess) return err;
 
   Gemm g5{};  // dW1^T = du^T y (Hd x C), dW2^T = g^T h (C x Hd), split over rows
-  g5.tiles_n[0] = C / sh.bn;
+  g5.tiles_n[0] = ceil_div(C, sh.bn);
   g5.tiles[0] = ceil_div(Hd, bm) * g5.tiles_n[0];
   g5.m[0] = Hd;
   g5.n[0] = C;
-  g5.tiles_n[1] = Hd / sh.bn;
+  g5.tiles_n[1] = ceil_div(Hd, sh.bn);
   g5.tiles[1] = ceil_div(C, bm) * g5.tiles_n[1];
   g5.m[1] = C;
   g5.n[1] = Hd;

@@ -69,12 +69,6 @@ __all__ = ["TopDownPredictor", "derive_bucket_ladder", "load_predictor", "main",
            "tuned_bucket_ladder", "tuned_serving_batch"]
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP item {item})"
-    )
-
-
 def _mesh_model(model: ProbPoseModel, mesh: Any) -> ProbPoseModel:
     """A copy of a single-device model on `mesh`, as JAX's predictor
     re-clones its model (inference.py:247-296 there): on a model axis > 1,

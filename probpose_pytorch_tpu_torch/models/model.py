@@ -5,9 +5,9 @@ probpose_pytorch_tpu/models/model.py).
 block of any configs/*.json loads as `ModelConfig(**block)`. The trunk is
 a ViT, or with `backbone="conv-s"` / `"conv-t"` the residual conv family
 (models/convnet.py). The head is `head_type`'s: the ProbMap heatmap head
-or the SimCC coordinate classifier (models/simcc.py). `build_model`
-raises `NotImplementedError` for the values this port does not run yet,
-naming the ROADMAP item that ports each (`ModelConfig.check_ported`).
+or the SimCC coordinate classifier (models/simcc.py). Every option of
+the JAX config runs; `build_model` raises `ValueError` for a value that is
+no option or a combination JAX refuses too (`ModelConfig.check_ported`).
 `pp_stages > 1` stacks the ViT's blocks for pipeline parallelism
 (models/vit.py); its weights are drawn as the per-block trunk's.
 

@@ -17,9 +17,10 @@
                    products over the OKS operators' band, strips of a map
                    staged once
     mlp.py         K5 fused LayerNorm + MLP + residual, forward and backward:
-                   CUDA C++ with wgmma and TMA in bf16 at the four preset
-                   widths (csrc/fused_mlp_sm90.cu), on the CUDA cores in f32
-                   and at every other width up to C = 2048 (csrc/fused_mlp.cu)
+                   CUDA C++ with wgmma and TMA in bf16 at every C <= 2048
+                   and hidden width <= 8,192 that are multiples of 8
+                   (csrc/fused_mlp_sm90.cu), on the CUDA cores in f32 and at
+                   the other bf16 widths (csrc/fused_mlp.cu)
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor; it never falls back.

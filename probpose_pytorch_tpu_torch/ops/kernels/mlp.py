@@ -8,10 +8,12 @@ csrc/fused_mlp_sm90.cu: wgmma products fed by TMA, with the LayerNorm, the
 biases, GELU and the residual in the products' prologue passes and
 epilogues, and y, h (and, backward, du and dy) in device memory in bf16, the
 values the TPU kernel rounds before its products; the source's note says
-what bounds it and why. It takes C in {384, 768, 1024, 1280} and a hidden
-width that is a multiple of 256. Every other shape up to C = 2048 and a
-hidden width of 8,192, and float32 at every width, runs csrc/fused_mlp.cu on
-the CUDA cores, which rounds in bf16 where the sm90 kernel does.
+what bounds it and why. It takes every C <= 2048 and hidden width <= 8,192
+that are multiples of 8 (`wgmma_mlp_width`: TMA's 16-byte row strides;
+ragged tiles and contraction stages read zeros). float32 at every width,
+and bf16 at widths that are not multiples of 8, run csrc/fused_mlp.cu on the
+CUDA cores, which rounds in bf16 where the sm90 kernel does (wgmma has no
+f32 x f32 product: tf32 would change the f32 results).
 `mlp_route(C, hidden, dtype)` names the kernel, a pure function of the
 shape, as JAX's `fused_ln_mlp` takes any (R, C) and hidden width.
 
@@ -61,15 +63,18 @@ __all__ = [
     "fused_ln_mlp_bwd_kernel_order_reference",
     "mlp_workspace_bytes",
     "mlp_route",
+    "wgmma_mlp_width",
     "SUPPORTED_WIDTHS",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Widths of the bf16 wgmma kernels (csrc/fused_mlp_sm90.cu), with a hidden
-# width that is a multiple of 256.
+# The widths the bf16 wgmma kernels (csrc/fused_mlp_sm90.cu) took first, with
+# a hidden width that is a multiple of 256: their tiles and bits stay as they
+# were when every multiple of 8 was opened.
 SUPPORTED_WIDTHS = (384, 768, 1024, 1280)
-# The CUDA-core kernels' limits (csrc/fused_mlp.cu): eight 256-column
-# output slices a thread, and the hidden widths they were checked at.
+# The kernels' limits (csrc/fused_mlp.cu, fused_mlp_sm90.cu): the CUDA
+# cores' eight 256-column output slices a thread, and the hidden widths
+# they were checked at.
 MAX_C = 2048
 MAX_HIDDEN = 8192
 # mlp_route's answers.
@@ -176,12 +181,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _pad(n: int, to: int) -> int:
+    return _cdiv(n, to) * to
+
+
 def _shape(C: int, Hd: int) -> tuple[int, int]:
     """(consumer warpgroups, tile width) of the GEMM blocks: 3 and 192 (tiles
-    of 192 x 192) where 192 divides C and Hd, else 2 and 256 or 128."""
-    if C % 192 == 0 and Hd % 192 == 0:
-        return 3, 192
-    return 2, 256 if C % 256 == 0 else 128
+    of 192 x 192), or 2 and 256 or 128 (128 rows), whichever pads the least
+    multiply-adds over u = y W1, o = h W2, dy = du W1^T, dW1^T and dW2^T (the
+    tiles' output and the 64-column stages' depth), the first on a tie."""
+    def work(bm: int, bn: int) -> int:
+        return (_pad(Hd, bn) * _pad(C, _BK) + 2 * _pad(C, bn) * _pad(Hd, _BK)
+                + _pad(Hd, bm) * _pad(C, bn) + _pad(C, bm) * _pad(Hd, bn))
+
+    return min(((3, 192), (2, 256), (2, 128)), key=lambda s: work(64 * s[0], s[1]))
 
 
 def _split_k(R: int, tiles: int) -> tuple[int, int]:
@@ -199,13 +212,20 @@ def _split_k(R: int, tiles: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
+def wgmma_mlp_width(C: int, Hd: int, dtype: torch.dtype) -> bool:
+    """Whether the bf16 wgmma kernels take width C and hidden width Hd:
+    bf16, both multiples of 8, within MAX_C and MAX_HIDDEN."""
+    return (dtype == torch.bfloat16 and 0 < C <= MAX_C and 0 < Hd <= MAX_HIDDEN
+            and C % 8 == 0 and Hd % 8 == 0)
+
+
 def mlp_route(C: int, Hd: int, dtype: torch.dtype) -> str:
     """The kernel that serves K5 at width C and hidden width Hd in `dtype`:
-    "sm90" (bf16, C in SUPPORTED_WIDTHS, Hd a multiple of 256), else "CUDA
-    cores" up to C = MAX_C and Hd = MAX_HIDDEN, else "no kernel (C=..,
-    hidden=..)", which raises on the card (the CPU computes the plain
-    version)."""
-    if dtype == torch.bfloat16 and C in SUPPORTED_WIDTHS and Hd > 0 and Hd % 256 == 0:
+    "sm90" where `wgmma_mlp_width`, else "CUDA cores" up to C = MAX_C and
+    Hd = MAX_HIDDEN (f32; bf16 widths that are not multiples of 8), else
+    "no kernel (C=.., hidden=..)", which raises on the card (the CPU
+    computes the plain version)."""
+    if wgmma_mlp_width(C, Hd, dtype):
         return MLP_SM90
     if 1 <= C <= MAX_C and 1 <= Hd <= MAX_HIDDEN:
         return MLP_CUDA_CORES
@@ -247,7 +267,7 @@ def mlp_workspace_bytes(R: int, C: int, Hd: int, dtype: torch.dtype = torch.bflo
     if route == MLP_CUDA_CORES:
         return _cc_workspace_bytes(R, C, Hd)
     w, bn = _shape(C, Hd)
-    tiles = _cdiv(Hd, 64 * w) * (C // bn) + _cdiv(C, 64 * w) * (Hd // bn)
+    tiles = _cdiv(Hd, 64 * w) * _cdiv(C, bn) + _cdiv(C, 64 * w) * _cdiv(Hd, bn)
     splits, _ = _split_k(R, tiles)
     sizes = (R * C * 2, R * Hd * 2, R * Hd * 2, R * C * 2, R * 4, R * 4,
              3 * _cdiv(R, _LN_ROWS) * C * 4, _cdiv(R, _BM) * Hd * 4, splits * 2 * C * Hd * 4)

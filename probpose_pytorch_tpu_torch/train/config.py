@@ -1,10 +1,10 @@
 """Training configuration (port of probpose_pytorch_tpu/train/config.py).
 
 The dataclasses take every key of the JAX ones, so every configs/*.json
-loads with the same field values as the JAX `TrainConfig.load`. Values this
-port does not run yet load all the same; they raise `NotImplementedError`,
-naming their ROADMAP item, where they would take effect (train/loop.py,
-train/cli.py, models/model.py, data/coco.py).
+loads with the same field values as the JAX `TrainConfig.load`, and every
+option of the JAX config runs. A value that is no option raises
+`ValueError` where it would take effect (`ModelConfig.check_ported` in
+models/model.py, train/loop.py, train/cli.py, data/mixed.py), as JAX's does.
 """
 
 from __future__ import annotations

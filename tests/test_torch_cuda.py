@@ -526,6 +526,51 @@ def test_fused_ln_mlp_kernels_at_other_hidden_widths(cuda_device, C, hidden):
         assert max_err(got, twin) <= 2 * 2**-8 * twin.float().abs().max().item(), name
 
 
+# bf16 widths the wgmma kernels took when every multiple of 8 was opened:
+# vit-nano's, ragged tails on every tile (72 / 200), ViT-L/16-like 576 x 4,
+# ViT-g/14's (1408, 6144), P19_MLP's widest, and up to the limits.
+WGMMA_MLP_WIDTHS = ((64, 128), (72, 200), (192, 768), (576, 2304), (1408, 6144), (1536, 6144),
+                    (1664, 8192), (2048, 8192))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["tanh", "erf"])
+@pytest.mark.parametrize("R", [1, 97, 393, 12288])
+@pytest.mark.parametrize("C,hidden", WGMMA_MLP_WIDTHS)
+def test_fused_ln_mlp_wgmma_at_every_multiple_of_8(cuda_device, C, hidden, R, exact):
+    """bf16 K5 on the wgmma kernels at widths past the presets: the forward
+    within K1's bound of the plain version, the seven cotangents within
+    phase 7's bound of the plain backward and two bf16 ulps of the
+    kernel-order twin, the same bits twice, and the backward's scratch as
+    the library counts it."""
+    from probpose_pytorch_tpu_torch.ops.kernels.mlp import _lib
+
+    assert mlp_route(C, hidden, torch.bfloat16) == "sm90"
+    assert _lib().fused_mlp_bwd_workspace_bytes(R, C, hidden) == mlp_workspace_bytes(R, C, hidden)
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    args = mlp_args(g, R, C, torch.bfloat16, cuda_device, hidden)
+    f0, b0 = fused_ln_mlp.launches, fused_ln_mlp_backward.launches
+    out = fused_ln_mlp(*args, exact)
+    again = fused_ln_mlp(*args, exact)
+    ref = fused_ln_mlp_reference(*args, exact)
+    assert torch.equal(out, again)
+    assert max_err(out, ref) <= bound(ref)
+    dout = torch.randn(R, C, generator=g, device=cuda_device).to(torch.bfloat16)
+    grads = fused_ln_mlp_backward(*args, dout, exact)
+    rerun = fused_ln_mlp_backward(*args, dout, exact)
+    torch.cuda.synchronize()
+    assert (fused_ln_mlp.launches - f0, fused_ln_mlp_backward.launches - b0) == (2, 2)
+    for name, got, twice, ref, twin, arg in zip(
+            ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, rerun,
+            fused_ln_mlp_bwd_reference(*args, dout, exact),
+            fused_ln_mlp_bwd_kernel_order_reference(*args, dout, exact), args):
+        assert got.dtype == arg.dtype and got.shape == arg.shape, name
+        assert torch.equal(got, twice), name
+        assert torch.isfinite(got).all(), name
+        assert max_err(got, ref) <= grad_bound(ref, torch.bfloat16), name
+        assert max_err(got, twin) <= 2 * 2**-8 * twin.float().abs().max().item(), name
+
+
 @pytest.mark.cuda
 def test_fused_ln_mlp_autograd_on_card(cuda_device):
     """torch.autograd.grad through K5 runs the K5 backward once and gives
@@ -1811,11 +1856,14 @@ def test_k4_cuda_cores_past_256(cuda_device, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("C,hidden", [(64, 128), (200, 600), (576, 2304), (1536, 6144)])
 def test_fused_ln_mlp_cuda_cores_at_other_widths(cuda_device, C, hidden, dtype):
-    """K5 at widths the wgmma kernels do not take (vit-nano's 64 / 128, a C
-    and hidden width with ragged tails, 576, and 1536 past the 16-row
-    tile): forward and the seven cotangents against the plain versions (in
-    bf16 also within two ulps of the kernel-order twin), the same bits
-    twice."""
+    """K5 on its CUDA-core kernels (vit-nano's 64 / 128, a C and hidden
+    width with ragged tails, 576, and 1536 past the 16-row tile) in f32,
+    and in bf16 at C + 4 and hidden + 4, the neighbouring widths that are
+    not multiples of 8 (the bf16 multiples of 8 are the wgmma kernels'):
+    forward and the seven cotangents against the plain versions (in bf16
+    also within two ulps of the kernel-order twin), the same bits twice."""
+    if dtype == torch.bfloat16:
+        C, hidden = C + 4, hidden + 4
     assert mlp_route(C, hidden, dtype) == "CUDA cores"
     g = torch.Generator(device=cuda_device).manual_seed(60)
     R = 2 * 192 + 9
@@ -1843,11 +1891,12 @@ def test_fused_ln_mlp_cuda_cores_at_other_widths(cuda_device, C, hidden, dtype):
 @pytest.mark.parametrize("R", [1, 97, 3 * 192 + 7, 12288])
 def test_cuda_core_mlp_workspace_bytes_match_the_library(cuda_device, R):
     """The Python count of the CUDA-core backward's scratch is the
-    library's, at the 16-row and the 8-row tile."""
+    library's, at the 16-row and the 8-row tile (bf16 at widths that are not
+    multiples of 8)."""
     from probpose_pytorch_tpu_torch.ops.kernels.mlp import _lib
 
-    for C, Hd, dtype in ((64, 128, torch.bfloat16), (200, 600, torch.float32),
-                         (768, 3072, torch.float32), (1536, 6144, torch.bfloat16)):
+    for C, Hd, dtype in ((68, 132, torch.bfloat16), (200, 600, torch.float32),
+                         (768, 3072, torch.float32), (1540, 6148, torch.bfloat16)):
         assert _lib().fused_mlp_cc_bwd_workspace_bytes(R, C, Hd) == \
             mlp_workspace_bytes(R, C, Hd, dtype)
 

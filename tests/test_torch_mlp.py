@@ -39,8 +39,11 @@ from probpose_pytorch_tpu_torch.ops.kernels.mlp import (
     fused_ln_mlp_bwd_kernel_order_reference,
     fused_ln_mlp_bwd_reference,
     fused_ln_mlp_reference,
+    MAX_C,
+    MAX_HIDDEN,
     mlp_route,
     mlp_workspace_bytes,
+    wgmma_mlp_width,
 )
 from probpose_pytorch_tpu_torch.models import vit as port_vit
 from probpose_pytorch_tpu_torch.train.config import TrainConfig
@@ -252,24 +255,87 @@ def test_mlp_workspace_bytes_refuses_other_shapes():
             mlp_workspace_bytes(R, C_, Hd)
 
 
+# The ids are those of the rows' first expected routes: four bf16 rows moved
+# from the CUDA cores to the wgmma kernels when every multiple of 8 was opened.
 @pytest.mark.parametrize("C_,Hd,dtype,route", [
-    (768, 3072, torch.bfloat16, "sm90"),
-    (384, 1280, torch.bfloat16, "sm90"),
-    (768, 3072, torch.float32, "CUDA cores"),
-    (64, 128, torch.bfloat16, "CUDA cores"),    # vit-nano
-    (200, 600, torch.bfloat16, "CUDA cores"),
-    (768, 3000, torch.bfloat16, "CUDA cores"),  # hidden no multiple of 256
-    (512, 2048, torch.bfloat16, "CUDA cores"),
-    (2048, 8192, torch.float32, "CUDA cores"),
-    (2056, 256, torch.bfloat16, "no kernel (C=2056, hidden=256)"),
-    (768, 8200, torch.float32, "no kernel (C=768, hidden=8200)"),
+    pytest.param(768, 3072, torch.bfloat16, "sm90", id="768-3072-dtype0-sm90"),
+    pytest.param(384, 1280, torch.bfloat16, "sm90", id="384-1280-dtype1-sm90"),
+    pytest.param(768, 3072, torch.float32, "CUDA cores", id="768-3072-dtype2-CUDA cores"),
+    # vit-nano
+    pytest.param(64, 128, torch.bfloat16, "sm90", id="64-128-dtype3-CUDA cores"),
+    pytest.param(200, 600, torch.bfloat16, "sm90", id="200-600-dtype4-CUDA cores"),
+    # hidden no multiple of 256
+    pytest.param(768, 3000, torch.bfloat16, "sm90", id="768-3000-dtype5-CUDA cores"),
+    pytest.param(512, 2048, torch.bfloat16, "sm90", id="512-2048-dtype6-CUDA cores"),
+    pytest.param(2048, 8192, torch.float32, "CUDA cores", id="2048-8192-dtype7-CUDA cores"),
+    pytest.param(2056, 256, torch.bfloat16, "no kernel (C=2056, hidden=256)",
+                 id="2056-256-dtype8-no kernel (C=2056, hidden=256)"),
+    pytest.param(768, 8200, torch.float32, "no kernel (C=768, hidden=8200)",
+                 id="768-8200-dtype9-no kernel (C=768, hidden=8200)"),
 ])
 def test_mlp_route(C_, Hd, dtype, route):
     """K5's kernel is a pure function of the shape: the wgmma kernels at
-    the four preset widths in bf16, the CUDA cores at every other shape up
-    to C = 2048 and hidden 8,192 (and in f32), as JAX's fused_ln_mlp takes
-    any (R, C) and hidden width."""
+    every bf16 C and hidden width that are multiples of 8 (up to C = 2048
+    and hidden 8,192), the CUDA cores at every other shape up to those
+    limits (and in f32), as JAX's fused_ln_mlp takes any (R, C) and hidden
+    width."""
     assert mlp_route(C_, Hd, dtype) == route
+
+
+def test_mlp_route_at_every_width():
+    """mlp_route at every C from 1 to 2,056 against a spread of hidden
+    widths (multiples of 8 and not, past 8,192 too), in both dtypes: "sm90"
+    exactly where bf16 C and Hd are multiples of 8 within the limits, "CUDA
+    cores" at the other shapes within them, else no kernel."""
+    hiddens = (1, 7, 8, 12, 128, 200, 584, 600, 1000, 3000, 3072, 6144, 6148, 8184, 8192,
+               8196, 8200)
+    for dtype in (torch.bfloat16, torch.float32):
+        for C_ in range(1, 2057):
+            for Hd in hiddens:
+                within = C_ <= MAX_C and Hd <= MAX_HIDDEN
+                wgmma = dtype == torch.bfloat16 and within and C_ % 8 == 0 and Hd % 8 == 0
+                want = ("sm90" if wgmma else "CUDA cores" if within
+                        else f"no kernel (C={C_}, hidden={Hd})")
+                assert wgmma_mlp_width(C_, Hd, dtype) == wgmma, (C_, Hd, dtype)
+                assert mlp_route(C_, Hd, dtype) == want, (C_, Hd, dtype)
+
+
+def test_shape_keeps_the_preset_tiles():
+    """The tile rule (least padded work) gives the tiles the four preset
+    widths had before every multiple of 8 was opened, at every hidden width
+    that is a multiple of 256: 192 x 192 where 192 divides C and Hd, else
+    128 x 256 where 256 divides C, else 128 x 128; ViT-g's 1408 (11 x 128)
+    takes 128 x 128, 1536 192 x 192."""
+    for C_ in SUPPORTED_WIDTHS:
+        for Hd in range(256, MAX_HIDDEN + 1, 256):
+            before = (3, 192) if C_ % 192 == 0 and Hd % 192 == 0 else (
+                2, 256 if C_ % 256 == 0 else 128)
+            assert _shape(C_, Hd) == before, (C_, Hd)
+    assert _shape(1408, 6144) == (2, 128) and _shape(1536, 6144) == (3, 192)
+    assert _shape(2048, 8192) == (2, 256) and _shape(64, 128) == (2, 128)
+
+
+@pytest.mark.parametrize("R", [1, 97, 393, 6144 + 5, 12288 + 5])
+@pytest.mark.parametrize("C_,Hd", [(1408, 6144), (1536, 6144), (72, 200), (2048, 8192),
+                                   (8, 8), (136, 584)])
+def test_mlp_workspace_bytes_at_new_widths(C_, Hd, R):
+    """At widths the wgmma kernels took when every multiple of 8 was opened,
+    at ragged R: 256-byte aligned, at least every buffer's bytes (y, h, du,
+    dy, mean, rstd, the LayerNorm partials (3, ceil(R / 64), C), db1's
+    (ceil(R / 128), Hd), the split partials (splits, 2 C Hd)), tiles that
+    cover the ragged columns, and a split whose chunks cover the rows."""
+    w, bn = _shape(C_, Hd)
+    bm = 64 * w
+    tiles = -(-Hd // bm) * -(-C_ // bn) + -(-C_ // bm) * -(-Hd // bn)
+    assert (-(-Hd // bm) * bm >= Hd and -(-C_ // bn) * bn >= C_ and -(-C_ // bm) * bm >= C_
+            and -(-Hd // bn) * bn >= Hd)
+    splits, chunk = _split_k(R, tiles)
+    steps = -(-R // 64)
+    assert (splits - 1) * chunk < steps <= splits * chunk
+    n = mlp_workspace_bytes(R, C_, Hd)
+    raw = (2 * R * C_ * 2 + 2 * R * Hd * 2 + 2 * R * 4 + 3 * (-(-R // 64)) * C_ * 4
+           + (-(-R // 128)) * Hd * 4 + splits * 2 * C_ * Hd * 4)
+    assert n % 256 == 0 and raw <= n < raw + 9 * 256
 
 
 @pytest.mark.parametrize("R", [1, 15, 17, 1023, 1025])
@@ -277,27 +343,32 @@ def test_cuda_core_workspace_bytes(R):
     """The CUDA-core backward's scratch (csrc/fused_mlp.cu, `workspace`; the
     card test holds it to the library's): y and g padded to the row tile
     (16 rows, 8 past C = 1280), the tiles' (3, C) partials and the
-    1,024-row chunks' dW1, dW2 and db1 partials, each 256-byte aligned."""
+    1,024-row chunks' dW1, dW2 and db1 partials, each 256-byte aligned; in
+    f32, and in bf16 at the neighbouring widths that are not multiples of 8
+    (the bf16 multiples of 8 are the wgmma kernels')."""
     al = lambda n: -(-n // 256) * 256
     for C_, Hd, fr in ((64, 128, 16), (200, 600, 16), (1536, 6144, 8)):
-        rpad = -(-R // fr) * fr
-        chunks = -(-rpad // 1024)
-        want = (2 * al(rpad * C_ * 4) + al(3 * (rpad // fr) * C_ * 4)
-                + 2 * al(chunks * Hd * C_ * 4) + al(chunks * Hd * 4))
-        for dtype in (torch.bfloat16, torch.float32):
-            assert mlp_workspace_bytes(R, C_, Hd, dtype) == want, (C_, R)
+        for dtype, c, hd in ((torch.float32, C_, Hd), (torch.bfloat16, C_ + 4, Hd + 4)):
+            rpad = -(-R // fr) * fr
+            chunks = -(-rpad // 1024)
+            want = (2 * al(rpad * c * 4) + al(3 * (rpad // fr) * c * 4)
+                    + 2 * al(chunks * hd * c * 4) + al(chunks * hd * 4))
+            assert mlp_route(c, hd, dtype) == "CUDA cores"
+            assert mlp_workspace_bytes(R, c, hd, dtype) == want, (c, R)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,width,hidden", [(130, 64, 128), (77, 200, 600)])
+@pytest.mark.parametrize("R,width,hidden", [(130, 64, 128), (77, 200, 600), (77, 72, 200),
+                                            (77, 136, 584)])
 def test_other_widths_match_pallas(R, width, hidden, dtype):
-    """At widths only the CUDA-core kernels take (vit-nano's 64 / 128; 200 /
-    600, whose tails are ragged on every tile), JAX's fused_ln_mlp in
-    interpret mode against the port's plain forward and plain backward
-    (f32 1e-5 and 1e-4, bf16 one ulp, as above) and the kernel-order twin
-    (four bf16 ulps, the twin's bound above; equal to the plain backward in
-    f32)."""
-    assert mlp_route(width, hidden, getattr(torch, dtype)) == "CUDA cores"
+    """At widths other than the presets (vit-nano's 64 / 128; 200 / 600,
+    whose tails are ragged on every tile: the wgmma kernels' in bf16, the
+    CUDA cores' in f32), JAX's fused_ln_mlp in interpret mode against the
+    port's plain forward and plain backward (f32 1e-5 and 1e-4, bf16 one
+    ulp, as above) and the kernel-order twin (four bf16 ulps, the twin's
+    bound above; equal to the plain backward in f32)."""
+    assert mlp_route(width, hidden, getattr(torch, dtype)) == (
+        "sm90" if dtype == "bfloat16" else "CUDA cores")
     args = _args(10, R, dtype, width, hidden)
     jargs = _jax_args(args, dtype)
     targs = _torch_args(args, dtype)
@@ -496,11 +567,12 @@ def test_lora_with_fused_mlp_is_refused_like_jax():
 
 def test_vit_nano_fused_mlp_matches_jax():
     """vit-nano (C = 64, hidden 128) with mlp_impl="fused": on the card K5's
-    CUDA-core kernels take it; on the CPU the port's plain version against
-    JAX's model, whose CPU path is its dense block, the same function
-    (test_torch_models.py's bar)."""
+    wgmma kernels take it in bf16 (the CUDA cores in f32); on the CPU the
+    port's plain version against JAX's model, whose CPU path is its dense
+    block, the same function (test_torch_models.py's bar)."""
     cfg = dict(TINY_CFG, backbone="vit-nano", mlp_impl="fused")
-    assert mlp_route(64, 128, torch.bfloat16) == "CUDA cores"
+    assert mlp_route(64, 128, torch.bfloat16) == "sm90"
+    assert mlp_route(64, 128, torch.float32) == "CUDA cores"
     jm, variables, pm = init_pair(cfg, seed=4)
     assert pm.backbone.blocks[0].mlp_impl == "fused"
     x = _images(8)

@@ -32,6 +32,7 @@ import functools
 import io
 import json
 import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -73,6 +74,10 @@ MODEL = dict(img_size=(64, 48), num_keypoints=5, backbone="vit-tiny-pp",
              deconv_kernel_sizes=(4, 4), pool_sizes=((2, 2), (2, 2)), normalize=1.0)
 SPE = 4
 WORLD = 4
+# The world fixture's wait for JAX's CLI thread, from its start: past it
+# the fixture raises (the thread is a daemon), and the ranks' own deadline
+# (tests/torch_mp_worker.py) is counted from there.
+CLI_DEADLINE_S = 600.0
 
 
 class StandIn:
@@ -402,14 +407,17 @@ def world(tmp_path_factory):
                                               "scenarios": scenarios}))
     handle = start_world(job, WORLD)
     # JAX's CLI run beside the other references (it compiles while they run)
-    cli_thread = threading.Thread(target=refs["cli"].pop("finish"))
+    cli_thread = threading.Thread(target=refs["cli"].pop("finish"), daemon=True)
+    cli_deadline = time.monotonic() + CLI_DEADLINE_S
     cli_thread.start()
     try:
         for ref in refs.values():
             ref.pop("finish", lambda: None)()
     finally:
-        cli_thread.join()
+        cli_thread.join(timeout=max(1.0, cli_deadline - time.monotonic()))
         wait_world(handle)
+    if cli_thread.is_alive():
+        raise RuntimeError(f"JAX's training CLI did not end within {CLI_DEADLINE_S:.0f} s")
     return SimpleNamespace(job=job, refs=refs, size=WORLD, cases=cases)
 
 
